@@ -27,9 +27,28 @@ Phases, each printing its own lines:
      time per launch on the main path are printed beside them;
   4. output checks: finite outputs of the expected shapes, masks at the
      original resolution, and a small-input run of the tiny test config on
-     the card held against the same model in fp32 on the CPU.
+     the card held against the same model in fp32 on the CPU;
+  5. [video] the tracker path at full width: build_efficientsam3_video_model
+     (EV-M b1 with the SAM2 neck, TrackerCore at 1008^2: 72x72 tokens,
+     d_model 256, 7 memories, 16 pointers, 4 memory-attention layers), bf16,
+     seed 0, 12 synthetic 1008x1008 frames, TrackerPredictor with 8 object
+     slots. Session A (the cached bank, the default): 3 objects prompted on
+     frame 0 (a box, a click, a click pair), then propagate_in_video over all
+     12 frames; per tracked frame flash_sdpa (d=256) 4, flash_memattn 4,
+     layer_norm 13 and depthwise_conv2d 2 launches, flash_xattn_rpb 0.
+     Session B (the plain path): the same objects plus a 4th added by
+     add_new_mask on frame 6, whose memory frames differ from the others',
+     propagated from frame 6; per tracked frame flash_sdpa 8 (4 self, 4
+     cross over 36352 keys), flash_memattn 0. Counters are set to 0 just
+     before each propagate and read just after. Frame encode, a prompted
+     frame, a tracked frame of each session, the whole propagation and the
+     peak memory are timed; torch.profiler splits one tracked frame of
+     session A by kernel. The three tracker kernels are held against their
+     plain versions on the inputs of their largest launch in session A (and
+     flash_sdpa d=256 also on session B's cross-attention) and timed as in
+     phase 3; the tiny tracker runs bf16 on the card against fp32 on the CPU.
 
-The line before the last is the kernels JSON, the last
+The line before the last is the kernels JSON (six rows), the last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -51,6 +70,14 @@ PEAK_SFU = 132 * 16 * 1.98e9  # exponentials/s: 16 per SM per clock at 1.98 GHz
 
 ATOL = RTOL = 1e-2  # kernel vs plain, bf16 outputs: about one bf16 ulp (2^-7 relative)
 MAIN_COUNTS = {"layer_norm": 27, "flash_sdpa": 6, "flash_xattn_rpb": 6}
+# per tracked frame on the tracker's two paths
+VIDEO_COUNTS = {
+    "A": {"flash_sdpa": 4, "flash_memattn": 4, "layer_norm": 13, "depthwise_conv2d": 2,
+          "flash_xattn_rpb": 0},
+    "B": {"flash_sdpa": 8, "flash_memattn": 0, "layer_norm": 13, "depthwise_conv2d": 2,
+          "flash_xattn_rpb": 0},
+}
+N_FRAMES = 12
 
 
 def log(*a):
@@ -144,9 +171,11 @@ def profile_kernels(fn):
 
 
 class Capture:
-    """Record, per kernel wrapper, the arguments of its largest call (by the
-    first tensor's size) as the model modules make it, without changing
-    what runs."""
+    """Record, per kernel wrapper and head dim (the first tensor's last
+    axis), the arguments of its largest call (by the sizes of the first two
+    tensors; the latest of equal calls, so a tracked video's last, fullest
+    memory bank) as the model modules make it, without changing what runs:
+    args[(name, d)] = (args, kwargs)."""
 
     def __init__(self, modules):
         self.modules = modules  # [(module, attribute name), ...]
@@ -154,13 +183,17 @@ class Capture:
         self.saved = []
 
     def __enter__(self):
+        def size(a):
+            return sum(t.numel() for t in a[:2])
+
         for mod, name in self.modules:
             orig = getattr(mod, name)
 
             def wrapped(*a, orig_=orig, name_=name, **kw):
-                prev = self.args.get(name_)
-                if prev is None or a[0].numel() > prev[0][0].numel():
-                    self.args[name_] = (a, kw)
+                key = (name_, a[0].shape[-1])
+                prev = self.args.get(key)
+                if prev is None or size(a) >= size(prev[0]):
+                    self.args[key] = (a, kw)
                 return orig_(*a, **kw)
 
             self.saved.append((mod, name, orig))
@@ -170,6 +203,35 @@ class Capture:
     def __exit__(self, *exc):
         for mod, name, orig in self.saved:
             setattr(mod, name, orig)
+
+
+def bound(nbytes, mma_flops=0.0, exps=0.0, fp32_ops=0.0):
+    """(least ms the card could take, "bytes" or "operations")."""
+    parts = {"bytes": nbytes / PEAK_BYTES,
+             "operations": max(mma_flops / PEAK_BF16, exps / PEAK_SFU, fp32_ops / PEAK_FP32)}
+    by = max(parts, key=parts.get)
+    return parts[by] * 1e3, by
+
+
+def check(name, got, want):
+    """Max abs error of a kernel against its plain version; raises past the
+    stated tolerance."""
+    import torch
+
+    err = (got.float() - want.float()).abs().max().item()
+    ok = bool(torch.allclose(got.float(), want.float(), atol=ATOL, rtol=RTOL))
+    log(f"[kernel] {name}: max|kernel - plain| = {err:.3e} "
+        f"(atol {ATOL}, rtol {RTOL}) -> {'pass' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return err
+
+
+def log_row(r, smi):
+    log(f"[kernel] {r['name']}: {r['ms']:.4f} ms in a CUDA graph | {r['call_ms']:.4f} ms "
+        f"per call from the host | profiler {r['device_ms']} ms | plain {r['plain_ms']:.4f} ms | "
+        f"library {r['library_ms']:.4f} ms | bound {r['bound_ms']:.4f} ms ({r['bound_by']}) "
+        f"| {r['launches']} launches | {r['shape']} | {smi}")
 
 
 def main():
@@ -300,23 +362,8 @@ def main():
     # ---------------------------------------------------------------- 3
     rows = []
 
-    def bound(nbytes, mma_flops=0.0, exps=0.0, fp32_ops=0.0):
-        parts = {"bytes": nbytes / PEAK_BYTES,
-                 "operations": max(mma_flops / PEAK_BF16, exps / PEAK_SFU, fp32_ops / PEAK_FP32)}
-        by = max(parts, key=parts.get)
-        return parts[by] * 1e3, by
-
-    def check(name, got, want):
-        err = (got.float() - want.float()).abs().max().item()
-        ok = bool(torch.allclose(got.float(), want.float(), atol=ATOL, rtol=RTOL))
-        log(f"[kernel] {name}: max|kernel - plain| = {err:.3e} "
-            f"(atol {ATOL}, rtol {RTOL}) -> {'pass' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"{name} disagrees with its plain version")
-        return err
-
     # flash_sdpa at the fusion-encoder self-attention
-    (q, k, v, key_bias, scale), _ = capture.args["flash_sdpa"]
+    (q, k, v, key_bias, scale), _ = capture.args[("flash_sdpa", 32)]
     b, h, lq, d = q.shape
     lk = k.shape[2]
     got = fa.flash_sdpa(q, k, v, key_bias, scale)
@@ -344,7 +391,7 @@ def main():
     ))
 
     # flash_xattn_rpb at the decoder's image cross-attention
-    (q, k, v, ey, ex, feat_hw, scale), _ = capture.args["flash_xattn_rpb"]
+    (q, k, v, ey, ex, feat_hw, scale), _ = capture.args[("flash_xattn_rpb", 32)]
     b, h, lq, d = q.shape
     lk = k.shape[2]
     got = fa.flash_xattn_rpb(q, k, v, ey, ex, feat_hw, scale)
@@ -370,7 +417,7 @@ def main():
     ))
 
     # layer_norm at the fusion encoder's (5184, 256) norms
-    (x, wt, bs, eps, out_dtype), _ = capture.args["layer_norm"]
+    (x, wt, bs, eps, out_dtype), _ = capture.args[("layer_norm", 256)]
     got = ln.layer_norm(x, wt, bs, eps, out_dtype)
     wt_x, bs_x = wt.to(x.dtype), bs.to(x.dtype)
     err = check("layer_norm", got, ln.layer_norm_plain(x, wt, bs, eps, out_dtype))
@@ -392,10 +439,7 @@ def main():
         # per-launch device time on the main path (profiler), beside the
         # CUDA-event time per wrapper call, which includes the host's launch
         r["device_ms"] = device_ms.get(r["name"])
-        log(f"[kernel] {r['name']}: {r['ms']:.4f} ms in a CUDA graph | {r['call_ms']:.4f} ms "
-            f"per call from the host | profiler {r['device_ms']} ms | plain {r['plain_ms']:.4f} ms | "
-            f"library {r['library_ms']:.4f} ms | bound {r['bound_ms']:.4f} ms ({r['bound_by']}) "
-            f"| {r['launches']} launches | {r['shape']} | {smi}")
+        log_row(r, smi)
 
     # ---------------------------------------------------------------- 4
     with torch.inference_mode():
@@ -437,12 +481,329 @@ def main():
         if not errs[key] <= tol:
             raise AssertionError(f"tiny config on the card: {key} off by {errs[key]} (tol {tol})")
     log(f"[check] tiny config, bf16 on the card vs fp32 on the CPU: max abs err {errs}")
+    del model, proc, feats, state, capture, ref_model, gpu_model
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 5
+    rows += video_phase(smi, rng)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def video_phase(smi, rng):
+    """Phase 5: the tracker at full width; returns the three kernel rows."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from efficientsam3_tpu_torch.build import build_efficientsam3_video_model
+    from efficientsam3_tpu_torch.models import common, memory_encoder
+    from efficientsam3_tpu_torch.ops import depthwise as dw
+    from efficientsam3_tpu_torch.ops import flash_attention as fa
+    from efficientsam3_tpu_torch.ops import layer_norm as ln
+    from efficientsam3_tpu_torch.video.predictor import TrackerPredictor
+
+    dev = torch.device("cuda")
+    wrappers = {"flash_sdpa": fa.flash_sdpa, "flash_memattn": fa.flash_memattn,
+                "layer_norm": ln.layer_norm, "depthwise_conv2d": dw.depthwise_conv2d,
+                "flash_xattn_rpb": fa.flash_xattn_rpb}
+
+    def reset():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def counts():
+        return {k: w.launches for k, w in wrappers.items()}
+
+    def events():
+        return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def timed(fn):
+        t0, t1 = events()
+        t0.record()
+        out = fn()
+        t1.record()
+        t1.synchronize()
+        return out, t0.elapsed_time(t1)
+
+    image, core = build_efficientsam3_video_model(model_name="b1", dtype=torch.bfloat16,
+                                                  device=dev, seed=0)
+    frames = np.random.default_rng(7).standard_normal((N_FRAMES, 1008, 1008, 3)).astype(np.float32)
+    mask6 = np.zeros((1008, 1008), bool)
+    mask6[600:800, 150:420] = True
+
+    def predictor():
+        return TrackerPredictor(core, image.encode_image, obj_slots=8)
+
+    def prompt(pred, state):
+        ms = []
+        for obj_id, kw in ((1, dict(box=[100, 150, 400, 520])),
+                           (2, dict(points=[[700, 300]], labels=[1])),
+                           (3, dict(points=[[500, 800], [560, 760]], labels=[1, 0]))):
+            _, ms_one = timed(lambda: pred.add_new_points_or_box(state, 0, obj_id, **kw))
+            ms.append(ms_one)
+        return ms
+
+    def propagate(pred, state, start=None):
+        return [(t, m.float()) for t, _, m in pred.propagate_in_video(state, start)]
+
+    def check_outputs(outs, n_obj, what):
+        for t, m in outs:
+            if tuple(m.shape) != (n_obj, 1, 288, 288) or not torch.isfinite(m).all():
+                raise AssertionError(f"{what} frame {t}: masks {tuple(m.shape)} or non-finite")
+
+    # ---- session A: the cached bank (the default), counted and captured
+    torch.cuda.reset_peak_memory_stats()
+    pred_a = predictor()
+    st_a = pred_a.init_state(frames)
+    prompt_ms = prompt(pred_a, st_a)
+    capture = Capture([(common, "flash_sdpa"), (common, "flash_memattn"),
+                       (memory_encoder, "depthwise_conv2d")])
+    reset()
+    with capture:
+        outs_a = propagate(pred_a, st_a)
+    torch.cuda.synchronize()
+    launches_a = counts()
+    peak_a = torch.cuda.max_memory_allocated() / 2**30
+    check_outputs(outs_a, 3, "session A")
+    tracked = N_FRAMES - 1
+    log(f"[video] session A (cached bank): launches over {tracked} tracked frames {launches_a}")
+    for k, per in VIDEO_COUNTS["A"].items():
+        if launches_a[k] != per * tracked:
+            raise AssertionError(f"session A: {k} {launches_a[k]} launches, want {per} x {tracked}")
+    if "kv_bank" not in st_a:
+        raise AssertionError("session A did not build the cached bank")
+    # a second session, warm: the whole 12-frame propagation timed
+    st_a2 = pred_a.init_state(frames)
+    prompt(pred_a, st_a2)
+    outs_a2, prop_ms = timed(lambda: propagate(pred_a, st_a2))
+    for (t, m1), (_, m2) in zip(outs_a, outs_a2):
+        if not torch.equal(m1, m2):
+            raise AssertionError(f"session A is not deterministic at frame {t}")
+
+    def track_frame(pred, state):
+        """One more tracked frame at the last frame (its memory is in place)."""
+        with torch.inference_mode():
+            return pred._run_track_frame(state, N_FRAMES - 1)
+
+    img = torch.as_tensor(frames[0], device=dev)[None]
+    with torch.inference_mode():
+        enc_ms = cuda_time(lambda: image.encode_image(img), 10)
+    track_a_ms = cuda_time(lambda: track_frame(pred_a, st_a), 5, warmup=1)
+
+    # ---- session B: a 4th object by add_new_mask -> the plain path
+    pred_b = predictor()
+    st_b = pred_b.init_state(frames)
+    st_b["feat_cache"] = st_a["feat_cache"]  # the frames' features, encoded once
+    prompt(pred_b, st_b)
+    _, mask_ms = timed(lambda: pred_b.add_new_mask(st_b, 6, 4, mask6))
+    capture_b = Capture([(common, "flash_sdpa")])
+    reset()
+    with capture_b:
+        outs_b = propagate(pred_b, st_b, 6)
+    torch.cuda.synchronize()
+    launches_b = counts()
+    check_outputs(outs_b, 4, "session B")
+    tracked_b = N_FRAMES - 1 - 6
+    log(f"[video] session B (plain path): launches over {tracked_b} tracked frames {launches_b}")
+    for k, per in VIDEO_COUNTS["B"].items():
+        if launches_b[k] != per * tracked_b:
+            raise AssertionError(f"session B: {k} {launches_b[k]} launches, want {per} x {tracked_b}")
+    track_b_ms = cuda_time(lambda: track_frame(pred_b, st_b), 3, warmup=1)
+    log(f"[video] frame encode {enc_ms:.3f} ms | prompted frame (3 prompts on frame 0: "
+        f"{', '.join(f'{x:.3f}' for x in prompt_ms)} ms, the first with the frame encode) | "
+        f"add_new_mask {mask_ms:.3f} ms | tracked frame A (cached) {track_a_ms:.3f} ms | "
+        f"tracked frame B (plain) {track_b_ms:.3f} ms | whole {N_FRAMES}-frame propagation "
+        f"(A, warm) {prop_ms:.3f} ms | peak memory (session A) {peak_a:.2f} GiB | {smi}")
+
+    # ---- one tracked frame of session A under the profiler
+    kernels, n_launch, total_us = profile_kernels(lambda: track_frame(pred_a, st_a))
+    device_ms = {}
+    if total_us == 0:
+        log("[profile] tracked frame: the profiler recorded no device time: not measured")
+    else:
+        busy = total_us / 1e3 / track_a_ms
+        log(f"[profile] tracked frame (A): {n_launch} kernel launches, {total_us / 1e3:.3f} ms of "
+            f"device time in a {track_a_ms:.3f} ms frame: device busy {busy:.1%}, idle {1 - busy:.1%}")
+        for name, us, n in kernels[:10]:
+            log(f"[profile] tracked frame:   {us / 1e3:8.4f} ms  x{n:<4d} {name[:90]}")
+        for name, us, n in kernels:
+            for key, pattern, per in (("flash_sdpa_d256", "flash_qsmem_kernel<256, 256>", 4),
+                                      ("flash_memattn", "flash_qsmem_kernel<256, 64>", 4),
+                                      ("depthwise_conv2d", "dw7_kernel", 2)):
+                if pattern in name:
+                    device_ms[key] = device_ms.get(key, 0.0) + us / 1e3 / per
+        write_out("profile_tracked_frame.txt",
+                  "\n".join(f"{us:12.2f} us  x{n:<5d} {name}" for name, us, n in kernels))
+
+    # ---- the tracker kernels against their plain versions
+    rows = []
+
+    def live_keys(key_bias):
+        return int((key_bias > fa.NEG_INF / 2).sum().item())  # summed over the batch
+
+    # flash_sdpa at d=256: session A's self-attention (3 active slots of 8)
+    (q, k, v, key_bias, scale), _ = capture.args[("flash_sdpa", 256)]
+    b, h, lq, d = q.shape
+    got, lse = fa.flash_sdpa(q, k, v, key_bias, scale, return_lse=True)
+    want, want_lse = fa.flash_sdpa_plain(q, k, v, key_bias, scale, return_lse=True)
+    err = check("flash_sdpa_d256", got, want)
+    lse_err = (lse - want_lse).abs().max().item()
+    if lse_err > 1e-2:
+        raise AssertionError(f"flash_sdpa_d256 lse off by {lse_err}")
+    live = live_keys(key_bias)
+    nb = 2 * (q.numel() + got.numel() + 2 * live * d) + 4 * key_bias.numel()
+    bms, by = bound(nb, 4.0 * h * lq * live * d, 1.0 * h * lq * live, 6.0 * h * lq * live)
+    mask = (key_bias > fa.NEG_INF / 2)[:, None, None, :]
+    rows.append(dict(
+        name="flash_sdpa_d256", route="cuda", source="efficientsam3_tpu_torch/csrc/flash_sdpa.cu",
+        replaces="efficientsam3_tpu/ops/pallas/flash_attention.py:144",
+        launches=launches_a["flash_sdpa"], max_abs_err=err,
+        ms=graph_time(lambda: fa.flash_sdpa(q, k, v, key_bias, scale), 5, 10),
+        call_ms=cuda_time(lambda: fa.flash_sdpa(q, k, v, key_bias, scale), 10),
+        plain_ms=cuda_time(lambda: fa.flash_sdpa_plain(q, k, v, key_bias, scale), 3, warmup=1),
+        bound_ms=bms, bound_by=by,
+        library_ms=graph_time(
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale), 5, 10),
+        device_ms=device_ms.get("flash_sdpa_d256"),
+        shape=f"q/k/v {tuple(q.shape)} bf16, {live} live keys over {b} slots "
+              f"(lse max err {lse_err:.2e})", **{"pass": True}))
+    del q, k, v, got, want, lse, want_lse
+
+    # and session B's plain cross-attention over the 36352-key bank
+    (q, k, v, key_bias, scale), _ = capture_b.args[("flash_sdpa", 256)]
+    got = fa.flash_sdpa(q, k, v, key_bias, scale)
+    err_b = check("flash_sdpa_d256 (plain cross-attention)", got,
+                  fa.flash_sdpa_plain(q, k, v, key_bias, scale))
+    live = live_keys(key_bias)
+    ms_b = graph_time(lambda: fa.flash_sdpa(q, k, v, key_bias, scale), 2, 5)
+    bms_b, by_b = bound(2 * (q.numel() + got.numel() + 2 * live * q.shape[-1]),
+                        4.0 * q.shape[2] * live * q.shape[-1], 1.0 * q.shape[2] * live)
+    log(f"[kernel] flash_sdpa_d256 (session B cross-attention, q {tuple(q.shape)} k "
+        f"{tuple(k.shape)}): {ms_b:.4f} ms in a CUDA graph | bound {bms_b:.4f} ms ({by_b}) | "
+        f"max err {err_b:.3e} | {smi}")
+    del q, k, v, got
+
+    # flash_memattn: session A's bank attention (LSE variant)
+    (q, k, v, key_bias, scale), kw = capture.args[("flash_memattn", 256)]
+    got, lse = fa.flash_memattn(q, k, v, key_bias, scale, return_lse=True)
+    want, want_lse = fa.flash_memattn_plain(q, k, v, key_bias, scale, return_lse=True)
+    err = check("flash_memattn", got, want)
+    lse_err = (lse - want_lse).abs().max().item()
+    if lse_err > 1e-2:
+        raise AssertionError(f"flash_memattn lse off by {lse_err}")
+    del want, want_lse
+    b, h, lq, dk = q.shape
+    dv = v.shape[-1]
+    live = live_keys(key_bias)
+    nb = 2 * (q.numel() + got.numel() + live * (dk + dv)) + 4 * (key_bias.numel() + lse.numel())
+    bms, by = bound(nb, 2.0 * h * lq * live * (dk + dv), 1.0 * h * lq * live, 6.0 * h * lq * live)
+    bias4 = key_bias[:, None, None, :].to(q.dtype)
+    rows.append(dict(
+        name="flash_memattn", route="cuda", source="efficientsam3_tpu_torch/csrc/flash_memattn.cu",
+        replaces="efficientsam3_tpu/ops/pallas/flash_attention.py:536",
+        launches=launches_a["flash_memattn"], max_abs_err=err,
+        ms=graph_time(lambda: fa.flash_memattn(q, k, v, key_bias, scale, return_lse=True), 5, 10),
+        call_ms=cuda_time(lambda: fa.flash_memattn(q, k, v, key_bias, scale, return_lse=True), 10),
+        plain_ms=cuda_time(lambda: fa.flash_memattn_plain(q, k, v, key_bias, scale, True), 3,
+                           warmup=1),
+        bound_ms=bms, bound_by=by,
+        library_ms=graph_time(
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias4, scale=scale), 5, 10),
+        device_ms=device_ms.get("flash_memattn"),
+        shape=f"q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)} bf16, "
+              f"{live} live keys over {b} slots (lse max err {lse_err:.2e})", **{"pass": True}))
+    # how the kernel's time follows the bank's live keys: valid entries at
+    # the session's active slots, then active slots with every entry valid
+    s_e = core.feat_size ** 2
+    n_act = int((key_bias > fa.NEG_INF / 2).any(-1).sum().item())
+    sweep = []
+    for n_slots, n_entries in ([(n_act, e) for e in (1, 3, 5, 7)]
+                               + [(n, core.num_maskmem) for n in (1, 2, 4, 8)]):
+        kb = torch.full_like(key_bias, fa.NEG_INF)
+        kb[:n_slots, :n_entries * s_e] = 0.0
+        t_ms = graph_time(lambda: fa.flash_memattn(q, k, v, kb, scale, return_lse=True), 3, 5)
+        sweep.append(f"{n_slots} slots x {n_entries} entries {t_ms:.4f} ms")
+    log(f"[kernel] flash_memattn sweep (CUDA graph): {'; '.join(sweep)} | {smi}")
+    del q, k, v, got, lse, bias4
+
+    # depthwise_conv2d: the fuser's 7x7 at (8, 72, 72, 256)
+    (x, kernel, bias), _ = capture.args[("depthwise_conv2d", 256)]
+    got = dw.depthwise_conv2d(x, kernel, bias)
+    err = check("depthwise_conv2d", got, dw.depthwise_conv2d_plain(x, kernel, bias))
+    c = x.shape[-1]
+    w_nchw = kernel.permute(3, 2, 0, 1).to(x.dtype).contiguous()
+    b_x = bias.to(x.dtype)
+    x_cl = x.permute(0, 3, 1, 2)  # a channels-last NCHW view
+    nb = 2 * (x.numel() + got.numel()) + 4 * (kernel.numel() + bias.numel())
+    bms, by = bound(nb, fp32_ops=2.0 * 49 * x.numel())
+    rows.append(dict(
+        name="depthwise_conv2d", route="cuda",
+        source="efficientsam3_tpu_torch/csrc/depthwise_conv2d.cu",
+        replaces="efficientsam3_tpu/ops/pallas/depthwise.py:53",
+        launches=launches_a["depthwise_conv2d"], max_abs_err=err,
+        ms=graph_time(lambda: dw.depthwise_conv2d(x, kernel, bias)),
+        call_ms=cuda_time(lambda: dw.depthwise_conv2d(x, kernel, bias), 50),
+        plain_ms=graph_time(lambda: dw.depthwise_conv2d_plain(x, kernel, bias), 5, 10),
+        bound_ms=bms, bound_by=by,
+        library_ms=graph_time(lambda: F.conv2d(x_cl, w_nchw, b_x, padding=3, groups=c)),
+        device_ms=device_ms.get("depthwise_conv2d"),
+        shape=f"x {tuple(x.shape)} {x.dtype}, 7x7", **{"pass": True}))
+    for r in rows:
+        log_row(r, smi)
+    del capture, capture_b, pred_a, pred_b, st_a, st_a2, st_b, image, core
+    torch.cuda.empty_cache()
+
+    # ---- the tiny tracker: bf16 on the card against fp32 on the CPU
+    # seed 5: both objects score above 0 on every frame, so the masks
+    # compared are real masks and not the no-object fill
+    tiny = dict(model_name="b0", embed_size=8, text_encoder_context_length=16, seed=5)
+    ref_image, ref_core = build_efficientsam3_video_model(device="cpu", **tiny)
+    gpu_image, gpu_core = build_efficientsam3_video_model(device=dev, dtype=torch.bfloat16, **tiny)
+    gpu_image.load_state_dict(ref_image.state_dict())
+    gpu_core.load_state_dict(ref_core.state_dict())
+    tframes = rng.standard_normal((3, 112, 112, 3)).astype(np.float32)
+    states = {}
+    for key, img_m, core_m in (("cpu", ref_image, ref_core), ("gpu", gpu_image, gpu_core)):
+        pred = TrackerPredictor(core_m, img_m.encode_image, obj_slots=4, max_point_prompts=4)
+        st = pred.init_state(tframes)
+        pred.add_new_points_or_box(st, 0, 1, box=[20, 24, 70, 90])
+        pred.add_new_points_or_box(st, 0, 2, points=[[80, 30]], labels=[1])
+        for _ in pred.propagate_in_video(st):
+            pass
+        states[key] = st
+    # each frame's outputs of the 2 valid slots (the 2 empty ones differ by
+    # design: 0 rows from the kernels against uniform averages on the CPU).
+    # bf16 through the trunk, neck, memory attention, heads and memory
+    # encoder against fp32 leaves ~1-3% of each output's range (the same
+    # model in bf16 on the CPU drifts as far); the tolerance is 5% of the
+    # range. The spatial memory is held by its mean error: the prompted
+    # frame's masks are binarised before encoding, and pixels whose logits
+    # lie within bf16 noise of 0 flip (max error ~0.5 of a range of ~2.5)
+    errs = {}
+    for t in range(3):
+        want_o = states["cpu"]["non_cond_frames" if t else "cond_frames"][t]
+        got_o = states["gpu"]["non_cond_frames" if t else "cond_frames"][t]
+        valid = np.flatnonzero(want_o["slot_valid"])
+        if not (want_o["object_score_logits"][valid] > 0).all():
+            raise AssertionError(f"tiny tracker frame {t}: an object scored <= 0 on the CPU")
+        for k in ("low_res_masks", "obj_ptr", "object_score_logits", "maskmem"):
+            want = want_o[k][valid].float()
+            diff = (got_o[k][valid].float().cpu() - want).abs()
+            err = (diff.mean() if k == "maskmem" else diff.max()).item()
+            tol = 5e-2 * max(1.0, want.abs().max().item())
+            errs[f"{k}@{t}"] = round(err / tol, 4)
+            if not err <= tol:
+                raise AssertionError(f"tiny tracker frame {t} {k}: off by {err} (tol {tol})")
+    log(f"[check] tiny tracker, bf16 on the card vs fp32 on the CPU, valid slots: max abs err "
+        f"(mean for maskmem) as a share of its tolerance (5% of the range) per output and "
+        f"frame: {errs}; object "
+        f"scores on the CPU {states['cpu']['non_cond_frames'][2]['object_score_logits'][:2, 0].tolist()}")
+    return rows
 
 
 if __name__ == "__main__":

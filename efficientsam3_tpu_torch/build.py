@@ -1,7 +1,9 @@
 """Model builders: the public construction API of the port.
 
 Counterpart of efficientsam3_tpu/build.py for the image model with an
-EfficientViT student trunk (S/M = b0/b1) and the MobileCLIP-S0 text tower.
+EfficientViT student trunk (S/M = b0/b1) and the MobileCLIP-S0 text tower,
+and for the video model: that image model with the SAM2 neck, plus the
+tracker core.
 Parameters are drawn from a seeded ``torch.Generator`` (no released
 weights are in the repository); ``utils/convert.py`` carries weights over
 from the JAX package's variables instead.
@@ -21,6 +23,7 @@ from efficientsam3_tpu_torch.models.efficientvit import (
 )
 from efficientsam3_tpu_torch.models.sam3_image import Sam3ImageModel
 from efficientsam3_tpu_torch.models.student_encoder import ImageStudentEncoder
+from efficientsam3_tpu_torch.video.tracker import TrackerCore, init_tracker_parameters
 
 SIZE_ALIASES = {("efficientvit", "s"): "b0", ("efficientvit", "m"): "b1"}
 
@@ -95,3 +98,36 @@ def build_efficientsam3_image_model(
     )
     init_parameters(model, seed)
     return model.requires_grad_(False).eval().to(device)
+
+
+def build_efficientsam3_video_model(
+    backbone_type: str = "efficientvit",
+    model_name: str = "b1",
+    text_encoder_type: Optional[str] = "MobileCLIP-S0",
+    text_encoder_context_length: int = 77,
+    embed_size: int = 72,
+    dtype: Optional[torch.dtype] = None,
+    device: Optional[Union[str, torch.device]] = None,
+    seed: int = 0,
+) -> tuple[Sam3ImageModel, TrackerCore]:
+    """(image_model, tracker_core) for video: the image model with the SAM2
+    neck (``enable_inst_interactivity``) and a TrackerCore at image size
+    embed_size * 14 (72x72 tokens at 1008), both with seeded random weights
+    from ``seed``, in eval mode on ``device`` (default cuda).
+
+    The text tower defaults to MobileCLIP-S0, the one the port has (the
+    default of the JAX package's function, the teacher CLIP tower, is not
+    ported). Wire them
+    with ``video.predictor.TrackerPredictor(tracker_core,
+    image_model.encode_image)``.
+    """
+    device = resolve_device(device)
+    image_model = build_efficientsam3_image_model(
+        backbone_type=backbone_type, model_name=model_name,
+        text_encoder_type=text_encoder_type,
+        text_encoder_context_length=text_encoder_context_length,
+        enable_inst_interactivity=True, embed_size=embed_size, dtype=dtype, device=device,
+        seed=seed)
+    core = init_tracker_parameters(
+        TrackerCore(image_size=embed_size * 14, backbone_stride=14, dtype=dtype), seed)
+    return image_model, core.requires_grad_(False).eval().to(device)

@@ -18,12 +18,22 @@
 // Q once per block; the staging of K/V is not pipelined yet (later work:
 // cp.async/TMA double buffering, exp2 with a folded log2(e) scale).
 //
+// Head dim 256 (the tracker's single-head memory attention, Q K V
+// (8, 1, 5184, 256) in self-attention and 36352 keys in the plain
+// cross-attention) runs the Q-in-shared-memory kernel of flash_qsmem.cuh:
+// at that width the register-resident Q fragments and accumulator of the
+// d = 32 kernel would spill. Per active object slot the self-attention is
+// ~27.5 GFLOP of tensor-core work (~28 us at the bf16 peak) and 26.9 M
+// exponentials (~0.05 ms on the special-function units), and its 5.3 MB of
+// operands move in ~2 us: bound by operations. An empty slot's keys are
+// all masked, so its tiles are skipped and it costs only the bias reads.
+//
 // Semantics follow `_kernel`: ragged Lq/Lk are masked inside the kernel
 // (rows past Lq are not written, keys past Lk score -1e9), and a row whose
 // keys are all masked skips every tile and finishes as acc / max(l, 1e-30)
 // = 0 with lse = -1e9.
 
-#include "attn_common.cuh"
+#include "flash_qsmem.cuh"
 
 using namespace attn;
 
@@ -124,6 +134,9 @@ extern "C" int flash_sdpa_fwd(const void* q, const void* k, const void* v,
         static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(key_bias),
         static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), H, lq, lk,
         sm_scale, sqb, sqh, sqn, skb, skh, skn, svb, svh, svn, sob, soh, son);
+  } else if (d == 256) {
+    return launch_qsmem<256, 256>(q, k, v, key_bias, o, lse, B, H, lq, lk, sm_scale, sqb, sqh,
+                                  sqn, skb, skh, skn, svb, svh, svn, sob, soh, son, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

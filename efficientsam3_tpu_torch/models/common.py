@@ -13,8 +13,13 @@ Attention: ``sdpa`` keeps the JAX routing rules: large attentions with no
 full bias and at most a key-padding mask go to the flash kernel
 (``ops/flash_attention.flash_sdpa``) when the tensors are on CUDA; the
 rest runs as matmul + fp32 softmax + P cast to v's dtype, like the JAX
-einsum branch. ``MultiheadAttention(rpb=...)`` sends the decoder's boxRPB
-cross-attention to ``flash_xattn_rpb`` on CUDA.
+einsum branch. ``sdpa_rawv`` routes the tracker's cached memory bank (raw
+64-wide values) to ``flash_memattn`` by the same rule, with dv % 8 == 0.
+``MultiheadAttention(rpb=...)`` sends the decoder's boxRPB cross-attention
+to ``flash_xattn_rpb`` on CUDA. ``Attention`` / ``RoPEAttention`` are the
+SAM heads' and the tracker's attentions, with the cached-bank entry points
+(``project_kv``, ``attend_projected``, ``attend_projected_rawv`` and
+``attend_projected_rawv_2seg``).
 """
 
 from __future__ import annotations
@@ -26,7 +31,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from efficientsam3_tpu_torch.ops.flash_attention import NEG_INF, flash_sdpa, flash_xattn_rpb
+from efficientsam3_tpu_torch.ops.flash_attention import (
+    NEG_INF,
+    flash_memattn,
+    flash_sdpa,
+    flash_xattn_rpb,
+)
 from efficientsam3_tpu_torch.ops.layer_norm import layer_norm
 
 
@@ -228,12 +238,15 @@ class FusedLayerNorm(nn.Module):
         return layer_norm(x, self.weight, self.bias, self.eps, out_dtype)
 
 
+ACT = {"relu": F.relu, "gelu": gelu_exact}
+
+
 class MLP(nn.Module):
     """Detectron-style MLP (inference): ReLU between layers, optional
-    residual and output LayerNorm."""
+    residual, output LayerNorm and sigmoid."""
 
     def __init__(self, input_dim: int, hidden_dim: int, output_dim: int, num_layers: int,
-                 residual: bool = False, out_norm: bool = False,
+                 residual: bool = False, out_norm: bool = False, sigmoid_output: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         dims_in = [input_dim] + [hidden_dim] * (num_layers - 1)
@@ -243,6 +256,7 @@ class MLP(nn.Module):
         )
         self.residual = residual
         self.out_norm_ln = LayerNorm(output_dim, 1e-5, dtype=dtype) if out_norm else None
+        self.sigmoid_output = sigmoid_output
 
     def forward(self, x):
         inp = x
@@ -254,7 +268,23 @@ class MLP(nn.Module):
             x = x + inp
         if self.out_norm_ln is not None:
             x = self.out_norm_ln(x)
+        if self.sigmoid_output:
+            x = torch.sigmoid(x)
         return x
+
+
+class MLPBlock(nn.Module):
+    """lin1 -> activation -> lin2 (the SAM transformer's MLP)."""
+
+    def __init__(self, dim: int, mlp_dim: int, activation=gelu_exact,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.lin1 = Dense(dim, mlp_dim, dtype=dtype)
+        self.lin2 = Dense(mlp_dim, dim, dtype=dtype)
+        self.activation = activation
+
+    def forward(self, x):
+        return self.lin2(self.activation(self.lin1(x)))
 
 
 class LayerNorm2d(nn.Module):
@@ -312,6 +342,56 @@ def sdpa(q, k, v, mask=None, bias=None):
     return torch.matmul(probs, v)
 
 
+def sdpa_rawv(q, k, v_raw, mask=None, return_lse=False):
+    """Attention whose values are raw (pre-projection) narrow tokens.
+
+    q/k (B, H, Lq/Lk, D); v_raw (B, H, Lk, dv). Returns (B, H, Lq, dv), and
+    the (B, H, Lq) log-sum-exp with return_lse, so the caller can merge
+    this segment with another (``merge_attention_segments``). Large shapes
+    on CUDA go to ``flash_memattn`` (a fully masked row: 0, lse -1e9);
+    the rest runs the einsum path of the JAX package (-inf masking: a
+    fully masked row gives 0 with lse -inf), whose P is normalised before
+    the cast to v's dtype.
+    """
+    d = q.shape[-1]
+    if _flash_eligible(q, k, mask, None) and v_raw.shape[-1] % 8 == 0:
+        b, lk = q.shape[0], k.shape[-2]
+        if mask is None:
+            key_bias = torch.zeros((b, lk), dtype=torch.float32, device=q.device)
+        else:
+            key_bias = torch.where(mask[:, 0, 0, :], 0.0, NEG_INF)
+        return flash_memattn(q, k, v_raw, key_bias, 1.0 / math.sqrt(d), return_lse=return_lse)
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(d)
+    if mask is not None:
+        logits = torch.where(mask, logits, -math.inf)
+    m = logits.amax(-1, keepdim=True)
+    m_safe = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.exp(logits - m_safe)
+    l = p.sum(-1, keepdim=True)
+    out = torch.matmul((p / l.clamp_min(1e-30)).to(v_raw.dtype), v_raw)
+    if return_lse:
+        lse = torch.where(torch.isfinite(m[..., 0]),
+                          m_safe[..., 0] + torch.log(l[..., 0].clamp_min(1e-30)), -math.inf)
+        return out, lse
+    return out
+
+
+def merge_attention_segments(parts):
+    """Combine attention outputs over disjoint key segments by their LSEs.
+
+    parts: [(out (B, H, Lq, dv), lse (B, H, Lq)), ...]. Softmax over the
+    union is the LSE-weighted average of the segments' outputs. A fully
+    masked segment (lse -inf or -1e9) drops out; if every segment is
+    masked the result is 0."""
+    ls = torch.stack([l for _, l in parts])
+    m = ls.amax(0)
+    m_safe = torch.where(m > torch.finfo(torch.float32).min / 2, m, 0.0)
+    ws = [torch.exp(l - m_safe)[..., None] for _, l in parts]
+    den = sum(ws)
+    num = sum(o.float() * w for (o, _), w in zip(parts, ws))
+    return (num / den.clamp_min(1e-30)).to(parts[0][0].dtype)
+
+
 def split_heads(x, num_heads: int):
     b, n, c = x.shape
     return x.reshape(b, n, num_heads, c // num_heads).transpose(1, 2)
@@ -356,6 +436,142 @@ class MultiheadAttention(nn.Module):
                 *ey.shape[:3], feat_hw[0] * feat_hw[1])
         out = sdpa(qh, kh, vh, mask=mask, bias=bias)
         return self.out_proj(merge_heads(out))
+
+
+class Attention(nn.Module):
+    """SAM-style attention: separate q/k/v/out projections, an optional
+    key/value input dim, internal dim embedding_dim // downsample_rate."""
+
+    def __init__(self, embedding_dim: int, num_heads: int, downsample_rate: int = 1,
+                 kv_in_dim: Optional[int] = None, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.internal_dim = embedding_dim // downsample_rate
+        kv = kv_in_dim or embedding_dim
+        self.q_proj = Dense(embedding_dim, self.internal_dim, dtype=dtype)
+        self.k_proj = Dense(kv, self.internal_dim, dtype=dtype)
+        self.v_proj = Dense(kv, self.internal_dim, dtype=dtype)
+        self.out_proj = Dense(self.internal_dim, embedding_dim, dtype=dtype)
+
+    def output(self, o):
+        return self.out_proj(merge_heads(o))
+
+    def forward(self, q, k, v):
+        qh = split_heads(self.q_proj(q), self.num_heads)
+        kh = split_heads(self.k_proj(k), self.num_heads)
+        vh = split_heads(self.v_proj(v), self.num_heads)
+        return self.output(sdpa(qh, kh, vh))
+
+
+# --------------------------------------------------------------------------
+# Rotary position encoding (axial 2D), real-valued
+# --------------------------------------------------------------------------
+
+
+def compute_axial_rope_cos_sin(dim: int, end_x: int, end_y: int, theta: float = 10000.0,
+                               device=None):
+    """Axial rope tables (cos, sin), each (end_x * end_y, dim // 2): the
+    first dim // 4 frequency slots encode x, the rest y."""
+    quarter = dim // 4
+    freqs = 1.0 / (theta ** (torch.arange(0, quarter, dtype=torch.float32, device=device)
+                             * 4.0 / dim))
+    t = torch.arange(end_x * end_y, dtype=torch.float32, device=device)
+    t_x = t % end_x
+    t_y = torch.floor(t / end_x)
+    ang = torch.cat([torch.outer(t_x, freqs), torch.outer(t_y, freqs)], dim=-1)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """Rotate adjacent pairs of the last dim (torch view_as_complex order),
+    in fp32; x (..., N, D), cos/sin (N, D // 2)."""
+    x2 = x.float().reshape(*x.shape[:-1], -1, 2)
+    a, b = x2[..., 0], x2[..., 1]
+    out = torch.stack([a * cos - b * sin, a * sin + b * cos], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)
+
+
+class RoPEAttention(Attention):
+    """Attention with axial rotary encoding on q and k.
+
+    ``rope_k_repeat`` tiles the table along k's sequence (cross-attention
+    to a bank of repeated spatial maps); ``num_k_exclude_rope`` leaves the
+    trailing k tokens (object pointers) unrotated."""
+
+    def __init__(self, embedding_dim: int, num_heads: int, downsample_rate: int = 1,
+                 kv_in_dim: Optional[int] = None, rope_theta: float = 10000.0,
+                 rope_k_repeat: bool = False, dtype: Optional[torch.dtype] = None):
+        super().__init__(embedding_dim, num_heads, downsample_rate, kv_in_dim, dtype)
+        self.rope_theta = rope_theta
+        self.rope_k_repeat = rope_k_repeat
+        self._tables = {}
+
+    def _rope_tables(self, grid_tokens: int, device):
+        key = (grid_tokens, str(device))
+        if key not in self._tables:
+            side = int(round(math.sqrt(grid_tokens)))
+            self._tables[key] = compute_axial_rope_cos_sin(
+                self.internal_dim // self.num_heads, side, side, self.rope_theta, device)
+        return self._tables[key]
+
+    def project_k(self, k, grid_tokens: int, num_k_exclude_rope: int = 0):
+        """k projection + rotary encoding of the leading keys (the cached
+        memory bank's keys are made by this once per entry)."""
+        kh = split_heads(self.k_proj(k), self.num_heads)
+        num_k_rope = kh.shape[-2] - num_k_exclude_rope
+        if num_k_rope == 0:
+            return kh
+        cos, sin = self._rope_tables(grid_tokens, kh.device)
+        if num_k_rope != grid_tokens:
+            if not self.rope_k_repeat:
+                raise ValueError("k/q length mismatch requires rope_k_repeat")
+            r = num_k_rope // grid_tokens
+            cos, sin = cos.repeat(r, 1), sin.repeat(r, 1)
+        k_rope = apply_rope(kh[..., :num_k_rope, :], cos, sin)
+        return torch.cat([k_rope, kh[..., num_k_rope:, :]], dim=-2)
+
+    def project_kv(self, k, v, grid_tokens: int, num_k_exclude_rope: int = 0):
+        """(rotated key heads, value heads), no attention."""
+        return (self.project_k(k, grid_tokens, num_k_exclude_rope),
+                split_heads(self.v_proj(v), self.num_heads))
+
+    def _rope_q(self, q):
+        qh = split_heads(self.q_proj(q), self.num_heads)
+        cos, sin = self._rope_tables(qh.shape[-2], qh.device)
+        return apply_rope(qh, cos, sin)
+
+    def attend_projected(self, q, kh, vh, key_padding_mask=None):
+        """Query projection + rope + attention over projected k/v heads.
+        key_padding_mask (B, Lk): True = PAD."""
+        mask = None if key_padding_mask is None else ~key_padding_mask[:, None, None, :]
+        return self.output(sdpa(self._rope_q(q), kh, vh, mask=mask))
+
+    def attend_projected_rawv(self, q, kh, v_raw, key_padding_mask=None):
+        """Attention over projected keys and RAW (kv_in_dim) values: v_proj
+        is linear and softmax rows sum to 1, so v_proj(A x) = A v_proj(x)
+        and the up-projection runs once per query. Single head only."""
+        if self.num_heads != 1:
+            raise ValueError("the raw-value path needs a single head")
+        mask = None if key_padding_mask is None else ~key_padding_mask[:, None, None, :]
+        o = sdpa_rawv(self._rope_q(q), kh, v_raw, mask=mask)
+        return self.out_proj(self.v_proj(merge_heads(o)))
+
+    def attend_projected_rawv_2seg(self, q, kh_mem, v_mem, mem_mask, kh_ptr, v_ptr, ptr_mask):
+        """attend_projected_rawv over two disjoint key segments, the cached
+        memory bank and the object-pointer tokens, merged by log-sum-exp
+        (exact) instead of concatenating the pointers onto the bank.
+        Masks: True = PAD."""
+        if self.num_heads != 1:
+            raise ValueError("the raw-value path needs a single head")
+        qh = self._rope_q(q)
+        o1, l1 = sdpa_rawv(qh, kh_mem, v_mem, mask=~mem_mask[:, None, None, :], return_lse=True)
+        o2, l2 = sdpa_rawv(qh, kh_ptr, v_ptr, mask=~ptr_mask[:, None, None, :], return_lse=True)
+        o = merge_attention_segments([(o1, l1), (o2, l2)])
+        return self.out_proj(self.v_proj(merge_heads(o)))
+
+    def forward(self, q, k, v, num_k_exclude_rope: int = 0, key_padding_mask=None):
+        kh, vh = self.project_kv(k, v, q.shape[-2], num_k_exclude_rope)
+        return self.attend_projected(q, kh, vh, key_padding_mask)
 
 
 # --------------------------------------------------------------------------
@@ -403,3 +619,27 @@ def sine_encode_boxes(x, y, w, h, num_pos_feats: int = 256):
     """(..., 2*npf + 2) box encoding."""
     px, py = sine_encode_xy(x, y, num_pos_feats)
     return torch.cat([py, px, h[..., None], w[..., None]], dim=-1)
+
+
+class PositionEmbeddingRandom(nn.Module):
+    """Random-Fourier point and grid encoding (SAM prompt encoder)."""
+
+    def __init__(self, num_pos_feats: int = 64):
+        super().__init__()
+        self.positional_encoding_gaussian_matrix = nn.Parameter(torch.empty(2, num_pos_feats))
+
+    def forward(self, coords):
+        """coords (..., 2) in [0, 1] -> (..., 2 * num_pos_feats). The K = 2
+        contraction is written out elementwise, as in the JAX package."""
+        g = self.positional_encoding_gaussian_matrix
+        c = 2.0 * coords.float() - 1.0
+        c = 2.0 * math.pi * (c[..., 0:1] * g[0] + c[..., 1:2] * g[1])
+        return torch.cat([torch.sin(c), torch.cos(c)], dim=-1)
+
+    def grid(self, h: int, w: int):
+        """(H, W, C) encoding of the pixel-centre grid."""
+        dev = self.positional_encoding_gaussian_matrix.device
+        ys = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) / h
+        xs = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) / w
+        grid = torch.stack([xs[None, :].expand(h, w), ys[:, None].expand(h, w)], dim=-1)
+        return self(grid)

@@ -2,17 +2,20 @@
 
 ``flash_sdpa`` replaces the Pallas ``flash_sdpa`` forward
 (efficientsam3_tpu/ops/pallas/flash_attention.py ``_flash_fwd`` /
-``_kernel`` and ``_flash_fwd_packed`` / ``_packed_kernel``);
-``flash_xattn_rpb`` replaces ``flash_xattn_rpb`` / ``_xattn_rpb_kernel``.
-Both kernels are CUDA C++ in ``csrc/`` (see the notes at the top of each
-source for what bounds them on the H100 and how the design answers it),
-built by ``ops/_build.py`` on first use and called through ctypes on
-PyTorch's current stream.
+``_kernel`` and ``_flash_fwd_packed`` / ``_packed_kernel``) at head dims 32
+(the fusion encoder) and 256 (the tracker's memory attention);
+``flash_memattn`` replaces ``flash_memattn`` / ``_memattn_kernel`` and
+``_memattn_kernel_lse`` (the tracker's cached memory bank, raw dv = 64
+values); ``flash_xattn_rpb`` replaces ``flash_xattn_rpb`` /
+``_xattn_rpb_kernel``. The kernels are CUDA C++ in ``csrc/`` (see the notes
+at the top of each source for what bounds them on the H100 and how the
+design answers it), built by ``ops/_build.py`` on first use and called
+through ctypes on PyTorch's current stream.
 
 Each wrapper takes the plain PyTorch version for CPU tensors and launches
 its kernel for CUDA tensors, raising on what the kernel does not take
-(dtype other than bf16, head dims other than 32). Each counts its kernel
-launches in ``<wrapper>.launches``.
+(dtype other than bf16, head dims it was not built for). Each counts its
+kernel launches in ``<wrapper>.launches``.
 
 Layouts follow the JAX package: (B, H, N, D) heads. The kernels take any
 strides over (B, H, N) with D contiguous, so ``split_heads`` views go in
@@ -31,7 +34,8 @@ import torch
 from efficientsam3_tpu_torch.ops import _build
 
 NEG_INF = -1e9
-_SUPPORTED_D = (32,)
+_SUPPORTED_D = (32, 256)
+_MEMATTN_DIMS = ((256, 64),)  # (dk, dv) of flash_memattn's kernel
 _BK = 64  # key tile of the CUDA kernels (attn_common.cuh BK)
 _BQ = 64  # query tile (attn_common.cuh BQ)
 
@@ -73,14 +77,17 @@ def flash_sdpa_plain(q, k, v, key_bias, sm_scale=None, return_lse=False):
     return (out, lse) if return_lse else out
 
 
-def _check_heads(name, *ts):
+def _check_bf16(name, *ts):
     for t in ts:
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{name} kernel takes bfloat16 tensors, got {t.dtype}")
-        if t.shape[-1] not in _SUPPORTED_D:
-            raise ValueError(
-                f"{name} kernel supports head dims {_SUPPORTED_D}, got {t.shape[-1]}"
-            )
+
+
+def _check_heads(name, dims, *ts):
+    _check_bf16(name, *ts)
+    for t in ts:
+        if t.shape[-1] not in dims:
+            raise ValueError(f"{name} kernel supports head dims {dims}, got {t.shape[-1]}")
 
 
 def _aligned(t):
@@ -126,7 +133,7 @@ def flash_sdpa(q, k, v, key_bias, sm_scale=None, return_lse=False):
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if not q.is_cuda:
         return flash_sdpa_plain(q, k, v, key_bias, sm_scale, return_lse)
-    _check_heads("flash_sdpa", q, k, v)
+    _check_heads("flash_sdpa", _SUPPORTED_D, q, k, v)
     b, h, lq, d = q.shape
     lk = k.shape[2]
     if k.shape != (b, h, lk, d) or v.shape != k.shape or key_bias.shape != (b, lk):
@@ -152,6 +159,76 @@ def flash_sdpa(q, k, v, key_bias, sm_scale=None, return_lse=False):
 
 
 flash_sdpa.launches = 0
+
+
+def padded_bank_len(lk: int) -> int:
+    """Key count rounded up so the JAX kernel's default key block tiles it
+    exactly (2048 from 2048 keys on, else 128).
+
+    The tracker's persistent memory bank is padded once to this length
+    (``video/tracker.flatten_kv_bank``), so its layout matches the JAX
+    package's; pad rows are zeros and masked (key_bias -1e9). The CUDA
+    kernel skips the pad tail's 64-key tiles."""
+    if lk >= 2048:
+        return -(-lk // 2048) * 2048
+    return -(-lk // 128) * 128
+
+
+# The kernel's arithmetic does not depend on the value width: dv = 64 raw
+# values go through the same fp32 max and sum and bf16 P as flash_sdpa.
+flash_memattn_plain = flash_sdpa_plain
+
+
+def _lib_memattn():
+    fn = _build.load("flash_memattn").flash_memattn_fwd
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * 6 + [_I] * 6 + [_F] + [_LL] * 12 + [_P]
+        fn.restype = _I
+    return fn
+
+
+def flash_memattn(q, k, v, key_bias, sm_scale=None, return_lse=False):
+    """Flash cross-attention whose values are narrower than its keys.
+
+    q (B, H, Lq, Dk); k (B, H, Lk, Dk); v (B, H, Lk, Dv) raw (unprojected)
+    values; key_bias (B, Lk) f32 (-1e9 masks). Returns (B, H, Lq, Dv) in
+    q.dtype, and the (B, H, Lq) f32 log-sum-exp with return_lse. A row
+    whose keys are all masked gives 0 with lse -1e9 (the einsum path gives
+    the uniform average; such rows are slot-gated by every caller). The
+    denominator is summed in fp32 from the unrounded P, as the einsum path
+    does (the TPU kernel summed the bf16-rounded P).
+    """
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if not q.is_cuda:
+        return flash_memattn_plain(q, k, v, key_bias, sm_scale, return_lse)
+    _check_bf16("flash_memattn", q, k, v)
+    b, h, lq, dk = q.shape
+    lk, dv = k.shape[2], v.shape[-1]
+    if (dk, dv) not in _MEMATTN_DIMS:
+        raise ValueError(f"flash_memattn kernel supports (dk, dv) in {_MEMATTN_DIMS}, "
+                         f"got {(dk, dv)}")
+    if k.shape != (b, h, lk, dk) or v.shape != (b, h, lk, dv) or key_bias.shape != (b, lk):
+        raise ValueError(f"flash_memattn shapes: q {q.shape} k {k.shape} v {v.shape} "
+                         f"key_bias {key_bias.shape}")
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    key_bias = key_bias.float().contiguous()
+    o = torch.empty((b, h, lq, dv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device) if return_lse else None
+    with torch.cuda.device(q.device):  # the launch goes to the current device
+        status = _lib_memattn()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
+            o.data_ptr(), lse.data_ptr() if lse is not None else None,
+            b, h, lq, lk, dk, dv, float(sm_scale),
+            *_bhn_strides(q), *_bhn_strides(k), *_bhn_strides(v), *_bhn_strides(o),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(status, "flash_memattn launch")
+    flash_memattn.launches += 1
+    return (o, lse) if return_lse else o
+
+
+flash_memattn.launches = 0
 
 
 def rpb_bias(ey, ex, feat_hw):
@@ -203,7 +280,7 @@ def flash_xattn_rpb(q, k, v, ey, ex, feat_hw, sm_scale=None):
         sm_scale = 1.0 / math.sqrt(d)
     if not q.is_cuda:
         return flash_xattn_rpb_plain(q, k, v, ey, ex, feat_hw, sm_scale)
-    _check_heads("flash_xattn_rpb", q, k, v)
+    _check_heads("flash_xattn_rpb", (32,), q, k, v)
     if h_img >= 128 or w_img >= 128:
         raise ValueError(f"flash_xattn_rpb kernel takes maps under 128x128, got {feat_hw}")
     if ey.shape != (b, hn, lq, h_img) or ex.shape != (b, hn, lq, w_img):

@@ -12,6 +12,14 @@ follow the flax tree:
   - ``scale`` and ``embedding`` -> ``weight``;
   - BatchNorm ``mean`` / ``var`` -> ``running_mean`` / ``running_var``.
 
+The tracker's tree (``init_tracker_variables``) converts by the same
+rules: its raw parameters (``maskmem_tpos_enc``, ``no_mem_embed``, CXBlock
+``gamma``, ``positional_encoding_gaussian_matrix``, ...) keep their names;
+the ``_ConvParams`` holders (``encoder_0``, ``dwconv``) are Conv kernels;
+flax ``nn.ConvTranspose`` kernels (2, 2, in, out) land in
+``ConvTranspose2x``'s (out, in, 2, 2) weight, whose forward reads them as
+flax does (tests/test_torch_tracker_modules.py holds it).
+
 ``load_jax_variables`` loads the result with ``strict=True`` after
 checking that no key is left over or missing on either side and that
 every shape agrees, and fails loudly otherwise. Loading a released

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from efficientsam3_tpu_torch.ops import depthwise as dw
 from efficientsam3_tpu_torch.ops import flash_attention as fa
 from efficientsam3_tpu_torch.ops import layer_norm as ln
 
@@ -50,6 +51,71 @@ def test_flash_sdpa_kernel_matches_plain(cuda, lq, lk):
     torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=TOL)
     torch.testing.assert_close(lse, want_lse, atol=TOL, rtol=TOL)
     assert (got[1] == 0).all() and (lse[1] == NEG_INF).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lk", [(5184, 5184), (333, 517), (70, 36352)])
+def test_flash_sdpa_d256_kernel_matches_plain(cuda, lq, lk):
+    """Head dim 256, one head (the tracker's memory attention): ragged
+    Lq/Lk, a masked 64-key tile, a batch row with every key masked (an
+    empty object slot: 0 out, lse -1e9), and the LSE output."""
+    q, k, v = (_randn(cuda, 3, 1, n, 256) for n in (lq, lk, lk))
+    bias = torch.zeros((3, lk), device=cuda)
+    bias[0, 64:128] = NEG_INF
+    bias[1] = NEG_INF
+    bias[2, lk // 2:] = NEG_INF
+    before = fa.flash_sdpa.launches
+    got, lse = fa.flash_sdpa(q, k, v, bias, return_lse=True)
+    torch.cuda.synchronize()
+    assert fa.flash_sdpa.launches == before + 1
+    want, want_lse = fa.flash_sdpa_plain(q, k, v, bias, return_lse=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=TOL)
+    torch.testing.assert_close(lse, want_lse, atol=TOL, rtol=TOL)
+    assert (got[1] == 0).all() and (lse[1] == NEG_INF).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lk", [(5184, 36864), (333, 517), (1, 64)])
+def test_flash_memattn_kernel_matches_plain(cuda, lq, lk):
+    """dk 256 against raw dv 64 values: ragged Lq/Lk, a masked bank entry
+    and a masked pad tail, a fully masked row (0 out, lse -1e9), and the
+    LSE; the values enter as a strided (B, 1, Lk, 64) view of a bank."""
+    b = 3
+    q = _randn(cuda, b, 1, lq, 256)
+    k = _randn(cuda, b, 1, lk, 256)
+    bank = _randn(cuda, b, lk, 64)
+    v = bank[:, None]
+    bias = torch.zeros((b, lk), device=cuda)
+    bias[0, lk // 4: lk // 2] = NEG_INF
+    bias[0, lk - lk // 8:] = NEG_INF
+    bias[1] = NEG_INF
+    before = fa.flash_memattn.launches
+    got, lse = fa.flash_memattn(q, k, v, bias, return_lse=True)
+    torch.cuda.synchronize()
+    assert fa.flash_memattn.launches == before + 1 and got.shape == (b, 1, lq, 64)
+    want, want_lse = fa.flash_memattn_plain(q, k, v, bias, return_lse=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=TOL)
+    torch.testing.assert_close(lse, want_lse, atol=TOL, rtol=TOL)
+    assert (got[1] == 0).all() and (lse[1] == NEG_INF).all()
+    torch.testing.assert_close(fa.flash_memattn(q, k, v, bias).float(), got.float(),
+                               atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 72, 72, 256), (2, 13, 29, 40), (1, 9, 5, 37), (1, 3, 4, 1)])
+def test_depthwise_kernel_matches_plain(cuda, shape):
+    """The tracker shape, then odd H/W with C % 8 == 0, odd C (the element
+    copy path) and a map smaller than the 7x7 kernel."""
+    c = shape[-1]
+    x = _randn(cuda, *shape)
+    wk = 0.2 * _randn(cuda, 7, 7, 1, c, dtype=torch.float32)
+    bias = 0.1 * _randn(cuda, c, dtype=torch.float32)
+    before = dw.depthwise_conv2d.launches
+    got = dw.depthwise_conv2d(x, wk, bias)
+    torch.cuda.synchronize()
+    assert dw.depthwise_conv2d.launches == before + 1 and got.dtype == torch.bfloat16
+    want = dw.depthwise_conv2d_plain(x, wk, bias)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=TOL)
 
 
 @pytest.mark.cuda
@@ -107,3 +173,14 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     q64 = _randn(cuda, 1, 2, 16, 64)
     with pytest.raises(ValueError, match="head dims"):
         fa.flash_sdpa(q64, q64, q64, torch.zeros((1, 16), device=cuda))
+    q256 = _randn(cuda, 1, 1, 16, 256)
+    with pytest.raises(ValueError, match="dk, dv"):
+        fa.flash_memattn(q256, q256, q256, torch.zeros((1, 16), device=cuda))
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.flash_memattn(q256.float(), q256, q256[..., :64], torch.zeros((1, 16), device=cuda))
+    x = _randn(cuda, 1, 8, 8, 16)
+    with pytest.raises(TypeError, match="bfloat16"):
+        dw.depthwise_conv2d(x.float(), torch.zeros(7, 7, 1, 16, device=cuda),
+                            torch.zeros(16, device=cuda))
+    with pytest.raises(ValueError, match="kernel"):
+        dw.depthwise_conv2d(x, torch.zeros(3, 3, 1, 16, device=cuda), torch.zeros(16, device=cuda))

@@ -37,15 +37,44 @@ print("FOREIGN", bad)
 """
 
 
-def test_slice_runs_without_jax():
-    """The tiny slice on the CPU leaves no jax, flax or efficientsam3_tpu
-    module in sys.modules (matched by top-level name, so the port's own
-    efficientsam3_tpu_torch does not count)."""
+_TRACKER = r"""
+import sys
+import numpy as np
+from efficientsam3_tpu_torch.build import build_efficientsam3_video_model
+from efficientsam3_tpu_torch.video.predictor import TrackerPredictor
+
+image, core = build_efficientsam3_video_model(
+    model_name="b0", embed_size=8, text_encoder_context_length=16, device="cpu")
+pred = TrackerPredictor(core, image.encode_image, obj_slots=2, max_point_prompts=4)
+state = pred.init_state(np.zeros((3, 112, 112, 3), np.float32))
+pred.add_new_points_or_box(state, 0, obj_id=5, points=[[40, 50]], labels=[1])
+shapes = [tuple(m.shape) for _, _, m in pred.propagate_in_video(state)]
+assert shapes == [(1, 1, 32, 32)] * 3, shapes
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "efficientsam3_tpu"))
+print("FOREIGN", bad)
+"""
+
+
+def _run_without_jax(script):
     env = dict(os.environ, PYTHONPATH=str(ROOT))
-    out = subprocess.run([sys.executable, "-c", _SLICE], cwd=ROOT, env=env,
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "FOREIGN []" in out.stdout, out.stdout[-2000:]
+
+
+def test_slice_runs_without_jax():
+    """The tiny grounding slice on the CPU leaves no jax, flax or
+    efficientsam3_tpu module in sys.modules (matched by top-level name, so
+    the port's own efficientsam3_tpu_torch does not count)."""
+    _run_without_jax(_SLICE)
+
+
+def test_tracker_slice_runs_without_jax():
+    """So does the tiny video tracker: build_efficientsam3_video_model and
+    TrackerPredictor over 3 frames."""
+    _run_without_jax(_TRACKER)
 
 
 def _imports(path):
@@ -70,14 +99,32 @@ def test_cuda_entry_points_raise_without_a_gpu():
     of moving to the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the entry points run there")
-    from efficientsam3_tpu_torch.build import build_efficientsam3_image_model
+    from efficientsam3_tpu_torch.build import (
+        build_efficientsam3_image_model,
+        build_efficientsam3_video_model,
+    )
     from efficientsam3_tpu_torch.device import resolve_device
 
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA"):
         build_efficientsam3_image_model(model_name="b0", embed_size=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_efficientsam3_video_model(model_name="b0", embed_size=8)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("option,item", [
+    (dict(mesh=object()), "Queue 1 item 19"), (dict(fill_hole_area=8), "Queue 1 item 15"),
+    (dict(quantize_bank=True), "Queue 2 item 5"),
+])
+def test_unported_tracker_options_raise(option, item):
+    from efficientsam3_tpu_torch.video.predictor import TrackerPredictor
+    from efficientsam3_tpu_torch.video.tracker import TrackerCore
+
+    core = TrackerCore(image_size=64, backbone_stride=8, d_model=32, mem_dim=8)
+    with pytest.raises(NotImplementedError, match=item):
+        TrackerPredictor(core, None, **option)
 
 
 def test_tokenizer_is_built_on_first_string_prompt(monkeypatch):
