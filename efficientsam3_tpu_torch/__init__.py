@@ -8,10 +8,14 @@ package module for module, so each file has a counterpart at the same path:
              fusion encoder, decoder, seg head, the image model; the SAM
              heads, memory attention and memory encoder of the tracker)
   video/     the tracker core and the VOS predictor
-  ops/       torch-parity resize / roi_align / grid_sample, and the
-             hand-written Hopper kernels with their plain PyTorch versions
-  csrc/      CUDA C++ sources of the kernels (built on first use)
-  utils/     weight conversion from the JAX variables, tokenizer
+  train/     Stage-3 training: step, optimizer, losses, matcher, trainer
+  ops/       torch-parity resize / roi_align / grid_sample, focal loss, box
+             IoU, the host Hungarian solver, and the hand-written Hopper
+             kernels (forward and backward) with their plain versions
+  csrc/      CUDA C++ sources of the kernels, and the Hungarian solver's
+             host C++ (built on first use)
+  utils/     weight conversion from the JAX variables, tokenizer,
+             checkpoints, logging and metrics writers
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

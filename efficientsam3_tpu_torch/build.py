@@ -79,11 +79,16 @@ def build_efficientsam3_image_model(
     seed: int = 0,
     fusion_layers: int = 6,
     decoder_layers: int = 6,
+    dropout: float = 0.1,
 ) -> Sam3ImageModel:
     """EfficientSAM3 image model with a student trunk and the LiteText
-    tower, seeded random weights, in eval mode on ``device`` (default cuda).
+    tower, seeded random weights, in eval mode with gradients off on
+    ``device`` (default cuda); ``train/stage3.prepare_for_training`` turns
+    both on for training.
 
-    ``fusion_layers`` / ``decoder_layers`` cut depth for small test configs.
+    ``fusion_layers`` / ``decoder_layers`` cut depth for small test configs;
+    ``dropout`` is the training dropout rate of the JAX layers (0.1; the
+    parity tests set 0, since the two frameworks draw different bits).
     """
     device = resolve_device(device)
     trunk = make_student_trunk(backbone_type, model_name, embed_size=embed_size, dtype=dtype)
@@ -94,6 +99,7 @@ def build_efficientsam3_image_model(
         add_sam2_neck=enable_inst_interactivity,
         fusion_layers=fusion_layers,
         decoder_layers=decoder_layers,
+        dropout=dropout,
         dtype=dtype,
     )
     init_parameters(model, seed)

@@ -1,0 +1,348 @@
+// Flash attention backward for Hopper (sm_90a), head dim 32.
+//
+// Replaces efficientsam3_tpu/ops/pallas/flash_attention.py `_flash_bwd`:
+// `_bwd_dq_kernel` (its pallas_call at :1082) and `_bwd_dkv_kernel` (:1098),
+// the custom VJP of `flash_sdpa` that Stage-3 training runs through the
+// fusion encoder's self-attention, (B, 8, 5184, 32) bf16. As on the TPU the
+// work is split into two deterministic kernels, so no sum crosses blocks and
+// nothing needs atomics:
+//
+//   dq kernel:  one block of 4 warps owns 64 query rows (16 a warp) and walks
+//               the key tiles: dQ = scale * sum_tiles (P o (dO V^T - Delta)) K;
+//               it also computes Delta = rowsum(dO o O) (fp32) for its rows and
+//               writes it out for the second kernel;
+//   dkv kernel: one block owns 64 keys (16 a warp) and walks the query tiles:
+//               dV = sum P^T dO, dK = scale * sum (P o (dO V^T - Delta))^T Q.
+//
+// P is rebuilt from the forward's saved log-sum-exp, P = exp(S * scale +
+// key_bias - lse), and is 0 on rows whose lse is masked (<= -5e8: every key
+// of the batch row masked), so such rows give zero gradients. dS is rounded
+// to bf16 before the dQ and dK products and P before the dV product; all
+// products accumulate in fp32 and the scale is applied at the end, as in the
+// Pallas kernels. Key tiles whose 64 keys are all masked are skipped: the dq
+// kernel reads its key-bias row once into a byte per tile (as the forward's
+// flash_qsmem.cuh does) and walks only the live tiles; a dkv block whose keys
+// are all masked writes zeros and returns. Rows past Lq / keys past Lk read as
+// zero and are not written. Strides over (B, H, N) are taken for every
+// operand (dO arrives as a view of the (B, N, H * D) gradient).
+//
+// Bound on the H100 at the training shape (4, 8, 5184, 32): the dq kernel
+// does 3 products of (5184 x 5184 x 32) per (batch, head) (S, dP, dQ), the
+// dkv kernel 4 (S, dP, dV, dK), 55 GFLOP each over the 32 (batch, head)
+// pairs (~0.056 ms a product at the bf16 peak), and each kernel recomputes
+// P, 860 M exponentials (~0.21 ms on the special-function units at 16 per
+// SM per clock), against ~13 MB of operands a kernel (~4 us): the dq kernel
+// is bound by its exponentials (0.21 ms), the dkv kernel by its products
+// (0.22 ms).
+// The design keeps S, dP, P and dS in registers (the mma accumulator layout
+// of a 16 x 64 tile is the A-operand layout of the next product), stages the
+// other side's 64-row tiles with cp.async and reads their B fragments with
+// ldmatrix.trans, so no transposed copy is made. Pipelining the tile copies,
+// wgmma and folding log2(e) into the scale are later work.
+
+#include "flash_qsmem.cuh"
+
+using namespace attn;
+
+namespace {
+
+constexpr int D = 32;
+constexpr int PD = D + 8;  // padded row (bf16) of a staged 64 x D tile
+using Tile = __nv_bfloat16 (*)[PD];
+
+// acc (this warp's 16 rows x D) += bf16(a) (16 x 64) X, X a row-major 64 x D
+// tile in shared memory: a's accumulator layout is the A-operand layout, and
+// ldmatrix.trans turns X's rows into B fragments (lanes 0-15 address rows
+// kk*16 + 0..15 of column block n, lanes 16-31 those of block n + 1).
+__device__ __forceinline__ void mma_tile_x(float (&acc)[D / 8][4], const float (&a)[BK / 8][4],
+                                           const __nv_bfloat16* xs) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint32_t pa[4] = {
+        pack_bf16(a[2 * kk][0], a[2 * kk][1]),
+        pack_bf16(a[2 * kk][2], a[2 * kk][3]),
+        pack_bf16(a[2 * kk + 1][0], a[2 * kk + 1][1]),
+        pack_bf16(a[2 * kk + 1][2], a[2 * kk + 1][3]),
+    };
+    const __nv_bfloat16* xrow = xs + (kk * 16 + (lane & 15)) * PD + (lane >> 4) * 8;
+#pragma unroll
+    for (int n = 0; n < D / 8; n += 2) {
+      uint32_t b0, b1, b2, b3;
+      ldmatrix_x4_trans(b0, b1, b2, b3, xrow + n * 8);
+      mma16816(acc[n], pa, b0, b1);
+      mma16816(acc[n + 1], pa, b2, b3);
+    }
+  }
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
+}
+
+// Store this warp's 16 x D fp32 accumulator, times `mul`, as bf16 rows.
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out, long long sn, int row0, int n,
+                                           const float (&acc)[D / 8][4], float mul) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = row0 + g, r1 = r0 + 8;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = j * 8 + 2 * t;
+    if (r0 < n)
+      *reinterpret_cast<__nv_bfloat162*>(out + r0 * sn + c) =
+          __floats2bfloat162_rn(acc[j][0] * mul, acc[j][1] * mul);
+    if (r1 < n)
+      *reinterpret_cast<__nv_bfloat162*>(out + r1 * sn + c) =
+          __floats2bfloat162_rn(acc[j][2] * mul, acc[j][3] * mul);
+  }
+}
+
+int dq_smem_bytes(int lk) {
+  return 2 * BK * PD * 2 + BK * 4 + ((lk + BK - 1) / BK + 15) / 16 * 16;
+}
+
+__global__ void __launch_bounds__(NTHREADS)
+bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v, const float* __restrict__ key_bias,
+              const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+              const float* __restrict__ lse, float* __restrict__ delta,
+              __nv_bfloat16* __restrict__ dq, int H, int lq, int lk, float sm_scale,
+              long long sqb, long long sqh, long long sqn, long long skb, long long skh,
+              long long skn, long long svb, long long svh, long long svn, long long sob,
+              long long soh, long long son, long long sdb, long long sdh, long long sdn,
+              long long sgb, long long sgh, long long sgn) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BK][PD]
+  __nv_bfloat16* vs = ks + BK * PD;                                 // [BK][PD]
+  float* bias_s = reinterpret_cast<float*>(vs + BK * PD);           // [BK]
+  unsigned char* tile_live = reinterpret_cast<unsigned char*>(bias_s + BK);
+
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = blockIdx.x * BQ + warp * 16;
+  const int r0 = row0 + g, r1 = r0 + 8;
+  q += b * sqb + h * sqh;
+  k += b * skb + h * skh;
+  v += b * svb + h * svh;
+  o += b * sob + h * soh;
+  dout += b * sdb + h * sdh;
+  dq += b * sgb + h * sgh;
+  key_bias += (long long)b * lk;
+  lse += (long long)bh * lq;
+  delta += (long long)bh * lq;
+
+  uint32_t qa[D / 16][4], da[D / 16][4], oa[D / 16][4];
+  load_q<D>(qa, q, sqn, row0, lq);
+  load_q<D>(da, dout, sdn, row0, lq);
+  load_q<D>(oa, o, son, row0, lq);
+
+  // Delta of rows r0, r1: this thread holds 8 of each row's 32 columns
+  float dl0 = 0.f, dl1 = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc) {
+#pragma unroll
+    for (int e = 0; e < 4; e += 2) {
+      const float2 d0 = unpack_bf16(da[kc][e]), o0 = unpack_bf16(oa[kc][e]);
+      const float2 d1 = unpack_bf16(da[kc][e + 1]), o1 = unpack_bf16(oa[kc][e + 1]);
+      dl0 += d0.x * o0.x + d0.y * o0.y;
+      dl1 += d1.x * o1.x + d1.y * o1.y;
+    }
+  }
+  dl0 = quad_sum(dl0);
+  dl1 = quad_sum(dl1);
+  if (t == 0) {
+    if (r0 < lq) delta[r0] = dl0;
+    if (r1 < lq) delta[r1] = dl1;
+  }
+  const float l0 = r0 < lq ? lse[r0] : NEG_INF, l1 = r1 < lq ? lse[r1] : NEG_INF;
+  const bool v0 = l0 > 0.5f * NEG_INF, v1 = l1 > 0.5f * NEG_INF;
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  // which key tiles hold a live key (stores of 1 may race: same value)
+  const int ntiles = (lk + BK - 1) / BK;
+  for (int i = threadIdx.x; i < ntiles; i += NTHREADS) tile_live[i] = 0;
+  __syncthreads();
+  for (int key = threadIdx.x; key < lk; key += NTHREADS)
+    if (key_bias[key] > 0.5f * NEG_INF) tile_live[key / BK] = 1;
+  __syncthreads();
+
+  for (int kt = 0; kt < ntiles; ++kt) {
+    if (!tile_live[kt]) continue;  // every key of the tile masked (uniform)
+    const int key0 = kt * BK;
+    __syncthreads();  // the previous tile's readers are done
+    if (threadIdx.x < BK) {
+      const int key = key0 + threadIdx.x;
+      bias_s[threadIdx.x] = key < lk ? key_bias[key] : NEG_INF;
+    }
+    stage_rows<BK, D, PD>(ks, k, skn, key0, lk);
+    stage_rows<BK, D, PD>(vs, v, svn, key0, lk);
+    cp_async_wait_all();
+    __syncthreads();
+
+    float s[BK / 8][4], dp[BK / 8][4];
+    qk_tile<D>(s, qa, reinterpret_cast<Tile>(ks));   // S = Q K^T
+    qk_tile<D>(dp, da, reinterpret_cast<Tile>(vs));  // dP = dO V^T
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const float b0 = bias_s[j * 8 + 2 * t], b1 = bias_s[j * 8 + 2 * t + 1];
+      const float p00 = v0 ? __expf(s[j][0] * sm_scale + b0 - l0) : 0.f;
+      const float p01 = v0 ? __expf(s[j][1] * sm_scale + b1 - l0) : 0.f;
+      const float p10 = v1 ? __expf(s[j][2] * sm_scale + b0 - l1) : 0.f;
+      const float p11 = v1 ? __expf(s[j][3] * sm_scale + b1 - l1) : 0.f;
+      s[j][0] = p00 * (dp[j][0] - dl0);  // dS
+      s[j][1] = p01 * (dp[j][1] - dl0);
+      s[j][2] = p10 * (dp[j][2] - dl1);
+      s[j][3] = p11 * (dp[j][3] - dl1);
+    }
+    mma_tile_x(acc, s, ks);  // dQ += bf16(dS) K
+  }
+  store_rows(dq, sgn, row0, lq, acc, sm_scale);
+}
+
+__global__ void __launch_bounds__(NTHREADS)
+bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v, const float* __restrict__ key_bias,
+               const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+               const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+               __nv_bfloat16* __restrict__ dv, int H, int lq, int lk, float sm_scale,
+               long long sqb, long long sqh, long long sqn, long long skb, long long skh,
+               long long skn, long long svb, long long svh, long long svn, long long sdb,
+               long long sdh, long long sdn, long long skgb, long long skgh, long long skgn,
+               long long svgb, long long svgh, long long svgn) {
+  __shared__ __align__(16) __nv_bfloat16 qs[BQ][PD];
+  __shared__ __align__(16) __nv_bfloat16 dos[BQ][PD];
+  __shared__ float lse_s[BQ], delta_s[BQ];
+
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int key0 = blockIdx.x * BK;
+  const int krow0 = key0 + warp * 16;
+  const int kr0 = krow0 + g, kr1 = kr0 + 8;
+  q += b * sqb + h * sqh;
+  k += b * skb + h * skh;
+  v += b * svb + h * svh;
+  dout += b * sdb + h * sdh;
+  dk += b * skgb + h * skgh;
+  dv += b * svgb + h * svgh;
+  key_bias += (long long)b * lk;
+  lse += (long long)bh * lq;
+  delta += (long long)bh * lq;
+
+  int live = 0;
+  if (threadIdx.x < BK) {
+    const int key = key0 + threadIdx.x;
+    live = key < lk && key_bias[key] > 0.5f * NEG_INF;
+  }
+  float dkacc[D / 8][4], dvacc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    dkacc[n][0] = dkacc[n][1] = dkacc[n][2] = dkacc[n][3] = 0.f;
+    dvacc[n][0] = dvacc[n][1] = dvacc[n][2] = dvacc[n][3] = 0.f;
+  }
+  if (!__syncthreads_or(live)) {  // every key of the block masked: zero gradients
+    store_rows(dk, skgn, krow0, lk, dkacc, 0.f);
+    store_rows(dv, svgn, krow0, lk, dvacc, 0.f);
+    return;
+  }
+  const float kb0 = kr0 < lk ? key_bias[kr0] : NEG_INF;
+  const float kb1 = kr1 < lk ? key_bias[kr1] : NEG_INF;
+  uint32_t ka[D / 16][4], va[D / 16][4];
+  load_q<D>(ka, k, skn, krow0, lk);
+  load_q<D>(va, v, svn, krow0, lk);
+
+  const int nqt = (lq + BQ - 1) / BQ;
+  for (int qt = 0; qt < nqt; ++qt) {
+    const int q0 = qt * BQ;
+    __syncthreads();  // the previous tile's readers are done
+    stage_rows<BQ, D, PD>(&qs[0][0], q, sqn, q0, lq);
+    stage_rows<BQ, D, PD>(&dos[0][0], dout, sdn, q0, lq);
+    if (threadIdx.x < BQ) {
+      const int row = q0 + threadIdx.x;
+      lse_s[threadIdx.x] = row < lq ? lse[row] : NEG_INF;
+      delta_s[threadIdx.x] = row < lq ? delta[row] : 0.f;
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    float s[BQ / 8][4], dp[BQ / 8][4];
+    qk_tile<D>(s, ka, qs);    // S^T = K Q^T (16 keys x 64 queries)
+    qk_tile<D>(dp, va, dos);  // dP^T = V dO^T
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const int c0 = j * 8 + 2 * t, c1 = c0 + 1;
+      const float L0 = lse_s[c0], L1 = lse_s[c1], D0 = delta_s[c0], D1 = delta_s[c1];
+      const bool ok0 = L0 > 0.5f * NEG_INF, ok1 = L1 > 0.5f * NEG_INF;
+      const float p00 = ok0 ? __expf(s[j][0] * sm_scale + kb0 - L0) : 0.f;
+      const float p01 = ok1 ? __expf(s[j][1] * sm_scale + kb0 - L1) : 0.f;
+      const float p10 = ok0 ? __expf(s[j][2] * sm_scale + kb1 - L0) : 0.f;
+      const float p11 = ok1 ? __expf(s[j][3] * sm_scale + kb1 - L1) : 0.f;
+      s[j][0] = p00;
+      s[j][1] = p01;
+      s[j][2] = p10;
+      s[j][3] = p11;
+      dp[j][0] = p00 * (dp[j][0] - D0);  // dS^T
+      dp[j][1] = p01 * (dp[j][1] - D1);
+      dp[j][2] = p10 * (dp[j][2] - D0);
+      dp[j][3] = p11 * (dp[j][3] - D1);
+    }
+    mma_tile_x(dvacc, s, &dos[0][0]);  // dV += bf16(P^T) dO
+    mma_tile_x(dkacc, dp, &qs[0][0]);  // dK += bf16(dS^T) Q
+  }
+  store_rows(dk, skgn, krow0, lk, dkacc, sm_scale);
+  store_rows(dv, svgn, krow0, lk, dvacc, 1.f);
+}
+
+}  // namespace
+
+extern "C" int flash_sdpa_bwd_dq(const void* q, const void* k, const void* v,
+                                 const void* key_bias, const void* o, const void* dout,
+                                 const void* lse, void* delta, void* dq, int B, int H, int lq,
+                                 int lk, int d, float sm_scale, long long sqb, long long sqh,
+                                 long long sqn, long long skb, long long skh, long long skn,
+                                 long long svb, long long svh, long long svn, long long sob,
+                                 long long soh, long long son, long long sdb, long long sdh,
+                                 long long sdn, long long sgb, long long sgh, long long sgn,
+                                 void* stream) {
+  if (d != D) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = dq_smem_bytes(lk);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((lq + BQ - 1) / BQ, B * H);
+  bwd_dq_kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(key_bias),
+      static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(lse), static_cast<float*>(delta),
+      static_cast<__nv_bfloat16*>(dq), H, lq, lk, sm_scale, sqb, sqh, sqn, skb, skh, skn, svb,
+      svh, svn, sob, soh, son, sdb, sdh, sdn, sgb, sgh, sgn);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int flash_sdpa_bwd_dkv(const void* q, const void* k, const void* v,
+                                  const void* key_bias, const void* dout, const void* lse,
+                                  const void* delta, void* dk, void* dv, int B, int H, int lq,
+                                  int lk, int d, float sm_scale, long long sqb, long long sqh,
+                                  long long sqn, long long skb, long long skh, long long skn,
+                                  long long svb, long long svh, long long svn, long long sdb,
+                                  long long sdh, long long sdn, long long skgb, long long skgh,
+                                  long long skgn, long long svgb, long long svgh,
+                                  long long svgn, void* stream) {
+  if (d != D) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((lk + BK - 1) / BK, B * H);
+  bwd_dkv_kernel<<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(key_bias),
+      static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), H, lq, lk, sm_scale, sqb, sqh, sqn, skb, skh, skn, svb,
+      svh, svn, sdb, sdh, sdn, skgb, skgh, skgn, svgb, svgh, svgn);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -104,9 +104,14 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """flax nn.BatchNorm at inference (running statistics), NHWC or (B, L, C).
+    """flax nn.BatchNorm (momentum 0.9) over the last axis, NHWC or (B, L, C).
 
-    Statistics and parameters stay fp32; the result is cast to ``dtype``.
+    In eval mode it normalises with the running statistics. In training
+    mode it normalises with the batch's fp32 statistics (flax's fast
+    variance, max(E[x^2] - E[x]^2, 0), which is the biased one) and updates
+    the running statistics as flax does: r = 0.9 r + 0.1 batch, the biased
+    variance included (torch's nn.BatchNorm2d would update with the
+    unbiased one). Parameters stay fp32; the result is cast to ``dtype``.
     """
 
     def __init__(self, num_features: int, eps: float = 1e-5,
@@ -121,8 +126,17 @@ class BatchNorm(nn.Module):
 
     def forward(self, x):
         dt = _cdtype(x, self.dtype)
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean) * mul + self.bias
+        xf = x.float()
+        if self.training:
+            mean, var = _fast_stats(xf, tuple(range(x.ndim - 1)))
+            mean, var = mean.reshape(-1), var.reshape(-1)
+            with torch.no_grad():
+                self.running_mean.mul_(0.9).add_(0.1 * mean)
+                self.running_var.mul_(0.9).add_(0.1 * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean) * mul + self.bias
         return y.to(dt)
 
 
@@ -241,14 +255,25 @@ class FusedLayerNorm(nn.Module):
 ACT = {"relu": F.relu, "gelu": gelu_exact}
 
 
+def dropout(x, p: float, training: bool):
+    """flax nn.Dropout: in training, zero with probability p and scale the
+    rest by 1 / (1 - p); otherwise (or at p = 0) the identity. The random
+    bits are torch's, not JAX's."""
+    if not training or p == 0.0:
+        return x
+    return F.dropout(x, p, True)
+
+
 class MLP(nn.Module):
-    """Detectron-style MLP (inference): ReLU between layers, optional
-    residual, output LayerNorm and sigmoid."""
+    """Detectron-style MLP: ReLU between layers (each followed by dropout
+    in training when ``dropout`` > 0), optional residual, output LayerNorm
+    and sigmoid."""
 
     def __init__(self, input_dim: int, hidden_dim: int, output_dim: int, num_layers: int,
                  residual: bool = False, out_norm: bool = False, sigmoid_output: bool = False,
-                 dtype: Optional[torch.dtype] = None):
+                 dropout: float = 0.0, dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dropout = dropout
         dims_in = [input_dim] + [hidden_dim] * (num_layers - 1)
         dims_out = [hidden_dim] * (num_layers - 1) + [output_dim]
         self.layers = nn.ModuleList(
@@ -263,7 +288,7 @@ class MLP(nn.Module):
         for i, layer in enumerate(self.layers):
             x = layer(x)
             if i < len(self.layers) - 1:
-                x = F.relu(x)
+                x = dropout(F.relu(x), self.dropout, self.training)
         if self.residual:
             x = x + inp
         if self.out_norm_ln is not None:
@@ -416,9 +441,10 @@ class MultiheadAttention(nn.Module):
 
     def forward(self, q, k, v, key_padding_mask=None, rpb=None):
         """key_padding_mask: (B, Nk) bool, True = PAD. rpb: the decomposed
-        boxRPB bias (ey, ex, (h, w)); on CUDA it runs on the flash_xattn_rpb
-        kernel (inference: the port has no backward), otherwise the full
-        bias is built for the matmul path."""
+        boxRPB bias (ey, ex, (h, w)); on CUDA in eval mode it runs on the
+        flash_xattn_rpb kernel, otherwise (the CPU, or training: the kernel
+        is forward-only, as the JAX decoder's rpb_kernel=not train) the
+        full bias is built for the matmul path."""
         qh = split_heads(self.q_proj(q), self.num_heads)
         kh = split_heads(self.k_proj(k), self.num_heads)
         vh = split_heads(self.v_proj(v), self.num_heads)
@@ -428,7 +454,7 @@ class MultiheadAttention(nn.Module):
             if key_padding_mask is not None:
                 raise ValueError("rpb attention takes no key padding mask")
             ey, ex, feat_hw = rpb
-            if qh.is_cuda:
+            if qh.is_cuda and not self.training:
                 out = flash_xattn_rpb(qh, kh, vh, ey, ex, feat_hw,
                                       1.0 / math.sqrt(qh.shape[-1]))
                 return self.out_proj(merge_heads(out))

@@ -1,12 +1,15 @@
 """DETR-style transformer decoder with box refinement, boxRPB attention
 bias and a presence token; dot-product scoring.
 
-Counterpart of efficientsam3_tpu/models/decoder.py (inference): 6 layers,
-200 queries, d_model 256, ff 2048, 8 heads, text cross-attention, box
-refinement, boxRPB "log", presence token. DAC (duplicated queries) runs
-only when asked (``apply_dac``); the image model never asks at inference.
-The boxRPB bias is kept decomposed as (ey, ex); on CUDA the image
-cross-attention rebuilds it per tile in the flash_xattn_rpb kernel.
+Counterpart of efficientsam3_tpu/models/decoder.py: 6 layers, 200
+queries, d_model 256, ff 2048, 8 heads, text cross-attention, box
+refinement, boxRPB "log", presence token. DAC (duplicated o2o + o2m
+queries) runs only when asked (``apply_dac``): the image model asks in
+training, as the JAX model does. The boxRPB bias is kept decomposed as
+(ey, ex); on CUDA in eval mode the image cross-attention rebuilds it per
+tile in the flash_xattn_rpb kernel, in training it takes the full bias on
+the matmul path (the kernel is forward-only). Training mode also applies
+dropout (0.1) where the JAX layers do.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from efficientsam3_tpu_torch.models.common import (
     Embed,
     LayerNorm,
     MultiheadAttention,
+    dropout,
 )
 
 
@@ -63,8 +67,9 @@ class DecoderLayer(nn.Module):
     cross-attn with boxRPB bias -> FFN (fp32)."""
 
     def __init__(self, d_model: int = 256, dim_feedforward: int = 2048, num_heads: int = 8,
-                 dtype: Optional[torch.dtype] = None):
+                 dropout: float = 0.1, dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dropout = dropout
         self.self_attn = MultiheadAttention(d_model, num_heads, dtype=dtype)
         self.norm2 = LayerNorm(d_model, 1e-5)
         self.ca_text = MultiheadAttention(d_model, num_heads, dtype=dtype)
@@ -77,6 +82,7 @@ class DecoderLayer(nn.Module):
 
     def forward(self, tgt, query_pos, memory, memory_pos, rpb, memory_text=None,
                 text_key_padding_mask=None, presence_token=None, dac: bool = False):
+        p, train = self.dropout, self.training
         nq = tgt.shape[1]
         if dac:
             q_half = nq // 2
@@ -91,21 +97,21 @@ class DecoderLayer(nn.Module):
         else:
             query_pos_full = query_pos
         qk = tgt_o2o + pos_o2o
-        tgt_o2o = tgt_o2o + self.self_attn(qk, qk, tgt_o2o)
+        tgt_o2o = tgt_o2o + dropout(self.self_attn(qk, qk, tgt_o2o), p, train)
         tgt = torch.cat([tgt_o2o, tgt_o2m], dim=1) if dac else tgt_o2o
         tgt = self.norm2(tgt)
 
         if memory_text is not None:
             t2 = self.ca_text(tgt + query_pos_full, memory_text, memory_text,
                               key_padding_mask=text_key_padding_mask)
-            tgt = self.catext_norm(tgt + t2)
+            tgt = self.catext_norm(tgt + dropout(t2, p, train))
 
         k = memory + memory_pos if memory_pos is not None else memory
         t2 = self.cross_attn(tgt + query_pos_full, k, memory, rpb=rpb)
-        tgt = self.norm1(tgt + t2)
+        tgt = self.norm1(tgt + dropout(t2, p, train))
 
-        t2 = self.linear2(F.relu(self.linear1(tgt.float())))
-        tgt = self.norm3(tgt + t2.to(tgt.dtype))
+        t2 = self.linear2(dropout(F.relu(self.linear1(tgt.float())), p, train))
+        tgt = self.norm3(tgt + dropout(t2.to(tgt.dtype), p, train))
         if presence_token is not None:
             return tgt[:, 1:], tgt[:, :1]
         return tgt, None
@@ -115,7 +121,7 @@ class TransformerDecoder(nn.Module):
     """The image model's decoder: boxRPB "log" and the presence token."""
 
     def __init__(self, num_layers: int = 6, num_queries: int = 200, d_model: int = 256,
-                 dim_feedforward: int = 2048, num_heads: int = 8,
+                 dim_feedforward: int = 2048, num_heads: int = 8, dropout: float = 0.1,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         d = d_model
@@ -132,7 +138,8 @@ class TransformerDecoder(nn.Module):
         self.presence_token_head = MLP(d, d, 1, 3)
         self.presence_token_out_norm = LayerNorm(d, 1e-5)
         self.layers = nn.ModuleList(
-            DecoderLayer(d, dim_feedforward, num_heads, dtype=dtype) for _ in range(num_layers)
+            DecoderLayer(d, dim_feedforward, num_heads, dropout, dtype=dtype)
+            for _ in range(num_layers)
         )
 
     def _rpb_decomposed(self, reference_boxes, feat_hw):
@@ -200,11 +207,12 @@ class DotProductScoring(nn.Module):
     (B, T, C), prompt_mask (B, T) True = pad -> (L, B, NQ, 1)."""
 
     def __init__(self, d_model: int = 256, d_proj: int = 256, clamp_max_val: float = 12.0,
-                 dtype: Optional[torch.dtype] = None):
+                 dropout: float = 0.1, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.d_proj = d_proj
         self.clamp_max_val = clamp_max_val
-        self.prompt_mlp = MLP(d_model, 2048, d_model, 2, residual=True, out_norm=True)
+        self.prompt_mlp = MLP(d_model, 2048, d_model, 2, residual=True, out_norm=True,
+                              dropout=dropout)
         self.prompt_proj = Dense(d_model, d_proj, dtype=dtype)
         self.hs_proj = Dense(d_model, d_proj, dtype=dtype)
 

@@ -5,7 +5,8 @@ each encoded by a direct coordinate projection + pooled image features
 (roi_align / grid_sample) + a sine position encoding, summed with label
 embeddings; a CLS token is appended; a linear + LayerNorm; then 3
 FusionEncoderLayers (self-attention over the prompt, cross-attention to
-the image tokens with sine positions on the keys). The Prompt keeps the
+the image tokens with sine positions on the keys; dropout 0.1 in training).
+The Prompt keeps the
 JAX package's fixed-width padding: "no boxes" is an all-masked row.
 """
 
@@ -93,7 +94,7 @@ class SequenceGeometryEncoder(nn.Module):
     """Prompt -> (B, T, C) tokens + (B, T) pad mask; order [points, boxes, CLS]."""
 
     def __init__(self, d_model: int = 256, num_layers: int = 3, roi_size: int = 7,
-                 num_heads: int = 8, dim_feedforward: int = 2048,
+                 num_heads: int = 8, dim_feedforward: int = 2048, dropout: float = 0.1,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         d = d_model
@@ -113,7 +114,8 @@ class SequenceGeometryEncoder(nn.Module):
         self.encode = nn.ModuleList(
             FusionEncoderLayer(d, dim_feedforward, num_heads, pos_enc_at_attn=False,
                                pos_enc_at_cross_attn_keys=True,
-                               pos_enc_at_cross_attn_queries=False, dtype=dtype)
+                               pos_enc_at_cross_attn_queries=False, dropout=dropout,
+                               dtype=dtype)
             for _ in range(num_layers)
         )
         self.encode_norm = LayerNorm(d, 1e-5)

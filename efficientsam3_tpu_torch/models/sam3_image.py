@@ -4,7 +4,14 @@ Counterpart of efficientsam3_tpu/models/sam3_image.py with the same three
 entry methods and outputs: ``encode_image`` (FPN levels after scalp=1,
 NHWC, and their sine position embeddings), ``encode_text`` (text memory and
 pad mask) and ``ground`` (geometry encoder, fusion encoder, decoder,
-scoring, boxes and masks). Inference only.
+scoring, boxes and masks).
+
+Training is the module's training mode (``model.train()``), the JAX
+``train=True``: BatchNorm takes batch statistics, dropout is on, the
+decoder runs DAC (o2o + o2m queries), the boxRPB attention takes its
+differentiable matmul path, and ``ground`` adds the training outputs
+(``aux`` per-layer logits, boxes and presence logits, the ``*_o2m``
+outputs and ``all_presence_logits``).
 """
 
 from __future__ import annotations
@@ -33,7 +40,8 @@ class Sam3ImageModel(nn.Module):
     def __init__(self, trunk: nn.Module, text_encoder_type: str = "MobileCLIP-S0",
                  text_context_length: int = 77, d_model: int = 256, num_queries: int = 200,
                  add_sam2_neck: bool = False, fusion_layers: int = 6, decoder_layers: int = 6,
-                 trunk_dim: int = 1024, dtype: Optional[torch.dtype] = None):
+                 trunk_dim: int = 1024, dropout: float = 0.1,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if text_encoder_type is None:
             raise NotImplementedError(
@@ -45,11 +53,13 @@ class Sam3ImageModel(nn.Module):
         self.neck = DualFPNNeck(trunk_dim, d_model, add_sam2_neck=add_sam2_neck, dtype=dtype)
         self.text_encoder = TextStudentEncoder(text_encoder_type, text_context_length,
                                                d_model, dtype=dtype)
-        self.geometry_encoder = SequenceGeometryEncoder(d_model=d_model, dtype=dtype)
-        self.fusion_encoder = FusionEncoder(fusion_layers, d_model, dtype=dtype)
-        self.decoder = TransformerDecoder(decoder_layers, num_queries, d_model, dtype=dtype)
+        self.geometry_encoder = SequenceGeometryEncoder(d_model=d_model, dropout=dropout,
+                                                        dtype=dtype)
+        self.fusion_encoder = FusionEncoder(fusion_layers, d_model, dropout=dropout, dtype=dtype)
+        self.decoder = TransformerDecoder(decoder_layers, num_queries, d_model, dropout=dropout,
+                                          dtype=dtype)
         self.seg_head = UniversalSegmentationHead(d_model, dtype=dtype)
-        self.scoring = DotProductScoring(d_model, dtype=dtype)
+        self.scoring = DotProductScoring(d_model, dropout=dropout, dtype=dtype)
 
     def encode_image(self, images):
         """images (B, H, W, 3) normalized -> {"fpn": [4x, 2x, 1x] NHWC levels,
@@ -79,13 +89,14 @@ class Sam3ImageModel(nn.Module):
 
         memory = self.fusion_encoder(img_tokens, img_pos, full_prompt, full_mask)
         dec = self.decoder(memory, (h, w), memory_pos=img_pos[None].expand(memory.shape),
-                           memory_text=full_prompt, text_key_padding_mask=full_mask)
+                           memory_text=full_prompt, text_key_padding_mask=full_mask,
+                           apply_dac=self.training)
         hs = dec["hs"]
         logits = self.scoring(hs, full_prompt, full_mask)
         boxes = torch.sigmoid(self.decoder.bbox_embed(hs) + inverse_sigmoid(dec["references"]))
         seg = self.seg_head(fpn, hs[-1], memory, full_prompt, full_mask)
         nq = self.num_queries
-        return {
+        out = {
             "pred_logits": logits[-1][:, :nq],
             "pred_boxes": boxes[-1][:, :nq],
             "pred_boxes_xyxy": box_cxcywh_to_xyxy(boxes[-1][:, :nq]),
@@ -95,6 +106,17 @@ class Sam3ImageModel(nn.Module):
             "queries": hs[-1][:, :nq],
             "encoder_hidden_states": memory,
         }
+        if self.training:
+            out["aux"] = {
+                "pred_logits": logits[:-1],
+                "pred_boxes": boxes[:-1],
+                "presence_logits": dec["presence_logits"][:-1],
+            }
+            out["pred_logits_o2m"] = logits[-1][:, nq:]
+            out["pred_boxes_o2m"] = boxes[-1][:, nq:]
+            out["pred_masks_o2m"] = seg["pred_masks"][:, nq:]
+            out["all_presence_logits"] = dec["presence_logits"]
+        return out
 
     def forward(self, images, tokens, prompt: Prompt):
         img = self.encode_image(images)

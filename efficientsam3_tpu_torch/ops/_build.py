@@ -22,6 +22,8 @@ import tempfile
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = [
@@ -103,3 +105,19 @@ def check(status: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error (cudaGetLastError)."""
     if status != 0:
         raise RuntimeError(f"{what}: CUDA error {status}")
+
+
+def needs_grad(*tensors) -> bool:
+    """True when autograd records this call: grad mode is on and an input
+    requires a gradient."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """A forward-only kernel's output would be cut from the autograd graph:
+    raise instead of returning it."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{name} kernel is forward-only: an input requires a gradient. Run it under "
+            "torch.no_grad(), or take the differentiable path (the module's training mode)")

@@ -13,7 +13,9 @@ dispatch rule ``use_pallas_depthwise`` (channels a multiple of 128, maps
 within the VMEM budget) only existed for the TPU's lanes and fast memory;
 here every CXBlock depthwise on a CUDA tensor goes to the kernel. CPU
 tensors take the plain version; a CUDA tensor the kernel does not take
-(not bf16, a kernel size other than 7) raises. ``depthwise_conv2d.launches``
+(not bf16, a kernel size other than 7) raises, and so does a call that
+autograd would record (the kernel has no backward yet). CPU tensors are
+differentiated through the plain version. ``depthwise_conv2d.launches``
 counts the kernel's launches.
 """
 
@@ -59,6 +61,7 @@ def depthwise_conv2d(x, kernel, bias):
     (k, k, 1, C); bias (C,). Returns (B, H, W, C) in x.dtype."""
     if not x.is_cuda:
         return depthwise_conv2d_plain(x, kernel, bias)
+    _build.refuse_grad("depthwise_conv2d", x, kernel, bias)
     b, h, w, c = x.shape
     k = kernel.shape[0]
     if x.dtype != torch.bfloat16:

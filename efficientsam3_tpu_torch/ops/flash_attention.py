@@ -1,9 +1,11 @@
-"""Flash attention forward kernels for the H100, with their plain versions.
+"""Flash attention kernels for the H100, with their plain versions.
 
 ``flash_sdpa`` replaces the Pallas ``flash_sdpa`` forward
 (efficientsam3_tpu/ops/pallas/flash_attention.py ``_flash_fwd`` /
 ``_kernel`` and ``_flash_fwd_packed`` / ``_packed_kernel``) at head dims 32
-(the fusion encoder) and 256 (the tracker's memory attention);
+(the fusion encoder) and 256 (the tracker's memory attention), and at head
+dim 32 its custom VJP (``_flash_bwd``: ``_bwd_dq_kernel`` and
+``_bwd_dkv_kernel``) through ``flash_sdpa_bwd_dq`` / ``flash_sdpa_bwd_dkv``;
 ``flash_memattn`` replaces ``flash_memattn`` / ``_memattn_kernel`` and
 ``_memattn_kernel_lse`` (the tracker's cached memory bank, raw dv = 64
 values); ``flash_xattn_rpb`` replaces ``flash_xattn_rpb`` /
@@ -15,12 +17,17 @@ through ctypes on PyTorch's current stream.
 Each wrapper takes the plain PyTorch version for CPU tensors and launches
 its kernel for CUDA tensors, raising on what the kernel does not take
 (dtype other than bf16, head dims it was not built for). Each counts its
-kernel launches in ``<wrapper>.launches``.
+kernel launches in ``<wrapper>.launches``. Under autograd (grad mode on and
+an input requiring a gradient) ``flash_sdpa`` runs as an autograd Function
+whose backward is the two backward kernels; the forward-only
+``flash_memattn`` and ``flash_xattn_rpb`` raise there rather than return a
+tensor cut from the graph. On the CPU the plain versions are differentiated
+by autograd.
 
 Layouts follow the JAX package: (B, H, N, D) heads. The kernels take any
 strides over (B, H, N) with D contiguous, so ``split_heads`` views go in
-without a copy, and they write the output in (B, N, H, D) memory order so
-that ``merge_heads`` is a view.
+without a copy, and they write the output (and the gradients) in
+(B, N, H, D) memory order so that ``merge_heads`` is a view.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from efficientsam3_tpu_torch.ops import _build
 
 NEG_INF = -1e9
 _SUPPORTED_D = (32, 256)
+_BWD_D = (32,)  # head dims of the backward kernels (the fusion encoder)
 _MEMATTN_DIMS = ((256, 64),)  # (dk, dv) of flash_memattn's kernel
 _BK = 64  # key tile of the CUDA kernels (attn_common.cuh BK)
 _BQ = 64  # query tile (attn_common.cuh BQ)
@@ -122,17 +130,9 @@ def _lib_xattn():
     return fn
 
 
-def flash_sdpa(q, k, v, key_bias, sm_scale=None, return_lse=False):
-    """Flash scaled-dot-product attention forward.
-
-    q (B, H, Lq, D); k, v (B, H, Lk, D); key_bias (B, Lk) additive f32
-    logits bias (-1e9 for masked keys). Returns (B, H, Lq, D) in q.dtype,
-    and the (B, H, Lq) f32 log-sum-exp with return_lse.
-    """
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if not q.is_cuda:
-        return flash_sdpa_plain(q, k, v, key_bias, sm_scale, return_lse)
+def _flash_sdpa_fwd(q, k, v, key_bias, sm_scale, return_lse):
+    """Launch the forward kernel; (o, lse or None), o a (B, H, Lq, D) view
+    of (B, Lq, H, D) memory."""
     _check_heads("flash_sdpa", _SUPPORTED_D, q, k, v)
     b, h, lq, d = q.shape
     lk = k.shape[2]
@@ -155,10 +155,180 @@ def flash_sdpa(q, k, v, key_bias, sm_scale=None, return_lse=False):
         )
     _build.check(status, "flash_sdpa launch")
     flash_sdpa.launches += 1
-    return (o_bhn, lse) if return_lse else o_bhn
+    return o_bhn, lse
+
+
+class _FlashSdpaFn(torch.autograd.Function):
+    """flash_sdpa under autograd on CUDA: the forward kernel saves its
+    log-sum-exp, the backward runs the dq and dkv kernels (the JAX custom
+    VJP ``_fwd`` / ``_bwd``). key_bias gets a zero gradient, as there."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_bias, sm_scale):
+        o, lse = _flash_sdpa_fwd(q, k, v, key_bias, sm_scale, True)
+        ctx.save_for_backward(q, k, v, key_bias, o, lse)
+        ctx.sm_scale = sm_scale
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, key_bias, o, lse = ctx.saved_tensors
+        dq, delta = flash_sdpa_bwd_dq(q, k, v, key_bias, o, lse, do, ctx.sm_scale)
+        dk, dv = flash_sdpa_bwd_dkv(q, k, v, key_bias, do, lse, delta, ctx.sm_scale)
+        dbias = torch.zeros_like(key_bias) if ctx.needs_input_grad[3] else None
+        return dq, dk, dv, dbias, None
+
+
+def flash_sdpa(q, k, v, key_bias, sm_scale=None, return_lse=False):
+    """Flash scaled-dot-product attention.
+
+    q (B, H, Lq, D); k, v (B, H, Lk, D); key_bias (B, Lk) additive f32
+    logits bias (-1e9 for masked keys). Returns (B, H, Lq, D) in q.dtype,
+    and the (B, H, Lq) f32 log-sum-exp with return_lse. When autograd
+    records the call (grad mode on, an input requiring a gradient) it runs
+    as ``_FlashSdpaFn``, whose backward is the dq and dkv kernels (head dim
+    32 only); CPU tensors are differentiated through the plain version.
+    """
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if not q.is_cuda:
+        return flash_sdpa_plain(q, k, v, key_bias, sm_scale, return_lse)
+    if _build.needs_grad(q, k, v, key_bias):
+        _check_heads("flash_sdpa backward", _BWD_D, q)
+        o, lse = _FlashSdpaFn.apply(q, k, v, key_bias, float(sm_scale))
+    else:
+        o, lse = _flash_sdpa_fwd(q, k, v, key_bias, sm_scale, return_lse)
+    return (o, lse) if return_lse else o
 
 
 flash_sdpa.launches = 0
+
+
+# --------------------------------------------------------------------------
+# flash_sdpa backward: csrc/flash_sdpa_bwd.cu and its plain version
+# --------------------------------------------------------------------------
+
+
+def _bwd_p_ds(q, k, v, key_bias, lse, do, delta, sm_scale):
+    """P rebuilt from the saved log-sum-exp (0 on rows whose lse is masked)
+    and dS = P o (dO V^T - Delta), fp32."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    s = s + key_bias.float()[:, None, None, :]
+    valid = (lse > NEG_INF / 2)[..., None]
+    p = torch.where(valid, torch.exp(s - lse[..., None]), torch.zeros_like(s))
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    return p, p * (dp - delta[..., None])
+
+
+def flash_sdpa_bwd_dq_plain(q, k, v, key_bias, o, lse, do, sm_scale):
+    """The dq kernel's arithmetic: (dQ in q.dtype, Delta = rowsum(dO o O)
+    fp32). dS is rounded to k's dtype before the product, the scale applied
+    at the end."""
+    delta = (do.float() * o.float()).sum(-1)
+    _, ds = _bwd_p_ds(q, k, v, key_bias, lse, do, delta, sm_scale)
+    dq = torch.matmul(ds.to(k.dtype).float(), k.float()) * sm_scale
+    return dq.to(q.dtype), delta
+
+
+def flash_sdpa_bwd_dkv_plain(q, k, v, key_bias, do, lse, delta, sm_scale):
+    """The dkv kernel's arithmetic: dV = bf16(P)^T dO, dK = scale *
+    bf16(dS)^T Q (P rounded to dO's dtype, dS to q's), in k's and v's
+    dtypes."""
+    p, ds = _bwd_p_ds(q, k, v, key_bias, lse, do, delta, sm_scale)
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float()) * sm_scale
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_sdpa_bwd_plain(q, k, v, key_bias, o, lse, do, sm_scale=None):
+    """(dq, dk, dv) of flash_sdpa from its saved output and log-sum-exp:
+    the arithmetic of the JAX ``_flash_bwd`` and of the two kernels."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    dq, delta = flash_sdpa_bwd_dq_plain(q, k, v, key_bias, o, lse, do, sm_scale)
+    dk, dv = flash_sdpa_bwd_dkv_plain(q, k, v, key_bias, do, lse, delta, sm_scale)
+    return dq, dk, dv
+
+
+def _lib_bwd(name, n_ptr):
+    fn = getattr(_build.load("flash_sdpa_bwd"), name)
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * n_ptr + [_I] * 5 + [_F] + [_LL] * 18 + [_P]
+        fn.restype = _I
+    return fn
+
+
+def _check_bwd(q, k, v, key_bias, lse, *rest):
+    _check_heads("flash_sdpa backward", _BWD_D, q, k, v, *rest)
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    if (k.shape != (b, h, lk, d) or v.shape != k.shape or key_bias.shape != (b, lk)
+            or lse.shape != (b, h, lq) or any(t.shape != q.shape for t in rest)):
+        raise ValueError(f"flash_sdpa backward shapes: q {q.shape} k {k.shape} v {v.shape} "
+                         f"key_bias {key_bias.shape} lse {lse.shape}")
+    return b, h, lq, lk, d
+
+
+def flash_sdpa_bwd_dq(q, k, v, key_bias, o, lse, do, sm_scale):
+    """dQ of flash_sdpa and Delta = rowsum(dO o O): (dq (B, H, Lq, D) in
+    q.dtype, delta (B, H, Lq) f32). One kernel launch on CUDA (head dim 32,
+    bf16), counted in ``flash_sdpa_bwd_dq.launches``; the plain version for
+    CPU tensors."""
+    if not q.is_cuda:
+        return flash_sdpa_bwd_dq_plain(q, k, v, key_bias, o, lse, do, sm_scale)
+    b, h, lq, lk, d = _check_bwd(q, k, v, key_bias, lse, o, do)
+    q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do))
+    key_bias = key_bias.float().contiguous()
+    lse = lse.float().contiguous()
+    delta = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    dq = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    with torch.cuda.device(q.device):  # the launch goes to the current device
+        status = _lib_bwd("flash_sdpa_bwd_dq", 9)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            b, h, lq, lk, d, float(sm_scale),
+            *_bhn_strides(q), *_bhn_strides(k), *_bhn_strides(v), *_bhn_strides(o),
+            *_bhn_strides(do), *_bhn_strides(dq),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(status, "flash_sdpa_bwd_dq launch")
+    flash_sdpa_bwd_dq.launches += 1
+    return dq, delta
+
+
+flash_sdpa_bwd_dq.launches = 0
+
+
+def flash_sdpa_bwd_dkv(q, k, v, key_bias, do, lse, delta, sm_scale):
+    """dK and dV of flash_sdpa, given Delta from ``flash_sdpa_bwd_dq``:
+    (dk, dv) (B, H, Lk, D) in k's / v's dtype. One kernel launch on CUDA,
+    counted in ``flash_sdpa_bwd_dkv.launches``; the plain version for CPU
+    tensors."""
+    if not q.is_cuda:
+        return flash_sdpa_bwd_dkv_plain(q, k, v, key_bias, do, lse, delta, sm_scale)
+    b, h, lq, lk, d = _check_bwd(q, k, v, key_bias, lse, do)
+    q, k, v, do = (_aligned(t) for t in (q, k, v, do))
+    key_bias = key_bias.float().contiguous()
+    lse = lse.float().contiguous()
+    delta = delta.float().contiguous()
+    dk = torch.empty((b, lk, h, d), dtype=k.dtype, device=q.device).transpose(1, 2)
+    dv = torch.empty((b, lk, h, d), dtype=v.dtype, device=q.device).transpose(1, 2)
+    with torch.cuda.device(q.device):  # the launch goes to the current device
+        status = _lib_bwd("flash_sdpa_bwd_dkv", 9)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, h, lq, lk, d, float(sm_scale),
+            *_bhn_strides(q), *_bhn_strides(k), *_bhn_strides(v), *_bhn_strides(do),
+            *_bhn_strides(dk), *_bhn_strides(dv),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(status, "flash_sdpa_bwd_dkv launch")
+    flash_sdpa_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_sdpa_bwd_dkv.launches = 0
 
 
 def padded_bank_len(lk: int) -> int:
@@ -202,6 +372,7 @@ def flash_memattn(q, k, v, key_bias, sm_scale=None, return_lse=False):
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if not q.is_cuda:
         return flash_memattn_plain(q, k, v, key_bias, sm_scale, return_lse)
+    _build.refuse_grad("flash_memattn", q, k, v, key_bias)
     _check_bf16("flash_memattn", q, k, v)
     b, h, lq, dk = q.shape
     lk, dv = k.shape[2], v.shape[-1]
@@ -280,6 +451,7 @@ def flash_xattn_rpb(q, k, v, ey, ex, feat_hw, sm_scale=None):
         sm_scale = 1.0 / math.sqrt(d)
     if not q.is_cuda:
         return flash_xattn_rpb_plain(q, k, v, ey, ex, feat_hw, sm_scale)
+    _build.refuse_grad("flash_xattn_rpb", q, k, v, ey, ex)
     _check_heads("flash_xattn_rpb", (32,), q, k, v)
     if h_img >= 128 or w_img >= 128:
         raise ValueError(f"flash_xattn_rpb kernel takes maps under 128x128, got {feat_hw}")

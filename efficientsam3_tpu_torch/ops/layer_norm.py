@@ -1,16 +1,30 @@
-"""Row LayerNorm forward: a Triton kernel for CUDA, its plain version for CPU.
+"""Row LayerNorm: Triton kernels (forward and backward) for CUDA, their
+plain versions for CPU.
 
-Replaces the Pallas kernel ``efficientsam3_tpu/ops/pallas/layer_norm.py``
-(``_fwd_call`` / ``_fwd_kernel``): y = (x - mean) / sqrt(var + eps) * w + b
-over the last axis, fp32 statistics, biased (two-pass) variance, eps inside
-the sqrt, output in the dtype the caller asks for (bf16 on the grounding
-path, so the consumer projections read half the bytes).
+Replaces the Pallas kernels ``efficientsam3_tpu/ops/pallas/layer_norm.py``
+(``_fwd_call`` / ``_fwd_kernel`` and ``_bwd_call`` / ``_bwd_kernel``): y =
+(x - mean) / sqrt(var + eps) * w + b over the last axis, fp32 statistics,
+biased (two-pass) variance, eps inside the sqrt, output in the dtype the
+caller asks for (bf16 on the grounding path, so the consumer projections
+read half the bytes).
 
-On the H100 this is bound by bytes: one read of x and one write of y per
-row, ~5 flops per element. The kernel keeps each 256-channel row in
-registers (one program per row, statistics and normalisation in one pass
-over the loaded row), so x is read once and nothing but y is written. The
-``layer_norm`` wrapper counts its kernel launches in ``layer_norm.launches``.
+On the H100 both are bound by bytes: the forward reads x and writes y, the
+backward reads x and dy and writes dx, ~5-15 flops per element. The forward
+keeps each 256-channel row in registers (one program per row, statistics
+and normalisation in one pass over the loaded row), so x is read once and
+nothing but y is written. The backward recomputes the statistics from x, as
+the JAX VJP does (the forward saves no per-row residual), and computes
+dx = rstd * (wg - mean(wg) - xhat * mean(wg * xhat)) with wg = dy * w; one
+program walks ``_BWD_ROWS`` rows and keeps its partial column sums of
+dy * xhat and dy in registers, written once per program to an fp32 buffer
+that one reduction sums into dw and db. Triton rather than CUDA: a row-wise
+elementwise pass with two row reductions and no matrix product, so the
+tensor cores and CUDA's finer control have nothing to add.
+
+``layer_norm`` runs as an autograd Function (forward kernel, backward
+kernel) on CUDA tensors whenever autograd records the call; its launches
+are counted in ``layer_norm.launches`` and the backward's in
+``layer_norm_bwd.launches``.
 """
 
 from __future__ import annotations
@@ -21,10 +35,14 @@ import os
 import torch
 
 from efficientsam3_tpu_torch.ops._build import BUILD_DIR
+from efficientsam3_tpu_torch.ops._build import needs_grad as _needs_grad
+
+
+_BWD_ROWS = 32  # rows a backward program walks; its partial sums are one row of the buffer
 
 
 def layer_norm_plain(x, weight, bias, eps: float = 1e-5, out_dtype=None):
-    """The kernel's arithmetic in plain PyTorch (fp32 statistics)."""
+    """The forward kernel's arithmetic in plain PyTorch (fp32 statistics)."""
     out_dtype = out_dtype or x.dtype
     xf = x.float()
     mean = xf.mean(-1, keepdim=True)
@@ -57,11 +75,40 @@ def _triton_kernel():
         y = xc * rstd * w + b
         tl.store(Y + row * stride_y + cols, y.to(Y.dtype.element_ty), mask=inb)
 
-    return triton, _ln_fwd
+    @triton.jit
+    def _ln_bwd(X, W, G, DX, DWP, DBP, n_rows, n_cols, stride_x, stride_g, stride_dx, eps,
+                ROWS: tl.constexpr, BLOCK: tl.constexpr):
+        pid = tl.program_id(0)
+        cols = tl.arange(0, BLOCK)
+        inb = cols < n_cols
+        w = tl.load(W + cols, mask=inb, other=0.0).to(tl.float32)
+        dw = tl.zeros([BLOCK], dtype=tl.float32)
+        db = tl.zeros([BLOCK], dtype=tl.float32)
+        for i in range(ROWS):
+            row = pid * ROWS + i
+            m = inb & (row < n_rows)
+            x = tl.load(X + row * stride_x + cols, mask=m, other=0.0).to(tl.float32)
+            g = tl.load(G + row * stride_g + cols, mask=m, other=0.0).to(tl.float32)
+            mean = tl.sum(x, axis=0) / n_cols
+            xc = tl.where(inb, x - mean, 0.0)
+            var = tl.sum(xc * xc, axis=0) / n_cols
+            rstd = 1.0 / tl.sqrt(var + eps)
+            xhat = xc * rstd
+            wg = g * w
+            c1 = tl.sum(wg, axis=0) / n_cols
+            c2 = tl.sum(wg * xhat, axis=0) / n_cols
+            dx = rstd * (wg - c1 - xhat * c2)
+            tl.store(DX + row * stride_dx + cols, dx.to(DX.dtype.element_ty), mask=m)
+            dw += g * xhat
+            db += g
+        tl.store(DWP + pid * n_cols + cols, dw, mask=inb)
+        tl.store(DBP + pid * n_cols + cols, db, mask=inb)
+
+    return triton, _ln_fwd, _ln_bwd
 
 
 def _launch(x2, weight, bias, eps, out_dtype):
-    triton, kernel = _triton_kernel()
+    triton, kernel, _ = _triton_kernel()
     rows, c = x2.shape
     y = torch.empty((rows, c), dtype=out_dtype, device=x2.device)
     block = triton.next_power_of_2(c)
@@ -72,31 +119,112 @@ def _launch(x2, weight, bias, eps, out_dtype):
     return y
 
 
-def layer_norm(x, weight, bias, eps: float = 1e-5, out_dtype=None):
-    """LayerNorm over the last axis of x (any leading rank).
-
-    CPU tensors take the plain version; CUDA tensors launch the Triton
-    kernel (x in fp32 or bf16, output in ``out_dtype``, default x.dtype).
-    """
-    out_dtype = out_dtype or x.dtype
-    if not x.is_cuda:
-        return layer_norm_plain(x, weight, bias, eps, out_dtype)
+def _check(x, out_dtype):
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"layer_norm kernel takes float32 or bfloat16, got {x.dtype}")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"layer_norm kernel writes float32 or bfloat16, got {out_dtype}")
-    c = x.shape[-1]
-    if c > 8192:
-        raise ValueError(f"layer_norm kernel keeps one row in registers; {c} channels is too wide")
-    x2 = x.reshape(-1, c)
-    if x2.stride(-1) != 1:
-        x2 = x2.contiguous()
+    if x.shape[-1] > 8192:
+        raise ValueError(f"layer_norm kernel keeps one row in registers; {x.shape[-1]} "
+                         "channels is too wide")
+
+
+def _rows(t):
+    t2 = t.reshape(-1, t.shape[-1])
+    return t2 if t2.stride(-1) == 1 else t2.contiguous()
+
+
+def _layer_norm_fwd(x, weight, bias, eps, out_dtype):
+    x2 = _rows(x)
     w = weight.float().contiguous()
     b = bias.float().contiguous()
     with torch.cuda.device(x.device):  # Triton launches on the current device
         y = _launch(x2, w, b, eps, out_dtype)
     layer_norm.launches += 1
     return y.reshape(x.shape)
+
+
+def layer_norm_bwd_plain(x, weight, g, eps: float = 1e-5):
+    """The backward kernel's arithmetic: (dx in x.dtype, dw, db fp32), the
+    statistics recomputed from x."""
+    xf = x.float()
+    gf = g.float()
+    mean = xf.mean(-1, keepdim=True)
+    xc = xf - mean
+    rstd = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
+    xhat = xc * rstd
+    wg = gf * weight.float()
+    c1 = wg.mean(-1, keepdim=True)
+    c2 = (wg * xhat).mean(-1, keepdim=True)
+    dx = rstd * (wg - c1 - xhat * c2)
+    c = x.shape[-1]
+    return (dx.to(x.dtype), (gf * xhat).reshape(-1, c).sum(0),
+            gf.reshape(-1, c).sum(0))
+
+
+def layer_norm_bwd(x, weight, g, eps: float = 1e-5):
+    """Gradients of layer_norm from its input and the output gradient g:
+    (dx in x.dtype, dw, db fp32). One Triton launch on CUDA (counted in
+    ``layer_norm_bwd.launches``) writes dx and per-program partial column
+    sums; one reduction sums those. The plain version for CPU tensors."""
+    if not x.is_cuda:
+        return layer_norm_bwd_plain(x, weight, g, eps)
+    _check(x, g.dtype)
+    if g.shape != x.shape:
+        raise ValueError(f"layer_norm backward: g {tuple(g.shape)} for x {tuple(x.shape)}")
+    x2, g2 = _rows(x), _rows(g)
+    rows, c = x2.shape
+    nprog = -(-rows // _BWD_ROWS)
+    dx = torch.empty((rows, c), dtype=x.dtype, device=x.device)
+    partial = torch.empty((2, nprog, c), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):  # Triton launches on the current device
+        triton, _, kernel = _triton_kernel()
+        block = triton.next_power_of_2(c)
+        kernel[(nprog,)](
+            x2, weight.float().contiguous(), g2, dx, partial[0], partial[1], rows, c,
+            x2.stride(0), g2.stride(0), dx.stride(0), float(eps),
+            ROWS=_BWD_ROWS, BLOCK=block, num_warps=max(1, min(8, block // 256)),
+        )
+    layer_norm_bwd.launches += 1
+    dwb = partial.sum(1)
+    return dx.reshape(x.shape), dwb[0], dwb[1]
+
+
+layer_norm_bwd.launches = 0
+
+
+class _LayerNormFn(torch.autograd.Function):
+    """layer_norm under autograd on CUDA: saves x and weight and recomputes
+    the statistics in the backward kernel (the JAX ``_vjp_fwd`` /
+    ``_vjp_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, out_dtype):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        return _layer_norm_fwd(x, weight, bias, eps, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        dx, dw, db = layer_norm_bwd(x, weight, g, ctx.eps)
+        return dx, dw.to(weight.dtype), db.to(weight.dtype), None, None
+
+
+def layer_norm(x, weight, bias, eps: float = 1e-5, out_dtype=None):
+    """LayerNorm over the last axis of x (any leading rank).
+
+    CPU tensors take the plain version; CUDA tensors launch the Triton
+    kernel (x in fp32 or bf16, output in ``out_dtype``, default x.dtype),
+    through ``_LayerNormFn`` when autograd records the call.
+    """
+    out_dtype = out_dtype or x.dtype
+    if not x.is_cuda:
+        return layer_norm_plain(x, weight, bias, eps, out_dtype)
+    _check(x, out_dtype)
+    if _needs_grad(x, weight, bias):
+        return _LayerNormFn.apply(x, weight, bias, eps, out_dtype)
+    return _layer_norm_fwd(x, weight, bias, eps, out_dtype)
 
 
 layer_norm.launches = 0

@@ -184,3 +184,159 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
                             torch.zeros(16, device=cuda))
     with pytest.raises(ValueError, match="kernel"):
         dw.depthwise_conv2d(x, torch.zeros(3, 3, 1, 16, device=cuda), torch.zeros(16, device=cuda))
+
+
+def _rel_err(got, want):
+    """max |got - want| over max |want| (fp32)."""
+    want = want.float()
+    return ((got.float() - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+
+
+def _bwd_inputs(dev, b, lq, lk):
+    """q/k/v, a key bias with a masked 64-key tile and a fully masked batch
+    row, the forward's output and lse, and dO as a strided (B, H, N, D)
+    view of a (B, N, H * D) gradient, as the fusion encoder hands it in."""
+    q, k, v = (_randn(dev, b, 8, n, 32) for n in (lq, lk, lk))
+    bias = torch.zeros((b, lk), device=dev)
+    bias[0, 64:128] = NEG_INF
+    bias[-1] = NEG_INF
+    o, lse = fa.flash_sdpa_plain(q, k, v, bias, return_lse=True)
+    do = _randn(dev, b, lq, 8 * 32).reshape(b, lq, 8, 32).transpose(1, 2)
+    return q, k, v, bias, o, lse, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lk", [(5184, 5184), (333, 517), (1, 64)])
+def test_flash_sdpa_bwd_kernels_match_plain(cuda, lq, lk):
+    """dq (and Delta) and dk/dv kernels against the plain backward: ragged
+    Lq/Lk, a masked key tile (skipped), a fully masked batch row (zero
+    gradients) and a strided dO. dQ/dK/dV are bf16 sums over Lk or Lq
+    terms in other orders: 2e-2 of each gradient's largest magnitude."""
+    q, k, v, bias, o, lse, do = _bwd_inputs(cuda, 2, lq, lk)
+    assert lq == 1 or not do.is_contiguous()
+    scale = 32 ** -0.5
+    n_dq, n_dkv = fa.flash_sdpa_bwd_dq.launches, fa.flash_sdpa_bwd_dkv.launches
+    dq, delta = fa.flash_sdpa_bwd_dq(q, k, v, bias, o, lse, do, scale)
+    dk, dv = fa.flash_sdpa_bwd_dkv(q, k, v, bias, do, lse, delta, scale)
+    torch.cuda.synchronize()
+    assert (fa.flash_sdpa_bwd_dq.launches, fa.flash_sdpa_bwd_dkv.launches) == (n_dq + 1, n_dkv + 1)
+    want_dq, want_delta = fa.flash_sdpa_bwd_dq_plain(q, k, v, bias, o, lse, do, scale)
+    want_dk, want_dv = fa.flash_sdpa_bwd_dkv_plain(q, k, v, bias, do, lse, want_delta, scale)
+    torch.testing.assert_close(delta, want_delta, atol=1e-4, rtol=1e-4)
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        assert _rel_err(got, want) < 2e-2
+    for g in (dq, dk, dv):
+        assert (g[-1] == 0).all()
+
+
+@pytest.mark.cuda
+def test_flash_sdpa_bwd_kernels_refuse_other_head_dims(cuda):
+    q = _randn(cuda, 1, 1, 64, 256)
+    bias = torch.zeros((1, 64), device=cuda)
+    lse = torch.zeros((1, 1, 64), device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_sdpa_bwd_dq(q, q, q, bias, q, lse, q, 0.0625)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_sdpa(q.requires_grad_(), q, q, bias)
+
+
+@pytest.mark.cuda
+def test_flash_sdpa_autograd_matches_plain_autograd(cuda):
+    """flash_sdpa under autograd (forward kernel, then the dq and dkv
+    kernels) against autograd through the plain forward, bf16 in both:
+    within 3e-2 of each gradient's largest magnitude (bf16 P and dS against
+    autograd's own rounding points); key_bias gets a zero gradient."""
+    q, k, v, bias, _, _, _ = _bwd_inputs(cuda, 2, 700, 700)
+    w = _randn(cuda, 2, 8, 700, 32, dtype=torch.float32)
+    grads = {}
+    for name, fn in (("kernel", fa.flash_sdpa), ("plain", fa.flash_sdpa_plain)):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, bias)]
+        (fn(*leaves).float() * w).sum().backward()
+        grads[name] = [t.grad for t in leaves]
+    for got, want in zip(grads["kernel"][:3], grads["plain"][:3]):
+        assert _rel_err(got, want) < 3e-2
+    assert (grads["kernel"][3] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype,g_dtype", [
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.float32),
+])
+@pytest.mark.parametrize("rows", [20736, 17])
+def test_layer_norm_bwd_kernel_matches_plain(cuda, x_dtype, g_dtype, rows):
+    """dx per row, dw/db summed over every row (fp32 partials of 32 rows,
+    then one sum): 1e-2 as for the forward, dw/db relative to their range."""
+    x = 3.0 * _randn(cuda, rows, 256, dtype=x_dtype)
+    w = 1.0 + 0.1 * _randn(cuda, 256, dtype=torch.float32)
+    g = _randn(cuda, rows, 256, dtype=g_dtype)
+    before = ln.layer_norm_bwd.launches
+    dx, dw, db = ln.layer_norm_bwd(x, w, g, 1e-5)
+    torch.cuda.synchronize()
+    assert ln.layer_norm_bwd.launches == before + 1 and dx.dtype == x_dtype
+    want_dx, want_dw, want_db = ln.layer_norm_bwd_plain(x, w, g, 1e-5)
+    torch.testing.assert_close(dx.float(), want_dx.float(), atol=TOL, rtol=TOL)
+    assert _rel_err(dw, want_dw) < 1e-4 and _rel_err(db, want_db) < 1e-4
+
+
+@pytest.mark.cuda
+def test_layer_norm_autograd_matches_plain_autograd(cuda):
+    x = (3.0 * _randn(cuda, 2, 300, 256, dtype=torch.float32)).requires_grad_()
+    w = (1.0 + 0.1 * _randn(cuda, 256, dtype=torch.float32)).requires_grad_()
+    b = (0.1 * _randn(cuda, 256, dtype=torch.float32)).requires_grad_()
+    g = _randn(cuda, 2, 300, 256, dtype=torch.float32)
+    fwd, bwd = ln.layer_norm.launches, ln.layer_norm_bwd.launches
+    y = ln.layer_norm(x, w, b, 1e-5, torch.bfloat16)
+    got = torch.autograd.grad((y.float() * g).sum(), (x, w, b))
+    assert (ln.layer_norm.launches, ln.layer_norm_bwd.launches) == (fwd + 1, bwd + 1)
+    want = torch.autograd.grad(
+        (ln.layer_norm_plain(x, w, b, 1e-5, torch.bfloat16).float() * g).sum(), (x, w, b))
+    for a, e in zip(got, want):
+        assert _rel_err(a, e) < 1e-2
+
+
+@pytest.mark.cuda
+def test_forward_only_kernels_raise_under_grad(cuda):
+    """flash_memattn, flash_xattn_rpb and depthwise_conv2d have no backward:
+    under autograd they raise instead of returning a tensor cut from the
+    graph; under no_grad they run."""
+    q = _randn(cuda, 1, 1, 64, 256).requires_grad_()
+    k = _randn(cuda, 1, 1, 64, 256)
+    v = _randn(cuda, 1, 1, 64, 64)
+    bias = torch.zeros((1, 64), device=cuda)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fa.flash_memattn(q, k, v, bias)
+    q32 = _randn(cuda, 1, 8, 5, 32).requires_grad_()
+    kv = _randn(cuda, 1, 8, 12, 32)
+    ey = _randn(cuda, 1, 8, 5, 3, dtype=torch.float32)
+    ex = _randn(cuda, 1, 8, 5, 4, dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fa.flash_xattn_rpb(q32, kv, kv, ey, ex, (3, 4))
+    x = _randn(cuda, 1, 8, 8, 16).requires_grad_()
+    wk = torch.zeros(7, 7, 1, 16, device=cuda)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        dw.depthwise_conv2d(x, wk, torch.zeros(16, device=cuda))
+    with torch.no_grad():
+        assert dw.depthwise_conv2d(x, wk, torch.zeros(16, device=cuda)).shape == x.shape
+
+
+@pytest.mark.cuda
+def test_native_hungarian_matches_numpy(cuda):
+    """The host C++ solver the matcher takes for predictions on the card
+    gives the NumPy solver's assignments bit for bit: random costs, integer
+    costs full of ties, and constant padded rows (as the matcher pads the
+    targets)."""
+    from efficientsam3_tpu_torch.ops import hungarian
+
+    rng = np.random.default_rng(21)
+    for trial in range(30):
+        t = int(rng.integers(1, 41))
+        c = rng.standard_normal((int(rng.integers(1, 12)), t, t + int(rng.integers(0, 160))))
+        c = c.astype(np.float32)
+        if trial % 3 == 0:
+            c = np.round(2 * c).astype(np.float32)
+        elif trial % 3 == 1:
+            c[:, t // 3:] = 1e6
+        assert np.array_equal(hungarian.solve_assignment_native(c),
+                              hungarian.solve_assignment_batched(c)), trial

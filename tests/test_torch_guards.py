@@ -56,6 +56,32 @@ print("FOREIGN", bad)
 """
 
 
+_TRAIN = r"""
+import sys
+import numpy as np
+import torch
+from efficientsam3_tpu_torch.build import build_efficientsam3_image_model
+from efficientsam3_tpu_torch.models.geometry import Prompt
+from efficientsam3_tpu_torch.train.stage3 import Stage3Config, make_stage3_optimizer, stage3_train_step
+
+model = build_efficientsam3_image_model(
+    model_name="b0", embed_size=8, text_encoder_context_length=16, device="cpu",
+    fusion_layers=1, decoder_layers=1)
+opt = make_stage3_optimizer(Stage3Config(), model)
+tokens = torch.zeros((2, 16), dtype=torch.long)
+tokens[:, :3] = torch.tensor([49406, 320, 49407])
+boxes = torch.tensor([[[0.5, 0.5, 0.3, 0.2], [0, 0, 0, 0]]] * 2)
+batch = {"images": torch.randn(2, 64, 64, 3), "tokens": tokens, "prompt": Prompt.empty(2, 8, 8),
+         "targets": {"boxes": boxes, "valid": torch.tensor([[True, False]] * 2),
+                     "masks": torch.zeros(2, 2, 32, 32)}}
+metrics = stage3_train_step(model, opt, batch)
+assert np.isfinite(float(metrics["loss"])) and np.isfinite(float(metrics["grad_norm"]))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "efficientsam3_tpu"))
+print("FOREIGN", bad)
+"""
+
+
 def _run_without_jax(script):
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
@@ -75,6 +101,39 @@ def test_tracker_slice_runs_without_jax():
     """So does the tiny video tracker: build_efficientsam3_video_model and
     TrackerPredictor over 3 frames."""
     _run_without_jax(_TRACKER)
+
+
+def test_train_step_runs_without_jax():
+    """So does a tiny Stage-3 training step (model, losses, host Hungarian
+    matcher, optimizer): no jax, flax, optax or efficientsam3_tpu module."""
+    _run_without_jax(_TRAIN)
+
+
+def test_refuse_grad_only_when_autograd_records():
+    """The forward-only kernels' guard: it raises when grad mode is on and
+    an input requires a gradient, and lets no_grad and gradient-free calls
+    through (on the CPU the wrappers take their differentiable plain
+    versions and never reach it; tests/test_torch_cuda.py holds the
+    wrappers themselves on the card)."""
+    from efficientsam3_tpu_torch.ops import _build
+
+    x = torch.zeros(3, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        _build.refuse_grad("k", x, None)
+    with torch.no_grad():
+        _build.refuse_grad("k", x)
+    _build.refuse_grad("k", torch.zeros(3), None)
+    assert _build.needs_grad(None, x) and not _build.needs_grad(torch.zeros(3))
+
+
+def test_unported_training_options_raise():
+    from efficientsam3_tpu_torch.train.losses import sam3_detection_loss
+    from efficientsam3_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    with pytest.raises(NotImplementedError, match="Queue 1 item 19"):
+        Trainer(None, TrainerConfig(max_steps=1, mesh=object()))
+    with pytest.raises(NotImplementedError, match="semantic_seg_loss"):
+        sam3_detection_loss({}, {}, weights={"loss_semantic_seg": 1.0})
 
 
 def _imports(path):

@@ -72,11 +72,12 @@ def randn(*shape, scale=1.0):
 
 
 def run_both(jm, pm, *args, seed=0, **kw):
-    """Init the JAX module, carry its variables into pm, run both on args."""
+    """Init the JAX module, carry its variables into pm, run both on args
+    (inference: JAX's train=False is the port module's eval mode)."""
     jargs = [jnp.asarray(a) if isinstance(a, np.ndarray) else a for a in args]
     v = random_variables(jm, *jargs, seed=seed, **kw)
     want = jax.jit(lambda v_: jm.apply(v_, *jargs, **kw))(v)
-    load_jax_variables(pm, v)
+    load_jax_variables(pm, v).eval()
     targs = [torch.from_numpy(a) if isinstance(a, np.ndarray) else a for a in args]
     with torch.no_grad():
         got = pm(*targs, **kw)
@@ -123,7 +124,7 @@ def test_multihead_attention(case):
     jm = jc.MultiheadAttention(32, 4)
     v = random_variables(jm, jnp.asarray(q), jnp.asarray(kv), jnp.asarray(kv), **jkw)
     want = jm.apply(v, jnp.asarray(q), jnp.asarray(kv), jnp.asarray(kv), **jkw)
-    pm = load_jax_variables(pc.MultiheadAttention(32, 4), v)
+    pm = load_jax_variables(pc.MultiheadAttention(32, 4), v).eval()
     with torch.no_grad():
         got = pm(torch.from_numpy(q), torch.from_numpy(kv), torch.from_numpy(kv), **tkw)
     assert_close(got, want)
@@ -162,7 +163,7 @@ def test_geometry_encoder():
     want_tok, want_mask = jax.jit(
         lambda v_: jm.apply(v_, jp, jnp.asarray(img), (6, 8), jnp.asarray(pos)))(v)
     pm = load_jax_variables(
-        pgeo.SequenceGeometryEncoder(d_model=64, num_heads=4, dim_feedforward=96), v)
+        pgeo.SequenceGeometryEncoder(d_model=64, num_heads=4, dim_feedforward=96), v).eval()
     with torch.no_grad():
         got_tok, got_mask = pm(pp, torch.from_numpy(img), (6, 8), torch.from_numpy(pos))
     assert_close(got_tok, want_tok)
@@ -194,7 +195,7 @@ def test_decoder_and_scoring(apply_dac):
               text_key_padding_mask=jnp.asarray(mask), apply_dac=apply_dac)
     v = random_variables(jm, *args, **kw)
     want = jax.jit(lambda v_: jm.apply(v_, *args, **kw))(v)
-    pm = load_jax_variables(pdec.TransformerDecoder(2, 10, 64, 96), v)
+    pm = load_jax_variables(pdec.TransformerDecoder(2, 10, 64, 96), v).eval()
     with torch.no_grad():
         got = pm(torch.from_numpy(mem), (4, 6), memory_pos=torch.from_numpy(mem_pos),
                  memory_text=torch.from_numpy(text), text_key_padding_mask=torch.from_numpy(mask),
@@ -219,7 +220,7 @@ def test_seg_head():
              jnp.asarray(prompt), jnp.asarray(mask))
     v = random_variables(jm, *jargs)
     want = jax.jit(lambda v_: jm.apply(v_, *jargs))(v)
-    pm = load_jax_variables(psh.UniversalSegmentationHead(64, 4), v)
+    pm = load_jax_variables(psh.UniversalSegmentationHead(64, 4), v).eval()
     with torch.no_grad():
         got = pm([torch.from_numpy(f) for f in feats], torch.from_numpy(queries),
                  torch.from_numpy(enc), torch.from_numpy(prompt), torch.from_numpy(mask))
