@@ -70,7 +70,42 @@ Phases, each printing its own lines:
      their plain versions on the inputs of their largest launch and timed as
      in phase 3.
 
-The line before the last is the kernels JSON (nine rows), the last
+  7. [pcs] text-prompted video concept segmentation at full width:
+     EfficientSam3System over build_efficientsam3_video_model (EV-M b1 at
+     1008^2, MobileCLIP-S0 at context 32, bf16, seed 0; the object-score
+     head's last bias raised by 10, so that random weights track objects
+     instead of declaring them gone), video_predictor(obj_slots=8) with
+     VideoPCSConfig(hotstart_delay=4, fill_hole_area=16), the prompt given
+     as token ids, 12 synthetic frames. Every frame runs the real detector
+     (set_image + ground on the card); since random weights detect nothing
+     usable, its result is replaced by three seeded squares (score 0.9 on
+     frame 0, where they spawn three masklets; 0.55 afterwards, below the
+     spawn threshold). After a warm-up session, three sessions over the same
+     frames: the exact bank, quantize_bank=True, and the plain path
+     (cache_memory_kv=False). Counters are set to 0 just before each frame
+     and read just after: per tracked frame flash_memattn_q8 4 (exact
+     session: flash_memattn 4; plain path: 4 more flash_sdpa), flash_sdpa
+     4 + 6, layer_norm 13 + 27, depthwise_conv2d 2, flash_xattn_rpb 6.
+     Checks: finite masks of the right shapes, stable object ids, hole
+     filling ran, a few VideoPredictorServer requests, and the mask IoU of
+     the int8 session against the exact one per frame and object. The plain
+     path computes the exact bank's attention with bf16 roundings at other
+     places, so its IoU against the exact bank is the noise floor of this
+     random bf16 model: the int8 bank's smallest IoU must stay within 0.02
+     of the smaller of 0.98 (the bound the CPU tests hold in fp32) and that
+     floor, and its mean above 0.98. A frame's time is split into detector,
+     tracker step, quantize_rows and host association + emission; a detector
+     call that keeps 3 queries is timed beside (this random model keeps all
+     200); torch.profiler splits one q8 frame by kernel. flash_memattn_q8 is
+     held against its plain version on the inputs of its largest launch,
+     with and without the log-sum-exp, and against flash_memattn over the
+     dequantized keys, and timed as in phase 3 beside flash_memattn on the
+     same keys and over the number of live slots;
+  8. [probe] the int8 / bf16 tensor-core probe (ops/mma_probe.bench_dot):
+     64 chained (768, 256) @ (256, 2048) products a launch, against its
+     plain version, with torch._int_mm / torch.matmul as the library time.
+
+The line before the last is the kernels JSON (eleven rows), the last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -88,6 +123,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 # H100 SXM peaks (NVIDIA data sheet / Hopper white paper), at 700 W.
 PEAK_BYTES = 3.35e12  # HBM3 bytes/s
 PEAK_BF16 = 989e12  # dense bf16 tensor-core FLOP/s
+PEAK_INT8 = 1979e12  # dense int8 tensor-core operations/s
 PEAK_FP32 = 67e12  # fp32 FLOP/s outside the tensor cores
 PEAK_SFU = 132 * 16 * 1.98e9  # exponentials/s: 16 per SM per clock at 1.98 GHz
 
@@ -231,10 +267,12 @@ class Capture:
             setattr(mod, name, orig)
 
 
-def bound(nbytes, mma_flops=0.0, exps=0.0, fp32_ops=0.0):
-    """(least ms the card could take, "bytes" or "operations")."""
+def bound(nbytes, mma_flops=0.0, exps=0.0, fp32_ops=0.0, int8_ops=0.0):
+    """(least ms the card could take, "bytes" or "operations"); bf16 and
+    int8 tensor-core work add up, the other units run beside them."""
     parts = {"bytes": nbytes / PEAK_BYTES,
-             "operations": max(mma_flops / PEAK_BF16, exps / PEAK_SFU, fp32_ops / PEAK_FP32)}
+             "operations": max(mma_flops / PEAK_BF16 + int8_ops / PEAK_INT8, exps / PEAK_SFU,
+                               fp32_ops / PEAK_FP32)}
     by = max(parts, key=parts.get)
     return parts[by] * 1e3, by
 
@@ -530,6 +568,10 @@ def main():
 
     # ---------------------------------------------------------------- 6
     rows += train_phase(smi)
+
+    # ---------------------------------------------------------------- 7, 8
+    rows += pcs_phase(smi)
+    rows.append(probe_phase(smi))
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1243,6 +1285,410 @@ def train_phase(smi):
         if part.startswith("loss_") and rel(("cuda", f32), ("cpu", f32), part) > 1e-3:
             raise AssertionError(f"tiny Stage-3 step: {part} on the card in fp32 differs")
     return rows
+
+
+# per frame of a video-PCS session: the detector's ground on every frame,
+# the tracker's step on every frame after the one that spawned the masklets
+PCS_DETECTOR = {"flash_sdpa": 6, "flash_xattn_rpb": 6, "layer_norm": 27}
+PCS_TRACKER = {"flash_sdpa": 4, "layer_norm": 13, "depthwise_conv2d": 2}
+PCS_OBJECTS = 3
+
+
+def pcs_squares(t, size=1008):
+    """Three seeded squares drifting 6 px a frame: (masks (3, size, size) bool,
+    scores, boxes). Score 0.9 on frame 0 (above the spawn threshold 0.6), 0.55
+    afterwards (detections that may match but never spawn)."""
+    import numpy as np
+
+    masks = np.zeros((PCS_OBJECTS, size, size), bool)
+    boxes = np.zeros((PCS_OBJECTS, 4), np.float32)
+    for i, (y, x, side) in enumerate(((120, 140, 260), (560, 180, 300), (300, 620, 280))):
+        y, x = y + 6 * t, x + 6 * t
+        masks[i, y:y + side, x:x + side] = True
+        boxes[i] = (x, y, x + side, y + side)
+    return masks, np.full(PCS_OBJECTS, 0.9 if t == 0 else 0.55, np.float32), boxes
+
+
+def pcs_phase(smi):
+    """Phase 7: video PCS at full width, the exact and the int8 bank; returns
+    the flash_memattn_q8 row."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from efficientsam3_tpu_torch.build import build_efficientsam3_video_model
+    from efficientsam3_tpu_torch.models import common
+    from efficientsam3_tpu_torch.ops import depthwise as dw
+    from efficientsam3_tpu_torch.ops import flash_attention as fa
+    from efficientsam3_tpu_torch.ops import layer_norm as ln
+    from efficientsam3_tpu_torch.system import EfficientSam3System
+    from efficientsam3_tpu_torch.video import pipeline, tracker
+    from efficientsam3_tpu_torch.video.pipeline import VideoPCSConfig
+
+    dev = torch.device("cuda")
+    counters = {"flash_sdpa": fa, "flash_memattn": fa, "flash_memattn_q8": fa,
+                "flash_xattn_rpb": fa, "layer_norm": ln, "depthwise_conv2d": dw}
+
+    image, core = build_efficientsam3_video_model(
+        model_name="b1", text_encoder_context_length=32, dtype=torch.bfloat16, device=dev, seed=0)
+    with torch.no_grad():  # random weights score every object as gone: see the docstring
+        core.sam_mask_decoder.pred_obj_score_head.layers[-1].bias += 10.0
+    system = EfficientSam3System(image, core)
+    tokens = np.zeros((1, 32), np.int64)
+    tokens[0, :5] = [49406, 320, 1125, 3309, 49407]
+    text_state = {"text": system.processor().encode_tokens(tokens)}
+    frames = np.random.default_rng(7).standard_normal((N_FRAMES, 1008, 1008, 3)).astype(np.float32)
+    for t in range(N_FRAMES):
+        frames[t, 0, 0, 0] = t / 100.0  # the frame index, read back by the scripted detector
+    cfg = VideoPCSConfig(obj_slots=8, hotstart_delay=4, hotstart_unmatch_thresh=100,
+                         fill_hole_area=16)
+
+    def session(capture=None, **tracker_kw):
+        """One 12-frame session; per-frame launch counts and times, outputs."""
+        pipe = system.video_predictor(cfg, obj_slots=8, **tracker_kw)
+        real_detector, run_track, step, emit = (pipe.detector, pipe.tracker._run_track_frame,
+                                                pipe._step, pipe._emit)
+        quantize, fill = tracker.quantize_rows, pipeline.fill_holes_in_mask_scores_host
+        rec = {"frames": [], "fills": 0, "real_dets": []}
+        cur = {}
+
+        def detector(frame, state):
+            t0 = time.perf_counter()
+            out = real_detector(frame, state)  # set_image + ground on the card, host postprocess
+            for k in ("masks", "scores", "boxes"):
+                if not np.isfinite(np.asarray(out[k], np.float32)).all():
+                    raise AssertionError(f"[pcs] detector output {k} is not finite")
+            if out["masks"].shape[1:] != (1008, 1008) and len(out["masks"]):
+                raise AssertionError(f"[pcs] detector masks {out['masks'].shape}")
+            cur["detector"] = (time.perf_counter() - t0) * 1e3
+            rec["real_dets"].append(len(out["scores"]))
+            masks, scores, boxes = pcs_squares(int(round(float(frame[0, 0, 0]) * 100)))
+            return {"masks": masks, "scores": scores, "boxes": boxes}
+
+        def timed_track(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run_track(*a, **kw)
+            torch.cuda.synchronize()
+            cur["tracker"] = (time.perf_counter() - t0) * 1e3
+            return out
+
+        def timed_quantize(x, *a, **kw):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = quantize(x, *a, **kw)
+            e1.record()
+            cur.setdefault("quantize_events", []).append((e0, e1))
+            return out
+
+        def counted_step(sess, t, reverse=False):
+            for name, mod in counters.items():
+                getattr(mod, name).launches = 0
+            cur.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            raw = step(sess, t, reverse)
+            torch.cuda.synchronize()
+            cur["step"] = (time.perf_counter() - t0) * 1e3
+            cur["quantize"] = sum(a.elapsed_time(b) for a, b in cur.pop("quantize_events", []))
+            cur["launches"] = {name: getattr(mod, name).launches for name, mod in counters.items()}
+            cur["tracked"] = "tracker" in cur
+            rec["frames"].append(dict(cur))
+            return raw
+
+        def timed_emit(sess, raw, reverse=False):
+            t0 = time.perf_counter()
+            out = emit(sess, raw, reverse)
+            rec["frames"][raw["frame_idx"]]["emit"] = (time.perf_counter() - t0) * 1e3
+            return out
+
+        def counted_fill(*a, **kw):
+            rec["fills"] += 1
+            return fill(*a, **kw)
+
+        pipe.detector, pipe.tracker._run_track_frame = detector, timed_track
+        pipe._step, pipe._emit = counted_step, timed_emit
+        tracker.quantize_rows, pipeline.fill_holes_in_mask_scores_host = timed_quantize, counted_fill
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            sess = pipe.init_session(frames, text_state)
+            if capture is not None:
+                with capture:
+                    rec["outs"] = list(pipe.propagate(sess))
+            else:
+                rec["outs"] = list(pipe.propagate(sess))
+        finally:
+            tracker.quantize_rows, pipeline.fill_holes_in_mask_scores_host = quantize, fill
+        rec["peak"] = torch.cuda.max_memory_allocated() / 2**30
+        rec["pipe"], rec["session"], rec["step"] = pipe, sess, step
+        return rec
+
+    def check_session(rec, name, bank_kernel):
+        outs = rec["outs"]
+        if [o["frame_idx"] for o in outs] != list(range(N_FRAMES)):
+            raise AssertionError(f"[pcs] {name}: emitted frames {[o['frame_idx'] for o in outs]}")
+        for o in outs:
+            m = o["masks"]
+            if list(o["obj_ids"]) != list(range(PCS_OBJECTS)):
+                raise AssertionError(f"[pcs] {name} frame {o['frame_idx']}: ids {o['obj_ids']}")
+            if m.shape != (PCS_OBJECTS, 288, 288) or not np.isfinite(m).all():
+                raise AssertionError(f"[pcs] {name} frame {o['frame_idx']}: masks {m.shape}")
+        if rec["fills"] != N_FRAMES:
+            raise AssertionError(f"[pcs] {name}: hole filling ran {rec['fills']} times")
+        for t, fr in enumerate(rec["frames"]):
+            want = dict(PCS_DETECTOR, flash_memattn=0, flash_memattn_q8=0, depthwise_conv2d=0)
+            if t == 0:  # the spawning frame: one memory encoding per add_new_mask
+                want["depthwise_conv2d"] = 2 * PCS_OBJECTS
+            else:
+                for k, n in PCS_TRACKER.items():
+                    want[k] = want.get(k, 0) + n
+                if bank_kernel is None:  # the plain path: 4 more flash_sdpa over the bank
+                    want["flash_sdpa"] += 4
+                else:
+                    want[bank_kernel] = 4
+            if fr["launches"] != want or fr["tracked"] != (t > 0):
+                raise AssertionError(f"[pcs] {name} frame {t}: launches {fr['launches']}, want {want}")
+        total = {k: sum(fr["launches"][k] for fr in rec["frames"]) for k in counters}
+        log(f"[pcs] {name}: launches per tracked frame {rec['frames'][-1]['launches']} "
+            f"(asserted on each of {N_FRAMES - 1} tracked frames; frame 0 spawns "
+            f"{PCS_OBJECTS} masklets), over the session {total}; the real detector kept "
+            f"{rec['real_dets']} of 200 queries a frame (replaced by {PCS_OBJECTS} seeded squares)")
+        return total
+
+    def split(rec):
+        fr = rec["frames"][2:]  # steady frames: the first two compile and plan
+        med = lambda k: statistics.median(f[k] for f in fr)  # noqa: E731
+        frame = statistics.median(f["step"] + f["emit"] for f in fr)
+        host = statistics.median(f["step"] + f["emit"] - f["detector"] - f["tracker"] for f in fr)
+        return (f"frame {frame:.3f} ms = detector {med('detector'):.3f} + tracker step "
+                f"{med('tracker'):.3f} (quantize_rows {med('quantize'):.3f} of it, device time) "
+                f"+ host association and emission {host:.3f} | peak memory {rec['peak']:.2f} GiB")
+
+    warm = session()  # Triton compiles, cuDNN plans, the build of the host library
+    del warm
+    exact = session()
+    total_exact = check_session(exact, "exact bank", "flash_memattn")
+    capture = Capture([(common, "flash_memattn_q8")])
+    q8 = session(capture, quantize_bank=True)
+    total_q8 = check_session(q8, "int8 bank", "flash_memattn_q8")
+    plain = session(cache_memory_kv=False)  # the same attention without the cached bank
+    check_session(plain, "plain path", None)
+    log(f"[pcs] exact bank: {split(exact)} | {smi}")
+    log(f"[pcs] int8 bank:  {split(q8)} | {smi}")
+    log(f"[pcs] plain path: {split(plain)} | {smi}")
+
+    # the sessions' masks against the exact bank's, per frame and object. The
+    # plain path computes the exact bank's attention with bf16 roundings at
+    # other places: its IoU is the noise floor of this random bf16 model,
+    # which the int8 bank's drift is held against.
+    def ious_against_exact(rec, name):
+        table = []
+        for oe, oq in zip(exact["outs"], rec["outs"]):
+            row = []
+            for me, mq in zip(oe["masks"] > 0, oq["masks"] > 0):
+                if me.any() or mq.any():
+                    row.append(float((me & mq).sum() / (me | mq).sum()))
+                else:
+                    row.append(None)
+            table.append(row)
+        log(f"[pcs] mask IoU, {name} vs exact bank, per frame and object (None: both empty): "
+            + "; ".join(f"{t}: {[None if x is None else round(x, 4) for x in row]}"
+                        for t, row in enumerate(table)))
+        flat = [x for row in table for x in row if x is not None]
+        if len(flat) < PCS_OBJECTS * (N_FRAMES - 1) // 2:
+            raise AssertionError(f"[pcs] {name}: only {len(flat)} non-empty mask pairs to compare")
+        return flat
+
+    iou_q8 = ious_against_exact(q8, "int8 bank")
+    iou_plain = ious_against_exact(plain, "plain path (bf16 noise floor)")
+    floor = min(0.98, min(iou_plain))
+    log(f"[pcs] int8 bank vs exact bank: min IoU {min(iou_q8):.4f}, mean {statistics.mean(iou_q8):.4f} "
+        f"over {len(iou_q8)} non-empty pairs; plain path vs exact bank: min {min(iou_plain):.4f}, "
+        f"mean {statistics.mean(iou_plain):.4f}. Bounds: int8 min > {floor - 0.02:.4f} (0.02 under "
+        f"the smaller of 0.98 and the noise floor), int8 mean > 0.98")
+    if not (min(iou_q8) > floor - 0.02 and statistics.mean(iou_q8) > 0.98):
+        raise AssertionError(f"[pcs] int8 bank drifts from the exact bank: min IoU {min(iou_q8)}")
+
+    # the detector kept all 200 queries of this random model at the processor's
+    # threshold 0.5, so each call upsamples and copies 200 masks. A call that
+    # keeps 3, as a trained model would keep a few: the same entry points with
+    # the threshold moved between the 3rd and 4th score
+    proc = system.processor()
+    st = proc.set_image(frames[1], dict(text_state))
+    proc._ensure_text(st)
+    proc.confidence_threshold = 0.0
+    scores = np.sort(proc._forward_grounding(st)["scores"])[::-1]
+    proc.confidence_threshold = float(scores[2] + scores[3]) / 2
+
+    def detect_few():
+        state = proc.set_image(frames[1], dict(text_state))
+        proc._ensure_text(state)
+        return proc._forward_grounding(state)
+
+    kept = len(detect_few()["scores"])
+    few_ms = cuda_time(detect_few, 5, warmup=1)
+    log(f"[pcs] a detector call that keeps {kept} of 200 queries (threshold "
+        f"{proc.confidence_threshold:.4f}): {few_ms:.3f} ms, against "
+        f"{statistics.median(f['detector'] for f in exact['frames'][2:]):.3f} ms keeping "
+        f"{exact['real_dets'][-1]} | {smi}")
+
+    # one more q8 frame under the profiler (the last frame's step again)
+    last = N_FRAMES - 1
+    kernels, n_launch, total_us = profile_kernels(lambda: q8["step"](q8["session"], last))
+    step_ms = statistics.median(f["step"] for f in q8["frames"][2:])
+    device_ms = None
+    if total_us == 0:
+        log("[profile] pcs frame (int8 bank): the profiler recorded no device time: not measured")
+    else:
+        busy = total_us / 1e3 / step_ms
+        log(f"[profile] pcs frame (int8 bank): {n_launch} kernel launches, {total_us / 1e3:.3f} ms "
+            f"of device time in a {step_ms:.3f} ms step: device busy {busy:.1%}, idle {1 - busy:.1%}")
+        for name, us, n in kernels[:12]:
+            log(f"[profile] pcs frame:   {us / 1e3:8.4f} ms  x{n:<4d} {name[:90]}")
+        q8_us = sum(us for name, us, _ in kernels if "flash_memattn_q8_kernel" in name)
+        device_ms = q8_us / 1e3 / 4 if q8_us else None
+        write_out("profile_pcs_frame_q8.txt",
+                  "\n".join(f"{us:12.2f} us  x{n:<5d} {name}" for name, us, n in kernels))
+
+    # a few requests through the session server (exact bank, hole filling on)
+    server = system.server(obj_slots=8, fill_hole_area=16)
+    sid = server.start_session(frames[:6])
+    server.add_points(sid, 0, 1, box=[100, 150, 400, 520])
+    server.add_points(sid, 0, 2, points=[[700, 300]], labels=[1])
+    replies = list(server.propagate_in_video(sid))
+    server.remove_object(sid, 1)
+    after = list(server.propagate_in_video(sid, start_frame_idx=3))
+    stats = server.session_stats()
+    server.close_session(sid)
+    ok = ([r["masks"].shape for r in replies] == [(2, 1, 288, 288)] * 6
+          and [r["obj_ids"] for r in after] == [[2]] * 3
+          and all(np.isfinite(r["masks"]).all() for r in replies + after)
+          and stats["num_sessions"] == 1 and server.session_stats()["num_sessions"] == 0)
+    if not ok:
+        raise AssertionError(f"[pcs] server replies: {[r['masks'].shape for r in replies]}, {stats}")
+    log(f"[pcs] VideoPredictorServer: start_session, 2 x add_points, propagate ({len(replies)} "
+        f"frames), remove_object, propagate ({len(after)} frames), close: ok on {stats['devices']}")
+
+    # ---- flash_memattn_q8 against its plain version and flash_memattn
+    (q, k_i8, ks, v, key_bias, scale), kw = capture.args[("flash_memattn_q8", 256)]
+    got, lse = fa.flash_memattn_q8(q, k_i8, ks, v, key_bias, scale, return_lse=True)
+    want, want_lse = fa.flash_memattn_q8_plain(q, k_i8, ks, v, key_bias, scale, return_lse=True)
+    err = check("flash_memattn_q8", got, want)
+    lse_err = (lse - want_lse).abs().max().item()
+    if lse_err > 1e-2:
+        raise AssertionError(f"flash_memattn_q8 lse off by {lse_err}")
+    if not torch.equal(fa.flash_memattn_q8(q, k_i8, ks, v, key_bias, scale), got):
+        raise AssertionError("flash_memattn_q8 without the LSE differs from the LSE variant")
+    del want, want_lse
+    k_deq = (k_i8.float() * ks[:, None, :, None]).to(q.dtype)
+    exact_o = fa.flash_memattn(q, k_deq, v, key_bias, scale)
+    rel = ((got.float() - exact_o.float()).abs().max() / exact_o.float().abs().max()).item()
+    log(f"[kernel] flash_memattn_q8 vs flash_memattn over the dequantized keys (q's int8 "
+        f"rounding): {rel:.3e} of the output's largest magnitude (bound 2e-2); lse max err "
+        f"{lse_err:.2e}")
+    if rel >= 2e-2:
+        raise AssertionError("flash_memattn_q8 drifts from flash_memattn")
+    b, h, lq, dk = q.shape
+    dv = v.shape[-1]
+    live = int((key_bias > fa.NEG_INF / 2).sum().item())
+    nb = (2 * (q.numel() + got.numel()) + live * (dk + 4 + 2 * dv)
+          + 4 * (key_bias.numel() + lse.numel()))
+    bms, by = bound(nb, mma_flops=2.0 * h * lq * live * dv, exps=1.0 * h * lq * live,
+                    fp32_ops=8.0 * h * lq * live, int8_ops=2.0 * h * lq * live * dk)
+    bias4 = key_bias[:, None, None, :].to(q.dtype)
+    q8_ms = graph_time(lambda: fa.flash_memattn_q8(q, k_i8, ks, v, key_bias, scale,
+                                                   return_lse=True), 5, 10)
+    bf16_ms = graph_time(lambda: fa.flash_memattn(q, k_deq, v, key_bias, scale, return_lse=True),
+                         5, 10)
+    quant_ms = graph_time(lambda: fa.quantize_rows(k_deq[:, 0]), 5, 10)
+    log(f"[kernel] same call, same keys: flash_memattn_q8 {q8_ms:.4f} ms | flash_memattn (bf16) "
+        f"{bf16_ms:.4f} ms | quantize_rows of one layer's bank {tuple(k_deq[:, 0].shape)} "
+        f"{quant_ms:.4f} ms (eager, in a CUDA graph) | {smi}")
+    row = dict(
+        name="flash_memattn_q8", route="cuda",
+        source="efficientsam3_tpu_torch/csrc/flash_memattn_q8.cu",
+        replaces="efficientsam3_tpu/ops/pallas/flash_attention.py:739",
+        launches=total_q8["flash_memattn_q8"], max_abs_err=err, ms=q8_ms,
+        call_ms=cuda_time(lambda: fa.flash_memattn_q8(q, k_i8, ks, v, key_bias, scale,
+                                                      return_lse=True), 10),
+        plain_ms=cuda_time(lambda: fa.flash_memattn_q8_plain(q, k_i8, ks, v, key_bias, scale, True),
+                           3, warmup=1),
+        bound_ms=bms, bound_by=by,
+        library_ms=graph_time(lambda: F.scaled_dot_product_attention(
+            q, (k_i8.float() * ks[:, None, :, None]).to(q.dtype), v, attn_mask=bias4,
+            scale=scale), 5, 10),
+        device_ms=device_ms,
+        shape=f"q {tuple(q.shape)} bf16, k {tuple(k_i8.shape)} int8 + f32 scales, v "
+              f"{tuple(v.shape)} bf16, {live} live keys over {b} slots; library = dequantize + "
+              f"SDPA; flash_memattn on the same keys {bf16_ms:.4f} ms", **{"pass": True})
+    log_row(row, smi)
+    # both bank kernels against the number of live slots (every entry valid),
+    # in turns within this call: q8, bf16, bf16, q8
+    s_tot = core.num_maskmem * core.feat_size ** 2
+    sweep = []
+    for n_slots in (1, 2, 3, 4, 8):
+        kb = torch.full_like(key_bias, fa.NEG_INF)
+        kb[:n_slots, :s_tot] = 0.0
+        run_q8 = lambda: fa.flash_memattn_q8(q, k_i8, ks, v, kb, scale, return_lse=True)  # noqa: E731
+        run_bf = lambda: fa.flash_memattn(q, k_deq, v, kb, scale, return_lse=True)  # noqa: E731
+        t = [graph_time(f, 3, 5) for f in (run_q8, run_bf, run_bf, run_q8)]
+        sweep.append(f"{n_slots} slots q8 {min(t[0], t[3]):.4f} bf16 {min(t[1], t[2]):.4f} ms")
+    log(f"[kernel] flash_memattn_q8 / flash_memattn sweep over live slots (CUDA graph, the "
+        f"faster of two turns): {'; '.join(sweep)} | {smi}")
+    if total_exact["flash_memattn"] != total_q8["flash_memattn_q8"]:
+        raise AssertionError("[pcs] the two sessions attended the bank a different number of times")
+    return [row]
+
+
+def probe_phase(smi):
+    """Phase 8: the tensor-core probe; returns the mma_probe row (int8)."""
+    import torch
+
+    from efficientsam3_tpu_torch.ops import mma_probe
+
+    dev = torch.device("cuda")
+    mma_probe.dot_chain.launches = 0
+    call_ms = {dt: mma_probe.bench_dot(dt, device=dev) for dt in (torch.bfloat16, torch.int8)}
+    launches = mma_probe.dot_chain.launches
+    m, k, n, n_iter = 768, 256, 2048, 64
+    ops = 2.0 * m * k * n * n_iter
+    res = {}
+    for dt in (torch.bfloat16, torch.int8):
+        x, y = mma_probe.probe_operands(dt, m, k, n, device=dev)
+        got = mma_probe.dot_chain(x, y, n_iter)
+        want = mma_probe.dot_chain_plain(x, y, n_iter)
+        err = (got - want).abs().max().item()
+        rel = err / want.abs().max().item()
+        name = str(dt).replace("torch.", "")
+        log(f"[kernel] mma_probe ({name}): max|kernel - plain| = {err:.3e}, {rel:.3e} of the "
+            f"largest magnitude (bound 1e-5) -> {'pass' if rel <= 1e-5 else 'FAIL'}")
+        if rel > 1e-5:
+            raise AssertionError(f"mma_probe ({name}) disagrees with its plain version")
+        one = (lambda: torch._int_mm(x, y)) if dt == torch.int8 else (lambda: torch.matmul(x, y))
+        res[dt] = dict(err=err, x=x, y=y, ms=graph_time(lambda: mma_probe.dot_chain(x, y, n_iter)),
+                       plain_ms=graph_time(lambda: mma_probe.dot_chain_plain(x, y, n_iter), 2, 5),
+                       library_ms=graph_time(one, n_iter, 10) * n_iter)
+    i8, bf = res[torch.int8], res[torch.bfloat16]
+    log(f"[probe] {n_iter} chained ({m}, {k}) @ ({k}, {n}) products a launch, in a CUDA graph: "
+        f"bf16 {bf['ms']:.4f} ms = {ops / bf['ms'] / 1e9:.1f} TFLOP/s "
+        f"({ops / bf['ms'] / 1e9 / (PEAK_BF16 / 1e12):.1%} of the bf16 peak) | int8 {i8['ms']:.4f} "
+        f"ms = {ops / i8['ms'] / 1e9:.1f} TOP/s ({ops / i8['ms'] / 1e9 / (PEAK_INT8 / 1e12):.1%} of "
+        f"the int8 peak) | int8 / bf16 rate {bf['ms'] / i8['ms']:.2f}x | per call from the host "
+        f"bf16 {call_ms[torch.bfloat16]:.4f}, int8 {call_ms[torch.int8]:.4f} ms | library, "
+        f"{n_iter} calls: torch.matmul bf16 {bf['library_ms']:.4f} ms = "
+        f"{ops / bf['library_ms'] / 1e9:.1f} TFLOP/s, torch._int_mm {i8['library_ms']:.4f} ms = "
+        f"{ops / i8['library_ms'] / 1e9:.1f} TOP/s | {smi}")
+    x, y = i8["x"], i8["y"]
+    bms, by = bound(x.numel() + y.numel() + 4 * m * n, int8_ops=ops)
+    row = dict(
+        name="mma_probe", route="cuda", source="efficientsam3_tpu_torch/csrc/mma_probe.cu",
+        replaces="scripts/probe_int8_mxu.py:52", launches=launches, max_abs_err=i8["err"],
+        ms=i8["ms"], call_ms=call_ms[torch.int8], plain_ms=i8["plain_ms"], bound_ms=bms,
+        bound_by=by, library_ms=i8["library_ms"], device_ms=None,
+        shape=f"int8 x ({m}, {k}) @ y ({k}, {n}) x {n_iter} -> f32; library = {n_iter} x "
+              f"torch._int_mm; the bf16 chain {bf['ms']:.4f} ms", **{"pass": True})
+    log_row(row, smi)
+    return row
 
 
 if __name__ == "__main__":

@@ -14,7 +14,9 @@ full bias and at most a key-padding mask go to the flash kernel
 (``ops/flash_attention.flash_sdpa``) when the tensors are on CUDA; the
 rest runs as matmul + fp32 softmax + P cast to v's dtype, like the JAX
 einsum branch. ``sdpa_rawv`` routes the tracker's cached memory bank (raw
-64-wide values) to ``flash_memattn`` by the same rule, with dv % 8 == 0.
+64-wide values) to ``flash_memattn`` by the same rule, with dv % 8 == 0,
+and to ``flash_memattn_q8`` when the keys come as an int8 (k_i8, k_scale)
+pair (the tracker's ``quantize_bank``).
 ``MultiheadAttention(rpb=...)`` sends the decoder's boxRPB cross-attention
 to ``flash_xattn_rpb`` on CUDA. ``Attention`` / ``RoPEAttention`` are the
 SAM heads' and the tracker's attentions, with the cached-bank entry points
@@ -34,6 +36,7 @@ from torch import nn
 from efficientsam3_tpu_torch.ops.flash_attention import (
     NEG_INF,
     flash_memattn,
+    flash_memattn_q8,
     flash_sdpa,
     flash_xattn_rpb,
 )
@@ -377,15 +380,30 @@ def sdpa_rawv(q, k, v_raw, mask=None, return_lse=False):
     the rest runs the einsum path of the JAX package (-inf masking: a
     fully masked row gives 0 with lse -inf), whose P is normalised before
     the cast to v's dtype.
+
+    k may be a (k_i8, k_scale) tuple from ``quantize_rows``, k_scale (B, 1,
+    Lk, 1): the tracker's opt-in int8 memory bank. Large shapes on CUDA go
+    to ``flash_memattn_q8``, which also rounds q to int8 per row; the
+    einsum path dequantizes k and leaves q as it is, so the two differ by
+    q's own int8 rounding (the JAX package's documented difference between
+    its kernel and its fallback).
     """
     d = q.shape[-1]
-    if _flash_eligible(q, k, mask, None) and v_raw.shape[-1] % 8 == 0:
-        b, lk = q.shape[0], k.shape[-2]
+    k_quant = isinstance(k, tuple)
+    k_arr = k[0] if k_quant else k
+    if _flash_eligible(q, k_arr, mask, None) and v_raw.shape[-1] % 8 == 0:
+        b, lk = q.shape[0], k_arr.shape[-2]
         if mask is None:
             key_bias = torch.zeros((b, lk), dtype=torch.float32, device=q.device)
         else:
             key_bias = torch.where(mask[:, 0, 0, :], 0.0, NEG_INF)
+        if k_quant:
+            k_i8, k_scale = k
+            return flash_memattn_q8(q, k_i8, k_scale[:, 0, :, 0], v_raw, key_bias,
+                                    1.0 / math.sqrt(d), return_lse=return_lse)
         return flash_memattn(q, k, v_raw, key_bias, 1.0 / math.sqrt(d), return_lse=return_lse)
+    if k_quant:
+        k = (k[0].float() * k[1]).to(q.dtype)
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(d)
     if mask is not None:
         logits = torch.where(mask, logits, -math.inf)
@@ -586,7 +604,8 @@ class RoPEAttention(Attention):
         """attend_projected_rawv over two disjoint key segments, the cached
         memory bank and the object-pointer tokens, merged by log-sum-exp
         (exact) instead of concatenating the pointers onto the bank.
-        Masks: True = PAD."""
+        kh_mem may be the bank's int8 (k_i8, k_scale) pair; the pointer
+        segment stays in the compute dtype. Masks: True = PAD."""
         if self.num_heads != 1:
             raise ValueError("the raw-value path needs a single head")
         qh = self._rope_q(q)

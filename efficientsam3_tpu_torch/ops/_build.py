@@ -36,11 +36,18 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
+def _find_nvcc():
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return None
+
+
+def _nvcc() -> str:
+    nvcc = _find_nvcc()
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return nvcc
 
 
 def sources() -> list[str]:
@@ -97,6 +104,36 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             build_all()
             lib = ctypes.CDLL(str(_lib_path(name, _digest())))
+            _libs[name] = lib
+        return lib
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library of a host-only source (``csrc/hungarian.cu``,
+    ``csrc/hostkernels.cu``: plain C++ without device code). With nvcc it is
+    built with the kernels (``load``); on a machine without nvcc the same
+    file is compiled by g++. No compiler, or a failed build, raises."""
+    if _find_nvcc() is not None:
+        return load(name)
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            path = _lib_path(name, _digest())
+            if not path.exists():
+                gxx = shutil.which("g++")
+                if gxx is None:
+                    raise RuntimeError(f"neither nvcc nor g++ found: csrc/{name}.cu cannot be built")
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+                os.close(fd)
+                proc = subprocess.run(
+                    [gxx, "-O3", "-shared", "-fPIC", "-pthread", "-x", "c++", "-o", tmp,
+                     str(CSRC / f"{name}.cu")], capture_output=True, text=True)
+                if proc.returncode != 0:
+                    os.unlink(tmp)
+                    raise RuntimeError(f"g++ {name}.cu failed:\n{proc.stdout}{proc.stderr}")
+                os.replace(tmp, path)
+            lib = ctypes.CDLL(str(path))
             _libs[name] = lib
         return lib
 

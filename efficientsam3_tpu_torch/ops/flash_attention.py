@@ -8,7 +8,10 @@ dim 32 its custom VJP (``_flash_bwd``: ``_bwd_dq_kernel`` and
 ``_bwd_dkv_kernel``) through ``flash_sdpa_bwd_dq`` / ``flash_sdpa_bwd_dkv``;
 ``flash_memattn`` replaces ``flash_memattn`` / ``_memattn_kernel`` and
 ``_memattn_kernel_lse`` (the tracker's cached memory bank, raw dv = 64
-values); ``flash_xattn_rpb`` replaces ``flash_xattn_rpb`` /
+values); ``flash_memattn_q8`` replaces ``flash_memattn_q8`` /
+``_memattn_kernel_q8`` and ``_memattn_kernel_q8_lse`` (the same bank with
+int8 keys, the score product on the int8 tensor cores; ``quantize_rows``
+makes the int8 rows); ``flash_xattn_rpb`` replaces ``flash_xattn_rpb`` /
 ``_xattn_rpb_kernel``. The kernels are CUDA C++ in ``csrc/`` (see the notes
 at the top of each source for what bounds them on the H100 and how the
 design answers it), built by ``ops/_build.py`` on first use and called
@@ -20,7 +23,7 @@ its kernel for CUDA tensors, raising on what the kernel does not take
 kernel launches in ``<wrapper>.launches``. Under autograd (grad mode on and
 an input requiring a gradient) ``flash_sdpa`` runs as an autograd Function
 whose backward is the two backward kernels; the forward-only
-``flash_memattn`` and ``flash_xattn_rpb`` raise there rather than return a
+``flash_memattn``, ``flash_memattn_q8`` and ``flash_xattn_rpb`` raise there rather than return a
 tensor cut from the graph. On the CPU the plain versions are differentiated
 by autograd.
 
@@ -103,7 +106,7 @@ def _aligned(t):
     ok = (
         t.stride(-1) == 1
         and t.data_ptr() % 16 == 0
-        and all(s % 8 == 0 for s in t.stride()[:-1])
+        and all((s * t.element_size()) % 16 == 0 for s in t.stride()[:-1])
     )
     return t if ok else t.contiguous()
 
@@ -366,7 +369,8 @@ def flash_memattn(q, k, v, key_bias, sm_scale=None, return_lse=False):
     whose keys are all masked gives 0 with lse -1e9 (the einsum path gives
     the uniform average; such rows are slot-gated by every caller). The
     denominator is summed in fp32 from the unrounded P, as the einsum path
-    does (the TPU kernel summed the bf16-rounded P).
+    does (the TPU kernel summed the bf16-rounded P). ``flash_memattn_q8``
+    is the same attention over int8 keys (the tracker's ``quantize_bank``).
     """
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
@@ -400,6 +404,108 @@ def flash_memattn(q, k, v, key_bias, sm_scale=None, return_lse=False):
 
 
 flash_memattn.launches = 0
+
+
+# --------------------------------------------------------------------------
+# flash_memattn over an int8 key bank: csrc/flash_memattn_q8.cu
+# --------------------------------------------------------------------------
+
+
+def quantize_rows(x, scale_mul: float = 1.0, eps: float = 1e-8):
+    """Symmetric per-row int8 quantization over the last axis.
+
+    Returns (x_i8, scale) with x ~= x_i8 * scale; scale (..., 1) f32 is
+    multiplied by scale_mul (the attention folds the softmax scale into the
+    query scale). A zero row gets scale scale_mul * eps / 127 and zeros.
+    Plain tensor ops, as in the JAX package: fp32 |max| floored at eps,
+    / 127, round half to even, int8 cast."""
+    xf = x.float()
+    s = xf.abs().amax(-1, keepdim=True).clamp_min(eps) / 127.0
+    return torch.round(xf / s).to(torch.int8), s * scale_mul
+
+
+def flash_memattn_q8_plain(q, k_i8, k_scale, v, key_bias, sm_scale=None, return_lse=False):
+    """The q8 kernel's arithmetic in plain PyTorch: q quantized per row with
+    the softmax scale folded into its scale, the integer score product
+    (exact in fp32: |s| <= 127 * 127 * Dk < 2^24 up to Dk = 1040), logits
+    (s * k_scale) * q_scale with masked keys (key_bias <= -5e8) at -1e9,
+    then the finalize of ``flash_memattn`` (fp32 max and sum, bf16 P for
+    P V, a fully masked row 0 with lse -1e9)."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    qi, qs = quantize_rows(q, scale_mul=sm_scale)
+    s = torch.matmul(qi.float(), k_i8.float().transpose(-1, -2))
+    live = key_bias.float() > NEG_INF / 2  # (B, Lk)
+    ks = torch.where(live, k_scale.float(), 0.0)[:, None, None, :]
+    logits = s * ks * qs + torch.where(live, 0.0, NEG_INF)[:, None, None, :]
+    row_valid = live.any(-1)[:, None, None].expand(logits.shape[:3])
+    out, lse = _masked_softmax_pv(logits, v, row_valid)
+    out = out.to(v.dtype)
+    return (out, lse) if return_lse else out
+
+
+def _lib_memattn_q8():
+    fn = _build.load("flash_memattn_q8").flash_memattn_q8_fwd
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * 7 + [_I] * 6 + [_F] + [_LL] * 12 + [_P]
+        fn.restype = _I
+    return fn
+
+
+def flash_memattn_q8(q, k_i8, k_scale, v, key_bias, sm_scale=None, return_lse=False):
+    """``flash_memattn`` over an int8-quantized key bank.
+
+    q (B, H, Lq, Dk) float, quantized per query row inside the kernel (the
+    values and scales of ``quantize_rows(q, sm_scale)``); k_i8 (B, H, Lk, Dk)
+    int8 with k_scale (B, Lk) f32 from ``quantize_rows`` (the tracker
+    quantizes the age-adjusted bank once per frame and layer); v (B, H, Lk,
+    Dv) raw values; key_bias (B, Lk) f32, a 0 / -1e9 key mask. Lk must be
+    padded (``padded_bank_len``), pad rows masked. Returns (B, H, Lq, Dv)
+    in v.dtype, and the (B, H, Lq) f32 log-sum-exp with return_lse.
+
+    On CUDA the score product runs as int8 x int8 -> int32 on the tensor
+    cores, at (Dk, Dv) = (256, 64) with bf16 q, v and output; other dims and
+    dtypes raise, and so does a call that autograd records (forward only).
+    CPU tensors take the plain version. Logits carry the symmetric int8
+    error of both operands; the exact bank stays the default.
+    """
+    b, h, lq, dk = q.shape
+    lk, dv = k_i8.shape[2], v.shape[-1]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(dk)
+    if lk != padded_bank_len(lk):
+        raise ValueError(f"flash_memattn_q8 requires a pre-padded key bank (padded_bank_len): "
+                         f"{lk} keys, padded {padded_bank_len(lk)}")
+    if (k_i8.dtype != torch.int8 or k_i8.shape != (b, h, lk, dk) or v.shape != (b, h, lk, dv)
+            or k_scale.shape != (b, lk) or key_bias.shape != (b, lk)):
+        raise ValueError(f"flash_memattn_q8 shapes: q {q.shape} k_i8 {k_i8.shape} {k_i8.dtype} "
+                         f"k_scale {k_scale.shape} v {v.shape} key_bias {key_bias.shape}")
+    if not q.is_cuda:
+        return flash_memattn_q8_plain(q, k_i8, k_scale, v, key_bias, sm_scale, return_lse)
+    _build.refuse_grad("flash_memattn_q8", q, k_scale, v, key_bias)
+    _check_bf16("flash_memattn_q8", q, v)
+    if (dk, dv) not in _MEMATTN_DIMS:
+        raise ValueError(f"flash_memattn_q8 kernel supports (dk, dv) in {_MEMATTN_DIMS}, "
+                         f"got {(dk, dv)}")
+    q, k_i8, v = _aligned(q), _aligned(k_i8), _aligned(v)
+    k_scale = k_scale.float().contiguous()
+    key_bias = key_bias.float().contiguous()
+    o = torch.empty((b, h, lq, dv), dtype=v.dtype, device=q.device)
+    lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device) if return_lse else None
+    with torch.cuda.device(q.device):  # the launch goes to the current device
+        status = _lib_memattn_q8()(
+            q.data_ptr(), k_i8.data_ptr(), k_scale.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
+            o.data_ptr(), lse.data_ptr() if lse is not None else None,
+            b, h, lq, lk, dk, dv, float(sm_scale),
+            *_bhn_strides(q), *_bhn_strides(k_i8), *_bhn_strides(v), *_bhn_strides(o),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(status, "flash_memattn_q8 launch")
+    flash_memattn_q8.launches += 1
+    return (o, lse) if return_lse else o
+
+
+flash_memattn_q8.launches = 0
 
 
 def rpb_bias(ey, ex, feat_hw):

@@ -15,6 +15,10 @@ place as frames enter the window. When the slots select different frames
 for a bank column (an object prompted on a later frame), the frame falls
 back to the plain path, which projects the gathered memory per frame.
 
+``quantize_bank`` attends the cached bank through int8 keys
+(``flash_memattn_q8`` on CUDA); ``fill_hole_area > 0`` fills small holes and
+drops small sprinkles of the yielded masks on the host.
+
 Per-frame outputs stay on the core's device; ``propagate_in_video`` yields
 (frame_idx, obj_ids, low-res mask logits (n_obj, 1, 288, 288)).
 """
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from efficientsam3_tpu_torch.models.common import sine_pos_embed_2d
+from efficientsam3_tpu_torch.ops.cc import fill_holes_in_mask_scores_host
 from efficientsam3_tpu_torch.ops.interpolate import resize_bilinear
 from efficientsam3_tpu_torch.video.tracker import TrackerCore, flatten_kv_bank
 
@@ -66,12 +71,6 @@ class TrackerPredictor:
         if mesh is not None:
             raise NotImplementedError(
                 "object-parallel tracking over a mesh is not ported yet: ROADMAP Queue 1 item 19")
-        if fill_hole_area > 0:
-            raise NotImplementedError(
-                "hole filling (host C++ ops/cc) is not ported yet: ROADMAP Queue 1 item 15")
-        if quantize_bank:
-            raise NotImplementedError(
-                "the int8 key bank (flash_memattn_q8) is not ported yet: ROADMAP Queue 2 item 5")
         self.core = core
         self.encode_frame = encode_frame
         self.obj_slots = obj_slots
@@ -82,6 +81,8 @@ class TrackerPredictor:
         self.use_memory_selection = use_memory_selection
         self.mf_threshold = mf_threshold
         self.cache_kv = cache_memory_kv
+        self.quantize_bank = quantize_bank
+        self.fill_hole_area = fill_hole_area
         self.device = next(core.parameters()).device
         self._kv_delta = None  # core.tpos_k_delta(), made on first use
         self._kv_zero = None  # zero (k, v) entry for empty bank columns
@@ -471,7 +472,7 @@ class TrackerPredictor:
             cond = core.condition_features_cached(
                 self._tile(tokens), self._pos, bank[0], bank[1], self._tensor(bank[2]),
                 self._tensor(bank[3]), ptrs, self._tensor(tdiff), self._tensor(pvalid),
-                self._kv_delta, max_td, shared_ages=True)
+                self._kv_delta, max_td, shared_ages=True, quantize_bank=self.quantize_bank)
         else:
             cond = core.condition_features(
                 self._tile(tokens), self._pos, self._stack_memory(mem_refs), self._tensor(tpos),
@@ -537,7 +538,15 @@ class TrackerPredictor:
                 out = self._run_track_frame(state, t, reverse)
                 state["non_cond_frames"][t] = out
                 self._trim_non_cond(state, t, reverse)
-            yield t, list(state["obj_ids"]), out["low_res_masks"][:n_obj]
+            masks = out["low_res_masks"][:n_obj]
+            if self.fill_hole_area > 0 and n_obj:
+                # on the host, holes then sprinkles, as the JAX predictor
+                # (one copy of the masks off the device and back)
+                filled = fill_holes_in_mask_scores_host(
+                    masks.float().cpu().numpy(), self.fill_hole_area, remove_sprinkles=True,
+                    native=self.device.type == "cuda")
+                masks = torch.from_numpy(filled).to(masks.device)
+            yield t, list(state["obj_ids"]), masks
 
     @torch.inference_mode()
     def remove_object(self, state, obj_id):

@@ -39,7 +39,7 @@ from efficientsam3_tpu_torch.models.common import (
 from efficientsam3_tpu_torch.models.memory_attention import MemoryAttention
 from efficientsam3_tpu_torch.models.memory_encoder import MemoryEncoder
 from efficientsam3_tpu_torch.models.sam import MaskDecoder, PromptEncoder
-from efficientsam3_tpu_torch.ops.flash_attention import padded_bank_len
+from efficientsam3_tpu_torch.ops.flash_attention import padded_bank_len, quantize_rows
 from efficientsam3_tpu_torch.ops.interpolate import resize_bilinear
 
 NO_OBJ_SCORE = -1024.0
@@ -166,11 +166,15 @@ class TrackerCore(nn.Module):
         (the one pass over the bank a layer makes); the pointer tokens are
         projected per frame and attended as a second segment, merged by
         log-sum-exp. shared_ages: every slot holds the same frame in each
-        bank column, so one age table serves all slots."""
-        if quantize_bank:
-            raise NotImplementedError(
-                "quantize_bank (the int8 key bank, flash_memattn_q8) is not ported yet: "
-                "ROADMAP Queue 2 item 5")
+        bank column, so one age table serves all slots.
+
+        quantize_bank (the opt-in int8 serving mode): each layer's
+        age-adjusted keys are quantized per row (``quantize_rows``, plain
+        tensor ops as in the JAX package) and attended by
+        ``flash_memattn_q8`` on CUDA; the int8 copy lives for the layer
+        only, the persistent bank stays in the compute dtype. Pad rows are
+        zeros (scale eps / 127) and masked. Values, softmax and P V stay
+        exact; the memory logits carry int8 rounding."""
         n_layers, b, s_pad, c = k_bank.shape
         n_mem = mem_valid.shape[1]
         s_e = tpos_delta.shape[2]
@@ -189,7 +193,11 @@ class TrackerCore(nn.Module):
             else:
                 d_sel = tpos_delta[li][age].reshape(b, s_tot, c).to(k_bank.dtype)
                 k_adj = F.pad(k_bank[li, :, :s_tot] + d_sel, (0, 0, 0, s_pad - s_tot))
-            k_mem_layers.append(k_adj[:, None])
+            if quantize_bank:
+                k_i8, k_scale = quantize_rows(k_adj)
+                k_mem_layers.append((k_i8[:, None], k_scale[:, None]))
+            else:
+                k_mem_layers.append(k_adj[:, None])
             k_in = ptr_tok + ptr_pos if layer.pos_enc_at_cross_attn_keys else ptr_tok
             k_ptr_layers.append(layer.cross_attn_image.project_k(k_in, s_e, n_ptr_tok))
         v_ptr = ptr_tok.to(v_mem.dtype)[:, None]

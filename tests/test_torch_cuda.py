@@ -340,3 +340,157 @@ def test_native_hungarian_matches_numpy(cuda):
             c[:, t // 3:] = 1e6
         assert np.array_equal(hungarian.solve_assignment_native(c),
                               hungarian.solve_assignment_batched(c)), trial
+
+
+def _q8_inputs(dev, b, lq, lk):
+    """q, the quantized bank of k, raw values as a strided (B, 1, Lk, 64)
+    view of a bank, and a key mask: a masked entry and a masked pad tail in
+    slot 0, slot 1 empty (all keys masked, zero queries), the rest live."""
+    q = _randn(dev, b, 1, lq, 256)
+    k = _randn(dev, b, 1, lk, 256)
+    if b > 1:
+        q[1] = 0
+    k_i8, ks = fa.quantize_rows(k)
+    bank = _randn(dev, b, lk, 64)
+    bias = torch.zeros((b, lk), device=dev)
+    bias[0, lk // 4: lk // 2] = NEG_INF
+    bias[0, lk - lk // 8:] = NEG_INF
+    bias[1:2] = NEG_INF
+    return q, k, k_i8, ks[:, 0, :, 0], bank[:, None], bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lk", [(5184, 36864), (333, 640), (1, 128)])
+def test_flash_memattn_q8_kernel_matches_plain(cuda, lq, lk):
+    """The int8 bank kernel against its plain version: the tracker shape,
+    a ragged Lq, one row; a masked entry and pad tail (dead tiles skipped),
+    an empty slot (zero queries, all keys masked: 0 out, lse -1e9), with and
+    without the LSE, and within 2e-2 of the output's largest magnitude of
+    flash_memattn over the dequantized keys (only q's rounding differs)."""
+    q, k, k_i8, ks, v, bias = _q8_inputs(cuda, 3, lq, lk)
+    before = fa.flash_memattn_q8.launches
+    got, lse = fa.flash_memattn_q8(q, k_i8, ks, v, bias, return_lse=True)
+    torch.cuda.synchronize()
+    assert fa.flash_memattn_q8.launches == before + 1 and got.shape == (3, 1, lq, 64)
+    want, want_lse = fa.flash_memattn_q8_plain(q, k_i8, ks, v, bias, return_lse=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=TOL)
+    torch.testing.assert_close(lse, want_lse, atol=TOL, rtol=TOL)
+    assert (got[1] == 0).all() and (lse[1] == NEG_INF).all()
+    torch.testing.assert_close(fa.flash_memattn_q8(q, k_i8, ks, v, bias).float(), got.float(),
+                               atol=0, rtol=0)
+    k_deq = (k_i8.float() * ks[:, None, :, None]).to(torch.bfloat16)
+    exact = fa.flash_memattn(q, k_deq, v, bias)
+    assert _rel_err(got, exact) < 2e-2
+
+
+@pytest.mark.cuda
+def test_flash_memattn_q8_tile_skip_and_zero_rows(cuda):
+    """A live tile between dead ones gives what the same keys give in a
+    bank without the dead tiles around them (walking or skipping dead tiles
+    does not change the result), and an all-zero query
+    row (scale sm_scale * 1e-8 / 127, logits exactly 0) averages the live
+    values."""
+    lq, lk = 70, 1024
+    q, _, k_i8, ks, v, _ = _q8_inputs(cuda, 2, lq, lk)
+    q[1] = _randn(cuda, 1, lq, 256)
+    q[0, 0, 3] = 0
+    bias = torch.full((2, lk), NEG_INF, device=cuda)
+    bias[:, 128:192] = 0.0  # one live 64-key tile
+    bias[1, 640:700] = 0.0  # and a ragged stretch over two tiles in slot 1
+    got = fa.flash_memattn_q8(q, k_i8, ks, v, bias)
+    sub = fa.flash_memattn_q8(q[:1], k_i8[:1, :, 128:256].contiguous(), ks[:1, 128:256].contiguous(),
+                              v[:1, :, 128:256], bias[:1, 128:256])
+    torch.testing.assert_close(got[:1].float(), sub.float(), atol=TOL, rtol=TOL)
+    mean = v[0, 0, 128:192].float().mean(0)
+    torch.testing.assert_close(got[0, 0, 3].float(), mean, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.cuda
+def test_flash_memattn_q8_reads_strided_inputs(cuda):
+    """q as a merged-heads view, the int8 keys as one layer of a (L, B, S,
+    C) bank: read in place, same result as contiguous copies."""
+    lq, lk = 130, 256
+    qfull = _randn(cuda, 2, lq, 512)
+    q = qfull[..., 256:].reshape(2, lq, 1, 256).transpose(1, 2)
+    bank = torch.from_numpy(RNG.integers(-127, 128, (3, 2, lk, 256)).astype(np.int8)).to(cuda)
+    k_i8 = bank[1][:, None]
+    ks = 0.01 + 0.01 * torch.rand((2, lk), device=cuda)
+    v = _randn(cuda, 2, 1, lk, 64)
+    bias = torch.zeros((2, lk), device=cuda)
+    got = fa.flash_memattn_q8(q, k_i8, ks, v, bias)
+    want = fa.flash_memattn_q8(q.contiguous(), k_i8.contiguous(), ks, v, bias)
+    torch.testing.assert_close(got.float(), want.float(), atol=0, rtol=0)
+    torch.testing.assert_close(got.float(),
+                               fa.flash_memattn_q8_plain(q, k_i8, ks, v, bias).float(),
+                               atol=TOL, rtol=TOL)
+
+
+@pytest.mark.cuda
+def test_flash_memattn_q8_refuses_what_it_does_not_take(cuda):
+    q, _, k_i8, ks, v, bias = _q8_inputs(cuda, 1, 64, 128)
+    with pytest.raises(ValueError, match="pre-padded"):
+        fa.flash_memattn_q8(q, k_i8[:, :, :100], ks[:, :100], v[:, :, :100], bias[:, :100])
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.flash_memattn_q8(q.float(), k_i8, ks, v, bias)
+    with pytest.raises(ValueError, match="dk, dv"):
+        fa.flash_memattn_q8(q[..., :128], k_i8[..., :128], ks, v, bias)
+    with pytest.raises(ValueError, match="shapes"):
+        fa.flash_memattn_q8(q, k_i8.to(torch.bfloat16), ks, v, bias)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fa.flash_memattn_q8(q.clone().requires_grad_(), k_i8, ks, v, bias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n,n_iter", [(768, 256, 2048, 64), (100, 64, 130, 3), (1, 32, 1, 1)])
+def test_mma_probe_kernel_matches_plain(cuda, dtype, m, k, n, n_iter):
+    """The chained tensor-core product against the same chain of fp32
+    matmuls: the probe's shape, ragged m and n, one element. int8 products
+    are exact; the chain's fp32 sums round in another order (1e-5 of the
+    largest magnitude)."""
+    from efficientsam3_tpu_torch.ops import mma_probe
+
+    x, y = mma_probe.probe_operands(dtype, m, k, n, seed=3, device=cuda)
+    before = mma_probe.dot_chain.launches
+    got = mma_probe.dot_chain(x, y, n_iter)
+    torch.cuda.synchronize()
+    assert mma_probe.dot_chain.launches == before + 1 and got.shape == (m, n)
+    assert _rel_err(got, mma_probe.dot_chain_plain(x, y, n_iter)) < 1e-5
+
+
+@pytest.mark.cuda
+def test_mma_probe_refuses_what_it_does_not_take(cuda):
+    from efficientsam3_tpu_torch.ops import mma_probe
+
+    x = torch.zeros((8, 48), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        mma_probe.dot_chain(x, x.T.contiguous())
+    with pytest.raises(TypeError, match="int8 or bfloat16"):
+        mma_probe.dot_chain(x.float(), x.T.float())
+    big = torch.zeros((8, 1024), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        mma_probe.dot_chain(big, big.T.contiguous())
+
+
+@pytest.mark.cuda
+def test_native_host_kernels_match_scipy(cuda):
+    """The host library as nvcc builds it on the card's machine: hole
+    filling with sprinkle removal, labels and the distance transform against
+    scipy on noise masks."""
+    from scipy import ndimage
+
+    from efficientsam3_tpu_torch import native
+    from efficientsam3_tpu_torch.ops.cc import fill_holes_in_mask_scores_host
+
+    rng = np.random.default_rng(5)
+    scores = rng.standard_normal((5, 40, 56)).astype(np.float32)
+    for sprinkles in (False, True):
+        got = fill_holes_in_mask_scores_host(scores, 6, sprinkles, native=True)
+        want = fill_holes_in_mask_scores_host(scores, 6, sprinkles, native=False)
+        np.testing.assert_array_equal(got, want)
+    mask = rng.random((37, 53)) > 0.4
+    labels, n = native.cc_label(mask)
+    want_labels, want_n = ndimage.label(mask, structure=np.ones((3, 3), int))
+    assert n == want_n and np.array_equal(labels > 0, mask)
+    assert len(set(zip(labels[mask].tolist(), want_labels[mask].tolist()))) == n
+    np.testing.assert_allclose(native.edt(mask), ndimage.distance_transform_edt(mask), atol=1e-4)

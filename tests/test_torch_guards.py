@@ -82,6 +82,34 @@ print("FOREIGN", bad)
 """
 
 
+_PCS = r"""
+import sys
+import numpy as np
+from efficientsam3_tpu_torch.build import build_efficientsam3_video_model
+from efficientsam3_tpu_torch.system import EfficientSam3System
+from efficientsam3_tpu_torch.video.pipeline import VideoPCSConfig
+
+image, core = build_efficientsam3_video_model(
+    model_name="b0", embed_size=8, text_encoder_context_length=16, device="cpu")
+system = EfficientSam3System(image, core)
+proc = system.processor()
+tokens = np.zeros((1, 16), np.int64)
+tokens[0, :3] = [49406, 320, 49407]
+pipe = system.video_predictor(VideoPCSConfig(obj_slots=2, hotstart_delay=2), obj_slots=2,
+                              max_point_prompts=4, quantize_bank=True)
+frames = np.zeros((3, 112, 112, 3), np.float32)
+outs = list(pipe.run_video(frames, {"text": proc.encode_tokens(tokens)}))
+assert [o["frame_idx"] for o in outs] == [0, 1, 2], outs
+server = system.server(obj_slots=2, max_point_prompts=4, fill_hole_area=8)
+sid = server.start_session(frames)
+server.add_points(sid, 0, 1, points=[[40, 50]], labels=[1])
+assert [r["masks"].shape for r in server.propagate_in_video(sid)] == [(1, 1, 32, 32)] * 3
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "efficientsam3_tpu"))
+print("FOREIGN", bad)
+"""
+
+
 def _run_without_jax(script):
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
@@ -101,6 +129,12 @@ def test_tracker_slice_runs_without_jax():
     """So does the tiny video tracker: build_efficientsam3_video_model and
     TrackerPredictor over 3 frames."""
     _run_without_jax(_TRACKER)
+
+
+def test_video_pcs_runs_without_jax():
+    """So do the system handle, the video PCS pipeline over the real
+    detector (int8 bank) and the session server (hole filling on)."""
+    _run_without_jax(_PCS)
 
 
 def test_train_step_runs_without_jax():
@@ -173,10 +207,7 @@ def test_cuda_entry_points_raise_without_a_gpu():
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("option,item", [
-    (dict(mesh=object()), "Queue 1 item 19"), (dict(fill_hole_area=8), "Queue 1 item 15"),
-    (dict(quantize_bank=True), "Queue 2 item 5"),
-])
+@pytest.mark.parametrize("option,item", [(dict(mesh=object()), "Queue 1 item 19")])
 def test_unported_tracker_options_raise(option, item):
     from efficientsam3_tpu_torch.video.predictor import TrackerPredictor
     from efficientsam3_tpu_torch.video.tracker import TrackerCore
