@@ -103,9 +103,34 @@ Phases, each printing its own lines:
      same keys and over the number of live slots;
   8. [probe] the int8 / bf16 tensor-core probe (ops/mma_probe.bench_dot):
      64 chained (768, 256) @ (256, 2048) products a launch, against its
-     plain version, with torch._int_mm / torch.matmul as the library time.
+     plain version, with torch._int_mm / torch.matmul as the library time;
+  9. [tracker_train] the tracker's training path at full width: the [video]
+     configuration (fuser layer scales set to 1, so that the depthwise
+     branch carries gradient, and the object-score head's last bias raised
+     by 10 as in [pcs], so that tracked frames keep their objects and pass
+     gradient), every TrackerCore parameter trained, training
+     mode (dropout 0.1), an 8-frame clip over 8 object slots with the 3
+     objects of [video] prompted on frame 0 and frames 1-7 tracked on the
+     plain path over the predictor's fixed-width bank (frame 7: 7 memories
+     and 64 pointer tokens, 36352 keys); the loss is a seeded projection of
+     the live slots' low-res masks, one backward. Counters are set to 0
+     just before the clip and read after its forward and after its
+     backward: forward flash_sdpa 8 and layer_norm 13 per tracked frame,
+     depthwise_conv2d 2 per memory encode; backward flash_sdpa_bwd_dq /
+     _dkv 8 and layer_norm_bwd 13 per tracked frame, depthwise_conv2d_bwd 2
+     per memory a later frame reads; flash_memattn, flash_memattn_q8 and
+     flash_xattn_rpb 0. Checks: finite loss, masks and gradients, every
+     module group reached; the gradient of a 3-frame clip over the 3 live
+     slots through the kernels, through the plain versions and with the
+     kernels' outputs cut from the graph (same dropout bits). The clip's
+     forward, backward and peak memory are timed and torch.profiler splits
+     one backward by kernel. The d=256 backward kernels (at the largest
+     cross-attention and at the self-attention), the depthwise backward and
+     rms_norm_2d forward and backward (kernel level, at (8, 72, 72, 256)
+     and (4, 63, 63, 128) bf16) are held against their plain versions and
+     timed as in phase 3.
 
-The line before the last is the kernels JSON (eleven rows), the last
+The line before the last is the kernels JSON (sixteen rows), the last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -235,24 +260,24 @@ class Capture:
     axis), the arguments of its largest call (by the sizes of the first two
     tensors; the latest of equal calls, so a tracked video's last, fullest
     memory bank) as the model modules make it, without changing what runs:
-    args[(name, d)] = (args, kwargs)."""
+    args[(name, d)] = (args, kwargs). ``key(name, args)`` may group the
+    calls otherwise, and ``size(name, args)`` rank them otherwise."""
 
-    def __init__(self, modules):
+    def __init__(self, modules, key=None, size=None):
         self.modules = modules  # [(module, attribute name), ...]
+        self.key = key or (lambda name, a: (name, a[0].shape[-1]))
+        self.size = size or (lambda name, a: sum(t.numel() for t in a[:2]))
         self.args = {}
         self.saved = []
 
     def __enter__(self):
-        def size(a):
-            return sum(t.numel() for t in a[:2])
-
         for mod, name in self.modules:
             orig = getattr(mod, name)
 
             def wrapped(*a, orig_=orig, name_=name, **kw):
-                key = (name_, a[0].shape[-1])
+                key = self.key(name_, a)
                 prev = self.args.get(key)
-                if prev is None or size(a) >= size(prev[0]):
+                if prev is None or self.size(name_, a) >= self.size(name_, prev[0]):
                     self.args[key] = (a, kw)
                 return orig_(*a, **kw)
 
@@ -307,9 +332,10 @@ def check_rel(name, got, want, tol=2e-2):
 
 
 def log_row(r, smi):
+    lib = "not measured" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
     log(f"[kernel] {r['name']}: {r['ms']:.4f} ms in a CUDA graph | {r['call_ms']:.4f} ms "
         f"per call from the host | profiler {r['device_ms']} ms | plain {r['plain_ms']:.4f} ms | "
-        f"library {r['library_ms']:.4f} ms | bound {r['bound_ms']:.4f} ms ({r['bound_by']}) "
+        f"library {lib} | bound {r['bound_ms']:.4f} ms ({r['bound_by']}) "
         f"| {r['launches']} launches | {r['shape']} | {smi}")
 
 
@@ -572,6 +598,9 @@ def main():
     # ---------------------------------------------------------------- 7, 8
     rows += pcs_phase(smi)
     rows.append(probe_phase(smi))
+
+    # ---------------------------------------------------------------- 9
+    rows += tracker_train_phase(smi)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1689,6 +1718,501 @@ def probe_phase(smi):
               f"torch._int_mm; the bf16 chain {bf['ms']:.4f} ms", **{"pass": True})
     log_row(row, smi)
     return row
+
+
+# the tracker's training clip: 8 frames over 8 object slots, 3 of them live,
+# prompted on frame 0 as in [video]; per tracked frame (plain path) 4 self-
+# and 4 cross-attentions and 13 norms, per memory encode the fuser's 2
+# depthwise convs; the backward runs each attention's and norm's once, and
+# the depthwise backward of every memory a later frame reads
+TT_FRAMES, TT_SLOTS, TT_LIVE, TT_CHECK_FRAMES = 8, 8, 3, 3
+TT_FWD = {"flash_sdpa": 8, "layer_norm": 13}
+TT_BWD = {"flash_sdpa_bwd_dq": 8, "flash_sdpa_bwd_dkv": 8, "layer_norm_bwd": 13}
+TT_PROMPTS = (([[100, 150], [400, 520]], [2, 3]), ([[700, 300]], [1]),
+              ([[500, 800], [560, 760]], [1, 0]))
+# kernels against plain versions in the clip's gradient, |g - g_plain| /
+# |g_plain| over every parameter: bf16 P and dS in the attention backward,
+# bf16 dx of the depthwise, against the plain versions' fp32 autograd, over
+# 3 frames: 3-5% in each group on the H100 (PERF.md); a cut from the graph
+# moves each group by 29% or more. The bound holds on each group and on
+# all, and each group's cut must exceed twice it
+TT_GRAD_BOUND = 0.1
+TT_GROUPS = {"memory_attention": ("memory_attention",), "memory_encoder": ("memory_encoder",),
+             "sam_heads": ("sam_mask_decoder", "sam_prompt_encoder", "obj_ptr_proj",
+                           "obj_ptr_tpos_proj")}
+RMS_SHAPES = ((8, 72, 72, 256), (4, 63, 63, 128))
+
+
+def tracker_bank(t, n_mem, n_ptr):
+    """The predictor's bank at frame t of a clip prompted on frame 0:
+    memory columns [(source frame, tpos)] (the prompted frame at tpos 0,
+    then the recent frames oldest first at tpos n_mem - distance) and
+    pointer sources [(frame, distance)] (the prompted frame, then the
+    recent frames newest first)."""
+    recent = list(range(max(1, t - (n_mem - 1)), t))
+    cols = [(0, 0)] + [(s, n_mem - (t - s)) for s in recent]
+    ptrs = [(0, t)] + [(s, t - s) for s in range(t - 1, 0, -1)][:n_ptr - 1]
+    return cols, ptrs
+
+
+def tracker_clip(core, feats, pos, proj, n_live, compact=False):
+    """The tracker's training clip through TrackerCore's methods (the
+    caller sets training mode): feats [(tokens (1, HW, C), neck level 0,
+    neck level 1)] a frame; S = proj.shape[1] object slots, the first
+    n_live prompted on frame 0 by TT_PROMPTS, the rest empty padding.
+    Frame 0: no_mem_features -> forward_sam_heads (no multimask: the
+    decoder's training flag takes mask 0) -> encode_memory. Frames 1..:
+    condition_features (the plain path) over the predictor's fixed-width
+    bank of stacked memories and pointers, masked where a column is empty
+    or a slot holds no object (compact: only the columns that hold a frame)
+    -> forward_sam_heads (multimask) -> encode_memory. The loss is the
+    fixed projection proj (T, S, 1, 288, 288) of the live slots' low-res
+    masks. Returns (loss, [low-res masks a frame])."""
+    import torch
+
+    dev = pos.device
+    s_n = proj.shape[1]
+    fs, d, n_mem, n_ptr = core.feat_size, core.d_model, core.num_maskmem, core.max_obj_ptrs
+    live = torch.arange(s_n, device=dev) < n_live
+
+    def frame(t):  # one frame's features, shared by the slots (the predictor's tiling)
+        tokens, f0, f1 = feats[t]
+        tile = lambda x: x.expand(s_n, *x.shape[1:])  # noqa: E731
+        s0, s1 = core.sam_mask_decoder.high_res_convs(f0, f1)
+        return tile(tokens), (tile(s0), tile(s1))
+
+    coords = torch.zeros((s_n, 3, 2), device=dev)
+    labels = -torch.ones((s_n, 3), dtype=torch.long, device=dev)
+    for slot, (pts, labs) in enumerate(TT_PROMPTS[:n_live]):
+        coords[slot, :len(pts)] = torch.tensor(pts, dtype=torch.float32)
+        labels[slot, :len(labs)] = torch.tensor(labs)
+    tokens, hr = frame(0)
+    heads = core.forward_sam_heads(core.no_mem_features(tokens).reshape(s_n, fs, fs, d), coords,
+                                   labels, hr, False)
+    mems = {0: core.encode_memory(tokens, heads["high_res_masks"], heads["object_score_logits"],
+                                  True)}
+    ptrs = {0: heads["obj_ptr"]}
+    outs = [heads["low_res_masks"]]
+    for t in range(1, proj.shape[0]):
+        cols, psrc = tracker_bank(t, n_mem, n_ptr)
+        width, pwidth = (len(cols), len(psrc)) if compact else (n_mem, n_ptr)
+        mem = torch.stack([mems[f] for f, _ in cols]
+                          + [torch.zeros_like(mems[0])] * (width - len(cols)), 1)
+        tpos = torch.zeros((s_n, width), dtype=torch.long, device=dev)
+        tpos[:, :len(cols)] = torch.tensor([tp for _, tp in cols])
+        valid = (torch.arange(width, device=dev) < len(cols))[None] & live[:, None]
+        obj_ptrs = torch.stack([ptrs[f] for f, _ in psrc]
+                               + [torch.zeros_like(ptrs[0])] * (pwidth - len(psrc)), 1)
+        tdiff = torch.zeros((s_n, pwidth), device=dev)
+        tdiff[:, :len(psrc)] = torch.tensor([float(x) for _, x in psrc])
+        pvalid = (torch.arange(pwidth, device=dev) < len(psrc))[None] & live[:, None]
+        tokens, hr = frame(t)
+        cond = core.condition_features(tokens, pos, mem, tpos, valid, obj_ptrs, tdiff, pvalid,
+                                       float(min(proj.shape[0], n_ptr)))
+        heads = core.forward_sam_heads(
+            cond.reshape(s_n, fs, fs, d), torch.zeros((s_n, 1, 2), device=dev),
+            -torch.ones((s_n, 1), dtype=torch.long, device=dev), hr, True)
+        mems[t] = core.encode_memory(tokens, heads["high_res_masks"],
+                                     heads["object_score_logits"], False)
+        ptrs[t] = heads["obj_ptr"]
+        outs.append(heads["low_res_masks"])
+    loss = sum((m[:n_live].float() * p[:n_live]).sum() for m, p in zip(outs, proj))
+    return loss, outs
+
+
+def tracker_train_phase(smi):
+    """Phase 9: the tracker's training path at full width, and rms_norm_2d at
+    kernel level; returns the rows of the d=256 backward kernels, the
+    depthwise backward and rms_norm_2d forward and backward."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from efficientsam3_tpu_torch.build import build_efficientsam3_video_model
+    from efficientsam3_tpu_torch.models import common, memory_encoder
+    from efficientsam3_tpu_torch.models.common import sine_pos_embed_2d
+    from efficientsam3_tpu_torch.ops import depthwise as dw
+    from efficientsam3_tpu_torch.ops import flash_attention as fa
+    from efficientsam3_tpu_torch.ops import layer_norm as ln
+    from efficientsam3_tpu_torch.ops import rms_norm as rn
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    counters = {"flash_sdpa": fa, "flash_sdpa_bwd_dq": fa, "flash_sdpa_bwd_dkv": fa,
+                "layer_norm": ln, "layer_norm_bwd": ln, "depthwise_conv2d": dw,
+                "depthwise_conv2d_bwd": dw, "flash_memattn": fa, "flash_memattn_q8": fa,
+                "flash_xattn_rpb": fa}
+
+    def reset():
+        for name, mod in counters.items():
+            getattr(mod, name).launches = 0
+
+    def counts():
+        return {name: getattr(mod, name).launches for name, mod in counters.items()}
+
+    def events(n):
+        return [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+
+    # the [video] configuration: EV-M b1 with the SAM2 neck, TrackerCore at
+    # 1008^2, bf16, seed 0. The fuser's layer scales go from 1e-6 to 1, so
+    # that the depthwise branch carries gradient the checks can see
+    image, core = build_efficientsam3_video_model(model_name="b1", dtype=torch.bfloat16,
+                                                  device=dev, seed=0)
+    with torch.no_grad():
+        for blk in core.memory_encoder.fuser:
+            blk.gamma.fill_(1.0)
+        # random weights score every object as gone on tracked frames, whose
+        # masks are then the constant no-object fill and pass no gradient:
+        # the object-score head's last bias is raised by 10, as in [pcs]
+        core.sam_mask_decoder.pred_obj_score_head.layers[-1].bias += 10.0
+    core.train().requires_grad_(True)
+    fs, d = core.feat_size, core.d_model
+    frames = np.random.default_rng(7).standard_normal((TT_FRAMES, 1008, 1008, 3)).astype(np.float32)
+    feats = []
+    with torch.no_grad():  # the image model is not trained here: features as the predictor's
+        for t in range(TT_FRAMES):
+            fpn = image.encode_image(torch.as_tensor(frames[t], device=dev)[None])["sam2_fpn"]
+            feats.append((fpn[2].reshape(1, fs * fs, d), fpn[0], fpn[1]))
+    del image, fpn
+    pos = sine_pos_embed_2d(fs, fs, d, device=dev).reshape(fs * fs, d)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    proj = torch.randn((TT_FRAMES, TT_SLOTS, 1, 4 * fs, 4 * fs), generator=gen, device=dev)
+
+    def clip(seed=0, **kw):
+        torch.manual_seed(seed)  # the dropout bits
+        core.zero_grad(set_to_none=True)
+        return tracker_clip(core, feats, pos, proj, TT_LIVE, **kw)
+
+    # ---- run 1: counted, and the backward kernels' inputs captured (the
+    # attention with the most live keys, cross and self, and the depthwise)
+    def live_keys(a):
+        return int((a[3] > fa.NEG_INF / 2).sum().item())
+
+    capture = Capture(
+        [(fa, "flash_sdpa_bwd_dq"), (dw, "depthwise_conv2d_bwd")],
+        key=lambda name, a: (name, "self" if a[0].shape[2] == a[1].shape[2] else "cross")
+        if name.startswith("flash") else (name, a[0].shape[-1]),
+        size=lambda name, a: live_keys(a) if name.startswith("flash") else a[0].numel())
+    torch.cuda.reset_peak_memory_stats()
+    with capture:
+        reset()
+        loss, outs = clip()
+        fwd = counts()
+        loss.backward()
+        torch.cuda.synchronize()
+        total = counts()
+    bwd = {k: total[k] - fwd[k] for k in total}
+    tracked, encodes = TT_FRAMES - 1, TT_FRAMES
+    want_fwd = {k: 0 for k in counters}
+    want_fwd.update({k: n * tracked for k, n in TT_FWD.items()}, depthwise_conv2d=2 * encodes)
+    want_bwd = {k: 0 for k in counters}
+    want_bwd.update({k: n * tracked for k, n in TT_BWD.items()},
+                    depthwise_conv2d_bwd=2 * (encodes - 1))
+    log(f"[tracker_train] launches over the {TT_FRAMES}-frame clip ({tracked} tracked frames, "
+        f"{encodes} memory encodes): forward {fwd}; backward {bwd}")
+    if fwd != want_fwd or bwd != want_bwd:
+        raise AssertionError(f"[tracker_train] launches: forward {fwd} (want {want_fwd}), "
+                             f"backward {bwd} (want {want_bwd})")
+    if not math.isfinite(loss.item()):
+        raise AssertionError(f"[tracker_train] loss {loss.item()}")
+    for t, m in enumerate(outs):
+        if tuple(m.shape) != (TT_SLOTS, 1, 288, 288) or not torch.isfinite(m).all():
+            raise AssertionError(f"[tracker_train] frame {t}: masks {tuple(m.shape)} or non-finite")
+    moved = {}
+    for name, p in core.named_parameters():
+        if p.grad is None:
+            continue
+        if not torch.isfinite(p.grad.float()).all():
+            raise AssertionError(f"[tracker_train] non-finite gradient of {name}")
+        top = name.split(".")[0]
+        moved[top] = moved.get(top, 0) + int((p.grad != 0).sum())
+    for top in ("memory_attention", "memory_encoder", "sam_mask_decoder", "sam_prompt_encoder"):
+        if not moved.get(top):
+            raise AssertionError(f"[tracker_train] no gradient reached {top}")
+    log(f"[tracker_train] loss {loss.item():.4f}; non-zero gradient elements by module {moved}")
+    del loss, outs
+
+    # ---- run 2: timed (the same dropout bits)
+    torch.cuda.synchronize()
+    e = events(3)
+    e[0].record()
+    loss, outs = clip()
+    e[1].record()
+    loss.backward()
+    e[2].record()
+    e[2].synchronize()
+    fwd_ms, bwd_ms = e[0].elapsed_time(e[1]), e[1].elapsed_time(e[2])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[tracker_train] clip of {TT_FRAMES} frames, {TT_SLOTS} slots ({TT_LIVE} live), bf16: "
+        f"forward {fwd_ms:.1f} ms | backward {bwd_ms:.1f} ms | peak memory {peak:.2f} GiB "
+        f"(runs 1-2) | {smi}")
+    del loss, outs
+
+    # ---- run 3: the backward by kernel under the profiler
+    loss, _ = clip()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        loss.backward()
+        torch.cuda.synchronize()
+    del loss
+    kernels = sorted(((ev.key, ev.self_device_time_total, ev.count) for ev in prof.key_averages()
+                      if ev.device_type == torch.autograd.DeviceType.CUDA), key=lambda r: -r[1])
+    total_us = sum(us for _, us, _ in kernels)
+    device_ms = {}
+    if total_us == 0:
+        log("[profile] tracker backward: the profiler recorded no device time: not measured")
+    else:
+        busy = total_us / 1e3 / bwd_ms
+        log(f"[profile] tracker clip backward: {sum(n for _, _, n in kernels)} kernel launches, "
+            f"{total_us / 1e3:.3f} ms of device time in a {bwd_ms:.1f} ms backward: device busy "
+            f"{busy:.1%}, idle {1 - busy:.1%}")
+        for name, us, n in kernels[:12]:
+            log(f"[profile] tracker backward:   {us / 1e3:8.4f} ms  x{n:<4d} {name[:90]}")
+        for name, us, n in kernels:
+            for key, pattern in (("flash_sdpa_bwd_dq_d256", "wide::bwd_dq_kernel"),
+                                 ("flash_sdpa_bwd_dkv_d256", "wide::bwd_dkv_kernel"),
+                                 ("depthwise_conv2d_bwd", "dw7_kernel")):
+                if pattern in name:
+                    device_ms[key] = device_ms.get(key, 0.0) + us / 1e3 / n
+        write_out("profile_tracker_backward.txt",
+                  "\n".join(f"{us:12.2f} us  x{n:<5d} {name}" for name, us, n in kernels))
+    del prof
+
+    # ---- nothing cut from the graph: the gradient of a 3-frame clip over
+    # the 3 live slots (a compact bank, so that the plain versions' logits
+    # fit) through the kernels, through the plain versions, and with the
+    # kernels' outputs cut from the graph; the same dropout bits each time
+    feats_all, proj_all = feats, proj
+    feats, proj = feats_all[:TT_CHECK_FRAMES], proj_all[:TT_CHECK_FRAMES, :TT_LIVE]
+
+    def grads():
+        loss, _ = clip(seed=1, compact=True)
+        loss.backward()
+        # a parameter the run leaves without a gradient counts as zeros (the
+        # cut run reaches no memory-encoder parameter), so the runs' vectors align
+        named = [(k, (p.grad if p.grad is not None else torch.zeros_like(p)).float().flatten())
+                 for k, p in core.named_parameters()]
+        out = {g: torch.cat([v for k, v in named if k.split(".")[0] in tops])
+               for g, tops in TT_GROUPS.items()}
+        out["all"] = torch.cat([v for _, v in named])
+        return out
+
+    reset()
+    g_runs = {"kernels": grads()}
+    launched = counts()
+    if min(launched[k] for k in ("flash_sdpa_bwd_dq", "depthwise_conv2d_bwd", "layer_norm_bwd")) == 0:
+        raise AssertionError(f"[tracker_train] the kernel run did not launch the kernels: {launched}")
+    saved = common.flash_sdpa, memory_encoder.depthwise_conv2d
+    for name, attn, conv in (
+            ("plain", fa.flash_sdpa_plain, dw.depthwise_conv2d_plain),
+            ("cut", lambda *a, **k: fa.flash_sdpa(*a, **k).detach(),
+             lambda *a: dw.depthwise_conv2d(*a).detach())):
+        common.flash_sdpa, memory_encoder.depthwise_conv2d = attn, conv
+        reset()
+        try:
+            g_runs[name] = grads()
+        finally:
+            common.flash_sdpa, memory_encoder.depthwise_conv2d = saved
+        if name == "plain" and any(counts()[k] for k in ("flash_sdpa", "depthwise_conv2d")):
+            raise AssertionError(f"[tracker_train] the plain run launched a kernel: {counts()}")
+    rel = {run: {g: ((g_runs[run][g] - g_runs["plain"][g]).norm()
+                     / g_runs["plain"][g].norm()).item() for g in g_runs["plain"]}
+           for run in ("kernels", "cut")}
+    log(f"[tracker_train] gradient of a {TT_CHECK_FRAMES}-frame clip over the {TT_LIVE} live "
+        f"slots, |g - g_plain| / |g_plain| by group: kernels "
+        f"{ {g: round(x, 5) for g, x in rel['kernels'].items()} } (bound {TT_GRAD_BOUND} on each); "
+        f"the kernels' outputs cut from the graph "
+        f"{ {g: round(x, 5) for g, x in rel['cut'].items()} } (each must exceed {2 * TT_GRAD_BOUND})")
+    if not all(rel["kernels"][g] <= TT_GRAD_BOUND and rel["cut"][g] > 2 * TT_GRAD_BOUND
+               for g in rel["kernels"]):
+        raise AssertionError(f"[tracker_train] gradient through the kernels: {rel}")
+    del g_runs, feats, feats_all, proj, proj_all
+    core.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    # ---- the d=256 backward kernels against their plain versions, at the
+    # captured cross-attention (the most live keys) and self-attention
+    rows = []
+    for which in ("cross", "self"):
+        (q, k, v, key_bias, o, lse, do, scale), _ = capture.args[("flash_sdpa_bwd_dq", which)]
+        b, h, lq, dd = q.shape
+        dq, delta = fa.flash_sdpa_bwd_dq(q, k, v, key_bias, o, lse, do, scale)
+        want_dq, want_delta = fa.flash_sdpa_bwd_dq_plain(q, k, v, key_bias, o, lse, do, scale)
+        err_dq = check_rel(f"flash_sdpa_bwd_dq_d256 ({which})", dq, want_dq)
+        delta_err = (delta - want_delta).abs().max().item()
+        if delta_err > 1e-2:
+            raise AssertionError(f"flash_sdpa_bwd_dq_d256 delta off by {delta_err}")
+        del want_dq
+        dk, dv = fa.flash_sdpa_bwd_dkv(q, k, v, key_bias, do, lse, delta, scale)
+        want_dk, want_dv = fa.flash_sdpa_bwd_dkv_plain(q, k, v, key_bias, do, lse, want_delta,
+                                                       scale)
+        err_dkv = max(check_rel(f"flash_sdpa_bwd_dkv_d256 ({which}, dk)", dk, want_dk),
+                      check_rel(f"flash_sdpa_bwd_dkv_d256 ({which}, dv)", dv, want_dv))
+        del want_dk, want_dv, want_delta, dq, dk, dv
+        torch.cuda.empty_cache()
+        live = int((key_bias > fa.NEG_INF / 2).sum().item())  # summed over the slots
+        scores = h * lq * live  # skipped tiles do no work
+        nb_dq = 2 * (4 * q.numel() + 2 * h * live * dd) + 4 * (key_bias.numel() + 2 * lse.numel())
+        nb_dkv = 2 * (2 * q.numel() + 4 * h * live * dd) + 4 * (key_bias.numel() + 2 * lse.numel())
+        bms_dq, by_dq = bound(nb_dq, 3 * 2.0 * scores * dd, 1.0 * scores, 6.0 * scores)
+        bms_dkv, by_dkv = bound(nb_dkv, 4 * 2.0 * scores * dd, 1.0 * scores, 6.0 * scores)
+        per, reps = (2, 5) if which == "cross" else (5, 10)
+        run_dq = lambda: fa.flash_sdpa_bwd_dq(q, k, v, key_bias, o, lse, do, scale)  # noqa: E731
+        run_dkv = lambda: fa.flash_sdpa_bwd_dkv(q, k, v, key_bias, do, lse, delta, scale)  # noqa: E731
+        ms_dq, ms_dkv = graph_time(run_dq, per, reps), graph_time(run_dkv, per, reps)
+        # the library yardstick: SDPA's backward with a boolean key mask (one
+        # call computes dq, dk and dv: it stands beside both rows)
+        ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        ol = F.scaled_dot_product_attention(
+            ql, kl, vl, attn_mask=(key_bias > fa.NEG_INF / 2)[:, None, None, :], scale=scale)
+        lib_ms = cuda_time(lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True),
+                           5 if which == "cross" else 20)
+        del ql, kl, vl, ol
+        shape = (f"{which}-attention q/o/dO {tuple(q.shape)} k/v {tuple(k.shape)} bf16 (dO "
+                 f"strided), {live} live keys over {b} slots")
+        if which == "self":
+            log(f"[kernel] flash_sdpa_bwd_d256 at the {shape}: dq {ms_dq:.4f} ms (bound "
+                f"{bms_dq:.4f}, {by_dq}) | dkv {ms_dkv:.4f} ms (bound {bms_dkv:.4f}, {by_dkv}) | "
+                f"SDPA backward {lib_ms:.4f} ms | max rel err dq {err_dq:.3e} dkv {err_dkv:.3e} "
+                f"| {smi}")
+            continue
+        for name, fn, err, ms, bms, by, line in (
+                ("flash_sdpa_bwd_dq_d256", run_dq, err_dq, ms_dq, bms_dq, by_dq, 1082),
+                ("flash_sdpa_bwd_dkv_d256", run_dkv, err_dkv, ms_dkv, bms_dkv, by_dkv, 1098)):
+            plain = (lambda: fa.flash_sdpa_bwd_dq_plain(q, k, v, key_bias, o, lse, do, scale)) \
+                if "dq" in name else \
+                (lambda: fa.flash_sdpa_bwd_dkv_plain(q, k, v, key_bias, do, lse, delta, scale))
+            rows.append(dict(
+                name=name, route="cuda", source="efficientsam3_tpu_torch/csrc/flash_bwd_wide.cuh",
+                replaces=f"efficientsam3_tpu/ops/pallas/flash_attention.py:{line}",
+                launches=bwd[name.replace("_d256", "")], max_abs_err=err, ms=ms,
+                call_ms=cuda_time(fn, 5), plain_ms=cuda_time(plain, 2, warmup=1), bound_ms=bms,
+                bound_by=by, library_ms=lib_ms, device_ms=device_ms.get(name),
+                shape=shape + "; profiler: mean over the clip's launches (cross and self)",
+                **{"pass": True}))
+            torch.cuda.empty_cache()
+        del q, k, v, o, lse, do, delta
+
+    # ---- the depthwise backward at the memory encoder's (8, 72, 72, 256)
+    (x, kernel, g), _ = capture.args[("depthwise_conv2d_bwd", 256)]
+    dx, dwt, db = dw.depthwise_conv2d_bwd(x, kernel, g)
+    want = dw.depthwise_conv2d_bwd_plain(x, kernel, g)
+    # dx is a gradient of the loss, of no set scale: held relative to its
+    # largest magnitude, as the attention gradients are
+    err = check_rel("depthwise_conv2d_bwd (dx)", dx, want[0])
+    for name, got_, want_ in (("dw", dwt, want[1]), ("db", db, want[2])):
+        rel_ = ((got_ - want_).abs().max() / want_.abs().max()).item()
+        log(f"[kernel] depthwise_conv2d_bwd ({name}): max error {rel_:.3e} of its range (bound 1e-4)")
+        if rel_ > 1e-4:
+            raise AssertionError(f"depthwise_conv2d_bwd {name} disagrees with its plain version")
+    c = x.shape[-1]
+    zero = torch.zeros(c, device=dev)
+    flipped = kernel.flip(0, 1)
+    dx_ms = graph_time(lambda: dw._launch(g, flipped, zero))
+    red_ms = graph_time(lambda: dw._wgrad(x, g))
+    eager_ms = graph_time(lambda: dw._dw_db(x, g, 7), 5, 10)
+    nb = 2 * (x.numel() + g.numel() + dx.numel()) + 4 * (kernel.numel() + c)
+    bms, by = bound(nb, fp32_ops=4.0 * 49 * x.numel())
+    x_cl = x.permute(0, 3, 1, 2).detach().clone().requires_grad_()
+    w_l = kernel.permute(3, 2, 0, 1).to(x.dtype).detach().clone().requires_grad_()
+    b_l = torch.zeros(c, dtype=x.dtype, device=dev, requires_grad=True)
+    y_l = F.conv2d(x_cl, w_l, b_l, padding=3, groups=c)
+    g_l = g.permute(0, 3, 1, 2)
+    rows.append(dict(
+        name="depthwise_conv2d_bwd", route="cuda",
+        source="efficientsam3_tpu_torch/csrc/depthwise_conv2d.cu",
+        replaces="efficientsam3_tpu/ops/pallas/depthwise.py:84",
+        launches=bwd["depthwise_conv2d_bwd"], max_abs_err=err,
+        ms=graph_time(lambda: dw.depthwise_conv2d_bwd(x, kernel, g), 5, 10),
+        call_ms=cuda_time(lambda: dw.depthwise_conv2d_bwd(x, kernel, g), 20),
+        plain_ms=graph_time(lambda: dw.depthwise_conv2d_bwd_plain(x, kernel, g), 2, 5),
+        bound_ms=bms, bound_by=by,
+        library_ms=cuda_time(lambda: torch.autograd.grad(y_l, (x_cl, w_l, b_l), g_l,
+                                                         retain_graph=True), 20),
+        device_ms=device_ms.get("depthwise_conv2d_bwd"),
+        shape=f"x / dy {tuple(x.shape)} bf16, 7x7 taps: dx kernel {dx_ms:.4f} ms + dw / db "
+              f"kernel and sum {red_ms:.4f} ms (graph; the same reductions as 49 eager fp32 "
+              f"products and sums {eager_ms:.4f} ms); library = F.conv2d (groups=C) backward",
+        **{"pass": True}))
+    del x, kernel, g, dx, x_cl, w_l, b_l, y_l, g_l, capture, core
+
+    # ---- rms_norm_2d at kernel level (no model calls it): forward and
+    # backward under autograd at the tracker's map and EV-M's stride-16 map
+    # at the Stage-3 batch of 4 (15876 rows: a ragged last program)
+    rms = []
+    for shape in RMS_SHAPES:
+        c = shape[-1]
+        x = (3 * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
+        w = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
+        b = 0.1 * torch.randn(c, generator=gen, device=dev)
+        g = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        rms.append((x, w, b, g))
+    rn.rms_norm_2d.launches = rn.rms_norm_2d_bwd.launches = 0
+    for x, w, b, g in rms:
+        leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+        grads_ = torch.autograd.grad(rn.rms_norm_2d(*leaves), leaves, g)
+        if not all(torch.isfinite(t.float()).all() for t in grads_):
+            raise AssertionError("rms_norm_2d: non-finite gradients")
+    torch.cuda.synchronize()
+    rms_launches = (rn.rms_norm_2d.launches, rn.rms_norm_2d_bwd.launches)
+    if rms_launches != (len(RMS_SHAPES), len(RMS_SHAPES)):
+        raise AssertionError(f"rms_norm_2d launches {rms_launches}")
+    have_lib = hasattr(F, "rms_norm")
+    for i, (x, w, b, g) in enumerate(rms):
+        c = x.shape[-1]
+        out, rstd = rn._fwd(x, w, b, 1e-5)
+        want_out, want_rstd = rn.rms_norm_2d_plain(x, w, b, 1e-5, return_rstd=True)
+        err_f = check(f"rms_norm_2d {tuple(x.shape)}", out, want_out)
+        rstd_err = ((rstd - want_rstd).abs().max() / want_rstd.abs().max()).item()
+        dx, dw_, db_ = rn.rms_norm_2d_bwd(x, w, rstd, g)
+        want = rn.rms_norm_2d_bwd_plain(x, w, want_rstd, g)
+        err_b = check(f"rms_norm_2d_bwd {tuple(x.shape)} (dx)", dx, want[0])
+        rel_w = max(((a - e).abs().max() / e.abs().max()).item()
+                    for a, e in ((dw_, want[1]), (db_, want[2])))
+        log(f"[kernel] rms_norm_2d {tuple(x.shape)}: rstd {rstd_err:.3e}, dw / db {rel_w:.3e} "
+            f"of their ranges (bound 1e-4)")
+        if rstd_err > 1e-4 or rel_w > 1e-4:
+            raise AssertionError("rms_norm_2d rstd / dw / db disagree with the plain version")
+        rows_n = x.numel() // c
+        w_x = w.to(x.dtype)
+        fwd_ms = graph_time(lambda: rn.rms_norm_2d(x, w, b))
+        bwd_ms_ = graph_time(lambda: rn.rms_norm_2d_bwd(x, w, rstd, g))
+        lib_f = graph_time(lambda: F.rms_norm(x, (c,), w_x, 1e-5)) if have_lib else None
+        if have_lib:
+            xl = x.clone().requires_grad_()
+            wl = w_x.clone().requires_grad_()
+            yl = F.rms_norm(xl, (c,), wl, 1e-5)
+            lib_b = cuda_time(lambda: torch.autograd.grad(yl, (xl, wl), g, retain_graph=True), 50)
+        else:
+            lib_b = None
+        nb_f = 2 * 2 * x.numel() + 4 * rows_n + 8 * c
+        nb_b = 3 * 2 * x.numel() + 4 * rows_n + 8 * c
+        shape = f"x {tuple(x.shape)} bf16 ({rows_n} rows of {c}), w / b f32"
+        lib_note = ("" if have_lib else "; this PyTorch has no F.rms_norm: library not measured")
+        if i > 0:
+            log(f"[kernel] rms_norm_2d at {shape}: forward {fwd_ms:.4f} ms, backward "
+                f"{bwd_ms_:.4f} ms (graph); F.rms_norm {lib_f} ms, its backward {lib_b} ms | {smi}")
+            continue
+        for name, ms, fn, plain, err_, nb_, flops, lib, line in (
+                ("rms_norm_2d", fwd_ms, lambda: rn.rms_norm_2d(x, w, b),
+                 lambda: rn.rms_norm_2d_plain(x, w, b), err_f, nb_f, 4.0, lib_f, 59),
+                ("rms_norm_2d_bwd", bwd_ms_, lambda: rn.rms_norm_2d_bwd(x, w, rstd, g),
+                 lambda: rn.rms_norm_2d_bwd_plain(x, w, rstd, g), err_b, nb_b, 10.0, lib_b, 83)):
+            bms, by = bound(nb_, fp32_ops=flops * x.numel())
+            rows.append(dict(
+                name=name, route="triton", source="efficientsam3_tpu_torch/ops/rms_norm.py",
+                replaces=f"efficientsam3_tpu/ops/pallas/rms_norm.py:{line}",
+                launches=rms_launches[name.endswith("bwd")], max_abs_err=err_, ms=ms,
+                call_ms=cuda_time(fn, 50), plain_ms=graph_time(plain, 5, 10), bound_ms=bms,
+                bound_by=by, library_ms=lib, device_ms=None,
+                shape=shape + ("; library = F.rms_norm (no bias)" if name == "rms_norm_2d" else
+                               "; library = F.rms_norm backward (dx, dw)") + lib_note,
+                **{"pass": True}))
+    for r in rows:
+        log_row(r, smi)
+    torch.cuda.empty_cache()
+    return rows
 
 
 if __name__ == "__main__":

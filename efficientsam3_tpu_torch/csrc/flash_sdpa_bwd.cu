@@ -1,4 +1,4 @@
-// Flash attention backward for Hopper (sm_90a), head dim 32.
+// Flash attention backward for Hopper (sm_90a), head dims 32 and 256.
 //
 // Replaces efficientsam3_tpu/ops/pallas/flash_attention.py `_flash_bwd`:
 // `_bwd_dq_kernel` (its pallas_call at :1082) and `_bwd_dkv_kernel` (:1098),
@@ -39,8 +39,12 @@
 // other side's 64-row tiles with cp.async and reads their B fragments with
 // ldmatrix.trans, so no transposed copy is made. Pipelining the tile copies,
 // wgmma and folding log2(e) into the scale are later work.
+//
+// Head dim 256 (the tracker's memory attention under autograd) runs the
+// kernels of flash_bwd_wide.cuh, 8 warps a block with the accumulators split
+// over warps by columns; the entry points below dispatch on d.
 
-#include "flash_qsmem.cuh"
+#include "flash_bwd_wide.cuh"
 
 using namespace attn;
 
@@ -74,10 +78,6 @@ __device__ __forceinline__ void mma_tile_x(float (&acc)[D / 8][4], const float (
       mma16816(acc[n + 1], pa, b2, b3);
     }
   }
-}
-
-__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
-  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
 }
 
 // Store this warp's 16 x D fp32 accumulator, times `mul`, as bf16 rows.
@@ -308,6 +308,10 @@ extern "C" int flash_sdpa_bwd_dq(const void* q, const void* k, const void* v,
                                  long long soh, long long son, long long sdb, long long sdh,
                                  long long sdn, long long sgb, long long sgh, long long sgn,
                                  void* stream) {
+  if (d == wide::D)
+    return wide::launch_dq(q, k, v, key_bias, o, dout, lse, delta, dq, B, H, lq, lk, sm_scale,
+                           sqb, sqh, sqn, skb, skh, skn, svb, svh, svn, sob, soh, son, sdb, sdh,
+                           sdn, sgb, sgh, sgn, static_cast<cudaStream_t>(stream));
   if (d != D) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = dq_smem_bytes(lk);
   if (smem > 48 * 1024) {
@@ -335,6 +339,10 @@ extern "C" int flash_sdpa_bwd_dkv(const void* q, const void* k, const void* v,
                                   long long sdh, long long sdn, long long skgb, long long skgh,
                                   long long skgn, long long svgb, long long svgh,
                                   long long svgn, void* stream) {
+  if (d == wide::D)
+    return wide::launch_dkv(q, k, v, key_bias, dout, lse, delta, dk, dv, B, H, lq, lk, sm_scale,
+                            sqb, sqh, sqn, skb, skh, skn, svb, svh, svn, sdb, sdh, sdn, skgb,
+                            skgh, skgn, svgb, svgh, svgn, static_cast<cudaStream_t>(stream));
   if (d != D) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((lk + BK - 1) / BK, B * H);
   bwd_dkv_kernel<<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(

@@ -8,6 +8,15 @@ encoding added at the input, a final LayerNorm. The 13 norms run on the
 ``layer_norm`` kernel; on CUDA the self-attention and the plain path's
 cross-attention run on ``flash_sdpa`` at head dim 256.
 
+Training mode (the module's ``.train()``, the JAX ``train=True``): dropout
+(0.1) after the self-attention, after the cross-attention, and twice in the
+FFN tail (after the activation and after the second projection), on both
+``forward`` and ``forward_cached``; torch draws the bits (seed them with
+``torch.manual_seed``). Under autograd on CUDA the plain path runs the
+backward kernels of ``flash_sdpa`` and ``layer_norm``; the cached path's
+``flash_memattn`` / ``flash_memattn_q8`` are forward-only (as in JAX) and
+raise.
+
 The memory bank has a fixed width with invalid entries masked. An object
 slot whose memory is all masked is empty padding: its self-attention keys
 are masked too, so the flash kernel skips its tiles and the per-frame cost
@@ -29,16 +38,23 @@ from typing import Optional
 import torch
 from torch import nn
 
-from efficientsam3_tpu_torch.models.common import ACT, Dense, FusedLayerNorm, RoPEAttention
+from efficientsam3_tpu_torch.models.common import (
+    ACT,
+    Dense,
+    FusedLayerNorm,
+    RoPEAttention,
+    dropout,
+)
 
 
 class MemoryAttentionLayer(nn.Module):
     """self RoPE-attn -> cross RoPE-attn to memory -> FFN."""
 
     def __init__(self, d_model: int = 256, dim_feedforward: int = 2048, num_heads: int = 1,
-                 kv_in_dim: int = 64, activation: str = "relu",
+                 kv_in_dim: int = 64, dropout: float = 0.1, activation: str = "relu",
                  pos_enc_at_cross_attn_keys: bool = True, dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dropout = dropout
         self.pos_enc_at_cross_attn_keys = pos_enc_at_cross_attn_keys
         self.activation = ACT[activation]
         self.norm1 = FusedLayerNorm(d_model, 1e-5, dtype=dtype)
@@ -59,12 +75,16 @@ class MemoryAttentionLayer(nn.Module):
         later as a rotated linear delta)."""
         return self.cross_attn_image.project_k(self._cross_keys(entry, entry_pos), grid_tokens)
 
+    def _drop(self, x):
+        return dropout(x, self.dropout, self.training)
+
     def _self_block(self, tgt, self_key_padding_mask):
         t2 = self.norm1(tgt)
-        return tgt + self.self_attn(t2, t2, t2, key_padding_mask=self_key_padding_mask)
+        return tgt + self._drop(self.self_attn(t2, t2, t2, key_padding_mask=self_key_padding_mask))
 
     def _tail(self, tgt):
-        return tgt + self.linear2(self.activation(self.linear1(self.norm3(tgt))))
+        t2 = self.linear1(self.norm3(tgt))
+        return tgt + self._drop(self.linear2(self._drop(self.activation(t2))))
 
     def forward(self, tgt, memory, memory_pos, memory_mask=None, num_obj_ptr_tokens: int = 0,
                 self_key_padding_mask=None):
@@ -74,7 +94,7 @@ class MemoryAttentionLayer(nn.Module):
         t2 = self.cross_attn_image(self.norm2(tgt), self._cross_keys(memory, memory_pos), memory,
                                    num_k_exclude_rope=num_obj_ptr_tokens,
                                    key_padding_mask=memory_mask)
-        return self._tail(tgt + t2)
+        return self._tail(tgt + self._drop(t2))
 
     def forward_cached(self, tgt, kh_mem, v_mem, mem_mask, kh_ptr, v_ptr, ptr_mask,
                        self_key_padding_mask=None):
@@ -83,7 +103,7 @@ class MemoryAttentionLayer(nn.Module):
         tgt = self._self_block(tgt, self_key_padding_mask)
         t2 = self.cross_attn_image.attend_projected_rawv_2seg(
             self.norm2(tgt), kh_mem, v_mem, mem_mask, kh_ptr, v_ptr, ptr_mask)
-        return self._tail(tgt + t2)
+        return self._tail(tgt + self._drop(t2))
 
 
 class MemoryAttention(nn.Module):
@@ -91,11 +111,12 @@ class MemoryAttention(nn.Module):
 
     def __init__(self, num_layers: int = 4, d_model: int = 256, kv_in_dim: int = 64,
                  dim_feedforward: int = 2048, pos_enc_at_input: bool = True,
-                 dtype: Optional[torch.dtype] = None):
+                 dropout: float = 0.1, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.pos_enc_at_input = pos_enc_at_input
         self.layers = nn.ModuleList(
-            MemoryAttentionLayer(d_model, dim_feedforward, kv_in_dim=kv_in_dim, dtype=dtype)
+            MemoryAttentionLayer(d_model, dim_feedforward, kv_in_dim=kv_in_dim, dropout=dropout,
+                                 dtype=dtype)
             for _ in range(num_layers))
         self.norm = FusedLayerNorm(d_model, 1e-5)
 

@@ -4,7 +4,8 @@ Counterpart of efficientsam3_tpu/models/sam/heads.py, with the SAM2
 additions of the mask decoder: the object-score token, the high-res skip
 features and the dynamic multimask choice by stability. Prompts are
 fixed-width padded arrays (label -1 pads), as in the JAX package.
-Inference only.
+``MaskDecoder`` in training mode (``.train()``, the JAX ``train=True``)
+takes no dynamic multimask choice: a single-mask call returns mask 0.
 """
 
 from __future__ import annotations
@@ -229,10 +230,15 @@ class MaskDecoder(nn.Module):
 
     def forward(self, image_embeddings, image_pe, sparse, dense, multimask_output: bool,
                 high_res_features=None):
-        """-> (masks, ious, sam output tokens, object score logits)."""
+        """-> (masks, ious, sam output tokens, object score logits). Without
+        multimask output: the dynamic choice by stability in eval mode, mask
+        0 in training mode."""
         masks, iou_pred, mask_tokens_out, object_score_logits = self.predict_masks(
             image_embeddings, image_pe, sparse, dense, high_res_features)
         if multimask_output:
             return masks[:, 1:], iou_pred[:, 1:], mask_tokens_out[:, 1:], object_score_logits
-        out_masks, out_ious = self._dynamic_multimask(masks, iou_pred)
+        if self.training:
+            out_masks, out_ious = masks[:, 0:1], iou_pred[:, 0:1]
+        else:
+            out_masks, out_ious = self._dynamic_multimask(masks, iou_pred)
         return out_masks, out_ious, mask_tokens_out[:, 0:1], object_score_logits

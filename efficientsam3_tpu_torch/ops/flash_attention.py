@@ -3,8 +3,8 @@
 ``flash_sdpa`` replaces the Pallas ``flash_sdpa`` forward
 (efficientsam3_tpu/ops/pallas/flash_attention.py ``_flash_fwd`` /
 ``_kernel`` and ``_flash_fwd_packed`` / ``_packed_kernel``) at head dims 32
-(the fusion encoder) and 256 (the tracker's memory attention), and at head
-dim 32 its custom VJP (``_flash_bwd``: ``_bwd_dq_kernel`` and
+(the fusion encoder) and 256 (the tracker's memory attention), and at both
+head dims its custom VJP (``_flash_bwd``: ``_bwd_dq_kernel`` and
 ``_bwd_dkv_kernel``) through ``flash_sdpa_bwd_dq`` / ``flash_sdpa_bwd_dkv``;
 ``flash_memattn`` replaces ``flash_memattn`` / ``_memattn_kernel`` and
 ``_memattn_kernel_lse`` (the tracker's cached memory bank, raw dv = 64
@@ -45,7 +45,7 @@ from efficientsam3_tpu_torch.ops import _build
 
 NEG_INF = -1e9
 _SUPPORTED_D = (32, 256)
-_BWD_D = (32,)  # head dims of the backward kernels (the fusion encoder)
+_BWD_D = (32, 256)  # head dims of the backward kernels (fusion encoder, memory attention)
 _MEMATTN_DIMS = ((256, 64),)  # (dk, dv) of flash_memattn's kernel
 _BK = 64  # key tile of the CUDA kernels (attn_common.cuh BK)
 _BQ = 64  # query tile (attn_common.cuh BQ)
@@ -190,8 +190,8 @@ def flash_sdpa(q, k, v, key_bias, sm_scale=None, return_lse=False):
     logits bias (-1e9 for masked keys). Returns (B, H, Lq, D) in q.dtype,
     and the (B, H, Lq) f32 log-sum-exp with return_lse. When autograd
     records the call (grad mode on, an input requiring a gradient) it runs
-    as ``_FlashSdpaFn``, whose backward is the dq and dkv kernels (head dim
-    32 only); CPU tensors are differentiated through the plain version.
+    as ``_FlashSdpaFn``, whose backward is the dq and dkv kernels (head dims
+    32 and 256); CPU tensors are differentiated through the plain version.
     """
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
@@ -275,9 +275,9 @@ def _check_bwd(q, k, v, key_bias, lse, *rest):
 
 def flash_sdpa_bwd_dq(q, k, v, key_bias, o, lse, do, sm_scale):
     """dQ of flash_sdpa and Delta = rowsum(dO o O): (dq (B, H, Lq, D) in
-    q.dtype, delta (B, H, Lq) f32). One kernel launch on CUDA (head dim 32,
-    bf16), counted in ``flash_sdpa_bwd_dq.launches``; the plain version for
-    CPU tensors."""
+    q.dtype, delta (B, H, Lq) f32). One kernel launch on CUDA (head dim 32
+    or 256, bf16), counted in ``flash_sdpa_bwd_dq.launches``; the plain
+    version for CPU tensors."""
     if not q.is_cuda:
         return flash_sdpa_bwd_dq_plain(q, k, v, key_bias, o, lse, do, sm_scale)
     b, h, lq, lk, d = _check_bwd(q, k, v, key_bias, lse, o, do)

@@ -17,7 +17,17 @@ invalid entries masked.
     decoder on the conditioned features;
   - ``encode_memory``: memory encoder + no-object spatial embedding.
 
-Inference only: call under ``torch.inference_mode()``.
+Training mode (``.train()``, each JAX ``train=True`` argument): dropout
+in the memory attention and no dynamic multimask choice in the mask
+decoder. On CUDA ``no_mem_features``, ``condition_features`` (the plain
+path: ``flash_sdpa`` at head dim 256 for self- and cross-attention, with
+its backward kernels), ``forward_sam_heads`` and ``encode_memory``
+(``depthwise_conv2d`` with its backward) run under autograd, over memories
+stacked by the caller, as the JAX ``condition_features`` does.
+``condition_features_cached`` takes training mode too, but under autograd
+it raises in ``flash_memattn`` / ``flash_memattn_q8``, which have no
+backward (nor in JAX). ``video.predictor.TrackerPredictor`` stays an
+inference API: it rewrites its flat bank in place.
 """
 
 from __future__ import annotations
@@ -59,7 +69,7 @@ class TrackerCore(nn.Module):
 
     def __init__(self, image_size: int = 1008, backbone_stride: int = 14, d_model: int = 256,
                  mem_dim: int = 64, num_maskmem: int = 7, max_obj_ptrs: int = 16,
-                 dtype: Optional[torch.dtype] = None):
+                 dropout: float = 0.1, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.image_size = image_size
         self.feat_size = image_size // backbone_stride  # 72
@@ -71,7 +81,8 @@ class TrackerCore(nn.Module):
         self.sigmoid_scale_for_mem_enc = 20.0
         self.sigmoid_bias_for_mem_enc = -10.0
         d, md, fs = d_model, mem_dim, self.feat_size
-        self.memory_attention = MemoryAttention(d_model=d, kv_in_dim=md, dtype=dtype)
+        self.memory_attention = MemoryAttention(d_model=d, kv_in_dim=md, dropout=dropout,
+                                                dtype=dtype)
         interp = fs * 16  # 1152 at 1008 / 14
         self.memory_encoder = MemoryEncoder(out_dim=md, in_dim=d, interpol_size=(interp, interp),
                                             dtype=dtype)

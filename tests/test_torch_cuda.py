@@ -14,6 +14,7 @@ import torch
 from efficientsam3_tpu_torch.ops import depthwise as dw
 from efficientsam3_tpu_torch.ops import flash_attention as fa
 from efficientsam3_tpu_torch.ops import layer_norm as ln
+from efficientsam3_tpu_torch.ops import rms_norm as rn
 
 NEG_INF = fa.NEG_INF
 RNG = np.random.default_rng(13)
@@ -232,13 +233,21 @@ def test_flash_sdpa_bwd_kernels_match_plain(cuda, lq, lk):
 
 @pytest.mark.cuda
 def test_flash_sdpa_bwd_kernels_refuse_other_head_dims(cuda):
-    q = _randn(cuda, 1, 1, 64, 256)
+    """Head dims 32 and 256 have backward kernels; another (64) raises, in
+    the kernels and in flash_sdpa under autograd, and d=256 is taken."""
+    q = _randn(cuda, 1, 1, 64, 64)
     bias = torch.zeros((1, 64), device=cuda)
     lse = torch.zeros((1, 1, 64), device=cuda)
     with pytest.raises(ValueError, match="head dims"):
-        fa.flash_sdpa_bwd_dq(q, q, q, bias, q, lse, q, 0.0625)
+        fa.flash_sdpa_bwd_dq(q, q, q, bias, q, lse, q, 0.125)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_sdpa_bwd_dkv(q, q, q, bias, q, lse, lse, 0.125)
     with pytest.raises(ValueError, match="head dims"):
         fa.flash_sdpa(q.requires_grad_(), q, q, bias)
+    q256 = _randn(cuda, 1, 1, 64, 256).requires_grad_()
+    before = fa.flash_sdpa_bwd_dq.launches
+    fa.flash_sdpa(q256, q256, q256, bias).float().sum().backward()
+    assert fa.flash_sdpa_bwd_dq.launches == before + 1 and q256.grad.shape == q256.shape
 
 
 @pytest.mark.cuda
@@ -298,27 +307,32 @@ def test_layer_norm_autograd_matches_plain_autograd(cuda):
 
 @pytest.mark.cuda
 def test_forward_only_kernels_raise_under_grad(cuda):
-    """flash_memattn, flash_xattn_rpb and depthwise_conv2d have no backward:
-    under autograd they raise instead of returning a tensor cut from the
-    graph; under no_grad they run."""
+    """flash_memattn, flash_memattn_q8 and flash_xattn_rpb have no backward
+    (nor do their JAX kernels): under autograd they raise instead of
+    returning a tensor cut from the graph; under no_grad they run.
+    depthwise_conv2d has its backward now (test_depthwise_autograd_*)."""
     q = _randn(cuda, 1, 1, 64, 256).requires_grad_()
     k = _randn(cuda, 1, 1, 64, 256)
     v = _randn(cuda, 1, 1, 64, 64)
     bias = torch.zeros((1, 64), device=cuda)
     with pytest.raises(RuntimeError, match="forward-only"):
         fa.flash_memattn(q, k, v, bias)
+    k_i8, k_scale = fa.quantize_rows(_randn(cuda, 1, 128, 256))  # a padded bank of 128 keys
+    v128 = _randn(cuda, 1, 1, 128, 64)
+    bias128 = torch.zeros((1, 128), device=cuda)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fa.flash_memattn_q8(q, k_i8[:, None], k_scale[..., 0], v128, bias128)
+    with torch.no_grad():
+        out = fa.flash_memattn_q8(q, k_i8[:, None], k_scale[..., 0], v128, bias128)
+        assert out.shape == (1, 1, 64, 64)
     q32 = _randn(cuda, 1, 8, 5, 32).requires_grad_()
     kv = _randn(cuda, 1, 8, 12, 32)
     ey = _randn(cuda, 1, 8, 5, 3, dtype=torch.float32)
     ex = _randn(cuda, 1, 8, 5, 4, dtype=torch.float32)
     with pytest.raises(RuntimeError, match="forward-only"):
         fa.flash_xattn_rpb(q32, kv, kv, ey, ex, (3, 4))
-    x = _randn(cuda, 1, 8, 8, 16).requires_grad_()
-    wk = torch.zeros(7, 7, 1, 16, device=cuda)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        dw.depthwise_conv2d(x, wk, torch.zeros(16, device=cuda))
     with torch.no_grad():
-        assert dw.depthwise_conv2d(x, wk, torch.zeros(16, device=cuda)).shape == x.shape
+        assert fa.flash_xattn_rpb(q32, kv, kv, ey, ex, (3, 4)).shape == q32.shape
 
 
 @pytest.mark.cuda
@@ -494,3 +508,163 @@ def test_native_host_kernels_match_scipy(cuda):
     assert n == want_n and np.array_equal(labels > 0, mask)
     assert len(set(zip(labels[mask].tolist(), want_labels[mask].tolist()))) == n
     np.testing.assert_allclose(native.edt(mask), ndimage.distance_transform_edt(mask), atol=1e-4)
+
+
+# -------------------------------------------------------------------------
+# the tracker's training path: flash_sdpa backward at head dim 256,
+# depthwise_conv2d backward, rms_norm_2d forward and backward
+
+
+def _bwd256_inputs(dev, b, lq, lk, heads=1):
+    """Head dim 256: q/k/v as strided (B, H, N, 256) views of (B, N, H *
+    256) tokens, a key bias with a masked 64-key tile in row 0, a ragged
+    masked tail in row 1 and every key of the last row masked (an empty
+    object slot), the forward's output and lse, and a strided dO."""
+    def heads_of(n):
+        return _randn(dev, b, n, heads * 256).reshape(b, n, heads, 256).transpose(1, 2)
+
+    q, k, v = heads_of(lq), heads_of(lk), heads_of(lk)
+    bias = torch.zeros((b, lk), device=dev)
+    bias[0, 64:128] = NEG_INF
+    bias[1, lk - lk // 3:] = NEG_INF
+    bias[-1] = NEG_INF
+    o, lse = fa.flash_sdpa_plain(q, k, v, bias, return_lse=True)
+    return q, k, v, bias, o, lse, heads_of(lq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lk,heads", [(5184, 5184, 1), (333, 36352, 1), (700, 517, 2),
+                                         (1, 64, 1)])
+def test_flash_sdpa_bwd_d256_kernels_match_plain(cuda, lq, lk, heads):
+    """dq (and Delta) and dk/dv at head dim 256 against the plain backward:
+    the tracker's self-attention (5184 x 5184) and its plain path's
+    cross-attention (36352 keys), strided heads, ragged Lq/Lk, a masked key
+    tile (skipped), a fully masked batch row (zero gradients). Sums of
+    bf16 products over Lk or Lq terms in other orders: 2e-2 of each
+    gradient's largest magnitude."""
+    q, k, v, bias, o, lse, do = _bwd256_inputs(cuda, 3, lq, lk, heads)
+    assert not q.is_contiguous() or heads == 1
+    scale = 256 ** -0.5
+    n_dq, n_dkv = fa.flash_sdpa_bwd_dq.launches, fa.flash_sdpa_bwd_dkv.launches
+    dq, delta = fa.flash_sdpa_bwd_dq(q, k, v, bias, o, lse, do, scale)
+    dk, dv = fa.flash_sdpa_bwd_dkv(q, k, v, bias, do, lse, delta, scale)
+    torch.cuda.synchronize()
+    assert (fa.flash_sdpa_bwd_dq.launches, fa.flash_sdpa_bwd_dkv.launches) == (n_dq + 1, n_dkv + 1)
+    want_dq, want_delta = fa.flash_sdpa_bwd_dq_plain(q, k, v, bias, o, lse, do, scale)
+    want_dk, want_dv = fa.flash_sdpa_bwd_dkv_plain(q, k, v, bias, do, lse, want_delta, scale)
+    torch.testing.assert_close(delta, want_delta, atol=1e-3, rtol=1e-3)
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        assert _rel_err(got, want) < 2e-2
+    for g in (dq, dk, dv):
+        assert (g[-1] == 0).all()
+    assert (dk[0, :, 64:128] == 0).all() and (dv[0, :, 64:128] == 0).all()
+
+
+@pytest.mark.cuda
+def test_flash_sdpa_d256_autograd_matches_plain_autograd(cuda):
+    """flash_sdpa at head dim 256 under autograd (forward kernel, dq and
+    dkv kernels) against autograd through the plain forward, bf16 in both:
+    within 3e-2 of each gradient's largest magnitude; key_bias gets a zero
+    gradient."""
+    q, k, v, bias, _, _, _ = _bwd256_inputs(cuda, 3, 600, 900)
+    w = _randn(cuda, 3, 1, 600, 256, dtype=torch.float32)
+    grads = {}
+    for name, fn in (("kernel", fa.flash_sdpa), ("plain", fa.flash_sdpa_plain)):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, bias)]
+        (fn(*leaves).float() * w).sum().backward()
+        grads[name] = [t.grad for t in leaves]
+    for got, want in zip(grads["kernel"][:3], grads["plain"][:3]):
+        assert _rel_err(got, want) < 3e-2
+    assert (grads["kernel"][3] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 72, 72, 256), (2, 13, 29, 40), (1, 9, 5, 37), (1, 3, 4, 8)])
+def test_depthwise_bwd_matches_plain(cuda, shape):
+    """dx (the kernel over the flipped taps) against the plain backward, and
+    dw / db (the weight-gradient kernel's fp32 per-tile sums, then one sum)
+    against the plain reductions in fp64: the tracker shape, odd H/W and C
+    (the element-copy staging), and a map smaller than the 7x7 kernel. g is
+    a loss gradient's size (1e-2), so dx is held relative to its range."""
+    c = shape[-1]
+    x = _randn(cuda, *shape)
+    g = (1e-2 * _randn(cuda, *shape, dtype=torch.float32)).to(torch.bfloat16)
+    wk = 0.2 * _randn(cuda, 7, 7, 1, c, dtype=torch.float32)
+    before = dw.depthwise_conv2d_bwd.launches
+    dx, dwt, db = dw.depthwise_conv2d_bwd(x, wk, g)
+    torch.cuda.synchronize()
+    assert dw.depthwise_conv2d_bwd.launches == before + 1 and dx.dtype == torch.bfloat16
+    want = dw.depthwise_conv2d_bwd_plain(x, wk, g)
+    assert _rel_err(dx, want[0]) < TOL
+    exact = dw.depthwise_conv2d_bwd_plain(x.double(), wk.double(), g.double())
+    assert _rel_err(dwt, exact[1]) < 1e-5 and _rel_err(db, exact[2]) < 1e-5
+    with pytest.raises(TypeError, match="bfloat16"):
+        dw.depthwise_conv2d_bwd(x, wk, g.float())
+
+
+@pytest.mark.cuda
+def test_depthwise_autograd_matches_plain_autograd(cuda):
+    """depthwise_conv2d under autograd (forward kernel, dx kernel, fp32
+    dw / db) against autograd through the plain forward; taps and bias in
+    bf16 as CXBlock holds them, so their gradients come back bf16."""
+    x = _randn(cuda, 2, 30, 41, 64)
+    wk = (0.2 * _randn(cuda, 7, 7, 1, 64, dtype=torch.float32)).to(torch.bfloat16)
+    bias = (0.1 * _randn(cuda, 64, dtype=torch.float32)).to(torch.bfloat16)
+    proj = _randn(cuda, 2, 30, 41, 64, dtype=torch.float32)
+    grads = {}
+    for name, fn in (("kernel", dw.depthwise_conv2d), ("plain", dw.depthwise_conv2d_plain)):
+        leaves = [t.detach().clone().requires_grad_() for t in (x, wk, bias)]
+        fwd, bwd = dw.depthwise_conv2d.launches, dw.depthwise_conv2d_bwd.launches
+        (fn(*leaves).float() * proj).sum().backward()
+        if name == "kernel":
+            assert (dw.depthwise_conv2d.launches, dw.depthwise_conv2d_bwd.launches) == (
+                fwd + 1, bwd + 1)
+        grads[name] = [t.grad for t in leaves]
+    for got, want in zip(grads["kernel"], grads["plain"]):
+        assert got.dtype == want.dtype and _rel_err(got, want) < 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 72, 72, 256), (4, 63, 63, 128), (3, 5, 7, 40)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rms_norm_2d_kernels_match_plain(cuda, shape, dtype):
+    """Forward (out, rstd) and backward (dx, dw, db) against the plain
+    versions: the tracker's map, EV-M's stride-16 map at batch 4 (15876
+    rows: a ragged last program), and a channel count that is not a power
+    of two. out / dx round to x's dtype after sums in other orders (1e-2);
+    rstd 1e-5; dw / db are fp32 sums of per-program partials, 1e-4 of
+    their range."""
+    c = shape[-1]
+    x = 3.0 * _randn(cuda, *shape, dtype=dtype)
+    w = 1.0 + 0.1 * _randn(cuda, c, dtype=torch.float32)
+    b = 0.1 * _randn(cuda, c, dtype=torch.float32)
+    g = _randn(cuda, *shape, dtype=dtype)
+    fwd, bwd = rn.rms_norm_2d.launches, rn.rms_norm_2d_bwd.launches
+    out = rn.rms_norm_2d(x, w, b)
+    _, rstd = rn._fwd(x, w, b, 1e-5)
+    dx, dwt, db = rn.rms_norm_2d_bwd(x, w, rstd, g)
+    torch.cuda.synchronize()
+    assert (rn.rms_norm_2d.launches, rn.rms_norm_2d_bwd.launches) == (fwd + 2, bwd + 1)
+    want, want_rstd = rn.rms_norm_2d_plain(x, w, b, return_rstd=True)
+    assert out.dtype == dtype and dx.dtype == dtype
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL, rtol=TOL)
+    torch.testing.assert_close(rstd, want_rstd, atol=1e-5, rtol=1e-5)
+    want_dx, want_dw, want_db = rn.rms_norm_2d_bwd_plain(x, w, want_rstd, g)
+    torch.testing.assert_close(dx.float(), want_dx.float(), atol=TOL, rtol=TOL)
+    assert _rel_err(dwt, want_dw) < 1e-4 and _rel_err(db, want_db) < 1e-4
+
+
+@pytest.mark.cuda
+def test_rms_norm_2d_autograd_matches_plain_autograd(cuda):
+    x = (3.0 * _randn(cuda, 2, 17, 19, 128, dtype=torch.float32)).to(torch.bfloat16)
+    x.requires_grad_()
+    w = (1.0 + 0.1 * _randn(cuda, 128, dtype=torch.float32)).requires_grad_()
+    b = (0.1 * _randn(cuda, 128, dtype=torch.float32)).requires_grad_()
+    g = _randn(cuda, 2, 17, 19, 128, dtype=torch.float32)
+    fwd, bwd = rn.rms_norm_2d.launches, rn.rms_norm_2d_bwd.launches
+    got = torch.autograd.grad((rn.rms_norm_2d(x, w, b).float() * g).sum(), (x, w, b))
+    assert (rn.rms_norm_2d.launches, rn.rms_norm_2d_bwd.launches) == (fwd + 1, bwd + 1)
+    want = torch.autograd.grad((rn.rms_norm_2d_plain(x, w, b).float() * g).sum(), (x, w, b))
+    for a, e in zip(got, want):
+        assert a.dtype == e.dtype and _rel_err(a, e) < 1e-2

@@ -110,6 +110,34 @@ print("FOREIGN", bad)
 """
 
 
+_TRACKER_TRAIN = r"""
+import sys
+import numpy as np
+import torch
+import chip_smoke
+from efficientsam3_tpu_torch.build import build_efficientsam3_video_model
+from efficientsam3_tpu_torch.models.common import sine_pos_embed_2d
+from efficientsam3_tpu_torch.ops.rms_norm import rms_norm_2d
+
+image, core = build_efficientsam3_video_model(
+    model_name="b0", embed_size=8, text_encoder_context_length=16, device="cpu")
+core.train().requires_grad_(True)
+fs, d = core.feat_size, core.d_model
+with torch.no_grad():
+    fpns = [image.encode_image(torch.zeros(1, 112, 112, 3))["sam2_fpn"] for _ in range(3)]
+feats = [(f[2].reshape(1, fs * fs, d), f[0], f[1]) for f in fpns]
+pos = sine_pos_embed_2d(fs, fs, d).reshape(fs * fs, d)
+loss, outs = chip_smoke.tracker_clip(core, feats, pos, torch.ones(3, 2, 1, 4 * fs, 4 * fs), 2)
+loss.backward()
+assert core.memory_attention.layers[0].self_attn.q_proj.weight.grad is not None
+x = torch.randn(2, 3, 5, 8, requires_grad=True)
+rms_norm_2d(x, torch.ones(8), torch.zeros(8)).sum().backward()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "efficientsam3_tpu"))
+print("FOREIGN", bad)
+"""
+
+
 def _run_without_jax(script):
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
@@ -141,6 +169,13 @@ def test_train_step_runs_without_jax():
     """So does a tiny Stage-3 training step (model, losses, host Hungarian
     matcher, optimizer): no jax, flax, optax or efficientsam3_tpu module."""
     _run_without_jax(_TRAIN)
+
+
+def test_tracker_training_runs_without_jax():
+    """So does the tracker's training path: a tiny 3-frame clip in training
+    mode through chip_smoke.tracker_clip, its backward, and rms_norm_2d
+    under autograd."""
+    _run_without_jax(_TRACKER_TRAIN)
 
 
 def test_refuse_grad_only_when_autograd_records():

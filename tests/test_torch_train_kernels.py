@@ -3,8 +3,8 @@ through the JAX package's Pallas kernels in interpret mode (as
 tests/test_flash_attention.py runs them), on the CPU:
 
   - ``flash_sdpa_bwd_plain`` (the arithmetic of csrc/flash_sdpa_bwd.cu's dq
-    and dkv kernels) against the custom VJP of the JAX ``flash_sdpa``
-    (``_flash_bwd``: ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``);
+    and dkv kernels, head dims 32 and 256) against the custom VJP of the JAX
+    ``flash_sdpa`` (``_flash_bwd``: ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``);
   - ``layer_norm_bwd_plain`` (the Triton backward's arithmetic) against the
     VJP of the JAX ``layer_norm`` (``_bwd_call`` / ``_bwd_kernel``);
   - the port's own autograd on CPU tensors, through the plain forwards,
@@ -21,6 +21,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from efficientsam3_tpu.ops.pallas import flash_attention as jfa
 from efficientsam3_tpu.ops.pallas.flash_attention import flash_sdpa as jflash_sdpa
 from efficientsam3_tpu.ops.pallas.layer_norm import layer_norm as jlayer_norm
 from efficientsam3_tpu_torch.ops import flash_attention as fa
@@ -68,9 +69,18 @@ def jax_grads(q, k, v, bias, do, dtype):
     return vjp(jnp.asarray(do, JDT[dtype]))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_sdpa_bwd_plain_matches_jax(dtype):
-    q, k, v, bias, do = attention_inputs(dtype)
+@pytest.mark.parametrize("dtype,h,d", [
+    pytest.param("float32", 4, 32, id="float32"), pytest.param("bfloat16", 4, 32, id="bfloat16"),
+    pytest.param("float32", 1, 256, id="float32-d256"),
+    pytest.param("bfloat16", 1, 256, id="bfloat16-d256"),
+])
+def test_flash_sdpa_bwd_plain_matches_jax(dtype, h, d):
+    """Head dim 32 (the fusion encoder's 4 heads here) and 256 (the
+    tracker's single-head memory attention): against jax.grad through the
+    custom VJP and, at d=256, against ``_flash_bwd`` called on the same
+    saved output and lse. Ragged Lk (200 over 64-key blocks), a masked key
+    tile, a fully masked batch row."""
+    q, k, v, bias, do = attention_inputs(dtype, h=h, d=d)
     want = jax_grads(q, k, v, bias, do, dtype)
     tq, tk, tv, tdo = (torch.from_numpy(x).to(TDT[dtype]) for x in (q, k, v, do))
     tb = torch.from_numpy(bias)
@@ -81,6 +91,12 @@ def test_flash_sdpa_bwd_plain_matches_jax(dtype):
         close(g, w, TOL[dtype])
     for g in got:
         assert (g[2] == 0).all()  # every key of batch row 2 masked
+    if d == 256:
+        jx = [jnp.asarray(np.array(t.float().numpy()), JDT[dtype]) for t in (tq, tk, tv, o, tdo)]
+        direct = jfa._flash_bwd(jx[0], jx[1], jx[2], jnp.asarray(bias), jx[3],
+                                jnp.asarray(lse.numpy()), jx[4], d ** -0.5, 32, 64, True)
+        for g, w in zip(got, direct):
+            close(g, w.astype(jnp.float32), TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
