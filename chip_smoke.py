@@ -130,9 +130,31 @@ Phases, each printing its own lines:
      and (4, 63, 63, 128) bf16) are held against their plain versions and
      timed as in phase 3.
 
-The line before the last is the kernels JSON (sixteen rows), the last
-{"ok": true, "device": {...}}. Any failure raises and exits non-zero.
-Imports nothing of JAX and nothing of the JAX package.
+  10. [fp32] the port's default builds (no dtype: fp32 compute, every
+     kernel through its fp32 instantiation on split bf16 parts) at full
+     width: one ground (launches 27 / 6 / 6) held against the same model and
+     inputs in fp32 on the host's CPU (plain versions; 1e-2 of each output's
+     largest magnitude) and set beside phase 2's bf16 ground (scores, boxes,
+     mask IoU, printed: the fp32 full-width reference of the bf16 build);
+     one tracked frame on the cached exact bank and one with
+     quantize_bank=True (launches per tracked frame as session A, the bank
+     kernel flash_memattn or flash_memattn_q8; int8 vs exact mask IoU mean >
+     0.98); one Stage-3 step at batch 4 (launches as [train]); a 3-frame
+     tracker training clip on a compact bank (forward and backward launches
+     as [tracker_train]). Counters are set to 0 just before each and read
+     just after. Each fp32 instantiation (flash_sdpa d=32 and d=256, its dq
+     and dkv at d=32 and d=256, flash_memattn, flash_memattn_q8,
+     flash_xattn_rpb, depthwise_conv2d forward and backward) is held against
+     its fp32 plain version on the inputs of its largest launch there, at
+     FP32_TOL, and timed as in phase 3 (library: fp32 SDPA, fp32 F.conv2d
+     with cuDNN's TF32 off). Phase 3's flash_sdpa row is the wgmma kernel
+     (csrc/flash_sdpa_h.cu); [train] times it again at the step's
+     (4, 8, 5184, 32).
+
+Each phase prints its seconds. The line before the last is the kernels
+JSON (twenty-seven rows), the last {"ok": true, "device": {...}}. Any
+failure raises and exits non-zero. Imports nothing of JAX and nothing of
+the JAX package.
 """
 
 import json
@@ -149,10 +171,15 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 PEAK_BYTES = 3.35e12  # HBM3 bytes/s
 PEAK_BF16 = 989e12  # dense bf16 tensor-core FLOP/s
 PEAK_INT8 = 1979e12  # dense int8 tensor-core operations/s
+PEAK_TF32 = 495e12  # dense tf32 tensor-core FLOP/s: the tensor rate for fp32 operands
 PEAK_FP32 = 67e12  # fp32 FLOP/s outside the tensor cores
 PEAK_SFU = 132 * 16 * 1.98e9  # exponentials/s: 16 per SM per clock at 1.98 GHz
 
 ATOL = RTOL = 1e-2  # kernel vs plain, bf16 outputs: about one bf16 ulp (2^-7 relative)
+# kernel vs plain in fp32: the fp32 instantiations multiply split bf16 parts
+# (hi hi + hi lo + lo hi, about 2^-16 of a product's magnitude), depthwise
+# in fp32 FMA: 1e-4 as atol and rtol, and of a gradient's largest magnitude
+FP32_TOL = 1e-4
 MAIN_COUNTS = {"layer_norm": 27, "flash_sdpa": 6, "flash_xattn_rpb": 6}
 # per tracked frame on the tracker's two paths
 VIDEO_COUNTS = {
@@ -292,25 +319,26 @@ class Capture:
             setattr(mod, name, orig)
 
 
-def bound(nbytes, mma_flops=0.0, exps=0.0, fp32_ops=0.0, int8_ops=0.0):
-    """(least ms the card could take, "bytes" or "operations"); bf16 and
-    int8 tensor-core work add up, the other units run beside them."""
+def bound(nbytes, mma_flops=0.0, exps=0.0, fp32_ops=0.0, int8_ops=0.0, tf32_flops=0.0):
+    """(least ms the card could take, "bytes" or "operations"); bf16, tf32
+    (the products of fp32 operands) and int8 tensor-core work add up, the
+    other units run beside them."""
     parts = {"bytes": nbytes / PEAK_BYTES,
-             "operations": max(mma_flops / PEAK_BF16 + int8_ops / PEAK_INT8, exps / PEAK_SFU,
-                               fp32_ops / PEAK_FP32)}
+             "operations": max(mma_flops / PEAK_BF16 + tf32_flops / PEAK_TF32
+                               + int8_ops / PEAK_INT8, exps / PEAK_SFU, fp32_ops / PEAK_FP32)}
     by = max(parts, key=parts.get)
     return parts[by] * 1e3, by
 
 
-def check(name, got, want):
+def check(name, got, want, tol=ATOL):
     """Max abs error of a kernel against its plain version; raises past the
-    stated tolerance."""
+    stated tolerance (atol = rtol = tol)."""
     import torch
 
     err = (got.float() - want.float()).abs().max().item()
-    ok = bool(torch.allclose(got.float(), want.float(), atol=ATOL, rtol=RTOL))
+    ok = bool(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol))
     log(f"[kernel] {name}: max|kernel - plain| = {err:.3e} "
-        f"(atol {ATOL}, rtol {RTOL}) -> {'pass' if ok else 'FAIL'}")
+        f"(atol {tol}, rtol {tol}) -> {'pass' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name} disagrees with its plain version")
     return err
@@ -329,6 +357,45 @@ def check_rel(name, got, want, tol=2e-2):
     if not ok:
         raise AssertionError(f"{name} disagrees with its plain version")
     return err
+
+
+def sdpa_h_measure(name, q, k, v, key_bias, scale, launches, err, lse_err):
+    """The row of the wgmma flash_sdpa kernel (bf16, d=32) at q/k/v: graph
+    and call time, its bound, the plain version and one SDPA call, and the
+    host's own time a call (100 calls enqueued back to back, read before
+    the card finishes them: the wrapper, its four tensor maps, the launch)."""
+    import torch
+    import torch.nn.functional as F
+
+    from efficientsam3_tpu_torch.ops import flash_attention as fa
+
+    b, h, lq, d = q.shape
+    live = int((key_bias > fa.NEG_INF / 2).sum().item()) // b  # skipped tiles do no work
+    nb = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * key_bias.numel()
+    bms, by = bound(nb, 4.0 * b * h * lq * live * d, 1.0 * b * h * lq * live,
+                    6.0 * b * h * lq * live)
+    new = lambda: fa.flash_sdpa(q, k, v, key_bias, scale)  # noqa: E731
+    new()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(100):
+        new()
+    host_ms = (time.perf_counter() - t) * 10
+    torch.cuda.synchronize()
+    row = dict(
+        name=name, route="cuda", source="efficientsam3_tpu_torch/csrc/flash_sdpa_h.cu",
+        replaces="efficientsam3_tpu/ops/pallas/flash_attention.py:304",
+        launches=launches, max_abs_err=err, ms=graph_time(new), call_ms=cuda_time(new, 50),
+        plain_ms=graph_time(lambda: fa.flash_sdpa_plain(q, k, v, key_bias, scale), 5, 10),
+        bound_ms=bms, bound_by=by,
+        library_ms=graph_time(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)),
+        shape=f"q/k/v {tuple(q.shape)} bf16, wgmma + TMA; host {host_ms:.4f} ms a call; "
+              f"lse max err {lse_err:.2e}",
+        **{"pass": True})
+    log(f"[kernel] flash_sdpa d=32 bf16 at {tuple(q.shape)}: wgmma kernel {row['ms']:.4f} ms | "
+        f"SDPA {row['library_ms']:.4f} ms | bound {bms:.4f} ms ({by}) (CUDA graph) | host "
+        f"{host_ms:.4f} ms a call")
+    return row
 
 
 def log_row(r, smi):
@@ -357,6 +424,7 @@ def main():
     from efficientsam3_tpu_torch.processor import Sam3Processor
 
     # ---------------------------------------------------------------- 1
+    t_run = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi_line()
@@ -454,7 +522,7 @@ def main():
         for name, us, n in kernels[:8]:
             log(f"[profile] {stage}:   {us / 1e3:8.4f} ms  x{n:<4d} {name[:90]}")
         for name, us, n in kernels:
-            for key, pattern in (("flash_sdpa", "flash_sdpa_fwd_kernel"),
+            for key, pattern in (("flash_sdpa", "flash_sdpa_h_kernel"),
                                  ("flash_xattn_rpb", "flash_xattn_rpb_"),
                                  ("layer_norm", "_ln_fwd")):
                 if pattern in name:  # flash_xattn_rpb runs two kernels per call
@@ -479,21 +547,9 @@ def main():
     log(f"[kernel] flash_sdpa lse: max err {lse_err:.3e} (atol 1e-2)")
     if lse_err > 1e-2:
         raise AssertionError("flash_sdpa lse disagrees with its plain version")
-    live_keys = int((key_bias > fa.NEG_INF / 2).sum().item()) // b  # skipped tiles do no work
-    nb = 2 * (q.numel() + k.numel() + v.numel() + got.numel()) + 4 * key_bias.numel()
-    bms, by = bound(nb, 4.0 * b * h * lq * live_keys * d, 1.0 * b * h * lq * live_keys,
-                    6.0 * b * h * lq * live_keys)
-    rows.append(dict(
-        name="flash_sdpa", route="cuda", source="efficientsam3_tpu_torch/csrc/flash_sdpa.cu",
-        replaces="efficientsam3_tpu/ops/pallas/flash_attention.py:304",
-        launches=launches["flash_sdpa"], max_abs_err=err,
-        ms=graph_time(lambda: fa.flash_sdpa(q, k, v, key_bias, scale)),
-        call_ms=cuda_time(lambda: fa.flash_sdpa(q, k, v, key_bias, scale), 50),
-        plain_ms=graph_time(lambda: fa.flash_sdpa_plain(q, k, v, key_bias, scale)),
-        bound_ms=bms, bound_by=by,
-        library_ms=graph_time(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)),
-        shape=f"q/k/v {tuple(q.shape)} bf16", **{"pass": True},
-    ))
+    sdpa_h_row = sdpa_h_measure("flash_sdpa", q, k, v, key_bias, scale, launches["flash_sdpa"],
+                                err, lse_err)
+    rows.append(sdpa_h_row)
 
     # flash_xattn_rpb at the decoder's image cross-attention
     (q, k, v, ey, ex, feat_hw, scale), _ = capture.args[("flash_xattn_rpb", 32)]
@@ -563,6 +619,8 @@ def main():
     if state["masks"].shape != (200, h0, w0) or not np.isfinite(state["masks_logits"]).all():
         raise AssertionError(f"all-query masks {state['masks'].shape}, want (200, {h0}, {w0})")
     log(f"[check] full-width outputs finite with expected shapes; 200 masks at {h0}x{w0}")
+    main_ref = dict(image=image, tokens=tokens, box=box, ground_ms=ground_ms,
+                    bf16_out={k: out[k].float().cpu() for k in GROUND_KEYS})
 
     # small input: tiny test config, bf16 on the card vs fp32 on the CPU
     tiny = dict(backbone_type="efficientvit", model_name="b0", embed_size=8,
@@ -589,18 +647,18 @@ def main():
     del model, proc, feats, state, capture, ref_model, gpu_model
     torch.cuda.empty_cache()
 
-    # ---------------------------------------------------------------- 5
-    rows += video_phase(smi, rng)
+    log(f"[time] phases 1-4 (build, main path, kernels, checks) {time.perf_counter() - t_run:.1f} s")
 
-    # ---------------------------------------------------------------- 6
-    rows += train_phase(smi)
-
-    # ---------------------------------------------------------------- 7, 8
-    rows += pcs_phase(smi)
-    rows.append(probe_phase(smi))
-
-    # ---------------------------------------------------------------- 9
-    rows += tracker_train_phase(smi)
+    # ---------------------------------------------------------------- 5-10
+    for name, phase in (("video", lambda: video_phase(smi, rng)), ("train", lambda: train_phase(smi)),
+                        ("pcs", lambda: pcs_phase(smi)), ("probe", lambda: [probe_phase(smi)]),
+                        ("tracker_train", lambda: tracker_train_phase(smi)),
+                        ("fp32", lambda: fp32_phase(smi, main_ref))):
+        t_phase = time.perf_counter()
+        rows += phase()
+        torch.cuda.empty_cache()
+        log(f"[time] phase [{name}] {time.perf_counter() - t_phase:.1f} s")
+    log(f"[time] whole run {time.perf_counter() - t_run:.1f} s")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -747,8 +805,8 @@ def video_phase(smi, rng):
         for name, us, n in kernels[:10]:
             log(f"[profile] tracked frame:   {us / 1e3:8.4f} ms  x{n:<4d} {name[:90]}")
         for name, us, n in kernels:
-            for key, pattern, per in (("flash_sdpa_d256", "flash_qsmem_kernel<256, 256>", 4),
-                                      ("flash_memattn", "flash_qsmem_kernel<256, 64>", 4),
+            for key, pattern, per in (("flash_sdpa_d256", "flash_qsmem_kernel<256, 256, __nv_bf", 4),
+                                      ("flash_memattn", "flash_qsmem_kernel<256, 64, __nv_bf", 4),
                                       ("depthwise_conv2d", "dw7_kernel", 2)):
                 if pattern in name:
                     device_ms[key] = device_ms.get(key, 0.0) + us / 1e3 / per
@@ -1131,7 +1189,7 @@ def train_phase(smi):
         for name, us, n in kernels:
             for key, pattern in (("flash_sdpa_bwd_dq", "bwd_dq_kernel"),
                                  ("flash_sdpa_bwd_dkv", "bwd_dkv_kernel"),
-                                 ("layer_norm_bwd", "_ln_bwd")):
+                                 ("layer_norm_bwd", "_ln_bwd"), ("flash_sdpa", "flash_sdpa_h_kernel")):
                 if pattern in name:
                     device_ms[key] = device_ms.get(key, 0.0) + us / 1e3 / TRAIN_COUNTS[key]
         write_out("profile_train_step.txt",
@@ -1230,6 +1288,17 @@ def train_phase(smi):
             plain_ms=cuda_time(plain, 3, warmup=1), bound_ms=bms, bound_by=by,
             library_ms=lib_ms, device_ms=device_ms.get(name), shape=shape, **{"pass": True}))
     del ql, kl, vl, ol, dq, dk, dv
+    # the wgmma forward kernel at the step's (4, 8, 5184, 32), beside SDPA
+    # (the row of phase 3 is at batch 1)
+    got, lse_ = fa.flash_sdpa(q, k, v, key_bias, scale, return_lse=True)
+    want, want_lse = fa.flash_sdpa_plain(q, k, v, key_bias, scale, return_lse=True)
+    err_f = check("flash_sdpa (Stage-3 shape)", got, want)
+    step_row = sdpa_h_measure("flash_sdpa (Stage-3 shape)", q, k, v, key_bias, scale,
+                              sum(r["flash_sdpa"] for r in per_step[:TRAIN_STEPS]), err_f,
+                              (lse_ - want_lse).abs().max().item())
+    step_row["device_ms"] = device_ms.get("flash_sdpa")
+    log_row(step_row, smi)
+    del got, lse_, want, want_lse
 
     # layer_norm backward at the fusion encoder's (4 x 5184, 256) norms
     (x, wt, g, eps), _ = capture.args[("layer_norm_bwd", 256)]
@@ -2213,6 +2282,546 @@ def tracker_train_phase(smi):
         log_row(r, smi)
     torch.cuda.empty_cache()
     return rows
+
+
+# the [fp32] phase: the default builds (no dtype: fp32 compute), one of each
+# path at full width, every kernel launched through its fp32 instantiation
+FP32_VIDEO_FRAMES = 2  # frame 0 prompted, one tracked frame
+FP32_CLIP_FRAMES = 3
+GROUND_KEYS = ("pred_logits", "pred_boxes", "pred_masks", "presence_logit_dec")
+
+
+def fp32_phase(smi, main_ref):
+    """Phase 10: the port's default (fp32) builds on the card. A ground
+    (launches 27 / 6 / 6) held against the same model in fp32 on the host's
+    CPU (plain versions) and set beside the bf16 build's ground of phase 2;
+    a tracked frame on the cached exact bank and one with quantize_bank; a
+    Stage-3 step (batch 4) through the fp32 backward kernels; a 3-frame
+    tracker training clip (compact bank) through the d=256 and depthwise
+    backward. Counters are set to 0 just before each and read just after.
+    Returns the rows of the fp32 instantiations, each held to its fp32 plain
+    version at FP32_TOL and timed as in phase 3 (library: fp32 SDPA, fp32
+    F.conv2d, TF32 off)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from efficientsam3_tpu_torch.build import (build_efficientsam3_image_model,
+                                               build_efficientsam3_video_model)
+    from efficientsam3_tpu_torch.models import common, memory_encoder
+    from efficientsam3_tpu_torch.models.common import sine_pos_embed_2d
+    from efficientsam3_tpu_torch.ops import depthwise as dw
+    from efficientsam3_tpu_torch.ops import flash_attention as fa
+    from efficientsam3_tpu_torch.ops import layer_norm as ln
+    from efficientsam3_tpu_torch.processor import Sam3Processor
+    from efficientsam3_tpu_torch.train import stage3
+    from efficientsam3_tpu_torch.video.predictor import TrackerPredictor
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    counters = {"flash_sdpa": fa, "flash_sdpa_bwd_dq": fa, "flash_sdpa_bwd_dkv": fa,
+                "flash_memattn": fa, "flash_memattn_q8": fa, "flash_xattn_rpb": fa,
+                "layer_norm": ln, "layer_norm_bwd": ln, "depthwise_conv2d": dw,
+                "depthwise_conv2d_bwd": dw}
+
+    def reset():
+        for name, mod in counters.items():
+            getattr(mod, name).launches = 0
+
+    def counts():
+        return {name: getattr(mod, name).launches for name, mod in counters.items()}
+
+    def expect(what, got, want):
+        want = {k: want.get(k, 0) for k in counters}
+        log(f"[fp32] {what}: launches {got}")
+        if got != want:
+            raise AssertionError(f"[fp32] {what}: launches {got}, want {want}")
+
+    def per_launch(fn, patterns, train=False):
+        """Profiler device ms a launch, by row name: {name: (pattern, launches a call)}."""
+        kernels, _, total_us = profile_kernels(fn, train)
+        if total_us == 0:
+            return {}
+        out = {}
+        for name, (pattern, per) in patterns.items():
+            us = sum(u for k, u, _ in kernels if pattern in k)
+            if us:
+                out[name] = us / 1e3 / per
+        return out
+
+    def row(name, source, line, launches, err, fn, plain, library, bms, by, shape, device):
+        r = dict(name=name, route="cuda", source=f"efficientsam3_tpu_torch/csrc/{source}",
+                 replaces=f"efficientsam3_tpu/ops/pallas/{line}", launches=launches,
+                 max_abs_err=err, ms=graph_time(fn, 5, 10), call_ms=cuda_time(fn, 10),
+                 plain_ms=cuda_time(plain, 3, warmup=1), bound_ms=bms, bound_by=by,
+                 library_ms=library, device_ms=device, shape=shape, **{"pass": True})
+        log_row(r, smi)
+        return r
+
+    def attn_bound(q_elems, live_pairs, d, dv=None, kv_elems=0):
+        """fp32 attention: 4-byte operands (q, the output, kv_elems of keys
+        and values) read or written once; the function's own products at
+        the tensor rate for fp32 operands (the kernels' split into three
+        bf16 products is their cost, not the function's), the exponentials,
+        ~6 FMA-pipe operations a score."""
+        dv = d if dv is None else dv
+        nb = 4 * (q_elems + q_elems * dv // d + kv_elems)
+        return bound(nb, exps=1.0 * live_pairs, fp32_ops=6.0 * live_pairs,
+                     tf32_flops=2.0 * live_pairs * (d + dv))
+
+    rows = []
+    # ---------------------------------------------------------------- ground
+    t0 = time.perf_counter()
+    model = build_efficientsam3_image_model(
+        backbone_type="efficientvit", model_name="b1", text_encoder_type="MobileCLIP-S0",
+        text_encoder_context_length=32, device=dev, seed=0)
+    if {p.dtype for p in model.parameters()} != {torch.float32}:
+        raise AssertionError("[fp32] the default build is not fp32")
+    proc = Sam3Processor(model, resolution=1008, context_length=32)
+    image, tokens, box = main_ref["image"], main_ref["tokens"], main_ref["box"]
+
+    def main_path():
+        state = proc.set_image(image)
+        state["text"] = proc.encode_tokens(tokens)
+        return proc.add_geometric_prompt(box, True, state)
+
+    capture = Capture([(common, "flash_sdpa"), (common, "flash_xattn_rpb")])
+    with capture:  # warm-up: Triton's fp32 layer_norm, cuDNN plans, captured inputs
+        main_path()
+    torch.cuda.synchronize()
+    reset()
+    state = main_path()
+    torch.cuda.synchronize()
+    expect("per ground call", counts(), MAIN_COUNTS)
+    for k in ("scores", "boxes", "masks_logits"):
+        if not np.isfinite(state[k]).all():
+            raise AssertionError(f"[fp32] non-finite {k}")
+    img = proc.preprocess(image)
+    tm, tmask = state["text"]
+    prompt = state["geometric_prompt"]
+    with torch.inference_mode():
+        feats = model.encode_image(img)
+        ground = lambda: model.ground(feats["fpn"], feats["pos"], tm, tmask, prompt)  # noqa: E731
+        res = ground()
+        out = {k: res[k].float().cpu() for k in GROUND_KEYS}
+        ground_ms = cuda_time(ground, 10)
+    # the fp32 ground runs only fp32 kernels: flash_xattn_rpb's partial and merge
+    dev_ground = per_launch(ground, {"flash_sdpa_fp32": ("flash_sdpa_fwd_kernel<32, float>", 6),
+                                     "flash_xattn_rpb_fp32": ("flash_xattn_rpb_", 6)})
+    log(f"[fp32] ground {ground_ms:.3f} ms (bf16 build: {main_ref['ground_ms']:.3f} ms); kept "
+        f"{len(state['scores'])} of 200 queries | {smi}")
+
+    # the same model and inputs in fp32 on the host's CPU (the plain versions):
+    # the fp32 kernels' split products (~2^-16) and cuDNN's fp32 convolutions
+    # against the CPU's, through the whole network; bound 1e-2 of each
+    # output's largest magnitude (at least 1)
+    cpu_model = build_efficientsam3_image_model(
+        backbone_type="efficientvit", model_name="b1", text_encoder_type="MobileCLIP-S0",
+        text_encoder_context_length=32, device="cpu", seed=0)
+    cpu_model.load_state_dict(model.state_dict())
+    t_cpu = time.perf_counter()
+    with torch.inference_mode():
+        cf = cpu_model.encode_image(img.cpu())
+        ref = cpu_model.ground(cf["fpn"], cf["pos"], tm.cpu(), tmask.cpu(), prompt.to("cpu"))
+    cpu_s = time.perf_counter() - t_cpu
+    errs = {}
+    for key in GROUND_KEYS:
+        want = ref[key].float()
+        errs[key] = (out[key] - want).abs().max().item() / max(1.0, want.abs().max().item())
+    log(f"[fp32] ground on the card (fp32 kernels) vs the CPU (plain versions, {cpu_s:.1f} s), "
+        f"max abs err over max(1, |largest|): { {k: f'{v:.2e}' for k, v in errs.items()} } "
+        f"(bound 1e-2)")
+    if not all(e <= 1e-2 for e in errs.values()):
+        raise AssertionError(f"[fp32] ground on the card drifts from the CPU: {errs}")
+    del cpu_model, cf, ref
+
+    # the bf16 build against this fp32 reference: scores, boxes, masks
+    b16 = main_ref["bf16_out"]
+    s32 = torch.sigmoid(out["pred_logits"][0, :, 0])
+    s16 = torch.sigmoid(b16["pred_logits"][0, :, 0])
+    l32, l16 = out["pred_masks"][0], b16["pred_masks"][0]
+    m32, m16 = l32 > 0, l16 > 0
+    inter = (m32 & m16).flatten(1).sum(1).float()
+    union = (m32 | m16).flatten(1).sum(1).float()
+    iou = inter[union > 0] / union[union > 0]
+    top32 = set(torch.topk(s32, 10).indices.tolist())
+    top16 = set(torch.topk(s16, 10).indices.tolist())
+    log(f"[fp32] bf16 build vs fp32 build, ground on the same image and prompt (200 queries): "
+        f"scores max abs diff {(s32 - s16).abs().max().item():.4f}, mean "
+        f"{(s32 - s16).abs().mean().item():.4f}; boxes max abs diff "
+        f"{(out['pred_boxes'] - b16['pred_boxes']).abs().max().item():.4f}; mask logits max abs "
+        f"diff {(l32 - l16).abs().max().item():.4f} of {l32.abs().max().item():.4f}, signs agree "
+        f"on {(m32 == m16).float().mean().item():.4%} of pixels; mask IoU (logits > 0) over "
+        f"the {len(iou)} non-empty pairs: mean "
+        f"{iou.mean().item() if len(iou) else float('nan'):.4f} min "
+        f"{iou.min().item() if len(iou) else float('nan'):.4f}; top-10 queries shared "
+        f"{len(top32 & top16)} of 10; presence logit {out['presence_logit_dec'].item():.4f} vs "
+        f"{b16['presence_logit_dec'].item():.4f}")
+
+    # the fp32 instantiations at the ground's inputs
+    (q, k, v, key_bias, scale), _ = capture.args[("flash_sdpa", 32)]
+    b, h, lq, d = q.shape
+    got, lse = fa.flash_sdpa(q, k, v, key_bias, scale, return_lse=True)
+    want, want_lse = fa.flash_sdpa_plain(q, k, v, key_bias, scale, return_lse=True)
+    err = max(check("flash_sdpa_fp32", got, want, FP32_TOL),
+              check("flash_sdpa_fp32 lse", lse, want_lse, FP32_TOL))
+    live = int((key_bias > fa.NEG_INF / 2).sum().item()) * h * lq
+    bms, by = attn_bound(q.numel(), live, d, kv_elems=k.numel() + v.numel())
+    rows.append(row("flash_sdpa_fp32", "flash_sdpa.cu", "flash_attention.py:304",
+                    MAIN_COUNTS["flash_sdpa"], err,
+                    lambda: fa.flash_sdpa(q, k, v, key_bias, scale),
+                    lambda: fa.flash_sdpa_plain(q, k, v, key_bias, scale),
+                    graph_time(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 5, 10),
+                    bms, by, f"q/k/v {tuple(q.shape)} fp32 (split bf16 products); library = fp32 SDPA",
+                    dev_ground.get("flash_sdpa_fp32")))
+    (q, k, v, ey, ex, feat_hw, scale), _ = capture.args[("flash_xattn_rpb", 32)]
+    b, h, lq, d = q.shape
+    got = fa.flash_xattn_rpb(q, k, v, ey, ex, feat_hw, scale)
+    err = check("flash_xattn_rpb_fp32", got, fa.flash_xattn_rpb_plain(q, k, v, ey, ex, feat_hw,
+                                                                      scale), FP32_TOL)
+    full_bias = fa.rpb_bias(ey, ex, feat_hw)
+    bms, by = attn_bound(q.numel(), b * h * lq * k.shape[2], d, kv_elems=k.numel() + v.numel())
+    rows.append(row("flash_xattn_rpb_fp32", "flash_xattn_rpb.cu", "flash_attention.py:898",
+                    MAIN_COUNTS["flash_xattn_rpb"], err,
+                    lambda: fa.flash_xattn_rpb(q, k, v, ey, ex, feat_hw, scale),
+                    lambda: fa.flash_xattn_rpb_plain(q, k, v, ey, ex, feat_hw, scale),
+                    graph_time(lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=full_bias, scale=scale), 5, 10),
+                    bms, by, f"q {tuple(q.shape)} k/v {tuple(k.shape)} fp32 (split bf16 "
+                    f"products), ey/ex f32; library = fp32 SDPA, full bias",
+                    dev_ground.get("flash_xattn_rpb_fp32")))
+    del capture, q, k, v, got, want, lse, want_lse, full_bias, feats, proc, state
+    torch.cuda.empty_cache()
+    log(f"[fp32] ground part {time.perf_counter() - t0:.1f} s")
+
+    # ---------------------------------------------------------------- Stage-3 step
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    opt = stage3.make_stage3_optimizer(stage3.Stage3Config(), model)
+    batch = stage3_batch(TRAIN_BATCH, 32, dev)
+    capture = Capture([(fa, "flash_sdpa_bwd_dq"), (fa, "flash_sdpa_bwd_dkv")])
+    with capture:  # warm-up step: Triton's fp32 backward norms, captured inputs
+        stage3.stage3_train_step(model, opt, batch)
+    torch.cuda.synchronize()
+    reset()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    metrics = stage3.stage3_train_step(model, opt, batch)
+    e1.record()
+    e1.synchronize()
+    expect("per Stage-3 step (batch 4)", counts(), TRAIN_COUNTS)
+    if not (math.isfinite(float(metrics["loss"])) and math.isfinite(float(metrics["grad_norm"]))):
+        raise AssertionError(f"[fp32] Stage-3 step: {metrics}")
+    step_ms = e0.elapsed_time(e1)
+    log(f"[fp32] Stage-3 step (batch 4) {step_ms:.1f} ms, loss {float(metrics['loss']):.4f}, "
+        f"grad_norm {float(metrics['grad_norm']):.3f}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {smi}")
+    dev_step = per_launch(lambda: stage3.stage3_train_step(model, opt, batch),
+                          {"flash_sdpa_bwd_dq_fp32": ("bwd_dq_kernel<float>", 6),
+                           "flash_sdpa_bwd_dkv_fp32": ("bwd_dkv_kernel<float>", 6)}, train=True)
+    (q, k, v, key_bias, o, lse, do, scale), _ = capture.args[("flash_sdpa_bwd_dq", 32)]
+    del opt, batch, model, capture
+    torch.cuda.empty_cache()
+    rows += bwd_rows_fp32(q, k, v, key_bias, o, lse, do, scale, TRAIN_COUNTS["flash_sdpa_bwd_dq"],
+                          "flash_sdpa_bwd.cu", "", dev_step, row)
+    del q, k, v, key_bias, o, lse, do
+    log(f"[fp32] Stage-3 part {time.perf_counter() - t0:.1f} s")
+
+    # ---------------------------------------------------------------- tracker
+    t0 = time.perf_counter()
+    image_m, core = build_efficientsam3_video_model(model_name="b1", device=dev, seed=0)
+    with torch.no_grad():  # random weights score every object as gone: see [pcs]
+        core.sam_mask_decoder.pred_obj_score_head.layers[-1].bias += 10.0
+    frames = np.random.default_rng(7).standard_normal(
+        (FP32_VIDEO_FRAMES, 1008, 1008, 3)).astype(np.float32)
+    tracked = FP32_VIDEO_FRAMES - 1
+    sessions = {}
+
+    def run_frame(pred, st):  # one more tracked frame at the last frame (its memory in place)
+        with torch.inference_mode():
+            return pred._run_track_frame(st, tracked)
+
+    for quantize in (False, True):
+        pred = TrackerPredictor(core, image_m.encode_image, obj_slots=8, quantize_bank=quantize)
+        st = pred.init_state(frames)
+        if quantize:
+            st["feat_cache"] = sessions[False][1]["feat_cache"]
+        for obj_id, kw in ((1, dict(box=[100, 150, 400, 520])),
+                           (2, dict(points=[[700, 300]], labels=[1])),
+                           (3, dict(points=[[500, 800], [560, 760]], labels=[1, 0]))):
+            pred.add_new_points_or_box(st, 0, obj_id, **kw)
+        capture = Capture([(common, "flash_sdpa"), (common, "flash_memattn"),
+                           (common, "flash_memattn_q8"), (memory_encoder, "depthwise_conv2d")])
+        reset()
+        with capture:
+            outs = [m.float() for _, _, m in pred.propagate_in_video(st)]
+        torch.cuda.synchronize()
+        bank = "flash_memattn_q8" if quantize else "flash_memattn"
+        want = {k: n * tracked for k, n in VIDEO_COUNTS["A"].items() if k != "flash_memattn"}
+        want[bank] = 4 * tracked
+        expect(f"{'int8' if quantize else 'exact'} bank, {tracked} tracked frame(s)", counts(), want)
+        if "kv_bank" not in st:
+            raise AssertionError("[fp32] the session did not build the cached bank")
+        for m in outs:
+            if tuple(m.shape) != (3, 1, 288, 288) or not torch.isfinite(m).all():
+                raise AssertionError(f"[fp32] tracker masks {tuple(m.shape)} or non-finite")
+        track_ms = cuda_time(lambda: run_frame(pred, st), 3, warmup=1)
+        log(f"[fp32] tracked frame ({'int8' if quantize else 'exact'} bank) {track_ms:.3f} ms | {smi}")
+        sessions[quantize] = (pred, st, outs, capture)
+    me = sessions[False][2][-1][:, 0] > 0
+    mq = sessions[True][2][-1][:, 0] > 0
+    union = (me | mq).flatten(1).sum(1)
+    iou = [(i / u) for i, u in zip((me & mq).flatten(1).sum(1).tolist(), union.tolist()) if u]
+    log(f"[fp32] tracked frame {tracked}, int8 bank vs exact bank: mask IoU per object "
+        f"{[round(x, 4) for x in iou]} over {len(iou)} non-empty of 3 (mean bound 0.98, as the "
+        f"CPU tests hold in fp32)")
+    if not iou or sum(iou) / len(iou) <= 0.98:
+        raise AssertionError(f"[fp32] int8 bank drifts from the exact bank, or no mask: {iou}")
+
+    pred_e, st_e, _, cap_e = sessions[False]
+    pred_q, st_q, _, cap_q = sessions[True]
+    dev_e = per_launch(lambda: run_frame(pred_e, st_e),
+                       {"flash_sdpa_d256_fp32": ("flash_qsmem_kernel<256, 256, float>", 4),
+                        "flash_memattn_fp32": ("flash_qsmem_kernel<256, 64, float>", 4),
+                        "depthwise_conv2d_fp32": ("dw7_kernel<float>", 2)})
+    dev_q = per_launch(lambda: run_frame(pred_q, st_q),
+                       {"flash_memattn_q8_fp32": ("flash_memattn_q8_kernel<float>", 4)})
+    (q, k, v, key_bias, scale), _ = cap_e.args[("flash_sdpa", 256)]
+    got, lse = fa.flash_sdpa(q, k, v, key_bias, scale, return_lse=True)
+    want, want_lse = fa.flash_sdpa_plain(q, k, v, key_bias, scale, return_lse=True)
+    err = max(check("flash_sdpa_d256_fp32", got, want, FP32_TOL),
+              check("flash_sdpa_d256_fp32 lse", lse, want_lse, FP32_TOL))
+    live = int((key_bias > fa.NEG_INF / 2).sum().item())
+    mask = (key_bias > fa.NEG_INF / 2)[:, None, None, :]
+    bms, by = attn_bound(q.numel(), live * q.shape[1] * q.shape[2], 256,
+                         kv_elems=2 * live * q.shape[1] * 256)
+    rows.append(row("flash_sdpa_d256_fp32", "flash_qsmem.cuh", "flash_attention.py:144",
+                    4 * tracked, err, lambda: fa.flash_sdpa(q, k, v, key_bias, scale),
+                    lambda: fa.flash_sdpa_plain(q, k, v, key_bias, scale),
+                    graph_time(lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask, scale=scale), 5, 10),
+                    bms, by, f"q/k/v {tuple(q.shape)} fp32 (split bf16 products), {live} live "
+                    f"keys over {q.shape[0]} slots; library = fp32 SDPA, bool key mask",
+                    dev_e.get("flash_sdpa_d256_fp32")))
+    del q, k, v, got, want, lse, want_lse, mask
+    (q, k, v, key_bias, scale), _ = cap_e.args[("flash_memattn", 256)]
+    got, lse = fa.flash_memattn(q, k, v, key_bias, scale, return_lse=True)
+    want, want_lse = fa.flash_memattn_plain(q, k, v, key_bias, scale, return_lse=True)
+    err = max(check("flash_memattn_fp32", got, want, FP32_TOL),
+              check("flash_memattn_fp32 lse", lse, want_lse, FP32_TOL))
+    del want, want_lse
+    live = int((key_bias > fa.NEG_INF / 2).sum().item())
+    bias4 = key_bias[:, None, None, :]
+    bms, by = attn_bound(q.numel(), live * q.shape[2], 256, 64, live * (256 + 64))
+    rows.append(row("flash_memattn_fp32", "flash_memattn.cu", "flash_attention.py:536",
+                    4 * tracked, err,
+                    lambda: fa.flash_memattn(q, k, v, key_bias, scale, return_lse=True),
+                    lambda: fa.flash_memattn_plain(q, k, v, key_bias, scale, True),
+                    graph_time(lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=bias4, scale=scale), 5, 10),
+                    bms, by, f"q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)} fp32 "
+                    f"(split bf16 products), {live} live keys; library = fp32 SDPA, raw v",
+                    dev_e.get("flash_memattn_fp32")))
+    del q, k, v, got, lse, bias4
+    (q, k_i8, ks, v, key_bias, scale), _ = cap_q.args[("flash_memattn_q8", 256)]
+    got, lse = fa.flash_memattn_q8(q, k_i8, ks, v, key_bias, scale, return_lse=True)
+    want, want_lse = fa.flash_memattn_q8_plain(q, k_i8, ks, v, key_bias, scale, return_lse=True)
+    err = max(check("flash_memattn_q8_fp32", got, want, FP32_TOL),
+              check("flash_memattn_q8_fp32 lse", lse, want_lse, FP32_TOL))
+    del want, want_lse
+    live = int((key_bias > fa.NEG_INF / 2).sum().item())
+    hq, lqq = q.shape[1], q.shape[2]
+    # q and the output fp32, int8 keys, their scale and bias, fp32 values, the lse
+    nb = 4 * q.numel() + q.numel() + hq * live * (256 + 8 + 4 * 64) + 4 * lse.numel()
+    bms, by = bound(nb, tf32_flops=2.0 * hq * lqq * live * 64, exps=1.0 * hq * lqq * live,
+                    fp32_ops=8.0 * hq * lqq * live, int8_ops=2.0 * hq * lqq * live * 256)
+    bias4 = key_bias[:, None, None, :]
+    rows.append(row("flash_memattn_q8_fp32", "flash_memattn_q8.cu", "flash_attention.py:739",
+                    4 * tracked, err,
+                    lambda: fa.flash_memattn_q8(q, k_i8, ks, v, key_bias, scale, return_lse=True),
+                    lambda: fa.flash_memattn_q8_plain(q, k_i8, ks, v, key_bias, scale, True),
+                    graph_time(lambda: F.scaled_dot_product_attention(
+                        q, k_i8.float() * ks[:, None, :, None], v, attn_mask=bias4, scale=scale),
+                        5, 10),
+                    bms, by, f"q {tuple(q.shape)} fp32, k {tuple(k_i8.shape)} int8, v "
+                    f"{tuple(v.shape)} fp32 (P V on split bf16 parts), {live} live keys; library "
+                    f"= dequantize + fp32 SDPA",
+                    dev_q.get("flash_memattn_q8_fp32")))
+    del q, k_i8, ks, v, got, lse, bias4
+    (x, kernel, bias), _ = cap_e.args[("depthwise_conv2d", 256)]
+    got = dw.depthwise_conv2d(x, kernel, bias)
+    err = check("depthwise_conv2d_fp32", got, dw.depthwise_conv2d_plain(x, kernel, bias), FP32_TOL)
+    c = x.shape[-1]
+    w_nchw = kernel.permute(3, 2, 0, 1).float().contiguous()
+    x_cl = x.permute(0, 3, 1, 2)
+    bms, by = bound(4 * (x.numel() + got.numel()) + 4 * (kernel.numel() + c),
+                    fp32_ops=2.0 * 49 * x.numel())
+    rows.append(row("depthwise_conv2d_fp32", "depthwise_conv2d.cu", "depthwise.py:53",
+                    2 * tracked, err, lambda: dw.depthwise_conv2d(x, kernel, bias),
+                    lambda: dw.depthwise_conv2d_plain(x, kernel, bias),
+                    graph_time(lambda: F.conv2d(x_cl, w_nchw, bias.float(), padding=3, groups=c)),
+                    bms, by, f"x {tuple(x.shape)} fp32, 7x7 (fp32 FMA, 16-channel tiles); library "
+                    f"= fp32 F.conv2d (groups=C), cuDNN TF32 off", dev_e.get("depthwise_conv2d_fp32")))
+    del x, got, x_cl, sessions, pred_e, st_e, cap_e, pred_q, st_q, cap_q, image_m, core
+    torch.cuda.empty_cache()
+    log(f"[fp32] tracker part {time.perf_counter() - t0:.1f} s")
+
+    # ---------------------------------------------------------------- tracker clip
+    # fresh modules: the inference-mode frames above leave inference tensors
+    # in the core's caches, which autograd cannot save
+    t0 = time.perf_counter()
+    image_m, core = build_efficientsam3_video_model(model_name="b1", device=dev, seed=0)
+    with torch.no_grad():  # as [tracker_train]
+        for blk in core.memory_encoder.fuser:
+            blk.gamma.fill_(1.0)
+        core.sam_mask_decoder.pred_obj_score_head.layers[-1].bias += 10.0
+    core.train().requires_grad_(True)
+    fs, d = core.feat_size, core.d_model
+    feats = []
+    with torch.no_grad():
+        for t in range(FP32_CLIP_FRAMES):
+            img = torch.as_tensor(np.random.default_rng(7 + t).standard_normal(
+                (1008, 1008, 3)).astype(np.float32), device=dev)[None]
+            fpn = image_m.encode_image(img)["sam2_fpn"]
+            feats.append((fpn[2].reshape(1, fs * fs, d), fpn[0], fpn[1]))
+    del image_m
+    pos = sine_pos_embed_2d(fs, fs, d, device=dev).reshape(fs * fs, d)
+    proj = torch.randn((FP32_CLIP_FRAMES, TT_SLOTS, 1, 4 * fs, 4 * fs),
+                       generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+    capture = Capture(
+        [(fa, "flash_sdpa_bwd_dq"), (dw, "depthwise_conv2d_bwd")],
+        key=lambda name, a: (name, "self" if a[0].shape[2] == a[1].shape[2] else "cross")
+        if name.startswith("flash") else (name, a[0].shape[-1]),
+        size=lambda name, a: int((a[3] > fa.NEG_INF / 2).sum().item()) if name.startswith("flash")
+        else a[0].numel())
+
+    def clip():
+        torch.manual_seed(0)
+        core.zero_grad(set_to_none=True)
+        return tracker_clip(core, feats, pos, proj, TT_LIVE, compact=True)
+
+    with capture:
+        reset()
+        loss, _ = clip()
+        fwd = counts()
+        loss.backward()
+        torch.cuda.synchronize()
+        total = counts()
+    bwd = {k: total[k] - fwd[k] for k in total}
+    n_tr = FP32_CLIP_FRAMES - 1
+    expect(f"clip forward ({FP32_CLIP_FRAMES} frames)", fwd,
+           {**{k: n * n_tr for k, n in TT_FWD.items()}, "depthwise_conv2d": 2 * FP32_CLIP_FRAMES})
+    expect("clip backward", bwd, {**{k: n * n_tr for k, n in TT_BWD.items()},
+                                  "depthwise_conv2d_bwd": 2 * (FP32_CLIP_FRAMES - 1)})
+    grads = [p.grad for p in core.parameters() if p.grad is not None]
+    if not (math.isfinite(loss.item()) and grads and all(torch.isfinite(g).all() for g in grads)):
+        raise AssertionError("[fp32] tracker clip: non-finite loss or gradients")
+    del loss, grads
+
+    # the backward alone under the profiler: device ms a launch (the
+    # depthwise backward's dx and dw / db kernels a call)
+    loss, _ = clip()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        loss.backward()
+        torch.cuda.synchronize()
+    del loss
+    evs = [(ev.key, ev.self_device_time_total, ev.count) for ev in prof.key_averages()
+           if ev.device_type == torch.autograd.DeviceType.CUDA]
+    dev_clip = {}
+    for name, patterns, calls in (
+            ("flash_sdpa_bwd_dq_d256_fp32", ("wide::bwd_dq_kernel<float>",), 8 * n_tr),
+            ("flash_sdpa_bwd_dkv_d256_fp32", ("wide::bwd_dkv_kernel<float>",), 8 * n_tr),
+            ("depthwise_conv2d_bwd_fp32", ("dw7_kernel<float>", "dw7_wgrad_kernel<float>"),
+             2 * n_tr)):
+        us = sum(u for key, u, _ in evs if any(pt in key for pt in patterns))
+        if us:
+            dev_clip[name] = us / 1e3 / calls
+    del prof, evs
+    core.zero_grad(set_to_none=True)
+    (q, k, v, key_bias, o, lse, do, scale), _ = capture.args[("flash_sdpa_bwd_dq", "cross")]
+    rows += bwd_rows_fp32(q, k, v, key_bias, o, lse, do, scale, 8 * n_tr, "flash_bwd_wide.cuh",
+                          "_d256", dev_clip, row)
+    del q, k, v, o, lse, do
+    (x, kernel, g), _ = capture.args[("depthwise_conv2d_bwd", 256)]
+    dx, dwt, db = dw.depthwise_conv2d_bwd(x, kernel, g)
+    want = dw.depthwise_conv2d_bwd_plain(x, kernel, g)
+    err = check_rel("depthwise_conv2d_bwd_fp32 (dx)", dx, want[0], FP32_TOL)
+    for name, got_, want_ in (("dw", dwt, want[1]), ("db", db, want[2])):
+        err = max(err, check_rel(f"depthwise_conv2d_bwd_fp32 ({name})", got_, want_, FP32_TOL))
+    c = x.shape[-1]
+    x_cl = x.permute(0, 3, 1, 2).detach().clone().requires_grad_()
+    w_l = kernel.permute(3, 2, 0, 1).float().detach().clone().requires_grad_()
+    b_l = torch.zeros(c, device=dev, requires_grad=True)
+    y_l = F.conv2d(x_cl, w_l, b_l, padding=3, groups=c)
+    g_l = g.permute(0, 3, 1, 2)
+    bms, by = bound(4 * (x.numel() + g.numel() + dx.numel()) + 4 * (kernel.numel() + c),
+                    fp32_ops=4.0 * 49 * x.numel())
+    rows.append(row("depthwise_conv2d_bwd_fp32", "depthwise_conv2d.cu", "depthwise.py:84",
+                    bwd["depthwise_conv2d_bwd"], err,
+                    lambda: dw.depthwise_conv2d_bwd(x, kernel, g),
+                    lambda: dw.depthwise_conv2d_bwd_plain(x, kernel, g),
+                    cuda_time(lambda: torch.autograd.grad(y_l, (x_cl, w_l, b_l), g_l,
+                                                          retain_graph=True), 10),
+                    bms, by, f"x / dy {tuple(x.shape)} fp32, 7x7; library = F.conv2d (groups=C) "
+                    "backward", dev_clip.get("depthwise_conv2d_bwd_fp32")))
+    del x, g, dx, x_cl, w_l, b_l, y_l, capture, core, feats
+    torch.cuda.empty_cache()
+    log(f"[fp32] tracker clip part {time.perf_counter() - t0:.1f} s; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
+def bwd_rows_fp32(q, k, v, key_bias, o, lse, do, scale, launches, source, suffix, device, row):
+    """The dq and dkv rows of the fp32 backward kernels at captured inputs:
+    each held to its plain version at FP32_TOL of the largest magnitude,
+    SDPA's fp32 backward (bool key mask) as the library time."""
+    import torch
+    import torch.nn.functional as F
+
+    from efficientsam3_tpu_torch.ops import flash_attention as fa
+
+    b, h, lq, d = q.shape
+    dq, delta = fa.flash_sdpa_bwd_dq(q, k, v, key_bias, o, lse, do, scale)
+    want_dq, want_delta = fa.flash_sdpa_bwd_dq_plain(q, k, v, key_bias, o, lse, do, scale)
+    err_dq = max(check_rel(f"flash_sdpa_bwd_dq{suffix}_fp32", dq, want_dq, FP32_TOL),
+                 check_rel(f"flash_sdpa_bwd_dq{suffix}_fp32 (delta)", delta, want_delta, FP32_TOL))
+    dk, dv = fa.flash_sdpa_bwd_dkv(q, k, v, key_bias, do, lse, delta, scale)
+    want_dk, want_dv = fa.flash_sdpa_bwd_dkv_plain(q, k, v, key_bias, do, lse, want_delta, scale)
+    err_dkv = max(check_rel(f"flash_sdpa_bwd_dkv{suffix}_fp32 (dk)", dk, want_dk, FP32_TOL),
+                  check_rel(f"flash_sdpa_bwd_dkv{suffix}_fp32 (dv)", dv, want_dv, FP32_TOL))
+    del want_dq, want_dk, want_dv, dq, dk, dv
+    torch.cuda.empty_cache()
+    live = int((key_bias > fa.NEG_INF / 2).sum().item())  # summed over the batch
+    scores = h * lq * live
+    nb_dq = 4 * (4 * q.numel() + 2 * h * live * d) + 4 * (key_bias.numel() + 2 * lse.numel())
+    nb_dkv = 4 * (2 * q.numel() + 4 * h * live * d) + 4 * (key_bias.numel() + 2 * lse.numel())
+    bms_dq, by_dq = bound(nb_dq, exps=1.0 * scores, fp32_ops=6.0 * scores,
+                          tf32_flops=3 * 2.0 * scores * d)
+    bms_dkv, by_dkv = bound(nb_dkv, exps=1.0 * scores, fp32_ops=6.0 * scores,
+                            tf32_flops=4 * 2.0 * scores * d)
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    ol = F.scaled_dot_product_attention(
+        ql, kl, vl, attn_mask=(key_bias > fa.NEG_INF / 2)[:, None, None, :], scale=scale)
+    lib_ms = cuda_time(lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True), 5)
+    del ol, ql, kl, vl
+    shape = (f"q {tuple(q.shape)} k/v {tuple(k.shape)} fp32 (dO strided), {live} live keys over "
+             f"{b} rows; library = SDPA backward (all three gradients)")
+    out = []
+    for name, fn, plain, err, bms, by, line in (
+            (f"flash_sdpa_bwd_dq{suffix}_fp32",
+             lambda: fa.flash_sdpa_bwd_dq(q, k, v, key_bias, o, lse, do, scale),
+             lambda: fa.flash_sdpa_bwd_dq_plain(q, k, v, key_bias, o, lse, do, scale),
+             err_dq, bms_dq, by_dq, 1082),
+            (f"flash_sdpa_bwd_dkv{suffix}_fp32",
+             lambda: fa.flash_sdpa_bwd_dkv(q, k, v, key_bias, do, lse, delta, scale),
+             lambda: fa.flash_sdpa_bwd_dkv_plain(q, k, v, key_bias, do, lse, delta, scale),
+             err_dkv, bms_dkv, by_dkv, 1098)):
+        out.append(row(name, source, f"flash_attention.py:{line}", launches, err, fn, plain,
+                       lib_ms, bms, by, shape, device.get(name)))
+        torch.cuda.empty_cache()
+    return out
 
 
 if __name__ == "__main__":

@@ -27,6 +27,13 @@
 // tile of x (with its halo) and of g, written as per-block partials that
 // one sum finishes (~1 GFLOP of fp32 FMAs and two 21 MB reads at the
 // tracker shape: ~31 us at the fp32 peak).
+//
+// fp32 maps (the default build) take the same kernels: the arithmetic was
+// fp32 FMA already, so only the loads, the stores and the staged tiles'
+// type change. An fp32 tile of 32 channels would take 39 KB (the weight
+// gradient's two tiles 55 KB, past the 48 KB of static shared memory), so
+// the fp32 kernels run 16-channel tiles: CG is a template parameter with
+// the thread count, 32 at bf16.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -34,34 +41,63 @@
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
 constexpr int KS = 7, PAD = 3;
-constexpr int TH = 8, TW = 16, CG = 32;  // output tile: rows, columns, channels
+constexpr int TH = 8, TW = 16;  // output tile: rows, columns
 constexpr int SH = TH + KS - 1, SW = TW + KS - 1;
-constexpr int NT = (CG / 2) * TW;  // one thread per (channel pair, column)
-constexpr int NTW = (CG / 2) * KS;  // weight gradient: one thread per (channel pair, tap row)
+
+// Channels a block owns, and its threads: one per (channel pair, column)
+// in the forward, one per (channel pair, tap row) in the weight gradient.
+template <typename T>
+struct Cfg {
+  static constexpr int CG = sizeof(T) == 2 ? 32 : 16;
+  static constexpr int NT = (CG / 2) * TW;
+  static constexpr int NTW = (CG / 2) * KS;
+  static constexpr int EPC = 16 / sizeof(T);  // elements in a 16-byte chunk
+};
+
+__device__ __forceinline__ float2 ld_f2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 ld_f2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ void st_pair(bf16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+__device__ __forceinline__ void st_pair(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void st_one(bf16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ void st_one(float* p, float x) { *p = x; }
+__device__ __forceinline__ void zero(bf16& x) { x = __float2bfloat16(0.f); }
+__device__ __forceinline__ void zero(float& x) { x = 0.f; }
 
 // Copy the ROWS x COLS x CG block at (y0, x0, c0) of one (H, W, C) map into
-// shared memory, zero outside the map: 16-byte chunks of 8 channels when
-// `vec` (C % 8 == 0 and an aligned map), element copies otherwise.
-template <int ROWS, int COLS, int NTHR>
-__device__ __forceinline__ void stage_tile(__nv_bfloat16 (*tile)[COLS][CG],
-                                           const __nv_bfloat16* xb, int H, int W, int C,
-                                           int y0, int x0, int c0, int vec) {
+// shared memory, zero outside the map: 16-byte chunks when `vec` (C a
+// multiple of the chunk's elements and an aligned map), element copies
+// otherwise.
+template <int ROWS, int COLS, int NTHR, typename T>
+__device__ __forceinline__ void stage_tile(T (*tile)[COLS][Cfg<T>::CG], const T* xb, int H,
+                                           int W, int C, int y0, int x0, int c0, int vec) {
+  constexpr int CG = Cfg<T>::CG, EPC = Cfg<T>::EPC;
   if (vec) {
-    constexpr int CH = CG / 8;
+    constexpr int CH = CG / EPC;
     for (int i = threadIdx.x; i < ROWS * COLS * CH; i += NTHR) {
       const int ch = i % CH, p = i / CH, xx = p % COLS, yy = p / COLS;
-      const int gy = y0 + yy, gx = x0 + xx, gc = c0 + ch * 8;
+      const int gy = y0 + yy, gx = x0 + xx, gc = c0 + ch * EPC;
       uint4 val = make_uint4(0, 0, 0, 0);
       if (gy >= 0 && gy < H && gx >= 0 && gx < W && gc < C)
         val = *reinterpret_cast<const uint4*>(xb + ((long long)gy * W + gx) * C + gc);
-      *reinterpret_cast<uint4*>(&tile[yy][xx][ch * 8]) = val;
+      *reinterpret_cast<uint4*>(&tile[yy][xx][ch * EPC]) = val;
     }
   } else {
     for (int i = threadIdx.x; i < ROWS * COLS * CG; i += NTHR) {
       const int c = i % CG, p = i / CG, xx = p % COLS, yy = p / COLS;
       const int gy = y0 + yy, gx = x0 + xx, gc = c0 + c;
-      __nv_bfloat16 val = __float2bfloat16(0.f);
+      T val;
+      zero(val);
       if (gy >= 0 && gy < H && gx >= 0 && gx < W && gc < C)
         val = xb[((long long)gy * W + gx) * C + gc];
       tile[yy][xx][c] = val;
@@ -69,15 +105,17 @@ __device__ __forceinline__ void stage_tile(__nv_bfloat16 (*tile)[COLS][CG],
   }
 }
 
-__global__ void __launch_bounds__(NT, 2)
-dw7_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ w,
-           const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, int H, int W,
+template <typename T>
+__global__ void __launch_bounds__(Cfg<T>::NT, 2)
+dw7_kernel(const T* __restrict__ x, const float* __restrict__ w,
+           const float* __restrict__ bias, T* __restrict__ out, int H, int W,
            int C, int tiles_x, int vec) {
-  __shared__ __align__(16) __nv_bfloat16 tile[SH][SW][CG];
+  constexpr int CG = Cfg<T>::CG;
+  __shared__ __align__(16) T tile[SH][SW][CG];
   const int tx = blockIdx.x % tiles_x, ty = blockIdx.x / tiles_x;
   const int c0 = blockIdx.y * CG, b = blockIdx.z;
-  stage_tile<SH, SW, NT>(tile, x + (long long)b * H * W * C, H, W, C, ty * TH - PAD,
-                         tx * TW - PAD, c0, vec);
+  stage_tile<SH, SW, Cfg<T>::NT>(tile, x + (long long)b * H * W * C, H, W, C, ty * TH - PAD,
+                                 tx * TW - PAD, c0, vec);
   __syncthreads();
 
   const int cp = threadIdx.x % (CG / 2), xl = threadIdx.x / (CG / 2);
@@ -98,8 +136,7 @@ dw7_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ w,
   for (int r = 0; r < SH; ++r) {
 #pragma unroll
     for (int dj = 0; dj < KS; ++dj) {
-      const float2 val = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(&tile[r][xl + dj][2 * cp]));
+      const float2 val = ld_f2(&tile[r][xl + dj][2 * cp]);
 #pragma unroll
       for (int o = 0; o < TH; ++o) {
         const int di = r - o;
@@ -116,13 +153,12 @@ dw7_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ w,
   for (int o = 0; o < TH; ++o) {
     const int gy = ty * TH + o;
     if (gy >= H) break;
-    __nv_bfloat16* dst = out + (((long long)b * H + gy) * W + gx) * C + ca;
+    T* dst = out + (((long long)b * H + gy) * W + gx) * C + ca;
     if (pair) {
-      *reinterpret_cast<__nv_bfloat162*>(dst) =
-          __floats2bfloat162_rn(acc[o][0] + ba, acc[o][1] + bb);
+      st_pair(dst, acc[o][0] + ba, acc[o][1] + bb);
     } else {
-      dst[0] = __float2bfloat16(acc[o][0] + ba);
-      if (has1) dst[1] = __float2bfloat16(acc[o][1] + bb);
+      st_one(dst, acc[o][0] + ba);
+      if (has1) st_one(dst + 1, acc[o][1] + bb);
     }
   }
 }
@@ -133,12 +169,14 @@ dw7_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ w,
 // pair and one tap row di and keeps its 7 x 2 sums in registers (no sum
 // crosses threads); the block writes its partial sums to its own row of
 // dwp (blocks, 49, C) / dbp (blocks, C), which the caller sums in fp32.
-__global__ void __launch_bounds__(NTW)
-dw7_wgrad_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ g,
+template <typename T>
+__global__ void __launch_bounds__(Cfg<T>::NTW)
+dw7_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
                  float* __restrict__ dwp, float* __restrict__ dbp, int H, int W, int C,
                  int tiles_x, int vec) {
-  __shared__ __align__(16) __nv_bfloat16 xt[SH][SW][CG];
-  __shared__ __align__(16) __nv_bfloat16 gt[TH][TW][CG];
+  constexpr int CG = Cfg<T>::CG, NTW = Cfg<T>::NTW;
+  __shared__ __align__(16) T xt[SH][SW][CG];
+  __shared__ __align__(16) T gt[TH][TW][CG];
   const int tx = blockIdx.x % tiles_x, ty = blockIdx.x / tiles_x;
   const int c0 = blockIdx.y * CG, b = blockIdx.z;
   const long long map = (long long)b * H * W * C;
@@ -154,12 +192,10 @@ dw7_wgrad_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __res
   for (int o = 0; o < TH; ++o) {
     float2 xr[SW];
 #pragma unroll
-    for (int xx = 0; xx < SW; ++xx)
-      xr[xx] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xt[o + di][xx][2 * cp]));
+    for (int xx = 0; xx < SW; ++xx) xr[xx] = ld_f2(&xt[o + di][xx][2 * cp]);
 #pragma unroll
     for (int xl = 0; xl < TW; ++xl) {
-      const float2 gv =
-          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&gt[o][xl][2 * cp]));
+      const float2 gv = ld_f2(&gt[o][xl][2 * cp]);
       s0 += gv.x;
       s1 += gv.y;
 #pragma unroll
@@ -183,33 +219,51 @@ dw7_wgrad_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __res
   }
 }
 
-}  // namespace
-
-// x, out (B, H, W, C) bf16 contiguous; w (k, k, C) f32; bias (C,) f32.
-extern "C" int depthwise_conv2d_fwd(const void* x, const void* w, const void* bias, void* out,
-                                    int B, int H, int W, int C, int k, void* stream) {
-  if (k != KS) return static_cast<int>(cudaErrorInvalidValue);
+template <typename T>
+int launch_fwd(const void* x, const void* w, const void* bias, void* out, int B, int H, int W,
+               int C, cudaStream_t st) {
+  using Cf = Cfg<T>;
   const int tiles_x = (W + TW - 1) / TW, tiles_y = (H + TH - 1) / TH;
-  const dim3 grid(tiles_x * tiles_y, (C + CG - 1) / CG, B);
-  const int vec = (C % 8 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
-  dw7_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), H, W, C, tiles_x, vec);
+  const dim3 grid(tiles_x * tiles_y, (C + Cf::CG - 1) / Cf::CG, B);
+  const int vec = (C % Cf::EPC == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
+  dw7_kernel<T><<<grid, Cf::NT, 0, st>>>(static_cast<const T*>(x), static_cast<const float*>(w),
+                                         static_cast<const float*>(bias), static_cast<T*>(out), H,
+                                         W, C, tiles_x, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Partial weight and bias gradients of the same-padded 7x7 depthwise conv:
-// x, g (B, H, W, C) bf16 contiguous; dwp (B * tiles, 49, C) and dbp (B *
-// tiles, C) f32, tiles = ceil(H / 8) * ceil(W / 16), one row per block.
-extern "C" int depthwise_conv2d_wgrad(const void* x, const void* g, void* dwp, void* dbp, int B,
-                                      int H, int W, int C, int k, void* stream) {
-  if (k != KS) return static_cast<int>(cudaErrorInvalidValue);
+template <typename T>
+int launch_wgrad(const void* x, const void* g, void* dwp, void* dbp, int B, int H, int W, int C,
+                 cudaStream_t st) {
+  using Cf = Cfg<T>;
   const int tiles_x = (W + TW - 1) / TW, tiles_y = (H + TH - 1) / TH;
-  const dim3 grid(tiles_x * tiles_y, (C + CG - 1) / CG, B);
-  const int vec = (C % 8 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
+  const dim3 grid(tiles_x * tiles_y, (C + Cf::CG - 1) / Cf::CG, B);
+  const int vec = (C % Cf::EPC == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
                   (reinterpret_cast<uintptr_t>(g) % 16 == 0);
-  dw7_wgrad_kernel<<<grid, NTW, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g),
-      static_cast<float*>(dwp), static_cast<float*>(dbp), H, W, C, tiles_x, vec);
+  dw7_wgrad_kernel<T><<<grid, Cf::NTW, 0, st>>>(static_cast<const T*>(x),
+                                                static_cast<const T*>(g), static_cast<float*>(dwp),
+                                                static_cast<float*>(dbp), H, W, C, tiles_x, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// x, out (B, H, W, C) contiguous, float32 when fp32 != 0 else bfloat16;
+// w (k, k, C) f32; bias (C,) f32.
+extern "C" int depthwise_conv2d_fwd(const void* x, const void* w, const void* bias, void* out,
+                                    int B, int H, int W, int C, int k, int fp32, void* stream) {
+  if (k != KS) return static_cast<int>(cudaErrorInvalidValue);
+  auto launch = fp32 ? launch_fwd<float> : launch_fwd<bf16>;
+  return launch(x, w, bias, out, B, H, W, C, static_cast<cudaStream_t>(stream));
+}
+
+// Partial weight and bias gradients of the same-padded 7x7 depthwise conv:
+// x, g (B, H, W, C) contiguous (float32 when fp32 != 0 else bfloat16); dwp
+// (B * tiles, 49, C) and dbp (B * tiles, C) f32, tiles = ceil(H / 8) *
+// ceil(W / 16), one row per block.
+extern "C" int depthwise_conv2d_wgrad(const void* x, const void* g, void* dwp, void* dbp, int B,
+                                      int H, int W, int C, int k, int fp32, void* stream) {
+  if (k != KS) return static_cast<int>(cudaErrorInvalidValue);
+  auto launch = fp32 ? launch_wgrad<float> : launch_wgrad<bf16>;
+  return launch(x, g, dwp, dbp, B, H, W, C, static_cast<cudaStream_t>(stream));
 }

@@ -28,22 +28,24 @@
 // tiles of invalid bank entries (81 tiles an entry) and of the pad tail
 // (9 tiles) are skipped without loading K or V. K and V are taken with
 // any (batch, head, key) strides, so per-layer bank views enter uncopied.
+// fp32 operands (the default build) run the same kernel on split bf16
+// parts (attn_common.cuh): three products each, 150 KB of shared memory.
 
 #include "flash_qsmem.cuh"
 
 using namespace attn;
 
+// fp32 != 0: q, k, v and o are float32, else bfloat16.
 extern "C" int flash_memattn_fwd(const void* q, const void* k, const void* v,
                                  const void* key_bias, void* o, void* lse, int B, int H,
-                                 int lq, int lk, int dk, int dv, float sm_scale,
+                                 int lq, int lk, int dk, int dv, int fp32, float sm_scale,
                                  long long sqb, long long sqh, long long sqn, long long skb,
                                  long long skh, long long skn, long long svb, long long svh,
                                  long long svn, long long sob, long long soh, long long son,
                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dk == 256 && dv == 64) {
-    return launch_qsmem<256, 64>(q, k, v, key_bias, o, lse, B, H, lq, lk, sm_scale, sqb, sqh,
-                                 sqn, skb, skh, skn, svb, svh, svn, sob, soh, son, st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dk != 256 || dv != 64) return static_cast<int>(cudaErrorInvalidValue);
+  auto launch = fp32 ? launch_qsmem<256, 64, float> : launch_qsmem<256, 64, bf16>;
+  return launch(q, k, v, key_bias, o, lse, B, H, lq, lk, sm_scale, sqb, sqh, sqn, skb, skh, skn,
+                svb, svh, svn, sob, soh, son, st);
 }

@@ -61,6 +61,11 @@
 // enough blocks are resident; at full occupancy a 64-key tile takes an SM
 // about 1 us, close to what mma.sync fed from shared memory delivers
 // (ops/mma_probe.py), so the next step is wgmma, not this layout.
+//
+// fp32 q and v (the default build): q is quantized in the prologue straight
+// from fp32; v is staged as bf16 hi and lo tiles (attn_common.cuh) and P V
+// runs as three products on them with P kept fp32 and split, as in JAX. A
+// stage grows to 36 KB (90 KB a block): 2 blocks an SM instead of 3.
 
 #include "flash_qsmem.cuh"
 
@@ -72,10 +77,18 @@ constexpr int DK = 256;       // key / query width
 constexpr int DV = 64;        // raw value width
 constexpr int KP8 = DK + 16;  // padded int8 row of the Q and K tiles (bytes)
 constexpr int VP = DV + 8;    // padded bf16 row of the V tile
-// one stage: K tile (int8), V tile (bf16), the tile's key scales and key bias
-constexpr int STAGE_BYTES = BK * KP8 + BK * VP * 2 + 2 * BK * 4;
-// Q tile (int8), two stages, query scales
-constexpr int SMEM_FIXED = BQ * KP8 + 2 * STAGE_BYTES + BQ * 4;
+constexpr int VT = BK * VP;   // elements of one part of the V tile
+
+// Shared memory by value dtype: one stage is the K tile (int8), the V tile
+// (NP bf16 parts), the tile's key scales and key bias; a block holds the Q
+// tile (int8), two stages and the query scales.
+template <typename T>
+struct Q8Smem {
+  static constexpr int NP = Parts<T>::N;
+  static constexpr int STAGE = BK * KP8 + NP * VT * 2 + 2 * BK * 4;
+  static constexpr int FIXED = BQ * KP8 + 2 * STAGE + BQ * 4;
+  static constexpr int MIN_BLOCKS = NP == 1 ? 3 : 2;  // blocks an SM
+};
 
 __device__ __forceinline__ void mma16832_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                             uint32_t b1) {
@@ -102,23 +115,25 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
 }
 
-// Keys [key0, key0 + BK) into one stage, all by cp.async: the int8 key rows
-// and the bf16 value rows 16 bytes a copy, the keys' scales and bias 4 bytes
-// a copy. Lk is a multiple of BK (the entry point checks), so no key is out
-// of range.
+// Keys [key0, key0 + BK) into one stage: the int8 key rows 16 bytes a
+// cp.async, the value rows as flash_qsmem.cuh's stage_rows takes them
+// (cp.async at bf16, split through registers at fp32), the keys' scales and
+// bias 4 bytes a copy. Lk is a multiple of BK (the entry point checks), so
+// no key is out of range.
+template <typename T>
 __device__ __forceinline__ void stage_tile(unsigned char* st, const int8_t* k, long long skn,
-                                           const __nv_bfloat16* v, long long svn,
-                                           const float* k_scale, const float* key_bias, int key0,
-                                           int lk) {
+                                           const T* v, long long svn, const float* k_scale,
+                                           const float* key_bias, int key0, int lk) {
+  constexpr int NP = Parts<T>::N;
   int8_t* ks = reinterpret_cast<int8_t*>(st);
-  __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(st + BK * KP8);
-  float* kscale_s = reinterpret_cast<float*>(st + BK * KP8 + BK * VP * 2);
+  bf16* vs = reinterpret_cast<bf16*>(st + BK * KP8);
+  float* kscale_s = reinterpret_cast<float*>(st + BK * KP8 + NP * VT * 2);
   constexpr int CPR = DK / 16;  // 16-byte chunks per key row
   for (int c = threadIdx.x; c < BK * CPR; c += NTHREADS) {
     const int r = c / CPR, c16 = (c % CPR) * 16;
     cp_async16(ks + r * KP8 + c16, k + (key0 + r) * skn + c16, true);
   }
-  stage_rows<BK, DV, VP>(vs, v, svn, key0, lk);
+  stage_rows<BK, DV, VP>(vs, VT, v, svn, key0, lk);
   if (threadIdx.x < BK)
     cp_async4(kscale_s + threadIdx.x, k_scale + key0 + threadIdx.x);
   else
@@ -126,18 +141,21 @@ __device__ __forceinline__ void stage_tile(unsigned char* st, const int8_t* k, l
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-__global__ void __launch_bounds__(NTHREADS, 3)
-flash_memattn_q8_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ k,
-                        const float* __restrict__ k_scale, const __nv_bfloat16* __restrict__ v,
-                        const float* __restrict__ key_bias, __nv_bfloat16* __restrict__ o,
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS, Q8Smem<T>::MIN_BLOCKS)
+flash_memattn_q8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
+                        const float* __restrict__ k_scale, const T* __restrict__ v,
+                        const float* __restrict__ key_bias, T* __restrict__ o,
                         float* __restrict__ lse, int H, int lq, int lk, float sm_scale,
                         long long sqb, long long sqh, long long sqn, long long skb, long long skh,
                         long long skn, long long svb, long long svh, long long svn, long long sob,
                         long long soh, long long son) {
+  using C = Q8Smem<T>;
+  constexpr int NP = C::NP;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   int8_t* qs = reinterpret_cast<int8_t*>(smem_raw);                           // [BQ][KP8]
-  unsigned char* stages = smem_raw + BQ * KP8;                                // 2 x STAGE_BYTES
-  float* qscale_s = reinterpret_cast<float*>(stages + 2 * STAGE_BYTES);       // [BQ]
+  unsigned char* stages = smem_raw + BQ * KP8;                                // 2 x STAGE
+  float* qscale_s = reinterpret_cast<float*>(stages + 2 * C::STAGE);          // [BQ]
   unsigned char* tile_live = reinterpret_cast<unsigned char*>(qscale_s + BQ);  // [ntiles]
   __shared__ int nlive_s;
 
@@ -158,14 +176,7 @@ flash_memattn_q8_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __res
     const int lr = warp * 16 + r, row = q0 + lr;
     float x[8];
     if (row < lq) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(q + row * sqn + lane * 8);
-      const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(p2[i]);
-        x[2 * i] = f.x;
-        x[2 * i + 1] = f.y;
-      }
+      load8_f32(q + row * sqn + lane * 8, x);
     } else {
 #pragma unroll
       for (int i = 0; i < 8; ++i) x[i] = 0.f;
@@ -228,9 +239,9 @@ flash_memattn_q8_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __res
 
   if (nlive > 0) stage_tile(stages, k, skn, v, svn, k_scale, key_bias, live_list[0] * BK, lk);
   for (int it = 0; it < nlive; ++it) {
-    unsigned char* st = stages + (it & 1) * STAGE_BYTES;
+    unsigned char* st = stages + (it & 1) * C::STAGE;
     if (it + 1 < nlive) {  // the next live tile's copy flies while this one is computed
-      stage_tile(stages + ((it + 1) & 1) * STAGE_BYTES, k, skn, v, svn, k_scale, key_bias,
+      stage_tile(stages + ((it + 1) & 1) * C::STAGE, k, skn, v, svn, k_scale, key_bias,
                  live_list[it + 1] * BK, lk);
       asm volatile("cp.async.wait_group 1;\n" ::);
     } else {
@@ -238,8 +249,8 @@ flash_memattn_q8_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __res
     }
     __syncthreads();  // tile `it` has landed for every thread
     const int8_t* ks = reinterpret_cast<const int8_t*>(st);
-    const __nv_bfloat16* vs = reinterpret_cast<const __nv_bfloat16*>(st + BK * KP8);
-    const float* kscale_s = reinterpret_cast<const float*>(st + BK * KP8 + BK * VP * 2);
+    const bf16* vs = reinterpret_cast<const bf16*>(st + BK * KP8);
+    const float* kscale_s = reinterpret_cast<const float*>(st + BK * KP8 + NP * VT * 2);
     const float* bias_s = kscale_s + BK;
 
     // S = Q K^T in int32 for this warp's 16 rows
@@ -305,22 +316,19 @@ flash_memattn_q8_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __res
       acc[n][2] *= corr1;
       acc[n][3] *= corr1;
     }
-    // acc += bf16(P) V, V's B fragments through ldmatrix.trans
+    // acc += P V, V's B fragments through ldmatrix.trans, a part at a time
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-      };
-      const __nv_bfloat16* vrow = vs + (kk * 16 + (lane & 15)) * VP + (lane >> 4) * 8;
+      uint32_t pa[NP][4];
+      a_parts<NP>(pa, s, 2 * kk);
+      const bf16* vrow = vs + (kk * 16 + (lane & 15)) * VP + (lane >> 4) * 8;
 #pragma unroll
       for (int n = 0; n < DV / 8; n += 2) {
-        uint32_t b0, b1, b2, b3;
-        ldmatrix_x4_trans(b0, b1, b2, b3, vrow + n * 8);
-        mma16816(acc[n], pa, b0, b1);
-        mma16816(acc[n + 1], pa, b2, b3);
+        uint32_t b0[NP], b1[NP], b2[NP], b3[NP];
+#pragma unroll
+        for (int p = 0; p < NP; ++p) ldmatrix_x4_trans(b0[p], b1[p], b2[p], b3[p], vrow + p * VT + n * 8);
+        mma_parts(acc[n], pa, b0, b1);
+        mma_parts(acc[n + 1], pa, b2, b3);
       }
     }
     __syncthreads();  // this stage is free for the copy after the next
@@ -332,12 +340,8 @@ flash_memattn_q8_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __res
 #pragma unroll
   for (int n = 0; n < DV / 8; ++n) {
     const int c = n * 8 + 2 * t;
-    if (r0 < lq)
-      *reinterpret_cast<__nv_bfloat162*>(o + r0 * son + c) =
-          __floats2bfloat162_rn(acc[n][0] / l0, acc[n][1] / l0);
-    if (r1 < lq)
-      *reinterpret_cast<__nv_bfloat162*>(o + r1 * son + c) =
-          __floats2bfloat162_rn(acc[n][2] / l1, acc[n][3] / l1);
+    if (r0 < lq) st_pair(o + r0 * son + c, acc[n][0] / l0, acc[n][1] / l0);
+    if (r1 < lq) st_pair(o + r1 * son + c, acc[n][2] / l1, acc[n][3] / l1);
   }
   if (lse != nullptr && t == 0) {
     lse += (long long)bh * lq;
@@ -346,34 +350,43 @@ flash_memattn_q8_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __res
   }
 }
 
-}  // namespace
-
-// q (B, H, Lq, 256) bf16, k (B, H, Lk, 256) int8, v (B, H, Lk, 64) bf16, each
-// with (batch, head, row) strides in elements and a contiguous last axis;
-// k_scale, key_bias (B, Lk) f32 contiguous; o (B, H, Lq, 64) bf16 by strides;
-// lse (B, H, Lq) f32 contiguous or null. Launches on `stream`; returns
-// cudaGetLastError().
-extern "C" int flash_memattn_q8_fwd(const void* q, const void* k, const void* k_scale,
-                                    const void* v, const void* key_bias, void* o, void* lse,
-                                    int B, int H, int lq, int lk, int dk, int dv, float sm_scale,
-                                    long long sqb, long long sqh, long long sqn, long long skb,
-                                    long long skh, long long skn, long long svb, long long svh,
-                                    long long svn, long long sob, long long soh, long long son,
-                                    void* stream) {
-  if (dk != DK || dv != DV || lk <= 0 || lk % BK != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+template <typename T>
+int launch_q8(const void* q, const void* k, const void* k_scale, const void* v,
+              const void* key_bias, void* o, void* lse, int B, int H, int lq, int lk,
+              float sm_scale, long long sqb, long long sqh, long long sqn, long long skb,
+              long long skh, long long skn, long long svb, long long svh, long long svn,
+              long long sob, long long soh, long long son, cudaStream_t st) {
   const int ntiles = lk / BK;  // the live table (bytes, padded) and the live list (u16)
-  const int smem = SMEM_FIXED + (ntiles + 15) / 16 * 16 + (2 * ntiles + 15) / 16 * 16;
-  cudaError_t err = cudaFuncSetAttribute(flash_memattn_q8_kernel,
+  const int smem = Q8Smem<T>::FIXED + (ntiles + 15) / 16 * 16 + (2 * ntiles + 15) / 16 * 16;
+  cudaError_t err = cudaFuncSetAttribute(flash_memattn_q8_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((lq + BQ - 1) / BQ, B * H);
-  flash_memattn_q8_kernel<<<grid, NTHREADS, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k),
-      static_cast<const float*>(k_scale), static_cast<const __nv_bfloat16*>(v),
-      static_cast<const float*>(key_bias), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), H, lq, lk, sm_scale, sqb, sqh, sqn, skb, skh, skn, svb, svh, svn,
-      sob, soh, son);
+  flash_memattn_q8_kernel<T><<<grid, NTHREADS, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const int8_t*>(k),
+      static_cast<const float*>(k_scale), static_cast<const T*>(v),
+      static_cast<const float*>(key_bias), static_cast<T*>(o), static_cast<float*>(lse), H, lq,
+      lk, sm_scale, sqb, sqh, sqn, skb, skh, skn, svb, svh, svn, sob, soh, son);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q (B, H, Lq, 256), k (B, H, Lk, 256) int8, v (B, H, Lk, 64), each with
+// (batch, head, row) strides in elements and a contiguous last axis; q, v
+// and o float32 when fp32 != 0, else bfloat16; k_scale, key_bias (B, Lk)
+// f32 contiguous; o (B, H, Lq, 64) by strides; lse (B, H, Lq) f32
+// contiguous or null. Launches on `stream`; returns cudaGetLastError().
+extern "C" int flash_memattn_q8_fwd(const void* q, const void* k, const void* k_scale,
+                                    const void* v, const void* key_bias, void* o, void* lse,
+                                    int B, int H, int lq, int lk, int dk, int dv, int fp32,
+                                    float sm_scale, long long sqb, long long sqh, long long sqn,
+                                    long long skb, long long skh, long long skn, long long svb,
+                                    long long svh, long long svn, long long sob, long long soh,
+                                    long long son, void* stream) {
+  if (dk != DK || dv != DV || lk <= 0 || lk % BK != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto launch = fp32 ? launch_q8<float> : launch_q8<bf16>;
+  return launch(q, k, k_scale, v, key_bias, o, lse, B, H, lq, lk, sm_scale, sqb, sqh, sqn, skb,
+                skh, skn, svb, svh, svn, sob, soh, son, static_cast<cudaStream_t>(stream));
 }

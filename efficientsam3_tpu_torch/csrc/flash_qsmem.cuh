@@ -25,6 +25,12 @@
 // tracker's 576-tile bank even for an empty object slot. A row whose keys
 // are all masked finishes as acc / max(l, 1e-30) = 0 with lse = -1e9.
 // Rows past Lq are not written.
+//
+// fp32 operands (attn_common.cuh) are staged as bf16 hi and lo tiles, split
+// on the way in through registers (cp.async copies bytes and cannot split),
+// so the bf16 fragment and ldmatrix paths below run once a part. Shared
+// memory doubles: 199 KB at <256, 256> (one block an SM, against two at
+// bf16) and 150 KB at <256, 64>.
 #pragma once
 
 #include "attn_common.cuh"
@@ -51,43 +57,56 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t& r0, uint32_t& r1, ui
                : "r"(s));
 }
 
-template <int DK, int DV>
+template <int DK, int DV, int NP>
 struct QSmem {
   static constexpr int KP = DK + 8;  // padded row (bf16) of the Q and K tiles
   static constexpr int VP = DV + 8;  // padded row of the V tile
-  // Q, K and V tiles, the tile's key bias, then one byte per key tile
-  static constexpr int BYTES = (BQ * KP + BK * KP + BK * VP) * 2 + BK * 4;
+  // Q, K and V tiles (NP parts each), the tile's key bias, then one byte per key tile
+  static constexpr int BYTES = NP * (BQ * KP + BK * KP + BK * VP) * 2 + BK * 4;
   static int bytes(int lk) { return BYTES + ((lk + BK - 1) / BK + 15) / 16 * 16; }
 };
 
 // Copy rows [row0, row0 + ROWS) of a (N, D) strided matrix into a padded
-// shared tile; rows at or past n are zero.
-template <int ROWS, int D, int P>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
+// shared tile of NP parts (part p at dst + p * part_stride); rows at or
+// past n are zero. bf16 rows go by cp.async (the caller commits and waits),
+// fp32 rows through registers, split into hi and lo.
+template <int ROWS, int D, int P, int NTHR = NTHREADS, typename T>
+__device__ __forceinline__ void stage_rows(bf16* dst, int part_stride, const T* src,
                                            long long sn, int row0, int n) {
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < ROWS * CPR; c += NTHREADS) {
+  constexpr int CPR = D / 8;  // 8-element chunks per row
+  for (int c = threadIdx.x; c < ROWS * CPR; c += NTHR) {
     const int r = c / CPR, c8 = (c % CPR) * 8, row = row0 + r;
     const bool ok = row < n;
-    cp_async16(dst + r * P + c8, ok ? src + row * sn + c8 : src, ok);
+    if constexpr (Parts<T>::N == 1) {
+      cp_async16(dst + r * P + c8, ok ? src + row * sn + c8 : src, ok);
+    } else {
+      uint32_t w[2][4];
+      load8_parts(src + row * sn + c8, ok, w);
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+        *reinterpret_cast<uint4*>(dst + p * part_stride + r * P + c8) =
+            make_uint4(w[p][0], w[p][1], w[p][2], w[p][3]);
+    }
   }
 }
 
-template <int DK, int DV>
+template <int DK, int DV, typename T>
 __global__ void __launch_bounds__(NTHREADS, 2)
-flash_qsmem_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v, const float* __restrict__ key_bias,
-                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int H, int lq,
+flash_qsmem_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const float* __restrict__ key_bias,
+                   T* __restrict__ o, float* __restrict__ lse, int H, int lq,
                    int lk, float sm_scale, long long sqb, long long sqh, long long sqn,
                    long long skb, long long skh, long long skn, long long svb,
                    long long svh, long long svn, long long sob, long long soh,
                    long long son) {
-  using C = QSmem<DK, DV>;
+  constexpr int NP = Parts<T>::N;
+  using C = QSmem<DK, DV, NP>;
+  constexpr int QT = BQ * C::KP, KT = BK * C::KP, VT = BK * C::VP;  // part strides
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQ][KP]
-  __nv_bfloat16* ks = qs + BQ * C::KP;                              // [BK][KP]
-  __nv_bfloat16* vs = ks + BK * C::KP;                              // [BK][VP]
-  float* bias_s = reinterpret_cast<float*>(vs + BK * C::VP);        // [BK]
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);                // [NP][BQ][KP]
+  bf16* ks = qs + NP * QT;                                     // [NP][BK][KP]
+  bf16* vs = ks + NP * KT;                                     // [NP][BK][VP]
+  float* bias_s = reinterpret_cast<float*>(vs + NP * VT);      // [BK]
   unsigned char* tile_live = reinterpret_cast<unsigned char*>(bias_s + BK);  // [ntiles]
 
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
@@ -99,7 +118,7 @@ flash_qsmem_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
   v += b * svb + h * svh;
   key_bias += (long long)b * lk;
 
-  stage_rows<BQ, DK, C::KP>(qs, q, sqn, q0, lq);
+  stage_rows<BQ, DK, C::KP>(qs, QT, q, sqn, q0, lq);
   asm volatile("cp.async.commit_group;\n" ::);
 
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
@@ -107,8 +126,8 @@ flash_qsmem_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
 #pragma unroll
   for (int n = 0; n < DV / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
-  const __nv_bfloat16* qrow0 = qs + (warp * 16 + g) * C::KP + 2 * t;
-  const __nv_bfloat16* qrow1 = qrow0 + 8 * C::KP;
+  const bf16* qrow0 = qs + (warp * 16 + g) * C::KP + 2 * t;
+  const bf16* qrow1 = qrow0 + 8 * C::KP;
   const int ntiles = (lk + BK - 1) / BK;
 
   // which key tiles hold a live key (stores of 1 may race: same value)
@@ -136,8 +155,8 @@ flash_qsmem_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
       const int key = key0 + threadIdx.x;
       bias_s[threadIdx.x] = key < lk ? key_bias[key] : NEG_INF;
     }
-    stage_rows<BK, DK, C::KP>(ks, k, skn, key0, lk);
-    stage_rows<BK, DV, C::VP>(vs, v, svn, key0, lk);
+    stage_rows<BK, DK, C::KP>(ks, KT, k, skn, key0, lk);
+    stage_rows<BK, DV, C::VP>(vs, VT, v, svn, key0, lk);
     cp_async_wait_all();
     __syncthreads();
 
@@ -147,12 +166,26 @@ flash_qsmem_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
     for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll 4
     for (int kc = 0; kc < DK / 16; ++kc) {
-      const uint32_t qa[4] = {ld32(qrow0 + kc * 16), ld32(qrow1 + kc * 16),
-                              ld32(qrow0 + kc * 16 + 8), ld32(qrow1 + kc * 16 + 8)};
+      uint32_t qa[NP][4];
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        const bf16* q0p = qrow0 + p * QT + kc * 16;
+        const bf16* q1p = qrow1 + p * QT + kc * 16;
+        qa[p][0] = ld32(q0p);
+        qa[p][1] = ld32(q1p);
+        qa[p][2] = ld32(q0p + 8);
+        qa[p][3] = ld32(q1p + 8);
+      }
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j) {
-        const __nv_bfloat16* kr = ks + (j * 8 + g) * C::KP + kc * 16 + 2 * t;
-        mma16816(s[j], qa, ld32(kr), ld32(kr + 8));
+        uint32_t b0[NP], b1[NP];
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          const bf16* kr = ks + p * KT + (j * 8 + g) * C::KP + kc * 16 + 2 * t;
+          b0[p] = ld32(kr);
+          b1[p] = ld32(kr + 8);
+        }
+        mma_parts(s[j], qa, b0, b1);
       }
     }
 #pragma unroll
@@ -198,24 +231,21 @@ flash_qsmem_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
       acc[n][2] *= corr1;
       acc[n][3] *= corr1;
     }
-    // acc += bf16(P) V; ldmatrix.trans turns row-major V into B fragments:
+    // acc += P V; ldmatrix.trans turns row-major V into B fragments:
     // lanes 0-15 address keys kk*16 + 0..15 of column block n, lanes 16-31
     // the same keys of block n + 1
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-      };
-      const __nv_bfloat16* vrow = vs + (kk * 16 + (lane & 15)) * C::VP + (lane >> 4) * 8;
+      uint32_t pa[NP][4];
+      a_parts<NP>(pa, s, 2 * kk);
+      const bf16* vrow = vs + (kk * 16 + (lane & 15)) * C::VP + (lane >> 4) * 8;
 #pragma unroll
       for (int n = 0; n < DV / 8; n += 2) {
-        uint32_t b0, b1, b2, b3;
-        ldmatrix_x4_trans(b0, b1, b2, b3, vrow + n * 8);
-        mma16816(acc[n], pa, b0, b1);
-        mma16816(acc[n + 1], pa, b2, b3);
+        uint32_t b0[NP], b1[NP], b2[NP], b3[NP];
+#pragma unroll
+        for (int p = 0; p < NP; ++p) ldmatrix_x4_trans(b0[p], b1[p], b2[p], b3[p], vrow + p * VT + n * 8);
+        mma_parts(acc[n], pa, b0, b1);
+        mma_parts(acc[n + 1], pa, b2, b3);
       }
     }
   }
@@ -227,12 +257,8 @@ flash_qsmem_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
 #pragma unroll
   for (int n = 0; n < DV / 8; ++n) {
     const int c = n * 8 + 2 * t;
-    if (r0 < lq)
-      *reinterpret_cast<__nv_bfloat162*>(o + r0 * son + c) =
-          __floats2bfloat162_rn(acc[n][0] / l0, acc[n][1] / l0);
-    if (r1 < lq)
-      *reinterpret_cast<__nv_bfloat162*>(o + r1 * son + c) =
-          __floats2bfloat162_rn(acc[n][2] / l1, acc[n][3] / l1);
+    if (r0 < lq) st_pair(o + r0 * son + c, acc[n][0] / l0, acc[n][1] / l0);
+    if (r1 < lq) st_pair(o + r1 * son + c, acc[n][2] / l1, acc[n][3] / l1);
   }
   if (lse != nullptr && t == 0) {
     lse += (long long)bh * lq;
@@ -242,22 +268,21 @@ flash_qsmem_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
 }
 
 // Launch on `stream`: grid (Lq tiles, B * H), bytes(lk) of dynamic shared memory.
-template <int DK, int DV>
+template <int DK, int DV, typename T>
 int launch_qsmem(const void* q, const void* k, const void* v, const void* key_bias, void* o,
                  void* lse, int B, int H, int lq, int lk, float sm_scale, long long sqb,
                  long long sqh, long long sqn, long long skb, long long skh, long long skn,
                  long long svb, long long svh, long long svn, long long sob, long long soh,
                  long long son, cudaStream_t st) {
-  const int smem = QSmem<DK, DV>::bytes(lk);
-  cudaError_t err = cudaFuncSetAttribute(flash_qsmem_kernel<DK, DV>,
+  const int smem = QSmem<DK, DV, Parts<T>::N>::bytes(lk);
+  cudaError_t err = cudaFuncSetAttribute(flash_qsmem_kernel<DK, DV, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((lq + BQ - 1) / BQ, B * H);
-  flash_qsmem_kernel<DK, DV><<<grid, NTHREADS, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(key_bias),
-      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), H, lq, lk, sm_scale, sqb, sqh,
-      sqn, skb, skh, skn, svb, svh, svn, sob, soh, son);
+  flash_qsmem_kernel<DK, DV, T><<<grid, NTHREADS, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(key_bias), static_cast<T*>(o), static_cast<float*>(lse), H, lq,
+      lk, sm_scale, sqb, sqh, sqn, skb, skh, skn, svb, svh, svn, sob, soh, son);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,14 +9,21 @@
 // and ones-row denominator only filled the MXU's 128 lanes; here each
 // (batch, head) runs on its own with m16n8k16 tensor-core products.
 //
-// Bound on the H100: at the fusion-encoder shape (1, 8, 5184, 32) the
-// ~27.5 GFLOP of tensor-core work takes ~0.03 ms at the bf16 peak, while
-// the 8 * 5184^2 exponentials take ~0.05 ms on the special-function units
-// and the 2.6 MB of operands ~1 us: d = 32 makes this kernel bound by
-// operations on the exponential, not by the matrix products. The design
-// keeps S and P in registers (never in shared or device memory) and reads
-// Q once per block; the staging of K/V is not pipelined yet (later work:
-// cp.async/TMA double buffering, exp2 with a folded log2(e) scale).
+// Operand types (attn_common.cuh): bf16, or fp32 split into bf16 hi and lo
+// parts with three products each, P kept fp32 (split the same way) as in
+// JAX, where P is cast to the value dtype. The output is written in the
+// operands' dtype, the LSE in fp32. bf16 at d = 32 (the fusion encoder's
+// self-attention) runs flash_sdpa_h.cu, the wgmma kernel; this file serves
+// fp32 at d = 32 and both dtypes at d = 256.
+//
+// Bound on the H100 at the fusion-encoder shape (1, 8, 5184, 32): ~27.5
+// GFLOP of tensor-core work (~0.03 ms at the bf16 peak; ~0.06 ms at the
+// tf32 rate for fp32 operands, while the fp32 instantiation's three split
+// products take ~0.08 ms at the bf16 peak), 215 M exponentials (~0.05 ms
+// on the special-function units) and 2.6 MB of bf16 operands (5.3 MB
+// fp32, ~2 us). This kernel keeps S and P in registers and reads Q once
+// per block; K and V are staged synchronously a 64-key tile at a time
+// (flash_sdpa_h.cu's note says what that costs in bf16).
 //
 // Head dim 256 (the tracker's single-head memory attention, Q K V
 // (8, 1, 5184, 256) in self-attention and 36352 keys in the plain
@@ -33,24 +40,25 @@
 // keys are all masked skips every tile and finishes as acc / max(l, 1e-30)
 // = 0 with lse = -1e9.
 
+#include <type_traits>
+
 #include "flash_qsmem.cuh"
 
 using namespace attn;
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(NTHREADS)
-flash_sdpa_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      const float* __restrict__ key_bias,
-                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+flash_sdpa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const float* __restrict__ key_bias,
+                      T* __restrict__ o, float* __restrict__ lse,
                       int H, int lq, int lk, float sm_scale,
                       long long sqb, long long sqh, long long sqn,
                       long long skb, long long skh, long long skn,
                       long long svb, long long svh, long long svn,
                       long long sob, long long soh, long long son) {
-  __shared__ __align__(16) __nv_bfloat16 ks[BK][D + 8];
-  __shared__ __align__(16) __nv_bfloat16 vt[D][VPAD];
+  constexpr int NP = Parts<T>::N;
+  __shared__ __align__(16) bf16 ks[NP][BK][D + 8];
+  __shared__ __align__(16) bf16 vt[NP][D][VPAD];
   __shared__ float bias_s[BK];
 
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
@@ -62,7 +70,7 @@ flash_sdpa_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   v += b * svb + h * svh;
   key_bias += (long long)b * lk;
 
-  uint32_t qa[D / 16][4];
+  uint32_t qa[NP][D / 16][4];
   load_q<D>(qa, q, sqn, row0, lq);
 
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
@@ -86,7 +94,7 @@ flash_sdpa_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();
 
     float s[BK / 8][4];
-    qk_tile<D>(s, qa, ks);
+    qk_tile<D, NP>(s, qa, &ks[0][0][0], BK * (D + 8), D + 8);
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j) {
       const float b0 = bias_s[j * 8 + 2 * t], b1 = bias_s[j * 8 + 2 * t + 1];
@@ -95,7 +103,7 @@ flash_sdpa_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       s[j][2] = s[j][2] * sm_scale + b0;
       s[j][3] = s[j][3] * sm_scale + b1;
     }
-    softmax_pv<D>(s, m, l, acc, vt);
+    softmax_pv<D, NP>(s, m, l, acc, vt);
   }
 
   const float l0 = fmaxf(quad_sum(l[0]), 1e-30f), l1 = fmaxf(quad_sum(l[1]), 1e-30f);
@@ -104,12 +112,8 @@ flash_sdpa_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     const int c = n * 8 + 2 * t;
-    if (r0 < lq)
-      *reinterpret_cast<__nv_bfloat162*>(o + r0 * son + c) =
-          __floats2bfloat162_rn(acc[n][0] / l0, acc[n][1] / l0);
-    if (r1 < lq)
-      *reinterpret_cast<__nv_bfloat162*>(o + r1 * son + c) =
-          __floats2bfloat162_rn(acc[n][2] / l1, acc[n][3] / l1);
+    if (r0 < lq) st_pair(o + r0 * son + c, acc[n][0] / l0, acc[n][1] / l0);
+    if (r1 < lq) st_pair(o + r1 * son + c, acc[n][2] / l1, acc[n][3] / l1);
   }
   if (lse != nullptr && t == 0) {
     lse += (long long)bh * lq;
@@ -118,27 +122,39 @@ flash_sdpa_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+template <typename T>
+int launch_fwd(const void* q, const void* k, const void* v, const void* key_bias, void* o,
+               void* lse, int B, int H, int lq, int lk, int d, float sm_scale, long long sqb,
+               long long sqh, long long sqn, long long skb, long long skh, long long skn,
+               long long svb, long long svh, long long svn, long long sob, long long soh,
+               long long son, cudaStream_t st) {
+  if (d == 256)
+    return launch_qsmem<256, 256, T>(q, k, v, key_bias, o, lse, B, H, lq, lk, sm_scale, sqb, sqh,
+                                     sqn, skb, skh, skn, svb, svh, svn, sob, soh, son, st);
+  if constexpr (std::is_same<T, float>::value) {  // bf16 at d = 32 is flash_sdpa_h.cu's
+    if (d != 32) return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid((lq + BQ - 1) / BQ, B * H);
+    flash_sdpa_fwd_kernel<32, T><<<grid, NTHREADS, 0, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const float*>(key_bias), static_cast<T*>(o), static_cast<float*>(lse), H, lq,
+        lk, sm_scale, sqb, sqh, sqn, skb, skh, skn, svb, svh, svn, sob, soh, son);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// fp32 != 0: q, k, v and o are float32, else bfloat16 (d = 256 only: bf16
+// at d = 32 is served by flash_sdpa_h.cu).
 extern "C" int flash_sdpa_fwd(const void* q, const void* k, const void* v,
                               const void* key_bias, void* o, void* lse, int B,
-                              int H, int lq, int lk, int d, float sm_scale,
+                              int H, int lq, int lk, int d, int fp32, float sm_scale,
                               long long sqb, long long sqh, long long sqn,
                               long long skb, long long skh, long long skn,
                               long long svb, long long svh, long long svn,
                               long long sob, long long soh, long long son,
                               void* stream) {
-  const dim3 grid((lq + BQ - 1) / BQ, B * H);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 32) {
-    flash_sdpa_fwd_kernel<32><<<grid, NTHREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(key_bias),
-        static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), H, lq, lk,
-        sm_scale, sqb, sqh, sqn, skb, skh, skn, svb, svh, svn, sob, soh, son);
-  } else if (d == 256) {
-    return launch_qsmem<256, 256>(q, k, v, key_bias, o, lse, B, H, lq, lk, sm_scale, sqb, sqh,
-                                  sqn, skb, skh, skn, svb, svh, svn, sob, soh, son, st);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  auto launch = fp32 ? launch_fwd<float> : launch_fwd<bf16>;
+  return launch(q, k, v, key_bias, o, lse, B, H, lq, lk, d, sm_scale, sqb, sqh, sqn, skb, skh,
+                skn, svb, svh, svn, sob, soh, son, st);
 }

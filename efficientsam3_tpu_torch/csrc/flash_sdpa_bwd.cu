@@ -40,6 +40,12 @@
 // ldmatrix.trans, so no transposed copy is made. Pipelining the tile copies,
 // wgmma and folding log2(e) into the scale are later work.
 //
+// fp32 operands (the default build) run the same kernels on split bf16
+// parts (attn_common.cuh): Q, K, V, dO staged or held as hi and lo, P and
+// dS split in registers (in JAX they stay fp32: the casts to the operand
+// dtype are no-ops), three products each; Delta is summed from the fp32
+// values. Gradients come back in the operands' dtype.
+//
 // Head dim 256 (the tracker's memory attention under autograd) runs the
 // kernels of flash_bwd_wide.cuh, 8 warps a block with the accumulators split
 // over warps by columns; the entry points below dispatch on d.
@@ -52,69 +58,67 @@ namespace {
 
 constexpr int D = 32;
 constexpr int PD = D + 8;  // padded row (bf16) of a staged 64 x D tile
-using Tile = __nv_bfloat16 (*)[PD];
+constexpr int PT = BK * PD;  // elements of one part of a staged tile
 
-// acc (this warp's 16 rows x D) += bf16(a) (16 x 64) X, X a row-major 64 x D
-// tile in shared memory: a's accumulator layout is the A-operand layout, and
-// ldmatrix.trans turns X's rows into B fragments (lanes 0-15 address rows
-// kk*16 + 0..15 of column block n, lanes 16-31 those of block n + 1).
+// acc (this warp's 16 rows x D) += a (16 x 64, fp32, rounded to NP parts)
+// X, X a row-major 64 x D tile of NP parts in shared memory: a's
+// accumulator layout is the A-operand layout, and ldmatrix.trans turns X's
+// rows into B fragments (lanes 0-15 address rows kk*16 + 0..15 of column
+// block n, lanes 16-31 those of block n + 1).
+template <int NP>
 __device__ __forceinline__ void mma_tile_x(float (&acc)[D / 8][4], const float (&a)[BK / 8][4],
-                                           const __nv_bfloat16* xs) {
+                                           const bf16* xs) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk) {
-    const uint32_t pa[4] = {
-        pack_bf16(a[2 * kk][0], a[2 * kk][1]),
-        pack_bf16(a[2 * kk][2], a[2 * kk][3]),
-        pack_bf16(a[2 * kk + 1][0], a[2 * kk + 1][1]),
-        pack_bf16(a[2 * kk + 1][2], a[2 * kk + 1][3]),
-    };
-    const __nv_bfloat16* xrow = xs + (kk * 16 + (lane & 15)) * PD + (lane >> 4) * 8;
+    uint32_t pa[NP][4];
+    a_parts<NP>(pa, a, 2 * kk);
+    const bf16* xrow = xs + (kk * 16 + (lane & 15)) * PD + (lane >> 4) * 8;
 #pragma unroll
     for (int n = 0; n < D / 8; n += 2) {
-      uint32_t b0, b1, b2, b3;
-      ldmatrix_x4_trans(b0, b1, b2, b3, xrow + n * 8);
-      mma16816(acc[n], pa, b0, b1);
-      mma16816(acc[n + 1], pa, b2, b3);
+      uint32_t b0[NP], b1[NP], b2[NP], b3[NP];
+#pragma unroll
+      for (int p = 0; p < NP; ++p) ldmatrix_x4_trans(b0[p], b1[p], b2[p], b3[p], xrow + p * PT + n * 8);
+      mma_parts(acc[n], pa, b0, b1);
+      mma_parts(acc[n + 1], pa, b2, b3);
     }
   }
 }
 
-// Store this warp's 16 x D fp32 accumulator, times `mul`, as bf16 rows.
-__device__ __forceinline__ void store_rows(__nv_bfloat16* out, long long sn, int row0, int n,
+// Store this warp's 16 x D fp32 accumulator, times `mul`, in T.
+template <typename T>
+__device__ __forceinline__ void store_rows(T* out, long long sn, int row0, int n,
                                            const float (&acc)[D / 8][4], float mul) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = row0 + g, r1 = r0 + 8;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int c = j * 8 + 2 * t;
-    if (r0 < n)
-      *reinterpret_cast<__nv_bfloat162*>(out + r0 * sn + c) =
-          __floats2bfloat162_rn(acc[j][0] * mul, acc[j][1] * mul);
-    if (r1 < n)
-      *reinterpret_cast<__nv_bfloat162*>(out + r1 * sn + c) =
-          __floats2bfloat162_rn(acc[j][2] * mul, acc[j][3] * mul);
+    if (r0 < n) st_pair(out + r0 * sn + c, acc[j][0] * mul, acc[j][1] * mul);
+    if (r1 < n) st_pair(out + r1 * sn + c, acc[j][2] * mul, acc[j][3] * mul);
   }
 }
 
-int dq_smem_bytes(int lk) {
-  return 2 * BK * PD * 2 + BK * 4 + ((lk + BK - 1) / BK + 15) / 16 * 16;
+int dq_smem_bytes(int lk, int np) {
+  return np * 2 * PT * 2 + BK * 4 + ((lk + BK - 1) / BK + 15) / 16 * 16;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
-bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v, const float* __restrict__ key_bias,
-              const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const float* __restrict__ key_bias,
+              const T* __restrict__ o, const T* __restrict__ dout,
               const float* __restrict__ lse, float* __restrict__ delta,
-              __nv_bfloat16* __restrict__ dq, int H, int lq, int lk, float sm_scale,
+              T* __restrict__ dq, int H, int lq, int lk, float sm_scale,
               long long sqb, long long sqh, long long sqn, long long skb, long long skh,
               long long skn, long long svb, long long svh, long long svn, long long sob,
               long long soh, long long son, long long sdb, long long sdh, long long sdn,
               long long sgb, long long sgh, long long sgn) {
+  constexpr int NP = Parts<T>::N;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BK][PD]
-  __nv_bfloat16* vs = ks + BK * PD;                                 // [BK][PD]
-  float* bias_s = reinterpret_cast<float*>(vs + BK * PD);           // [BK]
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);            // [NP][BK][PD]
+  bf16* vs = ks + NP * PT;                                 // [NP][BK][PD]
+  float* bias_s = reinterpret_cast<float*>(vs + NP * PT);  // [BK]
   unsigned char* tile_live = reinterpret_cast<unsigned char*>(bias_s + BK);
 
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
@@ -132,21 +136,26 @@ bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   lse += (long long)bh * lq;
   delta += (long long)bh * lq;
 
-  uint32_t qa[D / 16][4], da[D / 16][4], oa[D / 16][4];
+  uint32_t qa[NP][D / 16][4], da[NP][D / 16][4];
   load_q<D>(qa, q, sqn, row0, lq);
   load_q<D>(da, dout, sdn, row0, lq);
-  load_q<D>(oa, o, son, row0, lq);
 
-  // Delta of rows r0, r1: this thread holds 8 of each row's 32 columns
+  // Delta of rows r0, r1 in fp32: this thread holds 8 of each row's 32
+  // columns, those of its fragments
   float dl0 = 0.f, dl1 = 0.f;
 #pragma unroll
   for (int kc = 0; kc < D / 16; ++kc) {
 #pragma unroll
-    for (int e = 0; e < 4; e += 2) {
-      const float2 d0 = unpack_bf16(da[kc][e]), o0 = unpack_bf16(oa[kc][e]);
-      const float2 d1 = unpack_bf16(da[kc][e + 1]), o1 = unpack_bf16(oa[kc][e + 1]);
-      dl0 += d0.x * o0.x + d0.y * o0.y;
-      dl1 += d1.x * o1.x + d1.y * o1.y;
+    for (int e = 0; e < 16; e += 8) {
+      const int c = kc * 16 + 2 * t + e;
+      if (r0 < lq) {
+        const float2 d0 = ld_f2(dout + r0 * sdn + c), o0 = ld_f2(o + r0 * son + c);
+        dl0 += d0.x * o0.x + d0.y * o0.y;
+      }
+      if (r1 < lq) {
+        const float2 d1 = ld_f2(dout + r1 * sdn + c), o1 = ld_f2(o + r1 * son + c);
+        dl1 += d1.x * o1.x + d1.y * o1.y;
+      }
     }
   }
   dl0 = quad_sum(dl0);
@@ -178,14 +187,14 @@ bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
       const int key = key0 + threadIdx.x;
       bias_s[threadIdx.x] = key < lk ? key_bias[key] : NEG_INF;
     }
-    stage_rows<BK, D, PD>(ks, k, skn, key0, lk);
-    stage_rows<BK, D, PD>(vs, v, svn, key0, lk);
+    stage_rows<BK, D, PD>(ks, PT, k, skn, key0, lk);
+    stage_rows<BK, D, PD>(vs, PT, v, svn, key0, lk);
     cp_async_wait_all();
     __syncthreads();
 
     float s[BK / 8][4], dp[BK / 8][4];
-    qk_tile<D>(s, qa, reinterpret_cast<Tile>(ks));   // S = Q K^T
-    qk_tile<D>(dp, da, reinterpret_cast<Tile>(vs));  // dP = dO V^T
+    qk_tile<D, NP>(s, qa, ks, PT, PD);   // S = Q K^T
+    qk_tile<D, NP>(dp, da, vs, PT, PD);  // dP = dO V^T
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j) {
       const float b0 = bias_s[j * 8 + 2 * t], b1 = bias_s[j * 8 + 2 * t + 1];
@@ -198,23 +207,36 @@ bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
       s[j][2] = p10 * (dp[j][2] - dl1);
       s[j][3] = p11 * (dp[j][3] - dl1);
     }
-    mma_tile_x(acc, s, ks);  // dQ += bf16(dS) K
+    if constexpr (NP == 1) {
+      mma_tile_x<NP>(acc, s, ks);  // dQ += dS K
+    } else {  // fp32: a fresh fragment a tile, added with round-to-nearest (flash_bwd_wide.cuh)
+      float part[D / 8][4];
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) part[n][0] = part[n][1] = part[n][2] = part[n][3] = 0.f;
+      mma_tile_x<NP>(part, s, ks);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
+    }
   }
   store_rows(dq, sgn, row0, lq, acc, sm_scale);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
-bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v, const float* __restrict__ key_bias,
-               const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-               const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-               __nv_bfloat16* __restrict__ dv, int H, int lq, int lk, float sm_scale,
+bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const float* __restrict__ key_bias,
+               const T* __restrict__ dout, const float* __restrict__ lse,
+               const float* __restrict__ delta, T* __restrict__ dk,
+               T* __restrict__ dv, int H, int lq, int lk, float sm_scale,
                long long sqb, long long sqh, long long sqn, long long skb, long long skh,
                long long skn, long long svb, long long svh, long long svn, long long sdb,
                long long sdh, long long sdn, long long skgb, long long skgh, long long skgn,
                long long svgb, long long svgh, long long svgn) {
-  __shared__ __align__(16) __nv_bfloat16 qs[BQ][PD];
-  __shared__ __align__(16) __nv_bfloat16 dos[BQ][PD];
+  constexpr int NP = Parts<T>::N;
+  __shared__ __align__(16) bf16 qs[NP * PT];
+  __shared__ __align__(16) bf16 dos[NP * PT];
   __shared__ float lse_s[BQ], delta_s[BQ];
 
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
@@ -251,7 +273,7 @@ bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   }
   const float kb0 = kr0 < lk ? key_bias[kr0] : NEG_INF;
   const float kb1 = kr1 < lk ? key_bias[kr1] : NEG_INF;
-  uint32_t ka[D / 16][4], va[D / 16][4];
+  uint32_t ka[NP][D / 16][4], va[NP][D / 16][4];
   load_q<D>(ka, k, skn, krow0, lk);
   load_q<D>(va, v, svn, krow0, lk);
 
@@ -259,8 +281,8 @@ bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   for (int qt = 0; qt < nqt; ++qt) {
     const int q0 = qt * BQ;
     __syncthreads();  // the previous tile's readers are done
-    stage_rows<BQ, D, PD>(&qs[0][0], q, sqn, q0, lq);
-    stage_rows<BQ, D, PD>(&dos[0][0], dout, sdn, q0, lq);
+    stage_rows<BQ, D, PD>(qs, PT, q, sqn, q0, lq);
+    stage_rows<BQ, D, PD>(dos, PT, dout, sdn, q0, lq);
     if (threadIdx.x < BQ) {
       const int row = q0 + threadIdx.x;
       lse_s[threadIdx.x] = row < lq ? lse[row] : NEG_INF;
@@ -270,8 +292,8 @@ bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
     __syncthreads();
 
     float s[BQ / 8][4], dp[BQ / 8][4];
-    qk_tile<D>(s, ka, qs);    // S^T = K Q^T (16 keys x 64 queries)
-    qk_tile<D>(dp, va, dos);  // dP^T = V dO^T
+    qk_tile<D, NP>(s, ka, qs, PT, PD);    // S^T = K Q^T (16 keys x 64 queries)
+    qk_tile<D, NP>(dp, va, dos, PT, PD);  // dP^T = V dO^T
 #pragma unroll
     for (int j = 0; j < BQ / 8; ++j) {
       const int c0 = j * 8 + 2 * t, c1 = c0 + 1;
@@ -290,67 +312,96 @@ bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
       dp[j][2] = p10 * (dp[j][2] - D0);
       dp[j][3] = p11 * (dp[j][3] - D1);
     }
-    mma_tile_x(dvacc, s, &dos[0][0]);  // dV += bf16(P^T) dO
-    mma_tile_x(dkacc, dp, &qs[0][0]);  // dK += bf16(dS^T) Q
+    mma_tile_x<NP>(dvacc, s, dos);  // dV += P^T dO
+    mma_tile_x<NP>(dkacc, dp, qs);  // dK += dS^T Q
   }
   store_rows(dk, skgn, krow0, lk, dkacc, sm_scale);
   store_rows(dv, svgn, krow0, lk, dvacc, 1.f);
 }
 
-}  // namespace
-
-extern "C" int flash_sdpa_bwd_dq(const void* q, const void* k, const void* v,
-                                 const void* key_bias, const void* o, const void* dout,
-                                 const void* lse, void* delta, void* dq, int B, int H, int lq,
-                                 int lk, int d, float sm_scale, long long sqb, long long sqh,
-                                 long long sqn, long long skb, long long skh, long long skn,
-                                 long long svb, long long svh, long long svn, long long sob,
-                                 long long soh, long long son, long long sdb, long long sdh,
-                                 long long sdn, long long sgb, long long sgh, long long sgn,
-                                 void* stream) {
-  if (d == wide::D)
-    return wide::launch_dq(q, k, v, key_bias, o, dout, lse, delta, dq, B, H, lq, lk, sm_scale,
-                           sqb, sqh, sqn, skb, skh, skn, svb, svh, svn, sob, soh, son, sdb, sdh,
-                           sdn, sgb, sgh, sgn, static_cast<cudaStream_t>(stream));
-  if (d != D) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = dq_smem_bytes(lk);
+template <typename T>
+int launch_dq(const void* q, const void* k, const void* v, const void* key_bias, const void* o,
+              const void* dout, const void* lse, void* delta, void* dq, int B, int H, int lq,
+              int lk, float sm_scale, long long sqb, long long sqh, long long sqn, long long skb,
+              long long skh, long long skn, long long svb, long long svh, long long svn,
+              long long sob, long long soh, long long son, long long sdb, long long sdh,
+              long long sdn, long long sgb, long long sgh, long long sgn, cudaStream_t st) {
+  const int smem = dq_smem_bytes(lk, Parts<T>::N);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid((lq + BQ - 1) / BQ, B * H);
-  bwd_dq_kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(key_bias),
-      static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<float*>(delta),
-      static_cast<__nv_bfloat16*>(dq), H, lq, lk, sm_scale, sqb, sqh, sqn, skb, skh, skn, svb,
-      svh, svn, sob, soh, son, sdb, sdh, sdn, sgb, sgh, sgn);
+  bwd_dq_kernel<T><<<grid, NTHREADS, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(key_bias), static_cast<const T*>(o),
+      static_cast<const T*>(dout), static_cast<const float*>(lse), static_cast<float*>(delta),
+      static_cast<T*>(dq), H, lq, lk, sm_scale, sqb, sqh, sqn, skb, skh, skn, svb, svh, svn, sob,
+      soh, son, sdb, sdh, sdn, sgb, sgh, sgn);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_dkv(const void* q, const void* k, const void* v, const void* key_bias,
+               const void* dout, const void* lse, const void* delta, void* dk, void* dv, int B,
+               int H, int lq, int lk, float sm_scale, long long sqb, long long sqh, long long sqn,
+               long long skb, long long skh, long long skn, long long svb, long long svh,
+               long long svn, long long sdb, long long sdh, long long sdn, long long skgb,
+               long long skgh, long long skgn, long long svgb, long long svgh, long long svgn,
+               cudaStream_t st) {
+  const dim3 grid((lk + BK - 1) / BK, B * H);
+  bwd_dkv_kernel<T><<<grid, NTHREADS, 0, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(key_bias), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<T*>(dk),
+      static_cast<T*>(dv), H, lq, lk, sm_scale, sqb, sqh, sqn, skb, skh, skn, svb, svh, svn,
+      sdb, sdh, sdn, skgb, skgh, skgn, svgb, svgh, svgn);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// fp32 != 0: q, k, v, o, dout and dq are float32, else bfloat16.
+extern "C" int flash_sdpa_bwd_dq(const void* q, const void* k, const void* v,
+                                 const void* key_bias, const void* o, const void* dout,
+                                 const void* lse, void* delta, void* dq, int B, int H, int lq,
+                                 int lk, int d, int fp32, float sm_scale, long long sqb,
+                                 long long sqh, long long sqn, long long skb, long long skh,
+                                 long long skn, long long svb, long long svh, long long svn,
+                                 long long sob, long long soh, long long son, long long sdb,
+                                 long long sdh, long long sdn, long long sgb, long long sgh,
+                                 long long sgn, void* stream) {
+  decltype(&launch_dq<bf16>) launch;
+  if (d == wide::D)
+    launch = fp32 ? wide::launch_dq<float> : wide::launch_dq<bf16>;
+  else if (d == D)
+    launch = fp32 ? launch_dq<float> : launch_dq<bf16>;
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch(q, k, v, key_bias, o, dout, lse, delta, dq, B, H, lq, lk, sm_scale, sqb, sqh,
+                sqn, skb, skh, skn, svb, svh, svn, sob, soh, son, sdb, sdh, sdn, sgb, sgh, sgn,
+                static_cast<cudaStream_t>(stream));
+}
+
+// fp32 != 0: q, k, v, dout, dk and dv are float32, else bfloat16.
 extern "C" int flash_sdpa_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* key_bias, const void* dout, const void* lse,
                                   const void* delta, void* dk, void* dv, int B, int H, int lq,
-                                  int lk, int d, float sm_scale, long long sqb, long long sqh,
-                                  long long sqn, long long skb, long long skh, long long skn,
-                                  long long svb, long long svh, long long svn, long long sdb,
-                                  long long sdh, long long sdn, long long skgb, long long skgh,
-                                  long long skgn, long long svgb, long long svgh,
-                                  long long svgn, void* stream) {
+                                  int lk, int d, int fp32, float sm_scale, long long sqb,
+                                  long long sqh, long long sqn, long long skb, long long skh,
+                                  long long skn, long long svb, long long svh, long long svn,
+                                  long long sdb, long long sdh, long long sdn, long long skgb,
+                                  long long skgh, long long skgn, long long svgb,
+                                  long long svgh, long long svgn, void* stream) {
+  decltype(&launch_dkv<bf16>) launch;
   if (d == wide::D)
-    return wide::launch_dkv(q, k, v, key_bias, dout, lse, delta, dk, dv, B, H, lq, lk, sm_scale,
-                            sqb, sqh, sqn, skb, skh, skn, svb, svh, svn, sdb, sdh, sdn, skgb,
-                            skgh, skgn, svgb, svgh, svgn, static_cast<cudaStream_t>(stream));
-  if (d != D) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((lk + BK - 1) / BK, B * H);
-  bwd_dkv_kernel<<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(key_bias),
-      static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), H, lq, lk, sm_scale, sqb, sqh, sqn, skb, skh, skn, svb,
-      svh, svn, sdb, sdh, sdn, skgb, skgh, skgn, svgb, svgh, svgn);
-  return static_cast<int>(cudaGetLastError());
+    launch = fp32 ? wide::launch_dkv<float> : wide::launch_dkv<bf16>;
+  else if (d == D)
+    launch = fp32 ? launch_dkv<float> : launch_dkv<bf16>;
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch(q, k, v, key_bias, dout, lse, delta, dk, dv, B, H, lq, lk, sm_scale, sqb, sqh,
+                sqn, skb, skh, skn, svb, svh, svn, sdb, sdh, sdn, skgb, skgh, skgn, svgb, svgh,
+                svgn, static_cast<cudaStream_t>(stream));
 }

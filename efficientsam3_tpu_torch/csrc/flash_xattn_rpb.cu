@@ -17,17 +17,18 @@
 // share of the key tiles and writes an unnormalised fp32 partial with its
 // running max and sum; a second small kernel merges the partials by their
 // log-sum-exp. The split count is chosen by the wrapper so that about two
-// blocks per SM are in flight.
+// blocks per SM are in flight. fp32 operands (the default build) run the
+// same kernels on split bf16 parts (attn_common.cuh), the output in fp32.
 
 #include "attn_common.cuh"
 
 using namespace attn;
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(NTHREADS)
-flash_xattn_rpb_partial(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
+flash_xattn_rpb_partial(const T* __restrict__ q,
+                        const T* __restrict__ k,
+                        const T* __restrict__ v,
                         const float* __restrict__ ey,  // (B*H, lq, hy)
                         const float* __restrict__ ex,  // (B*H, lq, wx)
                         float* __restrict__ part_acc,  // (B*H, S, lq, D)
@@ -37,8 +38,9 @@ flash_xattn_rpb_partial(const __nv_bfloat16* __restrict__ q,
                         long long sqb, long long sqh, long long sqn,
                         long long skb, long long skh, long long skn,
                         long long svb, long long svh, long long svn) {
-  __shared__ __align__(16) __nv_bfloat16 ks[BK][D + 8];
-  __shared__ __align__(16) __nv_bfloat16 vt[D][VPAD];
+  constexpr int NP = Parts<T>::N;
+  __shared__ __align__(16) bf16 ks[NP][BK][D + 8];
+  __shared__ __align__(16) bf16 vt[NP][D][VPAD];
   extern __shared__ float rpb_s[];  // [BQ][hy] then [BQ][wx]
   float* eys = rpb_s;
   float* exs = rpb_s + BQ * hy;
@@ -65,7 +67,7 @@ flash_xattn_rpb_partial(const __nv_bfloat16* __restrict__ q,
     exs[i] = r < lq ? exb[(long long)r * wx + i % wx] : 0.f;
   }
 
-  uint32_t qa[D / 16][4];
+  uint32_t qa[NP][D / 16][4];
   load_q<D>(qa, q, sqn, row0, lq);
 
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
@@ -87,7 +89,7 @@ flash_xattn_rpb_partial(const __nv_bfloat16* __restrict__ q,
     __syncthreads();
 
     float s[BK / 8][4];
-    qk_tile<D>(s, qa, ks);
+    qk_tile<D, NP>(s, qa, &ks[0][0][0], BK * (D + 8), D + 8);
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
@@ -103,7 +105,7 @@ flash_xattn_rpb_partial(const __nv_bfloat16* __restrict__ q,
         }
       }
     }
-    softmax_pv<D>(s, m, l, acc, vt);
+    softmax_pv<D, NP>(s, m, l, acc, vt);
   }
 
   const float l0 = quad_sum(l[0]), l1 = quad_sum(l[1]);
@@ -125,11 +127,14 @@ flash_xattn_rpb_partial(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+__device__ __forceinline__ void store_out(bf16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
+
 // out[b, h, r, :] = sum_s acc_s e^(m_s - M) / max(sum_s l_s e^(m_s - M), 1e-30)
-template <int D>
+template <int D, typename T>
 __global__ void flash_xattn_rpb_merge(const float* __restrict__ part_acc,
                                       const float* __restrict__ part_ml,
-                                      __nv_bfloat16* __restrict__ o, int H,
+                                      T* __restrict__ o, int H,
                                       int lq, int nsplit, long long sob,
                                       long long soh, long long son,
                                       long long total) {
@@ -149,38 +154,50 @@ __global__ void flash_xattn_rpb_merge(const float* __restrict__ part_acc,
     den += part_ml[rs * 2 + 1] * w;
     num += part_acc[rs * D + c] * w;
   }
-  o[b * sob + h * soh + r * son + c] = __float2bfloat16(num / fmaxf(den, 1e-30f));
+  store_out(o + b * sob + h * soh + r * son + c, num / fmaxf(den, 1e-30f));
 }
 
+template <typename T>
+int launch_xattn(const void* q, const void* k, const void* v, const void* ey, const void* ex,
+                 void* o, void* part_acc, void* part_ml, int B, int H, int lq, int lk, int hy,
+                 int wx, int nsplit, int tiles_per_split, float sm_scale, long long sqb,
+                 long long sqh, long long sqn, long long skb, long long skh, long long skn,
+                 long long svb, long long svh, long long svn, long long sob, long long soh,
+                 long long son, cudaStream_t st) {
+  const int smem = BQ * (hy + wx) * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_xattn_rpb_partial<32, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((lq + BQ - 1) / BQ, B * H, nsplit);
+  flash_xattn_rpb_partial<32, T><<<grid, NTHREADS, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(ey), static_cast<const float*>(ex),
+      static_cast<float*>(part_acc), static_cast<float*>(part_ml), H, lq, lk, hy, wx,
+      tiles_per_split, sm_scale, sqb, sqh, sqn, skb, skh, skn, svb, svh, svn);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long total = (long long)B * H * lq * 32;
+  const int threads = 256;
+  flash_xattn_rpb_merge<32, T><<<static_cast<unsigned>((total + threads - 1) / threads), threads, 0, st>>>(
+      static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
+      static_cast<T*>(o), H, lq, nsplit, sob, soh, son, total);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// fp32 != 0: q, k, v and o are float32, else bfloat16.
 extern "C" int flash_xattn_rpb_fwd(const void* q, const void* k, const void* v,
                                    const void* ey, const void* ex, void* o,
                                    void* part_acc, void* part_ml, int B, int H,
-                                   int lq, int lk, int d, int hy, int wx,
+                                   int lq, int lk, int d, int fp32, int hy, int wx,
                                    int nsplit, int tiles_per_split,
                                    float sm_scale, long long sqb, long long sqh,
                                    long long sqn, long long skb, long long skh,
                                    long long skn, long long svb, long long svh,
                                    long long svn, long long sob, long long soh,
                                    long long son, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d != 32) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = BQ * (hy + wx) * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_xattn_rpb_partial<32>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((lq + BQ - 1) / BQ, B * H, nsplit);
-  flash_xattn_rpb_partial<32><<<grid, NTHREADS, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(ey),
-      static_cast<const float*>(ex), static_cast<float*>(part_acc),
-      static_cast<float*>(part_ml), H, lq, lk, hy, wx, tiles_per_split, sm_scale,
-      sqb, sqh, sqn, skb, skh, skn, svb, svh, svn);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long total = (long long)B * H * lq * 32;
-  const int threads = 256;
-  flash_xattn_rpb_merge<32><<<static_cast<unsigned>((total + threads - 1) / threads), threads, 0, st>>>(
-      static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
-      static_cast<__nv_bfloat16*>(o), H, lq, nsplit, sob, soh, son, total);
-  return static_cast<int>(cudaGetLastError());
+  auto launch = fp32 ? launch_xattn<float> : launch_xattn<bf16>;
+  return launch(q, k, v, ey, ex, o, part_acc, part_ml, B, H, lq, lk, hy, wx, nsplit,
+                tiles_per_split, sm_scale, sqb, sqh, sqn, skb, skh, skn, svb, svh, svn, sob, soh,
+                son, static_cast<cudaStream_t>(stream));
 }

@@ -21,8 +21,10 @@ dispatch rule ``use_pallas_depthwise`` (channels a multiple of 128, maps
 within the VMEM budget) only existed for the TPU's lanes and fast memory;
 here every CXBlock depthwise on a CUDA tensor goes to the kernel. CPU
 tensors take the plain version (differentiated by autograd); a CUDA tensor
-the kernel does not take (not bf16, a kernel size other than 7; in the
-backward an output gradient that is not bf16) raises. When autograd
+the kernel does not take (maps other than bf16 or fp32, a kernel size other
+than 7; in the backward an output gradient of another dtype than x) raises.
+Both dtypes run the kernel (fp32 arithmetic either way; the fp32
+instantiation stages fp32 tiles of 16 channels). When autograd
 records the call on CUDA it runs as ``_DepthwiseConv2dFn``.
 ``depthwise_conv2d.launches`` counts the forward's launches,
 ``depthwise_conv2d_bwd.launches`` the backward's calls (each launches the
@@ -81,18 +83,21 @@ def depthwise_conv2d_bwd_plain(x, kernel, g):
     return (dx, *_dw_db(x, g, kernel.shape[0]))
 
 
+_MAP_DTYPES = (torch.bfloat16, torch.float32)
+
+
 def _lib(name="depthwise_conv2d_fwd"):
     fn = getattr(_build.load("depthwise_conv2d"), name)
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 4 + [_I] * 5 + [_P]
+        fn.argtypes = [_P] * 4 + [_I] * 6 + [_P]
         fn.restype = _I
     return fn
 
 
 def _check(x, kernel, bias, what="depthwise_conv2d"):
     c = x.shape[-1]
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{what} kernel takes bfloat16 maps, got {x.dtype}")
+    if x.dtype not in _MAP_DTYPES:
+        raise TypeError(f"{what} kernel takes bfloat16 or float32 maps, got {x.dtype}")
     if kernel.shape != (_KERNEL_SIZE, _KERNEL_SIZE, 1, c) or bias.shape != (c,):
         raise ValueError(f"{what} kernel takes a ({_KERNEL_SIZE}, {_KERNEL_SIZE}, 1, "
                          f"{c}) kernel and ({c},) bias, got {tuple(kernel.shape)} and "
@@ -108,7 +113,8 @@ def _launch(x, kernel, bias):
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):  # the launch goes to the current device
         status = _lib()(x.data_ptr(), wk.data_ptr(), bs.data_ptr(), out.data_ptr(),
-                        b, h, w, c, _KERNEL_SIZE, torch.cuda.current_stream(x.device).cuda_stream)
+                        b, h, w, c, _KERNEL_SIZE, int(x.dtype == torch.float32),
+                        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(status, "depthwise_conv2d launch")
     return out
 
@@ -125,15 +131,16 @@ def _wgrad(x, g):
     with torch.cuda.device(x.device):  # the launch goes to the current device
         status = _lib("depthwise_conv2d_wgrad")(
             x.data_ptr(), g.data_ptr(), dwp.data_ptr(), dbp.data_ptr(), b, h, w, c,
-            _KERNEL_SIZE, torch.cuda.current_stream(x.device).cuda_stream)
+            _KERNEL_SIZE, int(x.dtype == torch.float32),
+            torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(status, "depthwise_conv2d_wgrad launch")
     return dwp.sum(0).reshape(_KERNEL_SIZE, _KERNEL_SIZE, 1, c), dbp.sum(0)
 
 
 def depthwise_conv2d_bwd(x, kernel, g):
     """Gradients of depthwise_conv2d from its input x, taps and output
-    gradient g: (dx in x.dtype, dw, db fp32). On CUDA (x and g bf16) one
-    call launches the kernel over g with the flipped taps for dx and the
+    gradient g: (dx in x.dtype, dw, db fp32). On CUDA (x and g both bf16
+    or both fp32) one call launches the kernel over g with the flipped taps for dx and the
     weight-gradient kernel for dw / db, counted once in
     ``depthwise_conv2d_bwd.launches``; CPU tensors take the plain version."""
     if not x.is_cuda:
@@ -141,6 +148,9 @@ def depthwise_conv2d_bwd(x, kernel, g):
     zero = torch.zeros(kernel.shape[-1], dtype=torch.float32, device=x.device)
     _check(g, kernel, zero, "depthwise_conv2d backward")
     _check(x, kernel, zero, "depthwise_conv2d backward")
+    if g.dtype != x.dtype:
+        raise TypeError(f"depthwise_conv2d backward kernel takes g in x's dtype ({x.dtype}), "
+                        f"got {g.dtype}")
     if g.shape != x.shape:
         raise ValueError(f"depthwise_conv2d backward: g {tuple(g.shape)} for x {tuple(x.shape)}")
     dx = _launch(g, kernel.flip(0, 1), zero)

@@ -19,13 +19,18 @@ through ctypes on PyTorch's current stream.
 
 Each wrapper takes the plain PyTorch version for CPU tensors and launches
 its kernel for CUDA tensors, raising on what the kernel does not take
-(dtype other than bf16, head dims it was not built for). Each counts its
-kernel launches in ``<wrapper>.launches``. Under autograd (grad mode on and
-an input requiring a gradient) ``flash_sdpa`` runs as an autograd Function
-whose backward is the two backward kernels; the forward-only
-``flash_memattn``, ``flash_memattn_q8`` and ``flash_xattn_rpb`` raise there rather than return a
-tensor cut from the graph. On the CPU the plain versions are differentiated
-by autograd.
+(``kernel_dtype``: float operands other than bf16 or fp32, or of mixed
+dtypes; head dims it was not built for). Every kernel has a bf16 and an
+fp32 instantiation, the fp32 one on split bf16 parts (csrc/attn_common.cuh);
+outputs come back in the operands' dtype, the log-sum-exp in fp32. Each
+counts its kernel launches in ``<wrapper>.launches``; ``flash_sdpa``
+forward at d=32 in bf16 is the wgmma kernel ``csrc/flash_sdpa_h.cu``
+(``sdpa_kernel`` says which kernel a call reaches). Under autograd (grad
+mode on and an input requiring a gradient) ``flash_sdpa`` runs as an
+autograd Function whose backward is the two backward kernels; the
+forward-only ``flash_memattn``, ``flash_memattn_q8`` and
+``flash_xattn_rpb`` raise there rather than return a tensor cut from the
+graph. On the CPU the plain versions are differentiated by autograd.
 
 Layouts follow the JAX package: (B, H, N, D) heads. The kernels take any
 strides over (B, H, N) with D contiguous, so ``split_heads`` views go in
@@ -88,17 +93,32 @@ def flash_sdpa_plain(q, k, v, key_bias, sm_scale=None, return_lse=False):
     return (out, lse) if return_lse else out
 
 
-def _check_bf16(name, *ts):
-    for t in ts:
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name} kernel takes bfloat16 tensors, got {t.dtype}")
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def kernel_dtype(name, *ts):
+    """The dtype a kernel call runs in: that of its float operands, which
+    must all be bfloat16 or all float32; anything else raises TypeError."""
+    dtypes = {t.dtype for t in ts}
+    if len(dtypes) != 1 or ts[0].dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name} kernel takes bfloat16 or float32 operands, all of one dtype, "
+                        f"got {[str(t.dtype) for t in ts]}")
+    return ts[0].dtype
 
 
 def _check_heads(name, dims, *ts):
-    _check_bf16(name, *ts)
+    dtype = kernel_dtype(name, *ts)
     for t in ts:
         if t.shape[-1] not in dims:
             raise ValueError(f"{name} kernel supports head dims {dims}, got {t.shape[-1]}")
+    return dtype
+
+
+def sdpa_kernel(dtype, d):
+    """The forward kernel a CUDA ``flash_sdpa`` call launches: the wgmma
+    kernel (csrc/flash_sdpa_h.cu) for bf16 at d=32, else the mma.sync
+    kernels of csrc/flash_sdpa.cu (fp32 at d=32, both dtypes at d=256)."""
+    return "flash_sdpa_h" if (dtype == torch.bfloat16 and d == 32) else "flash_sdpa"
 
 
 def _aligned(t):
@@ -119,16 +139,38 @@ def _lib_sdpa():
     lib = _build.load("flash_sdpa")
     fn = lib.flash_sdpa_fwd
     if fn.argtypes is None:
+        fn.argtypes = [_P] * 6 + [_I] * 6 + [_F] + [_LL] * 12 + [_P]
+        fn.restype = _I
+    return fn
+
+
+def _lib_sdpa_h():
+    fn = _build.load("flash_sdpa_h").flash_sdpa_h_fwd
+    if fn.argtypes is None:
         fn.argtypes = [_P] * 6 + [_I] * 5 + [_F] + [_LL] * 12 + [_P]
         fn.restype = _I
     return fn
+
+
+def _bias_rows(key_bias):
+    """key_bias (B, Lk) as the wgmma kernel's TMA reads it: f32, contiguous,
+    16-byte aligned, rows padded with -1e9 to a multiple of 4 keys (a copy
+    only when Lk is not one already). Returns (rows, padded width)."""
+    b, lk = key_bias.shape
+    kb = key_bias.float().contiguous()
+    lkb = -(-lk // 4) * 4
+    if lkb != lk or kb.data_ptr() % 16:
+        padded = torch.full((b, lkb), NEG_INF, dtype=torch.float32, device=kb.device)
+        padded[:, :lk] = kb
+        kb = padded
+    return kb, lkb
 
 
 def _lib_xattn():
     lib = _build.load("flash_xattn_rpb")
     fn = lib.flash_xattn_rpb_fwd
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 8 + [_I] * 9 + [_F] + [_LL] * 12 + [_P]
+        fn.argtypes = [_P] * 8 + [_I] * 10 + [_F] + [_LL] * 12 + [_P]
         fn.restype = _I
     return fn
 
@@ -136,26 +178,30 @@ def _lib_xattn():
 def _flash_sdpa_fwd(q, k, v, key_bias, sm_scale, return_lse):
     """Launch the forward kernel; (o, lse or None), o a (B, H, Lq, D) view
     of (B, Lq, H, D) memory."""
-    _check_heads("flash_sdpa", _SUPPORTED_D, q, k, v)
+    dtype = _check_heads("flash_sdpa", _SUPPORTED_D, q, k, v)
     b, h, lq, d = q.shape
     lk = k.shape[2]
     if k.shape != (b, h, lk, d) or v.shape != k.shape or key_bias.shape != (b, lk):
         raise ValueError(f"flash_sdpa shapes: q {q.shape} k {k.shape} v {v.shape} "
                          f"key_bias {key_bias.shape}")
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    key_bias = key_bias.float().contiguous()
     o = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device) if return_lse else None
     o_bhn = o.transpose(1, 2)
-    fn = _lib_sdpa()
+    strides = (*_bhn_strides(q), *_bhn_strides(k), *_bhn_strides(v), *_bhn_strides(o_bhn))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    lse_ptr = lse.data_ptr() if lse is not None else None
     with torch.cuda.device(q.device):  # the launch goes to the current device
-        status = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
-            o.data_ptr(), lse.data_ptr() if lse is not None else None,
-            b, h, lq, lk, d, float(sm_scale),
-            *_bhn_strides(q), *_bhn_strides(k), *_bhn_strides(v), *_bhn_strides(o_bhn),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+        if sdpa_kernel(dtype, d) == "flash_sdpa_h":
+            kb, lkb = _bias_rows(key_bias)
+            status = _lib_sdpa_h()(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), kb.data_ptr(), o.data_ptr(), lse_ptr,
+                b, h, lq, lk, lkb, float(sm_scale), *strides, stream)
+        else:
+            kb = key_bias.float().contiguous()
+            status = _lib_sdpa()(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), kb.data_ptr(), o.data_ptr(), lse_ptr,
+                b, h, lq, lk, d, int(dtype == torch.float32), float(sm_scale), *strides, stream)
     _build.check(status, "flash_sdpa launch")
     flash_sdpa.launches += 1
     return o_bhn, lse
@@ -186,9 +232,9 @@ class _FlashSdpaFn(torch.autograd.Function):
 def flash_sdpa(q, k, v, key_bias, sm_scale=None, return_lse=False):
     """Flash scaled-dot-product attention.
 
-    q (B, H, Lq, D); k, v (B, H, Lk, D); key_bias (B, Lk) additive f32
-    logits bias (-1e9 for masked keys). Returns (B, H, Lq, D) in q.dtype,
-    and the (B, H, Lq) f32 log-sum-exp with return_lse. When autograd
+    q (B, H, Lq, D); k, v (B, H, Lk, D), bf16 or fp32; key_bias (B, Lk)
+    additive f32 logits bias (-1e9 for masked keys). Returns (B, H, Lq, D)
+    in q.dtype, and the (B, H, Lq) f32 log-sum-exp with return_lse. When autograd
     records the call (grad mode on, an input requiring a gradient) it runs
     as ``_FlashSdpaFn``, whose backward is the dq and dkv kernels (head dims
     32 and 256); CPU tensors are differentiated through the plain version.
@@ -226,8 +272,8 @@ def _bwd_p_ds(q, k, v, key_bias, lse, do, delta, sm_scale):
 
 def flash_sdpa_bwd_dq_plain(q, k, v, key_bias, o, lse, do, sm_scale):
     """The dq kernel's arithmetic: (dQ in q.dtype, Delta = rowsum(dO o O)
-    fp32). dS is rounded to k's dtype before the product, the scale applied
-    at the end."""
+    fp32). dS is rounded to k's dtype before the product (a no-op at fp32),
+    the scale applied at the end."""
     delta = (do.float() * o.float()).sum(-1)
     _, ds = _bwd_p_ds(q, k, v, key_bias, lse, do, delta, sm_scale)
     dq = torch.matmul(ds.to(k.dtype).float(), k.float()) * sm_scale
@@ -257,30 +303,30 @@ def flash_sdpa_bwd_plain(q, k, v, key_bias, o, lse, do, sm_scale=None):
 def _lib_bwd(name, n_ptr):
     fn = getattr(_build.load("flash_sdpa_bwd"), name)
     if fn.argtypes is None:
-        fn.argtypes = [_P] * n_ptr + [_I] * 5 + [_F] + [_LL] * 18 + [_P]
+        fn.argtypes = [_P] * n_ptr + [_I] * 6 + [_F] + [_LL] * 18 + [_P]
         fn.restype = _I
     return fn
 
 
 def _check_bwd(q, k, v, key_bias, lse, *rest):
-    _check_heads("flash_sdpa backward", _BWD_D, q, k, v, *rest)
+    dtype = _check_heads("flash_sdpa backward", _BWD_D, q, k, v, *rest)
     b, h, lq, d = q.shape
     lk = k.shape[2]
     if (k.shape != (b, h, lk, d) or v.shape != k.shape or key_bias.shape != (b, lk)
             or lse.shape != (b, h, lq) or any(t.shape != q.shape for t in rest)):
         raise ValueError(f"flash_sdpa backward shapes: q {q.shape} k {k.shape} v {v.shape} "
                          f"key_bias {key_bias.shape} lse {lse.shape}")
-    return b, h, lq, lk, d
+    return b, h, lq, lk, d, int(dtype == torch.float32)
 
 
 def flash_sdpa_bwd_dq(q, k, v, key_bias, o, lse, do, sm_scale):
     """dQ of flash_sdpa and Delta = rowsum(dO o O): (dq (B, H, Lq, D) in
     q.dtype, delta (B, H, Lq) f32). One kernel launch on CUDA (head dim 32
-    or 256, bf16), counted in ``flash_sdpa_bwd_dq.launches``; the plain
+    or 256, bf16 or fp32), counted in ``flash_sdpa_bwd_dq.launches``; the plain
     version for CPU tensors."""
     if not q.is_cuda:
         return flash_sdpa_bwd_dq_plain(q, k, v, key_bias, o, lse, do, sm_scale)
-    b, h, lq, lk, d = _check_bwd(q, k, v, key_bias, lse, o, do)
+    b, h, lq, lk, d, fp32 = _check_bwd(q, k, v, key_bias, lse, o, do)
     q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do))
     key_bias = key_bias.float().contiguous()
     lse = lse.float().contiguous()
@@ -290,7 +336,7 @@ def flash_sdpa_bwd_dq(q, k, v, key_bias, o, lse, do, sm_scale):
         status = _lib_bwd("flash_sdpa_bwd_dq", 9)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            b, h, lq, lk, d, float(sm_scale),
+            b, h, lq, lk, d, fp32, float(sm_scale),
             *_bhn_strides(q), *_bhn_strides(k), *_bhn_strides(v), *_bhn_strides(o),
             *_bhn_strides(do), *_bhn_strides(dq),
             torch.cuda.current_stream(q.device).cuda_stream,
@@ -310,7 +356,7 @@ def flash_sdpa_bwd_dkv(q, k, v, key_bias, do, lse, delta, sm_scale):
     tensors."""
     if not q.is_cuda:
         return flash_sdpa_bwd_dkv_plain(q, k, v, key_bias, do, lse, delta, sm_scale)
-    b, h, lq, lk, d = _check_bwd(q, k, v, key_bias, lse, do)
+    b, h, lq, lk, d, fp32 = _check_bwd(q, k, v, key_bias, lse, do)
     q, k, v, do = (_aligned(t) for t in (q, k, v, do))
     key_bias = key_bias.float().contiguous()
     lse = lse.float().contiguous()
@@ -321,7 +367,7 @@ def flash_sdpa_bwd_dkv(q, k, v, key_bias, do, lse, delta, sm_scale):
         status = _lib_bwd("flash_sdpa_bwd_dkv", 9)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, lq, lk, d, float(sm_scale),
+            b, h, lq, lk, d, fp32, float(sm_scale),
             *_bhn_strides(q), *_bhn_strides(k), *_bhn_strides(v), *_bhn_strides(do),
             *_bhn_strides(dk), *_bhn_strides(dv),
             torch.cuda.current_stream(q.device).cuda_stream,
@@ -352,10 +398,21 @@ def padded_bank_len(lk: int) -> int:
 flash_memattn_plain = flash_sdpa_plain
 
 
+def check_bank_call(name, q, v, *others):
+    """The dtype a bank kernel call (``flash_memattn``, ``flash_memattn_q8``)
+    runs in: q, v and the other float operands all bf16 or all fp32
+    (``kernel_dtype``), at a (dk, dv) pair the kernels were built for."""
+    dtype = kernel_dtype(name, q, v, *others)
+    if (q.shape[-1], v.shape[-1]) not in _MEMATTN_DIMS:
+        raise ValueError(f"{name} kernel supports (dk, dv) in {_MEMATTN_DIMS}, "
+                         f"got {(q.shape[-1], v.shape[-1])}")
+    return dtype
+
+
 def _lib_memattn():
     fn = _build.load("flash_memattn").flash_memattn_fwd
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 6 + [_I] * 6 + [_F] + [_LL] * 12 + [_P]
+        fn.argtypes = [_P] * 6 + [_I] * 7 + [_F] + [_LL] * 12 + [_P]
         fn.restype = _I
     return fn
 
@@ -364,8 +421,9 @@ def flash_memattn(q, k, v, key_bias, sm_scale=None, return_lse=False):
     """Flash cross-attention whose values are narrower than its keys.
 
     q (B, H, Lq, Dk); k (B, H, Lk, Dk); v (B, H, Lk, Dv) raw (unprojected)
-    values; key_bias (B, Lk) f32 (-1e9 masks). Returns (B, H, Lq, Dv) in
-    q.dtype, and the (B, H, Lq) f32 log-sum-exp with return_lse. A row
+    values, all bf16 or all fp32; key_bias (B, Lk) f32 (-1e9 masks).
+    Returns (B, H, Lq, Dv) in q.dtype, and the (B, H, Lq) f32 log-sum-exp
+    with return_lse. A row
     whose keys are all masked gives 0 with lse -1e9 (the einsum path gives
     the uniform average; such rows are slot-gated by every caller). The
     denominator is summed in fp32 from the unrounded P, as the einsum path
@@ -377,12 +435,9 @@ def flash_memattn(q, k, v, key_bias, sm_scale=None, return_lse=False):
     if not q.is_cuda:
         return flash_memattn_plain(q, k, v, key_bias, sm_scale, return_lse)
     _build.refuse_grad("flash_memattn", q, k, v, key_bias)
-    _check_bf16("flash_memattn", q, k, v)
+    fp32 = int(check_bank_call("flash_memattn", q, v, k) == torch.float32)
     b, h, lq, dk = q.shape
     lk, dv = k.shape[2], v.shape[-1]
-    if (dk, dv) not in _MEMATTN_DIMS:
-        raise ValueError(f"flash_memattn kernel supports (dk, dv) in {_MEMATTN_DIMS}, "
-                         f"got {(dk, dv)}")
     if k.shape != (b, h, lk, dk) or v.shape != (b, h, lk, dv) or key_bias.shape != (b, lk):
         raise ValueError(f"flash_memattn shapes: q {q.shape} k {k.shape} v {v.shape} "
                          f"key_bias {key_bias.shape}")
@@ -394,7 +449,7 @@ def flash_memattn(q, k, v, key_bias, sm_scale=None, return_lse=False):
         status = _lib_memattn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
             o.data_ptr(), lse.data_ptr() if lse is not None else None,
-            b, h, lq, lk, dk, dv, float(sm_scale),
+            b, h, lq, lk, dk, dv, fp32, float(sm_scale),
             *_bhn_strides(q), *_bhn_strides(k), *_bhn_strides(v), *_bhn_strides(o),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
@@ -418,9 +473,14 @@ def quantize_rows(x, scale_mul: float = 1.0, eps: float = 1e-8):
     multiplied by scale_mul (the attention folds the softmax scale into the
     query scale). A zero row gets scale scale_mul * eps / 127 and zeros.
     Plain tensor ops, as in the JAX package: fp32 |max| floored at eps,
-    / 127, round half to even, int8 cast."""
+    / 127, round half to even, int8 cast. The division by 127 is a true
+    division on every device (PyTorch's CUDA kernels multiply by the
+    reciprocal of a Python scalar divisor, one bit off, which moves a few
+    values across a rounding boundary against ``flash_memattn_q8``'s
+    prologue and the JAX package)."""
     xf = x.float()
-    s = xf.abs().amax(-1, keepdim=True).clamp_min(eps) / 127.0
+    amax = xf.abs().amax(-1, keepdim=True).clamp_min(eps)
+    s = amax / torch.full_like(amax, 127.0)
     return torch.round(xf / s).to(torch.int8), s * scale_mul
 
 
@@ -447,7 +507,7 @@ def flash_memattn_q8_plain(q, k_i8, k_scale, v, key_bias, sm_scale=None, return_
 def _lib_memattn_q8():
     fn = _build.load("flash_memattn_q8").flash_memattn_q8_fwd
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 7 + [_I] * 6 + [_F] + [_LL] * 12 + [_P]
+        fn.argtypes = [_P] * 7 + [_I] * 7 + [_F] + [_LL] * 12 + [_P]
         fn.restype = _I
     return fn
 
@@ -464,8 +524,9 @@ def flash_memattn_q8(q, k_i8, k_scale, v, key_bias, sm_scale=None, return_lse=Fa
     in v.dtype, and the (B, H, Lq) f32 log-sum-exp with return_lse.
 
     On CUDA the score product runs as int8 x int8 -> int32 on the tensor
-    cores, at (Dk, Dv) = (256, 64) with bf16 q, v and output; other dims and
-    dtypes raise, and so does a call that autograd records (forward only).
+    cores, at (Dk, Dv) = (256, 64) with q, v and output all bf16 or all
+    fp32 (fp32 v on split bf16 parts); other dims and dtypes raise, and so
+    does a call that autograd records (forward only).
     CPU tensors take the plain version. Logits carry the symmetric int8
     error of both operands; the exact bank stays the default.
     """
@@ -483,10 +544,7 @@ def flash_memattn_q8(q, k_i8, k_scale, v, key_bias, sm_scale=None, return_lse=Fa
     if not q.is_cuda:
         return flash_memattn_q8_plain(q, k_i8, k_scale, v, key_bias, sm_scale, return_lse)
     _build.refuse_grad("flash_memattn_q8", q, k_scale, v, key_bias)
-    _check_bf16("flash_memattn_q8", q, v)
-    if (dk, dv) not in _MEMATTN_DIMS:
-        raise ValueError(f"flash_memattn_q8 kernel supports (dk, dv) in {_MEMATTN_DIMS}, "
-                         f"got {(dk, dv)}")
+    fp32 = int(check_bank_call("flash_memattn_q8", q, v) == torch.float32)
     q, k_i8, v = _aligned(q), _aligned(k_i8), _aligned(v)
     k_scale = k_scale.float().contiguous()
     key_bias = key_bias.float().contiguous()
@@ -496,7 +554,7 @@ def flash_memattn_q8(q, k_i8, k_scale, v, key_bias, sm_scale=None, return_lse=Fa
         status = _lib_memattn_q8()(
             q.data_ptr(), k_i8.data_ptr(), k_scale.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
             o.data_ptr(), lse.data_ptr() if lse is not None else None,
-            b, h, lq, lk, dk, dv, float(sm_scale),
+            b, h, lq, lk, dk, dv, fp32, float(sm_scale),
             *_bhn_strides(q), *_bhn_strides(k_i8), *_bhn_strides(v), *_bhn_strides(o),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
@@ -545,8 +603,9 @@ def flash_xattn_rpb(q, k, v, ey, ex, feat_hw, sm_scale=None):
     """Flash cross-attention with the decoder's boxRPB bias decomposed.
 
     q (B, H, NQ, D); k, v (B, H, L, D) with L == h*w (row-major image
-    tokens); ey (B, H, NQ, h), ex (B, H, NQ, w) f32 with
-    bias[b, n, q, y*w+x] = ey[b, n, q, y] + ex[b, n, q, x]. Forward only.
+    tokens), all bf16 or all fp32; ey (B, H, NQ, h), ex (B, H, NQ, w) f32
+    with bias[b, n, q, y*w+x] = ey[b, n, q, y] + ex[b, n, q, x]. Returns
+    (B, H, NQ, D) in q.dtype. Forward only.
     """
     h_img, w_img = feat_hw
     b, hn, lq, d = q.shape
@@ -558,7 +617,7 @@ def flash_xattn_rpb(q, k, v, ey, ex, feat_hw, sm_scale=None):
     if not q.is_cuda:
         return flash_xattn_rpb_plain(q, k, v, ey, ex, feat_hw, sm_scale)
     _build.refuse_grad("flash_xattn_rpb", q, k, v, ey, ex)
-    _check_heads("flash_xattn_rpb", (32,), q, k, v)
+    fp32 = int(_check_heads("flash_xattn_rpb", (32,), q, k, v) == torch.float32)
     if h_img >= 128 or w_img >= 128:
         raise ValueError(f"flash_xattn_rpb kernel takes maps under 128x128, got {feat_hw}")
     if ey.shape != (b, hn, lq, h_img) or ex.shape != (b, hn, lq, w_img):
@@ -576,7 +635,7 @@ def flash_xattn_rpb(q, k, v, ey, ex, feat_hw, sm_scale=None):
         status = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), ey.data_ptr(), ex.data_ptr(),
             o.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-            b, hn, lq, lk, d, h_img, w_img, nsplit, per, float(sm_scale),
+            b, hn, lq, lk, d, fp32, h_img, w_img, nsplit, per, float(sm_scale),
             *_bhn_strides(q), *_bhn_strides(k), *_bhn_strides(v), *_bhn_strides(o_bhn),
             torch.cuda.current_stream(q.device).cuda_stream,
         )

@@ -168,20 +168,31 @@ def test_layer_norm_kernel_matches_plain(cuda, x_dtype, out_dtype, rows):
 
 @pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_take(cuda):
-    q = _randn(cuda, 1, 2, 16, 32, dtype=torch.float32)
-    with pytest.raises(TypeError, match="bfloat16"):
-        fa.flash_sdpa(q, q, q, torch.zeros((1, 16), device=cuda))
+    """bf16 and fp32 are taken (the fp32 tests below); fp16, and operands
+    of mixed dtypes, raise naming both accepted types; so do head dims and
+    kernel sizes the kernels were not built for."""
+    q16 = _randn(cuda, 1, 2, 16, 32, dtype=torch.float16)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        fa.flash_sdpa(q16, q16, q16, torch.zeros((1, 16), device=cuda))
+    q = _randn(cuda, 1, 2, 16, 32)
+    with pytest.raises(TypeError, match="all of one dtype"):
+        fa.flash_sdpa(q, q.float(), q, torch.zeros((1, 16), device=cuda))
     q64 = _randn(cuda, 1, 2, 16, 64)
     with pytest.raises(ValueError, match="head dims"):
         fa.flash_sdpa(q64, q64, q64, torch.zeros((1, 16), device=cuda))
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_sdpa(q64.float(), q64.float(), q64.float(), torch.zeros((1, 16), device=cuda))
     q256 = _randn(cuda, 1, 1, 16, 256)
     with pytest.raises(ValueError, match="dk, dv"):
         fa.flash_memattn(q256, q256, q256, torch.zeros((1, 16), device=cuda))
-    with pytest.raises(TypeError, match="bfloat16"):
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
         fa.flash_memattn(q256.float(), q256, q256[..., :64], torch.zeros((1, 16), device=cuda))
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        fa.flash_memattn(q256.half(), q256.half(), q256[..., :64].half(),
+                         torch.zeros((1, 16), device=cuda))
     x = _randn(cuda, 1, 8, 8, 16)
-    with pytest.raises(TypeError, match="bfloat16"):
-        dw.depthwise_conv2d(x.float(), torch.zeros(7, 7, 1, 16, device=cuda),
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        dw.depthwise_conv2d(x.half(), torch.zeros(7, 7, 1, 16, device=cuda),
                             torch.zeros(16, device=cuda))
     with pytest.raises(ValueError, match="kernel"):
         dw.depthwise_conv2d(x, torch.zeros(3, 3, 1, 16, device=cuda), torch.zeros(16, device=cuda))
@@ -444,8 +455,10 @@ def test_flash_memattn_q8_refuses_what_it_does_not_take(cuda):
     q, _, k_i8, ks, v, bias = _q8_inputs(cuda, 1, 64, 128)
     with pytest.raises(ValueError, match="pre-padded"):
         fa.flash_memattn_q8(q, k_i8[:, :, :100], ks[:, :100], v[:, :, :100], bias[:, :100])
-    with pytest.raises(TypeError, match="bfloat16"):
+    with pytest.raises(TypeError, match="all of one dtype"):
         fa.flash_memattn_q8(q.float(), k_i8, ks, v, bias)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        fa.flash_memattn_q8(q.half(), k_i8, ks, v.half(), bias)
     with pytest.raises(ValueError, match="dk, dv"):
         fa.flash_memattn_q8(q[..., :128], k_i8[..., :128], ks, v, bias)
     with pytest.raises(ValueError, match="shapes"):
@@ -599,7 +612,7 @@ def test_depthwise_bwd_matches_plain(cuda, shape):
     assert _rel_err(dx, want[0]) < TOL
     exact = dw.depthwise_conv2d_bwd_plain(x.double(), wk.double(), g.double())
     assert _rel_err(dwt, exact[1]) < 1e-5 and _rel_err(db, exact[2]) < 1e-5
-    with pytest.raises(TypeError, match="bfloat16"):
+    with pytest.raises(TypeError, match="x's dtype"):
         dw.depthwise_conv2d_bwd(x, wk, g.float())
 
 
@@ -668,3 +681,205 @@ def test_rms_norm_2d_autograd_matches_plain_autograd(cuda):
     want = torch.autograd.grad((rn.rms_norm_2d_plain(x, w, b).float() * g).sum(), (x, w, b))
     for a, e in zip(got, want):
         assert a.dtype == e.dtype and _rel_err(a, e) < 1e-2
+
+
+# -------------------------------------------------------------------------
+# fp32 operands: every attention and depthwise kernel has an fp32
+# instantiation (split bf16 parts: three products each, about 2^-16 of a
+# product's magnitude; depthwise is fp32 FMA either way). Each is held to
+# its plain version in fp32 at 1e-4 (atol and rtol), gradients at 1e-4 of
+# their largest magnitude.
+
+FP32_TOL = 1e-4
+
+
+def _mask_rows(dev, b, lk):
+    """A key bias with a masked 64-key tile in row 0, a ragged masked tail
+    in row 1 and every key of the last row masked."""
+    bias = torch.zeros((b, lk), device=dev)
+    bias[0, 64:128] = NEG_INF
+    bias[1, lk - lk // 3:] = NEG_INF
+    bias[-1] = NEG_INF
+    return bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,h,lq,lk", [(32, 8, 5184, 5184), (32, 8, 333, 517), (32, 2, 1, 64),
+                                       (256, 1, 5184, 5184), (256, 1, 70, 36352),
+                                       (256, 1, 333, 517)])
+def test_flash_sdpa_fp32_kernel_matches_plain(cuda, d, h, lq, lk):
+    """fp32 q/k/v at d=32 (the mma.sync kernel's fp32 instantiation) and
+    d=256 (flash_qsmem's): output fp32 and LSE against the plain version,
+    ragged Lq/Lk, a masked tile, a ragged masked tail, a fully masked row."""
+    q, k, v = (_randn(cuda, 3, h, n, d, dtype=torch.float32) for n in (lq, lk, lk))
+    bias = _mask_rows(cuda, 3, lk)
+    assert fa.sdpa_kernel(torch.float32, d) == "flash_sdpa"
+    before = fa.flash_sdpa.launches
+    got, lse = fa.flash_sdpa(q, k, v, bias, return_lse=True)
+    torch.cuda.synchronize()
+    assert fa.flash_sdpa.launches == before + 1 and got.dtype == torch.float32
+    want, want_lse = fa.flash_sdpa_plain(q, k, v, bias, return_lse=True)
+    torch.testing.assert_close(got, want, atol=FP32_TOL, rtol=FP32_TOL)
+    torch.testing.assert_close(lse, want_lse, atol=FP32_TOL, rtol=FP32_TOL)
+    assert (got[-1] == 0).all() and (lse[-1] == NEG_INF).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,lq,lk", [(32, 5184, 5184), (32, 333, 517), (256, 333, 36352),
+                                     (256, 700, 517)])
+def test_flash_sdpa_bwd_fp32_kernels_match_plain(cuda, d, lq, lk):
+    """The dq (and Delta) and dk/dv kernels' fp32 instantiations (d=256: the
+    32-row streaming tiles of flash_bwd_wide.cuh) against the plain
+    backward in fp32: strided dO, ragged Lq/Lk, masked tiles, a fully
+    masked row (zero gradients)."""
+    h = 8 if d == 32 else 1
+    q, k, v = (_randn(cuda, 3, h, n, d, dtype=torch.float32) for n in (lq, lk, lk))
+    bias = _mask_rows(cuda, 3, lk)
+    o, lse = fa.flash_sdpa_plain(q, k, v, bias, return_lse=True)
+    do = _randn(cuda, 3, lq, h * d, dtype=torch.float32).reshape(3, lq, h, d).transpose(1, 2)
+    scale = d ** -0.5
+    n_dq, n_dkv = fa.flash_sdpa_bwd_dq.launches, fa.flash_sdpa_bwd_dkv.launches
+    dq, delta = fa.flash_sdpa_bwd_dq(q, k, v, bias, o, lse, do, scale)
+    dk, dv = fa.flash_sdpa_bwd_dkv(q, k, v, bias, do, lse, delta, scale)
+    torch.cuda.synchronize()
+    assert (fa.flash_sdpa_bwd_dq.launches, fa.flash_sdpa_bwd_dkv.launches) == (n_dq + 1, n_dkv + 1)
+    want_dq, want_delta = fa.flash_sdpa_bwd_dq_plain(q, k, v, bias, o, lse, do, scale)
+    want_dk, want_dv = fa.flash_sdpa_bwd_dkv_plain(q, k, v, bias, do, lse, want_delta, scale)
+    torch.testing.assert_close(delta, want_delta, atol=FP32_TOL, rtol=FP32_TOL)
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert _rel_err(got, want) < FP32_TOL
+        assert (got[-1] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 256])
+def test_flash_sdpa_fp32_autograd_matches_plain_autograd(cuda, d):
+    """flash_sdpa under autograd in fp32 (forward kernel, then the dq and
+    dkv kernels) against autograd through the plain forward in fp32."""
+    h = 8 if d == 32 else 1
+    q, k, v = (_randn(cuda, 2, h, 600, d, dtype=torch.float32) for _ in range(3))
+    bias = _mask_rows(cuda, 2, 600)
+    w = _randn(cuda, 2, h, 600, d, dtype=torch.float32)
+    grads = {}
+    for name, fn in (("kernel", fa.flash_sdpa), ("plain", fa.flash_sdpa_plain)):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        (fn(*leaves, bias) * w).sum().backward()
+        grads[name] = [t.grad for t in leaves]
+    for got, want in zip(grads["kernel"], grads["plain"]):
+        assert got.dtype == torch.float32 and _rel_err(got, want) < FP32_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lk", [(5184, 36864), (333, 517)])
+def test_flash_memattn_fp32_kernels_match_plain(cuda, lq, lk):
+    """flash_memattn and flash_memattn_q8 with fp32 q and v (q quantized
+    from fp32 in the q8 prologue, v on split parts): outputs and LSE
+    against their plain versions, a masked entry and tail, an empty slot."""
+    lk_q8 = fa.padded_bank_len(lk)
+    q, k, k_i8, ks, v, bias = (t.float() if t.is_floating_point() and t.dtype != torch.float32
+                               else t for t in _q8_inputs(cuda, 3, lq, lk_q8))
+    before = (fa.flash_memattn.launches, fa.flash_memattn_q8.launches)
+    got, lse = fa.flash_memattn(q, k, v, bias, return_lse=True)
+    got8, lse8 = fa.flash_memattn_q8(q, k_i8, ks, v, bias, return_lse=True)
+    torch.cuda.synchronize()
+    assert (fa.flash_memattn.launches, fa.flash_memattn_q8.launches) == (before[0] + 1,
+                                                                         before[1] + 1)
+    assert got.dtype == got8.dtype == torch.float32
+    want, want_lse = fa.flash_memattn_plain(q, k, v, bias, return_lse=True)
+    torch.testing.assert_close(got, want, atol=FP32_TOL, rtol=FP32_TOL)
+    torch.testing.assert_close(lse, want_lse, atol=FP32_TOL, rtol=FP32_TOL)
+    want8, want_lse8 = fa.flash_memattn_q8_plain(q, k_i8, ks, v, bias, return_lse=True)
+    torch.testing.assert_close(got8, want8, atol=FP32_TOL, rtol=FP32_TOL)
+    torch.testing.assert_close(lse8, want_lse8, atol=FP32_TOL, rtol=FP32_TOL)
+    assert (got[1] == 0).all() and (got8[1] == 0).all() and (lse8[1] == NEG_INF).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,hw", [(201, (72, 72)), (7, (3, 5))])
+def test_flash_xattn_rpb_fp32_kernel_matches_plain(cuda, lq, hw):
+    b, h = 2, 8
+    lk = hw[0] * hw[1]
+    q, k, v = (_randn(cuda, b, h, n, 32, dtype=torch.float32) for n in (lq, lk, lk))
+    ey = _randn(cuda, b, h, lq, hw[0], dtype=torch.float32)
+    ex = _randn(cuda, b, h, lq, hw[1], dtype=torch.float32)
+    before = fa.flash_xattn_rpb.launches
+    got = fa.flash_xattn_rpb(q, k, v, ey, ex, hw)
+    torch.cuda.synchronize()
+    assert fa.flash_xattn_rpb.launches == before + 1 and got.dtype == torch.float32
+    torch.testing.assert_close(got, fa.flash_xattn_rpb_plain(q, k, v, ey, ex, hw),
+                               atol=FP32_TOL, rtol=FP32_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 72, 72, 256), (2, 13, 29, 40), (1, 9, 5, 37), (1, 3, 4, 8)])
+def test_depthwise_fp32_kernels_match_plain(cuda, shape):
+    """The forward, dx and dw / db kernels' fp32 instantiations (16-channel
+    tiles): the tracker shape, odd H/W and C (element copies), a map
+    smaller than the 7x7 kernel; fp32 FMA on both sides."""
+    c = shape[-1]
+    x = _randn(cuda, *shape, dtype=torch.float32)
+    g = 1e-2 * _randn(cuda, *shape, dtype=torch.float32)
+    wk = 0.2 * _randn(cuda, 7, 7, 1, c, dtype=torch.float32)
+    bias = 0.1 * _randn(cuda, c, dtype=torch.float32)
+    fwd, bwd = dw.depthwise_conv2d.launches, dw.depthwise_conv2d_bwd.launches
+    got = dw.depthwise_conv2d(x, wk, bias)
+    dx, dwt, db = dw.depthwise_conv2d_bwd(x, wk, g)
+    torch.cuda.synchronize()
+    assert (dw.depthwise_conv2d.launches, dw.depthwise_conv2d_bwd.launches) == (fwd + 1, bwd + 1)
+    assert got.dtype == dx.dtype == torch.float32
+    torch.testing.assert_close(got, dw.depthwise_conv2d_plain(x, wk, bias), atol=FP32_TOL,
+                               rtol=FP32_TOL)
+    want = dw.depthwise_conv2d_bwd_plain(x, wk, g)
+    assert _rel_err(dx, want[0]) < FP32_TOL
+    assert _rel_err(dwt, want[1]) < FP32_TOL and _rel_err(db, want[2]) < FP32_TOL
+
+
+# -------------------------------------------------------------------------
+# flash_sdpa forward at d=32 in bf16: the wgmma / TMA kernel (flash_sdpa_h.cu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("lq,lk", [(5184, 5184), (333, 517), (130, 70), (1, 64), (200, 9)])
+def test_flash_sdpa_h_kernel_matches_plain(cuda, b, lq, lk):
+    """The wgmma kernel against the plain version: Lq and Lk ragged
+    against the 128-row block and the 64-key tile, key tiles masked in the
+    middle (skipped, never loaded), a ragged masked tail, with B=4 a batch
+    row whose keys are all masked (0 out, lse -1e9), and the LSE."""
+    q, k, v = (_randn(cuda, b, 8, n, 32) for n in (lq, lk, lk))
+    bias = torch.zeros((b, lk), device=cuda)
+    bias[0, 64:192] = NEG_INF  # two whole tiles (when Lk reaches them)
+    bias[0, lk - lk // 5:] = NEG_INF
+    if b > 1:
+        bias[1, :lk // 2] = NEG_INF
+        bias[-1] = NEG_INF
+    assert fa.sdpa_kernel(torch.bfloat16, 32) == "flash_sdpa_h"
+    before = fa.flash_sdpa.launches
+    got, lse = fa.flash_sdpa(q, k, v, bias, return_lse=True)
+    torch.cuda.synchronize()
+    assert fa.flash_sdpa.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.transpose(1, 2).is_contiguous()
+    want, want_lse = fa.flash_sdpa_plain(q, k, v, bias, return_lse=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=TOL)
+    torch.testing.assert_close(lse, want_lse, atol=TOL, rtol=TOL)
+    if b > 1:
+        assert (got[-1] == 0).all() and (lse[-1] == NEG_INF).all()
+    assert torch.equal(fa.flash_sdpa(q, k, v, bias), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", [(1, 5184), (4, 300)])
+def test_flash_sdpa_h_reads_strided_heads(cuda, b, n):
+    """q, k and v as split_heads views of separate (B, N, 8 * 32) token
+    maps (heads interleaved in each row: TMA reads them in place), the
+    output as a (B, N, H, D)-ordered view."""
+    q, k, v = (_randn(cuda, b, n, 8 * 32).reshape(b, n, 8, 32).transpose(1, 2) for _ in range(3))
+    assert not q.is_contiguous()
+    bias = torch.zeros((b, n), device=cuda)
+    bias[:, n // 3: n // 2] = NEG_INF
+    got, lse = fa.flash_sdpa(q, k, v, bias, return_lse=True)
+    want, want_lse = fa.flash_sdpa_plain(q, k, v, bias, return_lse=True)
+    assert got.transpose(1, 2).is_contiguous()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=TOL)
+    torch.testing.assert_close(lse, want_lse, atol=TOL, rtol=TOL)

@@ -1,0 +1,105 @@
+"""Which dtype and head-dim pairs the port's CUDA kernels take, and which
+kernel a call reaches, checked without a GPU: the wrappers' rule
+(``kernel_dtype``, the head-dim and (dk, dv) checks, ``sdpa_kernel``,
+depthwise's map check) applied to CPU tensors of each dtype and width.
+Every kernel takes bf16 and fp32 operands of one dtype; fp16, fp64 and
+mixed dtypes raise TypeError naming both, other widths ValueError.
+"""
+
+import pytest
+import torch
+
+from efficientsam3_tpu_torch.ops import depthwise as dw
+from efficientsam3_tpu_torch.ops import flash_attention as fa
+
+BF16, F32, F16, F64 = torch.bfloat16, torch.float32, torch.float16, torch.float64
+
+
+def _t(d, dtype, n=4):
+    return torch.zeros((1, 1, n, d), dtype=dtype)
+
+
+def _sdpa(dtype, d, k_dtype=None):
+    q = _t(d, dtype)
+    dt = fa._check_heads("flash_sdpa", fa._SUPPORTED_D, q, _t(d, k_dtype or dtype), q)
+    return fa.sdpa_kernel(dt, d)
+
+
+def _bwd(dtype, d):
+    q = _t(d, dtype)
+    fa._check_heads("flash_sdpa backward", fa._BWD_D, q, q, q, q, q)
+    return "flash_sdpa_bwd"
+
+
+def _memattn(dtype, dk, dv=64, v_dtype=None):
+    fa.check_bank_call("flash_memattn", _t(dk, dtype), _t(dv, v_dtype or dtype), _t(dk, dtype))
+    return "flash_memattn"
+
+
+def _q8(dtype, dk, dv=64):
+    fa.check_bank_call("flash_memattn_q8", _t(dk, dtype), _t(dv, dtype))
+    return "flash_memattn_q8"
+
+
+def _xattn(dtype, d):
+    q = _t(d, dtype)
+    fa._check_heads("flash_xattn_rpb", (32,), q, q, q)
+    return "flash_xattn_rpb"
+
+
+def _depthwise(dtype, ks=7):
+    dw._check(torch.zeros((1, 4, 4, 8), dtype=dtype), torch.zeros((ks, ks, 1, 8)),
+              torch.zeros(8))
+    return "depthwise_conv2d"
+
+
+CASES = [
+    # flash_sdpa forward: the wgmma kernel for bf16 at d=32, mma.sync otherwise
+    (_sdpa, (BF16, 32), "flash_sdpa_h"),
+    (_sdpa, (F32, 32), "flash_sdpa"),
+    (_sdpa, (BF16, 256), "flash_sdpa"),
+    (_sdpa, (F32, 256), "flash_sdpa"),
+    (_sdpa, (F16, 32), TypeError),
+    (_sdpa, (F64, 256), TypeError),
+    (_sdpa, (BF16, 32, F32), TypeError),
+    (_sdpa, (BF16, 64), ValueError),
+    (_sdpa, (F32, 80), ValueError),
+    # its backward kernels
+    (_bwd, (BF16, 32), "flash_sdpa_bwd"),
+    (_bwd, (F32, 32), "flash_sdpa_bwd"),
+    (_bwd, (F32, 256), "flash_sdpa_bwd"),
+    (_bwd, (F16, 256), TypeError),
+    (_bwd, (F32, 64), ValueError),
+    # the cached bank, exact and int8 keys
+    (_memattn, (BF16, 256), "flash_memattn"),
+    (_memattn, (F32, 256), "flash_memattn"),
+    (_memattn, (F16, 256), TypeError),
+    (_memattn, (F32, 256, 64, BF16), TypeError),
+    (_memattn, (F32, 128), ValueError),
+    (_q8, (BF16, 256), "flash_memattn_q8"),
+    (_q8, (F32, 256), "flash_memattn_q8"),
+    (_q8, (F16, 256), TypeError),
+    (_q8, (F32, 256, 32), ValueError),
+    # the decoder's boxRPB cross-attention
+    (_xattn, (BF16, 32), "flash_xattn_rpb"),
+    (_xattn, (F32, 32), "flash_xattn_rpb"),
+    (_xattn, (F64, 32), TypeError),
+    (_xattn, (F32, 64), ValueError),
+    # the memory encoder's 7x7 depthwise
+    (_depthwise, (BF16,), "depthwise_conv2d"),
+    (_depthwise, (F32,), "depthwise_conv2d"),
+    (_depthwise, (F16,), TypeError),
+    (_depthwise, (F32, 3), ValueError),
+]
+
+
+@pytest.mark.parametrize("check,args,expect", CASES,
+                         ids=[f"{c.__name__[1:]}-{'-'.join(str(a).replace('torch.', '') for a in args)}"
+                              for c, args, _ in CASES])
+def test_kernel_dtype_and_width_rule(check, args, expect):
+    if isinstance(expect, str):
+        assert check(*args) == expect
+    else:
+        match = "bfloat16 or float32" if expect is TypeError else r"kernel (supports|takes a \()"
+        with pytest.raises(expect, match=match):
+            check(*args)
