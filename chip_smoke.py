@@ -150,9 +150,28 @@ Phases, each printing its own lines:
      with cuDNN's TF32 off). Phase 3's flash_sdpa row is the wgmma kernel
      (csrc/flash_sdpa_h.cu); [train] times it again at the step's
      (4, 8, 5184, 32).
+  11. [sam3] the SAM3 teacher at full width (ViTDet ViT-H trunk: 32 blocks,
+     width 1024, 16 heads of 64, window 24, global blocks 7, 15, 23, 31;
+     24-layer CLIP text tower at context 32; seed 0). The bf16 build
+     (build_sam3_image_model) through Sam3Processor on phase 2's image,
+     tokens and box: launches counted per set_image (flash_sdpa 4, all at
+     d=64: the global blocks' (1, 16, 5184, 64) attention; layer_norm and
+     flash_xattn_rpb 0) and per encode_text + ground (27 / 6 / 6 as phase
+     2); set_image, encode_text, ground, the whole call and the peak memory
+     timed with CUDA events, torch.profiler splitting one encode_image.
+     The default build (no dtype: fp32) runs the same, its set_image and
+     ground held against the same model on the host's CPU (plain versions;
+     1e-2 of each output's largest magnitude) and set beside the bf16
+     build. flash_sdpa at d=64, bf16 and fp32, is held against its plain
+     version on the inputs of its launches (1e-2, FP32_TOL) and timed as in
+     phase 3 (library: SDPA). The bf16 video build (build_sam3_video_model)
+     tracks 2 objects prompted on frame 0 over SAM3_TRACKED synthetic
+     frames on the cached bank: per tracked frame [video] session A's
+     launches plus 4 d=64 flash_sdpa for the frame's encode; finite masks,
+     frame time and peak memory.
 
 Each phase prints its seconds. The line before the last is the kernels
-JSON (twenty-seven rows), the last {"ok": true, "device": {...}}. Any
+JSON (twenty-nine rows), the last {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero. Imports nothing of JAX and nothing of
 the JAX package.
 """
@@ -287,14 +306,16 @@ class Capture:
     axis), the arguments of its largest call (by the sizes of the first two
     tensors; the latest of equal calls, so a tracked video's last, fullest
     memory bank) as the model modules make it, without changing what runs:
-    args[(name, d)] = (args, kwargs). ``key(name, args)`` may group the
-    calls otherwise, and ``size(name, args)`` rank them otherwise."""
+    args[(name, d)] = (args, kwargs), and the number of calls per key in
+    ``calls``. ``key(name, args)`` may group the calls otherwise, and
+    ``size(name, args)`` rank them otherwise."""
 
     def __init__(self, modules, key=None, size=None):
         self.modules = modules  # [(module, attribute name), ...]
         self.key = key or (lambda name, a: (name, a[0].shape[-1]))
         self.size = size or (lambda name, a: sum(t.numel() for t in a[:2]))
         self.args = {}
+        self.calls = {}  # calls per key
         self.saved = []
 
     def __enter__(self):
@@ -303,6 +324,7 @@ class Capture:
 
             def wrapped(*a, orig_=orig, name_=name, **kw):
                 key = self.key(name_, a)
+                self.calls[key] = self.calls.get(key, 0) + 1
                 prev = self.args.get(key)
                 if prev is None or self.size(name_, a) >= self.size(name_, prev[0]):
                     self.args[key] = (a, kw)
@@ -328,6 +350,18 @@ def bound(nbytes, mma_flops=0.0, exps=0.0, fp32_ops=0.0, int8_ops=0.0, tf32_flop
                                + int8_ops / PEAK_INT8, exps / PEAK_SFU, fp32_ops / PEAK_FP32)}
     by = max(parts, key=parts.get)
     return parts[by] * 1e3, by
+
+
+def attn_bound(q_elems, live_pairs, d, dv=None, kv_elems=0):
+    """fp32 attention: 4-byte operands (q, the output, kv_elems of keys and
+    values) read or written once; the function's own products at the tensor
+    rate for fp32 operands (the kernels' split into three bf16 products is
+    their cost, not the function's), the exponentials, ~6 FMA-pipe
+    operations a score."""
+    dv = d if dv is None else dv
+    nb = 4 * (q_elems + q_elems * dv // d + kv_elems)
+    return bound(nb, exps=1.0 * live_pairs, fp32_ops=6.0 * live_pairs,
+                 tf32_flops=2.0 * live_pairs * (d + dv))
 
 
 def check(name, got, want, tol=ATOL):
@@ -437,6 +471,7 @@ def main():
     reports = _build.build_all()
     log(f"[build] nvcc {sorted(reports)} in {time.perf_counter() - t_build:.2f} s (parallel)")
     for name, rep in reports.items():
+        write_out(f"ptxas_{name}.txt", rep)  # registers, shared memory, spills by kernel
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
@@ -649,11 +684,12 @@ def main():
 
     log(f"[time] phases 1-4 (build, main path, kernels, checks) {time.perf_counter() - t_run:.1f} s")
 
-    # ---------------------------------------------------------------- 5-10
+    # ---------------------------------------------------------------- 5-11
     for name, phase in (("video", lambda: video_phase(smi, rng)), ("train", lambda: train_phase(smi)),
                         ("pcs", lambda: pcs_phase(smi)), ("probe", lambda: [probe_phase(smi)]),
                         ("tracker_train", lambda: tracker_train_phase(smi)),
-                        ("fp32", lambda: fp32_phase(smi, main_ref))):
+                        ("fp32", lambda: fp32_phase(smi, main_ref)),
+                        ("sam3", lambda: sam3_phase(smi, main_ref))):
         t_phase = time.perf_counter()
         rows += phase()
         torch.cuda.empty_cache()
@@ -2359,17 +2395,6 @@ def fp32_phase(smi, main_ref):
         log_row(r, smi)
         return r
 
-    def attn_bound(q_elems, live_pairs, d, dv=None, kv_elems=0):
-        """fp32 attention: 4-byte operands (q, the output, kv_elems of keys
-        and values) read or written once; the function's own products at
-        the tensor rate for fp32 operands (the kernels' split into three
-        bf16 products is their cost, not the function's), the exponentials,
-        ~6 FMA-pipe operations a score."""
-        dv = d if dv is None else dv
-        nb = 4 * (q_elems + q_elems * dv // d + kv_elems)
-        return bound(nb, exps=1.0 * live_pairs, fp32_ops=6.0 * live_pairs,
-                     tf32_flops=2.0 * live_pairs * (d + dv))
-
     rows = []
     # ---------------------------------------------------------------- ground
     t0 = time.perf_counter()
@@ -2770,6 +2795,299 @@ def fp32_phase(smi, main_ref):
     torch.cuda.empty_cache()
     log(f"[fp32] tracker clip part {time.perf_counter() - t0:.1f} s; phase "
         f"{time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
+# the [sam3] phase: the SAM3 teacher (ViTDet ViT-H trunk + CLIP text tower)
+SAM3_SET_IMAGE = {"flash_sdpa": 4}  # the trunk's four global blocks, d=64
+SAM3_TRACKED = 4  # tracked frames after the prompted frame 0
+
+
+def sam3_phase(smi, main_ref):
+    """Phase 11: the SAM3 teacher at full width. The bf16 build through
+    Sam3Processor (launches per set_image and per ground counted, times,
+    a profiler split of encode_image); the default (fp32) build's set_image
+    and ground held against the same model on the host's CPU and set
+    beside the bf16 build; the bf16 video build tracking 2 objects over
+    SAM3_TRACKED frames on the cached bank. Returns the flash_sdpa d=64
+    rows, bf16 and fp32, each held against its plain version."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from efficientsam3_tpu_torch.build import build_sam3_image_model, build_sam3_video_model
+    from efficientsam3_tpu_torch.models import common
+    from efficientsam3_tpu_torch.ops import depthwise as dw
+    from efficientsam3_tpu_torch.ops import flash_attention as fa
+    from efficientsam3_tpu_torch.ops import layer_norm as ln
+    from efficientsam3_tpu_torch.processor import Sam3Processor
+    from efficientsam3_tpu_torch.video.predictor import TrackerPredictor
+
+    dev = torch.device("cuda")
+    counters = {"flash_sdpa": fa, "flash_memattn": fa, "flash_memattn_q8": fa,
+                "flash_xattn_rpb": fa, "layer_norm": ln, "depthwise_conv2d": dw}
+
+    def reset():
+        for name, mod in counters.items():
+            getattr(mod, name).launches = 0
+
+    def counts():
+        return {name: getattr(mod, name).launches for name, mod in counters.items()}
+
+    def expect(what, got, want):
+        want = {k: want.get(k, 0) for k in counters}
+        log(f"[sam3] {what}: launches {got}")
+        if got != want:
+            raise AssertionError(f"[sam3] {what}: launches {got}, want {want}")
+
+    def d64_calls(capture, what):
+        """The trunk's d=64 attentions all go to flash_sdpa (the warm-up's
+        calls by head dim: 4 at d=64 a set_image, 6 at d=32 a ground)."""
+        calls = {d: n for (name, d), n in capture.calls.items() if name == "flash_sdpa"}
+        log(f"[sam3] {what}: flash_sdpa calls by head dim {calls}")
+        if calls != {64: 4, 32: 6}:
+            raise AssertionError(f"[sam3] {what}: flash_sdpa calls by head dim {calls}")
+
+    image, tokens, box = main_ref["image"], main_ref["tokens"], main_ref["box"]
+    rows = []
+
+    def ground_call(proc, state):
+        state["text"] = proc.encode_tokens(tokens)
+        return proc.add_geometric_prompt(box, True, state)
+
+    def d64_row(name, tol, q, k, v, key_bias, scale, launches, device_ms, fp32):
+        got, lse = fa.flash_sdpa(q, k, v, key_bias, scale, return_lse=True)
+        want, want_lse = fa.flash_sdpa_plain(q, k, v, key_bias, scale, return_lse=True)
+        err = max(check(name, got, want, tol), check(f"{name} lse", lse, want_lse, tol))
+        del got, lse, want, want_lse
+        b, h, lq, d = q.shape
+        live = int((key_bias > fa.NEG_INF / 2).sum().item()) * h * lq  # scores, over the batch
+        if fp32:
+            bms, by = attn_bound(q.numel(), live, d, kv_elems=k.numel() + v.numel())
+        else:
+            nb = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * key_bias.numel()
+            bms, by = bound(nb, 4.0 * live * d, 1.0 * live, 6.0 * live)
+        fn = lambda: fa.flash_sdpa(q, k, v, key_bias, scale)  # noqa: E731
+        r = dict(name=name, route="cuda", source="efficientsam3_tpu_torch/csrc/flash_sdpa.cu",
+                 replaces="efficientsam3_tpu/ops/pallas/flash_attention.py:304",
+                 launches=launches, max_abs_err=err, ms=graph_time(fn, 5, 10),
+                 call_ms=cuda_time(fn, 10),
+                 plain_ms=cuda_time(lambda: fa.flash_sdpa_plain(q, k, v, key_bias, scale), 3,
+                                    warmup=1),
+                 bound_ms=bms, bound_by=by,
+                 library_ms=graph_time(
+                     lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 5, 10),
+                 device_ms=device_ms,
+                 shape=f"q/k/v {tuple(q.shape)} {str(q.dtype)[6:]} (v a strided view of the "
+                       f"packed qkv){' split bf16 products' if fp32 else ''}; library = "
+                       f"{'fp32 ' if fp32 else ''}SDPA", **{"pass": True})
+        log_row(r, smi)
+        return r
+
+    def encode_profile(model, img, what, pattern, wall_ms):
+        """torch.profiler split of one encode_image (wall_ms long between
+        CUDA events); device ms a d=64 launch."""
+        kernels, n_launch, total_us = profile_kernels(lambda: model.encode_image(img))
+        if total_us == 0:
+            log(f"[profile] {what}: the profiler recorded no device time: not measured")
+            return None
+        busy = total_us / 1e3 / wall_ms
+        log(f"[profile] {what}: {n_launch} kernel launches, {total_us / 1e3:.3f} ms of device "
+            f"time in a {wall_ms:.3f} ms call: device busy {busy:.1%}, idle {1 - busy:.1%}")
+        for name, us, n in kernels[:10]:
+            log(f"[profile] {what}:   {us / 1e3:8.4f} ms  x{n:<4d} {name[:90]}")
+        write_out(f"profile_{what.replace(' ', '_')}.txt",
+                  "\n".join(f"{us:12.2f} us  x{n:<5d} {name}" for name, us, n in kernels))
+        us = sum(u for name, u, _ in kernels if pattern in name)
+        return us / 1e3 / SAM3_SET_IMAGE["flash_sdpa"] if us else None
+
+    # ---------------------------------------------------------------- bf16 image path
+    t0 = time.perf_counter()
+    model = build_sam3_image_model(text_encoder_context_length=32, dtype=torch.bfloat16,
+                                   device=dev, seed=0)
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    proc = Sam3Processor(model, resolution=1008, context_length=32)
+    capture = Capture([(common, "flash_sdpa")])
+    with capture:  # warm-up: cuBLAS and cuDNN plans, captured inputs
+        ground_call(proc, proc.set_image(image))
+    torch.cuda.synchronize()
+    d64_calls(capture, "bf16 warm-up")
+    reset()
+    state = proc.set_image(image)
+    torch.cuda.synchronize()
+    expect("per set_image (bf16)", counts(), SAM3_SET_IMAGE)
+    reset()
+    state = ground_call(proc, state)
+    torch.cuda.synchronize()
+    expect("per encode_text + ground (bf16)", counts(), MAIN_COUNTS)
+    h0, w0 = image.shape[:2]
+    if state["masks"].shape[1:] != (h0, w0):
+        raise AssertionError(f"[sam3] masks {state['masks'].shape} not at {h0}x{w0}")
+    for key in ("scores", "boxes", "masks_logits"):
+        if not np.isfinite(state[key]).all():
+            raise AssertionError(f"[sam3] non-finite {key}")
+    img = proc.preprocess(image)
+    tm, tmask = state["text"]
+    prompt = state["geometric_prompt"]
+    with torch.inference_mode():
+        set_ms = cuda_time(lambda: proc.set_image(image), 5, warmup=1)
+        enc_ms = cuda_time(lambda: model.encode_image(img), 5, warmup=1)
+        text_ms = cuda_time(lambda: proc.encode_tokens(tokens), 10)
+        feats = model.encode_image(img)
+        ground = lambda: model.ground(feats["fpn"], feats["pos"], tm, tmask, prompt)  # noqa: E731
+        ground_ms = cuda_time(ground, 10)
+        res = ground()
+        b16 = {k: res[k].float().cpu() for k in GROUND_KEYS}
+    whole_ms = cuda_time(lambda: ground_call(proc, proc.set_image(image)), 5, warmup=1)
+    torch.cuda.reset_peak_memory_stats()
+    ground_call(proc, proc.set_image(image))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[sam3] bf16 teacher ({n_params / 1e6:.1f} M parameters, built in {build_s:.1f} s): "
+        f"set_image {set_ms:.3f} ms (encode_image {enc_ms:.3f}) | encode_text (context 32, "
+        f"once) {text_ms:.3f} ms | ground {ground_ms:.3f} ms | whole call (set_image + encode "
+        f"text + add_geometric_prompt) {whole_ms:.3f} ms | peak memory {peak:.2f} GiB | kept "
+        f"{len(state['scores'])} of 200 queries | {smi}")
+    dev_b16 = encode_profile(model, img, "sam3 encode_image", "flash_sdpa_fwd_kernel<64, __nv_bf",
+                             enc_ms)
+    (q, k, v, key_bias, scale), _ = capture.args[("flash_sdpa", 64)]
+    del capture, feats, state, proc, model, res
+    torch.cuda.empty_cache()
+    rows.append(d64_row("flash_sdpa_d64", ATOL, q, k, v, key_bias, scale,
+                        SAM3_SET_IMAGE["flash_sdpa"], dev_b16, False))
+    del q, k, v, key_bias
+    torch.cuda.empty_cache()
+    log(f"[sam3] bf16 image part {time.perf_counter() - t0:.1f} s")
+
+    # ---------------------------------------------------------------- fp32 default build
+    t0 = time.perf_counter()
+    model = build_sam3_image_model(text_encoder_context_length=32, device=dev, seed=0)
+    if {p.dtype for p in model.parameters()} != {torch.float32}:
+        raise AssertionError("[sam3] the default build is not fp32")
+    proc = Sam3Processor(model, resolution=1008, context_length=32)
+    capture = Capture([(common, "flash_sdpa")])
+    with capture:
+        ground_call(proc, proc.set_image(image))
+    torch.cuda.synchronize()
+    d64_calls(capture, "fp32 warm-up")
+    reset()
+    state = proc.set_image(image)
+    torch.cuda.synchronize()
+    expect("per set_image (fp32)", counts(), SAM3_SET_IMAGE)
+    reset()
+    state = ground_call(proc, state)
+    torch.cuda.synchronize()
+    expect("per encode_text + ground (fp32)", counts(), MAIN_COUNTS)
+    img = proc.preprocess(image)
+    prompt = state["geometric_prompt"]
+    with torch.inference_mode():
+        set_ms = cuda_time(lambda: proc.set_image(image), 3, warmup=1)
+        enc_ms = cuda_time(lambda: model.encode_image(img), 3, warmup=1)
+        feats = model.encode_image(img)
+        tm, tmask = state["text"]
+        ground_ms = cuda_time(lambda: model.ground(feats["fpn"], feats["pos"], tm, tmask,
+                                                   prompt), 5)
+        res = model.ground(feats["fpn"], feats["pos"], tm, tmask, prompt)
+        out = {k: res[k].float().cpu() for k in GROUND_KEYS}
+    log(f"[sam3] fp32 teacher: set_image {set_ms:.3f} ms (encode_image {enc_ms:.3f}) | ground "
+        f"{ground_ms:.3f} ms | {smi}")
+    dev_f32 = encode_profile(model, img, "sam3 fp32 encode_image",
+                             "flash_sdpa_fwd_kernel<64, float>", enc_ms)
+
+    # the same model in fp32 on the host's CPU (the plain versions), text included
+    cpu_model = build_sam3_image_model(text_encoder_context_length=32, device="meta")
+    cpu_model = cpu_model.to_empty(device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    t_cpu = time.perf_counter()
+    with torch.inference_mode():
+        cf = cpu_model.encode_image(img.cpu())
+        ctm, ctmask = cpu_model.encode_text(torch.as_tensor(tokens))
+        ref = cpu_model.ground(cf["fpn"], cf["pos"], ctm, ctmask, prompt.to("cpu"))
+    cpu_s = time.perf_counter() - t_cpu
+    errs = {}
+    for key in GROUND_KEYS:
+        want = ref[key].float()
+        errs[key] = (out[key] - want).abs().max().item() / max(1.0, want.abs().max().item())
+    log(f"[sam3] fp32 set_image + ground on the card vs the CPU (plain versions, {cpu_s:.1f} s), "
+        f"max abs err over max(1, |largest|): { {k: f'{v:.2e}' for k, v in errs.items()} } "
+        f"(bound 1e-2)")
+    if not all(e <= 1e-2 for e in errs.values()):
+        raise AssertionError(f"[sam3] fp32 teacher on the card drifts from the CPU: {errs}")
+    del cpu_model, cf, ref, ctm, ctmask
+
+    # the bf16 build against this fp32 reference
+    s32 = torch.sigmoid(out["pred_logits"][0, :, 0])
+    s16 = torch.sigmoid(b16["pred_logits"][0, :, 0])
+    l32, l16 = out["pred_masks"][0], b16["pred_masks"][0]
+    m32, m16 = l32 > 0, l16 > 0
+    union = (m32 | m16).flatten(1).sum(1).float()
+    iou = (m32 & m16).flatten(1).sum(1).float()[union > 0] / union[union > 0]
+    top = len(set(torch.topk(s32, 10).indices.tolist()) & set(torch.topk(s16, 10).indices.tolist()))
+    log(f"[sam3] bf16 build vs fp32 build, ground on the same image and prompt (200 queries): "
+        f"scores max abs diff {(s32 - s16).abs().max().item():.4f}; boxes max abs diff "
+        f"{(out['pred_boxes'] - b16['pred_boxes']).abs().max().item():.4f}; mask logits max abs "
+        f"diff {(l32 - l16).abs().max().item():.4f} of {l32.abs().max().item():.4f}, signs agree "
+        f"on {(m32 == m16).float().mean().item():.4%} of pixels; mask IoU over the {len(iou)} "
+        f"non-empty pairs: mean {iou.mean().item() if len(iou) else float('nan'):.4f}; top-10 "
+        f"queries shared {top} of 10")
+    (q, k, v, key_bias, scale), _ = capture.args[("flash_sdpa", 64)]
+    del capture, feats, state, proc, model, res
+    torch.cuda.empty_cache()
+    rows.append(d64_row("flash_sdpa_d64_fp32", FP32_TOL, q, k, v, key_bias, scale,
+                        SAM3_SET_IMAGE["flash_sdpa"], dev_f32, True))
+    del q, k, v, key_bias
+    torch.cuda.empty_cache()
+    log(f"[sam3] fp32 image part {time.perf_counter() - t0:.1f} s")
+
+    # ---------------------------------------------------------------- video
+    t0 = time.perf_counter()
+    image_m, core = build_sam3_video_model(text_encoder_context_length=32, dtype=torch.bfloat16,
+                                           device=dev, seed=0)
+    frames = np.random.default_rng(7).standard_normal(
+        (SAM3_TRACKED + 1, 1008, 1008, 3)).astype(np.float32)
+    pred = TrackerPredictor(core, image_m.encode_image, obj_slots=8)
+    st = pred.init_state(frames)
+    for obj_id, kw in ((1, dict(box=[100, 150, 400, 520])),
+                       (2, dict(points=[[700, 300]], labels=[1]))):
+        pred.add_new_points_or_box(st, 0, obj_id, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    capture = Capture([(common, "flash_sdpa")])
+    reset()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    with capture:
+        outs = [m.float() for _, _, m in pred.propagate_in_video(st)]
+    e1.record()
+    e1.synchronize()
+    prop_ms = e0.elapsed_time(e1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {k: n * SAM3_TRACKED for k, n in VIDEO_COUNTS["A"].items()}
+    want["flash_sdpa"] += SAM3_SET_IMAGE["flash_sdpa"] * SAM3_TRACKED  # each frame's encode
+    expect(f"{SAM3_TRACKED} tracked frames (cached bank)", counts(), want)
+    calls = {d: n for (_, d), n in capture.calls.items()}
+    if calls != {64: 4 * SAM3_TRACKED, 256: 4 * SAM3_TRACKED}:
+        raise AssertionError(f"[sam3] video: flash_sdpa calls by head dim {calls}")
+    if "kv_bank" not in st:
+        raise AssertionError("[sam3] the session did not build the cached bank")
+    for m in outs:
+        if tuple(m.shape) != (2, 1, 288, 288) or not torch.isfinite(m).all():
+            raise AssertionError(f"[sam3] tracker masks {tuple(m.shape)} or non-finite")
+
+    def track_frame():  # the tracker step again at the last frame, its features cached
+        with torch.inference_mode():
+            return pred._run_track_frame(st, SAM3_TRACKED)
+
+    step_ms = cuda_time(track_frame, 3, warmup=1)
+    img = torch.as_tensor(frames[0], device=dev)[None]
+    with torch.inference_mode():
+        enc_ms = cuda_time(lambda: image_m.encode_image(img), 3, warmup=1)
+    log(f"[sam3] video: {SAM3_TRACKED} tracked frames (2 objects, 8 slots) in {prop_ms:.3f} ms, "
+        f"{prop_ms / SAM3_TRACKED:.3f} ms a frame with its encode (frame encode {enc_ms:.3f} ms, "
+        f"tracker step {step_ms:.3f} ms); masks finite; peak memory {peak:.2f} GiB | {smi}")
+    del pred, st, outs, capture, image_m, core
+    torch.cuda.empty_cache()
+    log(f"[sam3] video part {time.perf_counter() - t0:.1f} s")
     return rows
 
 

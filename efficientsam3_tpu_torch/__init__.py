@@ -5,8 +5,9 @@ against; nothing here imports it, nor JAX. The layout mirrors the JAX
 package module for module, so each file has a counterpart at the same path:
 
   models/    nn.Module definitions (trunk, neck, text tower, geometry,
-             fusion encoder, decoder, seg head, the image model; the SAM
-             heads, memory attention and memory encoder of the tracker)
+             fusion encoder, decoder, seg head, the image model; the SAM3
+             teacher's ViTDet trunk and CLIP text tower; the SAM heads,
+             memory attention and memory encoder of the tracker)
   video/     the tracker core and the VOS predictor
   train/     Stage-3 training: step, optimizer, losses, matcher, trainer
   ops/       torch-parity resize / roi_align / grid_sample, focal loss, box

@@ -2,8 +2,9 @@
 
 Counterpart of efficientsam3_tpu/build.py for the image model with an
 EfficientViT student trunk (S/M = b0/b1) and the MobileCLIP-S0 text tower,
-and for the video model: that image model with the SAM2 neck, plus the
-tracker core.
+for the SAM3 teacher (ViTDet ViT-H trunk and the CLIP text tower), and for
+the video models: each image model with the SAM2 neck, plus the tracker
+core.
 Parameters are drawn from a seeded ``torch.Generator`` (no released
 weights are in the repository); ``utils/convert.py`` carries weights over
 from the JAX package's variables instead.
@@ -11,6 +12,7 @@ from the JAX package's variables instead.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Union
 
@@ -23,6 +25,7 @@ from efficientsam3_tpu_torch.models.efficientvit import (
 )
 from efficientsam3_tpu_torch.models.sam3_image import Sam3ImageModel
 from efficientsam3_tpu_torch.models.student_encoder import ImageStudentEncoder
+from efficientsam3_tpu_torch.models.vitdet import ViTTrunk
 from efficientsam3_tpu_torch.video.tracker import TrackerCore, init_tracker_parameters
 
 SIZE_ALIASES = {("efficientvit", "s"): "b0", ("efficientvit", "m"): "b1"}
@@ -136,4 +139,49 @@ def build_efficientsam3_video_model(
         seed=seed)
     core = init_tracker_parameters(
         TrackerCore(image_size=embed_size * 14, backbone_stride=14, dtype=dtype), seed)
+    return image_model, core.requires_grad_(False).eval().to(device)
+
+
+def build_sam3_image_model(
+    text_encoder_context_length: int = 77,
+    enable_inst_interactivity: bool = False,
+    dtype: Optional[torch.dtype] = None,
+    device: Optional[Union[str, torch.device]] = None,
+    seed: int = 0,
+) -> Sam3ImageModel:
+    """The SAM3 teacher: ViTDet ViT-H trunk (1008^2 -> 72x72x1024) and the
+    24-layer CLIP text tower, seeded random weights, in eval mode with
+    gradients off on ``device`` (default cuda). The trunk runs in eval mode
+    only. On the ``meta`` device the module is built without storage or
+    initialisation (its key map and shapes only)."""
+    device = resolve_device(device)
+    meta = device.type == "meta"
+    with torch.device("meta") if meta else contextlib.nullcontext():
+        model = Sam3ImageModel(
+            trunk=ViTTrunk(dtype=dtype), text_encoder_type=None,
+            text_context_length=text_encoder_context_length,
+            add_sam2_neck=enable_inst_interactivity, dtype=dtype)
+    if not meta:
+        init_parameters(model, seed)
+    return model.requires_grad_(False).eval().to(device)
+
+
+def build_sam3_video_model(
+    text_encoder_context_length: int = 77,
+    dtype: Optional[torch.dtype] = None,
+    device: Optional[Union[str, torch.device]] = None,
+    seed: int = 0,
+) -> tuple[Sam3ImageModel, TrackerCore]:
+    """(image_model, tracker_core) of the SAM3 teacher for video: the
+    teacher image model with the SAM2 neck and a TrackerCore at 1008^2
+    (72x72 tokens at stride 14), seeded random weights from ``seed``, in
+    eval mode on ``device`` (default cuda). Wire them with
+    ``video.predictor.TrackerPredictor(tracker_core, image_model.encode_image)``.
+    """
+    device = resolve_device(device)
+    image_model = build_sam3_image_model(
+        text_encoder_context_length, enable_inst_interactivity=True, dtype=dtype,
+        device=device, seed=seed)
+    core = init_tracker_parameters(
+        TrackerCore(image_size=1008, backbone_stride=14, dtype=dtype), seed)
     return image_model, core.requires_grad_(False).eval().to(device)

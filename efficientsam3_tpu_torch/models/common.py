@@ -457,27 +457,35 @@ class MultiheadAttention(nn.Module):
         self.v_proj = Dense(embed_dim, embed_dim, dtype=dtype)
         self.out_proj = Dense(embed_dim, embed_dim, dtype=dtype)
 
-    def forward(self, q, k, v, key_padding_mask=None, rpb=None):
-        """key_padding_mask: (B, Nk) bool, True = PAD. rpb: the decomposed
-        boxRPB bias (ey, ex, (h, w)); on CUDA in eval mode it runs on the
-        flash_xattn_rpb kernel, otherwise (the CPU, or training: the kernel
-        is forward-only, as the JAX decoder's rpb_kernel=not train) the
-        full bias is built for the matmul path."""
+    def forward(self, q, k, v, key_padding_mask=None, rpb=None, attn_mask=None):
+        """key_padding_mask: (B, Nk) bool, True = PAD. attn_mask: an
+        additive float bias (..., Nq, Nk), or a bool mask with True =
+        masked, combined with key_padding_mask (the teacher text tower's
+        causal mask). rpb: the decomposed boxRPB bias (ey, ex, (h, w)); on
+        CUDA in eval mode it runs on the flash_xattn_rpb kernel, otherwise
+        (the CPU, or training: the kernel is forward-only, as the JAX
+        decoder's rpb_kernel=not train) the full bias is built for the
+        matmul path."""
         qh = split_heads(self.q_proj(q), self.num_heads)
         kh = split_heads(self.k_proj(k), self.num_heads)
         vh = split_heads(self.v_proj(v), self.num_heads)
-        mask = None if key_padding_mask is None else ~key_padding_mask[:, None, None, :]
-        bias = None
         if rpb is not None:
-            if key_padding_mask is not None:
-                raise ValueError("rpb attention takes no key padding mask")
+            if key_padding_mask is not None or attn_mask is not None:
+                raise ValueError("rpb attention takes no other mask")
             ey, ex, feat_hw = rpb
             if qh.is_cuda and not self.training:
                 out = flash_xattn_rpb(qh, kh, vh, ey, ex, feat_hw,
                                       1.0 / math.sqrt(qh.shape[-1]))
                 return self.out_proj(merge_heads(out))
-            bias = (ey[..., :, None] + ex[..., None, :]).reshape(
+            attn_mask = (ey[..., :, None] + ex[..., None, :]).reshape(
                 *ey.shape[:3], feat_hw[0] * feat_hw[1])
+        mask = None if key_padding_mask is None else ~key_padding_mask[:, None, None, :]
+        bias = None
+        if attn_mask is not None:
+            if attn_mask.dtype == torch.bool:
+                mask = ~attn_mask if mask is None else mask & ~attn_mask
+            else:
+                bias = attn_mask
         out = sdpa(qh, kh, vh, mask=mask, bias=bias)
         return self.out_proj(merge_heads(out))
 
@@ -513,15 +521,16 @@ class Attention(nn.Module):
 
 
 def compute_axial_rope_cos_sin(dim: int, end_x: int, end_y: int, theta: float = 10000.0,
-                               device=None):
+                               device=None, scale_pos: float = 1.0):
     """Axial rope tables (cos, sin), each (end_x * end_y, dim // 2): the
-    first dim // 4 frequency slots encode x, the rest y."""
+    first dim // 4 frequency slots encode x, the rest y. ``scale_pos``
+    scales the positions (ViTDet's interpolation to its pretraining grid)."""
     quarter = dim // 4
     freqs = 1.0 / (theta ** (torch.arange(0, quarter, dtype=torch.float32, device=device)
                              * 4.0 / dim))
     t = torch.arange(end_x * end_y, dtype=torch.float32, device=device)
-    t_x = t % end_x
-    t_y = torch.floor(t / end_x)
+    t_x = (t % end_x) * scale_pos
+    t_y = torch.floor(t / end_x) * scale_pos
     ang = torch.cat([torch.outer(t_x, freqs), torch.outer(t_y, freqs)], dim=-1)
     return torch.cos(ang), torch.sin(ang)
 

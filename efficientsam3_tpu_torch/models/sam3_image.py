@@ -1,10 +1,12 @@
 """EfficientSAM3 image PCS model: trunk -> neck -> fusion -> decoder -> heads.
 
 Counterpart of efficientsam3_tpu/models/sam3_image.py with the same three
-entry methods and outputs: ``encode_image`` (FPN levels after scalp=1,
-NHWC, and their sine position embeddings), ``encode_text`` (text memory and
-pad mask) and ``ground`` (geometry encoder, fusion encoder, decoder,
-scoring, boxes and masks).
+entry methods and outputs, over a student trunk with the MobileCLIP-S0
+tower (EfficientSAM3) or the ViTDet trunk with the CLIP tower
+(``text_encoder_type=None``: the SAM3 teacher): ``encode_image`` (FPN
+levels after scalp=1, NHWC, and their sine position embeddings),
+``encode_text`` (text memory and pad mask) and ``ground`` (geometry
+encoder, fusion encoder, decoder, scoring, boxes and masks).
 
 Training is the module's training mode (``model.train()``), the JAX
 ``train=True``: BatchNorm takes batch statistics, dropout is on, the
@@ -32,6 +34,7 @@ from efficientsam3_tpu_torch.models.geometry import Prompt, SequenceGeometryEnco
 from efficientsam3_tpu_torch.models.mobile_clip import TextStudentEncoder
 from efficientsam3_tpu_torch.models.necks import DualFPNNeck
 from efficientsam3_tpu_torch.models.seg_head import UniversalSegmentationHead
+from efficientsam3_tpu_torch.models.text_encoder import VETextEncoder
 
 
 class Sam3ImageModel(nn.Module):
@@ -41,18 +44,22 @@ class Sam3ImageModel(nn.Module):
                  text_context_length: int = 77, d_model: int = 256, num_queries: int = 200,
                  add_sam2_neck: bool = False, fusion_layers: int = 6, decoder_layers: int = 6,
                  trunk_dim: int = 1024, dropout: float = 0.1,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, text_tower: Optional[dict] = None):
+        """text_encoder_type None builds the teacher's ``VETextEncoder``;
+        ``text_tower`` overrides its width, heads and layers (small test
+        configs)."""
         super().__init__()
-        if text_encoder_type is None:
-            raise NotImplementedError(
-                "the teacher CLIP text tower is not ported yet (ROADMAP Queue 1 item 16)")
         self.d_model = d_model
         self.num_queries = num_queries
         self.text_context_length = text_context_length
         self.trunk = trunk
         self.neck = DualFPNNeck(trunk_dim, d_model, add_sam2_neck=add_sam2_neck, dtype=dtype)
-        self.text_encoder = TextStudentEncoder(text_encoder_type, text_context_length,
-                                               d_model, dtype=dtype)
+        if text_encoder_type is None:
+            self.text_encoder = VETextEncoder(d_model, text_context_length, dtype=dtype,
+                                              **(text_tower or {}))
+        else:
+            self.text_encoder = TextStudentEncoder(text_encoder_type, text_context_length,
+                                                   d_model, dtype=dtype)
         self.geometry_encoder = SequenceGeometryEncoder(d_model=d_model, dropout=dropout,
                                                         dtype=dtype)
         self.fusion_encoder = FusionEncoder(fusion_layers, d_model, dropout=dropout, dtype=dtype)

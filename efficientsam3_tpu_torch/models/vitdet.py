@@ -1,0 +1,149 @@
+"""SAM3 teacher trunk (ViTDet ViT-H), NHWC.
+
+Counterpart of efficientsam3_tpu/models/vitdet.py: patch embedding 14x14
+with stride 14 and no bias (72x72 tokens at 1008^2), the absolute position
+embedding of the 24x24 pretraining grid (its cls slot dropped) tiled over
+the token grid, ``ln_pre``, then 32 pre-LN blocks, width 1024, 16 heads of
+64, MLP 4.625x (4736 wide, exact GELU), window 24 with global attention at
+blocks (7, 15, 23, 31), and axial 2D RoPE on q and k interpolated to the
+24-token pretraining grid (the JAX ``axial_rope_cos_sin`` and
+``apply_rope_pairs`` are ``common.compute_axial_rope_cos_sin`` with its
+``scale_pos`` and ``common.apply_rope``).
+
+Windowed blocks attend 9 windows of 576 tokens on the matmul path; the
+global blocks' (1, 16, 5184, 64) attention passes ``common.sdpa``'s
+threshold and runs on the ``flash_sdpa`` kernel at d=64 on CUDA. The norms
+are the port's plain ``LayerNorm`` (flax ``nn.LayerNorm``: fp32 out), so
+the residual stream stays fp32 under a bf16 ``dtype``, as in JAX.
+
+Inference only: the JAX trunk's training mode (DropPath, per-block remat)
+is not ported, and ``flash_sdpa`` has no d=64 backward; in training mode
+the trunk raises.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from efficientsam3_tpu_torch.models.common import (
+    Conv,
+    Dense,
+    LayerNorm,
+    apply_rope,
+    compute_axial_rope_cos_sin,
+    gelu_exact,
+    sdpa,
+)
+
+ROPE_PT_SIZE = 24  # the RoPE pretraining grid, fixed in JAX's ViTAttention
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_tables(head_dim: int, grid: int, scale_pos: float, device: torch.device):
+    """The tables of a (grid x grid) attention, built once per head dim,
+    grid, scale and device (plain tensors even under inference mode)."""
+    with torch.inference_mode(False):
+        return compute_axial_rope_cos_sin(head_dim, grid, grid, 10000.0, device, scale_pos)
+
+
+class ViTAttention(nn.Module):
+    """Packed-qkv attention with axial RoPE over a square token grid.
+
+    The RoPE positions are scaled by ``ROPE_PT_SIZE / grid`` (grid = the
+    input's side: the window in windowed blocks, the whole map in global
+    ones), as in JAX, where the trunk's ``pretrain_grid`` does not reach
+    it."""
+
+    def __init__(self, dim: int, num_heads: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dim = dim
+        self.num_heads = num_heads
+        self.qkv = Dense(dim, 3 * dim, dtype=dtype)
+        self.proj = Dense(dim, dim, dtype=dtype)
+
+    def forward(self, x):
+        """x (B, S, S, C) -> same."""
+        b, h, w, _ = x.shape
+        if h != w:
+            raise ValueError(f"ViTAttention takes a square grid, got {h}x{w}")
+        hd = self.dim // self.num_heads
+        qkv = self.qkv(x).reshape(b, h * w, 3, self.num_heads, hd).permute(2, 0, 3, 1, 4)
+        q, k, v = qkv[0], qkv[1], qkv[2]  # v stays a strided view: the kernel reads it in place
+        cos, sin = _rope_tables(hd, h, ROPE_PT_SIZE / h, x.device)
+        out = sdpa(apply_rope(q, cos, sin), apply_rope(k, cos, sin), v)
+        return self.proj(out.transpose(1, 2).reshape(b, h, w, self.dim))
+
+
+class ViTBlock(nn.Module):
+    """Pre-LN block: (windowed or global) attention + MLP."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float, window_size: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.window_size = window_size  # 0 = global
+        self.norm1 = LayerNorm(dim, 1e-5)
+        self.attn = ViTAttention(dim, num_heads, dtype=dtype)
+        self.norm2 = LayerNorm(dim, 1e-5)
+        self.mlp_fc1 = Dense(dim, int(dim * mlp_ratio), dtype=dtype)
+        self.mlp_fc2 = Dense(int(dim * mlp_ratio), dim, dtype=dtype)
+
+    def forward(self, x):
+        b, h, w, c = x.shape
+        shortcut = x
+        x = self.norm1(x)
+        ws = self.window_size
+        if ws > 0:
+            if h % ws or w % ws:
+                raise ValueError(f"a {h}x{w} token grid does not split into {ws}x{ws} windows")
+            nh, nw = h // ws, w // ws
+            xw = x.reshape(b, nh, ws, nw, ws, c).permute(0, 1, 3, 2, 4, 5)
+            xw = self.attn(xw.reshape(b * nh * nw, ws, ws, c))
+            x = xw.reshape(b, nh, nw, ws, ws, c).permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, c)
+        else:
+            x = self.attn(x)
+        x = shortcut + x
+        return x + self.mlp_fc2(gelu_exact(self.mlp_fc1(self.norm2(x))))
+
+
+class ViTTrunk(nn.Module):
+    """images (B, H, W, 3) -> (B, H/14, W/14, embed_dim) final feature map."""
+
+    def __init__(self, patch_size: int = 14, embed_dim: int = 1024, depth: int = 32,
+                 num_heads: int = 16, mlp_ratio: float = 4.625, window_size: int = 24,
+                 global_att_blocks: Sequence[int] = (7, 15, 23, 31), pretrain_grid: int = 24,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.patch_size = patch_size
+        self.embed_dim = embed_dim
+        self.pretrain_grid = pretrain_grid
+        self.patch_embed = Conv(3, embed_dim, patch_size, stride=patch_size, bias=False,
+                                dtype=dtype)
+        self.pos_embed = nn.Parameter(torch.empty(pretrain_grid * pretrain_grid + 1, embed_dim))
+        self.ln_pre = LayerNorm(embed_dim, 1e-5)
+        self.blocks = nn.ModuleList(
+            ViTBlock(embed_dim, num_heads, mlp_ratio,
+                     0 if i in global_att_blocks else window_size, dtype=dtype)
+            for i in range(depth))
+
+    def forward(self, x):
+        if self.training:
+            raise NotImplementedError(
+                "ViTTrunk runs in eval mode only: its training mode (DropPath, per-block remat, "
+                "the d=64 flash_sdpa backward) is ROADMAP Queue 1 item 18")
+        if x.shape[1] % self.patch_size or x.shape[2] % self.patch_size:
+            raise ValueError(f"image sides {tuple(x.shape[1:3])} are not multiples of the "
+                             f"{self.patch_size}-pixel patch")
+        x = self.patch_embed(x)
+        h, w = x.shape[1:3]
+        pg = self.pretrain_grid
+        grid_pos = self.pos_embed[1:].reshape(pg, pg, -1)
+        if (h, w) != (pg, pg):
+            grid_pos = grid_pos.repeat(-(-h // pg), -(-w // pg), 1)[:h, :w]
+        x = self.ln_pre(x + grid_pos[None])
+        for blk in self.blocks:
+            x = blk(x)
+        return x

@@ -3,9 +3,10 @@
 ``flash_sdpa`` replaces the Pallas ``flash_sdpa`` forward
 (efficientsam3_tpu/ops/pallas/flash_attention.py ``_flash_fwd`` /
 ``_kernel`` and ``_flash_fwd_packed`` / ``_packed_kernel``) at head dims 32
-(the fusion encoder) and 256 (the tracker's memory attention), and at both
-head dims its custom VJP (``_flash_bwd``: ``_bwd_dq_kernel`` and
-``_bwd_dkv_kernel``) through ``flash_sdpa_bwd_dq`` / ``flash_sdpa_bwd_dkv``;
+(the fusion encoder), 64 (the SAM3 teacher's ViTDet global blocks) and 256
+(the tracker's memory attention), and at 32 and 256 its custom VJP
+(``_flash_bwd``: ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``) through
+``flash_sdpa_bwd_dq`` / ``flash_sdpa_bwd_dkv``;
 ``flash_memattn`` replaces ``flash_memattn`` / ``_memattn_kernel`` and
 ``_memattn_kernel_lse`` (the tracker's cached memory bank, raw dv = 64
 values); ``flash_memattn_q8`` replaces ``flash_memattn_q8`` /
@@ -49,8 +50,10 @@ import torch
 from efficientsam3_tpu_torch.ops import _build
 
 NEG_INF = -1e9
-_SUPPORTED_D = (32, 256)
-_BWD_D = (32, 256)  # head dims of the backward kernels (fusion encoder, memory attention)
+_SUPPORTED_D = (32, 64, 256)
+# head dims of the backward kernels (fusion encoder, memory attention); no JAX
+# path trains a ViT trunk, so d=64 is forward only
+_BWD_D = (32, 256)
 _MEMATTN_DIMS = ((256, 64),)  # (dk, dv) of flash_memattn's kernel
 _BK = 64  # key tile of the CUDA kernels (attn_common.cuh BK)
 _BQ = 64  # query tile (attn_common.cuh BQ)
@@ -117,7 +120,8 @@ def _check_heads(name, dims, *ts):
 def sdpa_kernel(dtype, d):
     """The forward kernel a CUDA ``flash_sdpa`` call launches: the wgmma
     kernel (csrc/flash_sdpa_h.cu) for bf16 at d=32, else the mma.sync
-    kernels of csrc/flash_sdpa.cu (fp32 at d=32, both dtypes at d=256)."""
+    kernels of csrc/flash_sdpa.cu (fp32 at d=32, both dtypes at d=64 and
+    d=256)."""
     return "flash_sdpa_h" if (dtype == torch.bfloat16 and d == 32) else "flash_sdpa"
 
 
@@ -237,7 +241,8 @@ def flash_sdpa(q, k, v, key_bias, sm_scale=None, return_lse=False):
     in q.dtype, and the (B, H, Lq) f32 log-sum-exp with return_lse. When autograd
     records the call (grad mode on, an input requiring a gradient) it runs
     as ``_FlashSdpaFn``, whose backward is the dq and dkv kernels (head dims
-    32 and 256); CPU tensors are differentiated through the plain version.
+    32 and 256; d=64 raises here, at the forward); CPU tensors are
+    differentiated through the plain version.
     """
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])

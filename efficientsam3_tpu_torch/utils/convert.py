@@ -20,6 +20,13 @@ flax ``nn.ConvTranspose`` kernels (2, 2, in, out) land in
 ``ConvTranspose2x``'s (out, in, 2, 2) weight, whose forward reads them as
 flax does (tests/test_torch_tracker_modules.py holds it).
 
+The SAM3 teacher's tree needs no rule of its own: ``blocks_<i>`` and
+``resblocks_<i>`` are ModuleList entries, the text blocks' ``ln_1`` /
+``ln_2`` walk to the ModuleDict entries ``ln.1`` / ``ln.2``, and the raw
+parameters (``pos_embed``, ``positional_embedding``, ``text_projection``)
+keep their names and layouts. ``converted_shapes`` runs the same walk over
+shapes only (``jax.eval_shape`` of a full-size ``init``).
+
 ``load_jax_variables`` loads the result with ``strict=True`` after
 checking that no key is left over or missing on either side and that
 every shape agrees, and fails loudly otherwise. Loading a released
@@ -53,36 +60,55 @@ def _module_path(names):
     return out
 
 
-def _convert_leaf(collection: str, leaf: str, arr: np.ndarray):
+def _leaf_rule(collection: str, leaf: str, ndim: int):
+    """(port leaf name, axis permutation or None) of a flax leaf."""
     if collection == "params":
         if leaf == "kernel":
-            if arr.ndim == 2:
-                return "weight", arr.T
-            if arr.ndim == 4:
-                return "weight", arr.transpose(3, 2, 0, 1)
-            raise ValueError(f"kernel of rank {arr.ndim}")
+            if ndim == 2:
+                return "weight", (1, 0)
+            if ndim == 4:
+                return "weight", (3, 2, 0, 1)
+            raise ValueError(f"kernel of rank {ndim}")
         if leaf in ("scale", "embedding"):
-            return "weight", arr
-        return leaf, arr
+            return "weight", None
+        return leaf, None
     if collection == "batch_stats":
         names = {"mean": "running_mean", "var": "running_var"}
         if leaf not in names:
             raise KeyError(f"batch_stats leaf {leaf!r}")
-        return names[leaf], arr
+        return names[leaf], None
     raise KeyError(f"variable collection {collection!r} has no port counterpart")
+
+
+def _walk(variables: Mapping):
+    """(state_dict key, flax leaf, axis permutation or None) of every leaf."""
+    seen = set()
+    for collection, tree in variables.items():
+        for path, value in _flatten(tree):
+            name, axes = _leaf_rule(collection, path[-1], len(value.shape))
+            key = ".".join(_module_path(path[:-1]) + [name])
+            if key in seen:
+                raise KeyError(f"two variables map to {key}")
+            seen.add(key)
+            yield key, value, axes
 
 
 def convert_variables(variables: Mapping) -> dict:
     """flax variables -> {state_dict key: float32 numpy array}."""
     out = {}
-    for collection, tree in variables.items():
-        for path, value in _flatten(tree):
-            name, arr = _convert_leaf(collection, path[-1], np.asarray(value, np.float32))
-            key = ".".join(_module_path(path[:-1]) + [name])
-            if key in out:
-                raise KeyError(f"two variables map to {key}")
-            out[key] = np.ascontiguousarray(arr)
+    for key, value, axes in _walk(variables):
+        arr = np.asarray(value, np.float32)
+        out[key] = np.ascontiguousarray(arr if axes is None else arr.transpose(axes))
     return out
+
+
+def converted_shapes(variables: Mapping) -> dict:
+    """{state_dict key: shape} of flax variables or of their shapes (any
+    leaf with ``.shape``, e.g. ``jax.eval_shape`` of an ``init``): the walk
+    of ``convert_variables`` without touching data, for full-size models."""
+    return {key: tuple(value.shape) if axes is None
+            else tuple(value.shape[a] for a in axes)
+            for key, value, axes in _walk(variables)}
 
 
 def load_jax_variables(model: torch.nn.Module, variables: Mapping) -> torch.nn.Module:

@@ -169,19 +169,20 @@ def test_layer_norm_kernel_matches_plain(cuda, x_dtype, out_dtype, rows):
 @pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_take(cuda):
     """bf16 and fp32 are taken (the fp32 tests below); fp16, and operands
-    of mixed dtypes, raise naming both accepted types; so do head dims and
-    kernel sizes the kernels were not built for."""
+    of mixed dtypes, raise naming both accepted types; so do head dims (80:
+    the vit_h student's, not yet ported) and kernel sizes the kernels were
+    not built for."""
     q16 = _randn(cuda, 1, 2, 16, 32, dtype=torch.float16)
     with pytest.raises(TypeError, match="bfloat16 or float32"):
         fa.flash_sdpa(q16, q16, q16, torch.zeros((1, 16), device=cuda))
     q = _randn(cuda, 1, 2, 16, 32)
     with pytest.raises(TypeError, match="all of one dtype"):
         fa.flash_sdpa(q, q.float(), q, torch.zeros((1, 16), device=cuda))
-    q64 = _randn(cuda, 1, 2, 16, 64)
+    q80 = _randn(cuda, 1, 2, 16, 80)
     with pytest.raises(ValueError, match="head dims"):
-        fa.flash_sdpa(q64, q64, q64, torch.zeros((1, 16), device=cuda))
+        fa.flash_sdpa(q80, q80, q80, torch.zeros((1, 16), device=cuda))
     with pytest.raises(ValueError, match="head dims"):
-        fa.flash_sdpa(q64.float(), q64.float(), q64.float(), torch.zeros((1, 16), device=cuda))
+        fa.flash_sdpa(q80.float(), q80.float(), q80.float(), torch.zeros((1, 16), device=cuda))
     q256 = _randn(cuda, 1, 1, 16, 256)
     with pytest.raises(ValueError, match="dk, dv"):
         fa.flash_memattn(q256, q256, q256, torch.zeros((1, 16), device=cuda))
@@ -883,3 +884,99 @@ def test_flash_sdpa_h_reads_strided_heads(cuda, b, n):
     assert got.transpose(1, 2).is_contiguous()
     torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=TOL)
     torch.testing.assert_close(lse, want_lse, atol=TOL, rtol=TOL)
+
+
+# -------------------------------------------------------------------------
+# flash_sdpa forward at d=64: the SAM3 teacher's ViTDet global blocks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, TOL), (torch.float32, FP32_TOL)],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("lq,lk", [(5184, 5184), (333, 517), (130, 70), (1, 64)])
+def test_flash_sdpa_d64_kernel_matches_plain(cuda, dtype, tol, b, lq, lk):
+    """d=64 with 16 heads against the plain version: ragged Lq and Lk, a
+    masked middle tile (skipped), a ragged masked tail, with B=2 a batch row
+    whose keys are all masked (0 out, lse -1e9), and the LSE."""
+    q, k, v = (_randn(cuda, b, 16, n, 64, dtype=dtype) for n in (lq, lk, lk))
+    bias = torch.zeros((b, lk), device=cuda)
+    bias[0, 64:128] = NEG_INF
+    bias[0, lk - lk // 5:] = NEG_INF
+    if b > 1:
+        bias[-1] = NEG_INF
+    assert fa.sdpa_kernel(dtype, 64) == "flash_sdpa"
+    before = fa.flash_sdpa.launches
+    got, lse = fa.flash_sdpa(q, k, v, bias, return_lse=True)
+    torch.cuda.synchronize()
+    assert fa.flash_sdpa.launches == before + 1
+    assert got.dtype == dtype and got.transpose(1, 2).is_contiguous()
+    want, want_lse = fa.flash_sdpa_plain(q, k, v, bias, return_lse=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, want_lse, atol=tol, rtol=tol)
+    if b > 1:
+        assert (got[-1] == 0).all() and (lse[-1] == NEG_INF).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, TOL), (torch.float32, FP32_TOL)],
+                         ids=["bf16", "fp32"])
+def test_flash_sdpa_d64_reads_vitdet_qkv_views(cuda, dtype, tol):
+    """q, k and v as ViTAttention makes them: views of one packed (B, N,
+    3 * 16 * 64) qkv projection (strides over (B, H, N), D contiguous),
+    read in place; the output a (B, N, H, D)-ordered view."""
+    b, n = 1, 2304
+    qkv = _randn(cuda, b, n, 3 * 16 * 64, dtype=dtype).reshape(b, n, 3, 16, 64)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    assert not v.is_contiguous()
+    bias = torch.zeros((b, n), device=cuda)
+    got = fa.flash_sdpa(q, k, v, bias)
+    assert got.transpose(1, 2).is_contiguous()
+    torch.testing.assert_close(got.float(), fa.flash_sdpa_plain(q, k, v, bias).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_tiny_teacher_on_card_matches_cpu(cuda, dtype):
+    """A tiny SAM3 teacher whose 48x48 token grid (672^2) sends the trunk's
+    two global blocks through flash_sdpa at d=64 (2304^2 scores, above
+    sdpa's threshold), on the card against the same model in fp32 on the
+    CPU: fp32 within 1e-3 of each output's largest magnitude (at least 1),
+    bf16 within the bounds chip_smoke.py holds its tiny EV-M to."""
+    from efficientsam3_tpu_torch.build import init_parameters
+    from efficientsam3_tpu_torch.models.geometry import Prompt
+    from efficientsam3_tpu_torch.models.sam3_image import Sam3ImageModel
+    from efficientsam3_tpu_torch.models.vitdet import ViTTrunk
+
+    torch.backends.cudnn.allow_tf32 = False  # the neck's convolutions in fp32
+
+    def tiny(dt):
+        trunk = ViTTrunk(embed_dim=128, depth=4, num_heads=2, window_size=16,
+                         global_att_blocks=(1, 3), pretrain_grid=16, dtype=dt)
+        return Sam3ImageModel(trunk, text_encoder_type=None, text_context_length=16,
+                              fusion_layers=2, decoder_layers=2, trunk_dim=128, dtype=dt,
+                              text_tower=dict(width=64, heads=4, layers=2)).eval()
+
+    ref_model = init_parameters(tiny(None), 1)
+    model = tiny(dtype).to(cuda)
+    model.load_state_dict(ref_model.state_dict())
+    img = torch.from_numpy(RNG.standard_normal((1, 672, 672, 3)).astype(np.float32))
+    tok = torch.zeros((1, 16), dtype=torch.long)
+    tok[0, :4] = torch.tensor([49406, 320, 1125, 49407])
+    prompt = Prompt.empty(1, 2, 2).with_box(0, 0, [0.5, 0.45, 0.4, 0.3])
+    with torch.inference_mode():
+        ref = ref_model(img, tok, prompt)
+        before = fa.flash_sdpa.launches
+        feats = model.encode_image(img.to(cuda))
+        torch.cuda.synchronize()
+        assert fa.flash_sdpa.launches == before + 2
+        got = model.ground(feats["fpn"], feats["pos"], *model.encode_text(tok.to(cuda)),
+                           prompt.to(cuda))
+    bounds = ({"pred_boxes": 1e-3, "pred_logits": 1e-3, "pred_masks": 1e-3}
+              if dtype == torch.float32 else
+              {"pred_boxes": 5e-2, "pred_logits": 2.5e-1, "presence_logit_dec": 2.5e-1})
+    for key, tol in bounds.items():
+        want = ref[key].float()
+        err = (got[key].float().cpu() - want).abs().max().item()
+        assert err <= tol * max(1.0, want.abs().max().item()), (key, err)

@@ -55,6 +55,7 @@ def _depthwise(dtype, ks=7):
 
 CASES = [
     # flash_sdpa forward: the wgmma kernel for bf16 at d=32, mma.sync otherwise
+    # (d=64: the ViTDet global blocks, forward only)
     (_sdpa, (BF16, 32), "flash_sdpa_h"),
     (_sdpa, (F32, 32), "flash_sdpa"),
     (_sdpa, (BF16, 256), "flash_sdpa"),
@@ -62,7 +63,9 @@ CASES = [
     (_sdpa, (F16, 32), TypeError),
     (_sdpa, (F64, 256), TypeError),
     (_sdpa, (BF16, 32, F32), TypeError),
-    (_sdpa, (BF16, 64), ValueError),
+    (_sdpa, (BF16, 64), "flash_sdpa"),
+    (_sdpa, (F32, 64), "flash_sdpa"),
+    (_sdpa, (BF16, 80), ValueError),
     (_sdpa, (F32, 80), ValueError),
     # its backward kernels
     (_bwd, (BF16, 32), "flash_sdpa_bwd"),
@@ -70,6 +73,7 @@ CASES = [
     (_bwd, (F32, 256), "flash_sdpa_bwd"),
     (_bwd, (F16, 256), TypeError),
     (_bwd, (F32, 64), ValueError),
+    (_bwd, (BF16, 64), ValueError),
     # the cached bank, exact and int8 keys
     (_memattn, (BF16, 256), "flash_memattn"),
     (_memattn, (F32, 256), "flash_memattn"),

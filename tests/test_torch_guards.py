@@ -138,6 +138,40 @@ print("FOREIGN", bad)
 """
 
 
+_TEACHER = r"""
+import sys
+import numpy as np
+from efficientsam3_tpu_torch.build import init_parameters
+from efficientsam3_tpu_torch.models.sam3_image import Sam3ImageModel
+from efficientsam3_tpu_torch.models.vitdet import ViTTrunk
+from efficientsam3_tpu_torch.processor import Sam3Processor
+from efficientsam3_tpu_torch.video.predictor import TrackerPredictor
+from efficientsam3_tpu_torch.video.tracker import TrackerCore, init_tracker_parameters
+
+trunk = ViTTrunk(embed_dim=128, depth=2, num_heads=2, window_size=4, global_att_blocks=(1,),
+                 pretrain_grid=4)
+image = init_parameters(Sam3ImageModel(
+    trunk, text_encoder_type=None, text_context_length=16, add_sam2_neck=True, fusion_layers=1,
+    decoder_layers=1, trunk_dim=128, text_tower=dict(width=64, heads=4, layers=1))).eval()
+core = init_tracker_parameters(TrackerCore(image_size=112, backbone_stride=14)).eval()
+proc = Sam3Processor(image, resolution=112, confidence_threshold=0.0, context_length=16)
+state = proc.set_image(np.zeros((40, 56, 3), np.uint8))
+tokens = np.zeros((1, 16), np.int64)
+tokens[0, :3] = [49406, 320, 49407]
+state["text"] = proc.encode_tokens(tokens)
+state = proc.add_geometric_prompt([0.5, 0.5, 0.4, 0.4], True, state)
+assert state["masks"].shape == (200, 40, 56), state["masks"].shape
+pred = TrackerPredictor(core, image.encode_image, obj_slots=2, max_point_prompts=4)
+vstate = pred.init_state(np.zeros((3, 112, 112, 3), np.float32))
+pred.add_new_points_or_box(vstate, 0, obj_id=5, points=[[40, 50]], labels=[1])
+shapes = [tuple(m.shape) for _, _, m in pred.propagate_in_video(vstate)]
+assert shapes == [(1, 1, 32, 32)] * 3, shapes
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "efficientsam3_tpu"))
+print("FOREIGN", bad)
+"""
+
+
 def _run_without_jax(script):
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
@@ -176,6 +210,13 @@ def test_tracker_training_runs_without_jax():
     mode through chip_smoke.tracker_clip, its backward, and rms_norm_2d
     under autograd."""
     _run_without_jax(_TRACKER_TRAIN)
+
+
+def test_teacher_runs_without_jax():
+    """So do the SAM3 teacher's modules (ViTDet trunk, CLIP text tower) at a
+    tiny config: the image model with the SAM2 neck through Sam3Processor,
+    and the tracker over its frame features for 3 frames."""
+    _run_without_jax(_TEACHER)
 
 
 def test_refuse_grad_only_when_autograd_records():
@@ -240,6 +281,19 @@ def test_cuda_entry_points_raise_without_a_gpu():
     with pytest.raises(RuntimeError, match="CUDA"):
         build_efficientsam3_video_model(model_name="b0", embed_size=8)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_teacher_builders_raise_without_a_gpu():
+    """The SAM3 teacher's builders default to cuda too, and raise without a
+    card before building anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the entry points run there")
+    from efficientsam3_tpu_torch.build import build_sam3_image_model, build_sam3_video_model
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_sam3_image_model()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_sam3_video_model()
 
 
 @pytest.mark.parametrize("option,item", [(dict(mesh=object()), "Queue 1 item 19")])

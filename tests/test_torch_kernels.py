@@ -45,15 +45,20 @@ def _sdpa_inputs(b=2, h=8, lq=100, lk=200, d=32):
     return q, k, v, bias
 
 
-@pytest.mark.parametrize("packed", [True, False], ids=["packed", "per_head"])
-def test_flash_sdpa_plain_matches_pallas(packed):
-    """Ragged Lq/Lk, a fully masked key block, a fully masked row, d=32 with
-    8 heads, and the LSE. A fully masked row returns 0 with lse -1e9, as
-    the Pallas finalize does (acc / max(l, 1e-30) with every block skipped)."""
-    q, k, v, bias = _sdpa_inputs()
+@pytest.mark.parametrize("packed,d", [
+    pytest.param(True, 32, id="packed"), pytest.param(False, 32, id="per_head"),
+    pytest.param(True, 64, id="packed-d64"), pytest.param(False, 64, id="per_head-d64"),
+])
+def test_flash_sdpa_plain_matches_pallas(packed, d):
+    """Ragged Lq/Lk, a fully masked key block, a fully masked row, 8 heads
+    at d=32 (the fusion encoder) and d=64 (the ViTDet global blocks; packed
+    two heads a 128-lane group on the TPU), and the LSE. A fully masked row
+    returns 0 with lse -1e9, as the Pallas finalize does (acc / max(l,
+    1e-30) with every block skipped)."""
+    q, k, v, bias = _sdpa_inputs(d=d)
     fwd = jfa._flash_fwd_packed if packed else jfa._flash_fwd
     want_o, want_lse = fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(bias),
-                           1.0 / np.sqrt(32), 32, 64, True, return_lse=True)
+                           1.0 / np.sqrt(d), 32, 64, True, return_lse=True)
     got_o, got_lse = fa.flash_sdpa_plain(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), torch.from_numpy(bias),
         return_lse=True)
