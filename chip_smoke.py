@@ -6,7 +6,10 @@
 Phases, each printing its own lines:
   1. environment: the card's name and power limit (nvidia-smi), torch and
      CUDA versions, TF32 settings, and the build of the CUDA kernels
-     (csrc/*.cu, one nvcc per source, all started together);
+     (csrc/*.cu, one nvcc per source, all started together); for each
+     wgmma kernel (flash_sdpa_h at d=32 and 64, flash_sdpa_bwd_h) one line
+     of registers, spilled bytes and shared memory a block, and blocks an
+     SM, as the runtime reports them;
   2. the main path at full width: EfficientViT-b1 ("EV-M") at 1008^2 with
      the MobileCLIP-S0 text tower at context 32, bf16, seeded random
      weights, through the port's Sam3Processor (set_image on a non-square
@@ -68,7 +71,8 @@ Phases, each printing its own lines:
      matcher's host solve and the peak memory are timed; torch.profiler
      splits one step by kernel; the three backward kernels are held against
      their plain versions on the inputs of their largest launch and timed as
-     in phase 3.
+     in phase 3 (flash_sdpa_bwd_dkv in bf16 at d=32 is the wgmma kernel of
+     csrc/flash_sdpa_bwd_h.cu), the dq + dkv pair beside SDPA's backward.
 
   7. [pcs] text-prompted video concept segmentation at full width:
      EfficientSam3System over build_efficientsam3_video_model (EV-M b1 at
@@ -164,7 +168,8 @@ Phases, each printing its own lines:
      1e-2 of each output's largest magnitude) and set beside the bf16
      build. flash_sdpa at d=64, bf16 and fp32, is held against its plain
      version on the inputs of its launches (1e-2, FP32_TOL) and timed as in
-     phase 3 (library: SDPA). The bf16 video build (build_sam3_video_model)
+     phase 3 (library: SDPA); bf16 is the wgmma kernel (csrc/flash_sdpa_h.cu),
+     fp32 the mma.sync kernel (csrc/flash_sdpa.cu). The bf16 video build (build_sam3_video_model)
      tracks 2 objects prompted on frame 0 over SAM3_TRACKED synthetic
      frames on the cached bank: per tracked frame [video] session A's
      launches plus 4 d=64 flash_sdpa for the frame's encode; finite masks,
@@ -475,6 +480,12 @@ def main():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+    # the wgmma kernels as the runtime holds them, at the main path's 5184 keys
+    for kernel, d in (("flash_sdpa_h", 32), ("flash_sdpa_h", 64), ("flash_sdpa_bwd_h", 32)):
+        r = fa.kernel_resources(kernel, d, 5184)
+        log(f"[build] {kernel} d={d}: {r['registers']} registers a thread, {r['spill_bytes']} "
+            f"bytes of local memory (spills) a thread, {r['smem_bytes']} bytes of shared memory "
+            f"a block, {r['blocks_per_sm']} blocks an SM")
     dev = torch.device("cuda")
 
     # ---------------------------------------------------------------- 2
@@ -557,7 +568,7 @@ def main():
         for name, us, n in kernels[:8]:
             log(f"[profile] {stage}:   {us / 1e3:8.4f} ms  x{n:<4d} {name[:90]}")
         for name, us, n in kernels:
-            for key, pattern in (("flash_sdpa", "flash_sdpa_h_kernel"),
+            for key, pattern in (("flash_sdpa", "flash_sdpa_h_kernel<32>"),
                                  ("flash_xattn_rpb", "flash_xattn_rpb_"),
                                  ("layer_norm", "_ln_fwd")):
                 if pattern in name:  # flash_xattn_rpb runs two kernels per call
@@ -1224,8 +1235,9 @@ def train_phase(smi):
             log(f"[profile] train step:   {us / 1e3:8.4f} ms  x{n:<4d} {name[:90]}")
         for name, us, n in kernels:
             for key, pattern in (("flash_sdpa_bwd_dq", "bwd_dq_kernel"),
-                                 ("flash_sdpa_bwd_dkv", "bwd_dkv_kernel"),
-                                 ("layer_norm_bwd", "_ln_bwd"), ("flash_sdpa", "flash_sdpa_h_kernel")):
+                                 ("flash_sdpa_bwd_dkv", "flash_bwd_dkv_h_kernel"),
+                                 ("layer_norm_bwd", "_ln_bwd"),
+                                 ("flash_sdpa", "flash_sdpa_h_kernel<32>")):
                 if pattern in name:
                     device_ms[key] = device_ms.get(key, 0.0) + us / 1e3 / TRAIN_COUNTS[key]
         write_out("profile_train_step.txt",
@@ -1308,21 +1320,23 @@ def train_phase(smi):
         q.dtype), scale=scale)
     lib_ms = cuda_time(lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True), 20)
     shape = f"q/k/v/o/dO {tuple(q.shape)} bf16 (dO strided), lse f32, {live} live keys a row"
-    for name, fn, plain, err, bms, by, src_line in (
+    for name, fn, plain, err, bms, by, src_line, src in (
         ("flash_sdpa_bwd_dq", lambda: fa.flash_sdpa_bwd_dq(q, k, v, key_bias, o, lse, do, scale),
          lambda: fa.flash_sdpa_bwd_dq_plain(q, k, v, key_bias, o, lse, do, scale),
-         err_dq, bms_dq, by_dq, 1082),
+         err_dq, bms_dq, by_dq, 1082, "flash_sdpa_bwd.cu"),
         ("flash_sdpa_bwd_dkv",
          lambda: fa.flash_sdpa_bwd_dkv(q, k, v, key_bias, do, lse, delta, scale),
          lambda: fa.flash_sdpa_bwd_dkv_plain(q, k, v, key_bias, do, lse, delta, scale),
-         err_dkv, bms_dkv, by_dkv, 1098)):
+         err_dkv, bms_dkv, by_dkv, 1098, "flash_sdpa_bwd_h.cu")):
         rows.append(dict(
-            name=name, route="cuda", source="efficientsam3_tpu_torch/csrc/flash_sdpa_bwd.cu",
+            name=name, route="cuda", source=f"efficientsam3_tpu_torch/csrc/{src}",
             replaces=f"efficientsam3_tpu/ops/pallas/flash_attention.py:{src_line}",
             launches=sum(r[name] for r in per_step[:TRAIN_STEPS]), max_abs_err=err,
             ms=graph_time(fn, 5, 10), call_ms=cuda_time(fn, 20),
             plain_ms=cuda_time(plain, 3, warmup=1), bound_ms=bms, bound_by=by,
             library_ms=lib_ms, device_ms=device_ms.get(name), shape=shape, **{"pass": True}))
+    log(f"[kernel] d=32 backward pair (dq + dkv) {rows[0]['ms'] + rows[1]['ms']:.4f} ms in CUDA "
+        f"graphs against SDPA backward's {lib_ms:.4f} ms a call (all three gradients) | {smi}")
     del ql, kl, vl, ol, dq, dk, dv
     # the wgmma forward kernel at the step's (4, 8, 5184, 32), beside SDPA
     # (the row of phase 3 is at batch 1)
@@ -2868,7 +2882,8 @@ def sam3_phase(smi, main_ref):
             nb = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * key_bias.numel()
             bms, by = bound(nb, 4.0 * live * d, 1.0 * live, 6.0 * live)
         fn = lambda: fa.flash_sdpa(q, k, v, key_bias, scale)  # noqa: E731
-        r = dict(name=name, route="cuda", source="efficientsam3_tpu_torch/csrc/flash_sdpa.cu",
+        r = dict(name=name, route="cuda",
+                 source=f"efficientsam3_tpu_torch/csrc/{fa.sdpa_kernel(q.dtype, d)}.cu",
                  replaces="efficientsam3_tpu/ops/pallas/flash_attention.py:304",
                  launches=launches, max_abs_err=err, ms=graph_time(fn, 5, 10),
                  call_ms=cuda_time(fn, 10),
@@ -2879,7 +2894,7 @@ def sam3_phase(smi, main_ref):
                      lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 5, 10),
                  device_ms=device_ms,
                  shape=f"q/k/v {tuple(q.shape)} {str(q.dtype)[6:]} (v a strided view of the "
-                       f"packed qkv){' split bf16 products' if fp32 else ''}; library = "
+                       f"packed qkv){' split bf16 products' if fp32 else ', wgmma + TMA'}; library = "
                        f"{'fp32 ' if fp32 else ''}SDPA", **{"pass": True})
         log_row(r, smi)
         return r
@@ -2948,8 +2963,7 @@ def sam3_phase(smi, main_ref):
         f"once) {text_ms:.3f} ms | ground {ground_ms:.3f} ms | whole call (set_image + encode "
         f"text + add_geometric_prompt) {whole_ms:.3f} ms | peak memory {peak:.2f} GiB | kept "
         f"{len(state['scores'])} of 200 queries | {smi}")
-    dev_b16 = encode_profile(model, img, "sam3 encode_image", "flash_sdpa_fwd_kernel<64, __nv_bf",
-                             enc_ms)
+    dev_b16 = encode_profile(model, img, "sam3 encode_image", "flash_sdpa_h_kernel<64>", enc_ms)
     (q, k, v, key_bias, scale), _ = capture.args[("flash_sdpa", 64)]
     del capture, feats, state, proc, model, res
     torch.cuda.empty_cache()

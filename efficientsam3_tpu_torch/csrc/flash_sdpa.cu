@@ -13,8 +13,9 @@
 // parts with three products each, P kept fp32 (split the same way) as in
 // JAX, where P is cast to the value dtype. The output is written in the
 // operands' dtype, the LSE in fp32. bf16 at d = 32 (the fusion encoder's
-// self-attention) runs flash_sdpa_h.cu, the wgmma kernel; this file serves
-// fp32 at d = 32 and both dtypes at d = 64 and d = 256.
+// self-attention) and d = 64 (the teacher's global blocks) runs
+// flash_sdpa_h.cu, the wgmma kernel; this file serves fp32 at d = 32 and
+// d = 64, and both dtypes at d = 256.
 //
 // Bound on the H100 at the fusion-encoder shape (1, 8, 5184, 32): ~27.5
 // GFLOP of tensor-core work (~0.03 ms at the bf16 peak; ~0.06 ms at the
@@ -25,14 +26,14 @@
 // per block; K and V are staged synchronously a 64-key tile at a time
 // (flash_sdpa_h.cu's note says what that costs in bf16).
 //
-// Head dim 64 (the SAM3 teacher's ViTDet global blocks, Q K V (1, 16, 5184,
-// 64), 4 launches an encode_image) runs the same register kernel as d = 32:
-// Q fragments, S and the accumulator in registers, K and V staged a 64-key
-// tile at a time (bf16 ~18 KB of static shared memory, fp32 ~37 KB for
-// its two parts). Per launch ~110 GFLOP of products (~0.11 ms at the bf16
-// peak, ~0.22 ms at the tf32 rate) against 430 M exponentials (~0.10 ms):
-// bound by the products. No backward at d = 64: no JAX path trains a ViT
-// trunk, and flash_sdpa refuses the head dim under autograd.
+// Head dim 64 in fp32 (the default build of the SAM3 teacher's ViTDet
+// global blocks, Q K V (1, 16, 5184, 64), 4 launches an encode_image) runs
+// the same register kernel as d = 32: Q fragments, S and the accumulator in
+// registers, K and V staged a 64-key tile at a time (~37 KB of static shared
+// memory for the two parts). Per launch ~110 GFLOP of products (~0.22 ms at
+// the tf32 rate) against 430 M exponentials (~0.10 ms): bound by the
+// products. No backward at d = 64: no JAX path trains a ViT trunk, and
+// flash_sdpa refuses the head dim under autograd.
 //
 // Head dim 256 (the tracker's single-head memory attention, Q K V
 // (8, 1, 5184, 256) in self-attention and 36352 keys in the plain
@@ -154,19 +155,19 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* key_bias
   if (d == 256)
     return launch_qsmem<256, 256, T>(q, k, v, key_bias, o, lse, B, H, lq, lk, sm_scale, sqb, sqh,
                                      sqn, skb, skh, skn, svb, svh, svn, sob, soh, son, st);
-  if (d == 64)
-    return launch_reg<64, T>(q, k, v, key_bias, o, lse, B, H, lq, lk, sm_scale, sqb, sqh, sqn,
-                             skb, skh, skn, svb, svh, svn, sob, soh, son, st);
-  if constexpr (std::is_same<T, float>::value) {  // bf16 at d = 32 is flash_sdpa_h.cu's
+  if constexpr (std::is_same<T, float>::value) {  // bf16 at d = 32 and 64 is flash_sdpa_h.cu's
     if (d == 32)
       return launch_reg<32, T>(q, k, v, key_bias, o, lse, B, H, lq, lk, sm_scale, sqb, sqh, sqn,
+                               skb, skh, skn, svb, svh, svn, sob, soh, son, st);
+    if (d == 64)
+      return launch_reg<64, T>(q, k, v, key_bias, o, lse, B, H, lq, lk, sm_scale, sqb, sqh, sqn,
                                skb, skh, skn, svb, svh, svn, sob, soh, son, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// fp32 != 0: q, k, v and o are float32, else bfloat16 (d = 64 and 256: bf16
-// at d = 32 is served by flash_sdpa_h.cu).
+// fp32 != 0: q, k, v and o are float32 (d = 32, 64 and 256), else bfloat16
+// (d = 256: bf16 at d = 32 and 64 is served by flash_sdpa_h.cu).
 extern "C" int flash_sdpa_fwd(const void* q, const void* k, const void* v,
                               const void* key_bias, void* o, void* lse, int B,
                               int H, int lq, int lk, int d, int fp32, float sm_scale,

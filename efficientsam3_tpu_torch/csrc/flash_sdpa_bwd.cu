@@ -1,4 +1,7 @@
-// Flash attention backward for Hopper (sm_90a), head dims 32 and 256.
+// Flash attention backward for Hopper (sm_90a), head dims 32 and 256: the
+// dq kernel in both dtypes, the dkv kernel in fp32 at d = 32 and in both
+// dtypes at d = 256. The bf16 dkv kernel at d = 32 (the Stage-3 step) is
+// flash_sdpa_bwd_h.cu's, on wgmma and TMA.
 //
 // Replaces efficientsam3_tpu/ops/pallas/flash_attention.py `_flash_bwd`:
 // `_bwd_dq_kernel` (its pallas_call at :1082) and `_bwd_dkv_kernel` (:1098),
@@ -38,7 +41,8 @@
 // of a 16 x 64 tile is the A-operand layout of the next product), stages the
 // other side's 64-row tiles with cp.async and reads their B fragments with
 // ldmatrix.trans, so no transposed copy is made. Pipelining the tile copies,
-// wgmma and folding log2(e) into the scale are later work.
+// wgmma and folding log2(e) into the scale are later work for the dq kernel
+// (flash_sdpa_bwd_h.cu does them for the bf16 dkv kernel).
 //
 // fp32 operands (the default build) run the same kernels on split bf16
 // parts (attn_common.cuh): Q, K, V, dO staged or held as hi and lo, P and
@@ -384,7 +388,8 @@ extern "C" int flash_sdpa_bwd_dq(const void* q, const void* k, const void* v,
                 static_cast<cudaStream_t>(stream));
 }
 
-// fp32 != 0: q, k, v, dout, dk and dv are float32, else bfloat16.
+// fp32 != 0: q, k, v, dout, dk and dv are float32, else bfloat16 (d = 256
+// only: bf16 at d = 32 is flash_sdpa_bwd_h.cu's).
 extern "C" int flash_sdpa_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* key_bias, const void* dout, const void* lse,
                                   const void* delta, void* dk, void* dv, int B, int H, int lq,
@@ -394,11 +399,11 @@ extern "C" int flash_sdpa_bwd_dkv(const void* q, const void* k, const void* v,
                                   long long sdb, long long sdh, long long sdn, long long skgb,
                                   long long skgh, long long skgn, long long svgb,
                                   long long svgh, long long svgn, void* stream) {
-  decltype(&launch_dkv<bf16>) launch;
+  decltype(&launch_dkv<float>) launch;
   if (d == wide::D)
     launch = fp32 ? wide::launch_dkv<float> : wide::launch_dkv<bf16>;
-  else if (d == D)
-    launch = fp32 ? launch_dkv<float> : launch_dkv<bf16>;
+  else if (d == D && fp32)  // bf16 at d = 32 is flash_sdpa_bwd_h.cu's
+    launch = launch_dkv<float>;
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return launch(q, k, v, key_bias, dout, lse, delta, dk, dv, B, H, lq, lk, sm_scale, sqb, sqh,

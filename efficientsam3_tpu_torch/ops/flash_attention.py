@@ -25,8 +25,10 @@ dtypes; head dims it was not built for). Every kernel has a bf16 and an
 fp32 instantiation, the fp32 one on split bf16 parts (csrc/attn_common.cuh);
 outputs come back in the operands' dtype, the log-sum-exp in fp32. Each
 counts its kernel launches in ``<wrapper>.launches``; ``flash_sdpa``
-forward at d=32 in bf16 is the wgmma kernel ``csrc/flash_sdpa_h.cu``
-(``sdpa_kernel`` says which kernel a call reaches). Under autograd (grad
+forward at d=32 and d=64 in bf16 is the wgmma kernel ``csrc/flash_sdpa_h.cu``
+(``sdpa_kernel`` says which kernel a call reaches), and
+``flash_sdpa_bwd_dkv`` at d=32 in bf16 the wgmma kernel
+``csrc/flash_sdpa_bwd_h.cu`` (``bwd_dkv_kernel``). Under autograd (grad
 mode on and an input requiring a gradient) ``flash_sdpa`` runs as an
 autograd Function whose backward is the two backward kernels; the
 forward-only ``flash_memattn``, ``flash_memattn_q8`` and
@@ -119,10 +121,18 @@ def _check_heads(name, dims, *ts):
 
 def sdpa_kernel(dtype, d):
     """The forward kernel a CUDA ``flash_sdpa`` call launches: the wgmma
-    kernel (csrc/flash_sdpa_h.cu) for bf16 at d=32, else the mma.sync
-    kernels of csrc/flash_sdpa.cu (fp32 at d=32, both dtypes at d=64 and
-    d=256)."""
-    return "flash_sdpa_h" if (dtype == torch.bfloat16 and d == 32) else "flash_sdpa"
+    kernel (csrc/flash_sdpa_h.cu) for bf16 at d=32 and d=64, else the
+    mma.sync kernels of csrc/flash_sdpa.cu (fp32 at d=32 and d=64, both
+    dtypes at d=256)."""
+    return "flash_sdpa_h" if (dtype == torch.bfloat16 and d in (32, 64)) else "flash_sdpa"
+
+
+def bwd_dkv_kernel(dtype, d):
+    """The dkv kernel a CUDA ``flash_sdpa_bwd_dkv`` call launches: the
+    wgmma kernel (csrc/flash_sdpa_bwd_h.cu) for bf16 at d=32, else the
+    mma.sync kernels of csrc/flash_sdpa_bwd.cu (fp32 at d=32, both dtypes
+    at d=256)."""
+    return "flash_sdpa_bwd_h" if (dtype == torch.bfloat16 and d == 32) else "flash_sdpa_bwd"
 
 
 def _aligned(t):
@@ -139,44 +149,74 @@ def _bhn_strides(t):
     return t.stride(0), t.stride(1), t.stride(2)
 
 
-def _lib_sdpa():
-    lib = _build.load("flash_sdpa")
-    fn = lib.flash_sdpa_fwd
+def _bind(source, name, argtypes):
+    """The C entry point ``name`` of ``csrc/<source>.cu``, its argument
+    types set on first use (each accessor below names one entry point;
+    tests/test_torch_csrc_signatures.py holds them against the sources)."""
+    fn = getattr(_build.load(source), name)
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 6 + [_I] * 6 + [_F] + [_LL] * 12 + [_P]
+        fn.argtypes = argtypes
         fn.restype = _I
     return fn
+
+
+def _lib_sdpa():
+    return _bind("flash_sdpa", "flash_sdpa_fwd", [_P] * 6 + [_I] * 6 + [_F] + [_LL] * 12 + [_P])
 
 
 def _lib_sdpa_h():
-    fn = _build.load("flash_sdpa_h").flash_sdpa_h_fwd
-    if fn.argtypes is None:
-        fn.argtypes = [_P] * 6 + [_I] * 5 + [_F] + [_LL] * 12 + [_P]
-        fn.restype = _I
-    return fn
+    return _bind("flash_sdpa_h", "flash_sdpa_h_fwd",
+                 [_P] * 6 + [_I] * 6 + [_F] + [_LL] * 12 + [_P])
 
 
-def _bias_rows(key_bias):
-    """key_bias (B, Lk) as the wgmma kernel's TMA reads it: f32, contiguous,
-    16-byte aligned, rows padded with -1e9 to a multiple of 4 keys (a copy
-    only when Lk is not one already). Returns (rows, padded width)."""
-    b, lk = key_bias.shape
-    kb = key_bias.float().contiguous()
-    lkb = -(-lk // 4) * 4
-    if lkb != lk or kb.data_ptr() % 16:
-        padded = torch.full((b, lkb), NEG_INF, dtype=torch.float32, device=kb.device)
-        padded[:, :lk] = kb
-        kb = padded
-    return kb, lkb
+def _lib_sdpa_h_attrs():
+    return _bind("flash_sdpa_h", "flash_sdpa_h_attrs", [_I, _I, _P])
+
+
+def _lib_bwd_h():
+    return _bind("flash_sdpa_bwd_h", "flash_sdpa_bwd_dkv_h",
+                 [_P] * 9 + [_I] * 5 + [_F] + [_LL] * 18 + [_P])
+
+
+def _lib_bwd_h_attrs():
+    return _bind("flash_sdpa_bwd_h", "flash_sdpa_bwd_dkv_h_attrs", [_P])
+
+
+def kernel_resources(kernel, d=32, lk=5184):
+    """Registers and spilled bytes a thread, shared bytes a block and
+    resident blocks an SM of a wgmma kernel on the current CUDA device, as
+    the runtime reports them (cudaFuncGetAttributes, the occupancy API):
+    ``"flash_sdpa_h"`` at head dim d and lk keys, or
+    ``"flash_sdpa_bwd_h"``."""
+    out = (ctypes.c_int * 4)()
+    if kernel == "flash_sdpa_h":
+        status = _lib_sdpa_h_attrs()(d, lk, out)
+    elif kernel == "flash_sdpa_bwd_h":
+        status = _lib_bwd_h_attrs()(out)
+    else:
+        raise ValueError(f"no resource query for kernel {kernel!r}")
+    _build.check(status, f"{kernel} attributes")
+    return dict(zip(("registers", "spill_bytes", "smem_bytes", "blocks_per_sm"), out))
+
+
+def _tma_rows(rows, fill):
+    """A (R, L) tensor of rows as the wgmma kernels' TMA reads them: f32,
+    contiguous, 16-byte aligned, padded with ``fill`` to a multiple of 4
+    columns (a copy only when it is not so already). Returns (rows, padded
+    width)."""
+    r, n = rows.shape
+    x = rows.float().contiguous()
+    width = -(-n // 4) * 4
+    if width != n or x.data_ptr() % 16:
+        padded = torch.full((r, width), fill, dtype=torch.float32, device=x.device)
+        padded[:, :n] = x
+        x = padded
+    return x, width
 
 
 def _lib_xattn():
-    lib = _build.load("flash_xattn_rpb")
-    fn = lib.flash_xattn_rpb_fwd
-    if fn.argtypes is None:
-        fn.argtypes = [_P] * 8 + [_I] * 10 + [_F] + [_LL] * 12 + [_P]
-        fn.restype = _I
-    return fn
+    return _bind("flash_xattn_rpb", "flash_xattn_rpb_fwd",
+                 [_P] * 8 + [_I] * 10 + [_F] + [_LL] * 12 + [_P])
 
 
 def _flash_sdpa_fwd(q, k, v, key_bias, sm_scale, return_lse):
@@ -197,10 +237,10 @@ def _flash_sdpa_fwd(q, k, v, key_bias, sm_scale, return_lse):
     lse_ptr = lse.data_ptr() if lse is not None else None
     with torch.cuda.device(q.device):  # the launch goes to the current device
         if sdpa_kernel(dtype, d) == "flash_sdpa_h":
-            kb, lkb = _bias_rows(key_bias)
+            kb, lkb = _tma_rows(key_bias, NEG_INF)
             status = _lib_sdpa_h()(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), kb.data_ptr(), o.data_ptr(), lse_ptr,
-                b, h, lq, lk, lkb, float(sm_scale), *strides, stream)
+                b, h, lq, lk, lkb, d, float(sm_scale), *strides, stream)
         else:
             kb = key_bias.float().contiguous()
             status = _lib_sdpa()(
@@ -305,12 +345,9 @@ def flash_sdpa_bwd_plain(q, k, v, key_bias, o, lse, do, sm_scale=None):
     return dq, dk, dv
 
 
-def _lib_bwd(name, n_ptr):
-    fn = getattr(_build.load("flash_sdpa_bwd"), name)
-    if fn.argtypes is None:
-        fn.argtypes = [_P] * n_ptr + [_I] * 6 + [_F] + [_LL] * 18 + [_P]
-        fn.restype = _I
-    return fn
+def _lib_bwd(name):
+    """``flash_sdpa_bwd_dq`` or ``flash_sdpa_bwd_dkv`` of csrc/flash_sdpa_bwd.cu."""
+    return _bind("flash_sdpa_bwd", name, [_P] * 9 + [_I] * 6 + [_F] + [_LL] * 18 + [_P])
 
 
 def _check_bwd(q, k, v, key_bias, lse, *rest):
@@ -338,7 +375,7 @@ def flash_sdpa_bwd_dq(q, k, v, key_bias, o, lse, do, sm_scale):
     delta = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     dq = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     with torch.cuda.device(q.device):  # the launch goes to the current device
-        status = _lib_bwd("flash_sdpa_bwd_dq", 9)(
+        status = _lib_bwd("flash_sdpa_bwd_dq")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             b, h, lq, lk, d, fp32, float(sm_scale),
@@ -356,27 +393,34 @@ flash_sdpa_bwd_dq.launches = 0
 
 def flash_sdpa_bwd_dkv(q, k, v, key_bias, do, lse, delta, sm_scale):
     """dK and dV of flash_sdpa, given Delta from ``flash_sdpa_bwd_dq``:
-    (dk, dv) (B, H, Lk, D) in k's / v's dtype. One kernel launch on CUDA,
-    counted in ``flash_sdpa_bwd_dkv.launches``; the plain version for CPU
-    tensors."""
+    (dk, dv) (B, H, Lk, D) in k's / v's dtype. One kernel launch on CUDA
+    (``bwd_dkv_kernel`` says which), counted in
+    ``flash_sdpa_bwd_dkv.launches``; the plain version for CPU tensors."""
     if not q.is_cuda:
         return flash_sdpa_bwd_dkv_plain(q, k, v, key_bias, do, lse, delta, sm_scale)
     b, h, lq, lk, d, fp32 = _check_bwd(q, k, v, key_bias, lse, do)
     q, k, v, do = (_aligned(t) for t in (q, k, v, do))
     key_bias = key_bias.float().contiguous()
-    lse = lse.float().contiguous()
-    delta = delta.float().contiguous()
     dk = torch.empty((b, lk, h, d), dtype=k.dtype, device=q.device).transpose(1, 2)
     dv = torch.empty((b, lk, h, d), dtype=v.dtype, device=q.device).transpose(1, 2)
+    strides = (*_bhn_strides(q), *_bhn_strides(k), *_bhn_strides(v), *_bhn_strides(do),
+               *_bhn_strides(dk), *_bhn_strides(dv))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):  # the launch goes to the current device
-        status = _lib_bwd("flash_sdpa_bwd_dkv", 9)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, lq, lk, d, fp32, float(sm_scale),
-            *_bhn_strides(q), *_bhn_strides(k), *_bhn_strides(v), *_bhn_strides(do),
-            *_bhn_strides(dk), *_bhn_strides(dv),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+        if bwd_dkv_kernel(q.dtype, d) == "flash_sdpa_bwd_h":
+            lse, lqp = _tma_rows(lse.reshape(b * h, lq), NEG_INF)
+            delta, _ = _tma_rows(delta.reshape(b * h, lq), 0.0)
+            status = _lib_bwd_h()(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                b, h, lq, lk, lqp, float(sm_scale), *strides, stream)
+        else:
+            lse = lse.float().contiguous()
+            delta = delta.float().contiguous()
+            status = _lib_bwd("flash_sdpa_bwd_dkv")(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                b, h, lq, lk, d, fp32, float(sm_scale), *strides, stream)
     _build.check(status, "flash_sdpa_bwd_dkv launch")
     flash_sdpa_bwd_dkv.launches += 1
     return dk, dv
@@ -415,11 +459,8 @@ def check_bank_call(name, q, v, *others):
 
 
 def _lib_memattn():
-    fn = _build.load("flash_memattn").flash_memattn_fwd
-    if fn.argtypes is None:
-        fn.argtypes = [_P] * 6 + [_I] * 7 + [_F] + [_LL] * 12 + [_P]
-        fn.restype = _I
-    return fn
+    return _bind("flash_memattn", "flash_memattn_fwd",
+                 [_P] * 6 + [_I] * 7 + [_F] + [_LL] * 12 + [_P])
 
 
 def flash_memattn(q, k, v, key_bias, sm_scale=None, return_lse=False):
@@ -510,11 +551,8 @@ def flash_memattn_q8_plain(q, k_i8, k_scale, v, key_bias, sm_scale=None, return_
 
 
 def _lib_memattn_q8():
-    fn = _build.load("flash_memattn_q8").flash_memattn_q8_fwd
-    if fn.argtypes is None:
-        fn.argtypes = [_P] * 7 + [_I] * 7 + [_F] + [_LL] * 12 + [_P]
-        fn.restype = _I
-    return fn
+    return _bind("flash_memattn_q8", "flash_memattn_q8_fwd",
+                 [_P] * 7 + [_I] * 7 + [_F] + [_LL] * 12 + [_P])
 
 
 def flash_memattn_q8(q, k_i8, k_scale, v, key_bias, sm_scale=None, return_lse=False):

@@ -90,6 +90,15 @@ def solve_assignment_batched(cost: np.ndarray) -> np.ndarray:
     return (out[:, 1:] - 1).astype(np.int32)
 
 
+def _lib():
+    fn = _build.load("hungarian").hungarian_solve
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def solve_assignment_native(cost: np.ndarray) -> np.ndarray:
     """``solve_assignment_batched`` in host C++ (``csrc/hungarian.cu``),
     threads over the matrices; built with the CUDA kernels on first use."""
@@ -97,11 +106,7 @@ def solve_assignment_native(cost: np.ndarray) -> np.ndarray:
     n, t, q = cost.shape
     if t > q:
         raise ValueError(f"more rows than columns: {t} > {q}")
-    fn = _build.load("hungarian").hungarian_solve
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    fn = _lib()
     out = np.empty((n, t), np.int32)
     if fn(cost.ctypes.data, n, t, q, out.ctypes.data) != 0:
         raise RuntimeError("hungarian_solve refused its input")

@@ -29,6 +29,14 @@ _TILE_ROWS = 96 + 128  # staged x rows + y columns of a block (mma_probe.cu BM +
 _MAX_SMEM = 232448  # bytes of shared memory a block can use on sm_90
 
 
+def _lib():
+    fn = _build.load("mma_probe").mma_probe_dot_chain
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def dot_chain_plain(x, y, n_iter: int = 64):
     """sum_i (x @ y) * (1 + i) in fp32, one product per step as the kernel
     does. int8 operands multiply in fp32, which is exact while 127 * 127 * k
@@ -58,10 +66,7 @@ def dot_chain(x, y, n_iter: int = 64):
                          f"{_MAX_SMEM // _TILE_ROWS - 16} bytes, got k = {k} ({x.dtype})")
     x, y = x.contiguous(), y.contiguous()
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    fn = _build.load("mma_probe").mma_probe_dot_chain
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    fn = _lib()
     with torch.cuda.device(x.device):  # the launch goes to the current device
         status = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), m, k, n, n_iter,
                     1 if x.dtype == torch.int8 else 0,

@@ -206,12 +206,17 @@ def _rel_err(got, want):
 
 
 def _bwd_inputs(dev, b, lq, lk):
-    """q/k/v, a key bias with a masked 64-key tile and a fully masked batch
-    row, the forward's output and lse, and dO as a strided (B, H, N, D)
-    view of a (B, N, H * D) gradient, as the fusion encoder hands it in."""
+    """q/k/v, a key bias with masked keys 64-255 in row 0 (a 64-key tile of
+    the dq kernel and a 128-key block of the wgmma dkv kernel, where Lk
+    reaches them), with B > 2 the first half of row 1's keys masked, and a
+    fully masked last batch row; the forward's output and lse, and dO as a
+    strided (B, H, N, D) view of a (B, N, H * D) gradient, as the fusion
+    encoder hands it in."""
     q, k, v = (_randn(dev, b, 8, n, 32) for n in (lq, lk, lk))
     bias = torch.zeros((b, lk), device=dev)
-    bias[0, 64:128] = NEG_INF
+    bias[0, 64:256] = NEG_INF
+    if b > 2:
+        bias[1, :lk // 2] = NEG_INF
     bias[-1] = NEG_INF
     o, lse = fa.flash_sdpa_plain(q, k, v, bias, return_lse=True)
     do = _randn(dev, b, lq, 8 * 32).reshape(b, lq, 8, 32).transpose(1, 2)
@@ -219,20 +224,28 @@ def _bwd_inputs(dev, b, lq, lk):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lq,lk", [(5184, 5184), (333, 517), (1, 64)])
-def test_flash_sdpa_bwd_kernels_match_plain(cuda, lq, lk):
-    """dq (and Delta) and dk/dv kernels against the plain backward: ragged
-    Lq/Lk, a masked key tile (skipped), a fully masked batch row (zero
-    gradients) and a strided dO. dQ/dK/dV are bf16 sums over Lk or Lq
-    terms in other orders: 2e-2 of each gradient's largest magnitude."""
-    q, k, v, bias, o, lse, do = _bwd_inputs(cuda, 2, lq, lk)
+@pytest.mark.parametrize("b", [2, 4])
+@pytest.mark.parametrize("lq,lk", [(5184, 5184), (333, 517), (1, 64), (130, 200), (64, 9)])
+def test_flash_sdpa_bwd_kernels_match_plain(cuda, b, lq, lk):
+    """dq (and Delta) and dk/dv kernels against the plain backward (dk/dv:
+    the wgmma kernel of flash_sdpa_bwd_h.cu): ragged Lq/Lk against the
+    64-query tile and the 128-key block, masked key tiles and a masked
+    block (skipped, or zeros), a fully masked batch row (zero gradients)
+    and a strided dO; dk/dv the same when run again. dQ/dK/dV are bf16 sums
+    over Lk or Lq terms in other orders: 2e-2 of each gradient's largest
+    magnitude."""
+    q, k, v, bias, o, lse, do = _bwd_inputs(cuda, b, lq, lk)
     assert lq == 1 or not do.is_contiguous()
+    assert fa.bwd_dkv_kernel(torch.bfloat16, 32) == "flash_sdpa_bwd_h"
     scale = 32 ** -0.5
     n_dq, n_dkv = fa.flash_sdpa_bwd_dq.launches, fa.flash_sdpa_bwd_dkv.launches
     dq, delta = fa.flash_sdpa_bwd_dq(q, k, v, bias, o, lse, do, scale)
     dk, dv = fa.flash_sdpa_bwd_dkv(q, k, v, bias, do, lse, delta, scale)
     torch.cuda.synchronize()
     assert (fa.flash_sdpa_bwd_dq.launches, fa.flash_sdpa_bwd_dkv.launches) == (n_dq + 1, n_dkv + 1)
+    assert dk.transpose(1, 2).is_contiguous() and dv.transpose(1, 2).is_contiguous()
+    dk2, dv2 = fa.flash_sdpa_bwd_dkv(q, k, v, bias, do, lse, delta, scale)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
     want_dq, want_delta = fa.flash_sdpa_bwd_dq_plain(q, k, v, bias, o, lse, do, scale)
     want_dk, want_dv = fa.flash_sdpa_bwd_dkv_plain(q, k, v, bias, do, lse, want_delta, scale)
     torch.testing.assert_close(delta, want_delta, atol=1e-4, rtol=1e-4)
@@ -263,13 +276,15 @@ def test_flash_sdpa_bwd_kernels_refuse_other_head_dims(cuda):
 
 
 @pytest.mark.cuda
-def test_flash_sdpa_autograd_matches_plain_autograd(cuda):
-    """flash_sdpa under autograd (forward kernel, then the dq and dkv
-    kernels) against autograd through the plain forward, bf16 in both:
-    within 3e-2 of each gradient's largest magnitude (bf16 P and dS against
-    autograd's own rounding points); key_bias gets a zero gradient."""
-    q, k, v, bias, _, _, _ = _bwd_inputs(cuda, 2, 700, 700)
-    w = _randn(cuda, 2, 8, 700, 32, dtype=torch.float32)
+@pytest.mark.parametrize("b,n", [(2, 700), (4, 333)])
+def test_flash_sdpa_autograd_matches_plain_autograd(cuda, b, n):
+    """flash_sdpa under autograd at d=32 in bf16 (the wgmma forward, then
+    the dq kernel and the wgmma dkv kernel) against autograd through the
+    plain forward, bf16 in both: within 3e-2 of each gradient's largest
+    magnitude (bf16 P and dS against autograd's own rounding points);
+    key_bias gets a zero gradient."""
+    q, k, v, bias, _, _, _ = _bwd_inputs(cuda, b, n, n)
+    w = _randn(cuda, b, 8, n, 32, dtype=torch.float32)
     grads = {}
     for name, fn in (("kernel", fa.flash_sdpa), ("plain", fa.flash_sdpa_plain)):
         leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, bias)]
@@ -894,18 +909,22 @@ def test_flash_sdpa_h_reads_strided_heads(cuda, b, n):
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, TOL), (torch.float32, FP32_TOL)],
                          ids=["bf16", "fp32"])
 @pytest.mark.parametrize("b", [1, 2])
-@pytest.mark.parametrize("lq,lk", [(5184, 5184), (333, 517), (130, 70), (1, 64)])
+@pytest.mark.parametrize("lq,lk", [(5184, 5184), (333, 517), (130, 70), (1, 64), (200, 9)])
 def test_flash_sdpa_d64_kernel_matches_plain(cuda, dtype, tol, b, lq, lk):
-    """d=64 with 16 heads against the plain version: ragged Lq and Lk, a
-    masked middle tile (skipped), a ragged masked tail, with B=2 a batch row
-    whose keys are all masked (0 out, lse -1e9), and the LSE."""
+    """d=64 with 16 heads against the plain version (bf16: the wgmma kernel
+    with the 128-byte swizzle; fp32: the mma.sync kernel): ragged Lq and Lk
+    against the 128-row block and the 64-key tile, a masked middle tile
+    (skipped), a ragged masked tail, with B=2 a batch row whose keys are all
+    masked (0 out, lse -1e9), and the LSE. V is random, so every column
+    differs and a V read across the wrong rows or swizzle shows."""
     q, k, v = (_randn(cuda, b, 16, n, 64, dtype=dtype) for n in (lq, lk, lk))
     bias = torch.zeros((b, lk), device=cuda)
     bias[0, 64:128] = NEG_INF
     bias[0, lk - lk // 5:] = NEG_INF
     if b > 1:
         bias[-1] = NEG_INF
-    assert fa.sdpa_kernel(dtype, 64) == "flash_sdpa"
+    assert fa.sdpa_kernel(dtype, 64) == ("flash_sdpa_h" if dtype == torch.bfloat16
+                                         else "flash_sdpa")
     before = fa.flash_sdpa.launches
     got, lse = fa.flash_sdpa(q, k, v, bias, return_lse=True)
     torch.cuda.synchronize()
@@ -916,6 +935,7 @@ def test_flash_sdpa_d64_kernel_matches_plain(cuda, dtype, tol, b, lq, lk):
     torch.testing.assert_close(lse, want_lse, atol=tol, rtol=tol)
     if b > 1:
         assert (got[-1] == 0).all() and (lse[-1] == NEG_INF).all()
+    assert torch.equal(fa.flash_sdpa(q, k, v, bias), got)
 
 
 @pytest.mark.cuda
@@ -934,6 +954,18 @@ def test_flash_sdpa_d64_reads_vitdet_qkv_views(cuda, dtype, tol):
     assert got.transpose(1, 2).is_contiguous()
     torch.testing.assert_close(got.float(), fa.flash_sdpa_plain(q, k, v, bias).float(),
                                atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,d", [("flash_sdpa_h", 32), ("flash_sdpa_h", 64),
+                                      ("flash_sdpa_bwd_h", 32)])
+def test_wgmma_kernels_fit_without_spills(cuda, kernel, d):
+    """The wgmma kernels as built: no registers spilled to local memory, at
+    least one block of them resident an SM at the main path's 5184 keys
+    (the forward: 2, its design)."""
+    res = fa.kernel_resources(kernel, d, 5184)
+    assert res["spill_bytes"] == 0, res
+    assert res["blocks_per_sm"] >= (2 if kernel == "flash_sdpa_h" else 1), res
 
 
 @pytest.mark.cuda

@@ -1,7 +1,7 @@
 """Which dtype and head-dim pairs the port's CUDA kernels take, and which
 kernel a call reaches, checked without a GPU: the wrappers' rule
 (``kernel_dtype``, the head-dim and (dk, dv) checks, ``sdpa_kernel``,
-depthwise's map check) applied to CPU tensors of each dtype and width.
+``bwd_dkv_kernel``, depthwise's map check) applied to CPU tensors of each dtype and width.
 Every kernel takes bf16 and fp32 operands of one dtype; fp16, fp64 and
 mixed dtypes raise TypeError naming both, other widths ValueError.
 """
@@ -31,6 +31,12 @@ def _bwd(dtype, d):
     return "flash_sdpa_bwd"
 
 
+def _dkv(dtype, d):
+    q = _t(d, dtype)
+    dt = fa._check_heads("flash_sdpa backward", fa._BWD_D, q, q, q, q)
+    return fa.bwd_dkv_kernel(dt, d)
+
+
 def _memattn(dtype, dk, dv=64, v_dtype=None):
     fa.check_bank_call("flash_memattn", _t(dk, dtype), _t(dv, v_dtype or dtype), _t(dk, dtype))
     return "flash_memattn"
@@ -54,8 +60,8 @@ def _depthwise(dtype, ks=7):
 
 
 CASES = [
-    # flash_sdpa forward: the wgmma kernel for bf16 at d=32, mma.sync otherwise
-    # (d=64: the ViTDet global blocks, forward only)
+    # flash_sdpa forward: the wgmma kernel for bf16 at d=32 and d=64 (the
+    # ViTDet global blocks, forward only), mma.sync otherwise
     (_sdpa, (BF16, 32), "flash_sdpa_h"),
     (_sdpa, (F32, 32), "flash_sdpa"),
     (_sdpa, (BF16, 256), "flash_sdpa"),
@@ -63,17 +69,24 @@ CASES = [
     (_sdpa, (F16, 32), TypeError),
     (_sdpa, (F64, 256), TypeError),
     (_sdpa, (BF16, 32, F32), TypeError),
-    (_sdpa, (BF16, 64), "flash_sdpa"),
+    (_sdpa, (BF16, 64), "flash_sdpa_h"),
     (_sdpa, (F32, 64), "flash_sdpa"),
     (_sdpa, (BF16, 80), ValueError),
     (_sdpa, (F32, 80), ValueError),
-    # its backward kernels
+    # its backward kernels: dq (and fp32 dkv) on mma.sync; the bf16 dkv
+    # kernel at d=32 on wgmma
     (_bwd, (BF16, 32), "flash_sdpa_bwd"),
     (_bwd, (F32, 32), "flash_sdpa_bwd"),
     (_bwd, (F32, 256), "flash_sdpa_bwd"),
     (_bwd, (F16, 256), TypeError),
     (_bwd, (F32, 64), ValueError),
     (_bwd, (BF16, 64), ValueError),
+    (_dkv, (BF16, 32), "flash_sdpa_bwd_h"),
+    (_dkv, (F32, 32), "flash_sdpa_bwd"),
+    (_dkv, (BF16, 256), "flash_sdpa_bwd"),
+    (_dkv, (F32, 256), "flash_sdpa_bwd"),
+    (_dkv, (F16, 32), TypeError),
+    (_dkv, (BF16, 64), ValueError),
     # the cached bank, exact and int8 keys
     (_memattn, (BF16, 256), "flash_memattn"),
     (_memattn, (F32, 256), "flash_memattn"),
