@@ -7,9 +7,10 @@ Phases, each printing its own lines:
   1. environment: the card's name and power limit (nvidia-smi), torch and
      CUDA versions, TF32 settings, and the build of the CUDA kernels
      (csrc/*.cu, one nvcc per source, all started together); for each
-     wgmma kernel (flash_sdpa_h at d=32 and 64, flash_sdpa_bwd_h) one line
-     of registers, spilled bytes and shared memory a block, and blocks an
-     SM, as the runtime reports them;
+     wgmma kernel (flash_sdpa_h at d=32 and 64, flash_sdpa_bwd_h, and the
+     d=256 pair flash_sdpa_bwd_dq_wide_h / flash_sdpa_bwd_dkv_wide_h) one
+     line of registers, spilled bytes and shared memory a block, and blocks
+     an SM, as the runtime reports them;
   2. the main path at full width: EfficientViT-b1 ("EV-M") at 1008^2 with
      the MobileCLIP-S0 text tower at context 32, bf16, seeded random
      weights, through the port's Sam3Processor (set_image on a non-square
@@ -128,8 +129,11 @@ Phases, each printing its own lines:
      slots through the kernels, through the plain versions and with the
      kernels' outputs cut from the graph (same dropout bits). The clip's
      forward, backward and peak memory are timed and torch.profiler splits
-     one backward by kernel. The d=256 backward kernels (at the largest
-     cross-attention and at the self-attention), the depthwise backward and
+     one backward by kernel (one line: the backward's ms, its device time
+     and the d=256 pair's share of it). The d=256 backward kernels (bf16:
+     the wgmma kernels of csrc/flash_sdpa_bwd_wide_h.cu; at the largest
+     cross-attention and at the self-attention, each beside SDPA's
+     backward), the depthwise backward and
      rms_norm_2d forward and backward (kernel level, at (8, 72, 72, 256)
      and (4, 63, 63, 128) bf16) are held against their plain versions and
      timed as in phase 3.
@@ -481,8 +485,11 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
     # the wgmma kernels as the runtime holds them, at the main path's 5184 keys
-    for kernel, d in (("flash_sdpa_h", 32), ("flash_sdpa_h", 64), ("flash_sdpa_bwd_h", 32)):
-        r = fa.kernel_resources(kernel, d, 5184)
+    # (the d=256 dq kernel at the clip's 36352 keys: its tile list grows with them)
+    for kernel, d, lk in (("flash_sdpa_h", 32, 5184), ("flash_sdpa_h", 64, 5184),
+                          ("flash_sdpa_bwd_h", 32, 5184), ("flash_sdpa_bwd_dq_wide_h", 256, 36352),
+                          ("flash_sdpa_bwd_dkv_wide_h", 256, 36352)):
+        r = fa.kernel_resources(kernel, d, lk)
         log(f"[build] {kernel} d={d}: {r['registers']} registers a thread, {r['spill_bytes']} "
             f"bytes of local memory (spills) a thread, {r['smem_bytes']} bytes of shared memory "
             f"a block, {r['blocks_per_sm']} blocks an SM")
@@ -2089,11 +2096,22 @@ def tracker_train_phase(smi):
         for name, us, n in kernels[:12]:
             log(f"[profile] tracker backward:   {us / 1e3:8.4f} ms  x{n:<4d} {name[:90]}")
         for name, us, n in kernels:
-            for key, pattern in (("flash_sdpa_bwd_dq_d256", "wide::bwd_dq_kernel"),
-                                 ("flash_sdpa_bwd_dkv_d256", "wide::bwd_dkv_kernel"),
+            for key, pattern in (("flash_sdpa_bwd_dq_d256", "flash_bwd_dq_wide_h_kernel"),
+                                 ("flash_sdpa_bwd_dkv_d256", "flash_bwd_dkv_wide_h_kernel"),
                                  ("depthwise_conv2d_bwd", "dw7_kernel")):
                 if pattern in name:
                     device_ms[key] = device_ms.get(key, 0.0) + us / 1e3 / n
+        pair = {key: [(us, n) for name, us, n in kernels if pattern in name]
+                for key, pattern in (("dq", "flash_bwd_dq_wide_h_kernel"),
+                                     ("dkv", "flash_bwd_dkv_wide_h_kernel"))}
+        if not all(pair.values()):
+            raise AssertionError(f"[profile] tracker backward: no d=256 wgmma kernel by name: {pair}")
+        pair_ms = {key: sum(us for us, _ in v) / 1e3 for key, v in pair.items()}
+        log(f"[profile] tracker clip backward: {bwd_ms:.1f} ms, {total_us / 1e3:.3f} ms of device "
+            f"time; the d=256 pair {pair_ms['dq'] + pair_ms['dkv']:.3f} ms of it "
+            f"({(pair_ms['dq'] + pair_ms['dkv']) / (total_us / 1e3):.1%}: dq {pair_ms['dq']:.3f} "
+            f"ms x{sum(n for _, n in pair['dq'])}, dkv {pair_ms['dkv']:.3f} ms "
+            f"x{sum(n for _, n in pair['dkv'])}) | {smi}")
         write_out("profile_tracker_backward.txt",
                   "\n".join(f"{us:12.2f} us  x{n:<5d} {name}" for name, us, n in kernels))
     del prof
@@ -2190,11 +2208,12 @@ def tracker_train_phase(smi):
         del ql, kl, vl, ol
         shape = (f"{which}-attention q/o/dO {tuple(q.shape)} k/v {tuple(k.shape)} bf16 (dO "
                  f"strided), {live} live keys over {b} slots")
+        log(f"[kernel] flash_sdpa_bwd_d256 at the {shape}: dq {ms_dq:.4f} ms (bound "
+            f"{bms_dq:.4f}, {by_dq}; {ms_dq / bms_dq:.2f}x) | dkv {ms_dkv:.4f} ms (bound "
+            f"{bms_dkv:.4f}, {by_dkv}; {ms_dkv / bms_dkv:.2f}x) | dq + dkv {ms_dq + ms_dkv:.4f} "
+            f"ms against SDPA backward's {lib_ms:.4f} ms | max rel err dq {err_dq:.3e} dkv "
+            f"{err_dkv:.3e} | {smi}")
         if which == "self":
-            log(f"[kernel] flash_sdpa_bwd_d256 at the {shape}: dq {ms_dq:.4f} ms (bound "
-                f"{bms_dq:.4f}, {by_dq}) | dkv {ms_dkv:.4f} ms (bound {bms_dkv:.4f}, {by_dkv}) | "
-                f"SDPA backward {lib_ms:.4f} ms | max rel err dq {err_dq:.3e} dkv {err_dkv:.3e} "
-                f"| {smi}")
             continue
         for name, fn, err, ms, bms, by, line in (
                 ("flash_sdpa_bwd_dq_d256", run_dq, err_dq, ms_dq, bms_dq, by_dq, 1082),
@@ -2203,7 +2222,8 @@ def tracker_train_phase(smi):
                 if "dq" in name else \
                 (lambda: fa.flash_sdpa_bwd_dkv_plain(q, k, v, key_bias, do, lse, delta, scale))
             rows.append(dict(
-                name=name, route="cuda", source="efficientsam3_tpu_torch/csrc/flash_bwd_wide.cuh",
+                name=name, route="cuda",
+                source="efficientsam3_tpu_torch/csrc/flash_sdpa_bwd_wide_h.cu",
                 replaces=f"efficientsam3_tpu/ops/pallas/flash_attention.py:{line}",
                 launches=bwd[name.replace("_d256", "")], max_abs_err=err, ms=ms,
                 call_ms=cuda_time(fn, 5), plain_ms=cuda_time(plain, 2, warmup=1), bound_ms=bms,

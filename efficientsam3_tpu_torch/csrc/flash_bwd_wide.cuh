@@ -1,52 +1,46 @@
-// Flash attention backward for Hopper (sm_90a) at head dim 256.
+// Flash attention backward for Hopper (sm_90a) at head dim 256, fp32
+// operands (the default build). bf16 at d = 256 is flash_sdpa_bwd_wide_h.cu's
+// (wgmma, TMA, warp-specialised).
 //
 // Replaces efficientsam3_tpu/ops/pallas/flash_attention.py `_flash_bwd`
 // (`_bwd_dq_kernel` :930, its pallas_call at :1082; `_bwd_dkv_kernel` :970,
-// at :1098) for the tracker's single-head memory attention under autograd:
-// self-attention q/k/v (8, 1, 5184, 256) and the plain path's
-// cross-attention over up to 36352 keys, bf16. The semantics are those of
+// at :1098) for the tracker's single-head memory attention under autograd
+// in fp32: self-attention q/k/v (8, 1, 5184, 256) and the plain path's
+// cross-attention over up to 36352 keys. The semantics are those of
 // the head-dim-32 kernels in flash_sdpa_bwd.cu: two deterministic kernels
 // (no atomics), P rebuilt from the saved log-sum-exp and 0 on rows whose
-// lse is masked (<= -5e8), dS rounded to bf16 before the dQ and dK
-// products and P before the dV product, fp32 accumulation, the scale
-// applied at the end, fully masked 64-key tiles skipped, strided (B, H, N)
-// operands, rows past Lq / keys past Lk read as zero and not written.
+// lse is masked (<= -5e8), fp32 accumulation, the scale applied at the
+// end, fully masked key tiles skipped, strided (B, H, N) operands, rows
+// past Lq / keys past Lk read as zero and not written.
 //
 // Why a layout of its own: at d = 256 a warp that owns 16 rows of dQ holds
 // 16 x 256 fp32 = 128 registers a thread before its score tiles, and the
 // dkv kernel would hold twice that for dK and dV. Here a block has 8 warps
 // (256 threads) over a 64-row tile, so each accumulator is split over two
 // warps by columns, and the products run in two phases:
-//   1. scores: warp w computes S and dP for 16 rows x 32 keys (rows
-//      (w % 4) * 16, keys (w / 4) * 32), reading both operands' fragments
-//      from shared memory, turns them into P and dS and writes the bf16
-//      tiles (64 x 64) to shared memory;
+//   1. scores: warp w computes S and dP for 16 rows x BS / 2 columns
+//      (rows (w % 4) * 16), reading both operands' fragments from shared
+//      memory, turns them into P and dS and writes them to shared memory;
 //   2. gradients: warp w accumulates 16 rows x 128 columns (rows (w % 4) *
 //      16, columns (w / 4) * 128) of dQ += dS K (dq kernel), or of dV +=
-//      P^T dO and dK += dS^T Q (dkv kernel), with the bf16 tile as the A
-//      operand and the other side's staged 64 x 256 tile read through
+//      P^T dO and dK += dS^T Q (dkv kernel), with the P or dS tile as the A
+//      operand and the other side's staged BS x 256 tile read through
 //      ldmatrix.trans as B.
-// dQ takes 64 registers a thread, dK and dV 128 together. Q and dO (dq
-// kernel) or K and V (dkv kernel) stay in shared memory for the block's
-// whole walk; the other pair is copied per tile with cp.async (145 KB and
-// 154 KB of shared memory: one block an SM).
+// Q and dO (dq kernel) or K and V (dkv kernel) stay in shared memory for
+// the block's whole walk; the other pair is copied per tile with cp.async.
 //
-// Bound on the H100: the dq kernel does 3 products of (Lq x Lk_live x 256)
-// per (batch, head) (S, dP, dQ), the dkv kernel 4 (S, dP, dV, dK); at the
-// tracker's self-attention with 3 of 8 slots live that is 3 x 41 GFLOP
-// (0.125 ms at the bf16 peak) and 4 x 41 GFLOP (0.167 ms), against 1/256 as
-// many exponentials and ~40 MB of operands: bound by the tensor cores.
-// Pipelining the tile copies and wgmma are later work.
+// fp32 operands (attn_common.cuh) are held as bf16 hi and lo tiles, so each
+// product is three mma.sync and P and dS are stored as two bf16 tiles each.
+// At 64-row streamed tiles that would take 290 KB, past the 227 KB a block
+// can have, so the kernels stream tiles of BS = 32 keys (dq) or 32 query
+// rows (dkv) against the resident 64-row pair: 210 and 219 KB. The dq
+// kernel adds each tile's dS K to dQ with an fp32 add (the tensor cores'
+// accumulation truncates, and a long key sum would carry its bias).
 //
-// fp32 operands (the default build; attn_common.cuh) are held as bf16 hi
-// and lo tiles, so each product is three mma.sync and P and dS are stored
-// as two bf16 tiles each. At 64-row tiles that would take 290 KB, past the
-// 227 KB a block can have, so the fp32 kernels stream tiles of BS = 32
-// keys (dq) or 32 query rows (dkv) against the resident 64-row pair: 210
-// and 219 KB. BS is a template parameter of the same kernels (64 at bf16);
-// the byte-per-tile table then counts 32-key tiles. The fp32 dq kernel adds
-// each tile's dS K to dQ with an fp32 add (the tensor cores' accumulation
-// truncates, and a long key sum would carry its bias).
+// Bound on the H100 at the fp32 clip's cross-attention (31128 live keys):
+// the products at the TF32 rate, dq 0.5007 ms and dkv 0.6676 ms (PERF.md):
+// the split into three bf16 products is the kernels' cost, not the
+// function's.
 #pragma once
 
 #include "flash_qsmem.cuh"
@@ -59,13 +53,14 @@ constexpr int P = D + 8;        // padded row (bf16) of a staged tile of D colum
 constexpr int NT = 256;         // 8 warps a block
 constexpr int TILE = BQ * P;    // elements of one part of a resident 64 x 256 tile
 
-// Tile geometry by operand type: NP bf16 parts; BS streamed rows (keys in
-// the dq kernel, queries in the dkv kernel), each warp's score slice is 16
-// rows x BS / 2 columns; TP the padded row of a 64 x BS P or dS tile.
+// Tile geometry of fp32 operands: NP = 2 bf16 parts; BS streamed rows (keys
+// in the dq kernel, queries in the dkv kernel), each warp's score slice is
+// 16 rows x BS / 2 columns; TP the padded row of a 64 x BS P or dS tile.
 template <typename T>
 struct Cfg {
   static constexpr int NP = Parts<T>::N;
-  static constexpr int BS = NP == 1 ? 64 : 32;
+  static_assert(NP == 2, "fp32 only: bf16 at d = 256 is flash_sdpa_bwd_wide_h.cu's");
+  static constexpr int BS = 32;
   static constexpr int NJ = BS / 16;  // 8-column blocks of a warp's score slice
   static constexpr int TP = BS + 8;
   static constexpr int STILE = BS * P;  // elements of one part of a streamed tile
@@ -294,22 +289,18 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       store_pair<T>(dss, r1, c, p10 * (dp[j][2] - dl1), p11 * (dp[j][3] - dl1));
     }
     __syncthreads();
-    if constexpr (NP == 1) {
-      mma_acc<T>(acc, dss, sr0, ks, oc0);  // dQ += dS K
-    } else {
-      // fp32: the tile's products in a fresh fragment, then one round-to-
-      // nearest add a tile. The tensor cores' fp32 accumulation truncates,
-      // and over the 1136 tiles of a 36352-key row its bias reached 1.3e-4
-      // of dQ's largest magnitude
-      float part[16][4];
+    // dQ += dS K: the tile's products in a fresh fragment, then one round-
+    // to-nearest add a tile. The tensor cores' fp32 accumulation truncates,
+    // and over the 1136 tiles of a 36352-key row its bias reached 1.3e-4 of
+    // dQ's largest magnitude
+    float part[16][4];
 #pragma unroll
-      for (int n = 0; n < 16; ++n) part[n][0] = part[n][1] = part[n][2] = part[n][3] = 0.f;
-      mma_acc<T>(part, dss, sr0, ks, oc0);
+    for (int n = 0; n < 16; ++n) part[n][0] = part[n][1] = part[n][2] = part[n][3] = 0.f;
+    mma_acc<T>(part, dss, sr0, ks, oc0);
 #pragma unroll
-      for (int n = 0; n < 16; ++n)
+    for (int n = 0; n < 16; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
-    }
+      for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
   }
   asm volatile("cp.async.wait_group 0;\n" ::);  // the Q / dO copy when no tile was live
   store16(dq, sgn, q0 + sr0, lq, oc0, acc, sm_scale);

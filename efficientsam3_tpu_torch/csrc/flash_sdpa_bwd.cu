@@ -1,7 +1,8 @@
-// Flash attention backward for Hopper (sm_90a), head dims 32 and 256: the
-// dq kernel in both dtypes, the dkv kernel in fp32 at d = 32 and in both
-// dtypes at d = 256. The bf16 dkv kernel at d = 32 (the Stage-3 step) is
-// flash_sdpa_bwd_h.cu's, on wgmma and TMA.
+// Flash attention backward for Hopper (sm_90a) on mma.sync: at head dim 32
+// the dq kernel in bf16 and fp32 and the dkv kernel in fp32; at head dim
+// 256 both kernels in fp32 (flash_bwd_wide.cuh). The wgmma kernels take the
+// rest: the bf16 dkv kernel at d = 32 is flash_sdpa_bwd_h.cu's, and bf16
+// dq and dkv at d = 256 are flash_sdpa_bwd_wide_h.cu's.
 //
 // Replaces efficientsam3_tpu/ops/pallas/flash_attention.py `_flash_bwd`:
 // `_bwd_dq_kernel` (its pallas_call at :1082) and `_bwd_dkv_kernel` (:1098),
@@ -50,9 +51,10 @@
 // dtype are no-ops), three products each; Delta is summed from the fp32
 // values. Gradients come back in the operands' dtype.
 //
-// Head dim 256 (the tracker's memory attention under autograd) runs the
-// kernels of flash_bwd_wide.cuh, 8 warps a block with the accumulators split
-// over warps by columns; the entry points below dispatch on d.
+// Head dim 256 in fp32 (the tracker's memory attention under autograd in
+// the default build) runs the kernels of flash_bwd_wide.cuh, 8 warps a
+// block with the accumulators split over warps by columns; the entry points
+// below dispatch on d and refuse what the wgmma kernels serve.
 
 #include "flash_bwd_wide.cuh"
 
@@ -366,7 +368,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* key_bias
 
 }  // namespace
 
-// fp32 != 0: q, k, v, o, dout and dq are float32, else bfloat16.
+// fp32 != 0: q, k, v, o, dout and dq are float32, else bfloat16 (d = 32
+// only: bf16 at d = 256 is flash_sdpa_bwd_wide_h.cu's).
 extern "C" int flash_sdpa_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* key_bias, const void* o, const void* dout,
                                  const void* lse, void* delta, void* dq, int B, int H, int lq,
@@ -377,8 +380,8 @@ extern "C" int flash_sdpa_bwd_dq(const void* q, const void* k, const void* v,
                                  long long sdh, long long sdn, long long sgb, long long sgh,
                                  long long sgn, void* stream) {
   decltype(&launch_dq<bf16>) launch;
-  if (d == wide::D)
-    launch = fp32 ? wide::launch_dq<float> : wide::launch_dq<bf16>;
+  if (d == wide::D && fp32)  // bf16 at d = 256 is flash_sdpa_bwd_wide_h.cu's
+    launch = wide::launch_dq<float>;
   else if (d == D)
     launch = fp32 ? launch_dq<float> : launch_dq<bf16>;
   else
@@ -388,8 +391,8 @@ extern "C" int flash_sdpa_bwd_dq(const void* q, const void* k, const void* v,
                 static_cast<cudaStream_t>(stream));
 }
 
-// fp32 != 0: q, k, v, dout, dk and dv are float32, else bfloat16 (d = 256
-// only: bf16 at d = 32 is flash_sdpa_bwd_h.cu's).
+// q, k, v, dout, dk and dv float32 (fp32 != 0): bf16 is flash_sdpa_bwd_h.cu's
+// at d = 32 and flash_sdpa_bwd_wide_h.cu's at d = 256.
 extern "C" int flash_sdpa_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* key_bias, const void* dout, const void* lse,
                                   const void* delta, void* dk, void* dv, int B, int H, int lq,
@@ -400,9 +403,11 @@ extern "C" int flash_sdpa_bwd_dkv(const void* q, const void* k, const void* v,
                                   long long skgh, long long skgn, long long svgb,
                                   long long svgh, long long svgn, void* stream) {
   decltype(&launch_dkv<float>) launch;
+  if (!fp32)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (d == wide::D)
-    launch = fp32 ? wide::launch_dkv<float> : wide::launch_dkv<bf16>;
-  else if (d == D && fp32)  // bf16 at d = 32 is flash_sdpa_bwd_h.cu's
+    launch = wide::launch_dkv<float>;
+  else if (d == D)
     launch = launch_dkv<float>;
   else
     return static_cast<int>(cudaErrorInvalidValue);

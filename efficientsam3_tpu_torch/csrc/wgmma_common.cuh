@@ -1,20 +1,28 @@
 // Shared pieces of the warp-specialised Hopper attention kernels
 // (flash_sdpa_h.cu: the bf16 forward at d = 32 and 64; flash_sdpa_bwd_h.cu:
-// the bf16 dK / dV backward at d = 32): mbarriers, TMA loads, wgmma shared
+// the bf16 dK / dV backward at d = 32; flash_sdpa_bwd_wide_h.cu: the bf16
+// dQ and dK / dV backward at d = 256): mbarriers, TMA loads, wgmma shared
 // memory descriptors and instructions, named barriers, and on the host the
 // tensor maps, encoded through cudaGetDriverEntryPoint (no -lcuda).
 //
-// Layouts. A (rows x D) bf16 tile is loaded by TMA with rows of D * 2 bytes
-// and the swizzle of the same width (64 bytes at d = 32, 128 at d = 64), so
-// each 8-row group of a tile is one swizzle atom (512 or 1024 bytes) and
-// every tile starts on a 1024-byte boundary. wgmma reads such a tile:
+// Layouts. A (rows x D) bf16 tile is loaded by TMA in slabs of at most 64
+// columns (128 bytes, the widest swizzle a box can carry): one slab with
+// rows of D * 2 bytes and the swizzle of that width at d = 32 and 64 (64
+// and 128 bytes), four 64-column slabs with the 128-byte swizzle at
+// d = 256, slab j at j * rows * 128 bytes. Each 8-row group of a slab is
+// one swizzle atom (512 or 1024 bytes) and every slab starts on a
+// 1024-byte boundary. wgmma reads such a tile:
 //  - K-major (the contraction along the row: Q, K, V, dO as QK^T-type
 //    operands): stride byte offset = 8 rows, a k-step of 16 columns is 32
-//    bytes along the row (the leading byte offset is not read);
+//    bytes along the row, and every fourth k-step moves to the next slab
+//    (the leading byte offset is not read);
 //  - MN-major (the contraction across rows: V in P V, dO in P^T dO, Q in
-//    dS^T Q; the transpose bit): stride byte offset = 8 rows, a k-step of
-//    16 rows is 16 rows' bytes, and the N extent (D) is one swizzle atom wide,
-//    so the leading byte offset is again not read.
+//    dS^T Q, K in dS K; the transpose bit): stride byte offset = 8 rows, a
+//    k-step of 16 rows is 16 rows' bytes. The N extent is the columns: one
+//    swizzle atom wide at d <= 64, where the leading byte offset is not
+//    read; at d = 256 an N of 128 or 256 spans two or four slabs, and the
+//    leading byte offset is the slab stride (rows * 128 bytes), the step
+//    from one 64-column atom to the next (desc_mn_wide).
 #pragma once
 
 #include <cuda.h>
@@ -103,6 +111,13 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t saddr, int kk) {
   return make_desc<ROW>(saddr + kk * 16 * ROW, 16 * ROW, 8 * ROW);
 }
 
+// MN-major operand N columns wide over 64-column slabs `slab` bytes apart
+// (128-byte swizzle): k-step kk (16 rows) of the tile at saddr, the
+// leading byte offset the slab stride.
+__device__ __forceinline__ uint64_t desc_mn_wide(uint32_t saddr, int kk, uint32_t slab) {
+  return make_desc<128>(saddr + kk * 16 * 128, slab, 8 * 128);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -163,6 +178,29 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TRANS_B));
 }
 
+// The same at N = 128 and 256 (head dim 256: a B operand four swizzle atoms
+// wide, read through the leading byte offset, desc_mn_wide).
+template <int TRANS_B = 1>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TRANS_B));
+}
+template <int TRANS_B = 1>
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TRANS_B));
+}
+
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -208,21 +246,23 @@ inline EncodeTiled encode_tiled() {
 }
 
 // A (B, H, N, d) bf16 view with element strides (sb, sh, sn) as a 4-D
-// (d, N, H, B) map, boxes of `rows` rows of one (batch, head), swizzled at
-// the row's width (64 bytes at d = 32, 128 at d = 64); rows past N read as
-// zeros.
+// (d, N, H, B) map, boxes of `rows` rows of one (batch, head) and
+// min(d, 64) columns, swizzled at the box's width (64 bytes at d = 32, 128
+// at d = 64 and 256; a d = 256 tile is four boxes, one a slab); rows past
+// N read as zeros.
 inline CUresult map_heads(EncodeTiled fn, CUtensorMap* m, const void* base, int d, int n, int H,
                           int B, long long sb, long long sh, long long sn, int rows) {
+  const int width = d < 64 ? d : 64;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(n),
                               static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sn) * 2,
                                  static_cast<cuuint64_t>(sh) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(d), static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(width), static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
             estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            d == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+            width == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 

@@ -28,7 +28,9 @@ counts its kernel launches in ``<wrapper>.launches``; ``flash_sdpa``
 forward at d=32 and d=64 in bf16 is the wgmma kernel ``csrc/flash_sdpa_h.cu``
 (``sdpa_kernel`` says which kernel a call reaches), and
 ``flash_sdpa_bwd_dkv`` at d=32 in bf16 the wgmma kernel
-``csrc/flash_sdpa_bwd_h.cu`` (``bwd_dkv_kernel``). Under autograd (grad
+``csrc/flash_sdpa_bwd_h.cu`` (``bwd_dkv_kernel``), and both backward
+kernels at d=256 in bf16 those of ``csrc/flash_sdpa_bwd_wide_h.cu``
+(``bwd_dq_kernel``, ``bwd_dkv_kernel``). Under autograd (grad
 mode on and an input requiring a gradient) ``flash_sdpa`` runs as an
 autograd Function whose backward is the two backward kernels; the
 forward-only ``flash_memattn``, ``flash_memattn_q8`` and
@@ -127,12 +129,22 @@ def sdpa_kernel(dtype, d):
     return "flash_sdpa_h" if (dtype == torch.bfloat16 and d in (32, 64)) else "flash_sdpa"
 
 
+def bwd_dq_kernel(dtype, d):
+    """The dq kernel a CUDA ``flash_sdpa_bwd_dq`` call launches: the wgmma
+    kernel (csrc/flash_sdpa_bwd_wide_h.cu) for bf16 at d=256, else the
+    mma.sync kernels of csrc/flash_sdpa_bwd.cu (both dtypes at d=32, fp32 at
+    d=256)."""
+    return "flash_sdpa_bwd_wide_h" if (dtype == torch.bfloat16 and d == 256) else "flash_sdpa_bwd"
+
+
 def bwd_dkv_kernel(dtype, d):
     """The dkv kernel a CUDA ``flash_sdpa_bwd_dkv`` call launches: the
-    wgmma kernel (csrc/flash_sdpa_bwd_h.cu) for bf16 at d=32, else the
-    mma.sync kernels of csrc/flash_sdpa_bwd.cu (fp32 at d=32, both dtypes
-    at d=256)."""
-    return "flash_sdpa_bwd_h" if (dtype == torch.bfloat16 and d == 32) else "flash_sdpa_bwd"
+    wgmma kernels for bf16 (csrc/flash_sdpa_bwd_h.cu at d=32,
+    csrc/flash_sdpa_bwd_wide_h.cu at d=256), else the mma.sync kernels of
+    csrc/flash_sdpa_bwd.cu (fp32)."""
+    if dtype != torch.bfloat16:
+        return "flash_sdpa_bwd"
+    return "flash_sdpa_bwd_h" if d == 32 else "flash_sdpa_bwd_wide_h"
 
 
 def _aligned(t):
@@ -182,17 +194,37 @@ def _lib_bwd_h_attrs():
     return _bind("flash_sdpa_bwd_h", "flash_sdpa_bwd_dkv_h_attrs", [_P])
 
 
+def _lib_bwd_wide_h(name):
+    """``flash_sdpa_bwd_dq_wide_h`` or ``flash_sdpa_bwd_dkv_wide_h`` of
+    csrc/flash_sdpa_bwd_wide_h.cu (the same argument kinds as
+    ``flash_sdpa_bwd_dkv_h``)."""
+    return _bind("flash_sdpa_bwd_wide_h", name, [_P] * 9 + [_I] * 5 + [_F] + [_LL] * 18 + [_P])
+
+
+def _lib_bwd_wide_h_dq_attrs():
+    return _bind("flash_sdpa_bwd_wide_h", "flash_sdpa_bwd_dq_wide_h_attrs", [_I, _P])
+
+
+def _lib_bwd_wide_h_dkv_attrs():
+    return _bind("flash_sdpa_bwd_wide_h", "flash_sdpa_bwd_dkv_wide_h_attrs", [_P])
+
+
 def kernel_resources(kernel, d=32, lk=5184):
     """Registers and spilled bytes a thread, shared bytes a block and
     resident blocks an SM of a wgmma kernel on the current CUDA device, as
     the runtime reports them (cudaFuncGetAttributes, the occupancy API):
-    ``"flash_sdpa_h"`` at head dim d and lk keys, or
-    ``"flash_sdpa_bwd_h"``."""
+    ``"flash_sdpa_h"`` at head dim d and lk keys, ``"flash_sdpa_bwd_h"``
+    (dkv, d=32), ``"flash_sdpa_bwd_dq_wide_h"`` (d=256, lk keys) or
+    ``"flash_sdpa_bwd_dkv_wide_h"`` (d=256)."""
     out = (ctypes.c_int * 4)()
     if kernel == "flash_sdpa_h":
         status = _lib_sdpa_h_attrs()(d, lk, out)
     elif kernel == "flash_sdpa_bwd_h":
         status = _lib_bwd_h_attrs()(out)
+    elif kernel == "flash_sdpa_bwd_dq_wide_h":
+        status = _lib_bwd_wide_h_dq_attrs()(lk, out)
+    elif kernel == "flash_sdpa_bwd_dkv_wide_h":
+        status = _lib_bwd_wide_h_dkv_attrs()(out)
     else:
         raise ValueError(f"no resource query for kernel {kernel!r}")
     _build.check(status, f"{kernel} attributes")
@@ -364,25 +396,31 @@ def _check_bwd(q, k, v, key_bias, lse, *rest):
 def flash_sdpa_bwd_dq(q, k, v, key_bias, o, lse, do, sm_scale):
     """dQ of flash_sdpa and Delta = rowsum(dO o O): (dq (B, H, Lq, D) in
     q.dtype, delta (B, H, Lq) f32). One kernel launch on CUDA (head dim 32
-    or 256, bf16 or fp32), counted in ``flash_sdpa_bwd_dq.launches``; the plain
-    version for CPU tensors."""
+    or 256, bf16 or fp32; ``bwd_dq_kernel`` says which), counted in
+    ``flash_sdpa_bwd_dq.launches``; the plain version for CPU tensors."""
     if not q.is_cuda:
         return flash_sdpa_bwd_dq_plain(q, k, v, key_bias, o, lse, do, sm_scale)
     b, h, lq, lk, d, fp32 = _check_bwd(q, k, v, key_bias, lse, o, do)
     q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do))
-    key_bias = key_bias.float().contiguous()
     lse = lse.float().contiguous()
     delta = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     dq = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    strides = (*_bhn_strides(q), *_bhn_strides(k), *_bhn_strides(v), *_bhn_strides(o),
+               *_bhn_strides(do), *_bhn_strides(dq))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):  # the launch goes to the current device
-        status = _lib_bwd("flash_sdpa_bwd_dq")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            b, h, lq, lk, d, fp32, float(sm_scale),
-            *_bhn_strides(q), *_bhn_strides(k), *_bhn_strides(v), *_bhn_strides(o),
-            *_bhn_strides(do), *_bhn_strides(dq),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+        if bwd_dq_kernel(q.dtype, d) == "flash_sdpa_bwd_wide_h":
+            kb, lkb = _tma_rows(key_bias, NEG_INF)
+            status = _lib_bwd_wide_h("flash_sdpa_bwd_dq_wide_h")(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), kb.data_ptr(), o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                b, h, lq, lk, lkb, float(sm_scale), *strides, stream)
+        else:
+            kb = key_bias.float().contiguous()
+            status = _lib_bwd("flash_sdpa_bwd_dq")(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), kb.data_ptr(), o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                b, h, lq, lk, d, fp32, float(sm_scale), *strides, stream)
     _build.check(status, "flash_sdpa_bwd_dq launch")
     flash_sdpa_bwd_dq.launches += 1
     return dq, delta
@@ -406,11 +444,14 @@ def flash_sdpa_bwd_dkv(q, k, v, key_bias, do, lse, delta, sm_scale):
     strides = (*_bhn_strides(q), *_bhn_strides(k), *_bhn_strides(v), *_bhn_strides(do),
                *_bhn_strides(dk), *_bhn_strides(dv))
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    kernel = bwd_dkv_kernel(q.dtype, d)
     with torch.cuda.device(q.device):  # the launch goes to the current device
-        if bwd_dkv_kernel(q.dtype, d) == "flash_sdpa_bwd_h":
+        if kernel != "flash_sdpa_bwd":
             lse, lqp = _tma_rows(lse.reshape(b * h, lq), NEG_INF)
             delta, _ = _tma_rows(delta.reshape(b * h, lq), 0.0)
-            status = _lib_bwd_h()(
+            lib = (_lib_bwd_h() if kernel == "flash_sdpa_bwd_h"
+                   else _lib_bwd_wide_h("flash_sdpa_bwd_dkv_wide_h"))
+            status = lib(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(), do.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 b, h, lq, lk, lqp, float(sm_scale), *strides, stream)

@@ -31,6 +31,10 @@ BINDINGS = {
     "flash_sdpa_bwd_dkv": lambda: fa._lib_bwd("flash_sdpa_bwd_dkv"),
     "flash_sdpa_bwd_dkv_h": fa._lib_bwd_h,
     "flash_sdpa_bwd_dkv_h_attrs": fa._lib_bwd_h_attrs,
+    "flash_sdpa_bwd_dq_wide_h": lambda: fa._lib_bwd_wide_h("flash_sdpa_bwd_dq_wide_h"),
+    "flash_sdpa_bwd_dkv_wide_h": lambda: fa._lib_bwd_wide_h("flash_sdpa_bwd_dkv_wide_h"),
+    "flash_sdpa_bwd_dq_wide_h_attrs": fa._lib_bwd_wide_h_dq_attrs,
+    "flash_sdpa_bwd_dkv_wide_h_attrs": fa._lib_bwd_wide_h_dkv_attrs,
     "flash_memattn_fwd": fa._lib_memattn,
     "flash_memattn_q8_fwd": fa._lib_memattn_q8,
     "flash_xattn_rpb_fwd": fa._lib_xattn,

@@ -544,50 +544,77 @@ def test_native_host_kernels_match_scipy(cuda):
 # depthwise_conv2d backward, rms_norm_2d forward and backward
 
 
-def _bwd256_inputs(dev, b, lq, lk, heads=1):
+def _bwd256_inputs(dev, b, lq, lk, heads=1, slabs=False):
     """Head dim 256: q/k/v as strided (B, H, N, 256) views of (B, N, H *
     256) tokens, a key bias with a masked 64-key tile in row 0, a ragged
     masked tail in row 1 and every key of the last row masked (an empty
-    object slot), the forward's output and lse, and a strided dO."""
+    object slot), the forward's output and lse, and a strided dO. With
+    ``slabs`` every 64-column slab j of v and dO is scaled by 1 + j and of q
+    and k by (1 + j) / 2 (so a kernel reading the wrong slab of an operand
+    four slabs wide is off by a multiple of its values), and the 128-key
+    block 256..384 of row 0 is masked too."""
     def heads_of(n):
         return _randn(dev, b, n, heads * 256).reshape(b, n, heads, 256).transpose(1, 2)
 
-    q, k, v = heads_of(lq), heads_of(lk), heads_of(lk)
+    q, k, v, do = heads_of(lq), heads_of(lk), heads_of(lk), heads_of(lq)
     bias = torch.zeros((b, lk), device=dev)
     bias[0, 64:128] = NEG_INF
     bias[1, lk - lk // 3:] = NEG_INF
     bias[-1] = NEG_INF
+    if slabs:
+        ramp = torch.arange(256, device=dev).div(64, rounding_mode="floor").add(1.0)
+        q, k = ((t.float() * ramp / 2).to(t.dtype) for t in (q, k))
+        v, do = ((t.float() * ramp).to(t.dtype) for t in (v, do))
+        bias[0, 256:384] = NEG_INF
     o, lse = fa.flash_sdpa_plain(q, k, v, bias, return_lse=True)
-    return q, k, v, bias, o, lse, heads_of(lq)
+    return q, k, v, bias, o, lse, do
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lq,lk,heads", [(5184, 5184, 1), (333, 36352, 1), (700, 517, 2),
-                                         (1, 64, 1)])
-def test_flash_sdpa_bwd_d256_kernels_match_plain(cuda, lq, lk, heads):
-    """dq (and Delta) and dk/dv at head dim 256 against the plain backward:
-    the tracker's self-attention (5184 x 5184) and its plain path's
-    cross-attention (36352 keys), strided heads, ragged Lq/Lk, a masked key
-    tile (skipped), a fully masked batch row (zero gradients). Sums of
+@pytest.mark.parametrize("lq,lk,heads,slabs", [
+    (5184, 5184, 1, False), (333, 36352, 1, False), (700, 517, 2, False), (1, 64, 1, False),
+    (257, 2000, 1, True), (64, 5184, 2, True)])
+def test_flash_sdpa_bwd_d256_kernels_match_plain(cuda, lq, lk, heads, slabs):
+    """dq (and Delta) and dk/dv at head dim 256 against the plain backward
+    (bf16: the wgmma kernels of flash_sdpa_bwd_wide_h.cu): the tracker's
+    self-attention (5184 x 5184) and its plain path's cross-attention
+    (36352 keys), strided heads, ragged Lq/Lk (2000 keys: not a multiple of
+    the 64-key tile nor of 128), a masked key tile (skipped), a masked
+    128-key block, a fully masked batch row (zero gradients), operands whose
+    64-column slabs differ in scale; dQ, dK and dV in (B, N, H, D) memory,
+    Delta (B, H, Lq) contiguous, and the same bits when run again. Sums of
     bf16 products over Lk or Lq terms in other orders: 2e-2 of each
     gradient's largest magnitude."""
-    q, k, v, bias, o, lse, do = _bwd256_inputs(cuda, 3, lq, lk, heads)
+    q, k, v, bias, o, lse, do = _bwd256_inputs(cuda, 3, lq, lk, heads, slabs)
     assert not q.is_contiguous() or heads == 1
+    assert fa.bwd_dq_kernel(torch.bfloat16, 256) == "flash_sdpa_bwd_wide_h"
+    assert fa.bwd_dkv_kernel(torch.bfloat16, 256) == "flash_sdpa_bwd_wide_h"
     scale = 256 ** -0.5
     n_dq, n_dkv = fa.flash_sdpa_bwd_dq.launches, fa.flash_sdpa_bwd_dkv.launches
     dq, delta = fa.flash_sdpa_bwd_dq(q, k, v, bias, o, lse, do, scale)
     dk, dv = fa.flash_sdpa_bwd_dkv(q, k, v, bias, do, lse, delta, scale)
     torch.cuda.synchronize()
     assert (fa.flash_sdpa_bwd_dq.launches, fa.flash_sdpa_bwd_dkv.launches) == (n_dq + 1, n_dkv + 1)
+    for g in (dq, dk, dv):
+        assert g.transpose(1, 2).is_contiguous()
+    assert delta.shape == lse.shape and delta.is_contiguous()
+    dq2, delta2 = fa.flash_sdpa_bwd_dq(q, k, v, bias, o, lse, do, scale)
+    dk2, dv2 = fa.flash_sdpa_bwd_dkv(q, k, v, bias, do, lse, delta, scale)
+    assert all(torch.equal(a, b_) for a, b_ in ((dq, dq2), (delta, delta2), (dk, dk2), (dv, dv2)))
     want_dq, want_delta = fa.flash_sdpa_bwd_dq_plain(q, k, v, bias, o, lse, do, scale)
     want_dk, want_dv = fa.flash_sdpa_bwd_dkv_plain(q, k, v, bias, do, lse, want_delta, scale)
     torch.testing.assert_close(delta, want_delta, atol=1e-3, rtol=1e-3)
     for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
         assert got.dtype == torch.bfloat16 and got.shape == want.shape
         assert _rel_err(got, want) < 2e-2
+        if slabs:  # each slab on its own, against its own largest magnitude
+            for j in range(4):
+                assert _rel_err(got[..., 64 * j:64 * j + 64], want[..., 64 * j:64 * j + 64]) < 2e-2
     for g in (dq, dk, dv):
         assert (g[-1] == 0).all()
     assert (dk[0, :, 64:128] == 0).all() and (dv[0, :, 64:128] == 0).all()
+    if slabs:
+        assert (dk[0, :, 256:384] == 0).all() and (dv[0, :, 256:384] == 0).all()
 
 
 @pytest.mark.cuda
@@ -958,11 +985,15 @@ def test_flash_sdpa_d64_reads_vitdet_qkv_views(cuda, dtype, tol):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel,d", [("flash_sdpa_h", 32), ("flash_sdpa_h", 64),
-                                      ("flash_sdpa_bwd_h", 32)])
+                                      ("flash_sdpa_bwd_h", 32), ("flash_sdpa_bwd_dq_wide_h", 256),
+                                      ("flash_sdpa_bwd_dkv_wide_h", 256)])
 def test_wgmma_kernels_fit_without_spills(cuda, kernel, d):
     """The wgmma kernels as built: no registers spilled to local memory, at
     least one block of them resident an SM at the main path's 5184 keys
-    (the forward: 2, its design)."""
+    (the forward: 2, its design; the d=256 dq kernel also at the clip's
+    36352)."""
+    if kernel == "flash_sdpa_bwd_dq_wide_h":
+        assert fa.kernel_resources(kernel, d, 36352)["blocks_per_sm"] >= 1
     res = fa.kernel_resources(kernel, d, 5184)
     assert res["spill_bytes"] == 0, res
     assert res["blocks_per_sm"] >= (2 if kernel == "flash_sdpa_h" else 1), res

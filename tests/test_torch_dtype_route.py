@@ -1,7 +1,7 @@
 """Which dtype and head-dim pairs the port's CUDA kernels take, and which
 kernel a call reaches, checked without a GPU: the wrappers' rule
 (``kernel_dtype``, the head-dim and (dk, dv) checks, ``sdpa_kernel``,
-``bwd_dkv_kernel``, depthwise's map check) applied to CPU tensors of each dtype and width.
+``bwd_dq_kernel``, ``bwd_dkv_kernel``, depthwise's map check) applied to CPU tensors of each dtype and width.
 Every kernel takes bf16 and fp32 operands of one dtype; fp16, fp64 and
 mixed dtypes raise TypeError naming both, other widths ValueError.
 """
@@ -29,6 +29,12 @@ def _bwd(dtype, d):
     q = _t(d, dtype)
     fa._check_heads("flash_sdpa backward", fa._BWD_D, q, q, q, q, q)
     return "flash_sdpa_bwd"
+
+
+def _dq(dtype, d):
+    q = _t(d, dtype)
+    dt = fa._check_heads("flash_sdpa backward", fa._BWD_D, q, q, q, q, q)
+    return fa.bwd_dq_kernel(dt, d)
 
 
 def _dkv(dtype, d):
@@ -73,8 +79,8 @@ CASES = [
     (_sdpa, (F32, 64), "flash_sdpa"),
     (_sdpa, (BF16, 80), ValueError),
     (_sdpa, (F32, 80), ValueError),
-    # its backward kernels: dq (and fp32 dkv) on mma.sync; the bf16 dkv
-    # kernel at d=32 on wgmma
+    # its backward kernels: the bf16 dkv kernel at d=32 and both bf16
+    # kernels at d=256 on wgmma; the rest on mma.sync
     (_bwd, (BF16, 32), "flash_sdpa_bwd"),
     (_bwd, (F32, 32), "flash_sdpa_bwd"),
     (_bwd, (F32, 256), "flash_sdpa_bwd"),
@@ -83,10 +89,19 @@ CASES = [
     (_bwd, (BF16, 64), ValueError),
     (_dkv, (BF16, 32), "flash_sdpa_bwd_h"),
     (_dkv, (F32, 32), "flash_sdpa_bwd"),
-    (_dkv, (BF16, 256), "flash_sdpa_bwd"),
+    (_dkv, (BF16, 256), "flash_sdpa_bwd_wide_h"),
     (_dkv, (F32, 256), "flash_sdpa_bwd"),
     (_dkv, (F16, 32), TypeError),
+    (_dkv, (F16, 256), TypeError),
     (_dkv, (BF16, 64), ValueError),
+    (_dkv, (F32, 80), ValueError),
+    (_dq, (BF16, 32), "flash_sdpa_bwd"),
+    (_dq, (F32, 32), "flash_sdpa_bwd"),
+    (_dq, (BF16, 256), "flash_sdpa_bwd_wide_h"),
+    (_dq, (F32, 256), "flash_sdpa_bwd"),
+    (_dq, (F16, 256), TypeError),
+    (_dq, (F64, 32), TypeError),
+    (_dq, (BF16, 64), ValueError),
     # the cached bank, exact and int8 keys
     (_memattn, (BF16, 256), "flash_memattn"),
     (_memattn, (F32, 256), "flash_memattn"),
