@@ -7,8 +7,9 @@ Phases, each printing its own lines:
   1. environment: the card's name and power limit (nvidia-smi), torch and
      CUDA versions, TF32 settings, and the build of the CUDA kernels
      (csrc/*.cu, one nvcc per source, all started together); for each
-     wgmma kernel (flash_sdpa_h at d=32 and 64, flash_sdpa_bwd_h, and the
-     d=256 pair flash_sdpa_bwd_dq_wide_h / flash_sdpa_bwd_dkv_wide_h) one
+     wgmma kernel (flash_sdpa_h at d=32 and 64, flash_sdpa_bwd_h, the bf16
+     d=256 pair flash_sdpa_bwd_dq_wide_h / flash_sdpa_bwd_dkv_wide_h and the
+     fp32 one flash_sdpa_bwd_dq_wide_f32 / flash_sdpa_bwd_dkv_wide_f32) one
      line of registers, spilled bytes and shared memory a block, and blocks
      an SM, as the runtime reports them;
   2. the main path at full width: EfficientViT-b1 ("EV-M") at 1008^2 with
@@ -149,13 +150,18 @@ Phases, each printing its own lines:
      kernel flash_memattn or flash_memattn_q8; int8 vs exact mask IoU mean >
      0.98); one Stage-3 step at batch 4 (launches as [train]); a 3-frame
      tracker training clip on a compact bank (forward and backward launches
-     as [tracker_train]). Counters are set to 0 just before each and read
+     as [tracker_train]; one line: the backward's wall ms, its device time
+     and the fp32 d=256 pair's share of it, the split passes of
+     csrc/flash_sdpa_bwd_wide_h_fp32.cu charged to the kernel launched after
+     them). Counters are set to 0 just before each and read
      just after. Each fp32 instantiation (flash_sdpa d=32 and d=256, its dq
      and dkv at d=32 and d=256, flash_memattn, flash_memattn_q8,
      flash_xattn_rpb, depthwise_conv2d forward and backward) is held against
      its fp32 plain version on the inputs of its largest launch there, at
      FP32_TOL, and timed as in phase 3 (library: fp32 SDPA, fp32 F.conv2d
-     with cuDNN's TF32 off). Phase 3's flash_sdpa row is the wgmma kernel
+     with cuDNN's TF32 off); at the clip's cross shape the d=256 pair's
+     split pass (split_parts) is held bit for bit to split_parts_plain on
+     the rows its kernels read. Phase 3's flash_sdpa row is the wgmma kernel
      (csrc/flash_sdpa_h.cu); [train] times it again at the step's
      (4, 8, 5184, 32).
   11. [sam3] the SAM3 teacher at full width (ViTDet ViT-H trunk: 32 blocks,
@@ -286,6 +292,33 @@ def write_out(name, text):
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, name), "w") as f:
         f.write(text + "\n")
+
+
+def charge_helpers(prof, owners, helper):
+    """Device us of each owner kernel (a name pattern) in a profile, with
+    every launch whose name holds `helper` charged to the next owner launch
+    after it on the device timeline (a wrapper's pre-pass and its kernel):
+    {owner: us}. Raises if an owner or the helper has no launch."""
+    import torch
+
+    launches = sorted((ev.time_range.start, ev.name, ev.time_range.elapsed_us())
+                      for ev in prof.events()
+                      if ev.device_type == torch.autograd.DeviceType.CUDA)
+    out, pending = {o: 0.0 for o in owners}, 0.0
+    seen = dict.fromkeys((*owners, helper), 0)
+    for _, name, us in launches:
+        if helper in name:
+            pending += us
+            seen[helper] += 1
+            continue
+        for o in owners:
+            if o in name:
+                out[o] += us + pending
+                pending = 0.0
+                seen[o] += 1
+    if not all(seen.values()):
+        raise AssertionError(f"profile: no launch of {[k for k, n in seen.items() if not n]}")
+    return out
 
 
 def profile_kernels(fn, train=False):
@@ -485,10 +518,12 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
     # the wgmma kernels as the runtime holds them, at the main path's 5184 keys
-    # (the d=256 dq kernel at the clip's 36352 keys: its tile list grows with them)
+    # (the d=256 dq kernels at the clip's 36352 keys: their tile lists grow with them)
     for kernel, d, lk in (("flash_sdpa_h", 32, 5184), ("flash_sdpa_h", 64, 5184),
                           ("flash_sdpa_bwd_h", 32, 5184), ("flash_sdpa_bwd_dq_wide_h", 256, 36352),
-                          ("flash_sdpa_bwd_dkv_wide_h", 256, 36352)):
+                          ("flash_sdpa_bwd_dkv_wide_h", 256, 36352),
+                          ("flash_sdpa_bwd_dq_wide_f32", 256, 36352),
+                          ("flash_sdpa_bwd_dkv_wide_f32", 256, 36352)):
         r = fa.kernel_resources(kernel, d, lk)
         log(f"[build] {kernel} d={d}: {r['registers']} registers a thread, {r['spill_bytes']} "
             f"bytes of local memory (spills) a thread, {r['smem_bytes']} bytes of shared memory "
@@ -2778,8 +2813,19 @@ def fp32_phase(smi, main_ref):
         raise AssertionError("[fp32] tracker clip: non-finite loss or gradients")
     del loss, grads
 
-    # the backward alone under the profiler: device ms a launch (the
-    # depthwise backward's dx and dw / db kernels a call)
+    # the backward alone: its wall time and the clip's peak memory, then
+    # under the profiler its device time and device ms a launch (the d=256
+    # kernels with the split passes their wrappers launch just before them;
+    # the depthwise backward's dx and dw / db kernels a call)
+    torch.cuda.reset_peak_memory_stats()
+    loss, _ = clip()
+    torch.cuda.synchronize()
+    t_bwd = time.perf_counter()
+    loss.backward()
+    torch.cuda.synchronize()
+    bwd_wall_ms = (time.perf_counter() - t_bwd) * 1e3
+    clip_peak = torch.cuda.max_memory_allocated() / 2**30
+    core.zero_grad(set_to_none=True)
     loss, _ = clip()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2788,20 +2834,30 @@ def fp32_phase(smi, main_ref):
     del loss
     evs = [(ev.key, ev.self_device_time_total, ev.count) for ev in prof.key_averages()
            if ev.device_type == torch.autograd.DeviceType.CUDA]
+    bwd_dev_us = sum(u for _, u, _ in evs)
+    owned = charge_helpers(prof, ("flash_bwd_dq_wide_f32_kernel", "flash_bwd_dkv_wide_f32_kernel"),
+                           "split_parts_kernel")
     dev_clip = {}
     for name, patterns, calls in (
-            ("flash_sdpa_bwd_dq_d256_fp32", ("wide::bwd_dq_kernel<float>",), 8 * n_tr),
-            ("flash_sdpa_bwd_dkv_d256_fp32", ("wide::bwd_dkv_kernel<float>",), 8 * n_tr),
+            ("flash_sdpa_bwd_dq_d256_fp32", ("flash_bwd_dq_wide_f32_kernel",), 8 * n_tr),
+            ("flash_sdpa_bwd_dkv_d256_fp32", ("flash_bwd_dkv_wide_f32_kernel",), 8 * n_tr),
             ("depthwise_conv2d_bwd_fp32", ("dw7_kernel<float>", "dw7_wgrad_kernel<float>"),
              2 * n_tr)):
         us = sum(u for key, u, _ in evs if any(pt in key for pt in patterns))
-        if us:
-            dev_clip[name] = us / 1e3 / calls
+        if not us:
+            raise AssertionError(f"[fp32] clip backward: no device time matches {patterns}")
+        us = owned.get(patterns[0], us)  # with its split passes
+        dev_clip[name] = us / 1e3 / calls
+    pair_us = sum(owned.values())
+    log(f"[fp32] clip backward ({FP32_CLIP_FRAMES} frames): {bwd_wall_ms:.1f} ms wall, "
+        f"{bwd_dev_us / 1e3:.1f} ms of device time; the d=256 pair with its split passes "
+        f"{pair_us / 1e3:.1f} ms of it ({100 * pair_us / bwd_dev_us:.1f}%); the clip's peak "
+        f"memory {clip_peak:.2f} GiB | {smi}")
     del prof, evs
     core.zero_grad(set_to_none=True)
     (q, k, v, key_bias, o, lse, do, scale), _ = capture.args[("flash_sdpa_bwd_dq", "cross")]
-    rows += bwd_rows_fp32(q, k, v, key_bias, o, lse, do, scale, 8 * n_tr, "flash_bwd_wide.cuh",
-                          "_d256", dev_clip, row)
+    rows += bwd_rows_fp32(q, k, v, key_bias, o, lse, do, scale, 8 * n_tr,
+                          "flash_sdpa_bwd_wide_h_fp32.cu", "_d256", dev_clip, row)
     del q, k, v, o, lse, do
     (x, kernel, g), _ = capture.args[("depthwise_conv2d_bwd", 256)]
     dx, dwt, db = dw.depthwise_conv2d_bwd(x, kernel, g)
@@ -3125,10 +3181,41 @@ def sam3_phase(smi, main_ref):
     return rows
 
 
+def split_parts_check(q, k, v, key_bias, do):
+    """The split pass of the fp32 d=256 backward as its wrappers launch it
+    (K and V: the rows of live key tiles; Q and dO: every row), held bit
+    for bit to split_parts_plain on the rows the kernels read."""
+    import torch
+
+    from efficientsam3_tpu_torch.ops import flash_attention as fa
+
+    b, lk, tile = k.shape[0], k.shape[2], fa._WIDE_F32_TILE
+    kb, _ = fa._tma_rows(key_bias, fa.NEG_INF)
+    nt = -(-lk // tile)
+    live = torch.zeros((b, nt * tile), dtype=torch.bool, device=k.device)
+    live[:, :lk] = kb[:, :lk] > fa.NEG_INF / 2
+    rows = live.reshape(b, nt, tile).any(-1).repeat_interleave(tile, 1)[:, :lk]
+    for name, x, args in (("k", k, (kb, tile)), ("v", v, (kb, tile)), ("q", q, ()),
+                          ("do", do, ())):
+        got = fa.split_parts(x, *args).view(torch.int16)
+        want = fa.split_parts_plain(x).view(torch.int16)
+        if args:
+            sel = rows[None, :, None, :, None].expand_as(got)
+            got, want = got[sel], want[sel]
+        if not torch.equal(got, want):
+            bad = int((got != want).sum().item())
+            raise AssertionError(f"split_parts ({name}, {tuple(x.shape)}): {bad} of "
+                                 f"{want.numel()} parts differ from split_parts_plain")
+        del got, want
+    log(f"[fp32] split_parts: k, v ({int(rows.sum().item())} rows of live {tile}-key tiles in "
+        f"{b} batch rows), q, dO {tuple(q.shape)} bit-identical to split_parts_plain")
+
+
 def bwd_rows_fp32(q, k, v, key_bias, o, lse, do, scale, launches, source, suffix, device, row):
     """The dq and dkv rows of the fp32 backward kernels at captured inputs:
-    each held to its plain version at FP32_TOL of the largest magnitude,
-    SDPA's fp32 backward (bool key mask) as the library time."""
+    each held to its plain version at FP32_TOL of the largest magnitude
+    (at d=256 their split pass too, bit for bit: split_parts_check), SDPA's
+    fp32 backward (bool key mask) as the library time."""
     import torch
     import torch.nn.functional as F
 
@@ -3144,6 +3231,8 @@ def bwd_rows_fp32(q, k, v, key_bias, o, lse, do, scale, launches, source, suffix
     err_dkv = max(check_rel(f"flash_sdpa_bwd_dkv{suffix}_fp32 (dk)", dk, want_dk, FP32_TOL),
                   check_rel(f"flash_sdpa_bwd_dkv{suffix}_fp32 (dv)", dv, want_dv, FP32_TOL))
     del want_dq, want_dk, want_dv, dq, dk, dv
+    if d == 256:
+        split_parts_check(q, k, v, key_bias, do)
     torch.cuda.empty_cache()
     live = int((key_bias > fa.NEG_INF / 2).sum().item())  # summed over the batch
     scores = h * lq * live

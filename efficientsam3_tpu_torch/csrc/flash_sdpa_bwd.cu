@@ -1,8 +1,8 @@
-// Flash attention backward for Hopper (sm_90a) on mma.sync: at head dim 32
-// the dq kernel in bf16 and fp32 and the dkv kernel in fp32; at head dim
-// 256 both kernels in fp32 (flash_bwd_wide.cuh). The wgmma kernels take the
-// rest: the bf16 dkv kernel at d = 32 is flash_sdpa_bwd_h.cu's, and bf16
-// dq and dkv at d = 256 are flash_sdpa_bwd_wide_h.cu's.
+// Flash attention backward for Hopper (sm_90a) on mma.sync, at head dim 32
+// only: the dq kernel in bf16 and fp32 and the dkv kernel in fp32. The
+// wgmma kernels take the rest: the bf16 dkv kernel at d = 32 is
+// flash_sdpa_bwd_h.cu's; at d = 256 dq and dkv are flash_sdpa_bwd_wide_h.cu's
+// in bf16 and flash_sdpa_bwd_wide_h_fp32.cu's in fp32.
 //
 // Replaces efficientsam3_tpu/ops/pallas/flash_attention.py `_flash_bwd`:
 // `_bwd_dq_kernel` (its pallas_call at :1082) and `_bwd_dkv_kernel` (:1098),
@@ -49,14 +49,10 @@
 // parts (attn_common.cuh): Q, K, V, dO staged or held as hi and lo, P and
 // dS split in registers (in JAX they stay fp32: the casts to the operand
 // dtype are no-ops), three products each; Delta is summed from the fp32
-// values. Gradients come back in the operands' dtype.
-//
-// Head dim 256 in fp32 (the tracker's memory attention under autograd in
-// the default build) runs the kernels of flash_bwd_wide.cuh, 8 warps a
-// block with the accumulators split over warps by columns; the entry points
-// below dispatch on d and refuse what the wgmma kernels serve.
+// values. Gradients come back in the operands' dtype. The entry points
+// below take d = 32 only and refuse what the wgmma kernels serve.
 
-#include "flash_bwd_wide.cuh"
+#include "flash_qsmem.cuh"
 
 using namespace attn;
 
@@ -215,7 +211,7 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     if constexpr (NP == 1) {
       mma_tile_x<NP>(acc, s, ks);  // dQ += dS K
-    } else {  // fp32: a fresh fragment a tile, added with round-to-nearest (flash_bwd_wide.cuh)
+    } else {  // fp32: a fresh fragment a tile, added with round-to-nearest
       float part[D / 8][4];
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) part[n][0] = part[n][1] = part[n][2] = part[n][3] = 0.f;
@@ -368,8 +364,9 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* key_bias
 
 }  // namespace
 
-// fp32 != 0: q, k, v, o, dout and dq are float32, else bfloat16 (d = 32
-// only: bf16 at d = 256 is flash_sdpa_bwd_wide_h.cu's).
+// fp32 != 0: q, k, v, o, dout and dq are float32, else bfloat16; d = 32
+// only (d = 256 is flash_sdpa_bwd_wide_h.cu's and
+// flash_sdpa_bwd_wide_h_fp32.cu's).
 extern "C" int flash_sdpa_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* key_bias, const void* o, const void* dout,
                                  const void* lse, void* delta, void* dq, int B, int H, int lq,
@@ -379,20 +376,16 @@ extern "C" int flash_sdpa_bwd_dq(const void* q, const void* k, const void* v,
                                  long long sob, long long soh, long long son, long long sdb,
                                  long long sdh, long long sdn, long long sgb, long long sgh,
                                  long long sgn, void* stream) {
-  decltype(&launch_dq<bf16>) launch;
-  if (d == wide::D && fp32)  // bf16 at d = 256 is flash_sdpa_bwd_wide_h.cu's
-    launch = wide::launch_dq<float>;
-  else if (d == D)
-    launch = fp32 ? launch_dq<float> : launch_dq<bf16>;
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (d != D) return static_cast<int>(cudaErrorInvalidValue);
+  decltype(&launch_dq<bf16>) launch = fp32 ? launch_dq<float> : launch_dq<bf16>;
   return launch(q, k, v, key_bias, o, dout, lse, delta, dq, B, H, lq, lk, sm_scale, sqb, sqh,
                 sqn, skb, skh, skn, svb, svh, svn, sob, soh, son, sdb, sdh, sdn, sgb, sgh, sgn,
                 static_cast<cudaStream_t>(stream));
 }
 
-// q, k, v, dout, dk and dv float32 (fp32 != 0): bf16 is flash_sdpa_bwd_h.cu's
-// at d = 32 and flash_sdpa_bwd_wide_h.cu's at d = 256.
+// q, k, v, dout, dk and dv float32 (fp32 != 0) at d = 32: bf16 is
+// flash_sdpa_bwd_h.cu's, and d = 256 flash_sdpa_bwd_wide_h.cu's and
+// flash_sdpa_bwd_wide_h_fp32.cu's.
 extern "C" int flash_sdpa_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* key_bias, const void* dout, const void* lse,
                                   const void* delta, void* dk, void* dv, int B, int H, int lq,
@@ -402,16 +395,8 @@ extern "C" int flash_sdpa_bwd_dkv(const void* q, const void* k, const void* v,
                                   long long sdb, long long sdh, long long sdn, long long skgb,
                                   long long skgh, long long skgn, long long svgb,
                                   long long svgh, long long svgn, void* stream) {
-  decltype(&launch_dkv<float>) launch;
-  if (!fp32)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (d == wide::D)
-    launch = wide::launch_dkv<float>;
-  else if (d == D)
-    launch = launch_dkv<float>;
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return launch(q, k, v, key_bias, dout, lse, delta, dk, dv, B, H, lq, lk, sm_scale, sqb, sqh,
+  if (!fp32 || d != D) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dkv<float>(q, k, v, key_bias, dout, lse, delta, dk, dv, B, H, lq, lk, sm_scale, sqb, sqh,
                 sqn, skb, skh, skn, svb, svh, svn, sdb, sdh, sdn, skgb, skgh, skgn, svgb, svgh,
                 svgn, static_cast<cudaStream_t>(stream));
 }

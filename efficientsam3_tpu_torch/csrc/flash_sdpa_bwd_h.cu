@@ -5,8 +5,9 @@
 // dK / dV half (`_bwd_dkv_kernel` :970, its pallas_call at :1098) where
 // Stage-3 training runs it: the fusion encoder's self-attention, (4, 8,
 // 5184, 32) bf16, 6 launches a step. dQ and Delta = rowsum(dO o O) come from
-// the dq kernel of flash_sdpa_bwd.cu, unchanged; fp32 operands and head dim
-// 256 stay on flash_sdpa_bwd.cu and flash_bwd_wide.cuh.
+// the dq kernel of flash_sdpa_bwd.cu, unchanged; fp32 operands at d = 32
+// stay on flash_sdpa_bwd.cu, and head dim 256 is flash_sdpa_bwd_wide_h.cu's
+// (bf16) and flash_sdpa_bwd_wide_h_fp32.cu's (fp32).
 //
 // What it computes is the Pallas kernel's: P rebuilt from the forward's
 // saved natural-log LSE, P = exp(S * scale + key_bias - lse), 0 on columns
@@ -89,7 +90,6 @@ constexpr int OFF_DELTA = OFF_LSE + NSTAGE * BQ * 4;  // [NSTAGE][BQ] f32
 constexpr int OFF_BAR = OFF_DELTA + NSTAGE * BQ * 4;  // full[NSTAGE], empty[NSTAGE]
 constexpr int SMEM = 1024 + OFF_BAR + 2 * NSTAGE * 8;
 constexpr int STAGE_TX = 2 * TILE + 2 * BQ * 4;
-constexpr float DEAD = -1e30f;  // -lse * log2(e) of a masked or padded query: P = 0
 
 __global__ void __launch_bounds__(NTH, 1)
 flash_bwd_dkv_h_kernel(const __grid_constant__ CUtensorMap tm_q,

@@ -8,8 +8,9 @@
 // self-attention q/k/v (8, 1, 5184, 256) and the plain path's
 // cross-attention over up to 36352 keys (frame 7 of an 8-frame clip), 8
 // object slots of which 3 are live, 56 + 56 launches a clip. fp32 operands
-// stay on flash_bwd_wide.cuh (wgmma's tf32 form needs both operands
-// K-major, and V and dO are not).
+// at d = 256 are flash_sdpa_bwd_wide_h_fp32.cu's (the same design on split
+// bf16 parts: wgmma's tf32 form needs both operands K-major, and V and dO
+// are not); d = 32 is flash_sdpa_bwd.cu's and flash_sdpa_bwd_h.cu's.
 //
 // What it computes is the Pallas kernels': P rebuilt from the forward's
 // saved natural-log LSE, P = exp(S * scale + key_bias - lse) in fp32, 0 on
@@ -30,7 +31,7 @@
 // 5184 x 108948 x 256 (S, dP, dQ), 868 GFLOP (0.877 ms at the bf16 peak),
 // the dkv kernel 4 (S, dP, dV, dK), 1157 GFLOP (1.170 ms), against one
 // exponential per 256 multiply-adds and ~150 MB of operands: both bound by
-// the tensor cores. flash_bwd_wide.cuh's mma.sync kernels took 5.4496 and
+// the tensor cores. The mma.sync kernels before these took 5.4496 and
 // 6.1859 ms there (6.2x and 5.3x): mma.sync from shared memory (a third of
 // the peak), B fragments by ldmatrix.trans, cp.async tiles with no
 // pipelining, P and dS through shared memory in two phases a tile.
@@ -133,19 +134,15 @@ constexpr int PROD_REGS = 24, CONS_REGS = 240;
 static_assert(NCONS * CONS_REGS + 128 * PROD_REGS <= 65536, "register pool");
 constexpr int SLAB = 64 * 128;    // a 64-row, 64-column slab (128-byte rows)
 constexpr int TILE = 4 * SLAB;    // a 64 x 256 tile
-constexpr float DEAD = -1e30f;    // -lse * log2(e) of a masked or padded query: P = 0
 
 // Four slabs of rows row0.. of one (batch, head) into the tile at dst.
 __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                           int row0, int h, int b) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) tma_load_4d(dst + j * SLAB, map, bar, 64 * j, row0, h, b);
+  tma_load_slabs<SLAB>(dst, map, bar, row0, h, b);
 }
 
 // acc (64 x 64) = A B^T over the 256 columns, A and B 64-row tiles, both
-// K-major (16 k-steps, a slab every four): each k-step's descriptor is the
-// first one plus its offset in 16-byte units (the start address field does
-// not carry: shared addresses stay under 2^18). The fence comes first: the
+// K-major (16 k-steps, a slab every four: kstep_off). The fence comes first: the
 // product may be issued inside a branch while the previous tile's
 // gradient product runs, and without it ptxas inserts its own warpgroup
 // arrives there and serialises the wgmma (its warnings C7519 / C7520).
@@ -154,8 +151,7 @@ __device__ __forceinline__ void score(float (&acc)[32], uint32_t a_addr, uint32_
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint64_t off = static_cast<uint64_t>(((kk >> 2) * SLAB + (kk & 3) * 32) >> 4);
-    wgmma_m64n64k16_ss(acc, da + off, db + off, kk > 0);
+    wgmma_m64n64k16_ss(acc, da + kstep_off<SLAB>(kk), db + kstep_off<SLAB>(kk), kk > 0);
   }
 }
 
@@ -201,8 +197,7 @@ __device__ __forceinline__ void score_rs(float (&acc)[32], const uint32_t (&a)[D
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_rs<0>(acc, a[kk], db + static_cast<uint64_t>(((kk >> 2) * SLAB + (kk & 3) * 32) >> 4),
-                kk > 0);
+    wgmma_rs<0>(acc, a[kk], db + kstep_off<SLAB>(kk), kk > 0);
 }
 
 __global__ void __launch_bounds__(NTHP, 1)
@@ -238,8 +233,7 @@ flash_bwd_dq_wide_h_kernel(const __grid_constant__ CUtensorMap tm_k,
   dq += b * sgb + h * sgh;
 
   // Delta = rowsum(dO o O) in fp32, 4 consumer threads a row of 64 columns
-  // each; the tile table cleared meanwhile
-  for (int i = threadIdx.x; i < ntiles; i += NTHP) tile_live[i] = 0;
+  // each
   if (threadIdx.x < NCONS) {
     const int r = threadIdx.x >> 2, part = threadIdx.x & 3, row = q0 + r;
     float sum = 0.f;
@@ -266,14 +260,6 @@ flash_bwd_dq_wide_h_kernel(const __grid_constant__ CUtensorMap tm_k,
       if (row < lq) delta[(long long)bh * lq + row] = sum;
     }
   }
-  __syncthreads();
-  // which key tiles hold a live key (stores of 1 may race: same value), 4
-  // keys a 16-byte load; keys past lk are padding at -1e9
-  const float4* kb4 = reinterpret_cast<const float4*>(key_bias);
-  for (int i = threadIdx.x; i < lkb / 4; i += NTHP) {
-    const float4 bv = kb4[i];
-    if (fmaxf(fmaxf(bv.x, bv.y), fmaxf(bv.z, bv.w)) > 0.5f * NEG_INF) tile_live[4 * i / BK] = 1;
-  }
   if (threadIdx.x == 0) {
     for (int s = 0; s < NSTAGE; ++s) {
       mbar_init(bar_full + 8 * s, 1);
@@ -281,53 +267,31 @@ flash_bwd_dq_wide_h_kernel(const __grid_constant__ CUtensorMap tm_k,
     }
     mbar_init_fence();
   }
-  __syncthreads();
-  if (warp == 0) {
-    int n = 0;
-    for (int base = 0; base < ntiles; base += 32) {
-      const int i = base + lane;
-      const bool lv = i < ntiles && tile_live[i];
-      const unsigned mask = __ballot_sync(0xffffffffu, lv);
-      if (lv) live_list[n + __popc(mask & ((1u << lane) - 1u))] = static_cast<unsigned short>(i);
-      n += __popc(mask);
-    }
-    if (lane == 0) *nlive_s = n;
-  }
-  __syncthreads();
-  const int nlive = *nlive_s;
+  // the live key tiles (keys past lk are padding at -1e9)
+  const int nlive = live_tiles<BK, NTHP>(key_bias, lkb, ntiles, tile_live, live_list, nlive_s);
 
   if (nlive == 0) {  // an empty slot: zero dQ, no loads
-    const __nv_bfloat162 zero = __floats2bfloat162_rn(0.f, 0.f);
-    for (int i = threadIdx.x; i < BQ * D / 2; i += NTHP) {
-      const int row = q0 + i / (D / 2), c = 2 * (i % (D / 2));
-      if (row < lq) *reinterpret_cast<__nv_bfloat162*>(dq + row * sgn + c) = zero;
-    }
+    zero_rows<BQ, D, NTHP>(dq, sgn, q0, lq);
     return;
   }
 
   if (warp >= NCONS / 32) {
     // ---------------- producer warpgroup: one thread issues TMA
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PROD_REGS) : "memory");
-    if (warp == NCONS / 32 && lane == 0) {
-      for (int i = 0; i < nlive; ++i) {
-        const int s = i % NSTAGE;
-        mbar_wait(bar_empty + 8 * s, ((i / NSTAGE) & 1) ^ 1);  // the first round passes
+    if (warp == NCONS / 32 && lane == 0)
+      produce<NSTAGE>(nlive, bar_full, bar_empty, STAGE_TX, [&](int i, int s, uint32_t full) {
         const int key0 = live_list[i] * BK;
-        const uint32_t full = bar_full + 8 * s;
-        mbar_expect_tx(full, STAGE_TX);
         load_tile(s_base + OFF_K + s * TILE, &tm_k, full, key0, h, b);
         load_tile(s_base + OFF_V + s * TILE, &tm_v, full, key0, h, b);
         tma_load_2d(s_base + OFF_BIAS + s * BK * 4, &tm_bias, full, key0, b);
-      }
-    }
+      });
     return;
   }
 
   // ---------------- consumer warpgroups: group 0 S, P, dS; group 1 dP
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONS_REGS) : "memory");
   const int wg = warp >> 2, wt = threadIdx.x & 127;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = (warp & 3) * 16 + g, r1 = r0 + 8;  // this thread's rows of the tile
+  const int r0 = (warp & 3) * 16 + (lane >> 2), r1 = r0 + 8;  // this thread's rows of the tile
   const float scale2 = sm_scale * LOG2E;
   float* xs = reinterpret_cast<float*>(smem + OFF_X);
   uint32_t* dss = reinterpret_cast<uint32_t*>(smem + OFF_DS);
@@ -366,23 +330,9 @@ flash_bwd_dq_wide_h_kernel(const __grid_constant__ CUtensorMap tm_k,
     const float dl0 = delta_s[r0], dl1 = delta_s[r1];
     for (int i = 0; i < nlive; ++i) {
       const int s = i % NSTAGE;
-      const int key0 = live_list[i] * BK;
-      const float* bs = bias_s + s * BK;
       named_sync<NCONS>(BAR_DP);  // dP of tile i
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = j * 8 + 2 * t;  // this thread's keys c, c + 1
-        const float2 bv = *reinterpret_cast<const float2*>(bs + c);
-        const float b0 = key0 + c < lk ? bv.x * LOG2E : NEG_INF * LOG2E;
-        const float b1 = key0 + c + 1 < lk ? bv.y * LOG2E : NEG_INF * LOG2E;
-        const float p00 = ex2(fmaf(sc[4 * j + 0], scale2, b0) + nl0);  // row r0, key c
-        const float p01 = ex2(fmaf(sc[4 * j + 1], scale2, b1) + nl0);
-        const float p10 = ex2(fmaf(sc[4 * j + 2], scale2, b0) + nl1);  // row r1
-        const float p11 = ex2(fmaf(sc[4 * j + 3], scale2, b1) + nl1);
-        const float* dp = xs + 4 * j * 128 + wt;
-        da[j >> 1][(j & 1) * 2 + 0] = pack_bf16(p00 * (dp[0] - dl0), p01 * (dp[128] - dl0));
-        da[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p10 * (dp[256] - dl1), p11 * (dp[384] - dl1));
-      }
+      dq_ds<8>(sc, bias_s + s * BK, xs, live_list[i] * BK, lk, scale2, nl0, nl1, dl0, dl1);
+      pack_frags<8>(sc, da);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
@@ -408,8 +358,7 @@ flash_bwd_dq_wide_h_kernel(const __grid_constant__ CUtensorMap tm_k,
       if (lane == 0) mbar_arrive(bar_empty + 8 * s);  // this warp is done with stage s
     }
   } else {
-#pragma unroll
-    for (int e = 0; e < 32; ++e) xs[e * 128 + wt] = sc[e];
+    xchg_put(xs, wt, sc);
     named_arrive<NCONS>(BAR_DP);  // dP of tile 0
     for (int i = 0; i < nlive; ++i) {
       const int s = i % NSTAGE;
@@ -437,24 +386,14 @@ flash_bwd_dq_wide_h_kernel(const __grid_constant__ CUtensorMap tm_k,
       fence_regs(da);
       if (lane == 0) mbar_arrive(bar_empty + 8 * s);  // this warp is done with stage s
       if (i + 1 < nlive) {  // group 0 has read dP of tile i (it sent dS)
-#pragma unroll
-        for (int e = 0; e < 32; ++e) xs[e * 128 + wt] = sc[e];
+        xchg_put(xs, wt, sc);
         named_arrive<NCONS>(BAR_DP);
       }
     }
   }
 
   // rows r0, r1 of the tile, columns 128 wg .. : dQ * scale in bf16
-#pragma unroll
-  for (int n = 0; n < 16; ++n) {
-    const int c = wg * 128 + n * 8 + 2 * t;
-    if (q0 + r0 < lq)
-      *reinterpret_cast<__nv_bfloat162*>(dq + (q0 + r0) * sgn + c) =
-          __floats2bfloat162_rn(acc[4 * n + 0] * sm_scale, acc[4 * n + 1] * sm_scale);
-    if (q0 + r1 < lq)
-      *reinterpret_cast<__nv_bfloat162*>(dq + (q0 + r1) * sgn + c) =
-          __floats2bfloat162_rn(acc[4 * n + 2] * sm_scale, acc[4 * n + 3] * sm_scale);
-  }
+  store_acc(dq, sgn, acc, q0 + r0, lq, wg * 128, sm_scale);
 }
 
 // ---------------------------------------------------------------- dkv
@@ -499,11 +438,6 @@ flash_bwd_dkv_wide_h_kernel(const __grid_constant__ CUtensorMap tm_q,
   dk += b * skgb + h * skgh;
   dv += b * svgb + h * svgh;
 
-  int live = 0;
-  if (threadIdx.x < BK) {
-    const int key = key0 + threadIdx.x;
-    live = key < lk && key_bias[key] > 0.5f * NEG_INF;
-  }
   if (threadIdx.x == 0) {
     for (int s = 0; s < NSTAGE; ++s) {
       mbar_init(bar_full + 8 * s, 1);
@@ -512,17 +446,8 @@ flash_bwd_dkv_wide_h_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_init(bar_kv, 1);
     mbar_init_fence();
   }
-  if (!__syncthreads_or(live)) {  // every key of the block masked: zero gradients
-    const __nv_bfloat162 zero = __floats2bfloat162_rn(0.f, 0.f);
-    for (int i = threadIdx.x; i < BK * D / 2; i += NTHP) {
-      const int row = key0 + i / (D / 2), c = 2 * (i % (D / 2));
-      if (row < lk) {
-        *reinterpret_cast<__nv_bfloat162*>(dk + row * skgn + c) = zero;
-        *reinterpret_cast<__nv_bfloat162*>(dv + row * svgn + c) = zero;
-      }
-    }
-    return;
-  }
+  // every key of the block masked: zero gradients
+  if (!keys_live<BK, D, NTHP>(key_bias, key0, lk, dk, skgn, dv, svgn)) return;
   const int nq = (lq + BQ - 1) / BQ;
 
   if (warp >= NCONS / 32) {
@@ -532,24 +457,19 @@ flash_bwd_dkv_wide_h_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_expect_tx(bar_kv, 2 * TILE);
       load_tile(s_base + OFF_K, &tm_k, bar_kv, key0, h, b);
       load_tile(s_base + OFF_V, &tm_v, bar_kv, key0, h, b);
-      for (int i = 0; i < nq; ++i) {
-        const int s = i % NSTAGE;
-        mbar_wait(bar_empty + 8 * s, ((i / NSTAGE) & 1) ^ 1);  // the first round passes
+      produce<NSTAGE>(nq, bar_full, bar_empty, STAGE_TX, [&](int i, int s, uint32_t full) {
         const int q0 = i * BQ;
-        const uint32_t full = bar_full + 8 * s;
-        mbar_expect_tx(full, STAGE_TX);
         load_tile(s_base + OFF_Q + s * TILE, &tm_q, full, q0, h, b);
         load_tile(s_base + OFF_DO + s * TILE, &tm_do, full, q0, h, b);
         tma_load_2d(s_base + OFF_LSE + s * BQ * 4, &tm_lse, full, q0, bh);
         tma_load_2d(s_base + OFF_DELTA + s * BQ * 4, &tm_delta, full, q0, bh);
-      }
+      });
     }
   } else {
     // ---------------- consumer warpgroups: group 0 P^T and dV, group 1 dK
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONS_REGS) : "memory");
-    const int wg = warp >> 2, wt = threadIdx.x & 127;
-    const int g = lane >> 2, t = lane & 3;
-    const int kr0 = key0 + (warp & 3) * 16 + g, kr1 = kr0 + 8;  // this thread's keys
+    const int wg = warp >> 2;
+    const int kr0 = key0 + (warp & 3) * 16 + (lane >> 2), kr1 = kr0 + 8;  // this thread's keys
     const float scale2 = sm_scale * LOG2E;
     const float kb0 = kr0 < lk ? key_bias[kr0] * LOG2E : NEG_INF * LOG2E;
     const float kb1 = kr1 < lk ? key_bias[kr1] * LOG2E : NEG_INF * LOG2E;
@@ -577,44 +497,13 @@ flash_bwd_dkv_wide_h_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int s = i % NSTAGE;
       const int q0 = i * BQ;
 
+      if (wg == 0)
+        dkv_send_p<8, NCONS>(sc, ps, lse_s + s * BQ, i, q0, lq, kb0, kb1, scale2, BAR_READY,
+                             BAR_FREE);
+      else
+        dkv_recv_ds<8, NCONS>(sc, ps, delta_s + s * BQ, i + 1 < nq, BAR_READY, BAR_FREE);
       uint32_t pa[4][4];  // P^T or dS^T as the A operand of four k-steps of 16 queries
-      if (wg == 0) {
-        const float* ls = lse_s + s * BQ;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int c = j * 8 + 2 * t;  // this thread's queries c, c + 1
-          const float2 lv = *reinterpret_cast<const float2*>(ls + c);
-          const float nl0 = q0 + c < lq && lv.x > 0.5f * NEG_INF ? -lv.x * LOG2E : DEAD;
-          const float nl1 = q0 + c + 1 < lq && lv.y > 0.5f * NEG_INF ? -lv.y * LOG2E : DEAD;
-          sc[4 * j + 0] = ex2(fmaf(sc[4 * j + 0], scale2, kb0) + nl0);  // key kr0, query c
-          sc[4 * j + 1] = ex2(fmaf(sc[4 * j + 1], scale2, kb0) + nl1);
-          sc[4 * j + 2] = ex2(fmaf(sc[4 * j + 2], scale2, kb1) + nl0);  // key kr1
-          sc[4 * j + 3] = ex2(fmaf(sc[4 * j + 3], scale2, kb1) + nl1);
-        }
-        if (i > 0) named_sync<NCONS>(BAR_FREE);  // group 1 has read the previous P^T
-#pragma unroll
-        for (int e = 0; e < 32; ++e) ps[e * 128 + wt] = sc[e];
-        named_arrive<NCONS>(BAR_READY);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          pa[j >> 1][(j & 1) * 2 + 0] = pack_bf16(sc[4 * j + 0], sc[4 * j + 1]);
-          pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
-        }
-      } else {
-        const float* ds = delta_s + s * BQ;
-        named_sync<NCONS>(BAR_READY);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int c = j * 8 + 2 * t;
-          const float2 dl = *reinterpret_cast<const float2*>(ds + c);
-          const float* p = ps + 4 * j * 128 + wt;
-          pa[j >> 1][(j & 1) * 2 + 0] =
-              pack_bf16(p[0] * (sc[4 * j + 0] - dl.x), p[128] * (sc[4 * j + 1] - dl.y));
-          pa[j >> 1][(j & 1) * 2 + 1] =
-              pack_bf16(p[256] * (sc[4 * j + 2] - dl.x), p[384] * (sc[4 * j + 3] - dl.y));
-        }
-        if (i + 1 < nq) named_arrive<NCONS>(BAR_FREE);
-      }
+      pack_frags<8>(sc, pa);
 
       // dV += P^T dO (group 0) or dK += dS^T Q (group 1), MN-major over four
       // slabs; with it the next query tile's S^T or dP^T
@@ -637,19 +526,10 @@ flash_bwd_dkv_wide_h_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
 
     // keys kr0, kr1: dV (group 0) or dK * scale (group 1) in bf16
-    bf16* out = wg == 0 ? dv : dk;
-    const long long sn = wg == 0 ? svgn : skgn;
-    const float mul = wg == 0 ? 1.f : sm_scale;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const int c = n * 8 + 2 * t;
-      if (kr0 < lk)
-        *reinterpret_cast<__nv_bfloat162*>(out + kr0 * sn + c) =
-            __floats2bfloat162_rn(acc[4 * n + 0] * mul, acc[4 * n + 1] * mul);
-      if (kr1 < lk)
-        *reinterpret_cast<__nv_bfloat162*>(out + kr1 * sn + c) =
-            __floats2bfloat162_rn(acc[4 * n + 2] * mul, acc[4 * n + 3] * mul);
-    }
+    if (wg == 0)
+      store_acc(dv, svgn, acc, kr0, lk, 0, 1.f);
+    else
+      store_acc(dk, skgn, acc, kr0, lk, 0, sm_scale);
   }
 }
 

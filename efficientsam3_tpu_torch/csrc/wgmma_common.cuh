@@ -1,8 +1,10 @@
 // Shared pieces of the warp-specialised Hopper attention kernels
 // (flash_sdpa_h.cu: the bf16 forward at d = 32 and 64; flash_sdpa_bwd_h.cu:
 // the bf16 dK / dV backward at d = 32; flash_sdpa_bwd_wide_h.cu: the bf16
-// dQ and dK / dV backward at d = 256): mbarriers, TMA loads, wgmma shared
-// memory descriptors and instructions, named barriers, and on the host the
+// dQ and dK / dV backward at d = 256; flash_sdpa_bwd_wide_h_fp32.cu: the
+// same at d = 256 on fp32 operands): mbarriers, TMA loads, wgmma shared
+// memory descriptors and instructions, named barriers, the exchanges
+// between consumer warpgroups, the live-tile list, and on the host the
 // tensor maps, encoded through cudaGetDriverEntryPoint (no -lcuda).
 //
 // Layouts. A (rows x D) bf16 tile is loaded by TMA in slabs of at most 64
@@ -15,7 +17,7 @@
 //  - K-major (the contraction along the row: Q, K, V, dO as QK^T-type
 //    operands): stride byte offset = 8 rows, a k-step of 16 columns is 32
 //    bytes along the row, and every fourth k-step moves to the next slab
-//    (the leading byte offset is not read);
+//    (the leading byte offset is not read; kstep_off);
 //  - MN-major (the contraction across rows: V in P V, dO in P^T dO, Q in
 //    dS^T Q, K in dS K; the transpose bit): stride byte offset = 8 rows, a
 //    k-step of 16 rows is 16 rows' bytes. The N extent is the columns: one
@@ -23,6 +25,15 @@
 //    read; at d = 256 an N of 128 or 256 spans two or four slabs, and the
 //    leading byte offset is the slab stride (rows * 128 bytes), the step
 //    from one 64-column atom to the next (desc_mn_wide).
+//
+// Split parts (fp32 operands). wgmma multiplies bf16, so an fp32 operand x
+// goes in as two bf16 parts, hi = bf16(x) (round to nearest even) and lo =
+// bf16(x - hi) (split_pair), and a product a b as hi_a hi_b + hi_a lo_b +
+// lo_a hi_b into one fp32 accumulator (attn_common.cuh has the same rule
+// for the mma.sync kernels). A part is an ordinary bf16 tile: TMA loads it
+// from a split copy, or a kernel writes it into shared memory itself in
+// the 128-byte swizzle TMA would give it (swz128, then fence_proxy_async
+// before wgmma reads it).
 #pragma once
 
 #include <cuda.h>
@@ -118,6 +129,29 @@ __device__ __forceinline__ uint64_t desc_mn_wide(uint32_t saddr, int kk, uint32_
   return make_desc<128>(saddr + kk * 16 * 128, slab, 8 * 128);
 }
 
+// Offset, in the descriptor's 16-byte units, of k-step kk (16 columns) of a
+// K-major d = 256 tile whose 64-column slabs are SLAB bytes apart (128-byte
+// swizzle): a slab every four k-steps. Added to the first k-step's
+// descriptor: the start address field does not carry, as shared addresses
+// stay under 2^18.
+template <int SLAB>
+__device__ __forceinline__ uint64_t kstep_off(int kk) {
+  return static_cast<uint64_t>(((kk >> 2) * SLAB + (kk & 3) * 32) >> 4);
+}
+
+// Byte offset of byte `byte` (0..127) of row `row` in a slab with the
+// 128-byte swizzle, as TMA writes it (CU_TENSOR_MAP_SWIZZLE_128B): the
+// 16-byte chunk index XOR the row's index within its 8-row atom.
+__device__ __forceinline__ uint32_t swz128(int row, int byte) {
+  return row * 128 + ((((byte >> 4) ^ row) & 7) << 4) + (byte & 15);
+}
+
+// Order this thread's shared-memory stores before later reads by the async
+// proxy (wgmma operands a kernel wrote itself).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -150,6 +184,17 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, 
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 32) (+)= A B, both from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t da, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -212,6 +257,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// The fp32 pair (x, y) as packed bf16 parts: hi = bf16(x, y), rounded to
+// nearest even, and lo = bf16(x - hi, y - hi) (x - hi is exact in fp32).
+__device__ __forceinline__ void split_pair(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x - hf.x, y - hf.y);
+}
+
 // Named barriers over N threads (the consumer warpgroups).
 template <int N>
 __device__ __forceinline__ void named_sync(int id) {
@@ -220,6 +274,223 @@ __device__ __forceinline__ void named_sync(int id) {
 template <int N>
 __device__ __forceinline__ void named_arrive(int id) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(N) : "memory");
+}
+
+// Exchanges between two consumer warpgroups through shared memory, value e
+// of thread wt (0..127 in its warpgroup) at buf[e * 128 + wt]: each warp
+// reads and writes 128 consecutive bytes, no bank conflicts. The two
+// groups' threads wt hold the same fragment positions of their products.
+template <int N, typename T>
+__device__ __forceinline__ void xchg_put(T* buf, int wt, const T (&v)[N]) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) buf[e * 128 + wt] = v[e];
+}
+template <int N, typename T>
+__device__ __forceinline__ void xchg_get(T (&v)[N], const T* buf, int wt) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) v[e] = buf[e * 128 + wt];
+}
+
+// The four 64-column slabs (SLAB bytes apart at dst) of rows row0.. of one
+// (batch, head) of a d = 256 map.
+template <int SLAB>
+__device__ __forceinline__ void tma_load_slabs(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                               int row0, int h, int b) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) tma_load_4d(dst + j * SLAB, map, bar, 64 * j, row0, h, b);
+}
+
+// The key tiles of TILE keys that hold a live key (key bias > -5e8; the row
+// (lkb >= Lk columns, a multiple of 4, 16-byte aligned) is padded with
+// -1e9), compacted in order into `list`; `flags` (a byte a tile) is
+// scratch. Every thread of the block calls it and gets the count (`count`
+// a shared int). Stores of 1 to a flag may race: same value.
+template <int TILE, int NTHR>
+__device__ __forceinline__ int live_tiles(const float* key_bias, int lkb, int ntiles,
+                                          unsigned char* flags, unsigned short* list, int* count) {
+  for (int i = threadIdx.x; i < ntiles; i += NTHR) flags[i] = 0;
+  __syncthreads();
+  const float4* kb4 = reinterpret_cast<const float4*>(key_bias);
+  for (int i = threadIdx.x; i < lkb / 4; i += NTHR) {
+    const float4 bv = kb4[i];
+    if (fmaxf(fmaxf(bv.x, bv.y), fmaxf(bv.z, bv.w)) > 0.5f * NEG_INF) flags[4 * i / TILE] = 1;
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    int n = 0;
+    for (int base = 0; base < ntiles; base += 32) {
+      const int i = base + lane;
+      const bool lv = i < ntiles && flags[i];
+      const unsigned mask = __ballot_sync(0xffffffffu, lv);
+      if (lv) list[n + __popc(mask & ((1u << lane) - 1u))] = static_cast<unsigned short>(i);
+      n += __popc(mask);
+    }
+    if (lane == 0) *count = n;
+  }
+  __syncthreads();
+  return *count;
+}
+
+// ---- the steps both d = 256 backward pairs take (flash_sdpa_bwd_wide_h.cu
+// in bf16, flash_sdpa_bwd_wide_h_fp32.cu on split parts), on fragments of
+// 64 rows x 8 NJ columns in the accumulator layout (value 4 j + e of a
+// thread: row r0 + 8 (e >> 1), column 8 j + 2 t + (e & 1))
+
+constexpr float DEAD = -1e30f;  // -lse * log2(e) of a masked or padded query: P = 0
+
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(bf16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// Zeros into rows row0 .. row0 + ROWS (those below n) of D columns at out,
+// row stride sn: the gradients of a block with nothing live.
+template <int ROWS, int D, int NTHR, typename T>
+__device__ __forceinline__ void zero_rows(T* out, long long sn, int row0, int n) {
+  for (int i = threadIdx.x; i < ROWS * D / 2; i += NTHR) {
+    const int row = row0 + i / (D / 2), c = 2 * (i % (D / 2));
+    if (row < n) store2(out + row * sn + c, 0.f, 0.f);
+  }
+}
+
+// Whether any of the ROWS keys from key0 is live (below lk, key bias >
+// -5e8). A barrier of the whole block (__syncthreads_or), which publishes
+// the mbarrier inits made before it. When none is, the block's rows of dk
+// and dv are zeroed here and the caller returns.
+template <int ROWS, int D, int NTHR, typename T>
+__device__ __forceinline__ bool keys_live(const float* key_bias, int key0, int lk, T* dk,
+                                          long long skn, T* dv, long long svn) {
+  int live = 0;
+  if (threadIdx.x < ROWS) {
+    const int key = key0 + threadIdx.x;
+    live = key < lk && key_bias[key] > 0.5f * NEG_INF;
+  }
+  if (__syncthreads_or(live)) return true;
+  zero_rows<ROWS, D, NTHR>(dk, skn, key0, lk);
+  zero_rows<ROWS, D, NTHR>(dv, svn, key0, lk);
+  return false;
+}
+
+// The producer's loop (one thread): stage i % NSTAGE for i < n, once the
+// consumers have freed it, expects `tx` bytes and gets them from load(i,
+// stage, its full barrier).
+template <int NSTAGE, typename Load>
+__device__ __forceinline__ void produce(int n, uint32_t bar_full, uint32_t bar_empty, uint32_t tx,
+                                        Load load) {
+  for (int i = 0; i < n; ++i) {
+    const int s = i % NSTAGE;
+    mbar_wait(bar_empty + 8 * s, ((i / NSTAGE) & 1) ^ 1);  // the first round passes
+    mbar_expect_tx(bar_full + 8 * s, tx);
+    load(i, s, bar_full + 8 * s);
+  }
+}
+
+// The epilogue of a 64-row accumulator: this thread's rows r0 and r0 + 8
+// (those below n) at out, columns col0 + 8 j + 2 t, times mul, as T.
+template <int N, typename T>
+__device__ __forceinline__ void store_acc(T* out, long long sn, const float (&acc)[N], int r0,
+                                          int n, int col0, float mul) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    const int c = col0 + j * 8 + 2 * t;
+    if (r0 < n) store2(out + r0 * sn + c, acc[4 * j + 0] * mul, acc[4 * j + 1] * mul);
+    if (r0 + 8 < n) store2(out + (r0 + 8) * sn + c, acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
+  }
+}
+
+// A fragment as A operands of NJ / 2 k-steps of 16 (value pair j of rows
+// r0 and r0 + 8 is operand (j / 2, 2 (j % 2) + {0, 1})): rounded to bf16,
+// or split into hi and lo parts.
+template <int NJ>
+__device__ __forceinline__ void pack_frags(const float (&x)[4 * NJ], uint32_t (&a)[NJ / 2][4]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    a[j >> 1][(j & 1) * 2 + 0] = pack_bf16(x[4 * j + 0], x[4 * j + 1]);
+    a[j >> 1][(j & 1) * 2 + 1] = pack_bf16(x[4 * j + 2], x[4 * j + 3]);
+  }
+}
+template <int NJ>
+__device__ __forceinline__ void split_frags(const float (&x)[4 * NJ], uint32_t (&hi)[NJ / 2][4],
+                                            uint32_t (&lo)[NJ / 2][4]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    split_pair(x[4 * j + 0], x[4 * j + 1], hi[j >> 1][(j & 1) * 2 + 0], lo[j >> 1][(j & 1) * 2 + 0]);
+    split_pair(x[4 * j + 2], x[4 * j + 3], hi[j >> 1][(j & 1) * 2 + 1], lo[j >> 1][(j & 1) * 2 + 1]);
+  }
+}
+
+// dq, group 0: S (64 queries x 8 NJ keys) becomes dS = P o (dP - Delta) in
+// place, P = 2^(S scale2 + bias log2 e + nl) with the tile's key bias at bs
+// (keys from key0 past lk masked), dP from group 1 at buf (xchg_put's
+// layout); nl and dl are this thread's rows' -lse log2 e and Delta.
+template <int NJ>
+__device__ __forceinline__ void dq_ds(float (&sc)[4 * NJ], const float* bs, const float* buf,
+                                      int key0, int lk, float scale2, float nl0, float nl1,
+                                      float dl0, float dl1) {
+  const int t = threadIdx.x & 3, wt = threadIdx.x & 127;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int c = j * 8 + 2 * t;  // this thread's keys c, c + 1
+    const float2 bv = *reinterpret_cast<const float2*>(bs + c);
+    const float b0 = key0 + c < lk ? bv.x * LOG2E : NEG_INF * LOG2E;
+    const float b1 = key0 + c + 1 < lk ? bv.y * LOG2E : NEG_INF * LOG2E;
+    const float* dp = buf + 4 * j * 128 + wt;
+    sc[4 * j + 0] = ex2(fmaf(sc[4 * j + 0], scale2, b0) + nl0) * (dp[0] - dl0);  // row r0
+    sc[4 * j + 1] = ex2(fmaf(sc[4 * j + 1], scale2, b1) + nl0) * (dp[128] - dl0);
+    sc[4 * j + 2] = ex2(fmaf(sc[4 * j + 2], scale2, b0) + nl1) * (dp[256] - dl1);  // row r0 + 8
+    sc[4 * j + 3] = ex2(fmaf(sc[4 * j + 3], scale2, b1) + nl1) * (dp[384] - dl1);
+  }
+}
+
+// dkv, group 0: S^T (64 keys x 8 NJ queries) becomes P^T = 2^(S^T scale2 +
+// kb + nl) in place, kb this thread's keys' bias times log2 e, nl from the
+// tile's lse at ls (DEAD for queries from q0 past lq or masked); then P^T
+// goes to group 1 through buf, from the second tile on once group 1 has
+// read the previous one (bar_free), and bar_ready says it is there.
+template <int NJ, int NCONS>
+__device__ __forceinline__ void dkv_send_p(float (&sc)[4 * NJ], float* buf, const float* ls, int i,
+                                           int q0, int lq, float kb0, float kb1, float scale2,
+                                           int bar_ready, int bar_free) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int c = j * 8 + 2 * t;  // this thread's queries c, c + 1
+    const float2 lv = *reinterpret_cast<const float2*>(ls + c);
+    const float nl0 = q0 + c < lq && lv.x > 0.5f * NEG_INF ? -lv.x * LOG2E : DEAD;
+    const float nl1 = q0 + c + 1 < lq && lv.y > 0.5f * NEG_INF ? -lv.y * LOG2E : DEAD;
+    sc[4 * j + 0] = ex2(fmaf(sc[4 * j + 0], scale2, kb0) + nl0);  // key r0, query c
+    sc[4 * j + 1] = ex2(fmaf(sc[4 * j + 1], scale2, kb0) + nl1);
+    sc[4 * j + 2] = ex2(fmaf(sc[4 * j + 2], scale2, kb1) + nl0);  // key r0 + 8
+    sc[4 * j + 3] = ex2(fmaf(sc[4 * j + 3], scale2, kb1) + nl1);
+  }
+  if (i > 0) named_sync<NCONS>(bar_free);
+  xchg_put(buf, threadIdx.x & 127, sc);
+  named_arrive<NCONS>(bar_ready);
+}
+
+// dkv, group 1: dP^T (64 keys x 8 NJ queries) becomes dS^T = P^T o (dP^T -
+// Delta) in place, P^T from group 0 at buf once bar_ready, Delta of the
+// tile's queries at ds; buf is freed (bar_free) unless this is the last
+// tile.
+template <int NJ, int NCONS>
+__device__ __forceinline__ void dkv_recv_ds(float (&sc)[4 * NJ], const float* buf, const float* ds,
+                                            bool more, int bar_ready, int bar_free) {
+  const int t = threadIdx.x & 3, wt = threadIdx.x & 127;
+  named_sync<NCONS>(bar_ready);
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const float2 dl = *reinterpret_cast<const float2*>(ds + j * 8 + 2 * t);
+    const float* p = buf + 4 * j * 128 + wt;
+    sc[4 * j + 0] = p[0] * (sc[4 * j + 0] - dl.x);
+    sc[4 * j + 1] = p[128] * (sc[4 * j + 1] - dl.y);
+    sc[4 * j + 2] = p[256] * (sc[4 * j + 2] - dl.x);
+    sc[4 * j + 3] = p[384] * (sc[4 * j + 3] - dl.y);
+  }
+  if (more) named_arrive<NCONS>(bar_free);
 }
 
 // ---- host: tensor maps through cudaGetDriverEntryPoint (no -lcuda)

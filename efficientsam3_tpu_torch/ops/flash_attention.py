@@ -29,8 +29,10 @@ forward at d=32 and d=64 in bf16 is the wgmma kernel ``csrc/flash_sdpa_h.cu``
 (``sdpa_kernel`` says which kernel a call reaches), and
 ``flash_sdpa_bwd_dkv`` at d=32 in bf16 the wgmma kernel
 ``csrc/flash_sdpa_bwd_h.cu`` (``bwd_dkv_kernel``), and both backward
-kernels at d=256 in bf16 those of ``csrc/flash_sdpa_bwd_wide_h.cu``
-(``bwd_dq_kernel``, ``bwd_dkv_kernel``). Under autograd (grad
+kernels at d=256 those of ``csrc/flash_sdpa_bwd_wide_h.cu`` in bf16 and
+``csrc/flash_sdpa_bwd_wide_h_fp32.cu`` in fp32 (``bwd_dq_kernel``,
+``bwd_dkv_kernel``; the fp32 ones read split bf16 copies of their streamed
+operands, made by ``split_parts``). Under autograd (grad
 mode on and an input requiring a gradient) ``flash_sdpa`` runs as an
 autograd Function whose backward is the two backward kernels; the
 forward-only ``flash_memattn``, ``flash_memattn_q8`` and
@@ -129,22 +131,28 @@ def sdpa_kernel(dtype, d):
     return "flash_sdpa_h" if (dtype == torch.bfloat16 and d in (32, 64)) else "flash_sdpa"
 
 
+def _bwd_wide_kernel(dtype):
+    """The d=256 backward kernels' source: csrc/flash_sdpa_bwd_wide_h.cu for
+    bf16, csrc/flash_sdpa_bwd_wide_h_fp32.cu (split bf16 parts) for fp32."""
+    return "flash_sdpa_bwd_wide_h" if dtype == torch.bfloat16 else "flash_sdpa_bwd_wide_h_fp32"
+
+
 def bwd_dq_kernel(dtype, d):
     """The dq kernel a CUDA ``flash_sdpa_bwd_dq`` call launches: the wgmma
-    kernel (csrc/flash_sdpa_bwd_wide_h.cu) for bf16 at d=256, else the
-    mma.sync kernels of csrc/flash_sdpa_bwd.cu (both dtypes at d=32, fp32 at
-    d=256)."""
-    return "flash_sdpa_bwd_wide_h" if (dtype == torch.bfloat16 and d == 256) else "flash_sdpa_bwd"
+    kernels at d=256 (csrc/flash_sdpa_bwd_wide_h.cu for bf16,
+    csrc/flash_sdpa_bwd_wide_h_fp32.cu for fp32), else the mma.sync kernel
+    of csrc/flash_sdpa_bwd.cu (both dtypes at d=32)."""
+    return _bwd_wide_kernel(dtype) if d == 256 else "flash_sdpa_bwd"
 
 
 def bwd_dkv_kernel(dtype, d):
     """The dkv kernel a CUDA ``flash_sdpa_bwd_dkv`` call launches: the
-    wgmma kernels for bf16 (csrc/flash_sdpa_bwd_h.cu at d=32,
-    csrc/flash_sdpa_bwd_wide_h.cu at d=256), else the mma.sync kernels of
-    csrc/flash_sdpa_bwd.cu (fp32)."""
-    if dtype != torch.bfloat16:
-        return "flash_sdpa_bwd"
-    return "flash_sdpa_bwd_h" if d == 32 else "flash_sdpa_bwd_wide_h"
+    wgmma kernels at d=256 (as ``bwd_dq_kernel``) and for bf16 at d=32
+    (csrc/flash_sdpa_bwd_h.cu), else the mma.sync kernel of
+    csrc/flash_sdpa_bwd.cu (fp32 at d=32)."""
+    if d == 256:
+        return _bwd_wide_kernel(dtype)
+    return "flash_sdpa_bwd_h" if dtype == torch.bfloat16 else "flash_sdpa_bwd"
 
 
 def _aligned(t):
@@ -209,13 +217,35 @@ def _lib_bwd_wide_h_dkv_attrs():
     return _bind("flash_sdpa_bwd_wide_h", "flash_sdpa_bwd_dkv_wide_h_attrs", [_P])
 
 
+def _lib_bwd_wide_f32(name):
+    """``flash_sdpa_bwd_dq_wide_f32`` or ``flash_sdpa_bwd_dkv_wide_f32`` of
+    csrc/flash_sdpa_bwd_wide_h_fp32.cu: 9 pointers, 5 ints, the scale, 12
+    strides (four operands' (B, H, N)), the stream."""
+    return _bind("flash_sdpa_bwd_wide_h_fp32", name, [_P] * 9 + [_I] * 5 + [_F] + [_LL] * 12 + [_P])
+
+
+def _lib_split_parts():
+    return _bind("flash_sdpa_bwd_wide_h_fp32", "flash_sdpa_split_parts",
+                 [_P] * 3 + [_I] * 5 + [_LL] * 3 + [_P])
+
+
+def _lib_bwd_wide_f32_dq_attrs():
+    return _bind("flash_sdpa_bwd_wide_h_fp32", "flash_sdpa_bwd_dq_wide_f32_attrs", [_I, _P])
+
+
+def _lib_bwd_wide_f32_dkv_attrs():
+    return _bind("flash_sdpa_bwd_wide_h_fp32", "flash_sdpa_bwd_dkv_wide_f32_attrs", [_P])
+
+
 def kernel_resources(kernel, d=32, lk=5184):
     """Registers and spilled bytes a thread, shared bytes a block and
     resident blocks an SM of a wgmma kernel on the current CUDA device, as
     the runtime reports them (cudaFuncGetAttributes, the occupancy API):
     ``"flash_sdpa_h"`` at head dim d and lk keys, ``"flash_sdpa_bwd_h"``
-    (dkv, d=32), ``"flash_sdpa_bwd_dq_wide_h"`` (d=256, lk keys) or
-    ``"flash_sdpa_bwd_dkv_wide_h"`` (d=256)."""
+    (dkv, d=32), ``"flash_sdpa_bwd_dq_wide_h"`` (d=256, lk keys),
+    ``"flash_sdpa_bwd_dkv_wide_h"`` (d=256), or their fp32 counterparts
+    ``"flash_sdpa_bwd_dq_wide_f32"`` (lk keys) and
+    ``"flash_sdpa_bwd_dkv_wide_f32"``."""
     out = (ctypes.c_int * 4)()
     if kernel == "flash_sdpa_h":
         status = _lib_sdpa_h_attrs()(d, lk, out)
@@ -225,6 +255,10 @@ def kernel_resources(kernel, d=32, lk=5184):
         status = _lib_bwd_wide_h_dq_attrs()(lk, out)
     elif kernel == "flash_sdpa_bwd_dkv_wide_h":
         status = _lib_bwd_wide_h_dkv_attrs()(out)
+    elif kernel == "flash_sdpa_bwd_dq_wide_f32":
+        status = _lib_bwd_wide_f32_dq_attrs()(lk, out)
+    elif kernel == "flash_sdpa_bwd_dkv_wide_f32":
+        status = _lib_bwd_wide_f32_dkv_attrs()(out)
     else:
         raise ValueError(f"no resource query for kernel {kernel!r}")
     _build.check(status, f"{kernel} attributes")
@@ -393,11 +427,61 @@ def _check_bwd(q, k, v, key_bias, lse, *rest):
     return b, h, lq, lk, d, int(dtype == torch.float32)
 
 
+# streamed rows a stage of the fp32 d=256 kernels (csrc/flash_sdpa_bwd_wide_h_fp32.cu
+# BS): the dq kernel reads the split copies of K and V in tiles of this many keys
+_WIDE_F32_TILE = 32
+
+
+def split_parts_plain(x):
+    """x as its split bf16 parts, stacked: (2, *x.shape) bf16, hi = bf16(x)
+    rounded to nearest even, lo = bf16(x - hi) (x - hi is exact in fp32), so
+    hi + lo carries 16 of fp32's 24 mantissa bits."""
+    x = x.float()
+    hi = x.to(torch.bfloat16)
+    return torch.stack((hi, (x - hi.float()).to(torch.bfloat16)))
+
+
+def split_parts(x, key_bias=None, tile=0):
+    """The split copy of x (B, H, N, 256) fp32 that the fp32 d=256 backward
+    kernels read through TMA: (2, B, H, N, 256) bf16, ``split_parts_plain``.
+    One launch of the split pass of csrc/flash_sdpa_bwd_wide_h_fp32.cu on
+    CUDA, counted in ``split_parts.launches``; the plain version for CPU
+    tensors. With tile > 0 the kernel writes only the rows of the tiles of
+    ``tile`` rows that hold a live key (key_bias (B, >= N) f32 > -5e8; keys
+    past N ignored): the rest is left as allocated, and the dq kernel, whose
+    key tiles these are, never reads it."""
+    if not x.is_cuda:
+        return split_parts_plain(x)
+    if x.dtype != torch.float32 or x.dim() != 4 or x.shape[-1] != 256:
+        raise ValueError(f"split_parts takes (B, H, N, 256) float32, got {tuple(x.shape)} "
+                         f"{x.dtype}")
+    b, h, n, d = x.shape
+    if tile and (key_bias is None or key_bias.shape[0] != b or key_bias.shape[1] < n):
+        raise ValueError("split_parts with tile > 0 needs a (B, >= N) key_bias")
+    x = _aligned(x)
+    kb = key_bias.float().contiguous() if tile else None
+    parts = torch.empty((2, b, h, n, d), dtype=torch.bfloat16, device=x.device)
+    with torch.cuda.device(x.device):  # the launch goes to the current device
+        status = _lib_split_parts()(
+            x.data_ptr(), kb.data_ptr() if tile else None, parts.data_ptr(), b, h, n,
+            kb.shape[1] if tile else 0, tile, *_bhn_strides(x),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(status, "split_parts launch")
+    split_parts.launches += 1
+    return parts
+
+
+split_parts.launches = 0
+
+
 def flash_sdpa_bwd_dq(q, k, v, key_bias, o, lse, do, sm_scale):
     """dQ of flash_sdpa and Delta = rowsum(dO o O): (dq (B, H, Lq, D) in
     q.dtype, delta (B, H, Lq) f32). One kernel launch on CUDA (head dim 32
     or 256, bf16 or fp32; ``bwd_dq_kernel`` says which), counted in
-    ``flash_sdpa_bwd_dq.launches``; the plain version for CPU tensors."""
+    ``flash_sdpa_bwd_dq.launches``; fp32 at d=256 first makes the split
+    copies of K and V with two launches of the split pass (``split_parts``,
+    only the rows of live 32-key tiles). The plain version for CPU
+    tensors."""
     if not q.is_cuda:
         return flash_sdpa_bwd_dq_plain(q, k, v, key_bias, o, lse, do, sm_scale)
     b, h, lq, lk, d, fp32 = _check_bwd(q, k, v, key_bias, lse, o, do)
@@ -408,8 +492,18 @@ def flash_sdpa_bwd_dq(q, k, v, key_bias, o, lse, do, sm_scale):
     strides = (*_bhn_strides(q), *_bhn_strides(k), *_bhn_strides(v), *_bhn_strides(o),
                *_bhn_strides(do), *_bhn_strides(dq))
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    kernel = bwd_dq_kernel(q.dtype, d)
     with torch.cuda.device(q.device):  # the launch goes to the current device
-        if bwd_dq_kernel(q.dtype, d) == "flash_sdpa_bwd_wide_h":
+        if kernel == "flash_sdpa_bwd_wide_h_fp32":
+            kb, lkb = _tma_rows(key_bias, NEG_INF)
+            kp = split_parts(k, kb, _WIDE_F32_TILE)
+            vp = split_parts(v, kb, _WIDE_F32_TILE)
+            status = _lib_bwd_wide_f32("flash_sdpa_bwd_dq_wide_f32")(
+                q.data_ptr(), kp.data_ptr(), vp.data_ptr(), kb.data_ptr(), o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                b, h, lq, lk, lkb, float(sm_scale), *_bhn_strides(q), *_bhn_strides(o),
+                *_bhn_strides(do), *_bhn_strides(dq), stream)
+        elif kernel == "flash_sdpa_bwd_wide_h":
             kb, lkb = _tma_rows(key_bias, NEG_INF)
             status = _lib_bwd_wide_h("flash_sdpa_bwd_dq_wide_h")(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), kb.data_ptr(), o.data_ptr(),
@@ -433,7 +527,9 @@ def flash_sdpa_bwd_dkv(q, k, v, key_bias, do, lse, delta, sm_scale):
     """dK and dV of flash_sdpa, given Delta from ``flash_sdpa_bwd_dq``:
     (dk, dv) (B, H, Lk, D) in k's / v's dtype. One kernel launch on CUDA
     (``bwd_dkv_kernel`` says which), counted in
-    ``flash_sdpa_bwd_dkv.launches``; the plain version for CPU tensors."""
+    ``flash_sdpa_bwd_dkv.launches``; fp32 at d=256 first makes the split
+    copies of Q and dO (every row) with two launches of the split pass
+    (``split_parts``). The plain version for CPU tensors."""
     if not q.is_cuda:
         return flash_sdpa_bwd_dkv_plain(q, k, v, key_bias, do, lse, delta, sm_scale)
     b, h, lq, lk, d, fp32 = _check_bwd(q, k, v, key_bias, lse, do)
@@ -446,7 +542,16 @@ def flash_sdpa_bwd_dkv(q, k, v, key_bias, do, lse, delta, sm_scale):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     kernel = bwd_dkv_kernel(q.dtype, d)
     with torch.cuda.device(q.device):  # the launch goes to the current device
-        if kernel != "flash_sdpa_bwd":
+        if kernel == "flash_sdpa_bwd_wide_h_fp32":
+            qp, dop = split_parts(q), split_parts(do)
+            lse, lqp = _tma_rows(lse.reshape(b * h, lq), NEG_INF)
+            delta, _ = _tma_rows(delta.reshape(b * h, lq), 0.0)
+            status = _lib_bwd_wide_f32("flash_sdpa_bwd_dkv_wide_f32")(
+                qp.data_ptr(), dop.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                b, h, lq, lk, lqp, float(sm_scale), *_bhn_strides(k), *_bhn_strides(v),
+                *_bhn_strides(dk), *_bhn_strides(dv), stream)
+        elif kernel != "flash_sdpa_bwd":
             lse, lqp = _tma_rows(lse.reshape(b * h, lq), NEG_INF)
             delta, _ = _tma_rows(delta.reshape(b * h, lq), 0.0)
             lib = (_lib_bwd_h() if kernel == "flash_sdpa_bwd_h"

@@ -35,6 +35,11 @@ BINDINGS = {
     "flash_sdpa_bwd_dkv_wide_h": lambda: fa._lib_bwd_wide_h("flash_sdpa_bwd_dkv_wide_h"),
     "flash_sdpa_bwd_dq_wide_h_attrs": fa._lib_bwd_wide_h_dq_attrs,
     "flash_sdpa_bwd_dkv_wide_h_attrs": fa._lib_bwd_wide_h_dkv_attrs,
+    "flash_sdpa_bwd_dq_wide_f32": lambda: fa._lib_bwd_wide_f32("flash_sdpa_bwd_dq_wide_f32"),
+    "flash_sdpa_bwd_dkv_wide_f32": lambda: fa._lib_bwd_wide_f32("flash_sdpa_bwd_dkv_wide_f32"),
+    "flash_sdpa_bwd_dq_wide_f32_attrs": fa._lib_bwd_wide_f32_dq_attrs,
+    "flash_sdpa_bwd_dkv_wide_f32_attrs": fa._lib_bwd_wide_f32_dkv_attrs,
+    "flash_sdpa_split_parts": fa._lib_split_parts,
     "flash_memattn_fwd": fa._lib_memattn,
     "flash_memattn_q8_fwd": fa._lib_memattn_q8,
     "flash_xattn_rpb_fwd": fa._lib_xattn,

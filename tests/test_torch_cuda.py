@@ -544,8 +544,8 @@ def test_native_host_kernels_match_scipy(cuda):
 # depthwise_conv2d backward, rms_norm_2d forward and backward
 
 
-def _bwd256_inputs(dev, b, lq, lk, heads=1, slabs=False):
-    """Head dim 256: q/k/v as strided (B, H, N, 256) views of (B, N, H *
+def _bwd256_inputs(dev, b, lq, lk, heads=1, slabs=False, dtype=torch.bfloat16):
+    """Head dim 256 (bf16, or ``dtype``): q/k/v as strided (B, H, N, 256) views of (B, N, H *
     256) tokens, a key bias with a masked 64-key tile in row 0, a ragged
     masked tail in row 1 and every key of the last row masked (an empty
     object slot), the forward's output and lse, and a strided dO. With
@@ -554,7 +554,7 @@ def _bwd256_inputs(dev, b, lq, lk, heads=1, slabs=False):
     four slabs wide is off by a multiple of its values), and the 128-key
     block 256..384 of row 0 is masked too."""
     def heads_of(n):
-        return _randn(dev, b, n, heads * 256).reshape(b, n, heads, 256).transpose(1, 2)
+        return _randn(dev, b, n, heads * 256, dtype=dtype).reshape(b, n, heads, 256).transpose(1, 2)
 
     q, k, v, do = heads_of(lq), heads_of(lk), heads_of(lk), heads_of(lq)
     bias = torch.zeros((b, lk), device=dev)
@@ -771,21 +771,30 @@ def test_flash_sdpa_fp32_kernel_matches_plain(cuda, d, h, lq, lk):
 @pytest.mark.parametrize("d,lq,lk", [(32, 5184, 5184), (32, 333, 517), (256, 333, 36352),
                                      (256, 700, 517)])
 def test_flash_sdpa_bwd_fp32_kernels_match_plain(cuda, d, lq, lk):
-    """The dq (and Delta) and dk/dv kernels' fp32 instantiations (d=256: the
-    32-row streaming tiles of flash_bwd_wide.cuh) against the plain
-    backward in fp32: strided dO, ragged Lq/Lk, masked tiles, a fully
-    masked row (zero gradients)."""
+    """The dq (and Delta) and dk/dv kernels' fp32 instantiations (d=32: the
+    mma.sync kernels of flash_sdpa_bwd.cu; d=256: the split-bf16 wgmma
+    kernels of flash_sdpa_bwd_wide_h_fp32.cu) against the plain backward in
+    fp32: strided dO, ragged Lq/Lk, masked tiles, a fully masked row (zero
+    gradients), dQ / dK / dV in (B, N, H, D) memory, the same bits when run
+    again."""
     h = 8 if d == 32 else 1
     q, k, v = (_randn(cuda, 3, h, n, d, dtype=torch.float32) for n in (lq, lk, lk))
     bias = _mask_rows(cuda, 3, lk)
     o, lse = fa.flash_sdpa_plain(q, k, v, bias, return_lse=True)
     do = _randn(cuda, 3, lq, h * d, dtype=torch.float32).reshape(3, lq, h, d).transpose(1, 2)
     scale = d ** -0.5
+    want_kernel = "flash_sdpa_bwd_wide_h_fp32" if d == 256 else "flash_sdpa_bwd"
+    assert fa.bwd_dq_kernel(torch.float32, d) == fa.bwd_dkv_kernel(torch.float32, d) == want_kernel
     n_dq, n_dkv = fa.flash_sdpa_bwd_dq.launches, fa.flash_sdpa_bwd_dkv.launches
     dq, delta = fa.flash_sdpa_bwd_dq(q, k, v, bias, o, lse, do, scale)
     dk, dv = fa.flash_sdpa_bwd_dkv(q, k, v, bias, do, lse, delta, scale)
     torch.cuda.synchronize()
     assert (fa.flash_sdpa_bwd_dq.launches, fa.flash_sdpa_bwd_dkv.launches) == (n_dq + 1, n_dkv + 1)
+    for g in (dq, dk, dv):
+        assert g.transpose(1, 2).is_contiguous()
+    dq2, delta2 = fa.flash_sdpa_bwd_dq(q, k, v, bias, o, lse, do, scale)
+    dk2, dv2 = fa.flash_sdpa_bwd_dkv(q, k, v, bias, do, lse, delta, scale)
+    assert all(torch.equal(a, b_) for a, b_ in ((dq, dq2), (delta, delta2), (dk, dk2), (dv, dv2)))
     want_dq, want_delta = fa.flash_sdpa_bwd_dq_plain(q, k, v, bias, o, lse, do, scale)
     want_dk, want_dv = fa.flash_sdpa_bwd_dkv_plain(q, k, v, bias, do, lse, want_delta, scale)
     torch.testing.assert_close(delta, want_delta, atol=FP32_TOL, rtol=FP32_TOL)
@@ -793,6 +802,87 @@ def test_flash_sdpa_bwd_fp32_kernels_match_plain(cuda, d, lq, lk):
         assert got.dtype == torch.float32 and got.shape == want.shape
         assert _rel_err(got, want) < FP32_TOL
         assert (got[-1] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "slabs", "all_live", "nan_scratch"])
+def test_flash_sdpa_bwd_fp32_d256_cases_match_plain(cuda, case):
+    """The fp32 d=256 kernels (flash_sdpa_bwd_wide_h_fp32.cu) against the
+    plain backward in fp32, each gradient within FP32_TOL of its largest
+    magnitude and Delta within FP32_TOL: ``ragged`` 2000 keys (a multiple of
+    neither the 32-key tile nor 64) with a masked 64-key block in row 0, a
+    ragged masked tail and an empty slot; ``slabs`` operands whose 64-column
+    slabs differ in scale and a masked 128-key block, two strided heads;
+    ``all_live`` 36352 keys with every key live, where a dQ accumulated
+    with the tensor cores' truncating adds would carry its bias past the
+    tolerance; ``nan_scratch`` the ragged case after a NaN-filled block the
+    size of the split copies was allocated and freed, so that a row the
+    split pass leaves unwritten but a kernel reads shows as NaN. Zero
+    gradients on masked keys and the empty slot."""
+    f32 = torch.float32
+    if case == "all_live":
+        q, k, v = (_randn(cuda, 2, 1, n, 256, dtype=f32) for n in (333, 36352, 36352))
+        bias = torch.zeros((2, 36352), device=cuda)
+        o, lse = fa.flash_sdpa_plain(q, k, v, bias, return_lse=True)
+        do = _randn(cuda, 2, 333, 256, dtype=f32).reshape(2, 333, 1, 256).transpose(1, 2)
+    elif case == "slabs":
+        q, k, v, bias, o, lse, do = _bwd256_inputs(cuda, 3, 64, 5184, 2, True, dtype=f32)
+    else:
+        q, k, v, bias, o, lse, do = _bwd256_inputs(cuda, 3, 257, 2000, dtype=f32)
+    scale = 256 ** -0.5
+    if case == "nan_scratch":  # four split copies' bytes of 0xFF (bf16 NaN), freed
+        n_bytes = 2 * 2 * k.numel() * 2 + 2 * 2 * q.numel() * 2
+        junk = torch.full((n_bytes,), 255, dtype=torch.uint8, device=cuda)
+        del junk
+    dq, delta = fa.flash_sdpa_bwd_dq(q, k, v, bias, o, lse, do, scale)
+    dk, dv = fa.flash_sdpa_bwd_dkv(q, k, v, bias, do, lse, delta, scale)
+    torch.cuda.synchronize()
+    want_dq, want_delta = fa.flash_sdpa_bwd_dq_plain(q, k, v, bias, o, lse, do, scale)
+    want_dk, want_dv = fa.flash_sdpa_bwd_dkv_plain(q, k, v, bias, do, lse, want_delta, scale)
+    torch.testing.assert_close(delta, want_delta, atol=FP32_TOL, rtol=FP32_TOL)
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert got.dtype == f32 and got.shape == want.shape and torch.isfinite(got).all()
+        assert got.transpose(1, 2).is_contiguous()
+        assert _rel_err(got, want) < FP32_TOL
+        if case == "slabs":  # each slab on its own, against its own largest magnitude
+            for j in range(4):
+                assert _rel_err(got[..., 64 * j:64 * j + 64], want[..., 64 * j:64 * j + 64]) < FP32_TOL
+    if case != "all_live":
+        for g in (dq, dk, dv):
+            assert (g[-1] == 0).all()
+        assert (dk[0, :, 64:128] == 0).all() and (dv[0, :, 64:128] == 0).all()
+    if case == "slabs":
+        assert (dk[0, :, 256:384] == 0).all() and (dv[0, :, 256:384] == 0).all()
+
+
+@pytest.mark.cuda
+def test_split_parts_kernel_matches_plain(cuda):
+    """The split pass (flash_sdpa_bwd_wide_h_fp32.cu) against its plain
+    version bit for bit, on a strided (B, H, N, 256) view holding normals,
+    subnormals, zeros and large magnitudes: every row with tile 0; with
+    tile 32 the rows of the 32-row tiles that hold a live key (row 0's keys
+    32..63 and the whole of row 1 masked here, keys past N ignored)."""
+    b, n, h = 2, 200, 2
+    x = _randn(cuda, b, n, h * 256, dtype=torch.float32)
+    x[0, :5] = torch.tensor([0.0, -0.0, 1e-40, -3e-39, 3e38], device=cuda)[:, None]
+    x = x.reshape(b, n, h, 256).transpose(1, 2)
+    want = fa.split_parts_plain(x)
+    before = fa.split_parts.launches
+    got = fa.split_parts(x)
+    torch.cuda.synchronize()
+    assert fa.split_parts.launches == before + 1 and got.shape == (2, b, h, n, 256)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    bias = torch.zeros((b, 204), device=cuda)
+    bias[0, 32:64] = NEG_INF
+    bias[1] = NEG_INF
+    bias[:, n:] = NEG_INF
+    got = fa.split_parts(x, bias, 32)
+    torch.cuda.synchronize()
+    live = torch.ones((b, n), dtype=torch.bool, device=cuda)
+    live[0, 32:64] = False
+    live[1] = False
+    sel = live[None, :, None, :, None].expand_as(got)
+    assert torch.equal(got.view(torch.int16)[sel], want.view(torch.int16)[sel])
 
 
 @pytest.mark.cuda
@@ -986,13 +1076,15 @@ def test_flash_sdpa_d64_reads_vitdet_qkv_views(cuda, dtype, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel,d", [("flash_sdpa_h", 32), ("flash_sdpa_h", 64),
                                       ("flash_sdpa_bwd_h", 32), ("flash_sdpa_bwd_dq_wide_h", 256),
-                                      ("flash_sdpa_bwd_dkv_wide_h", 256)])
+                                      ("flash_sdpa_bwd_dkv_wide_h", 256),
+                                      ("flash_sdpa_bwd_dq_wide_f32", 256),
+                                      ("flash_sdpa_bwd_dkv_wide_f32", 256)])
 def test_wgmma_kernels_fit_without_spills(cuda, kernel, d):
     """The wgmma kernels as built: no registers spilled to local memory, at
     least one block of them resident an SM at the main path's 5184 keys
-    (the forward: 2, its design; the d=256 dq kernel also at the clip's
+    (the forward: 2, its design; the d=256 dq kernels also at the clip's
     36352)."""
-    if kernel == "flash_sdpa_bwd_dq_wide_h":
+    if kernel in ("flash_sdpa_bwd_dq_wide_h", "flash_sdpa_bwd_dq_wide_f32"):
         assert fa.kernel_resources(kernel, d, 36352)["blocks_per_sm"] >= 1
     res = fa.kernel_resources(kernel, d, 5184)
     assert res["spill_bytes"] == 0, res

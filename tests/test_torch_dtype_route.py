@@ -26,9 +26,10 @@ def _sdpa(dtype, d, k_dtype=None):
 
 
 def _bwd(dtype, d):
+    """The source of the backward's first launch (dq) under autograd."""
     q = _t(d, dtype)
-    fa._check_heads("flash_sdpa backward", fa._BWD_D, q, q, q, q, q)
-    return "flash_sdpa_bwd"
+    dt = fa._check_heads("flash_sdpa backward", fa._BWD_D, q, q, q, q, q)
+    return fa.bwd_dq_kernel(dt, d)
 
 
 def _dq(dtype, d):
@@ -79,18 +80,18 @@ CASES = [
     (_sdpa, (F32, 64), "flash_sdpa"),
     (_sdpa, (BF16, 80), ValueError),
     (_sdpa, (F32, 80), ValueError),
-    # its backward kernels: the bf16 dkv kernel at d=32 and both bf16
-    # kernels at d=256 on wgmma; the rest on mma.sync
+    # its backward kernels: the bf16 dkv kernel at d=32 and both kernels at
+    # d=256 on wgmma (fp32 on split bf16 parts); the rest on mma.sync
     (_bwd, (BF16, 32), "flash_sdpa_bwd"),
     (_bwd, (F32, 32), "flash_sdpa_bwd"),
-    (_bwd, (F32, 256), "flash_sdpa_bwd"),
+    (_bwd, (F32, 256), "flash_sdpa_bwd_wide_h_fp32"),
     (_bwd, (F16, 256), TypeError),
     (_bwd, (F32, 64), ValueError),
     (_bwd, (BF16, 64), ValueError),
     (_dkv, (BF16, 32), "flash_sdpa_bwd_h"),
     (_dkv, (F32, 32), "flash_sdpa_bwd"),
     (_dkv, (BF16, 256), "flash_sdpa_bwd_wide_h"),
-    (_dkv, (F32, 256), "flash_sdpa_bwd"),
+    (_dkv, (F32, 256), "flash_sdpa_bwd_wide_h_fp32"),
     (_dkv, (F16, 32), TypeError),
     (_dkv, (F16, 256), TypeError),
     (_dkv, (BF16, 64), ValueError),
@@ -98,7 +99,7 @@ CASES = [
     (_dq, (BF16, 32), "flash_sdpa_bwd"),
     (_dq, (F32, 32), "flash_sdpa_bwd"),
     (_dq, (BF16, 256), "flash_sdpa_bwd_wide_h"),
-    (_dq, (F32, 256), "flash_sdpa_bwd"),
+    (_dq, (F32, 256), "flash_sdpa_bwd_wide_h_fp32"),
     (_dq, (F16, 256), TypeError),
     (_dq, (F64, 32), TypeError),
     (_dq, (BF16, 64), ValueError),
