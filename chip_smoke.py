@@ -9,9 +9,10 @@ Phases, each printing its own lines:
      (csrc/*.cu, one nvcc per source, all started together); for each
      wgmma kernel (flash_sdpa_h at d=32 and 64, flash_sdpa_bwd_h, the bf16
      d=256 pair flash_sdpa_bwd_dq_wide_h / flash_sdpa_bwd_dkv_wide_h and the
-     fp32 one flash_sdpa_bwd_dq_wide_f32 / flash_sdpa_bwd_dkv_wide_f32) one
-     line of registers, spilled bytes and shared memory a block, and blocks
-     an SM, as the runtime reports them;
+     fp32 one flash_sdpa_bwd_dq_wide_f32 / flash_sdpa_bwd_dkv_wide_f32) and
+     the mma.sync register forward at d=80 (bf16 and fp32) one line of
+     registers, spilled bytes and shared memory a block, and blocks an SM,
+     as the runtime reports them;
   2. the main path at full width: EfficientViT-b1 ("EV-M") at 1008^2 with
      the MobileCLIP-S0 text tower at context 32, bf16, seeded random
      weights, through the port's Sam3Processor (set_image on a non-square
@@ -184,9 +185,39 @@ Phases, each printing its own lines:
      frames on the cached bank: per tracked frame [video] session A's
      launches plus 4 d=64 flash_sdpa for the frame's encode; finite masks,
      frame time and peak memory.
+  12. [sam1] the SAM1 students through student_sam.SamStudentPredictor on
+     phase 2's image (set_image, then predict with 3 points and with a box),
+     bf16, seed 0: EdgeSAM (RepViT-M1.1), TinyViT-5M and EfficientViT-b1
+     from sam_model_registry at 1024^2 (no kernel launches on their paths);
+     vit_h and vit_b at 1120^2 (the registry's model, whose windowed blocks
+     raise at its own 1024^2 as the JAX trunk asserts there, under heads
+     for a 1120^2 input: 70x70 tokens, 5x5 windows of 196 tokens on the
+     matmul path), flash_sdpa 4 launches a set_image at d=80 (vit_h) and
+     d=64 (vit_b); set_image and predict timed with CUDA events,
+     torch.profiler splitting one vit_h encode_image. The default (fp32)
+     build of vit_h at full width cut to 4 blocks (block 3 global) held
+     against the same model on the host's CPU (1e-3 of max(1, |largest|)
+     on the embedding, the low-res masks and the IoUs). flash_sdpa at d=80
+     (csrc/flash_sdpa.cu, the mma.sync register kernel), bf16 and fp32,
+     held against its plain version with its LSE on the inputs of its
+     launches (1e-2, FP32_TOL) and timed as in phase 3 (library: SDPA, fp32
+     with TF32 off), with its registers and spills; vit_b's d=64
+     launches held against the plain version at their own inputs (12
+     heads, 4900 keys: a 36-key tail). Each student's set_image and
+     predict split by torch.profiler (device-busy share). Then
+     AutomaticMaskGenerator over the EV-M tracker's interactive predictor
+     (amg_models, amg_predictor: bf16, 1008^2, changed as the CPU test
+     changes the seeded model: the object-score bias, the hypernetworks'
+     last layers, a projection of the pixels on the finest features) on
+     amg_image's 600x800 scene: 32x32 points and one crop layer (4 crops
+     at 16x16) in batches of 64, the lowered thresholds of AMG_KW
+     (printed), at least AMG_MIN_RECORDS records, each checked (RLE area,
+     box inside the image), ms an image; the fp32 build at 12x12 points
+     held record by record against the same generator over a CPU copy of
+     the predictor (amg_agree).
 
 Each phase prints its seconds. The line before the last is the kernels
-JSON (twenty-nine rows), the last {"ok": true, "device": {...}}. Any
+JSON (thirty-one rows), the last {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero. Imports nothing of JAX and nothing of
 the JAX package.
 """
@@ -518,12 +549,14 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
     # the wgmma kernels as the runtime holds them, at the main path's 5184 keys
-    # (the d=256 dq kernels at the clip's 36352 keys: their tile lists grow with them)
+    # (the d=256 dq kernels at the clip's 36352 keys: their tile lists grow with
+    # them), and the mma.sync register forward at d=80 (static shared memory)
     for kernel, d, lk in (("flash_sdpa_h", 32, 5184), ("flash_sdpa_h", 64, 5184),
                           ("flash_sdpa_bwd_h", 32, 5184), ("flash_sdpa_bwd_dq_wide_h", 256, 36352),
                           ("flash_sdpa_bwd_dkv_wide_h", 256, 36352),
                           ("flash_sdpa_bwd_dq_wide_f32", 256, 36352),
-                          ("flash_sdpa_bwd_dkv_wide_f32", 256, 36352)):
+                          ("flash_sdpa_bwd_dkv_wide_f32", 256, 36352),
+                          ("flash_sdpa", 80, 4900), ("flash_sdpa_fp32", 80, 4900)):
         r = fa.kernel_resources(kernel, d, lk)
         log(f"[build] {kernel} d={d}: {r['registers']} registers a thread, {r['spill_bytes']} "
             f"bytes of local memory (spills) a thread, {r['smem_bytes']} bytes of shared memory "
@@ -737,12 +770,13 @@ def main():
 
     log(f"[time] phases 1-4 (build, main path, kernels, checks) {time.perf_counter() - t_run:.1f} s")
 
-    # ---------------------------------------------------------------- 5-11
+    # ---------------------------------------------------------------- 5-12
     for name, phase in (("video", lambda: video_phase(smi, rng)), ("train", lambda: train_phase(smi)),
                         ("pcs", lambda: pcs_phase(smi)), ("probe", lambda: [probe_phase(smi)]),
                         ("tracker_train", lambda: tracker_train_phase(smi)),
                         ("fp32", lambda: fp32_phase(smi, main_ref)),
-                        ("sam3", lambda: sam3_phase(smi, main_ref))):
+                        ("sam3", lambda: sam3_phase(smi, main_ref)),
+                        ("sam1", lambda: sam1_phase(smi, main_ref))):
         t_phase = time.perf_counter()
         rows += phase()
         torch.cuda.empty_cache()
@@ -3178,6 +3212,456 @@ def sam3_phase(smi, main_ref):
     del pred, st, outs, capture, image_m, core
     torch.cuda.empty_cache()
     log(f"[sam3] video part {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+# the [sam1] phase: the SAM1 students (student_sam.sam_model_registry) through
+# SamStudentPredictor, and automatic mask generation over the EV-M tracker
+SAM1_SET_IMAGE = {"flash_sdpa": 4}  # a ViT student's four global blocks
+SAM1_CNN = ("edge_sam", "tinyvit", "efficientvit")
+SAM1_VIT_SIZE = 1120  # 70x70 tokens: the nearest size above 1024 the 14-token windows split
+SAM1_POINTS = ([[200.0, 150.0], [420.0, 300.0], [650.0, 480.0]], [1, 1, 0])  # xy, labels
+SAM1_BOX = [150.0, 120.0, 560.0, 470.0]
+# automatic mask generation over the seeded EV-M tracker (amg_predictor) on
+# amg_image's scene, with one crop layer (four overlapping crops at 16x16
+# points each): the IoU threshold lowered below the seeded IoU head's
+# predictions; at least AMG_MIN_RECORDS records after NMS; the fp32 build on
+# the card held against the CPU at AMG_CHECK_SIDE^2 points
+AMG_KW = dict(points_per_side=32, points_per_batch=64, pred_iou_thresh=0.6,
+              stability_score_thresh=0.9, crop_n_layers=1, crop_n_points_downscale_factor=2)
+AMG_MIN_RECORDS = 3
+AMG_CHECK_SIDE = 12
+
+
+def amg_image(h, w, seed=3):
+    """(h, w, 3) uint8: a flat background and, in each corner, a rectangle
+    and an ellipse of flat colours, made from seed. Each corner's shapes lie
+    inside one crop of the first crop layer and more than the edge margin
+    from its inner sides, so a mask of those shapes survives that crop's
+    edge test with a box of its own."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    img = np.empty((h, w, 3), np.uint8)
+    img[:] = rng.integers(0, 256, 3)
+    yy, xx = np.mgrid[:h, :w]
+    zw, zh = int(0.29 * w), int(0.23 * h)  # corner zones of 232 x 138 at 800 x 600
+    for x0 in (30, w - 30 - zw):
+        for y0 in (30, h - 30 - zh):
+            for ellipse in (False, True):
+                ry, rx = rng.integers(zh // 6, zh // 2), rng.integers(zw // 6, zw // 2)
+                cy, cx = rng.integers(y0 + ry, y0 + zh - ry + 1), rng.integers(x0 + rx,
+                                                                               x0 + zw - rx + 1)
+                if ellipse:
+                    region = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1
+                else:
+                    region = (abs(yy - cy) <= ry) & (abs(xx - cx) <= rx)
+                img[region] = rng.integers(0, 256, 3)
+    return img
+
+
+def amg_models(dtype, dev):
+    """The EV-M image model and tracker (build_efficientsam3_video_model,
+    1008^2, seed 0) with the CPU test's two changes to the seeded heads: the
+    object-score head's last bias + 10 (else every mask is "no object", as
+    in [pcs]) and the hypernetworks' last layers x 30 (mask logits of tens,
+    beyond the stability offset of 1)."""
+    import torch
+
+    from efficientsam3_tpu_torch.build import build_efficientsam3_video_model
+
+    image_m, core = build_efficientsam3_video_model(text_encoder_context_length=32, dtype=dtype,
+                                                    device=dev, seed=0)
+    dec = core.sam_mask_decoder
+    with torch.no_grad():
+        dec.pred_obj_score_head.layers[-1].bias += 10.0
+        for mlp in dec.output_hypernetworks_mlps:
+            mlp.layers[-1].weight.mul_(30.0)
+    return image_m, core
+
+
+def amg_predictor(image_m, core):
+    """sam1_task.InteractiveImagePredictor over the system's encode_frame,
+    with a seeded projection (x 3) of the frame's pixels, pooled to the
+    finest SAM2-neck level, added to that level, as the CPU test's frame
+    encoder adds one. Without it the seeded neck's features (about 1e-3)
+    carry no trace of the image: every mask is the same blocky pattern,
+    its box the whole image, and per-crop NMS leaves one record."""
+    import torch
+    import torch.nn.functional as F
+
+    from efficientsam3_tpu_torch.sam1_task import InteractiveImagePredictor
+    from efficientsam3_tpu_torch.system import EfficientSam3System
+
+    system = EfficientSam3System(image_m, core)
+    proj = 3.0 * torch.randn(3, core.d_model, generator=torch.Generator().manual_seed(5))
+
+    def encode(img):
+        fpn = list(system.encode_frame(img)["sam2_fpn"])
+        h, w = fpn[0].shape[1:3]
+        pix = F.adaptive_avg_pool2d(img.permute(0, 3, 1, 2).float(), (h, w)).permute(0, 2, 3, 1)
+        fpn[0] = fpn[0] + (pix @ proj.to(pix.device)).to(fpn[0].dtype)
+        return {"sam2_fpn": fpn}
+
+    return InteractiveImagePredictor(core, encode)
+
+
+def amg_agree(got, want, least):
+    """Records of one AutomaticMaskGenerator on the card (got) and on the
+    CPU (want): equal in count (at least ``least``), each CPU record
+    matched to the card record with its point and the nearest predicted
+    IoU; crop boxes equal, masks differing on at most 0.5% of the area
+    (pixels whose logit lies within rounding of 0), boxes within 1 px,
+    predicted IoU within 1e-4 and stability within 2e-2 (a pixel count at
+    the offset may flip). Raises, else returns the worst of each."""
+    import numpy as np
+
+    from efficientsam3_tpu_torch.eval.coco_format import rle_to_mask
+
+    if len(got) != len(want) or len(want) < least:
+        raise AssertionError(f"[sam1] AMG: {len(got)} records on the card, {len(want)} on the "
+                             f"CPU (at least {least})")
+    worst = dict(mask=0.0, box=0.0, iou=0.0, stability=0.0)
+    free = list(range(len(got)))
+    for w in want:
+        same = [i for i in free if np.allclose(got[i]["point_coords"], w["point_coords"],
+                                               atol=1e-3)]
+        if not same:
+            raise AssertionError(f"[sam1] AMG: no card record at the CPU's point "
+                                 f"{w['point_coords']}")
+        i = min(same, key=lambda j: abs(got[j]["predicted_iou"] - w["predicted_iou"]))
+        free.remove(i)
+        g = got[i]
+        wm = rle_to_mask(w["segmentation"])
+        diffs = dict(mask=float((rle_to_mask(g["segmentation"]) != wm).sum()) / w["area"],
+                     box=float(np.abs(np.subtract(g["bbox"], w["bbox"])).max()),
+                     iou=abs(g["predicted_iou"] - w["predicted_iou"]),
+                     stability=abs(g["stability_score"] - w["stability_score"]))
+        bounds = dict(mask=5e-3, box=1.0, iou=1e-4, stability=2e-2)
+        if g["crop_box"] != w["crop_box"] or any(diffs[k] > bounds[k] for k in bounds):
+            raise AssertionError(f"[sam1] AMG record at {w['point_coords']} differs from the "
+                                 f"CPU's: {diffs} (bounds {bounds}), crop boxes "
+                                 f"{g['crop_box']} / {w['crop_box']}")
+        worst = {k: max(worst[k], diffs[k]) for k in worst}
+    return worst
+
+
+def sam1_phase(smi, main_ref):
+    """Phase 12: the SAM1 students at full width in bf16 through
+    SamStudentPredictor (set_image + predict with 3 points, and with a box):
+    EdgeSAM (RepViT-M1.1), TinyViT-5M and EfficientViT-b1 at 1024^2 (no
+    kernel on their paths); vit_h and vit_b at 1120^2 (flash_sdpa 4
+    launches a set_image, at d=80 and d=64); vit_h at the registry's
+    1024^2 raising. The default (fp32) build of vit_h cut to 4 blocks (one
+    global) held against the same model on the host's CPU. The d=80 rows,
+    bf16 and fp32, each held against the plain version; vit_b's d=64
+    launches likewise. Automatic mask generation over the EV-M tracker's
+    interactive predictor (bf16, 1008^2) on amg_image's scene: records, ms
+    an image; the fp32 build's records held against a CPU copy's."""
+    import copy
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from efficientsam3_tpu_torch.automatic_mask_generator import AutomaticMaskGenerator
+    from efficientsam3_tpu_torch.build import init_parameters
+    from efficientsam3_tpu_torch.eval.coco_format import rle_to_mask
+    from efficientsam3_tpu_torch.models import common
+    from efficientsam3_tpu_torch.models.vitdet import ViTTrunk
+    from efficientsam3_tpu_torch.ops import depthwise as dw
+    from efficientsam3_tpu_torch.ops import flash_attention as fa
+    from efficientsam3_tpu_torch.ops import layer_norm as ln
+    from efficientsam3_tpu_torch.student_sam import (
+        SamStudentModel,
+        SamStudentPredictor,
+        sam_model_registry,
+    )
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    counters = {"flash_sdpa": fa, "flash_memattn": fa, "flash_memattn_q8": fa,
+                "flash_xattn_rpb": fa, "layer_norm": ln, "depthwise_conv2d": dw}
+
+    def reset():
+        for name, mod in counters.items():
+            getattr(mod, name).launches = 0
+
+    def counts():
+        return {name: getattr(mod, name).launches for name, mod in counters.items()}
+
+    def expect(what, got, want):
+        want = {k: want.get(k, 0) for k in counters}
+        log(f"[sam1] {what}: launches {got}")
+        if got != want:
+            raise AssertionError(f"[sam1] {what}: launches {got}, want {want}")
+
+    image = main_ref["image"]
+    h0, w0 = image.shape[:2]
+    points, labels = (np.array(a) for a in SAM1_POINTS)
+    box = np.array(SAM1_BOX)
+
+    def predict_both(pred):
+        return (pred.predict(point_coords=points, point_labels=labels),
+                pred.predict(box=box, multimask_output=False))
+
+    def drive(pred, what, build_s, n_params):
+        """One set_image and the two prompts: shapes, finite values, times."""
+        pred.set_image(image)
+        (m3, i3, l3), (m1, i1, l1) = predict_both(pred)
+        side = pred.model.embed_size * 4
+        for m, i, lo, n in ((m3, i3, l3, 3), (m1, i1, l1, 1)):
+            if m.shape != (n, h0, w0) or m.dtype != bool or lo.shape != (n, side, side):
+                raise AssertionError(f"[sam1] {what}: masks {m.shape} low {lo.shape}")
+            if not (np.isfinite(i).all() and np.isfinite(lo).all()):
+                raise AssertionError(f"[sam1] {what}: non-finite outputs")
+        set_ms = cuda_time(lambda: pred.set_image(image), 5, warmup=1)
+        pt_ms = cuda_time(lambda: pred.predict(point_coords=points, point_labels=labels), 10)
+        box_ms = cuda_time(lambda: pred.predict(box=box, multimask_output=False), 10)
+        torch.cuda.reset_peak_memory_stats()
+        pred.set_image(image)
+        predict_both(pred)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        busy = []  # torch.profiler's device time of one call over its CUDA-event time
+        for stage, fn, ms in (("set_image", lambda: pred.set_image(image), set_ms),
+                              ("predict 3 points", lambda: pred.predict(
+                                  point_coords=points, point_labels=labels), pt_ms)):
+            _, n_launch, us = profile_kernels(fn)
+            busy.append(f"{stage} {n_launch} launches, {us / 1e3:.3f} ms device, busy "
+                        f"{us / 1e3 / ms:.1%}" if us else f"{stage} not measured")
+        log(f"[sam1] {what} ({n_params / 1e6:.1f} M parameters, built in {build_s:.1f} s): "
+            f"set_image {set_ms:.3f} ms | predict 3 points {pt_ms:.3f} ms | predict box "
+            f"{box_ms:.3f} ms | peak memory {peak:.2f} GiB | IoU predictions (points) "
+            f"{np.round(i3, 4).tolist()} | {smi}")
+        log(f"[profile] {what}: {'; '.join(busy)}")
+
+    def d80_row(name, tol, q, k, v, key_bias, scale, launches, device_ms, fp32):
+        got, lse = fa.flash_sdpa(q, k, v, key_bias, scale, return_lse=True)
+        want, want_lse = fa.flash_sdpa_plain(q, k, v, key_bias, scale, return_lse=True)
+        err = max(check(name, got, want, tol), check(f"{name} lse", lse, want_lse, tol))
+        del got, lse, want, want_lse
+        b, h, lq, d = q.shape
+        live = int((key_bias > fa.NEG_INF / 2).sum().item()) * h * lq  # scores, over the batch
+        if fp32:
+            bms, by = attn_bound(q.numel(), live, d, kv_elems=k.numel() + v.numel())
+        else:
+            nb = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * key_bias.numel()
+            bms, by = bound(nb, 4.0 * live * d, 1.0 * live, 6.0 * live)
+        res = fa.kernel_resources("flash_sdpa_fp32" if fp32 else "flash_sdpa", d)
+        fn = lambda: fa.flash_sdpa(q, k, v, key_bias, scale)  # noqa: E731
+        r = dict(name=name, route="cuda",
+                 source=f"efficientsam3_tpu_torch/csrc/{fa.sdpa_kernel(q.dtype, d)}.cu",
+                 replaces="efficientsam3_tpu/ops/pallas/flash_attention.py:144",
+                 launches=launches, max_abs_err=err, ms=graph_time(fn, 5, 10),
+                 call_ms=cuda_time(fn, 10),
+                 plain_ms=cuda_time(lambda: fa.flash_sdpa_plain(q, k, v, key_bias, scale), 3,
+                                    warmup=1),
+                 bound_ms=bms, bound_by=by,
+                 library_ms=graph_time(
+                     lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 5, 10),
+                 device_ms=device_ms,
+                 shape=f"q/k/v {tuple(q.shape)} {str(q.dtype)[6:]} (v a strided view of the "
+                       f"packed qkv), mma.sync{' split bf16 products' if fp32 else ''}; "
+                       f"{res['registers']} registers, {res['spill_bytes']} bytes spilled, "
+                       f"{res['smem_bytes']} B static shared, {res['blocks_per_sm']} blocks an "
+                       f"SM; library = {'fp32 ' if fp32 else ''}SDPA", **{"pass": True})
+        log_row(r, smi)
+        return r
+
+    def encode_dev_ms(model, what, pattern, launches):
+        """torch.profiler split of one encode_image at 1120^2; device ms a
+        launch of the kernels matching pattern."""
+        img = torch.zeros((1, SAM1_VIT_SIZE, SAM1_VIT_SIZE, 3), device=dev)
+        with torch.inference_mode():
+            enc_ms = cuda_time(lambda: model.encode_image(img), 5, warmup=1)
+        kernels, n_launch, total_us = profile_kernels(lambda: model.encode_image(img))
+        if not total_us:
+            log(f"[profile] {what}: the profiler recorded no device time: not measured")
+            return None
+        busy = total_us / 1e3 / enc_ms
+        log(f"[profile] {what}: {n_launch} kernel launches, {total_us / 1e3:.3f} ms of device "
+            f"time in a {enc_ms:.3f} ms call: device busy {busy:.1%}, idle {1 - busy:.1%}")
+        for name, u, n in kernels[:10]:
+            log(f"[profile] {what}:   {u / 1e3:8.4f} ms  x{n:<4d} {name[:90]}")
+        write_out(f"profile_{what.replace(' ', '_')}.txt",
+                  "\n".join(f"{u:12.2f} us  x{n:<5d} {name}" for name, u, n in kernels))
+        us = sum(u for name, u, _ in kernels if pattern in name)
+        return us / 1e3 / launches if us else None
+
+    rows = []
+    # ---------------------------------------------------------------- CNN students
+    t0 = time.perf_counter()
+    for key in SAM1_CNN:
+        tb = time.perf_counter()
+        model = sam_model_registry[key](dtype=bf16, device=dev)
+        build_s = time.perf_counter() - tb
+        pred = SamStudentPredictor(model)
+        pred.set_image(image)  # warm-up: cuDNN plans
+        predict_both(pred)
+        torch.cuda.synchronize()
+        reset()
+        pred.set_image(image)
+        predict_both(pred)
+        torch.cuda.synchronize()
+        expect(f"{key} set_image + 2 predicts", counts(), {})
+        drive(pred, f"{key} bf16 1024^2", build_s, sum(p.numel() for p in model.parameters()))
+        del model, pred
+        torch.cuda.empty_cache()
+    log(f"[sam1] CNN students part {time.perf_counter() - t0:.1f} s")
+
+    # ---------------------------------------------------------------- ViT students
+    captured = {}
+    for key, d in (("vit_h", 80), ("vit_b", 64)):
+        t0 = time.perf_counter()
+        reg = sam_model_registry[key](dtype=bf16, device=dev)  # the registry's 1024^2
+        build_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in reg.parameters())
+        try:
+            SamStudentPredictor(reg).set_image(image)
+        except ValueError as e:
+            log(f"[sam1] {key} at the registry's 1024^2 raises, as the JAX trunk asserts: {e}")
+        else:
+            raise AssertionError(f"[sam1] {key} at 1024^2 did not raise")
+        # the same weights at 1120^2: the registry's trunk under heads for the larger input
+        model = SamStudentModel(trunk=reg.trunk, image_size=SAM1_VIT_SIZE, dtype=bf16)
+        model.load_state_dict(reg.state_dict())
+        model = model.requires_grad_(False).eval().to(dev)
+        del reg
+        pred = SamStudentPredictor(model)
+        capture = Capture([(common, "flash_sdpa")])
+        with capture:  # warm-up
+            pred.set_image(image)
+            predict_both(pred)
+        torch.cuda.synchronize()
+        calls = {dd: n for (_, dd), n in capture.calls.items()}
+        log(f"[sam1] {key} warm-up: flash_sdpa calls by head dim {calls}")
+        if calls != {d: 4}:
+            raise AssertionError(f"[sam1] {key}: flash_sdpa calls by head dim {calls}")
+        reset()
+        pred.set_image(image)
+        torch.cuda.synchronize()
+        expect(f"{key} per set_image", counts(), SAM1_SET_IMAGE)
+        reset()
+        predict_both(pred)
+        torch.cuda.synchronize()
+        expect(f"{key} per 2 predicts", counts(), {})
+        drive(pred, f"{key} bf16 {SAM1_VIT_SIZE}^2", build_s, n_params)
+        if key == "vit_h":
+            captured["dev"] = encode_dev_ms(model, "vit_h encode_image",
+                                            "flash_sdpa_fwd_kernel<80", SAM1_SET_IMAGE["flash_sdpa"])
+            captured["bf16"] = capture.args[("flash_sdpa", 80)][0]
+        else:  # the wgmma d=64 kernel at vit_b's own inputs: 12 heads, a 36-row / 36-key tail
+            q, k, v, key_bias, scale = capture.args[("flash_sdpa", 64)][0]
+            got, lse = fa.flash_sdpa(q, k, v, key_bias, scale, return_lse=True)
+            want, want_lse = fa.flash_sdpa_plain(q, k, v, key_bias, scale, return_lse=True)
+            check(f"flash_sdpa_d64 at vit_b's {tuple(q.shape)}", got, want)
+            check(f"flash_sdpa_d64 lse at vit_b's {tuple(q.shape)}", lse, want_lse)
+            del q, k, v, key_bias, got, lse, want, want_lse
+        del model, pred, capture
+        torch.cuda.empty_cache()
+        log(f"[sam1] {key} part {time.perf_counter() - t0:.1f} s")
+    q, k, v, key_bias, scale = captured.pop("bf16")
+    rows.append(d80_row("flash_sdpa_d80", ATOL, q, k, v, key_bias, scale,
+                        SAM1_SET_IMAGE["flash_sdpa"], captured["dev"], False))
+    del q, k, v, key_bias
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- fp32 vit_h cut
+    t0 = time.perf_counter()
+    trunk = ViTTrunk(patch_size=16, embed_dim=1280, depth=4, num_heads=16, mlp_ratio=4.0,
+                     window_size=14, global_att_blocks=(3,), pretrain_grid=64)
+    cpu_model = init_parameters(SamStudentModel(trunk, image_size=SAM1_VIT_SIZE), 0).eval()
+    cpu_model.requires_grad_(False)
+    model = copy.deepcopy(cpu_model).to(dev)
+    pred = SamStudentPredictor(model)
+    capture = Capture([(common, "flash_sdpa")])
+    with capture:
+        pred.set_image(image)
+    torch.cuda.synchronize()
+    reset()
+    pred.set_image(image)
+    (m3, i3, l3), _ = predict_both(pred)
+    torch.cuda.synchronize()
+    expect("fp32 vit_h cut (4 blocks, 1 global) set_image + 2 predicts", counts(),
+           {"flash_sdpa": 1})
+    set_ms = cuda_time(lambda: pred.set_image(image), 3, warmup=1)
+    dev_f32 = encode_dev_ms(model, "vit_h cut fp32 encode_image",
+                            "flash_sdpa_fwd_kernel<80, float>", 1)
+    cpu_pred = SamStudentPredictor(cpu_model)
+    t_cpu = time.perf_counter()
+    cpu_pred.set_image(image)
+    (cm3, ci3, cl3), _ = predict_both(cpu_pred)
+    cpu_s = time.perf_counter() - t_cpu
+    errs = {}
+    for what, got, want in (("embedding", pred._emb.float().cpu(), cpu_pred._emb),
+                            ("low-res masks", torch.from_numpy(l3), torch.from_numpy(cl3)),
+                            ("IoU predictions", torch.from_numpy(i3), torch.from_numpy(ci3))):
+        errs[what] = (got - want).abs().max().item() / max(1.0, want.abs().max().item())
+    log(f"[sam1] fp32 vit_h cut on the card vs the CPU (plain versions, {cpu_s:.1f} s): "
+        f"set_image {set_ms:.3f} ms on the card; max abs err over max(1, |largest|) "
+        f"{ {k_: f'{v_:.2e}' for k_, v_ in errs.items()} } (bound 1e-3) | {smi}")
+    if not all(e <= 1e-3 for e in errs.values()):
+        raise AssertionError(f"[sam1] fp32 vit_h cut on the card drifts from the CPU: {errs}")
+    (q, k, v, key_bias, scale), _ = capture.args[("flash_sdpa", 80)]
+    del capture, pred, cpu_pred, model, cpu_model
+    torch.cuda.empty_cache()
+    rows.append(d80_row("flash_sdpa_d80_fp32", FP32_TOL, q, k, v, key_bias, scale, 1, dev_f32,
+                        True))
+    del q, k, v, key_bias
+    torch.cuda.empty_cache()
+    log(f"[sam1] fp32 part {time.perf_counter() - t0:.1f} s")
+
+    # ---------------------------------------------------------------- AMG
+    t0 = time.perf_counter()
+    scene = amg_image(h0, w0)
+    image_m, core = amg_models(bf16, dev)
+    amg = AutomaticMaskGenerator(amg_predictor(image_m, core), **AMG_KW)
+    amg.generate(scene)  # warm-up
+    torch.cuda.synchronize()
+    reset()
+    t1 = time.perf_counter()
+    records = amg.generate(scene)
+    torch.cuda.synchronize()
+    amg_ms = (time.perf_counter() - t1) * 1e3
+    n_points = sum(len(g) * 4 ** i for i, g in enumerate(amg.point_grids))
+    expect(f"one generate ({n_points} points)", counts(), {})
+    if len(records) < AMG_MIN_RECORDS:
+        raise AssertionError(f"[sam1] automatic mask generation left {len(records)} records, "
+                             f"want at least {AMG_MIN_RECORDS}")
+    for rec in records:
+        m = rle_to_mask(rec["segmentation"])
+        x, y, bw, bh = rec["bbox"]
+        if m.shape != (h0, w0) or int(m.sum()) != rec["area"] or not (
+                0 <= x and 0 <= y and x + bw <= w0 and y + bh <= h0):
+            raise AssertionError(f"[sam1] AMG record inconsistent: area {rec['area']} "
+                                 f"bbox {rec['bbox']}")
+    amg_ms2 = cuda_time(lambda: amg.generate(scene), 2, warmup=0)
+    n_crops = len({tuple(r["crop_box"]) for r in records})
+    log(f"[sam1] AMG over the EV-M tracker (bf16, 1008^2) on the {h0}x{w0} scene, {AMG_KW}, "
+        f"{n_points} points: {len(records)} records from {n_crops} crops (areas "
+        f"{[r['area'] for r in records][:12]}), {amg_ms:.1f} ms an image (again: "
+        f"{amg_ms2:.1f}) | {smi}")
+    del amg, image_m, core
+    torch.cuda.empty_cache()
+
+    # the default (fp32) build's records on the card against a copy of the
+    # same predictor on the host's CPU (plain versions)
+    kw = dict(AMG_KW, points_per_side=AMG_CHECK_SIDE)
+    image_m, core = amg_models(None, dev)
+    got = AutomaticMaskGenerator(amg_predictor(image_m, core), **kw).generate(scene)
+    cpu_m, cpu_core = copy.deepcopy(image_m).cpu(), copy.deepcopy(core).cpu()
+    del image_m, core
+    torch.cuda.empty_cache()
+    t_cpu = time.perf_counter()
+    want = AutomaticMaskGenerator(amg_predictor(cpu_m, cpu_core), **kw).generate(scene)
+    cpu_s = time.perf_counter() - t_cpu
+    worst = amg_agree(got, want, AMG_MIN_RECORDS)
+    log(f"[sam1] AMG fp32 on the card vs the CPU ({AMG_CHECK_SIDE}^2 points and 4 crops at "
+        f"{AMG_CHECK_SIDE // 2}^2, CPU {cpu_s:.1f} s): {len(got)} records, equal in count, "
+        f"points and crop boxes; worst: {worst} (bounds: masks 0.5% of the area, boxes 1 px, "
+        f"predicted IoU 1e-4, stability 2e-2)")
+    del cpu_m, cpu_core
+    log(f"[sam1] AMG part {time.perf_counter() - t0:.1f} s")
     return rows
 
 

@@ -17,6 +17,11 @@ package module for module, so each file has a counterpart at the same path:
              host C++ (built on first use)
   utils/     weight conversion from the JAX variables, tokenizer,
              checkpoints, logging and metrics writers
+  eval/      COCO-format helpers (RLE encode / decode)
+  student_sam.py / automatic_mask_generator.py
+             the SAM1 students (RepViT, TinyViT, EfficientViT and ViT
+             trunks under the SAM heads) with their predictor, and
+             automatic mask generation over the SAM1-task predictor
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

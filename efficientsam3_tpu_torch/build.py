@@ -1,7 +1,9 @@
 """Model builders: the public construction API of the port.
 
-Counterpart of efficientsam3_tpu/build.py for the image model with an
-EfficientViT student trunk (S/M = b0/b1) and the MobileCLIP-S0 text tower,
+Counterpart of efficientsam3_tpu/build.py for the image model with a
+student trunk (EfficientViT b0/b1/b2, RepViT m0.9/m1.1/m2.3 or TinyViT
+5m/11m/21m; S/M/L by the model zoo's aliases) and the MobileCLIP-S0 text
+tower,
 for the SAM3 teacher (ViTDet ViT-H trunk and the CLIP text tower), and for
 the video models: each image model with the SAM2 neck, plus the tracker
 core.
@@ -19,35 +21,42 @@ from typing import Optional, Union
 import torch
 
 from efficientsam3_tpu_torch.device import resolve_device
-from efficientsam3_tpu_torch.models.efficientvit import (
-    EFFICIENTVIT_OUT_CHANNELS,
-    EFFICIENTVIT_VARIANTS,
-)
+from efficientsam3_tpu_torch.models.efficientvit import EFFICIENTVIT_VARIANTS
+from efficientsam3_tpu_torch.models.repvit import REPVIT_VARIANTS
 from efficientsam3_tpu_torch.models.sam3_image import Sam3ImageModel
 from efficientsam3_tpu_torch.models.student_encoder import ImageStudentEncoder
+from efficientsam3_tpu_torch.models.tiny_vit import TINYVIT_VARIANTS
 from efficientsam3_tpu_torch.models.vitdet import ViTTrunk
 from efficientsam3_tpu_torch.video.tracker import TrackerCore, init_tracker_parameters
 
-SIZE_ALIASES = {("efficientvit", "s"): "b0", ("efficientvit", "m"): "b1"}
+BACKBONE_REGISTRY = {
+    "efficientvit": EFFICIENTVIT_VARIANTS,
+    "repvit": REPVIT_VARIANTS,
+    "tinyvit": TINYVIT_VARIANTS,
+}
+
+# model-zoo shorthand
+SIZE_ALIASES = {
+    ("efficientvit", "s"): "b0", ("efficientvit", "m"): "b1", ("efficientvit", "l"): "b2",
+    ("repvit", "s"): "m0.9", ("repvit", "m"): "m1.1", ("repvit", "l"): "m2.3",
+    ("tinyvit", "s"): "5m", ("tinyvit", "m"): "11m", ("tinyvit", "l"): "21m",
+}
+
+
+def make_trunk(backbone_type: str, model_name: str, dtype: Optional[torch.dtype] = None):
+    """The student trunk ``BACKBONE_REGISTRY[backbone_type][model_name]``
+    (model-zoo aliases resolved); its ``out_channels`` is the width of the
+    map it returns."""
+    model_name = SIZE_ALIASES.get((backbone_type, model_name.lower()), model_name)
+    return BACKBONE_REGISTRY[backbone_type][model_name](dtype=dtype)
 
 
 def make_student_trunk(backbone_type: str = "efficientvit", model_name: str = "b1",
                        embed_dim: int = 1024, embed_size: int = 72,
                        dtype: Optional[torch.dtype] = None) -> ImageStudentEncoder:
     """Student trunk + projection head -> (B, embed_size, embed_size, embed_dim)."""
-    if backbone_type != "efficientvit":
-        raise NotImplementedError(
-            f"backbone {backbone_type!r} is not ported yet: RepViT and TinyViT trunks are "
-            "ROADMAP Queue 1 item 16 (other trunks and towers)"
-        )
-    model_name = SIZE_ALIASES.get((backbone_type, model_name.lower()), model_name)
-    if model_name not in EFFICIENTVIT_VARIANTS:
-        raise NotImplementedError(
-            f"EfficientViT {model_name!r} is not ported yet (ROADMAP Queue 1 item 16)"
-        )
-    trunk = EFFICIENTVIT_VARIANTS[model_name](dtype=dtype)
-    return ImageStudentEncoder(trunk, EFFICIENTVIT_OUT_CHANNELS[model_name], embed_dim,
-                               embed_size, dtype=dtype)
+    trunk = make_trunk(backbone_type, model_name, dtype)
+    return ImageStudentEncoder(trunk, trunk.out_channels, embed_dim, embed_size, dtype=dtype)
 
 
 @torch.no_grad()

@@ -15,7 +15,7 @@
 // operands' dtype, the LSE in fp32. bf16 at d = 32 (the fusion encoder's
 // self-attention) and d = 64 (the teacher's global blocks) runs
 // flash_sdpa_h.cu, the wgmma kernel; this file serves fp32 at d = 32 and
-// d = 64, and both dtypes at d = 256.
+// d = 64, and both dtypes at d = 80 and d = 256.
 //
 // Bound on the H100 at the fusion-encoder shape (1, 8, 5184, 32): ~27.5
 // GFLOP of tensor-core work (~0.03 ms at the bf16 peak; ~0.06 ms at the
@@ -34,6 +34,17 @@
 // the tf32 rate) against 430 M exponentials (~0.10 ms): bound by the
 // products. No backward at d = 64: no JAX path trains a ViT trunk, and
 // flash_sdpa refuses the head dim under autograd.
+//
+// Head dim 80 (the vit_h SAM1 student's global blocks, 1280 wide in 16
+// heads: Q K V (1, 16, 4900, 80) at 1120^2, 4 launches an encode_image)
+// runs the same register kernel in both dtypes: five 16-wide k-steps of
+// the score product and ten 8-wide n-tiles of the PV product. Per launch
+// ~123 GFLOP of products (~0.124 ms at the bf16 peak, ~0.248 ms at the
+// tf32 rate) against 384 M exponentials (~0.09 ms): bound by the products.
+// The fp32 tiles take ks[2][64][88] + vt[2][80][72] bf16 = 45.6 KB of the
+// 48 KB of static shared memory; the rows of 88 and 72 elements keep the
+// fragment reads free of bank conflicts. The bf16 d = 80 forward on wgmma
+// (its rows of 160 bytes need two TMA slabs a tile) is a later redesign.
 //
 // Head dim 256 (the tracker's single-head memory attention, Q K V
 // (8, 1, 5184, 256) in self-attention and 36352 keys in the plain
@@ -155,6 +166,9 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* key_bias
   if (d == 256)
     return launch_qsmem<256, 256, T>(q, k, v, key_bias, o, lse, B, H, lq, lk, sm_scale, sqb, sqh,
                                      sqn, skb, skh, skn, svb, svh, svn, sob, soh, son, st);
+  if (d == 80)
+    return launch_reg<80, T>(q, k, v, key_bias, o, lse, B, H, lq, lk, sm_scale, sqb, sqh, sqn,
+                             skb, skh, skn, svb, svh, svn, sob, soh, son, st);
   if constexpr (std::is_same<T, float>::value) {  // bf16 at d = 32 and 64 is flash_sdpa_h.cu's
     if (d == 32)
       return launch_reg<32, T>(q, k, v, key_bias, o, lse, B, H, lq, lk, sm_scale, sqb, sqh, sqn,
@@ -166,8 +180,9 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* key_bias
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// fp32 != 0: q, k, v and o are float32 (d = 32, 64 and 256), else bfloat16
-// (d = 256: bf16 at d = 32 and 64 is served by flash_sdpa_h.cu).
+// fp32 != 0: q, k, v and o are float32 (d = 32, 64, 80 and 256), else
+// bfloat16 (d = 80 and 256: bf16 at d = 32 and 64 is served by
+// flash_sdpa_h.cu).
 extern "C" int flash_sdpa_fwd(const void* q, const void* k, const void* v,
                               const void* key_bias, void* o, void* lse, int B,
                               int H, int lq, int lk, int d, int fp32, float sm_scale,
@@ -180,4 +195,35 @@ extern "C" int flash_sdpa_fwd(const void* q, const void* k, const void* v,
   auto launch = fp32 ? launch_fwd<float> : launch_fwd<bf16>;
   return launch(q, k, v, key_bias, o, lse, B, H, lq, lk, d, sm_scale, sqb, sqh, sqn, skb, skh,
                 skn, svb, svh, svn, sob, soh, son, st);
+}
+
+template <int D, typename T>
+int reg_attrs(int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, flash_sdpa_fwd_kernel<D, T>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, flash_sdpa_fwd_kernel<D, T>,
+                                                      NTHREADS, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = static_cast<int>(a.sharedSizeBytes);
+  out[3] = blocks;
+  return 0;
+}
+
+// The register kernel at head dim d (32, 64 or 80; fp32 != 0 for its fp32
+// instantiation, else bf16, built at d = 80 only) as the runtime holds it:
+// out = {registers, spilled bytes a thread, static shared bytes a block,
+// blocks an SM}.
+extern "C" int flash_sdpa_attrs(int d, int fp32, int* out) {
+  if (fp32) {
+    if (d == 32) return reg_attrs<32, float>(out);
+    if (d == 64) return reg_attrs<64, float>(out);
+    if (d == 80) return reg_attrs<80, float>(out);
+  } else if (d == 80) {
+    return reg_attrs<80, bf16>(out);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

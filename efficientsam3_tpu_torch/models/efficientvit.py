@@ -1,4 +1,4 @@
-"""EfficientViT student backbone (b0/b1), NHWC.
+"""EfficientViT student backbone (b0/b1/b2), NHWC.
 
 Counterpart of efficientsam3_tpu/models/efficientvit.py: conv stem with
 depthwise-separable blocks, two MBConv stages, two attention stages of
@@ -161,6 +161,7 @@ class EfficientViTBackbone(nn.Module):
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         w, d = tuple(width_list), tuple(depth_list)
+        self.out_channels = w[-1]
         self.stem_conv = ConvNormAct(3, w[0], 3, 2, norm="bn2d", act="hswish", dtype=dtype)
         self.stem_block = nn.ModuleList(
             DSConv(w[0], w[0], 1, act=("hswish", None), dtype=dtype) for _ in range(d[0])
@@ -207,6 +208,8 @@ def efficientvit_b1(**kw):
     return EfficientViTBackbone((16, 32, 64, 128, 256), (1, 2, 3, 3, 4), head_dim=16, **kw)
 
 
-EFFICIENTVIT_VARIANTS = {"b0": efficientvit_b0, "b1": efficientvit_b1}
+def efficientvit_b2(**kw):
+    return EfficientViTBackbone((24, 48, 96, 192, 384), (1, 3, 4, 4, 6), head_dim=32, **kw)
 
-EFFICIENTVIT_OUT_CHANNELS = {"b0": 128, "b1": 256}
+
+EFFICIENTVIT_VARIANTS = {"b0": efficientvit_b0, "b1": efficientvit_b1, "b2": efficientvit_b2}

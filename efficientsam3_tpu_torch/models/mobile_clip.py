@@ -175,7 +175,7 @@ class TextStudentEncoder(nn.Module):
         super().__init__()
         if backbone_type not in MOBILECLIP_TEXT_CFGS:
             raise NotImplementedError(
-                f"text tower {backbone_type!r} is not ported yet (ROADMAP Queue 1 item 16)"
+                f"text tower {backbone_type!r} is not ported yet (ROADMAP Queue 1 item 16b)"
             )
         cfg = MOBILECLIP_TEXT_CFGS[backbone_type]
         self.encoder = MobileCLIPTextTransformer(

@@ -1,9 +1,11 @@
 """SAM prompt encoder, two-way transformer and mask decoder (NHWC).
 
-Counterpart of efficientsam3_tpu/models/sam/heads.py, with the SAM2
-additions of the mask decoder: the object-score token, the high-res skip
-features and the dynamic multimask choice by stability. Prompts are
-fixed-width padded arrays (label -1 pads), as in the JAX package.
+Counterpart of efficientsam3_tpu/models/sam/heads.py. The mask decoder
+defaults to the SAM2 configuration (the tracker's): the object-score
+token, the high-res skip features and the dynamic multimask choice by
+stability; ``sam1=True`` turns the three off together, as the SAM1
+students' JAX decoder sets them. Prompts are fixed-width padded arrays
+(label -1 pads), as in the JAX package.
 ``MaskDecoder`` in training mode (``.train()``, the JAX ``train=True``)
 takes no dynamic multimask choice: a single-mask call returns mask 0.
 """
@@ -38,7 +40,9 @@ class PromptEncoder(nn.Module):
     """
 
     def __init__(self, embed_dim: int = 256, image_embedding_size=(72, 72),
-                 input_image_size=(1008, 1008)):
+                 input_image_size=(1008, 1008), mask_inputs: bool = True):
+        """mask_inputs=False leaves out the mask downscaler (the SAM1
+        students never take a mask prompt, and their JAX tree has none)."""
         super().__init__()
         self.embed_dim = embed_dim
         self.image_embedding_size = tuple(image_embedding_size)
@@ -47,12 +51,13 @@ class PromptEncoder(nn.Module):
         self.point_embeddings = nn.ModuleList(Embed(1, embed_dim) for _ in range(4))
         self.not_a_point_embed = Embed(1, embed_dim)
         self.no_mask_embed = Embed(1, embed_dim)
-        c = 16  # mask_in_chans
-        self.mask_down = nn.ModuleList([
-            Conv(1, c // 4, 2, stride=2), Conv(c // 4, c, 2, stride=2), Conv(c, embed_dim, 1),
-        ])
-        self.mask_down_ln0 = LayerNorm2d(c // 4)
-        self.mask_down_ln1 = LayerNorm2d(c)
+        if mask_inputs:
+            c = 16  # mask_in_chans
+            self.mask_down = nn.ModuleList([
+                Conv(1, c // 4, 2, stride=2), Conv(c // 4, c, 2, stride=2), Conv(c, embed_dim, 1),
+            ])
+            self.mask_down_ln0 = LayerNorm2d(c // 4)
+            self.mask_down_ln1 = LayerNorm2d(c)
 
     def embed_points(self, points, labels):
         """points (B, P, 2) pixel xy; labels (B, P) int -> (B, P, C)."""
@@ -149,30 +154,36 @@ class TwoWayTransformer(nn.Module):
 
 
 class MaskDecoder(nn.Module):
-    """SAM2 mask decoder: object-score token, high-res skips, dynamic
-    multimask by stability. The JAX module's defaults are fixed here (3
-    multimask outputs, a 3-layer 256-wide IoU head with sigmoid, stability
-    delta 0.05 and threshold 0.98, a 2-layer 8-head two-way transformer);
-    no caller sets them."""
+    """Mask decoder, by default SAM2's: object-score token, high-res
+    skips, dynamic multimask by stability; ``sam1=True`` leaves the three
+    out (object score logits are then a constant 10). The JAX
+    module's other defaults are fixed here (3 multimask outputs, a 3-layer
+    256-wide IoU head with sigmoid, the multimask token for the object
+    pointer, stability delta 0.05 and threshold 0.98, a 2-layer 8-head
+    two-way transformer); no caller sets them."""
 
     num_mask_tokens = 4
     stability_delta = 0.05
     stability_thresh = 0.98
 
-    def __init__(self, transformer_dim: int = 256, dtype: Optional[torch.dtype] = None):
+    def __init__(self, transformer_dim: int = 256, sam1: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         d = transformer_dim
         self.transformer_dim = d
+        self.sam1 = sam1
         self.transformer = TwoWayTransformer(2, d, 8, 2048, dtype=dtype)
         self.iou_token = Embed(1, d)
         self.mask_tokens = Embed(self.num_mask_tokens, d)
-        self.obj_score_token = Embed(1, d)
-        self.pred_obj_score_head = MLP(d, d, 1, 3)
+        if not sam1:
+            self.obj_score_token = Embed(1, d)
+            self.pred_obj_score_head = MLP(d, d, 1, 3)
         self.output_upscaling = nn.ModuleList([ConvTranspose2x(d, d // 4),
                                                ConvTranspose2x(d // 4, d // 8)])
         self.output_upscaling_ln = LayerNorm2d(d // 4)
-        self.conv_s0 = Conv(d, d // 8, 1)
-        self.conv_s1 = Conv(d, d // 4, 1)
+        if not sam1:
+            self.conv_s0 = Conv(d, d // 8, 1)
+            self.conv_s1 = Conv(d, d // 4, 1)
         self.output_hypernetworks_mlps = nn.ModuleList(
             MLP(d, d, d // 8, 3) for _ in range(self.num_mask_tokens))
         self.iou_prediction_head = MLP(d, 256, self.num_mask_tokens, 3, sigmoid_output=True)
@@ -184,20 +195,23 @@ class MaskDecoder(nn.Module):
     def predict_masks(self, image_embeddings, image_pe, sparse, dense, high_res_features=None):
         b = sparse.shape[0]
         d = self.transformer_dim
-        output_tokens = torch.cat([self.obj_score_token.weight, self.iou_token.weight,
-                                   self.mask_tokens.weight], dim=0)
+        toks = [self.iou_token.weight, self.mask_tokens.weight]
+        s = 0
+        if not self.sam1:
+            toks, s = [self.obj_score_token.weight] + toks, 1
+        output_tokens = torch.cat(toks, dim=0)
         tokens = torch.cat([output_tokens[None].expand(b, -1, d), sparse], dim=1)
         src = image_embeddings.expand(b, *image_embeddings.shape[1:]) + dense
         if image_pe.ndim == 3:
             image_pe = image_pe[None]
         hs, src_out = self.transformer(src, image_pe.expand(src.shape), tokens)
-        iou_token_out = hs[:, 1]
-        mask_tokens_out = hs[:, 2:2 + self.num_mask_tokens]
+        iou_token_out = hs[:, s]
+        mask_tokens_out = hs[:, s + 1:s + 1 + self.num_mask_tokens]
 
         h, w = src.shape[1:3]
         src_img = src_out.reshape(b, h, w, d)
         up0, up1 = self.output_upscaling
-        if high_res_features is not None:
+        if not self.sam1 and high_res_features is not None:
             feat_s0, feat_s1 = high_res_features
             up = gelu_exact(self.output_upscaling_ln(up0(src_img) + feat_s1))
             up = gelu_exact(up1(up) + feat_s0)
@@ -208,7 +222,11 @@ class MaskDecoder(nn.Module):
                                 for i, mlp in enumerate(self.output_hypernetworks_mlps)], dim=1)
         masks = torch.einsum("btc,bhwc->bthw", hyper_in.float(), up.float()).to(up.dtype)
         iou_pred = self.iou_prediction_head(iou_token_out)
-        object_score_logits = self.pred_obj_score_head(hs[:, 0])
+        if not self.sam1:
+            object_score_logits = self.pred_obj_score_head(hs[:, 0])
+        else:
+            object_score_logits = torch.full((b, 1), 10.0, dtype=iou_pred.dtype,
+                                             device=iou_pred.device)
         return masks, iou_pred, mask_tokens_out, object_score_logits
 
     def _stability_scores(self, mask_logits):
@@ -231,14 +249,14 @@ class MaskDecoder(nn.Module):
     def forward(self, image_embeddings, image_pe, sparse, dense, multimask_output: bool,
                 high_res_features=None):
         """-> (masks, ious, sam output tokens, object score logits). Without
-        multimask output: the dynamic choice by stability in eval mode, mask
-        0 in training mode."""
+        multimask output: the dynamic choice by stability in eval mode (when
+        the decoder takes it), else mask 0."""
         masks, iou_pred, mask_tokens_out, object_score_logits = self.predict_masks(
             image_embeddings, image_pe, sparse, dense, high_res_features)
         if multimask_output:
             return masks[:, 1:], iou_pred[:, 1:], mask_tokens_out[:, 1:], object_score_logits
-        if self.training:
-            out_masks, out_ious = masks[:, 0:1], iou_pred[:, 0:1]
-        else:
+        if not (self.sam1 or self.training):
             out_masks, out_ious = self._dynamic_multimask(masks, iou_pred)
+        else:
+            out_masks, out_ious = masks[:, 0:1], iou_pred[:, 0:1]
         return out_masks, out_ious, mask_tokens_out[:, 0:1], object_score_logits

@@ -1,4 +1,4 @@
-"""SAM3 teacher trunk (ViTDet ViT-H), NHWC.
+"""SAM3 teacher trunk (ViTDet ViT-H), NHWC; also the SAM1 ViT students'.
 
 Counterpart of efficientsam3_tpu/models/vitdet.py: patch embedding 14x14
 with stride 14 and no bias (72x72 tokens at 1008^2), the absolute position
@@ -15,6 +15,14 @@ global blocks' (1, 16, 5184, 64) attention passes ``common.sdpa``'s
 threshold and runs on the ``flash_sdpa`` kernel at d=64 on CUDA. The norms
 are the port's plain ``LayerNorm`` (flax ``nn.LayerNorm``: fp32 out), so
 the residual stream stays fp32 under a bf16 ``dtype``, as in JAX.
+
+The SAM1 ViT students (``student_sam.build_sam_vit_student``) build the
+same trunk with patch 16, window 14, a 64x64 pretraining grid and MLP 4.0:
+768 / 12, 1024 / 16 and 1280 / 16 (head dims 64, 64 and 80; at d=80 the
+RoPE tables hold 20 frequencies a quarter). At 1024^2 their 64x64 token
+grid does not split into 14-token windows and a windowed block raises, as
+the JAX block asserts; at 1120^2 (70x70 tokens, 5x5 windows of 196 tokens)
+they run, the global blocks' (1, H, 4900, d) attention on ``flash_sdpa``.
 
 Inference only: the JAX trunk's training mode (DropPath, per-block remat)
 is not ported, and ``flash_sdpa`` has no d=64 backward; in training mode
@@ -118,7 +126,7 @@ class ViTTrunk(nn.Module):
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.patch_size = patch_size
-        self.embed_dim = embed_dim
+        self.embed_dim = self.out_channels = embed_dim
         self.pretrain_grid = pretrain_grid
         self.patch_embed = Conv(3, embed_dim, patch_size, stride=patch_size, bias=False,
                                 dtype=dtype)

@@ -3,8 +3,9 @@
 ``flash_sdpa`` replaces the Pallas ``flash_sdpa`` forward
 (efficientsam3_tpu/ops/pallas/flash_attention.py ``_flash_fwd`` /
 ``_kernel`` and ``_flash_fwd_packed`` / ``_packed_kernel``) at head dims 32
-(the fusion encoder), 64 (the SAM3 teacher's ViTDet global blocks) and 256
-(the tracker's memory attention), and at 32 and 256 its custom VJP
+(the fusion encoder), 64 (the SAM3 teacher's ViTDet global blocks and the
+vit_b / vit_l SAM1 students'), 80 (the vit_h SAM1 student's) and 256 (the
+tracker's memory attention), and at 32 and 256 its custom VJP
 (``_flash_bwd``: ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``) through
 ``flash_sdpa_bwd_dq`` / ``flash_sdpa_bwd_dkv``;
 ``flash_memattn`` replaces ``flash_memattn`` / ``_memattn_kernel`` and
@@ -56,9 +57,10 @@ import torch
 from efficientsam3_tpu_torch.ops import _build
 
 NEG_INF = -1e9
-_SUPPORTED_D = (32, 64, 256)
+_SUPPORTED_D = (32, 64, 80, 256)
 # head dims of the backward kernels (fusion encoder, memory attention); no JAX
-# path trains a ViT trunk, so d=64 is forward only
+# path trains a ViT trunk, so d=64 and d=80 are forward only (ROADMAP Queue 2
+# item 13)
 _BWD_D = (32, 256)
 _MEMATTN_DIMS = ((256, 64),)  # (dk, dv) of flash_memattn's kernel
 _BK = 64  # key tile of the CUDA kernels (attn_common.cuh BK)
@@ -127,7 +129,7 @@ def sdpa_kernel(dtype, d):
     """The forward kernel a CUDA ``flash_sdpa`` call launches: the wgmma
     kernel (csrc/flash_sdpa_h.cu) for bf16 at d=32 and d=64, else the
     mma.sync kernels of csrc/flash_sdpa.cu (fp32 at d=32 and d=64, both
-    dtypes at d=256)."""
+    dtypes at d=80 and d=256)."""
     return "flash_sdpa_h" if (dtype == torch.bfloat16 and d in (32, 64)) else "flash_sdpa"
 
 
@@ -182,6 +184,10 @@ def _bind(source, name, argtypes):
 
 def _lib_sdpa():
     return _bind("flash_sdpa", "flash_sdpa_fwd", [_P] * 6 + [_I] * 6 + [_F] + [_LL] * 12 + [_P])
+
+
+def _lib_sdpa_attrs():
+    return _bind("flash_sdpa", "flash_sdpa_attrs", [_I, _I, _P])
 
 
 def _lib_sdpa_h():
@@ -245,9 +251,13 @@ def kernel_resources(kernel, d=32, lk=5184):
     (dkv, d=32), ``"flash_sdpa_bwd_dq_wide_h"`` (d=256, lk keys),
     ``"flash_sdpa_bwd_dkv_wide_h"`` (d=256), or their fp32 counterparts
     ``"flash_sdpa_bwd_dq_wide_f32"`` (lk keys) and
-    ``"flash_sdpa_bwd_dkv_wide_f32"``."""
+    ``"flash_sdpa_bwd_dkv_wide_f32"``; or of the mma.sync register forward
+    of csrc/flash_sdpa.cu, ``"flash_sdpa"`` (bf16, d=80) and
+    ``"flash_sdpa_fp32"`` (d=32, 64 or 80), whose shared memory is static."""
     out = (ctypes.c_int * 4)()
-    if kernel == "flash_sdpa_h":
+    if kernel in ("flash_sdpa", "flash_sdpa_fp32"):
+        status = _lib_sdpa_attrs()(d, int(kernel == "flash_sdpa_fp32"), out)
+    elif kernel == "flash_sdpa_h":
         status = _lib_sdpa_h_attrs()(d, lk, out)
     elif kernel == "flash_sdpa_bwd_h":
         status = _lib_bwd_h_attrs()(out)
@@ -347,7 +357,8 @@ def flash_sdpa(q, k, v, key_bias, sm_scale=None, return_lse=False):
     in q.dtype, and the (B, H, Lq) f32 log-sum-exp with return_lse. When autograd
     records the call (grad mode on, an input requiring a gradient) it runs
     as ``_FlashSdpaFn``, whose backward is the dq and dkv kernels (head dims
-    32 and 256; d=64 raises here, at the forward); CPU tensors are
+    32 and 256; d=64 and d=80 raise here, at the forward: ROADMAP Queue 2
+    item 13); CPU tensors are
     differentiated through the plain version.
     """
     if sm_scale is None:
@@ -355,7 +366,11 @@ def flash_sdpa(q, k, v, key_bias, sm_scale=None, return_lse=False):
     if not q.is_cuda:
         return flash_sdpa_plain(q, k, v, key_bias, sm_scale, return_lse)
     if _build.needs_grad(q, k, v, key_bias):
-        _check_heads("flash_sdpa backward", _BWD_D, q)
+        if q.shape[-1] not in _BWD_D:
+            raise ValueError(f"flash_sdpa backward kernel supports head dims {_BWD_D}, got "
+                             f"{q.shape[-1]}: the d=64 and d=80 backward is ROADMAP Queue 2 "
+                             "item 13")
+        kernel_dtype("flash_sdpa backward", q)
         o, lse = _FlashSdpaFn.apply(q, k, v, key_bias, float(sm_scale))
     else:
         o, lse = _flash_sdpa_fwd(q, k, v, key_bias, sm_scale, return_lse)

@@ -21,10 +21,15 @@ def resize_bilinear(x, size):
 
 
 def resize_antialiased(img, size):
-    """HWC float image -> (out_h, out_w, C) fp32, the resize of
-    jax.image.resize(..., "linear", antialias=True): a triangle filter
-    widened by the downscale factor. F.interpolate's antialiased bilinear
-    computes the same weights (held against JAX in tests/test_torch_ops.py)."""
-    x = img.float().permute(2, 0, 1)[None]
+    """HWC image, or NHWC maps, -> (..., out_h, out_w, C) fp32: the resize
+    of jax.image.resize(..., "linear") over the two spatial axes, which is
+    antialiased by default: a triangle filter widened by the downscale
+    factor (upscaling: plain half-pixel bilinear, edge weights
+    renormalised). F.interpolate's antialiased bilinear computes the same
+    weights (held against JAX in tests/test_torch_ops.py and, for NHWC
+    maps in both directions, tests/test_torch_sam1_slice.py)."""
+    x = img.float()
+    x = x.permute(2, 0, 1)[None] if x.ndim == 3 else x.permute(0, 3, 1, 2)
     y = F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=False, antialias=True)
-    return y[0].permute(1, 2, 0)
+    y = y.permute(0, 2, 3, 1)
+    return y[0] if img.ndim == 3 else y

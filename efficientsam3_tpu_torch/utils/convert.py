@@ -27,6 +27,15 @@ parameters (``pos_embed``, ``positional_embedding``, ``text_projection``)
 keep their names and layouts. ``converted_shapes`` runs the same walk over
 shapes only (``jax.eval_shape`` of a full-size ``init``).
 
+The SAM1 students' trees (``student_sam``) walk by the same rules too:
+RepViT's and TinyViT's ``patch_embed_<i>`` / ``blocks_<i>`` /
+``stage<s>_block_<i>`` / ``downsample_<i>`` are ModuleList entries, their
+ConvBN pairs carry ``params`` and ``batch_stats``, TinyViT's
+``attention_biases`` tables keep their (heads, offsets) layout, and the
+SAM1 neck (``neck_conv1`` ... ``neck_ln2``) and heads keep their names;
+the SAM1 decoder has no object-score head or high-res convs, and its
+prompt encoder no mask downscaler, in either tree.
+
 ``load_jax_variables`` loads the result with ``strict=True`` after
 checking that no key is left over or missing on either side and that
 every shape agrees, and fails loudly otherwise. Loading a released

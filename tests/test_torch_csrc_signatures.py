@@ -25,6 +25,7 @@ CSRC = Path(_build.CSRC)
 # accessor that binds each
 BINDINGS = {
     "flash_sdpa_fwd": fa._lib_sdpa,
+    "flash_sdpa_attrs": fa._lib_sdpa_attrs,
     "flash_sdpa_h_fwd": fa._lib_sdpa_h,
     "flash_sdpa_h_attrs": fa._lib_sdpa_h_attrs,
     "flash_sdpa_bwd_dq": lambda: fa._lib_bwd("flash_sdpa_bwd_dq"),

@@ -169,20 +169,22 @@ def test_layer_norm_kernel_matches_plain(cuda, x_dtype, out_dtype, rows):
 @pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_take(cuda):
     """bf16 and fp32 are taken (the fp32 tests below); fp16, and operands
-    of mixed dtypes, raise naming both accepted types; so do head dims (80:
-    the vit_h student's, not yet ported) and kernel sizes the kernels were
-    not built for."""
+    of mixed dtypes, raise naming both accepted types; so do head dims (48:
+    no JAX path has it; 80, the vit_h student's, is taken since its port)
+    and kernel sizes the kernels were not built for."""
     q16 = _randn(cuda, 1, 2, 16, 32, dtype=torch.float16)
     with pytest.raises(TypeError, match="bfloat16 or float32"):
         fa.flash_sdpa(q16, q16, q16, torch.zeros((1, 16), device=cuda))
     q = _randn(cuda, 1, 2, 16, 32)
     with pytest.raises(TypeError, match="all of one dtype"):
         fa.flash_sdpa(q, q.float(), q, torch.zeros((1, 16), device=cuda))
+    q48 = _randn(cuda, 1, 2, 16, 48)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_sdpa(q48, q48, q48, torch.zeros((1, 16), device=cuda))
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_sdpa(q48.float(), q48.float(), q48.float(), torch.zeros((1, 16), device=cuda))
     q80 = _randn(cuda, 1, 2, 16, 80)
-    with pytest.raises(ValueError, match="head dims"):
-        fa.flash_sdpa(q80, q80, q80, torch.zeros((1, 16), device=cuda))
-    with pytest.raises(ValueError, match="head dims"):
-        fa.flash_sdpa(q80.float(), q80.float(), q80.float(), torch.zeros((1, 16), device=cuda))
+    assert fa.flash_sdpa(q80, q80, q80, torch.zeros((1, 16), device=cuda)).shape == q80.shape
     q256 = _randn(cuda, 1, 1, 16, 256)
     with pytest.raises(ValueError, match="dk, dv"):
         fa.flash_memattn(q256, q256, q256, torch.zeros((1, 16), device=cuda))
@@ -1026,12 +1028,15 @@ def test_flash_sdpa_h_reads_strided_heads(cuda, b, n):
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, TOL), (torch.float32, FP32_TOL)],
                          ids=["bf16", "fp32"])
 @pytest.mark.parametrize("b", [1, 2])
-@pytest.mark.parametrize("lq,lk", [(5184, 5184), (333, 517), (130, 70), (1, 64), (200, 9)])
+@pytest.mark.parametrize("lq,lk", [(5184, 5184), (4900, 4900), (333, 517), (130, 70), (1, 64),
+                                   (200, 9)])
 def test_flash_sdpa_d64_kernel_matches_plain(cuda, dtype, tol, b, lq, lk):
     """d=64 with 16 heads against the plain version (bf16: the wgmma kernel
     with the 128-byte swizzle; fp32: the mma.sync kernel): ragged Lq and Lk
-    against the 128-row block and the 64-key tile, a masked middle tile
-    (skipped), a ragged masked tail, with B=2 a batch row whose keys are all
+    against the 128-row block and the 64-key tile (4900: the vit_b / vit_l
+    students' global blocks at 1120^2, a tail of 36 keys and 36 rows), a
+    masked middle tile (skipped), a ragged masked tail, with B=2 a batch
+    row whose keys are all
     masked (0 out, lse -1e9), and the LSE. V is random, so every column
     differs and a V read across the wrong rows or swizzle shows."""
     q, k, v = (_randn(cuda, b, 16, n, 64, dtype=dtype) for n in (lq, lk, lk))
@@ -1135,3 +1140,118 @@ def test_tiny_teacher_on_card_matches_cpu(cuda, dtype):
         want = ref[key].float()
         err = (got[key].float().cpu() - want).abs().max().item()
         assert err <= tol * max(1.0, want.abs().max().item()), (key, err)
+
+
+# -------------------------------------------------------------------------
+# flash_sdpa forward at d=80: the vit_h SAM1 student's global blocks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, TOL), (torch.float32, FP32_TOL)],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("lq,lk", [(4900, 4900), (333, 517), (130, 70), (1, 64), (200, 9)])
+def test_flash_sdpa_d80_kernel_matches_plain(cuda, dtype, tol, b, lq, lk):
+    """d=80 with 16 heads (the register kernel of csrc/flash_sdpa.cu in both
+    dtypes) against the plain version: vit_h's 4900 tokens (a ragged tail
+    of 36), ragged Lq and Lk, a masked middle tile (skipped), a ragged
+    masked tail, with B=2 a batch row whose keys are all masked (0 out, lse
+    -1e9), and the LSE."""
+    q, k, v = (_randn(cuda, b, 16, n, 80, dtype=dtype) for n in (lq, lk, lk))
+    bias = torch.zeros((b, lk), device=cuda)
+    bias[0, 64:128] = NEG_INF
+    bias[0, lk - lk // 5:] = NEG_INF
+    if b > 1:
+        bias[-1] = NEG_INF
+    assert fa.sdpa_kernel(dtype, 80) == "flash_sdpa"
+    before = fa.flash_sdpa.launches
+    got, lse = fa.flash_sdpa(q, k, v, bias, return_lse=True)
+    torch.cuda.synchronize()
+    assert fa.flash_sdpa.launches == before + 1
+    assert got.dtype == dtype and got.transpose(1, 2).is_contiguous()
+    want, want_lse = fa.flash_sdpa_plain(q, k, v, bias, return_lse=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, want_lse, atol=tol, rtol=tol)
+    if b > 1:
+        assert (got[-1] == 0).all() and (lse[-1] == NEG_INF).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, TOL), (torch.float32, FP32_TOL)],
+                         ids=["bf16", "fp32"])
+def test_flash_sdpa_d80_reads_vitdet_qkv_views(cuda, dtype, tol):
+    """q, k and v as the vit_h student's ViTAttention makes them: views of
+    one packed (B, N, 3 * 16 * 80) qkv projection, read in place."""
+    b, n = 1, 2116
+    qkv = _randn(cuda, b, n, 3 * 16 * 80, dtype=dtype).reshape(b, n, 3, 16, 80)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    bias = torch.zeros((b, n), device=cuda)
+    got = fa.flash_sdpa(q, k, v, bias)
+    assert got.transpose(1, 2).is_contiguous()
+    torch.testing.assert_close(got.float(), fa.flash_sdpa_plain(q, k, v, bias).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_flash_sdpa_d80_refuses_autograd(cuda, dtype):
+    """No d=80 backward kernel: under autograd flash_sdpa raises at the
+    forward, citing ROADMAP Queue 2 item 13; without it the call runs."""
+    q = _randn(cuda, 1, 2, 64, 80, dtype=dtype)
+    bias = torch.zeros((1, 64), device=cuda)
+    with pytest.raises(ValueError, match="Queue 2 item 13"):
+        fa.flash_sdpa(q.clone().requires_grad_(), q, q, bias)
+    with torch.no_grad():
+        assert fa.flash_sdpa(q.clone().requires_grad_(), q, q, bias).shape == q.shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,d", [("flash_sdpa", 80), ("flash_sdpa_fp32", 80),
+                                      ("flash_sdpa_fp32", 64), ("flash_sdpa_fp32", 32)])
+def test_register_forward_fits_without_spills(cuda, kernel, d):
+    """The mma.sync register forward as built: no spills, its static
+    shared tiles within 48 KB, at least one block resident an SM."""
+    res = fa.kernel_resources(kernel, d)
+    assert res["spill_bytes"] == 0 and res["smem_bytes"] <= 48 * 1024, res
+    assert res["blocks_per_sm"] >= 1, res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_tiny_vit_student_on_card_matches_cpu(cuda, dtype):
+    """A SAM1 student over a ViT trunk of 2 heads of 80 whose 46x46 token
+    grid (736^2, window 23) sends its one global block through flash_sdpa
+    at d=80 (2116^2 scores, above sdpa's threshold), on the card against
+    the same model in fp32 on the CPU: the embedding and a point prompt's
+    low-res masks and IoUs, fp32 within 1e-3 of each output's largest
+    magnitude (at least 1), bf16 within 1e-1 (bf16 through the trunk, the
+    two-way transformer and the upscaler)."""
+    from efficientsam3_tpu_torch.build import init_parameters
+    from efficientsam3_tpu_torch.models.vitdet import ViTTrunk
+    from efficientsam3_tpu_torch.student_sam import SamStudentModel
+
+    torch.backends.cudnn.allow_tf32 = False  # the neck's convolutions in fp32
+
+    def tiny(dt):
+        trunk = ViTTrunk(patch_size=16, embed_dim=160, depth=2, num_heads=2, window_size=23,
+                         global_att_blocks=(1,), pretrain_grid=16, mlp_ratio=4.0, dtype=dt)
+        return SamStudentModel(trunk, image_size=736, embed_size=16, dtype=dt).eval()
+
+    ref_model = init_parameters(tiny(None), 1)
+    model = tiny(dtype).to(cuda)
+    model.load_state_dict(ref_model.state_dict())
+    img = torch.from_numpy(RNG.standard_normal((1, 736, 736, 3)).astype(np.float32))
+    pts = torch.tensor([[[300.0, 200.0], [0.0, 0.0]]])
+    labs = torch.tensor([[1, -1]])
+    with torch.inference_mode():
+        ref_emb = ref_model.encode_image(img)
+        ref = ref_model.predict_masks(ref_emb, pts, labs, True)
+        before = fa.flash_sdpa.launches
+        emb = model.encode_image(img.to(cuda))
+        torch.cuda.synchronize()
+        assert fa.flash_sdpa.launches == before + 1
+        got = model.predict_masks(emb, pts.to(cuda), labs.to(cuda), True)
+    tol = 1e-3 if dtype == torch.float32 else 1e-1
+    for g, w in ((emb, ref_emb), *zip(got, ref)):
+        err = (g.float().cpu() - w.float()).abs().max().item()
+        assert err <= tol * max(1.0, w.abs().max().item()), err

@@ -68,7 +68,8 @@ def _depthwise(dtype, ks=7):
 
 CASES = [
     # flash_sdpa forward: the wgmma kernel for bf16 at d=32 and d=64 (the
-    # ViTDet global blocks, forward only), mma.sync otherwise
+    # ViTDet global blocks, forward only), mma.sync otherwise (d=80, the vit_h
+    # student's global blocks, in both dtypes, forward only)
     (_sdpa, (BF16, 32), "flash_sdpa_h"),
     (_sdpa, (F32, 32), "flash_sdpa"),
     (_sdpa, (BF16, 256), "flash_sdpa"),
@@ -78,8 +79,9 @@ CASES = [
     (_sdpa, (BF16, 32, F32), TypeError),
     (_sdpa, (BF16, 64), "flash_sdpa_h"),
     (_sdpa, (F32, 64), "flash_sdpa"),
-    (_sdpa, (BF16, 80), ValueError),
-    (_sdpa, (F32, 80), ValueError),
+    (_sdpa, (BF16, 80), "flash_sdpa"),
+    (_sdpa, (F32, 80), "flash_sdpa"),
+    (_sdpa, (BF16, 48), ValueError),
     # its backward kernels: the bf16 dkv kernel at d=32 and both kernels at
     # d=256 on wgmma (fp32 on split bf16 parts); the rest on mma.sync
     (_bwd, (BF16, 32), "flash_sdpa_bwd"),
@@ -88,6 +90,7 @@ CASES = [
     (_bwd, (F16, 256), TypeError),
     (_bwd, (F32, 64), ValueError),
     (_bwd, (BF16, 64), ValueError),
+    (_bwd, (BF16, 80), ValueError),
     (_dkv, (BF16, 32), "flash_sdpa_bwd_h"),
     (_dkv, (F32, 32), "flash_sdpa_bwd"),
     (_dkv, (BF16, 256), "flash_sdpa_bwd_wide_h"),

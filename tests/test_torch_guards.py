@@ -322,7 +322,10 @@ def test_tokenizer_is_built_on_first_string_prompt(monkeypatch):
 
 @pytest.mark.parametrize("backbone,name", [("repvit", "m1.1"), ("efficientvit", "b2")])
 def test_unported_backbones_raise(backbone, name):
+    """A variant or a backbone the port's registry lacks raises."""
     from efficientsam3_tpu_torch.build import make_student_trunk
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_student_trunk(backbone, name)
+    with pytest.raises(KeyError):
+        make_student_trunk(backbone, "x9")
+    with pytest.raises(KeyError):
+        make_student_trunk("mobilenet", name)
