@@ -10,7 +10,8 @@ Phases, each printing its own lines:
      wgmma kernel (flash_sdpa_h at d=32 and 64, flash_sdpa_bwd_h, the bf16
      d=256 pair flash_sdpa_bwd_dq_wide_h / flash_sdpa_bwd_dkv_wide_h and the
      fp32 one flash_sdpa_bwd_dq_wide_f32 / flash_sdpa_bwd_dkv_wide_f32) and
-     the mma.sync register forward at d=80 (bf16 and fp32) one line of
+     the mma.sync register forward at d=80 (bf16 and fp32) and the mma.sync
+     backward at d=64 and d=80 (dq and dkv, bf16 and fp32) one line of
      registers, spilled bytes and shared memory a block, and blocks an SM,
      as the runtime reports them;
   2. the main path at full width: EfficientViT-b1 ("EV-M") at 1008^2 with
@@ -215,9 +216,35 @@ Phases, each printing its own lines:
      box inside the image), ms an image; the fp32 build at 12x12 points
      held record by record against the same generator over a CPU copy of
      the predictor (amg_agree).
+  13. [stage1] Stage-1 distillation (bf16 compute over fp32 parameters,
+     seeded weights): the SAM3 teacher's ViT-H trunk exports 8 seeded
+     1008^2 images (made in memory: no PIL on the card's path) in batches
+     of 4 through train.stage1.teacher_embedder (flash_sdpa 4 launches a
+     batch), SA1BDistillationDataset.write_records stores them, and every
+     record comes back from native.RecordStore bit for bit (ms an image);
+     the recipe's student (Stage1ImageConfig: EfficientViT-b1 + projection
+     head, 1008^2 -> 72x72x1024) takes 4 steps at batch 8 on the records
+     through data.sa1b.batch_iterator and Trainer (checkpoints every 2), a
+     fresh model resumes at step 4 and takes 2 more (no kernel of ours on
+     its path: every counter 0); the teacher's ViTTrunk at drop path 0
+     (batch 2, against the records) and vit_h's trunk from
+     build_sam_vit_student (1120^2, batch 1, a seeded (70, 70, 1280)
+     target) take stage1_train_step with their blocks checkpointed:
+     launches checked every step (flash_sdpa 8: each global block's
+     forward and its recompute; flash_sdpa_bwd_dq 4 and _dkv 4), every
+     gradient finite, every parameter moved; step, forward, backward and
+     optimizer ms, peak memory, torch.profiler's busy share and a ViT-H
+     step's device time by kernel family. fp32 4-block cuts (block 3
+     global) of both take one step on the card (launches 2 / 1 / 1), the
+     teacher's against the same step on the host's CPU (loss 1e-5
+     relative, every gradient 1e-4 of its largest magnitude). The dq and
+     dkv rows at d=64 and d=80 (csrc/flash_sdpa_bwd.cu), bf16 at a global
+     block's captured inputs of the bf16 steps (2e-2 of each gradient's
+     largest magnitude, SDPA's backward as the library time) and fp32 at
+     the cuts' (FP32_TOL, fp32 SDPA's backward).
 
 Each phase prints its seconds. The line before the last is the kernels
-JSON (thirty-one rows), the last {"ok": true, "device": {...}}. Any
+JSON (thirty-nine rows), the last {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero. Imports nothing of JAX and nothing of
 the JAX package.
 """
@@ -355,7 +382,10 @@ def charge_helpers(prof, owners, helper):
 def profile_kernels(fn, train=False):
     """Device kernels of one fn() call under torch.profiler, after a warm-up
     (under inference mode unless train):
-    ([(name, device us, launches)] by time, total launches, total device us)."""
+    ([(name, device us, launches)] by time, total launches, total device us).
+    The optimizer's profiler range ("Optimizer.step#...", a device-side
+    annotation spanning the kernels it launches) is not a kernel and is left
+    out, or it would count the optimizer's device time twice."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -367,7 +397,7 @@ def profile_kernels(fn, train=False):
         torch.cuda.synchronize()
     kernels = []
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.key.startswith("Optimizer."):
             continue
         kernels.append((e.key, e.self_device_time_total, e.count))
     kernels.sort(key=lambda r: -r[1])
@@ -550,13 +580,16 @@ def main():
                 log(f"[build] {name}: {line.strip()}")
     # the wgmma kernels as the runtime holds them, at the main path's 5184 keys
     # (the d=256 dq kernels at the clip's 36352 keys: their tile lists grow with
-    # them), and the mma.sync register forward at d=80 (static shared memory)
+    # them), the mma.sync register forward at d=80 (static shared memory) and
+    # the mma.sync backward at d=64 (5184 keys) and d=80 (4900 keys)
     for kernel, d, lk in (("flash_sdpa_h", 32, 5184), ("flash_sdpa_h", 64, 5184),
                           ("flash_sdpa_bwd_h", 32, 5184), ("flash_sdpa_bwd_dq_wide_h", 256, 36352),
                           ("flash_sdpa_bwd_dkv_wide_h", 256, 36352),
                           ("flash_sdpa_bwd_dq_wide_f32", 256, 36352),
                           ("flash_sdpa_bwd_dkv_wide_f32", 256, 36352),
-                          ("flash_sdpa", 80, 4900), ("flash_sdpa_fp32", 80, 4900)):
+                          ("flash_sdpa", 80, 4900), ("flash_sdpa_fp32", 80, 4900),
+                          *((f"flash_sdpa_bwd_{p}{s}", d, lk) for p in ("dq", "dkv")
+                            for s in ("", "_fp32") for d, lk in ((64, 5184), (80, 4900)))):
         r = fa.kernel_resources(kernel, d, lk)
         log(f"[build] {kernel} d={d}: {r['registers']} registers a thread, {r['spill_bytes']} "
             f"bytes of local memory (spills) a thread, {r['smem_bytes']} bytes of shared memory "
@@ -770,13 +803,14 @@ def main():
 
     log(f"[time] phases 1-4 (build, main path, kernels, checks) {time.perf_counter() - t_run:.1f} s")
 
-    # ---------------------------------------------------------------- 5-12
+    # ---------------------------------------------------------------- 5-13
     for name, phase in (("video", lambda: video_phase(smi, rng)), ("train", lambda: train_phase(smi)),
                         ("pcs", lambda: pcs_phase(smi)), ("probe", lambda: [probe_phase(smi)]),
                         ("tracker_train", lambda: tracker_train_phase(smi)),
                         ("fp32", lambda: fp32_phase(smi, main_ref)),
                         ("sam3", lambda: sam3_phase(smi, main_ref)),
-                        ("sam1", lambda: sam1_phase(smi, main_ref))):
+                        ("sam1", lambda: sam1_phase(smi, main_ref)),
+                        ("stage1", lambda: stage1_phase(smi))):
         t_phase = time.perf_counter()
         rows += phase()
         torch.cuda.empty_cache()
@@ -3662,6 +3696,474 @@ def sam1_phase(smi, main_ref):
         f"predicted IoU 1e-4, stability 2e-2)")
     del cpu_m, cpu_core
     log(f"[sam1] AMG part {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+# the [stage1] phase: Stage-1 distillation at full width and the ViT trunks
+# in training (the d=64 and d=80 backward kernels' path)
+STAGE1_IMAGES = 8  # seeded images the teacher exports, in batches of
+STAGE1_EXPORT_BATCH = 4
+STAGE1_BATCH = 8  # the EV-M student's batch
+STAGE1_STEPS, STAGE1_RESUMED = 4, 2  # Trainer steps, then a resumed trainer's
+VIT_STEP = {"flash_sdpa": 8, "flash_sdpa_bwd_dq": 4, "flash_sdpa_bwd_dkv": 4}  # 4 global blocks
+VIT_CUT_STEP = {"flash_sdpa": 2, "flash_sdpa_bwd_dq": 1, "flash_sdpa_bwd_dkv": 1}  # 1 global block
+VITH_STEPS, VITH_BATCH = 2, 1
+TEACHER_STEPS, TEACHER_BATCH = 3, 2
+# kernel families of a Stage-1 step's profile (lower-case name patterns), first match wins
+KERNEL_FAMILIES = (("flash_sdpa backward (dq + dkv)", ("bwd_dq_kernel<", "bwd_dkv_kernel<")),
+                   ("flash_sdpa forward", ("flash_sdpa_h_kernel<", "flash_sdpa_fwd_kernel<")),
+                   ("GEMM", ("gemm", "cutlass", "xmma", "nvjet")),
+                   ("softmax", ("softmax",)),
+                   ("bf16 casts", ("bfloat16_copy",)),
+                   ("copies", ("direct_copy", "copy_kernel", "cat", "index")),
+                   ("GELU", ("gelu",)),
+                   ("optimizer", ("multi_tensor_apply",)),
+                   ("reductions", ("reduce",)),
+                   ("other elementwise", ("elementwise",)))
+
+
+def stage1_phase(smi):
+    """Phase 13: Stage-1 distillation on the card. The SAM3 teacher's ViT-H
+    trunk (bf16 compute, seeded) exports STAGE1_IMAGES seeded images to the
+    record store and the records come back bit for bit; the recipe's
+    student (Stage1ImageConfig: EfficientViT-b1 + projection head, 1008^2
+    -> 72x72x1024) trains on them through Trainer with a resume; the
+    teacher's ViTTrunk (drop path 0) and vit_h's trunk (1120^2) take
+    Stage-1 steps against the exported and seeded targets, launches counted
+    per step; fp32 4-block cuts of both take one step, the teacher's held
+    against the CPU. Returns the rows of the dq and dkv kernels at d=64 and
+    d=80, bf16 and fp32, each held against its plain version."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from efficientsam3_tpu_torch.build import init_parameters
+    from efficientsam3_tpu_torch.data.sa1b import SA1BDistillationDataset, batch_iterator
+    from efficientsam3_tpu_torch.models.common import DropPath
+    from efficientsam3_tpu_torch.models.vitdet import ViTTrunk
+    from efficientsam3_tpu_torch.native import RecordStore
+    from efficientsam3_tpu_torch.ops import depthwise as dw
+    from efficientsam3_tpu_torch.ops import flash_attention as fa
+    from efficientsam3_tpu_torch.ops import layer_norm as ln
+    from efficientsam3_tpu_torch.student_sam import VIT_STUDENTS, build_sam_vit_student
+    from efficientsam3_tpu_torch.train import stage1
+    from efficientsam3_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    counters = {"flash_sdpa": fa, "flash_sdpa_bwd_dq": fa, "flash_sdpa_bwd_dkv": fa,
+                "flash_memattn": fa, "flash_memattn_q8": fa, "flash_xattn_rpb": fa,
+                "layer_norm": ln, "layer_norm_bwd": ln, "depthwise_conv2d": dw,
+                "depthwise_conv2d_bwd": dw}
+
+    def reset():
+        for name, mod in counters.items():
+            getattr(mod, name).launches = 0
+
+    def counts():  # looked up by name: Capture swaps the wrappers in their module
+        return {name: getattr(mod, name).launches for name, mod in counters.items()}
+
+    def expect(what, got, want):
+        want = {k: want.get(k, 0) for k in counters}
+        if got != want:
+            raise AssertionError(f"[stage1] {what}: launches {got}, want {want}")
+
+    def trunk_on_card(make, seed):
+        """make(bf16) seeded on the host, its parameters then fp32 (bf16
+        compute over fp32 parameters), on the card."""
+        return init_parameters(make(bf16), seed).float().to(dev)
+
+    # CUDA events at the edges of a step's parts, recorded by a forward hook
+    # pair on the model and a wrapper around the optimizer's step
+    marks = {}
+
+    def mark(name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks[name] = e
+
+    def instrument(model, opt):
+        model.register_forward_pre_hook(lambda *_: mark("fwd0"))
+        model.register_forward_hook(lambda *_: mark("fwd1"))
+        step = opt.step
+
+        def timed_opt_step():
+            mark("opt0")
+            step()
+            mark("opt1")
+
+        opt.step = timed_opt_step
+
+    def timed_step(model, opt, batch, want=None, what=""):
+        """One stage1_train_step, its launches counted (checked against
+        want) and its parts timed: {metrics, ms: step / forward / backward /
+        optimizer, launches}."""
+        reset()
+        mark("step0")
+        metrics = stage1.stage1_train_step(model, opt, batch)
+        mark("step1")
+        torch.cuda.synchronize()
+        got = counts()
+        if want is not None:
+            expect(what, got, want)
+        ms = {part: marks[a].elapsed_time(marks[b]) for part, a, b in (
+            ("step", "step0", "step1"), ("forward", "fwd0", "fwd1"),
+            ("backward", "fwd1", "opt0"), ("optimizer", "opt0", "opt1"))}
+        metrics = {k: float(v) for k, v in metrics.items()}
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"[stage1] {what}: non-finite metrics {metrics}")
+        return dict(metrics=metrics, ms=ms, launches=got)
+
+    def busy(fn, what, tag, wall_ms, top=0):
+        """torch.profiler's device time of one fn() over its wall ms (the
+        table written as profile_<tag>.txt by write_out)."""
+        kernels, n_launch, total_us = profile_kernels(fn, train=True)
+        if not total_us:
+            log(f"[profile] {what}: the profiler recorded no device time: not measured")
+            return kernels
+        log(f"[profile] {what}: {n_launch} kernel launches, {total_us / 1e3:.3f} ms of device "
+            f"time in a {wall_ms:.3f} ms step: device busy {total_us / 1e3 / wall_ms:.1%}")
+        for name, us, n in kernels[:top]:
+            log(f"[profile] {what}:   {us / 1e3:8.4f} ms  x{n:<4d} {name[:90]}")
+        write_out(f"profile_{tag}.txt",
+                  "\n".join(f"{us:12.2f} us  x{n:<5d} {name}" for name, us, n in kernels))
+        return kernels
+
+    class MemoryRecords(SA1BDistillationDataset):
+        """SA1BDistillationDataset's items over the exported records, the
+        images from memory (no image files, and no PIL, on the card's path)."""
+
+        def __init__(self, images, store, **kw):
+            super().__init__([""] * len(images), store, **kw)
+            self.images = images
+
+        def __getitem__(self, idx):
+            _, embed = self.record(idx)
+            return {"image": self.images[idx], "teacher": embed,
+                    "valid": np.ones((self.embed_size, self.embed_size), np.float32)}
+
+    rows = []
+    rng = np.random.default_rng(21)
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        # ------------------------------------------------------------ teacher export
+        t0 = time.perf_counter()
+        teacher = trunk_on_card(lambda dt: ViTTrunk(dtype=dt), 0).eval()
+        build_s = time.perf_counter() - t0
+        images = rng.uniform(-1.0, 1.0, (STAGE1_IMAGES, 1008, 1008, 3)).astype(np.float32)
+        seeds = rng.integers(0, 2**32 - 1, size=STAGE1_IMAGES, dtype=np.uint32)
+        embed = stage1.teacher_embedder(teacher)
+        embed(images[:1])  # warm-up: cuBLAS plans
+        reset()
+        torch.cuda.synchronize()
+        t_exp = time.perf_counter()
+        targets = np.concatenate([embed(images[i:i + STAGE1_EXPORT_BATCH])
+                                  for i in range(0, STAGE1_IMAGES, STAGE1_EXPORT_BATCH)])
+        export_ms = (time.perf_counter() - t_exp) * 1e3 / STAGE1_IMAGES
+        expect("teacher export", counts(),
+               {"flash_sdpa": 4 * STAGE1_IMAGES // STAGE1_EXPORT_BATCH})
+        if targets.shape != (STAGE1_IMAGES, 72, 72, 1024) or not np.isfinite(targets).all():
+            raise AssertionError(f"[stage1] teacher embeddings {targets.shape} or non-finite")
+        store = os.path.join(tmp.name, "teacher_records.bin")
+        SA1BDistillationDataset.write_records(store, seeds, targets)
+        rs = RecordStore(store)
+        for i in range(STAGE1_IMAGES):
+            raw = rs.read(i)
+            if (raw[:4] != np.uint32(seeds[i]).tobytes()
+                    or raw[4:] != targets[i].astype(np.float16).tobytes()):
+                raise AssertionError(f"[stage1] record {i} did not come back bit for bit")
+        log(f"[stage1] teacher export: ViT-H (bf16 compute, built and seeded in {build_s:.1f} "
+            f"s) over {STAGE1_IMAGES} seeded 1008^2 images in batches of "
+            f"{STAGE1_EXPORT_BATCH}: {export_ms:.3f} ms an image (host to host, the fp16 "
+            f"records included); {rs.count} records of {rs.item_size} B read back bit for bit "
+            f"| {smi}")
+        del teacher, embed
+        torch.cuda.empty_cache()
+        data = MemoryRecords(images, store)
+
+        # ------------------------------------------------------------ EV-M Stage 1
+        cfg = stage1.Stage1ImageConfig()
+        spe = STAGE1_IMAGES // STAGE1_BATCH
+
+        def student():
+            return trunk_on_card(lambda dt: stage1.make_student(cfg, dt), 0)
+
+        model = student()
+        opt = stage1.make_optimizer(cfg, spe, model)
+        instrument(model, opt)
+        per_step = []
+
+        def counted(m, o, b):
+            per_step.append(timed_step(m, o, b, {}, "EV-M Stage-1 step"))
+            return per_step[-1]["metrics"]
+
+        ckpt = dict(checkpoint_every=2, checkpoint_dir=os.path.join(tmp.name, "ckpt"),
+                    log_every=1, handle_preemption_signals=False)
+        torch.cuda.reset_peak_memory_stats()
+        reached = Trainer(counted, TrainerConfig(max_steps=STAGE1_STEPS, **ckpt)).run(
+            model, opt, batch_iterator(data, STAGE1_BATCH, seed=0))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if reached != STAGE1_STEPS:
+            raise AssertionError(f"[stage1] trainer stopped at step {reached}")
+        saved = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        resumed = student()
+        opt2 = stage1.make_optimizer(cfg, spe, resumed)
+        instrument(resumed, opt2)
+        trainer = Trainer(counted, TrainerConfig(max_steps=STAGE1_STEPS + STAGE1_RESUMED, **ckpt))
+        if trainer.resume(resumed, opt2) != STAGE1_STEPS or opt2.count != STAGE1_STEPS:
+            raise AssertionError("[stage1] the resume did not restore step and optimizer")
+        if any(not torch.equal(v, saved[k]) for k, v in resumed.state_dict().items()):
+            raise AssertionError("[stage1] the resumed model differs from the saved one")
+        reached = trainer.run(resumed, opt2, batch_iterator(data, STAGE1_BATCH, seed=1))
+        if reached != STAGE1_STEPS + STAGE1_RESUMED or opt2.count != reached:
+            raise AssertionError(f"[stage1] the resumed trainer stopped at step {reached}")
+        steady = per_step[1:STAGE1_STEPS]
+        med = {p: statistics.median(r["ms"][p] for r in steady) for p in steady[0]["ms"]}
+        batch = next(batch_iterator(data, STAGE1_BATCH, seed=2))
+        busy(lambda: stage1.stage1_train_step(resumed, opt2, batch), "stage1 EV-M step",
+             "stage1_evm_step", med["step"])
+        log(f"[stage1] EV-M Stage-1 step (Stage1ImageConfig: b1 + head, 1008^2 -> 72x72x1024, "
+            f"batch {STAGE1_BATCH}, bf16 compute, fp32 parameters, lr "
+            f"{opt.schedule(0):.3e}): {med['step']:.3f} ms (forward {med['forward']:.3f}, "
+            f"backward {med['backward']:.3f}, optimizer {med['optimizer']:.3f}; median of steps "
+            f"2-{STAGE1_STEPS}) | peak {peak:.2f} GiB | losses "
+            f"{[round(r['metrics']['loss'], 5) for r in per_step]} (steps "
+            f"{STAGE1_STEPS + 1}-{reached} resumed) | no kernel of ours on its path | {smi}")
+        del model, opt, resumed, opt2, trainer, saved
+        torch.cuda.empty_cache()
+
+        # ------------------------------------------------------------ ViT trunks in training
+        def vit_run(what, tag, trunk, batches, n_steps, lr_steps):
+            """n_steps Stage-1 steps of a ViT trunk (drop path 0) against
+            its targets, launches checked per step; every parameter's
+            gradient finite and every parameter moved. (ms, peak GiB,
+            captured bwd inputs, launches, profile kernels)."""
+            opt = stage1.make_optimizer(cfg, lr_steps, trunk)
+            instrument(trunk, opt)
+            before = {k: p.detach().clone() for k, p in trunk.named_parameters()}
+            capture = Capture([(fa, "flash_sdpa_bwd_dq"), (fa, "flash_sdpa_bwd_dkv")])
+            with capture:  # warm-up step: cuBLAS plans, captured inputs
+                first = timed_step(trunk, opt, next(batches), VIT_STEP, f"{what} step")
+            done = [first]
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(n_steps - 1):
+                done.append(timed_step(trunk, opt, next(batches), VIT_STEP, f"{what} step"))
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            bad = [k for k, p in trunk.named_parameters()
+                   if p.grad is None or not torch.isfinite(p.grad).all()]
+            still = [k for k, p in trunk.named_parameters() if torch.equal(p, before[k])]
+            if bad or still:
+                raise AssertionError(f"[stage1] {what}: gradients missing or non-finite {bad[:4]}, "
+                                     f"parameters unmoved {still[:4]}")
+            steady = done[1:] if len(done) > 1 else done
+            med = {p: statistics.median(r["ms"][p] for r in steady) for p in steady[0]["ms"]}
+            batch = next(batches)
+            kernels = busy(lambda: stage1.stage1_train_step(trunk, opt, batch),
+                           f"stage1 {what} step", tag, med["step"], top=12)
+            n_par = sum(p.numel() for p in trunk.parameters())
+            log(f"[stage1] {what} Stage-1 step ({n_par / 1e6:.1f} M parameters, bf16 compute, "
+                f"fp32 parameters, blocks checkpointed): {med['step']:.3f} ms (forward "
+                f"{med['forward']:.3f}, backward {med['backward']:.3f} with the recompute, "
+                f"optimizer {med['optimizer']:.3f}; median of steps 2-{n_steps}) | peak "
+                f"{peak:.2f} GiB | losses {[round(r['metrics']['loss'], 5) for r in done]} | "
+                f"launches a step {first['launches']['flash_sdpa']} / "
+                f"{first['launches']['flash_sdpa_bwd_dq']} / "
+                f"{first['launches']['flash_sdpa_bwd_dkv']} (forward / dq / dkv) | {smi}")
+            del opt, before
+            # (dq inputs of a global block, dq launches over the run, profile)
+            hd = trunk.embed_dim // trunk.blocks[0].attn.num_heads
+            return (capture.args[("flash_sdpa_bwd_dq", hd)][0],
+                    sum(r["launches"]["flash_sdpa_bwd_dq"] for r in done), kernels)
+
+        def seeded_batches(size, target, seed):
+            """Seeded images at size with a seeded target, batch 1."""
+            r = np.random.default_rng(seed)
+            while True:
+                yield {"image": r.uniform(-1.0, 1.0, (1, size, size, 3)).astype(np.float32),
+                       "teacher": target, "valid": np.ones(target.shape[:3], np.float32)}
+
+        t0 = time.perf_counter()
+        vit = trunk_on_card(lambda dt: ViTTrunk(drop_path_rate=0.0, dtype=dt), 1)
+        vit_in = {64: vit_run("ViT-H (teacher trunk, batch 2)", "stage1_vit_h_step", vit,
+                              batch_iterator(data, TEACHER_BATCH, seed=3), TEACHER_STEPS,
+                              STAGE1_IMAGES // TEACHER_BATCH)}
+        del vit
+        torch.cuda.empty_cache()
+        log(f"[stage1] ViT-H part {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        vith = build_sam_vit_student("vit_h", dtype=bf16, device=dev, seed=2).trunk.float()
+        for m in vith.modules():  # the registry's trunk at the Stage-1 step's rate 0
+            if isinstance(m, DropPath):
+                m.rate = 0.0
+        vith_target = rng.standard_normal((1, 70, 70, 1280)).astype(np.float32)
+        vit_in[80] = vit_run("vit_h (1120^2, batch 1)", "stage1_sam1_vit_h_step", vith,
+                             seeded_batches(1120, vith_target, 4), VITH_STEPS, 8)
+        del vith
+        torch.cuda.empty_cache()
+        log(f"[stage1] vit_h part {time.perf_counter() - t0:.1f} s")
+        for d, what in ((64, "ViT-H"), (80, "vit_h")):  # where a step's device time goes
+            fam = {}
+            for name, us, _ in vit_in[d][2]:
+                low = name.lower()
+                key = next((f for f, pats in KERNEL_FAMILIES if any(p in low for p in pats)),
+                           "other")
+                fam[key] = fam.get(key, 0.0) + us / 1e3
+            log(f"[profile] {what} Stage-1 step, device ms by kernel family: "
+                f"{ {k: round(v, 3) for k, v in sorted(fam.items(), key=lambda kv: -kv[1])} }")
+
+        # ------------------------------------------------------------ fp32 cuts
+        t0 = time.perf_counter()
+        cut_in = {}
+        vith_cfg = dict(patch_size=16, window_size=14, pretrain_grid=64, mlp_ratio=4.0,
+                        **VIT_STUDENTS["vit_h"])
+        for d, make, size, seed in (
+                (64, lambda dt: ViTTrunk(depth=4, global_att_blocks=(3,), drop_path_rate=0.0,
+                                         dtype=dt), 1008, 5),
+                (80, lambda dt: ViTTrunk(dtype=dt, **dict(vith_cfg, depth=4,
+                                                           global_att_blocks=(3,),
+                                                           drop_path_rate=0.0)), 1120, 6)):
+            cpu_ref = init_parameters(make(None), seed)
+            card = make(None).to(dev)
+            card.load_state_dict(cpu_ref.state_dict())
+            side = size // (14 if d == 64 else 16)
+            batch = {"image": rng.uniform(-1, 1, (1, size, size, 3)).astype(np.float32),
+                     "teacher": (targets[:1] if d == 64 else
+                                 rng.standard_normal((1, side, side, card.embed_dim))
+                                 .astype(np.float32)),
+                     "valid": np.ones((1, side, side), np.float32)}
+            grads = {}
+            for where, m in (("card", card), ("cpu", cpu_ref)) if d == 64 else (("card", card),):
+                o = stage1.make_optimizer(cfg, 1, m)
+                step_ = o.step
+
+                def keep(m=m, step_=step_, where=where):  # the gradients before the clip
+                    grads[where] = {k: p.grad.detach().float().cpu().clone()
+                                    for k, p in m.named_parameters()}
+                    step_()
+
+                o.step = keep
+                t_s = time.perf_counter()
+                capture = Capture([(fa, "flash_sdpa_bwd_dq"), (fa, "flash_sdpa_bwd_dkv")])
+                with capture:
+                    reset()
+                    met = stage1.stage1_train_step(m, o, batch)
+                    torch.cuda.synchronize()
+                    got = counts()
+                grads[where + "_loss"] = float(met["loss"])
+                grads[where + "_s"] = time.perf_counter() - t_s
+                if where == "card":
+                    expect(f"fp32 d={d} cut step", got, VIT_CUT_STEP)
+                    cut_in[d] = (capture.args[("flash_sdpa_bwd_dq", d)][0],
+                                 got["flash_sdpa_bwd_dq"])
+            if d == 64:
+                rel = abs(grads["card_loss"] - grads["cpu_loss"]) / abs(grads["cpu_loss"])
+                worst, worst_k = max(
+                    (((grads["card"][k] - w).abs().max() / w.abs().max().clamp_min(1e-30)).item(),
+                     k) for k, w in grads["cpu"].items())
+                log(f"[stage1] fp32 ViT-H cut (4 blocks, block 3 global, 1008^2, batch 1): one "
+                    f"Stage-1 step on the card ({grads['card_s']:.2f} s, the first) against "
+                    f"the CPU ({grads['cpu_s']:.1f} s): loss {grads['card_loss']:.6f} vs "
+                    f"{grads['cpu_loss']:.6f} ({rel:.2e} relative, bound 1e-5), worst gradient "
+                    f"{worst:.2e} of its tensor's largest magnitude ({worst_k}; bound 1e-4)")
+                if not (rel <= 1e-5 and worst <= 1e-4):
+                    raise AssertionError("[stage1] the fp32 cut's step on the card differs from "
+                                         "the CPU's")
+            else:
+                log(f"[stage1] fp32 vit_h cut (4 blocks, block 3 global, 1120^2, batch 1): one "
+                    f"Stage-1 step on the card, loss {grads['card_loss']:.6f}, launches "
+                    f"{VIT_CUT_STEP}")
+            del cpu_ref, card, grads
+            torch.cuda.empty_cache()
+        log(f"[stage1] fp32 cuts {time.perf_counter() - t0:.1f} s")
+    finally:
+        tmp.cleanup()
+
+    # ---------------------------------------------------------------- kernel rows
+    def bf16_rows(d, dq_args, launches, prof):
+        """The bf16 dq and dkv rows at one global block's captured inputs
+        (2e-2 of each output's largest magnitude), SDPA's backward (no mask:
+        every key live) as the library time, and the device ms a launch in
+        the profiled Stage-1 step (prof)."""
+        q, k, v, key_bias, o, lse, do, scale = dq_args
+        b, h, lq, _ = q.shape
+        dq, delta = fa.flash_sdpa_bwd_dq(q, k, v, key_bias, o, lse, do, scale)
+        want_dq, want_delta = fa.flash_sdpa_bwd_dq_plain(q, k, v, key_bias, o, lse, do, scale)
+        err_dq = max(check_rel(f"flash_sdpa_bwd_dq_d{d}", dq, want_dq),
+                     check_rel(f"flash_sdpa_bwd_dq_d{d} (delta)", delta, want_delta, 1e-4))
+        dk, dv = fa.flash_sdpa_bwd_dkv(q, k, v, key_bias, do, lse, delta, scale)
+        want_dk, want_dv = fa.flash_sdpa_bwd_dkv_plain(q, k, v, key_bias, do, lse, want_delta,
+                                                       scale)
+        err_dkv = max(check_rel(f"flash_sdpa_bwd_dkv_d{d} (dk)", dk, want_dk),
+                      check_rel(f"flash_sdpa_bwd_dkv_d{d} (dv)", dv, want_dv))
+        del dq, dk, dv, want_dq, want_dk, want_dv, want_delta
+        torch.cuda.empty_cache()
+        live = int((key_bias > fa.NEG_INF / 2).sum().item())  # summed over the batch
+        scores = h * lq * live
+        nb_dq = 2 * (5 * q.numel() + 2 * h * live * d) + 4 * (key_bias.numel() + 2 * lse.numel())
+        nb_dkv = 2 * (2 * q.numel() + 4 * h * live * d) + 4 * (key_bias.numel() + 2 * lse.numel())
+        bms_dq, by_dq = bound(nb_dq, 3 * 2.0 * scores * d, 1.0 * scores, 6.0 * scores)
+        bms_dkv, by_dkv = bound(nb_dkv, 4 * 2.0 * scores * d, 1.0 * scores, 6.0 * scores)
+        ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        ol = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+        lib_ms = cuda_time(lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True),
+                           10)
+        del ol, ql, kl, vl
+        res = {n: fa.kernel_resources(n, d, k.shape[2])
+               for n in ("flash_sdpa_bwd_dq", "flash_sdpa_bwd_dkv")}
+        shape = (f"q/k/v/o/dO {tuple(q.shape)} bf16 (q, k, v views of the packed qkv, dO "
+                 f"strided), {live} live keys over {b} rows; library = SDPA backward (all "
+                 f"three gradients)")
+        out = []
+        for name, fn, plain, err, bms, by, line in (
+                (f"flash_sdpa_bwd_dq_d{d}",
+                 lambda: fa.flash_sdpa_bwd_dq(q, k, v, key_bias, o, lse, do, scale),
+                 lambda: fa.flash_sdpa_bwd_dq_plain(q, k, v, key_bias, o, lse, do, scale),
+                 err_dq, bms_dq, by_dq, 1082),
+                (f"flash_sdpa_bwd_dkv_d{d}",
+                 lambda: fa.flash_sdpa_bwd_dkv(q, k, v, key_bias, do, lse, delta, scale),
+                 lambda: fa.flash_sdpa_bwd_dkv_plain(q, k, v, key_bias, do, lse, delta, scale),
+                 err_dkv, bms_dkv, by_dkv, 1098)):
+            r_ = res[name.rsplit("_", 1)[0]]
+            r = dict(name=name, route="cuda",
+                     source="efficientsam3_tpu_torch/csrc/flash_sdpa_bwd.cu",
+                     replaces=f"efficientsam3_tpu/ops/pallas/flash_attention.py:{line}",
+                     launches=launches, max_abs_err=err, ms=graph_time(fn, 5, 10),
+                     call_ms=cuda_time(fn, 10), plain_ms=cuda_time(plain, 3, warmup=1),
+                     bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                     device_ms=next((us / n / 1e3 for k_, us, n in prof
+                                     if f"{name.split('_')[3]}_kernel<{d}, __nv_bfloat16>" in k_),
+                                    None),
+                     shape=f"{shape}; mma.sync, {r_['registers']} registers, "
+                           f"{r_['spill_bytes']} bytes spilled, {r_['smem_bytes']} B shared, "
+                           f"{r_['blocks_per_sm']} blocks an SM", **{"pass": True})
+            log_row(r, smi)
+            out.append(r)
+            torch.cuda.empty_cache()
+        log(f"[kernel] d={d} backward pair (dq + dkv) {out[0]['ms'] + out[1]['ms']:.4f} ms in "
+            f"CUDA graphs against SDPA backward's {lib_ms:.4f} ms a call | {smi}")
+        return out
+
+    def fp32_row(name, source, line, launches, err, fn, plain, library, bms, by, shape, device):
+        r = dict(name=name, route="cuda", source=f"efficientsam3_tpu_torch/csrc/{source}",
+                 replaces=f"efficientsam3_tpu/ops/pallas/{line}", launches=launches,
+                 max_abs_err=err, ms=graph_time(fn, 5, 10), call_ms=cuda_time(fn, 10),
+                 plain_ms=cuda_time(plain, 3, warmup=1), bound_ms=bms, bound_by=by,
+                 library_ms=library, device_ms=device, shape=shape, **{"pass": True})
+        log_row(r, smi)
+        return r
+
+    for d in (64, 80):
+        dq_args, launches, prof = vit_in.pop(d)
+        rows += bf16_rows(d, dq_args, launches, prof)
+        del dq_args
+        q, k, v, key_bias, o, lse, do, scale = cut_in[d][0]
+        rows += bwd_rows_fp32(q, k, v, key_bias, o, lse, do, scale, cut_in[d][1],
+                              "flash_sdpa_bwd.cu", f"_d{d}", {}, fp32_row)
+        del q, k, v, key_bias, o, lse, do
+        torch.cuda.empty_cache()
     return rows
 
 

@@ -9,7 +9,9 @@ package module for module, so each file has a counterpart at the same path:
              teacher's ViTDet trunk and CLIP text tower; the SAM heads,
              memory attention and memory encoder of the tracker)
   video/     the tracker core and the VOS predictor
-  train/     Stage-3 training: step, optimizer, losses, matcher, trainer
+  train/     Stage-1 distillation and Stage-3 training: steps, optimizers,
+             losses, matcher, trainer
+  data/      the Stage-1 data pipeline (SA-1B teacher records, numpy only)
   ops/       torch-parity resize / roi_align / grid_sample, focal loss, box
              IoU, the host Hungarian solver, and the hand-written Hopper
              kernels (forward and backward) with their plain versions

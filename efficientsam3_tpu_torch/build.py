@@ -160,9 +160,10 @@ def build_sam3_image_model(
 ) -> Sam3ImageModel:
     """The SAM3 teacher: ViTDet ViT-H trunk (1008^2 -> 72x72x1024) and the
     24-layer CLIP text tower, seeded random weights, in eval mode with
-    gradients off on ``device`` (default cuda). The trunk runs in eval mode
-    only. On the ``meta`` device the module is built without storage or
-    initialisation (its key map and shapes only)."""
+    gradients off on ``device`` (default cuda); its trunk trains through
+    ``train/stage1.py`` (drop path 0 there, as in JAX). On the ``meta``
+    device the module is built without storage or initialisation (its key
+    map and shapes only)."""
     device = resolve_device(device)
     meta = device.type == "meta"
     with torch.device("meta") if meta else contextlib.nullcontext():

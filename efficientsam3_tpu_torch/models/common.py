@@ -267,6 +267,41 @@ def dropout(x, p: float, training: bool):
     return F.dropout(x, p, True)
 
 
+class DropPath(nn.Module):
+    """flax ``DropPath`` (stochastic depth per sample): in training mode at
+    rate > 0 each sample of the batch is kept with probability 1 - rate and
+    scaled by 1 / (1 - rate), or zeroed; in eval mode or at rate 0 the
+    identity. The keep mask comes from the ``generator`` the caller passes
+    (torch's bits, not JAX's); without one it raises ValueError, where flax
+    raises InvalidRngError for the missing "dropout" stream. A caller that
+    recomputes the branch (activation checkpointing) draws the mask once
+    with ``mask`` and passes it in, so both passes drop the same samples."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def active(self) -> bool:
+        return self.training and self.rate > 0.0
+
+    def mask(self, x, generator: Optional[torch.Generator]):
+        """The (B, 1, ..., 1) bool keep mask of x's batch, on x's device."""
+        if generator is None:
+            raise ValueError(f"DropPath at rate {self.rate} in training mode needs a "
+                             "torch.Generator for its masks (flax: a 'dropout' rng)")
+        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        u = torch.rand(shape, generator=generator, device=generator.device)
+        return (u < 1.0 - self.rate).to(x.device)
+
+    def forward(self, x, generator: Optional[torch.Generator] = None, mask=None):
+        if not self.active():
+            return x
+        if mask is None:
+            mask = self.mask(x, generator)
+        return torch.where(mask, x / (1.0 - self.rate), torch.zeros((), dtype=x.dtype,
+                                                                   device=x.device))
+
+
 class MLP(nn.Module):
     """Detectron-style MLP: ReLU between layers (each followed by dropout
     in training when ``dropout`` > 0), optional residual, output LayerNorm

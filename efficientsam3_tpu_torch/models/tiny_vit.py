@@ -4,8 +4,11 @@ Counterpart of efficientsam3_tpu/models/tiny_vit.py: a conv patch embed
 (stride 4), one MBConv stage, three windowed-attention stages with learned
 relative attention biases, and PatchMerging (1x1 -> dw3x3 s2 -> 1x1, all
 Conv+BN) between stages. BatchNorm follows flax (``common.BatchNorm``).
-DropPath is the identity in eval mode and is not ported for training: a
-variant with ``drop_path_rate`` > 0 (11m, 21m) raises in training mode.
+DropPath (``common.DropPath``, rates ``linspace(0, drop_path_rate, depth)``
+over the blocks as in JAX) draws its masks in training mode from the
+``generator`` passed to ``forward``; a variant with ``drop_path_rate`` > 0
+(11m, 21m) raises in training mode without one, as flax does without a
+"dropout" rng.
 
 Window attention (LeViT-style, at most 14 x 14 = 196 tokens with a full
 (heads, N, N) bias gathered from the ``attention_biases`` table) runs on
@@ -28,6 +31,7 @@ from efficientsam3_tpu_torch.models.common import (
     BatchNorm,
     Conv,
     Dense,
+    DropPath,
     LayerNorm,
     gelu_exact,
     sdpa,
@@ -49,18 +53,21 @@ class ConvBN(nn.Module):
 
 
 class MBConv(nn.Module):
-    """Residual MBConv with GELU after the residual."""
+    """Residual MBConv with GELU after the residual, the branch through
+    DropPath."""
 
-    def __init__(self, c: int, expand_ratio: float = 4.0, dtype: Optional[torch.dtype] = None):
+    def __init__(self, c: int, expand_ratio: float = 4.0, drop_path: float = 0.0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         hidden = int(c * expand_ratio)
+        self.drop_path = DropPath(drop_path)
         self.conv1 = ConvBN(c, hidden, 1, dtype=dtype)
         self.conv2 = ConvBN(hidden, hidden, 3, 1, 1, groups=hidden, dtype=dtype)
         self.conv3 = ConvBN(hidden, c, 1, dtype=dtype)
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         y = gelu_exact(self.conv2(gelu_exact(self.conv1(x))))
-        return gelu_exact(x + self.conv3(y))
+        return gelu_exact(x + self.drop_path(self.conv3(y), generator))
 
 
 class PatchMerging(nn.Module):
@@ -123,12 +130,15 @@ class WindowAttention(nn.Module):
 
 
 class TinyViTBlock(nn.Module):
-    """Windowed attention + depthwise local conv + MLP."""
+    """Windowed attention + depthwise local conv + MLP, the attention and MLP
+    branches through DropPath."""
 
     def __init__(self, c: int, num_heads: int, window_size: int, mlp_ratio: float = 4.0,
-                 local_conv_size: int = 3, dtype: Optional[torch.dtype] = None):
+                 drop_path: float = 0.0, local_conv_size: int = 3,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.window_size = window_size
+        self.drop_path = DropPath(drop_path)
         self.attn = WindowAttention(c, c // num_heads, num_heads, 1, window_size, dtype=dtype)
         self.local_conv = ConvBN(c, c, local_conv_size, 1, local_conv_size // 2, groups=c,
                                  dtype=dtype)
@@ -136,7 +146,7 @@ class TinyViTBlock(nn.Module):
         self.mlp_fc1 = Dense(c, int(c * mlp_ratio), dtype=dtype)
         self.mlp_fc2 = Dense(int(c * mlp_ratio), c, dtype=dtype)
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         b, h, w, c = x.shape
         ws = self.window_size
         if h == ws and w == ws:
@@ -150,8 +160,9 @@ class TinyViTBlock(nn.Module):
             y = self.attn(y.reshape(b * nh * nw, ws * ws, c))
             y = y.reshape(b, nh, nw, ws, ws, c).permute(0, 1, 3, 2, 4, 5)
             y = y.reshape(b, ph, pw, c)[:, :h, :w]
-        x = self.local_conv(x + y)
-        return x + self.mlp_fc2(gelu_exact(self.mlp_fc1(self.mlp_norm(x))))
+        x = self.local_conv(x + self.drop_path(y, generator))
+        z = self.mlp_fc2(gelu_exact(self.mlp_fc1(self.mlp_norm(x))))
+        return x + self.drop_path(z, generator)
 
 
 class TinyViT(nn.Module):
@@ -164,30 +175,29 @@ class TinyViT(nn.Module):
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         dims = tuple(embed_dims)
-        self.drop_path_rate = drop_path_rate
         self.depths = tuple(depths)
         self.patch_embed = nn.ModuleList([ConvBN(3, dims[0] // 2, 3, 2, 1, dtype=dtype),
                                           ConvBN(dims[0] // 2, dims[0], 3, 2, 1, dtype=dtype)])
+        dpr = iter(np.linspace(0, drop_path_rate, sum(self.depths)).tolist())
         for stage, depth in enumerate(self.depths):
             if stage == 0:
-                blocks = [MBConv(dims[0], mbconv_expand_ratio, dtype=dtype) for _ in range(depth)]
+                blocks = [MBConv(dims[0], mbconv_expand_ratio, next(dpr), dtype=dtype)
+                          for _ in range(depth)]
             else:
                 blocks = [TinyViTBlock(dims[stage], num_heads[stage], window_sizes[stage],
-                                       mlp_ratio, dtype=dtype) for _ in range(depth)]
+                                       mlp_ratio, next(dpr), dtype=dtype) for _ in range(depth)]
             setattr(self, f"stage{stage}_block", nn.ModuleList(blocks))
         self.downsample = nn.ModuleList(PatchMerging(dims[s], dims[s + 1], dtype=dtype)
                                         for s in range(len(self.depths) - 1))
         self.out_channels = dims[len(self.depths) - 1]
 
-    def forward(self, x):
-        if self.training and self.drop_path_rate > 0:
-            raise NotImplementedError(
-                "TinyViT's DropPath is not ported: train a variant with drop_path_rate 0 "
-                "(ROADMAP Queue 1 item 18)")
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        """``generator`` draws the DropPath masks in training mode (needed
+        at a nonzero ``drop_path_rate``)."""
         x = self.patch_embed[1](gelu_exact(self.patch_embed[0](x)))
         for stage in range(len(self.depths)):
             for blk in getattr(self, f"stage{stage}_block"):
-                x = blk(x)
+                x = blk(x, generator)
             if stage < len(self.depths) - 1:
                 x = self.downsample[stage](x)
         return x

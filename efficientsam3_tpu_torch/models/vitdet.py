@@ -24,9 +24,19 @@ grid does not split into 14-token windows and a windowed block raises, as
 the JAX block asserts; at 1120^2 (70x70 tokens, 5x5 windows of 196 tokens)
 they run, the global blocks' (1, H, 4900, d) attention on ``flash_sdpa``.
 
-Inference only: the JAX trunk's training mode (DropPath, per-block remat)
-is not ported, and ``flash_sdpa`` has no d=64 backward; in training mode
-the trunk raises.
+Training mode follows the JAX trunk's: DropPath after the attention and
+after the MLP of block i at ``drop_path_rate * i / max(depth - 1, 1)``
+(``common.DropPath``: its masks come from the ``generator`` passed to
+``forward``, and without one a nonzero rate raises, as flax does without a
+"dropout" rng), and each block checkpointed (``torch.utils.checkpoint``,
+non-reentrant: flax's per-block ``nn.remat``), so the backward recomputes
+a block's activations from its input. Checkpointing restores only the
+default generators, so a block's two DropPath masks are drawn before the
+checkpointed call and passed in: the recompute drops the same samples.
+The recompute runs under grad mode, so a global block launches the
+``flash_sdpa`` forward twice a training step and the d=64 / d=80 dq and
+dkv kernels once each; the windowed blocks' attention stays on the
+matmul path and autograd differentiates it.
 """
 
 from __future__ import annotations
@@ -36,10 +46,12 @@ from typing import Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from efficientsam3_tpu_torch.models.common import (
     Conv,
     Dense,
+    DropPath,
     LayerNorm,
     apply_rope,
     compute_axial_rope_cos_sin,
@@ -87,19 +99,29 @@ class ViTAttention(nn.Module):
 
 
 class ViTBlock(nn.Module):
-    """Pre-LN block: (windowed or global) attention + MLP."""
+    """Pre-LN block: (windowed or global) attention + MLP, each branch
+    through DropPath (the keep masks ``mask1``, ``mask2`` of
+    ``drop_masks``)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, window_size: int,
-                 dtype: Optional[torch.dtype] = None):
+                 drop_path: float = 0.0, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.window_size = window_size  # 0 = global
+        self.drop_path = DropPath(drop_path)
         self.norm1 = LayerNorm(dim, 1e-5)
         self.attn = ViTAttention(dim, num_heads, dtype=dtype)
         self.norm2 = LayerNorm(dim, 1e-5)
         self.mlp_fc1 = Dense(dim, int(dim * mlp_ratio), dtype=dtype)
         self.mlp_fc2 = Dense(int(dim * mlp_ratio), dim, dtype=dtype)
 
-    def forward(self, x):
+    def drop_masks(self, x, generator: Optional[torch.Generator]):
+        """The keep masks of the two branches for x's batch, or (None, None)
+        when DropPath is the identity (eval mode, rate 0)."""
+        if not self.drop_path.active():
+            return None, None
+        return self.drop_path.mask(x, generator), self.drop_path.mask(x, generator)
+
+    def forward(self, x, mask1=None, mask2=None):
         b, h, w, c = x.shape
         shortcut = x
         x = self.norm1(x)
@@ -113,8 +135,9 @@ class ViTBlock(nn.Module):
             x = xw.reshape(b, nh, nw, ws, ws, c).permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, c)
         else:
             x = self.attn(x)
-        x = shortcut + x
-        return x + self.mlp_fc2(gelu_exact(self.mlp_fc1(self.norm2(x))))
+        x = shortcut + self.drop_path(x, mask=mask1)
+        y = self.mlp_fc2(gelu_exact(self.mlp_fc1(self.norm2(x))))
+        return x + self.drop_path(y, mask=mask2)
 
 
 class ViTTrunk(nn.Module):
@@ -123,7 +146,7 @@ class ViTTrunk(nn.Module):
     def __init__(self, patch_size: int = 14, embed_dim: int = 1024, depth: int = 32,
                  num_heads: int = 16, mlp_ratio: float = 4.625, window_size: int = 24,
                  global_att_blocks: Sequence[int] = (7, 15, 23, 31), pretrain_grid: int = 24,
-                 dtype: Optional[torch.dtype] = None):
+                 drop_path_rate: float = 0.1, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.patch_size = patch_size
         self.embed_dim = self.out_channels = embed_dim
@@ -134,14 +157,13 @@ class ViTTrunk(nn.Module):
         self.ln_pre = LayerNorm(embed_dim, 1e-5)
         self.blocks = nn.ModuleList(
             ViTBlock(embed_dim, num_heads, mlp_ratio,
-                     0 if i in global_att_blocks else window_size, dtype=dtype)
+                     0 if i in global_att_blocks else window_size,
+                     drop_path_rate * i / max(depth - 1, 1), dtype=dtype)
             for i in range(depth))
 
-    def forward(self, x):
-        if self.training:
-            raise NotImplementedError(
-                "ViTTrunk runs in eval mode only: its training mode (DropPath, per-block remat, "
-                "the d=64 flash_sdpa backward) is ROADMAP Queue 1 item 18")
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        """``generator`` draws the DropPath masks in training mode (needed
+        at a nonzero ``drop_path_rate``)."""
         if x.shape[1] % self.patch_size or x.shape[2] % self.patch_size:
             raise ValueError(f"image sides {tuple(x.shape[1:3])} are not multiples of the "
                              f"{self.patch_size}-pixel patch")
@@ -152,6 +174,8 @@ class ViTTrunk(nn.Module):
         if (h, w) != (pg, pg):
             grid_pos = grid_pos.repeat(-(-h // pg), -(-w // pg), 1)[:h, :w]
         x = self.ln_pre(x + grid_pos[None])
+        remat = self.training and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = blk(x)
+            masks = blk.drop_masks(x, generator)
+            x = checkpoint(blk, x, *masks, use_reentrant=False) if remat else blk(x, *masks)
         return x

@@ -5,7 +5,7 @@
 ``_kernel`` and ``_flash_fwd_packed`` / ``_packed_kernel``) at head dims 32
 (the fusion encoder), 64 (the SAM3 teacher's ViTDet global blocks and the
 vit_b / vit_l SAM1 students'), 80 (the vit_h SAM1 student's) and 256 (the
-tracker's memory attention), and at 32 and 256 its custom VJP
+tracker's memory attention), and at the same four its custom VJP
 (``_flash_bwd``: ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``) through
 ``flash_sdpa_bwd_dq`` / ``flash_sdpa_bwd_dkv``;
 ``flash_memattn`` replaces ``flash_memattn`` / ``_memattn_kernel`` and
@@ -29,8 +29,10 @@ counts its kernel launches in ``<wrapper>.launches``; ``flash_sdpa``
 forward at d=32 and d=64 in bf16 is the wgmma kernel ``csrc/flash_sdpa_h.cu``
 (``sdpa_kernel`` says which kernel a call reaches), and
 ``flash_sdpa_bwd_dkv`` at d=32 in bf16 the wgmma kernel
-``csrc/flash_sdpa_bwd_h.cu`` (``bwd_dkv_kernel``), and both backward
-kernels at d=256 those of ``csrc/flash_sdpa_bwd_wide_h.cu`` in bf16 and
+``csrc/flash_sdpa_bwd_h.cu`` (``bwd_dkv_kernel``; at d=32 in fp32 and at
+d=64 and d=80 in both dtypes the mma.sync kernels of
+``csrc/flash_sdpa_bwd.cu``), and both backward kernels at d=256 those of
+``csrc/flash_sdpa_bwd_wide_h.cu`` in bf16 and
 ``csrc/flash_sdpa_bwd_wide_h_fp32.cu`` in fp32 (``bwd_dq_kernel``,
 ``bwd_dkv_kernel``; the fp32 ones read split bf16 copies of their streamed
 operands, made by ``split_parts``). Under autograd (grad
@@ -58,10 +60,9 @@ from efficientsam3_tpu_torch.ops import _build
 
 NEG_INF = -1e9
 _SUPPORTED_D = (32, 64, 80, 256)
-# head dims of the backward kernels (fusion encoder, memory attention); no JAX
-# path trains a ViT trunk, so d=64 and d=80 are forward only (ROADMAP Queue 2
-# item 13)
-_BWD_D = (32, 256)
+# head dims of the backward kernels: the fusion encoder (32), the ViTDet
+# trunks' global blocks in Stage-1 training (64, 80), memory attention (256)
+_BWD_D = (32, 64, 80, 256)
 _MEMATTN_DIMS = ((256, 64),)  # (dk, dv) of flash_memattn's kernel
 _BK = 64  # key tile of the CUDA kernels (attn_common.cuh BK)
 _BQ = 64  # query tile (attn_common.cuh BQ)
@@ -143,7 +144,7 @@ def bwd_dq_kernel(dtype, d):
     """The dq kernel a CUDA ``flash_sdpa_bwd_dq`` call launches: the wgmma
     kernels at d=256 (csrc/flash_sdpa_bwd_wide_h.cu for bf16,
     csrc/flash_sdpa_bwd_wide_h_fp32.cu for fp32), else the mma.sync kernel
-    of csrc/flash_sdpa_bwd.cu (both dtypes at d=32)."""
+    of csrc/flash_sdpa_bwd.cu (both dtypes at d=32, 64 and 80)."""
     return _bwd_wide_kernel(dtype) if d == 256 else "flash_sdpa_bwd"
 
 
@@ -151,10 +152,10 @@ def bwd_dkv_kernel(dtype, d):
     """The dkv kernel a CUDA ``flash_sdpa_bwd_dkv`` call launches: the
     wgmma kernels at d=256 (as ``bwd_dq_kernel``) and for bf16 at d=32
     (csrc/flash_sdpa_bwd_h.cu), else the mma.sync kernel of
-    csrc/flash_sdpa_bwd.cu (fp32 at d=32)."""
+    csrc/flash_sdpa_bwd.cu (fp32 at d=32, both dtypes at d=64 and 80)."""
     if d == 256:
         return _bwd_wide_kernel(dtype)
-    return "flash_sdpa_bwd_h" if dtype == torch.bfloat16 else "flash_sdpa_bwd"
+    return "flash_sdpa_bwd_h" if (dtype == torch.bfloat16 and d == 32) else "flash_sdpa_bwd"
 
 
 def _aligned(t):
@@ -208,6 +209,10 @@ def _lib_bwd_h_attrs():
     return _bind("flash_sdpa_bwd_h", "flash_sdpa_bwd_dkv_h_attrs", [_P])
 
 
+def _lib_bwd_attrs():
+    return _bind("flash_sdpa_bwd", "flash_sdpa_bwd_attrs", [_I] * 4 + [_P])
+
+
 def _lib_bwd_wide_h(name):
     """``flash_sdpa_bwd_dq_wide_h`` or ``flash_sdpa_bwd_dkv_wide_h`` of
     csrc/flash_sdpa_bwd_wide_h.cu (the same argument kinds as
@@ -253,10 +258,17 @@ def kernel_resources(kernel, d=32, lk=5184):
     ``"flash_sdpa_bwd_dq_wide_f32"`` (lk keys) and
     ``"flash_sdpa_bwd_dkv_wide_f32"``; or of the mma.sync register forward
     of csrc/flash_sdpa.cu, ``"flash_sdpa"`` (bf16, d=80) and
-    ``"flash_sdpa_fp32"`` (d=32, 64 or 80), whose shared memory is static."""
+    ``"flash_sdpa_fp32"`` (d=32, 64 or 80), whose shared memory is static;
+    or of the mma.sync backward of csrc/flash_sdpa_bwd.cu,
+    ``"flash_sdpa_bwd_dq"`` (bf16: d=32, 64 or 80, lk keys),
+    ``"flash_sdpa_bwd_dkv"`` (bf16: d=64 or 80) and their ``_fp32``
+    instantiations (d=32, 64 or 80)."""
     out = (ctypes.c_int * 4)()
     if kernel in ("flash_sdpa", "flash_sdpa_fp32"):
         status = _lib_sdpa_attrs()(d, int(kernel == "flash_sdpa_fp32"), out)
+    elif kernel.removesuffix("_fp32") in ("flash_sdpa_bwd_dq", "flash_sdpa_bwd_dkv"):
+        status = _lib_bwd_attrs()(int("dkv" in kernel), d, int(kernel.endswith("_fp32")), lk,
+                                  out)
     elif kernel == "flash_sdpa_h":
         status = _lib_sdpa_h_attrs()(d, lk, out)
     elif kernel == "flash_sdpa_bwd_h":
@@ -356,21 +368,15 @@ def flash_sdpa(q, k, v, key_bias, sm_scale=None, return_lse=False):
     additive f32 logits bias (-1e9 for masked keys). Returns (B, H, Lq, D)
     in q.dtype, and the (B, H, Lq) f32 log-sum-exp with return_lse. When autograd
     records the call (grad mode on, an input requiring a gradient) it runs
-    as ``_FlashSdpaFn``, whose backward is the dq and dkv kernels (head dims
-    32 and 256; d=64 and d=80 raise here, at the forward: ROADMAP Queue 2
-    item 13); CPU tensors are
-    differentiated through the plain version.
+    as ``_FlashSdpaFn``, whose backward is the dq and dkv kernels (every
+    head dim the forward takes); CPU tensors are differentiated through
+    the plain version.
     """
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if not q.is_cuda:
         return flash_sdpa_plain(q, k, v, key_bias, sm_scale, return_lse)
     if _build.needs_grad(q, k, v, key_bias):
-        if q.shape[-1] not in _BWD_D:
-            raise ValueError(f"flash_sdpa backward kernel supports head dims {_BWD_D}, got "
-                             f"{q.shape[-1]}: the d=64 and d=80 backward is ROADMAP Queue 2 "
-                             "item 13")
-        kernel_dtype("flash_sdpa backward", q)
         o, lse = _FlashSdpaFn.apply(q, k, v, key_bias, float(sm_scale))
     else:
         o, lse = _flash_sdpa_fwd(q, k, v, key_bias, sm_scale, return_lse)
@@ -491,8 +497,8 @@ split_parts.launches = 0
 
 def flash_sdpa_bwd_dq(q, k, v, key_bias, o, lse, do, sm_scale):
     """dQ of flash_sdpa and Delta = rowsum(dO o O): (dq (B, H, Lq, D) in
-    q.dtype, delta (B, H, Lq) f32). One kernel launch on CUDA (head dim 32
-    or 256, bf16 or fp32; ``bwd_dq_kernel`` says which), counted in
+    q.dtype, delta (B, H, Lq) f32). One kernel launch on CUDA (head dim 32,
+    64, 80 or 256, bf16 or fp32; ``bwd_dq_kernel`` says which), counted in
     ``flash_sdpa_bwd_dq.launches``; fp32 at d=256 first makes the split
     copies of K and V with two launches of the split pass (``split_parts``,
     only the rows of live 32-key tiles). The plain version for CPU

@@ -81,6 +81,16 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
 
 
+def clip_by_global_norm_(grads, max_norm: float):
+    """optax.clip_by_global_norm, in place: the gradients are unchanged when
+    their global norm is below max_norm, else scaled by max_norm / norm."""
+    norm = global_norm(grads)
+    keep = norm < max_norm
+    one = torch.ones_like(norm)
+    torch._foreach_div_(grads, torch.where(keep, one, norm))
+    torch._foreach_mul_(grads, torch.where(keep, one, torch.full_like(norm, max_norm)))
+
+
 class Stage3Optimizer:
     """The stage-3 optax chain (see the module docstring) over a model's
     parameters: per-group clip + AdamW, frozen group untouched. Turns on
@@ -109,17 +119,11 @@ class Stage3Optimizer:
 
     @torch.no_grad()
     def step(self):
-        clip = self.cfg.grad_clip
         for group in self.adamw.param_groups:
             for p in group["params"]:
                 if p.grad is None:  # unused parameters: JAX's gradient is 0
                     p.grad = torch.zeros_like(p)
-            grads = [p.grad for p in group["params"]]
-            norm = global_norm(grads)
-            keep = norm < clip
-            one = torch.ones_like(norm)
-            torch._foreach_div_(grads, torch.where(keep, one, norm))
-            torch._foreach_mul_(grads, torch.where(keep, one, torch.full_like(norm, clip)))
+            clip_by_global_norm_([p.grad for p in group["params"]], self.cfg.grad_clip)
             group["lr"] = self.schedules[group["label"]](self.count)
         self.adamw.step()
         self.count += 1

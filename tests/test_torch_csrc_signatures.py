@@ -30,6 +30,7 @@ BINDINGS = {
     "flash_sdpa_h_attrs": fa._lib_sdpa_h_attrs,
     "flash_sdpa_bwd_dq": lambda: fa._lib_bwd("flash_sdpa_bwd_dq"),
     "flash_sdpa_bwd_dkv": lambda: fa._lib_bwd("flash_sdpa_bwd_dkv"),
+    "flash_sdpa_bwd_attrs": fa._lib_bwd_attrs,
     "flash_sdpa_bwd_dkv_h": fa._lib_bwd_h,
     "flash_sdpa_bwd_dkv_h_attrs": fa._lib_bwd_h_attrs,
     "flash_sdpa_bwd_dq_wide_h": lambda: fa._lib_bwd_wide_h("flash_sdpa_bwd_dq_wide_h"),

@@ -260,9 +260,10 @@ def test_flash_sdpa_bwd_kernels_match_plain(cuda, b, lq, lk):
 
 @pytest.mark.cuda
 def test_flash_sdpa_bwd_kernels_refuse_other_head_dims(cuda):
-    """Head dims 32 and 256 have backward kernels; another (64) raises, in
-    the kernels and in flash_sdpa under autograd, and d=256 is taken."""
-    q = _randn(cuda, 1, 1, 64, 64)
+    """Head dims 32, 64, 80 and 256 have backward kernels; another (48)
+    raises, in the kernels and in flash_sdpa under autograd, and d=256 is
+    taken."""
+    q = _randn(cuda, 1, 1, 64, 48)
     bias = torch.zeros((1, 64), device=cuda)
     lse = torch.zeros((1, 1, 64), device=cuda)
     with pytest.raises(ValueError, match="head dims"):
@@ -1193,16 +1194,147 @@ def test_flash_sdpa_d80_reads_vitdet_qkv_views(cuda, dtype, tol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
-def test_flash_sdpa_d80_refuses_autograd(cuda, dtype):
-    """No d=80 backward kernel: under autograd flash_sdpa raises at the
-    forward, citing ROADMAP Queue 2 item 13; without it the call runs."""
-    q = _randn(cuda, 1, 2, 64, 80, dtype=dtype)
-    bias = torch.zeros((1, 64), device=cuda)
-    with pytest.raises(ValueError, match="Queue 2 item 13"):
-        fa.flash_sdpa(q.clone().requires_grad_(), q, q, bias)
-    with torch.no_grad():
-        assert fa.flash_sdpa(q.clone().requires_grad_(), q, q, bias).shape == q.shape
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 3e-2), (torch.float32, FP32_TOL)],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("d", [64, 80])
+def test_flash_sdpa_d64_d80_autograd_matches_plain(cuda, dtype, tol, d):
+    """flash_sdpa under autograd at d=64 and d=80 (the forward kernel, then
+    the dq and dkv kernels of flash_sdpa_bwd.cu: 1 launch each) against
+    autograd through the plain forward in the same dtype, q/k/v strided
+    views of a packed qkv as ViTAttention hands them in: bf16 within 3e-2
+    of each gradient's largest magnitude (bf16 P and dS against autograd's
+    own rounding points), fp32 within FP32_TOL; key_bias gets a zero
+    gradient."""
+    b, h, n = 2, 4, 700
+    packed = _randn(cuda, b, n, 3, h, d, dtype=dtype)
+    bias = _mask_rows(cuda, b, n)
+    w = _randn(cuda, b, h, n, d, dtype=torch.float32)
+    assert fa.bwd_dq_kernel(dtype, d) == fa.bwd_dkv_kernel(dtype, d) == "flash_sdpa_bwd"
+    grads = {}
+    for name, fn in (("kernel", fa.flash_sdpa), ("plain", fa.flash_sdpa_plain)):
+        qkv = packed.clone().requires_grad_()
+        kb = bias.clone().requires_grad_()
+        before = (fa.flash_sdpa_bwd_dq.launches, fa.flash_sdpa_bwd_dkv.launches)
+        (fn(*qkv.permute(2, 0, 3, 1, 4), kb).float() * w).sum().backward()
+        torch.cuda.synchronize()
+        after = (fa.flash_sdpa_bwd_dq.launches, fa.flash_sdpa_bwd_dkv.launches)
+        assert after == ((before[0] + 1, before[1] + 1) if name == "kernel" else before)
+        grads[name] = (qkv.grad, kb.grad)
+    for i in range(3):
+        got, want = grads["kernel"][0][:, :, i], grads["plain"][0][:, :, i]
+        assert got.dtype == dtype and _rel_err(got, want) < tol
+        assert (got[-1] == 0).all()
+    assert (grads["kernel"][1] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, FP32_TOL)],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("d,h,lq,lk", [(64, 16, 5184, 5184), (80, 16, 4900, 4900),
+                                       (64, 2, 333, 517), (80, 2, 333, 517), (64, 2, 1, 64),
+                                       (80, 3, 130, 70), (80, 2, 64, 9), (64, 1, 200, 2000)])
+def test_flash_sdpa_bwd_d64_d80_kernels_match_plain(cuda, dtype, tol, d, h, lq, lk):
+    """The dq (and Delta) and dk/dv kernels of flash_sdpa_bwd.cu at d=64 and
+    d=80, in bf16 and fp32 (the fp32 dkv at d=80 walks 32-query tiles),
+    against the plain backward: the global blocks' shapes, ragged Lq/Lk
+    against the 64-row tiles, a masked 64-key tile, a ragged masked tail, a
+    fully masked batch row (zero gradients), dO a strided view of the
+    (B, N, H * D) gradient; gradients in (B, N, H, D) memory and the same
+    bits when run again. bf16 gradients are sums over thousands of terms in
+    other orders: 2e-2 of each gradient's largest magnitude; fp32
+    FP32_TOL; Delta 1e-4 (bf16) or FP32_TOL."""
+    b = 3
+    q, k, v = (_randn(cuda, b, h, n, d, dtype=dtype) for n in (lq, lk, lk))
+    bias = _mask_rows(cuda, b, lk)
+    o, lse = fa.flash_sdpa_plain(q, k, v, bias, return_lse=True)
+    do = _randn(cuda, b, lq, h * d, dtype=dtype).reshape(b, lq, h, d).transpose(1, 2)
+    scale = d ** -0.5
+    assert fa.bwd_dq_kernel(dtype, d) == fa.bwd_dkv_kernel(dtype, d) == "flash_sdpa_bwd"
+    n_dq, n_dkv = fa.flash_sdpa_bwd_dq.launches, fa.flash_sdpa_bwd_dkv.launches
+    dq, delta = fa.flash_sdpa_bwd_dq(q, k, v, bias, o, lse, do, scale)
+    dk, dv = fa.flash_sdpa_bwd_dkv(q, k, v, bias, do, lse, delta, scale)
+    torch.cuda.synchronize()
+    assert (fa.flash_sdpa_bwd_dq.launches, fa.flash_sdpa_bwd_dkv.launches) == (n_dq + 1, n_dkv + 1)
+    for g in (dq, dk, dv):
+        assert g.transpose(1, 2).is_contiguous()
+    dq2, delta2 = fa.flash_sdpa_bwd_dq(q, k, v, bias, o, lse, do, scale)
+    dk2, dv2 = fa.flash_sdpa_bwd_dkv(q, k, v, bias, do, lse, delta, scale)
+    assert all(torch.equal(a, b_) for a, b_ in ((dq, dq2), (delta, delta2), (dk, dk2), (dv, dv2)))
+    want_dq, want_delta = fa.flash_sdpa_bwd_dq_plain(q, k, v, bias, o, lse, do, scale)
+    want_dk, want_dv = fa.flash_sdpa_bwd_dkv_plain(q, k, v, bias, do, lse, want_delta, scale)
+    dtol = 1e-4 if dtype == torch.bfloat16 else FP32_TOL
+    torch.testing.assert_close(delta, want_delta, atol=dtol, rtol=dtol)
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert got.dtype == dtype and got.shape == want.shape
+        assert _rel_err(got, want) < tol
+        assert (got[-1] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,d", [("flash_sdpa_bwd_dq", 32), ("flash_sdpa_bwd_dq_fp32", 32),
+                                      ("flash_sdpa_bwd_dkv_fp32", 32), ("flash_sdpa_bwd_dq", 64),
+                                      ("flash_sdpa_bwd_dq_fp32", 64), ("flash_sdpa_bwd_dkv", 64),
+                                      ("flash_sdpa_bwd_dkv_fp32", 64), ("flash_sdpa_bwd_dq", 80),
+                                      ("flash_sdpa_bwd_dq_fp32", 80), ("flash_sdpa_bwd_dkv", 80),
+                                      ("flash_sdpa_bwd_dkv_fp32", 80)])
+def test_mma_sync_backward_fits_without_spills(cuda, kernel, d):
+    """The mma.sync backward kernels as built: no spills, at least one block
+    resident an SM at the teacher's 5184 keys."""
+    res = fa.kernel_resources(kernel, d, 5184)
+    assert res["spill_bytes"] == 0 and res["blocks_per_sm"] >= 1, res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 80])
+def test_vit_trunk_training_step_on_card_matches_cpu(cuda, d):
+    """A ViT trunk of 2 heads of d in training mode (drop path 0, blocks
+    checkpointed) whose 46x46 token grid (644^2 at patch 14) sends its one
+    global block through flash_sdpa (2116^2 scores), one Stage-1 step in
+    fp32 on the card against the same step on the CPU: flash_sdpa 2
+    launches (the forward and its recompute), dq and dkv 1 each; the loss
+    within 1e-5 relative and every gradient within 1e-4 of its largest
+    magnitude."""
+    from efficientsam3_tpu_torch.build import init_parameters
+    from efficientsam3_tpu_torch.models.vitdet import ViTTrunk
+    from efficientsam3_tpu_torch.train import stage1
+
+    torch.backends.cudnn.allow_tf32 = False  # the patch embedding in fp32
+
+    def trunk():
+        return ViTTrunk(embed_dim=2 * d, depth=2, num_heads=2, window_size=23,
+                        global_att_blocks=(1,), pretrain_grid=23, drop_path_rate=0.0)
+
+    ref = init_parameters(trunk(), 2)
+    model = trunk().to(cuda)
+    model.load_state_dict(ref.state_dict())
+    batch = {"image": RNG.standard_normal((1, 644, 644, 3)).astype(np.float32),
+             "teacher": RNG.standard_normal((1, 46, 46, 2 * d)).astype(np.float32),
+             "valid": np.ones((1, 46, 46), np.float32)}
+    out = {}
+    for name, m in (("cpu", ref), ("cuda", model)):
+        opt = stage1.make_optimizer(stage1.Stage1ImageConfig(), 10, m)
+        counts = (fa.flash_sdpa.launches, fa.flash_sdpa_bwd_dq.launches,
+                  fa.flash_sdpa_bwd_dkv.launches)
+        grads = {}
+        step_ = opt.step
+
+        def keep_grads(m=m, step_=step_, grads=grads):  # before the in-place clip
+            grads.update({k: p.grad.detach().float().cpu().clone()
+                          for k, p in m.named_parameters()})
+            step_()
+
+        opt.step = keep_grads
+        loss = float(stage1.stage1_train_step(m, opt, batch)["loss"])
+        torch.cuda.synchronize()
+        launched = tuple(n - c for n, c in zip((fa.flash_sdpa.launches,
+                                                fa.flash_sdpa_bwd_dq.launches,
+                                                fa.flash_sdpa_bwd_dkv.launches), counts))
+        assert launched == ((2, 1, 1) if name == "cuda" else (0, 0, 0)), launched
+        out[name] = (loss, grads)
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * abs(out["cpu"][0])
+    for k, want in out["cpu"][1].items():
+        got = out["cuda"][1][k]
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max().clamp_min(1e-30), k
 
 
 @pytest.mark.cuda

@@ -68,8 +68,8 @@ def _depthwise(dtype, ks=7):
 
 CASES = [
     # flash_sdpa forward: the wgmma kernel for bf16 at d=32 and d=64 (the
-    # ViTDet global blocks, forward only), mma.sync otherwise (d=80, the vit_h
-    # student's global blocks, in both dtypes, forward only)
+    # ViTDet global blocks), mma.sync otherwise (d=80, the vit_h student's
+    # global blocks, in both dtypes)
     (_sdpa, (BF16, 32), "flash_sdpa_h"),
     (_sdpa, (F32, 32), "flash_sdpa"),
     (_sdpa, (BF16, 256), "flash_sdpa"),
@@ -83,29 +83,33 @@ CASES = [
     (_sdpa, (F32, 80), "flash_sdpa"),
     (_sdpa, (BF16, 48), ValueError),
     # its backward kernels: the bf16 dkv kernel at d=32 and both kernels at
-    # d=256 on wgmma (fp32 on split bf16 parts); the rest on mma.sync
+    # d=256 on wgmma (fp32 on split bf16 parts); the rest, the ViTDet global
+    # blocks' d=64 and d=80 among them, on mma.sync; other widths raise
     (_bwd, (BF16, 32), "flash_sdpa_bwd"),
     (_bwd, (F32, 32), "flash_sdpa_bwd"),
     (_bwd, (F32, 256), "flash_sdpa_bwd_wide_h_fp32"),
     (_bwd, (F16, 256), TypeError),
-    (_bwd, (F32, 64), ValueError),
-    (_bwd, (BF16, 64), ValueError),
-    (_bwd, (BF16, 80), ValueError),
+    (_bwd, (F32, 64), "flash_sdpa_bwd"),
+    (_bwd, (BF16, 64), "flash_sdpa_bwd"),
+    (_bwd, (BF16, 80), "flash_sdpa_bwd"),
+    (_bwd, (BF16, 48), ValueError),
     (_dkv, (BF16, 32), "flash_sdpa_bwd_h"),
     (_dkv, (F32, 32), "flash_sdpa_bwd"),
     (_dkv, (BF16, 256), "flash_sdpa_bwd_wide_h"),
     (_dkv, (F32, 256), "flash_sdpa_bwd_wide_h_fp32"),
     (_dkv, (F16, 32), TypeError),
     (_dkv, (F16, 256), TypeError),
-    (_dkv, (BF16, 64), ValueError),
-    (_dkv, (F32, 80), ValueError),
+    (_dkv, (BF16, 64), "flash_sdpa_bwd"),
+    (_dkv, (F32, 80), "flash_sdpa_bwd"),
+    (_dkv, (F32, 48), ValueError),
     (_dq, (BF16, 32), "flash_sdpa_bwd"),
     (_dq, (F32, 32), "flash_sdpa_bwd"),
     (_dq, (BF16, 256), "flash_sdpa_bwd_wide_h"),
     (_dq, (F32, 256), "flash_sdpa_bwd_wide_h_fp32"),
     (_dq, (F16, 256), TypeError),
     (_dq, (F64, 32), TypeError),
-    (_dq, (BF16, 64), ValueError),
+    (_dq, (BF16, 64), "flash_sdpa_bwd"),
+    (_dq, (BF16, 48), ValueError),
     # the cached bank, exact and int8 keys
     (_memattn, (BF16, 256), "flash_memattn"),
     (_memattn, (F32, 256), "flash_memattn"),

@@ -172,6 +172,50 @@ print("FOREIGN", bad)
 """
 
 
+_STAGE1 = r"""
+import sys
+import tempfile
+import numpy as np
+import torch
+from efficientsam3_tpu_torch.build import init_parameters
+from efficientsam3_tpu_torch.data.sa1b import SA1BDistillationDataset, batch_iterator
+from efficientsam3_tpu_torch.models.vitdet import ViTTrunk
+from efficientsam3_tpu_torch.native import RecordStore
+from efficientsam3_tpu_torch.train import stage1
+from efficientsam3_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+teacher = init_parameters(ViTTrunk(embed_dim=64, depth=2, num_heads=1, window_size=4,
+                                   global_att_blocks=(1,), pretrain_grid=4), 1)
+embed = stage1.teacher_embedder(teacher)
+images = np.random.default_rng(0).standard_normal((4, 112, 112, 3)).astype(np.float32)
+targets = embed(images)
+with tempfile.TemporaryDirectory() as tmp:
+    store = tmp + "/records.bin"
+    SA1BDistillationDataset.write_records(store, [1, 2, 3, 4], targets)
+    assert RecordStore(store).count == 4
+
+    class Items:
+        def __len__(self):
+            return 4
+
+        def __getitem__(self, i):
+            raw = RecordStore(store).read(i)
+            t = np.frombuffer(raw[4:], np.float16).reshape(8, 8, 64).astype(np.float32)
+            return {"image": images[i], "teacher": t, "valid": np.ones((8, 8), np.float32)}
+
+    student = init_parameters(ViTTrunk(embed_dim=64, depth=2, num_heads=1, window_size=4,
+                                       global_att_blocks=(1,), pretrain_grid=4,
+                                       drop_path_rate=0.0), 2)
+    opt = stage1.make_optimizer(stage1.Stage1ImageConfig(), 2, student)
+    cfg = TrainerConfig(max_steps=2, checkpoint_dir=tmp + "/ckpt", handle_preemption_signals=False)
+    assert Trainer(stage1.stage1_train_step, cfg).run(
+        student, opt, batch_iterator(Items(), 2, seed=0)) == 2
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "efficientsam3_tpu", "PIL"))
+print("FOREIGN", bad)
+"""
+
+
 def _run_without_jax(script):
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
@@ -210,6 +254,17 @@ def test_tracker_training_runs_without_jax():
     mode through chip_smoke.tracker_clip, its backward, and rms_norm_2d
     under autograd."""
     _run_without_jax(_TRACKER_TRAIN)
+
+
+def test_stage1_runs_without_jax():
+    """So does Stage-1 distillation as the card drives it: a tiny ViTDet
+    teacher's export (``train.stage1.teacher_embedder``) into the record
+    store, and the ViT trunk trained on the records through
+    ``data.sa1b.batch_iterator`` and ``Trainer`` over ``stage1_train_step``
+    (checkpoints included): no jax, flax, optax or efficientsam3_tpu
+    module, and no PIL (the card's machine has none; images come from
+    memory)."""
+    _run_without_jax(_STAGE1)
 
 
 def test_teacher_runs_without_jax():

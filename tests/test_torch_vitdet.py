@@ -2,8 +2,8 @@
 on the CPU in fp32: the axial RoPE tables and their pair rotation, a tiny
 ViTDet trunk (112^2, width 128, 2 heads of 64, depth 4, window 4, global
 blocks 1 and 3, pretraining grid 4) and a tiny CLIP text tower (width 64,
-4 heads, 2 layers, context 16, padded ids), and the trunk's refusal of
-training mode.
+4 heads, 2 layers, context 16, padded ids), and the trunk's training mode
+(tests/test_torch_stage1_slice.py holds it against JAX).
 
 Inputs and weights are drawn with numpy from a seed; the weights over the
 shapes ``jax.eval_shape`` reports, carried across by ``utils/convert.py``.
@@ -18,6 +18,7 @@ import jax.numpy as jnp
 
 from efficientsam3_tpu.models import text_encoder as jte
 from efficientsam3_tpu.models import vitdet as jvit
+from efficientsam3_tpu_torch.build import init_parameters
 from efficientsam3_tpu_torch.models import text_encoder as pte
 from efficientsam3_tpu_torch.models import vitdet as pvit
 from efficientsam3_tpu_torch.models.common import apply_rope, compute_axial_rope_cos_sin
@@ -109,13 +110,18 @@ def test_text_encoder_matches_jax():
 
 
 def test_trunk_and_d64_backward_refuse_training():
-    """The trunk runs in eval mode only (DropPath and remat are not ported),
-    and flash_sdpa's rule takes d=64 forward but refuses it under autograd
-    (no d=64 backward kernel), so a recorded call raises at the forward."""
-    trunk = pvit.ViTTrunk(**TRUNK).train()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 18"):
-        trunk(torch.zeros(1, 112, 112, 3))
-    q = torch.zeros(1, 2, 4, 64)
-    assert fa._check_heads("flash_sdpa", fa._SUPPORTED_D, q) == torch.float32
+    """What used to refuse training now takes it: the trunk trains (at
+    drop_path_rate 0 without a generator, checkpointed blocks, a finite
+    gradient for every parameter), and the backward kernels' head-dim rule
+    takes d=64 and d=80 beside 32 and 256, while it still refuses a head
+    dim no kernel was built for (48)."""
+    trunk = pvit.ViTTrunk(drop_path_rate=0.0, **TRUNK).train()
+    init_parameters(trunk)
+    trunk(torch.randn(1, 112, 112, 3)).square().mean().backward()
+    assert all(torch.isfinite(p.grad).all() for p in trunk.parameters())
+    for d in (32, 64, 80, 256):
+        q = torch.zeros(1, 2, 4, d)
+        assert fa._check_heads("flash_sdpa", fa._SUPPORTED_D, q) == torch.float32
+        assert fa._check_heads("flash_sdpa backward", fa._BWD_D, q) == torch.float32
     with pytest.raises(ValueError, match="head dims"):
-        fa._check_heads("flash_sdpa backward", fa._BWD_D, q)
+        fa._check_heads("flash_sdpa backward", fa._BWD_D, torch.zeros(1, 2, 4, 48))
