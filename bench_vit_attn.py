@@ -1,0 +1,111 @@
+#!/usr/bin/env python3
+"""Time the ViT global blocks' attention kernels on one NVIDIA GPU, in bf16
+at full width: the flash_sdpa forward at d=80 (vit_h at 1120^2: q/k/v
+(1, 16, 4900, 80)) and the backward's dq and dkv kernels at d=64 (the
+SAM3 teacher's ViT-H Stage-1 step at batch 2: (2, 16, 5184, 64)) and d=80.
+q, k and v are strided views of one packed qkv tensor and dO a strided
+view of a (B, N, H * D) gradient, as the trunk hands them in; every key is
+live. Each kernel is held against its plain version first (the forward's
+output and LSE within 1e-2; dK and dV within 2e-2 of each one's largest
+magnitude, and the same bits when run again), then timed in a CUDA graph
+(chip_smoke.graph_time) beside one F.scaled_dot_product_attention call
+(forward) and its backward (all three gradients).
+
+    python3 bench_vit_attn.py [--other DIR]
+
+With --other, the same measurement of the checkout at DIR (another commit's
+kernels, or a variant copy, built there) is taken in the process order
+other, this, this, other, each in its own process, so that two versions
+compare on one card. Prints one line a kernel and run, with the card's
+name and power limit.
+"""
+
+import argparse
+import os
+import subprocess
+import sys
+
+SHAPES = {"fwd": (1, 4900, 80), "bwd": ((2, 5184, 64), (1, 4900, 80))}  # (B, N, D), 16 heads
+HEADS = 16
+
+
+def measure(label):
+    import torch
+    import torch.nn.functional as F
+
+    sys.path.insert(0, os.getcwd())
+    import chip_smoke as cs
+    from efficientsam3_tpu_torch.ops import flash_attention as fa
+
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_vit_attn: needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf16 = torch.bfloat16
+    smi = cs.nvidia_smi_line()
+
+    def packed(b, n, d):
+        qkv = torch.randn((b, n, 3, HEADS, d), generator=gen, device=dev).to(bf16)
+        return qkv.permute(2, 0, 3, 1, 4)
+
+    b, n, d = SHAPES["fwd"]
+    q, k, v = packed(b, n, d)
+    bias = torch.zeros((b, n), device=dev)
+    scale = d ** -0.5
+    got, lse = fa.flash_sdpa(q, k, v, bias, scale, return_lse=True)
+    want, want_lse = fa.flash_sdpa_plain(q, k, v, bias, scale, return_lse=True)
+    err = max(cs.check("forward", got, want), cs.check("forward lse", lse, want_lse))
+    ms = cs.graph_time(lambda: fa.flash_sdpa(q, k, v, bias, scale))
+    lib = cs.graph_time(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+    print(f"[{label}] forward d={d} {tuple(q.shape)} {fa.sdpa_kernel(bf16, d)}: {ms:.4f} ms "
+          f"(CUDA graph) | SDPA {lib:.4f} ms | max abs err {err:.3e} | {smi}", flush=True)
+    del q, k, v, got, lse, want, want_lse
+    for b, n, d in SHAPES["bwd"]:
+        q, k, v = packed(b, n, d)
+        bias = torch.zeros((b, n), device=dev)
+        scale = d ** -0.5
+        o, lse = fa.flash_sdpa_plain(q, k, v, bias, scale, return_lse=True)
+        do = torch.randn((b, n, HEADS * d), generator=gen, device=dev).to(bf16)
+        do = do.reshape(b, n, HEADS, d).transpose(1, 2)
+        _, delta = fa.flash_sdpa_bwd_dq(q, k, v, bias, o, lse, do, scale)
+        dk, dv = fa.flash_sdpa_bwd_dkv(q, k, v, bias, do, lse, delta, scale)
+        dk2, dv2 = fa.flash_sdpa_bwd_dkv(q, k, v, bias, do, lse, delta, scale)
+        if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+            raise AssertionError(f"dkv d={d}: a second run differs")
+        want_dk, want_dv = fa.flash_sdpa_bwd_dkv_plain(q, k, v, bias, do, lse, delta, scale)
+        err = max(cs.check_rel(f"dkv d={d} (dk)", dk, want_dk),
+                  cs.check_rel(f"dkv d={d} (dv)", dv, want_dv))
+        del dk, dv, dk2, dv2, want_dk, want_dv
+        ms = cs.graph_time(lambda: fa.flash_sdpa_bwd_dkv(q, k, v, bias, do, lse, delta, scale),
+                           5, 10)
+        ms_dq = cs.graph_time(lambda: fa.flash_sdpa_bwd_dq(q, k, v, bias, o, lse, do, scale),
+                              5, 10)
+        ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        ol = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+        lib = cs.cuda_time(lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True),
+                           10)
+        print(f"[{label}] dkv d={d} {tuple(q.shape)} {fa.bwd_dkv_kernel(bf16, d)}: {ms:.4f} ms "
+              f"(CUDA graph) | dq {ms_dq:.4f} ms | SDPA backward {lib:.4f} ms a call | max abs "
+              f"err {err:.3e} | {smi}", flush=True)
+        del q, k, v, o, lse, do, ol, ql, kl, vl
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other", help="another checkout, timed in turns with this one")
+    ap.add_argument("--label", default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.other is None or args.label is not None:
+        measure(args.label or "this")
+        return 0
+    here = os.path.dirname(os.path.abspath(__file__))
+    other = os.path.abspath(args.other)
+    for where, label in ((other, "other"), (here, "this"), (here, "this"), (other, "other")):
+        subprocess.run([sys.executable, os.path.join(here, "bench_vit_attn.py"), "--label",
+                        f"{label} ({os.path.relpath(where, here)})"], cwd=where, check=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

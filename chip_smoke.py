@@ -7,11 +7,12 @@ Phases, each printing its own lines:
   1. environment: the card's name and power limit (nvidia-smi), torch and
      CUDA versions, TF32 settings, and the build of the CUDA kernels
      (csrc/*.cu, one nvcc per source, all started together); for each
-     wgmma kernel (flash_sdpa_h at d=32 and 64, flash_sdpa_bwd_h, the bf16
-     d=256 pair flash_sdpa_bwd_dq_wide_h / flash_sdpa_bwd_dkv_wide_h and the
-     fp32 one flash_sdpa_bwd_dq_wide_f32 / flash_sdpa_bwd_dkv_wide_f32) and
-     the mma.sync register forward at d=80 (bf16 and fp32) and the mma.sync
-     backward at d=64 and d=80 (dq and dkv, bf16 and fp32) one line of
+     wgmma kernel (flash_sdpa_h at d=32, 64 and 80, flash_sdpa_bwd_h at
+     d=32, 64 and 80, the bf16 d=256 pair flash_sdpa_bwd_dq_wide_h /
+     flash_sdpa_bwd_dkv_wide_h and the fp32 one flash_sdpa_bwd_dq_wide_f32 /
+     flash_sdpa_bwd_dkv_wide_f32) and the mma.sync register forward at d=80
+     (fp32) and the mma.sync backward at d=64 and d=80 (dq in bf16 and
+     fp32, dkv in fp32) one line of
      registers, spilled bytes and shared memory a block, and blocks an SM,
      as the runtime reports them;
   2. the main path at full width: EfficientViT-b1 ("EV-M") at 1008^2 with
@@ -199,8 +200,9 @@ Phases, each printing its own lines:
      build of vit_h at full width cut to 4 blocks (block 3 global) held
      against the same model on the host's CPU (1e-3 of max(1, |largest|)
      on the embedding, the low-res masks and the IoUs). flash_sdpa at d=80
-     (csrc/flash_sdpa.cu, the mma.sync register kernel), bf16 and fp32,
-     held against its plain version with its LSE on the inputs of its
+     (bf16: the wgmma kernel of csrc/flash_sdpa_h.cu; fp32: the mma.sync
+     register kernel of csrc/flash_sdpa.cu) held against its plain version
+     with its LSE on the inputs of its
      launches (1e-2, FP32_TOL) and timed as in phase 3 (library: SDPA, fp32
      with TF32 off), with its registers and spills; vit_b's d=64
      launches held against the plain version at their own inputs (12
@@ -238,10 +240,12 @@ Phases, each printing its own lines:
      global) of both take one step on the card (launches 2 / 1 / 1), the
      teacher's against the same step on the host's CPU (loss 1e-5
      relative, every gradient 1e-4 of its largest magnitude). The dq and
-     dkv rows at d=64 and d=80 (csrc/flash_sdpa_bwd.cu), bf16 at a global
-     block's captured inputs of the bf16 steps (2e-2 of each gradient's
-     largest magnitude, SDPA's backward as the library time) and fp32 at
-     the cuts' (FP32_TOL, fp32 SDPA's backward).
+     dkv rows at d=64 and d=80 (dq: csrc/flash_sdpa_bwd.cu; dkv: bf16 the
+     wgmma kernel of csrc/flash_sdpa_bwd_h.cu, fp32 csrc/flash_sdpa_bwd.cu),
+     bf16 at a global block's captured inputs of the bf16 steps (2e-2 of
+     each gradient's largest magnitude, dK and dV the same bits when run
+     again, SDPA's backward as the library time) and fp32 at the cuts'
+     (FP32_TOL, fp32 SDPA's backward).
 
 Each phase prints its seconds. The line before the last is the kernels
 JSON (thirty-nine rows), the last {"ok": true, "device": {...}}. Any
@@ -580,16 +584,20 @@ def main():
                 log(f"[build] {name}: {line.strip()}")
     # the wgmma kernels as the runtime holds them, at the main path's 5184 keys
     # (the d=256 dq kernels at the clip's 36352 keys: their tile lists grow with
-    # them), the mma.sync register forward at d=80 (static shared memory) and
-    # the mma.sync backward at d=64 (5184 keys) and d=80 (4900 keys)
+    # them; the d=80 ones at vit_h's 4900), the mma.sync register forward at
+    # d=80 in fp32 (static shared memory) and the mma.sync backward at d=64
+    # (5184 keys) and d=80 (4900 keys): dq in bf16 and fp32, dkv in fp32
     for kernel, d, lk in (("flash_sdpa_h", 32, 5184), ("flash_sdpa_h", 64, 5184),
-                          ("flash_sdpa_bwd_h", 32, 5184), ("flash_sdpa_bwd_dq_wide_h", 256, 36352),
+                          ("flash_sdpa_h", 80, 4900), ("flash_sdpa_bwd_h", 32, 5184),
+                          ("flash_sdpa_bwd_h", 64, 5184), ("flash_sdpa_bwd_h", 80, 4900),
+                          ("flash_sdpa_bwd_dq_wide_h", 256, 36352),
                           ("flash_sdpa_bwd_dkv_wide_h", 256, 36352),
                           ("flash_sdpa_bwd_dq_wide_f32", 256, 36352),
                           ("flash_sdpa_bwd_dkv_wide_f32", 256, 36352),
-                          ("flash_sdpa", 80, 4900), ("flash_sdpa_fp32", 80, 4900),
-                          *((f"flash_sdpa_bwd_{p}{s}", d, lk) for p in ("dq", "dkv")
-                            for s in ("", "_fp32") for d, lk in ((64, 5184), (80, 4900)))):
+                          ("flash_sdpa_fp32", 80, 4900),
+                          *((kernel, d, lk) for kernel in (
+                              "flash_sdpa_bwd_dq", "flash_sdpa_bwd_dq_fp32",
+                              "flash_sdpa_bwd_dkv_fp32") for d, lk in ((64, 5184), (80, 4900)))):
         r = fa.kernel_resources(kernel, d, lk)
         log(f"[build] {kernel} d={d}: {r['registers']} registers a thread, {r['spill_bytes']} "
             f"bytes of local memory (spills) a thread, {r['smem_bytes']} bytes of shared memory "
@@ -3481,10 +3489,11 @@ def sam1_phase(smi, main_ref):
         else:
             nb = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * key_bias.numel()
             bms, by = bound(nb, 4.0 * live * d, 1.0 * live, 6.0 * live)
-        res = fa.kernel_resources("flash_sdpa_fp32" if fp32 else "flash_sdpa", d)
+        kernel = fa.sdpa_kernel(q.dtype, d)
+        res = fa.kernel_resources("flash_sdpa_fp32" if fp32 else kernel, d, k.shape[2])
         fn = lambda: fa.flash_sdpa(q, k, v, key_bias, scale)  # noqa: E731
         r = dict(name=name, route="cuda",
-                 source=f"efficientsam3_tpu_torch/csrc/{fa.sdpa_kernel(q.dtype, d)}.cu",
+                 source=f"efficientsam3_tpu_torch/csrc/{kernel}.cu",
                  replaces="efficientsam3_tpu/ops/pallas/flash_attention.py:144",
                  launches=launches, max_abs_err=err, ms=graph_time(fn, 5, 10),
                  call_ms=cuda_time(fn, 10),
@@ -3495,10 +3504,12 @@ def sam1_phase(smi, main_ref):
                      lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 5, 10),
                  device_ms=device_ms,
                  shape=f"q/k/v {tuple(q.shape)} {str(q.dtype)[6:]} (v a strided view of the "
-                       f"packed qkv), mma.sync{' split bf16 products' if fp32 else ''}; "
-                       f"{res['registers']} registers, {res['spill_bytes']} bytes spilled, "
-                       f"{res['smem_bytes']} B static shared, {res['blocks_per_sm']} blocks an "
-                       f"SM; library = {'fp32 ' if fp32 else ''}SDPA", **{"pass": True})
+                       f"packed qkv), "
+                       f"{'mma.sync split bf16 products' if fp32 else 'wgmma + TMA, 32-byte slabs'}"
+                       f"; {res['registers']} registers, {res['spill_bytes']} bytes spilled, "
+                       f"{res['smem_bytes']} B {'static ' if fp32 else ''}shared, "
+                       f"{res['blocks_per_sm']} blocks an SM; library = "
+                       f"{'fp32 ' if fp32 else ''}SDPA", **{"pass": True})
         log_row(r, smi)
         return r
 
@@ -3582,7 +3593,7 @@ def sam1_phase(smi, main_ref):
         drive(pred, f"{key} bf16 {SAM1_VIT_SIZE}^2", build_s, n_params)
         if key == "vit_h":
             captured["dev"] = encode_dev_ms(model, "vit_h encode_image",
-                                            "flash_sdpa_fwd_kernel<80", SAM1_SET_IMAGE["flash_sdpa"])
+                                            "flash_sdpa_h_kernel<80>", SAM1_SET_IMAGE["flash_sdpa"])
             captured["bf16"] = capture.args[("flash_sdpa", 80)][0]
         else:  # the wgmma d=64 kernel at vit_b's own inputs: 12 heads, a 36-row / 36-key tail
             q, k, v, key_bias, scale = capture.args[("flash_sdpa", 64)][0]
@@ -3710,7 +3721,8 @@ VIT_CUT_STEP = {"flash_sdpa": 2, "flash_sdpa_bwd_dq": 1, "flash_sdpa_bwd_dkv": 1
 VITH_STEPS, VITH_BATCH = 2, 1
 TEACHER_STEPS, TEACHER_BATCH = 3, 2
 # kernel families of a Stage-1 step's profile (lower-case name patterns), first match wins
-KERNEL_FAMILIES = (("flash_sdpa backward (dq + dkv)", ("bwd_dq_kernel<", "bwd_dkv_kernel<")),
+KERNEL_FAMILIES = (("flash_sdpa backward (dq + dkv)",
+                    ("bwd_dq_kernel<", "bwd_dkv_kernel<", "bwd_dkv_h_kernel<")),
                    ("flash_sdpa forward", ("flash_sdpa_h_kernel<", "flash_sdpa_fwd_kernel<")),
                    ("GEMM", ("gemm", "cutlass", "xmma", "nvjet")),
                    ("softmax", ("softmax",)),
@@ -4084,9 +4096,11 @@ def stage1_phase(smi):
     # ---------------------------------------------------------------- kernel rows
     def bf16_rows(d, dq_args, launches, prof):
         """The bf16 dq and dkv rows at one global block's captured inputs
-        (2e-2 of each output's largest magnitude), SDPA's backward (no mask:
-        every key live) as the library time, and the device ms a launch in
-        the profiled Stage-1 step (prof)."""
+        (2e-2 of each output's largest magnitude; dK and dV the same bits
+        when run again), SDPA's backward (no mask: every key live) as the
+        library time, and the device ms a launch in the profiled Stage-1
+        step (prof). dq is the mma.sync kernel of csrc/flash_sdpa_bwd.cu,
+        dkv the wgmma kernel of csrc/flash_sdpa_bwd_h.cu."""
         q, k, v, key_bias, o, lse, do, scale = dq_args
         b, h, lq, _ = q.shape
         dq, delta = fa.flash_sdpa_bwd_dq(q, k, v, key_bias, o, lse, do, scale)
@@ -4098,7 +4112,11 @@ def stage1_phase(smi):
                                                        scale)
         err_dkv = max(check_rel(f"flash_sdpa_bwd_dkv_d{d} (dk)", dk, want_dk),
                       check_rel(f"flash_sdpa_bwd_dkv_d{d} (dv)", dv, want_dv))
-        del dq, dk, dv, want_dq, want_dk, want_dv, want_delta
+        dk2, dv2 = fa.flash_sdpa_bwd_dkv(q, k, v, key_bias, do, lse, delta, scale)
+        if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+            raise AssertionError(f"flash_sdpa_bwd_dkv_d{d}: a second run differs")
+        log(f"[kernel] flash_sdpa_bwd_dkv_d{d}: dK and dV the same bits when run again")
+        del dq, dk, dv, dk2, dv2, want_dq, want_dk, want_dv, want_delta
         torch.cuda.empty_cache()
         live = int((key_bias > fa.NEG_INF / 2).sum().item())  # summed over the batch
         scores = h * lq * live
@@ -4111,32 +4129,33 @@ def stage1_phase(smi):
         lib_ms = cuda_time(lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True),
                            10)
         del ol, ql, kl, vl
-        res = {n: fa.kernel_resources(n, d, k.shape[2])
-               for n in ("flash_sdpa_bwd_dq", "flash_sdpa_bwd_dkv")}
+        res = {"flash_sdpa_bwd_dq": fa.kernel_resources("flash_sdpa_bwd_dq", d, k.shape[2]),
+               "flash_sdpa_bwd_dkv": fa.kernel_resources(fa.bwd_dkv_kernel(bf16, d), d,
+                                                         k.shape[2])}
         shape = (f"q/k/v/o/dO {tuple(q.shape)} bf16 (q, k, v views of the packed qkv, dO "
                  f"strided), {live} live keys over {b} rows; library = SDPA backward (all "
                  f"three gradients)")
         out = []
-        for name, fn, plain, err, bms, by, line in (
+        for name, fn, plain, err, bms, by, line, source, pattern, design in (
                 (f"flash_sdpa_bwd_dq_d{d}",
                  lambda: fa.flash_sdpa_bwd_dq(q, k, v, key_bias, o, lse, do, scale),
                  lambda: fa.flash_sdpa_bwd_dq_plain(q, k, v, key_bias, o, lse, do, scale),
-                 err_dq, bms_dq, by_dq, 1082),
+                 err_dq, bms_dq, by_dq, 1082, fa.bwd_dq_kernel(bf16, d),
+                 f"bwd_dq_kernel<{d}, __nv_bfloat16>", "mma.sync"),
                 (f"flash_sdpa_bwd_dkv_d{d}",
                  lambda: fa.flash_sdpa_bwd_dkv(q, k, v, key_bias, do, lse, delta, scale),
                  lambda: fa.flash_sdpa_bwd_dkv_plain(q, k, v, key_bias, do, lse, delta, scale),
-                 err_dkv, bms_dkv, by_dkv, 1098)):
+                 err_dkv, bms_dkv, by_dkv, 1098, fa.bwd_dkv_kernel(bf16, d),
+                 f"bwd_dkv_h_kernel<{d}>", "wgmma + TMA")):
             r_ = res[name.rsplit("_", 1)[0]]
             r = dict(name=name, route="cuda",
-                     source="efficientsam3_tpu_torch/csrc/flash_sdpa_bwd.cu",
+                     source=f"efficientsam3_tpu_torch/csrc/{source}.cu",
                      replaces=f"efficientsam3_tpu/ops/pallas/flash_attention.py:{line}",
                      launches=launches, max_abs_err=err, ms=graph_time(fn, 5, 10),
                      call_ms=cuda_time(fn, 10), plain_ms=cuda_time(plain, 3, warmup=1),
                      bound_ms=bms, bound_by=by, library_ms=lib_ms,
-                     device_ms=next((us / n / 1e3 for k_, us, n in prof
-                                     if f"{name.split('_')[3]}_kernel<{d}, __nv_bfloat16>" in k_),
-                                    None),
-                     shape=f"{shape}; mma.sync, {r_['registers']} registers, "
+                     device_ms=next((us / n / 1e3 for k_, us, n in prof if pattern in k_), None),
+                     shape=f"{shape}; {design}, {r_['registers']} registers, "
                            f"{r_['spill_bytes']} bytes spilled, {r_['smem_bytes']} B shared, "
                            f"{r_['blocks_per_sm']} blocks an SM", **{"pass": True})
             log_row(r, smi)

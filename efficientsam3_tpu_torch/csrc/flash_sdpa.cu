@@ -13,9 +13,9 @@
 // parts with three products each, P kept fp32 (split the same way) as in
 // JAX, where P is cast to the value dtype. The output is written in the
 // operands' dtype, the LSE in fp32. bf16 at d = 32 (the fusion encoder's
-// self-attention) and d = 64 (the teacher's global blocks) runs
-// flash_sdpa_h.cu, the wgmma kernel; this file serves fp32 at d = 32 and
-// d = 64, and both dtypes at d = 80 and d = 256.
+// self-attention), d = 64 (the teacher's global blocks) and d = 80 (the
+// vit_h student's) runs flash_sdpa_h.cu, the wgmma kernel; this file
+// serves fp32 at d = 32, 64 and 80, and both dtypes at d = 256.
 //
 // Bound on the H100 at the fusion-encoder shape (1, 8, 5184, 32): ~27.5
 // GFLOP of tensor-core work (~0.03 ms at the bf16 peak; ~0.06 ms at the
@@ -32,19 +32,18 @@
 // registers, K and V staged a 64-key tile at a time (~37 KB of static shared
 // memory for the two parts). Per launch ~110 GFLOP of products (~0.22 ms at
 // the tf32 rate) against 430 M exponentials (~0.10 ms): bound by the
-// products. No backward at d = 64: no JAX path trains a ViT trunk, and
-// flash_sdpa refuses the head dim under autograd.
+// products. Under autograd its backward is flash_sdpa_bwd.cu's.
 //
-// Head dim 80 (the vit_h SAM1 student's global blocks, 1280 wide in 16
-// heads: Q K V (1, 16, 4900, 80) at 1120^2, 4 launches an encode_image)
-// runs the same register kernel in both dtypes: five 16-wide k-steps of
-// the score product and ten 8-wide n-tiles of the PV product. Per launch
-// ~123 GFLOP of products (~0.124 ms at the bf16 peak, ~0.248 ms at the
-// tf32 rate) against 384 M exponentials (~0.09 ms): bound by the products.
-// The fp32 tiles take ks[2][64][88] + vt[2][80][72] bf16 = 45.6 KB of the
-// 48 KB of static shared memory; the rows of 88 and 72 elements keep the
-// fragment reads free of bank conflicts. The bf16 d = 80 forward on wgmma
-// (its rows of 160 bytes need two TMA slabs a tile) is a later redesign.
+// Head dim 80 in fp32 (the default build of the vit_h SAM1 student's global
+// blocks, 1280 wide in 16 heads: Q K V (1, 16, 4900, 80) at 1120^2, 4
+// launches an encode_image) runs the same register kernel: five 16-wide
+// k-steps of the score product and ten 8-wide n-tiles of the PV product.
+// Per launch ~123 GFLOP of products (~0.248 ms at the tf32 rate) against
+// 384 M exponentials (~0.09 ms): bound by the products. The fp32 tiles
+// take ks[2][64][88] + vt[2][80][72] bf16 = 45.6 KB of the 48 KB of static
+// shared memory; the rows of 88 and 72 elements keep the fragment reads
+// free of bank conflicts. fp32 stays on mma.sync: wgmma's tf32 form needs
+// both operands K-major, and V is not.
 //
 // Head dim 256 (the tracker's single-head memory attention, Q K V
 // (8, 1, 5184, 256) in self-attention and 36352 keys in the plain
@@ -166,23 +165,23 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* key_bias
   if (d == 256)
     return launch_qsmem<256, 256, T>(q, k, v, key_bias, o, lse, B, H, lq, lk, sm_scale, sqb, sqh,
                                      sqn, skb, skh, skn, svb, svh, svn, sob, soh, son, st);
-  if (d == 80)
-    return launch_reg<80, T>(q, k, v, key_bias, o, lse, B, H, lq, lk, sm_scale, sqb, sqh, sqn,
-                             skb, skh, skn, svb, svh, svn, sob, soh, son, st);
-  if constexpr (std::is_same<T, float>::value) {  // bf16 at d = 32 and 64 is flash_sdpa_h.cu's
+  if constexpr (std::is_same<T, float>::value) {  // bf16 at d = 32, 64 and 80 is flash_sdpa_h.cu's
     if (d == 32)
       return launch_reg<32, T>(q, k, v, key_bias, o, lse, B, H, lq, lk, sm_scale, sqb, sqh, sqn,
                                skb, skh, skn, svb, svh, svn, sob, soh, son, st);
     if (d == 64)
       return launch_reg<64, T>(q, k, v, key_bias, o, lse, B, H, lq, lk, sm_scale, sqb, sqh, sqn,
                                skb, skh, skn, svb, svh, svn, sob, soh, son, st);
+    if (d == 80)
+      return launch_reg<80, T>(q, k, v, key_bias, o, lse, B, H, lq, lk, sm_scale, sqb, sqh, sqn,
+                               skb, skh, skn, svb, svh, svn, sob, soh, son, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // fp32 != 0: q, k, v and o are float32 (d = 32, 64, 80 and 256), else
-// bfloat16 (d = 80 and 256: bf16 at d = 32 and 64 is served by
-// flash_sdpa_h.cu).
+// bfloat16 (d = 256 only: bf16 at d = 32, 64 and 80 is served by
+// flash_sdpa_h.cu, and refused here).
 extern "C" int flash_sdpa_fwd(const void* q, const void* k, const void* v,
                               const void* key_bias, void* o, void* lse, int B,
                               int H, int lq, int lk, int d, int fp32, float sm_scale,
@@ -213,17 +212,15 @@ int reg_attrs(int* out) {
   return 0;
 }
 
-// The register kernel at head dim d (32, 64 or 80; fp32 != 0 for its fp32
-// instantiation, else bf16, built at d = 80 only) as the runtime holds it:
-// out = {registers, spilled bytes a thread, static shared bytes a block,
-// blocks an SM}.
+// The register kernel at head dim d (32, 64 or 80; fp32 != 0: it is built
+// in fp32 only, and bf16 is refused) as the runtime holds it: out =
+// {registers, spilled bytes a thread, static shared bytes a block, blocks
+// an SM}.
 extern "C" int flash_sdpa_attrs(int d, int fp32, int* out) {
   if (fp32) {
     if (d == 32) return reg_attrs<32, float>(out);
     if (d == 64) return reg_attrs<64, float>(out);
     if (d == 80) return reg_attrs<80, float>(out);
-  } else if (d == 80) {
-    return reg_attrs<80, bf16>(out);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,9 +1,9 @@
 // Flash attention backward for Hopper (sm_90a) on mma.sync, at head dims
 // 32, 64 and 80: the dq kernel in bf16 and fp32 at every one of them, the
-// dkv kernel in fp32 at d = 32 and in both dtypes at d = 64 and d = 80.
-// The wgmma kernels take the rest: the bf16 dkv kernel at d = 32 is
-// flash_sdpa_bwd_h.cu's; at d = 256 dq and dkv are flash_sdpa_bwd_wide_h.cu's
-// in bf16 and flash_sdpa_bwd_wide_h_fp32.cu's in fp32.
+// dkv kernel in fp32 at every one of them. The wgmma kernels take the
+// rest: the bf16 dkv kernel at d = 32, 64 and 80 is flash_sdpa_bwd_h.cu's;
+// at d = 256 dq and dkv are flash_sdpa_bwd_wide_h.cu's in bf16 and
+// flash_sdpa_bwd_wide_h_fp32.cu's in fp32.
 //
 // Replaces efficientsam3_tpu/ops/pallas/flash_attention.py `_flash_bwd`:
 // `_bwd_dq_kernel` (its pallas_call at :1082) and `_bwd_dkv_kernel` (:1098),
@@ -61,16 +61,14 @@
 //
 // Registers. A dkv warp holds its 16 keys' K and V fragments (D / 4 a
 // part), the 16 x D dK and dV accumulators (D / 2 each) and a 16-row x
-// query-tile S and dP (tile / 2 each). With 64-query tiles ptxas gave the
-// bf16 d = 64 kernel 254 registers a thread and spilled the bf16 d = 80 and
-// both fp32 ones (8-64 bytes a thread at the 255 a thread may hold); at
-// 32-query tiles the fp32 d = 80 one still spilled 8 bytes. So fp32 at
-// d = 80 walks 16-query tiles, bf16 d = 80 and fp32 d = 64 walk 32 (DkvRows
-// below), and d = 32 and bf16 d = 64 walk 64. The dq kernel holds Q and
-// dO fragments (D / 4 a part each), the dQ accumulator (D / 2) and S and
-// dP; fp32 adds a fresh dQ fragment a tile (D / 2), which at d = 80
-// spilled 16 bytes, so that instantiation scores its staged 64-key tile
-// 32 keys at a time (DqKeys).
+// query-tile S and dP (tile / 2 each). With 64-query tiles ptxas spilled
+// the fp32 dkv kernels at d = 64 and 80 (8-64 bytes a thread at the 255 a
+// thread may hold); at 32-query tiles the d = 80 one still spilled 8
+// bytes. So fp32 dkv walks 16-query tiles at d = 80, 32 at d = 64 and 64
+// at d = 32 (DkvRows below). The dq kernel holds Q and dO fragments (D / 4
+// a part each), the dQ accumulator (D / 2) and S and dP; fp32 adds a fresh
+// dQ fragment a tile (D / 2), which at d = 80 spilled 16 bytes, so that
+// instantiation scores its staged 64-key tile 32 keys at a time (DqKeys).
 //
 // fp32 operands (the default build) run the same kernels on split bf16
 // parts (attn_common.cuh): Q, K, V, dO staged or held as hi and lo, P and
@@ -87,10 +85,9 @@ namespace {
 
 // query rows a dkv block stages and walks at a time, and keys of a staged
 // 64-key tile a dq warp scores at a time (see Registers above)
-template <int D, int NP>
-struct DkvRows {
-  static constexpr int value =
-      (NP == 2 && D >= 80) ? 16 : (D >= 80 || (NP == 2 && D >= 64)) ? 32 : 64;
+template <int D>
+struct DkvRows {  // fp32 (two parts): the dkv kernel's only dtype here
+  static constexpr int value = D >= 80 ? 16 : D >= 64 ? 32 : 64;
 };
 template <int D, int NP>
 struct DqKeys {
@@ -316,7 +313,7 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                long long sdh, long long sdn, long long skgb, long long skgh, long long skgn,
                long long svgb, long long svgh, long long svgn) {
   constexpr int NP = Parts<T>::N;
-  constexpr int QT = DkvRows<D, NP>::value;  // query rows a tile
+  constexpr int QT = DkvRows<D>::value;  // query rows a tile
   constexpr int PD = D + 8;
   constexpr int PT = QT * PD;  // elements of one part of a staged tile
   __shared__ __align__(16) bf16 qs[NP * PT];
@@ -501,9 +498,9 @@ extern "C" int flash_sdpa_bwd_dq(const void* q, const void* k, const void* v,
                 static_cast<cudaStream_t>(stream));
 }
 
-// q, k, v, dout, dk and dv float32 (fp32 != 0) or bfloat16 at d = 64 and
-// 80, float32 only at d = 32: bf16 there is flash_sdpa_bwd_h.cu's, and
-// d = 256 flash_sdpa_bwd_wide_h.cu's and flash_sdpa_bwd_wide_h_fp32.cu's.
+// q, k, v, dout, dk and dv float32 (fp32 != 0) at d = 32, 64 and 80;
+// bfloat16 is refused (flash_sdpa_bwd_h.cu's), and d = 256 is
+// flash_sdpa_bwd_wide_h.cu's and flash_sdpa_bwd_wide_h_fp32.cu's.
 extern "C" int flash_sdpa_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* key_bias, const void* dout, const void* lse,
                                   const void* delta, void* dk, void* dv, int B, int H, int lq,
@@ -514,12 +511,14 @@ extern "C" int flash_sdpa_bwd_dkv(const void* q, const void* k, const void* v,
                                   long long skgh, long long skgn, long long svgb,
                                   long long svgh, long long svgn, void* stream) {
   decltype(&launch_dkv<32, float>) launch;
-  if (d == 32 && fp32) {
+  if (!fp32) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else if (d == 32) {
     launch = launch_dkv<32, float>;
   } else if (d == 64) {
-    launch = fp32 ? launch_dkv<64, float> : launch_dkv<64, bf16>;
+    launch = launch_dkv<64, float>;
   } else if (d == 80) {
-    launch = fp32 ? launch_dkv<80, float> : launch_dkv<80, bf16>;
+    launch = launch_dkv<80, float>;
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -534,11 +533,14 @@ extern "C" int flash_sdpa_bwd_dkv(const void* q, const void* k, const void* v,
 // thread, shared bytes a block, blocks an SM}. Refuses what the entry
 // points refuse.
 extern "C" int flash_sdpa_bwd_attrs(int dkv, int d, int fp32, int lk, int* out) {
-  if (d == 32 && fp32) return pair_attrs<32, float>(dkv, lk, out);
-  if (d == 32 && !dkv) return kernel_attrs(bwd_dq_kernel<32, bf16>, dq_smem_bytes<32>(lk, 1), out);
-  if (d == 64) return fp32 ? pair_attrs<64, float>(dkv, lk, out)
-                           : pair_attrs<64, bf16>(dkv, lk, out);
-  if (d == 80) return fp32 ? pair_attrs<80, float>(dkv, lk, out)
-                           : pair_attrs<80, bf16>(dkv, lk, out);
+  if (fp32) {
+    if (d == 32) return pair_attrs<32, float>(dkv, lk, out);
+    if (d == 64) return pair_attrs<64, float>(dkv, lk, out);
+    if (d == 80) return pair_attrs<80, float>(dkv, lk, out);
+  } else if (!dkv) {  // no bf16 dkv kernel is built here
+    if (d == 32) return kernel_attrs(bwd_dq_kernel<32, bf16>, dq_smem_bytes<32>(lk, 1), out);
+    if (d == 64) return kernel_attrs(bwd_dq_kernel<64, bf16>, dq_smem_bytes<64>(lk, 1), out);
+    if (d == 80) return kernel_attrs(bwd_dq_kernel<80, bf16>, dq_smem_bytes<80>(lk, 1), out);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

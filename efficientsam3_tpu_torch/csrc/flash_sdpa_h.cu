@@ -1,13 +1,17 @@
-// Flash scaled-dot-product attention forward at head dims 32 and 64, bf16,
-// for Hopper (sm_90a): wgmma, TMA and a warp-specialised pipeline.
+// Flash scaled-dot-product attention forward at head dims 32, 64 and 80,
+// bf16, for Hopper (sm_90a): wgmma, TMA and a warp-specialised pipeline.
 //
 // Replaces efficientsam3_tpu/ops/pallas/flash_attention.py
 // `_flash_fwd_packed` (`_packed_kernel` :182, its pallas_call at :304),
-// which `flash_sdpa` (:1181) picks for head dims under 128:
+// which `flash_sdpa` (:1181) picks for head dims under 128, and `_flash_fwd`
+// (`_kernel` :57, its pallas_call at :144) where the ViT students run it:
 //  - d = 32: the fusion encoder's self-attention, q/k/v (1, 8, 5184, 32) a
 //    `ground` and (4, 8, 5184, 32) a Stage-3 step, 6 launches each;
 //  - d = 64: the SAM3 teacher's ViTDet global blocks, (1, 16, 5184, 64), 4
-//    launches a `set_image`, q/k/v strided views of one packed qkv tensor.
+//    launches a `set_image`, q/k/v strided views of one packed qkv tensor;
+//  - d = 80: the vit_h SAM1 student's global blocks, (1, 16, 4900, 80) at
+//    1120^2, 4 launches a `set_image` and 8 a Stage-1 step (the
+//    checkpointed blocks run their forward again), views of a packed qkv.
 // What it computes is that of flash_sdpa.cu: softmax(Q K^T * scale +
 // key_bias) V with an fp32 online softmax, P rounded to bf16 for the PV
 // product, a (B, Lk) fp32 additive key bias (-1e9 masks), key tiles whose
@@ -39,9 +43,11 @@
 //    tile, V tile (64 x D bf16: 4 KB at d = 32, 8 KB at d = 64) and the
 //    tiles' 64 key biases, filled by cp.async.bulk.tensor against an
 //    mbarrier (full) and handed back by the eight consumer warps (empty).
-//    q/k/v are described as 4-D (D, N, H, B) tensor maps swizzled at the
-//    row's width (64 bytes at d = 32, 128 bytes at d = 64), the swizzle the
-//    wgmma shared memory descriptors read (wgmma_common.cuh); the maps are
+//    q/k/v are described as 4-D (D, N, H, B) tensor maps in boxes of the
+//    row's width swizzled at that width (64 bytes at d = 32, 128 bytes at
+//    d = 64), at d = 80 five 16-column boxes a tile swizzled at 32 bytes,
+//    the layouts the wgmma shared memory descriptors read
+//    (wgmma_common.cuh, Tile); the maps are
 //    encoded on the host through cudaGetDriverEntryPoint (no -lcuda) and
 //    passed as __grid_constant__ parameters. The Q tile comes the same way,
 //    once;
@@ -75,6 +81,30 @@
 // Q K^T issued before this tile's P V completes) and Q held in registers
 // as the A operand (both spill at the 96-register limit of 2 blocks an SM),
 // three consumer warpgroups at one block an SM, and no ping-pong (level).
+//
+// d = 80 (the mma.sync register kernel of flash_sdpa.cu before it took 1.7898 ms
+// at vit_h's shape, 14.4x its bound of 0.1243 ms, 5.1x SDPA's 0.3500):
+//  - layout: a 160-byte row has no swizzle of its own; five 16-column
+//    slabs at the 32-byte swizzle (wgmma_common.cuh's Layouts note) keep a
+//    tile at 160 bytes a row (K / V tiles 10 KB, Q 20 KB, 84,016 bytes a
+//    block) and make P V's B operand N = 80 five whole swizzle atoms. Two
+//    64-column slabs at the 128-byte swizzle, the second one's columns
+//    80-127 zero-filled by TMA (a partial atom for N = 80), computed the
+//    same results in the same time (bench_vit_attn.py: 0.4507 / 0.4498 ms
+//    against 0.4487-0.4532) at 133,168 bytes a block, which would leave
+//    no room for a second block an SM;
+//  - occupancy: the O accumulator is 40 registers a thread. At 2 blocks an
+//    SM ptxas caps a thread at 96 registers (as at d = 32 and 64), where
+//    this instantiation spilled 144 bytes and took 0.6433 / 0.6498 ms
+//    (bench_vit_attn.py). So one block
+//    an SM (168 registers, no spills): the 39 x 16 = 624 blocks are 4.7 waves
+//    of 132, the last one 73% full.
+//  - Measured (chip_smoke.py, H100 80GB HBM3, 700 W): 0.4530 ms in a CUDA
+//    graph, 3.6x the bound and 1.30x SDPA's 0.3493. Tried and not kept:
+//    FA3's intra-warpgroup overlap with 4 stages (ptxas serialised its
+//    wgmma, C7513, and it was no faster). Not tried: a block without the
+//    producer warp (8 warps: 128 registers at 2 blocks an SM), one TMA
+//    issuer among the consumers.
 
 #include "wgmma_common.cuh"
 
@@ -88,15 +118,17 @@ constexpr int NSTAGE = 3;         // K / V ring
 constexpr int NCONS = 256;        // two consumer warpgroups
 constexpr int NTH = NCONS + 32;   // and the producer warp
 
-// shared memory, from a 1024-aligned base (the swizzle repeats every 8 rows:
-// 512 bytes at d = 32, 1024 at d = 64; TMA and the wgmma descriptors see the
-// same pattern)
+// shared memory, from a 1024-aligned base, each tile in the slabs of
+// wgmma_common.cuh's Tile (the swizzle repeats every 8 rows of a slab: 512
+// bytes at d = 32, 1024 at d = 64, 256 at d = 80; TMA and the wgmma
+// descriptors see the same pattern)
 template <int D>
 struct Smem {
-  static constexpr int ROW = D * 2;     // bytes a row, and the swizzle width
-  static constexpr int TILE = BN * ROW;  // one K or V tile
+  using TQ = Tile<D, BM>;                // the block's Q tile
+  using TK = Tile<D, BN>;                // a K or V tile
+  static constexpr int TILE = TK::BYTES;  // one K or V tile
   static constexpr int OFF_Q = 0;
-  static constexpr int OFF_K = OFF_Q + BM * ROW;
+  static constexpr int OFF_K = OFF_Q + TQ::BYTES;
   static constexpr int OFF_V = OFF_K + NSTAGE * TILE;
   static constexpr int OFF_BIAS = OFF_V + NSTAGE * TILE;
   static constexpr int OFF_BAR = OFF_BIAS + NSTAGE * BN * 4;  // full[NSTAGE], empty[NSTAGE], q
@@ -108,8 +140,15 @@ struct Smem {
   }
 };
 
+// blocks an SM: 2 at d = 32 and 64 (96 registers a thread), 1 at d = 80,
+// whose 40-register O accumulator spills at the 96 of 2 blocks
 template <int D>
-__global__ void __launch_bounds__(NTH, 2)
+__host__ __device__ constexpr int blocks_per_sm() {
+  return D == 80 ? 1 : 2;
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTH, blocks_per_sm<D>())
 flash_sdpa_h_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v,
@@ -174,15 +213,15 @@ flash_sdpa_h_kernel(const __grid_constant__ CUtensorMap tm_q,
     // ---------------- producer warp: TMA only
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (lane == 0) {
-      mbar_expect_tx(bar_q, BM * L::ROW);
-      tma_load_4d(s_base + L::OFF_Q, &tm_q, bar_q, 0, q0, h, b);
+      mbar_expect_tx(bar_q, L::TQ::BYTES);
+      L::TQ::load(s_base + L::OFF_Q, &tm_q, bar_q, q0, h, b);
       for (int i = 0; i < nlive; ++i) {
         const int s = i % NSTAGE;
         mbar_wait(bar_empty + 8 * s, ((i / NSTAGE) & 1) ^ 1);  // the first round passes
         const int key0 = live_list[i] * BN;
         mbar_expect_tx(bar_full + 8 * s, L::STAGE_TX);
-        tma_load_4d(s_base + L::OFF_K + s * L::TILE, &tm_k, bar_full + 8 * s, 0, key0, h, b);
-        tma_load_4d(s_base + L::OFF_V + s * L::TILE, &tm_v, bar_full + 8 * s, 0, key0, h, b);
+        L::TK::load(s_base + L::OFF_K + s * L::TILE, &tm_k, bar_full + 8 * s, key0, h, b);
+        L::TK::load(s_base + L::OFF_V + s * L::TILE, &tm_v, bar_full + 8 * s, key0, h, b);
         tma_load_2d(s_base + L::OFF_BIAS + s * BN * 4, &tm_bias, bar_full + 8 * s, key0, b);
       }
     }
@@ -193,7 +232,7 @@ flash_sdpa_h_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int r0 = q0 + wg * 64 + (warp & 3) * 16 + g, r1 = r0 + 8;  // this thread's rows
     const float scale2 = sm_scale * LOG2E;
     // Q (64 rows of this group) and K K-major; V MN-major (wgmma_common.cuh)
-    const uint32_t q_addr = s_base + L::OFF_Q + wg * 64 * L::ROW;
+    const uint32_t q_addr = s_base + L::OFF_Q + wg * 64 * L::TQ::ROW;
 
     float acc[D / 2];
 #pragma unroll
@@ -215,7 +254,7 @@ flash_sdpa_h_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_m64n64k16_ss(sc, desc_k<L::ROW>(q_addr, kk), desc_k<L::ROW>(k_addr, kk), kk > 0);
+        wgmma_m64n64k16_ss(sc, L::TQ::desc_k(q_addr, kk), L::TK::desc_k(k_addr, kk), kk > 0);
       wgmma_commit();
       if (wg == 0 || i + 1 < nlive) named_arrive<NCONS>(2 - wg);  // the other group's turn
       wgmma_wait0();
@@ -269,7 +308,7 @@ flash_sdpa_h_kernel(const __grid_constant__ CUtensorMap tm_q,
       // O += P V, P from registers, V an MN-major operand
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs(acc, pa[kk], desc_mn<L::ROW>(v_addr, kk));
+      for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs(acc, pa[kk], L::TK::desc_mn(v_addr, kk));
       wgmma_commit();
       wgmma_wait0();
       fence_regs(acc);
@@ -340,7 +379,7 @@ int launch(const void* q, const void* k, const void* v, const void* key_bias, vo
 
 }  // namespace
 
-// q, k, v (B, H, N, d) bf16, d = 32 or 64, with (batch, head, row) element
+// q, k, v (B, H, N, d) bf16, d = 32, 64 or 80, with (batch, head, row) element
 // strides, each a multiple of 8 and the base 16-byte aligned; key_bias
 // (B, lkb) f32 contiguous and 16-byte aligned, lkb >= Lk a multiple of 4,
 // columns past Lk at -1e9; o by strides; lse (B, H, Lq) f32 or null.
@@ -358,6 +397,7 @@ extern "C" int flash_sdpa_h_fwd(const void* q, const void* k, const void* v,
   decltype(&launch<32>) run = nullptr;
   if (d == 32) run = launch<32>;
   if (d == 64) run = launch<64>;
+  if (d == 80) run = launch<80>;
   if (run == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return run(q, k, v, key_bias, o, lse, B, H, lq, lk, lkb, sm_scale, sqb, sqh, sqn, skb, skh,
              skn, svb, svh, svn, sob, soh, son, static_cast<cudaStream_t>(stream));
@@ -372,5 +412,7 @@ extern "C" int flash_sdpa_h_attrs(int d, int lk, int* out) {
     return kernel_attrs(flash_sdpa_h_kernel<32>, NTH, smem, out);
   if (d == 64 && (err = prepare<64>(lk, &smem)) == 0)
     return kernel_attrs(flash_sdpa_h_kernel<64>, NTH, smem, out);
+  if (d == 80 && (err = prepare<80>(lk, &smem)) == 0)
+    return kernel_attrs(flash_sdpa_h_kernel<80>, NTH, smem, out);
   return err;
 }

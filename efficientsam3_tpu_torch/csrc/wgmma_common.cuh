@@ -1,30 +1,37 @@
 // Shared pieces of the warp-specialised Hopper attention kernels
-// (flash_sdpa_h.cu: the bf16 forward at d = 32 and 64; flash_sdpa_bwd_h.cu:
-// the bf16 dK / dV backward at d = 32; flash_sdpa_bwd_wide_h.cu: the bf16
-// dQ and dK / dV backward at d = 256; flash_sdpa_bwd_wide_h_fp32.cu: the
-// same at d = 256 on fp32 operands): mbarriers, TMA loads, wgmma shared
-// memory descriptors and instructions, named barriers, the exchanges
-// between consumer warpgroups, the live-tile list, and on the host the
-// tensor maps, encoded through cudaGetDriverEntryPoint (no -lcuda).
+// (flash_sdpa_h.cu: the bf16 forward at d = 32, 64 and 80;
+// flash_sdpa_bwd_h.cu: the bf16 dK / dV backward at d = 32, 64 and 80;
+// flash_sdpa_bwd_wide_h.cu: the bf16 dQ and dK / dV backward at d = 256;
+// flash_sdpa_bwd_wide_h_fp32.cu: the same at d = 256 on fp32 operands):
+// mbarriers, TMA loads, wgmma shared memory descriptors and instructions,
+// named barriers, the exchanges between consumer warpgroups, the live-tile
+// list, and on the host the tensor maps, encoded through
+// cudaGetDriverEntryPoint (no -lcuda).
 //
-// Layouts. A (rows x D) bf16 tile is loaded by TMA in slabs of at most 64
-// columns (128 bytes, the widest swizzle a box can carry): one slab with
-// rows of D * 2 bytes and the swizzle of that width at d = 32 and 64 (64
-// and 128 bytes), four 64-column slabs with the 128-byte swizzle at
-// d = 256, slab j at j * rows * 128 bytes. Each 8-row group of a slab is
-// one swizzle atom (512 or 1024 bytes) and every slab starts on a
-// 1024-byte boundary. wgmma reads such a tile:
+// Layouts. A (rows x D) bf16 tile is loaded by TMA in slabs of slab_cols(D)
+// columns, each slab a box whose rows carry the swizzle of their width:
+// one slab at d = 32 and 64 (rows of 64 and 128 bytes), four 64-column
+// slabs with the 128-byte swizzle at d = 256, and five 16-column slabs with
+// the 32-byte swizzle at d = 80, slab j at j * rows * (row bytes). The
+// 160-byte rows of d = 80 have no swizzle of their own: two 64-column slabs
+// would carry 48 columns of zeros (256 bytes a row, one forward block an
+// SM), and a 64 + 16 split would need two tensor maps an operand and two
+// products for P V; five 32-byte slabs waste nothing, keep one map, and
+// make N = 80 five whole swizzle atoms (CUTLASS's choice for such an N).
+// Each 8-row group of a slab is one swizzle atom (256, 512 or 1024 bytes)
+// and every slab starts on a 1024-byte boundary. wgmma reads such a tile
+// (Tile below):
 //  - K-major (the contraction along the row: Q, K, V, dO as QK^T-type
 //    operands): stride byte offset = 8 rows, a k-step of 16 columns is 32
-//    bytes along the row, and every fourth k-step moves to the next slab
-//    (the leading byte offset is not read; kstep_off);
+//    bytes along the row, and a slab holds (row bytes) / 32 k-steps before
+//    the next slab (the leading byte offset is not read);
 //  - MN-major (the contraction across rows: V in P V, dO in P^T dO, Q in
 //    dS^T Q, K in dS K; the transpose bit): stride byte offset = 8 rows, a
 //    k-step of 16 rows is 16 rows' bytes. The N extent is the columns: one
 //    swizzle atom wide at d <= 64, where the leading byte offset is not
-//    read; at d = 256 an N of 128 or 256 spans two or four slabs, and the
-//    leading byte offset is the slab stride (rows * 128 bytes), the step
-//    from one 64-column atom to the next (desc_mn_wide).
+//    read; at d = 80 and 256 N spans the slabs, and the leading byte offset
+//    is the slab stride, the step from one atom to the next along N
+//    (desc_mn_wide at d = 256).
 //
 // Split parts (fp32 operands). wgmma multiplies bf16, so an fp32 operand x
 // goes in as two bf16 parts, hi = bf16(x) (round to nearest even) and lo =
@@ -102,11 +109,12 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
 // ---- wgmma
 // Shared-memory matrix descriptor of a tile whose rows are ROW bytes and
 // carry the swizzle of that width: start address, leading and stride byte
-// offsets (16-byte units), layout type (1: 128-byte, 2: 64-byte swizzle).
+// offsets (16-byte units), layout type (1: 128-byte, 2: 64-byte, 3: 32-byte
+// swizzle).
 template <int ROW>
 __device__ __forceinline__ uint64_t make_desc(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
-  static_assert(ROW == 64 || ROW == 128, "rows of 64 or 128 bytes");
-  constexpr uint64_t layout = ROW == 128 ? 1 : 2;
+  static_assert(ROW == 32 || ROW == 64 || ROW == 128, "rows of 32, 64 or 128 bytes");
+  constexpr uint64_t layout = ROW == 128 ? 1 : ROW == 64 ? 2 : 3;
   return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
@@ -138,6 +146,43 @@ template <int SLAB>
 __device__ __forceinline__ uint64_t kstep_off(int kk) {
   return static_cast<uint64_t>(((kk >> 2) * SLAB + (kk & 3) * 32) >> 4);
 }
+
+// Columns a slab of a d-wide bf16 tile holds (the Layouts note): d itself
+// up to 64, 64 at d = 256, 16 at d = 80.
+__host__ __device__ constexpr int slab_cols(int d) {
+  return d <= 64 ? d : d % 64 == 0 ? 64 : 16;
+}
+
+// A ROWS x D bf16 tile in slabs: its geometry, its wgmma descriptors, and
+// its TMA load from a map_heads map of the same d. At d = 32 and 64 (one
+// slab) desc_k and desc_mn are those of the one-slab functions above.
+template <int D, int ROWS>
+struct Tile {
+  static constexpr int COLS = slab_cols(D);
+  static constexpr int ROW = 2 * COLS;        // bytes a slab row, and its swizzle
+  static constexpr int NSLAB = D / COLS;
+  static constexpr int SLAB = ROWS * ROW;     // bytes a slab
+  static constexpr int BYTES = NSLAB * SLAB;  // bytes the tile
+  static_assert(SLAB % 1024 == 0, "slabs start on 1024-byte boundaries");
+  // K-major operand: k-step kk (16 columns) of the rows from saddr (the
+  // tile's first slab, or a row offset in it)
+  __device__ __forceinline__ static uint64_t desc_k(uint32_t saddr, int kk) {
+    constexpr int KPS = ROW / 32;  // k-steps a slab
+    return wgmma::desc_k<ROW>(saddr + (kk / KPS) * SLAB, kk % KPS);
+  }
+  // MN-major operand, N = D columns: k-step kk (16 rows); across the slabs
+  // through the leading byte offset
+  __device__ __forceinline__ static uint64_t desc_mn(uint32_t saddr, int kk) {
+    if constexpr (NSLAB == 1) return wgmma::desc_mn<ROW>(saddr, kk);
+    return make_desc<ROW>(saddr + kk * 16 * ROW, SLAB, 8 * ROW);
+  }
+  // rows row0.. of one (batch, head) into the tile at dst, a box a slab
+  __device__ __forceinline__ static void load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                              int row0, int h, int b) {
+#pragma unroll
+    for (int j = 0; j < NSLAB; ++j) tma_load_4d(dst + j * SLAB, map, bar, j * COLS, row0, h, b);
+  }
+};
 
 // Byte offset of byte `byte` (0..127) of row `row` in a slab with the
 // 128-byte swizzle, as TMA writes it (CU_TENSOR_MAP_SWIZZLE_128B): the
@@ -220,6 +265,19 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TRANS_B));
+}
+
+// The same at N = 80 (head dim 80: a B operand five 32-byte swizzle atoms
+// wide, read through the leading byte offset, Tile<80, ROWS>::desc_mn).
+template <int TRANS_B = 1>
+__device__ __forceinline__ void wgmma_rs(float (&d)[40], const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1, %46;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TRANS_B));
 }
 
@@ -518,12 +576,12 @@ inline EncodeTiled encode_tiled() {
 
 // A (B, H, N, d) bf16 view with element strides (sb, sh, sn) as a 4-D
 // (d, N, H, B) map, boxes of `rows` rows of one (batch, head) and
-// min(d, 64) columns, swizzled at the box's width (64 bytes at d = 32, 128
-// at d = 64 and 256; a d = 256 tile is four boxes, one a slab); rows past
-// N read as zeros.
+// slab_cols(d) columns, swizzled at the box's width (64 bytes at d = 32,
+// 128 at d = 64 and 256, 32 at d = 80; a d = 256 tile is four boxes and a
+// d = 80 tile five, one a slab: Tile::load); rows past N read as zeros.
 inline CUresult map_heads(EncodeTiled fn, CUtensorMap* m, const void* base, int d, int n, int H,
                           int B, long long sb, long long sh, long long sn, int rows) {
-  const int width = d < 64 ? d : 64;
+  const int width = slab_cols(d);
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(n),
                               static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sn) * 2,
@@ -533,7 +591,9 @@ inline CUresult map_heads(EncodeTiled fn, CUtensorMap* m, const void* base, int 
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
             estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            width == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+            width == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+            : width == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                          : CU_TENSOR_MAP_SWIZZLE_32B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 

@@ -26,11 +26,11 @@ dtypes; head dims it was not built for). Every kernel has a bf16 and an
 fp32 instantiation, the fp32 one on split bf16 parts (csrc/attn_common.cuh);
 outputs come back in the operands' dtype, the log-sum-exp in fp32. Each
 counts its kernel launches in ``<wrapper>.launches``; ``flash_sdpa``
-forward at d=32 and d=64 in bf16 is the wgmma kernel ``csrc/flash_sdpa_h.cu``
-(``sdpa_kernel`` says which kernel a call reaches), and
-``flash_sdpa_bwd_dkv`` at d=32 in bf16 the wgmma kernel
-``csrc/flash_sdpa_bwd_h.cu`` (``bwd_dkv_kernel``; at d=32 in fp32 and at
-d=64 and d=80 in both dtypes the mma.sync kernels of
+forward at d=32, 64 and 80 in bf16 is the wgmma kernel
+``csrc/flash_sdpa_h.cu`` (``sdpa_kernel`` says which kernel a call
+reaches), and ``flash_sdpa_bwd_dkv`` at d=32, 64 and 80 in bf16 the wgmma
+kernel ``csrc/flash_sdpa_bwd_h.cu`` (``bwd_dkv_kernel``; fp32 at those
+head dims, and every dq kernel but d=256's, are the mma.sync kernels of
 ``csrc/flash_sdpa_bwd.cu``), and both backward kernels at d=256 those of
 ``csrc/flash_sdpa_bwd_wide_h.cu`` in bf16 and
 ``csrc/flash_sdpa_bwd_wide_h_fp32.cu`` in fp32 (``bwd_dq_kernel``,
@@ -126,12 +126,18 @@ def _check_heads(name, dims, *ts):
     return dtype
 
 
+# head dims of the bf16 wgmma kernels flash_sdpa_h (forward) and
+# flash_sdpa_bwd_h (dkv); the mma.sync kernels of csrc/flash_sdpa.cu and
+# csrc/flash_sdpa_bwd.cu refuse bf16 there
+_H_D = (32, 64, 80)
+
+
 def sdpa_kernel(dtype, d):
     """The forward kernel a CUDA ``flash_sdpa`` call launches: the wgmma
-    kernel (csrc/flash_sdpa_h.cu) for bf16 at d=32 and d=64, else the
-    mma.sync kernels of csrc/flash_sdpa.cu (fp32 at d=32 and d=64, both
-    dtypes at d=80 and d=256)."""
-    return "flash_sdpa_h" if (dtype == torch.bfloat16 and d in (32, 64)) else "flash_sdpa"
+    kernel (csrc/flash_sdpa_h.cu) for bf16 at d=32, 64 and 80, else the
+    mma.sync kernels of csrc/flash_sdpa.cu (fp32 at d=32, 64 and 80, both
+    dtypes at d=256)."""
+    return "flash_sdpa_h" if (dtype == torch.bfloat16 and d in _H_D) else "flash_sdpa"
 
 
 def _bwd_wide_kernel(dtype):
@@ -150,12 +156,12 @@ def bwd_dq_kernel(dtype, d):
 
 def bwd_dkv_kernel(dtype, d):
     """The dkv kernel a CUDA ``flash_sdpa_bwd_dkv`` call launches: the
-    wgmma kernels at d=256 (as ``bwd_dq_kernel``) and for bf16 at d=32
-    (csrc/flash_sdpa_bwd_h.cu), else the mma.sync kernel of
-    csrc/flash_sdpa_bwd.cu (fp32 at d=32, both dtypes at d=64 and 80)."""
+    wgmma kernels at d=256 (as ``bwd_dq_kernel``) and for bf16 at d=32, 64
+    and 80 (csrc/flash_sdpa_bwd_h.cu), else the mma.sync kernel of
+    csrc/flash_sdpa_bwd.cu (fp32 at d=32, 64 and 80)."""
     if d == 256:
         return _bwd_wide_kernel(dtype)
-    return "flash_sdpa_bwd_h" if (dtype == torch.bfloat16 and d == 32) else "flash_sdpa_bwd"
+    return "flash_sdpa_bwd_h" if (dtype == torch.bfloat16 and d in _H_D) else "flash_sdpa_bwd"
 
 
 def _aligned(t):
@@ -202,11 +208,11 @@ def _lib_sdpa_h_attrs():
 
 def _lib_bwd_h():
     return _bind("flash_sdpa_bwd_h", "flash_sdpa_bwd_dkv_h",
-                 [_P] * 9 + [_I] * 5 + [_F] + [_LL] * 18 + [_P])
+                 [_P] * 9 + [_I] * 6 + [_F] + [_LL] * 18 + [_P])
 
 
 def _lib_bwd_h_attrs():
-    return _bind("flash_sdpa_bwd_h", "flash_sdpa_bwd_dkv_h_attrs", [_P])
+    return _bind("flash_sdpa_bwd_h", "flash_sdpa_bwd_dkv_h_attrs", [_I, _P])
 
 
 def _lib_bwd_attrs():
@@ -248,31 +254,42 @@ def _lib_bwd_wide_f32_dkv_attrs():
     return _bind("flash_sdpa_bwd_wide_h_fp32", "flash_sdpa_bwd_dkv_wide_f32_attrs", [_P])
 
 
+# the kernels kernel_resources reads at head dims _H_D: the wgmma forward
+# and dkv, and the mma.sync kernels beside them (their forward and dkv in
+# fp32 only: the bf16 ones are the wgmma kernels)
+_RESOURCES_AT_H_D = ("flash_sdpa_h", "flash_sdpa_bwd_h", "flash_sdpa_fp32", "flash_sdpa_bwd_dq",
+                     "flash_sdpa_bwd_dq_fp32", "flash_sdpa_bwd_dkv_fp32")
+
+
 def kernel_resources(kernel, d=32, lk=5184):
     """Registers and spilled bytes a thread, shared bytes a block and
     resident blocks an SM of a wgmma kernel on the current CUDA device, as
     the runtime reports them (cudaFuncGetAttributes, the occupancy API):
-    ``"flash_sdpa_h"`` at head dim d and lk keys, ``"flash_sdpa_bwd_h"``
-    (dkv, d=32), ``"flash_sdpa_bwd_dq_wide_h"`` (d=256, lk keys),
+    ``"flash_sdpa_h"`` (bf16 forward, d=32, 64 or 80, lk keys),
+    ``"flash_sdpa_bwd_h"`` (bf16 dkv, d=32, 64 or 80),
+    ``"flash_sdpa_bwd_dq_wide_h"`` (d=256, lk keys),
     ``"flash_sdpa_bwd_dkv_wide_h"`` (d=256), or their fp32 counterparts
     ``"flash_sdpa_bwd_dq_wide_f32"`` (lk keys) and
     ``"flash_sdpa_bwd_dkv_wide_f32"``; or of the mma.sync register forward
-    of csrc/flash_sdpa.cu, ``"flash_sdpa"`` (bf16, d=80) and
-    ``"flash_sdpa_fp32"`` (d=32, 64 or 80), whose shared memory is static;
-    or of the mma.sync backward of csrc/flash_sdpa_bwd.cu,
-    ``"flash_sdpa_bwd_dq"`` (bf16: d=32, 64 or 80, lk keys),
-    ``"flash_sdpa_bwd_dkv"`` (bf16: d=64 or 80) and their ``_fp32``
-    instantiations (d=32, 64 or 80)."""
+    of csrc/flash_sdpa.cu, ``"flash_sdpa_fp32"`` (d=32, 64 or 80), whose
+    shared memory is static; or of the mma.sync backward of
+    csrc/flash_sdpa_bwd.cu, ``"flash_sdpa_bwd_dq"`` (bf16: d=32, 64 or 80,
+    lk keys), ``"flash_sdpa_bwd_dq_fp32"`` and ``"flash_sdpa_bwd_dkv_fp32"``
+    (d=32, 64 or 80). A kernel or head dim not built raises ValueError
+    before any library is loaded (the bf16 mma.sync forward and dkv
+    kernels among them: their wgmma successors replaced them)."""
+    if kernel in _RESOURCES_AT_H_D and d not in _H_D:
+        raise ValueError(f"{kernel} kernel supports head dims {_H_D}, got {d}")
     out = (ctypes.c_int * 4)()
-    if kernel in ("flash_sdpa", "flash_sdpa_fp32"):
-        status = _lib_sdpa_attrs()(d, int(kernel == "flash_sdpa_fp32"), out)
-    elif kernel.removesuffix("_fp32") in ("flash_sdpa_bwd_dq", "flash_sdpa_bwd_dkv"):
+    if kernel == "flash_sdpa_fp32":
+        status = _lib_sdpa_attrs()(d, 1, out)
+    elif kernel in ("flash_sdpa_bwd_dq", "flash_sdpa_bwd_dq_fp32", "flash_sdpa_bwd_dkv_fp32"):
         status = _lib_bwd_attrs()(int("dkv" in kernel), d, int(kernel.endswith("_fp32")), lk,
                                   out)
     elif kernel == "flash_sdpa_h":
         status = _lib_sdpa_h_attrs()(d, lk, out)
     elif kernel == "flash_sdpa_bwd_h":
-        status = _lib_bwd_h_attrs()(out)
+        status = _lib_bwd_h_attrs()(d, out)
     elif kernel == "flash_sdpa_bwd_dq_wide_h":
         status = _lib_bwd_wide_h_dq_attrs()(lk, out)
     elif kernel == "flash_sdpa_bwd_dkv_wide_h":
@@ -575,12 +592,14 @@ def flash_sdpa_bwd_dkv(q, k, v, key_bias, do, lse, delta, sm_scale):
         elif kernel != "flash_sdpa_bwd":
             lse, lqp = _tma_rows(lse.reshape(b * h, lq), NEG_INF)
             delta, _ = _tma_rows(delta.reshape(b * h, lq), 0.0)
-            lib = (_lib_bwd_h() if kernel == "flash_sdpa_bwd_h"
-                   else _lib_bwd_wide_h("flash_sdpa_bwd_dkv_wide_h"))
-            status = lib(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(), do.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                b, h, lq, lk, lqp, float(sm_scale), *strides, stream)
+            ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(), do.data_ptr(),
+                    lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr())
+            if kernel == "flash_sdpa_bwd_h":  # the head dim is a template parameter there
+                status = _lib_bwd_h()(*ptrs, b, h, lq, lk, lqp, d, float(sm_scale), *strides,
+                                      stream)
+            else:
+                status = _lib_bwd_wide_h("flash_sdpa_bwd_dkv_wide_h")(
+                    *ptrs, b, h, lq, lk, lqp, float(sm_scale), *strides, stream)
         else:
             lse = lse.float().contiguous()
             delta = delta.float().contiguous()

@@ -7,6 +7,8 @@ machine without JAX, skipping the repository's conftest (which imports it):
     python -m pytest tests/test_torch_cuda.py -q --noconftest -p no:cacheprovider
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -1080,21 +1082,50 @@ def test_flash_sdpa_d64_reads_vitdet_qkv_views(cuda, dtype, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("lq,lk", [(4900, 4900), (130, 70)])
+def test_flash_sdpa_d80_reads_every_slab(cuda, lq, lk):
+    """The bf16 d=80 wgmma kernel reads a 160-byte row as five 16-column
+    slabs (32-byte swizzle), V as an MN-major B operand of N = 80 across
+    them: here each slab of q, k and v has its own scale (v's x1 .. x13,
+    columns 64-79 the largest), so that a slab read through a wrong
+    descriptor, or columns 64-79 missed, shows in the output and the LSE.
+    The output is compared divided by its column's v scale: P's bf16
+    rounding errs in proportion to v, so this is TOL at the unit scale of
+    test_flash_sdpa_d80_kernel_matches_plain, while a slab mix-up errs by
+    up to 13x the output."""
+    q, k, v = (_randn(cuda, 1, 16, n, 80, dtype=torch.float32) for n in (lq, lk, lk))
+    w = torch.tensor([1.0, 0.5, 0.25, 0.75, 0.3], device=cuda).repeat_interleave(16)
+    q, k = (q * w).to(torch.bfloat16), (k * w.flip(0)).to(torch.bfloat16)
+    v_scale = torch.arange(1, 14, 3, device=cuda).float().repeat_interleave(16)
+    v = (v * v_scale).to(torch.bfloat16)
+    bias = torch.zeros((1, lk), device=cuda)
+    got, lse = fa.flash_sdpa(q, k, v, bias, return_lse=True)
+    want, want_lse = fa.flash_sdpa_plain(q, k, v, bias, return_lse=True)
+    assert want[..., 64:].abs().amax() > 2 * want[..., :16].abs().amax()
+    torch.testing.assert_close(got.float() / v_scale, want.float() / v_scale, atol=TOL, rtol=TOL)
+    torch.testing.assert_close(lse, want_lse, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kernel,d", [("flash_sdpa_h", 32), ("flash_sdpa_h", 64),
-                                      ("flash_sdpa_bwd_h", 32), ("flash_sdpa_bwd_dq_wide_h", 256),
+                                      ("flash_sdpa_h", 80), ("flash_sdpa_bwd_h", 32),
+                                      ("flash_sdpa_bwd_h", 64), ("flash_sdpa_bwd_h", 80),
+                                      ("flash_sdpa_bwd_dq_wide_h", 256),
                                       ("flash_sdpa_bwd_dkv_wide_h", 256),
                                       ("flash_sdpa_bwd_dq_wide_f32", 256),
                                       ("flash_sdpa_bwd_dkv_wide_f32", 256)])
 def test_wgmma_kernels_fit_without_spills(cuda, kernel, d):
     """The wgmma kernels as built: no registers spilled to local memory, at
     least one block of them resident an SM at the main path's 5184 keys
-    (the forward: 2, its design; the d=256 dq kernels also at the clip's
+    (the forward at d=32 and 64: 2, its design; at d=80 1, whose O
+    accumulator would spill at 2; the d=256 dq kernels also at the clip's
     36352)."""
     if kernel in ("flash_sdpa_bwd_dq_wide_h", "flash_sdpa_bwd_dq_wide_f32"):
         assert fa.kernel_resources(kernel, d, 36352)["blocks_per_sm"] >= 1
     res = fa.kernel_resources(kernel, d, 5184)
     assert res["spill_bytes"] == 0, res
-    assert res["blocks_per_sm"] >= (2 if kernel == "flash_sdpa_h" else 1), res
+    assert res["blocks_per_sm"] >= (2 if (kernel, d) in (("flash_sdpa_h", 32),
+                                                         ("flash_sdpa_h", 64)) else 1), res
 
 
 @pytest.mark.cuda
@@ -1153,18 +1184,20 @@ def test_tiny_teacher_on_card_matches_cpu(cuda, dtype):
 @pytest.mark.parametrize("b", [1, 2])
 @pytest.mark.parametrize("lq,lk", [(4900, 4900), (333, 517), (130, 70), (1, 64), (200, 9)])
 def test_flash_sdpa_d80_kernel_matches_plain(cuda, dtype, tol, b, lq, lk):
-    """d=80 with 16 heads (the register kernel of csrc/flash_sdpa.cu in both
-    dtypes) against the plain version: vit_h's 4900 tokens (a ragged tail
-    of 36), ragged Lq and Lk, a masked middle tile (skipped), a ragged
-    masked tail, with B=2 a batch row whose keys are all masked (0 out, lse
-    -1e9), and the LSE."""
+    """d=80 with 16 heads (bf16: the wgmma kernel of csrc/flash_sdpa_h.cu,
+    five 32-byte-swizzled slabs a tile; fp32: the register kernel of
+    csrc/flash_sdpa.cu) against the plain version: vit_h's 4900 tokens (a
+    ragged tail of 36), ragged Lq and Lk, a masked middle tile (skipped), a
+    ragged masked tail, with B=2 a batch row whose keys are all masked (0
+    out, lse -1e9), and the LSE."""
     q, k, v = (_randn(cuda, b, 16, n, 80, dtype=dtype) for n in (lq, lk, lk))
     bias = torch.zeros((b, lk), device=cuda)
     bias[0, 64:128] = NEG_INF
     bias[0, lk - lk // 5:] = NEG_INF
     if b > 1:
         bias[-1] = NEG_INF
-    assert fa.sdpa_kernel(dtype, 80) == "flash_sdpa"
+    assert fa.sdpa_kernel(dtype, 80) == ("flash_sdpa_h" if dtype == torch.bfloat16
+                                         else "flash_sdpa")
     before = fa.flash_sdpa.launches
     got, lse = fa.flash_sdpa(q, k, v, bias, return_lse=True)
     torch.cuda.synchronize()
@@ -1194,12 +1227,38 @@ def test_flash_sdpa_d80_reads_vitdet_qkv_views(cuda, dtype, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("lq,lk", [(4900, 4900), (130, 70)])
+def test_flash_sdpa_d80_reads_every_slab(cuda, lq, lk):
+    """The bf16 d=80 wgmma kernel reads a 160-byte row as five 16-column
+    slabs (32-byte swizzle), V as an MN-major B operand of N = 80 across
+    them: here each slab of q, k and v has its own scale (v's x1 .. x13,
+    columns 64-79 the largest), so that a slab read through a wrong
+    descriptor, or columns 64-79 missed, shows in the output and the LSE.
+    The output is compared divided by its column's v scale: P's bf16
+    rounding errs in proportion to v, so this is TOL at the unit scale of
+    test_flash_sdpa_d80_kernel_matches_plain, while a slab mix-up errs by
+    up to 13x the output."""
+    q, k, v = (_randn(cuda, 1, 16, n, 80, dtype=torch.float32) for n in (lq, lk, lk))
+    w = torch.tensor([1.0, 0.5, 0.25, 0.75, 0.3], device=cuda).repeat_interleave(16)
+    q, k = (q * w).to(torch.bfloat16), (k * w.flip(0)).to(torch.bfloat16)
+    v_scale = torch.arange(1, 14, 3, device=cuda).float().repeat_interleave(16)
+    v = (v * v_scale).to(torch.bfloat16)
+    bias = torch.zeros((1, lk), device=cuda)
+    got, lse = fa.flash_sdpa(q, k, v, bias, return_lse=True)
+    want, want_lse = fa.flash_sdpa_plain(q, k, v, bias, return_lse=True)
+    assert want[..., 64:].abs().amax() > 2 * want[..., :16].abs().amax()
+    torch.testing.assert_close(got.float() / v_scale, want.float() / v_scale, atol=TOL, rtol=TOL)
+    torch.testing.assert_close(lse, want_lse, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 3e-2), (torch.float32, FP32_TOL)],
                          ids=["bf16", "fp32"])
 @pytest.mark.parametrize("d", [64, 80])
 def test_flash_sdpa_d64_d80_autograd_matches_plain(cuda, dtype, tol, d):
     """flash_sdpa under autograd at d=64 and d=80 (the forward kernel, then
-    the dq and dkv kernels of flash_sdpa_bwd.cu: 1 launch each) against
+    the dq kernel of flash_sdpa_bwd.cu and the dkv kernel, bf16 the wgmma
+    one of flash_sdpa_bwd_h.cu: 1 launch each) against
     autograd through the plain forward in the same dtype, q/k/v strided
     views of a packed qkv as ViTAttention hands them in: bf16 within 3e-2
     of each gradient's largest magnitude (bf16 P and dS against autograd's
@@ -1209,7 +1268,9 @@ def test_flash_sdpa_d64_d80_autograd_matches_plain(cuda, dtype, tol, d):
     packed = _randn(cuda, b, n, 3, h, d, dtype=dtype)
     bias = _mask_rows(cuda, b, n)
     w = _randn(cuda, b, h, n, d, dtype=torch.float32)
-    assert fa.bwd_dq_kernel(dtype, d) == fa.bwd_dkv_kernel(dtype, d) == "flash_sdpa_bwd"
+    assert fa.bwd_dq_kernel(dtype, d) == "flash_sdpa_bwd"
+    assert fa.bwd_dkv_kernel(dtype, d) == ("flash_sdpa_bwd_h" if dtype == torch.bfloat16
+                                           else "flash_sdpa_bwd")
     grads = {}
     for name, fn in (("kernel", fa.flash_sdpa), ("plain", fa.flash_sdpa_plain)):
         qkv = packed.clone().requires_grad_()
@@ -1234,11 +1295,12 @@ def test_flash_sdpa_d64_d80_autograd_matches_plain(cuda, dtype, tol, d):
                                        (64, 2, 333, 517), (80, 2, 333, 517), (64, 2, 1, 64),
                                        (80, 3, 130, 70), (80, 2, 64, 9), (64, 1, 200, 2000)])
 def test_flash_sdpa_bwd_d64_d80_kernels_match_plain(cuda, dtype, tol, d, h, lq, lk):
-    """The dq (and Delta) and dk/dv kernels of flash_sdpa_bwd.cu at d=64 and
-    d=80, in bf16 and fp32 (the fp32 dkv at d=80 walks 32-query tiles),
-    against the plain backward: the global blocks' shapes, ragged Lq/Lk
-    against the 64-row tiles, a masked 64-key tile, a ragged masked tail, a
-    fully masked batch row (zero gradients), dO a strided view of the
+    """The dq (and Delta) kernel of flash_sdpa_bwd.cu and the dk/dv kernel
+    (bf16: the wgmma kernel of flash_sdpa_bwd_h.cu, 128-key blocks; fp32:
+    flash_sdpa_bwd.cu's, 16-query tiles at d=80) at d=64 and d=80, in bf16
+    and fp32, against the plain backward: the global blocks' shapes, ragged
+    Lq/Lk against the 64-row tiles, a masked 64-key tile, a ragged masked
+    tail, a fully masked batch row (zero gradients), dO a strided view of the
     (B, N, H * D) gradient; gradients in (B, N, H, D) memory and the same
     bits when run again. bf16 gradients are sums over thousands of terms in
     other orders: 2e-2 of each gradient's largest magnitude; fp32
@@ -1249,7 +1311,9 @@ def test_flash_sdpa_bwd_d64_d80_kernels_match_plain(cuda, dtype, tol, d, h, lq, 
     o, lse = fa.flash_sdpa_plain(q, k, v, bias, return_lse=True)
     do = _randn(cuda, b, lq, h * d, dtype=dtype).reshape(b, lq, h, d).transpose(1, 2)
     scale = d ** -0.5
-    assert fa.bwd_dq_kernel(dtype, d) == fa.bwd_dkv_kernel(dtype, d) == "flash_sdpa_bwd"
+    assert fa.bwd_dq_kernel(dtype, d) == "flash_sdpa_bwd"
+    assert fa.bwd_dkv_kernel(dtype, d) == ("flash_sdpa_bwd_h" if dtype == torch.bfloat16
+                                           else "flash_sdpa_bwd")
     n_dq, n_dkv = fa.flash_sdpa_bwd_dq.launches, fa.flash_sdpa_bwd_dkv.launches
     dq, delta = fa.flash_sdpa_bwd_dq(q, k, v, bias, o, lse, do, scale)
     dk, dv = fa.flash_sdpa_bwd_dkv(q, k, v, bias, do, lse, delta, scale)
@@ -1273,15 +1337,46 @@ def test_flash_sdpa_bwd_d64_d80_kernels_match_plain(cuda, dtype, tol, d, h, lq, 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel,d", [("flash_sdpa_bwd_dq", 32), ("flash_sdpa_bwd_dq_fp32", 32),
                                       ("flash_sdpa_bwd_dkv_fp32", 32), ("flash_sdpa_bwd_dq", 64),
-                                      ("flash_sdpa_bwd_dq_fp32", 64), ("flash_sdpa_bwd_dkv", 64),
+                                      ("flash_sdpa_bwd_dq_fp32", 64),
                                       ("flash_sdpa_bwd_dkv_fp32", 64), ("flash_sdpa_bwd_dq", 80),
-                                      ("flash_sdpa_bwd_dq_fp32", 80), ("flash_sdpa_bwd_dkv", 80),
+                                      ("flash_sdpa_bwd_dq_fp32", 80),
                                       ("flash_sdpa_bwd_dkv_fp32", 80)])
 def test_mma_sync_backward_fits_without_spills(cuda, kernel, d):
     """The mma.sync backward kernels as built: no spills, at least one block
-    resident an SM at the teacher's 5184 keys."""
+    resident an SM at the teacher's 5184 keys (the bf16 dkv kernels are
+    flash_sdpa_bwd_h.cu's: test_wgmma_kernels_fit_without_spills)."""
     res = fa.kernel_resources(kernel, d, 5184)
     assert res["spill_bytes"] == 0 and res["blocks_per_sm"] >= 1, res
+
+
+@pytest.mark.cuda
+def test_mma_sync_entries_refuse_replaced_bf16(cuda):
+    """The mma.sync entry points refuse the bf16 head dims whose wgmma
+    kernels replaced them (cudaErrorInvalidValue, 1: nothing launched):
+    the forward of csrc/flash_sdpa.cu at d=32, 64 and 80, the dkv kernel of
+    csrc/flash_sdpa_bwd.cu at d=32, 64 and 80, and their attribute queries;
+    the fp32 instantiations and bf16 dq are still served."""
+    out = (ctypes.c_int * 4)()
+    for d in (32, 64, 80):
+        assert fa._lib_sdpa_attrs()(d, 0, out) == 1
+        assert fa._lib_sdpa_attrs()(d, 1, out) == 0
+        assert fa._lib_bwd_attrs()(1, d, 0, 5184, out) == 1
+        assert fa._lib_bwd_attrs()(1, d, 1, 5184, out) == 0
+        assert fa._lib_bwd_attrs()(0, d, 0, 5184, out) == 0
+        q = _randn(cuda, 1, 2, 64, d)
+        bias = torch.zeros((1, 64), device=cuda)
+        lse = torch.zeros((1, 2, 64), device=cuda)
+        o = torch.empty_like(q)
+        strides = [0] * 12
+        stream = torch.cuda.current_stream().cuda_stream
+        assert fa._lib_sdpa()(q.data_ptr(), q.data_ptr(), q.data_ptr(), bias.data_ptr(),
+                              o.data_ptr(), None, 1, 2, 64, 64, d, 0, 0.125, *strides,
+                              stream) == 1
+        assert fa._lib_bwd("flash_sdpa_bwd_dkv")(
+            q.data_ptr(), q.data_ptr(), q.data_ptr(), bias.data_ptr(), q.data_ptr(),
+            lse.data_ptr(), lse.data_ptr(), o.data_ptr(), o.data_ptr(), 1, 2, 64, 64, d, 0,
+            0.125, *([0] * 18), stream) == 1
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
@@ -1338,8 +1433,8 @@ def test_vit_trunk_training_step_on_card_matches_cpu(cuda, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel,d", [("flash_sdpa", 80), ("flash_sdpa_fp32", 80),
-                                      ("flash_sdpa_fp32", 64), ("flash_sdpa_fp32", 32)])
+@pytest.mark.parametrize("kernel,d", [("flash_sdpa_fp32", 80), ("flash_sdpa_fp32", 64),
+                                      ("flash_sdpa_fp32", 32)])
 def test_register_forward_fits_without_spills(cuda, kernel, d):
     """The mma.sync register forward as built: no spills, its static
     shared tiles within 48 KB, at least one block resident an SM."""

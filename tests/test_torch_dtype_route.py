@@ -67,9 +67,9 @@ def _depthwise(dtype, ks=7):
 
 
 CASES = [
-    # flash_sdpa forward: the wgmma kernel for bf16 at d=32 and d=64 (the
-    # ViTDet global blocks), mma.sync otherwise (d=80, the vit_h student's
-    # global blocks, in both dtypes)
+    # flash_sdpa forward: the wgmma kernel for bf16 at d=32, d=64 (the
+    # ViTDet global blocks) and d=80 (the vit_h student's), mma.sync
+    # otherwise (fp32, and d=256 in both dtypes)
     (_sdpa, (BF16, 32), "flash_sdpa_h"),
     (_sdpa, (F32, 32), "flash_sdpa"),
     (_sdpa, (BF16, 256), "flash_sdpa"),
@@ -79,12 +79,12 @@ CASES = [
     (_sdpa, (BF16, 32, F32), TypeError),
     (_sdpa, (BF16, 64), "flash_sdpa_h"),
     (_sdpa, (F32, 64), "flash_sdpa"),
-    (_sdpa, (BF16, 80), "flash_sdpa"),
+    (_sdpa, (BF16, 80), "flash_sdpa_h"),
     (_sdpa, (F32, 80), "flash_sdpa"),
     (_sdpa, (BF16, 48), ValueError),
-    # its backward kernels: the bf16 dkv kernel at d=32 and both kernels at
-    # d=256 on wgmma (fp32 on split bf16 parts); the rest, the ViTDet global
-    # blocks' d=64 and d=80 among them, on mma.sync; other widths raise
+    # its backward kernels: the bf16 dkv kernel at d=32, 64 and 80 and both
+    # kernels at d=256 on wgmma (fp32 on split bf16 parts); the rest, every
+    # dq below d=256 and the fp32 dkv, on mma.sync; other widths raise
     (_bwd, (BF16, 32), "flash_sdpa_bwd"),
     (_bwd, (F32, 32), "flash_sdpa_bwd"),
     (_bwd, (F32, 256), "flash_sdpa_bwd_wide_h_fp32"),
@@ -99,7 +99,9 @@ CASES = [
     (_dkv, (F32, 256), "flash_sdpa_bwd_wide_h_fp32"),
     (_dkv, (F16, 32), TypeError),
     (_dkv, (F16, 256), TypeError),
-    (_dkv, (BF16, 64), "flash_sdpa_bwd"),
+    (_dkv, (BF16, 64), "flash_sdpa_bwd_h"),
+    (_dkv, (BF16, 80), "flash_sdpa_bwd_h"),
+    (_dkv, (F32, 64), "flash_sdpa_bwd"),
     (_dkv, (F32, 80), "flash_sdpa_bwd"),
     (_dkv, (F32, 48), ValueError),
     (_dq, (BF16, 32), "flash_sdpa_bwd"),
@@ -143,3 +145,17 @@ def test_kernel_dtype_and_width_rule(check, args, expect):
         match = "bfloat16 or float32" if expect is TypeError else r"kernel (supports|takes a \()"
         with pytest.raises(expect, match=match):
             check(*args)
+
+
+# The bf16 instantiations of the mma.sync kernels that the wgmma kernels
+# replaced (the forward at d=80, the dkv kernel at d=64 and d=80) are not
+# built: their resources cannot be asked for, and neither can a head dim a
+# kernel lacks. Refused before any library is loaded (so here, without a
+# GPU); their C entry points refuse them too
+# (tests/test_torch_cuda.py::test_mma_sync_entries_refuse_replaced_bf16).
+@pytest.mark.parametrize("kernel,d", [("flash_sdpa", 80), ("flash_sdpa_bwd_dkv", 64),
+                                      ("flash_sdpa_bwd_dkv", 80), ("flash_sdpa_h", 48),
+                                      ("flash_sdpa_bwd_h", 256), ("flash_sdpa_fp32", 256)])
+def test_replaced_instantiations_are_refused(kernel, d):
+    with pytest.raises(ValueError, match=f"{kernel} kernel supports|no resource query"):
+        fa.kernel_resources(kernel, d)
