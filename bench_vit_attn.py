@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
-"""Time the ViT global blocks' attention kernels on one NVIDIA GPU, in bf16
-at full width: the flash_sdpa forward at d=80 (vit_h at 1120^2: q/k/v
-(1, 16, 4900, 80)) and the backward's dq and dkv kernels at d=64 (the
-SAM3 teacher's ViT-H Stage-1 step at batch 2: (2, 16, 5184, 64)) and d=80.
-q, k and v are strided views of one packed qkv tensor and dO a strided
-view of a (B, N, H * D) gradient, as the trunk hands them in; every key is
-live. Each kernel is held against its plain version first (the forward's
-output and LSE within 1e-2; dK and dV within 2e-2 of each one's largest
-magnitude, and the same bits when run again), then timed in a CUDA graph
-(chip_smoke.graph_time) beside one F.scaled_dot_product_attention call
-(forward) and its backward (all three gradients).
+"""Time attention kernels on one NVIDIA GPU at full width: in bf16 the
+flash_sdpa forward at d=80 (vit_h at 1120^2: q/k/v (1, 16, 4900, 80)) and
+the backward's dq and dkv kernels at d=64 (the SAM3 teacher's ViT-H
+Stage-1 step at batch 2: (2, 16, 5184, 64)) and d=80; in fp32 the
+backward's dq and dkv kernels at d=32 (the default build's Stage-3 step:
+(4, 8, 5184, 32)). q, k and v are strided views of one packed qkv tensor
+and dO a strided view of a (B, N, H * D) gradient, as the trunk and the
+fusion encoder hand them in; every key is live. Each kernel is held
+against its plain version first (the forward's output and LSE within
+1e-2; dQ, dK and dV within 2e-2 (bf16) or 1e-4 (fp32) of each one's
+largest magnitude, Delta within 1e-4, and dQ, dK and dV the same bits
+when run again), then timed in a CUDA graph (chip_smoke.graph_time) beside
+one F.scaled_dot_product_attention call (forward) and its backward (all
+three gradients).
 
     python3 bench_vit_attn.py [--other DIR]
 
@@ -25,8 +28,8 @@ import os
 import subprocess
 import sys
 
-SHAPES = {"fwd": (1, 4900, 80), "bwd": ((2, 5184, 64), (1, 4900, 80))}  # (B, N, D), 16 heads
-HEADS = 16
+FWD = (1, 16, 4900, 80)  # (B, H, N, D), bf16
+BWD = ((2, 16, 5184, 64, "bf16"), (1, 16, 4900, 80, "bf16"), (4, 8, 5184, 32, "fp32"))
 
 
 def measure(label):
@@ -45,12 +48,12 @@ def measure(label):
     bf16 = torch.bfloat16
     smi = cs.nvidia_smi_line()
 
-    def packed(b, n, d):
-        qkv = torch.randn((b, n, 3, HEADS, d), generator=gen, device=dev).to(bf16)
+    def packed(b, h, n, d, dtype=bf16):
+        qkv = torch.randn((b, n, 3, h, d), generator=gen, device=dev).to(dtype)
         return qkv.permute(2, 0, 3, 1, 4)
 
-    b, n, d = SHAPES["fwd"]
-    q, k, v = packed(b, n, d)
+    b, h, n, d = FWD
+    q, k, v = packed(b, h, n, d)
     bias = torch.zeros((b, n), device=dev)
     scale = d ** -0.5
     got, lse = fa.flash_sdpa(q, k, v, bias, scale, return_lse=True)
@@ -61,22 +64,31 @@ def measure(label):
     print(f"[{label}] forward d={d} {tuple(q.shape)} {fa.sdpa_kernel(bf16, d)}: {ms:.4f} ms "
           f"(CUDA graph) | SDPA {lib:.4f} ms | max abs err {err:.3e} | {smi}", flush=True)
     del q, k, v, got, lse, want, want_lse
-    for b, n, d in SHAPES["bwd"]:
-        q, k, v = packed(b, n, d)
+    for b, h, n, d, dt in BWD:
+        dtype = bf16 if dt == "bf16" else torch.float32
+        tol = 2e-2 if dt == "bf16" else 1e-4
+        q, k, v = packed(b, h, n, d, dtype)
         bias = torch.zeros((b, n), device=dev)
         scale = d ** -0.5
         o, lse = fa.flash_sdpa_plain(q, k, v, bias, scale, return_lse=True)
-        do = torch.randn((b, n, HEADS * d), generator=gen, device=dev).to(bf16)
-        do = do.reshape(b, n, HEADS, d).transpose(1, 2)
-        _, delta = fa.flash_sdpa_bwd_dq(q, k, v, bias, o, lse, do, scale)
+        do = torch.randn((b, n, h * d), generator=gen, device=dev).to(dtype)
+        do = do.reshape(b, n, h, d).transpose(1, 2)
+        dq, delta = fa.flash_sdpa_bwd_dq(q, k, v, bias, o, lse, do, scale)
+        dq2, delta2 = fa.flash_sdpa_bwd_dq(q, k, v, bias, o, lse, do, scale)
         dk, dv = fa.flash_sdpa_bwd_dkv(q, k, v, bias, do, lse, delta, scale)
         dk2, dv2 = fa.flash_sdpa_bwd_dkv(q, k, v, bias, do, lse, delta, scale)
-        if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
-            raise AssertionError(f"dkv d={d}: a second run differs")
-        want_dk, want_dv = fa.flash_sdpa_bwd_dkv_plain(q, k, v, bias, do, lse, delta, scale)
-        err = max(cs.check_rel(f"dkv d={d} (dk)", dk, want_dk),
-                  cs.check_rel(f"dkv d={d} (dv)", dv, want_dv))
-        del dk, dv, dk2, dv2, want_dk, want_dv
+        if not all(torch.equal(a, c) for a, c in ((dq, dq2), (delta, delta2), (dk, dk2),
+                                                   (dv, dv2))):
+            raise AssertionError(f"{dt} d={d}: a second run differs")
+        want_dq, want_delta = fa.flash_sdpa_bwd_dq_plain(q, k, v, bias, o, lse, do, scale)
+        err_dq = max(cs.check_rel(f"{dt} dq d={d}", dq, want_dq, tol),
+                     cs.check(f"{dt} dq d={d} (delta)", delta, want_delta, 1e-4))
+        del dq, dq2, delta2, want_dq
+        want_dk, want_dv = fa.flash_sdpa_bwd_dkv_plain(q, k, v, bias, do, lse, want_delta, scale)
+        err = max(cs.check_rel(f"{dt} dkv d={d} (dk)", dk, want_dk, tol),
+                  cs.check_rel(f"{dt} dkv d={d} (dv)", dv, want_dv, tol))
+        del dk, dv, dk2, dv2, want_dk, want_dv, want_delta
+        torch.cuda.empty_cache()
         ms = cs.graph_time(lambda: fa.flash_sdpa_bwd_dkv(q, k, v, bias, do, lse, delta, scale),
                            5, 10)
         ms_dq = cs.graph_time(lambda: fa.flash_sdpa_bwd_dq(q, k, v, bias, o, lse, do, scale),
@@ -85,10 +97,12 @@ def measure(label):
         ol = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
         lib = cs.cuda_time(lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True),
                            10)
-        print(f"[{label}] dkv d={d} {tuple(q.shape)} {fa.bwd_dkv_kernel(bf16, d)}: {ms:.4f} ms "
-              f"(CUDA graph) | dq {ms_dq:.4f} ms | SDPA backward {lib:.4f} ms a call | max abs "
-              f"err {err:.3e} | {smi}", flush=True)
+        print(f"[{label}] {dt} dkv d={d} {tuple(q.shape)} {fa.bwd_dkv_kernel(dtype, d)}: "
+              f"{ms:.4f} ms (CUDA graph) | dq {fa.bwd_dq_kernel(dtype, d)} {ms_dq:.4f} ms | SDPA "
+              f"backward {lib:.4f} ms a call | max abs err dkv {err:.3e}, dq {err_dq:.3e} | {smi}",
+              flush=True)
         del q, k, v, o, lse, do, ol, ql, kl, vl
+        torch.cuda.empty_cache()
 
 
 def main():

@@ -8,11 +8,12 @@ Phases, each printing its own lines:
      CUDA versions, TF32 settings, and the build of the CUDA kernels
      (csrc/*.cu, one nvcc per source, all started together); for each
      wgmma kernel (flash_sdpa_h at d=32, 64 and 80, flash_sdpa_bwd_h at
-     d=32, 64 and 80, the bf16 d=256 pair flash_sdpa_bwd_dq_wide_h /
+     d=32, 64 and 80, flash_sdpa_bwd_dq_h at d=64 and 80, flash_sdpa_bwd_h_fp32
+     at d=32, the bf16 d=256 pair flash_sdpa_bwd_dq_wide_h /
      flash_sdpa_bwd_dkv_wide_h and the fp32 one flash_sdpa_bwd_dq_wide_f32 /
      flash_sdpa_bwd_dkv_wide_f32) and the mma.sync register forward at d=80
-     (fp32) and the mma.sync backward at d=64 and d=80 (dq in bf16 and
-     fp32, dkv in fp32) one line of
+     (fp32) and the mma.sync backward at d=64 and d=80 (dq and dkv in fp32)
+     one line of
      registers, spilled bytes and shared memory a block, and blocks an SM,
      as the runtime reports them;
   2. the main path at full width: EfficientViT-b1 ("EV-M") at 1008^2 with
@@ -240,8 +241,10 @@ Phases, each printing its own lines:
      global) of both take one step on the card (launches 2 / 1 / 1), the
      teacher's against the same step on the host's CPU (loss 1e-5
      relative, every gradient 1e-4 of its largest magnitude). The dq and
-     dkv rows at d=64 and d=80 (dq: csrc/flash_sdpa_bwd.cu; dkv: bf16 the
-     wgmma kernel of csrc/flash_sdpa_bwd_h.cu, fp32 csrc/flash_sdpa_bwd.cu),
+     dkv rows at d=64 and d=80 (bf16: the wgmma kernels of
+     csrc/flash_sdpa_bwd_dq_h.cu and csrc/flash_sdpa_bwd_h.cu, the dq
+     kernel's 4 launches a step checked in the profile; fp32: the mma.sync
+     kernels of csrc/flash_sdpa_bwd.cu),
      bf16 at a global block's captured inputs of the bf16 steps (2e-2 of
      each gradient's largest magnitude, dK and dV the same bits when run
      again, SDPA's backward as the library time) and fp32 at the cuts'
@@ -586,18 +589,20 @@ def main():
     # (the d=256 dq kernels at the clip's 36352 keys: their tile lists grow with
     # them; the d=80 ones at vit_h's 4900), the mma.sync register forward at
     # d=80 in fp32 (static shared memory) and the mma.sync backward at d=64
-    # (5184 keys) and d=80 (4900 keys): dq in bf16 and fp32, dkv in fp32
+    # (5184 keys) and d=80 (4900 keys): dq and dkv in fp32
     for kernel, d, lk in (("flash_sdpa_h", 32, 5184), ("flash_sdpa_h", 64, 5184),
                           ("flash_sdpa_h", 80, 4900), ("flash_sdpa_bwd_h", 32, 5184),
                           ("flash_sdpa_bwd_h", 64, 5184), ("flash_sdpa_bwd_h", 80, 4900),
+                          ("flash_sdpa_bwd_dq_h", 64, 5184), ("flash_sdpa_bwd_dq_h", 80, 4900),
+                          ("flash_sdpa_bwd_h_fp32", 32, 5184),
                           ("flash_sdpa_bwd_dq_wide_h", 256, 36352),
                           ("flash_sdpa_bwd_dkv_wide_h", 256, 36352),
                           ("flash_sdpa_bwd_dq_wide_f32", 256, 36352),
                           ("flash_sdpa_bwd_dkv_wide_f32", 256, 36352),
                           ("flash_sdpa_fp32", 80, 4900),
                           *((kernel, d, lk) for kernel in (
-                              "flash_sdpa_bwd_dq", "flash_sdpa_bwd_dq_fp32",
-                              "flash_sdpa_bwd_dkv_fp32") for d, lk in ((64, 5184), (80, 4900)))):
+                              "flash_sdpa_bwd_dq_fp32", "flash_sdpa_bwd_dkv_fp32")
+                            for d, lk in ((64, 5184), (80, 4900)))):
         r = fa.kernel_resources(kernel, d, lk)
         log(f"[build] {kernel} d={d}: {r['registers']} registers a thread, {r['spill_bytes']} "
             f"bytes of local memory (spills) a thread, {r['smem_bytes']} bytes of shared memory "
@@ -2519,14 +2524,18 @@ def fp32_phase(smi, main_ref):
         if got != want:
             raise AssertionError(f"[fp32] {what}: launches {got}, want {want}")
 
-    def per_launch(fn, patterns, train=False):
-        """Profiler device ms a launch, by row name: {name: (pattern, launches a call)}."""
+    def per_launch(fn, patterns, train=False, exact=()):
+        """Profiler device ms a launch, by row name: {name: (pattern, launches a call)};
+        the rows named in exact must show exactly that many launches."""
         kernels, _, total_us = profile_kernels(fn, train)
         if total_us == 0:
             return {}
         out = {}
         for name, (pattern, per) in patterns.items():
             us = sum(u for k, u, _ in kernels if pattern in k)
+            seen = sum(n for k, _, n in kernels if pattern in k)
+            if name in exact and seen != per:
+                raise AssertionError(f"[fp32] profile: {seen} launches of {pattern}, not {per}")
             if us:
                 out[name] = us / 1e3 / per
         return out
@@ -2687,14 +2696,19 @@ def fp32_phase(smi, main_ref):
     log(f"[fp32] Stage-3 step (batch 4) {step_ms:.1f} ms, loss {float(metrics['loss']):.4f}, "
         f"grad_norm {float(metrics['grad_norm']):.3f}, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {smi}")
+    # the dkv kernel is the split-bf16 wgmma kernel of csrc/flash_sdpa_bwd_h_fp32.cu
+    # (its profile name checked: 6 launches a step), fed by 12 split passes
     dev_step = per_launch(lambda: stage3.stage3_train_step(model, opt, batch),
-                          {"flash_sdpa_bwd_dq_fp32": ("bwd_dq_kernel<float>", 6),
-                           "flash_sdpa_bwd_dkv_fp32": ("bwd_dkv_kernel<float>", 6)}, train=True)
+                          {"flash_sdpa_bwd_dq_fp32": ("bwd_dq_kernel<32, float>", 6),
+                           "flash_sdpa_bwd_dkv_fp32": ("flash_bwd_dkv_h_f32_kernel", 6),
+                           "split_parts_d32": ("split_parts_kernel<32>", 12)}, train=True,
+                          exact=("flash_sdpa_bwd_dkv_fp32", "split_parts_d32"))
+    log(f"[fp32] Stage-3 step profile, device ms a launch: {dev_step}")
     (q, k, v, key_bias, o, lse, do, scale), _ = capture.args[("flash_sdpa_bwd_dq", 32)]
     del opt, batch, model, capture
     torch.cuda.empty_cache()
     rows += bwd_rows_fp32(q, k, v, key_bias, o, lse, do, scale, TRAIN_COUNTS["flash_sdpa_bwd_dq"],
-                          "flash_sdpa_bwd.cu", "", dev_step, row)
+                          "", dev_step, row)
     del q, k, v, key_bias, o, lse, do
     log(f"[fp32] Stage-3 part {time.perf_counter() - t0:.1f} s")
 
@@ -2932,8 +2946,8 @@ def fp32_phase(smi, main_ref):
     del prof, evs
     core.zero_grad(set_to_none=True)
     (q, k, v, key_bias, o, lse, do, scale), _ = capture.args[("flash_sdpa_bwd_dq", "cross")]
-    rows += bwd_rows_fp32(q, k, v, key_bias, o, lse, do, scale, 8 * n_tr,
-                          "flash_sdpa_bwd_wide_h_fp32.cu", "_d256", dev_clip, row)
+    rows += bwd_rows_fp32(q, k, v, key_bias, o, lse, do, scale, 8 * n_tr, "_d256", dev_clip,
+                          row)
     del q, k, v, o, lse, do
     (x, kernel, g), _ = capture.args[("depthwise_conv2d_bwd", 256)]
     dx, dwt, db = dw.depthwise_conv2d_bwd(x, kernel, g)
@@ -3722,7 +3736,8 @@ VITH_STEPS, VITH_BATCH = 2, 1
 TEACHER_STEPS, TEACHER_BATCH = 3, 2
 # kernel families of a Stage-1 step's profile (lower-case name patterns), first match wins
 KERNEL_FAMILIES = (("flash_sdpa backward (dq + dkv)",
-                    ("bwd_dq_kernel<", "bwd_dkv_kernel<", "bwd_dkv_h_kernel<")),
+                    ("bwd_dq_kernel<", "bwd_dkv_kernel<", "bwd_dkv_h_kernel<", "bwd_dq_h_kernel<",
+                     "bwd_dkv_h_f32_kernel")),
                    ("flash_sdpa forward", ("flash_sdpa_h_kernel<", "flash_sdpa_fwd_kernel<")),
                    ("GEMM", ("gemm", "cutlass", "xmma", "nvjet")),
                    ("softmax", ("softmax",)),
@@ -4099,8 +4114,9 @@ def stage1_phase(smi):
         (2e-2 of each output's largest magnitude; dK and dV the same bits
         when run again), SDPA's backward (no mask: every key live) as the
         library time, and the device ms a launch in the profiled Stage-1
-        step (prof). dq is the mma.sync kernel of csrc/flash_sdpa_bwd.cu,
-        dkv the wgmma kernel of csrc/flash_sdpa_bwd_h.cu."""
+        step (prof, where the dq kernel must show its VIT_STEP launches).
+        dq is the wgmma kernel of csrc/flash_sdpa_bwd_dq_h.cu, dkv the wgmma
+        kernel of csrc/flash_sdpa_bwd_h.cu."""
         q, k, v, key_bias, o, lse, do, scale = dq_args
         b, h, lq, _ = q.shape
         dq, delta = fa.flash_sdpa_bwd_dq(q, k, v, key_bias, o, lse, do, scale)
@@ -4129,7 +4145,14 @@ def stage1_phase(smi):
         lib_ms = cuda_time(lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True),
                            10)
         del ol, ql, kl, vl
-        res = {"flash_sdpa_bwd_dq": fa.kernel_resources("flash_sdpa_bwd_dq", d, k.shape[2]),
+        dq_pattern = f"flash_bwd_dq_h_kernel<{d}>"
+        n_prof = sum(n for k_, _, n in prof if dq_pattern in k_)
+        if prof and n_prof != VIT_STEP["flash_sdpa_bwd_dq"]:
+            raise AssertionError(f"[stage1] d={d} step profile: {n_prof} launches of "
+                                 f"{dq_pattern}, not {VIT_STEP['flash_sdpa_bwd_dq']}")
+        log(f"[stage1] d={d} step profile: {n_prof} launches of {dq_pattern}")
+        res = {"flash_sdpa_bwd_dq": fa.kernel_resources(fa.bwd_dq_kernel(bf16, d), d,
+                                                        k.shape[2]),
                "flash_sdpa_bwd_dkv": fa.kernel_resources(fa.bwd_dkv_kernel(bf16, d), d,
                                                          k.shape[2])}
         shape = (f"q/k/v/o/dO {tuple(q.shape)} bf16 (q, k, v views of the packed qkv, dO "
@@ -4140,8 +4163,8 @@ def stage1_phase(smi):
                 (f"flash_sdpa_bwd_dq_d{d}",
                  lambda: fa.flash_sdpa_bwd_dq(q, k, v, key_bias, o, lse, do, scale),
                  lambda: fa.flash_sdpa_bwd_dq_plain(q, k, v, key_bias, o, lse, do, scale),
-                 err_dq, bms_dq, by_dq, 1082, fa.bwd_dq_kernel(bf16, d),
-                 f"bwd_dq_kernel<{d}, __nv_bfloat16>", "mma.sync"),
+                 err_dq, bms_dq, by_dq, 1082, fa.bwd_dq_kernel(bf16, d), dq_pattern,
+                 "wgmma + TMA"),
                 (f"flash_sdpa_bwd_dkv_d{d}",
                  lambda: fa.flash_sdpa_bwd_dkv(q, k, v, key_bias, do, lse, delta, scale),
                  lambda: fa.flash_sdpa_bwd_dkv_plain(q, k, v, key_bias, do, lse, delta, scale),
@@ -4179,21 +4202,30 @@ def stage1_phase(smi):
         rows += bf16_rows(d, dq_args, launches, prof)
         del dq_args
         q, k, v, key_bias, o, lse, do, scale = cut_in[d][0]
-        rows += bwd_rows_fp32(q, k, v, key_bias, o, lse, do, scale, cut_in[d][1],
-                              "flash_sdpa_bwd.cu", f"_d{d}", {}, fp32_row)
+        rows += bwd_rows_fp32(q, k, v, key_bias, o, lse, do, scale, cut_in[d][1], f"_d{d}", {},
+                              fp32_row)
         del q, k, v, key_bias, o, lse, do
         torch.cuda.empty_cache()
     return rows
 
 
 def split_parts_check(q, k, v, key_bias, do):
-    """The split pass of the fp32 d=256 backward as its wrappers launch it
-    (K and V: the rows of live key tiles; Q and dO: every row), held bit
-    for bit to split_parts_plain on the rows the kernels read."""
+    """The split pass of the fp32 wgmma backward as its wrappers launch it
+    (d=256: K and V, the rows of live key tiles, and Q and dO, every row;
+    d=32: Q and dO, every row, for the dkv kernel), held bit for bit to
+    split_parts_plain on the rows the kernels read."""
     import torch
 
     from efficientsam3_tpu_torch.ops import flash_attention as fa
 
+    if q.shape[-1] == 32:
+        for name, x in (("q", q), ("do", do)):
+            if not torch.equal(fa.split_parts(x).view(torch.int16),
+                               fa.split_parts_plain(x).view(torch.int16)):
+                raise AssertionError(f"split_parts ({name}, {tuple(x.shape)}) differs from "
+                                     f"split_parts_plain")
+        log(f"[fp32] split_parts: q, dO {tuple(q.shape)} bit-identical to split_parts_plain")
+        return
     b, lk, tile = k.shape[0], k.shape[2], fa._WIDE_F32_TILE
     kb, _ = fa._tma_rows(key_bias, fa.NEG_INF)
     nt = -(-lk // tile)
@@ -4216,11 +4248,14 @@ def split_parts_check(q, k, v, key_bias, do):
         f"{b} batch rows), q, dO {tuple(q.shape)} bit-identical to split_parts_plain")
 
 
-def bwd_rows_fp32(q, k, v, key_bias, o, lse, do, scale, launches, source, suffix, device, row):
-    """The dq and dkv rows of the fp32 backward kernels at captured inputs:
-    each held to its plain version at FP32_TOL of the largest magnitude
-    (at d=256 their split pass too, bit for bit: split_parts_check), SDPA's
-    fp32 backward (bool key mask) as the library time."""
+def bwd_rows_fp32(q, k, v, key_bias, o, lse, do, scale, launches, suffix, device, row):
+    """The dq and dkv rows of the fp32 backward kernels at captured inputs
+    (each row's source the one ``bwd_dq_kernel`` / ``bwd_dkv_kernel``
+    names): each held to its plain version at FP32_TOL of the largest
+    magnitude (at d=256 their split pass too, bit for bit:
+    split_parts_check), SDPA's fp32 backward (bool key mask) as the library
+    time. The wrappers' split passes (d=256; d=32's dkv) are in their
+    graph and call times."""
     import torch
     import torch.nn.functional as F
 
@@ -4236,7 +4271,7 @@ def bwd_rows_fp32(q, k, v, key_bias, o, lse, do, scale, launches, source, suffix
     err_dkv = max(check_rel(f"flash_sdpa_bwd_dkv{suffix}_fp32 (dk)", dk, want_dk, FP32_TOL),
                   check_rel(f"flash_sdpa_bwd_dkv{suffix}_fp32 (dv)", dv, want_dv, FP32_TOL))
     del want_dq, want_dk, want_dv, dq, dk, dv
-    if d == 256:
+    if d in fa._SPLIT_D:
         split_parts_check(q, k, v, key_bias, do)
     torch.cuda.empty_cache()
     live = int((key_bias > fa.NEG_INF / 2).sum().item())  # summed over the batch
@@ -4255,17 +4290,17 @@ def bwd_rows_fp32(q, k, v, key_bias, o, lse, do, scale, launches, source, suffix
     shape = (f"q {tuple(q.shape)} k/v {tuple(k.shape)} fp32 (dO strided), {live} live keys over "
              f"{b} rows; library = SDPA backward (all three gradients)")
     out = []
-    for name, fn, plain, err, bms, by, line in (
+    for name, fn, plain, err, bms, by, line, kernel in (
             (f"flash_sdpa_bwd_dq{suffix}_fp32",
              lambda: fa.flash_sdpa_bwd_dq(q, k, v, key_bias, o, lse, do, scale),
              lambda: fa.flash_sdpa_bwd_dq_plain(q, k, v, key_bias, o, lse, do, scale),
-             err_dq, bms_dq, by_dq, 1082),
+             err_dq, bms_dq, by_dq, 1082, fa.bwd_dq_kernel(torch.float32, d)),
             (f"flash_sdpa_bwd_dkv{suffix}_fp32",
              lambda: fa.flash_sdpa_bwd_dkv(q, k, v, key_bias, do, lse, delta, scale),
              lambda: fa.flash_sdpa_bwd_dkv_plain(q, k, v, key_bias, do, lse, delta, scale),
-             err_dkv, bms_dkv, by_dkv, 1098)):
-        out.append(row(name, source, f"flash_attention.py:{line}", launches, err, fn, plain,
-                       lib_ms, bms, by, shape, device.get(name)))
+             err_dkv, bms_dkv, by_dkv, 1098, fa.bwd_dkv_kernel(torch.float32, d))):
+        out.append(row(name, f"{kernel}.cu", f"flash_attention.py:{line}", launches, err, fn,
+                       plain, lib_ms, bms, by, shape, device.get(name)))
         torch.cuda.empty_cache()
     return out
 

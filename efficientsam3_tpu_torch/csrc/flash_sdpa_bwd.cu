@@ -1,19 +1,23 @@
-// Flash attention backward for Hopper (sm_90a) on mma.sync, at head dims
-// 32, 64 and 80: the dq kernel in bf16 and fp32 at every one of them, the
-// dkv kernel in fp32 at every one of them. The wgmma kernels take the
-// rest: the bf16 dkv kernel at d = 32, 64 and 80 is flash_sdpa_bwd_h.cu's;
-// at d = 256 dq and dkv are flash_sdpa_bwd_wide_h.cu's in bf16 and
-// flash_sdpa_bwd_wide_h_fp32.cu's in fp32.
+// Flash attention backward for Hopper (sm_90a) on mma.sync, what the
+// wgmma kernels have not taken over: the dq kernel in bf16 at d = 32 and
+// in fp32 at d = 32, 64 and 80, and the dkv kernel in fp32 at d = 64 and
+// 80. The rest is on wgmma: bf16 dq at d = 64 and 80 is
+// flash_sdpa_bwd_dq_h.cu's, bf16 dkv at d = 32, 64 and 80
+// flash_sdpa_bwd_h.cu's, fp32 dkv at d = 32 flash_sdpa_bwd_h_fp32.cu's; at
+// d = 256 dq and dkv are flash_sdpa_bwd_wide_h.cu's in bf16 and
+// flash_sdpa_bwd_wide_h_fp32.cu's in fp32. The entry points below refuse
+// what those serve.
 //
 // Replaces efficientsam3_tpu/ops/pallas/flash_attention.py `_flash_bwd`:
 // `_bwd_dq_kernel` (its pallas_call at :1082) and `_bwd_dkv_kernel` (:1098),
-// the custom VJP of `flash_sdpa`: at d = 32 Stage-3 training runs it
-// through the fusion encoder's self-attention, (B, 8, 5184, 32) bf16; at
-// d = 64 and d = 80 Stage-1 training of a ViTDet trunk runs it through the
-// global blocks, (2, 16, 5184, 64) for the SAM3 teacher's ViT-H at 1008^2
-// and (1, 16, 4900, 80) for the vit_h SAM1 student at 1120^2. As on the
-// TPU the work is split into two deterministic kernels, so no sum crosses
-// blocks and nothing needs atomics:
+// the custom VJP of `flash_sdpa`, where these instantiations run: the bf16
+// dq at d = 32 in Stage-3 training (the fusion encoder's self-attention,
+// (4, 8, 5184, 32), 6 launches a step); the fp32 dq at d = 32 in the
+// default build's Stage-3 step, and the fp32 dq and dkv at d = 64 and 80
+// in fp32 Stage-1 steps of a ViTDet trunk (the SAM3 teacher's ViT-H,
+// (B, 16, 5184, 64), and the vit_h SAM1 student, (1, 16, 4900, 80)). As on
+// the TPU the work is split into two deterministic kernels, so no sum
+// crosses blocks and nothing needs atomics:
 //
 //   dq kernel:  one block of 4 warps owns 64 query rows (16 a warp) and walks
 //               the key tiles: dQ = scale * sum_tiles (P o (dO V^T - Delta)) K;
@@ -35,18 +39,14 @@
 // operand (dO arrives as a view of the (B, N, H * D) gradient).
 //
 // Bound on the H100 at the Stage-3 shape (4, 8, 5184, 32): the dq kernel
-// does 3 products of (5184 x 5184 x 32) per (batch, head) (S, dP, dQ), the
-// dkv kernel 4 (S, dP, dV, dK), 55 GFLOP each over the 32 (batch, head)
-// pairs (~0.056 ms a product at the bf16 peak), and each kernel recomputes
-// P, 860 M exponentials (~0.21 ms on the special-function units at 16 per
-// SM per clock), against ~13 MB of operands a kernel (~4 us): the dq kernel
-// is bound by its exponentials (0.21 ms), the dkv kernel by its products
-// (0.22 ms). At the teacher's (2, 16, 5184, 64) the products double per
-// score: dq 330 GFLOP (0.33 ms) against the same 860 M exponentials
-// (0.21 ms), dkv 440 GFLOP (0.45 ms), both bound by their products; at
-// vit_h's (1, 16, 4900, 80) dq 184 GFLOP (0.19 ms), dkv 246 GFLOP (0.25
-// ms). fp32 operands take the tf32 rate as the function's bound, twice
-// these.
+// does 3 products of (5184 x 5184 x 32) per (batch, head) (S, dP, dQ), 55
+// GFLOP over the 32 (batch, head) pairs (~0.056 ms a product at the bf16
+// peak), and recomputes P, 860 M exponentials (~0.21 ms on the
+// special-function units at 16 per SM per clock), against ~13 MB of
+// operands (~4 us): bf16 it is bound by its exponentials (0.21 ms). fp32
+// operands take the tf32 rate as the function's bound: dq 0.3336 ms at the
+// Stage-3 shape; at the teacher's d = 64 (batch 1) dq 0.33 and dkv 0.44
+// ms, at vit_h's d = 80 dq 0.37 and dkv 0.50 ms.
 //
 // The design keeps S, dP, P and dS in registers (the mma accumulator layout
 // of a 16 x 64 tile is the A-operand layout of the next product), stages the
@@ -56,26 +56,25 @@
 // reads their B fragments with ldmatrix.trans, so no transposed copy is
 // made. The k-loop over D takes D / 16 steps of 16 and the n-loop D / 8
 // tiles of 8, taken in pairs by ldmatrix.x4 (D / 8 is even at every D
-// here). Pipelining the tile copies and wgmma are later work (the d = 32
-// bf16 dkv kernel of flash_sdpa_bwd_h.cu does them).
+// here). The wgmma kernels named above pipeline the tile copies and run
+// the products on wgmma.
 //
 // Registers. A dkv warp holds its 16 keys' K and V fragments (D / 4 a
 // part), the 16 x D dK and dV accumulators (D / 2 each) and a 16-row x
 // query-tile S and dP (tile / 2 each). With 64-query tiles ptxas spilled
 // the fp32 dkv kernels at d = 64 and 80 (8-64 bytes a thread at the 255 a
 // thread may hold); at 32-query tiles the d = 80 one still spilled 8
-// bytes. So fp32 dkv walks 16-query tiles at d = 80, 32 at d = 64 and 64
-// at d = 32 (DkvRows below). The dq kernel holds Q and dO fragments (D / 4
-// a part each), the dQ accumulator (D / 2) and S and dP; fp32 adds a fresh
-// dQ fragment a tile (D / 2), which at d = 80 spilled 16 bytes, so that
+// bytes. So fp32 dkv walks 16-query tiles at d = 80 and 32 at d = 64
+// (DkvRows below). The dq kernel holds Q and dO fragments (D / 4 a part
+// each), the dQ accumulator (D / 2) and S and dP; fp32 adds a fresh dQ
+// fragment a tile (D / 2), which at d = 80 spilled 16 bytes, so that
 // instantiation scores its staged 64-key tile 32 keys at a time (DqKeys).
 //
 // fp32 operands (the default build) run the same kernels on split bf16
 // parts (attn_common.cuh): Q, K, V, dO staged or held as hi and lo, P and
 // dS split in registers (in JAX they stay fp32: the casts to the operand
 // dtype are no-ops), three products each; Delta is summed from the fp32
-// values. Gradients come back in the operands' dtype. The entry points
-// below take d = 32, 64 and 80 and refuse what the wgmma kernels serve.
+// values. Gradients come back in the operands' dtype.
 
 #include "flash_qsmem.cuh"
 
@@ -86,8 +85,8 @@ namespace {
 // query rows a dkv block stages and walks at a time, and keys of a staged
 // 64-key tile a dq warp scores at a time (see Registers above)
 template <int D>
-struct DkvRows {  // fp32 (two parts): the dkv kernel's only dtype here
-  static constexpr int value = D >= 80 ? 16 : D >= 64 ? 32 : 64;
+struct DkvRows {  // fp32 (two parts) at d = 64 and 80: the dkv kernel's only instantiations
+  static constexpr int value = D >= 80 ? 16 : 32;
 };
 template <int D, int NP>
 struct DqKeys {
@@ -471,9 +470,9 @@ int pair_attrs(int dkv, int lk, int* out) {
 
 }  // namespace
 
-// fp32 != 0: q, k, v, o, dout and dq are float32, else bfloat16; d = 32,
-// 64 or 80 (d = 256 is flash_sdpa_bwd_wide_h.cu's and
-// flash_sdpa_bwd_wide_h_fp32.cu's).
+// fp32 != 0: q, k, v, o, dout and dq are float32 (d = 32, 64 or 80), else
+// bfloat16 (d = 32 only: d = 64 and 80 are flash_sdpa_bwd_dq_h.cu's, d = 256
+// flash_sdpa_bwd_wide_h.cu's and flash_sdpa_bwd_wide_h_fp32.cu's).
 extern "C" int flash_sdpa_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* key_bias, const void* o, const void* dout,
                                  const void* lse, void* delta, void* dq, int B, int H, int lq,
@@ -486,10 +485,10 @@ extern "C" int flash_sdpa_bwd_dq(const void* q, const void* k, const void* v,
   decltype(&launch_dq<32, bf16>) launch;
   if (d == 32) {
     launch = fp32 ? launch_dq<32, float> : launch_dq<32, bf16>;
-  } else if (d == 64) {
-    launch = fp32 ? launch_dq<64, float> : launch_dq<64, bf16>;
-  } else if (d == 80) {
-    launch = fp32 ? launch_dq<80, float> : launch_dq<80, bf16>;
+  } else if (d == 64 && fp32) {
+    launch = launch_dq<64, float>;
+  } else if (d == 80 && fp32) {
+    launch = launch_dq<80, float>;
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -498,9 +497,10 @@ extern "C" int flash_sdpa_bwd_dq(const void* q, const void* k, const void* v,
                 static_cast<cudaStream_t>(stream));
 }
 
-// q, k, v, dout, dk and dv float32 (fp32 != 0) at d = 32, 64 and 80;
-// bfloat16 is refused (flash_sdpa_bwd_h.cu's), and d = 256 is
-// flash_sdpa_bwd_wide_h.cu's and flash_sdpa_bwd_wide_h_fp32.cu's.
+// q, k, v, dout, dk and dv float32 (fp32 != 0) at d = 64 and 80; bfloat16
+// is refused (flash_sdpa_bwd_h.cu's), and so are fp32 at d = 32
+// (flash_sdpa_bwd_h_fp32.cu's) and d = 256 (flash_sdpa_bwd_wide_h.cu's and
+// flash_sdpa_bwd_wide_h_fp32.cu's).
 extern "C" int flash_sdpa_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* key_bias, const void* dout, const void* lse,
                                   const void* delta, void* dk, void* dv, int B, int H, int lq,
@@ -510,11 +510,9 @@ extern "C" int flash_sdpa_bwd_dkv(const void* q, const void* k, const void* v,
                                   long long sdb, long long sdh, long long sdn, long long skgb,
                                   long long skgh, long long skgn, long long svgb,
                                   long long svgh, long long svgn, void* stream) {
-  decltype(&launch_dkv<32, float>) launch;
+  decltype(&launch_dkv<64, float>) launch;
   if (!fp32) {
     return static_cast<int>(cudaErrorInvalidValue);
-  } else if (d == 32) {
-    launch = launch_dkv<32, float>;
   } else if (d == 64) {
     launch = launch_dkv<64, float>;
   } else if (d == 80) {
@@ -534,13 +532,12 @@ extern "C" int flash_sdpa_bwd_dkv(const void* q, const void* k, const void* v,
 // points refuse.
 extern "C" int flash_sdpa_bwd_attrs(int dkv, int d, int fp32, int lk, int* out) {
   if (fp32) {
-    if (d == 32) return pair_attrs<32, float>(dkv, lk, out);
+    if (d == 32 && !dkv)
+      return kernel_attrs(bwd_dq_kernel<32, float>, dq_smem_bytes<32>(lk, 2), out);
     if (d == 64) return pair_attrs<64, float>(dkv, lk, out);
     if (d == 80) return pair_attrs<80, float>(dkv, lk, out);
-  } else if (!dkv) {  // no bf16 dkv kernel is built here
-    if (d == 32) return kernel_attrs(bwd_dq_kernel<32, bf16>, dq_smem_bytes<32>(lk, 1), out);
-    if (d == 64) return kernel_attrs(bwd_dq_kernel<64, bf16>, dq_smem_bytes<64>(lk, 1), out);
-    if (d == 80) return kernel_attrs(bwd_dq_kernel<80, bf16>, dq_smem_bytes<80>(lk, 1), out);
+  } else if (!dkv && d == 32) {  // the only bf16 kernel built here
+    return kernel_attrs(bwd_dq_kernel<32, bf16>, dq_smem_bytes<32>(lk, 1), out);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

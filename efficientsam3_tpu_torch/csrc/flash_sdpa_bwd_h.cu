@@ -11,9 +11,11 @@
 //  - d = 80: Stage 1 of the vit_h student's trunk, (1, 16, 4900, 80), 4
 //    launches a step.
 // dQ and Delta = rowsum(dO o O) come from the dq kernel of
-// flash_sdpa_bwd.cu, unchanged; fp32 operands at these head dims stay on
-// flash_sdpa_bwd.cu, and head dim 256 is flash_sdpa_bwd_wide_h.cu's (bf16)
-// and flash_sdpa_bwd_wide_h_fp32.cu's (fp32).
+// flash_sdpa_bwd.cu at d = 32 and of flash_sdpa_bwd_dq_h.cu at d = 64 and
+// 80; fp32 operands are flash_sdpa_bwd_h_fp32.cu's at d = 32 and stay on
+// flash_sdpa_bwd.cu at d = 64 and 80, and head dim 256 is
+// flash_sdpa_bwd_wide_h.cu's (bf16) and flash_sdpa_bwd_wide_h_fp32.cu's
+// (fp32).
 //
 // What it computes is the Pallas kernel's: P rebuilt from the forward's
 // saved natural-log LSE, P = exp(S * scale + key_bias - lse), 0 on columns

@@ -1,9 +1,10 @@
 // Flash attention backward at head dim 256 on fp32 operands (the default
 // build), for Hopper (sm_90a): the dQ kernel and the dK / dV kernel on
 // split-bf16 wgmma products, TMA and a warp-specialised pipeline, and the
-// split pass that feeds them. bf16 at d = 256 is flash_sdpa_bwd_wide_h.cu's
-// (the design this one starts from), d = 32 flash_sdpa_bwd.cu's and
-// flash_sdpa_bwd_h.cu's.
+// split pass that feeds them (and, at d = 32, flash_sdpa_bwd_h_fp32.cu).
+// bf16 at d = 256 is flash_sdpa_bwd_wide_h.cu's (the design this one starts
+// from); the smaller head dims are flash_sdpa_bwd.cu's and the *_h.cu
+// kernels'.
 //
 // Replaces efficientsam3_tpu/ops/pallas/flash_attention.py `_flash_bwd`
 // (`_bwd_dq_kernel` :930, its pallas_call at :1082; `_bwd_dkv_kernel` :970,
@@ -220,27 +221,33 @@ __device__ __forceinline__ void grad3(float (&acc)[NACC], const uint32_t (&gh)[2
 }
 
 // ---------------------------------------------------------------- split
-// hi and lo of the rows of x (B, H, n, 256) f32 with element strides (sb,
-// sh, sn), into parts (2, B, H, n, 256) bf16 contiguous: one warp a row, 8
-// columns a lane. With tile > 0 a row is written only when its tile of
-// `tile` rows holds a live key (key_bias (B, lkb) > -5e8).
+// hi and lo of the rows of x (B, H, n, SD) f32 with element strides (sb,
+// sh, sn), into parts (2, B, H, n, SD) bf16 contiguous, SD = 256 (this
+// file's kernels) or 32 (flash_sdpa_bwd_h_fp32.cu's): 8 columns a lane,
+// SD / 8 lanes a row, 2048 / SD rows a block of 256. With tile > 0 (SD =
+// 256, one warp a row) a row is written only when its tile of `tile` rows
+// holds a live key (key_bias (B, lkb) > -5e8).
+template <int SD>
 __global__ void __launch_bounds__(256)
 split_parts_kernel(const float* __restrict__ x, const float* __restrict__ key_bias,
                    bf16* __restrict__ parts, int B, int H, int n, int lkb, int tile, long long sb,
                    long long sh, long long sn) {
+  constexpr int LPR = SD / 8;  // lanes a row
   const long long rows = static_cast<long long>(B) * H * n;
-  const long long row = static_cast<long long>(blockIdx.x) * 8 + (threadIdx.x >> 5);
-  if (row >= rows) return;  // the whole warp
-  const int lane = threadIdx.x & 31;
+  const long long row = static_cast<long long>(blockIdx.x) * (256 / LPR) + threadIdx.x / LPR;
+  if (row >= rows) return;  // at SD = 256 the whole warp
+  const int lane = threadIdx.x % LPR;
   const int r = static_cast<int>(row % n);
   const long long bh = row / n;
   const int h = static_cast<int>(bh % H), b = static_cast<int>(bh / H);
-  if (tile > 0) {
-    const int t0 = r / tile * tile;
-    bool live = false;
-    for (int i = t0 + lane; i < t0 + tile && i < lkb; i += 32)
-      live |= key_bias[static_cast<long long>(b) * lkb + i] > 0.5f * NEG_INF;
-    if (!__any_sync(0xffffffffu, live)) return;
+  if constexpr (SD == 256) {
+    if (tile > 0) {
+      const int t0 = r / tile * tile;
+      bool live = false;
+      for (int i = t0 + lane; i < t0 + tile && i < lkb; i += 32)
+        live |= key_bias[static_cast<long long>(b) * lkb + i] > 0.5f * NEG_INF;
+      if (!__any_sync(0xffffffffu, live)) return;
+    }
   }
   const float4* src = reinterpret_cast<const float4*>(x + b * sb + h * sh + r * sn + lane * 8);
   const float4 a = src[0], c = src[1];
@@ -249,9 +256,9 @@ split_parts_kernel(const float* __restrict__ x, const float* __restrict__ key_bi
   split_pair(a.z, a.w, hi.y, lo.y);
   split_pair(c.x, c.y, hi.z, lo.z);
   split_pair(c.z, c.w, hi.w, lo.w);
-  bf16* dst = parts + row * D + lane * 8;
+  bf16* dst = parts + row * SD + lane * 8;
   *reinterpret_cast<uint4*>(dst) = hi;
-  *reinterpret_cast<uint4*>(dst + rows * D) = lo;
+  *reinterpret_cast<uint4*>(dst + rows * SD) = lo;
 }
 
 // ---------------------------------------------------------------- dq
@@ -658,22 +665,30 @@ CUresult map_parts(EncodeTiled fn, CUtensorMap* m, const void* parts, int n, int
 
 }  // namespace
 
-// The split copy of x (B, H, n, 256) f32, element strides (sb, sh, sn)
-// each a multiple of 4 and the base 16-byte aligned: parts (2, B, H, n,
-// 256) bf16 contiguous, hi = bf16(x) then lo = bf16(x - hi). With tile > 0
-// only the rows of tiles of `tile` rows that hold a live key (key_bias (B,
-// lkb) f32 contiguous > -5e8) are written. Returns a CUDA error.
+// The split copy of x (B, H, n, d) f32, d = 256 or 32, element strides
+// (sb, sh, sn) each a multiple of 4 and the base 16-byte aligned: parts (2,
+// B, H, n, d) bf16 contiguous, hi = bf16(x) then lo = bf16(x - hi). With
+// tile > 0 (d = 256 only) only the rows of tiles of `tile` rows that hold a
+// live key (key_bias (B, lkb) f32 contiguous > -5e8) are written. Returns a
+// CUDA error.
 extern "C" int flash_sdpa_split_parts(const void* x, const void* key_bias, void* parts, int B,
-                                      int H, int n, int lkb, int tile, long long sb,
+                                      int H, int n, int d, int lkb, int tile, long long sb,
                                       long long sh, long long sn, void* stream) {
-  if (B <= 0 || H <= 0 || n <= 0 || tile < 0 || (tile > 0 && (key_bias == nullptr || lkb < n)) ||
+  if (B <= 0 || H <= 0 || n <= 0 || tile < 0 || (d != 256 && d != 32) ||
+      (tile > 0 && (d != 256 || key_bias == nullptr || lkb < n)) ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0 || sb % 4 != 0 || sh % 4 != 0 || sn % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long rows = static_cast<long long>(B) * H * n;
-  split_parts_kernel<<<static_cast<unsigned>((rows + 7) / 8), 256, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(key_bias), static_cast<bf16*>(parts),
-      B, H, n, lkb, tile, sb, sh, sn);
+  const long long per_block = 2048 / d;  // rows a block of 256 threads
+  const unsigned blocks = static_cast<unsigned>((rows + per_block - 1) / per_block);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* xs = static_cast<const float*>(x);
+  const float* kb = static_cast<const float*>(key_bias);
+  bf16* out = static_cast<bf16*>(parts);
+  if (d == 256)
+    split_parts_kernel<256><<<blocks, 256, 0, st>>>(xs, kb, out, B, H, n, lkb, tile, sb, sh, sn);
+  else
+    split_parts_kernel<32><<<blocks, 256, 0, st>>>(xs, kb, out, B, H, n, lkb, tile, sb, sh, sn);
   return static_cast<int>(cudaGetLastError());
 }
 

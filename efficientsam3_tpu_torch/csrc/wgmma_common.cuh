@@ -1,6 +1,8 @@
 // Shared pieces of the warp-specialised Hopper attention kernels
 // (flash_sdpa_h.cu: the bf16 forward at d = 32, 64 and 80;
 // flash_sdpa_bwd_h.cu: the bf16 dK / dV backward at d = 32, 64 and 80;
+// flash_sdpa_bwd_dq_h.cu: the bf16 dQ backward at d = 64 and 80;
+// flash_sdpa_bwd_h_fp32.cu: the dK / dV backward at d = 32 on fp32 operands;
 // flash_sdpa_bwd_wide_h.cu: the bf16 dQ and dK / dV backward at d = 256;
 // flash_sdpa_bwd_wide_h_fp32.cu: the same at d = 256 on fp32 operands):
 // mbarriers, TMA loads, wgmma shared memory descriptors and instructions,

@@ -28,14 +28,17 @@ outputs come back in the operands' dtype, the log-sum-exp in fp32. Each
 counts its kernel launches in ``<wrapper>.launches``; ``flash_sdpa``
 forward at d=32, 64 and 80 in bf16 is the wgmma kernel
 ``csrc/flash_sdpa_h.cu`` (``sdpa_kernel`` says which kernel a call
-reaches), and ``flash_sdpa_bwd_dkv`` at d=32, 64 and 80 in bf16 the wgmma
-kernel ``csrc/flash_sdpa_bwd_h.cu`` (``bwd_dkv_kernel``; fp32 at those
-head dims, and every dq kernel but d=256's, are the mma.sync kernels of
+reaches); ``flash_sdpa_bwd_dkv`` at d=32, 64 and 80 in bf16 is the wgmma
+kernel ``csrc/flash_sdpa_bwd_h.cu`` and at d=32 in fp32
+``csrc/flash_sdpa_bwd_h_fp32.cu`` (split bf16 parts), ``flash_sdpa_bwd_dq``
+at d=64 and 80 in bf16 ``csrc/flash_sdpa_bwd_dq_h.cu`` (``bwd_dkv_kernel``,
+``bwd_dq_kernel``; the bf16 dq at d=32, the fp32 dq at d=32, 64 and 80 and
+the fp32 dkv at d=64 and 80 are the mma.sync kernels of
 ``csrc/flash_sdpa_bwd.cu``), and both backward kernels at d=256 those of
 ``csrc/flash_sdpa_bwd_wide_h.cu`` in bf16 and
-``csrc/flash_sdpa_bwd_wide_h_fp32.cu`` in fp32 (``bwd_dq_kernel``,
-``bwd_dkv_kernel``; the fp32 ones read split bf16 copies of their streamed
-operands, made by ``split_parts``). Under autograd (grad
+``csrc/flash_sdpa_bwd_wide_h_fp32.cu`` in fp32 (the fp32 wgmma kernels
+read split bf16 copies of their streamed operands, made by
+``split_parts``). Under autograd (grad
 mode on and an input requiring a gradient) ``flash_sdpa`` runs as an
 autograd Function whose backward is the two backward kernels; the
 forward-only ``flash_memattn``, ``flash_memattn_q8`` and
@@ -146,22 +149,35 @@ def _bwd_wide_kernel(dtype):
     return "flash_sdpa_bwd_wide_h" if dtype == torch.bfloat16 else "flash_sdpa_bwd_wide_h_fp32"
 
 
+# head dims of the bf16 wgmma dq kernel (csrc/flash_sdpa_bwd_dq_h.cu) and of
+# the fp32 wgmma dkv kernel (csrc/flash_sdpa_bwd_h_fp32.cu); the mma.sync
+# kernels of csrc/flash_sdpa_bwd.cu refuse them there
+_DQ_H_D = (64, 80)
+_DKV_H_F32_D = (32,)
+
+
 def bwd_dq_kernel(dtype, d):
     """The dq kernel a CUDA ``flash_sdpa_bwd_dq`` call launches: the wgmma
     kernels at d=256 (csrc/flash_sdpa_bwd_wide_h.cu for bf16,
-    csrc/flash_sdpa_bwd_wide_h_fp32.cu for fp32), else the mma.sync kernel
-    of csrc/flash_sdpa_bwd.cu (both dtypes at d=32, 64 and 80)."""
-    return _bwd_wide_kernel(dtype) if d == 256 else "flash_sdpa_bwd"
+    csrc/flash_sdpa_bwd_wide_h_fp32.cu for fp32) and for bf16 at d=64 and
+    80 (csrc/flash_sdpa_bwd_dq_h.cu), else the mma.sync kernel of
+    csrc/flash_sdpa_bwd.cu (bf16 at d=32, fp32 at d=32, 64 and 80)."""
+    if d == 256:
+        return _bwd_wide_kernel(dtype)
+    return "flash_sdpa_bwd_dq_h" if (dtype == torch.bfloat16 and d in _DQ_H_D) else "flash_sdpa_bwd"
 
 
 def bwd_dkv_kernel(dtype, d):
     """The dkv kernel a CUDA ``flash_sdpa_bwd_dkv`` call launches: the
-    wgmma kernels at d=256 (as ``bwd_dq_kernel``) and for bf16 at d=32, 64
-    and 80 (csrc/flash_sdpa_bwd_h.cu), else the mma.sync kernel of
-    csrc/flash_sdpa_bwd.cu (fp32 at d=32, 64 and 80)."""
+    wgmma kernels at d=256 (as ``bwd_dq_kernel``), for bf16 at d=32, 64 and
+    80 (csrc/flash_sdpa_bwd_h.cu) and for fp32 at d=32
+    (csrc/flash_sdpa_bwd_h_fp32.cu, split bf16 parts), else the mma.sync
+    kernel of csrc/flash_sdpa_bwd.cu (fp32 at d=64 and 80)."""
     if d == 256:
         return _bwd_wide_kernel(dtype)
-    return "flash_sdpa_bwd_h" if (dtype == torch.bfloat16 and d in _H_D) else "flash_sdpa_bwd"
+    if dtype == torch.bfloat16:
+        return "flash_sdpa_bwd_h" if d in _H_D else "flash_sdpa_bwd"
+    return "flash_sdpa_bwd_h_fp32" if d in _DKV_H_F32_D else "flash_sdpa_bwd"
 
 
 def _aligned(t):
@@ -219,6 +235,26 @@ def _lib_bwd_attrs():
     return _bind("flash_sdpa_bwd", "flash_sdpa_bwd_attrs", [_I] * 4 + [_P])
 
 
+def _lib_bwd_dq_h():
+    return _bind("flash_sdpa_bwd_dq_h", "flash_sdpa_bwd_dq_h",
+                 [_P] * 9 + [_I] * 6 + [_F] + [_LL] * 18 + [_P])
+
+
+def _lib_bwd_dq_h_attrs():
+    return _bind("flash_sdpa_bwd_dq_h", "flash_sdpa_bwd_dq_h_attrs", [_I, _I, _P])
+
+
+def _lib_bwd_h_f32():
+    """``flash_sdpa_bwd_dkv_h_f32`` of csrc/flash_sdpa_bwd_h_fp32.cu (the
+    same argument kinds as ``flash_sdpa_bwd_dkv_wide_f32``)."""
+    return _bind("flash_sdpa_bwd_h_fp32", "flash_sdpa_bwd_dkv_h_f32",
+                 [_P] * 9 + [_I] * 5 + [_F] + [_LL] * 12 + [_P])
+
+
+def _lib_bwd_h_f32_attrs():
+    return _bind("flash_sdpa_bwd_h_fp32", "flash_sdpa_bwd_dkv_h_f32_attrs", [_P])
+
+
 def _lib_bwd_wide_h(name):
     """``flash_sdpa_bwd_dq_wide_h`` or ``flash_sdpa_bwd_dkv_wide_h`` of
     csrc/flash_sdpa_bwd_wide_h.cu (the same argument kinds as
@@ -243,7 +279,7 @@ def _lib_bwd_wide_f32(name):
 
 def _lib_split_parts():
     return _bind("flash_sdpa_bwd_wide_h_fp32", "flash_sdpa_split_parts",
-                 [_P] * 3 + [_I] * 5 + [_LL] * 3 + [_P])
+                 [_P] * 3 + [_I] * 6 + [_LL] * 3 + [_P])
 
 
 def _lib_bwd_wide_f32_dq_attrs():
@@ -254,11 +290,14 @@ def _lib_bwd_wide_f32_dkv_attrs():
     return _bind("flash_sdpa_bwd_wide_h_fp32", "flash_sdpa_bwd_dkv_wide_f32_attrs", [_P])
 
 
-# the kernels kernel_resources reads at head dims _H_D: the wgmma forward
-# and dkv, and the mma.sync kernels beside them (their forward and dkv in
-# fp32 only: the bf16 ones are the wgmma kernels)
-_RESOURCES_AT_H_D = ("flash_sdpa_h", "flash_sdpa_bwd_h", "flash_sdpa_fp32", "flash_sdpa_bwd_dq",
-                     "flash_sdpa_bwd_dq_fp32", "flash_sdpa_bwd_dkv_fp32")
+# the head dims kernel_resources reads each kernel of d < 256 at: the wgmma
+# forward and dkv at _H_D, the wgmma bf16 dq at _DQ_H_D and fp32 dkv at
+# _DKV_H_F32_D, and the mma.sync kernels at what those leave them (the
+# forward in fp32 only, dq in bf16 at d=32, dkv in fp32 at d=64 and 80)
+_RESOURCE_DIMS = {"flash_sdpa_h": _H_D, "flash_sdpa_bwd_h": _H_D, "flash_sdpa_fp32": _H_D,
+                  "flash_sdpa_bwd_dq_h": _DQ_H_D, "flash_sdpa_bwd_h_fp32": _DKV_H_F32_D,
+                  "flash_sdpa_bwd_dq": (32,), "flash_sdpa_bwd_dq_fp32": _H_D,
+                  "flash_sdpa_bwd_dkv_fp32": (64, 80)}
 
 
 def kernel_resources(kernel, d=32, lk=5184):
@@ -267,19 +306,22 @@ def kernel_resources(kernel, d=32, lk=5184):
     the runtime reports them (cudaFuncGetAttributes, the occupancy API):
     ``"flash_sdpa_h"`` (bf16 forward, d=32, 64 or 80, lk keys),
     ``"flash_sdpa_bwd_h"`` (bf16 dkv, d=32, 64 or 80),
+    ``"flash_sdpa_bwd_dq_h"`` (bf16 dq, d=64 or 80, lk keys),
+    ``"flash_sdpa_bwd_h_fp32"`` (fp32 dkv, d=32),
     ``"flash_sdpa_bwd_dq_wide_h"`` (d=256, lk keys),
     ``"flash_sdpa_bwd_dkv_wide_h"`` (d=256), or their fp32 counterparts
     ``"flash_sdpa_bwd_dq_wide_f32"`` (lk keys) and
     ``"flash_sdpa_bwd_dkv_wide_f32"``; or of the mma.sync register forward
     of csrc/flash_sdpa.cu, ``"flash_sdpa_fp32"`` (d=32, 64 or 80), whose
     shared memory is static; or of the mma.sync backward of
-    csrc/flash_sdpa_bwd.cu, ``"flash_sdpa_bwd_dq"`` (bf16: d=32, 64 or 80,
-    lk keys), ``"flash_sdpa_bwd_dq_fp32"`` and ``"flash_sdpa_bwd_dkv_fp32"``
-    (d=32, 64 or 80). A kernel or head dim not built raises ValueError
-    before any library is loaded (the bf16 mma.sync forward and dkv
-    kernels among them: their wgmma successors replaced them)."""
-    if kernel in _RESOURCES_AT_H_D and d not in _H_D:
-        raise ValueError(f"{kernel} kernel supports head dims {_H_D}, got {d}")
+    csrc/flash_sdpa_bwd.cu, ``"flash_sdpa_bwd_dq"`` (bf16: d=32, lk keys),
+    ``"flash_sdpa_bwd_dq_fp32"`` (d=32, 64 or 80) and
+    ``"flash_sdpa_bwd_dkv_fp32"`` (d=64 or 80). A kernel or head dim not
+    built raises ValueError before any library is loaded (the mma.sync
+    instantiations that wgmma kernels replaced among them)."""
+    dims = _RESOURCE_DIMS.get(kernel)
+    if dims is not None and d not in dims:
+        raise ValueError(f"{kernel} kernel supports head dims {dims}, got {d}")
     out = (ctypes.c_int * 4)()
     if kernel == "flash_sdpa_fp32":
         status = _lib_sdpa_attrs()(d, 1, out)
@@ -290,6 +332,10 @@ def kernel_resources(kernel, d=32, lk=5184):
         status = _lib_sdpa_h_attrs()(d, lk, out)
     elif kernel == "flash_sdpa_bwd_h":
         status = _lib_bwd_h_attrs()(d, out)
+    elif kernel == "flash_sdpa_bwd_dq_h":
+        status = _lib_bwd_dq_h_attrs()(d, lk, out)
+    elif kernel == "flash_sdpa_bwd_h_fp32":
+        status = _lib_bwd_h_f32_attrs()(out)
     elif kernel == "flash_sdpa_bwd_dq_wide_h":
         status = _lib_bwd_wide_h_dq_attrs()(lk, out)
     elif kernel == "flash_sdpa_bwd_dkv_wide_h":
@@ -479,29 +525,46 @@ def split_parts_plain(x):
     return torch.stack((hi, (x - hi.float()).to(torch.bfloat16)))
 
 
-def split_parts(x, key_bias=None, tile=0):
-    """The split copy of x (B, H, N, 256) fp32 that the fp32 d=256 backward
-    kernels read through TMA: (2, B, H, N, 256) bf16, ``split_parts_plain``.
-    One launch of the split pass of csrc/flash_sdpa_bwd_wide_h_fp32.cu on
-    CUDA, counted in ``split_parts.launches``; the plain version for CPU
-    tensors. With tile > 0 the kernel writes only the rows of the tiles of
-    ``tile`` rows that hold a live key (key_bias (B, >= N) f32 > -5e8; keys
-    past N ignored): the rest is left as allocated, and the dq kernel, whose
-    key tiles these are, never reads it."""
-    if not x.is_cuda:
-        return split_parts_plain(x)
-    if x.dtype != torch.float32 or x.dim() != 4 or x.shape[-1] != 256:
-        raise ValueError(f"split_parts takes (B, H, N, 256) float32, got {tuple(x.shape)} "
-                         f"{x.dtype}")
-    b, h, n, d = x.shape
+# head dims of the split pass: the fp32 d=256 backward kernels' streamed
+# operands and the fp32 d=32 dkv kernel's Q and dO
+_SPLIT_D = (32, 256)
+
+
+def check_split_parts(x, key_bias=None, tile=0):
+    """What the split pass takes: x (B, H, N, d) float32 at d in _SPLIT_D;
+    tile > 0 (skipping dead key tiles) at d=256 only, with a (B, >= N)
+    key_bias. Raises ValueError otherwise."""
+    if x.dtype != torch.float32 or x.dim() != 4 or x.shape[-1] not in _SPLIT_D:
+        raise ValueError(f"split_parts takes (B, H, N, d) float32 with d in {_SPLIT_D}, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    b, _, n, d = x.shape
+    if tile and d != 256:
+        raise ValueError(f"split_parts skips dead key tiles (tile > 0) at d=256 only, got d={d}")
     if tile and (key_bias is None or key_bias.shape[0] != b or key_bias.shape[1] < n):
         raise ValueError("split_parts with tile > 0 needs a (B, >= N) key_bias")
+
+
+def split_parts(x, key_bias=None, tile=0):
+    """The split copy of x (B, H, N, d) fp32, d=256 or 32, that the fp32
+    wgmma backward kernels read through TMA (d=256: both kernels' streamed
+    operands; d=32: the dkv kernel's Q and dO): (2, B, H, N, d) bf16,
+    ``split_parts_plain``. One launch of the split pass of
+    csrc/flash_sdpa_bwd_wide_h_fp32.cu on CUDA (``check_split_parts`` says
+    what it takes), counted in ``split_parts.launches``; the plain version
+    for CPU tensors. With tile > 0 (d=256) the kernel writes only the rows
+    of the tiles of ``tile`` rows that hold a live key (key_bias (B, >= N)
+    f32 > -5e8; keys past N ignored): the rest is left as allocated, and
+    the dq kernel, whose key tiles these are, never reads it."""
+    if not x.is_cuda:
+        return split_parts_plain(x)
+    check_split_parts(x, key_bias, tile)
+    b, h, n, d = x.shape
     x = _aligned(x)
     kb = key_bias.float().contiguous() if tile else None
     parts = torch.empty((2, b, h, n, d), dtype=torch.bfloat16, device=x.device)
     with torch.cuda.device(x.device):  # the launch goes to the current device
         status = _lib_split_parts()(
-            x.data_ptr(), kb.data_ptr() if tile else None, parts.data_ptr(), b, h, n,
+            x.data_ptr(), kb.data_ptr() if tile else None, parts.data_ptr(), b, h, n, d,
             kb.shape[1] if tile else 0, tile, *_bhn_strides(x),
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(status, "split_parts launch")
@@ -515,7 +578,8 @@ split_parts.launches = 0
 def flash_sdpa_bwd_dq(q, k, v, key_bias, o, lse, do, sm_scale):
     """dQ of flash_sdpa and Delta = rowsum(dO o O): (dq (B, H, Lq, D) in
     q.dtype, delta (B, H, Lq) f32). One kernel launch on CUDA (head dim 32,
-    64, 80 or 256, bf16 or fp32; ``bwd_dq_kernel`` says which), counted in
+    64, 80 or 256, bf16 or fp32; ``bwd_dq_kernel`` says which: the wgmma
+    kernels at d=256 and in bf16 at d=64 and 80, mma.sync otherwise), counted in
     ``flash_sdpa_bwd_dq.launches``; fp32 at d=256 first makes the split
     copies of K and V with two launches of the split pass (``split_parts``,
     only the rows of live 32-key tiles). The plain version for CPU
@@ -541,12 +605,16 @@ def flash_sdpa_bwd_dq(q, k, v, key_bias, o, lse, do, sm_scale):
                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                 b, h, lq, lk, lkb, float(sm_scale), *_bhn_strides(q), *_bhn_strides(o),
                 *_bhn_strides(do), *_bhn_strides(dq), stream)
-        elif kernel == "flash_sdpa_bwd_wide_h":
+        elif kernel in ("flash_sdpa_bwd_wide_h", "flash_sdpa_bwd_dq_h"):
             kb, lkb = _tma_rows(key_bias, NEG_INF)
-            status = _lib_bwd_wide_h("flash_sdpa_bwd_dq_wide_h")(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), kb.data_ptr(), o.data_ptr(),
-                do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                b, h, lq, lk, lkb, float(sm_scale), *strides, stream)
+            ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), kb.data_ptr(), o.data_ptr(),
+                    do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr())
+            if kernel == "flash_sdpa_bwd_dq_h":  # the head dim is a template parameter there
+                status = _lib_bwd_dq_h()(*ptrs, b, h, lq, lk, lkb, d, float(sm_scale), *strides,
+                                         stream)
+            else:
+                status = _lib_bwd_wide_h("flash_sdpa_bwd_dq_wide_h")(
+                    *ptrs, b, h, lq, lk, lkb, float(sm_scale), *strides, stream)
         else:
             kb = key_bias.float().contiguous()
             status = _lib_bwd("flash_sdpa_bwd_dq")(
@@ -565,9 +633,10 @@ def flash_sdpa_bwd_dkv(q, k, v, key_bias, do, lse, delta, sm_scale):
     """dK and dV of flash_sdpa, given Delta from ``flash_sdpa_bwd_dq``:
     (dk, dv) (B, H, Lk, D) in k's / v's dtype. One kernel launch on CUDA
     (``bwd_dkv_kernel`` says which), counted in
-    ``flash_sdpa_bwd_dkv.launches``; fp32 at d=256 first makes the split
-    copies of Q and dO (every row) with two launches of the split pass
-    (``split_parts``). The plain version for CPU tensors."""
+    ``flash_sdpa_bwd_dkv.launches``; fp32 at d=256 and d=32 (the split-bf16
+    wgmma kernels) first makes the split copies of Q and dO (every row) with
+    two launches of the split pass (``split_parts``). The plain version for
+    CPU tensors."""
     if not q.is_cuda:
         return flash_sdpa_bwd_dkv_plain(q, k, v, key_bias, do, lse, delta, sm_scale)
     b, h, lq, lk, d, fp32 = _check_bwd(q, k, v, key_bias, lse, do)
@@ -580,11 +649,13 @@ def flash_sdpa_bwd_dkv(q, k, v, key_bias, do, lse, delta, sm_scale):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     kernel = bwd_dkv_kernel(q.dtype, d)
     with torch.cuda.device(q.device):  # the launch goes to the current device
-        if kernel == "flash_sdpa_bwd_wide_h_fp32":
+        if kernel in ("flash_sdpa_bwd_wide_h_fp32", "flash_sdpa_bwd_h_fp32"):
             qp, dop = split_parts(q), split_parts(do)
             lse, lqp = _tma_rows(lse.reshape(b * h, lq), NEG_INF)
             delta, _ = _tma_rows(delta.reshape(b * h, lq), 0.0)
-            status = _lib_bwd_wide_f32("flash_sdpa_bwd_dkv_wide_f32")(
+            lib = (_lib_bwd_h_f32() if kernel == "flash_sdpa_bwd_h_fp32"
+                   else _lib_bwd_wide_f32("flash_sdpa_bwd_dkv_wide_f32"))
+            status = lib(
                 qp.data_ptr(), dop.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 b, h, lq, lk, lqp, float(sm_scale), *_bhn_strides(k), *_bhn_strides(v),

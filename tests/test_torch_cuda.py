@@ -777,8 +777,9 @@ def test_flash_sdpa_fp32_kernel_matches_plain(cuda, d, h, lq, lk):
                                      (256, 700, 517)])
 def test_flash_sdpa_bwd_fp32_kernels_match_plain(cuda, d, lq, lk):
     """The dq (and Delta) and dk/dv kernels' fp32 instantiations (d=32: the
-    mma.sync kernels of flash_sdpa_bwd.cu; d=256: the split-bf16 wgmma
-    kernels of flash_sdpa_bwd_wide_h_fp32.cu) against the plain backward in
+    mma.sync dq kernel of flash_sdpa_bwd.cu and the split-bf16 wgmma dkv
+    kernel of flash_sdpa_bwd_h_fp32.cu; d=256: the split-bf16 wgmma kernels
+    of flash_sdpa_bwd_wide_h_fp32.cu) against the plain backward in
     fp32: strided dO, ragged Lq/Lk, masked tiles, a fully masked row (zero
     gradients), dQ / dK / dV in (B, N, H, D) memory, the same bits when run
     again."""
@@ -788,8 +789,9 @@ def test_flash_sdpa_bwd_fp32_kernels_match_plain(cuda, d, lq, lk):
     o, lse = fa.flash_sdpa_plain(q, k, v, bias, return_lse=True)
     do = _randn(cuda, 3, lq, h * d, dtype=torch.float32).reshape(3, lq, h, d).transpose(1, 2)
     scale = d ** -0.5
-    want_kernel = "flash_sdpa_bwd_wide_h_fp32" if d == 256 else "flash_sdpa_bwd"
-    assert fa.bwd_dq_kernel(torch.float32, d) == fa.bwd_dkv_kernel(torch.float32, d) == want_kernel
+    want = (("flash_sdpa_bwd_wide_h_fp32",) * 2 if d == 256
+            else ("flash_sdpa_bwd", "flash_sdpa_bwd_h_fp32"))
+    assert (fa.bwd_dq_kernel(torch.float32, d), fa.bwd_dkv_kernel(torch.float32, d)) == want
     n_dq, n_dkv = fa.flash_sdpa_bwd_dq.launches, fa.flash_sdpa_bwd_dkv.launches
     dq, delta = fa.flash_sdpa_bwd_dq(q, k, v, bias, o, lse, do, scale)
     dk, dv = fa.flash_sdpa_bwd_dkv(q, k, v, bias, do, lse, delta, scale)
@@ -1110,6 +1112,8 @@ def test_flash_sdpa_d80_reads_every_slab(cuda, lq, lk):
 @pytest.mark.parametrize("kernel,d", [("flash_sdpa_h", 32), ("flash_sdpa_h", 64),
                                       ("flash_sdpa_h", 80), ("flash_sdpa_bwd_h", 32),
                                       ("flash_sdpa_bwd_h", 64), ("flash_sdpa_bwd_h", 80),
+                                      ("flash_sdpa_bwd_dq_h", 64), ("flash_sdpa_bwd_dq_h", 80),
+                                      ("flash_sdpa_bwd_h_fp32", 32),
                                       ("flash_sdpa_bwd_dq_wide_h", 256),
                                       ("flash_sdpa_bwd_dkv_wide_h", 256),
                                       ("flash_sdpa_bwd_dq_wide_f32", 256),
@@ -1119,7 +1123,9 @@ def test_wgmma_kernels_fit_without_spills(cuda, kernel, d):
     least one block of them resident an SM at the main path's 5184 keys
     (the forward at d=32 and 64: 2, its design; at d=80 1, whose O
     accumulator would spill at 2; the d=256 dq kernels also at the clip's
-    36352)."""
+    36352; the d=64 / d=80 dq kernel at vit_h's 4900 as well)."""
+    if kernel == "flash_sdpa_bwd_dq_h":
+        assert fa.kernel_resources(kernel, d, 4900)["spill_bytes"] == 0
     if kernel in ("flash_sdpa_bwd_dq_wide_h", "flash_sdpa_bwd_dq_wide_f32"):
         assert fa.kernel_resources(kernel, d, 36352)["blocks_per_sm"] >= 1
     res = fa.kernel_resources(kernel, d, 5184)
@@ -1257,8 +1263,8 @@ def test_flash_sdpa_d80_reads_every_slab(cuda, lq, lk):
 @pytest.mark.parametrize("d", [64, 80])
 def test_flash_sdpa_d64_d80_autograd_matches_plain(cuda, dtype, tol, d):
     """flash_sdpa under autograd at d=64 and d=80 (the forward kernel, then
-    the dq kernel of flash_sdpa_bwd.cu and the dkv kernel, bf16 the wgmma
-    one of flash_sdpa_bwd_h.cu: 1 launch each) against
+    the dq kernel, bf16 the wgmma one of flash_sdpa_bwd_dq_h.cu, and the dkv
+    kernel, bf16 the wgmma one of flash_sdpa_bwd_h.cu: 1 launch each) against
     autograd through the plain forward in the same dtype, q/k/v strided
     views of a packed qkv as ViTAttention hands them in: bf16 within 3e-2
     of each gradient's largest magnitude (bf16 P and dS against autograd's
@@ -1268,9 +1274,9 @@ def test_flash_sdpa_d64_d80_autograd_matches_plain(cuda, dtype, tol, d):
     packed = _randn(cuda, b, n, 3, h, d, dtype=dtype)
     bias = _mask_rows(cuda, b, n)
     w = _randn(cuda, b, h, n, d, dtype=torch.float32)
-    assert fa.bwd_dq_kernel(dtype, d) == "flash_sdpa_bwd"
-    assert fa.bwd_dkv_kernel(dtype, d) == ("flash_sdpa_bwd_h" if dtype == torch.bfloat16
-                                           else "flash_sdpa_bwd")
+    bf16 = dtype == torch.bfloat16
+    assert fa.bwd_dq_kernel(dtype, d) == ("flash_sdpa_bwd_dq_h" if bf16 else "flash_sdpa_bwd")
+    assert fa.bwd_dkv_kernel(dtype, d) == ("flash_sdpa_bwd_h" if bf16 else "flash_sdpa_bwd")
     grads = {}
     for name, fn in (("kernel", fa.flash_sdpa), ("plain", fa.flash_sdpa_plain)):
         qkv = packed.clone().requires_grad_()
@@ -1295,9 +1301,11 @@ def test_flash_sdpa_d64_d80_autograd_matches_plain(cuda, dtype, tol, d):
                                        (64, 2, 333, 517), (80, 2, 333, 517), (64, 2, 1, 64),
                                        (80, 3, 130, 70), (80, 2, 64, 9), (64, 1, 200, 2000)])
 def test_flash_sdpa_bwd_d64_d80_kernels_match_plain(cuda, dtype, tol, d, h, lq, lk):
-    """The dq (and Delta) kernel of flash_sdpa_bwd.cu and the dk/dv kernel
-    (bf16: the wgmma kernel of flash_sdpa_bwd_h.cu, 128-key blocks; fp32:
-    flash_sdpa_bwd.cu's, 16-query tiles at d=80) at d=64 and d=80, in bf16
+    """The dq (and Delta) kernel (bf16: the wgmma kernel of
+    flash_sdpa_bwd_dq_h.cu, 128-query blocks; fp32: flash_sdpa_bwd.cu's) and
+    the dk/dv kernel (bf16: the wgmma kernel of flash_sdpa_bwd_h.cu, 128-key
+    blocks; fp32: flash_sdpa_bwd.cu's, 16-query tiles at d=80) at d=64 and
+    d=80, in bf16
     and fp32, against the plain backward: the global blocks' shapes, ragged
     Lq/Lk against the 64-row tiles, a masked 64-key tile, a ragged masked
     tail, a fully masked batch row (zero gradients), dO a strided view of the
@@ -1311,9 +1319,9 @@ def test_flash_sdpa_bwd_d64_d80_kernels_match_plain(cuda, dtype, tol, d, h, lq, 
     o, lse = fa.flash_sdpa_plain(q, k, v, bias, return_lse=True)
     do = _randn(cuda, b, lq, h * d, dtype=dtype).reshape(b, lq, h, d).transpose(1, 2)
     scale = d ** -0.5
-    assert fa.bwd_dq_kernel(dtype, d) == "flash_sdpa_bwd"
-    assert fa.bwd_dkv_kernel(dtype, d) == ("flash_sdpa_bwd_h" if dtype == torch.bfloat16
-                                           else "flash_sdpa_bwd")
+    bf16 = dtype == torch.bfloat16
+    assert fa.bwd_dq_kernel(dtype, d) == ("flash_sdpa_bwd_dq_h" if bf16 else "flash_sdpa_bwd")
+    assert fa.bwd_dkv_kernel(dtype, d) == ("flash_sdpa_bwd_h" if bf16 else "flash_sdpa_bwd")
     n_dq, n_dkv = fa.flash_sdpa_bwd_dq.launches, fa.flash_sdpa_bwd_dkv.launches
     dq, delta = fa.flash_sdpa_bwd_dq(q, k, v, bias, o, lse, do, scale)
     dk, dv = fa.flash_sdpa_bwd_dkv(q, k, v, bias, do, lse, delta, scale)
@@ -1336,33 +1344,36 @@ def test_flash_sdpa_bwd_d64_d80_kernels_match_plain(cuda, dtype, tol, d, h, lq, 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel,d", [("flash_sdpa_bwd_dq", 32), ("flash_sdpa_bwd_dq_fp32", 32),
-                                      ("flash_sdpa_bwd_dkv_fp32", 32), ("flash_sdpa_bwd_dq", 64),
                                       ("flash_sdpa_bwd_dq_fp32", 64),
-                                      ("flash_sdpa_bwd_dkv_fp32", 64), ("flash_sdpa_bwd_dq", 80),
+                                      ("flash_sdpa_bwd_dkv_fp32", 64),
                                       ("flash_sdpa_bwd_dq_fp32", 80),
                                       ("flash_sdpa_bwd_dkv_fp32", 80)])
 def test_mma_sync_backward_fits_without_spills(cuda, kernel, d):
     """The mma.sync backward kernels as built: no spills, at least one block
-    resident an SM at the teacher's 5184 keys (the bf16 dkv kernels are
-    flash_sdpa_bwd_h.cu's: test_wgmma_kernels_fit_without_spills)."""
+    resident an SM at the teacher's 5184 keys (the bf16 dkv kernels, the
+    bf16 dq at d=64 / d=80 and the fp32 dkv at d=32 are wgmma kernels:
+    test_wgmma_kernels_fit_without_spills)."""
     res = fa.kernel_resources(kernel, d, 5184)
     assert res["spill_bytes"] == 0 and res["blocks_per_sm"] >= 1, res
 
 
 @pytest.mark.cuda
-def test_mma_sync_entries_refuse_replaced_bf16(cuda):
-    """The mma.sync entry points refuse the bf16 head dims whose wgmma
+def test_mma_sync_entries_refuse_replaced_instantiations(cuda):
+    """The mma.sync entry points refuse the instantiations whose wgmma
     kernels replaced them (cudaErrorInvalidValue, 1: nothing launched):
-    the forward of csrc/flash_sdpa.cu at d=32, 64 and 80, the dkv kernel of
-    csrc/flash_sdpa_bwd.cu at d=32, 64 and 80, and their attribute queries;
-    the fp32 instantiations and bf16 dq are still served."""
+    the bf16 forward of csrc/flash_sdpa.cu at d=32, 64 and 80, the bf16 dkv
+    kernel of csrc/flash_sdpa_bwd.cu at d=32, 64 and 80, its bf16 dq kernel
+    at d=64 and 80 and its fp32 dkv kernel at d=32, and their attribute
+    queries; the fp32 forward and dq, the fp32 dkv at d=64 / d=80 and the
+    bf16 dq at d=32 are still served."""
     out = (ctypes.c_int * 4)()
     for d in (32, 64, 80):
         assert fa._lib_sdpa_attrs()(d, 0, out) == 1
         assert fa._lib_sdpa_attrs()(d, 1, out) == 0
         assert fa._lib_bwd_attrs()(1, d, 0, 5184, out) == 1
-        assert fa._lib_bwd_attrs()(1, d, 1, 5184, out) == 0
-        assert fa._lib_bwd_attrs()(0, d, 0, 5184, out) == 0
+        assert fa._lib_bwd_attrs()(1, d, 1, 5184, out) == (1 if d == 32 else 0)
+        assert fa._lib_bwd_attrs()(0, d, 0, 5184, out) == (0 if d == 32 else 1)
+        assert fa._lib_bwd_attrs()(0, d, 1, 5184, out) == 0
         q = _randn(cuda, 1, 2, 64, d)
         bias = torch.zeros((1, 64), device=cuda)
         lse = torch.zeros((1, 2, 64), device=cuda)
@@ -1376,7 +1387,87 @@ def test_mma_sync_entries_refuse_replaced_bf16(cuda):
             q.data_ptr(), q.data_ptr(), q.data_ptr(), bias.data_ptr(), q.data_ptr(),
             lse.data_ptr(), lse.data_ptr(), o.data_ptr(), o.data_ptr(), 1, 2, 64, 64, d, 0,
             0.125, *([0] * 18), stream) == 1
+        if d != 32:  # the bf16 dq kernel at d=64 and 80 (flash_sdpa_bwd_dq_h.cu's)
+            assert fa._lib_bwd("flash_sdpa_bwd_dq")(
+                q.data_ptr(), q.data_ptr(), q.data_ptr(), bias.data_ptr(), q.data_ptr(),
+                q.data_ptr(), lse.data_ptr(), lse.data_ptr(), o.data_ptr(), 1, 2, 64, 64, d, 0,
+                0.125, *([0] * 18), stream) == 1
+    # the fp32 dkv kernel at d=32 (flash_sdpa_bwd_h_fp32.cu's)
+    q = _randn(cuda, 1, 2, 64, 32, dtype=torch.float32)
+    assert fa._lib_bwd("flash_sdpa_bwd_dkv")(
+        q.data_ptr(), q.data_ptr(), q.data_ptr(), bias.data_ptr(), q.data_ptr(), lse.data_ptr(),
+        lse.data_ptr(), q.data_ptr(), q.data_ptr(), 1, 2, 64, 64, 32, 1, 0.125, *([0] * 18),
+        stream) == 1
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 80])
+@pytest.mark.parametrize("b,h,lq,lk", [(2, 16, 5184, 5184), (3, 2, 333, 517), (3, 3, 130, 70),
+                                       (3, 2, 1, 9), (3, 1, 200, 2000)])
+def test_flash_sdpa_bwd_dq_h_kernel_matches_plain(cuda, d, b, h, lq, lk):
+    """The bf16 wgmma dq kernel (flash_sdpa_bwd_dq_h.cu, 128-query blocks,
+    64-key tiles) against the plain dq in bf16: the teacher's shape, ragged
+    Lq and Lk against the block and the tile, a masked 64-key tile in row 0
+    (skipped), a ragged masked tail in row 1, a fully masked last batch row
+    (no live tile: Delta and zeros, no loads), dO a strided view of the
+    (B, N, H * D) gradient; dQ in (B, N, H, D) memory, Delta within 1e-4,
+    dQ within 2e-2 of its largest magnitude, the same bits when run again."""
+    q, k, v = (_randn(cuda, b, h, n, d) for n in (lq, lk, lk))
+    bias = _mask_rows(cuda, b, lk)
+    o, lse = fa.flash_sdpa_plain(q, k, v, bias, return_lse=True)
+    do = _randn(cuda, b, lq, h * d).reshape(b, lq, h, d).transpose(1, 2)
+    assert h == 1 or lq == 1 or not do.is_contiguous()
+    scale = d ** -0.5
+    assert fa.bwd_dq_kernel(torch.bfloat16, d) == "flash_sdpa_bwd_dq_h"
+    before = fa.flash_sdpa_bwd_dq.launches
+    dq, delta = fa.flash_sdpa_bwd_dq(q, k, v, bias, o, lse, do, scale)
+    torch.cuda.synchronize()
+    assert fa.flash_sdpa_bwd_dq.launches == before + 1
+    assert dq.dtype == torch.bfloat16 and dq.transpose(1, 2).is_contiguous()
+    dq2, delta2 = fa.flash_sdpa_bwd_dq(q, k, v, bias, o, lse, do, scale)
+    assert torch.equal(dq, dq2) and torch.equal(delta, delta2)
+    want_dq, want_delta = fa.flash_sdpa_bwd_dq_plain(q, k, v, bias, o, lse, do, scale)
+    torch.testing.assert_close(delta, want_delta, atol=1e-4, rtol=1e-4)
+    assert dq.shape == want_dq.shape and torch.isfinite(dq.float()).all()
+    assert _rel_err(dq, want_dq) < 2e-2
+    assert (dq[-1] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,lq,lk", [(4, 8, 5184, 5184), (3, 2, 333, 517), (3, 3, 130, 300),
+                                       (3, 2, 1, 9), (3, 1, 2000, 200)])
+def test_flash_sdpa_bwd_dkv_h_fp32_kernel_matches_plain(cuda, b, h, lq, lk):
+    """The fp32 d=32 wgmma dkv kernel (flash_sdpa_bwd_h_fp32.cu, split bf16
+    parts, 128-key blocks, 64-query stages, Q and dO from split copies)
+    against the plain dkv in fp32, given the plain Delta: the Stage-3 shape,
+    ragged Lq and Lk against the block and the stage, a fully masked 128-key
+    block and a masked 64-key tile in row 0 (zeros), a ragged masked tail
+    in row 1, a fully masked last batch row (zero gradients), dO a strided
+    view of the (B, N, H * D) gradient; two launches of the split pass and
+    one of the kernel, dK and dV in (B, N, H, D) memory within 1e-4 of each
+    one's largest magnitude, the same bits when run again."""
+    f32 = torch.float32
+    q, k, v = (_randn(cuda, b, h, n, 32, dtype=f32) for n in (lq, lk, lk))
+    bias = _mask_rows(cuda, b, lk)
+    bias[0, 128:256] = NEG_INF
+    o, lse = fa.flash_sdpa_plain(q, k, v, bias, return_lse=True)
+    do = _randn(cuda, b, lq, h * 32, dtype=f32).reshape(b, lq, h, 32).transpose(1, 2)
+    scale = 32 ** -0.5
+    _, delta = fa.flash_sdpa_bwd_dq_plain(q, k, v, bias, o, lse, do, scale)
+    assert fa.bwd_dkv_kernel(f32, 32) == "flash_sdpa_bwd_h_fp32"
+    n_split, n_dkv = fa.split_parts.launches, fa.flash_sdpa_bwd_dkv.launches
+    dk, dv = fa.flash_sdpa_bwd_dkv(q, k, v, bias, do, lse, delta, scale)
+    torch.cuda.synchronize()
+    assert (fa.split_parts.launches, fa.flash_sdpa_bwd_dkv.launches) == (n_split + 2, n_dkv + 1)
+    dk2, dv2 = fa.flash_sdpa_bwd_dkv(q, k, v, bias, do, lse, delta, scale)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    want_dk, want_dv = fa.flash_sdpa_bwd_dkv_plain(q, k, v, bias, do, lse, delta, scale)
+    for got, want in ((dk, want_dk), (dv, want_dv)):
+        assert got.dtype == f32 and got.shape == want.shape and torch.isfinite(got).all()
+        assert got.transpose(1, 2).is_contiguous()
+        assert _rel_err(got, want) < FP32_TOL
+        assert (got[-1] == 0).all() and (got[0, :, 64:min(lk, 256)] == 0).all()
 
 
 @pytest.mark.cuda
