@@ -4,7 +4,9 @@ flash_sdpa forward at d=80 (vit_h at 1120^2: q/k/v (1, 16, 4900, 80)) and
 the backward's dq and dkv kernels at d=64 (the SAM3 teacher's ViT-H
 Stage-1 step at batch 2: (2, 16, 5184, 64)) and d=80; in fp32 the
 backward's dq and dkv kernels at d=32 (the default build's Stage-3 step:
-(4, 8, 5184, 32)). q, k and v are strided views of one packed qkv tensor
+(4, 8, 5184, 32)), d=64 (an fp32 ViT-H Stage-1 step at batch 1: (1, 16,
+5184, 64)) and d=80 (vit_h's: (1, 16, 4900, 80)). q, k and v are strided
+views of one packed qkv tensor
 and dO a strided view of a (B, N, H * D) gradient, as the trunk and the
 fusion encoder hand them in; every key is live. Each kernel is held
 against its plain version first (the forward's output and LSE within
@@ -14,13 +16,14 @@ when run again), then timed in a CUDA graph (chip_smoke.graph_time) beside
 one F.scaled_dot_product_attention call (forward) and its backward (all
 three gradients).
 
-    python3 bench_vit_attn.py [--other DIR]
+    python3 bench_vit_attn.py [--other DIR] [--dtype bf16|fp32]
 
 With --other, the same measurement of the checkout at DIR (another commit's
 kernels, or a variant copy, built there) is taken in the process order
 other, this, this, other, each in its own process, so that two versions
-compare on one card. Prints one line a kernel and run, with the card's
-name and power limit.
+compare on one card. --dtype keeps the shapes of one dtype (the forward
+is bf16). Prints one line a kernel and run, with the card's name and power
+limit.
 """
 
 import argparse
@@ -29,10 +32,11 @@ import subprocess
 import sys
 
 FWD = (1, 16, 4900, 80)  # (B, H, N, D), bf16
-BWD = ((2, 16, 5184, 64, "bf16"), (1, 16, 4900, 80, "bf16"), (4, 8, 5184, 32, "fp32"))
+BWD = ((2, 16, 5184, 64, "bf16"), (1, 16, 4900, 80, "bf16"), (4, 8, 5184, 32, "fp32"),
+       (1, 16, 5184, 64, "fp32"), (1, 16, 4900, 80, "fp32"))
 
 
-def measure(label):
+def measure(label, only=None):
     import torch
     import torch.nn.functional as F
 
@@ -52,19 +56,22 @@ def measure(label):
         qkv = torch.randn((b, n, 3, h, d), generator=gen, device=dev).to(dtype)
         return qkv.permute(2, 0, 3, 1, 4)
 
-    b, h, n, d = FWD
-    q, k, v = packed(b, h, n, d)
-    bias = torch.zeros((b, n), device=dev)
-    scale = d ** -0.5
-    got, lse = fa.flash_sdpa(q, k, v, bias, scale, return_lse=True)
-    want, want_lse = fa.flash_sdpa_plain(q, k, v, bias, scale, return_lse=True)
-    err = max(cs.check("forward", got, want), cs.check("forward lse", lse, want_lse))
-    ms = cs.graph_time(lambda: fa.flash_sdpa(q, k, v, bias, scale))
-    lib = cs.graph_time(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
-    print(f"[{label}] forward d={d} {tuple(q.shape)} {fa.sdpa_kernel(bf16, d)}: {ms:.4f} ms "
-          f"(CUDA graph) | SDPA {lib:.4f} ms | max abs err {err:.3e} | {smi}", flush=True)
-    del q, k, v, got, lse, want, want_lse
+    if only != "fp32":
+        b, h, n, d = FWD
+        q, k, v = packed(b, h, n, d)
+        bias = torch.zeros((b, n), device=dev)
+        scale = d ** -0.5
+        got, lse = fa.flash_sdpa(q, k, v, bias, scale, return_lse=True)
+        want, want_lse = fa.flash_sdpa_plain(q, k, v, bias, scale, return_lse=True)
+        err = max(cs.check("forward", got, want), cs.check("forward lse", lse, want_lse))
+        ms = cs.graph_time(lambda: fa.flash_sdpa(q, k, v, bias, scale))
+        lib = cs.graph_time(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+        print(f"[{label}] forward d={d} {tuple(q.shape)} {fa.sdpa_kernel(bf16, d)}: {ms:.4f} ms "
+              f"(CUDA graph) | SDPA {lib:.4f} ms | max abs err {err:.3e} | {smi}", flush=True)
+        del q, k, v, got, lse, want, want_lse
     for b, h, n, d, dt in BWD:
+        if only not in (None, dt):
+            continue
         dtype = bf16 if dt == "bf16" else torch.float32
         tol = 2e-2 if dt == "bf16" else 1e-4
         q, k, v = packed(b, h, n, d, dtype)
@@ -108,16 +115,19 @@ def measure(label):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", help="another checkout, timed in turns with this one")
+    ap.add_argument("--dtype", choices=("bf16", "fp32"), default=None,
+                    help="time only the shapes of this dtype")
     ap.add_argument("--label", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.other is None or args.label is not None:
-        measure(args.label or "this")
+        measure(args.label or "this", args.dtype)
         return 0
     here = os.path.dirname(os.path.abspath(__file__))
     other = os.path.abspath(args.other)
     for where, label in ((other, "other"), (here, "this"), (here, "this"), (other, "other")):
         subprocess.run([sys.executable, os.path.join(here, "bench_vit_attn.py"), "--label",
-                        f"{label} ({os.path.relpath(where, here)})"], cwd=where, check=True)
+                        f"{label} ({os.path.relpath(where, here)})",
+                        *(("--dtype", args.dtype) if args.dtype else ())], cwd=where, check=True)
     return 0
 
 

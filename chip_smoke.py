@@ -9,11 +9,11 @@ Phases, each printing its own lines:
      (csrc/*.cu, one nvcc per source, all started together); for each
      wgmma kernel (flash_sdpa_h at d=32, 64 and 80, flash_sdpa_bwd_h at
      d=32, 64 and 80, flash_sdpa_bwd_dq_h at d=64 and 80, flash_sdpa_bwd_h_fp32
-     at d=32, the bf16 d=256 pair flash_sdpa_bwd_dq_wide_h /
-     flash_sdpa_bwd_dkv_wide_h and the fp32 one flash_sdpa_bwd_dq_wide_f32 /
-     flash_sdpa_bwd_dkv_wide_f32) and the mma.sync register forward at d=80
-     (fp32) and the mma.sync backward at d=64 and d=80 (dq and dkv in fp32)
-     one line of
+     and flash_sdpa_bwd_dq_h_fp32 at d=32, 64 and 80, the bf16 d=256 pair
+     flash_sdpa_bwd_dq_wide_h / flash_sdpa_bwd_dkv_wide_h and the fp32 one
+     flash_sdpa_bwd_dq_wide_f32 / flash_sdpa_bwd_dkv_wide_f32) and the
+     mma.sync register forward at d=80 (fp32) and the mma.sync bf16 dq at
+     d=32 one line of
      registers, spilled bytes and shared memory a block, and blocks an SM,
      as the runtime reports them;
   2. the main path at full width: EfficientViT-b1 ("EV-M") at 1008^2 with
@@ -240,11 +240,13 @@ Phases, each printing its own lines:
      step's device time by kernel family. fp32 4-block cuts (block 3
      global) of both take one step on the card (launches 2 / 1 / 1), the
      teacher's against the same step on the host's CPU (loss 1e-5
-     relative, every gradient 1e-4 of its largest magnitude). The dq and
-     dkv rows at d=64 and d=80 (bf16: the wgmma kernels of
-     csrc/flash_sdpa_bwd_dq_h.cu and csrc/flash_sdpa_bwd_h.cu, the dq
-     kernel's 4 launches a step checked in the profile; fp32: the mma.sync
-     kernels of csrc/flash_sdpa_bwd.cu),
+     relative, every gradient 1e-4 of its largest magnitude), and a further
+     cut step on the card is profiled: one launch each of the fp32 dq and
+     dkv kernels. The dq and dkv rows at d=64 and d=80 (bf16: the wgmma
+     kernels of csrc/flash_sdpa_bwd_dq_h.cu and csrc/flash_sdpa_bwd_h.cu,
+     the dq kernel's 4 launches a step checked in the profile; fp32: the
+     split-bf16 wgmma kernels of csrc/flash_sdpa_bwd_dq_h_fp32.cu and
+     csrc/flash_sdpa_bwd_h_fp32.cu, with the cut step's device ms),
      bf16 at a global block's captured inputs of the bf16 steps (2e-2 of
      each gradient's largest magnitude, dK and dV the same bits when run
      again, SDPA's backward as the library time) and fp32 at the cuts'
@@ -588,21 +590,19 @@ def main():
     # the wgmma kernels as the runtime holds them, at the main path's 5184 keys
     # (the d=256 dq kernels at the clip's 36352 keys: their tile lists grow with
     # them; the d=80 ones at vit_h's 4900), the mma.sync register forward at
-    # d=80 in fp32 (static shared memory) and the mma.sync backward at d=64
-    # (5184 keys) and d=80 (4900 keys): dq and dkv in fp32
+    # d=80 in fp32 (static shared memory) and the mma.sync bf16 dq at d=32
     for kernel, d, lk in (("flash_sdpa_h", 32, 5184), ("flash_sdpa_h", 64, 5184),
                           ("flash_sdpa_h", 80, 4900), ("flash_sdpa_bwd_h", 32, 5184),
                           ("flash_sdpa_bwd_h", 64, 5184), ("flash_sdpa_bwd_h", 80, 4900),
                           ("flash_sdpa_bwd_dq_h", 64, 5184), ("flash_sdpa_bwd_dq_h", 80, 4900),
-                          ("flash_sdpa_bwd_h_fp32", 32, 5184),
+                          *((kernel, d, lk) for kernel in (
+                              "flash_sdpa_bwd_h_fp32", "flash_sdpa_bwd_dq_h_fp32")
+                            for d, lk in ((32, 5184), (64, 5184), (80, 4900))),
                           ("flash_sdpa_bwd_dq_wide_h", 256, 36352),
                           ("flash_sdpa_bwd_dkv_wide_h", 256, 36352),
                           ("flash_sdpa_bwd_dq_wide_f32", 256, 36352),
                           ("flash_sdpa_bwd_dkv_wide_f32", 256, 36352),
-                          ("flash_sdpa_fp32", 80, 4900),
-                          *((kernel, d, lk) for kernel in (
-                              "flash_sdpa_bwd_dq_fp32", "flash_sdpa_bwd_dkv_fp32")
-                            for d, lk in ((64, 5184), (80, 4900)))):
+                          ("flash_sdpa_fp32", 80, 4900), ("flash_sdpa_bwd_dq", 32, 5184)):
         r = fa.kernel_resources(kernel, d, lk)
         log(f"[build] {kernel} d={d}: {r['registers']} registers a thread, {r['spill_bytes']} "
             f"bytes of local memory (spills) a thread, {r['smem_bytes']} bytes of shared memory "
@@ -2696,13 +2696,16 @@ def fp32_phase(smi, main_ref):
     log(f"[fp32] Stage-3 step (batch 4) {step_ms:.1f} ms, loss {float(metrics['loss']):.4f}, "
         f"grad_norm {float(metrics['grad_norm']):.3f}, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {smi}")
-    # the dkv kernel is the split-bf16 wgmma kernel of csrc/flash_sdpa_bwd_h_fp32.cu
-    # (its profile name checked: 6 launches a step), fed by 12 split passes
+    # the dq and dkv kernels are the split-bf16 wgmma kernels of
+    # csrc/flash_sdpa_bwd_dq_h_fp32.cu and csrc/flash_sdpa_bwd_h_fp32.cu (their
+    # profile names checked: 6 launches each a step), fed by 24 split passes
+    # (K and V for dq, Q and dO for dkv)
     dev_step = per_launch(lambda: stage3.stage3_train_step(model, opt, batch),
-                          {"flash_sdpa_bwd_dq_fp32": ("bwd_dq_kernel<32, float>", 6),
-                           "flash_sdpa_bwd_dkv_fp32": ("flash_bwd_dkv_h_f32_kernel", 6),
-                           "split_parts_d32": ("split_parts_kernel<32>", 12)}, train=True,
-                          exact=("flash_sdpa_bwd_dkv_fp32", "split_parts_d32"))
+                          {"flash_sdpa_bwd_dq_fp32": ("flash_bwd_dq_h_f32_kernel<32>", 6),
+                           "flash_sdpa_bwd_dkv_fp32": ("flash_bwd_dkv_h_f32_kernel<32>", 6),
+                           "split_parts_d32": ("split_parts_kernel<32>", 24)}, train=True,
+                          exact=("flash_sdpa_bwd_dq_fp32", "flash_sdpa_bwd_dkv_fp32",
+                                 "split_parts_d32"))
     log(f"[fp32] Stage-3 step profile, device ms a launch: {dev_step}")
     (q, k, v, key_bias, o, lse, do, scale), _ = capture.args[("flash_sdpa_bwd_dq", 32)]
     del opt, batch, model, capture
@@ -3736,8 +3739,8 @@ VITH_STEPS, VITH_BATCH = 2, 1
 TEACHER_STEPS, TEACHER_BATCH = 3, 2
 # kernel families of a Stage-1 step's profile (lower-case name patterns), first match wins
 KERNEL_FAMILIES = (("flash_sdpa backward (dq + dkv)",
-                    ("bwd_dq_kernel<", "bwd_dkv_kernel<", "bwd_dkv_h_kernel<", "bwd_dq_h_kernel<",
-                     "bwd_dkv_h_f32_kernel")),
+                    ("bwd_dq_kernel<", "bwd_dkv_h_kernel<", "bwd_dq_h_kernel<",
+                     "bwd_dkv_h_f32_kernel<", "bwd_dq_h_f32_kernel<", "split_parts_kernel<")),
                    ("flash_sdpa forward", ("flash_sdpa_h_kernel<", "flash_sdpa_fwd_kernel<")),
                    ("GEMM", ("gemm", "cutlass", "xmma", "nvjet")),
                    ("softmax", ("softmax",)),
@@ -4102,6 +4105,29 @@ def stage1_phase(smi):
                 log(f"[stage1] fp32 vit_h cut (4 blocks, block 3 global, 1120^2, batch 1): one "
                     f"Stage-1 step on the card, loss {grads['card_loss']:.6f}, launches "
                     f"{VIT_CUT_STEP}")
+            # a further cut step on the card under the profiler: the split-bf16
+            # wgmma dq and dkv kernels launch once each; their device ms a launch
+            # go to the fp32 rows below
+            o = stage1.make_optimizer(cfg, 1, card)
+            prof_cut, _, _ = profile_kernels(lambda: stage1.stage1_train_step(card, o, batch),
+                                             train=True)
+            cut_dev = {}
+            for name, key, pattern in (
+                    (f"flash_sdpa_bwd_dq_d{d}_fp32", "flash_sdpa_bwd_dq",
+                     f"flash_bwd_dq_h_f32_kernel<{d}>"),
+                    (f"flash_sdpa_bwd_dkv_d{d}_fp32", "flash_sdpa_bwd_dkv",
+                     f"flash_bwd_dkv_h_f32_kernel<{d}>")):
+                n_seen = sum(n for k_, _, n in prof_cut if pattern in k_)
+                if prof_cut and n_seen != VIT_CUT_STEP[key]:
+                    raise AssertionError(f"[stage1] fp32 d={d} cut step profile: {n_seen} "
+                                         f"launches of {pattern}, not {VIT_CUT_STEP[key]}")
+                if n_seen:
+                    cut_dev[name] = sum(u for k_, u, _ in prof_cut if pattern in k_) / 1e3 / n_seen
+            log(f"[stage1] fp32 d={d} cut step profile: 1 launch each of "
+                f"flash_bwd_dq_h_f32_kernel<{d}> and flash_bwd_dkv_h_f32_kernel<{d}>, device ms "
+                f"a launch {cut_dev}")
+            cut_in[d] = (*cut_in[d], cut_dev)
+            del o, prof_cut
             del cpu_ref, card, grads
             torch.cuda.empty_cache()
         log(f"[stage1] fp32 cuts {time.perf_counter() - t0:.1f} s")
@@ -4202,8 +4228,8 @@ def stage1_phase(smi):
         rows += bf16_rows(d, dq_args, launches, prof)
         del dq_args
         q, k, v, key_bias, o, lse, do, scale = cut_in[d][0]
-        rows += bwd_rows_fp32(q, k, v, key_bias, o, lse, do, scale, cut_in[d][1], f"_d{d}", {},
-                              fp32_row)
+        rows += bwd_rows_fp32(q, k, v, key_bias, o, lse, do, scale, cut_in[d][1], f"_d{d}",
+                              cut_in[d][2], fp32_row)
         del q, k, v, key_bias, o, lse, do
         torch.cuda.empty_cache()
     return rows
@@ -4212,19 +4238,21 @@ def stage1_phase(smi):
 def split_parts_check(q, k, v, key_bias, do):
     """The split pass of the fp32 wgmma backward as its wrappers launch it
     (d=256: K and V, the rows of live key tiles, and Q and dO, every row;
-    d=32: Q and dO, every row, for the dkv kernel), held bit for bit to
-    split_parts_plain on the rows the kernels read."""
+    d=32, 64 and 80: Q and dO for the dkv kernel and K and V for the dq
+    kernel, every row), held bit for bit to split_parts_plain on the rows
+    the kernels read."""
     import torch
 
     from efficientsam3_tpu_torch.ops import flash_attention as fa
 
-    if q.shape[-1] == 32:
-        for name, x in (("q", q), ("do", do)):
+    if q.shape[-1] != 256:
+        for name, x in (("q", q), ("do", do), ("k", k), ("v", v)):
             if not torch.equal(fa.split_parts(x).view(torch.int16),
                                fa.split_parts_plain(x).view(torch.int16)):
                 raise AssertionError(f"split_parts ({name}, {tuple(x.shape)}) differs from "
                                      f"split_parts_plain")
-        log(f"[fp32] split_parts: q, dO {tuple(q.shape)} bit-identical to split_parts_plain")
+        log(f"[fp32] split_parts: q, dO {tuple(q.shape)}, k, v {tuple(k.shape)} bit-identical "
+            f"to split_parts_plain")
         return
     b, lk, tile = k.shape[0], k.shape[2], fa._WIDE_F32_TILE
     kb, _ = fa._tma_rows(key_bias, fa.NEG_INF)
@@ -4252,10 +4280,10 @@ def bwd_rows_fp32(q, k, v, key_bias, o, lse, do, scale, launches, suffix, device
     """The dq and dkv rows of the fp32 backward kernels at captured inputs
     (each row's source the one ``bwd_dq_kernel`` / ``bwd_dkv_kernel``
     names): each held to its plain version at FP32_TOL of the largest
-    magnitude (at d=256 their split pass too, bit for bit:
-    split_parts_check), SDPA's fp32 backward (bool key mask) as the library
-    time. The wrappers' split passes (d=256; d=32's dkv) are in their
-    graph and call times."""
+    magnitude (their split pass too, bit for bit: split_parts_check),
+    SDPA's fp32 backward (bool key mask) as the library time. The wrappers'
+    split passes (two before each kernel) are in their graph and call
+    times."""
     import torch
     import torch.nn.functional as F
 

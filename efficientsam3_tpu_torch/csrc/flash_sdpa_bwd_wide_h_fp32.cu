@@ -1,7 +1,8 @@
 // Flash attention backward at head dim 256 on fp32 operands (the default
 // build), for Hopper (sm_90a): the dQ kernel and the dK / dV kernel on
 // split-bf16 wgmma products, TMA and a warp-specialised pipeline, and the
-// split pass that feeds them (and, at d = 32, flash_sdpa_bwd_h_fp32.cu).
+// split pass that feeds them (and, at d = 32, 64 and 80,
+// flash_sdpa_bwd_h_fp32.cu and flash_sdpa_bwd_dq_h_fp32.cu).
 // bf16 at d = 256 is flash_sdpa_bwd_wide_h.cu's (the design this one starts
 // from); the smaller head dims are flash_sdpa_bwd.cu's and the *_h.cu
 // kernels'.
@@ -223,18 +224,27 @@ __device__ __forceinline__ void grad3(float (&acc)[NACC], const uint32_t (&gh)[2
 // ---------------------------------------------------------------- split
 // hi and lo of the rows of x (B, H, n, SD) f32 with element strides (sb,
 // sh, sn), into parts (2, B, H, n, SD) bf16 contiguous, SD = 256 (this
-// file's kernels) or 32 (flash_sdpa_bwd_h_fp32.cu's): 8 columns a lane,
-// SD / 8 lanes a row, 2048 / SD rows a block of 256. With tile > 0 (SD =
-// 256, one warp a row) a row is written only when its tile of `tile` rows
-// holds a live key (key_bias (B, lkb) > -5e8).
+// file's kernels) or 32, 64 and 80 (flash_sdpa_bwd_h_fp32.cu's Q and dO,
+// flash_sdpa_bwd_dq_h_fp32.cu's K and V): 8 columns a lane, SD / 8 lanes a
+// row, RPB rows a block of 256 (25 at SD = 80, whose 10 lanes a row leave
+// the last 6 threads idle). With tile > 0 (SD = 256, one warp a row) a row
+// is written only when its tile of `tile` rows holds a live key (key_bias
+// (B, lkb) > -5e8).
+template <int SD>
+__host__ __device__ constexpr int split_rows_a_block() {
+  return 256 / (SD / 8);
+}
+
 template <int SD>
 __global__ void __launch_bounds__(256)
 split_parts_kernel(const float* __restrict__ x, const float* __restrict__ key_bias,
                    bf16* __restrict__ parts, int B, int H, int n, int lkb, int tile, long long sb,
                    long long sh, long long sn) {
   constexpr int LPR = SD / 8;  // lanes a row
+  constexpr int RPB = split_rows_a_block<SD>();
+  if (threadIdx.x >= RPB * LPR) return;
   const long long rows = static_cast<long long>(B) * H * n;
-  const long long row = static_cast<long long>(blockIdx.x) * (256 / LPR) + threadIdx.x / LPR;
+  const long long row = static_cast<long long>(blockIdx.x) * RPB + threadIdx.x / LPR;
   if (row >= rows) return;  // at SD = 256 the whole warp
   const int lane = threadIdx.x % LPR;
   const int r = static_cast<int>(row % n);
@@ -656,39 +666,38 @@ int prepare_dkv() {
   return raise_smem(flash_bwd_dkv_wide_f32_kernel, dkv::SMEM, smem_set);
 }
 
-// A (2 B, H, n, 256) bf16 split copy (hi, then lo), contiguous, as a map of
-// 32-row boxes.
-CUresult map_parts(EncodeTiled fn, CUtensorMap* m, const void* parts, int n, int H, int B) {
-  const long long sn = D, sh = static_cast<long long>(n) * D, sb = H * sh;
-  return map_heads(fn, m, parts, D, n, H, 2 * B, sb, sh, sn, BS);
+template <int SD>
+void launch_split(const float* x, const float* key_bias, bf16* parts, int B, int H, int n,
+                  int lkb, int tile, long long sb, long long sh, long long sn, cudaStream_t st) {
+  const long long rows = static_cast<long long>(B) * H * n;
+  constexpr long long RPB = split_rows_a_block<SD>();
+  const unsigned blocks = static_cast<unsigned>((rows + RPB - 1) / RPB);
+  split_parts_kernel<SD><<<blocks, 256, 0, st>>>(x, key_bias, parts, B, H, n, lkb, tile, sb, sh,
+                                                 sn);
 }
 
 }  // namespace
 
-// The split copy of x (B, H, n, d) f32, d = 256 or 32, element strides
-// (sb, sh, sn) each a multiple of 4 and the base 16-byte aligned: parts (2,
-// B, H, n, d) bf16 contiguous, hi = bf16(x) then lo = bf16(x - hi). With
-// tile > 0 (d = 256 only) only the rows of tiles of `tile` rows that hold a
-// live key (key_bias (B, lkb) f32 contiguous > -5e8) are written. Returns a
-// CUDA error.
+// The split copy of x (B, H, n, d) f32, d = 256, 32, 64 or 80, element
+// strides (sb, sh, sn) each a multiple of 4 and the base 16-byte aligned:
+// parts (2, B, H, n, d) bf16 contiguous, hi = bf16(x) then lo = bf16(x -
+// hi). With tile > 0 (d = 256 only) only the rows of tiles of `tile` rows
+// that hold a live key (key_bias (B, lkb) f32 contiguous > -5e8) are
+// written. Returns a CUDA error.
 extern "C" int flash_sdpa_split_parts(const void* x, const void* key_bias, void* parts, int B,
                                       int H, int n, int d, int lkb, int tile, long long sb,
                                       long long sh, long long sn, void* stream) {
-  if (B <= 0 || H <= 0 || n <= 0 || tile < 0 || (d != 256 && d != 32) ||
+  decltype(&launch_split<32>) run = nullptr;
+  if (d == 32) run = launch_split<32>;
+  if (d == 64) run = launch_split<64>;
+  if (d == 80) run = launch_split<80>;
+  if (d == 256) run = launch_split<256>;
+  if (run == nullptr || B <= 0 || H <= 0 || n <= 0 || tile < 0 ||
       (tile > 0 && (d != 256 || key_bias == nullptr || lkb < n)) ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0 || sb % 4 != 0 || sh % 4 != 0 || sn % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long rows = static_cast<long long>(B) * H * n;
-  const long long per_block = 2048 / d;  // rows a block of 256 threads
-  const unsigned blocks = static_cast<unsigned>((rows + per_block - 1) / per_block);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* xs = static_cast<const float*>(x);
-  const float* kb = static_cast<const float*>(key_bias);
-  bf16* out = static_cast<bf16*>(parts);
-  if (d == 256)
-    split_parts_kernel<256><<<blocks, 256, 0, st>>>(xs, kb, out, B, H, n, lkb, tile, sb, sh, sn);
-  else
-    split_parts_kernel<32><<<blocks, 256, 0, st>>>(xs, kb, out, B, H, n, lkb, tile, sb, sh, sn);
+  run(static_cast<const float*>(x), static_cast<const float*>(key_bias), static_cast<bf16*>(parts),
+      B, H, n, lkb, tile, sb, sh, sn, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -714,8 +723,8 @@ extern "C" int flash_sdpa_bwd_dq_wide_f32(const void* q, const void* kp, const v
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return 999;
   CUtensorMap tk, tv, tb;
-  CUresult r = map_parts(fn, &tk, kp, lk, H, B);
-  if (r == CUDA_SUCCESS) r = map_parts(fn, &tv, vp, lk, H, B);
+  CUresult r = map_parts(fn, &tk, kp, D, lk, H, B, BS);
+  if (r == CUDA_SUCCESS) r = map_parts(fn, &tv, vp, D, lk, H, B, BS);
   if (r == CUDA_SUCCESS) r = map_rows_f32(fn, &tb, key_bias, lkb, B, BS);
   if (r != CUDA_SUCCESS) return 1000 + static_cast<int>(r);
   int smem = 0;
@@ -750,8 +759,8 @@ extern "C" int flash_sdpa_bwd_dkv_wide_f32(const void* qp, const void* dop, cons
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return 999;
   CUtensorMap tq, tdo, tl, td;
-  CUresult r = map_parts(fn, &tq, qp, lq, H, B);
-  if (r == CUDA_SUCCESS) r = map_parts(fn, &tdo, dop, lq, H, B);
+  CUresult r = map_parts(fn, &tq, qp, D, lq, H, B, BS);
+  if (r == CUDA_SUCCESS) r = map_parts(fn, &tdo, dop, D, lq, H, B, BS);
   if (r == CUDA_SUCCESS) r = map_rows_f32(fn, &tl, lse, lqp, B * H, BS);
   if (r == CUDA_SUCCESS) r = map_rows_f32(fn, &td, delta, lqp, B * H, BS);
   if (r != CUDA_SUCCESS) return 1000 + static_cast<int>(r);

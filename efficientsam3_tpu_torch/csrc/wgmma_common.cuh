@@ -2,7 +2,8 @@
 // (flash_sdpa_h.cu: the bf16 forward at d = 32, 64 and 80;
 // flash_sdpa_bwd_h.cu: the bf16 dK / dV backward at d = 32, 64 and 80;
 // flash_sdpa_bwd_dq_h.cu: the bf16 dQ backward at d = 64 and 80;
-// flash_sdpa_bwd_h_fp32.cu: the dK / dV backward at d = 32 on fp32 operands;
+// flash_sdpa_bwd_h_fp32.cu and flash_sdpa_bwd_dq_h_fp32.cu: the dK / dV and
+// the dQ backward at d = 32, 64 and 80 on fp32 operands;
 // flash_sdpa_bwd_wide_h.cu: the bf16 dQ and dK / dV backward at d = 256;
 // flash_sdpa_bwd_wide_h_fp32.cu: the same at d = 256 on fp32 operands):
 // mbarriers, TMA loads, wgmma shared memory descriptors and instructions,
@@ -41,8 +42,8 @@
 // lo_a hi_b into one fp32 accumulator (attn_common.cuh has the same rule
 // for the mma.sync kernels). A part is an ordinary bf16 tile: TMA loads it
 // from a split copy, or a kernel writes it into shared memory itself in
-// the 128-byte swizzle TMA would give it (swz128, then fence_proxy_async
-// before wgmma reads it).
+// the swizzle TMA would give it (swz128 at d = 256, Tile::at at d <= 80,
+// then fence_proxy_async before wgmma reads it).
 #pragma once
 
 #include <cuda.h>
@@ -155,6 +156,18 @@ __host__ __device__ constexpr int slab_cols(int d) {
   return d <= 64 ? d : d % 64 == 0 ? 64 : 16;
 }
 
+// Byte offset of byte `byte` (0 .. ROW - 1) of row `row` in a slab of
+// ROW-byte rows with the swizzle of that width, as TMA writes it
+// (CU_TENSOR_MAP_SWIZZLE_32B / 64B / 128B; the slab 1024-byte aligned): the
+// 16-byte chunk index XOR address bits 7 and up (the row's place among the
+// 128-byte lines of its swizzle atom: row at 128, row / 2 at 64, row / 4 at
+// 32), over ROW / 16 chunks.
+template <int ROW>
+__device__ __forceinline__ uint32_t swz(int row, int byte) {
+  static_assert(ROW == 32 || ROW == 64 || ROW == 128, "rows of 32, 64 or 128 bytes");
+  return row * ROW + ((((byte >> 4) ^ (row * ROW >> 7)) & (ROW / 16 - 1)) << 4) + (byte & 15);
+}
+
 // A ROWS x D bf16 tile in slabs: its geometry, its wgmma descriptors, and
 // its TMA load from a map_heads map of the same d. At d = 32 and 64 (one
 // slab) desc_k and desc_mn are those of the one-slab functions above.
@@ -184,14 +197,18 @@ struct Tile {
 #pragma unroll
     for (int j = 0; j < NSLAB; ++j) tma_load_4d(dst + j * SLAB, map, bar, j * COLS, row0, h, b);
   }
+  // Byte offset of element (row, col) where TMA would put it: a kernel
+  // that writes a tile itself (a resident operand's split parts) stores a
+  // bf16 pair (col even) as one 32-bit word there
+  __device__ __forceinline__ static uint32_t at(int row, int col) {
+    return (col / COLS) * SLAB + swz<ROW>(row, (col % COLS) * 2);
+  }
 };
 
 // Byte offset of byte `byte` (0..127) of row `row` in a slab with the
 // 128-byte swizzle, as TMA writes it (CU_TENSOR_MAP_SWIZZLE_128B): the
 // 16-byte chunk index XOR the row's index within its 8-row atom.
-__device__ __forceinline__ uint32_t swz128(int row, int byte) {
-  return row * 128 + ((((byte >> 4) ^ row) & 7) << 4) + (byte & 15);
-}
+__device__ __forceinline__ uint32_t swz128(int row, int byte) { return swz<128>(row, byte); }
 
 // Order this thread's shared-memory stores before later reads by the async
 // proxy (wgmma operands a kernel wrote itself).
@@ -597,6 +614,14 @@ inline CUresult map_heads(EncodeTiled fn, CUtensorMap* m, const void* base, int 
             : width == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
                           : CU_TENSOR_MAP_SWIZZLE_32B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// A (2 B, H, n, d) bf16 split copy (flash_sdpa_split_parts: hi at batch
+// b, lo at b + B), contiguous, as a map_heads map of `rows`-row boxes.
+inline CUresult map_parts(EncodeTiled fn, CUtensorMap* m, const void* parts, int d, int n, int H,
+                          int B, int rows) {
+  const long long sn = d, sh = static_cast<long long>(n) * d, sb = H * sh;
+  return map_heads(fn, m, parts, d, n, H, 2 * B, sb, sh, sn, rows);
 }
 
 // A (rows, cols) f32 row-major matrix (cols a multiple of 4, the base

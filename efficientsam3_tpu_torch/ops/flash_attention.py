@@ -28,16 +28,15 @@ outputs come back in the operands' dtype, the log-sum-exp in fp32. Each
 counts its kernel launches in ``<wrapper>.launches``; ``flash_sdpa``
 forward at d=32, 64 and 80 in bf16 is the wgmma kernel
 ``csrc/flash_sdpa_h.cu`` (``sdpa_kernel`` says which kernel a call
-reaches); ``flash_sdpa_bwd_dkv`` at d=32, 64 and 80 in bf16 is the wgmma
-kernel ``csrc/flash_sdpa_bwd_h.cu`` and at d=32 in fp32
-``csrc/flash_sdpa_bwd_h_fp32.cu`` (split bf16 parts), ``flash_sdpa_bwd_dq``
-at d=64 and 80 in bf16 ``csrc/flash_sdpa_bwd_dq_h.cu`` (``bwd_dkv_kernel``,
-``bwd_dq_kernel``; the bf16 dq at d=32, the fp32 dq at d=32, 64 and 80 and
-the fp32 dkv at d=64 and 80 are the mma.sync kernels of
-``csrc/flash_sdpa_bwd.cu``), and both backward kernels at d=256 those of
-``csrc/flash_sdpa_bwd_wide_h.cu`` in bf16 and
-``csrc/flash_sdpa_bwd_wide_h_fp32.cu`` in fp32 (the fp32 wgmma kernels
-read split bf16 copies of their streamed operands, made by
+reaches); ``flash_sdpa_bwd_dkv`` at d=32, 64 and 80 is the wgmma kernel
+``csrc/flash_sdpa_bwd_h.cu`` in bf16 and ``csrc/flash_sdpa_bwd_h_fp32.cu``
+in fp32 (split bf16 parts), ``flash_sdpa_bwd_dq`` at d=64 and 80 in bf16
+``csrc/flash_sdpa_bwd_dq_h.cu`` and at d=32, 64 and 80 in fp32
+``csrc/flash_sdpa_bwd_dq_h_fp32.cu`` (``bwd_dkv_kernel``, ``bwd_dq_kernel``;
+the bf16 dq at d=32 is the mma.sync kernel of ``csrc/flash_sdpa_bwd.cu``),
+and both backward kernels at d=256 those of ``csrc/flash_sdpa_bwd_wide_h.cu``
+in bf16 and ``csrc/flash_sdpa_bwd_wide_h_fp32.cu`` in fp32 (the fp32 wgmma
+kernels read split bf16 copies of their streamed operands, made by
 ``split_parts``). Under autograd (grad
 mode on and an input requiring a gradient) ``flash_sdpa`` runs as an
 autograd Function whose backward is the two backward kernels; the
@@ -150,34 +149,36 @@ def _bwd_wide_kernel(dtype):
 
 
 # head dims of the bf16 wgmma dq kernel (csrc/flash_sdpa_bwd_dq_h.cu) and of
-# the fp32 wgmma dkv kernel (csrc/flash_sdpa_bwd_h_fp32.cu); the mma.sync
-# kernels of csrc/flash_sdpa_bwd.cu refuse them there
+# the fp32 wgmma dq and dkv kernels (csrc/flash_sdpa_bwd_dq_h_fp32.cu,
+# csrc/flash_sdpa_bwd_h_fp32.cu); the mma.sync dq kernel of
+# csrc/flash_sdpa_bwd.cu takes only bf16 at d=32
 _DQ_H_D = (64, 80)
-_DKV_H_F32_D = (32,)
+_DQ_H_F32_D = (32, 64, 80)
+_DKV_H_F32_D = (32, 64, 80)
 
 
 def bwd_dq_kernel(dtype, d):
     """The dq kernel a CUDA ``flash_sdpa_bwd_dq`` call launches: the wgmma
     kernels at d=256 (csrc/flash_sdpa_bwd_wide_h.cu for bf16,
-    csrc/flash_sdpa_bwd_wide_h_fp32.cu for fp32) and for bf16 at d=64 and
-    80 (csrc/flash_sdpa_bwd_dq_h.cu), else the mma.sync kernel of
-    csrc/flash_sdpa_bwd.cu (bf16 at d=32, fp32 at d=32, 64 and 80)."""
-    if d == 256:
-        return _bwd_wide_kernel(dtype)
-    return "flash_sdpa_bwd_dq_h" if (dtype == torch.bfloat16 and d in _DQ_H_D) else "flash_sdpa_bwd"
-
-
-def bwd_dkv_kernel(dtype, d):
-    """The dkv kernel a CUDA ``flash_sdpa_bwd_dkv`` call launches: the
-    wgmma kernels at d=256 (as ``bwd_dq_kernel``), for bf16 at d=32, 64 and
-    80 (csrc/flash_sdpa_bwd_h.cu) and for fp32 at d=32
-    (csrc/flash_sdpa_bwd_h_fp32.cu, split bf16 parts), else the mma.sync
-    kernel of csrc/flash_sdpa_bwd.cu (fp32 at d=64 and 80)."""
+    csrc/flash_sdpa_bwd_wide_h_fp32.cu for fp32), for bf16 at d=64 and 80
+    (csrc/flash_sdpa_bwd_dq_h.cu) and for fp32 at d=32, 64 and 80
+    (csrc/flash_sdpa_bwd_dq_h_fp32.cu, split bf16 parts), else the mma.sync
+    kernel of csrc/flash_sdpa_bwd.cu (bf16 at d=32)."""
     if d == 256:
         return _bwd_wide_kernel(dtype)
     if dtype == torch.bfloat16:
-        return "flash_sdpa_bwd_h" if d in _H_D else "flash_sdpa_bwd"
-    return "flash_sdpa_bwd_h_fp32" if d in _DKV_H_F32_D else "flash_sdpa_bwd"
+        return "flash_sdpa_bwd_dq_h" if d in _DQ_H_D else "flash_sdpa_bwd"
+    return "flash_sdpa_bwd_dq_h_fp32" if d in _DQ_H_F32_D else "flash_sdpa_bwd"
+
+
+def bwd_dkv_kernel(dtype, d):
+    """The dkv kernel a CUDA ``flash_sdpa_bwd_dkv`` call launches, a wgmma
+    kernel at every head dim the backward takes: at d=256 as
+    ``bwd_dq_kernel``, at d=32, 64 and 80 csrc/flash_sdpa_bwd_h.cu for bf16
+    and csrc/flash_sdpa_bwd_h_fp32.cu (split bf16 parts) for fp32."""
+    if d == 256:
+        return _bwd_wide_kernel(dtype)
+    return "flash_sdpa_bwd_h" if dtype == torch.bfloat16 else "flash_sdpa_bwd_h_fp32"
 
 
 def _aligned(t):
@@ -246,13 +247,24 @@ def _lib_bwd_dq_h_attrs():
 
 def _lib_bwd_h_f32():
     """``flash_sdpa_bwd_dkv_h_f32`` of csrc/flash_sdpa_bwd_h_fp32.cu (the
-    same argument kinds as ``flash_sdpa_bwd_dkv_wide_f32``)."""
+    argument kinds of ``flash_sdpa_bwd_dkv_wide_f32`` and the head dim)."""
     return _bind("flash_sdpa_bwd_h_fp32", "flash_sdpa_bwd_dkv_h_f32",
-                 [_P] * 9 + [_I] * 5 + [_F] + [_LL] * 12 + [_P])
+                 [_P] * 9 + [_I] * 6 + [_F] + [_LL] * 12 + [_P])
 
 
 def _lib_bwd_h_f32_attrs():
-    return _bind("flash_sdpa_bwd_h_fp32", "flash_sdpa_bwd_dkv_h_f32_attrs", [_P])
+    return _bind("flash_sdpa_bwd_h_fp32", "flash_sdpa_bwd_dkv_h_f32_attrs", [_I, _P])
+
+
+def _lib_bwd_dq_h_f32():
+    """``flash_sdpa_bwd_dq_h_f32`` of csrc/flash_sdpa_bwd_dq_h_fp32.cu (the
+    argument kinds of ``flash_sdpa_bwd_dq_wide_f32`` and the head dim)."""
+    return _bind("flash_sdpa_bwd_dq_h_fp32", "flash_sdpa_bwd_dq_h_f32",
+                 [_P] * 9 + [_I] * 6 + [_F] + [_LL] * 12 + [_P])
+
+
+def _lib_bwd_dq_h_f32_attrs():
+    return _bind("flash_sdpa_bwd_dq_h_fp32", "flash_sdpa_bwd_dq_h_f32_attrs", [_I, _I, _P])
 
 
 def _lib_bwd_wide_h(name):
@@ -291,13 +303,12 @@ def _lib_bwd_wide_f32_dkv_attrs():
 
 
 # the head dims kernel_resources reads each kernel of d < 256 at: the wgmma
-# forward and dkv at _H_D, the wgmma bf16 dq at _DQ_H_D and fp32 dkv at
-# _DKV_H_F32_D, and the mma.sync kernels at what those leave them (the
-# forward in fp32 only, dq in bf16 at d=32, dkv in fp32 at d=64 and 80)
+# forward and dkv at _H_D, the wgmma bf16 dq at _DQ_H_D, the fp32 dq and dkv
+# at _DQ_H_F32_D and _DKV_H_F32_D, and the mma.sync kernels at what those
+# leave them (the forward in fp32 only, dq in bf16 at d=32)
 _RESOURCE_DIMS = {"flash_sdpa_h": _H_D, "flash_sdpa_bwd_h": _H_D, "flash_sdpa_fp32": _H_D,
                   "flash_sdpa_bwd_dq_h": _DQ_H_D, "flash_sdpa_bwd_h_fp32": _DKV_H_F32_D,
-                  "flash_sdpa_bwd_dq": (32,), "flash_sdpa_bwd_dq_fp32": _H_D,
-                  "flash_sdpa_bwd_dkv_fp32": (64, 80)}
+                  "flash_sdpa_bwd_dq_h_fp32": _DQ_H_F32_D, "flash_sdpa_bwd_dq": (32,)}
 
 
 def kernel_resources(kernel, d=32, lk=5184):
@@ -307,27 +318,26 @@ def kernel_resources(kernel, d=32, lk=5184):
     ``"flash_sdpa_h"`` (bf16 forward, d=32, 64 or 80, lk keys),
     ``"flash_sdpa_bwd_h"`` (bf16 dkv, d=32, 64 or 80),
     ``"flash_sdpa_bwd_dq_h"`` (bf16 dq, d=64 or 80, lk keys),
-    ``"flash_sdpa_bwd_h_fp32"`` (fp32 dkv, d=32),
+    ``"flash_sdpa_bwd_h_fp32"`` (fp32 dkv, d=32, 64 or 80),
+    ``"flash_sdpa_bwd_dq_h_fp32"`` (fp32 dq, d=32, 64 or 80, lk keys),
     ``"flash_sdpa_bwd_dq_wide_h"`` (d=256, lk keys),
     ``"flash_sdpa_bwd_dkv_wide_h"`` (d=256), or their fp32 counterparts
     ``"flash_sdpa_bwd_dq_wide_f32"`` (lk keys) and
     ``"flash_sdpa_bwd_dkv_wide_f32"``; or of the mma.sync register forward
     of csrc/flash_sdpa.cu, ``"flash_sdpa_fp32"`` (d=32, 64 or 80), whose
-    shared memory is static; or of the mma.sync backward of
-    csrc/flash_sdpa_bwd.cu, ``"flash_sdpa_bwd_dq"`` (bf16: d=32, lk keys),
-    ``"flash_sdpa_bwd_dq_fp32"`` (d=32, 64 or 80) and
-    ``"flash_sdpa_bwd_dkv_fp32"`` (d=64 or 80). A kernel or head dim not
-    built raises ValueError before any library is loaded (the mma.sync
-    instantiations that wgmma kernels replaced among them)."""
+    shared memory is static; or of the mma.sync dq kernel of
+    csrc/flash_sdpa_bwd.cu, ``"flash_sdpa_bwd_dq"`` (bf16: d=32, lk keys). A
+    kernel or head dim not built raises ValueError before any library is
+    loaded (the mma.sync instantiations that wgmma kernels replaced among
+    them)."""
     dims = _RESOURCE_DIMS.get(kernel)
     if dims is not None and d not in dims:
         raise ValueError(f"{kernel} kernel supports head dims {dims}, got {d}")
     out = (ctypes.c_int * 4)()
     if kernel == "flash_sdpa_fp32":
         status = _lib_sdpa_attrs()(d, 1, out)
-    elif kernel in ("flash_sdpa_bwd_dq", "flash_sdpa_bwd_dq_fp32", "flash_sdpa_bwd_dkv_fp32"):
-        status = _lib_bwd_attrs()(int("dkv" in kernel), d, int(kernel.endswith("_fp32")), lk,
-                                  out)
+    elif kernel == "flash_sdpa_bwd_dq":
+        status = _lib_bwd_attrs()(0, d, 0, lk, out)
     elif kernel == "flash_sdpa_h":
         status = _lib_sdpa_h_attrs()(d, lk, out)
     elif kernel == "flash_sdpa_bwd_h":
@@ -335,7 +345,9 @@ def kernel_resources(kernel, d=32, lk=5184):
     elif kernel == "flash_sdpa_bwd_dq_h":
         status = _lib_bwd_dq_h_attrs()(d, lk, out)
     elif kernel == "flash_sdpa_bwd_h_fp32":
-        status = _lib_bwd_h_f32_attrs()(out)
+        status = _lib_bwd_h_f32_attrs()(d, out)
+    elif kernel == "flash_sdpa_bwd_dq_h_fp32":
+        status = _lib_bwd_dq_h_f32_attrs()(d, lk, out)
     elif kernel == "flash_sdpa_bwd_dq_wide_h":
         status = _lib_bwd_wide_h_dq_attrs()(lk, out)
     elif kernel == "flash_sdpa_bwd_dkv_wide_h":
@@ -496,7 +508,8 @@ def flash_sdpa_bwd_plain(q, k, v, key_bias, o, lse, do, sm_scale=None):
 
 
 def _lib_bwd(name):
-    """``flash_sdpa_bwd_dq`` or ``flash_sdpa_bwd_dkv`` of csrc/flash_sdpa_bwd.cu."""
+    """``flash_sdpa_bwd_dq`` or ``flash_sdpa_bwd_dkv`` of csrc/flash_sdpa_bwd.cu
+    (the dkv entry refuses every call: the tests hold it to that)."""
     return _bind("flash_sdpa_bwd", name, [_P] * 9 + [_I] * 6 + [_F] + [_LL] * 18 + [_P])
 
 
@@ -526,8 +539,9 @@ def split_parts_plain(x):
 
 
 # head dims of the split pass: the fp32 d=256 backward kernels' streamed
-# operands and the fp32 d=32 dkv kernel's Q and dO
-_SPLIT_D = (32, 256)
+# operands, and at d=32, 64 and 80 the fp32 dkv kernel's Q and dO and the
+# fp32 dq kernel's K and V
+_SPLIT_D = (32, 64, 80, 256)
 
 
 def check_split_parts(x, key_bias=None, tile=0):
@@ -545,9 +559,10 @@ def check_split_parts(x, key_bias=None, tile=0):
 
 
 def split_parts(x, key_bias=None, tile=0):
-    """The split copy of x (B, H, N, d) fp32, d=256 or 32, that the fp32
-    wgmma backward kernels read through TMA (d=256: both kernels' streamed
-    operands; d=32: the dkv kernel's Q and dO): (2, B, H, N, d) bf16,
+    """The split copy of x (B, H, N, d) fp32, d=256, 32, 64 or 80, that the
+    fp32 wgmma backward kernels read through TMA (d=256: both kernels'
+    streamed operands; d=32, 64 and 80: the dkv kernel's Q and dO and the
+    dq kernel's K and V): (2, B, H, N, d) bf16,
     ``split_parts_plain``. One launch of the split pass of
     csrc/flash_sdpa_bwd_wide_h_fp32.cu on CUDA (``check_split_parts`` says
     what it takes), counted in ``split_parts.launches``; the plain version
@@ -579,10 +594,10 @@ def flash_sdpa_bwd_dq(q, k, v, key_bias, o, lse, do, sm_scale):
     """dQ of flash_sdpa and Delta = rowsum(dO o O): (dq (B, H, Lq, D) in
     q.dtype, delta (B, H, Lq) f32). One kernel launch on CUDA (head dim 32,
     64, 80 or 256, bf16 or fp32; ``bwd_dq_kernel`` says which: the wgmma
-    kernels at d=256 and in bf16 at d=64 and 80, mma.sync otherwise), counted in
-    ``flash_sdpa_bwd_dq.launches``; fp32 at d=256 first makes the split
-    copies of K and V with two launches of the split pass (``split_parts``,
-    only the rows of live 32-key tiles). The plain version for CPU
+    kernels except bf16 at d=32, mma.sync there), counted in
+    ``flash_sdpa_bwd_dq.launches``; fp32 first makes the split copies of K
+    and V with two launches of the split pass (``split_parts``: every row,
+    at d=256 only the rows of live 32-key tiles). The plain version for CPU
     tensors."""
     if not q.is_cuda:
         return flash_sdpa_bwd_dq_plain(q, k, v, key_bias, o, lse, do, sm_scale)
@@ -596,15 +611,20 @@ def flash_sdpa_bwd_dq(q, k, v, key_bias, o, lse, do, sm_scale):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     kernel = bwd_dq_kernel(q.dtype, d)
     with torch.cuda.device(q.device):  # the launch goes to the current device
-        if kernel == "flash_sdpa_bwd_wide_h_fp32":
+        if kernel in ("flash_sdpa_bwd_wide_h_fp32", "flash_sdpa_bwd_dq_h_fp32"):
             kb, lkb = _tma_rows(key_bias, NEG_INF)
-            kp = split_parts(k, kb, _WIDE_F32_TILE)
-            vp = split_parts(v, kb, _WIDE_F32_TILE)
-            status = _lib_bwd_wide_f32("flash_sdpa_bwd_dq_wide_f32")(
-                q.data_ptr(), kp.data_ptr(), vp.data_ptr(), kb.data_ptr(), o.data_ptr(),
-                do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                b, h, lq, lk, lkb, float(sm_scale), *_bhn_strides(q), *_bhn_strides(o),
-                *_bhn_strides(do), *_bhn_strides(dq), stream)
+            wide = kernel == "flash_sdpa_bwd_wide_h_fp32"
+            kp, vp = (split_parts(t, kb, _WIDE_F32_TILE) if wide else split_parts(t)
+                      for t in (k, v))
+            head = (q.data_ptr(), kp.data_ptr(), vp.data_ptr(), kb.data_ptr(), o.data_ptr(),
+                    do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                    b, h, lq, lk, lkb)
+            tail = (float(sm_scale), *_bhn_strides(q), *_bhn_strides(o), *_bhn_strides(do),
+                    *_bhn_strides(dq), stream)
+            if wide:
+                status = _lib_bwd_wide_f32("flash_sdpa_bwd_dq_wide_f32")(*head, *tail)
+            else:  # the head dim is a template parameter there
+                status = _lib_bwd_dq_h_f32()(*head, d, *tail)
         elif kernel in ("flash_sdpa_bwd_wide_h", "flash_sdpa_bwd_dq_h"):
             kb, lkb = _tma_rows(key_bias, NEG_INF)
             ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), kb.data_ptr(), o.data_ptr(),
@@ -633,13 +653,13 @@ def flash_sdpa_bwd_dkv(q, k, v, key_bias, do, lse, delta, sm_scale):
     """dK and dV of flash_sdpa, given Delta from ``flash_sdpa_bwd_dq``:
     (dk, dv) (B, H, Lk, D) in k's / v's dtype. One kernel launch on CUDA
     (``bwd_dkv_kernel`` says which), counted in
-    ``flash_sdpa_bwd_dkv.launches``; fp32 at d=256 and d=32 (the split-bf16
-    wgmma kernels) first makes the split copies of Q and dO (every row) with
-    two launches of the split pass (``split_parts``). The plain version for
-    CPU tensors."""
+    ``flash_sdpa_bwd_dkv.launches``; fp32 (the split-bf16 wgmma kernels)
+    first makes the split copies of Q and dO (every row) with two launches
+    of the split pass (``split_parts``). The plain version for CPU
+    tensors."""
     if not q.is_cuda:
         return flash_sdpa_bwd_dkv_plain(q, k, v, key_bias, do, lse, delta, sm_scale)
-    b, h, lq, lk, d, fp32 = _check_bwd(q, k, v, key_bias, lse, do)
+    b, h, lq, lk, d, _ = _check_bwd(q, k, v, key_bias, lse, do)
     q, k, v, do = (_aligned(t) for t in (q, k, v, do))
     key_bias = key_bias.float().contiguous()
     dk = torch.empty((b, lk, h, d), dtype=k.dtype, device=q.device).transpose(1, 2)
@@ -649,20 +669,20 @@ def flash_sdpa_bwd_dkv(q, k, v, key_bias, do, lse, delta, sm_scale):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     kernel = bwd_dkv_kernel(q.dtype, d)
     with torch.cuda.device(q.device):  # the launch goes to the current device
+        lse, lqp = _tma_rows(lse.reshape(b * h, lq), NEG_INF)
+        delta, _ = _tma_rows(delta.reshape(b * h, lq), 0.0)
         if kernel in ("flash_sdpa_bwd_wide_h_fp32", "flash_sdpa_bwd_h_fp32"):
             qp, dop = split_parts(q), split_parts(do)
-            lse, lqp = _tma_rows(lse.reshape(b * h, lq), NEG_INF)
-            delta, _ = _tma_rows(delta.reshape(b * h, lq), 0.0)
-            lib = (_lib_bwd_h_f32() if kernel == "flash_sdpa_bwd_h_fp32"
-                   else _lib_bwd_wide_f32("flash_sdpa_bwd_dkv_wide_f32"))
-            status = lib(
-                qp.data_ptr(), dop.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                b, h, lq, lk, lqp, float(sm_scale), *_bhn_strides(k), *_bhn_strides(v),
-                *_bhn_strides(dk), *_bhn_strides(dv), stream)
-        elif kernel != "flash_sdpa_bwd":
-            lse, lqp = _tma_rows(lse.reshape(b * h, lq), NEG_INF)
-            delta, _ = _tma_rows(delta.reshape(b * h, lq), 0.0)
+            head = (qp.data_ptr(), dop.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    key_bias.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                    dv.data_ptr(), b, h, lq, lk, lqp)
+            tail = (float(sm_scale), *_bhn_strides(k), *_bhn_strides(v), *_bhn_strides(dk),
+                    *_bhn_strides(dv), stream)
+            if kernel == "flash_sdpa_bwd_h_fp32":  # the head dim is a template parameter there
+                status = _lib_bwd_h_f32()(*head, d, *tail)
+            else:
+                status = _lib_bwd_wide_f32("flash_sdpa_bwd_dkv_wide_f32")(*head, *tail)
+        else:
             ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(), do.data_ptr(),
                     lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr())
             if kernel == "flash_sdpa_bwd_h":  # the head dim is a template parameter there
@@ -671,13 +691,6 @@ def flash_sdpa_bwd_dkv(q, k, v, key_bias, do, lse, delta, sm_scale):
             else:
                 status = _lib_bwd_wide_h("flash_sdpa_bwd_dkv_wide_h")(
                     *ptrs, b, h, lq, lk, lqp, float(sm_scale), *strides, stream)
-        else:
-            lse = lse.float().contiguous()
-            delta = delta.float().contiguous()
-            status = _lib_bwd("flash_sdpa_bwd_dkv")(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(), do.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                b, h, lq, lk, d, fp32, float(sm_scale), *strides, stream)
     _build.check(status, "flash_sdpa_bwd_dkv launch")
     flash_sdpa_bwd_dkv.launches += 1
     return dk, dv

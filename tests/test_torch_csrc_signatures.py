@@ -37,6 +37,8 @@ BINDINGS = {
     "flash_sdpa_bwd_dq_h_attrs": fa._lib_bwd_dq_h_attrs,
     "flash_sdpa_bwd_dkv_h_f32": fa._lib_bwd_h_f32,
     "flash_sdpa_bwd_dkv_h_f32_attrs": fa._lib_bwd_h_f32_attrs,
+    "flash_sdpa_bwd_dq_h_f32": fa._lib_bwd_dq_h_f32,
+    "flash_sdpa_bwd_dq_h_f32_attrs": fa._lib_bwd_dq_h_f32_attrs,
     "flash_sdpa_bwd_dq_wide_h": lambda: fa._lib_bwd_wide_h("flash_sdpa_bwd_dq_wide_h"),
     "flash_sdpa_bwd_dkv_wide_h": lambda: fa._lib_bwd_wide_h("flash_sdpa_bwd_dkv_wide_h"),
     "flash_sdpa_bwd_dq_wide_h_attrs": fa._lib_bwd_wide_h_dq_attrs,

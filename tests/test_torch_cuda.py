@@ -774,23 +774,24 @@ def test_flash_sdpa_fp32_kernel_matches_plain(cuda, d, h, lq, lk):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,lq,lk", [(32, 5184, 5184), (32, 333, 517), (256, 333, 36352),
-                                     (256, 700, 517)])
+                                     (256, 700, 517), (64, 333, 517), (80, 333, 517),
+                                     (64, 130, 70), (80, 64, 9), (80, 200, 2000), (64, 1, 300)])
 def test_flash_sdpa_bwd_fp32_kernels_match_plain(cuda, d, lq, lk):
-    """The dq (and Delta) and dk/dv kernels' fp32 instantiations (d=32: the
-    mma.sync dq kernel of flash_sdpa_bwd.cu and the split-bf16 wgmma dkv
-    kernel of flash_sdpa_bwd_h_fp32.cu; d=256: the split-bf16 wgmma kernels
-    of flash_sdpa_bwd_wide_h_fp32.cu) against the plain backward in
-    fp32: strided dO, ragged Lq/Lk, masked tiles, a fully masked row (zero
-    gradients), dQ / dK / dV in (B, N, H, D) memory, the same bits when run
-    again."""
-    h = 8 if d == 32 else 1
+    """The dq (and Delta) and dk/dv kernels' fp32 instantiations (d=32, 64
+    and 80: the split-bf16 wgmma kernels of flash_sdpa_bwd_dq_h_fp32.cu and
+    flash_sdpa_bwd_h_fp32.cu; d=256: those of flash_sdpa_bwd_wide_h_fp32.cu)
+    against the plain backward in fp32: strided dO, ragged Lq/Lk, a masked
+    64-key tile, a ragged masked tail, a fully masked row (zero gradients),
+    dQ / dK / dV in (B, N, H, D) memory, Delta within FP32_TOL, the same
+    bits when run again."""
+    h = {32: 8, 64: 2, 80: 3, 256: 1}[d]
     q, k, v = (_randn(cuda, 3, h, n, d, dtype=torch.float32) for n in (lq, lk, lk))
     bias = _mask_rows(cuda, 3, lk)
     o, lse = fa.flash_sdpa_plain(q, k, v, bias, return_lse=True)
     do = _randn(cuda, 3, lq, h * d, dtype=torch.float32).reshape(3, lq, h, d).transpose(1, 2)
     scale = d ** -0.5
     want = (("flash_sdpa_bwd_wide_h_fp32",) * 2 if d == 256
-            else ("flash_sdpa_bwd", "flash_sdpa_bwd_h_fp32"))
+            else ("flash_sdpa_bwd_dq_h_fp32", "flash_sdpa_bwd_h_fp32"))
     assert (fa.bwd_dq_kernel(torch.float32, d), fa.bwd_dkv_kernel(torch.float32, d)) == want
     n_dq, n_dkv = fa.flash_sdpa_bwd_dq.launches, fa.flash_sdpa_bwd_dkv.launches
     dq, delta = fa.flash_sdpa_bwd_dq(q, k, v, bias, o, lse, do, scale)
@@ -863,23 +864,28 @@ def test_flash_sdpa_bwd_fp32_d256_cases_match_plain(cuda, case):
 
 
 @pytest.mark.cuda
-def test_split_parts_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("d", [256, 32, 64, 80])
+def test_split_parts_kernel_matches_plain(cuda, d):
     """The split pass (flash_sdpa_bwd_wide_h_fp32.cu) against its plain
-    version bit for bit, on a strided (B, H, N, 256) view holding normals,
-    subnormals, zeros and large magnitudes: every row with tile 0; with
-    tile 32 the rows of the 32-row tiles that hold a live key (row 0's keys
-    32..63 and the whole of row 1 masked here, keys past N ignored)."""
-    b, n, h = 2, 200, 2
-    x = _randn(cuda, b, n, h * 256, dtype=torch.float32)
+    version bit for bit, on a strided (B, H, N, d) view holding normals,
+    subnormals, zeros and large magnitudes: every row with tile 0 (d=80:
+    10 lanes a row, 25 rows a block, 200 rows not a multiple of 25 a
+    block's worth at each (batch, head)); at d=256 with tile 32 the rows of
+    the 32-row tiles that hold a live key (row 0's keys 32..63 and the whole
+    of row 1 masked here, keys past N ignored)."""
+    b, n, h = 2, 203, 2
+    x = _randn(cuda, b, n, h * d, dtype=torch.float32)
     x[0, :5] = torch.tensor([0.0, -0.0, 1e-40, -3e-39, 3e38], device=cuda)[:, None]
-    x = x.reshape(b, n, h, 256).transpose(1, 2)
+    x = x.reshape(b, n, h, d).transpose(1, 2)
     want = fa.split_parts_plain(x)
     before = fa.split_parts.launches
     got = fa.split_parts(x)
     torch.cuda.synchronize()
-    assert fa.split_parts.launches == before + 1 and got.shape == (2, b, h, n, 256)
+    assert fa.split_parts.launches == before + 1 and got.shape == (2, b, h, n, d)
     assert torch.equal(got.view(torch.int16), want.view(torch.int16))
-    bias = torch.zeros((b, 204), device=cuda)
+    if d != 256:
+        return
+    bias = torch.zeros((b, 208), device=cuda)
     bias[0, 32:64] = NEG_INF
     bias[1] = NEG_INF
     bias[:, n:] = NEG_INF
@@ -1114,6 +1120,10 @@ def test_flash_sdpa_d80_reads_every_slab(cuda, lq, lk):
                                       ("flash_sdpa_bwd_h", 64), ("flash_sdpa_bwd_h", 80),
                                       ("flash_sdpa_bwd_dq_h", 64), ("flash_sdpa_bwd_dq_h", 80),
                                       ("flash_sdpa_bwd_h_fp32", 32),
+                                      ("flash_sdpa_bwd_h_fp32", 64), ("flash_sdpa_bwd_h_fp32", 80),
+                                      ("flash_sdpa_bwd_dq_h_fp32", 32),
+                                      ("flash_sdpa_bwd_dq_h_fp32", 64),
+                                      ("flash_sdpa_bwd_dq_h_fp32", 80),
                                       ("flash_sdpa_bwd_dq_wide_h", 256),
                                       ("flash_sdpa_bwd_dkv_wide_h", 256),
                                       ("flash_sdpa_bwd_dq_wide_f32", 256),
@@ -1123,8 +1133,8 @@ def test_wgmma_kernels_fit_without_spills(cuda, kernel, d):
     least one block of them resident an SM at the main path's 5184 keys
     (the forward at d=32 and 64: 2, its design; at d=80 1, whose O
     accumulator would spill at 2; the d=256 dq kernels also at the clip's
-    36352; the d=64 / d=80 dq kernel at vit_h's 4900 as well)."""
-    if kernel == "flash_sdpa_bwd_dq_h":
+    36352; the d=64 / d=80 dq kernels at vit_h's 4900 as well)."""
+    if kernel in ("flash_sdpa_bwd_dq_h", "flash_sdpa_bwd_dq_h_fp32"):
         assert fa.kernel_resources(kernel, d, 4900)["spill_bytes"] == 0
     if kernel in ("flash_sdpa_bwd_dq_wide_h", "flash_sdpa_bwd_dq_wide_f32"):
         assert fa.kernel_resources(kernel, d, 36352)["blocks_per_sm"] >= 1
@@ -1263,8 +1273,10 @@ def test_flash_sdpa_d80_reads_every_slab(cuda, lq, lk):
 @pytest.mark.parametrize("d", [64, 80])
 def test_flash_sdpa_d64_d80_autograd_matches_plain(cuda, dtype, tol, d):
     """flash_sdpa under autograd at d=64 and d=80 (the forward kernel, then
-    the dq kernel, bf16 the wgmma one of flash_sdpa_bwd_dq_h.cu, and the dkv
-    kernel, bf16 the wgmma one of flash_sdpa_bwd_h.cu: 1 launch each) against
+    the wgmma dq kernel, flash_sdpa_bwd_dq_h.cu in bf16 and
+    flash_sdpa_bwd_dq_h_fp32.cu in fp32, and the wgmma dkv kernel,
+    flash_sdpa_bwd_h.cu in bf16 and flash_sdpa_bwd_h_fp32.cu in fp32: 1
+    launch each) against
     autograd through the plain forward in the same dtype, q/k/v strided
     views of a packed qkv as ViTAttention hands them in: bf16 within 3e-2
     of each gradient's largest magnitude (bf16 P and dS against autograd's
@@ -1275,8 +1287,9 @@ def test_flash_sdpa_d64_d80_autograd_matches_plain(cuda, dtype, tol, d):
     bias = _mask_rows(cuda, b, n)
     w = _randn(cuda, b, h, n, d, dtype=torch.float32)
     bf16 = dtype == torch.bfloat16
-    assert fa.bwd_dq_kernel(dtype, d) == ("flash_sdpa_bwd_dq_h" if bf16 else "flash_sdpa_bwd")
-    assert fa.bwd_dkv_kernel(dtype, d) == ("flash_sdpa_bwd_h" if bf16 else "flash_sdpa_bwd")
+    assert fa.bwd_dq_kernel(dtype, d) == ("flash_sdpa_bwd_dq_h" if bf16
+                                          else "flash_sdpa_bwd_dq_h_fp32")
+    assert fa.bwd_dkv_kernel(dtype, d) == ("flash_sdpa_bwd_h" if bf16 else "flash_sdpa_bwd_h_fp32")
     grads = {}
     for name, fn in (("kernel", fa.flash_sdpa), ("plain", fa.flash_sdpa_plain)):
         qkv = packed.clone().requires_grad_()
@@ -1301,12 +1314,12 @@ def test_flash_sdpa_d64_d80_autograd_matches_plain(cuda, dtype, tol, d):
                                        (64, 2, 333, 517), (80, 2, 333, 517), (64, 2, 1, 64),
                                        (80, 3, 130, 70), (80, 2, 64, 9), (64, 1, 200, 2000)])
 def test_flash_sdpa_bwd_d64_d80_kernels_match_plain(cuda, dtype, tol, d, h, lq, lk):
-    """The dq (and Delta) kernel (bf16: the wgmma kernel of
-    flash_sdpa_bwd_dq_h.cu, 128-query blocks; fp32: flash_sdpa_bwd.cu's) and
-    the dk/dv kernel (bf16: the wgmma kernel of flash_sdpa_bwd_h.cu, 128-key
-    blocks; fp32: flash_sdpa_bwd.cu's, 16-query tiles at d=80) at d=64 and
-    d=80, in bf16
-    and fp32, against the plain backward: the global blocks' shapes, ragged
+    """The dq (and Delta) kernel (the wgmma kernel of flash_sdpa_bwd_dq_h.cu
+    in bf16, of flash_sdpa_bwd_dq_h_fp32.cu in fp32; 128-query blocks) and
+    the dk/dv kernel (the wgmma kernel of flash_sdpa_bwd_h.cu in bf16, of
+    flash_sdpa_bwd_h_fp32.cu in fp32; 128-key blocks) at d=64 and d=80, in
+    bf16 and fp32, against the plain backward: the global blocks' shapes
+    (fp32: the dq kernel's sums over 4900 and 5184 keys), ragged
     Lq/Lk against the 64-row tiles, a masked 64-key tile, a ragged masked
     tail, a fully masked batch row (zero gradients), dO a strided view of the
     (B, N, H * D) gradient; gradients in (B, N, H, D) memory and the same
@@ -1320,8 +1333,9 @@ def test_flash_sdpa_bwd_d64_d80_kernels_match_plain(cuda, dtype, tol, d, h, lq, 
     do = _randn(cuda, b, lq, h * d, dtype=dtype).reshape(b, lq, h, d).transpose(1, 2)
     scale = d ** -0.5
     bf16 = dtype == torch.bfloat16
-    assert fa.bwd_dq_kernel(dtype, d) == ("flash_sdpa_bwd_dq_h" if bf16 else "flash_sdpa_bwd")
-    assert fa.bwd_dkv_kernel(dtype, d) == ("flash_sdpa_bwd_h" if bf16 else "flash_sdpa_bwd")
+    assert fa.bwd_dq_kernel(dtype, d) == ("flash_sdpa_bwd_dq_h" if bf16
+                                          else "flash_sdpa_bwd_dq_h_fp32")
+    assert fa.bwd_dkv_kernel(dtype, d) == ("flash_sdpa_bwd_h" if bf16 else "flash_sdpa_bwd_h_fp32")
     n_dq, n_dkv = fa.flash_sdpa_bwd_dq.launches, fa.flash_sdpa_bwd_dkv.launches
     dq, delta = fa.flash_sdpa_bwd_dq(q, k, v, bias, o, lse, do, scale)
     dk, dv = fa.flash_sdpa_bwd_dkv(q, k, v, bias, do, lse, delta, scale)
@@ -1343,16 +1357,12 @@ def test_flash_sdpa_bwd_d64_d80_kernels_match_plain(cuda, dtype, tol, d, h, lq, 
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel,d", [("flash_sdpa_bwd_dq", 32), ("flash_sdpa_bwd_dq_fp32", 32),
-                                      ("flash_sdpa_bwd_dq_fp32", 64),
-                                      ("flash_sdpa_bwd_dkv_fp32", 64),
-                                      ("flash_sdpa_bwd_dq_fp32", 80),
-                                      ("flash_sdpa_bwd_dkv_fp32", 80)])
+@pytest.mark.parametrize("kernel,d", [("flash_sdpa_bwd_dq", 32)])
 def test_mma_sync_backward_fits_without_spills(cuda, kernel, d):
-    """The mma.sync backward kernels as built: no spills, at least one block
-    resident an SM at the teacher's 5184 keys (the bf16 dkv kernels, the
-    bf16 dq at d=64 / d=80 and the fp32 dkv at d=32 are wgmma kernels:
-    test_wgmma_kernels_fit_without_spills)."""
+    """The mma.sync backward kernel as built (the bf16 dq at d=32, the only
+    one left: the rest are wgmma kernels,
+    test_wgmma_kernels_fit_without_spills): no spills, at least one block
+    resident an SM at 5184 keys."""
     res = fa.kernel_resources(kernel, d, 5184)
     assert res["spill_bytes"] == 0 and res["blocks_per_sm"] >= 1, res
 
@@ -1361,19 +1371,19 @@ def test_mma_sync_backward_fits_without_spills(cuda, kernel, d):
 def test_mma_sync_entries_refuse_replaced_instantiations(cuda):
     """The mma.sync entry points refuse the instantiations whose wgmma
     kernels replaced them (cudaErrorInvalidValue, 1: nothing launched):
-    the bf16 forward of csrc/flash_sdpa.cu at d=32, 64 and 80, the bf16 dkv
-    kernel of csrc/flash_sdpa_bwd.cu at d=32, 64 and 80, its bf16 dq kernel
-    at d=64 and 80 and its fp32 dkv kernel at d=32, and their attribute
-    queries; the fp32 forward and dq, the fp32 dkv at d=64 / d=80 and the
-    bf16 dq at d=32 are still served."""
+    the bf16 forward of csrc/flash_sdpa.cu at d=32, 64 and 80, the dkv
+    kernel of csrc/flash_sdpa_bwd.cu in both dtypes at d=32, 64 and 80, its
+    bf16 dq kernel at d=64 and 80 and its fp32 dq kernel at d=32, 64 and 80,
+    and their attribute queries; the fp32 forward and the bf16 dq at d=32
+    are still served."""
     out = (ctypes.c_int * 4)()
     for d in (32, 64, 80):
         assert fa._lib_sdpa_attrs()(d, 0, out) == 1
         assert fa._lib_sdpa_attrs()(d, 1, out) == 0
         assert fa._lib_bwd_attrs()(1, d, 0, 5184, out) == 1
-        assert fa._lib_bwd_attrs()(1, d, 1, 5184, out) == (1 if d == 32 else 0)
+        assert fa._lib_bwd_attrs()(1, d, 1, 5184, out) == 1
         assert fa._lib_bwd_attrs()(0, d, 0, 5184, out) == (0 if d == 32 else 1)
-        assert fa._lib_bwd_attrs()(0, d, 1, 5184, out) == 0
+        assert fa._lib_bwd_attrs()(0, d, 1, 5184, out) == 1
         q = _randn(cuda, 1, 2, 64, d)
         bias = torch.zeros((1, 64), device=cuda)
         lse = torch.zeros((1, 2, 64), device=cuda)
@@ -1392,12 +1402,18 @@ def test_mma_sync_entries_refuse_replaced_instantiations(cuda):
                 q.data_ptr(), q.data_ptr(), q.data_ptr(), bias.data_ptr(), q.data_ptr(),
                 q.data_ptr(), lse.data_ptr(), lse.data_ptr(), o.data_ptr(), 1, 2, 64, 64, d, 0,
                 0.125, *([0] * 18), stream) == 1
-    # the fp32 dkv kernel at d=32 (flash_sdpa_bwd_h_fp32.cu's)
-    q = _randn(cuda, 1, 2, 64, 32, dtype=torch.float32)
-    assert fa._lib_bwd("flash_sdpa_bwd_dkv")(
-        q.data_ptr(), q.data_ptr(), q.data_ptr(), bias.data_ptr(), q.data_ptr(), lse.data_ptr(),
-        lse.data_ptr(), q.data_ptr(), q.data_ptr(), 1, 2, 64, 64, 32, 1, 0.125, *([0] * 18),
-        stream) == 1
+    # fp32: the dkv kernel (flash_sdpa_bwd_h_fp32.cu's) and the dq kernel
+    # (flash_sdpa_bwd_dq_h_fp32.cu's) at d=32, 64 and 80
+    for d in (32, 64, 80):
+        q = _randn(cuda, 1, 2, 64, d, dtype=torch.float32)
+        assert fa._lib_bwd("flash_sdpa_bwd_dkv")(
+            q.data_ptr(), q.data_ptr(), q.data_ptr(), bias.data_ptr(), q.data_ptr(),
+            lse.data_ptr(), lse.data_ptr(), q.data_ptr(), q.data_ptr(), 1, 2, 64, 64, d, 1, 0.125,
+            *([0] * 18), stream) == 1
+        assert fa._lib_bwd("flash_sdpa_bwd_dq")(
+            q.data_ptr(), q.data_ptr(), q.data_ptr(), bias.data_ptr(), q.data_ptr(),
+            q.data_ptr(), lse.data_ptr(), lse.data_ptr(), q.data_ptr(), 1, 2, 64, 64, d, 1, 0.125,
+            *([0] * 18), stream) == 1
     torch.cuda.synchronize()
 
 
@@ -1434,28 +1450,37 @@ def test_flash_sdpa_bwd_dq_h_kernel_matches_plain(cuda, d, b, h, lq, lk):
     assert (dq[-1] == 0).all()
 
 
+# the main path's shape at each head dim: the Stage-3 step (d=32), ViT-H's
+# and vit_h's global blocks (d=64, d=80; batch 2 so that a row is masked)
+_FP32_FULL = {32: (4, 8, 5184, 5184), 64: (2, 16, 5184, 5184), 80: (2, 16, 4900, 4900)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,lq,lk", [(4, 8, 5184, 5184), (3, 2, 333, 517), (3, 3, 130, 300),
-                                       (3, 2, 1, 9), (3, 1, 2000, 200)])
-def test_flash_sdpa_bwd_dkv_h_fp32_kernel_matches_plain(cuda, b, h, lq, lk):
-    """The fp32 d=32 wgmma dkv kernel (flash_sdpa_bwd_h_fp32.cu, split bf16
-    parts, 128-key blocks, 64-query stages, Q and dO from split copies)
-    against the plain dkv in fp32, given the plain Delta: the Stage-3 shape,
-    ragged Lq and Lk against the block and the stage, a fully masked 128-key
-    block and a masked 64-key tile in row 0 (zeros), a ragged masked tail
-    in row 1, a fully masked last batch row (zero gradients), dO a strided
-    view of the (B, N, H * D) gradient; two launches of the split pass and
-    one of the kernel, dK and dV in (B, N, H, D) memory within 1e-4 of each
-    one's largest magnitude, the same bits when run again."""
+@pytest.mark.parametrize("d", [32, 64, 80])
+@pytest.mark.parametrize("shape", ["full", (3, 2, 333, 517), (3, 3, 130, 300), (3, 2, 1, 9),
+                                   (3, 1, 2000, 200)], ids=str)
+def test_flash_sdpa_bwd_dkv_h_fp32_kernel_matches_plain(cuda, d, shape):
+    """The fp32 wgmma dkv kernel (flash_sdpa_bwd_h_fp32.cu, split bf16
+    parts, 128-key blocks, 64-query stages, Q and dO from split copies; K
+    and V parts in registers at d=32, in shared memory at d=64 and 80)
+    against the plain dkv in fp32, given the plain Delta: the main path's
+    shape at each head dim ("full": _FP32_FULL), ragged Lq and
+    Lk against the block and the stage, a fully masked 128-key block and a
+    masked 64-key tile in row 0 (zeros), a ragged masked tail in row 1, a
+    fully masked last batch row (zero gradients), dO a strided view of the
+    (B, N, H * D) gradient; two launches of the split pass and one of the
+    kernel, dK and dV in (B, N, H, D) memory within 1e-4 of each one's
+    largest magnitude, the same bits when run again."""
     f32 = torch.float32
-    q, k, v = (_randn(cuda, b, h, n, 32, dtype=f32) for n in (lq, lk, lk))
+    b, h, lq, lk = _FP32_FULL[d] if shape == "full" else shape
+    q, k, v = (_randn(cuda, b, h, n, d, dtype=f32) for n in (lq, lk, lk))
     bias = _mask_rows(cuda, b, lk)
     bias[0, 128:256] = NEG_INF
     o, lse = fa.flash_sdpa_plain(q, k, v, bias, return_lse=True)
-    do = _randn(cuda, b, lq, h * 32, dtype=f32).reshape(b, lq, h, 32).transpose(1, 2)
-    scale = 32 ** -0.5
+    do = _randn(cuda, b, lq, h * d, dtype=f32).reshape(b, lq, h, d).transpose(1, 2)
+    scale = d ** -0.5
     _, delta = fa.flash_sdpa_bwd_dq_plain(q, k, v, bias, o, lse, do, scale)
-    assert fa.bwd_dkv_kernel(f32, 32) == "flash_sdpa_bwd_h_fp32"
+    assert fa.bwd_dkv_kernel(f32, d) == "flash_sdpa_bwd_h_fp32"
     n_split, n_dkv = fa.split_parts.launches, fa.flash_sdpa_bwd_dkv.launches
     dk, dv = fa.flash_sdpa_bwd_dkv(q, k, v, bias, do, lse, delta, scale)
     torch.cuda.synchronize()
@@ -1468,6 +1493,53 @@ def test_flash_sdpa_bwd_dkv_h_fp32_kernel_matches_plain(cuda, b, h, lq, lk):
         assert got.transpose(1, 2).is_contiguous()
         assert _rel_err(got, want) < FP32_TOL
         assert (got[-1] == 0).all() and (got[0, :, 64:min(lk, 256)] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 80])
+@pytest.mark.parametrize("shape", ["full", "all_live", (3, 2, 333, 517), (3, 3, 130, 70),
+                                   (3, 2, 1, 9), (3, 1, 200, 2000)], ids=str)
+def test_flash_sdpa_bwd_dq_h_fp32_kernel_matches_plain(cuda, d, shape):
+    """The fp32 wgmma dq kernel (flash_sdpa_bwd_dq_h_fp32.cu, split bf16
+    parts, 128-query blocks, 64-key tiles from the split copies of K and V)
+    against the plain dq in fp32: the main path's shape at each head dim
+    ("full": _FP32_FULL); "all_live" 333 queries against the full key count
+    with every key live, where a dQ summed in the tensor cores' truncating
+    fp32 adds over the whole row would carry its bias (the kernel adds its
+    fragment into the row's sum with round-to-nearest adds every few
+    tiles); ragged Lq and Lk against the block and the tile, a masked
+    64-key tile in row 0 (skipped), a ragged masked tail in row 1, a fully
+    masked last batch row (no live tile: Delta and zeros, no loads), dO a
+    strided view of the (B, N, H * D) gradient; two launches of the split
+    pass and one of the kernel, dQ in (B, N, H, D) memory within 1e-4 of
+    its largest magnitude, Delta within 1e-4, the same bits when run
+    again."""
+    f32 = torch.float32
+    if shape == "all_live":
+        b, h, _, lk = _FP32_FULL[d]
+        b, lq = 1, 333
+    else:
+        b, h, lq, lk = _FP32_FULL[d] if shape == "full" else shape
+    q, k, v = (_randn(cuda, b, h, n, d, dtype=f32) for n in (lq, lk, lk))
+    bias = torch.zeros((b, lk), device=cuda) if shape == "all_live" else _mask_rows(cuda, b, lk)
+    o, lse = fa.flash_sdpa_plain(q, k, v, bias, return_lse=True)
+    do = _randn(cuda, b, lq, h * d, dtype=f32).reshape(b, lq, h, d).transpose(1, 2)
+    assert h == 1 or lq == 1 or not do.is_contiguous()
+    scale = d ** -0.5
+    assert fa.bwd_dq_kernel(f32, d) == "flash_sdpa_bwd_dq_h_fp32"
+    n_split, n_dq = fa.split_parts.launches, fa.flash_sdpa_bwd_dq.launches
+    dq, delta = fa.flash_sdpa_bwd_dq(q, k, v, bias, o, lse, do, scale)
+    torch.cuda.synchronize()
+    assert (fa.split_parts.launches, fa.flash_sdpa_bwd_dq.launches) == (n_split + 2, n_dq + 1)
+    assert dq.dtype == f32 and dq.transpose(1, 2).is_contiguous()
+    dq2, delta2 = fa.flash_sdpa_bwd_dq(q, k, v, bias, o, lse, do, scale)
+    assert torch.equal(dq, dq2) and torch.equal(delta, delta2)
+    want_dq, want_delta = fa.flash_sdpa_bwd_dq_plain(q, k, v, bias, o, lse, do, scale)
+    torch.testing.assert_close(delta, want_delta, atol=FP32_TOL, rtol=FP32_TOL)
+    assert dq.shape == want_dq.shape and torch.isfinite(dq).all()
+    assert _rel_err(dq, want_dq) < FP32_TOL
+    if shape != "all_live":
+        assert (dq[-1] == 0).all()
 
 
 @pytest.mark.cuda

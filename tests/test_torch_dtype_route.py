@@ -83,15 +83,16 @@ CASES = [
     (_sdpa, (F32, 80), "flash_sdpa"),
     (_sdpa, (BF16, 48), ValueError),
     # its backward kernels on wgmma: the bf16 dkv kernel at d=32, 64 and 80,
-    # the bf16 dq kernel at d=64 and 80, the fp32 dkv kernel at d=32 (split
-    # bf16 parts) and both kernels at d=256 (fp32 on split bf16 parts); on
-    # mma.sync the rest: the bf16 dq at d=32, the fp32 dq at d=32, 64 and
-    # 80, the fp32 dkv at d=64 and 80; other widths raise
+    # the bf16 dq kernel at d=64 and 80, the fp32 dq and dkv kernels at
+    # d=32, 64 and 80 (split bf16 parts) and both kernels at d=256 (fp32 on
+    # split bf16 parts); on mma.sync only the bf16 dq at d=32; other widths
+    # raise
     (_bwd, (BF16, 32), "flash_sdpa_bwd"),
-    (_bwd, (F32, 32), "flash_sdpa_bwd"),
+    (_bwd, (F32, 32), "flash_sdpa_bwd_dq_h_fp32"),
     (_bwd, (F32, 256), "flash_sdpa_bwd_wide_h_fp32"),
     (_bwd, (F16, 256), TypeError),
-    (_bwd, (F32, 64), "flash_sdpa_bwd"),
+    (_bwd, (F32, 64), "flash_sdpa_bwd_dq_h_fp32"),
+    (_bwd, (F32, 80), "flash_sdpa_bwd_dq_h_fp32"),
     (_bwd, (BF16, 64), "flash_sdpa_bwd_dq_h"),
     (_bwd, (BF16, 80), "flash_sdpa_bwd_dq_h"),
     (_bwd, (BF16, 48), ValueError),
@@ -103,19 +104,20 @@ CASES = [
     (_dkv, (F16, 256), TypeError),
     (_dkv, (BF16, 64), "flash_sdpa_bwd_h"),
     (_dkv, (BF16, 80), "flash_sdpa_bwd_h"),
-    (_dkv, (F32, 64), "flash_sdpa_bwd"),
-    (_dkv, (F32, 80), "flash_sdpa_bwd"),
+    (_dkv, (F32, 64), "flash_sdpa_bwd_h_fp32"),
+    (_dkv, (F32, 80), "flash_sdpa_bwd_h_fp32"),
     (_dkv, (F32, 48), ValueError),
     (_dq, (BF16, 32), "flash_sdpa_bwd"),
-    (_dq, (F32, 32), "flash_sdpa_bwd"),
+    (_dq, (F32, 32), "flash_sdpa_bwd_dq_h_fp32"),
     (_dq, (BF16, 256), "flash_sdpa_bwd_wide_h"),
     (_dq, (F32, 256), "flash_sdpa_bwd_wide_h_fp32"),
     (_dq, (F16, 256), TypeError),
     (_dq, (F64, 32), TypeError),
     (_dq, (BF16, 64), "flash_sdpa_bwd_dq_h"),
     (_dq, (BF16, 80), "flash_sdpa_bwd_dq_h"),
-    (_dq, (F32, 64), "flash_sdpa_bwd"),
-    (_dq, (F32, 80), "flash_sdpa_bwd"),
+    (_dq, (F32, 64), "flash_sdpa_bwd_dq_h_fp32"),
+    (_dq, (F32, 80), "flash_sdpa_bwd_dq_h_fp32"),
+    (_dq, (F32, 48), ValueError),
     (_dq, (BF16, 48), ValueError),
     # the cached bank, exact and int8 keys
     (_memattn, (BF16, 256), "flash_memattn"),
@@ -154,18 +156,26 @@ def test_kernel_dtype_and_width_rule(check, args, expect):
 
 # The instantiations of the mma.sync kernels that the wgmma kernels
 # replaced (the bf16 forward at d=80, the bf16 dkv kernel at d=64 and d=80,
-# the bf16 dq kernel at d=64 and d=80, the fp32 dkv kernel at d=32) are not
-# built: their resources cannot be asked for, and neither can a head dim a
-# kernel lacks. Refused before any library is loaded (so here, without a
-# GPU); their C entry points refuse them too
+# the bf16 dq kernel at d=64 and d=80, the fp32 dkv kernel at d=32, 64 and
+# 80, the fp32 dq kernel at d=32, 64 and 80) are not built: their resources
+# cannot be asked for, and neither can a head dim a kernel lacks. Refused
+# before any library is loaded (so here, without a GPU); their C entry
+# points refuse them too
 # (tests/test_torch_cuda.py::test_mma_sync_entries_refuse_replaced_instantiations).
 @pytest.mark.parametrize("kernel,d", [("flash_sdpa", 80), ("flash_sdpa_bwd_dkv", 64),
                                       ("flash_sdpa_bwd_dkv", 80), ("flash_sdpa_h", 48),
                                       ("flash_sdpa_bwd_h", 256), ("flash_sdpa_fp32", 256),
                                       ("flash_sdpa_bwd_dq", 64), ("flash_sdpa_bwd_dq", 80),
                                       ("flash_sdpa_bwd_dkv_fp32", 32),
+                                      ("flash_sdpa_bwd_dkv_fp32", 64),
+                                      ("flash_sdpa_bwd_dkv_fp32", 80),
+                                      ("flash_sdpa_bwd_dq_fp32", 32),
+                                      ("flash_sdpa_bwd_dq_fp32", 64),
+                                      ("flash_sdpa_bwd_dq_fp32", 80),
                                       ("flash_sdpa_bwd_dq_h", 32), ("flash_sdpa_bwd_dq_h", 256),
-                                      ("flash_sdpa_bwd_h_fp32", 64)])
+                                      ("flash_sdpa_bwd_h_fp32", 256),
+                                      ("flash_sdpa_bwd_dq_h_fp32", 48),
+                                      ("flash_sdpa_bwd_dq_h_fp32", 256)])
 def test_replaced_instantiations_are_refused(kernel, d):
     with pytest.raises(ValueError, match=f"{kernel} kernel supports|no resource query"):
         fa.kernel_resources(kernel, d)

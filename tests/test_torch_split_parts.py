@@ -1,6 +1,7 @@
 """The split of fp32 operands into bf16 parts that the fp32 attention
 backward kernels on wgmma read (``flash_attention.split_parts``: head dim
-256, and the head-dim-32 dkv kernel's Q and dO), its
+256, and at head dims 32, 64 and 80 the dkv kernel's Q and dO and the dq
+kernel's K and V), its
 plain version held against the rule written out in numpy: hi is x rounded
 to the nearest bf16 (ties to even), lo is x - hi rounded the same way, and
 |x - hi - lo| <= max(2^-16 |x|, 2^-134) (the second term: half the spacing
@@ -92,13 +93,15 @@ def test_split_parts_takes_the_plain_version_on_the_cpu():
 
 
 @pytest.mark.parametrize("d,tile,ok", [(32, 0, True), (256, 0, True), (256, 32, True),
-                                       (32, 32, False), (64, 0, False), (80, 0, False),
-                                       (128, 0, False)])
+                                       (32, 32, False), (64, 0, True), (80, 0, True),
+                                       (128, 0, False), (64, 32, False), (80, 32, False),
+                                       (48, 0, False), (96, 0, False)])
 def test_split_parts_takes_d32_and_d256_only(d, tile, ok):
     """What the CUDA split pass is handed (``check_split_parts``, the
-    wrapper's check before a launch): float32 (B, H, N, d) at d=32 (the
-    fp32 d=32 dkv kernel's Q and dO, every row) and d=256; skipping dead key
-    tiles only at d=256; every other width, or another dtype, refused."""
+    wrapper's check before a launch): float32 (B, H, N, d) at d=32, 64 and
+    80 (the fp32 dkv kernel's Q and dO and the fp32 dq kernel's K and V,
+    every row) and d=256; skipping dead key tiles only at d=256; every other
+    width, or another dtype, refused."""
     x = torch.zeros((2, 3, 5, d))
     bias = torch.zeros((2, 5))
     if ok:
