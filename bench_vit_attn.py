@@ -1,29 +1,37 @@
 #!/usr/bin/env python3
-"""Time attention kernels on one NVIDIA GPU at full width: in bf16 the
-flash_sdpa forward at d=80 (vit_h at 1120^2: q/k/v (1, 16, 4900, 80)) and
-the backward's dq and dkv kernels at d=64 (the SAM3 teacher's ViT-H
-Stage-1 step at batch 2: (2, 16, 5184, 64)) and d=80; in fp32 the
-backward's dq and dkv kernels at d=32 (the default build's Stage-3 step:
-(4, 8, 5184, 32)), d=64 (an fp32 ViT-H Stage-1 step at batch 1: (1, 16,
-5184, 64)) and d=80 (vit_h's: (1, 16, 4900, 80)). q, k and v are strided
-views of one packed qkv tensor
-and dO a strided view of a (B, N, H * D) gradient, as the trunk and the
-fusion encoder hand them in; every key is live. Each kernel is held
-against its plain version first (the forward's output and LSE within
-1e-2; dQ, dK and dV within 2e-2 (bf16) or 1e-4 (fp32) of each one's
-largest magnitude, Delta within 1e-4, and dQ, dK and dV the same bits
-when run again), then timed in a CUDA graph (chip_smoke.graph_time) beside
-one F.scaled_dot_product_attention call (forward) and its backward (all
-three gradients).
+"""Time attention kernels on one NVIDIA GPU at full width. The flash_sdpa
+forward: in bf16 at d=80 (vit_h at 1120^2: q/k/v (1, 16, 4900, 80)) and
+at d=256 (the tracker's memory attention, 8 object slots of which 3 are
+live: the self-attention q/k/v (8, 1, 5184, 256) and the plain path's
+cross-attention over k/v (8, 1, 36352, 256), each live slot's last 37
+keys masked); in fp32 at d=32 (the default build's `ground`, (1, 8, 5184,
+32), and Stage-3 step, (4, 8, 5184, 32)), d=64 (the teacher's (1, 16,
+5184, 64)) and d=80 ((1, 16, 4900, 80)). The backward's dq and dkv
+kernels: in bf16 at d=64 (the SAM3 teacher's ViT-H Stage-1 step at batch
+2: (2, 16, 5184, 64)) and d=80; in fp32 at d=32 (the Stage-3 step), d=64
+(an fp32 ViT-H Stage-1 step at batch 1: (1, 16, 5184, 64)) and d=80
+(vit_h's). q, k and v are strided views of one packed qkv tensor (at
+d=256 separate tensors, as the tracker hands them in) and dO a strided
+view of a (B, N, H * D) gradient; every key of a live slot is live unless
+stated. Each kernel is held against its plain version first (the
+forward's output within 2e-2 (bf16) or 1e-4 (fp32) of its largest
+magnitude and its LSE within 1e-2 or 1e-4; dQ, dK and dV within 2e-2 or
+1e-4 of each one's largest magnitude, Delta within 1e-4, and dQ, dK and
+dV the same bits when run again), then timed in a CUDA graph
+(chip_smoke.graph_time) beside one F.scaled_dot_product_attention call
+(forward, with the bool key mask where keys are masked; fp32 with TF32
+off) and its backward (all three gradients). A forward line also gives
+the call's time from the host between CUDA events, its profiler device
+time (every kernel of the call: the fp32 wgmma forward's two split passes
+with it), the plain version's time and the bound (chip_smoke.bound).
 
     python3 bench_vit_attn.py [--other DIR] [--dtype bf16|fp32]
 
 With --other, the same measurement of the checkout at DIR (another commit's
 kernels, or a variant copy, built there) is taken in the process order
 other, this, this, other, each in its own process, so that two versions
-compare on one card. --dtype keeps the shapes of one dtype (the forward
-is bf16). Prints one line a kernel and run, with the card's name and power
-limit.
+compare on one card. --dtype keeps the shapes of one dtype. Prints one
+line a kernel and run, with the card's name and power limit.
 """
 
 import argparse
@@ -31,7 +39,11 @@ import os
 import subprocess
 import sys
 
-FWD = (1, 16, 4900, 80)  # (B, H, N, D), bf16
+# (B, H, Lq, Lk, D, dtype, live slots or None for every batch row)
+FWD = ((1, 16, 4900, 4900, 80, "bf16", None), (8, 1, 5184, 5184, 256, "bf16", 3),
+       (8, 1, 5184, 36352, 256, "bf16", 3), (1, 8, 5184, 5184, 32, "fp32", None),
+       (4, 8, 5184, 5184, 32, "fp32", None), (1, 16, 5184, 5184, 64, "fp32", None),
+       (1, 16, 4900, 4900, 80, "fp32", None))
 BWD = ((2, 16, 5184, 64, "bf16"), (1, 16, 4900, 80, "bf16"), (4, 8, 5184, 32, "fp32"),
        (1, 16, 5184, 64, "fp32"), (1, 16, 4900, 80, "fp32"))
 
@@ -56,19 +68,50 @@ def measure(label, only=None):
         qkv = torch.randn((b, n, 3, h, d), generator=gen, device=dev).to(dtype)
         return qkv.permute(2, 0, 3, 1, 4)
 
-    if only != "fp32":
-        b, h, n, d = FWD
-        q, k, v = packed(b, h, n, d)
-        bias = torch.zeros((b, n), device=dev)
+    for b, h, lq, lk, d, dt, slots in FWD:
+        if only not in (None, dt):
+            continue
+        dtype = bf16 if dt == "bf16" else torch.float32
+        if d == 256:
+            q = torch.randn((b, h, lq, d), generator=gen, device=dev).to(dtype)
+            k, v = (torch.randn((b, h, lk, d), generator=gen, device=dev).to(dtype)
+                    for _ in range(2))
+        else:
+            q, k, v = packed(b, h, lq, d, dtype)
+        bias = torch.zeros((b, lk), device=dev)
+        if slots is not None:
+            bias[slots:] = fa.NEG_INF
+            if lk != lq:
+                bias[:, lk - 37:] = fa.NEG_INF
+        live = int((bias > fa.NEG_INF / 2).sum().item()) * h * lq  # scores, over the batch
         scale = d ** -0.5
         got, lse = fa.flash_sdpa(q, k, v, bias, scale, return_lse=True)
         want, want_lse = fa.flash_sdpa_plain(q, k, v, bias, scale, return_lse=True)
-        err = max(cs.check("forward", got, want), cs.check("forward lse", lse, want_lse))
-        ms = cs.graph_time(lambda: fa.flash_sdpa(q, k, v, bias, scale))
-        lib = cs.graph_time(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
-        print(f"[{label}] forward d={d} {tuple(q.shape)} {fa.sdpa_kernel(bf16, d)}: {ms:.4f} ms "
-              f"(CUDA graph) | SDPA {lib:.4f} ms | max abs err {err:.3e} | {smi}", flush=True)
-        del q, k, v, got, lse, want, want_lse
+        tol = 2e-2 if dt == "bf16" else 1e-4
+        err = max(cs.check_rel(f"{dt} forward d={d}", got, want, tol),
+                  cs.check(f"{dt} forward d={d} (lse)", lse, want_lse,
+                           1e-2 if dt == "bf16" else 1e-4))
+        del got, lse, want, want_lse
+        torch.cuda.empty_cache()
+        if dt == "fp32":
+            bms, by = cs.attn_bound(q.numel(), live, d, kv_elems=k.numel() + v.numel())
+        else:
+            nb = 2 * (q.numel() * 2 + 2 * live // lq * d) + 4 * bias.numel()
+            bms, by = cs.bound(nb, 4.0 * live * d, 1.0 * live, 6.0 * live)
+        fn = lambda: fa.flash_sdpa(q, k, v, bias, scale)  # noqa: E731
+        ms = cs.graph_time(fn, 5, 10)
+        call_ms = cs.cuda_time(fn, 10)
+        _, _, dev_us = cs.profile_kernels(fn)
+        plain_ms = cs.cuda_time(lambda: fa.flash_sdpa_plain(q, k, v, bias, scale), 2, warmup=1)
+        mask = None if slots is None else (bias > fa.NEG_INF / 2)[:, None, None, :]
+        lib = cs.graph_time(
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale), 3, 5)
+        print(f"[{label}] {dt} forward d={d} q {tuple(q.shape)} k {tuple(k.shape)} "
+              f"{fa.sdpa_kernel(dtype, d)}: {ms:.4f} ms (CUDA graph) | call {call_ms:.4f} ms | "
+              f"device {dev_us / 1e3:.4f} ms | plain {plain_ms:.4f} ms | SDPA {lib:.4f} ms | "
+              f"bound {bms:.4f} ms ({by}) | max err {err:.3e} | {smi}", flush=True)
+        del q, k, v, bias, mask
+        torch.cuda.empty_cache()
     for b, h, n, d, dt in BWD:
         if only not in (None, dt):
             continue

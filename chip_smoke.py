@@ -7,15 +7,14 @@ Phases, each printing its own lines:
   1. environment: the card's name and power limit (nvidia-smi), torch and
      CUDA versions, TF32 settings, and the build of the CUDA kernels
      (csrc/*.cu, one nvcc per source, all started together); for each
-     wgmma kernel (flash_sdpa_h at d=32, 64 and 80, flash_sdpa_bwd_h at
-     d=32, 64 and 80, flash_sdpa_bwd_dq_h at d=64 and 80, flash_sdpa_bwd_h_fp32
-     and flash_sdpa_bwd_dq_h_fp32 at d=32, 64 and 80, the bf16 d=256 pair
+     wgmma kernel (flash_sdpa_h at d=32, 64, 80 and 256, flash_sdpa_h_fp32
+     at d=32, 64 and 80, flash_sdpa_bwd_h at d=32, 64 and 80,
+     flash_sdpa_bwd_dq_h at d=64 and 80, flash_sdpa_bwd_h_fp32 and
+     flash_sdpa_bwd_dq_h_fp32 at d=32, 64 and 80, the bf16 d=256 pair
      flash_sdpa_bwd_dq_wide_h / flash_sdpa_bwd_dkv_wide_h and the fp32 one
      flash_sdpa_bwd_dq_wide_f32 / flash_sdpa_bwd_dkv_wide_f32) and the
-     mma.sync register forward at d=80 (fp32) and the mma.sync bf16 dq at
-     d=32 one line of
-     registers, spilled bytes and shared memory a block, and blocks an SM,
-     as the runtime reports them;
+     mma.sync bf16 dq at d=32 one line of registers, spilled bytes and
+     shared memory a block, and blocks an SM, as the runtime reports them;
   2. the main path at full width: EfficientViT-b1 ("EV-M") at 1008^2 with
      the MobileCLIP-S0 text tower at context 32, bf16, seeded random
      weights, through the port's Sam3Processor (set_image on a non-square
@@ -52,10 +51,13 @@ Phases, each printing its own lines:
      before each propagate and read just after. Frame encode, a prompted
      frame, a tracked frame of each session, the whole propagation and the
      peak memory are timed; torch.profiler splits one tracked frame of
-     session A by kernel. The three tracker kernels are held against their
-     plain versions on the inputs of their largest launch in session A (and
-     flash_sdpa d=256 also on session B's cross-attention) and timed as in
-     phase 3; the tiny tracker runs bf16 on the card against fp32 on the CPU;
+     session A by kernel, and times each d=256 launch of one of session B.
+     The three tracker kernels are held against their plain versions on the
+     inputs of their largest launch in session A, flash_sdpa d=256 (the
+     wgmma kernel of csrc/flash_sdpa_h.cu) also on session B's
+     cross-attention (a row of its own, library: SDPA with the bool key
+     mask), and timed as in phase 3; the tiny tracker runs bf16 on the card
+     against fp32 on the CPU;
   6. [train] Stage-3 training at full width: the EV-M 1008^2 model with
      MobileCLIP-S0 at context 32 in bf16 (fp32 parameters), seed 0, the
      default Stage3Config (trunk and text tower trained, heads frozen), a
@@ -183,7 +185,8 @@ Phases, each printing its own lines:
      build. flash_sdpa at d=64, bf16 and fp32, is held against its plain
      version on the inputs of its launches (1e-2, FP32_TOL) and timed as in
      phase 3 (library: SDPA); bf16 is the wgmma kernel (csrc/flash_sdpa_h.cu),
-     fp32 the mma.sync kernel (csrc/flash_sdpa.cu). The bf16 video build (build_sam3_video_model)
+     fp32 its split-bf16 form (csrc/flash_sdpa_h_fp32.cu). The bf16 video
+     build (build_sam3_video_model)
      tracks 2 objects prompted on frame 0 over SAM3_TRACKED synthetic
      frames on the cached bank: per tracked frame [video] session A's
      launches plus 4 d=64 flash_sdpa for the frame's encode; finite masks,
@@ -201,8 +204,8 @@ Phases, each printing its own lines:
      build of vit_h at full width cut to 4 blocks (block 3 global) held
      against the same model on the host's CPU (1e-3 of max(1, |largest|)
      on the embedding, the low-res masks and the IoUs). flash_sdpa at d=80
-     (bf16: the wgmma kernel of csrc/flash_sdpa_h.cu; fp32: the mma.sync
-     register kernel of csrc/flash_sdpa.cu) held against its plain version
+     (bf16: the wgmma kernel of csrc/flash_sdpa_h.cu; fp32: its split-bf16
+     form, csrc/flash_sdpa_h_fp32.cu) held against its plain version
      with its LSE on the inputs of its
      launches (1e-2, FP32_TOL) and timed as in phase 3 (library: SDPA, fp32
      with TF32 off), with its registers and spills; vit_b's d=64
@@ -253,7 +256,7 @@ Phases, each printing its own lines:
      (FP32_TOL, fp32 SDPA's backward).
 
 Each phase prints its seconds. The line before the last is the kernels
-JSON (thirty-nine rows), the last {"ok": true, "device": {...}}. Any
+JSON (forty rows), the last {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero. Imports nothing of JAX and nothing of
 the JAX package.
 """
@@ -386,6 +389,24 @@ def charge_helpers(prof, owners, helper):
     if not all(seen.values()):
         raise AssertionError(f"profile: no launch of {[k for k, n in seen.items() if not n]}")
     return out
+
+
+def launch_us(fn, pattern):
+    """Device us of each launch of a kernel whose name holds `pattern` in
+    one fn() call under torch.profiler (inference mode, after a warm-up),
+    in launch order: the launches of one kernel at different shapes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = sorted((ev.time_range.start, ev.time_range.elapsed_us()) for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA and pattern in ev.name)
+    return [us for _, us in evs]
 
 
 def profile_kernels(fn, train=False):
@@ -588,11 +609,13 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
     # the wgmma kernels as the runtime holds them, at the main path's 5184 keys
-    # (the d=256 dq kernels at the clip's 36352 keys: their tile lists grow with
-    # them; the d=80 ones at vit_h's 4900), the mma.sync register forward at
-    # d=80 in fp32 (static shared memory) and the mma.sync bf16 dq at d=32
+    # (the d=256 forward and dq kernels at the clip's 36352 keys: their tile
+    # lists grow with them; the d=80 ones at vit_h's 4900), and the mma.sync
+    # bf16 dq at d=32
     for kernel, d, lk in (("flash_sdpa_h", 32, 5184), ("flash_sdpa_h", 64, 5184),
-                          ("flash_sdpa_h", 80, 4900), ("flash_sdpa_bwd_h", 32, 5184),
+                          ("flash_sdpa_h", 80, 4900), ("flash_sdpa_h", 256, 36352),
+                          ("flash_sdpa_h_fp32", 32, 5184), ("flash_sdpa_h_fp32", 64, 5184),
+                          ("flash_sdpa_h_fp32", 80, 4900), ("flash_sdpa_bwd_h", 32, 5184),
                           ("flash_sdpa_bwd_h", 64, 5184), ("flash_sdpa_bwd_h", 80, 4900),
                           ("flash_sdpa_bwd_dq_h", 64, 5184), ("flash_sdpa_bwd_dq_h", 80, 4900),
                           *((kernel, d, lk) for kernel in (
@@ -602,7 +625,7 @@ def main():
                           ("flash_sdpa_bwd_dkv_wide_h", 256, 36352),
                           ("flash_sdpa_bwd_dq_wide_f32", 256, 36352),
                           ("flash_sdpa_bwd_dkv_wide_f32", 256, 36352),
-                          ("flash_sdpa_fp32", 80, 4900), ("flash_sdpa_bwd_dq", 32, 5184)):
+                          ("flash_sdpa_bwd_dq", 32, 5184)):
         r = fa.kernel_resources(kernel, d, lk)
         log(f"[build] {kernel} d={d}: {r['registers']} registers a thread, {r['spill_bytes']} "
             f"bytes of local memory (spills) a thread, {r['smem_bytes']} bytes of shared memory "
@@ -975,13 +998,21 @@ def video_phase(smi, rng):
         for name, us, n in kernels[:10]:
             log(f"[profile] tracked frame:   {us / 1e3:8.4f} ms  x{n:<4d} {name[:90]}")
         for name, us, n in kernels:
-            for key, pattern, per in (("flash_sdpa_d256", "flash_qsmem_kernel<256, 256, __nv_bf", 4),
+            for key, pattern, per in (("flash_sdpa_d256", "flash_sdpa_h_kernel<256>", 4),
                                       ("flash_memattn", "flash_qsmem_kernel<256, 64, __nv_bf", 4),
                                       ("depthwise_conv2d", "dw7_kernel", 2)):
                 if pattern in name:
                     device_ms[key] = device_ms.get(key, 0.0) + us / 1e3 / per
         write_out("profile_tracked_frame.txt",
                   "\n".join(f"{us:12.2f} us  x{n:<5d} {name}" for name, us, n in kernels))
+    # a tracked frame of session B: its 8 d=256 launches are 4 self-attentions
+    # and 4 cross-attentions over the 36352-key bank, the longer 4 (7x the keys)
+    b_us = launch_us(lambda: track_frame(pred_b, st_b), "flash_sdpa_h_kernel<256>")
+    log(f"[profile] tracked frame (B): flash_sdpa_h_kernel<256> launches, device us: "
+        f"{[round(u, 1) for u in b_us]}")
+    if len(b_us) == 2 * VIDEO_COUNTS["A"]["flash_sdpa"]:
+        device_ms["flash_sdpa_d256_cross"] = sum(sorted(b_us)[len(b_us) // 2:]) / 1e3 / (
+            len(b_us) // 2)
 
     # ---- the tracker kernels against their plain versions
     rows = []
@@ -1002,8 +1033,9 @@ def video_phase(smi, rng):
     nb = 2 * (q.numel() + got.numel() + 2 * live * d) + 4 * key_bias.numel()
     bms, by = bound(nb, 4.0 * h * lq * live * d, 1.0 * h * lq * live, 6.0 * h * lq * live)
     mask = (key_bias > fa.NEG_INF / 2)[:, None, None, :]
+    res = fa.kernel_resources("flash_sdpa_h", 256, k.shape[2])
     rows.append(dict(
-        name="flash_sdpa_d256", route="cuda", source="efficientsam3_tpu_torch/csrc/flash_sdpa.cu",
+        name="flash_sdpa_d256", route="cuda", source="efficientsam3_tpu_torch/csrc/flash_sdpa_h.cu",
         replaces="efficientsam3_tpu/ops/pallas/flash_attention.py:144",
         launches=launches_a["flash_sdpa"], max_abs_err=err,
         ms=graph_time(lambda: fa.flash_sdpa(q, k, v, key_bias, scale), 5, 10),
@@ -1014,22 +1046,45 @@ def video_phase(smi, rng):
             lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale), 5, 10),
         device_ms=device_ms.get("flash_sdpa_d256"),
         shape=f"q/k/v {tuple(q.shape)} bf16, {live} live keys over {b} slots "
-              f"(lse max err {lse_err:.2e})", **{"pass": True}))
+              f"(lse max err {lse_err:.2e}); wgmma + TMA, {res['registers']} registers, "
+              f"{res['spill_bytes']} bytes spilled, {res['smem_bytes']} B shared, "
+              f"{res['blocks_per_sm']} blocks an SM", **{"pass": True}))
     del q, k, v, got, want, lse, want_lse
 
-    # and session B's plain cross-attention over the 36352-key bank
+    # and session B's plain cross-attention over the 36352-key bank: the same
+    # kernel, 4 of the 8 d=256 launches of a plain-path frame
     (q, k, v, key_bias, scale), _ = capture_b.args[("flash_sdpa", 256)]
-    got = fa.flash_sdpa(q, k, v, key_bias, scale)
-    err_b = check("flash_sdpa_d256 (plain cross-attention)", got,
-                  fa.flash_sdpa_plain(q, k, v, key_bias, scale))
+    b, h, lq, d = q.shape
+    got, lse = fa.flash_sdpa(q, k, v, key_bias, scale, return_lse=True)
+    want, want_lse = fa.flash_sdpa_plain(q, k, v, key_bias, scale, return_lse=True)
+    err = check("flash_sdpa_d256_cross", got, want)
+    lse_err = (lse - want_lse).abs().max().item()
+    if lse_err > 1e-2:
+        raise AssertionError(f"flash_sdpa_d256_cross lse off by {lse_err}")
+    del want, want_lse, lse
     live = live_keys(key_bias)
-    ms_b = graph_time(lambda: fa.flash_sdpa(q, k, v, key_bias, scale), 2, 5)
-    bms_b, by_b = bound(2 * (q.numel() + got.numel() + 2 * live * q.shape[-1]),
-                        4.0 * q.shape[2] * live * q.shape[-1], 1.0 * q.shape[2] * live)
-    log(f"[kernel] flash_sdpa_d256 (session B cross-attention, q {tuple(q.shape)} k "
-        f"{tuple(k.shape)}): {ms_b:.4f} ms in a CUDA graph | bound {bms_b:.4f} ms ({by_b}) | "
-        f"max err {err_b:.3e} | {smi}")
-    del q, k, v, got
+    nb = 2 * (q.numel() + got.numel() + 2 * live * d) + 4 * key_bias.numel()
+    bms, by = bound(nb, 4.0 * h * lq * live * d, 1.0 * h * lq * live, 6.0 * h * lq * live)
+    mask = (key_bias > fa.NEG_INF / 2)[:, None, None, :]
+    res = fa.kernel_resources("flash_sdpa_h", 256, k.shape[2])
+    rows.append(dict(
+        name="flash_sdpa_d256_cross", route="cuda",
+        source="efficientsam3_tpu_torch/csrc/flash_sdpa_h.cu",
+        replaces="efficientsam3_tpu/ops/pallas/flash_attention.py:144",
+        launches=launches_b["flash_sdpa"] // 2, max_abs_err=err,
+        ms=graph_time(lambda: fa.flash_sdpa(q, k, v, key_bias, scale), 3, 5),
+        call_ms=cuda_time(lambda: fa.flash_sdpa(q, k, v, key_bias, scale), 5),
+        plain_ms=cuda_time(lambda: fa.flash_sdpa_plain(q, k, v, key_bias, scale), 2, warmup=1),
+        bound_ms=bms, bound_by=by,
+        library_ms=graph_time(
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale), 2, 5),
+        device_ms=device_ms.get("flash_sdpa_d256_cross"),
+        shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16, {live} live keys over {b} slots "
+              f"(lse max err {lse_err:.2e}); library = SDPA, bool key mask; wgmma + TMA, "
+              f"{res['registers']} registers, {res['spill_bytes']} bytes spilled, "
+              f"{res['smem_bytes']} B shared, {res['blocks_per_sm']} blocks an SM",
+        **{"pass": True}))
+    del q, k, v, got, mask
 
     # flash_memattn: session A's bank attention (LSE variant)
     (q, k, v, key_bias, scale), kw = capture.args[("flash_memattn", 256)]
@@ -2586,7 +2641,7 @@ def fp32_phase(smi, main_ref):
         out = {k: res[k].float().cpu() for k in GROUND_KEYS}
         ground_ms = cuda_time(ground, 10)
     # the fp32 ground runs only fp32 kernels: flash_xattn_rpb's partial and merge
-    dev_ground = per_launch(ground, {"flash_sdpa_fp32": ("flash_sdpa_fwd_kernel<32, float>", 6),
+    dev_ground = per_launch(ground, {"flash_sdpa_fp32": ("flash_sdpa_h_f32_kernel<32>", 6),
                                      "flash_xattn_rpb_fp32": ("flash_xattn_rpb_", 6)})
     log(f"[fp32] ground {ground_ms:.3f} ms (bf16 build: {main_ref['ground_ms']:.3f} ms); kept "
         f"{len(state['scores'])} of 200 queries | {smi}")
@@ -2647,12 +2702,16 @@ def fp32_phase(smi, main_ref):
               check("flash_sdpa_fp32 lse", lse, want_lse, FP32_TOL))
     live = int((key_bias > fa.NEG_INF / 2).sum().item()) * h * lq
     bms, by = attn_bound(q.numel(), live, d, kv_elems=k.numel() + v.numel())
-    rows.append(row("flash_sdpa_fp32", "flash_sdpa.cu", "flash_attention.py:304",
+    res = fa.kernel_resources("flash_sdpa_h_fp32", d, k.shape[2])
+    rows.append(row("flash_sdpa_fp32", "flash_sdpa_h_fp32.cu", "flash_attention.py:304",
                     MAIN_COUNTS["flash_sdpa"], err,
                     lambda: fa.flash_sdpa(q, k, v, key_bias, scale),
                     lambda: fa.flash_sdpa_plain(q, k, v, key_bias, scale),
                     graph_time(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 5, 10),
-                    bms, by, f"q/k/v {tuple(q.shape)} fp32 (split bf16 products); library = fp32 SDPA",
+                    bms, by, f"q/k/v {tuple(q.shape)} fp32 (split-bf16 wgmma; graph and call ms "
+                    f"with the two split passes, dev the kernel alone; {res['registers']} "
+                    f"registers, {res['spill_bytes']} bytes spilled, {res['smem_bytes']} B shared, "
+                    f"{res['blocks_per_sm']} blocks an SM); library = fp32 SDPA",
                     dev_ground.get("flash_sdpa_fp32")))
     (q, k, v, ey, ex, feat_hw, scale), _ = capture.args[("flash_xattn_rpb", 32)]
     b, h, lq, d = q.shape
@@ -2699,11 +2758,11 @@ def fp32_phase(smi, main_ref):
     # the dq and dkv kernels are the split-bf16 wgmma kernels of
     # csrc/flash_sdpa_bwd_dq_h_fp32.cu and csrc/flash_sdpa_bwd_h_fp32.cu (their
     # profile names checked: 6 launches each a step), fed by 24 split passes
-    # (K and V for dq, Q and dO for dkv)
+    # (K and V for dq, Q and dO for dkv), and the forward's 12 (K and V)
     dev_step = per_launch(lambda: stage3.stage3_train_step(model, opt, batch),
                           {"flash_sdpa_bwd_dq_fp32": ("flash_bwd_dq_h_f32_kernel<32>", 6),
                            "flash_sdpa_bwd_dkv_fp32": ("flash_bwd_dkv_h_f32_kernel<32>", 6),
-                           "split_parts_d32": ("split_parts_kernel<32>", 24)}, train=True,
+                           "split_parts_d32": ("split_parts_kernel<32>", 36)}, train=True,
                           exact=("flash_sdpa_bwd_dq_fp32", "flash_sdpa_bwd_dkv_fp32",
                                  "split_parts_d32"))
     log(f"[fp32] Stage-3 step profile, device ms a launch: {dev_step}")
@@ -3051,8 +3110,10 @@ def sam3_phase(smi, main_ref):
             nb = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * key_bias.numel()
             bms, by = bound(nb, 4.0 * live * d, 1.0 * live, 6.0 * live)
         fn = lambda: fa.flash_sdpa(q, k, v, key_bias, scale)  # noqa: E731
+        kernel = fa.sdpa_kernel(q.dtype, d)
+        res = fa.kernel_resources(kernel, d, k.shape[2])
         r = dict(name=name, route="cuda",
-                 source=f"efficientsam3_tpu_torch/csrc/{fa.sdpa_kernel(q.dtype, d)}.cu",
+                 source=f"efficientsam3_tpu_torch/csrc/{kernel}.cu",
                  replaces="efficientsam3_tpu/ops/pallas/flash_attention.py:304",
                  launches=launches, max_abs_err=err, ms=graph_time(fn, 5, 10),
                  call_ms=cuda_time(fn, 10),
@@ -3063,8 +3124,10 @@ def sam3_phase(smi, main_ref):
                      lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 5, 10),
                  device_ms=device_ms,
                  shape=f"q/k/v {tuple(q.shape)} {str(q.dtype)[6:]} (v a strided view of the "
-                       f"packed qkv){' split bf16 products' if fp32 else ', wgmma + TMA'}; library = "
-                       f"{'fp32 ' if fp32 else ''}SDPA", **{"pass": True})
+                       f"packed qkv), wgmma + TMA{', split bf16 products' if fp32 else ''}; "
+                       f"{res['registers']} registers, {res['spill_bytes']} bytes spilled, "
+                       f"{res['smem_bytes']} B shared, {res['blocks_per_sm']} blocks an SM; "
+                       f"library = {'fp32 ' if fp32 else ''}SDPA", **{"pass": True})
         log_row(r, smi)
         return r
 
@@ -3175,7 +3238,7 @@ def sam3_phase(smi, main_ref):
     log(f"[sam3] fp32 teacher: set_image {set_ms:.3f} ms (encode_image {enc_ms:.3f}) | ground "
         f"{ground_ms:.3f} ms | {smi}")
     dev_f32 = encode_profile(model, img, "sam3 fp32 encode_image",
-                             "flash_sdpa_fwd_kernel<64, float>", enc_ms)
+                             "flash_sdpa_h_f32_kernel<64>", enc_ms)
 
     # the same model in fp32 on the host's CPU (the plain versions), text included
     cpu_model = build_sam3_image_model(text_encoder_context_length=32, device="meta")
@@ -3507,7 +3570,7 @@ def sam1_phase(smi, main_ref):
             nb = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * key_bias.numel()
             bms, by = bound(nb, 4.0 * live * d, 1.0 * live, 6.0 * live)
         kernel = fa.sdpa_kernel(q.dtype, d)
-        res = fa.kernel_resources("flash_sdpa_fp32" if fp32 else kernel, d, k.shape[2])
+        res = fa.kernel_resources(kernel, d, k.shape[2])
         fn = lambda: fa.flash_sdpa(q, k, v, key_bias, scale)  # noqa: E731
         r = dict(name=name, route="cuda",
                  source=f"efficientsam3_tpu_torch/csrc/{kernel}.cu",
@@ -3522,9 +3585,9 @@ def sam1_phase(smi, main_ref):
                  device_ms=device_ms,
                  shape=f"q/k/v {tuple(q.shape)} {str(q.dtype)[6:]} (v a strided view of the "
                        f"packed qkv), "
-                       f"{'mma.sync split bf16 products' if fp32 else 'wgmma + TMA, 32-byte slabs'}"
+                       f"wgmma + TMA, 32-byte slabs{', split bf16 products' if fp32 else ''}"
                        f"; {res['registers']} registers, {res['spill_bytes']} bytes spilled, "
-                       f"{res['smem_bytes']} B {'static ' if fp32 else ''}shared, "
+                       f"{res['smem_bytes']} B shared, "
                        f"{res['blocks_per_sm']} blocks an SM; library = "
                        f"{'fp32 ' if fp32 else ''}SDPA", **{"pass": True})
         log_row(r, smi)
@@ -3648,7 +3711,7 @@ def sam1_phase(smi, main_ref):
            {"flash_sdpa": 1})
     set_ms = cuda_time(lambda: pred.set_image(image), 3, warmup=1)
     dev_f32 = encode_dev_ms(model, "vit_h cut fp32 encode_image",
-                            "flash_sdpa_fwd_kernel<80, float>", 1)
+                            "flash_sdpa_h_f32_kernel<80>", 1)
     cpu_pred = SamStudentPredictor(cpu_model)
     t_cpu = time.perf_counter()
     cpu_pred.set_image(image)
@@ -3738,10 +3801,10 @@ VIT_CUT_STEP = {"flash_sdpa": 2, "flash_sdpa_bwd_dq": 1, "flash_sdpa_bwd_dkv": 1
 VITH_STEPS, VITH_BATCH = 2, 1
 TEACHER_STEPS, TEACHER_BATCH = 3, 2
 # kernel families of a Stage-1 step's profile (lower-case name patterns), first match wins
-KERNEL_FAMILIES = (("flash_sdpa backward (dq + dkv)",
+KERNEL_FAMILIES = (("flash_sdpa backward (dq + dkv) and the split passes",
                     ("bwd_dq_kernel<", "bwd_dkv_h_kernel<", "bwd_dq_h_kernel<",
                      "bwd_dkv_h_f32_kernel<", "bwd_dq_h_f32_kernel<", "split_parts_kernel<")),
-                   ("flash_sdpa forward", ("flash_sdpa_h_kernel<", "flash_sdpa_fwd_kernel<")),
+                   ("flash_sdpa forward", ("flash_sdpa_h_kernel<", "flash_sdpa_h_f32_kernel<")),
                    ("GEMM", ("gemm", "cutlass", "xmma", "nvjet")),
                    ("softmax", ("softmax",)),
                    ("bf16 casts", ("bfloat16_copy",)),

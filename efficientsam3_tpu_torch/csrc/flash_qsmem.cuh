@@ -1,10 +1,11 @@
 // Flash attention forward with the query tile staged in shared memory, for
 // wide heads: dk = 256 keys/queries against values of width DV (256 for
 // the tracker's self and plain cross-attention, 64 for the cached memory
-// bank's raw values). Used by flash_sdpa.cu (d = 256) and flash_memattn.cu.
+// bank's raw values). Used by flash_sdpa.cu (d = 256 in fp32; bf16 is
+// flash_sdpa_h.cu's wgmma kernel) and flash_memattn.cu.
 //
-// Why a layout of its own: the d = 32 kernel (flash_sdpa.cu) keeps the Q
-// fragments and the output accumulator in registers, DK/16*4 + DV/8*4 = 192
+// Why a layout of its own: an mma.sync kernel that keeps the Q fragments
+// and the output accumulator in registers needs DK/16*4 + DV/8*4 = 192
 // registers a thread at 256/256 before the score tile, which spills. Here
 // one block of 4 warps owns BQ = 64 query rows (16 a warp); the Q tile
 // (64 x 256 bf16, 33 KB with padding) is copied once into shared memory and

@@ -1,5 +1,6 @@
-// Flash scaled-dot-product attention forward at head dims 32, 64 and 80,
-// bf16, for Hopper (sm_90a): wgmma, TMA and a warp-specialised pipeline.
+// Flash scaled-dot-product attention forward at head dims 32, 64, 80 and
+// 256, bf16, for Hopper (sm_90a): wgmma, TMA and a warp-specialised
+// pipeline.
 //
 // Replaces efficientsam3_tpu/ops/pallas/flash_attention.py
 // `_flash_fwd_packed` (`_packed_kernel` :182, its pallas_call at :304),
@@ -11,15 +12,21 @@
 //    launches a `set_image`, q/k/v strided views of one packed qkv tensor;
 //  - d = 80: the vit_h SAM1 student's global blocks, (1, 16, 4900, 80) at
 //    1120^2, 4 launches a `set_image` and 8 a Stage-1 step (the
-//    checkpointed blocks run their forward again), views of a packed qkv.
+//    checkpointed blocks run their forward again), views of a packed qkv;
+//  - d = 256 (`_kernel` alone: one head): the tracker's memory attention,
+//    self-attention q/k/v (8, 1, 5184, 256) with 3 of 8 object slots live
+//    and the plain path's cross-attention over k/v (8, 1, 36352, 256), 4
+//    launches a tracked frame (8 on the plain path) and 56 an 8-frame
+//    training clip (the d = 256 backward reads its LSE).
 // What it computes is that of flash_sdpa.cu: softmax(Q K^T * scale +
 // key_bias) V with an fp32 online softmax, P rounded to bf16 for the PV
 // product, a (B, Lk) fp32 additive key bias (-1e9 masks), key tiles whose
 // keys are all masked skipped, the natural-log LSE (the backward reads it),
 // 0 and lse -1e9 for a row whose keys are all masked, ragged Lq and Lk
 // masked in the kernel, any (B, H, N) strides on q, k and v, the output in
-// (B, N, H, D) memory. fp32 operands run flash_sdpa.cu (wgmma's tf32 form
-// needs both operands K-major, and V is not).
+// (B, N, H, D) memory. fp32 operands run flash_sdpa_h_fp32.cu at d = 32,
+// 64 and 80 (this design on split bf16 parts: wgmma's tf32 form needs both
+// operands K-major, and V is not) and flash_sdpa.cu at d = 256.
 //
 // What held the mma.sync kernel of flash_sdpa.cu back (d = 32: 0.2679 ms at
 // the `ground` shape against 0.1645 ms for one F.scaled_dot_product_attention
@@ -39,16 +46,16 @@
 //    (warps 0-7), plus one producer warp (warp 8) that only issues TMA and
 //    drops to 24 registers (setmaxnreg.dec); the consumers keep the launch's
 //    count (a setmaxnreg.inc waits for registers the pool may not hold);
-//  - loads: the producer keeps a ring of NSTAGE = 3 stages, each a 64-key K
-//    tile, V tile (64 x D bf16: 4 KB at d = 32, 8 KB at d = 64) and the
-//    tiles' 64 key biases, filled by cp.async.bulk.tensor against an
-//    mbarrier (full) and handed back by the eight consumer warps (empty).
-//    q/k/v are described as 4-D (D, N, H, B) tensor maps in boxes of the
-//    row's width swizzled at that width (64 bytes at d = 32, 128 bytes at
-//    d = 64), at d = 80 five 16-column boxes a tile swizzled at 32 bytes,
-//    the layouts the wgmma shared memory descriptors read
-//    (wgmma_common.cuh, Tile); the maps are
-//    encoded on the host through cudaGetDriverEntryPoint (no -lcuda) and
+//  - loads: the producer keeps a ring of NSTAGE = 3 stages (2 at d = 256,
+//    below), each a 64-key K tile, V tile (64 x D bf16: 4 KB at d = 32, 8
+//    KB at d = 64) and the tiles' 64 key biases, filled by
+//    cp.async.bulk.tensor against an mbarrier (full) and handed back by the
+//    eight consumer warps (empty). q/k/v are described as 4-D (D, N, H, B)
+//    tensor maps in boxes of the row's width swizzled at that width (64
+//    bytes at d = 32, 128 bytes at d = 64), at d = 80 five 16-column boxes
+//    a tile swizzled at 32 bytes, the layouts the wgmma shared memory
+//    descriptors read (wgmma_common.cuh, Tile); the maps are encoded on the
+//    host through cudaGetDriverEntryPoint (no -lcuda) and
 //    passed as __grid_constant__ parameters. The Q tile comes the same way,
 //    once;
 //  - products: S = Q K^T by wgmma m64n64k16 from shared memory (both
@@ -62,8 +69,10 @@
 //    QK^T (two named barriers, as FA3's ping-pong), so that one group's
 //    softmax overlaps the other's products;
 //  - masked tiles: the block reads its key-bias row once into a byte per
-//    tile and compacts the live tiles into a list; a dead tile is never
-//    loaded nor computed.
+//    tile and compacts the live tiles into a list (wgmma_common.cuh
+//    live_tiles); a dead tile is never loaded nor computed, and a block
+//    with none (an empty object slot) writes zeros and exits before any
+//    load.
 // Occupancy at d = 32: ~35 KB of shared memory a block (6 would fit), but
 // registers allow 2 blocks of 288 threads an SM (96 registers a thread):
 // 264 slots for `ground`'s 41 x 8 = 328 blocks, the last 64 as a second
@@ -105,6 +114,25 @@
 //    wgmma, C7513, and it was no faster). Not tried: a block without the
 //    producer warp (8 warps: 128 registers at 2 blocks an SM), one TMA
 //    issuer among the consumers.
+//
+// d = 256 (the mma.sync kernel of flash_qsmem.cuh before it took 3.5083 ms
+// at the cross shape, 6.3x its bound of 0.5569 ms, and 0.4206 ms at the
+// self shape against 0.0835: Q from shared memory by ldmatrix, K and V by
+// cp.async with no pipelining, mma.sync at a third of the tensor peak):
+//  - work: a 64 x 64 score tile and its P V product are 2.1 MFLOP each a
+//    warpgroup, one exponential per 256 multiply-adds: bound by the tensor
+//    cores at both shapes (123 live blocks, a wave of 132 SMs);
+//  - layout: a 512-byte row is four 64-column slabs at the 128-byte
+//    swizzle (Tile, as flash_sdpa_bwd_wide_h.cu); Q K^T moves to the next
+//    slab every four k-steps, and P V reads V MN-major with N = 256 across
+//    the slabs through the descriptor's leading byte offset;
+//  - registers: the 64 x 256 O accumulator is 128 fp32 registers a
+//    thread, beside the 32 of S and 16 of P. The block is the two consumer
+//    warpgroups and a producer warpgroup (384 threads, ptxas allocates by
+//    whole warpgroups: 168 a thread at launch), and setmaxnreg moves them:
+//    24 for the producers, 240 for the consumers;
+//  - shared memory: Q 64 KB (128 rows) and two stages of K + V (64 KB
+//    each), 199,696 bytes a block at 36352 keys: one block an SM.
 
 #include "wgmma_common.cuh"
 
@@ -114,9 +142,23 @@ namespace {
 
 constexpr int BM = 128;           // query rows a block
 constexpr int BN = 64;            // keys a tile
-constexpr int NSTAGE = 3;         // K / V ring
 constexpr int NCONS = 256;        // two consumer warpgroups
-constexpr int NTH = NCONS + 32;   // and the producer warp
+// and the producer: one warp, whose launch keeps the consumers' registers
+// (a setmaxnreg.inc waits for registers the pool may not hold); at d = 256
+// a warpgroup, so that setmaxnreg can move the pool to the consumers
+constexpr int PROD_REGS = 24, WIDE_REGS = 240;
+static_assert(NCONS * WIDE_REGS + 128 * PROD_REGS <= 65536, "register pool");
+
+template <int D>
+__host__ __device__ constexpr int nthreads() {
+  return NCONS + (D == 256 ? 128 : 32);
+}
+
+// K / V ring: 3 stages, 2 of the 64 KB ones at d = 256
+template <int D>
+__host__ __device__ constexpr int nstage() {
+  return D == 256 ? 2 : 3;
+}
 
 // shared memory, from a 1024-aligned base, each tile in the slabs of
 // wgmma_common.cuh's Tile (the swizzle repeats every 8 rows of a slab: 512
@@ -124,6 +166,7 @@ constexpr int NTH = NCONS + 32;   // and the producer warp
 // descriptors see the same pattern)
 template <int D>
 struct Smem {
+  static constexpr int NSTAGE = nstage<D>();
   using TQ = Tile<D, BM>;                // the block's Q tile
   using TK = Tile<D, BN>;                // a K or V tile
   static constexpr int TILE = TK::BYTES;  // one K or V tile
@@ -141,14 +184,15 @@ struct Smem {
 };
 
 // blocks an SM: 2 at d = 32 and 64 (96 registers a thread), 1 at d = 80,
-// whose 40-register O accumulator spills at the 96 of 2 blocks
+// whose 40-register O accumulator spills at the 96 of 2 blocks, and at
+// d = 256
 template <int D>
 __host__ __device__ constexpr int blocks_per_sm() {
-  return D == 80 ? 1 : 2;
+  return D == 80 || D == 256 ? 1 : 2;
 }
 
 template <int D>
-__global__ void __launch_bounds__(NTH, blocks_per_sm<D>())
+__global__ void __launch_bounds__(nthreads<D>(), blocks_per_sm<D>())
 flash_sdpa_h_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v,
@@ -157,6 +201,7 @@ flash_sdpa_h_kernel(const __grid_constant__ CUtensorMap tm_q,
                     float* __restrict__ lse, int H, int lq, int lk, int lkb, float sm_scale,
                     long long sob, long long soh, long long son) {
   using L = Smem<D>;
+  constexpr int NSTAGE = L::NSTAGE, NTH = nthreads<D>();
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -164,7 +209,6 @@ flash_sdpa_h_kernel(const __grid_constant__ CUtensorMap tm_q,
   float* bias_s = reinterpret_cast<float*>(smem + L::OFF_BIAS);  // [NSTAGE][BN]
   const uint32_t bar_full = s_base + L::OFF_BAR, bar_empty = bar_full + NSTAGE * 8;
   const uint32_t bar_q = bar_empty + NSTAGE * 8;
-  int* nlive_s = reinterpret_cast<int*>(smem + L::OFF_NLIVE);
   unsigned char* tile_live = smem + L::OFF_LIVE;
 
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
@@ -174,18 +218,11 @@ flash_sdpa_h_kernel(const __grid_constant__ CUtensorMap tm_q,
   unsigned short* live_list =
       reinterpret_cast<unsigned short*>(tile_live + (ntiles + 15) / 16 * 16);
   key_bias += (long long)b * lkb;
+  o += b * sob + h * soh;
+  if (lse != nullptr) lse += (long long)bh * lq;
 
-  // which key tiles hold a live key (stores of 1 may race: same value),
-  // then warp 0 compacts them into a list; thread 0 sets up the barriers
-  for (int i = threadIdx.x; i < ntiles; i += NTH) tile_live[i] = 0;
-  __syncthreads();
-  // 4 keys a 16-byte load (the host checks the rows' alignment); keys past
-  // lk are padding at -1e9
-  const float4* kb4 = reinterpret_cast<const float4*>(key_bias);
-  for (int i = threadIdx.x; i < lkb / 4; i += NTH) {
-    const float4 bv = kb4[i];
-    if (fmaxf(fmaxf(bv.x, bv.y), fmaxf(bv.z, bv.w)) > 0.5f * NEG_INF) tile_live[4 * i / BN] = 1;
-  }
+  // thread 0 sets up the barriers; the live key tiles (keys past lk are
+  // padding at -1e9), whose block barriers publish them
   if (threadIdx.x == 0) {
     for (int s = 0; s < NSTAGE; ++s) {
       mbar_init(bar_full + 8 * s, 1);
@@ -194,25 +231,17 @@ flash_sdpa_h_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_init(bar_q, 1);
     mbar_init_fence();
   }
-  __syncthreads();
-  if (warp == 0) {
-    int n = 0;
-    for (int base = 0; base < ntiles; base += 32) {
-      const int i = base + lane;
-      const bool lv = i < ntiles && tile_live[i];
-      const unsigned mask = __ballot_sync(0xffffffffu, lv);
-      if (lv) live_list[n + __popc(mask & ((1u << lane) - 1u))] = static_cast<unsigned short>(i);
-      n += __popc(mask);
-    }
-    if (lane == 0) *nlive_s = n;
+  const int nlive = live_tiles<BN, NTH>(key_bias, lkb, ntiles, tile_live, live_list,
+                                        reinterpret_cast<int*>(smem + L::OFF_NLIVE));
+  if (nlive == 0) {  // every key of the batch row masked (an empty slot): no loads
+    dead_rows<BM, D, NTH>(o, son, lse, q0, lq);
+    return;
   }
-  __syncthreads();
-  const int nlive = *nlive_s;
 
-  if (warp == NCONS / 32) {
-    // ---------------- producer warp: TMA only
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
-    if (lane == 0) {
+  if (warp >= NCONS / 32) {
+    // ---------------- producer warp (warpgroup at d = 256): TMA only
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PROD_REGS) : "memory");
+    if (warp == NCONS / 32 && lane == 0) {
       mbar_expect_tx(bar_q, L::TQ::BYTES);
       L::TQ::load(s_base + L::OFF_Q, &tm_q, bar_q, q0, h, b);
       for (int i = 0; i < nlive; ++i) {
@@ -227,6 +256,8 @@ flash_sdpa_h_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
   } else {
     // ---------------- two consumer warpgroups, 64 rows each
+    if constexpr (D == 256)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(WIDE_REGS) : "memory");
     const int wg = warp >> 2;
     const int g = lane >> 2, t = lane & 3;
     const int r0 = q0 + wg * 64 + (warp & 3) * 16 + g, r1 = r0 + 8;  // this thread's rows
@@ -240,7 +271,7 @@ flash_sdpa_h_kernel(const __grid_constant__ CUtensorMap tm_q,
     float m0 = NEG_INF * LOG2E, m1 = NEG_INF * LOG2E, l0 = 0.f, l1 = 0.f;
 
     mbar_wait(bar_q, 0);
-    if (wg == 1 && nlive > 0) named_arrive<NCONS>(1);  // group 0 issues first
+    if (wg == 1) named_arrive<NCONS>(1);  // group 0 issues first
     for (int i = 0; i < nlive; ++i) {
       const int s = i % NSTAGE;
       const int key0 = live_list[i] * BN;
@@ -322,7 +353,6 @@ flash_sdpa_h_kernel(const __grid_constant__ CUtensorMap tm_q,
     l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
     const float i0 = 1.f / fmaxf(l0, 1e-30f), i1 = 1.f / fmaxf(l1, 1e-30f);
-    o += b * sob + h * soh;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       const int c = n * 8 + 2 * t;
@@ -334,7 +364,6 @@ flash_sdpa_h_kernel(const __grid_constant__ CUtensorMap tm_q,
             __floats2bfloat162_rn(acc[4 * n + 2] * i1, acc[4 * n + 3] * i1);
     }
     if (lse != nullptr && t == 0) {
-      lse += (long long)bh * lq;
       const float valid = 0.5f * NEG_INF * LOG2E;
       if (r0 < lq) lse[r0] = m0 > valid ? (m0 + __log2f(fmaxf(l0, 1e-30f))) * LN2 : NEG_INF;
       if (r1 < lq) lse[r1] = m1 > valid ? (m1 + __log2f(fmaxf(l1, 1e-30f))) * LN2 : NEG_INF;
@@ -371,7 +400,7 @@ int launch(const void* q, const void* k, const void* v, const void* key_bias, vo
   const int err = prepare<D>(lk, &smem);
   if (err != 0) return err;
   const dim3 grid((lq + BM - 1) / BM, B * H);
-  flash_sdpa_h_kernel<D><<<grid, NTH, smem, st>>>(
+  flash_sdpa_h_kernel<D><<<grid, nthreads<D>(), smem, st>>>(
       tq, tk, tv, tb, static_cast<const float*>(key_bias), static_cast<bf16*>(o),
       static_cast<float*>(lse), H, lq, lk, lkb, sm_scale, sob, soh, son);
   return static_cast<int>(cudaGetLastError());
@@ -379,7 +408,7 @@ int launch(const void* q, const void* k, const void* v, const void* key_bias, vo
 
 }  // namespace
 
-// q, k, v (B, H, N, d) bf16, d = 32, 64 or 80, with (batch, head, row) element
+// q, k, v (B, H, N, d) bf16, d = 32, 64, 80 or 256, with (batch, head, row) element
 // strides, each a multiple of 8 and the base 16-byte aligned; key_bias
 // (B, lkb) f32 contiguous and 16-byte aligned, lkb >= Lk a multiple of 4,
 // columns past Lk at -1e9; o by strides; lse (B, H, Lq) f32 or null.
@@ -398,6 +427,7 @@ extern "C" int flash_sdpa_h_fwd(const void* q, const void* k, const void* v,
   if (d == 32) run = launch<32>;
   if (d == 64) run = launch<64>;
   if (d == 80) run = launch<80>;
+  if (d == 256) run = launch<256>;
   if (run == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return run(q, k, v, key_bias, o, lse, B, H, lq, lk, lkb, sm_scale, sqb, sqh, sqn, skb, skh,
              skn, svb, svh, svn, sob, soh, son, static_cast<cudaStream_t>(stream));
@@ -409,10 +439,12 @@ extern "C" int flash_sdpa_h_fwd(const void* q, const void* k, const void* v,
 extern "C" int flash_sdpa_h_attrs(int d, int lk, int* out) {
   int smem = 0, err = static_cast<int>(cudaErrorInvalidValue);
   if (d == 32 && (err = prepare<32>(lk, &smem)) == 0)
-    return kernel_attrs(flash_sdpa_h_kernel<32>, NTH, smem, out);
+    return kernel_attrs(flash_sdpa_h_kernel<32>, nthreads<32>(), smem, out);
   if (d == 64 && (err = prepare<64>(lk, &smem)) == 0)
-    return kernel_attrs(flash_sdpa_h_kernel<64>, NTH, smem, out);
+    return kernel_attrs(flash_sdpa_h_kernel<64>, nthreads<64>(), smem, out);
   if (d == 80 && (err = prepare<80>(lk, &smem)) == 0)
-    return kernel_attrs(flash_sdpa_h_kernel<80>, NTH, smem, out);
+    return kernel_attrs(flash_sdpa_h_kernel<80>, nthreads<80>(), smem, out);
+  if (d == 256 && (err = prepare<256>(lk, &smem)) == 0)
+    return kernel_attrs(flash_sdpa_h_kernel<256>, nthreads<256>(), smem, out);
   return err;
 }

@@ -1,5 +1,6 @@
 // Shared pieces of the warp-specialised Hopper attention kernels
-// (flash_sdpa_h.cu: the bf16 forward at d = 32, 64 and 80;
+// (flash_sdpa_h.cu: the bf16 forward at d = 32, 64, 80 and 256;
+// flash_sdpa_h_fp32.cu: the forward at d = 32, 64 and 80 on fp32 operands;
 // flash_sdpa_bwd_h.cu: the bf16 dK / dV backward at d = 32, 64 and 80;
 // flash_sdpa_bwd_dq_h.cu: the bf16 dQ backward at d = 64 and 80;
 // flash_sdpa_bwd_h_fp32.cu and flash_sdpa_bwd_dq_h_fp32.cu: the dK / dV and
@@ -431,6 +432,17 @@ __device__ __forceinline__ void zero_rows(T* out, long long sn, int row0, int n)
     const int row = row0 + i / (D / 2), c = 2 * (i % (D / 2));
     if (row < n) store2(out + row * sn + c, 0.f, 0.f);
   }
+}
+
+// The output rows q0 .. q0 + ROWS (those below lq) of a forward block whose
+// key row has no live key: 0, with lse -1e9 (lse, the (batch, head) row of
+// the log-sum-exp, or null).
+template <int ROWS, int D, int NTHR, typename T>
+__device__ __forceinline__ void dead_rows(T* o, long long son, float* lse, int q0, int lq) {
+  zero_rows<ROWS, D, NTHR>(o, son, q0, lq);
+  if (lse != nullptr)
+    for (int i = threadIdx.x; i < ROWS; i += NTHR)
+      if (q0 + i < lq) lse[q0 + i] = NEG_INF;
 }
 
 // Whether any of the ROWS keys from key0 is live (below lk, key bias >

@@ -11,12 +11,14 @@ parameters. Parameter names follow the flax tree so that
 
 Attention: ``sdpa`` keeps the JAX routing rules: large attentions with no
 full bias and at most a key-padding mask go to the flash kernel
-(``ops/flash_attention.flash_sdpa``) when the tensors are on CUDA; the
-rest runs as matmul + fp32 softmax + P cast to v's dtype, like the JAX
-einsum branch. ``sdpa_rawv`` routes the tracker's cached memory bank (raw
-64-wide values) to ``flash_memattn`` by the same rule, with dv % 8 == 0,
-and to ``flash_memattn_q8`` when the keys come as an int8 (k_i8, k_scale)
-pair (the tracker's ``quantize_bank``).
+(``ops/flash_attention.flash_sdpa``) when the tensors are on CUDA and the
+kernels take their head dim and dtype (``flash_eligible``); the rest runs as
+matmul + fp32 softmax + P cast to v's dtype, like the JAX einsum branch
+(JAX's Pallas kernel takes any head dim; the port's matmul path computes
+the same function where its kernels do not). ``sdpa_rawv`` routes the
+tracker's cached memory bank (raw 64-wide values) to ``flash_memattn`` by
+the same rule, and to ``flash_memattn_q8`` when the keys come as an int8
+(k_i8, k_scale) pair (the tracker's ``quantize_bank``).
 ``MultiheadAttention(rpb=...)`` sends the decoder's boxRPB cross-attention
 to ``flash_xattn_rpb`` on CUDA. ``Attention`` / ``RoPEAttention`` are the
 SAM heads' and the tracker's attentions, with the cached-bank entry points
@@ -34,6 +36,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from efficientsam3_tpu_torch.ops.flash_attention import (
+    _MEMATTN_DIMS,
+    _SUPPORTED_D,
+    KERNEL_DTYPES,
     NEG_INF,
     flash_memattn,
     flash_memattn_q8,
@@ -373,14 +378,37 @@ class LayerNorm2d(nn.Module):
 _FLASH_MIN_SCORES = 1 << 22
 
 
-def _flash_eligible(q, k, mask, bias):
-    if bias is not None:  # full (Lq, Lk) biases stay on the matmul path
+def flash_eligible(q_shape, k_shape, v_shape, dtypes, mask_shape=None, bias=False,
+                   rawv=False):
+    """Whether a CUDA attention of these shapes and float dtypes goes to a
+    flash kernel (``flash_sdpa``; with rawv, values of their own width,
+    ``flash_memattn`` or ``flash_memattn_q8``) rather than the matmul path.
+    JAX's rule (a large (Lq, Lk), no full bias, at most a key-padding mask)
+    and the kernels' own sets: float operands all bf16 or all fp32, head
+    dims ``_SUPPORTED_D`` (q, k and v of one width), or (dk, dv) in
+    ``_MEMATTN_DIMS``. A CPU tensor takes the matmul path whatever this
+    says (``_use_flash``)."""
+    if bias:  # full (Lq, Lk) biases stay on the matmul path
         return False
-    if q.ndim != 4 or q.shape[-2] * k.shape[-2] < _FLASH_MIN_SCORES:
+    if len(q_shape) != 4 or q_shape[-2] * k_shape[-2] < _FLASH_MIN_SCORES:
         return False
-    if mask is not None and (mask.ndim != 4 or mask.shape[1] != 1 or mask.shape[2] != 1):
+    if mask_shape is not None and (len(mask_shape) != 4 or mask_shape[1] != 1
+                                   or mask_shape[2] != 1):
         return False  # only key-padding masks map to the kernel's key bias
-    return q.is_cuda
+    if len(set(dtypes)) != 1 or next(iter(dtypes)) not in KERNEL_DTYPES:
+        return False
+    if rawv:
+        return (q_shape[-1], v_shape[-1]) in _MEMATTN_DIMS
+    return q_shape[-1] in _SUPPORTED_D and k_shape[-1] == v_shape[-1] == q_shape[-1]
+
+
+def _use_flash(q, k, v, mask, bias, rawv=False):
+    """The flash kernel for this call: CUDA tensors and ``flash_eligible``
+    (the float dtypes of q, k and v: int8 keys are the q8 bank's)."""
+    dtypes = {t.dtype for t in (q, k, v) if t.is_floating_point()}
+    return q.is_cuda and flash_eligible(q.shape, k.shape, v.shape, dtypes,
+                                        None if mask is None else mask.shape,
+                                        bias is not None, rawv)
 
 
 def sdpa(q, k, v, mask=None, bias=None):
@@ -389,7 +417,7 @@ def sdpa(q, k, v, mask=None, bias=None):
     mask: bool, True = attend. bias: additive logits bias.
     """
     d = q.shape[-1]
-    if _flash_eligible(q, k, mask, bias):
+    if _use_flash(q, k, v, mask, bias):
         b, lk = q.shape[0], k.shape[-2]
         if mask is None:
             key_bias = torch.zeros((b, lk), dtype=torch.float32, device=q.device)
@@ -411,8 +439,9 @@ def sdpa_rawv(q, k, v_raw, mask=None, return_lse=False):
     q/k (B, H, Lq/Lk, D); v_raw (B, H, Lk, dv). Returns (B, H, Lq, dv), and
     the (B, H, Lq) log-sum-exp with return_lse, so the caller can merge
     this segment with another (``merge_attention_segments``). Large shapes
-    on CUDA go to ``flash_memattn`` (a fully masked row: 0, lse -1e9);
-    the rest runs the einsum path of the JAX package (-inf masking: a
+    on CUDA at a (dk, dv) and dtype the kernel takes (``flash_eligible``) go
+    to ``flash_memattn`` (a fully masked row: 0, lse -1e9); the rest runs
+    the einsum path of the JAX package (-inf masking: a
     fully masked row gives 0 with lse -inf), whose P is normalised before
     the cast to v's dtype.
 
@@ -426,7 +455,7 @@ def sdpa_rawv(q, k, v_raw, mask=None, return_lse=False):
     d = q.shape[-1]
     k_quant = isinstance(k, tuple)
     k_arr = k[0] if k_quant else k
-    if _flash_eligible(q, k_arr, mask, None) and v_raw.shape[-1] % 8 == 0:
+    if _use_flash(q, k_arr, v_raw, mask, None, rawv=True):
         b, lk = q.shape[0], k_arr.shape[-2]
         if mask is None:
             key_bias = torch.zeros((b, lk), dtype=torch.float32, device=q.device)

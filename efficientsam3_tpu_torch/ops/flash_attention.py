@@ -22,15 +22,19 @@ through ctypes on PyTorch's current stream.
 Each wrapper takes the plain PyTorch version for CPU tensors and launches
 its kernel for CUDA tensors, raising on what the kernel does not take
 (``kernel_dtype``: float operands other than bf16 or fp32, or of mixed
-dtypes; head dims it was not built for). Every kernel has a bf16 and an
-fp32 instantiation, the fp32 one on split bf16 parts (csrc/attn_common.cuh);
-outputs come back in the operands' dtype, the log-sum-exp in fp32. Each
-counts its kernel launches in ``<wrapper>.launches``; ``flash_sdpa``
-forward at d=32, 64 and 80 in bf16 is the wgmma kernel
-``csrc/flash_sdpa_h.cu`` (``sdpa_kernel`` says which kernel a call
-reaches); ``flash_sdpa_bwd_dkv`` at d=32, 64 and 80 is the wgmma kernel
-``csrc/flash_sdpa_bwd_h.cu`` in bf16 and ``csrc/flash_sdpa_bwd_h_fp32.cu``
-in fp32 (split bf16 parts), ``flash_sdpa_bwd_dq`` at d=64 and 80 in bf16
+dtypes; head dims it was not built for; ``models/common.flash_eligible``
+sends such attentions to the matmul path before they get here). Every
+kernel has a bf16 and an fp32 instantiation, the fp32 one on split bf16
+parts (csrc/attn_common.cuh, csrc/wgmma_common.cuh); outputs come back in
+the operands' dtype, the log-sum-exp in fp32. Each counts its kernel
+launches in ``<wrapper>.launches``; the ``flash_sdpa`` forward is the wgmma
+kernel ``csrc/flash_sdpa_h.cu`` in bf16 at d=32, 64, 80 and 256 and
+``csrc/flash_sdpa_h_fp32.cu`` in fp32 at d=32, 64 and 80 (split bf16
+parts), and the mma.sync kernel of ``csrc/flash_sdpa.cu`` in fp32 at d=256
+(``sdpa_kernel`` says which kernel a call reaches); ``flash_sdpa_bwd_dkv``
+at d=32, 64 and 80 is the wgmma kernel ``csrc/flash_sdpa_bwd_h.cu`` in bf16
+and ``csrc/flash_sdpa_bwd_h_fp32.cu`` in fp32 (split bf16 parts),
+``flash_sdpa_bwd_dq`` at d=64 and 80 in bf16
 ``csrc/flash_sdpa_bwd_dq_h.cu`` and at d=32, 64 and 80 in fp32
 ``csrc/flash_sdpa_bwd_dq_h_fp32.cu`` (``bwd_dkv_kernel``, ``bwd_dq_kernel``;
 the bf16 dq at d=32 is the mma.sync kernel of ``csrc/flash_sdpa_bwd.cu``),
@@ -128,18 +132,25 @@ def _check_heads(name, dims, *ts):
     return dtype
 
 
-# head dims of the bf16 wgmma kernels flash_sdpa_h (forward) and
-# flash_sdpa_bwd_h (dkv); the mma.sync kernels of csrc/flash_sdpa.cu and
-# csrc/flash_sdpa_bwd.cu refuse bf16 there
+# head dims of the bf16 wgmma dkv kernel flash_sdpa_bwd_h; the mma.sync
+# kernel of csrc/flash_sdpa_bwd.cu refuses dkv everywhere
 _H_D = (32, 64, 80)
+# head dims of the wgmma forward kernels: bf16 (csrc/flash_sdpa_h.cu) and
+# fp32 on split bf16 parts (csrc/flash_sdpa_h_fp32.cu); fp32 at d=256 is
+# the mma.sync kernel of csrc/flash_sdpa.cu, which refuses the rest
+_FWD_H_D = (32, 64, 80, 256)
+_FWD_H_F32_D = (32, 64, 80)
 
 
 def sdpa_kernel(dtype, d):
     """The forward kernel a CUDA ``flash_sdpa`` call launches: the wgmma
-    kernel (csrc/flash_sdpa_h.cu) for bf16 at d=32, 64 and 80, else the
-    mma.sync kernels of csrc/flash_sdpa.cu (fp32 at d=32, 64 and 80, both
-    dtypes at d=256)."""
-    return "flash_sdpa_h" if (dtype == torch.bfloat16 and d in _H_D) else "flash_sdpa"
+    kernels, csrc/flash_sdpa_h.cu for bf16 (d=32, 64, 80 and 256) and
+    csrc/flash_sdpa_h_fp32.cu for fp32 at d=32, 64 and 80 (split bf16
+    parts read from ``split_parts`` copies of K and V), else the mma.sync
+    kernel of csrc/flash_sdpa.cu (fp32 at d=256)."""
+    if dtype == torch.bfloat16:
+        return "flash_sdpa_h"
+    return "flash_sdpa_h_fp32" if d in _FWD_H_F32_D else "flash_sdpa"
 
 
 def _bwd_wide_kernel(dtype):
@@ -210,10 +221,6 @@ def _lib_sdpa():
     return _bind("flash_sdpa", "flash_sdpa_fwd", [_P] * 6 + [_I] * 6 + [_F] + [_LL] * 12 + [_P])
 
 
-def _lib_sdpa_attrs():
-    return _bind("flash_sdpa", "flash_sdpa_attrs", [_I, _I, _P])
-
-
 def _lib_sdpa_h():
     return _bind("flash_sdpa_h", "flash_sdpa_h_fwd",
                  [_P] * 6 + [_I] * 6 + [_F] + [_LL] * 12 + [_P])
@@ -221,6 +228,18 @@ def _lib_sdpa_h():
 
 def _lib_sdpa_h_attrs():
     return _bind("flash_sdpa_h", "flash_sdpa_h_attrs", [_I, _I, _P])
+
+
+def _lib_sdpa_h_f32():
+    """``flash_sdpa_h_f32_fwd`` of csrc/flash_sdpa_h_fp32.cu: q and the split
+    copies of k and v, key bias, o, lse; 6 ints, the scale, q's and o's
+    (B, H, N) strides, the stream."""
+    return _bind("flash_sdpa_h_fp32", "flash_sdpa_h_f32_fwd",
+                 [_P] * 6 + [_I] * 6 + [_F] + [_LL] * 6 + [_P])
+
+
+def _lib_sdpa_h_f32_attrs():
+    return _bind("flash_sdpa_h_fp32", "flash_sdpa_h_f32_attrs", [_I, _I, _P])
 
 
 def _lib_bwd_h():
@@ -302,12 +321,13 @@ def _lib_bwd_wide_f32_dkv_attrs():
     return _bind("flash_sdpa_bwd_wide_h_fp32", "flash_sdpa_bwd_dkv_wide_f32_attrs", [_P])
 
 
-# the head dims kernel_resources reads each kernel of d < 256 at: the wgmma
-# forward and dkv at _H_D, the wgmma bf16 dq at _DQ_H_D, the fp32 dq and dkv
-# at _DQ_H_F32_D and _DKV_H_F32_D, and the mma.sync kernels at what those
-# leave them (the forward in fp32 only, dq in bf16 at d=32)
-_RESOURCE_DIMS = {"flash_sdpa_h": _H_D, "flash_sdpa_bwd_h": _H_D, "flash_sdpa_fp32": _H_D,
-                  "flash_sdpa_bwd_dq_h": _DQ_H_D, "flash_sdpa_bwd_h_fp32": _DKV_H_F32_D,
+# the head dims kernel_resources reads each kernel of several at: the wgmma
+# forwards at _FWD_H_D and _FWD_H_F32_D, the wgmma dkv at _H_D, the wgmma
+# bf16 dq at _DQ_H_D, the fp32 dq and dkv at _DQ_H_F32_D and _DKV_H_F32_D,
+# and the mma.sync dq at what those leave it (bf16 at d=32)
+_RESOURCE_DIMS = {"flash_sdpa_h": _FWD_H_D, "flash_sdpa_h_fp32": _FWD_H_F32_D,
+                  "flash_sdpa_bwd_h": _H_D, "flash_sdpa_bwd_dq_h": _DQ_H_D,
+                  "flash_sdpa_bwd_h_fp32": _DKV_H_F32_D,
                   "flash_sdpa_bwd_dq_h_fp32": _DQ_H_F32_D, "flash_sdpa_bwd_dq": (32,)}
 
 
@@ -315,7 +335,8 @@ def kernel_resources(kernel, d=32, lk=5184):
     """Registers and spilled bytes a thread, shared bytes a block and
     resident blocks an SM of a wgmma kernel on the current CUDA device, as
     the runtime reports them (cudaFuncGetAttributes, the occupancy API):
-    ``"flash_sdpa_h"`` (bf16 forward, d=32, 64 or 80, lk keys),
+    ``"flash_sdpa_h"`` (bf16 forward, d=32, 64, 80 or 256, lk keys),
+    ``"flash_sdpa_h_fp32"`` (fp32 forward, d=32, 64 or 80, lk keys),
     ``"flash_sdpa_bwd_h"`` (bf16 dkv, d=32, 64 or 80),
     ``"flash_sdpa_bwd_dq_h"`` (bf16 dq, d=64 or 80, lk keys),
     ``"flash_sdpa_bwd_h_fp32"`` (fp32 dkv, d=32, 64 or 80),
@@ -323,9 +344,7 @@ def kernel_resources(kernel, d=32, lk=5184):
     ``"flash_sdpa_bwd_dq_wide_h"`` (d=256, lk keys),
     ``"flash_sdpa_bwd_dkv_wide_h"`` (d=256), or their fp32 counterparts
     ``"flash_sdpa_bwd_dq_wide_f32"`` (lk keys) and
-    ``"flash_sdpa_bwd_dkv_wide_f32"``; or of the mma.sync register forward
-    of csrc/flash_sdpa.cu, ``"flash_sdpa_fp32"`` (d=32, 64 or 80), whose
-    shared memory is static; or of the mma.sync dq kernel of
+    ``"flash_sdpa_bwd_dkv_wide_f32"``; or of the mma.sync dq kernel of
     csrc/flash_sdpa_bwd.cu, ``"flash_sdpa_bwd_dq"`` (bf16: d=32, lk keys). A
     kernel or head dim not built raises ValueError before any library is
     loaded (the mma.sync instantiations that wgmma kernels replaced among
@@ -334,12 +353,12 @@ def kernel_resources(kernel, d=32, lk=5184):
     if dims is not None and d not in dims:
         raise ValueError(f"{kernel} kernel supports head dims {dims}, got {d}")
     out = (ctypes.c_int * 4)()
-    if kernel == "flash_sdpa_fp32":
-        status = _lib_sdpa_attrs()(d, 1, out)
-    elif kernel == "flash_sdpa_bwd_dq":
+    if kernel == "flash_sdpa_bwd_dq":
         status = _lib_bwd_attrs()(0, d, 0, lk, out)
     elif kernel == "flash_sdpa_h":
         status = _lib_sdpa_h_attrs()(d, lk, out)
+    elif kernel == "flash_sdpa_h_fp32":
+        status = _lib_sdpa_h_f32_attrs()(d, lk, out)
     elif kernel == "flash_sdpa_bwd_h":
         status = _lib_bwd_h_attrs()(d, out)
     elif kernel == "flash_sdpa_bwd_dq_h":
@@ -383,8 +402,9 @@ def _lib_xattn():
 
 
 def _flash_sdpa_fwd(q, k, v, key_bias, sm_scale, return_lse):
-    """Launch the forward kernel; (o, lse or None), o a (B, H, Lq, D) view
-    of (B, Lq, H, D) memory."""
+    """Launch the forward kernel (fp32 at d=32, 64 and 80 after two launches
+    of the split pass, K's and V's); (o, lse or None), o a (B, H, Lq, D)
+    view of (B, Lq, H, D) memory."""
     dtype = _check_heads("flash_sdpa", _SUPPORTED_D, q, k, v)
     b, h, lq, d = q.shape
     lk = k.shape[2]
@@ -398,12 +418,20 @@ def _flash_sdpa_fwd(q, k, v, key_bias, sm_scale, return_lse):
     strides = (*_bhn_strides(q), *_bhn_strides(k), *_bhn_strides(v), *_bhn_strides(o_bhn))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     lse_ptr = lse.data_ptr() if lse is not None else None
+    kernel = sdpa_kernel(dtype, d)
     with torch.cuda.device(q.device):  # the launch goes to the current device
-        if sdpa_kernel(dtype, d) == "flash_sdpa_h":
+        if kernel == "flash_sdpa_h":
             kb, lkb = _tma_rows(key_bias, NEG_INF)
             status = _lib_sdpa_h()(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), kb.data_ptr(), o.data_ptr(), lse_ptr,
                 b, h, lq, lk, lkb, d, float(sm_scale), *strides, stream)
+        elif kernel == "flash_sdpa_h_fp32":
+            kb, lkb = _tma_rows(key_bias, NEG_INF)
+            kp, vp = split_parts(k), split_parts(v)
+            status = _lib_sdpa_h_f32()(
+                q.data_ptr(), kp.data_ptr(), vp.data_ptr(), kb.data_ptr(), o.data_ptr(), lse_ptr,
+                b, h, lq, lk, lkb, d, float(sm_scale), *_bhn_strides(q), *_bhn_strides(o_bhn),
+                stream)
         else:
             kb = key_bias.float().contiguous()
             status = _lib_sdpa()(

@@ -25,9 +25,10 @@ CSRC = Path(_build.CSRC)
 # accessor that binds each
 BINDINGS = {
     "flash_sdpa_fwd": fa._lib_sdpa,
-    "flash_sdpa_attrs": fa._lib_sdpa_attrs,
     "flash_sdpa_h_fwd": fa._lib_sdpa_h,
     "flash_sdpa_h_attrs": fa._lib_sdpa_h_attrs,
+    "flash_sdpa_h_f32_fwd": fa._lib_sdpa_h_f32,
+    "flash_sdpa_h_f32_attrs": fa._lib_sdpa_h_f32_attrs,
     "flash_sdpa_bwd_dq": lambda: fa._lib_bwd("flash_sdpa_bwd_dq"),
     "flash_sdpa_bwd_dkv": lambda: fa._lib_bwd("flash_sdpa_bwd_dkv"),
     "flash_sdpa_bwd_attrs": fa._lib_bwd_attrs,

@@ -756,12 +756,13 @@ def _mask_rows(dev, b, lk):
                                        (256, 1, 5184, 5184), (256, 1, 70, 36352),
                                        (256, 1, 333, 517)])
 def test_flash_sdpa_fp32_kernel_matches_plain(cuda, d, h, lq, lk):
-    """fp32 q/k/v at d=32 (the mma.sync kernel's fp32 instantiation) and
-    d=256 (flash_qsmem's): output fp32 and LSE against the plain version,
-    ragged Lq/Lk, a masked tile, a ragged masked tail, a fully masked row."""
+    """fp32 q/k/v at d=32 (the split-bf16 wgmma kernel of
+    flash_sdpa_h_fp32.cu) and d=256 (flash_qsmem's mma.sync kernel): output
+    fp32 and LSE against the plain version, ragged Lq/Lk, a masked tile, a
+    ragged masked tail, a fully masked row."""
     q, k, v = (_randn(cuda, 3, h, n, d, dtype=torch.float32) for n in (lq, lk, lk))
     bias = _mask_rows(cuda, 3, lk)
-    assert fa.sdpa_kernel(torch.float32, d) == "flash_sdpa"
+    assert fa.sdpa_kernel(torch.float32, d) == ("flash_sdpa" if d == 256 else "flash_sdpa_h_fp32")
     before = fa.flash_sdpa.launches
     got, lse = fa.flash_sdpa(q, k, v, bias, return_lse=True)
     torch.cuda.synchronize()
@@ -1043,7 +1044,7 @@ def test_flash_sdpa_h_reads_strided_heads(cuda, b, n):
                                    (200, 9)])
 def test_flash_sdpa_d64_kernel_matches_plain(cuda, dtype, tol, b, lq, lk):
     """d=64 with 16 heads against the plain version (bf16: the wgmma kernel
-    with the 128-byte swizzle; fp32: the mma.sync kernel): ragged Lq and Lk
+    with the 128-byte swizzle; fp32: the split-bf16 wgmma kernel): ragged Lq and Lk
     against the 128-row block and the 64-key tile (4900: the vit_b / vit_l
     students' global blocks at 1120^2, a tail of 36 keys and 36 rows), a
     masked middle tile (skipped), a ragged masked tail, with B=2 a batch
@@ -1057,7 +1058,7 @@ def test_flash_sdpa_d64_kernel_matches_plain(cuda, dtype, tol, b, lq, lk):
     if b > 1:
         bias[-1] = NEG_INF
     assert fa.sdpa_kernel(dtype, 64) == ("flash_sdpa_h" if dtype == torch.bfloat16
-                                         else "flash_sdpa")
+                                         else "flash_sdpa_h_fp32")
     before = fa.flash_sdpa.launches
     got, lse = fa.flash_sdpa(q, k, v, bias, return_lse=True)
     torch.cuda.synchronize()
@@ -1116,7 +1117,9 @@ def test_flash_sdpa_d80_reads_every_slab(cuda, lq, lk):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel,d", [("flash_sdpa_h", 32), ("flash_sdpa_h", 64),
-                                      ("flash_sdpa_h", 80), ("flash_sdpa_bwd_h", 32),
+                                      ("flash_sdpa_h", 80), ("flash_sdpa_h", 256),
+                                      ("flash_sdpa_h_fp32", 32), ("flash_sdpa_h_fp32", 64),
+                                      ("flash_sdpa_h_fp32", 80), ("flash_sdpa_bwd_h", 32),
                                       ("flash_sdpa_bwd_h", 64), ("flash_sdpa_bwd_h", 80),
                                       ("flash_sdpa_bwd_dq_h", 64), ("flash_sdpa_bwd_dq_h", 80),
                                       ("flash_sdpa_bwd_h_fp32", 32),
@@ -1131,12 +1134,13 @@ def test_flash_sdpa_d80_reads_every_slab(cuda, lq, lk):
 def test_wgmma_kernels_fit_without_spills(cuda, kernel, d):
     """The wgmma kernels as built: no registers spilled to local memory, at
     least one block of them resident an SM at the main path's 5184 keys
-    (the forward at d=32 and 64: 2, its design; at d=80 1, whose O
-    accumulator would spill at 2; the d=256 dq kernels also at the clip's
-    36352; the d=64 / d=80 dq kernels at vit_h's 4900 as well)."""
-    if kernel in ("flash_sdpa_bwd_dq_h", "flash_sdpa_bwd_dq_h_fp32"):
+    (the bf16 forward at d=32 and 64: 2, its design; at d=80 1, whose O
+    accumulator would spill at 2; the d=256 forward and dq kernels also at
+    the clip's 36352; the d=64 / d=80 dq kernels and the fp32 forward at
+    vit_h's 4900 as well)."""
+    if kernel in ("flash_sdpa_bwd_dq_h", "flash_sdpa_bwd_dq_h_fp32", "flash_sdpa_h_fp32"):
         assert fa.kernel_resources(kernel, d, 4900)["spill_bytes"] == 0
-    if kernel in ("flash_sdpa_bwd_dq_wide_h", "flash_sdpa_bwd_dq_wide_f32"):
+    if kernel in ("flash_sdpa_bwd_dq_wide_h", "flash_sdpa_bwd_dq_wide_f32") or d == 256:
         assert fa.kernel_resources(kernel, d, 36352)["blocks_per_sm"] >= 1
     res = fa.kernel_resources(kernel, d, 5184)
     assert res["spill_bytes"] == 0, res
@@ -1213,7 +1217,7 @@ def test_flash_sdpa_d80_kernel_matches_plain(cuda, dtype, tol, b, lq, lk):
     if b > 1:
         bias[-1] = NEG_INF
     assert fa.sdpa_kernel(dtype, 80) == ("flash_sdpa_h" if dtype == torch.bfloat16
-                                         else "flash_sdpa")
+                                         else "flash_sdpa_h_fp32")
     before = fa.flash_sdpa.launches
     got, lse = fa.flash_sdpa(q, k, v, bias, return_lse=True)
     torch.cuda.synchronize()
@@ -1371,15 +1375,23 @@ def test_mma_sync_backward_fits_without_spills(cuda, kernel, d):
 def test_mma_sync_entries_refuse_replaced_instantiations(cuda):
     """The mma.sync entry points refuse the instantiations whose wgmma
     kernels replaced them (cudaErrorInvalidValue, 1: nothing launched):
-    the bf16 forward of csrc/flash_sdpa.cu at d=32, 64 and 80, the dkv
-    kernel of csrc/flash_sdpa_bwd.cu in both dtypes at d=32, 64 and 80, its
-    bf16 dq kernel at d=64 and 80 and its fp32 dq kernel at d=32, 64 and 80,
-    and their attribute queries; the fp32 forward and the bf16 dq at d=32
-    are still served."""
+    the forward of csrc/flash_sdpa.cu in both dtypes at d=32, 64 and 80
+    and in bf16 at d=256, the dkv kernel of csrc/flash_sdpa_bwd.cu in both
+    dtypes at d=32, 64 and 80, its bf16 dq kernel at d=64 and 80 and its
+    fp32 dq kernel at d=32, 64 and 80, and their attribute queries; the
+    fp32 forward at d=256 and the bf16 dq at d=32 are still served."""
     out = (ctypes.c_int * 4)()
+    stream = torch.cuda.current_stream().cuda_stream
+    for d in (256, 32, 64, 80):
+        for fp32 in (0, 1) if d != 256 else (0,):
+            dt = torch.float32 if fp32 else torch.bfloat16
+            q = _randn(cuda, 1, 2, 64, d, dtype=dt)
+            bias = torch.zeros((1, 64), device=cuda)
+            o = torch.empty_like(q)
+            assert fa._lib_sdpa()(q.data_ptr(), q.data_ptr(), q.data_ptr(), bias.data_ptr(),
+                                  o.data_ptr(), None, 1, 2, 64, 64, d, fp32, 0.125, *([0] * 12),
+                                  stream) == 1
     for d in (32, 64, 80):
-        assert fa._lib_sdpa_attrs()(d, 0, out) == 1
-        assert fa._lib_sdpa_attrs()(d, 1, out) == 0
         assert fa._lib_bwd_attrs()(1, d, 0, 5184, out) == 1
         assert fa._lib_bwd_attrs()(1, d, 1, 5184, out) == 1
         assert fa._lib_bwd_attrs()(0, d, 0, 5184, out) == (0 if d == 32 else 1)
@@ -1388,11 +1400,6 @@ def test_mma_sync_entries_refuse_replaced_instantiations(cuda):
         bias = torch.zeros((1, 64), device=cuda)
         lse = torch.zeros((1, 2, 64), device=cuda)
         o = torch.empty_like(q)
-        strides = [0] * 12
-        stream = torch.cuda.current_stream().cuda_stream
-        assert fa._lib_sdpa()(q.data_ptr(), q.data_ptr(), q.data_ptr(), bias.data_ptr(),
-                              o.data_ptr(), None, 1, 2, 64, 64, d, 0, 0.125, *strides,
-                              stream) == 1
         assert fa._lib_bwd("flash_sdpa_bwd_dkv")(
             q.data_ptr(), q.data_ptr(), q.data_ptr(), bias.data_ptr(), q.data_ptr(),
             lse.data_ptr(), lse.data_ptr(), o.data_ptr(), o.data_ptr(), 1, 2, 64, 64, d, 0,
@@ -1596,17 +1603,6 @@ def test_vit_trunk_training_step_on_card_matches_cpu(cuda, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel,d", [("flash_sdpa_fp32", 80), ("flash_sdpa_fp32", 64),
-                                      ("flash_sdpa_fp32", 32)])
-def test_register_forward_fits_without_spills(cuda, kernel, d):
-    """The mma.sync register forward as built: no spills, its static
-    shared tiles within 48 KB, at least one block resident an SM."""
-    res = fa.kernel_resources(kernel, d)
-    assert res["spill_bytes"] == 0 and res["smem_bytes"] <= 48 * 1024, res
-    assert res["blocks_per_sm"] >= 1, res
-
-
-@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
 def test_tiny_vit_student_on_card_matches_cpu(cuda, dtype):
     """A SAM1 student over a ViT trunk of 2 heads of 80 whose 46x46 token
@@ -1645,3 +1641,167 @@ def test_tiny_vit_student_on_card_matches_cpu(cuda, dtype):
     for g, w in ((emb, ref_emb), *zip(got, ref)):
         err = (g.float().cpu() - w.float()).abs().max().item()
         assert err <= tol * max(1.0, w.abs().max().item()), err
+
+
+# -------------------------------------------------------------------------
+# the bf16 forward at d=256 (flash_sdpa_h.cu) and the fp32 forward at d=32,
+# 64 and 80 (flash_sdpa_h_fp32.cu, split bf16 parts): the wgmma kernels
+# that replaced the mma.sync ones
+
+
+def _strided_qkv(dev, b, h, lq, lk, d, dtype, slab_scale=None):
+    """q a split_heads view of a (B, Lq, H * D) map, k and v views of one
+    packed (B, Lk, 2, H, D) tensor: strides over (B, H, N), D contiguous.
+    slab_scale (D,) multiplies every row before the cast."""
+    def draw(*shape):
+        x = _randn(dev, *shape, dtype=torch.float32)
+        return (x if slab_scale is None else x * slab_scale).to(dtype)
+
+    q = draw(b, lq, h, d).transpose(1, 2)
+    k, v = draw(b, lk, 2, h, d).permute(2, 0, 3, 1, 4)
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["self", "cross", "ragged", "strided", "one_row"])
+def test_flash_sdpa_h_d256_cases_match_plain(cuda, case):
+    """bf16 at d=256 (the wgmma kernel of flash_sdpa_h.cu: 128-query
+    blocks, rows as four 64-column slabs, V MN-major across them) against
+    the plain version. self: the tracked frame's self-attention, (8, 1,
+    5184, 256) with 3 of 8 slots live (5 batch rows fully masked: zeros,
+    lse -1e9, no loads); cross: the plain path's cross-attention at 333
+    queries over 36352 keys, 3 of 8 slots live, each live slot's last 37
+    keys masked (a ragged tile); ragged: Lq 333 and Lk 517, a masked 64-key
+    tile (skipped), a ragged masked tail, a fully masked last row; strided:
+    q, k and v views of separate and packed tensors over 2 heads, each
+    64-column slab at its own scale (a slab read through a wrong descriptor
+    shows against its own largest magnitude); one_row: Lq 1, Lk 64. The
+    output within 2e-2 of the largest magnitude, each slab on its own, the
+    LSE within 1e-2, the same bits when run again."""
+    b, h, lq, lk = {"self": (8, 1, 5184, 5184), "cross": (8, 1, 333, 36352),
+                    "ragged": (3, 1, 333, 517), "strided": (2, 2, 700, 900),
+                    "one_row": (2, 1, 1, 64)}[case]
+    scale = None
+    if case == "strided":
+        scale = torch.tensor([1.0, 0.25, 3.0, 0.5], device=cuda).repeat_interleave(64)
+    q, k, v = _strided_qkv(cuda, b, h, lq, lk, 256, torch.bfloat16, scale)
+    if case in ("self", "cross"):
+        bias = torch.full((b, lk), NEG_INF, device=cuda)
+        bias[:3] = 0.0
+        if case == "cross":
+            bias[:3, lk - 37:] = NEG_INF
+    else:
+        bias = _mask_rows(cuda, b, lk)
+    assert fa.sdpa_kernel(torch.bfloat16, 256) == "flash_sdpa_h"
+    before = fa.flash_sdpa.launches
+    got, lse = fa.flash_sdpa(q, k, v, bias, return_lse=True)
+    torch.cuda.synchronize()
+    assert fa.flash_sdpa.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.transpose(1, 2).is_contiguous()
+    want, want_lse = fa.flash_sdpa_plain(q, k, v, bias, return_lse=True)
+    for j in range(4):
+        assert _rel_err(got[..., 64 * j:64 * j + 64], want[..., 64 * j:64 * j + 64]) < 2e-2, j
+    torch.testing.assert_close(lse, want_lse, atol=1e-2, rtol=1e-2)
+    dead = (bias <= NEG_INF / 2).all(-1)
+    assert dead.any() and (got[dead] == 0).all() and (lse[dead] == NEG_INF).all()
+    assert torch.equal(fa.flash_sdpa(q, k, v, bias), got)
+
+
+# the main path's fp32 forward shapes: the `ground` (d=32), the teacher's
+# (d=64) and vit_h's (d=80) global blocks at batch 1, every key live
+_FWD_F32_FULL = {32: (1, 8, 5184, 5184), 64: (1, 16, 5184, 5184), 80: (1, 16, 4900, 4900)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 80])
+@pytest.mark.parametrize("shape", ["full", (3, 2, 333, 517), (3, 3, 130, 70), (3, 2, 1, 9),
+                                   (3, 1, 200, 2000)], ids=str)
+def test_flash_sdpa_h_fp32_kernel_matches_plain(cuda, d, shape):
+    """The fp32 wgmma forward (flash_sdpa_h_fp32.cu: split bf16 parts,
+    128-query blocks, 64-key tiles from the split copies of K and V)
+    against the plain version in fp32: the main path's shape at each head
+    dim with every key live ("full": _FWD_F32_FULL; an O summed in the
+    tensor cores' truncating fp32 adds over the whole row would carry
+    their bias, so each tile's P V starts a fresh fragment added by
+    round-to-nearest FMAs); ragged Lq and Lk against the block and the
+    tile, masked 64-key tiles in row 0 (skipped), a ragged masked tail in
+    row 1, a fully masked last row (0, lse -1e9); q, k and v strided views;
+    two launches of the split pass and one of the kernel, the output in
+    (B, N, H, D) memory and the LSE within 1e-4, the same bits when run
+    again."""
+    f32 = torch.float32
+    b, h, lq, lk = _FWD_F32_FULL[d] if shape == "full" else shape
+    q, k, v = _strided_qkv(cuda, b, h, lq, lk, d, f32)
+    if shape == "full":
+        bias = torch.zeros((b, lk), device=cuda)
+    else:
+        bias = _mask_rows(cuda, b, lk)
+        bias[0, 128:256] = NEG_INF
+    assert fa.sdpa_kernel(f32, d) == "flash_sdpa_h_fp32"
+    n_split, n_fwd = fa.split_parts.launches, fa.flash_sdpa.launches
+    got, lse = fa.flash_sdpa(q, k, v, bias, return_lse=True)
+    torch.cuda.synchronize()
+    assert (fa.split_parts.launches, fa.flash_sdpa.launches) == (n_split + 2, n_fwd + 1)
+    assert got.dtype == f32 and got.transpose(1, 2).is_contiguous()
+    want, want_lse = fa.flash_sdpa_plain(q, k, v, bias, return_lse=True)
+    torch.testing.assert_close(got, want, atol=FP32_TOL, rtol=FP32_TOL)
+    torch.testing.assert_close(lse, want_lse, atol=FP32_TOL, rtol=FP32_TOL)
+    if shape != "full":
+        assert (got[-1] == 0).all() and (lse[-1] == NEG_INF).all()
+    assert torch.equal(fa.flash_sdpa(q, k, v, bias), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 256), (torch.float32, 32),
+                                     (torch.float32, 64), (torch.float32, 80)],
+                         ids=["bf16-256", "fp32-32", "fp32-64", "fp32-80"])
+def test_new_forwards_feed_the_backward_kernels(cuda, dtype, d):
+    """The new forwards under autograd, so that the backward kernels read
+    their LSE (bf16 d=256: flash_sdpa_bwd_wide_h.cu; fp32:
+    flash_sdpa_bwd_dq_h_fp32.cu and flash_sdpa_bwd_h_fp32.cu): one launch of
+    the forward, dq and dkv kernels each, gradients against autograd through
+    the plain forward within 3e-2 (bf16) or 1e-4 (fp32) of each one's
+    largest magnitude, a masked tile, a ragged masked tail and a fully
+    masked row; key_bias gets a zero gradient."""
+    h = 1 if d == 256 else 2
+    q, k, v = _strided_qkv(cuda, 2, h, 600, 900, d, dtype)
+    bias = _mask_rows(cuda, 2, 900)
+    w = _randn(cuda, 2, h, 600, d, dtype=torch.float32)
+    wrappers = (fa.flash_sdpa, fa.flash_sdpa_bwd_dq, fa.flash_sdpa_bwd_dkv)
+    grads = {}
+    for name, fn in (("kernel", fa.flash_sdpa), ("plain", fa.flash_sdpa_plain)):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, bias)]
+        before = [f.launches for f in wrappers]
+        (fn(*leaves).float() * w).sum().backward()
+        torch.cuda.synchronize()
+        launched = [f.launches - n for f, n in zip(wrappers, before)]
+        assert launched == ([1, 1, 1] if name == "kernel" else [0, 0, 0]), launched
+        grads[name] = [t.grad for t in leaves]
+    tol = 3e-2 if dtype == torch.bfloat16 else FP32_TOL
+    for got, want in zip(grads["kernel"][:3], grads["plain"][:3]):
+        assert got.dtype == dtype and _rel_err(got, want) < tol
+    assert (grads["kernel"][3] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128), (torch.float32, 128),
+                                     (torch.float16, 32)], ids=["bf16-128", "fp32-128", "fp16-32"])
+def test_large_attention_the_kernels_do_not_take_runs_on_the_card(cuda, dtype, d):
+    """A large attention (2048 x 2048 scores) at a head dim or dtype no
+    kernel takes, where JAX's Pallas kernel runs: models/common.sdpa on the
+    card takes the matmul path (not flash_eligible, no flash_sdpa launch)
+    instead of raising, and matches the same attention in fp32 on the CPU
+    (1e-4 in fp32, 2e-2 of the largest magnitude in 16-bit types)."""
+    from efficientsam3_tpu_torch.models import common
+
+    q, k, v = (_randn(cuda, 2, 2, 2048, d, dtype=dtype) for _ in range(3))
+    mask = torch.ones((2, 1, 1, 2048), dtype=torch.bool, device=cuda)
+    mask[0, ..., 1500:] = False
+    mask[1, ..., :64] = False
+    assert not common.flash_eligible(q.shape, k.shape, v.shape, (dtype,) * 3, mask.shape)
+    before = fa.flash_sdpa.launches
+    got = common.sdpa(q, k, v, mask=mask)
+    torch.cuda.synchronize()
+    assert fa.flash_sdpa.launches == before and got.dtype == dtype
+    want = common.sdpa(*(t.float().cpu() for t in (q, k, v)), mask=mask.cpu())
+    assert _rel_err(got.cpu(), want) < (1e-4 if dtype == torch.float32 else 2e-2)

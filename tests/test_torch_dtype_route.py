@@ -67,21 +67,23 @@ def _depthwise(dtype, ks=7):
 
 
 CASES = [
-    # flash_sdpa forward: the wgmma kernel for bf16 at d=32, d=64 (the
-    # ViTDet global blocks) and d=80 (the vit_h student's), mma.sync
-    # otherwise (fp32, and d=256 in both dtypes)
+    # flash_sdpa forward: the bf16 wgmma kernel at d=32, d=64 (the ViTDet
+    # global blocks), d=80 (the vit_h student's) and d=256 (the tracker's
+    # memory attention); the fp32 wgmma kernel (split bf16 parts) at d=32,
+    # 64 and 80; mma.sync only for fp32 at d=256
     (_sdpa, (BF16, 32), "flash_sdpa_h"),
-    (_sdpa, (F32, 32), "flash_sdpa"),
-    (_sdpa, (BF16, 256), "flash_sdpa"),
+    (_sdpa, (F32, 32), "flash_sdpa_h_fp32"),
+    (_sdpa, (BF16, 256), "flash_sdpa_h"),
     (_sdpa, (F32, 256), "flash_sdpa"),
     (_sdpa, (F16, 32), TypeError),
     (_sdpa, (F64, 256), TypeError),
     (_sdpa, (BF16, 32, F32), TypeError),
     (_sdpa, (BF16, 64), "flash_sdpa_h"),
-    (_sdpa, (F32, 64), "flash_sdpa"),
+    (_sdpa, (F32, 64), "flash_sdpa_h_fp32"),
     (_sdpa, (BF16, 80), "flash_sdpa_h"),
-    (_sdpa, (F32, 80), "flash_sdpa"),
+    (_sdpa, (F32, 80), "flash_sdpa_h_fp32"),
     (_sdpa, (BF16, 48), ValueError),
+    (_sdpa, (F32, 128), ValueError),
     # its backward kernels on wgmma: the bf16 dkv kernel at d=32, 64 and 80,
     # the bf16 dq kernel at d=64 and 80, the fp32 dq and dkv kernels at
     # d=32, 64 and 80 (split bf16 parts) and both kernels at d=256 (fp32 on
@@ -155,14 +157,18 @@ def test_kernel_dtype_and_width_rule(check, args, expect):
 
 
 # The instantiations of the mma.sync kernels that the wgmma kernels
-# replaced (the bf16 forward at d=80, the bf16 dkv kernel at d=64 and d=80,
-# the bf16 dq kernel at d=64 and d=80, the fp32 dkv kernel at d=32, 64 and
-# 80, the fp32 dq kernel at d=32, 64 and 80) are not built: their resources
+# replaced (the forward's register kernel in both dtypes at d=32, 64 and
+# 80 and its bf16 d=256 route, the bf16 dkv kernel at d=64 and d=80, the
+# bf16 dq kernel at d=64 and d=80, the fp32 dkv kernel at d=32, 64 and 80,
+# the fp32 dq kernel at d=32, 64 and 80) are not built: their resources
 # cannot be asked for, and neither can a head dim a kernel lacks. Refused
 # before any library is loaded (so here, without a GPU); their C entry
 # points refuse them too
 # (tests/test_torch_cuda.py::test_mma_sync_entries_refuse_replaced_instantiations).
-@pytest.mark.parametrize("kernel,d", [("flash_sdpa", 80), ("flash_sdpa_bwd_dkv", 64),
+@pytest.mark.parametrize("kernel,d", [("flash_sdpa", 80), ("flash_sdpa_fp32", 32),
+                                      ("flash_sdpa_fp32", 64), ("flash_sdpa_fp32", 80),
+                                      ("flash_sdpa", 256), ("flash_sdpa_h_fp32", 256),
+                                      ("flash_sdpa_h", 128), ("flash_sdpa_bwd_dkv", 64),
                                       ("flash_sdpa_bwd_dkv", 80), ("flash_sdpa_h", 48),
                                       ("flash_sdpa_bwd_h", 256), ("flash_sdpa_fp32", 256),
                                       ("flash_sdpa_bwd_dq", 64), ("flash_sdpa_bwd_dq", 80),

@@ -156,7 +156,7 @@ def test_flash_sdpa_plain_d80_matches_pallas_kernel():
     assert_close(lse, want_lse, 1e-5)
     assert (got[1] == 0).all() and (lse[1] == fa.NEG_INF).all()
     assert fa.sdpa_kernel(torch.bfloat16, 80) == "flash_sdpa_h"  # the wgmma kernel
-    assert fa.sdpa_kernel(torch.float32, 80) == "flash_sdpa"
+    assert fa.sdpa_kernel(torch.float32, 80) == "flash_sdpa_h_fp32"  # split bf16 parts
 
 
 # --------------------------------------------------------------------------
