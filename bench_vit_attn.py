@@ -6,7 +6,14 @@ live: the self-attention q/k/v (8, 1, 5184, 256) and the plain path's
 cross-attention over k/v (8, 1, 36352, 256), each live slot's last 37
 keys masked); in fp32 at d=32 (the default build's `ground`, (1, 8, 5184,
 32), and Stage-3 step, (4, 8, 5184, 32)), d=64 (the teacher's (1, 16,
-5184, 64)) and d=80 ((1, 16, 4900, 80)). The backward's dq and dkv
+5184, 64)), d=80 ((1, 16, 4900, 80)) and d=256 (the tracker's self and
+cross shapes above). The tracker's bank attention (flash_memattn): q (8,
+1, 5184, 256) over the padded 36864-key bank, k (8, 1, 36864, 256) and
+raw values v (8, 1, 36864, 64) as the tracker hands them in (views of
+(B, S, C) banks), N of 8 slots live with E of 7 entries of 5184 keys
+valid: bf16 at 1, 3 and 8 slots with every entry (whether a slot's bank
+stays in the L2 as more slots stream theirs), fp32 at 3 slots with 1 and
+with 7 entries. The backward's dq and dkv
 kernels: in bf16 at d=64 (the SAM3 teacher's ViT-H Stage-1 step at batch
 2: (2, 16, 5184, 64)) and d=80; in fp32 at d=32 (the Stage-3 step), d=64
 (an fp32 ViT-H Stage-1 step at batch 1: (1, 16, 5184, 64)) and d=80
@@ -17,7 +24,8 @@ stated. Each kernel is held against its plain version first (the
 forward's output within 2e-2 (bf16) or 1e-4 (fp32) of its largest
 magnitude and its LSE within 1e-2 or 1e-4; dQ, dK and dV within 2e-2 or
 1e-4 of each one's largest magnitude, Delta within 1e-4, and dQ, dK and
-dV the same bits when run again), then timed in a CUDA graph
+dV the same bits when run again; a forward that misses is reported with
+its error, not timed, and fails the run), then timed in a CUDA graph
 (chip_smoke.graph_time) beside one F.scaled_dot_product_attention call
 (forward, with the bool key mask where keys are masked; fp32 with TF32
 off) and its backward (all three gradients). A forward line also gives
@@ -25,13 +33,14 @@ the call's time from the host between CUDA events, its profiler device
 time (every kernel of the call: the fp32 wgmma forward's two split passes
 with it), the plain version's time and the bound (chip_smoke.bound).
 
-    python3 bench_vit_attn.py [--other DIR] [--dtype bf16|fp32]
+    python3 bench_vit_attn.py [--other DIR] [--dtype bf16|fp32] [--tracker]
 
 With --other, the same measurement of the checkout at DIR (another commit's
 kernels, or a variant copy, built there) is taken in the process order
 other, this, this, other, each in its own process, so that two versions
-compare on one card. --dtype keeps the shapes of one dtype. Prints one
-line a kernel and run, with the card's name and power limit.
+compare on one card. --dtype keeps the shapes of one dtype, --tracker the
+tracker's (the d=256 forwards and the bank). Prints one line a kernel and
+run, with the card's name and power limit.
 """
 
 import argparse
@@ -44,11 +53,14 @@ FWD = ((1, 16, 4900, 4900, 80, "bf16", None), (8, 1, 5184, 5184, 256, "bf16", 3)
        (8, 1, 5184, 36352, 256, "bf16", 3), (1, 8, 5184, 5184, 32, "fp32", None),
        (4, 8, 5184, 5184, 32, "fp32", None), (1, 16, 5184, 5184, 64, "fp32", None),
        (1, 16, 4900, 4900, 80, "fp32", None))
+FWD += ((8, 1, 5184, 5184, 256, "fp32", 3), (8, 1, 5184, 36352, 256, "fp32", 3))
+# the bank: (live slots, valid entries, dtype)
+MEM = ((1, 7, "bf16"), (3, 7, "bf16"), (8, 7, "bf16"), (3, 1, "fp32"), (3, 7, "fp32"))
 BWD = ((2, 16, 5184, 64, "bf16"), (1, 16, 4900, 80, "bf16"), (4, 8, 5184, 32, "fp32"),
        (1, 16, 5184, 64, "fp32"), (1, 16, 4900, 80, "fp32"))
 
 
-def measure(label, only=None):
+def measure(label, only=None, tracker=False):
     import torch
     import torch.nn.functional as F
 
@@ -63,13 +75,29 @@ def measure(label, only=None):
     gen = torch.Generator(device=dev).manual_seed(0)
     bf16 = torch.bfloat16
     smi = cs.nvidia_smi_line()
+    failed = []
+
+    def held(what, got, want, lse, want_lse, tol, lse_tol):
+        """The max abs error of the output (held to tol of want's largest
+        magnitude) and of the LSE (atol = rtol = lse_tol), or None after
+        reporting a kernel that misses."""
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        lse_err = (lse - want_lse).abs().max().item()
+        if err <= tol * scale and torch.allclose(lse, want_lse, atol=lse_tol, rtol=lse_tol):
+            return max(err, lse_err)
+        print(f"[{label}] {what}: DISAGREES with its plain version (max abs err {err:.3e}, "
+              f"{err / max(scale, 1e-30):.3e} of the largest magnitude against {tol}; lse max "
+              f"abs err {lse_err:.3e}): not timed | {smi}", flush=True)
+        failed.append(what)
+        return None
 
     def packed(b, h, n, d, dtype=bf16):
         qkv = torch.randn((b, n, 3, h, d), generator=gen, device=dev).to(dtype)
         return qkv.permute(2, 0, 3, 1, 4)
 
     for b, h, lq, lk, d, dt, slots in FWD:
-        if only not in (None, dt):
+        if only not in (None, dt) or (tracker and d != 256):
             continue
         dtype = bf16 if dt == "bf16" else torch.float32
         if d == 256:
@@ -88,11 +116,12 @@ def measure(label, only=None):
         got, lse = fa.flash_sdpa(q, k, v, bias, scale, return_lse=True)
         want, want_lse = fa.flash_sdpa_plain(q, k, v, bias, scale, return_lse=True)
         tol = 2e-2 if dt == "bf16" else 1e-4
-        err = max(cs.check_rel(f"{dt} forward d={d}", got, want, tol),
-                  cs.check(f"{dt} forward d={d} (lse)", lse, want_lse,
-                           1e-2 if dt == "bf16" else 1e-4))
+        err = held(f"{dt} forward d={d} q {tuple(q.shape)} k {tuple(k.shape)}", got, want, lse,
+                   want_lse, tol, 1e-2 if dt == "bf16" else 1e-4)
         del got, lse, want, want_lse
         torch.cuda.empty_cache()
+        if err is None:
+            continue
         if dt == "fp32":
             bms, by = cs.attn_bound(q.numel(), live, d, kv_elems=k.numel() + v.numel())
         else:
@@ -112,8 +141,51 @@ def measure(label, only=None):
               f"bound {bms:.4f} ms ({by}) | max err {err:.3e} | {smi}", flush=True)
         del q, k, v, bias, mask
         torch.cuda.empty_cache()
-    for b, h, n, d, dt in BWD:
+    for slots, entries, dt in MEM:
         if only not in (None, dt):
+            continue
+        dtype = bf16 if dt == "bf16" else torch.float32
+        q = torch.randn((8, 1, 5184, 256), generator=gen, device=dev).to(dtype)
+        k = torch.randn((8, 36864, 256), generator=gen, device=dev).to(dtype)[:, None]
+        v = torch.randn((8, 36864, 64), generator=gen, device=dev).to(dtype)[:, None]
+        bias = torch.full((8, 36864), fa.NEG_INF, device=dev)
+        bias[:slots, :entries * 5184] = 0.0
+        live = int((bias > fa.NEG_INF / 2).sum().item())  # keys, over the slots
+        scale = 256 ** -0.5
+        got, lse = fa.flash_memattn(q, k, v, bias, scale, return_lse=True)
+        want, want_lse = fa.flash_memattn_plain(q, k, v, bias, scale, return_lse=True)
+        tol = 2e-2 if dt == "bf16" else 1e-4
+        err = held(f"{dt} memattn {slots} slots x {entries} entries", got, want, lse, want_lse,
+                   tol, 1e-2 if dt == "bf16" else 1e-4)
+        del got, want, want_lse
+        torch.cuda.empty_cache()
+        if err is None:
+            continue
+        if dt == "fp32":
+            bms, by = cs.attn_bound(q.numel(), live * 5184, 256, 64, live * (256 + 64))
+        else:
+            nb = 2 * (q.numel() + q.numel() // 4 + live * (256 + 64)) + 4 * (bias.numel() +
+                                                                            lse.numel())
+            bms, by = cs.bound(nb, 2.0 * 5184 * live * 320, 1.0 * 5184 * live,
+                               6.0 * 5184 * live)
+        fn = lambda: fa.flash_memattn(q, k, v, bias, scale, return_lse=True)  # noqa: E731
+        ms = cs.graph_time(fn, 5, 10)
+        call_ms = cs.cuda_time(fn, 10)
+        _, _, dev_us = cs.profile_kernels(fn)
+        plain_ms = cs.cuda_time(lambda: fa.flash_memattn_plain(q, k, v, bias, scale, True), 2,
+                                warmup=1)
+        bias4 = bias[:, None, None, :].to(dtype)
+        lib = cs.graph_time(
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias4, scale=scale), 3, 5)
+        kernel = getattr(fa, "memattn_kernel", lambda _: "flash_memattn")(dtype)
+        print(f"[{label}] {dt} memattn {slots} slots x {entries} entries ({live} live keys) "
+              f"{kernel}: {ms:.4f} ms (CUDA graph) | call {call_ms:.4f} ms | device "
+              f"{dev_us / 1e3:.4f} ms | plain {plain_ms:.4f} ms | SDPA {lib:.4f} ms | bound "
+              f"{bms:.4f} ms ({by}) | max err {err:.3e} | {smi}", flush=True)
+        del q, k, v, bias, bias4, lse
+        torch.cuda.empty_cache()
+    for b, h, n, d, dt in BWD:
+        if only not in (None, dt) or tracker:
             continue
         dtype = bf16 if dt == "bf16" else torch.float32
         tol = 2e-2 if dt == "bf16" else 1e-4
@@ -153,6 +225,9 @@ def measure(label, only=None):
               flush=True)
         del q, k, v, o, lse, do, ol, ql, kl, vl
         torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"bench_vit_attn [{label}]: {len(failed)} kernel(s) disagree with "
+                         f"their plain versions: {failed}")
 
 
 def main():
@@ -160,18 +235,25 @@ def main():
     ap.add_argument("--other", help="another checkout, timed in turns with this one")
     ap.add_argument("--dtype", choices=("bf16", "fp32"), default=None,
                     help="time only the shapes of this dtype")
+    ap.add_argument("--tracker", action="store_true",
+                    help="time only the tracker's shapes: the d=256 forwards and the bank")
     ap.add_argument("--label", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.other is None or args.label is not None:
-        measure(args.label or "this", args.dtype)
+        measure(args.label or "this", args.dtype, args.tracker)
         return 0
     here = os.path.dirname(os.path.abspath(__file__))
     other = os.path.abspath(args.other)
+    rc = 0
     for where, label in ((other, "other"), (here, "this"), (here, "this"), (other, "other")):
-        subprocess.run([sys.executable, os.path.join(here, "bench_vit_attn.py"), "--label",
-                        f"{label} ({os.path.relpath(where, here)})",
-                        *(("--dtype", args.dtype) if args.dtype else ())], cwd=where, check=True)
-    return 0
+        # the other checkout's misses are reported and its other kernels still timed
+        run = subprocess.run([sys.executable, os.path.join(here, "bench_vit_attn.py"),
+                              "--label", f"{label} ({os.path.relpath(where, here)})",
+                              *(("--dtype", args.dtype) if args.dtype else ()),
+                              *(("--tracker",) if args.tracker else ())], cwd=where)
+        if label == "this":
+            rc = rc or run.returncode
+    return rc
 
 
 if __name__ == "__main__":

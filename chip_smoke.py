@@ -7,8 +7,9 @@ Phases, each printing its own lines:
   1. environment: the card's name and power limit (nvidia-smi), torch and
      CUDA versions, TF32 settings, and the build of the CUDA kernels
      (csrc/*.cu, one nvcc per source, all started together); for each
-     wgmma kernel (flash_sdpa_h at d=32, 64, 80 and 256, flash_sdpa_h_fp32
-     at d=32, 64 and 80, flash_sdpa_bwd_h at d=32, 64 and 80,
+     wgmma kernel (flash_sdpa_h and flash_sdpa_h_fp32 at d=32, 64, 80 and
+     256, the bank kernel flash_memattn_h in bf16 and fp32,
+     flash_sdpa_bwd_h at d=32, 64 and 80,
      flash_sdpa_bwd_dq_h at d=64 and 80, flash_sdpa_bwd_h_fp32 and
      flash_sdpa_bwd_dq_h_fp32 at d=32, 64 and 80, the bf16 d=256 pair
      flash_sdpa_bwd_dq_wide_h / flash_sdpa_bwd_dkv_wide_h and the fp32 one
@@ -53,8 +54,10 @@ Phases, each printing its own lines:
      peak memory are timed; torch.profiler splits one tracked frame of
      session A by kernel, and times each d=256 launch of one of session B.
      The three tracker kernels are held against their plain versions on the
-     inputs of their largest launch in session A, flash_sdpa d=256 (the
-     wgmma kernel of csrc/flash_sdpa_h.cu) also on session B's
+     inputs of their largest launch in session A (flash_sdpa d=256 the
+     wgmma kernel of csrc/flash_sdpa_h.cu, flash_memattn that of
+     csrc/flash_memattn_h.cu, timed again over 1-8 live slots and 1-7 valid
+     entries), flash_sdpa d=256 also on session B's
      cross-attention (a row of its own, library: SDPA with the bool key
      mask), and timed as in phase 3; the tiny tracker runs bf16 on the card
      against fp32 on the CPU;
@@ -160,7 +163,8 @@ Phases, each printing its own lines:
      and the fp32 d=256 pair's share of it, the split passes of
      csrc/flash_sdpa_bwd_wide_h_fp32.cu charged to the kernel launched after
      them). Counters are set to 0 just before each and read
-     just after. Each fp32 instantiation (flash_sdpa d=32 and d=256, its dq
+     just after. Each fp32 instantiation (flash_sdpa d=32 and d=256 (the
+     split-bf16 wgmma kernels of csrc/flash_sdpa_h_fp32.cu), its dq
      and dkv at d=32 and d=256, flash_memattn, flash_memattn_q8,
      flash_xattn_rpb, depthwise_conv2d forward and backward) is held against
      its fp32 plain version on the inputs of its largest launch there, at
@@ -610,12 +614,14 @@ def main():
                 log(f"[build] {name}: {line.strip()}")
     # the wgmma kernels as the runtime holds them, at the main path's 5184 keys
     # (the d=256 forward and dq kernels at the clip's 36352 keys: their tile
-    # lists grow with them; the d=80 ones at vit_h's 4900), and the mma.sync
-    # bf16 dq at d=32
+    # lists grow with them; the bank kernels at the padded bank's 36864; the
+    # d=80 ones at vit_h's 4900), and the mma.sync bf16 dq at d=32
     for kernel, d, lk in (("flash_sdpa_h", 32, 5184), ("flash_sdpa_h", 64, 5184),
                           ("flash_sdpa_h", 80, 4900), ("flash_sdpa_h", 256, 36352),
                           ("flash_sdpa_h_fp32", 32, 5184), ("flash_sdpa_h_fp32", 64, 5184),
-                          ("flash_sdpa_h_fp32", 80, 4900), ("flash_sdpa_bwd_h", 32, 5184),
+                          ("flash_sdpa_h_fp32", 80, 4900), ("flash_sdpa_h_fp32", 256, 36352),
+                          ("flash_memattn_h", 256, 36864), ("flash_memattn_h_fp32", 256, 36864),
+                          ("flash_sdpa_bwd_h", 32, 5184),
                           ("flash_sdpa_bwd_h", 64, 5184), ("flash_sdpa_bwd_h", 80, 4900),
                           ("flash_sdpa_bwd_dq_h", 64, 5184), ("flash_sdpa_bwd_dq_h", 80, 4900),
                           *((kernel, d, lk) for kernel in (
@@ -999,7 +1005,7 @@ def video_phase(smi, rng):
             log(f"[profile] tracked frame:   {us / 1e3:8.4f} ms  x{n:<4d} {name[:90]}")
         for name, us, n in kernels:
             for key, pattern, per in (("flash_sdpa_d256", "flash_sdpa_h_kernel<256>", 4),
-                                      ("flash_memattn", "flash_qsmem_kernel<256, 64, __nv_bf", 4),
+                                      ("flash_memattn", "flash_memattn_h_kernel<1>", 4),
                                       ("depthwise_conv2d", "dw7_kernel", 2)):
                 if pattern in name:
                     device_ms[key] = device_ms.get(key, 0.0) + us / 1e3 / per
@@ -1101,8 +1107,10 @@ def video_phase(smi, rng):
     nb = 2 * (q.numel() + got.numel() + live * (dk + dv)) + 4 * (key_bias.numel() + lse.numel())
     bms, by = bound(nb, 2.0 * h * lq * live * (dk + dv), 1.0 * h * lq * live, 6.0 * h * lq * live)
     bias4 = key_bias[:, None, None, :].to(q.dtype)
+    res = fa.kernel_resources("flash_memattn_h", 256, k.shape[2])
     rows.append(dict(
-        name="flash_memattn", route="cuda", source="efficientsam3_tpu_torch/csrc/flash_memattn.cu",
+        name="flash_memattn", route="cuda",
+        source="efficientsam3_tpu_torch/csrc/flash_memattn_h.cu",
         replaces="efficientsam3_tpu/ops/pallas/flash_attention.py:536",
         launches=launches_a["flash_memattn"], max_abs_err=err,
         ms=graph_time(lambda: fa.flash_memattn(q, k, v, key_bias, scale, return_lse=True), 5, 10),
@@ -1114,14 +1122,19 @@ def video_phase(smi, rng):
             lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias4, scale=scale), 5, 10),
         device_ms=device_ms.get("flash_memattn"),
         shape=f"q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)} bf16, "
-              f"{live} live keys over {b} slots (lse max err {lse_err:.2e})", **{"pass": True}))
+              f"{live} live keys over {b} slots (lse max err {lse_err:.2e}); wgmma + TMA, "
+              f"{res['registers']} registers, {res['spill_bytes']} bytes spilled, "
+              f"{res['smem_bytes']} B shared, {res['blocks_per_sm']} blocks an SM",
+        **{"pass": True}))
     # how the kernel's time follows the bank's live keys: valid entries at
     # the session's active slots, then active slots with every entry valid
+    # (1, 3 and 8 slots: whether a slot's bank stays in the L2 as more
+    # slots stream theirs)
     s_e = core.feat_size ** 2
     n_act = int((key_bias > fa.NEG_INF / 2).any(-1).sum().item())
     sweep = []
     for n_slots, n_entries in ([(n_act, e) for e in (1, 3, 5, 7)]
-                               + [(n, core.num_maskmem) for n in (1, 2, 4, 8)]):
+                               + [(n, core.num_maskmem) for n in (1, 2, 3, 4, 8)]):
         kb = torch.full_like(key_bias, fa.NEG_INF)
         kb[:n_slots, :n_entries * s_e] = 0.0
         t_ms = graph_time(lambda: fa.flash_memattn(q, k, v, kb, scale, return_lse=True), 3, 5)
@@ -2828,8 +2841,8 @@ def fp32_phase(smi, main_ref):
     pred_e, st_e, _, cap_e = sessions[False]
     pred_q, st_q, _, cap_q = sessions[True]
     dev_e = per_launch(lambda: run_frame(pred_e, st_e),
-                       {"flash_sdpa_d256_fp32": ("flash_qsmem_kernel<256, 256, float>", 4),
-                        "flash_memattn_fp32": ("flash_qsmem_kernel<256, 64, float>", 4),
+                       {"flash_sdpa_d256_fp32": ("flash_sdpa_h_f32_wide_kernel", 4),
+                        "flash_memattn_fp32": ("flash_memattn_h_kernel<2>", 4),
                         "depthwise_conv2d_fp32": ("dw7_kernel<float>", 2)})
     dev_q = per_launch(lambda: run_frame(pred_q, st_q),
                        {"flash_memattn_q8_fp32": ("flash_memattn_q8_kernel<float>", 4)})
@@ -2842,13 +2855,17 @@ def fp32_phase(smi, main_ref):
     mask = (key_bias > fa.NEG_INF / 2)[:, None, None, :]
     bms, by = attn_bound(q.numel(), live * q.shape[1] * q.shape[2], 256,
                          kv_elems=2 * live * q.shape[1] * 256)
-    rows.append(row("flash_sdpa_d256_fp32", "flash_qsmem.cuh", "flash_attention.py:144",
+    res = fa.kernel_resources("flash_sdpa_h_fp32", 256, k.shape[2])
+    rows.append(row("flash_sdpa_d256_fp32", "flash_sdpa_h_fp32.cu", "flash_attention.py:144",
                     4 * tracked, err, lambda: fa.flash_sdpa(q, k, v, key_bias, scale),
                     lambda: fa.flash_sdpa_plain(q, k, v, key_bias, scale),
                     graph_time(lambda: F.scaled_dot_product_attention(
                         q, k, v, attn_mask=mask, scale=scale), 5, 10),
-                    bms, by, f"q/k/v {tuple(q.shape)} fp32 (split bf16 products), {live} live "
-                    f"keys over {q.shape[0]} slots; library = fp32 SDPA, bool key mask",
+                    bms, by, f"q/k/v {tuple(q.shape)} fp32 (split-bf16 wgmma; graph and call ms "
+                    f"with the two split passes, dev the kernel alone; {res['registers']} "
+                    f"registers, {res['spill_bytes']} bytes spilled, {res['smem_bytes']} B shared, "
+                    f"{res['blocks_per_sm']} blocks an SM), {live} live keys over {q.shape[0]} "
+                    f"slots; library = fp32 SDPA, bool key mask",
                     dev_e.get("flash_sdpa_d256_fp32")))
     del q, k, v, got, want, lse, want_lse, mask
     (q, k, v, key_bias, scale), _ = cap_e.args[("flash_memattn", 256)]
@@ -2860,14 +2877,18 @@ def fp32_phase(smi, main_ref):
     live = int((key_bias > fa.NEG_INF / 2).sum().item())
     bias4 = key_bias[:, None, None, :]
     bms, by = attn_bound(q.numel(), live * q.shape[2], 256, 64, live * (256 + 64))
-    rows.append(row("flash_memattn_fp32", "flash_memattn.cu", "flash_attention.py:536",
+    res = fa.kernel_resources("flash_memattn_h_fp32", 256, k.shape[2])
+    rows.append(row("flash_memattn_fp32", "flash_memattn_h.cu", "flash_attention.py:536",
                     4 * tracked, err,
                     lambda: fa.flash_memattn(q, k, v, key_bias, scale, return_lse=True),
                     lambda: fa.flash_memattn_plain(q, k, v, key_bias, scale, True),
                     graph_time(lambda: F.scaled_dot_product_attention(
                         q, k, v, attn_mask=bias4, scale=scale), 5, 10),
                     bms, by, f"q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)} fp32 "
-                    f"(split bf16 products), {live} live keys; library = fp32 SDPA, raw v",
+                    f"(split-bf16 wgmma; graph and call ms with the two split passes, dev the "
+                    f"kernel alone; {res['registers']} registers, {res['spill_bytes']} bytes "
+                    f"spilled, {res['smem_bytes']} B shared, {res['blocks_per_sm']} blocks an "
+                    f"SM), {live} live keys; library = fp32 SDPA, raw v",
                     dev_e.get("flash_memattn_fp32")))
     del q, k, v, got, lse, bias4
     (q, k_i8, ks, v, key_bias, scale), _ = cap_q.args[("flash_memattn_q8", 256)]

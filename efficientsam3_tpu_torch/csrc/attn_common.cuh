@@ -1,6 +1,6 @@
-// Shared pieces of the hand-written Hopper attention kernels
-// (flash_sdpa.cu, flash_xattn_rpb.cu, and through flash_qsmem.cuh the
-// wide-head and backward kernels).
+// Shared pieces of the mma.sync attention kernels (flash_xattn_rpb.cu,
+// flash_memattn_q8.cu, and through flash_qsmem.cuh the bf16 d = 32 dq
+// kernel of flash_sdpa_bwd.cu).
 //
 // One thread block of 4 warps owns BQ = 64 query rows of one (batch, head);
 // each warp owns 16 rows. K and V tiles of BK = 64 keys are staged in shared

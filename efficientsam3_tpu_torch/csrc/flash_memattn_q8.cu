@@ -10,7 +10,7 @@
 // int8 x int8 -> int32 tensor-core product and
 //   logit[row, key] = float(s_i32) * k_scale[key] * q_scale[row],
 // masked keys (key_bias <= -5e8) excluded. From the logits on it is
-// flash_memattn.cu: fp32 online softmax, the denominator summed in fp32
+// flash_memattn_h.cu's function: fp32 online softmax, the denominator summed in fp32
 // from the unrounded P, P rounded to bf16 only as the operand of P V over
 // the raw dv = 64 values, an optional per-row log-sum-exp, 0 and lse -1e9
 // for a row whose keys are all masked. One kernel serves both Pallas
@@ -23,7 +23,7 @@
 // second 4-byte stream per key is nothing against the 256-byte key.
 //
 // Layout. One block of 4 warps owns BQ = 64 query rows of one (batch,
-// head), 16 a warp, as flash_qsmem.cuh. Prologue: each warp reads its 16
+// head), 16 a warp (attn_common.cuh). Prologue: each warp reads its 16
 // bf16 query rows from device memory (a row is 32 lanes x 16 bytes), takes
 // the row's |max| by shuffles, and writes the int8 row and its scale into
 // shared memory, so the Q tile costs 17 KB instead of 33 KB and the
@@ -49,7 +49,7 @@
 // entries, the pad tail) are skipped through the byte-per-tile table, which
 // one warp compacts into a list of live tiles.
 //
-// The first version walked the tiles as flash_qsmem.cuh does (copy a tile,
+// The first version walked the tiles one at a time (copy a tile,
 // wait, compute) and took 1.90 ms at 3 live slots of 8 against the bf16
 // kernel's 2.01 ms on the same keys (chip_smoke.py, NVIDIA H100 80GB HBM3,
 // 700 W, in a CUDA graph): each block waited out its own copies. So the

@@ -27,7 +27,7 @@
 // to bf16 before the dQ product; the product accumulates in fp32 and the
 // scale is applied at the end, as in the Pallas kernel. Key tiles whose 64
 // keys are all masked are skipped: the kernel reads its key-bias row once
-// into a byte per tile (as the forward's flash_qsmem.cuh does) and walks
+// into a byte per tile (as the forwards do) and walks
 // only the live tiles. Rows past Lq / keys past Lk read as zero and are not
 // written. Strides over (B, H, N) are taken for every operand (dO arrives
 // as a view of the (B, N, H * D) gradient).

@@ -224,12 +224,14 @@ __device__ __forceinline__ void grad3(float (&acc)[NACC], const uint32_t (&gh)[2
 // ---------------------------------------------------------------- split
 // hi and lo of the rows of x (B, H, n, SD) f32 with element strides (sb,
 // sh, sn), into parts (2, B, H, n, SD) bf16 contiguous, SD = 256 (this
-// file's kernels) or 32, 64 and 80 (flash_sdpa_bwd_h_fp32.cu's Q and dO,
-// flash_sdpa_bwd_dq_h_fp32.cu's K and V): 8 columns a lane, SD / 8 lanes a
-// row, RPB rows a block of 256 (25 at SD = 80, whose 10 lanes a row leave
-// the last 6 threads idle). With tile > 0 (SD = 256, one warp a row) a row
-// is written only when its tile of `tile` rows holds a live key (key_bias
-// (B, lkb) > -5e8).
+// file's kernels, flash_sdpa_h_fp32.cu's d = 256 forward and
+// flash_memattn_h.cu's keys) or 32, 64 and 80 (flash_sdpa_bwd_h_fp32.cu's Q
+// and dO, flash_sdpa_bwd_dq_h_fp32.cu's and flash_sdpa_h_fp32.cu's K and V,
+// flash_memattn_h.cu's values at 64): 8 columns a lane, SD / 8 lanes a row,
+// RPB rows a block of 256 (25 at SD = 80, whose 10 lanes a row leave the
+// last 6 threads idle). With tile > 0 (SD = 256 and 64) a row is written
+// only when its tile of `tile` rows holds a live key (key_bias (B, lkb) >
+// -5e8): the row's lanes read the tile's biases between them.
 template <int SD>
 __host__ __device__ constexpr int split_rows_a_block() {
   return 256 / (SD / 8);
@@ -245,20 +247,25 @@ split_parts_kernel(const float* __restrict__ x, const float* __restrict__ key_bi
   if (threadIdx.x >= RPB * LPR) return;
   const long long rows = static_cast<long long>(B) * H * n;
   const long long row = static_cast<long long>(blockIdx.x) * RPB + threadIdx.x / LPR;
-  if (row >= rows) return;  // at SD = 256 the whole warp
+  const bool in = row < rows;
   const int lane = threadIdx.x % LPR;
   const int r = static_cast<int>(row % n);
   const long long bh = row / n;
   const int h = static_cast<int>(bh % H), b = static_cast<int>(bh / H);
-  if constexpr (SD == 256) {
-    if (tile > 0) {
+  if constexpr (SD == 256 || SD == 64) {
+    if (tile > 0) {  // a whole warp of rows takes this branch (tile is the call's)
       const int t0 = r / tile * tile;
       bool live = false;
-      for (int i = t0 + lane; i < t0 + tile && i < lkb; i += 32)
-        live |= key_bias[static_cast<long long>(b) * lkb + i] > 0.5f * NEG_INF;
-      if (!__any_sync(0xffffffffu, live)) return;
+      if (in)
+        for (int i = t0 + lane; i < t0 + tile && i < lkb; i += LPR)
+          live |= key_bias[static_cast<long long>(b) * lkb + i] > 0.5f * NEG_INF;
+#pragma unroll
+      for (int off = 1; off < LPR; off <<= 1)  // the row's LPR lanes, aligned in the warp
+        live |= __shfl_xor_sync(0xffffffffu, live, off);
+      if (!live) return;
     }
   }
+  if (!in) return;  // at SD = 256 the whole warp
   const float4* src = reinterpret_cast<const float4*>(x + b * sb + h * sh + r * sn + lane * 8);
   const float4 a = src[0], c = src[1];
   uint4 hi, lo;
@@ -681,8 +688,8 @@ void launch_split(const float* x, const float* key_bias, bf16* parts, int B, int
 // The split copy of x (B, H, n, d) f32, d = 256, 32, 64 or 80, element
 // strides (sb, sh, sn) each a multiple of 4 and the base 16-byte aligned:
 // parts (2, B, H, n, d) bf16 contiguous, hi = bf16(x) then lo = bf16(x -
-// hi). With tile > 0 (d = 256 only) only the rows of tiles of `tile` rows
-// that hold a live key (key_bias (B, lkb) f32 contiguous > -5e8) are
+// hi). With tile > 0 (d = 256 and 64) only the rows of tiles of `tile`
+// rows that hold a live key (key_bias (B, lkb) f32 contiguous > -5e8) are
 // written. Returns a CUDA error.
 extern "C" int flash_sdpa_split_parts(const void* x, const void* key_bias, void* parts, int B,
                                       int H, int n, int d, int lkb, int tile, long long sb,
@@ -693,7 +700,7 @@ extern "C" int flash_sdpa_split_parts(const void* x, const void* key_bias, void*
   if (d == 80) run = launch_split<80>;
   if (d == 256) run = launch_split<256>;
   if (run == nullptr || B <= 0 || H <= 0 || n <= 0 || tile < 0 ||
-      (tile > 0 && (d != 256 || key_bias == nullptr || lkb < n)) ||
+      (tile > 0 && ((d != 256 && d != 64) || key_bias == nullptr || lkb < n)) ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0 || sb % 4 != 0 || sh % 4 != 0 || sn % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   run(static_cast<const float*>(x), static_cast<const float*>(key_bias), static_cast<bf16*>(parts),

@@ -18,17 +18,16 @@
 //    and the plain path's cross-attention over k/v (8, 1, 36352, 256), 4
 //    launches a tracked frame (8 on the plain path) and 56 an 8-frame
 //    training clip (the d = 256 backward reads its LSE).
-// What it computes is that of flash_sdpa.cu: softmax(Q K^T * scale +
-// key_bias) V with an fp32 online softmax, P rounded to bf16 for the PV
-// product, a (B, Lk) fp32 additive key bias (-1e9 masks), key tiles whose
-// keys are all masked skipped, the natural-log LSE (the backward reads it),
-// 0 and lse -1e9 for a row whose keys are all masked, ragged Lq and Lk
-// masked in the kernel, any (B, H, N) strides on q, k and v, the output in
-// (B, N, H, D) memory. fp32 operands run flash_sdpa_h_fp32.cu at d = 32,
-// 64 and 80 (this design on split bf16 parts: wgmma's tf32 form needs both
-// operands K-major, and V is not) and flash_sdpa.cu at d = 256.
+// What it computes: softmax(Q K^T * scale + key_bias) V with an fp32
+// online softmax, P rounded to bf16 for the PV product, a (B, Lk) fp32
+// additive key bias (-1e9 masks), key tiles whose keys are all masked
+// skipped, the natural-log LSE (the backward reads it), 0 and lse -1e9 for
+// a row whose keys are all masked, ragged Lq and Lk masked in the kernel,
+// any (B, H, N) strides on q, k and v, the output in (B, N, H, D) memory.
+// fp32 operands run flash_sdpa_h_fp32.cu (this design on split bf16 parts:
+// wgmma's tf32 form needs both operands K-major, and V is not).
 //
-// What held the mma.sync kernel of flash_sdpa.cu back (d = 32: 0.2679 ms at
+// What held the mma.sync kernel before it back (d = 32: 0.2679 ms at
 // the `ground` shape against 0.1645 ms for one F.scaled_dot_product_attention
 // call, bound 0.0514 ms; d = 64: 1.3815 ms against SDPA's 0.2783, bound
 // 0.1113 ms): at d = 32 the work is 27.5 GFLOP of products (0.028 ms at the
@@ -91,7 +90,7 @@
 // as the A operand (both spill at the 96-register limit of 2 blocks an SM),
 // three consumer warpgroups at one block an SM, and no ping-pong (level).
 //
-// d = 80 (the mma.sync register kernel of flash_sdpa.cu before it took 1.7898 ms
+// d = 80 (the mma.sync register kernel before it took 1.7898 ms
 // at vit_h's shape, 14.4x its bound of 0.1243 ms, 5.1x SDPA's 0.3500):
 //  - layout: a 160-byte row has no swizzle of its own; five 16-column
 //    slabs at the 32-byte swizzle (wgmma_common.cuh's Layouts note) keep a
@@ -115,7 +114,7 @@
 //    producer warp (8 warps: 128 registers at 2 blocks an SM), one TMA
 //    issuer among the consumers.
 //
-// d = 256 (the mma.sync kernel of flash_qsmem.cuh before it took 3.5083 ms
+// d = 256 (the mma.sync kernel before it took 3.5083 ms
 // at the cross shape, 6.3x its bound of 0.5569 ms, and 0.4206 ms at the
 // self shape against 0.0835: Q from shared memory by ldmatrix, K and V by
 // cp.async with no pipelining, mma.sync at a third of the tensor peak):
@@ -259,8 +258,7 @@ flash_sdpa_h_kernel(const __grid_constant__ CUtensorMap tm_q,
     if constexpr (D == 256)
       asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(WIDE_REGS) : "memory");
     const int wg = warp >> 2;
-    const int g = lane >> 2, t = lane & 3;
-    const int r0 = q0 + wg * 64 + (warp & 3) * 16 + g, r1 = r0 + 8;  // this thread's rows
+    const int r0 = q0 + wg * 64 + (warp & 3) * 16 + (lane >> 2);  // this thread's rows r0, r0 + 8
     const float scale2 = sm_scale * LOG2E;
     // Q (64 rows of this group) and K K-major; V MN-major (wgmma_common.cuh)
     const uint32_t q_addr = s_base + L::OFF_Q + wg * 64 * L::TQ::ROW;
@@ -291,43 +289,12 @@ flash_sdpa_h_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_wait0();
       fence_regs(sc);
 
-      // logits in log2 units: s * scale * log2(e) + bias * log2(e); keys
-      // past lk (zero-filled by TMA) masked
-      const float* bs = bias_s + s * BN;
-      float mx0 = m0, mx1 = m1;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = j * 8 + 2 * t;
-        const float2 bv = *reinterpret_cast<const float2*>(bs + c);
-        const float b0 = key0 + c < lk ? bv.x * LOG2E : NEG_INF * LOG2E;
-        const float b1 = key0 + c + 1 < lk ? bv.y * LOG2E : NEG_INF * LOG2E;
-        sc[4 * j + 0] = fmaf(sc[4 * j + 0], scale2, b0);
-        sc[4 * j + 1] = fmaf(sc[4 * j + 1], scale2, b1);
-        sc[4 * j + 2] = fmaf(sc[4 * j + 2], scale2, b0);
-        sc[4 * j + 3] = fmaf(sc[4 * j + 3], scale2, b1);
-        mx0 = fmaxf(mx0, fmaxf(sc[4 * j + 0], sc[4 * j + 1]));
-        mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
-      }
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-      const float corr0 = ex2(m0 - mx0), corr1 = ex2(m1 - mx1);
-      m0 = mx0;
-      m1 = mx1;
-      float ps0 = 0.f, ps1 = 0.f;
-      uint32_t pa[4][4];  // P as the A operand of four k-steps of 16 keys
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float p0 = ex2(sc[4 * j + 0] - mx0), p1 = ex2(sc[4 * j + 1] - mx0);
-        const float p2 = ex2(sc[4 * j + 2] - mx1), p3 = ex2(sc[4 * j + 3] - mx1);
-        ps0 += p0 + p1;
-        ps1 += p2 + p3;
-        pa[j >> 1][(j & 1) * 2 + 0] = pack_bf16(p0, p1);  // row g, keys 16kk + 8(j&1) + 2t
-        pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);  // row g + 8
-      }
-      l0 = l0 * corr0 + ps0;
-      l1 = l1 * corr1 + ps1;
+      // the online softmax (keys past lk, zero-filled by TMA, masked); P
+      // rounded to bf16 as the A operand of four k-steps of 16 keys
+      float corr0, corr1;
+      uint32_t pa[4][4];
+      softmax_pack<BN / 8>(sc, bias_s + s * BN, key0, lk, scale2, m0, m1, l0, l1, corr0, corr1,
+                           pa);
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) {
         acc[4 * n + 0] *= corr0;
@@ -347,27 +314,7 @@ flash_sdpa_h_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (lane == 0) mbar_arrive(bar_empty + 8 * s);  // this warp is done with stage s
     }
 
-    // rows g and g + 8: the quad's partial sums, then out = acc / l
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-    const float i0 = 1.f / fmaxf(l0, 1e-30f), i1 = 1.f / fmaxf(l1, 1e-30f);
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const int c = n * 8 + 2 * t;
-      if (r0 < lq)
-        *reinterpret_cast<__nv_bfloat162*>(o + r0 * son + c) =
-            __floats2bfloat162_rn(acc[4 * n + 0] * i0, acc[4 * n + 1] * i0);
-      if (r1 < lq)
-        *reinterpret_cast<__nv_bfloat162*>(o + r1 * son + c) =
-            __floats2bfloat162_rn(acc[4 * n + 2] * i1, acc[4 * n + 3] * i1);
-    }
-    if (lse != nullptr && t == 0) {
-      const float valid = 0.5f * NEG_INF * LOG2E;
-      if (r0 < lq) lse[r0] = m0 > valid ? (m0 + __log2f(fmaxf(l0, 1e-30f))) * LN2 : NEG_INF;
-      if (r1 < lq) lse[r1] = m1 > valid ? (m1 + __log2f(fmaxf(l1, 1e-30f))) * LN2 : NEG_INF;
-    }
+    finish_rows(o, son, lse, acc, r0, lq, 0, m0, m1, l0, l1);
   }
 }
 

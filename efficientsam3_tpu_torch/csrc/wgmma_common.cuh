@@ -1,6 +1,8 @@
 // Shared pieces of the warp-specialised Hopper attention kernels
 // (flash_sdpa_h.cu: the bf16 forward at d = 32, 64, 80 and 256;
-// flash_sdpa_h_fp32.cu: the forward at d = 32, 64 and 80 on fp32 operands;
+// flash_sdpa_h_fp32.cu: the forward at d = 32, 64, 80 and 256 on fp32
+// operands; flash_memattn_h.cu: the tracker's bank attention in bf16 and
+// fp32;
 // flash_sdpa_bwd_h.cu: the bf16 dK / dV backward at d = 32, 64 and 80;
 // flash_sdpa_bwd_dq_h.cu: the bf16 dQ backward at d = 64 and 80;
 // flash_sdpa_bwd_h_fp32.cu and flash_sdpa_bwd_dq_h_fp32.cu: the dK / dV and
@@ -509,6 +511,114 @@ __device__ __forceinline__ void split_frags(const float (&x)[4 * NJ], uint32_t (
   for (int j = 0; j < NJ; ++j) {
     split_pair(x[4 * j + 0], x[4 * j + 1], hi[j >> 1][(j & 1) * 2 + 0], lo[j >> 1][(j & 1) * 2 + 0]);
     split_pair(x[4 * j + 2], x[4 * j + 3], hi[j >> 1][(j & 1) * 2 + 1], lo[j >> 1][(j & 1) * 2 + 1]);
+  }
+}
+
+// The forwards' online-softmax step over one key tile (flash_sdpa_h.cu,
+// flash_sdpa_h_fp32.cu, flash_memattn_h.cu) on S (64 queries x 8 NJ keys):
+// logits S scale2 + bias log2 e with the tile's key bias at bs (keys from
+// key0 past lk masked), the rows' running maxima in log2 units (m0, m1 of
+// rows r0, r0 + 8) moved on, and P = 2^(logit - m) handed to emit(j, p0,
+// p1, p2, p3) a value group at a time (rows r0 / r0 + 8, keys 8 j + 2 t,
+// + 1) as it is made, so that the caller packs or splits it without
+// holding all of P; l0, l1, this thread's partial row sums, are rescaled
+// and take the unrounded P; corr0, corr1 are the factors the rows' earlier
+// output must be scaled by.
+template <int NJ, typename Emit>
+__device__ __forceinline__ void softmax_tile(float (&sc)[4 * NJ], const float* bs, int key0,
+                                             int lk, float scale2, float& m0, float& m1,
+                                             float& l0, float& l1, float& corr0, float& corr1,
+                                             Emit emit) {
+  const int t = threadIdx.x & 3;
+  float mx0 = m0, mx1 = m1;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int c = j * 8 + 2 * t;
+    const float2 bv = *reinterpret_cast<const float2*>(bs + c);
+    const float b0 = key0 + c < lk ? bv.x * LOG2E : NEG_INF * LOG2E;
+    const float b1 = key0 + c + 1 < lk ? bv.y * LOG2E : NEG_INF * LOG2E;
+    sc[4 * j + 0] = fmaf(sc[4 * j + 0], scale2, b0);
+    sc[4 * j + 1] = fmaf(sc[4 * j + 1], scale2, b1);
+    sc[4 * j + 2] = fmaf(sc[4 * j + 2], scale2, b0);
+    sc[4 * j + 3] = fmaf(sc[4 * j + 3], scale2, b1);
+    mx0 = fmaxf(mx0, fmaxf(sc[4 * j + 0], sc[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  corr0 = ex2(m0 - mx0);
+  corr1 = ex2(m1 - mx1);
+  m0 = mx0;
+  m1 = mx1;
+  float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const float p0 = ex2(sc[4 * j + 0] - mx0), p1 = ex2(sc[4 * j + 1] - mx0);
+    const float p2 = ex2(sc[4 * j + 2] - mx1), p3 = ex2(sc[4 * j + 3] - mx1);
+    ps0 += p0 + p1;
+    ps1 += p2 + p3;
+    emit(j, p0, p1, p2, p3);
+  }
+  l0 = l0 * corr0 + ps0;
+  l1 = l1 * corr1 + ps1;
+}
+
+// softmax_tile with P rounded to bf16 as the A operand of NJ / 2 k-steps
+// of 16 keys (value group j of rows r0 and r0 + 8 is operand (j / 2, 2 (j
+// % 2) + {0, 1}), as pack_frags), or split into hi and lo parts there.
+template <int NJ>
+__device__ __forceinline__ void softmax_pack(float (&sc)[4 * NJ], const float* bs, int key0,
+                                             int lk, float scale2, float& m0, float& m1,
+                                             float& l0, float& l1, float& corr0, float& corr1,
+                                             uint32_t (&pa)[NJ / 2][4]) {
+  softmax_tile<NJ>(sc, bs, key0, lk, scale2, m0, m1, l0, l1, corr0, corr1,
+                   [&](int j, float p0, float p1, float p2, float p3) {
+                     pa[j >> 1][(j & 1) * 2 + 0] = pack_bf16(p0, p1);
+                     pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+                   });
+}
+template <int NJ>
+__device__ __forceinline__ void softmax_split(float (&sc)[4 * NJ], const float* bs, int key0,
+                                              int lk, float scale2, float& m0, float& m1,
+                                              float& l0, float& l1, float& corr0, float& corr1,
+                                              uint32_t (&ph)[NJ / 2][4],
+                                              uint32_t (&pl)[NJ / 2][4]) {
+  softmax_tile<NJ>(sc, bs, key0, lk, scale2, m0, m1, l0, l1, corr0, corr1,
+                   [&](int j, float p0, float p1, float p2, float p3) {
+                     split_pair(p0, p1, ph[j >> 1][(j & 1) * 2 + 0], pl[j >> 1][(j & 1) * 2 + 0]);
+                     split_pair(p2, p3, ph[j >> 1][(j & 1) * 2 + 1], pl[j >> 1][(j & 1) * 2 + 1]);
+                   });
+}
+
+// The forward's epilogue for a group's 64 rows: the quad's partial row sums
+// l0, l1 completed, this thread's N output values of rows r0, r0 + 8 (those
+// below lq) divided by them into out (row stride son, from column col0),
+// and with lse (the (batch, head) row, or null; written by the t = 0
+// threads of the caller's choosing) the natural-log LSE: -1e9 for a row
+// that saw no live key.
+template <int N, typename T>
+__device__ __forceinline__ void finish_rows(T* out, long long son, float* lse,
+                                            const float (&acc)[N], int r0, int lq, int col0,
+                                            float m0, float m1, float l0, float l1) {
+  const int t = threadIdx.x & 3;
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float i0 = 1.f / fmaxf(l0, 1e-30f), i1 = 1.f / fmaxf(l1, 1e-30f);
+  const int r1 = r0 + 8;
+#pragma unroll
+  for (int n = 0; n < N / 4; ++n) {
+    const int c = col0 + n * 8 + 2 * t;
+    if (r0 < lq) store2(out + r0 * son + c, acc[4 * n + 0] * i0, acc[4 * n + 1] * i0);
+    if (r1 < lq) store2(out + r1 * son + c, acc[4 * n + 2] * i1, acc[4 * n + 3] * i1);
+  }
+  if (lse != nullptr && t == 0) {
+    const float valid = 0.5f * NEG_INF * LOG2E;
+    if (r0 < lq) lse[r0] = m0 > valid ? (m0 + __log2f(fmaxf(l0, 1e-30f))) * LN2 : NEG_INF;
+    if (r1 < lq) lse[r1] = m1 > valid ? (m1 + __log2f(fmaxf(l1, 1e-30f))) * LN2 : NEG_INF;
   }
 }
 

@@ -28,10 +28,10 @@ kernel has a bf16 and an fp32 instantiation, the fp32 one on split bf16
 parts (csrc/attn_common.cuh, csrc/wgmma_common.cuh); outputs come back in
 the operands' dtype, the log-sum-exp in fp32. Each counts its kernel
 launches in ``<wrapper>.launches``; the ``flash_sdpa`` forward is the wgmma
-kernel ``csrc/flash_sdpa_h.cu`` in bf16 at d=32, 64, 80 and 256 and
-``csrc/flash_sdpa_h_fp32.cu`` in fp32 at d=32, 64 and 80 (split bf16
-parts), and the mma.sync kernel of ``csrc/flash_sdpa.cu`` in fp32 at d=256
-(``sdpa_kernel`` says which kernel a call reaches); ``flash_sdpa_bwd_dkv``
+kernel ``csrc/flash_sdpa_h.cu`` in bf16 and ``csrc/flash_sdpa_h_fp32.cu`` in
+fp32 (split bf16 parts) at d=32, 64, 80 and 256 (``sdpa_kernel`` says which
+kernel a call reaches), ``flash_memattn`` the wgmma kernel
+``csrc/flash_memattn_h.cu`` in both dtypes (``memattn_kernel``); ``flash_sdpa_bwd_dkv``
 at d=32, 64 and 80 is the wgmma kernel ``csrc/flash_sdpa_bwd_h.cu`` in bf16
 and ``csrc/flash_sdpa_bwd_h_fp32.cu`` in fp32 (split bf16 parts),
 ``flash_sdpa_bwd_dq`` at d=64 and 80 in bf16
@@ -41,7 +41,7 @@ the bf16 dq at d=32 is the mma.sync kernel of ``csrc/flash_sdpa_bwd.cu``),
 and both backward kernels at d=256 those of ``csrc/flash_sdpa_bwd_wide_h.cu``
 in bf16 and ``csrc/flash_sdpa_bwd_wide_h_fp32.cu`` in fp32 (the fp32 wgmma
 kernels read split bf16 copies of their streamed operands, made by
-``split_parts``). Under autograd (grad
+``split_parts``; so do the fp32 forwards). Under autograd (grad
 mode on and an input requiring a gradient) ``flash_sdpa`` runs as an
 autograd Function whose backward is the two backward kernels; the
 forward-only ``flash_memattn``, ``flash_memattn_q8`` and
@@ -70,8 +70,8 @@ _SUPPORTED_D = (32, 64, 80, 256)
 # trunks' global blocks in Stage-1 training (64, 80), memory attention (256)
 _BWD_D = (32, 64, 80, 256)
 _MEMATTN_DIMS = ((256, 64),)  # (dk, dv) of flash_memattn's kernel
-_BK = 64  # key tile of the CUDA kernels (attn_common.cuh BK)
-_BQ = 64  # query tile (attn_common.cuh BQ)
+_BK = 64  # key tile of flash_xattn_rpb (attn_common.cuh BK)
+_BQ = 64  # its query tile (attn_common.cuh BQ)
 
 _I, _LL, _F, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p
 
@@ -136,21 +136,23 @@ def _check_heads(name, dims, *ts):
 # kernel of csrc/flash_sdpa_bwd.cu refuses dkv everywhere
 _H_D = (32, 64, 80)
 # head dims of the wgmma forward kernels: bf16 (csrc/flash_sdpa_h.cu) and
-# fp32 on split bf16 parts (csrc/flash_sdpa_h_fp32.cu); fp32 at d=256 is
-# the mma.sync kernel of csrc/flash_sdpa.cu, which refuses the rest
+# fp32 on split bf16 parts (csrc/flash_sdpa_h_fp32.cu)
 _FWD_H_D = (32, 64, 80, 256)
-_FWD_H_F32_D = (32, 64, 80)
 
 
 def sdpa_kernel(dtype, d):
-    """The forward kernel a CUDA ``flash_sdpa`` call launches: the wgmma
-    kernels, csrc/flash_sdpa_h.cu for bf16 (d=32, 64, 80 and 256) and
-    csrc/flash_sdpa_h_fp32.cu for fp32 at d=32, 64 and 80 (split bf16
-    parts read from ``split_parts`` copies of K and V), else the mma.sync
-    kernel of csrc/flash_sdpa.cu (fp32 at d=256)."""
-    if dtype == torch.bfloat16:
-        return "flash_sdpa_h"
-    return "flash_sdpa_h_fp32" if d in _FWD_H_F32_D else "flash_sdpa"
+    """The forward kernel a CUDA ``flash_sdpa`` call launches (d=32, 64, 80
+    and 256): the wgmma kernels, csrc/flash_sdpa_h.cu for bf16 and
+    csrc/flash_sdpa_h_fp32.cu for fp32 (split bf16 parts read from
+    ``split_parts`` copies of K and V)."""
+    return "flash_sdpa_h" if dtype == torch.bfloat16 else "flash_sdpa_h_fp32"
+
+
+def memattn_kernel(dtype):
+    """The kernel a CUDA ``flash_memattn`` call launches: the wgmma kernel
+    of csrc/flash_memattn_h.cu in bf16, or in fp32 on split bf16 parts
+    (``split_parts`` copies of K and V first)."""
+    return "flash_memattn_h" if dtype == torch.bfloat16 else "flash_memattn_h_fp32"
 
 
 def _bwd_wide_kernel(dtype):
@@ -215,10 +217,6 @@ def _bind(source, name, argtypes):
         fn.argtypes = argtypes
         fn.restype = _I
     return fn
-
-
-def _lib_sdpa():
-    return _bind("flash_sdpa", "flash_sdpa_fwd", [_P] * 6 + [_I] * 6 + [_F] + [_LL] * 12 + [_P])
 
 
 def _lib_sdpa_h():
@@ -322,10 +320,11 @@ def _lib_bwd_wide_f32_dkv_attrs():
 
 
 # the head dims kernel_resources reads each kernel of several at: the wgmma
-# forwards at _FWD_H_D and _FWD_H_F32_D, the wgmma dkv at _H_D, the wgmma
-# bf16 dq at _DQ_H_D, the fp32 dq and dkv at _DQ_H_F32_D and _DKV_H_F32_D,
-# and the mma.sync dq at what those leave it (bf16 at d=32)
-_RESOURCE_DIMS = {"flash_sdpa_h": _FWD_H_D, "flash_sdpa_h_fp32": _FWD_H_F32_D,
+# forwards at _FWD_H_D, the bank kernels at dk=256, the wgmma dkv at _H_D,
+# the wgmma bf16 dq at _DQ_H_D, the fp32 dq and dkv at _DQ_H_F32_D and
+# _DKV_H_F32_D, and the mma.sync dq at what those leave it (bf16 at d=32)
+_RESOURCE_DIMS = {"flash_sdpa_h": _FWD_H_D, "flash_sdpa_h_fp32": _FWD_H_D,
+                  "flash_memattn_h": (256,), "flash_memattn_h_fp32": (256,),
                   "flash_sdpa_bwd_h": _H_D, "flash_sdpa_bwd_dq_h": _DQ_H_D,
                   "flash_sdpa_bwd_h_fp32": _DKV_H_F32_D,
                   "flash_sdpa_bwd_dq_h_fp32": _DQ_H_F32_D, "flash_sdpa_bwd_dq": (32,)}
@@ -336,7 +335,9 @@ def kernel_resources(kernel, d=32, lk=5184):
     resident blocks an SM of a wgmma kernel on the current CUDA device, as
     the runtime reports them (cudaFuncGetAttributes, the occupancy API):
     ``"flash_sdpa_h"`` (bf16 forward, d=32, 64, 80 or 256, lk keys),
-    ``"flash_sdpa_h_fp32"`` (fp32 forward, d=32, 64 or 80, lk keys),
+    ``"flash_sdpa_h_fp32"`` (fp32 forward, d=32, 64, 80 or 256, lk keys),
+    ``"flash_memattn_h"`` / ``"flash_memattn_h_fp32"`` (the bank kernel in
+    bf16 / fp32, d=256, lk keys),
     ``"flash_sdpa_bwd_h"`` (bf16 dkv, d=32, 64 or 80),
     ``"flash_sdpa_bwd_dq_h"`` (bf16 dq, d=64 or 80, lk keys),
     ``"flash_sdpa_bwd_h_fp32"`` (fp32 dkv, d=32, 64 or 80),
@@ -359,6 +360,8 @@ def kernel_resources(kernel, d=32, lk=5184):
         status = _lib_sdpa_h_attrs()(d, lk, out)
     elif kernel == "flash_sdpa_h_fp32":
         status = _lib_sdpa_h_f32_attrs()(d, lk, out)
+    elif kernel in ("flash_memattn_h", "flash_memattn_h_fp32"):
+        status = _lib_memattn_h_attrs()(int(kernel == "flash_memattn_h_fp32"), lk, out)
     elif kernel == "flash_sdpa_bwd_h":
         status = _lib_bwd_h_attrs()(d, out)
     elif kernel == "flash_sdpa_bwd_dq_h":
@@ -402,9 +405,9 @@ def _lib_xattn():
 
 
 def _flash_sdpa_fwd(q, k, v, key_bias, sm_scale, return_lse):
-    """Launch the forward kernel (fp32 at d=32, 64 and 80 after two launches
-    of the split pass, K's and V's); (o, lse or None), o a (B, H, Lq, D)
-    view of (B, Lq, H, D) memory."""
+    """Launch the forward kernel (fp32 after two launches of the split pass,
+    K's and V's: every row, at d=256 the rows of live 32-key tiles); (o, lse
+    or None), o a (B, H, Lq, D) view of (B, Lq, H, D) memory."""
     dtype = _check_heads("flash_sdpa", _SUPPORTED_D, q, k, v)
     b, h, lq, d = q.shape
     lk = k.shape[2]
@@ -418,25 +421,19 @@ def _flash_sdpa_fwd(q, k, v, key_bias, sm_scale, return_lse):
     strides = (*_bhn_strides(q), *_bhn_strides(k), *_bhn_strides(v), *_bhn_strides(o_bhn))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     lse_ptr = lse.data_ptr() if lse is not None else None
-    kernel = sdpa_kernel(dtype, d)
     with torch.cuda.device(q.device):  # the launch goes to the current device
-        if kernel == "flash_sdpa_h":
-            kb, lkb = _tma_rows(key_bias, NEG_INF)
+        kb, lkb = _tma_rows(key_bias, NEG_INF)
+        if dtype == torch.bfloat16:
             status = _lib_sdpa_h()(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), kb.data_ptr(), o.data_ptr(), lse_ptr,
                 b, h, lq, lk, lkb, d, float(sm_scale), *strides, stream)
-        elif kernel == "flash_sdpa_h_fp32":
-            kb, lkb = _tma_rows(key_bias, NEG_INF)
-            kp, vp = split_parts(k), split_parts(v)
+        else:
+            tile = (kb, _WIDE_F32_TILE) if d == 256 else ()
+            kp, vp = split_parts(k, *tile), split_parts(v, *tile)
             status = _lib_sdpa_h_f32()(
                 q.data_ptr(), kp.data_ptr(), vp.data_ptr(), kb.data_ptr(), o.data_ptr(), lse_ptr,
                 b, h, lq, lk, lkb, d, float(sm_scale), *_bhn_strides(q), *_bhn_strides(o_bhn),
                 stream)
-        else:
-            kb = key_bias.float().contiguous()
-            status = _lib_sdpa()(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), kb.data_ptr(), o.data_ptr(), lse_ptr,
-                b, h, lq, lk, d, int(dtype == torch.float32), float(sm_scale), *strides, stream)
     _build.check(status, "flash_sdpa launch")
     flash_sdpa.launches += 1
     return o_bhn, lse
@@ -552,8 +549,11 @@ def _check_bwd(q, k, v, key_bias, lse, *rest):
     return b, h, lq, lk, d, int(dtype == torch.float32)
 
 
-# streamed rows a stage of the fp32 d=256 kernels (csrc/flash_sdpa_bwd_wide_h_fp32.cu
-# BS): the dq kernel reads the split copies of K and V in tiles of this many keys
+# key tile of the fp32 kernels that read split copies of K and V with dead
+# tiles skipped: the d=256 dq kernel (csrc/flash_sdpa_bwd_wide_h_fp32.cu
+# BS), the d=256 forward (csrc/flash_sdpa_h_fp32.cu wide::BN) and the bank
+# kernel (csrc/flash_memattn_h.cu Cfg<2>::BN); the copies hold only the
+# rows of live tiles of this many keys
 _WIDE_F32_TILE = 32
 
 
@@ -574,30 +574,31 @@ _SPLIT_D = (32, 64, 80, 256)
 
 def check_split_parts(x, key_bias=None, tile=0):
     """What the split pass takes: x (B, H, N, d) float32 at d in _SPLIT_D;
-    tile > 0 (skipping dead key tiles) at d=256 only, with a (B, >= N)
-    key_bias. Raises ValueError otherwise."""
+    tile > 0 (skipping dead key tiles) at d=256 and d=64 only, with a (B,
+    >= N) key_bias. Raises ValueError otherwise."""
     if x.dtype != torch.float32 or x.dim() != 4 or x.shape[-1] not in _SPLIT_D:
         raise ValueError(f"split_parts takes (B, H, N, d) float32 with d in {_SPLIT_D}, got "
                          f"{tuple(x.shape)} {x.dtype}")
     b, _, n, d = x.shape
-    if tile and d != 256:
-        raise ValueError(f"split_parts skips dead key tiles (tile > 0) at d=256 only, got d={d}")
+    if tile and d not in (64, 256):
+        raise ValueError(f"split_parts skips dead key tiles (tile > 0) at d=256 and 64 only, "
+                         f"got d={d}")
     if tile and (key_bias is None or key_bias.shape[0] != b or key_bias.shape[1] < n):
         raise ValueError("split_parts with tile > 0 needs a (B, >= N) key_bias")
 
 
 def split_parts(x, key_bias=None, tile=0):
     """The split copy of x (B, H, N, d) fp32, d=256, 32, 64 or 80, that the
-    fp32 wgmma backward kernels read through TMA (d=256: both kernels'
-    streamed operands; d=32, 64 and 80: the dkv kernel's Q and dO and the
-    dq kernel's K and V): (2, B, H, N, d) bf16,
-    ``split_parts_plain``. One launch of the split pass of
-    csrc/flash_sdpa_bwd_wide_h_fp32.cu on CUDA (``check_split_parts`` says
-    what it takes), counted in ``split_parts.launches``; the plain version
-    for CPU tensors. With tile > 0 (d=256) the kernel writes only the rows
-    of the tiles of ``tile`` rows that hold a live key (key_bias (B, >= N)
-    f32 > -5e8; keys past N ignored): the rest is left as allocated, and
-    the dq kernel, whose key tiles these are, never reads it."""
+    fp32 wgmma kernels read through TMA (the forwards' and the dq kernels'
+    K and V, the dkv kernels' Q and dO, the bank kernel's keys at d=256 and
+    values at d=64): (2, B, H, N, d) bf16, ``split_parts_plain``. One
+    launch of the split pass of csrc/flash_sdpa_bwd_wide_h_fp32.cu on CUDA
+    (``check_split_parts`` says what it takes), counted in
+    ``split_parts.launches``; the plain version for CPU tensors. With tile >
+    0 (d=256 and 64) the kernel writes only the rows of the tiles of
+    ``tile`` rows that hold a live key (key_bias (B, >= N) f32 > -5e8; keys
+    past N ignored): the rest is left as allocated, and the kernel whose
+    key tiles these are never reads it."""
     if not x.is_cuda:
         return split_parts_plain(x)
     check_split_parts(x, key_bias, tile)
@@ -756,9 +757,23 @@ def check_bank_call(name, q, v, *others):
     return dtype
 
 
-def _lib_memattn():
-    return _bind("flash_memattn", "flash_memattn_fwd",
-                 [_P] * 6 + [_I] * 7 + [_F] + [_LL] * 12 + [_P])
+def _lib_memattn_h():
+    """``flash_memattn_h_fwd`` of csrc/flash_memattn_h.cu (bf16): q, k, v, key
+    bias, o, lse; 5 ints, the scale, four operands' (B, H, N) strides, the
+    stream."""
+    return _bind("flash_memattn_h", "flash_memattn_h_fwd",
+                 [_P] * 6 + [_I] * 5 + [_F] + [_LL] * 12 + [_P])
+
+
+def _lib_memattn_h_f32():
+    """``flash_memattn_h_f32_fwd``: q and the split copies of k and v, key
+    bias, o, lse; 5 ints, the scale, q's and o's strides, the stream."""
+    return _bind("flash_memattn_h", "flash_memattn_h_f32_fwd",
+                 [_P] * 6 + [_I] * 5 + [_F] + [_LL] * 6 + [_P])
+
+
+def _lib_memattn_h_attrs():
+    return _bind("flash_memattn_h", "flash_memattn_h_attrs", [_I, _I, _P])
 
 
 def flash_memattn(q, k, v, key_bias, sm_scale=None, return_lse=False):
@@ -771,32 +786,41 @@ def flash_memattn(q, k, v, key_bias, sm_scale=None, return_lse=False):
     whose keys are all masked gives 0 with lse -1e9 (the einsum path gives
     the uniform average; such rows are slot-gated by every caller). The
     denominator is summed in fp32 from the unrounded P, as the einsum path
-    does (the TPU kernel summed the bf16-rounded P). ``flash_memattn_q8``
-    is the same attention over int8 keys (the tracker's ``quantize_bank``).
+    does (the TPU kernel summed the bf16-rounded P). On CUDA one launch of
+    csrc/flash_memattn_h.cu (``memattn_kernel``), counted in
+    ``flash_memattn.launches``; fp32 first makes the split copies of K and
+    V (two launches of the split pass, the rows of live 32-key tiles).
+    ``flash_memattn_q8`` is the same attention over int8 keys (the
+    tracker's ``quantize_bank``).
     """
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if not q.is_cuda:
         return flash_memattn_plain(q, k, v, key_bias, sm_scale, return_lse)
     _build.refuse_grad("flash_memattn", q, k, v, key_bias)
-    fp32 = int(check_bank_call("flash_memattn", q, v, k) == torch.float32)
+    dtype = check_bank_call("flash_memattn", q, v, k)
     b, h, lq, dk = q.shape
     lk, dv = k.shape[2], v.shape[-1]
     if k.shape != (b, h, lk, dk) or v.shape != (b, h, lk, dv) or key_bias.shape != (b, lk):
         raise ValueError(f"flash_memattn shapes: q {q.shape} k {k.shape} v {v.shape} "
                          f"key_bias {key_bias.shape}")
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    key_bias = key_bias.float().contiguous()
     o = torch.empty((b, h, lq, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device) if return_lse else None
+    lse_ptr = lse.data_ptr() if lse is not None else None
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):  # the launch goes to the current device
-        status = _lib_memattn()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
-            o.data_ptr(), lse.data_ptr() if lse is not None else None,
-            b, h, lq, lk, dk, dv, fp32, float(sm_scale),
-            *_bhn_strides(q), *_bhn_strides(k), *_bhn_strides(v), *_bhn_strides(o),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+        kb, lkb = _tma_rows(key_bias, NEG_INF)
+        if dtype == torch.bfloat16:
+            status = _lib_memattn_h()(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), kb.data_ptr(), o.data_ptr(), lse_ptr,
+                b, h, lq, lk, lkb, float(sm_scale), *_bhn_strides(q), *_bhn_strides(k),
+                *_bhn_strides(v), *_bhn_strides(o), stream)
+        else:
+            kp, vp = (split_parts(t, kb, _WIDE_F32_TILE) for t in (k, v))
+            status = _lib_memattn_h_f32()(
+                q.data_ptr(), kp.data_ptr(), vp.data_ptr(), kb.data_ptr(), o.data_ptr(), lse_ptr,
+                b, h, lq, lk, lkb, float(sm_scale), *_bhn_strides(q), *_bhn_strides(o), stream)
     _build.check(status, "flash_memattn launch")
     flash_memattn.launches += 1
     return (o, lse) if return_lse else o

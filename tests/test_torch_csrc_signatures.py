@@ -24,7 +24,6 @@ CSRC = Path(_build.CSRC)
 # C entry points of the device sources (one library a source): the
 # accessor that binds each
 BINDINGS = {
-    "flash_sdpa_fwd": fa._lib_sdpa,
     "flash_sdpa_h_fwd": fa._lib_sdpa_h,
     "flash_sdpa_h_attrs": fa._lib_sdpa_h_attrs,
     "flash_sdpa_h_f32_fwd": fa._lib_sdpa_h_f32,
@@ -49,7 +48,9 @@ BINDINGS = {
     "flash_sdpa_bwd_dq_wide_f32_attrs": fa._lib_bwd_wide_f32_dq_attrs,
     "flash_sdpa_bwd_dkv_wide_f32_attrs": fa._lib_bwd_wide_f32_dkv_attrs,
     "flash_sdpa_split_parts": fa._lib_split_parts,
-    "flash_memattn_fwd": fa._lib_memattn,
+    "flash_memattn_h_fwd": fa._lib_memattn_h,
+    "flash_memattn_h_f32_fwd": fa._lib_memattn_h_f32,
+    "flash_memattn_h_attrs": fa._lib_memattn_h_attrs,
     "flash_memattn_q8_fwd": fa._lib_memattn_q8,
     "flash_xattn_rpb_fwd": fa._lib_xattn,
     "depthwise_conv2d_fwd": depthwise._lib,

@@ -756,13 +756,13 @@ def _mask_rows(dev, b, lk):
                                        (256, 1, 5184, 5184), (256, 1, 70, 36352),
                                        (256, 1, 333, 517)])
 def test_flash_sdpa_fp32_kernel_matches_plain(cuda, d, h, lq, lk):
-    """fp32 q/k/v at d=32 (the split-bf16 wgmma kernel of
-    flash_sdpa_h_fp32.cu) and d=256 (flash_qsmem's mma.sync kernel): output
-    fp32 and LSE against the plain version, ragged Lq/Lk, a masked tile, a
-    ragged masked tail, a fully masked row."""
+    """fp32 q/k/v at d=32 and d=256 (the split-bf16 wgmma kernels of
+    flash_sdpa_h_fp32.cu): output fp32 and LSE against the plain version,
+    ragged Lq/Lk, a masked tile, a ragged masked tail, a fully masked
+    row."""
     q, k, v = (_randn(cuda, 3, h, n, d, dtype=torch.float32) for n in (lq, lk, lk))
     bias = _mask_rows(cuda, 3, lk)
-    assert fa.sdpa_kernel(torch.float32, d) == ("flash_sdpa" if d == 256 else "flash_sdpa_h_fp32")
+    assert fa.sdpa_kernel(torch.float32, d) == "flash_sdpa_h_fp32"
     before = fa.flash_sdpa.launches
     got, lse = fa.flash_sdpa(q, k, v, bias, return_lse=True)
     torch.cuda.synchronize()
@@ -1130,18 +1130,24 @@ def test_flash_sdpa_d80_reads_every_slab(cuda, lq, lk):
                                       ("flash_sdpa_bwd_dq_wide_h", 256),
                                       ("flash_sdpa_bwd_dkv_wide_h", 256),
                                       ("flash_sdpa_bwd_dq_wide_f32", 256),
-                                      ("flash_sdpa_bwd_dkv_wide_f32", 256)])
+                                      ("flash_sdpa_bwd_dkv_wide_f32", 256),
+                                      ("flash_sdpa_h_fp32", 256), ("flash_memattn_h", 256),
+                                      ("flash_memattn_h_fp32", 256)])
 def test_wgmma_kernels_fit_without_spills(cuda, kernel, d):
     """The wgmma kernels as built: no registers spilled to local memory, at
     least one block of them resident an SM at the main path's 5184 keys
     (the bf16 forward at d=32 and 64: 2, its design; at d=80 1, whose O
     accumulator would spill at 2; the d=256 forward and dq kernels also at
-    the clip's 36352; the d=64 / d=80 dq kernels and the fp32 forward at
-    vit_h's 4900 as well)."""
+    the clip's 36352, the bank kernels at the padded bank's 36864; the
+    d=64 / d=80 dq kernels and the fp32 forward at vit_h's 4900 as
+    well)."""
     if kernel in ("flash_sdpa_bwd_dq_h", "flash_sdpa_bwd_dq_h_fp32", "flash_sdpa_h_fp32"):
         assert fa.kernel_resources(kernel, d, 4900)["spill_bytes"] == 0
     if kernel in ("flash_sdpa_bwd_dq_wide_h", "flash_sdpa_bwd_dq_wide_f32") or d == 256:
         assert fa.kernel_resources(kernel, d, 36352)["blocks_per_sm"] >= 1
+    if kernel.startswith("flash_memattn_h"):
+        res = fa.kernel_resources(kernel, d, 36864)
+        assert res["spill_bytes"] == 0 and res["blocks_per_sm"] >= 1, res
     res = fa.kernel_resources(kernel, d, 5184)
     assert res["spill_bytes"] == 0, res
     assert res["blocks_per_sm"] >= (2 if (kernel, d) in (("flash_sdpa_h", 32),
@@ -1375,22 +1381,13 @@ def test_mma_sync_backward_fits_without_spills(cuda, kernel, d):
 def test_mma_sync_entries_refuse_replaced_instantiations(cuda):
     """The mma.sync entry points refuse the instantiations whose wgmma
     kernels replaced them (cudaErrorInvalidValue, 1: nothing launched):
-    the forward of csrc/flash_sdpa.cu in both dtypes at d=32, 64 and 80
-    and in bf16 at d=256, the dkv kernel of csrc/flash_sdpa_bwd.cu in both
-    dtypes at d=32, 64 and 80, its bf16 dq kernel at d=64 and 80 and its
-    fp32 dq kernel at d=32, 64 and 80, and their attribute queries; the
-    fp32 forward at d=256 and the bf16 dq at d=32 are still served."""
+    the dkv kernel of csrc/flash_sdpa_bwd.cu in both dtypes at d=32, 64
+    and 80, its bf16 dq kernel at d=64 and 80 and its fp32 dq kernel at
+    d=32, 64 and 80, and their attribute queries; the bf16 dq at d=32 is
+    still served. (Every forward is a wgmma kernel: the mma.sync forward
+    sources are gone.)"""
     out = (ctypes.c_int * 4)()
     stream = torch.cuda.current_stream().cuda_stream
-    for d in (256, 32, 64, 80):
-        for fp32 in (0, 1) if d != 256 else (0,):
-            dt = torch.float32 if fp32 else torch.bfloat16
-            q = _randn(cuda, 1, 2, 64, d, dtype=dt)
-            bias = torch.zeros((1, 64), device=cuda)
-            o = torch.empty_like(q)
-            assert fa._lib_sdpa()(q.data_ptr(), q.data_ptr(), q.data_ptr(), bias.data_ptr(),
-                                  o.data_ptr(), None, 1, 2, 64, 64, d, fp32, 0.125, *([0] * 12),
-                                  stream) == 1
     for d in (32, 64, 80):
         assert fa._lib_bwd_attrs()(1, d, 0, 5184, out) == 1
         assert fa._lib_bwd_attrs()(1, d, 1, 5184, out) == 1
@@ -1805,3 +1802,125 @@ def test_large_attention_the_kernels_do_not_take_runs_on_the_card(cuda, dtype, d
     assert fa.flash_sdpa.launches == before and got.dtype == dtype
     want = common.sdpa(*(t.float().cpu() for t in (q, k, v)), mask=mask.cpu())
     assert _rel_err(got.cpu(), want) < (1e-4 if dtype == torch.float32 else 2e-2)
+
+
+# -------------------------------------------------------------------------
+# the tracker's bank attention (flash_memattn_h.cu, bf16 and fp32) and the
+# fp32 forward at d=256 (flash_sdpa_h_fp32.cu's d=256 kernel): the wgmma
+# kernels that replaced the mma.sync kernel of flash_qsmem.cuh
+
+_S_E, _N_MEM, _BANK = 5184, 7, 36864  # an entry's keys, entries, the padded bank
+
+
+def _bank_bias(dev, live_slots, entries, slots=8):
+    """The cached tracker's key bias over the padded bank: the first
+    ``live_slots`` of ``slots`` hold ``entries`` valid entries of 5184 keys
+    each, the rest of each row (invalid entries, the 576-key pad tail) and
+    every other slot masked."""
+    bias = torch.full((slots, _BANK), NEG_INF, device=dev)
+    bias[:live_slots, :entries * _S_E] = 0.0
+    return bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("case", ["slots1", "slots3", "slots8", "entry", "ragged", "strided",
+                                  "one_row"])
+def test_flash_memattn_h_cases_match_plain(cuda, dtype, case):
+    """The bank kernel of flash_memattn_h.cu (dk 256, raw dv 64 values; bf16,
+    and fp32 on split parts read from two split passes that skip dead
+    32-key tiles) against the plain version. slotsN: the tracker's shape, q
+    (8, 1, 5184, 256) over the padded 36864-key bank with N of 8 slots
+    live, every entry valid (the 576-key pad tail masked), the other slots
+    empty (zeros, lse -1e9, no loads); entry: 3 live slots with one valid
+    entry and one masked in the middle (its tiles skipped); ragged: Lq 333
+    and Lk 517, a masked entry and a ragged pad tail in row 0, an empty
+    slot; strided: the per-layer bank views, keys a layer of a (L, B, S,
+    256) bank and values a column slice of a wider tensor (batch and row
+    strides not those of a contiguous tensor); one_row: Lq 1, Lk 64. The
+    output within 2e-2 (bf16) or 1e-4 (fp32) of its largest magnitude, the
+    LSE within 1e-2 / 1e-4, the same bits with and without the LSE, one
+    launch of the kernel (and two of the split pass in fp32)."""
+    tol = 2e-2 if dtype == torch.bfloat16 else FP32_TOL
+    b, lq, lk = {"ragged": (3, 333, 517), "strided": (3, 700, 1100),
+                 "one_row": (2, 1, 64)}.get(case, (8, 5184, _BANK))
+    q = _randn(cuda, b, 1, lq, 256, dtype=dtype)
+    if case == "strided":
+        k = _randn(cuda, 2, b, lk + 64, 256, dtype=dtype)[1, :, :lk][:, None]
+        v = _randn(cuda, b, lk, 128, dtype=dtype)[..., 32:96][:, None]
+        assert not k.is_contiguous() and not v.is_contiguous()
+    else:
+        k = _randn(cuda, b, 1, lk, 256, dtype=dtype)
+        v = _randn(cuda, b, lk, 64, dtype=dtype)[:, None]
+    if case.startswith("slots"):
+        bias = _bank_bias(cuda, int(case[5:]), _N_MEM)
+    elif case == "entry":
+        bias = _bank_bias(cuda, 3, 3)
+        bias[:, _S_E:2 * _S_E] = NEG_INF
+    else:
+        bias = torch.zeros((b, lk), device=cuda)
+        bias[0, lk // 4: lk // 2] = NEG_INF
+        bias[0, lk - lk // 8:] = NEG_INF
+        bias[-1] = NEG_INF
+    assert fa.memattn_kernel(dtype) == ("flash_memattn_h" if dtype == torch.bfloat16
+                                        else "flash_memattn_h_fp32")
+    before = (fa.flash_memattn.launches, fa.split_parts.launches)
+    got, lse = fa.flash_memattn(q, k, v, bias, return_lse=True)
+    torch.cuda.synchronize()
+    assert (fa.flash_memattn.launches, fa.split_parts.launches) == (
+        before[0] + 1, before[1] + (2 if dtype == torch.float32 else 0))
+    assert got.dtype == dtype and got.shape == (b, 1, lq, 64)
+    want, want_lse = fa.flash_memattn_plain(q, k, v, bias, return_lse=True)
+    assert _rel_err(got, want) < tol
+    lse_tol = 1e-2 if dtype == torch.bfloat16 else FP32_TOL
+    torch.testing.assert_close(lse, want_lse, atol=lse_tol, rtol=lse_tol)
+    dead = (bias <= NEG_INF / 2).all(-1)
+    assert dead.any() == (case != "slots8")  # every slot live at 8
+    assert (got[dead] == 0).all() and (lse[dead] == NEG_INF).all()
+    assert torch.equal(fa.flash_memattn(q, k, v, bias), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["self", "cross", "ragged", "strided", "one_row"])
+def test_flash_sdpa_h_fp32_d256_cases_match_plain(cuda, case):
+    """fp32 at d=256 (flash_sdpa_h_fp32.cu's d=256 kernel: 64-query blocks,
+    two consumer warpgroups each computing S and half of the output
+    columns, 32-key tiles from split copies that skip dead tiles) against
+    the plain version. self: the tracked frame's self-attention, (8, 1,
+    5184, 256) with 3 of 8 slots live; cross: the training clip's plain
+    cross-attention, 5184 queries over 36352 keys, 3 of 8 slots live, each
+    live slot's last 37 keys masked (a ragged tile; O sums over ~36300
+    keys, where the tensor cores' truncating adds would show); ragged: Lq
+    333 and Lk 517, a masked tile, a ragged masked tail, a fully masked
+    row; strided: q, k and v views over 2 heads, each 64-column slab at its
+    own scale; one_row: Lq 1, Lk 64. The output within 1e-4, each slab on
+    its own and against its own largest magnitude, the LSE within 1e-4,
+    the same bits when run again; two split passes and one launch."""
+    b, h, lq, lk = {"self": (8, 1, 5184, 5184), "cross": (8, 1, 5184, 36352),
+                    "ragged": (3, 1, 333, 517), "strided": (2, 2, 700, 900),
+                    "one_row": (2, 1, 1, 64)}[case]
+    scale = None
+    if case == "strided":
+        scale = torch.tensor([1.0, 0.25, 3.0, 0.5], device=cuda).repeat_interleave(64)
+    q, k, v = _strided_qkv(cuda, b, h, lq, lk, 256, torch.float32, scale)
+    if case in ("self", "cross"):
+        bias = torch.full((b, lk), NEG_INF, device=cuda)
+        bias[:3] = 0.0
+        if case == "cross":
+            bias[:3, lk - 37:] = NEG_INF
+    else:
+        bias = _mask_rows(cuda, b, lk)
+    assert fa.sdpa_kernel(torch.float32, 256) == "flash_sdpa_h_fp32"
+    n_split, n_fwd = fa.split_parts.launches, fa.flash_sdpa.launches
+    got, lse = fa.flash_sdpa(q, k, v, bias, return_lse=True)
+    torch.cuda.synchronize()
+    assert (fa.split_parts.launches, fa.flash_sdpa.launches) == (n_split + 2, n_fwd + 1)
+    assert got.dtype == torch.float32 and got.transpose(1, 2).is_contiguous()
+    want, want_lse = fa.flash_sdpa_plain(q, k, v, bias, return_lse=True)
+    for j in range(4):
+        assert _rel_err(got[..., 64 * j:64 * j + 64], want[..., 64 * j:64 * j + 64]) < FP32_TOL, j
+    torch.testing.assert_close(lse, want_lse, atol=FP32_TOL, rtol=FP32_TOL)
+    dead = (bias <= NEG_INF / 2).all(-1)
+    assert dead.any() and (got[dead] == 0).all() and (lse[dead] == NEG_INF).all()
+    del want, want_lse
+    assert torch.equal(fa.flash_sdpa(q, k, v, bias), got)

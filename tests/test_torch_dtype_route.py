@@ -45,8 +45,9 @@ def _dkv(dtype, d):
 
 
 def _memattn(dtype, dk, dv=64, v_dtype=None):
-    fa.check_bank_call("flash_memattn", _t(dk, dtype), _t(dv, v_dtype or dtype), _t(dk, dtype))
-    return "flash_memattn"
+    dt = fa.check_bank_call("flash_memattn", _t(dk, dtype), _t(dv, v_dtype or dtype),
+                            _t(dk, dtype))
+    return fa.memattn_kernel(dt)
 
 
 def _q8(dtype, dk, dv=64):
@@ -69,12 +70,12 @@ def _depthwise(dtype, ks=7):
 CASES = [
     # flash_sdpa forward: the bf16 wgmma kernel at d=32, d=64 (the ViTDet
     # global blocks), d=80 (the vit_h student's) and d=256 (the tracker's
-    # memory attention); the fp32 wgmma kernel (split bf16 parts) at d=32,
-    # 64 and 80; mma.sync only for fp32 at d=256
+    # memory attention); the fp32 wgmma kernel (split bf16 parts) at the
+    # same four
     (_sdpa, (BF16, 32), "flash_sdpa_h"),
     (_sdpa, (F32, 32), "flash_sdpa_h_fp32"),
     (_sdpa, (BF16, 256), "flash_sdpa_h"),
-    (_sdpa, (F32, 256), "flash_sdpa"),
+    (_sdpa, (F32, 256), "flash_sdpa_h_fp32"),
     (_sdpa, (F16, 32), TypeError),
     (_sdpa, (F64, 256), TypeError),
     (_sdpa, (BF16, 32, F32), TypeError),
@@ -121,9 +122,10 @@ CASES = [
     (_dq, (F32, 80), "flash_sdpa_bwd_dq_h_fp32"),
     (_dq, (F32, 48), ValueError),
     (_dq, (BF16, 48), ValueError),
-    # the cached bank, exact and int8 keys
-    (_memattn, (BF16, 256), "flash_memattn"),
-    (_memattn, (F32, 256), "flash_memattn"),
+    # the cached bank, exact (the wgmma kernel of flash_memattn_h.cu, fp32
+    # on split bf16 parts) and int8 keys
+    (_memattn, (BF16, 256), "flash_memattn_h"),
+    (_memattn, (F32, 256), "flash_memattn_h_fp32"),
     (_memattn, (F16, 256), TypeError),
     (_memattn, (F32, 256, 64, BF16), TypeError),
     (_memattn, (F32, 128), ValueError),
@@ -158,7 +160,8 @@ def test_kernel_dtype_and_width_rule(check, args, expect):
 
 # The instantiations of the mma.sync kernels that the wgmma kernels
 # replaced (the forward's register kernel in both dtypes at d=32, 64 and
-# 80 and its bf16 d=256 route, the bf16 dkv kernel at d=64 and d=80, the
+# 80, its d=256 kernel in both dtypes and the bank kernel's mma.sync
+# instantiations, the bf16 dkv kernel at d=64 and d=80, the
 # bf16 dq kernel at d=64 and d=80, the fp32 dkv kernel at d=32, 64 and 80,
 # the fp32 dq kernel at d=32, 64 and 80) are not built: their resources
 # cannot be asked for, and neither can a head dim a kernel lacks. Refused
@@ -167,7 +170,7 @@ def test_kernel_dtype_and_width_rule(check, args, expect):
 # (tests/test_torch_cuda.py::test_mma_sync_entries_refuse_replaced_instantiations).
 @pytest.mark.parametrize("kernel,d", [("flash_sdpa", 80), ("flash_sdpa_fp32", 32),
                                       ("flash_sdpa_fp32", 64), ("flash_sdpa_fp32", 80),
-                                      ("flash_sdpa", 256), ("flash_sdpa_h_fp32", 256),
+                                      ("flash_sdpa", 256), ("flash_sdpa_h_fp32", 128),
                                       ("flash_sdpa_h", 128), ("flash_sdpa_bwd_dkv", 64),
                                       ("flash_sdpa_bwd_dkv", 80), ("flash_sdpa_h", 48),
                                       ("flash_sdpa_bwd_h", 256), ("flash_sdpa_fp32", 256),
@@ -181,7 +184,9 @@ def test_kernel_dtype_and_width_rule(check, args, expect):
                                       ("flash_sdpa_bwd_dq_h", 32), ("flash_sdpa_bwd_dq_h", 256),
                                       ("flash_sdpa_bwd_h_fp32", 256),
                                       ("flash_sdpa_bwd_dq_h_fp32", 48),
-                                      ("flash_sdpa_bwd_dq_h_fp32", 256)])
+                                      ("flash_sdpa_bwd_dq_h_fp32", 256),
+                                      ("flash_memattn", 256), ("flash_memattn_h", 64),
+                                      ("flash_memattn_h_fp32", 128)])
 def test_replaced_instantiations_are_refused(kernel, d):
     with pytest.raises(ValueError, match=f"{kernel} kernel supports|no resource query"):
         fa.kernel_resources(kernel, d)

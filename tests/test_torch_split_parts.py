@@ -94,14 +94,15 @@ def test_split_parts_takes_the_plain_version_on_the_cpu():
 
 @pytest.mark.parametrize("d,tile,ok", [(32, 0, True), (256, 0, True), (256, 32, True),
                                        (32, 32, False), (64, 0, True), (80, 0, True),
-                                       (128, 0, False), (64, 32, False), (80, 32, False),
-                                       (48, 0, False), (96, 0, False)])
+                                       (128, 0, False), (64, 32, True), (80, 32, False),
+                                       (48, 0, False), (96, 0, False), (128, 32, False)])
 def test_split_parts_takes_d32_and_d256_only(d, tile, ok):
     """What the CUDA split pass is handed (``check_split_parts``, the
     wrapper's check before a launch): float32 (B, H, N, d) at d=32, 64 and
     80 (the fp32 dkv kernel's Q and dO and the fp32 dq kernel's K and V,
-    every row) and d=256; skipping dead key tiles only at d=256; every other
-    width, or another dtype, refused."""
+    every row) and d=256; skipping dead key tiles at d=256 and d=64 (the
+    fp32 forwards' K and V at d=256 and the bank kernel's values); every
+    other width, or another dtype, refused."""
     x = torch.zeros((2, 3, 5, d))
     bias = torch.zeros((2, 5))
     if ok:

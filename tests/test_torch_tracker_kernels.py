@@ -89,6 +89,68 @@ def test_flash_memattn_plain_matches_pallas():
     _assert_close(fa.flash_memattn(*_t(q, k, v, bias)), want_o)
 
 
+def _split_matmul(a, b):
+    """a @ b as the fp32 kernels form it on the tensor cores: both operands
+    as split bf16 parts (``split_parts_plain``), hi hi + hi lo + lo hi (the
+    lo lo term dropped), summed in float64 and returned in fp32."""
+    ah, al = (x.double() for x in fa.split_parts_plain(a))
+    bh, bl = (x.double() for x in fa.split_parts_plain(b))
+    return (ah @ bh + ah @ bl + al @ bh).float()
+
+
+def _split_attention(q, k, v, bias, scale):
+    """The arithmetic of the fp32 forward kernels (flash_sdpa_h_fp32.cu at
+    d=256, flash_memattn_h.cu in fp32): S and P V on split parts, P kept
+    fp32 (split again for its product), the denominator from the unsplit
+    P, a fully masked batch row 0 with lse -1e9."""
+    logits = _split_matmul(q, k.transpose(-1, -2)) * scale + bias[:, None, None, :]
+    m = logits.amax(-1, keepdim=True)
+    p = torch.exp(logits - m)
+    l = p.sum(-1, keepdim=True)
+    out = _split_matmul(p, v) / l
+    lse = (m + torch.log(l))[..., 0]
+    live = (bias > fa.NEG_INF / 2).any(-1)[:, None, None]
+    return (torch.where(live[..., None], out, torch.zeros_like(out)),
+            torch.where(live, lse, torch.full_like(lse, fa.NEG_INF)))
+
+
+def test_flash_sdpa_d256_split_parts_match_pallas():
+    """fp32 at d=256: the split-part arithmetic of the fp32 wgmma forward
+    (three bf16 products a product, P split) on the d=256 parity test's
+    inputs (ragged Lq/Lk, a masked 64-key block, an empty object slot, the
+    LSE) against the Pallas kernel in interpret mode, within the 1e-4 the
+    card holds the kernel to against its plain version."""
+    b, lq, lk, d = 3, 100, 200, 256
+    r = np.random.default_rng(22)
+    q, k = ((0.2 * r.standard_normal((b, 1, n, d))).astype(np.float32) for n in (lq, lk))
+    v = r.standard_normal((b, 1, lk, d)).astype(np.float32)
+    bias = np.zeros((b, lk), np.float32)
+    bias[0, 64:128] = jfa.NEG_INF
+    bias[0, 190:] = jfa.NEG_INF
+    bias[1] = jfa.NEG_INF
+    want_o, want_lse = jfa._flash_fwd(*(jnp.asarray(a) for a in (q, k, v, bias)),
+                                      1.0 / 16.0, 32, 64, True, return_lse=True)
+    got_o, got_lse = _split_attention(*_t(q, k, v, bias), 1.0 / 16.0)
+    _assert_close(got_o, want_o, 1e-4)
+    _assert_close(got_lse, want_lse, 1e-4)
+    assert np.all(got_o[1].numpy() == 0.0) and np.all(got_lse[1].numpy() == jfa.NEG_INF)
+
+
+def test_flash_memattn_split_parts_match_pallas():
+    """fp32 bank attention: the split-part arithmetic of flash_memattn_h.cu's
+    fp32 form (dk 256 against raw dv 64 values) on the bank parity test's
+    inputs (a masked entry, the pad tail, an empty slot, the LSE) against
+    the Pallas kernel in interpret mode, within 1e-4."""
+    q, k, v, bias = _memattn_inputs()
+    want_o, want_lse = jfa.flash_memattn(*(jnp.asarray(a) for a in (q, k, v, bias)),
+                                         block_q=128, block_k=128, interpret=True,
+                                         return_lse=True)
+    got_o, got_lse = _split_attention(*_t(q, k, v, bias), 1.0 / 16.0)
+    _assert_close(got_o, want_o, 1e-4)
+    _assert_close(got_lse, want_lse, 1e-4)
+    assert np.all(got_o[1].numpy() == 0.0) and np.all(got_lse[1].numpy() == jfa.NEG_INF)
+
+
 def test_memattn_segment_merge_matches_jax():
     """The cached tracker's two segments: the bank through flash_memattn
     (a fully masked row ends at lse -1e9) and the pointer tokens through
