@@ -13,8 +13,12 @@ raw values v (8, 1, 36864, 64) as the tracker hands them in (views of
 (B, S, C) banks), N of 8 slots live with E of 7 entries of 5184 keys
 valid: bf16 at 1, 3 and 8 slots with every entry (whether a slot's bank
 stays in the L2 as more slots stream theirs), fp32 at 3 slots with 1 and
-with 7 entries. The backward's dq and dkv
-kernels: in bf16 at d=64 (the SAM3 teacher's ViT-H Stage-1 step at batch
+with 7 entries. The same bank over int8 keys (flash_memattn_q8: the
+tracker's quantize_bank, k quantized per row by quantize_rows) at the same
+slots and entries, each line with the exact bank's time over the
+dequantized keys beside it. The backward's dq and dkv
+kernels: in bf16 at d=32 (the Stage-3 step: (4, 8, 5184, 32)), d=64 (the
+SAM3 teacher's ViT-H Stage-1 step at batch
 2: (2, 16, 5184, 64)) and d=80; in fp32 at d=32 (the Stage-3 step), d=64
 (an fp32 ViT-H Stage-1 step at batch 1: (1, 16, 5184, 64)) and d=80
 (vit_h's). q, k and v are strided views of one packed qkv tensor (at
@@ -33,14 +37,15 @@ the call's time from the host between CUDA events, its profiler device
 time (every kernel of the call: the fp32 wgmma forward's two split passes
 with it), the plain version's time and the bound (chip_smoke.bound).
 
-    python3 bench_vit_attn.py [--other DIR] [--dtype bf16|fp32] [--tracker]
+    python3 bench_vit_attn.py [--other DIR] [--dtype bf16|fp32] [--tracker | --q8]
 
 With --other, the same measurement of the checkout at DIR (another commit's
 kernels, or a variant copy, built there) is taken in the process order
 other, this, this, other, each in its own process, so that two versions
 compare on one card. --dtype keeps the shapes of one dtype, --tracker the
-tracker's (the d=256 forwards and the bank). Prints one line a kernel and
-run, with the card's name and power limit.
+tracker's (the d=256 forwards and the bank), --q8 the int8 bank's and the
+bf16 d=32 backward pair's. Prints one line a kernel and run, with the
+card's name and power limit.
 """
 
 import argparse
@@ -56,11 +61,11 @@ FWD = ((1, 16, 4900, 4900, 80, "bf16", None), (8, 1, 5184, 5184, 256, "bf16", 3)
 FWD += ((8, 1, 5184, 5184, 256, "fp32", 3), (8, 1, 5184, 36352, 256, "fp32", 3))
 # the bank: (live slots, valid entries, dtype)
 MEM = ((1, 7, "bf16"), (3, 7, "bf16"), (8, 7, "bf16"), (3, 1, "fp32"), (3, 7, "fp32"))
-BWD = ((2, 16, 5184, 64, "bf16"), (1, 16, 4900, 80, "bf16"), (4, 8, 5184, 32, "fp32"),
+BWD = ((4, 8, 5184, 32, "bf16"), (2, 16, 5184, 64, "bf16"), (1, 16, 4900, 80, "bf16"), (4, 8, 5184, 32, "fp32"),
        (1, 16, 5184, 64, "fp32"), (1, 16, 4900, 80, "fp32"))
 
 
-def measure(label, only=None, tracker=False):
+def measure(label, only=None, tracker=False, q8=False):
     import torch
     import torch.nn.functional as F
 
@@ -97,7 +102,7 @@ def measure(label, only=None, tracker=False):
         return qkv.permute(2, 0, 3, 1, 4)
 
     for b, h, lq, lk, d, dt, slots in FWD:
-        if only not in (None, dt) or (tracker and d != 256):
+        if only not in (None, dt) or (tracker and d != 256) or q8:
             continue
         dtype = bf16 if dt == "bf16" else torch.float32
         if d == 256:
@@ -142,7 +147,7 @@ def measure(label, only=None, tracker=False):
         del q, k, v, bias, mask
         torch.cuda.empty_cache()
     for slots, entries, dt in MEM:
-        if only not in (None, dt):
+        if only not in (None, dt) or q8:
             continue
         dtype = bf16 if dt == "bf16" else torch.float32
         q = torch.randn((8, 1, 5184, 256), generator=gen, device=dev).to(dtype)
@@ -184,8 +189,64 @@ def measure(label, only=None, tracker=False):
               f"{bms:.4f} ms ({by}) | max err {err:.3e} | {smi}", flush=True)
         del q, k, v, bias, bias4, lse
         torch.cuda.empty_cache()
+    for slots, entries, dt in MEM:  # the same bank over int8 keys
+        if only not in (None, dt):
+            continue
+        dtype = bf16 if dt == "bf16" else torch.float32
+        q = torch.randn((8, 1, 5184, 256), generator=gen, device=dev).to(dtype)
+        k_i8, ks = fa.quantize_rows(
+            torch.randn((8, 36864, 256), generator=gen, device=dev).to(dtype))
+        k_i8, ks = k_i8[:, None], ks[..., 0]
+        v = torch.randn((8, 36864, 64), generator=gen, device=dev).to(dtype)[:, None]
+        bias = torch.full((8, 36864), fa.NEG_INF, device=dev)
+        bias[:slots, :entries * 5184] = 0.0
+        live = int((bias > fa.NEG_INF / 2).sum().item())  # keys, over the slots
+        scale = 256 ** -0.5
+        what = f"{dt} memattn_q8 {slots} slots x {entries} entries"
+        got, lse = fa.flash_memattn_q8(q, k_i8, ks, v, bias, scale, return_lse=True)
+        want, want_lse = fa.flash_memattn_q8_plain(q, k_i8, ks, v, bias, scale, return_lse=True)
+        tol = 2e-2 if dt == "bf16" else 1e-4
+        err = held(what, got, want, lse, want_lse, tol, 1e-2 if dt == "bf16" else 1e-4)
+        if err is not None and not torch.equal(
+                fa.flash_memattn_q8(q, k_i8, ks, v, bias, scale), got):
+            print(f"[{label}] {what}: the output without the LSE differs | {smi}", flush=True)
+            failed.append(what)
+            err = None
+        del got, want, want_lse
+        torch.cuda.empty_cache()
+        if err is None:
+            continue
+        # q and the output, the live keys (int8 rows, their scales and
+        # biases) and values, the lse; the function's int8 and value
+        # products, exponentials, ~8 FMA-pipe operations a score
+        esz = q.element_size()
+        nb = (esz * (q.numel() + q.numel() // 4) + live * (256 + 8 + esz * 64)
+              + 4 * lse.numel())
+        pv = {("tf32_flops" if dt == "fp32" else "mma_flops"): 2.0 * 5184 * live * 64}
+        bms, by = cs.bound(nb, exps=1.0 * 5184 * live, fp32_ops=8.0 * 5184 * live,
+                           int8_ops=2.0 * 5184 * live * 256, **pv)
+        fn = lambda: fa.flash_memattn_q8(q, k_i8, ks, v, bias, scale, return_lse=True)  # noqa: E731
+        ms = cs.graph_time(fn, 5, 10)
+        call_ms = cs.cuda_time(fn, 10)
+        _, _, dev_us = cs.profile_kernels(fn)
+        plain_ms = cs.cuda_time(
+            lambda: fa.flash_memattn_q8_plain(q, k_i8, ks, v, bias, scale, True), 2, warmup=1)
+        k_deq = (k_i8.float() * ks[:, None, :, None]).to(dtype)
+        exact_ms = cs.graph_time(
+            lambda: fa.flash_memattn(q, k_deq, v, bias, scale, return_lse=True), 5, 10)
+        bias4 = bias[:, None, None, :].to(dtype)
+        lib = cs.graph_time(lambda: F.scaled_dot_product_attention(
+            q, (k_i8.float() * ks[:, None, :, None]).to(dtype), v, attn_mask=bias4, scale=scale),
+            3, 5)
+        kernel = getattr(fa, "memattn_q8_kernel", lambda _: "flash_memattn_q8")(dtype)
+        print(f"[{label}] {what} ({live} live keys) {kernel}: {ms:.4f} ms (CUDA graph) | call "
+              f"{call_ms:.4f} ms | device {dev_us / 1e3:.4f} ms | plain {plain_ms:.4f} ms | exact "
+              f"bank on the dequantized keys {exact_ms:.4f} ms | dequantize + SDPA {lib:.4f} ms | "
+              f"bound {bms:.4f} ms ({by}) | max err {err:.3e} | {smi}", flush=True)
+        del q, k_i8, ks, v, bias, bias4, lse, k_deq
+        torch.cuda.empty_cache()
     for b, h, n, d, dt in BWD:
-        if only not in (None, dt) or tracker:
+        if only not in (None, dt) or tracker or (q8 and (d, dt) != (32, "bf16")):
             continue
         dtype = bf16 if dt == "bf16" else torch.float32
         tol = 2e-2 if dt == "bf16" else 1e-4
@@ -235,12 +296,15 @@ def main():
     ap.add_argument("--other", help="another checkout, timed in turns with this one")
     ap.add_argument("--dtype", choices=("bf16", "fp32"), default=None,
                     help="time only the shapes of this dtype")
-    ap.add_argument("--tracker", action="store_true",
-                    help="time only the tracker's shapes: the d=256 forwards and the bank")
+    grp = ap.add_mutually_exclusive_group()
+    grp.add_argument("--tracker", action="store_true",
+                     help="time only the tracker's shapes: the d=256 forwards and the bank")
+    grp.add_argument("--q8", action="store_true",
+                     help="time only the int8 bank and the bf16 d=32 backward pair")
     ap.add_argument("--label", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.other is None or args.label is not None:
-        measure(args.label or "this", args.dtype, args.tracker)
+        measure(args.label or "this", args.dtype, args.tracker, args.q8)
         return 0
     here = os.path.dirname(os.path.abspath(__file__))
     other = os.path.abspath(args.other)
@@ -250,7 +314,8 @@ def main():
         run = subprocess.run([sys.executable, os.path.join(here, "bench_vit_attn.py"),
                               "--label", f"{label} ({os.path.relpath(where, here)})",
                               *(("--dtype", args.dtype) if args.dtype else ()),
-                              *(("--tracker",) if args.tracker else ())], cwd=where)
+                              *(("--tracker",) if args.tracker else ()),
+                              *(("--q8",) if args.q8 else ())], cwd=where)
         if label == "this":
             rc = rc or run.returncode
     return rc

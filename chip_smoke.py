@@ -8,14 +8,14 @@ Phases, each printing its own lines:
      CUDA versions, TF32 settings, and the build of the CUDA kernels
      (csrc/*.cu, one nvcc per source, all started together); for each
      wgmma kernel (flash_sdpa_h and flash_sdpa_h_fp32 at d=32, 64, 80 and
-     256, the bank kernel flash_memattn_h in bf16 and fp32,
-     flash_sdpa_bwd_h at d=32, 64 and 80,
-     flash_sdpa_bwd_dq_h at d=64 and 80, flash_sdpa_bwd_h_fp32 and
+     256, the bank kernel flash_memattn_h and its int8-key instantiation
+     flash_memattn_q8_h, each in bf16 and fp32, flash_sdpa_bwd_h and
+     flash_sdpa_bwd_dq_h at d=32, 64 and 80, flash_sdpa_bwd_h_fp32 and
      flash_sdpa_bwd_dq_h_fp32 at d=32, 64 and 80, the bf16 d=256 pair
      flash_sdpa_bwd_dq_wide_h / flash_sdpa_bwd_dkv_wide_h and the fp32 one
-     flash_sdpa_bwd_dq_wide_f32 / flash_sdpa_bwd_dkv_wide_f32) and the
-     mma.sync bf16 dq at d=32 one line of registers, spilled bytes and
-     shared memory a block, and blocks an SM, as the runtime reports them;
+     flash_sdpa_bwd_dq_wide_f32 / flash_sdpa_bwd_dkv_wide_f32) one line of
+     registers, spilled bytes and shared memory a block, and blocks an SM,
+     as the runtime reports them;
   2. the main path at full width: EfficientViT-b1 ("EV-M") at 1008^2 with
      the MobileCLIP-S0 text tower at context 32, bf16, seeded random
      weights, through the port's Sam3Processor (set_image on a non-square
@@ -80,10 +80,12 @@ Phases, each printing its own lines:
      and bf16). The step (median of
      steps 3-6) and its forward / loss / backward / optimizer parts, the
      matcher's host solve and the peak memory are timed; torch.profiler
-     splits one step by kernel; the three backward kernels are held against
-     their plain versions on the inputs of their largest launch and timed as
-     in phase 3 (flash_sdpa_bwd_dkv in bf16 at d=32 is the wgmma kernel of
-     csrc/flash_sdpa_bwd_h.cu), the dq + dkv pair beside SDPA's backward.
+     splits one step by kernel (the wgmma d=32 dq kernel, 6 launches); the
+     three backward kernels are held against their plain versions on the
+     inputs of their largest launch and timed as in phase 3 (in bf16 at d=32
+     flash_sdpa_bwd_dq is the wgmma kernel of csrc/flash_sdpa_bwd_dq_h.cu and
+     flash_sdpa_bwd_dkv that of csrc/flash_sdpa_bwd_h.cu), the dq + dkv pair
+     beside SDPA's backward.
 
   7. [pcs] text-prompted video concept segmentation at full width:
      EfficientSam3System over build_efficientsam3_video_model (EV-M b1 at
@@ -111,7 +113,8 @@ Phases, each printing its own lines:
      floor, and its mean above 0.98. A frame's time is split into detector,
      tracker step, quantize_rows and host association + emission; a detector
      call that keeps 3 queries is timed beside (this random model keeps all
-     200); torch.profiler splits one q8 frame by kernel. flash_memattn_q8 is
+     200); torch.profiler splits one q8 frame by kernel (the int8 bank's
+     wgmma kernel of csrc/flash_memattn_h.cu, 4 launches). flash_memattn_q8 is
      held against its plain version on the inputs of its largest launch,
      with and without the log-sum-exp, and against flash_memattn over the
      dequantized keys, and timed as in phase 3 beside flash_memattn on the
@@ -614,15 +617,18 @@ def main():
                 log(f"[build] {name}: {line.strip()}")
     # the wgmma kernels as the runtime holds them, at the main path's 5184 keys
     # (the d=256 forward and dq kernels at the clip's 36352 keys: their tile
-    # lists grow with them; the bank kernels at the padded bank's 36864; the
-    # d=80 ones at vit_h's 4900), and the mma.sync bf16 dq at d=32
+    # lists grow with them; the bank kernels, exact and int8, at the padded
+    # bank's 36864; the d=80 ones at vit_h's 4900)
     for kernel, d, lk in (("flash_sdpa_h", 32, 5184), ("flash_sdpa_h", 64, 5184),
                           ("flash_sdpa_h", 80, 4900), ("flash_sdpa_h", 256, 36352),
                           ("flash_sdpa_h_fp32", 32, 5184), ("flash_sdpa_h_fp32", 64, 5184),
                           ("flash_sdpa_h_fp32", 80, 4900), ("flash_sdpa_h_fp32", 256, 36352),
                           ("flash_memattn_h", 256, 36864), ("flash_memattn_h_fp32", 256, 36864),
+                          ("flash_memattn_q8_h", 256, 36864),
+                          ("flash_memattn_q8_h_fp32", 256, 36864),
                           ("flash_sdpa_bwd_h", 32, 5184),
                           ("flash_sdpa_bwd_h", 64, 5184), ("flash_sdpa_bwd_h", 80, 4900),
+                          ("flash_sdpa_bwd_dq_h", 32, 5184),
                           ("flash_sdpa_bwd_dq_h", 64, 5184), ("flash_sdpa_bwd_dq_h", 80, 4900),
                           *((kernel, d, lk) for kernel in (
                               "flash_sdpa_bwd_h_fp32", "flash_sdpa_bwd_dq_h_fp32")
@@ -630,8 +636,7 @@ def main():
                           ("flash_sdpa_bwd_dq_wide_h", 256, 36352),
                           ("flash_sdpa_bwd_dkv_wide_h", 256, 36352),
                           ("flash_sdpa_bwd_dq_wide_f32", 256, 36352),
-                          ("flash_sdpa_bwd_dkv_wide_f32", 256, 36352),
-                          ("flash_sdpa_bwd_dq", 32, 5184)):
+                          ("flash_sdpa_bwd_dkv_wide_f32", 256, 36352)):
         r = fa.kernel_resources(kernel, d, lk)
         log(f"[build] {kernel} d={d}: {r['registers']} registers a thread, {r['spill_bytes']} "
             f"bytes of local memory (spills) a thread, {r['smem_bytes']} bytes of shared memory "
@@ -1424,8 +1429,12 @@ def train_phase(smi):
             f"time in a {parts['step']:.1f} ms step: device busy {busy:.1%}, idle {1 - busy:.1%}")
         for name, us, n in kernels[:12]:
             log(f"[profile] train step:   {us / 1e3:8.4f} ms  x{n:<4d} {name[:90]}")
+        n_dq = sum(n for name, _, n in kernels if "flash_bwd_dq_h_kernel<32>" in name)
+        if n_dq != TRAIN_COUNTS["flash_sdpa_bwd_dq"]:
+            raise AssertionError(f"[profile] train step: {n_dq} launches of the wgmma d=32 dq "
+                                 f"kernel, want {TRAIN_COUNTS['flash_sdpa_bwd_dq']}")
         for name, us, n in kernels:
-            for key, pattern in (("flash_sdpa_bwd_dq", "bwd_dq_kernel"),
+            for key, pattern in (("flash_sdpa_bwd_dq", "flash_bwd_dq_h_kernel<32>"),
                                  ("flash_sdpa_bwd_dkv", "flash_bwd_dkv_h_kernel"),
                                  ("layer_norm_bwd", "_ln_bwd"),
                                  ("flash_sdpa", "flash_sdpa_h_kernel<32>")):
@@ -1510,22 +1519,26 @@ def train_phase(smi):
     ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=key_bias[:, None, None, :].to(
         q.dtype), scale=scale)
     lib_ms = cuda_time(lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True), 20)
+    res_dq = fa.kernel_resources(fa.bwd_dq_kernel(q.dtype, d), d, lk)
     shape = f"q/k/v/o/dO {tuple(q.shape)} bf16 (dO strided), lse f32, {live} live keys a row"
-    for name, fn, plain, err, bms, by, src_line, src in (
+    shape_dq = (f"{shape}; the wgmma dq kernel: {res_dq['registers']} registers at launch, "
+                f"{res_dq['spill_bytes']} bytes spilled, {res_dq['smem_bytes']} B shared, "
+                f"{res_dq['blocks_per_sm']} blocks an SM")
+    for name, fn, plain, err, bms, by, src_line, src, shape_ in (
         ("flash_sdpa_bwd_dq", lambda: fa.flash_sdpa_bwd_dq(q, k, v, key_bias, o, lse, do, scale),
          lambda: fa.flash_sdpa_bwd_dq_plain(q, k, v, key_bias, o, lse, do, scale),
-         err_dq, bms_dq, by_dq, 1082, "flash_sdpa_bwd.cu"),
+         err_dq, bms_dq, by_dq, 1082, "flash_sdpa_bwd_dq_h.cu", shape_dq),
         ("flash_sdpa_bwd_dkv",
          lambda: fa.flash_sdpa_bwd_dkv(q, k, v, key_bias, do, lse, delta, scale),
          lambda: fa.flash_sdpa_bwd_dkv_plain(q, k, v, key_bias, do, lse, delta, scale),
-         err_dkv, bms_dkv, by_dkv, 1098, "flash_sdpa_bwd_h.cu")):
+         err_dkv, bms_dkv, by_dkv, 1098, "flash_sdpa_bwd_h.cu", shape)):
         rows.append(dict(
             name=name, route="cuda", source=f"efficientsam3_tpu_torch/csrc/{src}",
             replaces=f"efficientsam3_tpu/ops/pallas/flash_attention.py:{src_line}",
             launches=sum(r[name] for r in per_step[:TRAIN_STEPS]), max_abs_err=err,
             ms=graph_time(fn, 5, 10), call_ms=cuda_time(fn, 20),
             plain_ms=cuda_time(plain, 3, warmup=1), bound_ms=bms, bound_by=by,
-            library_ms=lib_ms, device_ms=device_ms.get(name), shape=shape, **{"pass": True}))
+            library_ms=lib_ms, device_ms=device_ms.get(name), shape=shape_, **{"pass": True}))
     log(f"[kernel] d=32 backward pair (dq + dkv) {rows[0]['ms'] + rows[1]['ms']:.4f} ms in CUDA "
         f"graphs against SDPA backward's {lib_ms:.4f} ms a call (all three gradients) | {smi}")
     del ql, kl, vl, ol, dq, dk, dv
@@ -1884,7 +1897,11 @@ def pcs_phase(smi):
             f"of device time in a {step_ms:.3f} ms step: device busy {busy:.1%}, idle {1 - busy:.1%}")
         for name, us, n in kernels[:12]:
             log(f"[profile] pcs frame:   {us / 1e3:8.4f} ms  x{n:<4d} {name[:90]}")
-        q8_us = sum(us for name, us, _ in kernels if "flash_memattn_q8_kernel" in name)
+        q8_us = sum(us for name, us, _ in kernels if "flash_memattn_q8_h_kernel<1>" in name)
+        n_q8 = sum(n for name, _, n in kernels if "flash_memattn_q8_h_kernel<1>" in name)
+        if n_q8 != 4:
+            raise AssertionError(f"[profile] pcs frame: {n_q8} launches of the int8 bank "
+                                 f"kernel, want 4")
         device_ms = q8_us / 1e3 / 4 if q8_us else None
         write_out("profile_pcs_frame_q8.txt",
                   "\n".join(f"{us:12.2f} us  x{n:<5d} {name}" for name, us, n in kernels))
@@ -1937,6 +1954,7 @@ def pcs_phase(smi):
     bias4 = key_bias[:, None, None, :].to(q.dtype)
     q8_ms = graph_time(lambda: fa.flash_memattn_q8(q, k_i8, ks, v, key_bias, scale,
                                                    return_lse=True), 5, 10)
+    res = fa.kernel_resources(fa.memattn_q8_kernel(q.dtype), dk, k_i8.shape[2])
     bf16_ms = graph_time(lambda: fa.flash_memattn(q, k_deq, v, key_bias, scale, return_lse=True),
                          5, 10)
     quant_ms = graph_time(lambda: fa.quantize_rows(k_deq[:, 0]), 5, 10)
@@ -1945,7 +1963,7 @@ def pcs_phase(smi):
         f"{quant_ms:.4f} ms (eager, in a CUDA graph) | {smi}")
     row = dict(
         name="flash_memattn_q8", route="cuda",
-        source="efficientsam3_tpu_torch/csrc/flash_memattn_q8.cu",
+        source="efficientsam3_tpu_torch/csrc/flash_memattn_h.cu",
         replaces="efficientsam3_tpu/ops/pallas/flash_attention.py:739",
         launches=total_q8["flash_memattn_q8"], max_abs_err=err, ms=q8_ms,
         call_ms=cuda_time(lambda: fa.flash_memattn_q8(q, k_i8, ks, v, key_bias, scale,
@@ -1958,8 +1976,11 @@ def pcs_phase(smi):
             scale=scale), 5, 10),
         device_ms=device_ms,
         shape=f"q {tuple(q.shape)} bf16, k {tuple(k_i8.shape)} int8 + f32 scales, v "
-              f"{tuple(v.shape)} bf16, {live} live keys over {b} slots; library = dequantize + "
-              f"SDPA; flash_memattn on the same keys {bf16_ms:.4f} ms", **{"pass": True})
+              f"{tuple(v.shape)} bf16, {live} live keys over {b} slots (the int8 wgmma kernel: "
+              f"{res['registers']} registers at launch, {res['spill_bytes']} bytes spilled, "
+              f"{res['smem_bytes']} B shared, {res['blocks_per_sm']} blocks an SM); library = "
+              f"dequantize + SDPA; flash_memattn on the same keys {bf16_ms:.4f} ms",
+        **{"pass": True})
     log_row(row, smi)
     # both bank kernels against the number of live slots (every entry valid),
     # in turns within this call: q8, bf16, bf16, q8
@@ -2845,7 +2866,8 @@ def fp32_phase(smi, main_ref):
                         "flash_memattn_fp32": ("flash_memattn_h_kernel<2>", 4),
                         "depthwise_conv2d_fp32": ("dw7_kernel<float>", 2)})
     dev_q = per_launch(lambda: run_frame(pred_q, st_q),
-                       {"flash_memattn_q8_fp32": ("flash_memattn_q8_kernel<float>", 4)})
+                       {"flash_memattn_q8_fp32": ("flash_memattn_q8_h_kernel<2>", 4)},
+                       exact=("flash_memattn_q8_fp32",))
     (q, k, v, key_bias, scale), _ = cap_e.args[("flash_sdpa", 256)]
     got, lse = fa.flash_sdpa(q, k, v, key_bias, scale, return_lse=True)
     want, want_lse = fa.flash_sdpa_plain(q, k, v, key_bias, scale, return_lse=True)
@@ -2904,7 +2926,8 @@ def fp32_phase(smi, main_ref):
     bms, by = bound(nb, tf32_flops=2.0 * hq * lqq * live * 64, exps=1.0 * hq * lqq * live,
                     fp32_ops=8.0 * hq * lqq * live, int8_ops=2.0 * hq * lqq * live * 256)
     bias4 = key_bias[:, None, None, :]
-    rows.append(row("flash_memattn_q8_fp32", "flash_memattn_q8.cu", "flash_attention.py:739",
+    res = fa.kernel_resources(fa.memattn_q8_kernel(torch.float32), 256, k_i8.shape[2])
+    rows.append(row("flash_memattn_q8_fp32", "flash_memattn_h.cu", "flash_attention.py:739",
                     4 * tracked, err,
                     lambda: fa.flash_memattn_q8(q, k_i8, ks, v, key_bias, scale, return_lse=True),
                     lambda: fa.flash_memattn_q8_plain(q, k_i8, ks, v, key_bias, scale, True),
@@ -2912,8 +2935,11 @@ def fp32_phase(smi, main_ref):
                         q, k_i8.float() * ks[:, None, :, None], v, attn_mask=bias4, scale=scale),
                         5, 10),
                     bms, by, f"q {tuple(q.shape)} fp32, k {tuple(k_i8.shape)} int8, v "
-                    f"{tuple(v.shape)} fp32 (P V on split bf16 parts), {live} live keys; library "
-                    f"= dequantize + fp32 SDPA",
+                    f"{tuple(v.shape)} fp32 (int8 wgmma for Q K^T, P V on split bf16 parts; graph "
+                    f"and call ms with v's split pass, dev the kernel alone; {res['registers']} "
+                    f"registers, {res['spill_bytes']} bytes spilled, {res['smem_bytes']} B shared, "
+                    f"{res['blocks_per_sm']} blocks an SM), {live} live keys; library = "
+                    f"dequantize + fp32 SDPA",
                     dev_q.get("flash_memattn_q8_fp32")))
     del q, k_i8, ks, v, got, lse, bias4
     (x, kernel, bias), _ = cap_e.args[("depthwise_conv2d", 256)]

@@ -1,6 +1,5 @@
-// Shared pieces of the mma.sync attention kernels (flash_xattn_rpb.cu,
-// flash_memattn_q8.cu, and through flash_qsmem.cuh the bf16 d = 32 dq
-// kernel of flash_sdpa_bwd.cu).
+// Shared pieces of the mma.sync attention kernel that remains
+// (flash_xattn_rpb.cu, the decoder's boxRPB cross-attention).
 //
 // One thread block of 4 warps owns BQ = 64 query rows of one (batch, head);
 // each warp owns 16 rows. K and V tiles of BK = 64 keys are staged in shared
@@ -20,9 +19,9 @@
 // product, is dropped), about 2^-16 relative error per product against
 // bf16's 2^-8. Staged tiles hold the parts as separate bf16 tiles ("parts"
 // below: 1 for bf16, 2 for fp32), so every fragment load and ldmatrix path
-// is the bf16 one, run once a part. P (and dS in the backward) stay fp32 as
-// in JAX, where p.astype(v.dtype) is a no-op at fp32, and are split in
-// registers the same way before their products.
+// is the bf16 one, run once a part. P stays fp32 as in JAX, where
+// p.astype(v.dtype) is a no-op at fp32, and is split in registers the same
+// way before its product.
 //
 // Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16x16, row): a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 2t+8..)  a3 (g+8, 2t+8..)
@@ -113,14 +112,6 @@ __device__ __forceinline__ void ld_parts(const T* p, uint32_t (&r)[Parts<T>::N])
   }
 }
 
-// Store the pair (x, y) in the output dtype.
-__device__ __forceinline__ void st_pair(bf16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
-}
-__device__ __forceinline__ void st_pair(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-
 // Eight consecutive elements at src (16-byte aligned) as packed bf16
 // parts, four pairs a part; zeros when !ok.
 template <typename T>
@@ -153,24 +144,6 @@ __device__ __forceinline__ void load8_parts(const T* src, bool ok,
     w[0][3] = r[0];
     w[1][3] = r[1];
   }
-}
-
-// Eight consecutive elements at src (16-byte aligned) as fp32.
-__device__ __forceinline__ void load8_f32(const bf16* src, float (&x)[8]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = unpack_bf16(w[i]);
-    x[2 * i] = f.x;
-    x[2 * i + 1] = f.y;
-  }
-}
-__device__ __forceinline__ void load8_f32(const float* src, float (&x)[8]) {
-  const float4 a = reinterpret_cast<const float4*>(src)[0];
-  const float4 b = reinterpret_cast<const float4*>(src)[1];
-  x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
-  x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
 }
 
 // Q fragments of this warp's 16 rows, read once from device memory, as

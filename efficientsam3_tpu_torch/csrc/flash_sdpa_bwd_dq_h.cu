@@ -1,16 +1,17 @@
-// Flash attention backward, dQ and Delta, at head dims 64 and 80, bf16, for
-// Hopper (sm_90a): wgmma, TMA and a warp-specialised pipeline.
+// Flash attention backward, dQ and Delta, at head dims 32, 64 and 80, bf16,
+// for Hopper (sm_90a): wgmma, TMA and a warp-specialised pipeline.
 //
 // Replaces efficientsam3_tpu/ops/pallas/flash_attention.py `_flash_bwd`'s
-// dQ half (`_bwd_dq_kernel` :930, its pallas_call at :1082) where Stage-1
-// training of a ViTDet trunk runs it through the global blocks:
-//  - d = 64: the SAM3 teacher's ViT-H at 1008^2, (2, 16, 5184, 64), 4
-//    launches a step;
-//  - d = 80: the vit_h SAM1 student at 1120^2, (1, 16, 4900, 80), 4
-//    launches a step.
+// dQ half (`_bwd_dq_kernel` :930, its pallas_call at :1082) where bf16
+// training runs it:
+//  - d = 32: Stage-3 training through the fusion encoder's self-attention,
+//    (4, 8, 5184, 32), 6 launches a step;
+//  - d = 64: Stage 1 of the SAM3 teacher's ViT-H at 1008^2 through its
+//    global blocks, (2, 16, 5184, 64), 4 launches a step;
+//  - d = 80: Stage 1 of the vit_h SAM1 student at 1120^2, (1, 16, 4900,
+//    80), 4 launches a step.
 // dK and dV are flash_sdpa_bwd_h.cu's (which reads the Delta written
-// here); bf16 at d = 32 and fp32 at every head dim below 256 stay on the
-// mma.sync dq kernel of flash_sdpa_bwd.cu; d = 256 is
+// here); fp32 is flash_sdpa_bwd_dq_h_fp32.cu's; d = 256 is
 // flash_sdpa_bwd_wide_h.cu's (bf16) and flash_sdpa_bwd_wide_h_fp32.cu's.
 //
 // What it computes is the Pallas kernel's: P rebuilt from the forward's
@@ -29,12 +30,14 @@
 // Bound on the H100: 3 products a score (S, dP, dQ), at the teacher's
 // shape 2 x 16 x 5184^2 x 64 x 6 = 330 GFLOP (0.334 ms at the bf16 peak)
 // beside 860 M exponentials (~0.21 ms on the special-function units): the
-// products bound it; at vit_h's 184 GFLOP (0.186 ms). What held the
-// mma.sync kernel of flash_sdpa_bwd.cu back (2.1374 ms at d = 64, 1.1381 at
-// d = 80, 6.4x and 6.1x): products from shared memory by mma.sync (a third
-// of the peak), K / V staged by cp.async with no pipelining, dK's B
-// fragments by ldmatrix.trans, products and exponentials in turn on four
-// warps.
+// products bound it; at vit_h's 184 GFLOP (0.186 ms). At d = 32 the
+// products are short (4 x 8 x 5184^2 x 32 x 6 = 165 GFLOP, 0.167 ms) and
+// the same 860 M exponentials bound it (0.2056 ms). What held the mma.sync
+// dq kernel of the former flash_sdpa_bwd.cu back (2.1374 ms at d = 64,
+// 1.1381 at d = 80, 6.4x and 6.1x; 1.0595 ms at d = 32, 5.2x): products
+// from shared memory by mma.sync (a third of the peak), K / V staged by
+// cp.async with no pipelining, dQ's B fragments by ldmatrix.trans, products
+// and exponentials in turn on four warps.
 //
 // This kernel (one template over D, the mirror of flash_sdpa_bwd_h.cu with
 // queries and keys swapped):
@@ -44,15 +47,19 @@
 //    rise to 240: a consumer thread holds Q and dO (D / 4 registers each),
 //    dQ (D / 2), S and dP (64) and the dS fragments (16), ~150-170 before
 //    addressing, past the 168 that ptxas gives 288 threads at one block an
-//    SM;
+//    SM. At d = 32 a consumer thread needs ~100 (Q and dO 8 each, dQ 16), and
+//    the exponentials, not the products, bind: there the block is 192
+//    queries, three consumer warpgroups at 160 registers, so that
+//    two groups' exponentials run while the third issues its products (as
+//    the fp32 d = 32 forward, flash_sdpa_h_fp32.cu);
 //  - Delta in the prologue from O and dO in device memory (two threads a
 //    row), into shared memory and out; each consumer thread then loads its
 //    two rows of Q and dO as A fragments once and keeps them;
 //  - loads: the producer walks the block's live 64-key tiles (a byte a
 //    tile from the key-bias row, compacted into a list) through a ring of
 //    NSTAGE stages, each a K tile, a V tile (Tile of wgmma_common.cuh: one
-//    swizzled slab at d = 64, five 16-column slabs at the 32-byte swizzle
-//    at d = 80) and the tile's 64 key-bias values, by cp.async.bulk.tensor
+//    swizzled slab at d = 32 (64-byte swizzle) and 64 (128-byte), five
+//    16-column slabs at the 32-byte swizzle at d = 80) and the tile's 64 key-bias values, by cp.async.bulk.tensor
 //    against full / empty mbarriers;
 //  - products (a warpgroup, per key tile; wgmma_common.cuh layouts):
 //      S  = Q K^T   m64n64k16 x D / 16, Q from registers, K K-major;
@@ -66,12 +73,13 @@
 //    walk), the key bias per column (read from the stage), one FMA, one add
 //    and one ex2 an element; a masked or padded row's -lse * log2(e) is
 //    taken as -1e30, so its P is 0;
-//  - scheduling: the two warpgroups take turns to issue their S / dP
-//    products (named barriers, as the forward's ping-pong), so one group's
-//    exponentials overlap the other's products.
+//  - scheduling: the warpgroups take turns, in a ring, to issue their S /
+//    dP products (named barriers, as the forward's ping-pong), so one
+//    group's exponentials overlap the others' products.
 // A block whose key row has no live key writes Delta and zeros and exits
 // before any load. The grids are 41 x 32 = 1312 blocks (9.9 waves of 132)
-// at the teacher's shape and 39 x 16 = 624 (4.7) at vit_h's.
+// at the teacher's shape, 39 x 16 = 624 (4.7) at vit_h's and 27 x 32 = 864
+// (6.5) at the Stage-3 shape.
 //
 // As built (ptxas): 168 registers a thread at launch, 240 a consumer
 // thread, no spills, one block an SM. Measured on the H100 (80GB HBM3,
@@ -81,6 +89,21 @@
 // Tried and not kept: leaving each tile's dQ product running while the
 // next tile's S and dP are issued (the stage freed a tile later), as the
 // d = 256 dq kernel does: 0.8200 / 0.8322 and 0.4528 / 0.4545 ms.
+// At d = 32 (bench_vit_attn.py --q8, the same card, in turns with the
+// variant or the mma.sync kernel it replaced, ms in a CUDA graph): 128
+// registers a thread at launch, 160 a consumer, no spills; three groups
+// 0.6136 / 0.6180 against the mma.sync kernel's 1.0560 / 1.0558 (bound
+// 0.2056); that overlap kept at d = 32 (0.6005 / 0.6016 against 0.6170 /
+// 0.6149). Tried and not kept: two groups (0.6632 / 0.6629 against 0.6132
+// / 0.6134), the groups issuing in any order (0.6253 / 0.6141 against
+// 0.6166 / 0.6170), eight stages (0.6231 / 0.6186 against 0.6169 /
+// 0.6165), each block starting its walk at its own share of the tile list
+// (0.6240 / 0.6269 against 0.6002 / 0.5993: the blocks of a (batch, head)
+// reading the same tile at a time share it in the L2), and four groups,
+// which cannot run: 640 threads get 96
+// registers each at launch, and setmaxnreg cannot raise 512 of them to 120
+// past the block's pool. What holds it at ~2.9x the exponentials' bound is
+// not measured (no per-pipe counters on this card's machine).
 
 #include "wgmma_common.cuh"
 
@@ -88,18 +111,21 @@ using namespace wgmma;
 
 namespace {
 
-constexpr int NWG = 2;            // consumer warpgroups, 64 queries each
-constexpr int BM = 64 * NWG;      // queries a block
 constexpr int BN = 64;            // keys a tile
 constexpr int NSTAGE = 4;         // K / V ring
-constexpr int NCONS = 128 * NWG;
-constexpr int NTH = NCONS + 128;  // and the producer warpgroup
-constexpr int PROD_REGS = 24, CONS_REGS = 240;
-static_assert(NCONS * CONS_REGS + 128 * PROD_REGS <= 65536, "register pool");
+constexpr int PROD_REGS = 24;
 
-// shared memory at head dim D, from a 1024-aligned base
+// The block and shared memory at head dim D: NWG consumer warpgroups of 64
+// queries each and a producer warpgroup; shared memory from a 1024-aligned
+// base.
 template <int D>
 struct Cfg {
+  static constexpr int NWG = D == 32 ? 3 : 2;
+  static constexpr int BM = 64 * NWG;      // queries a block
+  static constexpr int NCONS = 128 * NWG;
+  static constexpr int NTH = NCONS + 128;  // and the producer warpgroup
+  static constexpr int CONS_REGS = NWG == 2 ? 240 : 160;
+  static_assert(NCONS * CONS_REGS + 128 * PROD_REGS <= 65536, "register pool");
   using TK = Tile<D, BN>;  // a K or V tile
   static constexpr int TILE = TK::BYTES;
   static constexpr int OFF_K = 0;                               // [NSTAGE] tiles
@@ -116,7 +142,7 @@ struct Cfg {
 };
 
 template <int D>
-__global__ void __launch_bounds__(NTH, 1)
+__global__ void __launch_bounds__(Cfg<D>::NTH, 1)
 flash_bwd_dq_h_kernel(const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
                       const __grid_constant__ CUtensorMap tm_bias,
@@ -129,6 +155,7 @@ flash_bwd_dq_h_kernel(const __grid_constant__ CUtensorMap tm_k,
                       long long sgh, long long sgn) {
   using C = Cfg<D>;
   using TK = typename C::TK;
+  constexpr int NWG = C::NWG, BM = C::BM, NCONS = C::NCONS, NTH = C::NTH;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -150,7 +177,7 @@ flash_bwd_dq_h_kernel(const __grid_constant__ CUtensorMap tm_k,
   dq += b * sgb + h * sgh;
 
   // Delta = rowsum(dO o O) in fp32, two consumer threads a row of D / 2
-  // columns each (16-byte loads: D / 2 columns are 64 or 80 bytes)
+  // columns each (16-byte loads: D / 2 columns are 32, 64 or 80 bytes)
   if (threadIdx.x < NCONS) {
     const int r = threadIdx.x >> 1, part = threadIdx.x & 1, row = q0 + r;
     float sum = 0.f;
@@ -206,7 +233,7 @@ flash_bwd_dq_h_kernel(const __grid_constant__ CUtensorMap tm_k,
   }
 
   // ---------------- consumer warpgroups, 64 queries each
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONS_REGS) : "memory");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::CONS_REGS) : "memory");
   const int wg = warp >> 2;
   const int g = lane >> 2, t = lane & 3;
   const int rl0 = wg * 64 + (warp & 3) * 16 + g;  // this thread's rows of the block
@@ -239,7 +266,11 @@ flash_bwd_dq_h_kernel(const __grid_constant__ CUtensorMap tm_k,
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   const float* bias_s = reinterpret_cast<const float*>(smem + C::OFF_BIAS);
 
-  if (wg == NWG - 1) named_arrive<NCONS>(1);  // group 0 issues first
+  // at d = 32 each tile's dQ product is left running under the next tile's
+  // S and dP, and its stage is released once those are in
+  constexpr bool overlap = D == 32;
+  if (wg == NWG - 1) named_arrive<256>(1);  // group 0 issues first
+  uint32_t dsa[4][4];  // dS as the A operand of four k-steps of 16 keys
   for (int i = 0; i < nlive; ++i) {
     const int s = i % NSTAGE;
     const int key0 = live_list[i] * BN;
@@ -249,22 +280,25 @@ flash_bwd_dq_h_kernel(const __grid_constant__ CUtensorMap tm_k,
 
     // S = Q K^T and dP = dO V^T, this group's turn on the tensor cores
     float sc[32], dp[32];
-    named_sync<NCONS>(1 + wg);
+    named_sync<256>(1 + wg);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) wgmma_rs<0>(sc, qa[kk], TK::desc_k(k_addr, kk), kk > 0);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) wgmma_rs<0>(dp, da[kk], TK::desc_k(v_addr, kk), kk > 0);
     wgmma_commit();
-    if (wg < NWG - 1 || i + 1 < nlive) named_arrive<NCONS>(1 + (wg + 1) % NWG);
+    if (wg < NWG - 1 || i + 1 < nlive) named_arrive<256>(1 + (wg + 1) % NWG);
     wgmma_wait0();
     fence_regs(sc);
     fence_regs(dp);
+    if constexpr (overlap) {  // the previous tile's dQ product is done too
+      fence_regs(acc);
+      fence_regs(dsa);
+      if (i > 0 && lane == 0) mbar_arrive(bar_empty + 8 * ((i - 1) % NSTAGE));
+    }
 
-    // dS = P o (dP - Delta) as the A operand of four k-steps of 16 keys;
-    // keys past lk (zero-filled by TMA) masked
+    // dS = P o (dP - Delta); keys past lk (zero-filled by TMA) masked
     const float* bs = bias_s + s * BN;
-    uint32_t dsa[4][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int c = j * 8 + 2 * t;  // this thread's keys c, c + 1 of the tile
@@ -286,10 +320,16 @@ flash_bwd_dq_h_kernel(const __grid_constant__ CUtensorMap tm_k,
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs(acc, dsa[kk], TK::desc_mn(k_addr, kk));
     wgmma_commit();
+    if constexpr (!overlap) {
+      wgmma_wait0();
+      fence_regs(acc);
+      fence_regs(dsa);
+      if (lane == 0) mbar_arrive(bar_empty + 8 * s);  // this warp is done with stage s
+    }
+  }
+  if constexpr (overlap) {
     wgmma_wait0();
     fence_regs(acc);
-    fence_regs(dsa);
-    if (lane == 0) mbar_arrive(bar_empty + 8 * s);  // this warp is done with stage s
   }
 
   // rows r0, r1: dQ * scale in bf16
@@ -323,8 +363,8 @@ int launch(const void* q, const void* k, const void* v, const void* key_bias, co
   int smem = 0;
   const int err = prepare<D>(lk, &smem);
   if (err != 0) return err;
-  const dim3 grid((lq + BM - 1) / BM, B * H);
-  flash_bwd_dq_h_kernel<D><<<grid, NTH, smem, st>>>(
+  const dim3 grid((lq + Cfg<D>::BM - 1) / Cfg<D>::BM, B * H);
+  flash_bwd_dq_h_kernel<D><<<grid, Cfg<D>::NTH, smem, st>>>(
       tk, tv, tb, static_cast<const float*>(key_bias), static_cast<const bf16*>(q),
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<float*>(delta), static_cast<bf16*>(dq), H, lq, lk, lkb, sm_scale, sqb, sqh, sqn,
@@ -334,7 +374,7 @@ int launch(const void* q, const void* k, const void* v, const void* key_bias, co
 
 }  // namespace
 
-// dQ and Delta. q, k, v, o, dout (B, H, N, d) bf16, d = 64 or 80, with
+// dQ and Delta. q, k, v, o, dout (B, H, N, d) bf16, d = 32, 64 or 80, with
 // (batch, head, row) element strides, each a multiple of 8 and the base
 // 16-byte aligned; key_bias (B, lkb) f32 contiguous and 16-byte aligned,
 // lkb >= Lk a multiple of 4, columns past Lk at -1e9; lse (B, H, Lq) f32
@@ -354,6 +394,7 @@ extern "C" int flash_sdpa_bwd_dq_h(const void* q, const void* k, const void* v,
       reinterpret_cast<uintptr_t>(key_bias) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   decltype(&launch<64>) run = nullptr;
+  if (d == 32) run = launch<32>;
   if (d == 64) run = launch<64>;
   if (d == 80) run = launch<80>;
   if (run == nullptr) return static_cast<int>(cudaErrorInvalidValue);
@@ -367,9 +408,11 @@ extern "C" int flash_sdpa_bwd_dq_h(const void* q, const void* k, const void* v,
 // block, blocks an SM}.
 extern "C" int flash_sdpa_bwd_dq_h_attrs(int d, int lk, int* out) {
   int smem = 0, err = static_cast<int>(cudaErrorInvalidValue);
+  if (d == 32 && (err = prepare<32>(lk, &smem)) == 0)
+    return kernel_attrs(flash_bwd_dq_h_kernel<32>, Cfg<32>::NTH, smem, out);
   if (d == 64 && (err = prepare<64>(lk, &smem)) == 0)
-    return kernel_attrs(flash_bwd_dq_h_kernel<64>, NTH, smem, out);
+    return kernel_attrs(flash_bwd_dq_h_kernel<64>, Cfg<64>::NTH, smem, out);
   if (d == 80 && (err = prepare<80>(lk, &smem)) == 0)
-    return kernel_attrs(flash_bwd_dq_h_kernel<80>, NTH, smem, out);
+    return kernel_attrs(flash_bwd_dq_h_kernel<80>, Cfg<80>::NTH, smem, out);
   return err;
 }

@@ -11,9 +11,9 @@
 //    (B, 16, 5184, 64), 4 launches a step (1 in chip_smoke.py's 4-block cut);
 //  - d = 80: the same for the vit_h SAM1 student, (1, 16, 4900, 80).
 // dK and dV are flash_sdpa_bwd_h_fp32.cu's (which reads the Delta written
-// here); bf16 is flash_sdpa_bwd_dq_h.cu's at d = 64 and 80 (the design this
-// one starts from) and flash_sdpa_bwd.cu's at d = 32; d = 256 is
-// flash_sdpa_bwd_wide_h_fp32.cu's (whose split pass feeds this kernel).
+// here); bf16 is flash_sdpa_bwd_dq_h.cu's (the design this one starts
+// from); d = 256 is flash_sdpa_bwd_wide_h_fp32.cu's (whose split pass
+// feeds this kernel).
 //
 // What it computes is the Pallas kernel's function at fp32: P = exp(S *
 // scale + key_bias - lse) in fp32, 0 on a row whose lse is masked (<= -5e8:
@@ -45,7 +45,7 @@
 // TF32 rate, 0.3336 ms at (4, 8, 5184, 32) and at (1, 16, 5184, 64), 0.3725
 // ms at (1, 16, 4900, 80); three bf16 products each put this design's own
 // floor at 1.5x that, beside the exponentials (~0.21 ms at 860 M). What held
-// the mma.sync kernel of flash_sdpa_bwd.cu back (2.1716, 2.1711 and 2.5813
+// the mma.sync kernel of the former flash_sdpa_bwd.cu back (2.1716, 2.1711 and 2.5813
 // ms, 6.5-6.9x the bound): split products from shared memory by mma.sync,
 // K / V staged by cp.async with no pipelining, B fragments by
 // ldmatrix.trans, products and exponentials in turn on four warps, and at

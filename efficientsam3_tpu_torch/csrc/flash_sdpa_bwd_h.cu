@@ -11,11 +11,10 @@
 //  - d = 80: Stage 1 of the vit_h student's trunk, (1, 16, 4900, 80), 4
 //    launches a step.
 // dQ and Delta = rowsum(dO o O) come from the dq kernel of
-// flash_sdpa_bwd.cu at d = 32 and of flash_sdpa_bwd_dq_h.cu at d = 64 and
-// 80; fp32 operands are flash_sdpa_bwd_h_fp32.cu's at d = 32 and stay on
-// flash_sdpa_bwd.cu at d = 64 and 80, and head dim 256 is
-// flash_sdpa_bwd_wide_h.cu's (bf16) and flash_sdpa_bwd_wide_h_fp32.cu's
-// (fp32).
+// flash_sdpa_bwd_dq_h.cu at d = 32, 64 and 80; fp32 operands are
+// flash_sdpa_bwd_h_fp32.cu's and flash_sdpa_bwd_dq_h_fp32.cu's, and head
+// dim 256 is flash_sdpa_bwd_wide_h.cu's (bf16) and
+// flash_sdpa_bwd_wide_h_fp32.cu's (fp32).
 //
 // What it computes is the Pallas kernel's: P rebuilt from the forward's
 // saved natural-log LSE, P = exp(S * scale + key_bias - lse), 0 on columns
@@ -35,7 +34,7 @@
 // units) and ~13 MB of operands: bound by the products; at d = 64 and 80
 // the products a score grow with D (0.4452 ms at the teacher's shape,
 // 0.2486 ms at vit_h's). What held the mma.sync kernel of
-// flash_sdpa_bwd.cu back (d = 32: 2.2586 ms, 10.1x the bound; d = 64:
+// the former flash_sdpa_bwd.cu back (d = 32: 2.2586 ms, 10.1x the bound; d = 64:
 // 2.6797 ms, d = 80: 1.6984 ms, 6.0x and 6.8x): products from shared
 // memory by mma.sync (a third of the peak), 64-row tiles staged by
 // cp.async with no pipelining, B fragments read by ldmatrix.trans,

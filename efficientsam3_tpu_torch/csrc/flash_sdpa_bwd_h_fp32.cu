@@ -38,7 +38,7 @@
 // the TF32 rate, 0.4447 ms at (4, 8, 5184, 32) and at (1, 16, 5184, 64),
 // 0.4967 ms at (1, 16, 4900, 80); three bf16 products each put this
 // design's own floor at 1.5x that, beside the exponentials (~0.21 ms at
-// 860 M). What held the mma.sync kernels of flash_sdpa_bwd.cu back (3.4833,
+// 860 M). What held the mma.sync kernels of the former flash_sdpa_bwd.cu back (3.4833,
 // 2.8517 and 4.1935 ms, 6.4-8.4x the bound): split products from shared
 // memory by mma.sync, query tiles staged by cp.async with no pipelining
 // (16 queries at a time at d = 80, for registers), B fragments by

@@ -10,7 +10,7 @@
 // object slots of which 3 are live, 56 + 56 launches a clip. fp32 operands
 // at d = 256 are flash_sdpa_bwd_wide_h_fp32.cu's (the same design on split
 // bf16 parts: wgmma's tf32 form needs both operands K-major, and V and dO
-// are not); d = 32, 64 and 80 are flash_sdpa_bwd.cu's and the *_h.cu kernels'.
+// are not); d = 32, 64 and 80 are the *_h.cu and *_h_fp32.cu kernels'.
 //
 // What it computes is the Pallas kernels': P rebuilt from the forward's
 // saved natural-log LSE, P = exp(S * scale + key_bias - lse) in fp32, 0 on

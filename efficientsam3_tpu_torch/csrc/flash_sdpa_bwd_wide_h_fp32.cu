@@ -4,8 +4,7 @@
 // split pass that feeds them (and, at d = 32, 64 and 80,
 // flash_sdpa_bwd_h_fp32.cu and flash_sdpa_bwd_dq_h_fp32.cu).
 // bf16 at d = 256 is flash_sdpa_bwd_wide_h.cu's (the design this one starts
-// from); the smaller head dims are flash_sdpa_bwd.cu's and the *_h.cu
-// kernels'.
+// from); the smaller head dims are the *_h.cu and *_h_fp32.cu kernels'.
 //
 // Replaces efficientsam3_tpu/ops/pallas/flash_attention.py `_flash_bwd`
 // (`_bwd_dq_kernel` :930, its pallas_call at :1082; `_bwd_dkv_kernel` :970,

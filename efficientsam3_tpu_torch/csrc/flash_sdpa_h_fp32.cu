@@ -89,7 +89,7 @@
 // step's, 41 x 16 = 656 (5.0) at ViT-H's and 39 x 16 = 624 (4.7) at
 // vit_h's.
 //
-// d = 256 (the mma.sync kernel of flash_qsmem.cuh before it: 2.2385 ms at
+// d = 256 (the mma.sync kernel of the former flash_qsmem.cuh before it: 2.2385 ms at
 // the self shape against a bound of 0.1668, and at the clip's 36352 keys
 // 1.43e-4 of O's largest magnitude off its plain version: it summed O in
 // the tensor cores). The design above does not fit at D = 256:

@@ -6,8 +6,9 @@
 // fp32 and written once as (m, n) f32. The TPU probe asked whether the
 // matrix unit runs int8 at twice its bf16 rate at the block shape of the
 // quantized memory attention, (768, 256) @ (256, 2048); this one asks the
-// H100's tensor cores the same through mma.sync, the instruction family
-// flash_memattn_q8.cu uses (m16n8k32.s8 against m16n8k16.bf16).
+// H100's tensor cores the same through mma.sync (m16n8k32.s8 against
+// m16n8k16.bf16), the instruction family the int8 bank kernel used before
+// it moved to wgmma (flash_memattn_h.cu).
 //
 // One launch does the whole chain. The grid runs over 96 x 128 output tiles
 // (8 x 16 = 128 blocks at the default shape, one an SM); a block of 8 warps

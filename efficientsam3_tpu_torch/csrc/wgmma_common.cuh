@@ -2,9 +2,9 @@
 // (flash_sdpa_h.cu: the bf16 forward at d = 32, 64, 80 and 256;
 // flash_sdpa_h_fp32.cu: the forward at d = 32, 64, 80 and 256 on fp32
 // operands; flash_memattn_h.cu: the tracker's bank attention in bf16 and
-// fp32;
+// fp32, over bf16 / fp32 keys and over int8 keys (flash_memattn_q8);
 // flash_sdpa_bwd_h.cu: the bf16 dK / dV backward at d = 32, 64 and 80;
-// flash_sdpa_bwd_dq_h.cu: the bf16 dQ backward at d = 64 and 80;
+// flash_sdpa_bwd_dq_h.cu: the bf16 dQ backward at d = 32, 64 and 80;
 // flash_sdpa_bwd_h_fp32.cu and flash_sdpa_bwd_dq_h_fp32.cu: the dK / dV and
 // the dQ backward at d = 32, 64 and 80 on fp32 operands;
 // flash_sdpa_bwd_wide_h.cu: the bf16 dQ and dK / dV backward at d = 256;
@@ -208,6 +208,26 @@ struct Tile {
   }
 };
 
+// A ROWS x D int8 tile (D a multiple of 128: rows of D bytes) in slabs of
+// 128 columns at the 128-byte swizzle, slab j at j * ROWS * 128: the bytes
+// of a bf16 Tile<D / 2, ROWS>, so a k-step of 32 int8 columns (32 bytes)
+// has that tile's K-major descriptors; its TMA load from a map_heads_i8 map.
+template <int D, int ROWS>
+struct TileI8 {
+  static constexpr int ROW = 128, NSLAB = D / 128;
+  static constexpr int SLAB = ROWS * ROW;
+  static constexpr int BYTES = NSLAB * SLAB;
+  static_assert(D % 128 == 0 && SLAB % 1024 == 0, "128-byte slabs on 1024-byte boundaries");
+  __device__ __forceinline__ static uint64_t desc_k(uint32_t saddr, int kk) {
+    return wgmma::desc_k<ROW>(saddr + (kk / 4) * SLAB, kk % 4);
+  }
+  __device__ __forceinline__ static void load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                              int row0, int h, int b) {
+#pragma unroll
+    for (int j = 0; j < NSLAB; ++j) tma_load_4d(dst + j * SLAB, map, bar, j * ROW, row0, h, b);
+  }
+};
+
 // Byte offset of byte `byte` (0..127) of row `row` in a slab with the
 // 128-byte swizzle, as TMA writes it (CU_TENSOR_MAP_SWIZZLE_128B): the
 // 16-byte chunk index XOR the row's index within its 8-row atom.
@@ -234,6 +254,11 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
@@ -324,6 +349,23 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4]
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TRANS_B));
+}
+
+// d (64 x 64) (+)= A B in int32, int8 operands: A (64 x 32) from registers
+// (4 registers a thread of 4 bytes each: {row g, cols 4t..4t + 3}, {g + 8,
+// 4t..}, {g, 16 + 4t..}, {g + 8, 16 + 4t..} of the warp's 16 rows, the lower
+// column in the lower byte, as mma.m16n8k32), B from shared memory K-major
+// (the only layout wgmma takes for 8-bit operands; a k-step of 32 bytes, so
+// the descriptors of a bf16 tile of the same row bytes). The s32
+// accumulator has the f32 one's thread layout.
+__device__ __forceinline__ void wgmma_s8_rs(int (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -514,10 +556,8 @@ __device__ __forceinline__ void split_frags(const float (&x)[4 * NJ], uint32_t (
   }
 }
 
-// The forwards' online-softmax step over one key tile (flash_sdpa_h.cu,
-// flash_sdpa_h_fp32.cu, flash_memattn_h.cu) on S (64 queries x 8 NJ keys):
-// logits S scale2 + bias log2 e with the tile's key bias at bs (keys from
-// key0 past lk masked), the rows' running maxima in log2 units (m0, m1 of
+// The forwards' online-softmax step over one key tile of logits in log2
+// units, S (64 queries x 8 NJ keys): the rows' running maxima (m0, m1 of
 // rows r0, r0 + 8) moved on, and P = 2^(logit - m) handed to emit(j, p0,
 // p1, p2, p3) a value group at a time (rows r0 / r0 + 8, keys 8 j + 2 t,
 // + 1) as it is made, so that the caller packs or splits it without
@@ -525,22 +565,12 @@ __device__ __forceinline__ void split_frags(const float (&x)[4 * NJ], uint32_t (
 // and take the unrounded P; corr0, corr1 are the factors the rows' earlier
 // output must be scaled by.
 template <int NJ, typename Emit>
-__device__ __forceinline__ void softmax_tile(float (&sc)[4 * NJ], const float* bs, int key0,
-                                             int lk, float scale2, float& m0, float& m1,
-                                             float& l0, float& l1, float& corr0, float& corr1,
-                                             Emit emit) {
-  const int t = threadIdx.x & 3;
+__device__ __forceinline__ void softmax_logits(const float (&sc)[4 * NJ], float& m0, float& m1,
+                                               float& l0, float& l1, float& corr0, float& corr1,
+                                               Emit emit) {
   float mx0 = m0, mx1 = m1;
 #pragma unroll
   for (int j = 0; j < NJ; ++j) {
-    const int c = j * 8 + 2 * t;
-    const float2 bv = *reinterpret_cast<const float2*>(bs + c);
-    const float b0 = key0 + c < lk ? bv.x * LOG2E : NEG_INF * LOG2E;
-    const float b1 = key0 + c + 1 < lk ? bv.y * LOG2E : NEG_INF * LOG2E;
-    sc[4 * j + 0] = fmaf(sc[4 * j + 0], scale2, b0);
-    sc[4 * j + 1] = fmaf(sc[4 * j + 1], scale2, b1);
-    sc[4 * j + 2] = fmaf(sc[4 * j + 2], scale2, b0);
-    sc[4 * j + 3] = fmaf(sc[4 * j + 3], scale2, b1);
     mx0 = fmaxf(mx0, fmaxf(sc[4 * j + 0], sc[4 * j + 1]));
     mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
   }
@@ -565,19 +595,53 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[4 * NJ], const float* b
   l1 = l1 * corr1 + ps1;
 }
 
-// softmax_tile with P rounded to bf16 as the A operand of NJ / 2 k-steps
-// of 16 keys (value group j of rows r0 and r0 + 8 is operand (j / 2, 2 (j
-// % 2) + {0, 1}), as pack_frags), or split into hi and lo parts there.
+// softmax_logits on raw scores S (flash_sdpa_h.cu, flash_sdpa_h_fp32.cu,
+// flash_memattn_h.cu's exact bank): logits S scale2 + bias log2 e with the
+// tile's key bias at bs, keys from key0 past lk masked.
+template <int NJ, typename Emit>
+__device__ __forceinline__ void softmax_tile(float (&sc)[4 * NJ], const float* bs, int key0,
+                                             int lk, float scale2, float& m0, float& m1,
+                                             float& l0, float& l1, float& corr0, float& corr1,
+                                             Emit emit) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int c = j * 8 + 2 * t;
+    const float2 bv = *reinterpret_cast<const float2*>(bs + c);
+    const float b0 = key0 + c < lk ? bv.x * LOG2E : NEG_INF * LOG2E;
+    const float b1 = key0 + c + 1 < lk ? bv.y * LOG2E : NEG_INF * LOG2E;
+    sc[4 * j + 0] = fmaf(sc[4 * j + 0], scale2, b0);
+    sc[4 * j + 1] = fmaf(sc[4 * j + 1], scale2, b1);
+    sc[4 * j + 2] = fmaf(sc[4 * j + 2], scale2, b0);
+    sc[4 * j + 3] = fmaf(sc[4 * j + 3], scale2, b1);
+  }
+  softmax_logits<NJ>(sc, m0, m1, l0, l1, corr0, corr1, emit);
+}
+
+// Emitters for softmax_logits / softmax_tile: P rounded to bf16 as the A
+// operand of NJ / 2 k-steps of 16 keys (value group j of rows r0 and r0 + 8
+// is operand (j / 2, 2 (j % 2) + {0, 1}), as pack_frags), or split into hi
+// and lo parts there.
+template <int NJ>
+__device__ __forceinline__ auto pack_emit(uint32_t (&pa)[NJ / 2][4]) {
+  return [&pa](int j, float p0, float p1, float p2, float p3) {
+    pa[j >> 1][(j & 1) * 2 + 0] = pack_bf16(p0, p1);
+    pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+  };
+}
+template <int NJ>
+__device__ __forceinline__ auto split_emit(uint32_t (&ph)[NJ / 2][4], uint32_t (&pl)[NJ / 2][4]) {
+  return [&ph, &pl](int j, float p0, float p1, float p2, float p3) {
+    split_pair(p0, p1, ph[j >> 1][(j & 1) * 2 + 0], pl[j >> 1][(j & 1) * 2 + 0]);
+    split_pair(p2, p3, ph[j >> 1][(j & 1) * 2 + 1], pl[j >> 1][(j & 1) * 2 + 1]);
+  };
+}
 template <int NJ>
 __device__ __forceinline__ void softmax_pack(float (&sc)[4 * NJ], const float* bs, int key0,
                                              int lk, float scale2, float& m0, float& m1,
                                              float& l0, float& l1, float& corr0, float& corr1,
                                              uint32_t (&pa)[NJ / 2][4]) {
-  softmax_tile<NJ>(sc, bs, key0, lk, scale2, m0, m1, l0, l1, corr0, corr1,
-                   [&](int j, float p0, float p1, float p2, float p3) {
-                     pa[j >> 1][(j & 1) * 2 + 0] = pack_bf16(p0, p1);
-                     pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
-                   });
+  softmax_tile<NJ>(sc, bs, key0, lk, scale2, m0, m1, l0, l1, corr0, corr1, pack_emit<NJ>(pa));
 }
 template <int NJ>
 __device__ __forceinline__ void softmax_split(float (&sc)[4 * NJ], const float* bs, int key0,
@@ -586,10 +650,7 @@ __device__ __forceinline__ void softmax_split(float (&sc)[4 * NJ], const float* 
                                               uint32_t (&ph)[NJ / 2][4],
                                               uint32_t (&pl)[NJ / 2][4]) {
   softmax_tile<NJ>(sc, bs, key0, lk, scale2, m0, m1, l0, l1, corr0, corr1,
-                   [&](int j, float p0, float p1, float p2, float p3) {
-                     split_pair(p0, p1, ph[j >> 1][(j & 1) * 2 + 0], pl[j >> 1][(j & 1) * 2 + 0]);
-                     split_pair(p2, p3, ph[j >> 1][(j & 1) * 2 + 1], pl[j >> 1][(j & 1) * 2 + 1]);
-                   });
+                   split_emit<NJ>(ph, pl));
 }
 
 // The forward's epilogue for a group's 64 rows: the quad's partial row sums
@@ -744,6 +805,24 @@ inline CUresult map_parts(EncodeTiled fn, CUtensorMap* m, const void* parts, int
                           int B, int rows) {
   const long long sn = d, sh = static_cast<long long>(n) * d, sb = H * sh;
   return map_heads(fn, m, parts, d, n, H, 2 * B, sb, sh, sn, rows);
+}
+
+// A (B, H, N, d) int8 view with (byte) strides (sb, sh, sn), d a multiple of
+// 128, as a 4-D (d, N, H, B) map, boxes of `rows` rows of one (batch, head)
+// and 128 columns at the 128-byte swizzle (TileI8::load, a box a slab); rows
+// past N read as zeros. The map's element type is UINT8 (the driver's types
+// have no signed 8-bit one; TMA copies bytes, and wgmma reads them as s8).
+inline CUresult map_heads_i8(EncodeTiled fn, CUtensorMap* m, const void* base, int d, int n,
+                             int H, int B, long long sb, long long sh, long long sn, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(n),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sn), static_cast<cuuint64_t>(sh),
+                                 static_cast<cuuint64_t>(sb)};
+  const cuuint32_t box[4] = {128, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(base), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 // A (rows, cols) f32 row-major matrix (cols a multiple of 4, the base

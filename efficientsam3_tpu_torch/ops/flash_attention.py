@@ -31,14 +31,14 @@ launches in ``<wrapper>.launches``; the ``flash_sdpa`` forward is the wgmma
 kernel ``csrc/flash_sdpa_h.cu`` in bf16 and ``csrc/flash_sdpa_h_fp32.cu`` in
 fp32 (split bf16 parts) at d=32, 64, 80 and 256 (``sdpa_kernel`` says which
 kernel a call reaches), ``flash_memattn`` the wgmma kernel
-``csrc/flash_memattn_h.cu`` in both dtypes (``memattn_kernel``); ``flash_sdpa_bwd_dkv``
-at d=32, 64 and 80 is the wgmma kernel ``csrc/flash_sdpa_bwd_h.cu`` in bf16
-and ``csrc/flash_sdpa_bwd_h_fp32.cu`` in fp32 (split bf16 parts),
-``flash_sdpa_bwd_dq`` at d=64 and 80 in bf16
-``csrc/flash_sdpa_bwd_dq_h.cu`` and at d=32, 64 and 80 in fp32
-``csrc/flash_sdpa_bwd_dq_h_fp32.cu`` (``bwd_dkv_kernel``, ``bwd_dq_kernel``;
-the bf16 dq at d=32 is the mma.sync kernel of ``csrc/flash_sdpa_bwd.cu``),
-and both backward kernels at d=256 those of ``csrc/flash_sdpa_bwd_wide_h.cu``
+``csrc/flash_memattn_h.cu`` in both dtypes (``memattn_kernel``), and
+``flash_memattn_q8`` its int8-key instantiations (``memattn_q8_kernel``);
+``flash_sdpa_bwd_dkv`` at d=32, 64 and 80 is the wgmma kernel
+``csrc/flash_sdpa_bwd_h.cu`` in bf16 and ``csrc/flash_sdpa_bwd_h_fp32.cu`` in
+fp32 (split bf16 parts), ``flash_sdpa_bwd_dq`` at d=32, 64 and 80
+``csrc/flash_sdpa_bwd_dq_h.cu`` in bf16 and ``csrc/flash_sdpa_bwd_dq_h_fp32.cu``
+in fp32 (``bwd_dkv_kernel``, ``bwd_dq_kernel``), and both backward kernels
+at d=256 those of ``csrc/flash_sdpa_bwd_wide_h.cu``
 in bf16 and ``csrc/flash_sdpa_bwd_wide_h_fp32.cu`` in fp32 (the fp32 wgmma
 kernels read split bf16 copies of their streamed operands, made by
 ``split_parts``; so do the fp32 forwards). Under autograd (grad
@@ -132,8 +132,7 @@ def _check_heads(name, dims, *ts):
     return dtype
 
 
-# head dims of the bf16 wgmma dkv kernel flash_sdpa_bwd_h; the mma.sync
-# kernel of csrc/flash_sdpa_bwd.cu refuses dkv everywhere
+# head dims of the bf16 wgmma dkv kernel (csrc/flash_sdpa_bwd_h.cu)
 _H_D = (32, 64, 80)
 # head dims of the wgmma forward kernels: bf16 (csrc/flash_sdpa_h.cu) and
 # fp32 on split bf16 parts (csrc/flash_sdpa_h_fp32.cu)
@@ -155,6 +154,14 @@ def memattn_kernel(dtype):
     return "flash_memattn_h" if dtype == torch.bfloat16 else "flash_memattn_h_fp32"
 
 
+def memattn_q8_kernel(dtype):
+    """The kernel a CUDA ``flash_memattn_q8`` call launches: the int8-key
+    instantiation of csrc/flash_memattn_h.cu (wgmma's int8 product for Q
+    K^T), with bf16 q and v, or fp32 ones (P V on split bf16 parts of v: a
+    ``split_parts`` copy first)."""
+    return "flash_memattn_q8_h" if dtype == torch.bfloat16 else "flash_memattn_q8_h_fp32"
+
+
 def _bwd_wide_kernel(dtype):
     """The d=256 backward kernels' source: csrc/flash_sdpa_bwd_wide_h.cu for
     bf16, csrc/flash_sdpa_bwd_wide_h_fp32.cu (split bf16 parts) for fp32."""
@@ -163,25 +170,22 @@ def _bwd_wide_kernel(dtype):
 
 # head dims of the bf16 wgmma dq kernel (csrc/flash_sdpa_bwd_dq_h.cu) and of
 # the fp32 wgmma dq and dkv kernels (csrc/flash_sdpa_bwd_dq_h_fp32.cu,
-# csrc/flash_sdpa_bwd_h_fp32.cu); the mma.sync dq kernel of
-# csrc/flash_sdpa_bwd.cu takes only bf16 at d=32
-_DQ_H_D = (64, 80)
+# csrc/flash_sdpa_bwd_h_fp32.cu)
+_DQ_H_D = (32, 64, 80)
 _DQ_H_F32_D = (32, 64, 80)
 _DKV_H_F32_D = (32, 64, 80)
 
 
 def bwd_dq_kernel(dtype, d):
-    """The dq kernel a CUDA ``flash_sdpa_bwd_dq`` call launches: the wgmma
-    kernels at d=256 (csrc/flash_sdpa_bwd_wide_h.cu for bf16,
-    csrc/flash_sdpa_bwd_wide_h_fp32.cu for fp32), for bf16 at d=64 and 80
-    (csrc/flash_sdpa_bwd_dq_h.cu) and for fp32 at d=32, 64 and 80
-    (csrc/flash_sdpa_bwd_dq_h_fp32.cu, split bf16 parts), else the mma.sync
-    kernel of csrc/flash_sdpa_bwd.cu (bf16 at d=32)."""
+    """The dq kernel a CUDA ``flash_sdpa_bwd_dq`` call launches, a wgmma
+    kernel at every head dim the backward takes: at d=256
+    csrc/flash_sdpa_bwd_wide_h.cu for bf16 and
+    csrc/flash_sdpa_bwd_wide_h_fp32.cu for fp32, at d=32, 64 and 80
+    csrc/flash_sdpa_bwd_dq_h.cu for bf16 and csrc/flash_sdpa_bwd_dq_h_fp32.cu
+    (split bf16 parts) for fp32."""
     if d == 256:
         return _bwd_wide_kernel(dtype)
-    if dtype == torch.bfloat16:
-        return "flash_sdpa_bwd_dq_h" if d in _DQ_H_D else "flash_sdpa_bwd"
-    return "flash_sdpa_bwd_dq_h_fp32" if d in _DQ_H_F32_D else "flash_sdpa_bwd"
+    return "flash_sdpa_bwd_dq_h" if dtype == torch.bfloat16 else "flash_sdpa_bwd_dq_h_fp32"
 
 
 def bwd_dkv_kernel(dtype, d):
@@ -247,10 +251,6 @@ def _lib_bwd_h():
 
 def _lib_bwd_h_attrs():
     return _bind("flash_sdpa_bwd_h", "flash_sdpa_bwd_dkv_h_attrs", [_I, _P])
-
-
-def _lib_bwd_attrs():
-    return _bind("flash_sdpa_bwd", "flash_sdpa_bwd_attrs", [_I] * 4 + [_P])
 
 
 def _lib_bwd_dq_h():
@@ -320,14 +320,15 @@ def _lib_bwd_wide_f32_dkv_attrs():
 
 
 # the head dims kernel_resources reads each kernel of several at: the wgmma
-# forwards at _FWD_H_D, the bank kernels at dk=256, the wgmma dkv at _H_D,
-# the wgmma bf16 dq at _DQ_H_D, the fp32 dq and dkv at _DQ_H_F32_D and
-# _DKV_H_F32_D, and the mma.sync dq at what those leave it (bf16 at d=32)
+# forwards at _FWD_H_D, the bank kernels (exact and int8 keys) at dk=256,
+# the wgmma dkv at _H_D, the wgmma bf16 dq at _DQ_H_D, the fp32 dq and dkv
+# at _DQ_H_F32_D and _DKV_H_F32_D
 _RESOURCE_DIMS = {"flash_sdpa_h": _FWD_H_D, "flash_sdpa_h_fp32": _FWD_H_D,
                   "flash_memattn_h": (256,), "flash_memattn_h_fp32": (256,),
+                  "flash_memattn_q8_h": (256,), "flash_memattn_q8_h_fp32": (256,),
                   "flash_sdpa_bwd_h": _H_D, "flash_sdpa_bwd_dq_h": _DQ_H_D,
                   "flash_sdpa_bwd_h_fp32": _DKV_H_F32_D,
-                  "flash_sdpa_bwd_dq_h_fp32": _DQ_H_F32_D, "flash_sdpa_bwd_dq": (32,)}
+                  "flash_sdpa_bwd_dq_h_fp32": _DQ_H_F32_D}
 
 
 def kernel_resources(kernel, d=32, lk=5184):
@@ -337,31 +338,30 @@ def kernel_resources(kernel, d=32, lk=5184):
     ``"flash_sdpa_h"`` (bf16 forward, d=32, 64, 80 or 256, lk keys),
     ``"flash_sdpa_h_fp32"`` (fp32 forward, d=32, 64, 80 or 256, lk keys),
     ``"flash_memattn_h"`` / ``"flash_memattn_h_fp32"`` (the bank kernel in
-    bf16 / fp32, d=256, lk keys),
+    bf16 / fp32, d=256, lk keys), ``"flash_memattn_q8_h"`` /
+    ``"flash_memattn_q8_h_fp32"`` (its int8-key instantiations),
     ``"flash_sdpa_bwd_h"`` (bf16 dkv, d=32, 64 or 80),
-    ``"flash_sdpa_bwd_dq_h"`` (bf16 dq, d=64 or 80, lk keys),
+    ``"flash_sdpa_bwd_dq_h"`` (bf16 dq, d=32, 64 or 80, lk keys),
     ``"flash_sdpa_bwd_h_fp32"`` (fp32 dkv, d=32, 64 or 80),
     ``"flash_sdpa_bwd_dq_h_fp32"`` (fp32 dq, d=32, 64 or 80, lk keys),
     ``"flash_sdpa_bwd_dq_wide_h"`` (d=256, lk keys),
     ``"flash_sdpa_bwd_dkv_wide_h"`` (d=256), or their fp32 counterparts
     ``"flash_sdpa_bwd_dq_wide_f32"`` (lk keys) and
-    ``"flash_sdpa_bwd_dkv_wide_f32"``; or of the mma.sync dq kernel of
-    csrc/flash_sdpa_bwd.cu, ``"flash_sdpa_bwd_dq"`` (bf16: d=32, lk keys). A
-    kernel or head dim not built raises ValueError before any library is
-    loaded (the mma.sync instantiations that wgmma kernels replaced among
-    them)."""
+    ``"flash_sdpa_bwd_dkv_wide_f32"``. A kernel or head dim not built
+    raises ValueError before any library is loaded (the mma.sync kernels
+    that wgmma kernels replaced among them)."""
     dims = _RESOURCE_DIMS.get(kernel)
     if dims is not None and d not in dims:
         raise ValueError(f"{kernel} kernel supports head dims {dims}, got {d}")
     out = (ctypes.c_int * 4)()
-    if kernel == "flash_sdpa_bwd_dq":
-        status = _lib_bwd_attrs()(0, d, 0, lk, out)
-    elif kernel == "flash_sdpa_h":
+    if kernel == "flash_sdpa_h":
         status = _lib_sdpa_h_attrs()(d, lk, out)
     elif kernel == "flash_sdpa_h_fp32":
         status = _lib_sdpa_h_f32_attrs()(d, lk, out)
     elif kernel in ("flash_memattn_h", "flash_memattn_h_fp32"):
         status = _lib_memattn_h_attrs()(int(kernel == "flash_memattn_h_fp32"), lk, out)
+    elif kernel in ("flash_memattn_q8_h", "flash_memattn_q8_h_fp32"):
+        status = _lib_memattn_q8_h_attrs()(int(kernel == "flash_memattn_q8_h_fp32"), lk, out)
     elif kernel == "flash_sdpa_bwd_h":
         status = _lib_bwd_h_attrs()(d, out)
     elif kernel == "flash_sdpa_bwd_dq_h":
@@ -487,7 +487,7 @@ flash_sdpa.launches = 0
 
 
 # --------------------------------------------------------------------------
-# flash_sdpa backward: csrc/flash_sdpa_bwd.cu and its plain version
+# flash_sdpa backward: the dq and dkv kernels' wrappers and plain versions
 # --------------------------------------------------------------------------
 
 
@@ -532,12 +532,6 @@ def flash_sdpa_bwd_plain(q, k, v, key_bias, o, lse, do, sm_scale=None):
     return dq, dk, dv
 
 
-def _lib_bwd(name):
-    """``flash_sdpa_bwd_dq`` or ``flash_sdpa_bwd_dkv`` of csrc/flash_sdpa_bwd.cu
-    (the dkv entry refuses every call: the tests hold it to that)."""
-    return _bind("flash_sdpa_bwd", name, [_P] * 9 + [_I] * 6 + [_F] + [_LL] * 18 + [_P])
-
-
 def _check_bwd(q, k, v, key_bias, lse, *rest):
     dtype = _check_heads("flash_sdpa backward", _BWD_D, q, k, v, *rest)
     b, h, lq, d = q.shape
@@ -546,15 +540,19 @@ def _check_bwd(q, k, v, key_bias, lse, *rest):
             or lse.shape != (b, h, lq) or any(t.shape != q.shape for t in rest)):
         raise ValueError(f"flash_sdpa backward shapes: q {q.shape} k {k.shape} v {v.shape} "
                          f"key_bias {key_bias.shape} lse {lse.shape}")
-    return b, h, lq, lk, d, int(dtype == torch.float32)
+    return b, h, lq, lk, d
 
 
 # key tile of the fp32 kernels that read split copies of K and V with dead
 # tiles skipped: the d=256 dq kernel (csrc/flash_sdpa_bwd_wide_h_fp32.cu
 # BS), the d=256 forward (csrc/flash_sdpa_h_fp32.cu wide::BN) and the bank
-# kernel (csrc/flash_memattn_h.cu Cfg<2>::BN); the copies hold only the
-# rows of live tiles of this many keys
+# kernel (csrc/flash_memattn_h.cu Cfg<2, false>::BN); the copies hold only
+# the rows of live tiles of this many keys
 _WIDE_F32_TILE = 32
+# key tile of the int8 bank kernel (csrc/flash_memattn_h.cu Cfg<NP,
+# true>::BN), whose fp32 form reads a split copy of v with dead tiles
+# skipped
+_Q8_TILE = 64
 
 
 def split_parts_plain(x):
@@ -622,15 +620,15 @@ split_parts.launches = 0
 def flash_sdpa_bwd_dq(q, k, v, key_bias, o, lse, do, sm_scale):
     """dQ of flash_sdpa and Delta = rowsum(dO o O): (dq (B, H, Lq, D) in
     q.dtype, delta (B, H, Lq) f32). One kernel launch on CUDA (head dim 32,
-    64, 80 or 256, bf16 or fp32; ``bwd_dq_kernel`` says which: the wgmma
-    kernels except bf16 at d=32, mma.sync there), counted in
+    64, 80 or 256, bf16 or fp32; ``bwd_dq_kernel`` says which wgmma
+    kernel), counted in
     ``flash_sdpa_bwd_dq.launches``; fp32 first makes the split copies of K
     and V with two launches of the split pass (``split_parts``: every row,
     at d=256 only the rows of live 32-key tiles). The plain version for CPU
     tensors."""
     if not q.is_cuda:
         return flash_sdpa_bwd_dq_plain(q, k, v, key_bias, o, lse, do, sm_scale)
-    b, h, lq, lk, d, fp32 = _check_bwd(q, k, v, key_bias, lse, o, do)
+    b, h, lq, lk, d = _check_bwd(q, k, v, key_bias, lse, o, do)
     q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do))
     lse = lse.float().contiguous()
     delta = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
@@ -654,7 +652,7 @@ def flash_sdpa_bwd_dq(q, k, v, key_bias, o, lse, do, sm_scale):
                 status = _lib_bwd_wide_f32("flash_sdpa_bwd_dq_wide_f32")(*head, *tail)
             else:  # the head dim is a template parameter there
                 status = _lib_bwd_dq_h_f32()(*head, d, *tail)
-        elif kernel in ("flash_sdpa_bwd_wide_h", "flash_sdpa_bwd_dq_h"):
+        else:
             kb, lkb = _tma_rows(key_bias, NEG_INF)
             ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), kb.data_ptr(), o.data_ptr(),
                     do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr())
@@ -664,12 +662,6 @@ def flash_sdpa_bwd_dq(q, k, v, key_bias, o, lse, do, sm_scale):
             else:
                 status = _lib_bwd_wide_h("flash_sdpa_bwd_dq_wide_h")(
                     *ptrs, b, h, lq, lk, lkb, float(sm_scale), *strides, stream)
-        else:
-            kb = key_bias.float().contiguous()
-            status = _lib_bwd("flash_sdpa_bwd_dq")(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), kb.data_ptr(), o.data_ptr(),
-                do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                b, h, lq, lk, d, fp32, float(sm_scale), *strides, stream)
     _build.check(status, "flash_sdpa_bwd_dq launch")
     flash_sdpa_bwd_dq.launches += 1
     return dq, delta
@@ -688,7 +680,7 @@ def flash_sdpa_bwd_dkv(q, k, v, key_bias, do, lse, delta, sm_scale):
     tensors."""
     if not q.is_cuda:
         return flash_sdpa_bwd_dkv_plain(q, k, v, key_bias, do, lse, delta, sm_scale)
-    b, h, lq, lk, d, _ = _check_bwd(q, k, v, key_bias, lse, do)
+    b, h, lq, lk, d = _check_bwd(q, k, v, key_bias, lse, do)
     q, k, v, do = (_aligned(t) for t in (q, k, v, do))
     key_bias = key_bias.float().contiguous()
     dk = torch.empty((b, lk, h, d), dtype=k.dtype, device=q.device).transpose(1, 2)
@@ -830,7 +822,8 @@ flash_memattn.launches = 0
 
 
 # --------------------------------------------------------------------------
-# flash_memattn over an int8 key bank: csrc/flash_memattn_q8.cu
+# flash_memattn over an int8 key bank: csrc/flash_memattn_h.cu's int8-key
+# instantiations
 # --------------------------------------------------------------------------
 
 
@@ -872,9 +865,24 @@ def flash_memattn_q8_plain(q, k_i8, k_scale, v, key_bias, sm_scale=None, return_
     return (out, lse) if return_lse else out
 
 
-def _lib_memattn_q8():
-    return _bind("flash_memattn_q8", "flash_memattn_q8_fwd",
-                 [_P] * 7 + [_I] * 7 + [_F] + [_LL] * 12 + [_P])
+def _lib_memattn_q8_h():
+    """``flash_memattn_q8_h_fwd`` of csrc/flash_memattn_h.cu (bf16 q and v):
+    q, the int8 keys, their scales, v, key bias, o, lse; 5 ints, the scale,
+    four operands' (B, H, N) strides, the stream."""
+    return _bind("flash_memattn_h", "flash_memattn_q8_h_fwd",
+                 [_P] * 7 + [_I] * 5 + [_F] + [_LL] * 12 + [_P])
+
+
+def _lib_memattn_q8_h_f32():
+    """``flash_memattn_q8_h_f32_fwd`` (fp32 q and v): q, the int8 keys, their
+    scales, the split copy of v, key bias, o, lse; 5 ints, the scale, q's,
+    the keys' and o's strides, the stream."""
+    return _bind("flash_memattn_h", "flash_memattn_q8_h_f32_fwd",
+                 [_P] * 7 + [_I] * 5 + [_F] + [_LL] * 9 + [_P])
+
+
+def _lib_memattn_q8_h_attrs():
+    return _bind("flash_memattn_h", "flash_memattn_q8_h_attrs", [_I, _I, _P])
 
 
 def flash_memattn_q8(q, k_i8, k_scale, v, key_bias, sm_scale=None, return_lse=False):
@@ -888,10 +896,13 @@ def flash_memattn_q8(q, k_i8, k_scale, v, key_bias, sm_scale=None, return_lse=Fa
     padded (``padded_bank_len``), pad rows masked. Returns (B, H, Lq, Dv)
     in v.dtype, and the (B, H, Lq) f32 log-sum-exp with return_lse.
 
-    On CUDA the score product runs as int8 x int8 -> int32 on the tensor
-    cores, at (Dk, Dv) = (256, 64) with q, v and output all bf16 or all
-    fp32 (fp32 v on split bf16 parts); other dims and dtypes raise, and so
-    does a call that autograd records (forward only).
+    On CUDA one launch of the int8-key instantiation of
+    csrc/flash_memattn_h.cu (``memattn_q8_kernel``), counted in
+    ``flash_memattn_q8.launches``: the score product as int8 x int8 ->
+    int32 by wgmma, at (Dk, Dv) = (256, 64) with q, v and output all bf16
+    or all fp32 (fp32 v on split bf16 parts: one launch of the split pass
+    first, the rows of live 64-key tiles); other dims and dtypes raise, and
+    so does a call that autograd records (forward only).
     CPU tensors take the plain version. Logits carry the symmetric int8
     error of both operands; the exact bank stays the default.
     """
@@ -909,20 +920,26 @@ def flash_memattn_q8(q, k_i8, k_scale, v, key_bias, sm_scale=None, return_lse=Fa
     if not q.is_cuda:
         return flash_memattn_q8_plain(q, k_i8, k_scale, v, key_bias, sm_scale, return_lse)
     _build.refuse_grad("flash_memattn_q8", q, k_scale, v, key_bias)
-    fp32 = int(check_bank_call("flash_memattn_q8", q, v) == torch.float32)
+    dtype = check_bank_call("flash_memattn_q8", q, v)
     q, k_i8, v = _aligned(q), _aligned(k_i8), _aligned(v)
-    k_scale = k_scale.float().contiguous()
-    key_bias = key_bias.float().contiguous()
     o = torch.empty((b, h, lq, dv), dtype=v.dtype, device=q.device)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device) if return_lse else None
+    lse_ptr = lse.data_ptr() if lse is not None else None
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):  # the launch goes to the current device
-        status = _lib_memattn_q8()(
-            q.data_ptr(), k_i8.data_ptr(), k_scale.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
-            o.data_ptr(), lse.data_ptr() if lse is not None else None,
-            b, h, lq, lk, dk, dv, fp32, float(sm_scale),
-            *_bhn_strides(q), *_bhn_strides(k_i8), *_bhn_strides(v), *_bhn_strides(o),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+        kb, lkb = _tma_rows(key_bias, NEG_INF)
+        ks, _ = _tma_rows(k_scale, 0.0)
+        head = (q.data_ptr(), k_i8.data_ptr(), ks.data_ptr())
+        if dtype == torch.bfloat16:
+            status = _lib_memattn_q8_h()(
+                *head, v.data_ptr(), kb.data_ptr(), o.data_ptr(), lse_ptr, b, h, lq, lk, lkb,
+                float(sm_scale), *_bhn_strides(q), *_bhn_strides(k_i8), *_bhn_strides(v),
+                *_bhn_strides(o), stream)
+        else:
+            vp = split_parts(v, kb, _Q8_TILE)
+            status = _lib_memattn_q8_h_f32()(
+                *head, vp.data_ptr(), kb.data_ptr(), o.data_ptr(), lse_ptr, b, h, lq, lk, lkb,
+                float(sm_scale), *_bhn_strides(q), *_bhn_strides(k_i8), *_bhn_strides(o), stream)
     _build.check(status, "flash_memattn_q8 launch")
     flash_memattn_q8.launches += 1
     return (o, lse) if return_lse else o

@@ -28,9 +28,6 @@ BINDINGS = {
     "flash_sdpa_h_attrs": fa._lib_sdpa_h_attrs,
     "flash_sdpa_h_f32_fwd": fa._lib_sdpa_h_f32,
     "flash_sdpa_h_f32_attrs": fa._lib_sdpa_h_f32_attrs,
-    "flash_sdpa_bwd_dq": lambda: fa._lib_bwd("flash_sdpa_bwd_dq"),
-    "flash_sdpa_bwd_dkv": lambda: fa._lib_bwd("flash_sdpa_bwd_dkv"),
-    "flash_sdpa_bwd_attrs": fa._lib_bwd_attrs,
     "flash_sdpa_bwd_dkv_h": fa._lib_bwd_h,
     "flash_sdpa_bwd_dkv_h_attrs": fa._lib_bwd_h_attrs,
     "flash_sdpa_bwd_dq_h": fa._lib_bwd_dq_h,
@@ -51,7 +48,9 @@ BINDINGS = {
     "flash_memattn_h_fwd": fa._lib_memattn_h,
     "flash_memattn_h_f32_fwd": fa._lib_memattn_h_f32,
     "flash_memattn_h_attrs": fa._lib_memattn_h_attrs,
-    "flash_memattn_q8_fwd": fa._lib_memattn_q8,
+    "flash_memattn_q8_h_fwd": fa._lib_memattn_q8_h,
+    "flash_memattn_q8_h_f32_fwd": fa._lib_memattn_q8_h_f32,
+    "flash_memattn_q8_h_attrs": fa._lib_memattn_q8_h_attrs,
     "flash_xattn_rpb_fwd": fa._lib_xattn,
     "depthwise_conv2d_fwd": depthwise._lib,
     "depthwise_conv2d_wgrad": lambda: depthwise._lib("depthwise_conv2d_wgrad"),

@@ -388,16 +388,16 @@ def test_native_hungarian_matches_numpy(cuda):
                               hungarian.solve_assignment_batched(c)), trial
 
 
-def _q8_inputs(dev, b, lq, lk):
+def _q8_inputs(dev, b, lq, lk, dtype=torch.bfloat16):
     """q, the quantized bank of k, raw values as a strided (B, 1, Lk, 64)
     view of a bank, and a key mask: a masked entry and a masked pad tail in
     slot 0, slot 1 empty (all keys masked, zero queries), the rest live."""
-    q = _randn(dev, b, 1, lq, 256)
-    k = _randn(dev, b, 1, lk, 256)
+    q = _randn(dev, b, 1, lq, 256, dtype=dtype)
+    k = _randn(dev, b, 1, lk, 256, dtype=dtype)
     if b > 1:
         q[1] = 0
     k_i8, ks = fa.quantize_rows(k)
-    bank = _randn(dev, b, lk, 64)
+    bank = _randn(dev, b, lk, 64, dtype=dtype)
     bias = torch.zeros((b, lk), device=dev)
     bias[0, lk // 4: lk // 2] = NEG_INF
     bias[0, lk - lk // 8:] = NEG_INF
@@ -406,39 +406,48 @@ def _q8_inputs(dev, b, lq, lk):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
 @pytest.mark.parametrize("lq,lk", [(5184, 36864), (333, 640), (1, 128)])
-def test_flash_memattn_q8_kernel_matches_plain(cuda, lq, lk):
-    """The int8 bank kernel against its plain version: the tracker shape,
-    a ragged Lq, one row; a masked entry and pad tail (dead tiles skipped),
-    an empty slot (zero queries, all keys masked: 0 out, lse -1e9), with and
-    without the LSE, and within 2e-2 of the output's largest magnitude of
-    flash_memattn over the dequantized keys (only q's rounding differs)."""
-    q, k, k_i8, ks, v, bias = _q8_inputs(cuda, 3, lq, lk)
+def test_flash_memattn_q8_kernel_matches_plain(cuda, dtype, lq, lk):
+    """The int8 bank kernel (flash_memattn_h.cu's int8-key instantiation, q
+    and v bf16 or fp32) against its plain version: the tracker shape, a
+    ragged Lq, one row; a masked entry and pad tail (dead tiles skipped), an
+    empty slot (zero queries, all keys masked: 0 out, lse -1e9), with and
+    without the LSE (the same bits), the output and LSE within TOL (bf16)
+    or FP32_TOL (fp32), and within 2e-2 of the output's largest magnitude
+    of flash_memattn over the dequantized keys (only q's rounding
+    differs)."""
+    tol = TOL if dtype == torch.bfloat16 else FP32_TOL
+    q, k, k_i8, ks, v, bias = _q8_inputs(cuda, 3, lq, lk, dtype)
+    assert fa.memattn_q8_kernel(dtype) == ("flash_memattn_q8_h" if dtype == torch.bfloat16
+                                           else "flash_memattn_q8_h_fp32")
     before = fa.flash_memattn_q8.launches
     got, lse = fa.flash_memattn_q8(q, k_i8, ks, v, bias, return_lse=True)
     torch.cuda.synchronize()
     assert fa.flash_memattn_q8.launches == before + 1 and got.shape == (3, 1, lq, 64)
+    assert got.dtype == dtype
     want, want_lse = fa.flash_memattn_q8_plain(q, k_i8, ks, v, bias, return_lse=True)
-    torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=TOL)
-    torch.testing.assert_close(lse, want_lse, atol=TOL, rtol=TOL)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, want_lse, atol=tol, rtol=tol)
     assert (got[1] == 0).all() and (lse[1] == NEG_INF).all()
-    torch.testing.assert_close(fa.flash_memattn_q8(q, k_i8, ks, v, bias).float(), got.float(),
-                               atol=0, rtol=0)
-    k_deq = (k_i8.float() * ks[:, None, :, None]).to(torch.bfloat16)
+    assert torch.equal(fa.flash_memattn_q8(q, k_i8, ks, v, bias), got)
+    k_deq = (k_i8.float() * ks[:, None, :, None]).to(dtype)
     exact = fa.flash_memattn(q, k_deq, v, bias)
     assert _rel_err(got, exact) < 2e-2
 
 
 @pytest.mark.cuda
-def test_flash_memattn_q8_tile_skip_and_zero_rows(cuda):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_flash_memattn_q8_tile_skip_and_zero_rows(cuda, dtype):
     """A live tile between dead ones gives what the same keys give in a
     bank without the dead tiles around them (walking or skipping dead tiles
     does not change the result), and an all-zero query
     row (scale sm_scale * 1e-8 / 127, logits exactly 0) averages the live
     values."""
+    tol = TOL if dtype == torch.bfloat16 else FP32_TOL
     lq, lk = 70, 1024
-    q, _, k_i8, ks, v, _ = _q8_inputs(cuda, 2, lq, lk)
-    q[1] = _randn(cuda, 1, lq, 256)
+    q, _, k_i8, ks, v, _ = _q8_inputs(cuda, 2, lq, lk, dtype)
+    q[1] = _randn(cuda, 1, lq, 256, dtype=dtype)
     q[0, 0, 3] = 0
     bias = torch.full((2, lk), NEG_INF, device=cuda)
     bias[:, 128:192] = 0.0  # one live 64-key tile
@@ -446,29 +455,33 @@ def test_flash_memattn_q8_tile_skip_and_zero_rows(cuda):
     got = fa.flash_memattn_q8(q, k_i8, ks, v, bias)
     sub = fa.flash_memattn_q8(q[:1], k_i8[:1, :, 128:256].contiguous(), ks[:1, 128:256].contiguous(),
                               v[:1, :, 128:256], bias[:1, 128:256])
-    torch.testing.assert_close(got[:1].float(), sub.float(), atol=TOL, rtol=TOL)
+    torch.testing.assert_close(got[:1].float(), sub.float(), atol=tol, rtol=tol)
     mean = v[0, 0, 128:192].float().mean(0)
-    torch.testing.assert_close(got[0, 0, 3].float(), mean, atol=TOL, rtol=TOL)
+    torch.testing.assert_close(got[0, 0, 3].float(), mean, atol=tol, rtol=tol)
 
 
 @pytest.mark.cuda
-def test_flash_memattn_q8_reads_strided_inputs(cuda):
-    """q as a merged-heads view, the int8 keys as one layer of a (L, B, S,
-    C) bank: read in place, same result as contiguous copies."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_flash_memattn_q8_reads_strided_inputs(cuda, dtype):
+    """q as a merged-heads view, the int8 keys as one layer of a (B, L, S,
+    C) bank, v a column slice of a wider tensor: read in place, the same
+    bits as contiguous copies."""
+    tol = TOL if dtype == torch.bfloat16 else FP32_TOL
     lq, lk = 130, 256
-    qfull = _randn(cuda, 2, lq, 512)
+    qfull = _randn(cuda, 2, lq, 512, dtype=dtype)
     q = qfull[..., 256:].reshape(2, lq, 1, 256).transpose(1, 2)
-    bank = torch.from_numpy(RNG.integers(-127, 128, (3, 2, lk, 256)).astype(np.int8)).to(cuda)
-    k_i8 = bank[1][:, None]
+    bank = torch.from_numpy(RNG.integers(-127, 128, (2, 3, lk, 256)).astype(np.int8)).to(cuda)
+    k_i8 = bank[:, 1][:, None]
     ks = 0.01 + 0.01 * torch.rand((2, lk), device=cuda)
-    v = _randn(cuda, 2, 1, lk, 64)
+    v = _randn(cuda, 2, lk, 128, dtype=dtype)[..., 32:96][:, None]
+    assert not (q.is_contiguous() or k_i8.is_contiguous() or v.is_contiguous())
     bias = torch.zeros((2, lk), device=cuda)
     got = fa.flash_memattn_q8(q, k_i8, ks, v, bias)
-    want = fa.flash_memattn_q8(q.contiguous(), k_i8.contiguous(), ks, v, bias)
-    torch.testing.assert_close(got.float(), want.float(), atol=0, rtol=0)
+    want = fa.flash_memattn_q8(q.contiguous(), k_i8.contiguous(), ks, v.contiguous(), bias)
+    assert torch.equal(got, want)
     torch.testing.assert_close(got.float(),
                                fa.flash_memattn_q8_plain(q, k_i8, ks, v, bias).float(),
-                               atol=TOL, rtol=TOL)
+                               atol=tol, rtol=tol)
 
 
 @pytest.mark.cuda
@@ -1121,8 +1134,8 @@ def test_flash_sdpa_d80_reads_every_slab(cuda, lq, lk):
                                       ("flash_sdpa_h_fp32", 32), ("flash_sdpa_h_fp32", 64),
                                       ("flash_sdpa_h_fp32", 80), ("flash_sdpa_bwd_h", 32),
                                       ("flash_sdpa_bwd_h", 64), ("flash_sdpa_bwd_h", 80),
-                                      ("flash_sdpa_bwd_dq_h", 64), ("flash_sdpa_bwd_dq_h", 80),
-                                      ("flash_sdpa_bwd_h_fp32", 32),
+                                      ("flash_sdpa_bwd_dq_h", 32), ("flash_sdpa_bwd_dq_h", 64),
+                                      ("flash_sdpa_bwd_dq_h", 80), ("flash_sdpa_bwd_h_fp32", 32),
                                       ("flash_sdpa_bwd_h_fp32", 64), ("flash_sdpa_bwd_h_fp32", 80),
                                       ("flash_sdpa_bwd_dq_h_fp32", 32),
                                       ("flash_sdpa_bwd_dq_h_fp32", 64),
@@ -1132,7 +1145,8 @@ def test_flash_sdpa_d80_reads_every_slab(cuda, lq, lk):
                                       ("flash_sdpa_bwd_dq_wide_f32", 256),
                                       ("flash_sdpa_bwd_dkv_wide_f32", 256),
                                       ("flash_sdpa_h_fp32", 256), ("flash_memattn_h", 256),
-                                      ("flash_memattn_h_fp32", 256)])
+                                      ("flash_memattn_h_fp32", 256), ("flash_memattn_q8_h", 256),
+                                      ("flash_memattn_q8_h_fp32", 256)])
 def test_wgmma_kernels_fit_without_spills(cuda, kernel, d):
     """The wgmma kernels as built: no registers spilled to local memory, at
     least one block of them resident an SM at the main path's 5184 keys
@@ -1140,12 +1154,13 @@ def test_wgmma_kernels_fit_without_spills(cuda, kernel, d):
     accumulator would spill at 2; the d=256 forward and dq kernels also at
     the clip's 36352, the bank kernels at the padded bank's 36864; the
     d=64 / d=80 dq kernels and the fp32 forward at vit_h's 4900 as
-    well)."""
+    well; the bf16 dq kernel at d=32 is the Stage-3 step's, the int8 bank
+    kernels in both dtypes the [pcs] and [fp32] sessions')."""
     if kernel in ("flash_sdpa_bwd_dq_h", "flash_sdpa_bwd_dq_h_fp32", "flash_sdpa_h_fp32"):
         assert fa.kernel_resources(kernel, d, 4900)["spill_bytes"] == 0
     if kernel in ("flash_sdpa_bwd_dq_wide_h", "flash_sdpa_bwd_dq_wide_f32") or d == 256:
         assert fa.kernel_resources(kernel, d, 36352)["blocks_per_sm"] >= 1
-    if kernel.startswith("flash_memattn_h"):
+    if kernel.startswith("flash_memattn"):
         res = fa.kernel_resources(kernel, d, 36864)
         assert res["spill_bytes"] == 0 and res["blocks_per_sm"] >= 1, res
     res = fa.kernel_resources(kernel, d, 5184)
@@ -1367,62 +1382,38 @@ def test_flash_sdpa_bwd_d64_d80_kernels_match_plain(cuda, dtype, tol, d, h, lq, 
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel,d", [("flash_sdpa_bwd_dq", 32)])
-def test_mma_sync_backward_fits_without_spills(cuda, kernel, d):
-    """The mma.sync backward kernel as built (the bf16 dq at d=32, the only
-    one left: the rest are wgmma kernels,
-    test_wgmma_kernels_fit_without_spills): no spills, at least one block
-    resident an SM at 5184 keys."""
-    res = fa.kernel_resources(kernel, d, 5184)
-    assert res["spill_bytes"] == 0 and res["blocks_per_sm"] >= 1, res
-
-
-@pytest.mark.cuda
-def test_mma_sync_entries_refuse_replaced_instantiations(cuda):
-    """The mma.sync entry points refuse the instantiations whose wgmma
-    kernels replaced them (cudaErrorInvalidValue, 1: nothing launched):
-    the dkv kernel of csrc/flash_sdpa_bwd.cu in both dtypes at d=32, 64
-    and 80, its bf16 dq kernel at d=64 and 80 and its fp32 dq kernel at
-    d=32, 64 and 80, and their attribute queries; the bf16 dq at d=32 is
-    still served. (Every forward is a wgmma kernel: the mma.sync forward
-    sources are gone.)"""
-    out = (ctypes.c_int * 4)()
-    stream = torch.cuda.current_stream().cuda_stream
-    for d in (32, 64, 80):
-        assert fa._lib_bwd_attrs()(1, d, 0, 5184, out) == 1
-        assert fa._lib_bwd_attrs()(1, d, 1, 5184, out) == 1
-        assert fa._lib_bwd_attrs()(0, d, 0, 5184, out) == (0 if d == 32 else 1)
-        assert fa._lib_bwd_attrs()(0, d, 1, 5184, out) == 1
-        q = _randn(cuda, 1, 2, 64, d)
-        bias = torch.zeros((1, 64), device=cuda)
-        lse = torch.zeros((1, 2, 64), device=cuda)
-        o = torch.empty_like(q)
-        assert fa._lib_bwd("flash_sdpa_bwd_dkv")(
-            q.data_ptr(), q.data_ptr(), q.data_ptr(), bias.data_ptr(), q.data_ptr(),
-            lse.data_ptr(), lse.data_ptr(), o.data_ptr(), o.data_ptr(), 1, 2, 64, 64, d, 0,
-            0.125, *([0] * 18), stream) == 1
-        if d != 32:  # the bf16 dq kernel at d=64 and 80 (flash_sdpa_bwd_dq_h.cu's)
-            assert fa._lib_bwd("flash_sdpa_bwd_dq")(
-                q.data_ptr(), q.data_ptr(), q.data_ptr(), bias.data_ptr(), q.data_ptr(),
-                q.data_ptr(), lse.data_ptr(), lse.data_ptr(), o.data_ptr(), 1, 2, 64, 64, d, 0,
-                0.125, *([0] * 18), stream) == 1
-    # fp32: the dkv kernel (flash_sdpa_bwd_h_fp32.cu's) and the dq kernel
-    # (flash_sdpa_bwd_dq_h_fp32.cu's) at d=32, 64 and 80
-    for d in (32, 64, 80):
-        q = _randn(cuda, 1, 2, 64, d, dtype=torch.float32)
-        assert fa._lib_bwd("flash_sdpa_bwd_dkv")(
-            q.data_ptr(), q.data_ptr(), q.data_ptr(), bias.data_ptr(), q.data_ptr(),
-            lse.data_ptr(), lse.data_ptr(), q.data_ptr(), q.data_ptr(), 1, 2, 64, 64, d, 1, 0.125,
-            *([0] * 18), stream) == 1
-        assert fa._lib_bwd("flash_sdpa_bwd_dq")(
-            q.data_ptr(), q.data_ptr(), q.data_ptr(), bias.data_ptr(), q.data_ptr(),
-            q.data_ptr(), lse.data_ptr(), lse.data_ptr(), q.data_ptr(), 1, 2, 64, 64, d, 1, 0.125,
-            *([0] * 18), stream) == 1
+@pytest.mark.parametrize("b,lq,lk", [(4, 5184, 5184), (3, 333, 517), (3, 200, 9), (4, 1, 64),
+                                     (3, 700, 130)])
+def test_flash_sdpa_bwd_dq_h_d32_kernel_matches_plain(cuda, b, lq, lk):
+    """The bf16 dq kernel at d=32 (flash_sdpa_bwd_dq_h.cu's d=32
+    instantiation: 192-query blocks of three consumer warpgroups, 64-key
+    tiles) against the plain dq: the Stage-3 shape (4, 8, 5184, 32), ragged
+    Lq and Lk against the block and the tile, a masked 64-key tile in row
+    0 (skipped), a ragged masked tail in row 1, a fully masked last batch
+    row (no live tile: Delta and zeros), dO a strided view of the (B, N, H
+    * D) gradient; Delta within 1e-4, dQ within 2e-2 of its largest
+    magnitude, the same bits when run again."""
+    q, k, v = (_randn(cuda, b, 8, n, 32) for n in (lq, lk, lk))
+    bias = _mask_rows(cuda, b, lk)
+    o, lse = fa.flash_sdpa_plain(q, k, v, bias, return_lse=True)
+    do = _randn(cuda, b, lq, 8 * 32).reshape(b, lq, 8, 32).transpose(1, 2)
+    assert lq == 1 or not do.is_contiguous()
+    assert fa.bwd_dq_kernel(torch.bfloat16, 32) == "flash_sdpa_bwd_dq_h"
+    before = fa.flash_sdpa_bwd_dq.launches
+    dq, delta = fa.flash_sdpa_bwd_dq(q, k, v, bias, o, lse, do, 32 ** -0.5)
     torch.cuda.synchronize()
+    assert fa.flash_sdpa_bwd_dq.launches == before + 1
+    assert dq.dtype == torch.bfloat16 and dq.transpose(1, 2).is_contiguous()
+    dq2, delta2 = fa.flash_sdpa_bwd_dq(q, k, v, bias, o, lse, do, 32 ** -0.5)
+    assert torch.equal(dq, dq2) and torch.equal(delta, delta2)
+    want_dq, want_delta = fa.flash_sdpa_bwd_dq_plain(q, k, v, bias, o, lse, do, 32 ** -0.5)
+    torch.testing.assert_close(delta, want_delta, atol=1e-4, rtol=1e-4)
+    assert _rel_err(dq, want_dq) < 2e-2
+    assert (dq[-1] == 0).all() and torch.isfinite(dq.float()).all()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 80])
+@pytest.mark.parametrize("d", [32, 64, 80])
 @pytest.mark.parametrize("b,h,lq,lk", [(2, 16, 5184, 5184), (3, 2, 333, 517), (3, 3, 130, 70),
                                        (3, 2, 1, 9), (3, 1, 200, 2000)])
 def test_flash_sdpa_bwd_dq_h_kernel_matches_plain(cuda, d, b, h, lq, lk):
@@ -1807,7 +1798,7 @@ def test_large_attention_the_kernels_do_not_take_runs_on_the_card(cuda, dtype, d
 # -------------------------------------------------------------------------
 # the tracker's bank attention (flash_memattn_h.cu, bf16 and fp32) and the
 # fp32 forward at d=256 (flash_sdpa_h_fp32.cu's d=256 kernel): the wgmma
-# kernels that replaced the mma.sync kernel of flash_qsmem.cuh
+# kernels that replaced the mma.sync kernel of the former flash_qsmem.cuh
 
 _S_E, _N_MEM, _BANK = 5184, 7, 36864  # an entry's keys, entries, the padded bank
 
@@ -1878,6 +1869,64 @@ def test_flash_memattn_h_cases_match_plain(cuda, dtype, case):
     assert dead.any() == (case != "slots8")  # every slot live at 8
     assert (got[dead] == 0).all() and (lse[dead] == NEG_INF).all()
     assert torch.equal(fa.flash_memattn(q, k, v, bias), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("case", ["slots1", "slots3", "slots8", "entry", "ragged", "strided",
+                                  "one_row"])
+def test_flash_memattn_q8_h_cases_match_plain(cuda, dtype, case):
+    """The int8 bank kernel (flash_memattn_h.cu's int8-key instantiation:
+    q quantized in the prologue, int8 wgmma for Q K^T; fp32 P V on split
+    parts of v from one split pass that skips dead 64-key tiles) against
+    the plain version. slotsN: the tracker's shape, q (8, 1, 5184, 256) over
+    the padded 36864-key int8 bank with N of 8 slots live, every entry
+    valid (the 576-key pad tail masked), the other slots empty (zeros, lse
+    -1e9, no loads); entry: 3 live slots with one valid entry and one
+    masked in the middle (its tiles skipped); ragged: Lq 333 over 640 keys,
+    a masked entry and a pad tail in row 0, an empty slot; strided: the
+    per-layer bank views, the int8 keys a layer of a (L, B, S, 256) bank and
+    the values a column slice of a wider tensor; one_row: Lq 1, Lk 128. The
+    output within 2e-2 (bf16) or 1e-4 (fp32) of its largest magnitude, the
+    LSE within 1e-2 / 1e-4, the same bits with and without the LSE, one
+    launch of the kernel (and one of the split pass in fp32)."""
+    tol = 2e-2 if dtype == torch.bfloat16 else FP32_TOL
+    b, lq, lk = {"ragged": (3, 333, 640), "strided": (3, 700, 1152),
+                 "one_row": (2, 1, 128)}.get(case, (8, 5184, _BANK))
+    q = _randn(cuda, b, 1, lq, 256, dtype=dtype)
+    if case == "strided":
+        k_i8, ks = fa.quantize_rows(_randn(cuda, 2, b, lk + 64, 256, dtype=dtype))
+        k_i8, ks = k_i8[1, :, :lk][:, None], ks[1, :, :lk, 0]
+        v = _randn(cuda, b, lk, 128, dtype=dtype)[..., 32:96][:, None]
+        assert not k_i8.is_contiguous() and not v.is_contiguous()
+    else:
+        k_i8, ks = fa.quantize_rows(_randn(cuda, b, 1, lk, 256, dtype=dtype))
+        ks = ks[:, 0, :, 0]
+        v = _randn(cuda, b, lk, 64, dtype=dtype)[:, None]
+    if case.startswith("slots"):
+        bias = _bank_bias(cuda, int(case[5:]), _N_MEM)
+    elif case == "entry":
+        bias = _bank_bias(cuda, 3, 3)
+        bias[:, _S_E:2 * _S_E] = NEG_INF
+    else:
+        bias = torch.zeros((b, lk), device=cuda)
+        bias[0, lk // 4: lk // 2] = NEG_INF
+        bias[0, lk - lk // 8:] = NEG_INF
+        bias[-1] = NEG_INF
+    before = (fa.flash_memattn_q8.launches, fa.split_parts.launches)
+    got, lse = fa.flash_memattn_q8(q, k_i8, ks, v, bias, return_lse=True)
+    torch.cuda.synchronize()
+    assert (fa.flash_memattn_q8.launches, fa.split_parts.launches) == (
+        before[0] + 1, before[1] + (1 if dtype == torch.float32 else 0))
+    assert got.dtype == dtype and got.shape == (b, 1, lq, 64)
+    want, want_lse = fa.flash_memattn_q8_plain(q, k_i8, ks, v, bias, return_lse=True)
+    assert _rel_err(got, want) < tol
+    lse_tol = 1e-2 if dtype == torch.bfloat16 else FP32_TOL
+    torch.testing.assert_close(lse, want_lse, atol=lse_tol, rtol=lse_tol)
+    dead = (bias <= NEG_INF / 2).all(-1)
+    assert dead.any() == (case != "slots8")  # every slot live at 8
+    assert (got[dead] == 0).all() and (lse[dead] == NEG_INF).all()
+    assert torch.equal(fa.flash_memattn_q8(q, k_i8, ks, v, bias), got)
 
 
 @pytest.mark.cuda

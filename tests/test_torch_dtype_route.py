@@ -51,8 +51,8 @@ def _memattn(dtype, dk, dv=64, v_dtype=None):
 
 
 def _q8(dtype, dk, dv=64):
-    fa.check_bank_call("flash_memattn_q8", _t(dk, dtype), _t(dv, dtype))
-    return "flash_memattn_q8"
+    dt = fa.check_bank_call("flash_memattn_q8", _t(dk, dtype), _t(dv, dtype))
+    return fa.memattn_q8_kernel(dt)
 
 
 def _xattn(dtype, d):
@@ -85,12 +85,11 @@ CASES = [
     (_sdpa, (F32, 80), "flash_sdpa_h_fp32"),
     (_sdpa, (BF16, 48), ValueError),
     (_sdpa, (F32, 128), ValueError),
-    # its backward kernels on wgmma: the bf16 dkv kernel at d=32, 64 and 80,
-    # the bf16 dq kernel at d=64 and 80, the fp32 dq and dkv kernels at
-    # d=32, 64 and 80 (split bf16 parts) and both kernels at d=256 (fp32 on
-    # split bf16 parts); on mma.sync only the bf16 dq at d=32; other widths
-    # raise
-    (_bwd, (BF16, 32), "flash_sdpa_bwd"),
+    # its backward kernels, all on wgmma: the bf16 dq and dkv kernels at
+    # d=32, 64 and 80, the fp32 dq and dkv kernels at d=32, 64 and 80 (split
+    # bf16 parts) and both kernels at d=256 (fp32 on split bf16 parts);
+    # other widths raise
+    (_bwd, (BF16, 32), "flash_sdpa_bwd_dq_h"),
     (_bwd, (F32, 32), "flash_sdpa_bwd_dq_h_fp32"),
     (_bwd, (F32, 256), "flash_sdpa_bwd_wide_h_fp32"),
     (_bwd, (F16, 256), TypeError),
@@ -110,7 +109,7 @@ CASES = [
     (_dkv, (F32, 64), "flash_sdpa_bwd_h_fp32"),
     (_dkv, (F32, 80), "flash_sdpa_bwd_h_fp32"),
     (_dkv, (F32, 48), ValueError),
-    (_dq, (BF16, 32), "flash_sdpa_bwd"),
+    (_dq, (BF16, 32), "flash_sdpa_bwd_dq_h"),
     (_dq, (F32, 32), "flash_sdpa_bwd_dq_h_fp32"),
     (_dq, (BF16, 256), "flash_sdpa_bwd_wide_h"),
     (_dq, (F32, 256), "flash_sdpa_bwd_wide_h_fp32"),
@@ -122,15 +121,16 @@ CASES = [
     (_dq, (F32, 80), "flash_sdpa_bwd_dq_h_fp32"),
     (_dq, (F32, 48), ValueError),
     (_dq, (BF16, 48), ValueError),
-    # the cached bank, exact (the wgmma kernel of flash_memattn_h.cu, fp32
-    # on split bf16 parts) and int8 keys
+    # the cached bank, exact and over int8 keys (the wgmma kernel of
+    # flash_memattn_h.cu and its int8-key instantiation; fp32 on split bf16
+    # parts)
     (_memattn, (BF16, 256), "flash_memattn_h"),
     (_memattn, (F32, 256), "flash_memattn_h_fp32"),
     (_memattn, (F16, 256), TypeError),
     (_memattn, (F32, 256, 64, BF16), TypeError),
     (_memattn, (F32, 128), ValueError),
-    (_q8, (BF16, 256), "flash_memattn_q8"),
-    (_q8, (F32, 256), "flash_memattn_q8"),
+    (_q8, (BF16, 256), "flash_memattn_q8_h"),
+    (_q8, (F32, 256), "flash_memattn_q8_h_fp32"),
     (_q8, (F16, 256), TypeError),
     (_q8, (F32, 256, 32), ValueError),
     # the decoder's boxRPB cross-attention
@@ -158,16 +158,13 @@ def test_kernel_dtype_and_width_rule(check, args, expect):
             check(*args)
 
 
-# The instantiations of the mma.sync kernels that the wgmma kernels
-# replaced (the forward's register kernel in both dtypes at d=32, 64 and
-# 80, its d=256 kernel in both dtypes and the bank kernel's mma.sync
-# instantiations, the bf16 dkv kernel at d=64 and d=80, the
-# bf16 dq kernel at d=64 and d=80, the fp32 dkv kernel at d=32, 64 and 80,
-# the fp32 dq kernel at d=32, 64 and 80) are not built: their resources
-# cannot be asked for, and neither can a head dim a kernel lacks. Refused
-# before any library is loaded (so here, without a GPU); their C entry
-# points refuse them too
-# (tests/test_torch_cuda.py::test_mma_sync_entries_refuse_replaced_instantiations).
+# The mma.sync kernels that the wgmma kernels replaced (the forward's
+# register kernel in both dtypes at d=32, 64 and 80, its d=256 kernel in
+# both dtypes and the bank kernel's mma.sync instantiations, the dkv kernel
+# in both dtypes at d=32, 64 and 80, the dq kernel in both dtypes at d=32,
+# 64 and 80, the int8 bank kernel) are not built: their resources cannot
+# be asked for, and neither can a head dim a kernel lacks. Refused before
+# any library is loaded (so here, without a GPU).
 @pytest.mark.parametrize("kernel,d", [("flash_sdpa", 80), ("flash_sdpa_fp32", 32),
                                       ("flash_sdpa_fp32", 64), ("flash_sdpa_fp32", 80),
                                       ("flash_sdpa", 256), ("flash_sdpa_h_fp32", 128),
@@ -181,12 +178,14 @@ def test_kernel_dtype_and_width_rule(check, args, expect):
                                       ("flash_sdpa_bwd_dq_fp32", 32),
                                       ("flash_sdpa_bwd_dq_fp32", 64),
                                       ("flash_sdpa_bwd_dq_fp32", 80),
-                                      ("flash_sdpa_bwd_dq_h", 32), ("flash_sdpa_bwd_dq_h", 256),
+                                      ("flash_sdpa_bwd_dq", 32), ("flash_sdpa_bwd_dq_h", 256),
                                       ("flash_sdpa_bwd_h_fp32", 256),
                                       ("flash_sdpa_bwd_dq_h_fp32", 48),
                                       ("flash_sdpa_bwd_dq_h_fp32", 256),
                                       ("flash_memattn", 256), ("flash_memattn_h", 64),
-                                      ("flash_memattn_h_fp32", 128)])
+                                      ("flash_memattn_h_fp32", 128), ("flash_memattn_q8", 256),
+                                      ("flash_memattn_q8_h", 128),
+                                      ("flash_memattn_q8_h_fp32", 64)])
 def test_replaced_instantiations_are_refused(kernel, d):
     with pytest.raises(ValueError, match=f"{kernel} kernel supports|no resource query"):
         fa.kernel_resources(kernel, d)

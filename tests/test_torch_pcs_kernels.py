@@ -70,23 +70,39 @@ def test_quantize_rows_matches_jax(case):
     assert (err <= 0.5 * ps / mul * (1 + 1e-5)).all()
 
 
+# bf16 q and v: both round P to bf16 for P V and the output to bf16, but
+# the Pallas kernel sums the rounded P for the denominator (its ones row)
+# where the port sums the unrounded fp32 P (~2^-9 apart), and a bf16
+# output is 2^-8 relative: 1e-2, atol and rtol, on output and LSE
+TOL_BF16 = 1e-2
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 @pytest.mark.parametrize("return_lse", [False, True])
 @pytest.mark.parametrize("shape", SHAPES)
-def test_flash_memattn_q8_plain_matches_jax_kernel(shape, return_lse):
+def test_flash_memattn_q8_plain_matches_jax_kernel(shape, return_lse, dtype):
     """The plain version of the CUDA kernel == the Pallas q8 kernel
-    (interpret mode, block_q 32, block_k 64) on the same int8 bank."""
+    (interpret mode, block_q 32, block_k 64) on the same int8 bank, with fp32
+    or bf16 q and v (the masked tail of _inputs in both)."""
     q, k, v, bias = _inputs(*shape)
+    jq, jv, pq, pv = jnp.asarray(q), jnp.asarray(v), torch.from_numpy(q), torch.from_numpy(v)
+    tol = TOL
+    if dtype == "bf16":
+        jq, jv = jq.astype(jnp.bfloat16), jv.astype(jnp.bfloat16)
+        pq, pv = pq.bfloat16(), pv.bfloat16()
+        tol = TOL_BF16
     ji, js = jfa.quantize_rows(jnp.asarray(k))
-    want = jfa.flash_memattn_q8(jnp.asarray(q), ji, js[..., 0][:, 0], jnp.asarray(v),
-                                jnp.asarray(bias), block_q=32, block_k=64, interpret=True,
-                                return_lse=return_lse)
+    want = jfa.flash_memattn_q8(jq, ji, js[..., 0][:, 0], jv, jnp.asarray(bias), block_q=32,
+                                block_k=64, interpret=True, return_lse=return_lse)
     pi, ps = fa.quantize_rows(torch.from_numpy(k))
-    got = fa.flash_memattn_q8(torch.from_numpy(q), pi, ps[:, 0, :, 0], torch.from_numpy(v),
-                              torch.from_numpy(bias), return_lse=return_lse)
+    got = fa.flash_memattn_q8(pq, pi, ps[:, 0, :, 0], pv, torch.from_numpy(bias),
+                              return_lse=return_lse)
     if return_lse:
-        np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), atol=TOL, rtol=TOL)
+        np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), atol=tol, rtol=tol)
         got, want = got[0], want[0]
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=TOL)
+    assert got.dtype == pv.dtype
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("shape", SHAPES)

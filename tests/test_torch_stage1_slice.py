@@ -2,7 +2,8 @@
 port against the JAX package, on the CPU in fp32:
 
   - the plain d=64 and d=80 attention backward (``flash_sdpa_bwd_dq_plain``
-    / ``_dkv_plain``, the arithmetic of csrc/flash_sdpa_bwd.cu) against the
+    / ``_dkv_plain``, the arithmetic of csrc/flash_sdpa_bwd_dq_h.cu and
+    csrc/flash_sdpa_bwd_h.cu) against the
     Pallas ``_flash_bwd`` in interpret mode, and ``flash_sdpa`` under
     autograd against ``jax.grad`` of the JAX ``flash_sdpa``;
   - ``DropPath`` (identity, per-sample masks from a generator, the refusal

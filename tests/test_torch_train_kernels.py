@@ -2,8 +2,9 @@
 through the JAX package's Pallas kernels in interpret mode (as
 tests/test_flash_attention.py runs them), on the CPU:
 
-  - ``flash_sdpa_bwd_plain`` (the arithmetic of csrc/flash_sdpa_bwd.cu's dq
-    and dkv kernels, head dims 32 and 256) against the custom VJP of the JAX
+  - ``flash_sdpa_bwd_plain`` (the arithmetic of the dq and dkv kernels,
+    csrc/flash_sdpa_bwd_dq_h.cu and csrc/flash_sdpa_bwd_h.cu at head dim 32
+    and csrc/flash_sdpa_bwd_wide_h.cu at 256) against the custom VJP of the JAX
     ``flash_sdpa`` (``_flash_bwd``: ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``);
   - ``layer_norm_bwd_plain`` (the Triton backward's arithmetic) against the
     VJP of the JAX ``layer_norm`` (``_bwd_call`` / ``_bwd_kernel``);
