@@ -13,9 +13,13 @@ Phases, each printing its own lines:
      flash_sdpa_bwd_dq_h at d=32, 64 and 80, flash_sdpa_bwd_h_fp32 and
      flash_sdpa_bwd_dq_h_fp32 at d=32, 64 and 80, the bf16 d=256 pair
      flash_sdpa_bwd_dq_wide_h / flash_sdpa_bwd_dkv_wide_h and the fp32 one
-     flash_sdpa_bwd_dq_wide_f32 / flash_sdpa_bwd_dkv_wide_f32) one line of
-     registers, spilled bytes and shared memory a block, and blocks an SM,
-     as the runtime reports them;
+     flash_sdpa_bwd_dq_wide_f32 / flash_sdpa_bwd_dkv_wide_f32, and
+     flash_xattn_rpb in bf16 and fp32 at the decoder's 72 x 72 map and its
+     rule's key splits) one line of registers, spilled bytes and shared
+     memory a block, and blocks an SM, as the runtime reports them
+     (flash_xattn_rpb's also the clusters resident at once and its K / V
+     stages); the layer_norm forward's registers, spills, vectors a lane
+     and blocks an SM at 256 channels in its four dtype pairs;
   2. the main path at full width: EfficientViT-b1 ("EV-M") at 1008^2 with
      the MobileCLIP-S0 text tower at context 32, bf16, seeded random
      weights, through the port's Sam3Processor (set_image on a non-square
@@ -33,7 +37,11 @@ Phases, each printing its own lines:
      PyTorch library call computing the same function, and the least time
      the card could take (bytes or operations); the per-call time from the
      host (median of 50 between CUDA events) and the profiler's device
-     time per launch on the main path are printed beside them;
+     time per launch on the main path are printed beside them (the ground's
+     profile checks that flash_xattn_rpb is one kernel launch a call and
+     layer_norm the CUDA forward); layer_norm's row also gives the
+     profiler's device time of one call at its own shape, eager and over a
+     CUDA-graph replay;
   4. output checks: finite outputs of the expected shapes, masks at the
      original resolution, and a small-input run of the tiny test config on
      the card held against the same model in fp32 on the CPU;
@@ -169,8 +177,8 @@ Phases, each printing its own lines:
      just after. Each fp32 instantiation (flash_sdpa d=32 and d=256 (the
      split-bf16 wgmma kernels of csrc/flash_sdpa_h_fp32.cu), its dq
      and dkv at d=32 and d=256, flash_memattn, flash_memattn_q8,
-     flash_xattn_rpb, depthwise_conv2d forward and backward) is held against
-     its fp32 plain version on the inputs of its largest launch there, at
+     flash_xattn_rpb, layer_norm, depthwise_conv2d forward and backward) is
+     held against its fp32 plain version on the inputs of its largest launch there, at
      FP32_TOL, and timed as in phase 3 (library: fp32 SDPA, fp32 F.conv2d
      with cuDNN's TF32 off); at the clip's cross shape the d=256 pair's
      split pass (split_parts) is held bit for bit to split_parts_plain on
@@ -441,6 +449,36 @@ def profile_kernels(fn, train=False):
     return kernels, sum(n for _, _, n in kernels), sum(us for _, us, _ in kernels)
 
 
+def replay_profile(fn, per_graph=20):
+    """(device ms a call, {kernel: device ms a call}) of fn() captured
+    per_graph times in one CUDA graph, under torch.profiler over one
+    replay: where the device time of a call inside a graph goes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            names[e.key] = names.get(e.key, 0.0) + e.self_device_time_total / 1e3 / per_graph
+    del graph
+    return sum(names.values()), names
+
+
 class Capture:
     """Record, per kernel wrapper and head dim (the first tensor's last
     axis), the arguments of its largest call (by the sizes of the first two
@@ -641,6 +679,27 @@ def main():
         log(f"[build] {kernel} d={d}: {r['registers']} registers a thread, {r['spill_bytes']} "
             f"bytes of local memory (spills) a thread, {r['smem_bytes']} bytes of shared memory "
             f"a block, {r['blocks_per_sm']} blocks an SM")
+    # the decoder's cross-attention at its 72 x 72 map, 8 heads, 201 queries
+    for dtype in (torch.bfloat16, torch.float32):
+        xattn_splits = fa.xattn_splits_for(dtype, 8, 201, (72, 72))
+        r = fa.xattn_resources(dtype, (72, 72), xattn_splits)
+        log(f"[build] flash_xattn_rpb {str(dtype)[6:]} 72x72 in {xattn_splits} key splits: "
+            f"{r['registers']} registers a thread, {r['spill_bytes']} bytes spilled, "
+            f"{r['smem_bytes']} bytes of shared memory a block, {r['blocks_per_sm']} blocks an SM, "
+            f"{r['max_clusters']} clusters of {xattn_splits} resident at once "
+            f"({-(-201 // 64) * 8} in the grid), {r['stages']} K/V stages")
+        if r["spill_bytes"]:
+            raise AssertionError(f"flash_xattn_rpb {dtype} spills {r['spill_bytes']} bytes")
+    for x_dtype, y_dtype in ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+                             (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)):
+        for col_stride, what in ((1, "rows"), (5184, "a channel-major map's columns")):
+            r = ln.kernel_resources(x_dtype, y_dtype, 256, col_stride)
+            log(f"[build] layer_norm {str(x_dtype)[6:]} -> {str(y_dtype)[6:]} at 256 channels "
+                f"({what}): path {r['path']} (vectors a lane; -1 the column path), "
+                f"{r['registers']} registers a thread, {r['spill_bytes']} bytes spilled, "
+                f"{r['blocks_per_sm']} blocks an SM")
+            if r["spill_bytes"]:
+                raise AssertionError(f"layer_norm {x_dtype} -> {y_dtype} spills")
     dev = torch.device("cuda")
 
     # ---------------------------------------------------------------- 2
@@ -724,10 +783,20 @@ def main():
             log(f"[profile] {stage}:   {us / 1e3:8.4f} ms  x{n:<4d} {name[:90]}")
         for name, us, n in kernels:
             for key, pattern in (("flash_sdpa", "flash_sdpa_h_kernel<32>"),
-                                 ("flash_xattn_rpb", "flash_xattn_rpb_"),
-                                 ("layer_norm", "_ln_fwd")):
-                if pattern in name:  # flash_xattn_rpb runs two kernels per call
+                                 ("flash_xattn_rpb", "flash_xattn_rpb_kernel<"),
+                                 ("layer_norm", "ln_fwd_")):
+                if pattern in name:
                     device_ms[key] = device_ms.get(key, 0.0) + us / 1e3 / MAIN_COUNTS[key]
+        if stage == "ground":  # each wrapper call is one launch of its kernel
+            for key, family, pattern in (("flash_xattn_rpb", "flash_xattn_rpb", "flash_xattn_rpb_kernel<"),
+                                         ("layer_norm", "ln_fwd", "ln_fwd_")):
+                seen = sum(n for name, _, n in kernels if family in name)
+                own = sum(n for name, _, n in kernels if pattern in name)
+                if seen != own or own != MAIN_COUNTS[key]:
+                    raise AssertionError(f"[profile] ground: {own} launches of {pattern} ({seen} "
+                                         f"of {family}*), want {MAIN_COUNTS[key]}: one a call")
+            log(f"[profile] ground: flash_xattn_rpb {MAIN_COUNTS['flash_xattn_rpb']} kernel "
+                f"launches (one a call), layer_norm {MAIN_COUNTS['layer_norm']} (the CUDA forward)")
         write_out(f"profile_{stage}.txt",
                   "\n".join(f"{us:12.2f} us  x{n:<5d} {name}" for name, us, n in kernels))
     log(f"[profile] device ms per wrapper call on the main path, our kernels: "
@@ -761,8 +830,10 @@ def main():
     full_bias = fa.rpb_bias(ey, ex, feat_hw).to(q.dtype)
     nb = 2 * (q.numel() + k.numel() + v.numel() + got.numel()) + 4 * (ey.numel() + ex.numel())
     bms, by = bound(nb, 4.0 * b * h * lq * lk * d, 1.0 * b * h * lq * lk, 8.0 * b * h * lq * lk)
-    nsplit, per = fa.xattn_splits(b * h, lq, lk,
-                                  torch.cuda.get_device_properties(0).multi_processor_count)
+    splits = fa.xattn_splits_for(q.dtype, b * h, lq, feat_hw)
+    res = fa.xattn_resources(q.dtype, feat_hw, splits)
+    if not torch.equal(fa.flash_xattn_rpb(q, k, v, ey, ex, feat_hw, scale), got):
+        raise AssertionError("flash_xattn_rpb: two calls differ (its merge sums in a fixed order)")
     rows.append(dict(
         name="flash_xattn_rpb", route="cuda",
         source="efficientsam3_tpu_torch/csrc/flash_xattn_rpb.cu",
@@ -774,8 +845,11 @@ def main():
         bound_ms=bms, bound_by=by,
         library_ms=graph_time(
             lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=full_bias, scale=scale)),
-        shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16, ey/ex f32, "
-              f"{nsplit} kv splits of {per} tiles", **{"pass": True},
+        shape=f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16, ey/ex f32, {splits} key splits "
+              f"= the cluster size ({res['registers']} registers, {res['spill_bytes']} bytes "
+              f"spilled, {res['smem_bytes']} B shared, {res['blocks_per_sm']} blocks an SM, "
+              f"{res['stages']} K/V stages, {res['max_clusters']} clusters resident); two calls "
+              f"bit-identical", **{"pass": True},
     ))
 
     # layer_norm at the fusion encoder's (5184, 256) norms
@@ -786,16 +860,24 @@ def main():
     rows_, c = x.numel() // x.shape[-1], x.shape[-1]
     nb = x.numel() * x.element_size() + got.numel() * got.element_size() + 8 * c
     bms, by = bound(nb, fp32_ops=8.0 * rows_ * c)
+    ln_call = lambda: ln.layer_norm(x, wt, bs, eps, out_dtype)  # noqa: E731
+    _, _, eager_us = profile_kernels(ln_call)
+    replay_ms, replay_kernels = replay_profile(ln_call)
+    res = ln.kernel_resources(x.dtype, out_dtype, c, x.stride(-1))
     rows.append(dict(
-        name="layer_norm", route="triton", source="efficientsam3_tpu_torch/ops/layer_norm.py",
+        name="layer_norm", route="cuda", source="efficientsam3_tpu_torch/csrc/layer_norm.cu",
         replaces="efficientsam3_tpu/ops/pallas/layer_norm.py:71",
         launches=launches["layer_norm"], max_abs_err=err,
-        ms=graph_time(lambda: ln.layer_norm(x, wt, bs, eps, out_dtype)),
-        call_ms=cuda_time(lambda: ln.layer_norm(x, wt, bs, eps, out_dtype), 50),
+        ms=graph_time(ln_call), call_ms=cuda_time(ln_call, 50),
         plain_ms=graph_time(lambda: ln.layer_norm_plain(x, wt, bs, eps, out_dtype)),
         bound_ms=bms, bound_by=by,
         library_ms=graph_time(lambda: F.layer_norm(x, (c,), wt_x, bs_x, eps)),
-        shape=f"x {tuple(x.shape)} {x.dtype} -> {out_dtype}", **{"pass": True},
+        shape=f"x {tuple(x.shape)} strides {x.stride()} {x.dtype} -> {out_dtype}, w/b "
+              f"{wt.dtype}; profiler at this shape: {eager_us / 1e3:.4f} ms eager, "
+              f"{replay_ms:.4f} ms a call in a graph replay "
+              f"({', '.join(f'{k[:40]} {v:.4f}' for k, v in replay_kernels.items())}); "
+              f"path {res['path']} (-1: the column path), {res['registers']} registers, "
+              f"{res['blocks_per_sm']} blocks an SM", **{"pass": True},
     ))
     for r in rows:
         # per-launch device time on the main path (profiler), beside the
@@ -2654,8 +2736,9 @@ def fp32_phase(smi, main_ref):
         state["text"] = proc.encode_tokens(tokens)
         return proc.add_geometric_prompt(box, True, state)
 
-    capture = Capture([(common, "flash_sdpa"), (common, "flash_xattn_rpb")])
-    with capture:  # warm-up: Triton's fp32 layer_norm, cuDNN plans, captured inputs
+    capture = Capture([(common, "flash_sdpa"), (common, "flash_xattn_rpb"),
+                       (common, "layer_norm")])
+    with capture:  # warm-up: cuDNN plans, captured inputs
         main_path()
     torch.cuda.synchronize()
     reset()
@@ -2674,9 +2757,12 @@ def fp32_phase(smi, main_ref):
         res = ground()
         out = {k: res[k].float().cpu() for k in GROUND_KEYS}
         ground_ms = cuda_time(ground, 10)
-    # the fp32 ground runs only fp32 kernels: flash_xattn_rpb's partial and merge
+    # the fp32 ground runs only fp32 kernels: flash_xattn_rpb one launch a call
+    # (after its two split passes), layer_norm the fp32 CUDA forward
     dev_ground = per_launch(ground, {"flash_sdpa_fp32": ("flash_sdpa_h_f32_kernel<32>", 6),
-                                     "flash_xattn_rpb_fp32": ("flash_xattn_rpb_", 6)})
+                                     "flash_xattn_rpb_fp32": ("flash_xattn_rpb_kernel<float>", 6),
+                                     "layer_norm_fp32": ("ln_fwd_", 27)},
+                            exact=("flash_xattn_rpb_fp32", "layer_norm_fp32"))
     log(f"[fp32] ground {ground_ms:.3f} ms (bf16 build: {main_ref['ground_ms']:.3f} ms); kept "
         f"{len(state['scores'])} of 200 queries | {smi}")
 
@@ -2754,16 +2840,40 @@ def fp32_phase(smi, main_ref):
                                                                       scale), FP32_TOL)
     full_bias = fa.rpb_bias(ey, ex, feat_hw)
     bms, by = attn_bound(q.numel(), b * h * lq * k.shape[2], d, kv_elems=k.numel() + v.numel())
+    splits = fa.xattn_splits_for(q.dtype, b * h, lq, feat_hw)
+    res = fa.xattn_resources(q.dtype, feat_hw, splits)
+    if not torch.equal(fa.flash_xattn_rpb(q, k, v, ey, ex, feat_hw, scale), got):
+        raise AssertionError("[fp32] flash_xattn_rpb: two calls differ")
     rows.append(row("flash_xattn_rpb_fp32", "flash_xattn_rpb.cu", "flash_attention.py:898",
                     MAIN_COUNTS["flash_xattn_rpb"], err,
                     lambda: fa.flash_xattn_rpb(q, k, v, ey, ex, feat_hw, scale),
                     lambda: fa.flash_xattn_rpb_plain(q, k, v, ey, ex, feat_hw, scale),
                     graph_time(lambda: F.scaled_dot_product_attention(
                         q, k, v, attn_mask=full_bias, scale=scale), 5, 10),
-                    bms, by, f"q {tuple(q.shape)} k/v {tuple(k.shape)} fp32 (split bf16 "
-                    f"products), ey/ex f32; library = fp32 SDPA, full bias",
+                    bms, by, f"q {tuple(q.shape)} k/v {tuple(k.shape)} fp32 (split-bf16 wgmma; "
+                    f"graph and call ms with the two split passes, dev the kernel alone), ey/ex "
+                    f"f32, {splits} key splits = the cluster size ({res['registers']} registers, "
+                    f"{res['spill_bytes']} bytes spilled, {res['smem_bytes']} B shared, "
+                    f"{res['blocks_per_sm']} blocks an SM, {res['stages']} K/V stages, "
+                    f"{res['max_clusters']} clusters resident); two calls bit-identical; "
+                    f"library = fp32 SDPA, full bias",
                     dev_ground.get("flash_xattn_rpb_fp32")))
-    del capture, q, k, v, got, want, lse, want_lse, full_bias, feats, proc, state
+    (x, wt, bs, eps, out_dtype), _ = capture.args[("layer_norm", 256)]
+    got = ln.layer_norm(x, wt, bs, eps, out_dtype)
+    err = check("layer_norm_fp32", got, ln.layer_norm_plain(x, wt, bs, eps, out_dtype), FP32_TOL)
+    c = x.shape[-1]
+    bms, by = bound(x.numel() * 4 + got.numel() * got.element_size() + 8 * c,
+                    fp32_ops=8.0 * x.numel())
+    ln_call = lambda: ln.layer_norm(x, wt, bs, eps, out_dtype)  # noqa: E731
+    replay_ms, _ = replay_profile(ln_call)
+    rows.append(row("layer_norm_fp32", "layer_norm.cu", "layer_norm.py:71",
+                    MAIN_COUNTS["layer_norm"], err, ln_call,
+                    lambda: ln.layer_norm_plain(x, wt, bs, eps, out_dtype),
+                    graph_time(lambda: F.layer_norm(x, (c,), wt, bs, eps), 5, 10),
+                    bms, by, f"x {tuple(x.shape)} {x.dtype} -> {out_dtype}; the profiler's "
+                    f"{replay_ms:.4f} ms a call in a graph replay; library = fp32 F.layer_norm",
+                    dev_ground.get("layer_norm_fp32")))
+    del capture, q, k, v, got, want, lse, want_lse, full_bias, feats, proc, state, x
     torch.cuda.empty_cache()
     log(f"[fp32] ground part {time.perf_counter() - t0:.1f} s")
 

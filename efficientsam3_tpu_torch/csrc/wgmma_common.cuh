@@ -8,11 +8,13 @@
 // flash_sdpa_bwd_h_fp32.cu and flash_sdpa_bwd_dq_h_fp32.cu: the dK / dV and
 // the dQ backward at d = 32, 64 and 80 on fp32 operands;
 // flash_sdpa_bwd_wide_h.cu: the bf16 dQ and dK / dV backward at d = 256;
-// flash_sdpa_bwd_wide_h_fp32.cu: the same at d = 256 on fp32 operands):
-// mbarriers, TMA loads, wgmma shared memory descriptors and instructions,
-// named barriers, the exchanges between consumer warpgroups, the live-tile
-// list, and on the host the tensor maps, encoded through
-// cudaGetDriverEntryPoint (no -lcuda).
+// flash_sdpa_bwd_wide_h_fp32.cu: the same at d = 256 on fp32 operands;
+// flash_xattn_rpb.cu: the decoder's boxRPB cross-attention in bf16 and
+// fp32): mbarriers, TMA loads, wgmma shared memory descriptors and
+// instructions, named barriers, thread-block cluster barriers and reads of
+// a partner block's shared memory, the exchanges between consumer
+// warpgroups, the live-tile list, and on the host the tensor maps, encoded
+// through cudaGetDriverEntryPoint (no -lcuda).
 //
 // Layouts. A (rows x D) bf16 tile is loaded by TMA in slabs of slab_cols(D)
 // columns, each slab a box whose rows carry the swizzle of their width:
@@ -42,8 +44,8 @@
 // Split parts (fp32 operands). wgmma multiplies bf16, so an fp32 operand x
 // goes in as two bf16 parts, hi = bf16(x) (round to nearest even) and lo =
 // bf16(x - hi) (split_pair), and a product a b as hi_a hi_b + hi_a lo_b +
-// lo_a hi_b into one fp32 accumulator (attn_common.cuh has the same rule
-// for the mma.sync kernels). A part is an ordinary bf16 tile: TMA loads it
+// lo_a hi_b into one fp32 accumulator (lo_a lo_b, ~2^-16 of the product,
+// is dropped). A part is an ordinary bf16 tile: TMA loads it
 // from a split copy, or a kernel writes it into shared memory itself in
 // the swizzle TMA would give it (swz128 at d = 256, Tile::at at d <= 80,
 // then fence_proxy_async before wgmma reads it).
@@ -396,6 +398,41 @@ __device__ __forceinline__ void named_sync(int id) {
 template <int N>
 __device__ __forceinline__ void named_arrive(int id) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(N) : "memory");
+}
+
+// ---- thread-block clusters
+// This block's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// Every thread of every block of the cluster: shared-memory writes before
+// it are seen by reads after it in any block of the cluster.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// The address of this block's shared address `saddr` in block `rank` of
+// the cluster (distributed shared memory), and 8 or 16 bytes read there
+// (volatile: not moved across cluster_sync; no memory clobber, so that
+// several reads can be in flight at once).
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t saddr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(saddr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ float2 ld_cluster_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr));
+  return v;
 }
 
 // Exchanges between two consumer warpgroups through shared memory, value e

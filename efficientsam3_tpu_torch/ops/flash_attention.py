@@ -25,14 +25,16 @@ its kernel for CUDA tensors, raising on what the kernel does not take
 dtypes; head dims it was not built for; ``models/common.flash_eligible``
 sends such attentions to the matmul path before they get here). Every
 kernel has a bf16 and an fp32 instantiation, the fp32 one on split bf16
-parts (csrc/attn_common.cuh, csrc/wgmma_common.cuh); outputs come back in
+parts (csrc/wgmma_common.cuh); outputs come back in
 the operands' dtype, the log-sum-exp in fp32. Each counts its kernel
 launches in ``<wrapper>.launches``; the ``flash_sdpa`` forward is the wgmma
 kernel ``csrc/flash_sdpa_h.cu`` in bf16 and ``csrc/flash_sdpa_h_fp32.cu`` in
 fp32 (split bf16 parts) at d=32, 64, 80 and 256 (``sdpa_kernel`` says which
 kernel a call reaches), ``flash_memattn`` the wgmma kernel
 ``csrc/flash_memattn_h.cu`` in both dtypes (``memattn_kernel``), and
-``flash_memattn_q8`` its int8-key instantiations (``memattn_q8_kernel``);
+``flash_memattn_q8`` its int8-key instantiations (``memattn_q8_kernel``),
+``flash_xattn_rpb`` the wgmma kernel ``csrc/flash_xattn_rpb.cu`` (one
+launch, its key splits merged inside a thread-block cluster);
 ``flash_sdpa_bwd_dkv`` at d=32, 64 and 80 is the wgmma kernel
 ``csrc/flash_sdpa_bwd_h.cu`` in bf16 and ``csrc/flash_sdpa_bwd_h_fp32.cu`` in
 fp32 (split bf16 parts), ``flash_sdpa_bwd_dq`` at d=32, 64 and 80
@@ -41,8 +43,8 @@ in fp32 (``bwd_dkv_kernel``, ``bwd_dq_kernel``), and both backward kernels
 at d=256 those of ``csrc/flash_sdpa_bwd_wide_h.cu``
 in bf16 and ``csrc/flash_sdpa_bwd_wide_h_fp32.cu`` in fp32 (the fp32 wgmma
 kernels read split bf16 copies of their streamed operands, made by
-``split_parts``; so do the fp32 forwards). Under autograd (grad
-mode on and an input requiring a gradient) ``flash_sdpa`` runs as an
+``split_parts``; so do the fp32 forwards and ``flash_xattn_rpb``). Under
+autograd (grad mode on and an input requiring a gradient) ``flash_sdpa`` runs as an
 autograd Function whose backward is the two backward kernels; the
 forward-only ``flash_memattn``, ``flash_memattn_q8`` and
 ``flash_xattn_rpb`` raise there rather than return a tensor cut from the
@@ -70,8 +72,8 @@ _SUPPORTED_D = (32, 64, 80, 256)
 # trunks' global blocks in Stage-1 training (64, 80), memory attention (256)
 _BWD_D = (32, 64, 80, 256)
 _MEMATTN_DIMS = ((256, 64),)  # (dk, dv) of flash_memattn's kernel
-_BK = 64  # key tile of flash_xattn_rpb (attn_common.cuh BK)
-_BQ = 64  # its query tile (attn_common.cuh BQ)
+_XATTN_TILE = 64  # query and key tile of flash_xattn_rpb (csrc/flash_xattn_rpb.cu BM, BN)
+_XATTN_MAX_CLUSTER = 8  # its key splits, one cluster: the portable cluster size
 
 _I, _LL, _F, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p
 
@@ -400,8 +402,28 @@ def _tma_rows(rows, fill):
 
 
 def _lib_xattn():
+    """``flash_xattn_rpb_fwd`` of csrc/flash_xattn_rpb.cu: q, k, v, ey, ex,
+    o; 9 ints, the scale, q's, k's, v's and o's (B, H, N) strides, the
+    stream."""
     return _bind("flash_xattn_rpb", "flash_xattn_rpb_fwd",
-                 [_P] * 8 + [_I] * 10 + [_F] + [_LL] * 12 + [_P])
+                 [_P] * 6 + [_I] * 9 + [_F] + [_LL] * 12 + [_P])
+
+
+def _lib_xattn_attrs():
+    return _bind("flash_xattn_rpb", "flash_xattn_rpb_attrs", [_I] * 4 + [_P])
+
+
+def xattn_resources(dtype, feat_hw, splits):
+    """The resources of ``flash_xattn_rpb``'s kernel (bf16 or fp32) for an
+    h x w map in ``splits`` key splits, on the current device: registers and
+    spilled bytes a thread, shared bytes a block, resident blocks an SM,
+    clusters of ``splits`` blocks resident at once on the device, and the
+    K / V stages a block holds."""
+    out = (ctypes.c_int * 6)()
+    status = _lib_xattn_attrs()(int(dtype == torch.float32), feat_hw[0], feat_hw[1], splits, out)
+    _build.check(status, "flash_xattn_rpb attributes")
+    return dict(zip(("registers", "spill_bytes", "smem_bytes", "blocks_per_sm", "max_clusters",
+                     "stages"), out))
 
 
 def _flash_sdpa_fwd(q, k, v, key_bias, sm_scale, return_lse):
@@ -972,22 +994,55 @@ def _num_sms(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def xattn_splits(batch_heads: int, lq: int, lk: int, num_sms: int):
-    """(splits, key tiles per split) so that about 2 blocks per SM run."""
-    q_tiles = -(-lq // _BQ)
-    k_tiles = -(-lk // _BK)
-    want = max(1, min(k_tiles, -(-2 * num_sms // (q_tiles * batch_heads))))
-    per = -(-k_tiles // want)
-    return -(-k_tiles // per), per
+def xattn_cluster(batch_heads: int, lq: int, lk: int, slots: int, resident=None) -> int:
+    """The key splits of ``flash_xattn_rpb``, which are its cluster size:
+    the most, up to 8 (the portable cluster size) and the key tiles, that
+    keep the grid (splits x query tiles x batch_heads blocks) one wave:
+    within ``slots`` blocks (SMs x blocks an SM) and, with ``resident``
+    (splits -> clusters of that size the card holds at once), every cluster
+    resident. At least 1."""
+    clusters = -(-lq // _XATTN_TILE) * batch_heads
+    for splits in range(min(_XATTN_MAX_CLUSTER, -(-lk // _XATTN_TILE)), 1, -1):
+        if splits * clusters <= slots and (resident is None or clusters <= resident(splits)):
+            return splits
+    return 1
 
 
-def flash_xattn_rpb(q, k, v, ey, ex, feat_hw, sm_scale=None):
+@functools.lru_cache(maxsize=None)
+def _xattn_occupancy(device_index, fp32, feat_hw, splits):
+    """(blocks an SM, clusters of ``splits`` resident at once) of the kernel
+    on a device, for an h x w map."""
+    with torch.cuda.device(device_index):
+        res = xattn_resources(torch.float32 if fp32 else torch.bfloat16, feat_hw, splits)
+    return res["blocks_per_sm"], res["max_clusters"]
+
+
+def xattn_splits_for(dtype, batch_heads, lq, feat_hw, device_index=0):
+    """The key splits ``flash_xattn_rpb`` takes on a CUDA device:
+    ``xattn_cluster`` on its SMs and the kernel's occupancy there."""
+    fp32 = dtype == torch.float32
+
+    def resident(splits):
+        return _xattn_occupancy(device_index, fp32, tuple(feat_hw), splits)[1]
+    slots = _num_sms(device_index) * _xattn_occupancy(device_index, fp32, tuple(feat_hw), 1)[0]
+    return xattn_cluster(batch_heads, lq, feat_hw[0] * feat_hw[1], slots, resident)
+
+
+def xattn_split_tiles(k_tiles: int, splits: int):
+    """The key tiles [start, stop) of each split, as the kernel takes them:
+    split s has [s k_tiles // splits, (s + 1) k_tiles // splits)."""
+    return [(s * k_tiles // splits, (s + 1) * k_tiles // splits) for s in range(splits)]
+
+
+def flash_xattn_rpb(q, k, v, ey, ex, feat_hw, sm_scale=None, splits=None):
     """Flash cross-attention with the decoder's boxRPB bias decomposed.
 
     q (B, H, NQ, D); k, v (B, H, L, D) with L == h*w (row-major image
     tokens), all bf16 or all fp32; ey (B, H, NQ, h), ex (B, H, NQ, w) f32
     with bias[b, n, q, y*w+x] = ey[b, n, q, y] + ex[b, n, q, x]. Returns
-    (B, H, NQ, D) in q.dtype. Forward only.
+    (B, H, NQ, D) in q.dtype. Forward only. On CUDA one kernel launch (fp32
+    after the two split passes of k and v); ``splits`` (1 to 8, at most the
+    64-key tiles) overrides ``xattn_cluster``'s key splits.
     """
     h_img, w_img = feat_hw
     b, hn, lq, d = q.shape
@@ -1007,18 +1062,23 @@ def flash_xattn_rpb(q, k, v, ey, ex, feat_hw, sm_scale=None):
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     ey = ey.float().contiguous()
     ex = ex.float().contiguous()
-    nsplit, per = xattn_splits(b * hn, lq, lk, _num_sms(q.device.index))
+    k_tiles = -(-lk // _XATTN_TILE)
+    if splits is None:
+        splits = xattn_splits_for(q.dtype, b * hn, lq, (h_img, w_img), q.device.index)
+    elif not 1 <= splits <= min(_XATTN_MAX_CLUSTER, k_tiles):
+        raise ValueError(f"flash_xattn_rpb: {splits} splits for {k_tiles} key tiles "
+                         f"(1 to {_XATTN_MAX_CLUSTER})")
     o = torch.empty((b, lq, hn, d), dtype=q.dtype, device=q.device)
-    part_acc = torch.empty((b * hn, nsplit, lq, d), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((b * hn, nsplit, lq, 2), dtype=torch.float32, device=q.device)
     o_bhn = o.transpose(1, 2)
     fn = _lib_xattn()
     with torch.cuda.device(q.device):  # the launch goes to the current device
+        if fp32:  # the kernel reads split bf16 copies of k and v
+            k, v = split_parts(k), split_parts(v)
         status = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), ey.data_ptr(), ex.data_ptr(),
-            o.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-            b, hn, lq, lk, d, fp32, h_img, w_img, nsplit, per, float(sm_scale),
-            *_bhn_strides(q), *_bhn_strides(k), *_bhn_strides(v), *_bhn_strides(o_bhn),
+            o.data_ptr(), b, hn, lq, lk, d, fp32, h_img, w_img, splits, float(sm_scale),
+            *_bhn_strides(q), *_bhn_strides(k[0] if fp32 else k),
+            *_bhn_strides(v[0] if fp32 else v), *_bhn_strides(o_bhn),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(status, "flash_xattn_rpb launch")

@@ -19,6 +19,7 @@ import pytest
 from efficientsam3_tpu_torch import native
 from efficientsam3_tpu_torch.ops import _build, depthwise, hungarian, mma_probe
 from efficientsam3_tpu_torch.ops import flash_attention as fa
+from efficientsam3_tpu_torch.ops import layer_norm as ln
 
 CSRC = Path(_build.CSRC)
 # C entry points of the device sources (one library a source): the
@@ -52,6 +53,9 @@ BINDINGS = {
     "flash_memattn_q8_h_f32_fwd": fa._lib_memattn_q8_h_f32,
     "flash_memattn_q8_h_attrs": fa._lib_memattn_q8_h_attrs,
     "flash_xattn_rpb_fwd": fa._lib_xattn,
+    "flash_xattn_rpb_attrs": fa._lib_xattn_attrs,
+    "layer_norm_fwd": ln._lib_fwd,
+    "layer_norm_fwd_attrs": ln._lib_fwd_attrs,
     "depthwise_conv2d_fwd": depthwise._lib,
     "depthwise_conv2d_wgrad": lambda: depthwise._lib("depthwise_conv2d_wgrad"),
     "mma_probe_dot_chain": mma_probe._lib,

@@ -150,16 +150,23 @@ def test_flash_xattn_rpb_kernel_matches_plain(cuda, lq, hw):
     torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=TOL)
 
 
+# layer_norm's dtype pairs, and its channel counts: every model of the repo
+# passes it 256 (the fusion encoder's and memory attention's norms, as
+# chip_smoke.Capture records them), and 250, which the 16-byte vector
+# divides in neither dtype (the masked path)
+LN_DTYPES = [(torch.float32, torch.bfloat16), (torch.bfloat16, torch.bfloat16),
+             (torch.float32, torch.float32), (torch.bfloat16, torch.float32)]
+LN_CHANNELS = [256, 250]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("x_dtype,out_dtype", [
-    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.bfloat16),
-    (torch.float32, torch.float32),
-])
-@pytest.mark.parametrize("rows", [5184, 17])
-def test_layer_norm_kernel_matches_plain(cuda, x_dtype, out_dtype, rows):
-    x = 3.0 * _randn(cuda, rows, 256, dtype=x_dtype)
-    w = 1.0 + 0.1 * _randn(cuda, 256, dtype=torch.float32)
-    b = 0.1 * _randn(cuda, 256, dtype=torch.float32)
+@pytest.mark.parametrize("x_dtype,out_dtype", LN_DTYPES)
+@pytest.mark.parametrize("rows", [1, 17, 201, 5184, 20736])
+@pytest.mark.parametrize("c", LN_CHANNELS)
+def test_layer_norm_kernel_matches_plain(cuda, x_dtype, out_dtype, rows, c):
+    x = 3.0 * _randn(cuda, rows, c, dtype=x_dtype)
+    w = 1.0 + 0.1 * _randn(cuda, c, dtype=torch.float32)
+    b = 0.1 * _randn(cuda, c, dtype=torch.float32)
     before = ln.layer_norm.launches
     got = ln.layer_norm(x, w, b, 1e-5, out_dtype)
     torch.cuda.synchronize()
@@ -1973,3 +1980,145 @@ def test_flash_sdpa_h_fp32_d256_cases_match_plain(cuda, case):
     assert dead.any() and (got[dead] == 0).all() and (lse[dead] == NEG_INF).all()
     del want, want_lse
     assert torch.equal(fa.flash_sdpa(q, k, v, bias), got)
+
+
+# ---- flash_xattn_rpb on wgmma + TMA, its key splits merged in a cluster,
+# and layer_norm's CUDA forward
+
+
+def _xattn_inputs(dev, b, lq, hw, dtype, strided=False):
+    """The decoder's cross-attention operands: q, k, v (B, 8, n, 32) (with
+    strided, split_heads views of (B, n, 256) projections, as the decoder
+    hands them in), ey / ex f32 at the scale of its boxRPB bias."""
+    h, d = 8, 32
+    lk = hw[0] * hw[1]
+    if strided:
+        q, k, v = (_randn(dev, b, n, h * d, dtype=dtype).view(b, n, h, d).transpose(1, 2)
+                   for n in (lq, lk, lk))
+    else:
+        q, k, v = (_randn(dev, b, h, n, d, dtype=dtype) for n in (lq, lk, lk))
+    ey = 2.0 * _randn(dev, b, h, lq, hw[0], dtype=torch.float32)
+    ex = 2.0 * _randn(dev, b, h, lq, hw[1], dtype=torch.float32)
+    return q, k, v, ey, ex
+
+
+XATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: FP32_TOL}  # of the largest magnitude
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("splits", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_flash_xattn_rpb_every_cluster_size_matches_plain(cuda, dtype, splits):
+    """The decoder's shape (201 queries over a 72 x 72 map) at every key
+    split count the rule can pick (each the cluster size): within 2e-2
+    (bf16) or 1e-4 (fp32) of the plain version's largest magnitude, one
+    kernel launch a call (fp32: and the two split passes), and the same
+    bits when run again (the merge sums the splits in a fixed order)."""
+    q, k, v, ey, ex = _xattn_inputs(cuda, 1, 201, (72, 72), dtype, strided=True)
+    n_call, n_split = fa.flash_xattn_rpb.launches, fa.split_parts.launches
+    got = fa.flash_xattn_rpb(q, k, v, ey, ex, (72, 72), splits=splits)
+    torch.cuda.synchronize()
+    assert fa.flash_xattn_rpb.launches == n_call + 1
+    assert fa.split_parts.launches == n_split + (2 if dtype == torch.float32 else 0)
+    assert got.dtype == dtype and got.transpose(1, 2).is_contiguous()
+    assert _rel_err(got, fa.flash_xattn_rpb_plain(q, k, v, ey, ex, (72, 72))) < XATTN_TOL[dtype]
+    assert torch.equal(fa.flash_xattn_rpb(q, k, v, ey, ex, (72, 72), splits=splits), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("b,lq,hw", [(1, 201, (72, 72)), (2, 201, (72, 72)), (1, 65, (5, 7)),
+                                     (3, 1, (5, 7)), (1, 201, (127, 127)), (2, 130, (127, 127)),
+                                     (1, 7, (3, 5)), (1, 201, (1, 100))])
+def test_flash_xattn_rpb_maps_match_plain(cuda, dtype, b, lq, hw):
+    """Maps of 5 x 7, 127 x 127 (16129 keys: the stages a ring) and others,
+    ragged query tiles, at the splits the rule picks."""
+    q, k, v, ey, ex = _xattn_inputs(cuda, b, lq, hw, dtype)
+    got = fa.flash_xattn_rpb(q, k, v, ey, ex, hw)
+    torch.cuda.synchronize()
+    assert _rel_err(got, fa.flash_xattn_rpb_plain(q, k, v, ey, ex, hw)) < XATTN_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_flash_xattn_rpb_refuses_split_counts(cuda):
+    q, k, v, ey, ex = _xattn_inputs(cuda, 1, 9, (3, 5), torch.bfloat16)
+    for splits in (0, 2, 9):  # 15 keys are one tile
+        with pytest.raises(ValueError, match="splits"):
+            fa.flash_xattn_rpb(q, k, v, ey, ex, (3, 5), splits=splits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_flash_xattn_rpb_fits_one_wave(cuda, dtype):
+    """The design's occupancy at the decoder's shape: no spills, two
+    blocks an SM (the stages sized to fit), the rule's splits leaving every
+    cluster of the grid (4 query tiles x 8 heads) resident at once: one
+    wave."""
+    splits = fa.xattn_splits_for(dtype, 8, 201, (72, 72))
+    res = fa.xattn_resources(dtype, (72, 72), splits)
+    per_sm = 2
+    assert res["spill_bytes"] == 0 and res["blocks_per_sm"] == per_sm, res
+    assert res["max_clusters"] >= 32 and res["stages"] >= 2, res
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert splits * 32 <= per_sm * sms and splits >= 2, (splits, res)
+    assert fa.xattn_resources(dtype, (127, 127), 8)["blocks_per_sm"] == per_sm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype,out_dtype", LN_DTYPES)
+@pytest.mark.parametrize("c", LN_CHANNELS)
+def test_layer_norm_autograd_dtypes_match_plain_autograd(cuda, x_dtype, out_dtype, c):
+    """Under autograd: the CUDA forward and the Triton backward, one launch
+    each, against autograd of the plain version."""
+    x = (3.0 * _randn(cuda, 2, 201, c, dtype=x_dtype)).requires_grad_()
+    w = (1.0 + 0.1 * _randn(cuda, c, dtype=torch.float32)).requires_grad_()
+    b = (0.1 * _randn(cuda, c, dtype=torch.float32)).requires_grad_()
+    g = _randn(cuda, 2, 201, c, dtype=torch.float32)
+    fwd, bwd = ln.layer_norm.launches, ln.layer_norm_bwd.launches
+    y = ln.layer_norm(x, w, b, 1e-5, out_dtype)
+    got = torch.autograd.grad((y.float() * g).sum(), (x, w, b))
+    assert (ln.layer_norm.launches, ln.layer_norm_bwd.launches) == (fwd + 1, bwd + 1)
+    y_plain = ln.layer_norm_plain(x, w, b, 1e-5, out_dtype)
+    torch.testing.assert_close(y.float(), y_plain.float(), atol=TOL, rtol=TOL)
+    want = torch.autograd.grad((y_plain.float() * g).sum(), (x, w, b))
+    for a, e in zip(got, want):
+        assert _rel_err(a, e) < 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype,out_dtype", LN_DTYPES)
+def test_layer_norm_reads_unaligned_and_strided_rows(cuda, x_dtype, out_dtype):
+    """Rows of a strided view (row stride 264: the vector path), of an
+    unaligned one (stride 257, the base one element in: the masked path),
+    of channel-major maps seen as (1, N, C) (the fusion encoder's tokens:
+    the column path, at 256 and 250 channels, 5184 and 201 rows, and 600
+    channels: the masked path with strided columns) and of a batch of two
+    such maps (its axes do not merge: a copy first)."""
+    for c, make in ((256, lambda: (3.0 * _randn(cuda, 300, 264, dtype=x_dtype))[:, 8:264]),
+                    (256, lambda: (3.0 * _randn(cuda, 300, 257, dtype=x_dtype))[:, 1:257]),
+                    (256, lambda: (3.0 * _randn(cuda, 1, 256, 5184, dtype=x_dtype)).transpose(1, 2)),
+                    (250, lambda: (3.0 * _randn(cuda, 1, 250, 201, dtype=x_dtype)).transpose(1, 2)),
+                    (600, lambda: (3.0 * _randn(cuda, 1, 600, 77, dtype=x_dtype)).transpose(1, 2)),
+                    (256, lambda: (3.0 * _randn(cuda, 2, 256, 999, dtype=x_dtype)).transpose(1, 2))):
+        x = make()
+        w = 1.0 + 0.1 * _randn(cuda, c, dtype=torch.float32)
+        b = 0.1 * _randn(cuda, c, dtype=torch.float32)
+        before = ln.layer_norm.launches
+        got = ln.layer_norm(x, w, b, 1e-5, out_dtype)
+        assert ln.layer_norm.launches == before + 1 and got.shape == x.shape
+        want = ln.layer_norm_plain(x, w, b, 1e-5, out_dtype)
+        torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype,out_dtype", LN_DTYPES)
+def test_layer_norm_kernel_fits_without_spills(cuda, x_dtype, out_dtype):
+    """At 256 contiguous channels the vector path: one 16-byte load a lane
+    in bf16, two in fp32, no spills; 250 channels the masked path; 256
+    channels 5184 elements apart (a channel-major map) the column path."""
+    res = ln.kernel_resources(x_dtype, out_dtype, 256)
+    assert res["spill_bytes"] == 0 and res["path"] == (1 if x_dtype == torch.bfloat16 else 2)
+    assert res["blocks_per_sm"] >= 4, res
+    assert ln.kernel_resources(x_dtype, out_dtype, 250)["path"] == 0
+    res = ln.kernel_resources(x_dtype, out_dtype, 256, col_stride=5184)
+    assert res["path"] == -1 and res["spill_bytes"] == 0 and res["blocks_per_sm"] >= 4, res
