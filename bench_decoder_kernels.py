@@ -20,7 +20,20 @@ plain version in a graph, one library call (F.scaled_dot_product_attention
 with the full bias at q's dtype; F.layer_norm) and the bound
 (chip_smoke.bound).
 
-    python3 bench_decoder_kernels.py [--other DIR | --splits]
+    python3 bench_decoder_kernels.py [--tracker] [--other DIR | --splits]
+
+With --tracker, the tracker's and the training steps' kernels instead: the
+7x7 depthwise conv (depthwise_conv2d) forward and backward at the memory
+encoder's fuser shape x (8, 72, 72, 256), taps and bias a permuted view of
+a (C, 1, 7, 7) weight in the maps' dtype as CXBlock hands them, bf16 and
+fp32 (held within 1e-2 / 1e-4 of the plain versions' largest magnitude, dw
+and db within 1e-4; library F.conv2d groups=C, channels-last, and its
+backward); and the LayerNorm backward (layer_norm_bwd) at the Stage-3
+step's (4, 5184, 256) and the tracker clip's (8, 5184, 256), row-major and
+channel-major ((B, C, N) maps transposed, as the fusion encoder's tokens),
+x and dy both bf16 or both fp32 (dx within 1e-2 / 1e-4, dw and db within
+1e-3 / 1e-4; library F.layer_norm's backward). Backward library times are
+host-timed calls (chip_smoke.cuda_time): autograd is not captured.
 
 With --splits, the cross-attention alone at the decoder's shape in both
 dtypes at each key split count 1 to 8 (each the cluster size; the kernel's
@@ -46,7 +59,116 @@ NORMS = ((5184, 256, "bf16", "bf16", True), (5184, 256, "bf16", "bf16", False),
          (5184, 256, "fp32", "fp32", False))
 
 
-def measure(label):
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+def measure_tracker(cs, label, smi, failed):
+    """The depthwise conv (forward, backward) and layer_norm_bwd, each held
+    to its plain version and then timed as report() times a kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from efficientsam3_tpu_torch.ops import depthwise as dw
+    from efficientsam3_tpu_torch.ops import layer_norm as ln
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    torch.backends.cudnn.allow_tf32 = False  # the fp32 library conv in fp32
+
+    def timed(what, errs, tols, fn, plain, library, bms, by, lib_graph=True):
+        bad = [f"{k} {errs[k]:.3e} (bound {tols[k]})" for k in errs if not errs[k] <= tols[k]]
+        if bad:
+            print(f"[{label}] {what}: DISAGREES with its plain version: {'; '.join(bad)}: not "
+                  f"timed | {smi}", flush=True)
+            failed.append(what)
+            return
+        ms = cs.graph_time(fn)
+        call_ms = cs.cuda_time(fn, 50)
+        _, _, eager_us = cs.profile_kernels(fn)
+        graph_ms_dev, names = cs.replay_profile(fn)
+        plain_ms = cs.graph_time(plain, 2, 5)
+        lib_ms = cs.graph_time(library) if lib_graph else cs.cuda_time(library, 20)
+        kernels = ", ".join(f"{k[:48]} {v:.4f}" for k, v in
+                            sorted(names.items(), key=lambda kv: -kv[1])[:3])
+        err = ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        print(f"[{label}] {what}: graph {ms:.4f} ms | call {call_ms:.4f} ms | dev eager "
+              f"{eager_us / 1e3:.4f} ms | dev in graph {graph_ms_dev:.4f} ms ({kernels}) | "
+              f"plain {plain_ms:.4f} ms | library {lib_ms:.4f} ms | bound {bms:.4f} ms ({by}) | "
+              f"errors of the largest magnitude: {err} | {smi}", flush=True)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        name = "bf16" if dtype == torch.bfloat16 else "fp32"
+        tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+        shape = (8, 72, 72, 256)
+        c = shape[-1]
+        x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        g = (1e-2 * torch.randn(shape, generator=gen, device=dev)).to(dtype)
+        weight = (0.2 * torch.randn((c, 1, 7, 7), generator=gen, device=dev)).to(dtype)
+        kernel = weight.permute(2, 3, 1, 0)
+        bias = (0.1 * torch.randn((c,), generator=gen, device=dev)).to(dtype)
+        esz = x.element_size()
+        x_cl = x.permute(0, 3, 1, 2)
+        bms, by = cs.bound(2 * esz * x.numel() + esz * (kernel.numel() + c),
+                           fp32_ops=2.0 * 49 * x.numel())
+        got = dw.depthwise_conv2d(x, kernel, bias)
+        timed(f"depthwise_conv2d {name} x {shape}",
+              {"y": _rel(got, dw.depthwise_conv2d_plain(x, kernel, bias))}, {"y": tol},
+              lambda: dw.depthwise_conv2d(x, kernel, bias),
+              lambda: dw.depthwise_conv2d_plain(x, kernel, bias),
+              lambda: F.conv2d(x_cl, weight, bias, padding=3, groups=c), bms, by)
+        got = dw.depthwise_conv2d_bwd(x, kernel, g)
+        want = dw.depthwise_conv2d_bwd_plain(x, kernel, g)
+        bms, by = cs.bound(3 * esz * x.numel() + esz * kernel.numel(),
+                           fp32_ops=4.0 * 49 * x.numel())
+        xl = x_cl.detach().clone().requires_grad_()
+        wl = weight.detach().clone().requires_grad_()
+        bl = bias.detach().clone().requires_grad_()
+        yl = F.conv2d(xl, wl, bl, padding=3, groups=c)
+        gl = g.permute(0, 3, 1, 2)
+        timed(f"depthwise_conv2d_bwd {name} x {shape}",
+              dict(zip(("dx", "dw", "db"), (_rel(a, b) for a, b in zip(got, want)))),
+              {"dx": tol, "dw": 1e-4, "db": 1e-4},
+              lambda: dw.depthwise_conv2d_bwd(x, kernel, g),
+              lambda: dw.depthwise_conv2d_bwd_plain(x, kernel, g),
+              lambda: torch.autograd.grad(yl, (xl, wl, bl), gl, retain_graph=True), bms, by,
+              lib_graph=False)
+        del x, g, got, want, xl, wl, bl, yl
+
+    for (b, n), cmajor, dtype in ((bnc, cm, dt) for bnc in ((4, 5184), (8, 5184))
+                                  for cm in (True, False)
+                                  for dt in (torch.bfloat16, torch.float32)):
+        name = "bf16" if dtype == torch.bfloat16 else "fp32"
+        c = 256
+        if cmajor:
+            x, g = ((3.0 * torch.randn((b, c, n), generator=gen, device=dev)).to(dtype)
+                    .transpose(1, 2) for _ in range(2))
+        else:
+            x, g = ((3.0 * torch.randn((b, n, c), generator=gen, device=dev)).to(dtype)
+                    for _ in range(2))
+        w = 1.0 + 0.1 * torch.randn((c,), generator=gen, device=dev)
+        got = ln.layer_norm_bwd(x, w, g, 1e-5)
+        want = ln.layer_norm_bwd_plain(x, w, g, 1e-5)
+        tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+        esz = x.element_size()
+        bms, by = cs.bound(3 * esz * x.numel(), fp32_ops=16.0 * x.numel())
+        xl = x.detach().clone().requires_grad_()
+        wl = w.detach().clone().to(dtype).requires_grad_()
+        bl = torch.zeros_like(wl, requires_grad=True)
+        yl = F.layer_norm(xl, (c,), wl, bl, 1e-5)
+        timed(f"layer_norm_bwd {name} ({b}, {n}, {c}){' channel-major' if cmajor else ''}",
+              dict(zip(("dx", "dw", "db"), (_rel(a, e) for a, e in zip(got, want)))),
+              {"dx": tol, "dw": 1e-3 if dtype == torch.bfloat16 else 1e-4,
+               "db": 1e-3 if dtype == torch.bfloat16 else 1e-4},
+              lambda: ln.layer_norm_bwd(x, w, g, 1e-5),
+              lambda: ln.layer_norm_bwd_plain(x, w, g, 1e-5),
+              lambda: torch.autograd.grad(yl, (xl, wl, bl), g, retain_graph=True), bms, by,
+              lib_graph=False)
+        del x, g, got, want, xl, wl, bl, yl
+        torch.cuda.empty_cache()
+
+
+def measure(label, tracker=False):
     import torch
     import torch.nn.functional as F
 
@@ -66,6 +188,12 @@ def measure(label):
     gen = torch.Generator(device=dev).manual_seed(0)
     smi = cs.nvidia_smi_line()
     failed = []
+    if tracker:
+        measure_tracker(cs, label, smi, failed)
+        if failed:
+            raise SystemExit(f"bench_decoder_kernels [{label}]: {len(failed)} kernel(s) disagree "
+                             f"with their plain versions: {failed}")
+        return
 
     def report(what, got, want, tol, fn, plain, library, bms, by):
         err = (got.float() - want.float()).abs().max().item()
@@ -166,20 +294,23 @@ def main():
     ap.add_argument("--other", help="another checkout, timed in turns with this one")
     ap.add_argument("--splits", action="store_true",
                     help="time the cross-attention at each key split count")
+    ap.add_argument("--tracker", action="store_true",
+                    help="time the depthwise conv and the LayerNorm backward instead")
     ap.add_argument("--label", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.splits:
         sweep_splits()
         return 0
     if args.other is None or args.label is not None:
-        measure(args.label or "this")
+        measure(args.label or "this", args.tracker)
         return 0
     here = os.path.dirname(os.path.abspath(__file__))
     other = os.path.abspath(args.other)
     rc = 0
     for where, label in ((other, "other"), (here, "this"), (here, "this"), (other, "other")):
         run = subprocess.run([sys.executable, os.path.join(here, "bench_decoder_kernels.py"),
-                              "--label", f"{label} ({os.path.relpath(where, here)})"], cwd=where)
+                              "--label", f"{label} ({os.path.relpath(where, here)})",
+                              *(["--tracker"] if args.tracker else [])], cwd=where)
         if label == "this":
             rc = rc or run.returncode
     return rc

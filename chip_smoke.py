@@ -271,7 +271,7 @@ Phases, each printing its own lines:
      (FP32_TOL, fp32 SDPA's backward).
 
 Each phase prints its seconds. The line before the last is the kernels
-JSON (forty rows), the last {"ok": true, "device": {...}}. Any
+JSON (forty-two rows), the last {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero. Imports nothing of JAX and nothing of
 the JAX package.
 """
@@ -1093,7 +1093,7 @@ def video_phase(smi, rng):
         for name, us, n in kernels:
             for key, pattern, per in (("flash_sdpa_d256", "flash_sdpa_h_kernel<256>", 4),
                                       ("flash_memattn", "flash_memattn_h_kernel<1>", 4),
-                                      ("depthwise_conv2d", "dw7_kernel", 2)):
+                                      ("depthwise_conv2d", "dw7_fwd_kernel", 2)):
                 if pattern in name:
                     device_ms[key] = device_ms.get(key, 0.0) + us / 1e3 / per
         write_out("profile_tracked_frame.txt",
@@ -1239,6 +1239,10 @@ def video_phase(smi, rng):
     x_cl = x.permute(0, 3, 1, 2)  # a channels-last NCHW view
     nb = 2 * (x.numel() + got.numel()) + 4 * (kernel.numel() + bias.numel())
     bms, by = bound(nb, fp32_ops=2.0 * 49 * x.numel())
+    res = dw.kernel_resources(x.dtype)
+    replay_ms, replay_k = replay_profile(lambda: dw.depthwise_conv2d(x, kernel, bias))
+    replay_top = ", ".join(f"{k[:40]} {v:.4f}" for k, v in
+                           sorted(replay_k.items(), key=lambda kv: -kv[1])[:2])
     rows.append(dict(
         name="depthwise_conv2d", route="cuda",
         source="efficientsam3_tpu_torch/csrc/depthwise_conv2d.cu",
@@ -1250,7 +1254,12 @@ def video_phase(smi, rng):
         bound_ms=bms, bound_by=by,
         library_ms=graph_time(lambda: F.conv2d(x_cl, w_nchw, b_x, padding=3, groups=c)),
         device_ms=device_ms.get("depthwise_conv2d"),
-        shape=f"x {tuple(x.shape)} {x.dtype}, 7x7", **{"pass": True}))
+        shape=f"x {tuple(x.shape)} {x.dtype} strides {x.stride()}, 7x7, taps {kernel.dtype} "
+              f"strides {tuple(kernel.stride())}; dev {replay_ms:.4f} ms a call in a graph "
+              f"replay ({replay_top}); "
+              f"{res['registers']} registers, {res['spill_bytes']} bytes spilled, "
+              f"{res['smem_bytes']} B shared, {res['blocks_per_sm']} blocks an SM",
+        **{"pass": True}))
     for r in rows:
         log_row(r, smi)
     del capture, capture_b, pred_a, pred_b, st_a, st_a2, st_b, image, core
@@ -1518,7 +1527,7 @@ def train_phase(smi):
         for name, us, n in kernels:
             for key, pattern in (("flash_sdpa_bwd_dq", "flash_bwd_dq_h_kernel<32>"),
                                  ("flash_sdpa_bwd_dkv", "flash_bwd_dkv_h_kernel"),
-                                 ("layer_norm_bwd", "_ln_bwd"),
+                                 ("layer_norm_bwd", "ln_bwd_"),
                                  ("flash_sdpa", "flash_sdpa_h_kernel<32>")):
                 if pattern in name:
                     device_ms[key] = device_ms.get(key, 0.0) + us / 1e3 / TRAIN_COUNTS[key]
@@ -1649,13 +1658,18 @@ def train_phase(smi):
     c = x.shape[-1]
     nb = x.numel() * x.element_size() + g.numel() * g.element_size() + dx.numel() * dx.element_size()
     bms, by = bound(nb, fp32_ops=16.0 * x.numel())
+    cmajor = x.stride(-1) != 1
+    res = ln.bwd_kernel_resources(x.dtype, g.dtype, c, col_stride=x.stride(-1))
+    replay_ms, _ = replay_profile(lambda: ln.layer_norm_bwd(x, wt, g, eps))
+    log(f"[train] layer_norm_bwd's largest call: x {tuple(x.shape)} strides {x.stride()}, dy "
+        f"strides {g.stride()} ({'channel-major: the column path' if cmajor else 'row-major'})")
     xl = x.detach().clone().requires_grad_()
     wl = wt.detach().to(x.dtype).clone().requires_grad_()
     bl = torch.zeros_like(wl, requires_grad=True)
     yl = F.layer_norm(xl, (c,), wl, bl, eps)
     gl = g.to(yl.dtype)
     rows.append(dict(
-        name="layer_norm_bwd", route="triton", source="efficientsam3_tpu_torch/ops/layer_norm.py",
+        name="layer_norm_bwd", route="cuda", source="efficientsam3_tpu_torch/csrc/layer_norm.cu",
         replaces="efficientsam3_tpu/ops/pallas/layer_norm.py:88",
         launches=sum(r["layer_norm_bwd"] for r in per_step[:TRAIN_STEPS]), max_abs_err=err,
         ms=graph_time(lambda: ln.layer_norm_bwd(x, wt, g, eps)),
@@ -1665,7 +1679,10 @@ def train_phase(smi):
         library_ms=cuda_time(lambda: torch.autograd.grad(yl, (xl, wl, bl), gl, retain_graph=True),
                              50),
         device_ms=device_ms.get("layer_norm_bwd"),
-        shape=f"x {tuple(x.shape)} {x.dtype}, dy {g.dtype}", **{"pass": True}))
+        shape=f"x {tuple(x.shape)} {x.dtype} strides {x.stride()}, dy {g.dtype} strides "
+              f"{g.stride()}; dev {replay_ms:.4f} ms a call in a graph replay; path "
+              f"{res['path']}, {res['registers']} registers, {res['spill_bytes']} bytes spilled, "
+              f"{res['blocks_per_sm']} blocks an SM", **{"pass": True}))
     for r in rows:
         log_row(r, smi)
     del capture, model, opt, batch, x, g, dx
@@ -2385,7 +2402,7 @@ def tracker_train_phase(smi):
         for name, us, n in kernels:
             for key, pattern in (("flash_sdpa_bwd_dq_d256", "flash_bwd_dq_wide_h_kernel"),
                                  ("flash_sdpa_bwd_dkv_d256", "flash_bwd_dkv_wide_h_kernel"),
-                                 ("depthwise_conv2d_bwd", "dw7_kernel")):
+                                 ("depthwise_conv2d_bwd", "dw7_bwd_kernel")):
                 if pattern in name:
                     device_ms[key] = device_ms.get(key, 0.0) + us / 1e3 / n
         pair = {key: [(us, n) for name, us, n in kernels if pattern in name]
@@ -2533,10 +2550,10 @@ def tracker_train_phase(smi):
         if rel_ > 1e-4:
             raise AssertionError(f"depthwise_conv2d_bwd {name} disagrees with its plain version")
     c = x.shape[-1]
-    zero = torch.zeros(c, device=dev)
-    flipped = kernel.flip(0, 1)
-    dx_ms = graph_time(lambda: dw._launch(g, flipped, zero))
-    red_ms = graph_time(lambda: dw._wgrad(x, g))
+    res = dw.kernel_resources(x.dtype, backward=True)
+    replay_ms, replay_k = replay_profile(lambda: dw.depthwise_conv2d_bwd(x, kernel, g))
+    replay_top = ", ".join(f"{k[:40]} {v:.4f}" for k, v in
+                           sorted(replay_k.items(), key=lambda kv: -kv[1])[:3])
     eager_ms = graph_time(lambda: dw._dw_db(x, g, 7), 5, 10)
     nb = 2 * (x.numel() + g.numel() + dx.numel()) + 4 * (kernel.numel() + c)
     bms, by = bound(nb, fp32_ops=4.0 * 49 * x.numel())
@@ -2557,9 +2574,12 @@ def tracker_train_phase(smi):
         library_ms=cuda_time(lambda: torch.autograd.grad(y_l, (x_cl, w_l, b_l), g_l,
                                                          retain_graph=True), 20),
         device_ms=device_ms.get("depthwise_conv2d_bwd"),
-        shape=f"x / dy {tuple(x.shape)} bf16, 7x7 taps: dx kernel {dx_ms:.4f} ms + dw / db "
-              f"kernel and sum {red_ms:.4f} ms (graph; the same reductions as 49 eager fp32 "
-              f"products and sums {eager_ms:.4f} ms); library = F.conv2d (groups=C) backward",
+        shape=f"x / dy {tuple(x.shape)} bf16 strides {x.stride()} / {g.stride()}, 7x7 taps: dx, "
+              f"dw and db in one kernel, dev {replay_ms:.4f} ms a call in a graph replay "
+              f"({replay_top}); {res['registers']} registers, "
+              f"{res['spill_bytes']} bytes spilled, {res['smem_bytes']} B shared, "
+              f"{res['blocks_per_sm']} blocks an SM (dw / db as 49 eager fp32 products and sums "
+              f"{eager_ms:.4f} ms); library = F.conv2d (groups=C) backward",
         **{"pass": True}))
     del x, kernel, g, dx, x_cl, w_l, b_l, y_l, g_l, capture, core
 
@@ -2882,8 +2902,9 @@ def fp32_phase(smi, main_ref):
     torch.cuda.reset_peak_memory_stats()
     opt = stage3.make_stage3_optimizer(stage3.Stage3Config(), model)
     batch = stage3_batch(TRAIN_BATCH, 32, dev)
-    capture = Capture([(fa, "flash_sdpa_bwd_dq"), (fa, "flash_sdpa_bwd_dkv")])
-    with capture:  # warm-up step: Triton's fp32 backward norms, captured inputs
+    capture = Capture([(fa, "flash_sdpa_bwd_dq"), (fa, "flash_sdpa_bwd_dkv"),
+                       (ln, "layer_norm_bwd")])
+    with capture:  # warm-up step: captured inputs
         stage3.stage3_train_step(model, opt, batch)
     torch.cuda.synchronize()
     reset()
@@ -2906,16 +2927,41 @@ def fp32_phase(smi, main_ref):
     dev_step = per_launch(lambda: stage3.stage3_train_step(model, opt, batch),
                           {"flash_sdpa_bwd_dq_fp32": ("flash_bwd_dq_h_f32_kernel<32>", 6),
                            "flash_sdpa_bwd_dkv_fp32": ("flash_bwd_dkv_h_f32_kernel<32>", 6),
-                           "split_parts_d32": ("split_parts_kernel<32>", 36)}, train=True,
-                          exact=("flash_sdpa_bwd_dq_fp32", "flash_sdpa_bwd_dkv_fp32",
-                                 "split_parts_d32"))
+                           "split_parts_d32": ("split_parts_kernel<32>", 36),
+                           "layer_norm_bwd_fp32": ("ln_bwd_", TRAIN_COUNTS["layer_norm_bwd"])},
+                          train=True, exact=("flash_sdpa_bwd_dq_fp32", "flash_sdpa_bwd_dkv_fp32",
+                                             "split_parts_d32", "layer_norm_bwd_fp32"))
     log(f"[fp32] Stage-3 step profile, device ms a launch: {dev_step}")
     (q, k, v, key_bias, o, lse, do, scale), _ = capture.args[("flash_sdpa_bwd_dq", 32)]
+    (x, wt, g, eps), _ = capture.args[("layer_norm_bwd", 256)]
     del opt, batch, model, capture
     torch.cuda.empty_cache()
     rows += bwd_rows_fp32(q, k, v, key_bias, o, lse, do, scale, TRAIN_COUNTS["flash_sdpa_bwd_dq"],
                           "", dev_step, row)
     del q, k, v, key_bias, o, lse, do
+    # layer_norm's backward at the fusion encoder's (4 x 5184, 256) fp32 norms
+    dx, dw_, db_ = ln.layer_norm_bwd(x, wt, g, eps)
+    want = ln.layer_norm_bwd_plain(x, wt, g, eps)
+    err = check_rel("layer_norm_bwd_fp32 (dx)", dx, want[0], FP32_TOL)
+    for name, got_, want_ in (("dw", dw_, want[1]), ("db", db_, want[2])):
+        err = max(err, check_rel(f"layer_norm_bwd_fp32 ({name})", got_, want_, FP32_TOL))
+    c = x.shape[-1]
+    res = ln.bwd_kernel_resources(x.dtype, g.dtype, c, col_stride=x.stride(-1))
+    bms, by = bound(4 * (x.numel() + g.numel() + dx.numel()), fp32_ops=16.0 * x.numel())
+    xl = x.detach().clone().requires_grad_()
+    wl = wt.detach().float().clone().requires_grad_()
+    bl = torch.zeros_like(wl, requires_grad=True)
+    yl = F.layer_norm(xl, (c,), wl, bl, eps)
+    rows.append(row("layer_norm_bwd_fp32", "layer_norm.cu", "layer_norm.py:88",
+                    TRAIN_COUNTS["layer_norm_bwd"], err, lambda: ln.layer_norm_bwd(x, wt, g, eps),
+                    lambda: ln.layer_norm_bwd_plain(x, wt, g, eps),
+                    cuda_time(lambda: torch.autograd.grad(yl, (xl, wl, bl), g, retain_graph=True),
+                              10),
+                    bms, by, f"x {tuple(x.shape)} fp32 strides {x.stride()}, dy {g.dtype} "
+                    f"strides {g.stride()}; path {res['path']}, {res['registers']} registers, "
+                    f"{res['spill_bytes']} bytes spilled, {res['blocks_per_sm']} blocks an SM; "
+                    f"library = fp32 F.layer_norm backward", dev_step.get("layer_norm_bwd_fp32")))
+    del x, g, dx, xl, wl, bl, yl
     log(f"[fp32] Stage-3 part {time.perf_counter() - t0:.1f} s")
 
     # ---------------------------------------------------------------- tracker
@@ -2974,7 +3020,7 @@ def fp32_phase(smi, main_ref):
     dev_e = per_launch(lambda: run_frame(pred_e, st_e),
                        {"flash_sdpa_d256_fp32": ("flash_sdpa_h_f32_wide_kernel", 4),
                         "flash_memattn_fp32": ("flash_memattn_h_kernel<2>", 4),
-                        "depthwise_conv2d_fp32": ("dw7_kernel<float>", 2)})
+                        "depthwise_conv2d_fp32": ("dw7_fwd_kernel<float>", 2)})
     dev_q = per_launch(lambda: run_frame(pred_q, st_q),
                        {"flash_memattn_q8_fp32": ("flash_memattn_q8_h_kernel<2>", 4)},
                        exact=("flash_memattn_q8_fp32",))
@@ -3060,12 +3106,15 @@ def fp32_phase(smi, main_ref):
     x_cl = x.permute(0, 3, 1, 2)
     bms, by = bound(4 * (x.numel() + got.numel()) + 4 * (kernel.numel() + c),
                     fp32_ops=2.0 * 49 * x.numel())
+    res = dw.kernel_resources(x.dtype)
     rows.append(row("depthwise_conv2d_fp32", "depthwise_conv2d.cu", "depthwise.py:53",
                     2 * tracked, err, lambda: dw.depthwise_conv2d(x, kernel, bias),
                     lambda: dw.depthwise_conv2d_plain(x, kernel, bias),
                     graph_time(lambda: F.conv2d(x_cl, w_nchw, bias.float(), padding=3, groups=c)),
-                    bms, by, f"x {tuple(x.shape)} fp32, 7x7 (fp32 FMA, 16-channel tiles); library "
-                    f"= fp32 F.conv2d (groups=C), cuDNN TF32 off", dev_e.get("depthwise_conv2d_fp32")))
+                    bms, by, f"x {tuple(x.shape)} fp32, 7x7 (fp32 FMA; {res['registers']} registers, "
+                    f"{res['spill_bytes']} bytes spilled, {res['smem_bytes']} B shared, "
+                    f"{res['blocks_per_sm']} blocks an SM); library = fp32 F.conv2d (groups=C), "
+                    f"cuDNN TF32 off", dev_e.get("depthwise_conv2d_fp32")))
     del x, got, x_cl, sessions, pred_e, st_e, cap_e, pred_q, st_q, cap_q, image_m, core
     torch.cuda.empty_cache()
     log(f"[fp32] tracker part {time.perf_counter() - t0:.1f} s")
@@ -3125,7 +3174,7 @@ def fp32_phase(smi, main_ref):
     # the backward alone: its wall time and the clip's peak memory, then
     # under the profiler its device time and device ms a launch (the d=256
     # kernels with the split passes their wrappers launch just before them;
-    # the depthwise backward's dx and dw / db kernels a call)
+    # the depthwise backward's one kernel a call)
     torch.cuda.reset_peak_memory_stats()
     loss, _ = clip()
     torch.cuda.synchronize()
@@ -3150,8 +3199,7 @@ def fp32_phase(smi, main_ref):
     for name, patterns, calls in (
             ("flash_sdpa_bwd_dq_d256_fp32", ("flash_bwd_dq_wide_f32_kernel",), 8 * n_tr),
             ("flash_sdpa_bwd_dkv_d256_fp32", ("flash_bwd_dkv_wide_f32_kernel",), 8 * n_tr),
-            ("depthwise_conv2d_bwd_fp32", ("dw7_kernel<float>", "dw7_wgrad_kernel<float>"),
-             2 * n_tr)):
+            ("depthwise_conv2d_bwd_fp32", ("dw7_bwd_kernel<float>",), 2 * n_tr)):
         us = sum(u for key, u, _ in evs if any(pt in key for pt in patterns))
         if not us:
             raise AssertionError(f"[fp32] clip backward: no device time matches {patterns}")
@@ -3182,14 +3230,17 @@ def fp32_phase(smi, main_ref):
     g_l = g.permute(0, 3, 1, 2)
     bms, by = bound(4 * (x.numel() + g.numel() + dx.numel()) + 4 * (kernel.numel() + c),
                     fp32_ops=4.0 * 49 * x.numel())
+    res = dw.kernel_resources(x.dtype, backward=True)
     rows.append(row("depthwise_conv2d_bwd_fp32", "depthwise_conv2d.cu", "depthwise.py:84",
                     bwd["depthwise_conv2d_bwd"], err,
                     lambda: dw.depthwise_conv2d_bwd(x, kernel, g),
                     lambda: dw.depthwise_conv2d_bwd_plain(x, kernel, g),
                     cuda_time(lambda: torch.autograd.grad(y_l, (x_cl, w_l, b_l), g_l,
                                                           retain_graph=True), 10),
-                    bms, by, f"x / dy {tuple(x.shape)} fp32, 7x7; library = F.conv2d (groups=C) "
-                    "backward", dev_clip.get("depthwise_conv2d_bwd_fp32")))
+                    bms, by, f"x / dy {tuple(x.shape)} fp32, 7x7, one kernel ({res['registers']} "
+                    f"registers, {res['spill_bytes']} bytes spilled, {res['smem_bytes']} B shared, "
+                    f"{res['blocks_per_sm']} blocks an SM); library = F.conv2d (groups=C) backward",
+                    dev_clip.get("depthwise_conv2d_bwd_fp32")))
     del x, g, dx, x_cl, w_l, b_l, y_l, capture, core, feats
     torch.cuda.empty_cache()
     log(f"[fp32] tracker clip part {time.perf_counter() - t0:.1f} s; phase "

@@ -1,12 +1,16 @@
-// Row LayerNorm forward for Hopper (sm_90a): y = (x - mean) * rsqrt(var +
-// eps) * w + b over the last axis, fp32 statistics, the biased two-pass
-// variance, eps inside the sqrt; x and y each bf16 or fp32.
+// Row LayerNorm for Hopper (sm_90a), forward and backward: y = (x - mean) *
+// rsqrt(var + eps) * w + b over the last axis, fp32 statistics, the biased
+// two-pass variance, eps inside the sqrt; x and y each bf16 or fp32. The
+// backward recomputes the statistics from x, as the JAX VJP does, and
+// writes dx = rstd * (wg - mean(wg) - xhat * mean(wg * xhat)) with wg = dy *
+// w (in x's dtype), dw = sum dy * xhat and db = sum dy (fp32).
 //
 // Replaces efficientsam3_tpu/ops/pallas/layer_norm.py `_fwd_call` (:71, body
-// `_fwd_kernel` :43). Shapes: the fusion encoder's norms, (5184, 256) bf16
-// -> bf16 in the bf16 build and fp32 -> fp32 in the default one, 18 of a
-// `ground`'s 27 launches; the decoder's and the tracker's, (201, 256) and
-// (5184 x slots, 256).
+// `_fwd_kernel` :43) and `_bwd_call` (:85, body `_bwd_kernel` :49). Shapes:
+// the fusion encoder's norms, (5184, 256) bf16 -> bf16 in the bf16 build and
+// fp32 -> fp32 in the default one, 18 of a `ground`'s 27 launches; the
+// decoder's and the tracker's, (201, 256) and (5184 x slots, 256); the
+// backward at the Stage-3 step's (4 x 5184, 256), 27 a step.
 //
 // Bound on the H100: bytes. (5184, 256) bf16 reads and writes 2.65 MB with
 // ~8 flops an element: 0.0016 ms at 3.35 TB/s. What held the Triton kernel
@@ -42,6 +46,27 @@
 // columns (wider strided rows take the masked path). 16 rows a block (324
 // blocks at 5184 rows) ran faster than 8 or 32 (bench_decoder_kernels.py
 // times the chosen one).
+//
+// The backward (its own section below) is bound by bytes too: at (4 x
+// 5184, 256) bf16 it reads x and dy and writes dx, 31.9 MB, 0.0095 ms. The
+// Triton kernel it replaces ran one warp a program walking 32 rows, each
+// two loads and four dependent reductions with nothing in flight, and a
+// second launch summed its partials (0.0386 ms). Here it reuses the
+// forward's machinery: a row a warp, the next row's x and dy in flight
+// under the current row's two reduction rounds (sum x and sum wg; then sum
+// (x - mean)^2 and sum wg (x - mean)), W in registers. A lane owns fixed
+// columns, so its dw and db sums stay in registers over every row its warp
+// walks; the block's warps add them in shared memory into one row a block.
+// The last block of each group of ~sqrt(blocks) blocks sums its group's
+// rows, and the last such block sums the groups' rows into dw and db (an
+// atomic ticket at each level, sums in block order: the same bits on every
+// run), in the same launch. Channel-major x or dy (the fusion encoder's
+// tokens, at batch 4 a (4, 5184, 256) view of strides (1327104, 1, 5184)
+// that no row axis describes) take a column path with batch strides: a
+// block stages 16 rows of x and dy, its warps take each row's statistics,
+// then a thread a column writes dx row-major and adds that column's dw and
+// db over the tile. Other layouts and widths up to 8192 take a masked path
+// (a row a block, a thread's columns 256 apart).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -313,16 +338,615 @@ int path(const void* x, int c, long long sx, long long sxc, int x_fp32, bool res
   return 0;
 }
 
-int resident_blocks(void* kernel, int* out) {
+int resident_blocks(void* kernel, int* out, int threads = NTH, int smem = 0) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   int sms = 0, per_sm = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NTH, 0);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   *out = sms * per_sm;
   return 0;
+}
+
+// ---------------------------------------------------------------- backward
+
+constexpr int BWARPS = 16, BNT = 32 * BWARPS;  // the backward's blocks: 512 threads
+constexpr int BTR = BWARPS;  // rows a tile of the column path: a warp a row
+
+struct BwdArgs {
+  const void* x;
+  const void* g;
+  const float* w;
+  void* dx;        // (rows, c) row-major, x's dtype
+  float* dw;       // (c,)
+  float* db;       // (c,)
+  float* part;     // (grid + groups, 2c): a block's dw / db sums, then each group's
+  int* cnt;        // groups + 1 zeroed tickets, left zeroed
+  long long sxb, sxn, sxc, sgb, sgn, sgc;  // x and g: row r = (r / n, r % n), column
+  int nb, n, c, gsize;                      // gsize: blocks a group of the finish
+  float eps;
+};
+
+template <typename T>
+__device__ __forceinline__ float ldg_f(const T* p) { return to_f(__ldg(p)); }
+
+// VEC elements of T as they are loaded (16 or 8 bytes), and as floats
+template <int BYTES>
+struct RawOf;
+template <>
+struct RawOf<16> {
+  using type = uint4;
+};
+template <>
+struct RawOf<8> {
+  using type = uint2;
+};
+template <typename T, int VEC>
+using Raw = typename RawOf<VEC * static_cast<int>(sizeof(T))>::type;
+
+template <typename T, int VEC>
+__device__ __forceinline__ void unpack_raw(const Raw<T, VEC>& u, float* f) {
+  if constexpr (VEC * sizeof(T) == 16) {
+    unpack<T>(u, f);
+  } else {  // 4 bf16 in 8 bytes
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    f[0] = a.x, f[1] = a.y, f[2] = b.x, f[3] = b.y;
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// sum over rows k < count of part[(first + k) * stride + j], in k order, 16
+// loads in flight
+__device__ __forceinline__ float ordered_sum(const float* part, long long first, int count,
+                                             long long stride, int j) {
+  float v = 0.f;
+  for (int k0 = 0; k0 < count; k0 += 16) {
+    float t[16];
+#pragma unroll
+    for (int u = 0; u < 16; ++u)
+      t[u] = k0 + u < count ? __ldcg(part + (first + k0 + u) * stride + j) : 0.f;
+#pragma unroll
+    for (int u = 0; u < 16; ++u) v += t[u];
+  }
+  return v;
+}
+
+// The block's dw / db sums are in part's row blockIdx.x: the last block of
+// each group of gsize blocks adds its group's rows (in block order) into the
+// group's row, and the last group adds the groups' rows into dw and db.
+__device__ __forceinline__ void fence_gpu() { asm volatile("fence.acq_rel.gpu;\n" ::: "memory"); }
+
+// A ticket of counter k after the block's writes: true in the last of n
+// blocks to take one (the block's threads all see it, and every other
+// block's writes before its ticket). The block's barrier, then one thread's
+// release / acquire fence around the atomic.
+__device__ __forceinline__ bool last_ticket(int* cnt, int n, int* flag) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    fence_gpu();
+    const bool last = atomicAdd(cnt, 1) == n - 1;
+    if (last) fence_gpu();
+    *flag = last;
+  }
+  __syncthreads();
+  return *flag;
+}
+
+__device__ void bwd_finish(const BwdArgs& a) {
+  __shared__ int last;
+  const int G = gridDim.x, c2 = 2 * a.c;
+  const int groups = (G + a.gsize - 1) / a.gsize, grp = blockIdx.x / a.gsize;
+  const int first = grp * a.gsize, members = min(a.gsize, G - first);
+  if (!last_ticket(a.cnt + grp, members, &last)) return;
+  for (int j = threadIdx.x; j < c2; j += BNT)
+    a.part[static_cast<long long>(G + grp) * c2 + j] = ordered_sum(a.part, first, members, c2, j);
+  if (threadIdx.x == 0) a.cnt[grp] = 0;
+  if (!last_ticket(a.cnt + groups, groups, &last)) return;
+  for (int j = threadIdx.x; j < c2; j += BNT) {
+    const float v = ordered_sum(a.part, G, groups, c2, j);
+    if (j < a.c)
+      a.dw[j] = v;
+    else
+      a.db[j - a.c] = v;
+  }
+  if (threadIdx.x == 0) a.cnt[groups] = 0;
+}
+
+// The vector path: x and dy row-major (columns adjacent), lane l holds
+// vectors v * 32 + l (VEC columns each) of a row, v < NV; VEC is 8 when
+// both are bf16 (a 16-byte load), else 4. Each warp walks rows at the
+// grid's stride with the loads of the next two rows in registers: three
+// rows' buffers used in turn (the loop unrolled by three), so no register
+// is copied while its load is in flight. (A ring of rows in shared memory
+// filled by cp.async, with pairs of rows' reductions interleaved, ran
+// slower at the Stage-3 shape.)
+template <typename TX, typename TG, int NV>
+__global__ void __launch_bounds__(BNT)
+ln_bwd_vec(const BwdArgs a) {
+  constexpr int VEC = (sizeof(TX) == 4 || sizeof(TG) == 4) ? 4 : 8, CW = NV * 32 * VEC;
+  __shared__ float red[BWARPS / 2][2][CW];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rows = a.nb * a.n, c = a.c, nwarps = gridDim.x * BWARPS;
+  const TX* x = static_cast<const TX*>(a.x);
+  const TG* g = static_cast<const TG*>(a.g);
+  TX* dx = static_cast<TX*>(a.dx);
+  bool live[NV];
+  float wr[NV][VEC], dwp[NV][VEC], dbp[NV][VEC];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    const int col = (v * 32 + lane) * VEC;
+    live[v] = col < c;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      wr[v][i] = live[v] ? a.w[col + i] : 0.f;
+      dwp[v][i] = dbp[v][i] = 0.f;
+    }
+  }
+  using RX = Raw<TX, VEC>;
+  using RG = Raw<TG, VEC>;
+  // three rows' loads in registers, used in turn
+  RX xa[NV], xb[NV], xc[NV];
+  RG ga[NV], gb[NV], gc[NV];
+  auto load = [&](RX (&xo)[NV], RG (&go)[NV], int r) {
+    if (r >= rows) return;
+    const int bi = r / a.n, i = r - bi * a.n;
+    const TX* xr = x + bi * a.sxb + i * a.sxn;
+    const TG* gr = g + bi * a.sgb + i * a.sgn;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int col = (v * 32 + lane) * VEC;
+      if (live[v]) {
+        xo[v] = __ldg(reinterpret_cast<const RX*>(xr + col));
+        go[v] = __ldg(reinterpret_cast<const RG*>(gr + col));
+      } else {
+        xo[v] = RX{};
+        go[v] = RG{};
+      }
+    }
+  };
+  const float inv_c = 1.f / static_cast<float>(c);
+  auto process = [&](const RX (&xr)[NV], const RG (&gr)[NV], int row) {
+    float xv[NV][VEC], gv[NV][VEC];
+    float s = 0.f, sg = 0.f;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      unpack_raw<TX, VEC>(xr[v], xv[v]);
+      unpack_raw<TG, VEC>(gr[v], gv[v]);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        s += xv[v][i];
+        sg += gv[v][i] * wr[v][i];
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+      sg += __shfl_xor_sync(0xffffffffu, sg, o);
+    }
+    const float mean = s * inv_c, c1 = sg * inv_c;
+    float q = 0.f, p = 0.f;
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float d = live[v] ? xv[v][i] - mean : 0.f;
+        xv[v][i] = d;
+        q += d * d;
+        p += gv[v][i] * wr[v][i] * d;
+      }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      q += __shfl_xor_sync(0xffffffffu, q, o);
+      p += __shfl_xor_sync(0xffffffffu, p, o);
+    }
+    const float rstd = 1.f / sqrtf(q * inv_c + a.eps);
+    const float c2 = p * rstd * inv_c;
+    TX* dr = dx + static_cast<long long>(row) * c;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      float out[VEC];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float xhat = xv[v][i] * rstd;
+        out[i] = rstd * (gv[v][i] * wr[v][i] - c1 - xhat * c2);
+        dwp[v][i] += gv[v][i] * xhat;
+        dbp[v][i] += gv[v][i];
+      }
+      if (live[v]) store_vec<TX, VEC>(dr + (v * 32 + lane) * VEC, out);
+    }
+  };
+  int row = blockIdx.x * BWARPS + warp;
+  load(xa, ga, row);
+  load(xb, gb, row + nwarps);
+  for (; row < rows; row += 3 * nwarps) {  // each row's loads two rows ahead
+    load(xc, gc, row + 2 * nwarps);
+    process(xa, ga, row);
+    if (row + nwarps >= rows) break;
+    load(xa, ga, row + 3 * nwarps);
+    process(xb, gb, row + nwarps);
+    if (row + 2 * nwarps >= rows) break;
+    load(xb, gb, row + 4 * nwarps);
+    process(xc, gc, row + 2 * nwarps);
+  }
+  // the block's sums, in warp order: warps 0-7 write, 8-15 add theirs, then
+  // the 8 rows are added
+#pragma unroll 1
+  for (int half = 0; half < 2; ++half) {
+    if ((warp >> 3) == half) {
+#pragma unroll
+      for (int v = 0; v < NV; ++v)
+        if (live[v])
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) {
+            float* r = &red[warp & 7][0][(v * 32 + lane) * VEC + i];
+            r[0] = half ? r[0] + dwp[v][i] : dwp[v][i];
+            r[CW] = half ? r[CW] + dbp[v][i] : dbp[v][i];
+          }
+    }
+    __syncthreads();
+  }
+  float* mine = a.part + static_cast<long long>(blockIdx.x) * 2 * c;
+  for (int j = threadIdx.x; j < 2 * c; j += BNT) {
+    const int k = j < c ? 0 : 1, col = j - k * c;
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < BWARPS / 2; ++w) v += red[w][k][col];
+    mine[j] = v;
+  }
+  bwd_finish(a);
+}
+
+// The column path (c <= COLS_MAX, any strides): blocks walk tiles of BTR rows
+// of one image, staged as tile[col][row] (x and dy), and each warp takes one
+// row of the tile as the vector path takes a row: lane l holds columns l +
+// 32 k, their dw and db sums in registers over every tile the block walks.
+//
+// The tiles come in by cp.async through a ring of RAW_STAGES raw copies,
+// two tiles ahead of the one computed: by 16-byte vectors down each column
+// where rows are adjacent (sn = 1; a ragged last tile's vectors cut short,
+// zero-filled), along each row where columns are (sc = 1); other layouts
+// are read element by element as the tile is staged.
+constexpr int RAW_STAGES = 3;
+
+// One operand's tiles: its layout's mode (0: rows adjacent, 1: columns
+// adjacent, 2: elements); a thread's chunks of a tile (the same every
+// tile); the async copy into a raw stage and the staging into
+// tile[col][row].
+template <typename T>
+struct Tiles {
+  static constexpr int VEC = 16 / sizeof(T);
+  static constexpr int RAW_BYTES = COLS_MAX * BTR * sizeof(T);
+  static constexpr int CHUNKS = (COLS_MAX * BTR / VEC + BNT - 1) / BNT;  // a thread's, a tile
+  const T* base;
+  long long sb, sn, sc;
+  int c, mode;
+  int cu[CHUNKS], cv[CHUNKS];  // (col, row0) or (row, col0); cu < 0: no chunk
+
+  __device__ void init(const void* p, long long sb_, long long sn_, long long sc_, int c_) {
+    base = static_cast<const T*>(p), sb = sb_, sn = sn_, sc = sc_, c = c_;
+    const bool al = reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % VEC == 0;
+    mode = (al && sn == 1 && sc % VEC == 0)                  ? 0
+           : (al && sc == 1 && sn % VEC == 0 && c % VEC == 0) ? 1
+                                                              : 2;
+    const int per = mode == 0 ? BTR / VEC : c / VEC;  // chunks a column / a row
+    const int count = mode == 0 ? c * per : BTR * per;
+#pragma unroll
+    for (int k = 0; k < CHUNKS; ++k) {
+      const int i = threadIdx.x + k * BNT;
+      cu[k] = i < count && mode < 2 ? i / per : -1;
+      cv[k] = i < count && mode < 2 ? (i % per) * VEC : 0;
+    }
+  }
+  __device__ const T* at(int bi, int i0) const { return base + bi * sb + i0 * sn; }
+  __device__ void issue(unsigned char* raw, int bi, int i0, int nr) const {
+    if (mode == 2) return;
+    const T* src = at(bi, i0);
+#pragma unroll
+    for (int k = 0; k < CHUNKS; ++k) {
+      const int u = cu[k], v = cv[k];
+      if (u < 0) continue;
+      int bytes;
+      const T* from;
+      T* to = reinterpret_cast<T*>(raw);
+      if (mode == 0) {
+        bytes = max(0, min(VEC, nr - v)) * static_cast<int>(sizeof(T));
+        from = src + u * sc + v;
+        to += u * BTR + v;
+      } else {
+        bytes = u < nr ? 16 : 0;
+        from = src + u * sn + v;
+        to += u * COLS_MAX + v;
+      }
+      cp_async16(to, bytes ? from : base, bytes);
+    }
+  }
+  __device__ void stage(float (*tile)[BTR + 1], const unsigned char* raw, int bi, int i0,
+                        int nr) const {
+    if (mode == 2) {
+      const T* src = at(bi, i0);
+      for (int i = threadIdx.x; i < c * BTR; i += BNT) {
+        const int col = sc == 1 ? i % c : i / BTR, r = sc == 1 ? i / c : i % BTR;
+        tile[col][r] = r < nr ? ldg_f(src + r * sn + col * sc) : 0.f;
+      }
+      return;
+    }
+#pragma unroll
+    for (int k = 0; k < CHUNKS; ++k) {
+      const int u = cu[k], v = cv[k];
+      if (u < 0) continue;
+      const T* from = reinterpret_cast<const T*>(raw) + (mode == 0 ? u * BTR + v : u * COLS_MAX + v);
+      float f[VEC];
+      unpack<T>(*reinterpret_cast<const uint4*>(from), f);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        if (mode == 0)
+          tile[u][v + j] = f[j];
+        else
+          tile[v + j][u] = f[j];
+      }
+    }
+  }
+};
+
+template <typename TX, typename TG>
+constexpr int cols_smem() {
+  return RAW_STAGES * (Tiles<TX>::RAW_BYTES + Tiles<TG>::RAW_BYTES);
+}
+
+template <typename TX, typename TG>
+__global__ void __launch_bounds__(BNT)
+ln_bwd_cols(const BwdArgs a) {
+  constexpr int CPL = COLS_MAX / 32, XB = Tiles<TX>::RAW_BYTES;
+  constexpr int STAGE = Tiles<TX>::RAW_BYTES + Tiles<TG>::RAW_BYTES;
+  extern __shared__ __align__(16) unsigned char ring[];  // [RAW_STAGES][x | g]
+  __shared__ float tx[COLS_MAX][BTR + 1], tg[COLS_MAX][BTR + 1];
+  const int c = a.c, per_image = (a.n + BTR - 1) / BTR, tiles = a.nb * per_image;
+  Tiles<TX> lx;
+  Tiles<TG> lg;
+  lx.init(a.x, a.sxb, a.sxn, a.sxc, c);
+  lg.init(a.g, a.sgb, a.sgn, a.sgc, c);
+  auto issue = [&](int tile, int stage) {
+    if (tile < tiles) {
+      const int bi = tile / per_image, i0 = (tile - bi * per_image) * BTR, nr = min(BTR, a.n - i0);
+      lx.issue(ring + stage * STAGE, bi, i0, nr);
+      lg.issue(ring + stage * STAGE + XB, bi, i0, nr);
+    }
+    cp_async_commit();
+  };
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float wr[CPL], dwp[CPL], dbp[CPL];
+#pragma unroll
+  for (int k = 0; k < CPL; ++k) {
+    wr[k] = lane + 32 * k < c ? a.w[lane + 32 * k] : 0.f;
+    dwp[k] = dbp[k] = 0.f;
+  }
+  const float inv_c = 1.f / static_cast<float>(c);
+#pragma unroll
+  for (int k = 0; k < RAW_STAGES - 1; ++k) issue(blockIdx.x + k * gridDim.x, k);
+  for (int k = 0, tile = blockIdx.x; tile < tiles; ++k, tile += gridDim.x) {
+    const int bi = tile / per_image, i0 = (tile - bi * per_image) * BTR, nr = min(BTR, a.n - i0);
+    cp_async_wait<RAW_STAGES - 2>();
+    __syncthreads();  // this tile's copies are in; the last tile's reads are done
+    const unsigned char* raw = ring + (k % RAW_STAGES) * STAGE;
+    lx.stage(tx, raw, bi, i0, nr);
+    lg.stage(tg, raw + XB, bi, i0, nr);
+    __syncthreads();
+    issue(tile + (RAW_STAGES - 1) * gridDim.x, (k + RAW_STAGES - 1) % RAW_STAGES);
+    const int r = warp;
+    if (r < nr) {
+      float xv[CPL], gv[CPL];
+      float s = 0.f, sg = 0.f;
+#pragma unroll
+      for (int k2 = 0; k2 < CPL; ++k2) {
+        const bool live = lane + 32 * k2 < c;
+        xv[k2] = live ? tx[lane + 32 * k2][r] : 0.f;
+        gv[k2] = live ? tg[lane + 32 * k2][r] : 0.f;
+        s += xv[k2];
+        sg += gv[k2] * wr[k2];
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        s += __shfl_xor_sync(0xffffffffu, s, o);
+        sg += __shfl_xor_sync(0xffffffffu, sg, o);
+      }
+      const float mean = s * inv_c, c1 = sg * inv_c;
+      float q = 0.f, p = 0.f;
+#pragma unroll
+      for (int k2 = 0; k2 < CPL; ++k2) {
+        const float d = lane + 32 * k2 < c ? xv[k2] - mean : 0.f;
+        xv[k2] = d;
+        q += d * d;
+        p += gv[k2] * wr[k2] * d;
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        q += __shfl_xor_sync(0xffffffffu, q, o);
+        p += __shfl_xor_sync(0xffffffffu, p, o);
+      }
+      const float rstd = 1.f / sqrtf(q * inv_c + a.eps), c2 = p * rstd * inv_c;
+      TX* dr = static_cast<TX*>(a.dx) + (static_cast<long long>(bi) * a.n + i0 + r) * c;
+#pragma unroll
+      for (int k2 = 0; k2 < CPL; ++k2) {
+        const int col = lane + 32 * k2;
+        if (col < c) {
+          const float xhat = xv[k2] * rstd;
+          from_f(dr + col, rstd * (gv[k2] * wr[k2] - c1 - xhat * c2));
+          dwp[k2] += gv[k2] * xhat;
+          dbp[k2] += gv[k2];
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  // the block's sums in warp order, through the tiles' memory
+  __syncthreads();
+  float* rw = &tx[0][0];  // [BWARPS][COLS_MAX]: dw, then db in tg
+  float* rb = &tg[0][0];
+#pragma unroll
+  for (int k2 = 0; k2 < CPL; ++k2) {
+    rw[warp * COLS_MAX + lane + 32 * k2] = dwp[k2];
+    rb[warp * COLS_MAX + lane + 32 * k2] = dbp[k2];
+  }
+  __syncthreads();
+  float* mine = a.part + static_cast<long long>(blockIdx.x) * 2 * c;
+  for (int j = threadIdx.x; j < 2 * c; j += BNT) {
+    const float* src = j < c ? rw + j : rb + (j - c);
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < BWARPS; ++w) v += src[w * COLS_MAX];
+    mine[j] = v;
+  }
+  bwd_finish(a);
+}
+
+// The masked path: any strides, widths up to CMAX; a row a block, thread t
+// holding columns t + BNT * k, its dw / db sums in registers.
+constexpr int CMAX = 8192, KMAX = CMAX / BNT;
+
+__device__ __forceinline__ float2 block_sum2(float a, float b, float2* scratch) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, o);
+    b += __shfl_xor_sync(0xffffffffu, b, o);
+  }
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = make_float2(a, b);
+  __syncthreads();
+  float2 r = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int w = 0; w < BWARPS; ++w) r.x += scratch[w].x, r.y += scratch[w].y;
+  __syncthreads();
+  return r;
+}
+
+template <typename TX, typename TG>
+__global__ void __launch_bounds__(BNT)
+ln_bwd_any(const BwdArgs a) {
+  __shared__ float2 scratch[BWARPS];
+  const int c = a.c, rows = a.nb * a.n;
+  const TX* x = static_cast<const TX*>(a.x);
+  const TG* g = static_cast<const TG*>(a.g);
+  float dwp[KMAX], dbp[KMAX];
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) dwp[k] = dbp[k] = 0.f;
+  const float inv_c = 1.f / static_cast<float>(c);
+  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
+    const int bi = row / a.n, i = row - bi * a.n;
+    const TX* xr = x + bi * a.sxb + i * a.sxn;
+    const TG* gr = g + bi * a.sgb + i * a.sgn;
+    float s = 0.f, sg = 0.f;
+    for (int col = threadIdx.x; col < c; col += BNT) {
+      s += ldg_f(xr + col * a.sxc);
+      sg += ldg_f(gr + col * a.sgc) * a.w[col];
+    }
+    const float2 m = block_sum2(s, sg, scratch);
+    const float mean = m.x * inv_c, c1 = m.y * inv_c;
+    float q = 0.f, p = 0.f;
+    for (int col = threadIdx.x; col < c; col += BNT) {
+      const float d = ldg_f(xr + col * a.sxc) - mean;
+      q += d * d;
+      p += ldg_f(gr + col * a.sgc) * a.w[col] * d;
+    }
+    const float2 qp = block_sum2(q, p, scratch);
+    const float rstd = 1.f / sqrtf(qp.x * inv_c + a.eps), c2 = qp.y * rstd * inv_c;
+    TX* dr = static_cast<TX*>(a.dx) + static_cast<long long>(row) * c;
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+      const int col = threadIdx.x + BNT * k;
+      if (col < c) {
+        const float xhat = (ldg_f(xr + col * a.sxc) - mean) * rstd;
+        const float gv = ldg_f(gr + col * a.sgc);
+        from_f(dr + col, rstd * (gv * a.w[col] - c1 - xhat * c2));
+        dwp[k] += gv * xhat;
+        dbp[k] += gv;
+      }
+    }
+  }
+  float* mine = a.part + static_cast<long long>(blockIdx.x) * 2 * c;
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    const int col = threadIdx.x + BNT * k;
+    if (col < c) {
+      mine[col] = dwp[k];
+      mine[c + col] = dbp[k];
+    }
+  }
+  bwd_finish(a);
+}
+
+// The backward kernel a call takes, by path (nv > 0: the vector path with
+// nv vectors a lane; -1: the column path; 0: the masked path).
+template <typename TX, typename TG>
+void* pick_bwd(int nv) {
+  if (nv == -1) return reinterpret_cast<void*>(ln_bwd_cols<TX, TG>);
+  if (nv == 1) return reinterpret_cast<void*>(ln_bwd_vec<TX, TG, 1>);
+  if (nv == 2) return reinterpret_cast<void*>(ln_bwd_vec<TX, TG, 2>);
+  if constexpr (sizeof(TX) == 4 || sizeof(TG) == 4)
+    if (nv == 4) return reinterpret_cast<void*>(ln_bwd_vec<TX, TG, 4>);
+  return reinterpret_cast<void*>(ln_bwd_any<TX, TG>);
+}
+
+void* bwd_kernel_for(int x_fp32, int g_fp32, int nv);
+
+// The dynamic shared memory of the backward kernel of a path: the column
+// path's raw ring
+int bwd_smem(int x_fp32, int g_fp32, int nv) {
+  if (nv != -1) return 0;
+  if (x_fp32) return g_fp32 ? cols_smem<float, float>() : cols_smem<float, bf16>();
+  return g_fp32 ? cols_smem<bf16, float>() : cols_smem<bf16, bf16>();
+}
+
+// The backward kernel of a path, its dynamic shared memory allowed
+void* bwd_kernel_ready(int x_fp32, int g_fp32, int nv, int* err) {
+  void* kernel = bwd_kernel_for(x_fp32, g_fp32, nv);
+  const int smem = bwd_smem(x_fp32, g_fp32, nv);
+  *err = smem ? static_cast<int>(cudaFuncSetAttribute(
+                    kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
+              : 0;
+  return kernel;
+}
+
+void* bwd_kernel_for(int x_fp32, int g_fp32, int nv) {
+  if (x_fp32) return g_fp32 ? pick_bwd<float, float>(nv) : pick_bwd<float, bf16>(nv);
+  return g_fp32 ? pick_bwd<bf16, float>(nv) : pick_bwd<bf16, bf16>(nv);
+}
+
+// The backward's path: the vector path when x's and dy's columns are
+// adjacent, every stride and c a multiple of the vector (8 when both are
+// bf16, else 4), both 16-byte aligned and at most 512 columns (`rest`: dx
+// aligned too); else the column path up to COLS_MAX columns; else the
+// masked path.
+int bwd_path(const void* x, const void* g, int c, const long long* sx, const long long* sg,
+             int x_fp32, int g_fp32, bool rest) {
+  const int vec = (x_fp32 || g_fp32) ? 4 : 8;
+  bool ok = rest && sx[2] == 1 && sg[2] == 1 && c % vec == 0 &&
+            (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(g)) % 16 == 0;
+  for (int i = 0; i < 2; ++i) ok = ok && sx[i] % vec == 0 && sg[i] % vec == 0;
+  if (ok) {
+    const int need = (c + 32 * vec - 1) / (32 * vec);
+    for (int nv = 1; nv <= 512 / (32 * vec); nv *= 2)
+      if (nv >= need) return nv;
+  }
+  return c <= COLS_MAX ? -1 : 0;
+}
+
+int isqrt_up(int v) {
+  int r = 1;
+  while (r * r < v) ++r;
+  return r;
 }
 
 }  // namespace
@@ -338,7 +962,7 @@ extern "C" int layer_norm_fwd(const void* x, const void* w, const void* b, void*
                                     reinterpret_cast<uintptr_t>(b)) % 16 == 0;
   const int nv = path(x, c, sx, sxc, x_fp32, rest);
   void* kernel = kernel_for(x_fp32, y_fp32, nv);
-  int grid = (rows + TR - 1) / TR;  // the column path: a tile a block
+  int grid = (rows + BTR - 1) / BTR;  // the column path: a tile a block
   if (nv != -1) {  // a row a warp, the blocks resident on every SM at most
     static int grid_cap[64][4][5] = {};  // by device, dtypes and path
     int dev = 0;
@@ -379,6 +1003,83 @@ extern "C" int layer_norm_fwd_attrs(int x_fp32, int y_fp32, int c, long long col
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = a.numRegs;
   out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = nv;
+  out[3] = blocks;
+  return 0;
+}
+
+// The backward: x and dy as (nb, n, c) at strides (s*b, s*n, s*c)
+// elements (x_fp32 / g_fp32: float32, else bfloat16), w (c,) f32
+// contiguous; writes dx (nb * n, c) row-major in x's dtype, dw and db (c,)
+// f32. part: part_rows x 2c floats of scratch, at least the grid's blocks
+// (the blocks resident on the card at most: 4 of 512 threads an SM) and
+// its finish's groups (ceil(grid / ceil(sqrt(grid)))); cnt: cnt_n zeroed
+// ints, at least the groups and one, left zeroed. Returns a CUDA error.
+extern "C" int layer_norm_bwd(const void* x, const void* g, const void* w, void* dx, void* dw,
+                              void* db, void* part, long long part_rows, void* cnt, int cnt_n,
+                              int nb, int n, int c, long long sxb, long long sxn, long long sxc,
+                              long long sgb, long long sgn, long long sgc, int x_fp32,
+                              int g_fp32, float eps, void* stream) {
+  if (nb <= 0 || n <= 0 || c <= 0 || c > CMAX) return static_cast<int>(cudaErrorInvalidValue);
+  const long long sx[3] = {sxb, sxn, sxc}, sg[3] = {sgb, sgn, sgc};
+  const bool rest = reinterpret_cast<uintptr_t>(dx) % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const int nv = bwd_path(x, g, c, sx, sg, x_fp32, g_fp32, rest);
+  void* kernel = bwd_kernel_for(x_fp32, g_fp32, nv);
+  const int smem = bwd_smem(x_fp32, g_fp32, nv);
+  const long long rows = static_cast<long long>(nb) * n;
+  static int grid_cap[64][4][6] = {};  // the blocks resident on every SM, by device, dtypes, path
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  int& cap = grid_cap[dev][2 * x_fp32 + g_fp32][nv + 1];
+  if (cap == 0) {
+    int err = 0;
+    bwd_kernel_ready(x_fp32, g_fp32, nv, &err);
+    if (err == 0) err = resident_blocks(kernel, &cap, BNT, smem);
+    if (err != 0) return err;
+  }
+  // persistent blocks: a row a warp (vector), a tile of BTR rows (column) or
+  // a row (masked) each at least
+  const long long work = nv > 0 ? (rows + BWARPS - 1) / BWARPS
+                                : nv == -1 ? nb * static_cast<long long>((n + BTR - 1) / BTR) : rows;
+  const long long grid = min(static_cast<long long>(cap), work);
+  const int gsize = isqrt_up(static_cast<int>(grid));
+  const int groups = (static_cast<int>(grid) + gsize - 1) / gsize;
+  if (grid + groups > part_rows || groups + 1 > cnt_n) return static_cast<int>(cudaErrorInvalidValue);
+  BwdArgs a = {x, g, static_cast<const float*>(w), dx, static_cast<float*>(dw), static_cast<float*>(db),
+               static_cast<float*>(part), static_cast<int*>(cnt), sxb, sxn, sxc, sgb, sgn, sgc,
+               nb, n, c, gsize, eps};
+  void* args[] = {&a};
+  e = cudaLaunchKernel(kernel, dim3(static_cast<unsigned>(grid)), dim3(BNT), args,
+                       static_cast<size_t>(smem), static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The resources of the backward kernel that layer_norm_bwd takes for c
+// columns of 16-byte aligned row-major x and dy (col_stride 1), or with
+// col_stride != 1 of channel-major ones: out = {registers, spilled bytes a
+// thread, the path (vectors a lane on the vector path, 0 the masked path,
+// -1 the column path), resident blocks an SM}.
+extern "C" int layer_norm_bwd_attrs(int x_fp32, int g_fp32, int c, long long col_stride,
+                                    int* out) {
+  if (c <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long s[3] = {col_stride == 1 ? 16LL * c : 1, col_stride == 1 ? c : 1, col_stride};
+  const void* aligned = reinterpret_cast<const void*>(256);
+  const int nv = bwd_path(aligned, aligned, c, s, s, x_fp32, g_fp32, true);
+  int ready = 0;
+  void* kernel = bwd_kernel_ready(x_fp32, g_fp32, nv, &ready);
+  if (ready != 0) return ready;
+  cudaFuncAttributes at;
+  cudaError_t err = cudaFuncGetAttributes(&at, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, BNT,
+                                                      bwd_smem(x_fp32, g_fp32, nv));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = at.numRegs;
+  out[1] = static_cast<int>(at.localSizeBytes);
   out[2] = nv;
   out[3] = blocks;
   return 0;

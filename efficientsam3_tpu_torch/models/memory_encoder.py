@@ -102,7 +102,10 @@ class MemoryEncoder(nn.Module):
 
     def forward(self, pix_feat, mask_logits, skip_mask_sigmoid: bool = False):
         m = mask_logits if skip_mask_sigmoid else torch.sigmoid(mask_logits)
-        x = self.pix_feat_proj(pix_feat) + self.mask_downsampler(m)
+        # the projection of the (slot-tiled) pixel features comes out NCHW
+        # in memory; one copy to NHWC here, where the depthwise kernel of
+        # each fuser block (and its backward) would otherwise copy its input
+        x = (self.pix_feat_proj(pix_feat) + self.mask_downsampler(m)).contiguous()
         for block in self.fuser:
             x = block(x)
         if self.out_proj is not None:

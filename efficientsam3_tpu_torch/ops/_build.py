@@ -34,6 +34,8 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_tickets: dict[int, torch.Tensor] = {}
+TICKETS = 4096
 
 
 def _find_nvcc():
@@ -142,6 +144,22 @@ def check(status: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error (cudaGetLastError)."""
     if status != 0:
         raise RuntimeError(f"{what}: CUDA error {status}")
+
+
+def tickets(device, n: int) -> torch.Tensor:
+    """The device's zeroed int32 buffer of TICKETS tickets, for kernels whose
+    last block to finish takes an atomic ticket (the depthwise and
+    LayerNorm backward kernels): each launch leaves the tickets it took at
+    0 again, so one buffer serves every launch on the device's stream in
+    turn. Made (zero-filled) on first use; n, the tickets a launch takes,
+    must fit."""
+    if n > TICKETS:
+        raise ValueError(f"a launch takes {n} tickets, more than the buffer's {TICKETS}")
+    index = torch.device(device).index
+    buf = _tickets.get(index)
+    if buf is None:
+        buf = _tickets[index] = torch.zeros(TICKETS, dtype=torch.int32, device=device)
+    return buf
 
 
 def needs_grad(*tensors) -> bool:

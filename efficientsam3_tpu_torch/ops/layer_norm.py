@@ -1,5 +1,5 @@
-"""Row LayerNorm: a CUDA forward kernel and a Triton backward kernel, their
-plain versions for CPU.
+"""Row LayerNorm: CUDA forward and backward kernels, their plain versions
+for CPU.
 
 Replaces the Pallas kernels ``efficientsam3_tpu/ops/pallas/layer_norm.py``
 (``_fwd_call`` / ``_fwd_kernel`` and ``_bwd_call`` / ``_bwd_kernel``): y =
@@ -9,19 +9,20 @@ caller asks for (bf16 on the grounding path, so the consumer projections
 read half the bytes).
 
 On the H100 both are bound by bytes: the forward reads x and writes y, the
-backward reads x and dy and writes dx, ~5-15 flops per element. The forward
-is ``csrc/layer_norm.cu`` (see its notes): one row a warp in registers, 16
-bytes a lane a load, W and B in registers for every row a warp walks, and
-the next row's load in flight under the current row's reductions; a
+backward reads x and dy and writes dx, ~5-15 flops per element. Both are
+``csrc/layer_norm.cu`` (see its notes): one row a warp in registers, 16
+bytes a lane a load, W (and B) in registers for every row a warp walks,
+and the next row's loads in flight under the current row's reductions; a
 channel-major map seen as (rows, c) (the fusion encoder's tokens) is read
-in place, a tile of rows at a time, not copied first. The
-backward recomputes the statistics from x, as the JAX VJP does (the forward
-saves no per-row residual), and computes dx = rstd * (wg - mean(wg) - xhat
-* mean(wg * xhat)) with wg = dy * w; one program walks ``_BWD_ROWS`` rows
-and keeps its partial column sums of dy * xhat and dy in registers, written
-once per program to an fp32 buffer that one reduction sums into dw and db
-(Triton: a row-wise elementwise pass with two row reductions and no matrix
-product).
+in place, a tile of rows at a time, not copied first. The backward
+recomputes the statistics from x, as the JAX VJP does (the forward saves
+no per-row residual), and computes dx = rstd * (wg - mean(wg) - xhat *
+mean(wg * xhat)) with wg = dy * w; a lane keeps its columns' sums of dy *
+xhat and dy in registers, the block adds its warps' into one row, and the
+blocks' rows are summed into dw and db in the same launch, in a fixed
+order. It reads x and dy at their strides as (batch, rows, c) views, so a
+batch of channel-major maps (whose axes merge into no single row axis) is
+not copied either.
 
 ``layer_norm`` runs as an autograd Function (forward kernel, backward
 kernel) on CUDA tensors whenever autograd records the call; its launches
@@ -33,16 +34,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import os
+import math
 
 import torch
 
 from efficientsam3_tpu_torch.ops import _build
-from efficientsam3_tpu_torch.ops._build import BUILD_DIR
 from efficientsam3_tpu_torch.ops._build import needs_grad as _needs_grad
 
-
-_BWD_ROWS = 32  # rows a backward program walks; its partial sums are one row of the buffer
+BWD_TILE = 16  # rows a tile of the backward's column path
+BWD_WARPS = 16  # warps a block of the backward
+BWD_BLOCKS_PER_SM = 4  # at most: 512 threads a block
 
 
 def layer_norm_plain(x, weight, bias, eps: float = 1e-5, out_dtype=None):
@@ -54,45 +55,6 @@ def layer_norm_plain(x, weight, bias, eps: float = 1e-5, out_dtype=None):
     var = (xc * xc).mean(-1, keepdim=True)
     y = xc * torch.rsqrt(var + eps) * weight.float() + bias.float()
     return y.to(out_dtype)
-
-
-@functools.lru_cache(maxsize=None)
-def _triton_kernel():
-    # keep Triton's compile cache with the other build outputs, in the checkout
-    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def _ln_bwd(X, W, G, DX, DWP, DBP, n_rows, n_cols, stride_x, stride_g, stride_dx, eps,
-                ROWS: tl.constexpr, BLOCK: tl.constexpr):
-        pid = tl.program_id(0)
-        cols = tl.arange(0, BLOCK)
-        inb = cols < n_cols
-        w = tl.load(W + cols, mask=inb, other=0.0).to(tl.float32)
-        dw = tl.zeros([BLOCK], dtype=tl.float32)
-        db = tl.zeros([BLOCK], dtype=tl.float32)
-        for i in range(ROWS):
-            row = pid * ROWS + i
-            m = inb & (row < n_rows)
-            x = tl.load(X + row * stride_x + cols, mask=m, other=0.0).to(tl.float32)
-            g = tl.load(G + row * stride_g + cols, mask=m, other=0.0).to(tl.float32)
-            mean = tl.sum(x, axis=0) / n_cols
-            xc = tl.where(inb, x - mean, 0.0)
-            var = tl.sum(xc * xc, axis=0) / n_cols
-            rstd = 1.0 / tl.sqrt(var + eps)
-            xhat = xc * rstd
-            wg = g * w
-            c1 = tl.sum(wg, axis=0) / n_cols
-            c2 = tl.sum(wg * xhat, axis=0) / n_cols
-            dx = rstd * (wg - c1 - xhat * c2)
-            tl.store(DX + row * stride_dx + cols, dx.to(DX.dtype.element_ty), mask=m)
-            dw += g * xhat
-            db += g
-        tl.store(DWP + pid * n_cols + cols, dw, mask=inb)
-        tl.store(DBP + pid * n_cols + cols, db, mask=inb)
-
-    return triton, _ln_bwd
 
 
 _I, _LL, _F, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p
@@ -117,6 +79,26 @@ def _lib_fwd_attrs():
     return fn
 
 
+def _lib_bwd():
+    """``layer_norm_bwd`` of csrc/layer_norm.cu: x, dy, w, dx, dw, db, the
+    scratch and its rows, the tickets and their count; nb, n, c; x's and
+    dy's batch, row and column strides; x fp32, dy fp32; eps; the
+    stream."""
+    fn = _build.load("layer_norm").layer_norm_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * 7 + [_LL, _P] + [_I] * 4 + [_LL] * 6 + [_I] * 2 + [_F, _P]
+        fn.restype = _I
+    return fn
+
+
+def _lib_bwd_attrs():
+    fn = _build.load("layer_norm").layer_norm_bwd_attrs
+    if fn.argtypes is None:
+        fn.argtypes = [_I, _I, _I, _LL, _P]
+        fn.restype = _I
+    return fn
+
+
 def kernel_resources(x_dtype, out_dtype, c, col_stride=1):
     """Registers and spilled bytes a thread, the path (16-byte vectors a
     lane on the vector path, 0 the masked path, -1 the column path) and
@@ -127,6 +109,71 @@ def kernel_resources(x_dtype, out_dtype, c, col_stride=1):
     _build.check(_lib_fwd_attrs()(int(x_dtype == torch.float32), int(out_dtype == torch.float32),
                                   c, col_stride, out), "layer_norm attributes")
     return dict(zip(("registers", "spill_bytes", "path", "blocks_per_sm"), out))
+
+
+def bwd_kernel_resources(x_dtype, g_dtype, c, col_stride=1):
+    """As ``kernel_resources``, for the backward kernel that x_dtype maps
+    and g_dtype output gradients of c columns take (row-major, or with
+    col_stride != 1 channel-major)."""
+    out = (ctypes.c_int * 4)()
+    _build.check(_lib_bwd_attrs()(int(x_dtype == torch.float32), int(g_dtype == torch.float32),
+                                  c, col_stride, out), "layer_norm_bwd attributes")
+    return dict(zip(("registers", "spill_bytes", "path", "blocks_per_sm"), out))
+
+
+def bwd_grid(nb, n, path, resident):
+    """The backward kernel's grid for nb x n rows on ``path`` ("vector": a
+    row a warp; "column": a tile of BWD_TILE rows of one image; "masked": a
+    row a block), persistent blocks, the resident ones at most (the
+    kernel's rule); and its finish's blocks a group and groups."""
+    work = {"vector": -(-nb * n // BWD_WARPS), "column": nb * -(-n // BWD_TILE),
+            "masked": nb * n}[path]
+    grid = min(resident, work)
+    gsize = math.isqrt(grid - 1) + 1 if grid > 1 else 1
+    return grid, gsize, -(-grid // gsize)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device_index):
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _groups3(t):
+    """The leading axes of t (size 1 dropped) merged where their strides
+    allow: [(size, stride), ...] outermost first."""
+    out = []
+    for size, stride in zip(t.shape[:-1], t.stride()[:-1]):
+        if size == 1:
+            continue
+        if out and out[-1][1] == size * stride:
+            out[-1] = (out[-1][0] * size, stride)
+        else:
+            out.append((size, stride))
+    return out
+
+
+def _batch_rows(x, g):
+    """(nb, n) and x's and g's (batch, row, column) strides describing both
+    in place, with the tensors to launch on: a layout no two axes describe
+    (or one that splits its rows otherwise than x's) is made contiguous
+    first."""
+    gx, gg = _groups3(x), _groups3(g)
+    if len(gx) > 2:
+        x = x.contiguous()
+        gx = _groups3(x)
+    if len(gg) > 2 or (len(gx) == 2 == len(gg) and gx[0][0] != gg[0][0]):
+        g = g.contiguous()
+        gg = _groups3(g)
+    split = gx if len(gx) == 2 else gg if len(gg) == 2 else None
+    nb, n = (split[0][0], split[1][0]) if split else (1, x.numel() // x.shape[-1])
+
+    def strides(groups, t):
+        if len(groups) == 2:
+            return groups[0][1], groups[1][1], t.stride(-1)
+        row = groups[0][1] if groups else 0
+        return n * row, row, t.stride(-1)
+
+    return nb, n, strides(gx, x), strides(gg, g), x, g
 
 
 def _row_view(t):
@@ -165,11 +212,6 @@ def _check(x, out_dtype):
                          "channels is too wide")
 
 
-def _rows(t):
-    t2 = t.reshape(-1, t.shape[-1])
-    return t2 if t2.stride(-1) == 1 else t2.contiguous()
-
-
 def _layer_norm_fwd(x, weight, bias, eps, out_dtype):
     x2 = _row_view(x)
     w = weight.float().contiguous()
@@ -200,29 +242,37 @@ def layer_norm_bwd_plain(x, weight, g, eps: float = 1e-5):
 
 def layer_norm_bwd(x, weight, g, eps: float = 1e-5):
     """Gradients of layer_norm from its input and the output gradient g:
-    (dx in x.dtype, dw, db fp32). One Triton launch on CUDA (counted in
-    ``layer_norm_bwd.launches``) writes dx and per-program partial column
-    sums; one reduction sums those. The plain version for CPU tensors."""
+    (dx in x.dtype, dw, db fp32). One CUDA launch (counted in
+    ``layer_norm_bwd.launches``) writes all three, reading x and g in place
+    (row-major or channel-major, batched); the plain version for CPU
+    tensors."""
     if not x.is_cuda:
         return layer_norm_bwd_plain(x, weight, g, eps)
     _check(x, g.dtype)
     if g.shape != x.shape:
         raise ValueError(f"layer_norm backward: g {tuple(g.shape)} for x {tuple(x.shape)}")
-    x2, g2 = _rows(x), _rows(g)
-    rows, c = x2.shape
-    nprog = -(-rows // _BWD_ROWS)
+    c = x.shape[-1]
+    rows = x.numel() // c if c else 0
     dx = torch.empty((rows, c), dtype=x.dtype, device=x.device)
-    partial = torch.empty((2, nprog, c), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):  # Triton launches on the current device
-        triton, kernel = _triton_kernel()
-        block = triton.next_power_of_2(c)
-        kernel[(nprog,)](
-            x2, weight.float().contiguous(), g2, dx, partial[0], partial[1], rows, c,
-            x2.stride(0), g2.stride(0), dx.stride(0), float(eps),
-            ROWS=_BWD_ROWS, BLOCK=block, num_warps=max(1, min(8, block // 256)),
-        )
+    if dx.numel() == 0:  # no element: the sums are 0
+        zero = torch.zeros(c, device=x.device)
+        return dx.reshape(x.shape), zero, zero.clone()
+    nb, n, sx, sg, x, g = _batch_rows(x, g)
+    dwb = torch.empty((2, c), dtype=torch.float32, device=x.device)
+    most = BWD_BLOCKS_PER_SM * _sms(x.device.index)  # resident blocks at most
+    _, _, groups = bwd_grid(1, most, "masked", most)  # the finish's groups at most
+    part = torch.empty((most + groups, 2 * c), dtype=torch.float32, device=x.device)
+    w = weight.float().contiguous()
+    tickets = _build.tickets(x.device, groups + 1)
+    with torch.cuda.device(x.device):  # the launch goes to the current device
+        status = _lib_bwd()(
+            x.data_ptr(), g.data_ptr(), w.data_ptr(), dx.data_ptr(),
+            dwb[0].data_ptr(), dwb[1].data_ptr(), part.data_ptr(), most + groups,
+            tickets.data_ptr(), groups + 1, nb, n, c, *sx, *sg,
+            int(x.dtype == torch.float32), int(g.dtype == torch.float32), float(eps),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(status, "layer_norm_bwd launch")
     layer_norm_bwd.launches += 1
-    dwb = partial.sum(1)
     return dx.reshape(x.shape), dwb[0], dwb[1]
 
 

@@ -56,8 +56,11 @@ BINDINGS = {
     "flash_xattn_rpb_attrs": fa._lib_xattn_attrs,
     "layer_norm_fwd": ln._lib_fwd,
     "layer_norm_fwd_attrs": ln._lib_fwd_attrs,
-    "depthwise_conv2d_fwd": depthwise._lib,
-    "depthwise_conv2d_wgrad": lambda: depthwise._lib("depthwise_conv2d_wgrad"),
+    "layer_norm_bwd": ln._lib_bwd,
+    "layer_norm_bwd_attrs": ln._lib_bwd_attrs,
+    "depthwise_conv2d_fwd": depthwise._lib_fwd,
+    "depthwise_conv2d_bwd": depthwise._lib_bwd,
+    "depthwise_conv2d_attrs": depthwise._lib_attrs,
     "mma_probe_dot_chain": mma_probe._lib,
     "hungarian_solve": hungarian._lib,
 }

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from efficientsam3_tpu_torch.ops import _build
 from efficientsam3_tpu_torch.ops import depthwise as dw
 from efficientsam3_tpu_torch.ops import flash_attention as fa
 from efficientsam3_tpu_torch.ops import layer_norm as ln
@@ -314,8 +315,9 @@ def test_flash_sdpa_autograd_matches_plain_autograd(cuda, b, n):
 ])
 @pytest.mark.parametrize("rows", [20736, 17])
 def test_layer_norm_bwd_kernel_matches_plain(cuda, x_dtype, g_dtype, rows):
-    """dx per row, dw/db summed over every row (fp32 partials of 32 rows,
-    then one sum): 1e-2 as for the forward, dw/db relative to their range."""
+    """dx per row, dw/db summed over every row (a block's fp32 partials,
+    finished in the same launch): 1e-2 as for the forward, dw/db relative
+    to their range."""
     x = 3.0 * _randn(cuda, rows, 256, dtype=x_dtype)
     w = 1.0 + 0.1 * _randn(cuda, 256, dtype=torch.float32)
     g = _randn(cuda, rows, 256, dtype=g_dtype)
@@ -663,9 +665,9 @@ def test_flash_sdpa_d256_autograd_matches_plain_autograd(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(8, 72, 72, 256), (2, 13, 29, 40), (1, 9, 5, 37), (1, 3, 4, 8)])
 def test_depthwise_bwd_matches_plain(cuda, shape):
-    """dx (the kernel over the flipped taps) against the plain backward, and
-    dw / db (the weight-gradient kernel's fp32 per-tile sums, then one sum)
-    against the plain reductions in fp64: the tracker shape, odd H/W and C
+    """dx (the backward kernel's correlation over the flipped taps) against
+    the plain backward, and dw / db (its fp32 sums, finished in the same
+    launch) against the plain reductions in fp64: the tracker shape, odd H/W and C
     (the element-copy staging), and a map smaller than the 7x7 kernel. g is
     a loss gradient's size (1e-2), so dx is held relative to its range."""
     c = shape[-1]
@@ -686,8 +688,8 @@ def test_depthwise_bwd_matches_plain(cuda, shape):
 
 @pytest.mark.cuda
 def test_depthwise_autograd_matches_plain_autograd(cuda):
-    """depthwise_conv2d under autograd (forward kernel, dx kernel, fp32
-    dw / db) against autograd through the plain forward; taps and bias in
+    """depthwise_conv2d under autograd (forward kernel, the backward kernel's
+    dx and fp32 dw / db) against autograd through the plain forward; taps and bias in
     bf16 as CXBlock holds them, so their gradients come back bf16."""
     x = _randn(cuda, 2, 30, 41, 64)
     wk = (0.2 * _randn(cuda, 7, 7, 1, 64, dtype=torch.float32)).to(torch.bfloat16)
@@ -981,8 +983,8 @@ def test_flash_xattn_rpb_fp32_kernel_matches_plain(cuda, lq, hw):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(8, 72, 72, 256), (2, 13, 29, 40), (1, 9, 5, 37), (1, 3, 4, 8)])
 def test_depthwise_fp32_kernels_match_plain(cuda, shape):
-    """The forward, dx and dw / db kernels' fp32 instantiations (16-channel
-    tiles): the tracker shape, odd H/W and C (element copies), a map
+    """The forward and backward kernels' fp32 instantiations: the tracker
+    shape, odd H/W and C (element copies), a map
     smaller than the 7x7 kernel; fp32 FMA on both sides."""
     c = shape[-1]
     x = _randn(cuda, *shape, dtype=torch.float32)
@@ -2068,8 +2070,8 @@ def test_flash_xattn_rpb_fits_one_wave(cuda, dtype):
 @pytest.mark.parametrize("x_dtype,out_dtype", LN_DTYPES)
 @pytest.mark.parametrize("c", LN_CHANNELS)
 def test_layer_norm_autograd_dtypes_match_plain_autograd(cuda, x_dtype, out_dtype, c):
-    """Under autograd: the CUDA forward and the Triton backward, one launch
-    each, against autograd of the plain version."""
+    """Under autograd: the CUDA forward and backward, one launch each,
+    against autograd of the plain version."""
     x = (3.0 * _randn(cuda, 2, 201, c, dtype=x_dtype)).requires_grad_()
     w = (1.0 + 0.1 * _randn(cuda, c, dtype=torch.float32)).requires_grad_()
     b = (0.1 * _randn(cuda, c, dtype=torch.float32)).requires_grad_()
@@ -2122,3 +2124,160 @@ def test_layer_norm_kernel_fits_without_spills(cuda, x_dtype, out_dtype):
     assert ln.kernel_resources(x_dtype, out_dtype, 250)["path"] == 0
     res = ln.kernel_resources(x_dtype, out_dtype, 256, col_stride=5184)
     assert res["path"] == -1 and res["spill_bytes"] == 0 and res["blocks_per_sm"] >= 4, res
+
+
+# ---- the 7x7 depthwise conv redesigned (a walk of persistent blocks down
+# the map's rows; one backward kernel for dx, dw and db) and layer_norm's
+# backward in CUDA
+
+
+def _kernels_of(fn):
+    """The device kernels one fn() call launches, by name (profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm: first-use allocations (the tickets) out of the count
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+DW_CARD_SHAPES = [(8, 72, 72, 256), (2, 13, 29, 40), (1, 9, 5, 37), (3, 11, 40, 33),
+                  (1, 7, 7, 8), (2, 20, 75, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", DW_CARD_SHAPES, ids=str)
+def test_depthwise_kernels_same_bits_one_launch(cuda, dtype, shape):
+    """The forward and the backward kernel at the tracker shape, ragged H,
+    W and C (element staging at 37 and 33 channels, two and three strips at
+    W = 40 and 75), the taps and bias as CXBlock hands them (a permuted view
+    of a (C, 1, 7, 7) weight, in the maps' dtype): within 1e-2 (bf16) or
+    1e-4 (fp32) of the plain versions' largest magnitude, dw / db within
+    1e-5 of fp64 sums; one launch a call; the same bits when run again (the
+    partials finished in a fixed order); the tickets left at 0."""
+    c = shape[-1]
+    x = _randn(cuda, *shape, dtype=dtype)
+    g = (1e-2 * _randn(cuda, *shape, dtype=torch.float32)).to(dtype)
+    wk = (0.2 * _randn(cuda, c, 1, 7, 7, dtype=torch.float32)).to(dtype).permute(2, 3, 1, 0)
+    bias = (0.1 * _randn(cuda, c, dtype=torch.float32)).to(dtype)
+    fwd, bwd = dw.depthwise_conv2d.launches, dw.depthwise_conv2d_bwd.launches
+    got = dw.depthwise_conv2d(x, wk, bias)
+    dx, dwt, db = dw.depthwise_conv2d_bwd(x, wk, g)
+    torch.cuda.synchronize()
+    assert (dw.depthwise_conv2d.launches, dw.depthwise_conv2d_bwd.launches) == (fwd + 1, bwd + 1)
+    assert got.dtype == dx.dtype == dtype and dwt.dtype == db.dtype == torch.float32
+    tol = TOL if dtype == torch.bfloat16 else FP32_TOL
+    assert _rel_err(got, dw.depthwise_conv2d_plain(x, wk, bias)) < tol
+    assert _rel_err(dx, dw.depthwise_conv2d_bwd_plain(x, wk, g)[0]) < tol
+    exact = dw.depthwise_conv2d_bwd_plain(x.double(), wk.double(), g.double())
+    assert _rel_err(dwt, exact[1]) < 1e-5 and _rel_err(db, exact[2]) < 1e-5
+    assert torch.equal(dw.depthwise_conv2d(x, wk, bias), got)
+    for again, first in zip(dw.depthwise_conv2d_bwd(x, wk, g), (dx, dwt, db)):
+        assert torch.equal(again, first)
+    assert (_build.tickets(cuda, 1) == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_depthwise_kernels_launch_alone(cuda, dtype):
+    """A call launches its kernel and nothing else (taps and bias read in
+    place, no cast, no second sum); a CUDA tensor the kernels do not take
+    raises."""
+    x = _randn(cuda, 2, 30, 41, 64, dtype=dtype)
+    g = _randn(cuda, 2, 30, 41, 64, dtype=dtype)
+    wk = (0.2 * _randn(cuda, 64, 1, 7, 7)).permute(2, 3, 1, 0)
+    bias = 0.1 * _randn(cuda, 64)
+    names = _kernels_of(lambda: dw.depthwise_conv2d(x, wk, bias))
+    assert len(names) == 1 and "dw7_fwd_kernel" in names[0], names
+    names = _kernels_of(lambda: dw.depthwise_conv2d_bwd(x, wk, g))
+    assert len(names) == 1 and "dw7_bwd_kernel" in names[0], names
+    with pytest.raises(TypeError, match="taps"):
+        dw.depthwise_conv2d(x, wk.half(), bias)
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    with pytest.raises(TypeError, match="x's dtype"):
+        dw.depthwise_conv2d_bwd(x, wk, g.to(other))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_depthwise_kernels_fit_without_spills(cuda, dtype):
+    """No spills; the forward (four warps of 9 columns) at three blocks an
+    SM, the backward (six conv and six weight warps of 6 columns) at one;
+    36-column strips."""
+    for backward, per_sm, threads in ((False, 3, 128), (True, 1, 384)):
+        res = dw.kernel_resources(dtype, backward)
+        assert res["spill_bytes"] == 0 and res["blocks_per_sm"] >= per_sm, res
+        assert res["threads"] == threads and res["strip_columns"] == dw.STRIP, res
+
+
+LN_BWD_PAIRS = [(torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
+                (torch.float32, torch.float32), (torch.bfloat16, torch.float32)]
+
+
+def _ln_bwd_operands(dev, layout, x_dtype, g_dtype):
+    """x and dy as the step's norms and others hand them in: row-major
+    rows, channel-major maps at batch 1 and 4 (the latter no row axis
+    describes), a channel-major x with a row-major dy, odd widths (the
+    column path at 250 and 37, the masked path at 600)."""
+    cm = lambda b, c, n, dt: (3.0 * _randn(dev, b, c, n, dtype=dt)).transpose(1, 2)  # noqa: E731
+    rm = lambda dt, *s: 3.0 * _randn(dev, *s, dtype=dt)  # noqa: E731
+    return {
+        "rows": lambda: (rm(x_dtype, 4 * 5184, 256), rm(g_dtype, 4 * 5184, 256)),
+        "cmajor1": lambda: (cm(1, 256, 5184, x_dtype), cm(1, 256, 5184, g_dtype)),
+        "cmajor4": lambda: (cm(4, 256, 5184, x_dtype), cm(4, 256, 5184, g_dtype)),
+        "mixed": lambda: (cm(4, 256, 999, x_dtype), rm(g_dtype, 4, 999, 256)),
+        "c250": lambda: (rm(x_dtype, 201, 250), rm(g_dtype, 201, 250)),
+        "c37": lambda: (cm(2, 37, 300, x_dtype), cm(2, 37, 300, g_dtype)),
+        "c600": lambda: (rm(x_dtype, 77, 600), rm(g_dtype, 77, 600)),
+    }[layout]()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype,g_dtype", LN_BWD_PAIRS)
+@pytest.mark.parametrize("layout", ["rows", "cmajor1", "cmajor4", "mixed", "c250", "c37", "c600"])
+def test_layer_norm_bwd_layouts_match_plain(cuda, x_dtype, g_dtype, layout):
+    """Every (x, dy) dtype pair on each path: dx within 1e-2 (1e-4 when
+    both are fp32), dw / db within 1e-4 of their range; one launch a call;
+    the same bits when run again (the finish sums in a fixed order); the
+    tickets left at 0."""
+    x, g = _ln_bwd_operands(cuda, layout, x_dtype, g_dtype)
+    c = x.shape[-1]
+    w = 1.0 + 0.1 * _randn(cuda, c, dtype=torch.float32)
+    before = ln.layer_norm_bwd.launches
+    dx, dw_, db = ln.layer_norm_bwd(x, w, g, 1e-5)
+    torch.cuda.synchronize()
+    assert ln.layer_norm_bwd.launches == before + 1 and dx.dtype == x_dtype
+    assert dx.shape == x.shape
+    want = ln.layer_norm_bwd_plain(x, w, g, 1e-5)
+    tol = FP32_TOL if x_dtype == g_dtype == torch.float32 else TOL
+    assert _rel_err(dx, want[0]) < tol
+    assert _rel_err(dw_, want[1]) < 1e-4 and _rel_err(db, want[2]) < 1e-4
+    for again, first in zip(ln.layer_norm_bwd(x, w, g, 1e-5), (dx, dw_, db)):
+        assert torch.equal(again, first)
+    assert (_build.tickets(cuda, 1) == 0).all()
+
+
+@pytest.mark.cuda
+def test_layer_norm_bwd_launches_alone(cuda):
+    """The step's channel-major batch of maps: one kernel a call (no copy
+    of x or dy, no second sum)."""
+    x, g = _ln_bwd_operands(cuda, "cmajor4", torch.bfloat16, torch.bfloat16)
+    w = 1.0 + 0.1 * _randn(cuda, 256, dtype=torch.float32)
+    names = _kernels_of(lambda: ln.layer_norm_bwd(x, w, g, 1e-5))
+    assert len(names) == 1 and "ln_bwd_cols" in names[0], names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype,g_dtype", LN_BWD_PAIRS)
+def test_layer_norm_bwd_kernel_fits_without_spills(cuda, x_dtype, g_dtype):
+    """At 256 row-major channels the vector path (one 16-byte vector a lane
+    when both are bf16, two 4-column vectors otherwise), channel-major the
+    column path, 600 channels the masked path: no spills, a block of 512
+    threads resident on every SM (the grid)."""
+    nv = 1 if x_dtype == g_dtype == torch.bfloat16 else 2
+    for c, stride, path in ((256, 1, nv), (256, 5184, -1), (600, 1, 0)):
+        res = ln.bwd_kernel_resources(x_dtype, g_dtype, c, col_stride=stride)
+        assert res["path"] == path and res["spill_bytes"] == 0 and res["blocks_per_sm"] >= 1, res

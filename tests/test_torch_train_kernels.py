@@ -6,8 +6,10 @@ tests/test_flash_attention.py runs them), on the CPU:
     csrc/flash_sdpa_bwd_dq_h.cu and csrc/flash_sdpa_bwd_h.cu at head dim 32
     and csrc/flash_sdpa_bwd_wide_h.cu at 256) against the custom VJP of the JAX
     ``flash_sdpa`` (``_flash_bwd``: ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``);
-  - ``layer_norm_bwd_plain`` (the Triton backward's arithmetic) against the
-    VJP of the JAX ``layer_norm`` (``_bwd_call`` / ``_bwd_kernel``);
+  - ``layer_norm_bwd_plain`` (the arithmetic of csrc/layer_norm.cu's
+    backward) against the VJP of the JAX ``layer_norm`` (``_bwd_call`` /
+    ``_bwd_kernel``), on row-major rows and on the channel-major batched
+    views the backward kernel reads in place;
   - the port's own autograd on CPU tensors, through the plain forwards,
     against the same gradients.
 
@@ -142,3 +144,44 @@ def test_layer_norm_bwd_plain_and_autograd_match_jax(x_dtype, out_dtype, rows):
     for got in (plain, auto):
         for a, e in zip(got, want):
             close(a, e, tol)
+
+
+@pytest.mark.parametrize("x_dtype,g_dtype", [("float32", "float32"), ("bfloat16", "bfloat16"),
+                                             ("float32", "bfloat16")])
+@pytest.mark.parametrize("layout", ["cmajor", "mixed"])
+def test_layer_norm_bwd_plain_on_channel_major_views_matches_jax(x_dtype, g_dtype, layout):
+    """The backward kernel reads x and dy where they lie: a batch of two
+    channel-major maps ((2, C, N) transposed to (2, N, C): no single row
+    axis describes it), dy channel-major too or row-major. The plain
+    version on those views against the JAX VJP on the same values,
+    contiguous; the (batch, row, column) strides the wrapper hands the
+    kernel name every element where it lies."""
+    rng = np.random.default_rng(5)
+    b, n, c = 2, 45, 256
+
+    def rand(dtype, scale):
+        a = (scale * rng.standard_normal((b, n, c))).astype(np.float32)
+        return np.array(jnp.asarray(a, JDT[dtype]).astype(jnp.float32))
+
+    x, g = rand(x_dtype, 3.0), rand(g_dtype, 1.0)
+    w = (1 + 0.1 * rng.standard_normal(c)).astype(np.float32)
+    bias = np.zeros(c, np.float32)
+    _, vjp = jax.vjp(lambda x_, w_, b_: jlayer_norm(x_, w_, b_, 1e-5, jnp.dtype(JDT[g_dtype])),
+                     jnp.asarray(x, JDT[x_dtype]), jnp.asarray(w), jnp.asarray(bias))
+    want = vjp(jnp.asarray(g, JDT[g_dtype]))
+
+    def cmajor(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a.transpose(0, 2, 1))).to(
+            TDT[dtype]).transpose(1, 2)
+
+    tx = cmajor(x, x_dtype)
+    tg = cmajor(g, g_dtype) if layout == "cmajor" else torch.from_numpy(g).to(TDT[g_dtype])
+    assert not tx.is_contiguous()
+    nb, n_, sx, sg, x2, g2 = ln._batch_rows(tx, tg)
+    assert (nb, n_) == (b, n) and x2.data_ptr() == tx.data_ptr() and g2.data_ptr() == tg.data_ptr()
+    for t, st in ((tx, sx), (tg, sg)):
+        torch.testing.assert_close(torch.as_strided(t, (nb, n_, c), st), t)
+    got = ln.layer_norm_bwd_plain(tx, torch.from_numpy(w), tg, 1e-5)
+    tol = TOL[x_dtype] if x_dtype == g_dtype == "float32" else TOL["bfloat16"]
+    for a, e in zip(got, want[:1] + tuple(np.asarray(v) for v in want[1:])):
+        close(a, np.asarray(e).reshape(a.shape), tol)
