@@ -127,9 +127,12 @@ Phases, each printing its own lines:
      with and without the log-sum-exp, and against flash_memattn over the
      dequantized keys, and timed as in phase 3 beside flash_memattn on the
      same keys and over the number of live slots;
-  8. [probe] the int8 / bf16 tensor-core probe (ops/mma_probe.bench_dot):
-     64 chained (768, 256) @ (256, 2048) products a launch, against its
-     plain version, with torch._int_mm / torch.matmul as the library time;
+  8. [probe] the int8 / bf16 tensor-core probe (ops/mma_probe.bench_dot,
+     the wgmma kernel of csrc/mma_probe.cu): 64 chained (768, 256) @ (256,
+     2048) products a launch, against its plain version, each chain beside
+     its bound, with torch._int_mm / torch.matmul as the library time, the
+     int8 : bf16 rate and each chain's clock64 sections (staging, waiting
+     on the tensor cores, converting);
   9. [tracker_train] the tracker's training path at full width: the [video]
      configuration (fuser layer scales set to 1, so that the depthwise
      branch carries gradient, and the object-score head's last bias raised
@@ -156,8 +159,13 @@ Phases, each printing its own lines:
      cross-attention and at the self-attention, each beside SDPA's
      backward), the depthwise backward and
      rms_norm_2d forward and backward (kernel level, at (8, 72, 72, 256)
-     and (4, 63, 63, 128) bf16) are held against their plain versions and
-     timed as in phase 3.
+     and (4, 63, 63, 128) bf16 and (8, 72, 72, 256) fp32; the backward the
+     one-launch RMS mode of csrc/layer_norm.cu, the same bits twice, one
+     kernel a call in a graph replay) are held against their plain
+     versions and timed as in phase 3. The three
+     backward kernels that finish dw / db by atomic tickets (depthwise,
+     LayerNorm, RMSNorm) run on two streams at once: the bits of each call
+     alone, each stream's ticket buffer its own, every buffer back at 0.
 
   10. [fp32] the port's default builds (no dtype: fp32 compute, every
      kernel through its fp32 instantiation on split bf16 parts) at full
@@ -271,7 +279,7 @@ Phases, each printing its own lines:
      (FP32_TOL, fp32 SDPA's backward).
 
 Each phase prints its seconds. The line before the last is the kernels
-JSON (forty-two rows), the last {"ok": true, "device": {...}}. Any
+JSON (forty-five rows), the last {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero. Imports nothing of JAX and nothing of
 the JAX package.
 """
@@ -934,7 +942,7 @@ def main():
 
     # ---------------------------------------------------------------- 5-13
     for name, phase in (("video", lambda: video_phase(smi, rng)), ("train", lambda: train_phase(smi)),
-                        ("pcs", lambda: pcs_phase(smi)), ("probe", lambda: [probe_phase(smi)]),
+                        ("pcs", lambda: pcs_phase(smi)), ("probe", lambda: probe_phase(smi)),
                         ("tracker_train", lambda: tracker_train_phase(smi)),
                         ("fp32", lambda: fp32_phase(smi, main_ref)),
                         ("sam3", lambda: sam3_phase(smi, main_ref)),
@@ -2100,7 +2108,8 @@ def pcs_phase(smi):
 
 
 def probe_phase(smi):
-    """Phase 8: the tensor-core probe; returns the mma_probe row (int8)."""
+    """Phase 8: the tensor-core probe on wgmma; returns the mma_probe rows
+    (int8 and bf16)."""
     import torch
 
     from efficientsam3_tpu_torch.ops import mma_probe
@@ -2124,30 +2133,52 @@ def probe_phase(smi):
         if rel > 1e-5:
             raise AssertionError(f"mma_probe ({name}) disagrees with its plain version")
         one = (lambda: torch._int_mm(x, y)) if dt == torch.int8 else (lambda: torch.matmul(x, y))
-        res[dt] = dict(err=err, x=x, y=y, ms=graph_time(lambda: mma_probe.dot_chain(x, y, n_iter)),
-                       plain_ms=graph_time(lambda: mma_probe.dot_chain_plain(x, y, n_iter), 2, 5),
-                       library_ms=graph_time(one, n_iter, 10) * n_iter)
+        r = dict(err=err, x=x, y=y, ms=graph_time(lambda: mma_probe.dot_chain(x, y, n_iter)),
+                 plain_ms=graph_time(lambda: mma_probe.dot_chain_plain(x, y, n_iter), 2, 5),
+                 library_ms=graph_time(one, n_iter, 10) * n_iter,
+                 bound=bound(x.numel() * x.element_size() + y.numel() * y.element_size()
+                             + 4 * m * n, **{"int8_ops" if dt == torch.int8 else "mma_flops": ops}),
+                 res=mma_probe.kernel_resources(dt), clocks=mma_probe.chain_clocks(x, y, n_iter)[0])
+        res[dt] = r
     i8, bf = res[torch.int8], res[torch.bfloat16]
-    log(f"[probe] {n_iter} chained ({m}, {k}) @ ({k}, {n}) products a launch, in a CUDA graph: "
-        f"bf16 {bf['ms']:.4f} ms = {ops / bf['ms'] / 1e9:.1f} TFLOP/s "
-        f"({ops / bf['ms'] / 1e9 / (PEAK_BF16 / 1e12):.1%} of the bf16 peak) | int8 {i8['ms']:.4f} "
-        f"ms = {ops / i8['ms'] / 1e9:.1f} TOP/s ({ops / i8['ms'] / 1e9 / (PEAK_INT8 / 1e12):.1%} of "
-        f"the int8 peak) | int8 / bf16 rate {bf['ms'] / i8['ms']:.2f}x | per call from the host "
-        f"bf16 {call_ms[torch.bfloat16]:.4f}, int8 {call_ms[torch.int8]:.4f} ms | library, "
-        f"{n_iter} calls: torch.matmul bf16 {bf['library_ms']:.4f} ms = "
+
+    def sections(c):
+        return (f"staging {c['staging']:.0f}, waiting {c['waiting']:.0f}, converting "
+                f"{c['converting']:.0f} of {c['block']:.0f} clocks a block "
+                f"({c['converting'] / n_iter:.0f} a product converted)")
+
+    def kres(r):
+        return (f"{r['registers']} registers, {r['spill_bytes']} bytes spilled, "
+                f"{r['smem_bytes']} B shared, {r['blocks_per_sm']} blocks an SM")
+
+    log(f"[probe] {n_iter} chained ({m}, {k}) @ ({k}, {n}) products a launch on wgmma, in a CUDA "
+        f"graph: bf16 {bf['ms']:.4f} ms = {ops / bf['ms'] / 1e9:.1f} TFLOP/s "
+        f"({ops / bf['ms'] / 1e9 / (PEAK_BF16 / 1e12):.1%} of the bf16 peak; bound "
+        f"{bf['bound'][0]:.4f}) | int8 {i8['ms']:.4f} ms = {ops / i8['ms'] / 1e9:.1f} TOP/s "
+        f"({ops / i8['ms'] / 1e9 / (PEAK_INT8 / 1e12):.1%} of the int8 peak; bound "
+        f"{i8['bound'][0]:.4f}) | int8 : bf16 rate {bf['ms'] / i8['ms']:.2f}x | per call from "
+        f"the host bf16 "
+        f"{call_ms[torch.bfloat16]:.4f}, int8 {call_ms[torch.int8]:.4f} ms | library, {n_iter} "
+        f"calls: torch.matmul bf16 {bf['library_ms']:.4f} ms = "
         f"{ops / bf['library_ms'] / 1e9:.1f} TFLOP/s, torch._int_mm {i8['library_ms']:.4f} ms = "
         f"{ops / i8['library_ms'] / 1e9:.1f} TOP/s | {smi}")
-    x, y = i8["x"], i8["y"]
-    bms, by = bound(x.numel() + y.numel() + 4 * m * n, int8_ops=ops)
-    row = dict(
-        name="mma_probe", route="cuda", source="efficientsam3_tpu_torch/csrc/mma_probe.cu",
-        replaces="scripts/probe_int8_mxu.py:52", launches=launches, max_abs_err=i8["err"],
-        ms=i8["ms"], call_ms=call_ms[torch.int8], plain_ms=i8["plain_ms"], bound_ms=bms,
-        bound_by=by, library_ms=i8["library_ms"], device_ms=None,
-        shape=f"int8 x ({m}, {k}) @ y ({k}, {n}) x {n_iter} -> f32; library = {n_iter} x "
-              f"torch._int_mm; the bf16 chain {bf['ms']:.4f} ms", **{"pass": True})
-    log_row(row, smi)
-    return row
+    log(f"[probe] clock64: bf16 {sections(bf['clocks'])}; int8 {sections(i8['clocks'])} | "
+        f"kernels: bf16 {kres(bf['res'])}; int8 {kres(i8['res'])}")
+    rows = []
+    for dt, r in ((torch.int8, i8), (torch.bfloat16, bf)):
+        name = str(dt).replace("torch.", "")
+        lib = "torch._int_mm" if dt == torch.int8 else "torch.matmul"
+        rows.append(dict(
+            name="mma_probe" if dt == torch.int8 else "mma_probe_bf16", route="cuda",
+            source="efficientsam3_tpu_torch/csrc/mma_probe.cu",
+            replaces="scripts/probe_int8_mxu.py:52", launches=launches, max_abs_err=r["err"],
+            ms=r["ms"], call_ms=call_ms[dt], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
+            bound_by=r["bound"][1], library_ms=r["library_ms"], device_ms=None,
+            shape=f"{name} x ({m}, {k}) @ y ({k}, {n}) x {n_iter} -> f32 on wgmma; library = "
+                  f"{n_iter} x {lib}; {kres(r['res'])}; int8 : bf16 rate "
+                  f"{bf['ms'] / i8['ms']:.2f}x", **{"pass": True}))
+        log_row(rows[-1], smi)
+    return rows
 
 
 # the tracker's training clip: 8 frames over 8 object slots, 3 of them live,
@@ -2171,6 +2202,45 @@ TT_GROUPS = {"memory_attention": ("memory_attention",), "memory_encoder": ("memo
              "sam_heads": ("sam_mask_decoder", "sam_prompt_encoder", "obj_ptr_proj",
                            "obj_ptr_tpos_proj")}
 RMS_SHAPES = ((8, 72, 72, 256), (4, 63, 63, 128))
+# the rms_norm_2d drive: both shapes in bf16, the tracker's map in fp32
+RMS_CASES = tuple((s, dt) for s, dt in ((RMS_SHAPES[0], "bf16"), (RMS_SHAPES[1], "bf16"),
+                                        (RMS_SHAPES[0], "fp32")))
+
+
+def ticket_streams_check(calls, smi, rounds=3):
+    """The backward kernels that take atomic tickets ({name: call}),
+    launched on two streams at once, rounds times on each: every result is
+    the bits of the same call alone on the current stream, the two streams'
+    ticket buffers are apart, and every buffer is back at 0. Raises
+    otherwise."""
+    import torch
+
+    from efficientsam3_tpu_torch.ops import _build
+
+    dev = torch.device("cuda")
+    alone = {name: fn() for name, fn in calls.items()}
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for _ in range(rounds):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.append({name: fn() for name, fn in calls.items()})
+    held = []
+    for s in streams:
+        with torch.cuda.stream(s):
+            held.append(_build.tickets(dev, 1).data_ptr())
+    torch.cuda.synchronize()
+    differ = sorted({name for out in outs for name, got in out.items()
+                     if not all(torch.equal(a, b) for a, b in zip(got, alone[name]))})
+    left = sum(int((b != 0).sum().item()) for b in _build.ticket_buffers())
+    log(f"[tickets] {', '.join(calls)} on two streams at once, {rounds} rounds each: results "
+        f"that differ from the call alone {differ or 'none'}; the streams' buffers "
+        f"{'apart' if held[0] != held[1] else 'SHARED'}; {left} tickets left nonzero over "
+        f"{len(_build.ticket_buffers())} buffers | {smi}")
+    if differ or left or held[0] == held[1]:
+        raise AssertionError("backward kernels on two streams shared or left tickets")
 
 
 def tracker_bank(t, n_mem, n_ptr):
@@ -2581,18 +2651,32 @@ def tracker_train_phase(smi):
               f"{res['blocks_per_sm']} blocks an SM (dw / db as 49 eager fp32 products and sums "
               f"{eager_ms:.4f} ms); library = F.conv2d (groups=C) backward",
         **{"pass": True}))
-    del x, kernel, g, dx, x_cl, w_l, b_l, y_l, g_l, capture, core
+    # ---- the three kernels that take tickets on two streams at once: the
+    # depthwise backward at these inputs, LayerNorm's at the Stage-3 step's
+    # norms, RMSNorm's at the tracker's map
+    xl, gl = (torch.randn((4 * 5184, c), generator=gen, device=dev).to(x.dtype)
+              for _ in range(2))
+    wl = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
+    xr = (3 * torch.randn(x.shape, generator=gen, device=dev)).to(x.dtype)
+    _, rstd_r = rn.rms_norm_2d_plain(xr, wl, wl, return_rstd=True)
+    ticket_streams_check({
+        "depthwise_conv2d_bwd": lambda: dw.depthwise_conv2d_bwd(x, kernel, g),
+        "layer_norm_bwd": lambda: ln.layer_norm_bwd(xl, wl, gl, 1e-5),
+        "rms_norm_2d_bwd": lambda: rn.rms_norm_2d_bwd(xr, wl, rstd_r, g)}, smi)
+    del x, kernel, g, dx, x_cl, w_l, b_l, y_l, g_l, capture, core, xl, gl, xr
 
     # ---- rms_norm_2d at kernel level (no model calls it): forward and
     # backward under autograd at the tracker's map and EV-M's stride-16 map
-    # at the Stage-3 batch of 4 (15876 rows: a ragged last program)
+    # at the Stage-3 batch of 4 (15876 rows: a ragged last program) in bf16,
+    # and at the tracker's map in fp32
     rms = []
-    for shape in RMS_SHAPES:
+    for shape, dname in RMS_CASES:
+        dtype = torch.float32 if dname == "fp32" else torch.bfloat16
         c = shape[-1]
-        x = (3 * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
+        x = (3 * torch.randn(shape, generator=gen, device=dev)).to(dtype)
         w = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
         b = 0.1 * torch.randn(c, generator=gen, device=dev)
-        g = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        g = torch.randn(shape, generator=gen, device=dev).to(dtype)
         rms.append((x, w, b, g))
     rn.rms_norm_2d.launches = rn.rms_norm_2d_bwd.launches = 0
     for x, w, b, g in rms:
@@ -2602,25 +2686,32 @@ def tracker_train_phase(smi):
             raise AssertionError("rms_norm_2d: non-finite gradients")
     torch.cuda.synchronize()
     rms_launches = (rn.rms_norm_2d.launches, rn.rms_norm_2d_bwd.launches)
-    if rms_launches != (len(RMS_SHAPES), len(RMS_SHAPES)):
+    if rms_launches != (len(RMS_CASES), len(RMS_CASES)):
         raise AssertionError(f"rms_norm_2d launches {rms_launches}")
     have_lib = hasattr(F, "rms_norm")
     for i, (x, w, b, g) in enumerate(rms):
         c = x.shape[-1]
+        fp32 = x.dtype == torch.float32
+        dname = "fp32" if fp32 else "bf16"
         out, rstd = rn._fwd(x, w, b, 1e-5)
         want_out, want_rstd = rn.rms_norm_2d_plain(x, w, b, 1e-5, return_rstd=True)
-        err_f = check(f"rms_norm_2d {tuple(x.shape)}", out, want_out)
+        tol = FP32_TOL if fp32 else ATOL
+        err_f = check(f"rms_norm_2d {dname} {tuple(x.shape)}", out, want_out, tol)
         rstd_err = ((rstd - want_rstd).abs().max() / want_rstd.abs().max()).item()
         dx, dw_, db_ = rn.rms_norm_2d_bwd(x, w, rstd, g)
         want = rn.rms_norm_2d_bwd_plain(x, w, want_rstd, g)
-        err_b = check(f"rms_norm_2d_bwd {tuple(x.shape)} (dx)", dx, want[0])
+        err_b = check(f"rms_norm_2d_bwd {dname} {tuple(x.shape)} (dx)", dx, want[0], tol)
         rel_w = max(((a - e).abs().max() / e.abs().max()).item()
                     for a, e in ((dw_, want[1]), (db_, want[2])))
-        log(f"[kernel] rms_norm_2d {tuple(x.shape)}: rstd {rstd_err:.3e}, dw / db {rel_w:.3e} "
-            f"of their ranges (bound 1e-4)")
-        if rstd_err > 1e-4 or rel_w > 1e-4:
-            raise AssertionError("rms_norm_2d rstd / dw / db disagree with the plain version")
+        again = rn.rms_norm_2d_bwd(x, w, rstd, g)
+        same = all(torch.equal(a, e) for a, e in zip(again, (dx, dw_, db_)))
+        log(f"[kernel] rms_norm_2d {dname} {tuple(x.shape)}: rstd {rstd_err:.3e}, dw / db "
+            f"{rel_w:.3e} of their ranges (bound 1e-4); the backward's bits again: {same}")
+        if rstd_err > 1e-4 or rel_w > 1e-4 or not same:
+            raise AssertionError("rms_norm_2d rstd / dw / db disagree with the plain version, "
+                                 "or the backward's bits differ run to run")
         rows_n = x.numel() // c
+        esz = x.element_size()
         w_x = w.to(x.dtype)
         fwd_ms = graph_time(lambda: rn.rms_norm_2d(x, w, b))
         bwd_ms_ = graph_time(lambda: rn.rms_norm_2d_bwd(x, w, rstd, g))
@@ -2632,28 +2723,46 @@ def tracker_train_phase(smi):
             lib_b = cuda_time(lambda: torch.autograd.grad(yl, (xl, wl), g, retain_graph=True), 50)
         else:
             lib_b = None
-        nb_f = 2 * 2 * x.numel() + 4 * rows_n + 8 * c
-        nb_b = 3 * 2 * x.numel() + 4 * rows_n + 8 * c
-        shape = f"x {tuple(x.shape)} bf16 ({rows_n} rows of {c}), w / b f32"
+        nb_f = 2 * esz * x.numel() + 4 * rows_n + 8 * c
+        nb_b = 3 * esz * x.numel() + 4 * rows_n + 12 * c
+        res = rn.bwd_kernel_resources(x.dtype, g.dtype, c)
+        # one kernel a call, beside the graph's zero fill of its tickets (one
+        # a graph of 20 calls). The profiler's sum of that kernel over the
+        # replay is printed, not kept as the row's device time: it has read
+        # under the byte bound (PERF.md §7)
+        _, replay_k = replay_profile(lambda: rn.rms_norm_2d_bwd(x, w, rstd, g))
+        kernels = [k for k in replay_k if "FillFunctor" not in k]
+        if len(kernels) != 1 or "ln_bwd" not in kernels[0]:
+            raise AssertionError(f"rms_norm_2d_bwd: {sorted(replay_k)} kernels a call, not one")
+        shape = f"x {tuple(x.shape)} {dname} ({rows_n} rows of {c}), w / b f32"
         lib_note = ("" if have_lib else "; this PyTorch has no F.rms_norm: library not measured")
-        if i > 0:
+        bwd_note = (f"; one kernel a call in a graph replay (the profiler's sum "
+                    f"{replay_k[kernels[0]]:.4f} ms a call), path {res['path']}, "
+                    f"{res['registers']} registers, {res['spill_bytes']} bytes spilled, "
+                    f"{res['blocks_per_sm']} blocks an SM")
+        if i == 1:
             log(f"[kernel] rms_norm_2d at {shape}: forward {fwd_ms:.4f} ms, backward "
-                f"{bwd_ms_:.4f} ms (graph); F.rms_norm {lib_f} ms, its backward {lib_b} ms | {smi}")
+                f"{bwd_ms_:.4f} ms (graph; bound {bound(nb_b)[0]:.4f}){bwd_note}; F.rms_norm "
+                f"{lib_f} ms, its backward {lib_b} ms | {smi}")
             continue
+        suffix = "_fp32" if fp32 else ""
         for name, ms, fn, plain, err_, nb_, flops, lib, line in (
                 ("rms_norm_2d", fwd_ms, lambda: rn.rms_norm_2d(x, w, b),
                  lambda: rn.rms_norm_2d_plain(x, w, b), err_f, nb_f, 4.0, lib_f, 59),
                 ("rms_norm_2d_bwd", bwd_ms_, lambda: rn.rms_norm_2d_bwd(x, w, rstd, g),
                  lambda: rn.rms_norm_2d_bwd_plain(x, w, rstd, g), err_b, nb_b, 10.0, lib_b, 83)):
             bms, by = bound(nb_, fp32_ops=flops * x.numel())
+            is_bwd = name.endswith("bwd")
             rows.append(dict(
-                name=name, route="triton", source="efficientsam3_tpu_torch/ops/rms_norm.py",
+                name=name + suffix, route="cuda" if is_bwd else "triton",
+                source="efficientsam3_tpu_torch/csrc/layer_norm.cu" if is_bwd else
+                "efficientsam3_tpu_torch/ops/rms_norm.py",
                 replaces=f"efficientsam3_tpu/ops/pallas/rms_norm.py:{line}",
-                launches=rms_launches[name.endswith("bwd")], max_abs_err=err_, ms=ms,
+                launches=rms_launches[is_bwd], max_abs_err=err_, ms=ms,
                 call_ms=cuda_time(fn, 50), plain_ms=graph_time(plain, 5, 10), bound_ms=bms,
                 bound_by=by, library_ms=lib, device_ms=None,
-                shape=shape + ("; library = F.rms_norm (no bias)" if name == "rms_norm_2d" else
-                               "; library = F.rms_norm backward (dx, dw)") + lib_note,
+                shape=shape + ("; library = F.rms_norm backward (dx, dw)" + bwd_note if is_bwd
+                               else "; library = F.rms_norm (no bias)") + lib_note,
                 **{"pass": True}))
     for r in rows:
         log_row(r, smi)

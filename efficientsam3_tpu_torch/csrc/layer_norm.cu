@@ -67,6 +67,23 @@
 // then a thread a column writes dx row-major and adds that column's dw and
 // db over the tile. Other layouts and widths up to 8192 take a masked path
 // (a row a block, a thread's columns 256 apart).
+//
+// RMSNorm's backward (`rms_norm_bwd`) is a mode of the vector and masked
+// backward kernels. It replaces efficientsam3_tpu/ops/pallas/rms_norm.py
+// `_bwd_call` (:83, body `_bwd_kernel` :38) and the call's final sum of the
+// per-block partials (:106): xhat = x rstd from the forward's saved rstd
+// (read, not recomputed), dx = rstd (wg - xhat mean(wg xhat)), dw = sum dy
+// xhat and db = sum dy in fp32. Row-major (rows, c) only; no mean, so a
+// row takes one reduction round, and each row's rstd load is in flight
+// with its x and dy. Bound by bytes: at the tracker's (8, 72, 72, 256)
+// bf16 it reads x and dy and writes dx, 63.9 MB with rstd, 0.0191 ms. The
+// Triton kernel it replaces (0.0692 ms in a CUDA graph) wrote 16-row
+// partials of dw and db (5.3 MB) that a second launch summed; here they
+// stay in registers and are finished in the launch by the same tickets.
+// Rows up to 256 columns take the vector path, wider ones the masked path.
+// At 97 registers (bf16) one 512-thread block is resident an SM, 16 warps
+// with two rows' loads ahead each; capped at 64 registers for two blocks
+// the bf16 kernel spilled and ran slower (PERF.md §6).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -360,6 +377,7 @@ struct BwdArgs {
   const void* x;
   const void* g;
   const float* w;
+  const float* rstd;  // RMS mode: the forward's rstd a row (rows,); else unread
   void* dx;        // (rows, c) row-major, x's dtype
   float* dw;       // (c,)
   float* db;       // (c,)
@@ -474,7 +492,11 @@ __device__ void bwd_finish(const BwdArgs& a) {
 // is copied while its load is in flight. (A ring of rows in shared memory
 // filled by cp.async, with pairs of rows' reductions interleaved, ran
 // slower at the Stage-3 shape.)
-template <typename TX, typename TG, int NV>
+//
+// RMS mode (rms_norm_bwd): no mean; rstd is the forward's, read a row (its
+// load in flight with the row's x and dy), so a row takes one reduction
+// round, sum wg x, and dx = rstd (wg - xhat mean(wg xhat)).
+template <typename TX, typename TG, int NV, bool RMS>
 __global__ void __launch_bounds__(BNT)
 ln_bwd_vec(const BwdArgs a) {
   constexpr int VEC = (sizeof(TX) == 4 || sizeof(TG) == 4) ? 4 : 8, CW = NV * 32 * VEC;
@@ -501,8 +523,10 @@ ln_bwd_vec(const BwdArgs a) {
   // three rows' loads in registers, used in turn
   RX xa[NV], xb[NV], xc[NV];
   RG ga[NV], gb[NV], gc[NV];
-  auto load = [&](RX (&xo)[NV], RG (&go)[NV], int r) {
+  float ra = 0.f, rb = 0.f, rc = 0.f;  // RMS: the rows' rstd
+  auto load = [&](RX (&xo)[NV], RG (&go)[NV], float& ro, int r) {
     if (r >= rows) return;
+    if constexpr (RMS) ro = __ldg(a.rstd + r);
     const int bi = r / a.n, i = r - bi * a.n;
     const TX* xr = x + bi * a.sxb + i * a.sxn;
     const TG* gr = g + bi * a.sgb + i * a.sgn;
@@ -519,42 +543,56 @@ ln_bwd_vec(const BwdArgs a) {
     }
   };
   const float inv_c = 1.f / static_cast<float>(c);
-  auto process = [&](const RX (&xr)[NV], const RG (&gr)[NV], int row) {
+  auto process = [&](const RX (&xr)[NV], const RG (&gr)[NV], float rs, int row) {
     float xv[NV][VEC], gv[NV][VEC];
-    float s = 0.f, sg = 0.f;
 #pragma unroll
     for (int v = 0; v < NV; ++v) {
       unpack_raw<TX, VEC>(xr[v], xv[v]);
       unpack_raw<TG, VEC>(gr[v], gv[v]);
+    }
+    float rstd, c1 = 0.f, c2;
+    if constexpr (RMS) {
+      float p = 0.f;
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        s += xv[v][i];
-        sg += gv[v][i] * wr[v][i];
+      for (int v = 0; v < NV; ++v)
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) p += gv[v][i] * wr[v][i] * xv[v][i];
+      rstd = rs;
+      c2 = warp_sum(p) * rstd * inv_c;
+    } else {
+      float s = 0.f, sg = 0.f;
+#pragma unroll
+      for (int v = 0; v < NV; ++v)
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          s += xv[v][i];
+          sg += gv[v][i] * wr[v][i];
+        }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        s += __shfl_xor_sync(0xffffffffu, s, o);
+        sg += __shfl_xor_sync(0xffffffffu, sg, o);
       }
-    }
+      const float mean = s * inv_c;
+      c1 = sg * inv_c;
+      float q = 0.f, p = 0.f;
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      s += __shfl_xor_sync(0xffffffffu, s, o);
-      sg += __shfl_xor_sync(0xffffffffu, sg, o);
-    }
-    const float mean = s * inv_c, c1 = sg * inv_c;
-    float q = 0.f, p = 0.f;
+      for (int v = 0; v < NV; ++v)
 #pragma unroll
-    for (int v = 0; v < NV; ++v)
+        for (int i = 0; i < VEC; ++i) {
+          const float d = live[v] ? xv[v][i] - mean : 0.f;
+          xv[v][i] = d;
+          q += d * d;
+          p += gv[v][i] * wr[v][i] * d;
+        }
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        const float d = live[v] ? xv[v][i] - mean : 0.f;
-        xv[v][i] = d;
-        q += d * d;
-        p += gv[v][i] * wr[v][i] * d;
+      for (int o = 16; o > 0; o >>= 1) {
+        q += __shfl_xor_sync(0xffffffffu, q, o);
+        p += __shfl_xor_sync(0xffffffffu, p, o);
       }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      q += __shfl_xor_sync(0xffffffffu, q, o);
-      p += __shfl_xor_sync(0xffffffffu, p, o);
+      rstd = 1.f / sqrtf(q * inv_c + a.eps);
+      c2 = p * rstd * inv_c;
     }
-    const float rstd = 1.f / sqrtf(q * inv_c + a.eps);
-    const float c2 = p * rstd * inv_c;
     TX* dr = dx + static_cast<long long>(row) * c;
 #pragma unroll
     for (int v = 0; v < NV; ++v) {
@@ -570,17 +608,17 @@ ln_bwd_vec(const BwdArgs a) {
     }
   };
   int row = blockIdx.x * BWARPS + warp;
-  load(xa, ga, row);
-  load(xb, gb, row + nwarps);
+  load(xa, ga, ra, row);
+  load(xb, gb, rb, row + nwarps);
   for (; row < rows; row += 3 * nwarps) {  // each row's loads two rows ahead
-    load(xc, gc, row + 2 * nwarps);
-    process(xa, ga, row);
+    load(xc, gc, rc, row + 2 * nwarps);
+    process(xa, ga, ra, row);
     if (row + nwarps >= rows) break;
-    load(xa, ga, row + 3 * nwarps);
-    process(xb, gb, row + nwarps);
+    load(xa, ga, ra, row + 3 * nwarps);
+    process(xb, gb, rb, row + nwarps);
     if (row + 2 * nwarps >= rows) break;
-    load(xb, gb, row + 4 * nwarps);
-    process(xc, gc, row + 2 * nwarps);
+    load(xb, gb, rb, row + 4 * nwarps);
+    process(xc, gc, rc, row + 2 * nwarps);
   }
   // the block's sums, in warp order: warps 0-7 write, 8-15 add theirs, then
   // the 8 rows are added
@@ -814,7 +852,8 @@ ln_bwd_cols(const BwdArgs a) {
 }
 
 // The masked path: any strides, widths up to CMAX; a row a block, thread t
-// holding columns t + BNT * k, its dw / db sums in registers.
+// holding columns t + BNT * k, its dw / db sums in registers. RMS mode as
+// on the vector path: rstd read, one reduction round a row.
 constexpr int CMAX = 8192, KMAX = CMAX / BNT;
 
 __device__ __forceinline__ float2 block_sum2(float a, float b, float2* scratch) {
@@ -832,7 +871,7 @@ __device__ __forceinline__ float2 block_sum2(float a, float b, float2* scratch) 
   return r;
 }
 
-template <typename TX, typename TG>
+template <typename TX, typename TG, bool RMS>
 __global__ void __launch_bounds__(BNT)
 ln_bwd_any(const BwdArgs a) {
   __shared__ float2 scratch[BWARPS];
@@ -847,21 +886,30 @@ ln_bwd_any(const BwdArgs a) {
     const int bi = row / a.n, i = row - bi * a.n;
     const TX* xr = x + bi * a.sxb + i * a.sxn;
     const TG* gr = g + bi * a.sgb + i * a.sgn;
-    float s = 0.f, sg = 0.f;
-    for (int col = threadIdx.x; col < c; col += BNT) {
-      s += ldg_f(xr + col * a.sxc);
-      sg += ldg_f(gr + col * a.sgc) * a.w[col];
+    float mean = 0.f, c1 = 0.f, rstd, c2;
+    if constexpr (RMS) {
+      rstd = a.rstd[row];
+      float p = 0.f;
+      for (int col = threadIdx.x; col < c; col += BNT)
+        p += ldg_f(gr + col * a.sgc) * a.w[col] * ldg_f(xr + col * a.sxc);
+      c2 = block_sum2(p, 0.f, scratch).x * rstd * inv_c;
+    } else {
+      float s = 0.f, sg = 0.f;
+      for (int col = threadIdx.x; col < c; col += BNT) {
+        s += ldg_f(xr + col * a.sxc);
+        sg += ldg_f(gr + col * a.sgc) * a.w[col];
+      }
+      const float2 m = block_sum2(s, sg, scratch);
+      mean = m.x * inv_c, c1 = m.y * inv_c;
+      float q = 0.f, p = 0.f;
+      for (int col = threadIdx.x; col < c; col += BNT) {
+        const float d = ldg_f(xr + col * a.sxc) - mean;
+        q += d * d;
+        p += ldg_f(gr + col * a.sgc) * a.w[col] * d;
+      }
+      const float2 qp = block_sum2(q, p, scratch);
+      rstd = 1.f / sqrtf(qp.x * inv_c + a.eps), c2 = qp.y * rstd * inv_c;
     }
-    const float2 m = block_sum2(s, sg, scratch);
-    const float mean = m.x * inv_c, c1 = m.y * inv_c;
-    float q = 0.f, p = 0.f;
-    for (int col = threadIdx.x; col < c; col += BNT) {
-      const float d = ldg_f(xr + col * a.sxc) - mean;
-      q += d * d;
-      p += ldg_f(gr + col * a.sgc) * a.w[col] * d;
-    }
-    const float2 qp = block_sum2(q, p, scratch);
-    const float rstd = 1.f / sqrtf(qp.x * inv_c + a.eps), c2 = qp.y * rstd * inv_c;
     TX* dr = static_cast<TX*>(a.dx) + static_cast<long long>(row) * c;
 #pragma unroll
     for (int k = 0; k < KMAX; ++k) {
@@ -887,19 +935,36 @@ ln_bwd_any(const BwdArgs a) {
   bwd_finish(a);
 }
 
+// The widest rows the vector path takes: RMSNorm's up to 256 columns (its
+// wider instantiations, 512 columns, spilled 300-500 bytes; they take the
+// masked path, which spills nothing)
+constexpr int vec_cols(bool rms) { return rms ? 256 : 512; }
+
 // The backward kernel a call takes, by path (nv > 0: the vector path with
-// nv vectors a lane; -1: the column path; 0: the masked path).
-template <typename TX, typename TG>
+// nv vectors a lane; -1: the column path; 0: the masked path) and mode
+// (rms: RMSNorm's, on the vector and masked paths).
+template <typename TX, typename TG, bool RMS>
 void* pick_bwd(int nv) {
-  if (nv == -1) return reinterpret_cast<void*>(ln_bwd_cols<TX, TG>);
-  if (nv == 1) return reinterpret_cast<void*>(ln_bwd_vec<TX, TG, 1>);
-  if (nv == 2) return reinterpret_cast<void*>(ln_bwd_vec<TX, TG, 2>);
-  if constexpr (sizeof(TX) == 4 || sizeof(TG) == 4)
-    if (nv == 4) return reinterpret_cast<void*>(ln_bwd_vec<TX, TG, 4>);
-  return reinterpret_cast<void*>(ln_bwd_any<TX, TG>);
+  constexpr int NVMAX = vec_cols(RMS) / (32 * ((sizeof(TX) == 4 || sizeof(TG) == 4) ? 4 : 8));
+  if constexpr (!RMS)
+    if (nv == -1) return reinterpret_cast<void*>(ln_bwd_cols<TX, TG>);
+  if (nv == 1) return reinterpret_cast<void*>(ln_bwd_vec<TX, TG, 1, RMS>);
+  if constexpr (NVMAX >= 2)
+    if (nv == 2) return reinterpret_cast<void*>(ln_bwd_vec<TX, TG, 2, RMS>);
+  if constexpr (NVMAX >= 4)
+    if (nv == 4) return reinterpret_cast<void*>(ln_bwd_vec<TX, TG, 4, RMS>);
+  return reinterpret_cast<void*>(ln_bwd_any<TX, TG, RMS>);
 }
 
-void* bwd_kernel_for(int x_fp32, int g_fp32, int nv);
+template <bool RMS>
+void* bwd_kernel_for(int x_fp32, int g_fp32, int nv) {
+  if (x_fp32) return g_fp32 ? pick_bwd<float, float, RMS>(nv) : pick_bwd<float, bf16, RMS>(nv);
+  return g_fp32 ? pick_bwd<bf16, float, RMS>(nv) : pick_bwd<bf16, bf16, RMS>(nv);
+}
+
+void* bwd_kernel_for(int x_fp32, int g_fp32, int nv, bool rms) {
+  return rms ? bwd_kernel_for<true>(x_fp32, g_fp32, nv) : bwd_kernel_for<false>(x_fp32, g_fp32, nv);
+}
 
 // The dynamic shared memory of the backward kernel of a path: the column
 // path's raw ring
@@ -909,9 +974,9 @@ int bwd_smem(int x_fp32, int g_fp32, int nv) {
   return g_fp32 ? cols_smem<bf16, float>() : cols_smem<bf16, bf16>();
 }
 
-// The backward kernel of a path, its dynamic shared memory allowed
-void* bwd_kernel_ready(int x_fp32, int g_fp32, int nv, int* err) {
-  void* kernel = bwd_kernel_for(x_fp32, g_fp32, nv);
+// The backward kernel of a path and mode, its dynamic shared memory allowed
+void* bwd_kernel_ready(int x_fp32, int g_fp32, int nv, bool rms, int* err) {
+  void* kernel = bwd_kernel_for(x_fp32, g_fp32, nv, rms);
   const int smem = bwd_smem(x_fp32, g_fp32, nv);
   *err = smem ? static_cast<int>(cudaFuncSetAttribute(
                     kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
@@ -919,34 +984,85 @@ void* bwd_kernel_ready(int x_fp32, int g_fp32, int nv, int* err) {
   return kernel;
 }
 
-void* bwd_kernel_for(int x_fp32, int g_fp32, int nv) {
-  if (x_fp32) return g_fp32 ? pick_bwd<float, float>(nv) : pick_bwd<float, bf16>(nv);
-  return g_fp32 ? pick_bwd<bf16, float>(nv) : pick_bwd<bf16, bf16>(nv);
-}
-
 // The backward's path: the vector path when x's and dy's columns are
 // adjacent, every stride and c a multiple of the vector (8 when both are
-// bf16, else 4), both 16-byte aligned and at most 512 columns (`rest`: dx
-// aligned too); else the column path up to COLS_MAX columns; else the
-// masked path.
+// bf16, else 4), both 16-byte aligned and at most vec_cols(rms) columns
+// (`rest`: dx aligned too); else the column path up to COLS_MAX columns
+// (LayerNorm's only); else the masked path.
 int bwd_path(const void* x, const void* g, int c, const long long* sx, const long long* sg,
-             int x_fp32, int g_fp32, bool rest) {
+             int x_fp32, int g_fp32, bool rest, bool rms) {
   const int vec = (x_fp32 || g_fp32) ? 4 : 8;
   bool ok = rest && sx[2] == 1 && sg[2] == 1 && c % vec == 0 &&
             (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(g)) % 16 == 0;
   for (int i = 0; i < 2; ++i) ok = ok && sx[i] % vec == 0 && sg[i] % vec == 0;
   if (ok) {
     const int need = (c + 32 * vec - 1) / (32 * vec);
-    for (int nv = 1; nv <= 512 / (32 * vec); nv *= 2)
+    for (int nv = 1; nv <= vec_cols(rms) / (32 * vec); nv *= 2)
       if (nv >= need) return nv;
   }
-  return c <= COLS_MAX ? -1 : 0;
+  return c <= COLS_MAX && !rms ? -1 : 0;
 }
 
 int isqrt_up(int v) {
   int r = 1;
   while (r * r < v) ++r;
   return r;
+}
+
+// One launch of the backward kernel of path nv (rms: RMSNorm's) over a's
+// operands: persistent blocks, the resident ones at most, their finish in
+// groups of ~sqrt(grid) blocks (a's gsize set here). Returns a CUDA error.
+int bwd_launch(BwdArgs a, int nv, int x_fp32, int g_fp32, bool rms, long long part_rows, int cnt_n,
+               cudaStream_t stream) {
+  void* kernel = bwd_kernel_for(x_fp32, g_fp32, nv, rms);
+  const int smem = bwd_smem(x_fp32, g_fp32, nv);
+  const long long rows = static_cast<long long>(a.nb) * a.n;
+  // the blocks resident on every SM, by device, mode, dtypes and path
+  static int grid_cap[64][2][4][6] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  int& cap = grid_cap[dev][rms][2 * x_fp32 + g_fp32][nv + 1];
+  if (cap == 0) {
+    int err = 0;
+    bwd_kernel_ready(x_fp32, g_fp32, nv, rms, &err);
+    if (err == 0) err = resident_blocks(kernel, &cap, BNT, smem);
+    if (err != 0) return err;
+  }
+  // persistent blocks: a row a warp (vector), a tile of BTR rows (column) or
+  // a row (masked) each at least
+  const long long work = nv > 0 ? (rows + BWARPS - 1) / BWARPS
+                                : nv == -1 ? a.nb * static_cast<long long>((a.n + BTR - 1) / BTR) : rows;
+  const long long grid = min(static_cast<long long>(cap), work);
+  a.gsize = isqrt_up(static_cast<int>(grid));
+  const int groups = (static_cast<int>(grid) + a.gsize - 1) / a.gsize;
+  if (grid + groups > part_rows || groups + 1 > cnt_n) return static_cast<int>(cudaErrorInvalidValue);
+  void* args[] = {&a};
+  e = cudaLaunchKernel(kernel, dim3(static_cast<unsigned>(grid)), dim3(BNT), args,
+                       static_cast<size_t>(smem), stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The resources of the backward kernel of path nv: out = {registers,
+// spilled bytes a thread, nv, resident blocks an SM}.
+int bwd_attrs(int x_fp32, int g_fp32, int nv, bool rms, int* out) {
+  int ready = 0;
+  void* kernel = bwd_kernel_ready(x_fp32, g_fp32, nv, rms, &ready);
+  if (ready != 0) return ready;
+  cudaFuncAttributes at;
+  cudaError_t err = cudaFuncGetAttributes(&at, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, BNT,
+                                                      bwd_smem(x_fp32, g_fp32, nv));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = at.numRegs;
+  out[1] = static_cast<int>(at.localSizeBytes);
+  out[2] = nv;
+  out[3] = blocks;
+  return 0;
 }
 
 }  // namespace
@@ -1023,38 +1139,12 @@ extern "C" int layer_norm_bwd(const void* x, const void* g, const void* w, void*
   if (nb <= 0 || n <= 0 || c <= 0 || c > CMAX) return static_cast<int>(cudaErrorInvalidValue);
   const long long sx[3] = {sxb, sxn, sxc}, sg[3] = {sgb, sgn, sgc};
   const bool rest = reinterpret_cast<uintptr_t>(dx) % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  const int nv = bwd_path(x, g, c, sx, sg, x_fp32, g_fp32, rest);
-  void* kernel = bwd_kernel_for(x_fp32, g_fp32, nv);
-  const int smem = bwd_smem(x_fp32, g_fp32, nv);
-  const long long rows = static_cast<long long>(nb) * n;
-  static int grid_cap[64][4][6] = {};  // the blocks resident on every SM, by device, dtypes, path
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-  int& cap = grid_cap[dev][2 * x_fp32 + g_fp32][nv + 1];
-  if (cap == 0) {
-    int err = 0;
-    bwd_kernel_ready(x_fp32, g_fp32, nv, &err);
-    if (err == 0) err = resident_blocks(kernel, &cap, BNT, smem);
-    if (err != 0) return err;
-  }
-  // persistent blocks: a row a warp (vector), a tile of BTR rows (column) or
-  // a row (masked) each at least
-  const long long work = nv > 0 ? (rows + BWARPS - 1) / BWARPS
-                                : nv == -1 ? nb * static_cast<long long>((n + BTR - 1) / BTR) : rows;
-  const long long grid = min(static_cast<long long>(cap), work);
-  const int gsize = isqrt_up(static_cast<int>(grid));
-  const int groups = (static_cast<int>(grid) + gsize - 1) / gsize;
-  if (grid + groups > part_rows || groups + 1 > cnt_n) return static_cast<int>(cudaErrorInvalidValue);
-  BwdArgs a = {x, g, static_cast<const float*>(w), dx, static_cast<float*>(dw), static_cast<float*>(db),
-               static_cast<float*>(part), static_cast<int*>(cnt), sxb, sxn, sxc, sgb, sgn, sgc,
-               nb, n, c, gsize, eps};
-  void* args[] = {&a};
-  e = cudaLaunchKernel(kernel, dim3(static_cast<unsigned>(grid)), dim3(BNT), args,
-                       static_cast<size_t>(smem), static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  const int nv = bwd_path(x, g, c, sx, sg, x_fp32, g_fp32, rest, false);
+  const BwdArgs a = {x, g, static_cast<const float*>(w), nullptr, dx, static_cast<float*>(dw),
+                     static_cast<float*>(db), static_cast<float*>(part), static_cast<int*>(cnt),
+                     sxb, sxn, sxc, sgb, sgn, sgc, nb, n, c, 0, eps};
+  return bwd_launch(a, nv, x_fp32, g_fp32, false, part_rows, cnt_n,
+                    static_cast<cudaStream_t>(stream));
 }
 
 // The resources of the backward kernel that layer_norm_bwd takes for c
@@ -1067,20 +1157,40 @@ extern "C" int layer_norm_bwd_attrs(int x_fp32, int g_fp32, int c, long long col
   if (c <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const long long s[3] = {col_stride == 1 ? 16LL * c : 1, col_stride == 1 ? c : 1, col_stride};
   const void* aligned = reinterpret_cast<const void*>(256);
-  const int nv = bwd_path(aligned, aligned, c, s, s, x_fp32, g_fp32, true);
-  int ready = 0;
-  void* kernel = bwd_kernel_ready(x_fp32, g_fp32, nv, &ready);
-  if (ready != 0) return ready;
-  cudaFuncAttributes at;
-  cudaError_t err = cudaFuncGetAttributes(&at, kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, BNT,
-                                                      bwd_smem(x_fp32, g_fp32, nv));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = at.numRegs;
-  out[1] = static_cast<int>(at.localSizeBytes);
-  out[2] = nv;
-  out[3] = blocks;
-  return 0;
+  return bwd_attrs(x_fp32, g_fp32, bwd_path(aligned, aligned, c, s, s, x_fp32, g_fp32, true, false),
+                   false, out);
+}
+
+// RMSNorm's backward (rms_norm_2d): x and dy (rows, c) row-major
+// contiguous (x_fp32 / g_fp32: float32, else bfloat16), w (c,) f32, rstd
+// (rows,) f32 the forward's; writes dx (rows, c) in x's dtype and dw = sum
+// dy xhat, db = sum dy (c,) f32, finished in the launch as layer_norm_bwd
+// finishes them (part, part_rows, cnt and cnt_n as there). Up to 256
+// columns a multiple of the vector (8 when both are bf16, else 4), 16-byte
+// aligned, take the vector path; other rows the masked path (c <= CMAX).
+// Returns a CUDA error.
+extern "C" int rms_norm_bwd(const void* x, const void* g, const void* w, const void* rstd,
+                            void* dx, void* dw, void* db, void* part, long long part_rows,
+                            void* cnt, int cnt_n, int rows, int c, int x_fp32, int g_fp32,
+                            void* stream) {
+  if (rows <= 0 || c <= 0 || c > CMAX) return static_cast<int>(cudaErrorInvalidValue);
+  const long long s[3] = {0, c, 1};
+  const bool rest = reinterpret_cast<uintptr_t>(dx) % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const int nv = bwd_path(x, g, c, s, s, x_fp32, g_fp32, rest, true);
+  const BwdArgs a = {x, g, static_cast<const float*>(w), static_cast<const float*>(rstd), dx,
+                     static_cast<float*>(dw), static_cast<float*>(db), static_cast<float*>(part),
+                     static_cast<int*>(cnt), 0, c, 1, 0, c, 1, 1, rows, c, 0, 0.f};
+  return bwd_launch(a, nv, x_fp32, g_fp32, true, part_rows, cnt_n,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// The resources of the kernel that rms_norm_bwd takes for c columns of
+// 16-byte aligned x and dy: out = {registers, spilled bytes a thread, the
+// path (vectors a lane, or 0 the masked path), resident blocks an SM}.
+extern "C" int rms_norm_bwd_attrs(int x_fp32, int g_fp32, int c, int* out) {
+  if (c <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long s[3] = {0, c, 1};
+  const void* aligned = reinterpret_cast<const void*>(256);
+  return bwd_attrs(x_fp32, g_fp32, bwd_path(aligned, aligned, c, s, s, x_fp32, g_fp32, true, true),
+                   true, out);
 }

@@ -34,7 +34,11 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-_tickets: dict[int, torch.Tensor] = {}
+# ticket buffers by (device index, stream handle): outside capture, one a
+# stream; during a CUDA-graph capture, one a stream and capture (with its id)
+_tickets: dict[tuple[int, int], torch.Tensor] = {}
+_captured: dict[tuple[int, int], tuple[int, torch.Tensor]] = {}
+_tickets_lock = threading.Lock()
 TICKETS = 4096
 
 
@@ -146,20 +150,68 @@ def check(status: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {status}")
 
 
+def _lib_capture():
+    """``stream_capture_id`` of csrc/stream_capture.cu: the stream, and the
+    int and unsigned 64-bit integer it writes."""
+    fn = load("stream_capture").stream_capture_id
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 3
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _capture_id(stream: int):
+    """The id of the CUDA-graph capture the stream is in, or None."""
+    capturing, ident = ctypes.c_int(), ctypes.c_ulonglong()
+    check(_lib_capture()(stream, ctypes.byref(capturing), ctypes.byref(ident)),
+          "stream_capture_id")
+    return ident.value if capturing.value else None
+
+
 def tickets(device, n: int) -> torch.Tensor:
-    """The device's zeroed int32 buffer of TICKETS tickets, for kernels whose
-    last block to finish takes an atomic ticket (the depthwise and
-    LayerNorm backward kernels): each launch leaves the tickets it took at
-    0 again, so one buffer serves every launch on the device's stream in
-    turn. Made (zero-filled) on first use; n, the tickets a launch takes,
-    must fit."""
+    """A zeroed int32 buffer of TICKETS tickets for one launch on the
+    device's current stream, of a kernel whose last block to finish takes
+    an atomic ticket (the depthwise, LayerNorm and RMSNorm backward
+    kernels). Each launch leaves the tickets it took at 0 again, so a
+    buffer is safe for launches that run one after another, and no more:
+
+    - outside capture, each (device, stream) has a buffer of its own, made
+      zero-filled on that stream at its first use: launches on one stream
+      run in turn, launches on two streams never share a ticket;
+    - during a CUDA-graph capture, each (device, stream) of each capture
+      has a buffer of its own, allocated from the graph's private pool, so
+      its zero fill is a node of the graph that every replay runs before
+      the captured launches that take it. A replay never reads a buffer of
+      eager launches or of another graph, and the buffer lives as long as
+      the graph's pool holds it; the last capture's is let go at the
+      stream's next launch outside capture.
+
+    n, the tickets a launch takes, must fit."""
     if n > TICKETS:
         raise ValueError(f"a launch takes {n} tickets, more than the buffer's {TICKETS}")
-    index = torch.device(device).index
-    buf = _tickets.get(index)
-    if buf is None:
-        buf = _tickets[index] = torch.zeros(TICKETS, dtype=torch.int32, device=device)
-    return buf
+    device = torch.device(device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    capture = _capture_id(stream)
+    key = (device.index, stream)
+    with _tickets_lock:
+        if capture is None:
+            _captured.pop(key, None)
+            buf = _tickets.get(key)
+            if buf is None:
+                buf = _tickets[key] = torch.zeros(TICKETS, dtype=torch.int32, device=device)
+            return buf
+        held = _captured.get(key)
+        if held is None or held[0] != capture:
+            held = _captured[key] = (
+                capture, torch.zeros(TICKETS, dtype=torch.int32, device=device))
+        return held[1]
+
+
+def ticket_buffers() -> list[torch.Tensor]:
+    """Every ticket buffer made outside capture (each is 0 between
+    launches)."""
+    with _tickets_lock:
+        return list(_tickets.values())
 
 
 def needs_grad(*tensors) -> bool:

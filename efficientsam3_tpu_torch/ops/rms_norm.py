@@ -1,4 +1,4 @@
-"""Channel RMSNorm over NHWC maps: Triton kernels (forward and backward)
+"""Channel RMSNorm over NHWC maps: a Triton forward and a CUDA backward
 for CUDA, their plain versions for CPU.
 
 Replaces the Pallas kernels ``efficientsam3_tpu/ops/pallas/rms_norm.py``
@@ -8,17 +8,19 @@ EfficientViT variants that normalise with ``norm='rms2d'``: over the last
 (channel) axis, out = x * rstd * w + b with rstd = 1 / sqrt(mean(x^2) +
 eps) in fp32, out in x's dtype. The backward takes the forward's saved
 rstd: dx = rstd * (w g - xhat * mean(w g xhat)) with xhat = x * rstd, and
-dw = sum(g xhat), db = sum(g) summed in fp32 per program, then in one
-final sum over the programs.
+dw = sum(g xhat), db = sum(g) summed in fp32.
 
 On the H100 both are bound by bytes: the forward reads x and writes out
 (and 4 bytes of rstd a row), the backward reads x, g and rstd and writes
-dx, ~6-10 flops per element. A program owns ``_ROWS`` whole rows as one
-(rows, C) tile in registers, so each element is read once and the row
-reductions run over the loaded tile; the ragged last tile is masked in the
-kernel (no padding copy, unlike the JAX wrapper's pad to 256-row blocks).
-Triton rather than CUDA: two row reductions fused with elementwise work,
-no matrix product.
+dx, ~6-10 flops per element. The forward (Triton) has a program own
+``_ROWS`` whole rows as one (rows, C) tile in registers, so each element is
+read once and the row reductions run over the loaded tile; the ragged last
+tile is masked in the kernel (no padding copy, unlike the JAX wrapper's pad
+to 256-row blocks). The backward is a mode of LayerNorm's backward kernel
+(``csrc/layer_norm.cu``, ``rms_norm_bwd``): a row a warp with the next rows'
+loads in flight, each lane's dw / db column sums in registers, the blocks'
+sums finished in the same launch by atomic tickets in a fixed order (the
+same bits on every run). One launch writes dx, dw and db.
 
 No model of the JAX package calls ``rms_norm_2d`` (EfficientViT's norm
 switch handles only 'bn2d'), so it is ported at kernel level. Under
@@ -30,15 +32,19 @@ dtype other than fp32 or bf16 raise.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import os
 
 import torch
 
+from efficientsam3_tpu_torch.ops import _build
+from efficientsam3_tpu_torch.ops import layer_norm as _ln
 from efficientsam3_tpu_torch.ops._build import BUILD_DIR
 from efficientsam3_tpu_torch.ops._build import needs_grad as _needs_grad
 
-_ROWS = 16  # rows a program owns, forward and backward
+_ROWS = 16  # rows a program of the forward owns
+_I, _LL, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 
 
 def _rstd(xf, eps):
@@ -91,37 +97,44 @@ def _triton_kernels():
         tl.store(Y + offs, y.to(Y.dtype.element_ty), mask=m)
         tl.store(RSTD + rows, rstd, mask=rin)
 
-    @triton.jit
-    def _rms_bwd(X, W, RSTD, G, DX, DWP, DBP, n_rows, n_cols,
-                 ROWS: tl.constexpr, BLOCK: tl.constexpr):
-        pid = tl.program_id(0)
-        rows = pid * ROWS + tl.arange(0, ROWS)
-        cols = tl.arange(0, BLOCK)
-        rin = rows < n_rows
-        cin = cols < n_cols
-        m = rin[:, None] & cin[None, :]
-        offs = rows[:, None].to(tl.int64) * n_cols + cols[None, :]
-        x = tl.load(X + offs, mask=m, other=0.0).to(tl.float32)
-        g = tl.load(G + offs, mask=m, other=0.0).to(tl.float32)
-        r = tl.load(RSTD + rows, mask=rin, other=0.0)
-        w = tl.load(W + cols, mask=cin, other=0.0).to(tl.float32)
-        xhat = x * r[:, None]
-        wg = g * w[None, :]
-        c = tl.sum(wg * xhat, axis=1) / n_cols
-        dx = r[:, None] * (wg - xhat * c[:, None])
-        tl.store(DX + offs, dx.to(DX.dtype.element_ty), mask=m)
-        tl.store(DWP + pid * n_cols + cols, tl.sum(g * xhat, axis=0), mask=cin)
-        tl.store(DBP + pid * n_cols + cols, tl.sum(g, axis=0), mask=cin)
-
-    return triton, _rms_fwd, _rms_bwd
+    return triton, _rms_fwd
 
 
 def _check(x, what):
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{what} kernel takes float32 or bfloat16, got {x.dtype}")
-    if x.shape[-1] > 4096:
-        raise ValueError(f"{what} kernel keeps {_ROWS} rows in registers; {x.shape[-1]} "
-                         "channels is too wide")
+    if x.shape[-1] > 4096:  # the forward keeps _ROWS whole rows in registers
+        raise ValueError(f"{what} kernel takes at most 4096 channels; {x.shape[-1]} is too wide")
+
+
+def _lib_bwd():
+    """``rms_norm_bwd`` of csrc/layer_norm.cu: x, dy, w, rstd, dx, dw, db,
+    the scratch and its rows, the tickets and their count; rows, c; x fp32,
+    dy fp32; the stream."""
+    fn = _build.load("layer_norm").rms_norm_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * 8 + [_LL, _P] + [_I] * 5 + [_P]
+        fn.restype = _I
+    return fn
+
+
+def _lib_bwd_attrs():
+    fn = _build.load("layer_norm").rms_norm_bwd_attrs
+    if fn.argtypes is None:
+        fn.argtypes = [_I] * 3 + [_P]
+        fn.restype = _I
+    return fn
+
+
+def bwd_kernel_resources(x_dtype, g_dtype, c):
+    """Registers and spilled bytes a thread, the path (16-byte vectors a
+    lane on the vector path, 0 the masked path) and resident blocks an SM
+    of the backward kernel that (rows, c) x_dtype maps and g_dtype output
+    gradients take, on the current device."""
+    out = (ctypes.c_int * 4)()
+    _build.check(_lib_bwd_attrs()(int(x_dtype == torch.float32), int(g_dtype == torch.float32),
+                                  c, out), "rms_norm_bwd attributes")
+    return dict(zip(("registers", "spill_bytes", "path", "blocks_per_sm"), out))
 
 
 def _warps(block):
@@ -136,7 +149,7 @@ def _fwd(x, weight, bias, eps):
     y = torch.empty_like(x2)
     rstd = torch.empty(rows, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):  # Triton launches on the current device
-        triton, kernel, _ = _triton_kernels()
+        triton, kernel = _triton_kernels()
         block = triton.next_power_of_2(c)
         kernel[(triton.cdiv(rows, _ROWS),)](
             x2, weight.float().contiguous(), bias.float().contiguous(), y, rstd, rows, c,
@@ -147,9 +160,8 @@ def _fwd(x, weight, bias, eps):
 
 def rms_norm_2d_bwd(x, weight, rstd, g):
     """Gradients of rms_norm_2d from its input, weight, saved rstd (rows,)
-    and the output gradient g: (dx in x.dtype, dw, db fp32). One Triton
-    launch on CUDA (counted in ``rms_norm_2d_bwd.launches``) writes dx and
-    per-program fp32 partial column sums; one sum finishes dw and db. The
+    and the output gradient g: (dx in x.dtype, dw, db fp32). One CUDA
+    launch writes all three (counted in ``rms_norm_2d_bwd.launches``); the
     plain version for CPU tensors."""
     if not x.is_cuda:
         return rms_norm_2d_bwd_plain(x, weight, rstd, g)
@@ -161,17 +173,27 @@ def rms_norm_2d_bwd(x, weight, rstd, g):
     x2 = x.reshape(-1, c).contiguous()
     g2 = g.reshape(-1, c).contiguous()
     rows = x2.shape[0]
+    if rstd.numel() != rows:
+        raise ValueError(f"rms_norm_2d backward: rstd of {rstd.numel()} rows for {rows}")
     dx = torch.empty_like(x2)
-    with torch.cuda.device(x.device):  # Triton launches on the current device
-        triton, _, kernel = _triton_kernels()
-        nprog = triton.cdiv(rows, _ROWS)
-        partial = torch.empty((2, nprog, c), dtype=torch.float32, device=x.device)
-        block = triton.next_power_of_2(c)
-        kernel[(nprog,)](
-            x2, weight.float().contiguous(), rstd.float().contiguous(), g2, dx, partial[0],
-            partial[1], rows, c, ROWS=_ROWS, BLOCK=block, num_warps=_warps(block))
+    if dx.numel() == 0:  # no element: the sums are 0
+        zero = torch.zeros(c, device=x.device)
+        return dx.reshape(x.shape), zero, zero.clone()
+    dwb = torch.empty((2, c), dtype=torch.float32, device=x.device)
+    most = _ln.BWD_BLOCKS_PER_SM * _ln._sms(x.device.index)  # resident blocks at most
+    _, _, groups = _ln.bwd_grid(1, most, "masked", most)  # the finish's groups at most
+    part = torch.empty((most + groups, 2 * c), dtype=torch.float32, device=x.device)
+    w = weight.float().contiguous()
+    r = rstd.float().contiguous()
+    tickets = _build.tickets(x.device, groups + 1)
+    with torch.cuda.device(x.device):  # the launch goes to the current device
+        status = _lib_bwd()(
+            x2.data_ptr(), g2.data_ptr(), w.data_ptr(), r.data_ptr(), dx.data_ptr(),
+            dwb[0].data_ptr(), dwb[1].data_ptr(), part.data_ptr(), most + groups,
+            tickets.data_ptr(), groups + 1, rows, c, int(x.dtype == torch.float32),
+            int(g.dtype == torch.float32), torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(status, "rms_norm_2d backward launch")
     rms_norm_2d_bwd.launches += 1
-    dwb = partial.sum(1)
     return dx.reshape(x.shape), dwb[0], dwb[1]
 
 
@@ -201,8 +223,8 @@ def rms_norm_2d(x, weight, bias, eps: float = 1e-5):
     an affine weight and bias; the result in x.dtype.
 
     CPU tensors take the plain version; CUDA tensors (fp32 or bf16) launch
-    the Triton kernel, through ``_RmsNorm2dFn`` when autograd records the
-    call."""
+    the Triton forward, through ``_RmsNorm2dFn`` (and the CUDA backward)
+    when autograd records the call."""
     if not x.is_cuda:
         return rms_norm_2d_plain(x, weight, bias, eps)
     _check(x, "rms_norm_2d")

@@ -18,6 +18,7 @@ import pytest
 
 from efficientsam3_tpu_torch import native
 from efficientsam3_tpu_torch.ops import _build, depthwise, hungarian, mma_probe
+from efficientsam3_tpu_torch.ops import rms_norm as rn
 from efficientsam3_tpu_torch.ops import flash_attention as fa
 from efficientsam3_tpu_torch.ops import layer_norm as ln
 
@@ -58,10 +59,14 @@ BINDINGS = {
     "layer_norm_fwd_attrs": ln._lib_fwd_attrs,
     "layer_norm_bwd": ln._lib_bwd,
     "layer_norm_bwd_attrs": ln._lib_bwd_attrs,
+    "rms_norm_bwd": rn._lib_bwd,
+    "rms_norm_bwd_attrs": rn._lib_bwd_attrs,
     "depthwise_conv2d_fwd": depthwise._lib_fwd,
     "depthwise_conv2d_bwd": depthwise._lib_bwd,
     "depthwise_conv2d_attrs": depthwise._lib_attrs,
     "mma_probe_dot_chain": mma_probe._lib,
+    "mma_probe_attrs": mma_probe._lib_attrs,
+    "stream_capture_id": _build._lib_capture,
     "hungarian_solve": hungarian._lib,
 }
 

@@ -2281,3 +2281,199 @@ def test_layer_norm_bwd_kernel_fits_without_spills(cuda, x_dtype, g_dtype):
     for c, stride, path in ((256, 1, nv), (256, 5184, -1), (600, 1, 0)):
         res = ln.bwd_kernel_resources(x_dtype, g_dtype, c, col_stride=stride)
         assert res["path"] == path and res["spill_bytes"] == 0 and res["blocks_per_sm"] >= 1, res
+
+
+# ---- the backward kernels' tickets by stream and by graph capture;
+# rms_norm_2d's backward in CUDA (one launch); the tensor-core probe on wgmma
+
+
+def _ticket_users(dev):
+    """The three backward kernels that take tickets, at the tracker's and
+    the Stage-3 step's shapes: (fn, plain, [(got, want) tolerances])."""
+    x = _randn(dev, 8, 72, 72, 256)
+    g = (1e-2 * _randn(dev, 8, 72, 72, 256, dtype=torch.float32)).to(torch.bfloat16)
+    wk = (0.2 * _randn(dev, 256, 1, 7, 7)).permute(2, 3, 1, 0)
+    xl, gl = _randn(dev, 4 * 5184, 256), _randn(dev, 4 * 5184, 256)
+    wl = 1.0 + 0.1 * _randn(dev, 256, dtype=torch.float32)
+    xr, gr = 3.0 * _randn(dev, 8, 72, 72, 256), _randn(dev, 8, 72, 72, 256)
+    _, rstd = rn.rms_norm_2d_plain(xr, wl, wl, return_rstd=True)
+    return [
+        (lambda: dw.depthwise_conv2d_bwd(x, wk, g), lambda: dw.depthwise_conv2d_bwd_plain(x, wk, g)),
+        (lambda: ln.layer_norm_bwd(xl, wl, gl, 1e-5), lambda: ln.layer_norm_bwd_plain(xl, wl, gl)),
+        (lambda: rn.rms_norm_2d_bwd(xr, wl, rstd, gr),
+         lambda: rn.rms_norm_2d_bwd_plain(xr, wl, rstd, gr)),
+    ]
+
+
+def _same_bits(got, want):
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_backward_tickets_on_two_streams(cuda):
+    """The depthwise, LayerNorm and RMSNorm backward kernels launched on two
+    streams at once, three rounds: every result is the bits of the same
+    launch alone on the current stream (dw / db finished in a fixed order),
+    within 1e-2 (dx) and 1e-4 (dw / db) of the plain versions; each stream
+    has a ticket buffer of its own, and every buffer is back at 0."""
+    users = _ticket_users(cuda)
+    alone = [fn() for fn, _ in users]
+    torch.cuda.synchronize()
+    for got, (_, plain) in zip(alone, users):
+        want = plain()
+        assert _rel_err(got[0], want[0]) < TOL
+        assert _rel_err(got[1], want[1]) < 1e-4 and _rel_err(got[2], want[2]) < 1e-4
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = {0: [], 1: []}
+    for _ in range(3):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[i].append([fn() for fn, _ in users])
+    buffers = []
+    for s in streams:
+        with torch.cuda.stream(s):
+            buffers.append(_build.tickets(cuda, 1).data_ptr())
+    torch.cuda.synchronize()
+    assert buffers[0] != buffers[1] != _build.tickets(cuda, 1).data_ptr()
+    for rounds in outs.values():
+        for results in rounds:
+            for got, want in zip(results, alone):
+                _same_bits(got, want)
+    assert all((b == 0).all() for b in _build.ticket_buffers())
+
+
+@pytest.mark.cuda
+def test_backward_tickets_in_cuda_graphs(cuda):
+    """The three backward kernels captured into two CUDA graphs: each
+    capture's launches take a buffer of its own from the graph's pool (not
+    an eager one, not the other graph's), zero-filled by the graph at every
+    replay; the two graphs replayed at once on two streams, twice, give the
+    bits of the eager launches, and the eager buffers stay at 0."""
+    users = _ticket_users(cuda)
+    alone = [fn() for fn, _ in users]
+    eager = {b.data_ptr() for b in _build.ticket_buffers()}
+    torch.cuda.synchronize()
+    graphs = []
+    for _ in range(2):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = [fn() for fn, _ in users]
+            held = _build.tickets(cuda, 1).data_ptr()
+        graphs.append((graph, outs, held))
+    assert graphs[0][2] != graphs[1][2] and not eager & {graphs[0][2], graphs[1][2]}
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for _ in range(2):
+        for s, (graph, _, _) in zip(streams, graphs):
+            s.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(s):
+                graph.replay()
+        torch.cuda.synchronize()
+        for _, outs, _ in graphs:
+            for got, want in zip(outs, alone):
+                _same_bits(got, want)
+    assert all((b == 0).all() for b in _build.ticket_buffers())
+
+
+RMS_CARD_SHAPES = [(8, 72, 72, 256), (4, 63, 63, 128), (3, 5, 7, 37), (2, 11, 13, 130),
+                   (2, 9, 11, 384)]
+
+
+def _rms_operands(dev, shape, dtype):
+    c = shape[-1]
+    x = (3.0 * _randn(dev, *shape, dtype=torch.float32)).to(dtype)
+    w = 1.0 + 0.1 * _randn(dev, c, dtype=torch.float32)
+    g = _randn(dev, *shape, dtype=dtype)
+    _, rstd = rn.rms_norm_2d_plain(x, w, w, return_rstd=True)
+    return x, w, g, rstd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", RMS_CARD_SHAPES, ids=str)
+def test_rms_norm_2d_bwd_one_cuda_launch(cuda, shape, dtype):
+    """rms_norm_2d's backward at the tracker's map, EV-M's stride-16 map at
+    batch 4, and ragged rows and channels (37 and 130, and 384 past the
+    vector path's 256: the masked path):
+    one CUDA kernel a call (no Triton, no sum after it); the same bits when
+    run again; dx within 1e-2 (bf16) or 1e-4 (fp32) of the plain version's
+    largest magnitude; dw / db within 1e-5 of fp64 sums."""
+    x, w, g, rstd = _rms_operands(cuda, shape, dtype)
+    before = rn.rms_norm_2d_bwd.launches
+    dx, dwt, db = rn.rms_norm_2d_bwd(x, w, rstd, g)
+    torch.cuda.synchronize()
+    assert rn.rms_norm_2d_bwd.launches == before + 1
+    assert dx.dtype == dtype and dx.shape == x.shape and dwt.dtype == db.dtype == torch.float32
+    tol = TOL if dtype == torch.bfloat16 else FP32_TOL
+    assert _rel_err(dx, rn.rms_norm_2d_bwd_plain(x, w, rstd, g)[0]) < tol
+    c = shape[-1]
+    xhat = x.double().reshape(-1, c) * rstd.double()[:, None]
+    gd = g.double().reshape(-1, c)
+    assert _rel_err(dwt, (gd * xhat).sum(0)) < 1e-5 and _rel_err(db, gd.sum(0)) < 1e-5
+    _same_bits(rn.rms_norm_2d_bwd(x, w, rstd, g), (dx, dwt, db))
+    names = _kernels_of(lambda: rn.rms_norm_2d_bwd(x, w, rstd, g))
+    want = "ln_bwd_vec" if c % 8 == 0 and c <= 256 else "ln_bwd_any"
+    assert len(names) == 1 and want in names[0], names
+    assert (_build.tickets(cuda, 1) == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_rms_norm_2d_bwd_kernel_fits_without_spills(cuda, dtype):
+    """At 256 and 128 channels the vector path (one 16-byte vector a lane
+    in bf16, two 4-column vectors in fp32 at 256), at 130 the masked path,
+    and at 384 and 512 too (the vector path's instantiations there spilled):
+    no spills, a block of 512 threads resident on every SM."""
+    for c, path in ((256, 1 if dtype == torch.bfloat16 else 2), (128, 1), (130, 0), (384, 0),
+                    (512, 0)):
+        res = rn.bwd_kernel_resources(dtype, dtype, c)
+        assert res["path"] == path and res["spill_bytes"] == 0 and res["blocks_per_sm"] >= 1, res
+
+
+@pytest.mark.cuda
+def test_rms_norm_2d_bwd_refuses_what_it_does_not_take(cuda):
+    x, w, g, rstd = _rms_operands(cuda, (2, 3, 5, 64), torch.bfloat16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        rn.rms_norm_2d_bwd(x.half(), w, rstd, g)
+    with pytest.raises(ValueError, match="too wide"):
+        big = torch.zeros((2, 4100), dtype=torch.bfloat16, device=cuda)
+        rn.rms_norm_2d_bwd(big, torch.ones(4100, device=cuda), torch.ones(2, device=cuda), big)
+    with pytest.raises(ValueError, match="rstd"):
+        rn.rms_norm_2d_bwd(x, w, rstd[:-1], g)
+
+
+@pytest.mark.cuda
+def test_mma_probe_on_wgmma_fits_without_spills(cuda):
+    """The chain's kernels (int8, bf16) at k = 256: no spills, three blocks of one warpgroup an SM (the 384 tiles of the
+    probe's shape in one wave); no source under csrc/ issues mma.sync (its
+    code, comments left out)."""
+    import re
+    from pathlib import Path
+
+    from efficientsam3_tpu_torch.ops import mma_probe
+
+    for dtype in (torch.int8, torch.bfloat16):
+        res = mma_probe.kernel_resources(dtype)
+        assert res["spill_bytes"] == 0 and res["blocks_per_sm"] >= 3, (dtype, res)
+    for path in Path(_build.CSRC).glob("*.cu*"):
+        assert "mma.sync" not in re.sub(r"//[^\n]*", "", path.read_text()), path.name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,k", [(torch.int8, 256), (torch.int8, 992), (torch.bfloat16, 496)])
+def test_mma_probe_long_rows_and_clocks(cuda, dtype, k):
+    """Rows the registers hold (int8 k = 256) and longer ones (int8 k =
+    992, bf16 k = 496: A's further k-steps from shared memory) within 1e-5
+    of the plain chain; the clock64 sections are taken and leave the output
+    as it is."""
+    from efficientsam3_tpu_torch.ops import mma_probe
+
+    x, y = mma_probe.probe_operands(dtype, 200, k, 300, seed=5, device=cuda)
+    got = mma_probe.dot_chain(x, y, 5)
+    torch.cuda.synchronize()
+    assert _rel_err(got, mma_probe.dot_chain_plain(x, y, 5)) < 1e-5
+    before = mma_probe.dot_chain.launches
+    sections, out = mma_probe.chain_clocks(x, y, 5)
+    assert mma_probe.dot_chain.launches == before and torch.equal(out, got)
+    assert all(v > 0 for v in sections.values()), sections

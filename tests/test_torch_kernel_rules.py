@@ -16,10 +16,11 @@ summed a partial row per (block, group) and finished over
 LayerNorm's backward: its grid (``layer_norm.bwd_grid``) reaches every row
 once on each path and its finish groups every block once.
 
-The sources: no kernel under ``csrc/`` but the measurement tool
-``mma_probe.cu`` issues ``mma.sync`` (every attention kernel is on wgmma),
+The sources: no kernel under ``csrc/`` issues ``mma.sync`` (every
+attention kernel and the tensor-core probe ``mma_probe.cu`` are on wgmma),
 the mma.sync helpers' header ``attn_common.cuh`` is gone, and no module of
-the port but ``ops/rms_norm.py`` reaches Triton (``ops/layer_norm.py`` not).
+the port but ``ops/rms_norm.py`` reaches Triton (``ops/layer_norm.py`` not),
+there for the forward alone (the backward is ``csrc/layer_norm.cu``'s).
 """
 
 import re
@@ -94,11 +95,12 @@ def _code(path):
 
 @pytest.mark.parametrize("path", sorted(CSRC.glob("*.cu*")), ids=lambda p: p.name)
 def test_no_kernel_but_the_probe_issues_mma_sync(path):
+    """No source issues mma.sync, the probe included: it times the wgmma
+    instructions the bank kernels use, int8 and bf16."""
     code = _code(path)
+    assert "mma.sync" not in code and "mma16816" not in code
     if path.name == "mma_probe.cu":
-        assert "mma.sync.aligned" in code  # the tool that times it
-    else:
-        assert "mma.sync" not in code and "mma16816" not in code
+        assert "wgmma.mma_async" in code and "wgmma_s8_rs" in code and "wgmma_rs<0>" in code
     assert not re.search(r'#include\s+"attn_common\.cuh"', code)
 
 
@@ -278,3 +280,17 @@ def test_layer_norm_module_reaches_no_triton():
     users = sorted(p.name for p in Path(ops.parent).rglob("*.py")
                    if re.search(r"^\s*import triton", p.read_text(), re.M))
     assert users == ["rms_norm.py"]
+
+
+def test_rms_norm_backward_reaches_no_triton():
+    """rms_norm_2d's backward is one launch of csrc/layer_norm.cu's
+    rms_norm_bwd (dw and db finished in the launch): Triton's kernels are
+    the forward's alone, and no sum follows the launch."""
+    import inspect
+
+    from efficientsam3_tpu_torch.ops import rms_norm as rn
+
+    bwd = inspect.getsource(rn.rms_norm_2d_bwd)
+    assert "triton" not in bwd.lower() and "_lib_bwd()" in bwd and ".sum(" not in bwd
+    assert "_rms_bwd" not in inspect.getsource(rn)
+    assert "rms_norm_bwd(" in _code(CSRC / "layer_norm.cu")
