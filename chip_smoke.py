@@ -277,6 +277,39 @@ Phases, each printing its own lines:
      each gradient's largest magnitude, dK and dV the same bits when run
      again, SDPA's backward as the library time) and fp32 at the cuts'
      (FP32_TOL, fp32 SDPA's backward).
+  14. [text] the MobileCLIP towers (LiteText students): the SAM3 CLIP text
+     tower (24 layers, width 1024, bf16) makes the teacher's token features
+     of 64 seeded prompts and of their word-permuted copies; the
+     MobileCLIP-S1, MobileCLIP2-L and MobileCLIP-B students (context 32)
+     each held in fp32 on the card against the same tower on the host's CPU
+     (TEXT_TOL of the largest magnitude) and timed in bf16 at batch 64;
+     MobileCLIP-S1 takes 3 stage1_text_train_steps at batch 64 (step ms and
+     loss parts printed); EV-M 1008^2 built with the MobileCLIP2-L tower
+     through Sam3Processor (a ground's launches as phase 2's);
+  15. [geometry] the Stage-1 geometry-aware finetune: 3
+     geometry_finetune_steps of EV-M 1008^2 with MobileCLIP-S0 at context
+     32, bf16, batch 4, one box prompt a sample from seeded ground truth,
+     seeded teacher embeddings and masks. Launches a step derived from the
+     model and asserted: flash_sdpa, dq and dkv one a fusion layer (6),
+     layer_norm and layer_norm_bwd one a FusedLayerNorm (27),
+     flash_xattn_rpb 0 (the eval-mode heads pass gradient to the trunk);
+     every parameter outside the trunk bit-identical, the trunk moved; an
+     eval ground under no_grad launches flash_xattn_rpb once a decoder
+     layer (6); the fp32 trunk gradient of a step (batch 1) through the
+     kernels against the plain versions (GEOM_GRAD_BOUND) and with their
+     outputs cut from the graph (must move by over twice it);
+  16. [interactive] interactive_grounding_loss with one corrective step
+     (two grounding passes) and its backward: EV-M 1008^2, bf16, batch 4,
+     training mode; launches asserted (forward 12 flash_sdpa and 54
+     layer_norm, backward 12 dq, 12 dkv and 54 layer_norm_bwd, no
+     flash_xattn_rpb), forward and backward ms and the clicks placed
+     printed;
+  17. [assoc] 50 assoc_train_steps of AssocHead (d_model 256) over
+     FramePairDataset (200 detection and 8 track queries, batch 8): the
+     loss must fall below half its start.
+  The launches of phases 15-16 are added to the rows of the kernels they
+  run (flash_sdpa, flash_sdpa_bwd_dq, flash_sdpa_bwd_dkv, layer_norm,
+  layer_norm_bwd, flash_xattn_rpb).
 
 Each phase prints its seconds. The line before the last is the kernels
 JSON (forty-five rows), the last {"ok": true, "device": {...}}. Any
@@ -940,18 +973,33 @@ def main():
 
     log(f"[time] phases 1-4 (build, main path, kernels, checks) {time.perf_counter() - t_run:.1f} s")
 
-    # ---------------------------------------------------------------- 5-13
+    # ---------------------------------------------------------------- 5-17
+    new_launches = {}  # the launches of phases 15-16, added to the kernels' rows
     for name, phase in (("video", lambda: video_phase(smi, rng)), ("train", lambda: train_phase(smi)),
                         ("pcs", lambda: pcs_phase(smi)), ("probe", lambda: probe_phase(smi)),
                         ("tracker_train", lambda: tracker_train_phase(smi)),
                         ("fp32", lambda: fp32_phase(smi, main_ref)),
                         ("sam3", lambda: sam3_phase(smi, main_ref)),
                         ("sam1", lambda: sam1_phase(smi, main_ref)),
-                        ("stage1", lambda: stage1_phase(smi))):
+                        ("stage1", lambda: stage1_phase(smi)),
+                        ("text", lambda: text_phase(smi, main_ref)),
+                        ("geometry", lambda: geometry_phase(smi, new_launches)),
+                        ("interactive", lambda: interactive_phase(smi, new_launches)),
+                        ("assoc", lambda: assoc_phase(smi))):
         t_phase = time.perf_counter()
         rows += phase()
         torch.cuda.empty_cache()
         log(f"[time] phase [{name}] {time.perf_counter() - t_phase:.1f} s")
+    # the bf16 d=32 rows (phase 3's forward and LayerNorm, phase 6's
+    # backward rows) and flash_xattn_rpb take the launches of the geometry
+    # finetune and the interactive steps
+    for r in rows:
+        if r["name"] in new_launches:
+            r["launches"] += new_launches.pop(r["name"])
+    if new_launches:
+        raise AssertionError(f"launches with no kernel row: {new_launches}")
+    log(f"[kernel] launches with phases 15-16's added: "
+        f"{ {r['name']: r['launches'] for r in rows} }")
     log(f"[time] whole run {time.perf_counter() - t_run:.1f} s")
 
     print(json.dumps({"kernels": rows}), flush=True)
@@ -4613,6 +4661,421 @@ def stage1_phase(smi):
         del q, k, v, key_bias, o, lse, do
         torch.cuda.empty_cache()
     return rows
+
+
+# the text towers and the rest of training (phases 14-17)
+TEXT_TOWERS = ("MobileCLIP-S1", "MobileCLIP2-L", "MobileCLIP-B")
+TEXT_BATCH, TEXT_STEPS = 64, 3
+# a tower's fp32 forward on the card against the same tower on the host's
+# CPU (TF32 off): sums in other orders over 12 layers, ~1e-6 of the
+# output's largest magnitude expected; the bound 1e-4 of it
+TEXT_TOL = 1e-4
+GEOM_BATCH, GEOM_STEPS = 4, 3
+# the trunk's gradient of a geometry step at fp32 (batch 1) through the
+# kernels against the plain versions, |g - g_plain| / |g_plain|: the fp32
+# kernels multiply split bf16 parts (~2^-16 a product); the bound 1e-2, and
+# with the kernels' outputs cut from the graph it must move by over twice that
+GEOM_GRAD_BOUND = 1e-2
+ASSOC_STEPS, ASSOC_BATCH = 50, 8
+
+
+def text_tokens(batch, ctx, seed=21):
+    """Seeded prompts as token ids (start, 1-12 words, end) and the same
+    prompts with their words permuted (``stage1_text.permute_words`` on
+    ids): (tokens, tokens_perm), int64 numpy."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    tok = np.zeros((batch, ctx), np.int64)
+    perm = np.zeros_like(tok)
+    for b in range(batch):
+        words = rng.integers(320, 49000, int(rng.integers(1, 13)))
+        tok[b, :len(words) + 2] = [49406, *words, 49407]
+        perm[b, :len(words) + 2] = [49406, *rng.permutation(words), 49407]
+    return tok, perm
+
+
+def kernel_counters():
+    """{name: wrapper} of the kernels on the training paths, each counting
+    its own launches."""
+    from efficientsam3_tpu_torch.ops import flash_attention as fa
+    from efficientsam3_tpu_torch.ops import layer_norm as ln
+
+    return {"flash_sdpa": fa.flash_sdpa, "flash_sdpa_bwd_dq": fa.flash_sdpa_bwd_dq,
+            "flash_sdpa_bwd_dkv": fa.flash_sdpa_bwd_dkv, "layer_norm": ln.layer_norm,
+            "layer_norm_bwd": ln.layer_norm_bwd, "flash_xattn_rpb": fa.flash_xattn_rpb}
+
+
+def model_launches(model):
+    """(fusion layers, kernel LayerNorms, decoder layers) of an image
+    model: a ground launches flash_sdpa once a fusion layer and layer_norm
+    once a FusedLayerNorm (fusion and geometry encoders), and, where no
+    gradient is recorded, flash_xattn_rpb once a decoder layer."""
+    from efficientsam3_tpu_torch.models.common import FusedLayerNorm
+
+    return (len(model.fusion_encoder.layers),
+            sum(isinstance(m, FusedLayerNorm) for m in model.modules()),
+            len(model.decoder.layers))
+
+
+def text_phase(smi, main_ref):
+    """Phase 14: the MobileCLIP towers. Returns no row (no kernel of ours
+    runs in a tower at context 32)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from efficientsam3_tpu_torch.build import build_efficientsam3_image_model, init_parameters
+    from efficientsam3_tpu_torch.models.mobile_clip import MOBILECLIP_TEXT_CFGS
+    from efficientsam3_tpu_torch.models.text_encoder import VETextEncoder
+    from efficientsam3_tpu_torch.processor import Sam3Processor
+    from efficientsam3_tpu_torch.train import stage1_text as st
+
+    dev = torch.device("cuda")
+    tok_np, perm_np = text_tokens(TEXT_BATCH, 32)
+    tok, perm = torch.from_numpy(tok_np).to(dev), torch.from_numpy(perm_np).to(dev)
+    # the teacher's token features: the SAM3 CLIP tower (24 layers, width 1024)
+    teacher = init_parameters(VETextEncoder(256, 32, dtype=torch.bfloat16), seed=7).to(dev).eval()
+    with torch.no_grad():  # the targets enter the students' autograd graph
+        teacher_ms = cuda_time(lambda: teacher(tok), 5)
+        target, target_perm = teacher(tok)[0].float(), teacher(perm)[0].float()
+    log(f"[text] teacher CLIP tower (24 layers, width 1024) bf16 at batch {TEXT_BATCH}: "
+        f"{teacher_ms:.3f} ms a forward | {smi}")
+    del teacher
+    batch = {"tokens": tok, "tokens_perm": perm, "teacher": target, "teacher_perm": target_perm}
+    for name in TEXT_TOWERS:
+        cfg = st.Stage1TextConfig(backbone_type=name, context_length=32)
+        cpu = init_parameters(st.make_text_student(cfg), seed=3).eval()
+        card = copy.deepcopy(cpu).to(dev)
+        small = tok[:4].cpu()
+        with torch.inference_mode():
+            want, got = cpu(small)[0], card(small.to(dev))[0].cpu()
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        log(f"[text] {name} fp32 on the card against the CPU (batch 4): max error {err:.3e} of "
+            f"the largest magnitude (bound {TEXT_TOL})")
+        if not err <= TEXT_TOL:
+            raise AssertionError(f"{name}: fp32 on the card off the CPU by {err}")
+        del cpu, card
+        student = init_parameters(st.make_text_student(cfg, dtype=torch.bfloat16), seed=3).to(dev)
+        n_params = sum(p.numel() for p in student.parameters())
+        with torch.inference_mode():
+            fwd_ms = cuda_time(lambda: student.eval()(tok), 10)
+        log(f"[text] {name} ({MOBILECLIP_TEXT_CFGS[name]}): {n_params / 1e6:.1f} M "
+            f"parameters, bf16 forward at batch {TEXT_BATCH} {fwd_ms:.3f} ms | {smi}")
+        if name != "MobileCLIP-S1":
+            del student
+            continue
+        opt = st.make_text_optimizer(cfg, student)
+        per_step = []
+        for i in range(TEXT_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = st.stage1_text_train_step(student, opt, cfg, batch)
+            torch.cuda.synchronize()
+            m = {k: float(v) for k, v in m.items()}
+            per_step.append(((time.perf_counter() - t0) * 1e3, m))
+            if not all(math.isfinite(v) for v in m.values()):
+                raise AssertionError(f"Stage-1 text step {i + 1}: {m}")
+        log(f"[text] {name} stage1_text_train_step at batch {TEXT_BATCH}: " + "; ".join(
+            f"step {i + 1} {ms:.1f} ms, loss {m['loss']:.4f} (mse {m['mse']:.4f}, cosine "
+            f"{m['cosine']:.4f}, perm {m['perm']:.4f})" for i, (ms, m) in enumerate(per_step))
+            + f" | {smi}")
+        del student, opt
+    torch.cuda.empty_cache()
+
+    # EV-M with the MobileCLIP2-L tower through the processor: the tower
+    # adds no launch to a ground's
+    model = build_efficientsam3_image_model(
+        backbone_type="efficientvit", model_name="b1", text_encoder_type="MobileCLIP2-L",
+        text_encoder_context_length=32, dtype=torch.bfloat16, device=dev, seed=0)
+    proc = Sam3Processor(model, resolution=1008, context_length=32)
+
+    def call():
+        state = proc.set_image(main_ref["image"])
+        state["text"] = proc.encode_tokens(main_ref["tokens"])
+        return proc.add_geometric_prompt(main_ref["box"], True, state)
+
+    call()
+    counters = kernel_counters()
+    for w in counters.values():
+        w.launches = 0
+    state = call()
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in counters.items()}
+    for k, want in MAIN_COUNTS.items():
+        if launches[k] != want:
+            raise AssertionError(f"[text] MobileCLIP2-L ground: {k} {launches[k]}, want {want}")
+    if not all(np.isfinite(state[k]).all() for k in ("scores", "boxes", "masks_logits")):
+        raise AssertionError("[text] MobileCLIP2-L ground: non-finite outputs")
+    tok1 = torch.from_numpy(main_ref["tokens"]).to(dev)
+    with torch.inference_mode():
+        text_ms = cuda_time(lambda: model.encode_text(tok1), 20)
+    whole_ms = cuda_time(call, 5, warmup=1)
+    log(f"[text] EV-M 1008^2 with MobileCLIP2-L through Sam3Processor: launches "
+        f"{ {k: launches[k] for k in MAIN_COUNTS} }, encode_text {text_ms:.3f} ms, whole call "
+        f"{whole_ms:.3f} ms, kept {len(state['scores'])} of 200 | {smi}")
+    return []
+
+
+def geometry_batch(batch, device, seed=31):
+    """A Stage-3 synthetic batch (``stage3_batch``) with one box prompt a
+    sample from its first ground-truth box, a seeded teacher embedding of
+    the trunk's (72, 72, 1024) output (valid everywhere) and the first
+    object's 288x288 mask as the teacher mask."""
+    import torch
+
+    from efficientsam3_tpu_torch.models.geometry import Prompt
+
+    b = stage3_batch(batch, 32, device, seed=seed)
+    prompt = Prompt.empty(batch, 8, 8, device=device)
+    for i in range(batch):
+        prompt = prompt.with_box(i, 0, b["targets"]["boxes"][i, 0].tolist())
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return {"images": b["images"], "tokens": b["tokens"], "prompt": prompt,
+            "teacher_embed": torch.randn((batch, 72, 72, 1024), generator=gen, device=device),
+            "valid": torch.ones((batch, 72, 72), device=device),
+            "teacher_mask": b["targets"]["masks"][:, 0], "targets": b["targets"]}
+
+
+def geometry_phase(smi, new_launches):
+    """Phase 15: the geometry-aware finetune; adds its launches to
+    ``new_launches``, returns no row (phase 6 holds the kernels at the
+    step's shapes)."""
+    import torch
+
+    from efficientsam3_tpu_torch.build import build_efficientsam3_image_model
+    from efficientsam3_tpu_torch.models import common
+    from efficientsam3_tpu_torch.ops import flash_attention as fa
+    from efficientsam3_tpu_torch.ops import layer_norm as ln
+    from efficientsam3_tpu_torch.train import geometry_finetune as gf
+    from efficientsam3_tpu_torch.utils.checkpoint import assert_frozen_unchanged
+
+    dev = torch.device("cuda")
+
+    def build(dtype):
+        return build_efficientsam3_image_model(
+            backbone_type="efficientvit", model_name="b1", text_encoder_type="MobileCLIP-S0",
+            text_encoder_context_length=32, dtype=dtype, device=dev, seed=0)
+
+    model = build(torch.bfloat16)
+    cfg = gf.GeometryFinetuneConfig()
+    opt = gf.make_geometry_optimizer(cfg, model)
+    batch = geometry_batch(GEOM_BATCH, dev)
+    n_fusion, n_ln, n_dec = model_launches(model)
+    want = {"flash_sdpa": n_fusion, "flash_sdpa_bwd_dq": n_fusion, "flash_sdpa_bwd_dkv": n_fusion,
+            "layer_norm": n_ln, "layer_norm_bwd": n_ln, "flash_xattn_rpb": 0}
+    log(f"[geometry] launches a step, from the model ({n_fusion} fusion layers, {n_ln} kernel "
+        f"LayerNorms, {n_dec} decoder layers; the eval-mode heads pass gradient to the trunk, so "
+        f"the boxRPB cross-attention takes the matmul path): {want}")
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    counters = kernel_counters()
+    per_step = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(GEOM_STEPS):
+        for w in counters.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = gf.geometry_finetune_step(model, opt, cfg, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = {k: w.launches for k, w in counters.items()}
+        if got != want:
+            raise AssertionError(f"[geometry] step {i + 1}: launches {got}, want {want}")
+        m = {k: float(v) for k, v in m.items()}
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"[geometry] step {i + 1}: {m}")
+        per_step.append((ms, m))
+        for k, n in got.items():
+            new_launches[k] = new_launches.get(k, 0) + n
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log("[geometry] geometry_finetune_step (EV-M 1008^2, MobileCLIP-S0, bf16, batch "
+        f"{GEOM_BATCH}, box prompts): " + "; ".join(
+            f"step {i + 1} {ms:.1f} ms, loss {m['loss']:.4f} (embed {m['embed']:.4f}, bce "
+            f"{m['bce']:.4f}, dice {m['dice']:.4f})" for i, (ms, m) in enumerate(per_step))
+        + f" | peak memory {peak:.2f} GiB | {smi}")
+    after = {k: v.detach() for k, v in model.state_dict().items()}
+    frozen = tuple({k.split(".")[0] for k in after} - {"trunk"})
+    assert_frozen_unchanged(before, after, frozen)
+    moved = sum(int((after[k] != v).sum()) for k, v in before.items() if k.startswith("trunk."))
+    if moved == 0:
+        raise AssertionError("[geometry] the trunk did not move")
+    log(f"[geometry] trunk: {moved} elements changed; {sorted(frozen)} bit-identical")
+
+    # the eval ground without a gradient takes the boxRPB kernel
+    for w in counters.values():
+        w.launches = 0
+    with torch.no_grad():
+        out = model(batch["images"], batch["tokens"], batch["prompt"])
+    torch.cuda.synchronize()
+    got = {k: w.launches for k, w in counters.items()}
+    want_eval = {"flash_sdpa": n_fusion, "layer_norm": n_ln, "flash_xattn_rpb": n_dec}
+    if any(got[k] != n for k, n in want_eval.items()) or not torch.isfinite(
+            out["pred_masks"].float()).all():
+        raise AssertionError(f"[geometry] eval ground under no_grad: launches {got}, want "
+                             f"{want_eval}")
+    for k in want_eval:
+        new_launches[k] = new_launches.get(k, 0) + got[k]
+    log(f"[geometry] eval ground under no_grad after the steps: {want_eval} launches")
+    del model, opt, batch, out, before, after
+    torch.cuda.empty_cache()
+
+    # the trunk's gradient at fp32 (batch 1) through the kernels, the plain
+    # versions, and the kernels' outputs cut from the graph; each run from
+    # the same BatchNorm statistics (pass 1 updates them)
+    m32 = build(None)
+    gf.make_geometry_optimizer(cfg, m32)
+    one = geometry_batch(1, dev)
+    stats = {k: v.clone() for k, v in m32.named_buffers()}
+
+    def trunk_grad():
+        with torch.no_grad():
+            for k, v in m32.named_buffers():
+                v.copy_(stats[k])
+        m32.zero_grad(set_to_none=True)
+        loss, _ = gf.geometry_finetune_loss(m32, one, cfg)
+        loss.backward()
+        return torch.cat([p.grad.flatten() for p in m32.trunk.parameters()])
+
+    n_fwd = fa.flash_sdpa.launches
+    grads = {"kernels": trunk_grad()}
+    if fa.flash_sdpa.launches == n_fwd:
+        raise AssertionError("[geometry] the fp32 run launched no flash_sdpa")
+    saved = common.flash_sdpa, common.layer_norm
+    for name, attn, norm in (
+            ("plain", fa.flash_sdpa_plain, ln.layer_norm_plain),
+            ("cut", lambda *a, **k: fa.flash_sdpa(*a, **k).detach(),
+             lambda *a, **k: ln.layer_norm(*a, **k).detach())):
+        common.flash_sdpa, common.layer_norm = attn, norm
+        try:
+            grads[name] = trunk_grad()
+        finally:
+            common.flash_sdpa, common.layer_norm = saved
+    rel = {k: ((grads[k] - grads["plain"]).norm() / grads["plain"].norm()).item()
+           for k in ("kernels", "cut")}
+    log(f"[geometry] fp32 trunk gradient of a step (batch 1), |g - g_plain| / |g_plain|: "
+        f"kernels {rel['kernels']:.3e} (bound {GEOM_GRAD_BOUND}), the kernels' outputs cut "
+        f"from the graph {rel['cut']:.3e} (must exceed {2 * GEOM_GRAD_BOUND})")
+    if not (rel["kernels"] <= GEOM_GRAD_BOUND and rel["cut"] > 2 * GEOM_GRAD_BOUND):
+        raise AssertionError(f"[geometry] fp32 trunk gradient through the kernels: {rel}")
+    del m32, grads
+    torch.cuda.empty_cache()
+    return []
+
+
+def interactive_phase(smi, new_launches):
+    """Phase 16: interactive-steps training, one corrective step; adds its
+    launches to ``new_launches``, returns no row."""
+    import torch
+
+    from efficientsam3_tpu_torch.build import build_efficientsam3_image_model
+    from efficientsam3_tpu_torch.train import interactive as it
+
+    dev = torch.device("cuda")
+    model = build_efficientsam3_image_model(
+        backbone_type="efficientvit", model_name="b1", text_encoder_type="MobileCLIP-S0",
+        text_encoder_context_length=32, dtype=torch.bfloat16, device=dev, seed=0)
+    model.train().requires_grad_(True)
+    batch = geometry_batch(GEOM_BATCH, dev, seed=41)
+    n_fusion, n_ln, _ = model_launches(model)
+    passes = 2  # num_interactive_steps + 1
+    want_fwd = {"flash_sdpa": passes * n_fusion, "layer_norm": passes * n_ln,
+                "flash_xattn_rpb": 0}
+    want_bwd = {"flash_sdpa_bwd_dq": passes * n_fusion, "flash_sdpa_bwd_dkv": passes * n_fusion,
+                "layer_norm_bwd": passes * n_ln}
+    counters = kernel_counters()
+    clicks = []
+    sample = it.sample_correction_click
+
+    def recorded(*a):
+        out = sample(*a)
+        clicks.append([t.cpu() for t in out])
+        return out
+
+    def run():
+        for w in counters.values():
+            w.launches = 0
+        model.zero_grad(set_to_none=True)
+        t0, t1, t2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        t0.record()
+        total, parts = it.interactive_grounding_loss(
+            model, batch["images"], batch["tokens"], batch["prompt"], batch["targets"],
+            num_interactive_steps=1)
+        t1.record()
+        fwd = {k: w.launches for k, w in counters.items()}
+        total.backward()
+        t2.record()
+        t2.synchronize()
+        bwd = {k: counters[k].launches - fwd[k] for k in counters}
+        return float(total.detach()), parts, fwd, bwd, t0.elapsed_time(t1), t1.elapsed_time(t2)
+
+    it.sample_correction_click = recorded
+    try:
+        run()  # warm-up: cuDNN plans, the allocator
+        clicks.clear()
+        torch.cuda.reset_peak_memory_stats()
+        total, parts, fwd, bwd, fwd_ms, bwd_ms = run()
+    finally:
+        it.sample_correction_click = sample
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if any(fwd[k] != n for k, n in want_fwd.items()) or any(
+            bwd[k] != n for k, n in want_bwd.items()):
+        raise AssertionError(f"[interactive] launches forward {fwd} (want {want_fwd}), "
+                             f"backward {bwd} (want {want_bwd})")
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    if not (math.isfinite(total) and len(parts) == passes and grads and all(
+            torch.isfinite(g.float()).all() for g in grads)):
+        raise AssertionError(f"[interactive] loss {total}, {len(parts)} passes, non-finite grads")
+    for k, n in {**want_fwd, **want_bwd}.items():
+        new_launches[k] = new_launches.get(k, 0) + n
+    (xy, labels, has), = clicks
+    log(f"[interactive] interactive_grounding_loss (EV-M 1008^2, bf16, batch {GEOM_BATCH}, 1 "
+        f"corrective step = {passes} grounding passes, training mode): loss {total:.4f} "
+        f"(each pass's weighted sam3_detection_loss, summed), forward "
+        f"{fwd_ms:.1f} ms, backward {bwd_ms:.1f} ms, peak memory {peak:.2f} GiB | {smi}")
+    log(f"[interactive] launches forward {fwd}, backward {bwd}")
+    log("[interactive] clicks placed (x, y in [0, 1], label 1 = add, 0 = remove): " + "; ".join(
+        f"sample {i}: ({float(x):.3f}, {float(y):.3f}) label {int(lb)}" if bool(h)
+        else f"sample {i}: none (no error)" for i, ((x, y), lb, h) in enumerate(
+            zip(xy.tolist(), labels, has))))
+    del model, batch, grads
+    torch.cuda.empty_cache()
+    return []
+
+
+def assoc_phase(smi):
+    """Phase 17: the video association head's training; no kernel of ours
+    on its path, returns no row."""
+    import numpy as np
+    import torch
+
+    from efficientsam3_tpu_torch.build import init_parameters
+    from efficientsam3_tpu_torch.train.video_assoc import (
+        AssocHead,
+        FramePairDataset,
+        assoc_train_step,
+    )
+
+    dev = torch.device("cuda")
+    head = init_parameters(AssocHead(256), seed=0).to(dev)
+    data = FramePairDataset(q_det=200, q_trk=8, d_model=256, seed=0)
+    step = assoc_train_step(head, torch.optim.Adam(head.parameters(), lr=3e-3))
+    batches = [data.batch(ASSOC_BATCH) for _ in range(ASSOC_STEPS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [step(b) for b in batches]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / ASSOC_STEPS
+    losses = [float(v) for v in losses]
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    log(f"[assoc] AssocHead (d_model 256, 200 detection and 8 track queries, batch "
+        f"{ASSOC_BATCH}) over FramePairDataset: {ASSOC_STEPS} assoc_train_steps, {ms:.3f} ms a "
+        f"step (batches made beforehand); loss, mean of the first 5 {first:.4f}, of the last "
+        f"5 {last:.3e} | {smi}")
+    if not (np.isfinite(losses).all() and last < 0.5 * first):
+        raise AssertionError(f"[assoc] the loss did not fall: {losses}")
+    return []
 
 
 def split_parts_check(q, k, v, key_bias, do):

@@ -2,9 +2,9 @@
 
 Counterpart of efficientsam3_tpu/build.py for the image model with a
 student trunk (EfficientViT b0/b1/b2, RepViT m0.9/m1.1/m2.3 or TinyViT
-5m/11m/21m; S/M/L by the model zoo's aliases) and the MobileCLIP-S0 text
-tower,
-for the SAM3 teacher (ViTDet ViT-H trunk and the CLIP text tower), and for
+5m/11m/21m; S/M/L by the model zoo's aliases) and a MobileCLIP text tower
+(any ``models.mobile_clip.MOBILECLIP_TEXT_CFGS`` entry, MobileCLIP-S0 by
+default), for the SAM3 teacher (ViTDet ViT-H trunk and the CLIP text tower), and for
 the video models: each image model with the SAM2 neck, plus the tracker
 core.
 Parameters are drawn from a seeded ``torch.Generator`` (no released
@@ -133,11 +133,10 @@ def build_efficientsam3_video_model(
     embed_size * 14 (72x72 tokens at 1008), both with seeded random weights
     from ``seed``, in eval mode on ``device`` (default cuda).
 
-    The text tower defaults to MobileCLIP-S0, the one the port has (the
-    default of the JAX package's function, the teacher CLIP tower, is not
-    ported). Wire them
-    with ``video.predictor.TrackerPredictor(tracker_core,
-    image_model.encode_image)``.
+    The text tower defaults to MobileCLIP-S0 (the JAX package's function
+    defaults to the teacher's CLIP tower, ``text_encoder_type=None``
+    here too). Wire them with ``video.predictor.TrackerPredictor(
+    tracker_core, image_model.encode_image)``.
     """
     device = resolve_device(device)
     image_model = build_efficientsam3_image_model(

@@ -1,2 +1,3 @@
 """Host-side data pipelines of the port (numpy only): ``sa1b`` for Stage-1
-distillation."""
+distillation, ``transforms`` and ``stage3_mixed`` for Stage-3 batches,
+``engine`` for VLM pseudo-labels."""

@@ -20,7 +20,8 @@ tracker's cached memory bank (raw 64-wide values) to ``flash_memattn`` by
 the same rule, and to ``flash_memattn_q8`` when the keys come as an int8
 (k_i8, k_scale) pair (the tracker's ``quantize_bank``).
 ``MultiheadAttention(rpb=...)`` sends the decoder's boxRPB cross-attention
-to ``flash_xattn_rpb`` on CUDA. ``Attention`` / ``RoPEAttention`` are the
+to ``flash_xattn_rpb`` on CUDA where no gradient is recorded
+(``xattn_rpb_takes_kernel``). ``Attention`` / ``RoPEAttention`` are the
 SAM heads' and the tracker's attentions, with the cached-bank entry points
 (``project_kv``, ``attend_projected``, ``attend_projected_rawv`` and
 ``attend_projected_rawv_2seg``).
@@ -35,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from efficientsam3_tpu_torch.ops import _build
 from efficientsam3_tpu_torch.ops.flash_attention import (
     _MEMATTN_DIMS,
     _SUPPORTED_D,
@@ -499,6 +501,15 @@ def merge_attention_segments(parts):
     return (num / den.clamp_min(1e-30)).to(parts[0][0].dtype)
 
 
+def xattn_rpb_takes_kernel(is_cuda: bool, needs_grad: bool) -> bool:
+    """Whether the decoder's boxRPB cross-attention runs on the
+    forward-only flash_xattn_rpb kernel: only on CUDA and where autograd
+    records nothing. A call whose inputs need a gradient takes the
+    differentiable matmul path with the full bias, whatever the module's
+    mode (JAX's forward-only kernel cannot be differentiated either)."""
+    return is_cuda and not needs_grad
+
+
 def split_heads(x, num_heads: int):
     b, n, c = x.shape
     return x.reshape(b, n, num_heads, c // num_heads).transpose(1, 2)
@@ -525,10 +536,12 @@ class MultiheadAttention(nn.Module):
         """key_padding_mask: (B, Nk) bool, True = PAD. attn_mask: an
         additive float bias (..., Nq, Nk), or a bool mask with True =
         masked, combined with key_padding_mask (the teacher text tower's
-        causal mask). rpb: the decomposed boxRPB bias (ey, ex, (h, w)); on
-        CUDA in eval mode it runs on the flash_xattn_rpb kernel, otherwise
-        (the CPU, or training: the kernel is forward-only, as the JAX
-        decoder's rpb_kernel=not train) the full bias is built for the
+        causal mask). rpb: the decomposed boxRPB bias (ey, ex, (h, w)),
+        routed by ``xattn_rpb_takes_kernel``: on CUDA where autograd
+        records nothing it runs on the flash_xattn_rpb kernel; otherwise
+        (the CPU, or a call whose inputs need a gradient: training, and
+        the geometry finetune's eval-mode heads, whose gradient reaches the
+        trunk; the kernel is forward-only) the full bias is built for the
         matmul path."""
         qh = split_heads(self.q_proj(q), self.num_heads)
         kh = split_heads(self.k_proj(k), self.num_heads)
@@ -537,7 +550,7 @@ class MultiheadAttention(nn.Module):
             if key_padding_mask is not None or attn_mask is not None:
                 raise ValueError("rpb attention takes no other mask")
             ey, ex, feat_hw = rpb
-            if qh.is_cuda and not self.training:
+            if xattn_rpb_takes_kernel(qh.is_cuda, _build.needs_grad(qh, kh, vh, ey, ex)):
                 out = flash_xattn_rpb(qh, kh, vh, ey, ex, feat_hw,
                                       1.0 / math.sqrt(qh.shape[-1]))
                 return self.out_proj(merge_heads(out))

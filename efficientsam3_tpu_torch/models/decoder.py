@@ -6,9 +6,11 @@ queries, d_model 256, ff 2048, 8 heads, text cross-attention, box
 refinement, boxRPB "log", presence token. DAC (duplicated o2o + o2m
 queries) runs only when asked (``apply_dac``): the image model asks in
 training, as the JAX model does. The boxRPB bias is kept decomposed as
-(ey, ex); on CUDA in eval mode the image cross-attention rebuilds it per
-tile in the flash_xattn_rpb kernel, in training it takes the full bias on
-the matmul path (the kernel is forward-only). Training mode also applies
+(ey, ex); on CUDA where autograd records nothing the image
+cross-attention rebuilds it per tile in the flash_xattn_rpb kernel; a call
+that needs a gradient (training, or eval-mode heads that pass gradient to
+the trunk, as the geometry finetune runs them) takes the full bias on the
+matmul path (the kernel is forward-only). Training mode also applies
 dropout (0.1) where the JAX layers do.
 """
 

@@ -1,13 +1,19 @@
-"""MobileCLIP-S0 text tower (LiteText student), (B, L, D) tokens.
+"""MobileCLIP text towers (LiteText students), (B, L, D) tokens.
 
-Counterpart of efficientsam3_tpu/models/mobile_clip.py for the 'mct'
-variant: token embedding + learnable positional embedding, RepMixerBlock +
-4 pre-norm transformer layers (fp32 LayerNorm) + RepMixerBlock, final fp32
-LayerNorm, then a linear projector to d_model. The other towers (the
-'base' variants) wait for a later slice.
+Counterpart of efficientsam3_tpu/models/mobile_clip.py: token embedding +
+learnable positional embedding, then either
+  - 'base': N pre-norm transformer layers (fp32 LayerNorm), causal for
+    MobileCLIP-B (an additive fp32 finfo.min upper triangle on the fp32
+    logits, before the softmax), or
+  - 'mct': RepMixerBlock + N transformer layers + RepMixerBlock, RepMixer
+    mixing tokens with (1, k) depthwise convs along the sequence axis,
+a final fp32 LayerNorm, and a linear projector to d_model. The eight
+towers of ``MOBILECLIP_TEXT_CFGS`` are the JAX table's.
 
-The towers' attention is small (ctx 16/32), so it runs as matmul + fp32
-softmax, like the JAX einsums.
+The towers' attention is small (ctx 16/32/77), so it runs as matmul + fp32
+softmax, like the JAX einsums: no kernel of the port's is on this path.
+``truncate_pos_embed`` slices a tower's positional table to a shorter
+context, as the JAX function does on its param tree.
 """
 
 from __future__ import annotations
@@ -30,7 +36,14 @@ from efficientsam3_tpu_torch.models.common import (
 )
 
 MOBILECLIP_TEXT_CFGS = {
-    "MobileCLIP-S0": dict(dim=512, layers=4, heads=8),  # the 'mct' variant, not causal
+    "MobileCLIP-S0": dict(dim=512, layers=4, heads=8, variant="mct", causal=False),
+    "MobileCLIP-S1": dict(dim=512, layers=12, heads=8, variant="base", causal=False),
+    "MobileCLIP2-S0": dict(dim=512, layers=12, heads=8, variant="base", causal=False),
+    "MobileCLIP2-S2": dict(dim=512, layers=12, heads=8, variant="base", causal=False),
+    "MobileCLIP-B": dict(dim=512, layers=12, heads=8, variant="base", causal=True),
+    "MobileCLIP2-S3": dict(dim=768, layers=12, heads=12, variant="base", causal=False),
+    "MobileCLIP2-S4": dict(dim=768, layers=12, heads=12, variant="base", causal=False),
+    "MobileCLIP2-L": dict(dim=768, layers=12, heads=12, variant="base", causal=False),
 }
 
 
@@ -60,12 +73,15 @@ class PackedMHA(nn.Module):
         self.qkv_proj = Dense(embed_dim, 3 * embed_dim, dtype=dtype)
         self.out_proj = Dense(embed_dim, embed_dim, dtype=dtype)
 
-    def forward(self, x):
+    def forward(self, x, attn_bias=None):
+        """attn_bias: an fp32 additive bias on the logits (the causal mask)."""
         q, k, v = self.qkv_proj(x).chunk(3, dim=-1)
         qh = split_heads(q, self.num_heads) * (self.embed_dim // self.num_heads) ** -0.5
         kh = split_heads(k, self.num_heads)
         vh = split_heads(v, self.num_heads)
         logits = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
+        if attn_bias is not None:
+            logits = logits + attn_bias
         probs = torch.softmax(logits, dim=-1).to(vh.dtype)
         return self.out_proj(merge_heads(torch.matmul(probs, vh)))
 
@@ -81,8 +97,8 @@ class EncoderLayer(nn.Module):
         self.fc1 = Dense(dim, ffn_dim(dim), dtype=dtype)
         self.fc2 = Dense(ffn_dim(dim), dim, dtype=dtype)
 
-    def forward(self, x):
-        x = x + self.attn(self.norm_mha(x))
+    def forward(self, x, attn_bias=None):
+        x = x + self.attn(self.norm_mha(x), attn_bias)
         h = self.fc2(gelu_exact(self.fc1(self.norm_ffn(x))))
         return x + h
 
@@ -139,18 +155,21 @@ class RepMixerBlock(nn.Module):
 
 
 class MobileCLIPTextTransformer(nn.Module):
-    """Tokens -> per-token features (the return-all-tokens path) of the
-    'mct' tower: RepMixer, ``layers`` transformer layers, RepMixer."""
+    """Tokens -> per-token features (the return-all-tokens path): 'base'
+    (``layers`` transformer layers, ``transformer_0..``) or 'mct'
+    (RepMixer, ``layers`` transformer layers, RepMixer)."""
 
-    def __init__(self, dim: int = 512, layers: int = 4, heads: int = 8,
-                 context_length: int = 77, vocab_size: int = 49408,
-                 projection_dim: Optional[int] = None, dtype: Optional[torch.dtype] = None):
+    def __init__(self, dim: int = 512, layers: int = 12, heads: int = 8,
+                 variant: str = "base", causal: bool = False, context_length: int = 77,
+                 vocab_size: int = 49408, projection_dim: Optional[int] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.causal = causal
         self.embedding_layer = Embed(vocab_size, dim)
         self.positional_embedding = nn.Parameter(torch.empty(context_length, dim))
-        blocks = [RepMixerBlock(dim, dtype=dtype)]
-        blocks += [EncoderLayer(dim, heads, dtype=dtype) for _ in range(layers)]
-        blocks += [RepMixerBlock(dim, dtype=dtype)]
+        blocks = [EncoderLayer(dim, heads, dtype=dtype) for _ in range(layers)]
+        if variant == "mct":
+            blocks = [RepMixerBlock(dim, dtype=dtype), *blocks, RepMixerBlock(dim, dtype=dtype)]
         self.transformer = nn.ModuleList(blocks)
         self.final_layer_norm = LayerNormFP32(dim)
         # present in checkpoints, unused on the SAM3 token path
@@ -159,8 +178,13 @@ class MobileCLIPTextTransformer(nn.Module):
     def forward(self, tokens):
         seq = tokens.shape[1]
         x = self.embedding_layer(tokens) + self.positional_embedding[:seq]
+        bias = None
+        if self.causal:
+            neg = torch.finfo(torch.float32).min
+            bias = torch.full((seq, seq), neg, dtype=torch.float32,
+                              device=x.device).triu(1)[None, None]
         for blk in self.transformer:
-            x = blk(x)
+            x = blk(x, bias) if isinstance(blk, EncoderLayer) else blk(x)
         return self.final_layer_norm(x)
 
 
@@ -173,17 +197,23 @@ class TextStudentEncoder(nn.Module):
     def __init__(self, backbone_type: str = "MobileCLIP-S0", context_length: int = 77,
                  output_dim: int = 256, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if backbone_type not in MOBILECLIP_TEXT_CFGS:
-            raise NotImplementedError(
-                f"text tower {backbone_type!r} is not ported yet (ROADMAP Queue 1 item 16b)"
-            )
         cfg = MOBILECLIP_TEXT_CFGS[backbone_type]
         self.encoder = MobileCLIPTextTransformer(
-            dim=cfg["dim"], layers=cfg["layers"], heads=cfg["heads"],
-            context_length=context_length, projection_dim=cfg["dim"], dtype=dtype,
+            dim=cfg["dim"], layers=cfg["layers"], heads=cfg["heads"], variant=cfg["variant"],
+            causal=cfg["causal"], context_length=context_length, projection_dim=cfg["dim"],
+            dtype=dtype,
         )
         self.projector = Dense(cfg["dim"], output_dim, dtype=dtype)
 
     def forward(self, tokens):
         feats = self.encoder(tokens)
         return self.projector(feats), tokens == 0
+
+
+def truncate_pos_embed(state: dict, new_length: int) -> dict:
+    """A copy of a ``TextStudentEncoder`` state_dict whose positional table
+    is cut to its first ``new_length`` rows: the reference's
+    resize_pos_embed in its truncation case (ctx 77 -> 16/32)."""
+    out = dict(state)
+    out["encoder.positional_embedding"] = state["encoder.positional_embedding"][:new_length].clone()
+    return out

@@ -1,8 +1,8 @@
 """EfficientSAM3 image PCS model: trunk -> neck -> fusion -> decoder -> heads.
 
 Counterpart of efficientsam3_tpu/models/sam3_image.py with the same three
-entry methods and outputs, over a student trunk with the MobileCLIP-S0
-tower (EfficientSAM3) or the ViTDet trunk with the CLIP tower
+entry methods and outputs, over a student trunk with a MobileCLIP tower
+(EfficientSAM3) or the ViTDet trunk with the CLIP tower
 (``text_encoder_type=None``: the SAM3 teacher): ``encode_image`` (FPN
 levels after scalp=1, NHWC, and their sine position embeddings),
 ``encode_text`` (text memory and pad mask) and ``ground`` (geometry

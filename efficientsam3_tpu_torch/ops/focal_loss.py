@@ -1,4 +1,4 @@
-"""Sigmoid focal loss and BCE-with-logits of the detection losses.
+"""Sigmoid focal loss, BCE-with-logits and dice loss of the training losses.
 
 Counterpart of efficientsam3_tpu/ops/focal_loss.py. ``sigmoid_focal_loss``
 keeps the JAX package's custom VJP as an autograd Function: its backward is
@@ -58,3 +58,10 @@ class _SigmoidFocalLoss(torch.autograd.Function):
 def sigmoid_focal_loss(logits, targets, alpha: float = 0.25, gamma: float = 2.0):
     """Per-element focal loss (no reduction), torchvision semantics."""
     return _SigmoidFocalLoss.apply(logits, targets, alpha, gamma)
+
+
+def dice_loss(pred_logits, targets, eps: float = 1.0):
+    """Dice loss of each flattened mask: (N, ...) logits and targets -> (N,)."""
+    p = torch.sigmoid(pred_logits).reshape(pred_logits.shape[0], -1)
+    t = targets.reshape(targets.shape[0], -1)
+    return 1 - (2 * (p * t).sum(-1) + eps) / (p.sum(-1) + t.sum(-1) + eps)

@@ -91,26 +91,24 @@ def clip_by_global_norm_(grads, max_norm: float):
     torch._foreach_mul_(grads, torch.where(keep, one, torch.full_like(norm, max_norm)))
 
 
-class Stage3Optimizer:
-    """The stage-3 optax chain (see the module docstring) over a model's
-    parameters: per-group clip + AdamW, frozen group untouched. Turns on
-    every parameter's gradient."""
+class ClippedAdamW:
+    """optax's chain(clip_by_global_norm, adamw) per group of parameters:
+    each group {label: (parameters, schedule)} clips its own gradients by
+    their global norm, then takes an AdamW step (b1 0.9, b2 0.999, eps
+    1e-8, decoupled weight decay on each of its parameters, optax's
+    default) at the rate ``schedule(count)`` for the count of updates taken
+    so far (0 for the first). Parameters in no group get no update
+    (optax.set_to_zero). ``params``: every parameter whose gradient
+    ``zero_grad`` clears (the groups' by default)."""
 
-    def __init__(self, cfg: Stage3Config, model: torch.nn.Module):
-        self.cfg = cfg
-        model.requires_grad_(True)
-        labels = param_labels(model, cfg.train_all)
-        self.params = list(model.parameters())
-        groups = {"vision": [], "text": []}
-        for name, p in model.named_parameters():
-            if labels[name] != "frozen":
-                groups[labels[name]].append(p)
-        sched = cosine_schedule if cfg.schedule == "cosine" else inverse_sqrt_schedule
-        self.schedules = {"vision": sched(cfg.vision_lr, cfg.warmup_steps, cfg.timescale),
-                          "text": sched(cfg.text_lr, cfg.warmup_steps, cfg.timescale)}
+    def __init__(self, groups: dict, weight_decay: float, grad_clip: float, params=None):
+        self.grad_clip = grad_clip
+        self.schedules = {g: sched for g, (_, sched) in groups.items()}
+        self.params = list(params) if params is not None else [
+            p for ps, _ in groups.values() for p in ps]
         self.adamw = torch.optim.AdamW(
-            [{"params": ps, "label": g} for g, ps in groups.items() if ps],
-            lr=0.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=cfg.weight_decay)
+            [{"params": list(ps), "label": g} for g, (ps, _) in groups.items() if ps],
+            lr=0.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
         self.count = 0  # updates taken (optax's schedule count)
 
     def zero_grad(self):
@@ -123,7 +121,7 @@ class Stage3Optimizer:
             for p in group["params"]:
                 if p.grad is None:  # unused parameters: JAX's gradient is 0
                     p.grad = torch.zeros_like(p)
-            clip_by_global_norm_([p.grad for p in group["params"]], self.cfg.grad_clip)
+            clip_by_global_norm_([p.grad for p in group["params"]], self.grad_clip)
             group["lr"] = self.schedules[group["label"]](self.count)
         self.adamw.step()
         self.count += 1
@@ -134,6 +132,30 @@ class Stage3Optimizer:
     def load_state_dict(self, state: dict):
         self.count = int(state["count"])
         self.adamw.load_state_dict(state["adamw"])
+
+
+def constant_schedule(lr: float):
+    return lambda count: lr
+
+
+class Stage3Optimizer(ClippedAdamW):
+    """The stage-3 optax chain (see the module docstring) over a model's
+    parameters: per-group clip + AdamW, frozen group untouched. Turns on
+    every parameter's gradient."""
+
+    def __init__(self, cfg: Stage3Config, model: torch.nn.Module):
+        self.cfg = cfg
+        model.requires_grad_(True)
+        labels = param_labels(model, cfg.train_all)
+        groups = {"vision": [], "text": []}
+        for name, p in model.named_parameters():
+            if labels[name] != "frozen":
+                groups[labels[name]].append(p)
+        sched = cosine_schedule if cfg.schedule == "cosine" else inverse_sqrt_schedule
+        super().__init__(
+            {"vision": (groups["vision"], sched(cfg.vision_lr, cfg.warmup_steps, cfg.timescale)),
+             "text": (groups["text"], sched(cfg.text_lr, cfg.warmup_steps, cfg.timescale))},
+            cfg.weight_decay, cfg.grad_clip, model.parameters())
 
 
 def make_stage3_optimizer(cfg: Stage3Config, model: torch.nn.Module) -> Stage3Optimizer:

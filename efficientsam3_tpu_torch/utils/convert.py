@@ -36,6 +36,11 @@ SAM1 neck (``neck_conv1`` ... ``neck_ln2``) and heads keep their names;
 the SAM1 decoder has no object-score head or high-res convs, and its
 prompt encoder no mask downscaler, in either tree.
 
+The MobileCLIP towers (``transformer_<i>`` blocks, the raw
+``positional_embedding`` and ``projection_layer``), ``AssocHead`` (its
+(1, 1, d) ``new_object_embed`` and ``false_positive_embed`` kept as they
+are) and the training slice's models walk by the same rules too.
+
 ``load_jax_variables`` loads the result with ``strict=True`` after
 checking that no key is left over or missing on either side and that
 every shape agrees, and fails loudly otherwise. Loading a released

@@ -2477,3 +2477,76 @@ def test_mma_probe_long_rows_and_clocks(cuda, dtype, k):
     sections, out = mma_probe.chain_clocks(x, y, 5)
     assert mma_probe.dot_chain.launches == before and torch.equal(out, got)
     assert all(v > 0 for v in sections.values()), sections
+
+
+@pytest.mark.cuda
+def test_xattn_rpb_route_by_gradient(cuda):
+    """The decoder's boxRPB cross-attention (MultiheadAttention(rpb=...))
+    in eval mode: under no_grad one flash_xattn_rpb launch; with an input
+    that needs a gradient (the geometry finetune's frozen heads) no launch,
+    the matmul path with the full bias, within bf16 rounding of the
+    kernel's output, and a gradient back to that input."""
+    from efficientsam3_tpu_torch.build import init_parameters
+    from efficientsam3_tpu_torch.models.common import MultiheadAttention
+
+    mha = init_parameters(MultiheadAttention(256, 8, dtype=torch.bfloat16), seed=3).to(cuda)
+    mha.eval()
+    hw = (18, 27)
+    q = _randn(cuda, 2, 201, 256)
+    mem = _randn(cuda, 2, hw[0] * hw[1], 256)
+    ey = _randn(cuda, 2, 8, 201, hw[0], dtype=torch.float32)
+    ex = _randn(cuda, 2, 8, 201, hw[1], dtype=torch.float32)
+    n = fa.flash_xattn_rpb.launches
+    with torch.no_grad():
+        want = mha(q, mem, mem, rpb=(ey, ex, hw))
+    torch.cuda.synchronize()
+    assert fa.flash_xattn_rpb.launches == n + 1
+    mem_g = mem.clone().requires_grad_()
+    got = mha(q, mem_g, mem_g, rpb=(ey, ex, hw))
+    assert fa.flash_xattn_rpb.launches == n + 1
+    assert _rel_err(got.detach(), want) < 2e-2
+    got.float().square().sum().backward()
+    assert mem_g.grad is not None and torch.isfinite(mem_g.grad.float()).all()
+
+
+@pytest.mark.cuda
+def test_geometry_step_launches(cuda):
+    """One geometry finetune step of an EfficientViT-b0 model at 1008^2
+    (2 fusion and 2 decoder layers, bf16, batch 1, one box): per fusion
+    layer one flash_sdpa forward, one dq and one dkv; every kernel
+    LayerNorm (the fusion and geometry encoders' FusedLayerNorm modules)
+    once forward and once backward; no flash_xattn_rpb. The eval ground
+    after it under no_grad launches flash_xattn_rpb once a decoder layer."""
+    from efficientsam3_tpu_torch.build import build_efficientsam3_image_model
+    from efficientsam3_tpu_torch.models.common import FusedLayerNorm
+    from efficientsam3_tpu_torch.models.geometry import Prompt
+    from efficientsam3_tpu_torch.train import geometry_finetune as gf
+
+    model = build_efficientsam3_image_model(
+        model_name="b0", text_encoder_context_length=16, fusion_layers=2, decoder_layers=2,
+        dtype=torch.bfloat16, device=cuda, seed=2)
+    cfg = gf.GeometryFinetuneConfig()
+    opt = gf.make_geometry_optimizer(cfg, model)
+    tok = torch.zeros((1, 16), dtype=torch.long, device=cuda)
+    tok[0, :3] = torch.tensor([49406, 320, 49407])
+    prompt = Prompt.empty(1, 2, 2, device=cuda).with_box(0, 0, [0.5, 0.5, 0.3, 0.3])
+    batch = {"images": _randn(cuda, 1, 1008, 1008, 3, dtype=torch.float32), "tokens": tok,
+             "prompt": prompt, "teacher_embed": _randn(cuda, 1, 72, 72, 1024),
+             "valid": torch.ones((1, 72, 72), device=cuda),
+             "teacher_mask": torch.zeros((1, 288, 288), device=cuda)}
+    counters = {"flash_sdpa": fa.flash_sdpa, "flash_sdpa_bwd_dq": fa.flash_sdpa_bwd_dq,
+                "flash_sdpa_bwd_dkv": fa.flash_sdpa_bwd_dkv, "layer_norm": ln.layer_norm,
+                "layer_norm_bwd": ln.layer_norm_bwd, "flash_xattn_rpb": fa.flash_xattn_rpb}
+    n_ln = sum(isinstance(m, FusedLayerNorm) for m in model.modules())
+    want = {"flash_sdpa": 2, "flash_sdpa_bwd_dq": 2, "flash_sdpa_bwd_dkv": 2,
+            "layer_norm": n_ln, "layer_norm_bwd": n_ln, "flash_xattn_rpb": 0}
+    for w in counters.values():
+        w.launches = 0
+    metrics = gf.geometry_finetune_step(model, opt, cfg, batch)
+    torch.cuda.synchronize()
+    assert {k: w.launches for k, w in counters.items()} == want and n_ln == 2 * 3 + 3 * 3
+    assert np.isfinite(float(metrics["loss"]))
+    fa.flash_xattn_rpb.launches = 0
+    with torch.no_grad():
+        model(batch["images"], tok, prompt)
+    assert fa.flash_xattn_rpb.launches == 2
