@@ -306,9 +306,24 @@ Phases, each printing its own lines:
      printed;
   17. [assoc] 50 assoc_train_steps of AssocHead (d_model 256) over
      FramePairDataset (200 detection and 8 track queries, batch 8): the
-     loss must fall below half its start.
-  The launches of phases 15-16 are added to the rows of the kernels they
-  run (flash_sdpa, flash_sdpa_bwd_dq, flash_sdpa_bwd_dkv, layer_norm,
+     loss must fall below half its start;
+  18. [eval] the evaluation stack and the agent: EV-M 1008^2 (bf16,
+     MobileCLIP-S0 at context 32, strings tokenized over a stub merge
+     table) grounds the 8 (image, query) pairs of a 4-image shapes fixture
+     through eval.gold.run_gold_inference, eval.postprocess_image turns the
+     raw outputs on the card into COCO records, scored by
+     evaluate_cgf1_files and CocoMAPEvaluator (random weights: the values
+     mean nothing; the oracle's records must score cgF1 and mask AP >=
+     0.95); the card's records held against postprocess_image on a CPU
+     copy (mask pixels may differ only within 1e-3 of 0 in the CPU's
+     logit); box-prompt mIoU with the [sam1] AMG's interactive predictor;
+     phase 7's exact session scored against its squares (HOTA, TETA, J&F;
+     the truth against itself 1) and through postprocess_video; the tool
+     loop (agent_inference) and SegmentationAgent over the processor with
+     scripted MLLMs; eval.distributed at world size 1. Launches asserted
+     per ground (6 / 27 / 6).
+  The launches of phases 15, 16 and 18 are added to the rows of the kernels
+  they run (flash_sdpa, flash_sdpa_bwd_dq, flash_sdpa_bwd_dkv, layer_norm,
   layer_norm_bwd, flash_xattn_rpb).
 
 Each phase prints its seconds. The line before the last is the kernels
@@ -973,10 +988,11 @@ def main():
 
     log(f"[time] phases 1-4 (build, main path, kernels, checks) {time.perf_counter() - t_run:.1f} s")
 
-    # ---------------------------------------------------------------- 5-17
-    new_launches = {}  # the launches of phases 15-16, added to the kernels' rows
+    # ---------------------------------------------------------------- 5-18
+    new_launches = {}  # the launches of phases 15, 16 and 18, added to the kernels' rows
+    pcs_ref = {}  # phase 7's exact session, scored in phase 18
     for name, phase in (("video", lambda: video_phase(smi, rng)), ("train", lambda: train_phase(smi)),
-                        ("pcs", lambda: pcs_phase(smi)), ("probe", lambda: probe_phase(smi)),
+                        ("pcs", lambda: pcs_phase(smi, pcs_ref)), ("probe", lambda: probe_phase(smi)),
                         ("tracker_train", lambda: tracker_train_phase(smi)),
                         ("fp32", lambda: fp32_phase(smi, main_ref)),
                         ("sam3", lambda: sam3_phase(smi, main_ref)),
@@ -985,20 +1001,21 @@ def main():
                         ("text", lambda: text_phase(smi, main_ref)),
                         ("geometry", lambda: geometry_phase(smi, new_launches)),
                         ("interactive", lambda: interactive_phase(smi, new_launches)),
-                        ("assoc", lambda: assoc_phase(smi))):
+                        ("assoc", lambda: assoc_phase(smi)),
+                        ("eval", lambda: eval_phase(smi, new_launches, pcs_ref))):
         t_phase = time.perf_counter()
         rows += phase()
         torch.cuda.empty_cache()
         log(f"[time] phase [{name}] {time.perf_counter() - t_phase:.1f} s")
     # the bf16 d=32 rows (phase 3's forward and LayerNorm, phase 6's
     # backward rows) and flash_xattn_rpb take the launches of the geometry
-    # finetune and the interactive steps
+    # finetune, the interactive steps and the evaluation stack's grounds
     for r in rows:
         if r["name"] in new_launches:
             r["launches"] += new_launches.pop(r["name"])
     if new_launches:
         raise AssertionError(f"launches with no kernel row: {new_launches}")
-    log(f"[kernel] launches with phases 15-16's added: "
+    log(f"[kernel] launches with phases 15, 16 and 18's added: "
         f"{ {r['name']: r['launches'] for r in rows} }")
     log(f"[time] whole run {time.perf_counter() - t_run:.1f} s")
 
@@ -1816,9 +1833,10 @@ def pcs_squares(t, size=1008):
     return masks, np.full(PCS_OBJECTS, 0.9 if t == 0 else 0.55, np.float32), boxes
 
 
-def pcs_phase(smi):
+def pcs_phase(smi, pcs_ref):
     """Phase 7: video PCS at full width, the exact and the int8 bank; returns
-    the flash_memattn_q8 row."""
+    the flash_memattn_q8 row, and puts the exact session's emitted frames in
+    ``pcs_ref["outs"]`` (phase 18 scores them)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1975,6 +1993,7 @@ def pcs_phase(smi):
     del warm
     exact = session()
     total_exact = check_session(exact, "exact bank", "flash_memattn")
+    pcs_ref["outs"] = exact["outs"]
     capture = Capture([(common, "flash_memattn_q8")])
     q8 = session(capture, quantize_bank=True)
     total_q8 = check_session(q8, "int8 bank", "flash_memattn_q8")
@@ -5075,6 +5094,286 @@ def assoc_phase(smi):
         f"5 {last:.3e} | {smi}")
     if not (np.isfinite(losses).all() and last < 0.5 * first):
         raise AssertionError(f"[assoc] the loss did not fall: {losses}")
+    return []
+
+
+# the [eval] phase: a shapes fixture of EVAL_IMAGES images at EVAL_SIZE^2
+# (two queries an image), the stub merge table the tokenizer reads in place
+# of the CLIP vocab (the repo has none), and the bound on the share of mask
+# pixels the card's postprocessing may flip against the CPU's (each within
+# EVAL_BAND of 0 in the CPU's upsampled logit)
+EVAL_IMAGES = 4
+EVAL_SIZE = 256
+EVAL_BPE = "#version\na b\n"
+EVAL_BAND = 1e-3
+EVAL_FLIP_SHARE = 1e-4
+EVAL_ORACLE_MIN = 0.95
+
+
+class ScriptedAgentLLM:
+    """The tool loop's MLLM, scripted: segment 'animal', examine each mask
+    (accept the first, reject the rest), select masks [1, 7] (7 is dropped);
+    report no mask where a step leaves none."""
+
+    def __init__(self):
+        self.checks = 0
+
+    def __call__(self, messages):
+        if "verification" in messages[0]["content"]:
+            self.checks += 1
+            return "<verdict>Accept</verdict>" if self.checks == 1 else "<verdict>Reject</verdict>"
+        last = [c["text"] for m in messages if isinstance(m.get("content"), list)
+                for c in m["content"] if isinstance(c, dict) and c.get("type") == "text"][-1]
+        if "user query is" in last:
+            return '<tool>{"name": "segment_phrase", "parameters": {"text_prompt": "animal"}}</tool>'
+        if "segment_phrase produced" in last:
+            return '<tool>{"name": "examine_each_mask", "parameters": {}}</tool>'
+        if "remain" in last:
+            return ('<tool>{"name": "select_masks_and_return", "parameters": '
+                    '{"final_answer_masks": [1, 7]}}</tool>')
+        return '<tool>{"name": "report_no_mask", "parameters": {}}</tool>'
+
+
+def refine_llm(messages):
+    """SegmentationAgent's MLLM, scripted: 'dog', then 'a yellow dog' while
+    a phrase finds nothing, else done."""
+    last = messages[-1]["content"]
+    if "Goal" in last:
+        return json.dumps({"phrase": "dog"})
+    if ": 0 detections" in last:
+        return json.dumps({"phrase": "a yellow dog"})
+    return json.dumps({"done": True, "best_phrase": "a yellow dog"})
+
+
+def eval_phase(smi, new_launches, pcs_ref):
+    """Phase 18: the evaluation stack and the agent on the card. EV-M
+    1008^2 (bf16, MobileCLIP-S0 at context 32, seed 0) grounds each (image,
+    query) pair of a shapes fixture through run_gold_inference; the raw
+    ground outputs, still on the card, go through eval.postprocess_image
+    into COCO records, then evaluate_cgf1_files and CocoMAPEvaluator; the
+    oracle's records through the same must score >= EVAL_ORACLE_MIN; the
+    card's postprocessing held against a CPU copy's. Box-prompt mIoU over
+    the fixture with amg_predictor's InteractiveImagePredictor. Phase 7's
+    exact PCS session scored against its seeded squares (HOTA, TETA, J&F;
+    the ground truth against itself must give 1). The tool-loop agent and
+    SegmentationAgent over the port's Sam3Processor with scripted MLLMs.
+    eval.distributed at world size 1. Launches asserted per ground (6 / 27
+    / 6) and added to ``new_launches``; returns no row."""
+    import gzip
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from efficientsam3_tpu_torch.agent import SegmentationAgent, agent_inference
+    from efficientsam3_tpu_torch.build import build_efficientsam3_image_model
+    from efficientsam3_tpu_torch.eval import distributed
+    from efficientsam3_tpu_torch.eval.coco_format import CocoDataset, ann_to_mask, rle_to_mask
+    from efficientsam3_tpu_torch.eval.coco_map import CocoMAPEvaluator
+    from efficientsam3_tpu_torch.eval.eval_coco import evaluate_box_prompt_miou
+    from efficientsam3_tpu_torch.eval.fixtures import make_shapes_fixture, oracle_predict_fn
+    from efficientsam3_tpu_torch.eval.gold import evaluate_cgf1_files, run_gold_inference
+    from efficientsam3_tpu_torch.eval.postprocess import postprocess_image, postprocess_video
+    from efficientsam3_tpu_torch.eval.video_eval import evaluate_video_predictions
+    from efficientsam3_tpu_torch.ops import depthwise as dw
+    from efficientsam3_tpu_torch.ops import flash_attention as fa
+    from efficientsam3_tpu_torch.ops import layer_norm as ln
+    from efficientsam3_tpu_torch.ops.interpolate import resize_bilinear
+    from efficientsam3_tpu_torch.processor import Sam3Processor
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    counters = {"flash_sdpa": fa, "flash_memattn": fa, "flash_memattn_q8": fa,
+                "flash_xattn_rpb": fa, "layer_norm": ln, "depthwise_conv2d": dw}
+
+    def reset():
+        for name, mod in counters.items():
+            getattr(mod, name).launches = 0
+
+    def grounds(what):
+        """The grounds since reset(), from the launches, each asserted at
+        MAIN_COUNTS and added to new_launches."""
+        got = {name: getattr(mod, name).launches for name, mod in counters.items()}
+        n = got["flash_xattn_rpb"] // MAIN_COUNTS["flash_xattn_rpb"]
+        want = {k: n * MAIN_COUNTS.get(k, 0) for k in counters}
+        if got != want or n == 0:
+            raise AssertionError(f"[eval] {what}: launches {got}, want {n} grounds' {want}")
+        for k, v in got.items():
+            if v:
+                new_launches[k] = new_launches.get(k, 0) + v
+        return n
+
+    model = build_efficientsam3_image_model(
+        backbone_type="efficientvit", model_name="b1", text_encoder_type="MobileCLIP-S0",
+        text_encoder_context_length=32, dtype=torch.bfloat16, device=dev, seed=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        bpe = os.path.join(tmp, "vocab.txt.gz")
+        with gzip.open(bpe, "wt") as f:
+            f.write(EVAL_BPE)
+        proc = Sam3Processor(model, resolution=1008, context_length=32, bpe_path=bpe)
+        tokenizer = proc.tokenizer  # read while the file is there
+    images, gt, pairs = make_shapes_fixture(num_images=EVAL_IMAGES, size=EVAL_SIZE, seed=3)
+    hw = (EVAL_SIZE, EVAL_SIZE)
+
+    def load(info):
+        return images[info["image_index"]]
+
+    # ---- a. the gold path: ground -> postprocess_image on the card -> metrics
+    raw, pair_ms = {}, []
+
+    def predict(img, phrase, pair_id):
+        reset()
+        t0 = time.perf_counter()
+        state = proc.set_image(img)
+        with torch.inference_mode():
+            tm, tmask = proc.encode_tokens(tokenizer([phrase], 32))
+            out = model.ground(state["image_feats"]["fpn"], state["image_feats"]["pos"], tm,
+                               tmask, proc._empty_prompt())
+        records = postprocess_image(out, pair_id, orig_hw=img.shape[:2])
+        pair_ms.append((time.perf_counter() - t0) * 1e3)
+        grounds(f"pair {pair_id}")
+        raw[pair_id] = out
+        return records
+
+    def metrics(records):
+        cg = evaluate_cgf1_files(records, [gt], iou_type="segm")
+        by_pair = {}
+        for a in gt["annotations"]:
+            by_pair.setdefault(a["image_id"], []).append(a)
+        ev = CocoMAPEvaluator("segm")
+        for pair_id, _, _ in pairs:
+            recs = [r for r in records if r["image_id"] == pair_id]
+            gts = [ann_to_mask(a, *hw) for a in by_pair.get(pair_id, [])]
+            if not recs and not gts:
+                continue
+            ev.add_image(1, [r["score"] for r in recs],
+                         np.stack([ann_to_mask(r, *hw) for r in recs]) if recs
+                         else np.zeros((0, *hw), bool),
+                         np.stack(gts) if gts else np.zeros((0, *hw), bool))
+        return cg, ev.summarize()
+
+    records = run_gold_inference(predict, gt, load)
+    cg, ap = metrics(records)
+    for k in ("cgF1", "IL_MCC", "positive_micro_F1"):
+        if not np.isfinite(cg[k]):
+            raise AssertionError(f"[eval] model's {k} is not finite: {cg}")
+    cg_o, ap_o = metrics(run_gold_inference(oracle_predict_fn(images, gt), gt, load))
+    if not (cg_o["cgF1"] >= EVAL_ORACLE_MIN and ap_o["AP"] >= EVAL_ORACLE_MIN):
+        raise AssertionError(f"[eval] the oracle scores cgF1 {cg_o['cgF1']}, AP {ap_o['AP']}")
+    log(f"[eval] gold path: {len(pairs)} (image, query) pairs of {EVAL_SIZE}^2 shapes, "
+        f"{len(records)} records (top 100 a pair); model (random weights: the values mean "
+        f"nothing): cgF1 {cg['cgF1']:.4f} IL_MCC {cg['IL_MCC']:.4f} mask AP {ap['AP']:.4f}; "
+        f"oracle: cgF1 {cg_o['cgF1']:.4f} IL_MCC {cg_o['IL_MCC']:.4f} mask AP {ap_o['AP']:.4f}")
+    log(f"[eval] gold ms a pair (set_image + text + ground + postprocess_image, host clock): "
+        f"first {pair_ms[0]:.1f}, median {statistics.median(pair_ms):.1f} over {len(pair_ms)} | "
+        f"{smi}")
+
+    # the card's postprocessing against the same function on a CPU copy
+    flipped = compared = 0
+    for pair_id, out in raw.items():
+        cpu = {k: out[k].cpu() for k in GROUND_KEYS}
+        want = postprocess_image(cpu, pair_id, orig_hw=hw)
+        got = [r for r in records if r["image_id"] == pair_id]
+        if len(got) != len(want):
+            raise AssertionError(f"[eval] pair {pair_id}: {len(got)} records on the card, "
+                                 f"{len(want)} on the CPU")
+        scores = torch.sigmoid(cpu["pred_logits"][0, :, 0].double()).numpy()
+        order = np.argsort(-scores)  # record i is query order[i] (presence scales all alike)
+        for i, (g, w) in enumerate(zip(got, want)):
+            if g["score"] != w["score"] or g["bbox"] != w["bbox"]:
+                raise AssertionError(f"[eval] pair {pair_id} record {i}: {g['score']} "
+                                     f"{g['bbox']} on the card, {w['score']} {w['bbox']} on the CPU")
+            diff = rle_to_mask(g["segmentation"]) != rle_to_mask(w["segmentation"])
+            compared += diff.size
+            if diff.any():
+                logit = resize_bilinear(cpu["pred_masks"][0, order[i]].float()[None, None], hw)
+                near = np.abs(logit[0, 0].numpy()[diff])
+                if not (near < EVAL_BAND).all():
+                    raise AssertionError(f"[eval] pair {pair_id} record {i}: a mask pixel "
+                                         f"differs with the CPU's logit at {near.max()}")
+                flipped += int(diff.sum())
+    if flipped > EVAL_FLIP_SHARE * compared:
+        raise AssertionError(f"[eval] {flipped} of {compared} mask pixels differ")
+    log(f"[eval] postprocess_image on the card vs a CPU copy of the same outputs: scores and "
+        f"boxes equal, {flipped} of {compared} mask pixels differ (each within {EVAL_BAND} of "
+        f"0 in the CPU's upsampled logit)")
+
+    # ---- b. box-prompt mIoU over the fixture's annotations
+    image_m, core = amg_models(torch.bfloat16, dev)
+    pred = amg_predictor(image_m, core)
+    data = CocoDataset(gt)
+    evaluate_box_prompt_miou(pred, data, load, max_images=1)  # warm-up
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    miou = evaluate_box_prompt_miou(pred, data, load)
+    miou_ms = (time.perf_counter() - t0) * 1e3 / max(miou["num_images"], 1)
+    got = {name: getattr(mod, name).launches for name, mod in counters.items()}
+    if any(got.values()) or not (0.0 <= miou["miou"] <= 1.0):
+        raise AssertionError(f"[eval] box-prompt mIoU {miou}, launches {got} (want none)")
+    log(f"[eval] box-prompt mIoU (InteractiveImagePredictor over the EV-M tracker, bf16): "
+        f"{miou['miou']:.4f} over {miou['num_instances']} instances in {miou['num_images']} "
+        f"images, {miou_ms:.1f} ms an image | {smi}")
+    del image_m, core, pred
+
+    # ---- c. the exact PCS session against its seeded squares
+    side = pcs_ref["outs"][0]["masks"].shape[-1]
+    idx = ((np.arange(side) + 0.5) * 1008 / side).astype(int)  # nearest source pixel
+    truth = [{"obj_ids": list(range(PCS_OBJECTS)), "masks": pcs_squares(t)[0][:, idx][:, :, idx]}
+             for t in range(N_FRAMES)]
+    emitted = [{"obj_ids": list(o["obj_ids"]), "masks": o["masks"]} for o in pcs_ref["outs"]]
+    vm = evaluate_video_predictions(emitted, truth)
+    self_m = evaluate_video_predictions(truth, truth)
+    if abs(self_m["HOTA"] - 1) > 1e-9 or abs(self_m["J&F"] - 1) > 1e-9:
+        raise AssertionError(f"[eval] the ground truth against itself: {self_m}")
+    tracks = postprocess_video(pcs_ref["outs"], video_id=0)
+    if (sorted(r["track_id"] for r in tracks) != list(range(PCS_OBJECTS))
+            or any(len(r["segmentations"]) != N_FRAMES for r in tracks)):
+        raise AssertionError(f"[eval] postprocess_video: {len(tracks)} tracks")
+    log(f"[eval] video PCS (phase 7's exact session, {N_FRAMES} frames at {side}^2) against its "
+        f"seeded squares: HOTA {vm['HOTA']:.4f} TETA {vm['TETA']:.4f} J&F {vm['J&F']:.4f}; the "
+        f"ground truth against itself HOTA {self_m['HOTA']} J&F {self_m['J&F']}; "
+        f"postprocess_video: {len(tracks)} tracks of {N_FRAMES} frames")
+
+    # ---- d. the agents over the port's Sam3Processor
+    scene = images[0]
+    reset()
+    state = proc.set_image(scene)
+    proc.confidence_threshold = 0.0
+    s = np.sort(proc.set_text_prompt("animal", state)["scores"])[::-1]
+    proc.confidence_threshold = float(s[2] + s[3]) / 2  # 'animal' keeps 3 masks
+    grounds("the threshold's calibration")
+    reset()
+    t0 = time.perf_counter()
+    llm = ScriptedAgentLLM()
+    messages, final, rendered = agent_inference(scene, "the red square", llm, processor=proc)
+    tool_ms = (time.perf_counter() - t0) * 1e3
+    n_tool = grounds("agent_inference")
+    if len(final["masks"]) != 1 or final["masks"][0].shape != hw or rendered.shape != scene.shape:
+        raise AssertionError(f"[eval] agent_inference ended with {len(final['masks'])} masks")
+    reset()
+    t0 = time.perf_counter()
+    result = SegmentationAgent(proc, refine_llm, max_iterations=5).run(scene, "a yellow dog")
+    refine_ms = (time.perf_counter() - t0) * 1e3
+    n_refine = grounds("SegmentationAgent")
+    if result is None or result.masks.shape[1:] != hw:
+        raise AssertionError(f"[eval] SegmentationAgent ended with {result}")
+    log(f"[eval] agent_inference (scripted MLLM, threshold {proc.confidence_threshold:.4f}: "
+        f"segment, examine {llm.checks} masks, select): {len(final['masks'])} mask, "
+        f"{n_tool} ground calls, {len(messages)} messages, {tool_ms:.1f} ms; SegmentationAgent: "
+        f"phrase '{result.phrase}' with {len(result.scores)} detections after "
+        f"{result.iterations} iterations, {n_refine} ground calls, {refine_ms:.1f} ms | {smi}")
+
+    # ---- e. eval.distributed at world size 1 (no process group)
+    x = np.arange(6.0).reshape(2, 3)
+    if (torch.distributed.is_initialized() or distributed.shard_for_process(pairs) != pairs
+            or distributed.all_gather_array(x) is not x):
+        raise AssertionError("[eval] eval.distributed at world size 1")
+    log(f"[eval] eval.distributed without a process group: rank 0 of 1, shard keeps all "
+        f"{len(pairs)} pairs, all_gather_array returns its input")
+    log(f"[eval] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    del model, proc, raw
+    torch.cuda.empty_cache()
     return []
 
 

@@ -2550,3 +2550,34 @@ def test_geometry_step_launches(cuda):
     with torch.no_grad():
         model(batch["images"], tok, prompt)
     assert fa.flash_xattn_rpb.launches == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("orig_hw", [(600, 800), (200, 150)], ids=["up", "down"])
+def test_postprocess_image_on_the_card_matches_cpu(cuda, orig_hw):
+    """eval.postprocess_image over ground-shaped bf16 outputs on the card
+    (masks upsampled and thresholded there) against the same function on a
+    CPU copy: equal scores and boxes, and masks equal except where the CPU's
+    upsampled logit lies within 1e-3 of 0."""
+    from efficientsam3_tpu_torch.eval.coco_format import rle_to_mask
+    from efficientsam3_tpu_torch.eval.postprocess import postprocess_image
+    from efficientsam3_tpu_torch.ops.interpolate import resize_bilinear
+
+    out = {"pred_logits": _randn(cuda, 1, 200, 1), "pred_boxes": torch.rand(
+        1, 200, 4, device=cuda).to(torch.bfloat16), "pred_masks": 4 * _randn(cuda, 1, 200, 288, 288),
+        "presence_logit_dec": _randn(cuda, 1)}
+    cpu = {k: v.cpu() for k, v in out.items()}
+    got = postprocess_image(out, 3, orig_hw=orig_hw)
+    want = postprocess_image(cpu, 3, orig_hw=orig_hw)
+    assert len(got) == len(want) == 100
+    scores = torch.sigmoid(cpu["pred_logits"][0, :, 0].double()).numpy()
+    order = np.argsort(-scores)
+    differ = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g["score"] == w["score"] and g["bbox"] == w["bbox"]
+        diff = rle_to_mask(g["segmentation"]) != rle_to_mask(w["segmentation"])
+        if diff.any():
+            logit = resize_bilinear(cpu["pred_masks"][0, order[i]].float()[None, None], orig_hw)
+            assert (np.abs(logit[0, 0].numpy()[diff]) < 1e-3).all()
+            differ += int(diff.sum())
+    assert differ <= 1e-4 * 100 * orig_hw[0] * orig_hw[1]

@@ -187,6 +187,54 @@ print("FOREIGN", bad)
 """
 
 
+_EVAL = r"""
+import importlib
+import sys
+import numpy as np
+import torch
+
+MODULES = ["config", "utils.visualization"] + [f"eval.{m}" for m in (
+    "jf_metric", "hota", "teta", "cgf1", "coco_map", "fixtures", "postprocess", "gold",
+    "eval_coco", "video_eval", "distributed")] + [f"agent.{m}" for m in (
+    "som", "zoom_in", "viz", "system_prompts", "core")] + ["agent"]
+mods = {m: importlib.import_module("efficientsam3_tpu_torch." + m) for m in MODULES}
+fx, gold = mods["eval.fixtures"], mods["eval.gold"]
+images, gt, _ = fx.make_shapes_fixture(num_images=3, size=64, seed=3)
+records = gold.run_gold_inference(fx.oracle_predict_fn(images, gt), gt,
+                                  lambda info: images[info["image_index"]])
+assert gold.evaluate_cgf1_files(records, [gt])["cgF1"] > 0.95
+outputs = {"pred_logits": torch.randn(1, 6, 1), "pred_boxes": torch.rand(1, 6, 4),
+           "pred_masks": torch.randn(1, 6, 8, 8), "presence_logit_dec": torch.zeros(1)}
+assert len(mods["eval.postprocess"].postprocess_image(outputs, 0, orig_hw=(20, 12))) == 6
+assert mods["eval.distributed"].shard_for_process([1, 2, 3]) == [1, 2, 3]
+img = np.zeros((32, 40, 3), np.uint8)
+mask = np.zeros((32, 40), bool)
+mask[4:12, 6:20] = True
+
+def segment(phrase):
+    return {"scores": np.asarray([0.8]), "masks": mask[None], "boxes": np.asarray([[6, 4, 20, 12]])}
+
+def llm(messages):
+    if "verification" in messages[0]["content"]:
+        return "<verdict>Accept</verdict>"
+    last = [c["text"] for m in messages if isinstance(m.get("content"), list)
+            for c in m["content"] if isinstance(c, dict) and c.get("type") == "text"][-1]
+    if "user query is" in last:
+        return '<tool>{"name": "segment_phrase", "parameters": {"text_prompt": "a box"}}</tool>'
+    if "segment_phrase produced" in last:
+        return '<tool>{"name": "examine_each_mask", "parameters": {}}</tool>'
+    return '<tool>{"name": "select_masks_and_return", "parameters": {"final_answer_masks": [1]}}</tool>'
+
+_, final, rendered = mods["agent"].agent_inference(img, "the box", llm, segment=segment)
+assert len(final["masks"]) == 1 and rendered.shape == img.shape
+cfg = mods["config"].load_config(mods["config"].TrainConfig, overrides=["model.embed_size=8"])
+assert cfg.model.embed_size == 8
+bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "flax", "optax", "efficientsam3_tpu", "PIL", "matplotlib"))
+print("FOREIGN", bad)
+"""
+
+
 _TEACHER = r"""
 import sys
 import numpy as np
@@ -323,6 +371,15 @@ def test_text_towers_and_training_run_without_jax():
     MobileCLIP2-S0 model, the association head's step, and the data copies
     (the EDT click): no jax, flax, optax, efficientsam3_tpu or PIL module."""
     _run_without_jax(_SLICE22)
+
+
+def test_eval_and_agent_run_without_jax():
+    """So do the evaluation stack and the agent: the 19 modules of the slice
+    imported, the oracle through the gold harness and cgF1, postprocess_image
+    over tensors, the shard at world size 1, a tool-loop session and a config
+    load: no jax, flax, optax, efficientsam3_tpu, PIL or matplotlib module
+    (the card's machine has no matplotlib)."""
+    _run_without_jax(_EVAL)
 
 
 def test_teacher_runs_without_jax():
