@@ -322,9 +322,26 @@ Phases, each printing its own lines:
      loop (agent_inference) and SegmentationAgent over the processor with
      scripted MLLMs; eval.distributed at world size 1. Launches asserted
      per ground (6 / 27 / 6).
-  The launches of phases 15, 16 and 18 are added to the rows of the kernels
-  they run (flash_sdpa, flash_sdpa_bwd_dq, flash_sdpa_bwd_dkv, layer_norm,
-  layer_norm_bwd, flash_xattn_rpb).
+  19. [parallel] the multi-GPU layer (efficientsam3_tpu_torch/parallel) on
+     a one-rank NCCL group over a file:// rendezvous: 2 Stage-3 steps of
+     [train]'s model and batch through Trainer with a dp mesh of 1 against
+     the same steps without a mesh (step 1's metrics and statistics bit for
+     bit; [train]'s launches a step); phase 2's ground on the model, its
+     fusion encoder's and decoder's biases seeded, under shard_params at
+     tp=1 (246 sharded leaves; 6 / 27 / 6 launches; against the unsharded
+     ground within PAR_TP_BOUNDS, from the card's spread); 4 frames
+     of [video]'s tracker (8 slots, 3 objects) on an objects mesh, the
+     plain path (VIDEO_COUNTS["B"] a tracked frame; masks equal to the
+     unmeshed plain path's); 4 frames through frame_parallel against single
+     grounds. Then a world of two on the one card over gloo (two processes
+     of this script, ``--parallel-rank``; NCCL takes one rank a device):
+     tp=2 (4 of 8 heads a rank) and objects=2 (4 of 8 slots a rank)
+     against the same references (mask IoU > 0.98). It prints the wall ms
+     of each path.
+  The launches of phases 15, 16, 18 and 19 are added to the rows of the
+  kernels they run (flash_sdpa, flash_sdpa_bwd_dq, flash_sdpa_bwd_dkv,
+  layer_norm, layer_norm_bwd, flash_xattn_rpb; the tracker's
+  flash_sdpa_d256, flash_sdpa_d256_cross and depthwise_conv2d).
 
 Each phase prints its seconds. The line before the last is the kernels
 JSON (forty-five rows), the last {"ok": true, "device": {...}}. Any
@@ -988,8 +1005,8 @@ def main():
 
     log(f"[time] phases 1-4 (build, main path, kernels, checks) {time.perf_counter() - t_run:.1f} s")
 
-    # ---------------------------------------------------------------- 5-18
-    new_launches = {}  # the launches of phases 15, 16 and 18, added to the kernels' rows
+    # ---------------------------------------------------------------- 5-19
+    new_launches = {}  # the launches of phases 15, 16, 18 and 19, added to the kernels' rows
     pcs_ref = {}  # phase 7's exact session, scored in phase 18
     for name, phase in (("video", lambda: video_phase(smi, rng)), ("train", lambda: train_phase(smi)),
                         ("pcs", lambda: pcs_phase(smi, pcs_ref)), ("probe", lambda: probe_phase(smi)),
@@ -1002,20 +1019,23 @@ def main():
                         ("geometry", lambda: geometry_phase(smi, new_launches)),
                         ("interactive", lambda: interactive_phase(smi, new_launches)),
                         ("assoc", lambda: assoc_phase(smi)),
-                        ("eval", lambda: eval_phase(smi, new_launches, pcs_ref))):
+                        ("eval", lambda: eval_phase(smi, new_launches, pcs_ref)),
+                        ("parallel", lambda: parallel_phase(smi, new_launches))):
         t_phase = time.perf_counter()
         rows += phase()
         torch.cuda.empty_cache()
         log(f"[time] phase [{name}] {time.perf_counter() - t_phase:.1f} s")
     # the bf16 d=32 rows (phase 3's forward and LayerNorm, phase 6's
     # backward rows) and flash_xattn_rpb take the launches of the geometry
-    # finetune, the interactive steps and the evaluation stack's grounds
+    # finetune, the interactive steps, the evaluation stack's grounds and
+    # the parallel paths; the tracker's rows those of the object-parallel
+    # tracking
     for r in rows:
         if r["name"] in new_launches:
             r["launches"] += new_launches.pop(r["name"])
     if new_launches:
         raise AssertionError(f"launches with no kernel row: {new_launches}")
-    log(f"[kernel] launches with phases 15, 16 and 18's added: "
+    log(f"[kernel] launches with phases 15, 16, 18 and 19's added: "
         f"{ {r['name']: r['launches'] for r in rows} }")
     log(f"[time] whole run {time.perf_counter() - t_run:.1f} s")
 
@@ -5377,6 +5397,444 @@ def eval_phase(smi, new_launches, pcs_ref):
     return []
 
 
+PAR_STEPS = 2  # Stage-3 steps with and without the dp mesh
+PAR_FRAMES = 4  # frames of the object-parallel tracking (3 tracked) and of the detection
+PAR_PROMPTS = ((1, dict(box=[100, 150, 400, 520])), (2, dict(points=[[700, 300]], labels=[1])),
+               (3, dict(points=[[500, 800], [560, 760]], labels=[1, 0])))
+# a batched ground against single ones in bf16: phase 4's bounds (about
+# 2^-4 of each output's range), and the share of mask pixels whose sign differs
+PAR_BOUNDS = {"pred_boxes": 5e-2, "pred_logits": 2.5e-1, "presence_logit_dec": 2.5e-1}
+PAR_MASK_FLIPS = 1e-2
+# a tensor-parallel ground (seeded biases) against the unsharded one: 2.3-3.7x
+# the largest error an H100 showed at tp=1 and tp=2 (boxes 4.3e-3, logits
+# 1.1e-2, presence 8.1e-4; the same bf16 products summed in another order),
+# and PAR_MASK_FLIPS (2x 4.9e-3); a row layer's bias added tp times moved
+# them by 3.1e-2 / 0.13 / 6.8e-2, never added by 9.1e-2 / 0.20 / 8.8e-2
+PAR_TP_BOUNDS = {"pred_boxes": 1e-2, "pred_logits": 3e-2, "presence_logit_dec": 3e-3}
+PAR_TP_BIAS_STD = 0.1  # the seeded biases of the sharded scopes (init_parameters zeroes them)
+PAR_IOU = 0.98  # object-parallel masks over two ranks against one: [pcs]'s bound
+PAR_RANK_TIMEOUT_S = 300
+# dp=1's first grad_norm against the unmeshed step's: the step's backward
+# accumulates by atomics (F.interpolate's bilinear backward in the trunk),
+# so the unmeshed step differs from itself by ~1e-4 of it on an H100
+PAR_GRAD_NORM_REL = 1e-3
+
+
+def par_counters():
+    """{name: module} of every kernel wrapper the parallel paths launch."""
+    from efficientsam3_tpu_torch.ops import depthwise as dw
+    from efficientsam3_tpu_torch.ops import flash_attention as fa
+    from efficientsam3_tpu_torch.ops import layer_norm as ln
+
+    return {"flash_sdpa": fa, "flash_sdpa_bwd_dq": fa, "flash_sdpa_bwd_dkv": fa,
+            "layer_norm": ln, "layer_norm_bwd": ln, "flash_xattn_rpb": fa,
+            "flash_memattn": fa, "depthwise_conv2d": dw}
+
+
+def par_counted(fn):
+    """(fn's result, its launches by kernel): the counters are set to 0 just
+    before and read just after."""
+    import torch
+
+    counters = par_counters()
+    for name, mod in counters.items():
+        getattr(mod, name).launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: getattr(mod, name).launches for name, mod in counters.items()}
+
+
+def par_main_inputs():
+    """Phase 2's image, token ids and box (the first draw of its seeded rng)."""
+    import numpy as np
+
+    image = np.random.default_rng(0).integers(0, 256, (600, 800, 3), dtype=np.uint8)
+    tokens = np.zeros((1, 32), np.int64)
+    tokens[0, :5] = [49406, 320, 1125, 3309, 49407]
+    return image, tokens, [0.45, 0.5, 0.3, 0.4]
+
+
+def par_image_model():
+    import torch
+
+    from efficientsam3_tpu_torch.build import build_efficientsam3_image_model
+
+    return build_efficientsam3_image_model(
+        backbone_type="efficientvit", model_name="b1", text_encoder_type="MobileCLIP-S0",
+        text_encoder_context_length=32, dtype=torch.bfloat16, device=torch.device("cuda"), seed=0)
+
+
+def par_tp_model():
+    """par_image_model with every bias of the tensor-parallel scopes drawn
+    from a seeded normal, so that a bias a sharded layer adds more or less
+    than once shows in the ground."""
+    import numpy as np
+    import torch
+
+    from efficientsam3_tpu_torch.parallel.tensor_parallel import TP_SCOPES
+
+    model = par_image_model()
+    rng = np.random.default_rng(5)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.split(".")[0] in TP_SCOPES and name.endswith(".bias"):
+                p.copy_(torch.from_numpy(PAR_TP_BIAS_STD * rng.standard_normal(tuple(p.shape))))
+    return model
+
+
+def par_ground(model):
+    """One ground through Sam3Processor on phase 2's inputs: (its raw
+    outputs, its launches)."""
+    from efficientsam3_tpu_torch.processor import Sam3Processor
+
+    image, tokens, box = par_main_inputs()
+    proc = Sam3Processor(model, resolution=1008, context_length=32)
+    outs = []
+    ground = model.ground
+
+    def kept(*a, **kw):
+        outs.append(ground(*a, **kw))
+        return outs[-1]
+
+    model.ground = kept
+    try:
+        def run():
+            state = proc.set_image(image)
+            state["text"] = proc.encode_tokens(tokens)
+            return proc.add_geometric_prompt(box, True, state)
+
+        _, launches = par_counted(run)
+    finally:
+        del model.ground
+    return {k: outs[-1][k].float().cpu() for k in GROUND_KEYS}, launches
+
+
+def par_track(mesh=None):
+    """PAR_FRAMES frames of EV-M's tracker (bf16, seed 0, 8 slots, the plain
+    path) with [video]'s three objects prompted on frame 0: (the masks of
+    each frame, the propagation's launches, its ms)."""
+    import numpy as np
+    import torch
+
+    from efficientsam3_tpu_torch.build import build_efficientsam3_video_model
+    from efficientsam3_tpu_torch.video.predictor import TrackerPredictor
+
+    image, core = build_efficientsam3_video_model(model_name="b1", dtype=torch.bfloat16,
+                                                  device=torch.device("cuda"), seed=0)
+    frames = np.random.default_rng(7).standard_normal(
+        (PAR_FRAMES, 1008, 1008, 3)).astype(np.float32)
+    pred = TrackerPredictor(core, image.encode_image, obj_slots=8, cache_memory_kv=False,
+                            mesh=mesh)
+    state = pred.init_state(frames)
+    for obj_id, kw in PAR_PROMPTS:
+        pred.add_new_points_or_box(state, 0, obj_id, **kw)
+    t0 = time.perf_counter()
+    outs, launches = par_counted(
+        lambda: [(t, m.float().cpu()) for t, _, m in pred.propagate_in_video(state)])
+    return outs, launches, (time.perf_counter() - t0) * 1e3
+
+
+def par_check_ground(what, got, want, bounds=PAR_BOUNDS):
+    """A ground against a reference within ``bounds``; the errors."""
+    errs = {k: (got[k] - want[k]).abs().max().item() for k in bounds}
+    flips = ((got["pred_masks"] > 0) != (want["pred_masks"] > 0)).float().mean().item()
+    for k, tol in bounds.items():
+        if not errs[k] <= tol:
+            raise AssertionError(f"[parallel] {what}: {k} off by {errs[k]} (bound {tol})")
+    if not flips <= PAR_MASK_FLIPS:
+        raise AssertionError(f"[parallel] {what}: {flips:.2e} of mask pixels flip sign")
+    return dict(errs, mask_flips=flips)
+
+
+def par_check_launches(what, got, want, n=1):
+    """got's counts of want's kernels are n times want's; returns them."""
+    got = {k: got[k] for k in want}
+    if got != {k: n * v for k, v in want.items()}:
+        raise AssertionError(f"[parallel] {what}: launches {got}, want {n} x {want}")
+    return got
+
+
+def par_add_launches(new_launches, got):
+    for k, v in got.items():
+        if v:
+            new_launches[k] = new_launches.get(k, 0) + v
+
+
+def par_add_tracker_launches(new_launches, got):
+    """A plain-path frame's flash_sdpa launches are half self-attention
+    (the flash_sdpa_d256 row) and half cross-attention over the bank (the
+    flash_sdpa_d256_cross row)."""
+    got = dict(got)
+    n = got.pop("flash_sdpa")
+    par_add_launches(new_launches, dict(got, flash_sdpa_d256=n // 2, flash_sdpa_d256_cross=n // 2))
+
+
+def par_mask_ious(got, want):
+    ious = []
+    for (t, g), (_, w) in zip(got, want):
+        for o in range(w.shape[0]):
+            a, b = g[o] > 0, w[o] > 0
+            union = (a | b).sum().item()
+            if union:
+                ious.append((a & b).sum().item() / union)
+    return ious
+
+
+def parallel_rank(rank, rdzv, work):
+    """A rank of [parallel]'s world of two on one card: gloo, whose CUDA
+    collectives take two processes on one device (NCCL refuses that). The
+    tensor-parallel ground at tp=2 and the object-parallel tracking at
+    objects=2; results to ``work``/rank<rank>.pt."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from efficientsam3_tpu_torch import parallel
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="file://" + rdzv, rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=PAR_RANK_TIMEOUT_S))
+    try:
+        model = par_tp_model()
+        spec = parallel.tp_param_spec(model)
+        parallel.shard_params(model, parallel.make_mesh({"tp": 2}), spec)
+        t0 = time.perf_counter()
+        out, launches = par_ground(model)
+        res = {"tp": dict(out=out, launches=launches, count=parallel.count_sharded(spec),
+                          ms=(time.perf_counter() - t0) * 1e3)}
+        del model
+        torch.cuda.empty_cache()
+        outs, launches, ms = par_track(parallel.make_mesh({"objects": 2}))
+        res["objects"] = dict(outs=outs, launches=launches, ms=ms)
+        torch.save(res, os.path.join(work, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def parallel_phase(smi, new_launches):
+    """Phase 19: the multi-GPU layer on the card. A one-rank NCCL group (a
+    file:// rendezvous in a temporary directory): PAR_STEPS Stage-3 steps
+    of EV-M 1008^2 (bf16, batch 4, as [train]) through Trainer with a dp
+    mesh of 1 against the same steps without one (step 1's loss, its parts
+    and the statistics bit for bit, grad_norm within PAR_GRAD_NORM_REL, each
+    parameter within one AdamW step; launches a step as [train]); the ground
+    of phase 2 on par_tp_model under shard_params at tp=1 (246 sharded
+    leaves; 6 / 27 / 6 launches; against the unsharded ground within
+    PAR_TP_BOUNDS); PAR_FRAMES frames of EV-M's tracker on an objects mesh
+    (VIDEO_COUNTS["B"] a tracked frame; masks equal to the unmeshed plain
+    path's); PAR_FRAMES frames through frame_parallel against single
+    grounds. Then a world of two on the one card over gloo (two processes
+    of this script): tp=2 and objects=2 against the same references.
+    Launches go to ``new_launches``; returns no row."""
+    import itertools
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from efficientsam3_tpu_torch import parallel
+    from efficientsam3_tpu_torch.models.geometry import Prompt
+    from efficientsam3_tpu_torch.train import stage3
+    from efficientsam3_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    dev = torch.device("cuda")
+    torch.cuda.set_device(0)
+    walls = {}
+    tmp = tempfile.TemporaryDirectory()
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(tmp.name, "rdzv"),
+                            rank=0, world_size=1)
+    try:
+        # ---- data-parallel Stage 3 at dp=1 against the unmeshed steps
+        batch = stage3_batch(TRAIN_BATCH, 32, dev)
+
+        def train(mesh):
+            torch.manual_seed(0)  # the dropout bits, the same in every run
+            model = par_image_model()
+            opt = stage3.make_stage3_optimizer(stage3.Stage3Config(), model)
+            per = []
+
+            def step(m, o, b):
+                metrics, got = par_counted(lambda: stage3.stage3_train_step(m, o, b))
+                per.append(({k: float(v) for k, v in metrics.items()}, got,
+                            {k: v.detach().clone() for k, v in m.state_dict().items()}))
+                return metrics
+
+            t0 = time.perf_counter()
+            Trainer(step, TrainerConfig(max_steps=PAR_STEPS, log_every=1, mesh=mesh,
+                                        handle_preemption_signals=False)).run(
+                model, opt, itertools.repeat(batch))
+            ms = (time.perf_counter() - t0) * 1e3
+            del model, opt
+            torch.cuda.empty_cache()
+            return per, ms
+
+        ref, _ = train(None)
+        dp, walls["dp_steps"] = train(parallel.make_mesh({"dp": 1}))
+        ref2, _ = train(None)  # the card's own spread: the step's backward is not repeatable
+        if len(dp) != PAR_STEPS:
+            raise AssertionError(f"[parallel] dp=1: {len(dp)} steps, want {PAR_STEPS}")
+        m_ref, m_dp, m_ref2 = ref[0][0], dp[0][0], ref2[0][0]
+        fwd = [k for k in m_ref if k != "grad_norm" and m_dp[k] != m_ref[k]]
+        if fwd:
+            raise AssertionError(f"[parallel] dp=1 step 1: {fwd} differ from the unmeshed step's")
+        gn = abs(m_dp["grad_norm"] - m_ref["grad_norm"]) / m_ref["grad_norm"]
+        gn_self = abs(m_ref2["grad_norm"] - m_ref["grad_norm"]) / m_ref["grad_norm"]
+        if not gn <= PAR_GRAD_NORM_REL:
+            raise AssertionError(f"[parallel] dp=1 step 1 grad_norm {m_dp['grad_norm']} against "
+                                 f"{m_ref['grad_norm']} (the unmeshed run against itself: "
+                                 f"{gn_self:.2e} relative)")
+        # after step 1: the BatchNorm statistics (step 1's forward) bit for bit;
+        # each parameter within what one AdamW update at the first count's
+        # rate can move it (lr, in either direction) and its bf16 rounding:
+        # this bounds the step's size, not its direction (grad_norm holds that)
+        c = stage3.Stage3Config()
+        lr = stage3.inverse_sqrt_schedule(c.vision_lr, c.warmup_steps, c.timescale)(0)
+        s_ref, s_dp, s_ref2 = ref[0][2], dp[0][2], ref2[0][2]
+        moved = 0
+        for k, v in s_ref.items():
+            if k.endswith(("running_mean", "running_var")):
+                if not torch.equal(v, s_dp[k]):
+                    raise AssertionError(f"[parallel] dp=1 step 1: statistic {k} differs")
+                continue
+            d = (s_dp[k].float() - v.float()).abs()
+            if not bool((d <= 2 * lr + v.float().abs() * 2.0 ** -7).all()):
+                raise AssertionError(f"[parallel] dp=1 step 1: {k} moved {d.max().item()} from "
+                                     f"the unmeshed step's")
+            moved += int(bool((d > 0).any()))
+        self_moved = sum(int(not torch.equal(v, s_ref2[k])) for k, v in s_ref.items())
+        for i, (m, got, _) in enumerate(dp):
+            if not all(math.isfinite(v) for v in m.values()):
+                raise AssertionError(f"[parallel] dp=1 step {i + 1}: {m}")
+            par_add_launches(new_launches, par_check_launches(f"dp step {i + 1}", got,
+                                                              TRAIN_COUNTS))
+        log(f"[parallel] dp=1 Trainer, {PAR_STEPS} Stage-3 steps (EV-M 1008^2, bf16, batch "
+            f"{TRAIN_BATCH}): step 1's loss and its {len(m_ref) - 2} parts bit for bit as "
+            f"without the mesh (one rank: no gradient mean to take); grad_norm {m_dp['grad_norm']} against {m_ref['grad_norm']} ({gn:.2e} "
+            f"relative; the unmeshed step against itself {gn_self:.2e}: atomics in the "
+            f"backward); after step 1 the statistics bit for bit, {moved} parameter tensors "
+            f"off by at most 2 lr ({2 * lr:.1e}) + bf16 rounding (unmeshed against itself: "
+            f"{self_moved} tensors differ); step 2 losses {dp[1][0]['loss']} / "
+            f"{ref[1][0]['loss']} / {ref2[1][0]['loss']} (dp / unmeshed / again: the matcher "
+            f"amplifies the backward's noise); launches a step "
+            f"{ {k: dp[0][1][k] for k in TRAIN_COUNTS} }; {walls['dp_steps']:.1f} ms for the "
+            f"dp run")
+        del ref, dp, ref2, batch
+        torch.cuda.empty_cache()
+
+        # ---- tensor-parallel ground at tp=1 against the unsharded one
+        model = par_tp_model()
+        want, _ = par_ground(model)
+        spec = parallel.tp_param_spec(model)
+        if parallel.count_sharded(spec) != 246:
+            raise AssertionError(f"[parallel] {parallel.count_sharded(spec)} sharded leaves, want 246")
+        parallel.shard_params(model, parallel.make_mesh({"tp": 1}), spec)
+        t0 = time.perf_counter()
+        got, launches = par_ground(model)
+        walls["tp_ground"] = (time.perf_counter() - t0) * 1e3
+        par_add_launches(new_launches, par_check_launches("tp=1 ground", launches, MAIN_COUNTS))
+        errs = par_check_ground("tp=1 ground", got, want, PAR_TP_BOUNDS)
+        log(f"[parallel] tp=1 ground (shard_params, 246 sharded leaves, seeded biases): launches "
+            f"{launches}, against the unsharded ground {errs}; {walls['tp_ground']:.1f} ms")
+
+        # ---- frame-parallel detection against single grounds
+        frames = torch.from_numpy(np.random.default_rng(17).standard_normal(
+            (PAR_FRAMES, 1008, 1008, 3)).astype(np.float32)).to(dev)
+        _, tokens, _ = par_main_inputs()
+        tokens = torch.from_numpy(tokens).to(dev)
+        detector = par_image_model()
+
+        def detect_batch(f, tok):
+            n = f.shape[0]
+            with torch.inference_mode():
+                return detector(f, tok.expand(n, -1), Prompt.empty(n, 8, 8, device=dev))
+
+        fp = parallel.frame_parallel(detect_batch, parallel.make_mesh({"frames": 1}))
+        t0 = time.perf_counter()
+        gathered, launches = par_counted(lambda: fp(frames, tokens))
+        walls["frames"] = (time.perf_counter() - t0) * 1e3
+        par_add_launches(new_launches, par_check_launches(
+            f"frame_parallel over {PAR_FRAMES} frames", launches, MAIN_COUNTS))
+        ferrs = []
+        for i in range(PAR_FRAMES):
+            one = detect_batch(frames[i:i + 1], tokens)
+            ferrs.append(par_check_ground(
+                f"frame {i}", {k: gathered[k][i:i + 1].float().cpu() for k in GROUND_KEYS},
+                {k: one[k].float().cpu() for k in GROUND_KEYS}))
+        log(f"[parallel] frame_parallel over {PAR_FRAMES} frames (one batched call at frames=1): "
+            f"launches {launches}; against {PAR_FRAMES} single grounds, worst "
+            f"{ {k: max(e[k] for e in ferrs) for k in ferrs[0]} }; {walls['frames']:.1f} ms")
+        del model, detector, frames, gathered
+        torch.cuda.empty_cache()
+
+        # ---- object-parallel tracking at objects=1 against the unmeshed plain path
+        plain, _, _ = par_track()
+        torch.cuda.empty_cache()
+        outs, launches, walls["objects"] = par_track(parallel.make_mesh({"objects": 1}))
+        tracked = PAR_FRAMES - 1
+        par_add_tracker_launches(new_launches, par_check_launches(
+            "objects=1 tracking", launches, VIDEO_COUNTS["B"], tracked))
+        for (t, m), (_, w) in zip(outs, plain):
+            if not torch.equal(m, w):
+                raise AssertionError(f"[parallel] objects=1 frame {t}: masks differ from the "
+                                     f"unmeshed plain path's by {(m - w).abs().max().item()}")
+        log(f"[parallel] objects=1 tracking, {PAR_FRAMES} frames ({tracked} tracked, 8 slots, 3 "
+            f"objects): launches {launches}, masks equal to the unmeshed plain path's; "
+            f"{walls['objects']:.1f} ms")
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # ---- a world of two on the one card (gloo)
+    try:
+        rdzv = os.path.join(tmp.name, "rdzv2")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-rank",
+                                   str(r), rdzv, tmp.name], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=PAR_RANK_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        walls["world2"] = (time.perf_counter() - t0) * 1e3
+        write_out("parallel_ranks.txt", "\n".join(logs))
+        if [p.returncode for p in procs] != [0, 0]:
+            raise AssertionError(f"[parallel] world of two: exit codes "
+                                 f"{[p.returncode for p in procs]}\n{logs[0][-3000:]}")
+        ranks = [torch.load(os.path.join(tmp.name, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    finally:
+        tmp.cleanup()
+    for r, res in enumerate(ranks):
+        tp = res["tp"]
+        if tp["count"] != 246:
+            raise AssertionError(f"[parallel] rank {r}: {tp['count']} sharded leaves")
+        tp_launches = par_check_launches(f"rank {r} tp=2 ground", tp["launches"], MAIN_COUNTS)
+        errs = par_check_ground(f"rank {r} tp=2 ground", tp["out"], want, PAR_TP_BOUNDS)
+        ob = res["objects"]
+        ob_launches = par_check_launches(f"rank {r} objects=2 tracking", ob["launches"],
+                                         VIDEO_COUNTS["B"], PAR_FRAMES - 1)
+        ious = par_mask_ious(ob["outs"], plain)
+        if not ious or min(ious) <= PAR_IOU:
+            raise AssertionError(f"[parallel] rank {r} objects=2: mask IoUs {ious}")
+        par_add_launches(new_launches, tp_launches)
+        par_add_tracker_launches(new_launches, ob_launches)
+        log(f"[parallel] world of two on one card (gloo), rank {r}: tp=2 ground (4 of 8 heads "
+            f"a rank) launches {tp['launches']}, against the unsharded ground {errs}, "
+            f"{tp['ms']:.1f} ms; objects=2 tracking (4 of 8 slots a rank) launches "
+            f"{ob['launches']}, mask IoU against one rank's min {min(ious):.4f}, "
+            f"{ob['ms']:.1f} ms")
+    log(f"[parallel] {smi}; wall ms: {walls}")
+    return []
+
+
 def split_parts_check(q, k, v, key_bias, do):
     """The split pass of the fp32 wgmma backward as its wrappers launch it
     (d=256: K and V, the rows of live key tiles, and Q and dO, every row;
@@ -5476,4 +5934,6 @@ def bwd_rows_fp32(q, k, v, key_bias, o, lse, do, scale, launches, suffix, device
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:  # a rank of [parallel]'s world of two
+        sys.exit(parallel_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

@@ -33,6 +33,7 @@ import math
 from typing import Optional, Sequence, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -138,8 +139,7 @@ class BatchNorm(nn.Module):
         dt = _cdtype(x, self.dtype)
         xf = x.float()
         if self.training:
-            mean, var = _fast_stats(xf, tuple(range(x.ndim - 1)))
-            mean, var = mean.reshape(-1), var.reshape(-1)
+            mean, var = _batch_stats(xf)
             with torch.no_grad():
                 self.running_mean.mul_(0.9).add_(0.1 * mean)
                 self.running_var.mul_(0.9).add_(0.1 * var)
@@ -148,6 +148,26 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean) * mul + self.bias
         return y.to(dt)
+
+
+def _batch_stats(xf):
+    """BatchNorm's training statistics (mean, fast variance) per channel.
+    Under a data-parallel group of more than one rank they are the global
+    batch's, as under the JAX package's mesh: the sums of x and x^2 and the
+    count are all-reduced by a differentiable collective, so the gradient
+    flows through the other ranks' statistics as it does in JAX."""
+    from efficientsam3_tpu_torch.parallel.sharding import all_reduce_sum, data_parallel_group
+
+    dims = tuple(range(xf.ndim - 1))
+    group = data_parallel_group()
+    if group is None or dist.get_world_size(group) == 1:  # one rank: the local batch
+        mean, var = _fast_stats(xf, dims)
+        return mean.reshape(-1), var.reshape(-1)
+    count = torch.tensor([xf.numel() // xf.shape[-1]], dtype=xf.dtype, device=xf.device)
+    sums = all_reduce_sum(torch.cat([xf.sum(dims), (xf * xf).sum(dims), count]), group)
+    c = xf.shape[-1]
+    mean, mean2 = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
+    return mean, (mean2 - mean * mean).clamp_min(0.0)
 
 
 def _fast_stats(xf, dims):

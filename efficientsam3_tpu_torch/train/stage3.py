@@ -25,7 +25,9 @@ import dataclasses
 import math
 
 import torch
+import torch.distributed as dist
 
+from efficientsam3_tpu_torch.parallel.sharding import data_parallel_group
 from efficientsam3_tpu_torch.train.losses import sam3_detection_loss
 
 
@@ -162,6 +164,19 @@ def make_stage3_optimizer(cfg: Stage3Config, model: torch.nn.Module) -> Stage3Op
     return Stage3Optimizer(cfg, model)
 
 
+def _world_num_boxes(valid):
+    """The loss's box count under a data-parallel group: the world's total
+    over the world size (the reference's sam3_loss.py:65), so that the
+    ranks' mean gradient is the global batch's; None (the local count)
+    outside one."""
+    group = data_parallel_group()
+    if group is None:
+        return None
+    n = valid.sum().float()
+    dist.all_reduce(n, group=group)
+    return n.clamp_min(1.0) / dist.get_world_size(group)
+
+
 def stage3_train_step(model, optimizer: Stage3Optimizer, batch: dict, loss_weights=None) -> dict:
     """One Stage-3 step in training mode; updates the model's parameters and
     BatchNorm statistics in place.
@@ -169,13 +184,15 @@ def stage3_train_step(model, optimizer: Stage3Optimizer, batch: dict, loss_weigh
     batch: images (B, H, W, 3) normalised, tokens (B, L) int, prompt
     (``models.geometry.Prompt``), targets {boxes (B, T, 4) cxcywh, valid
     (B, T) bool, masks (B, T, h, w)}. loss_weights: overrides of
-    ``losses.DEFAULT_WEIGHTS``. Returns the metrics as 0-d tensors: loss,
+    ``losses.DEFAULT_WEIGHTS``. Under ``Trainer(mesh=...)`` the batch is
+    this rank's slice and the box count the world's. Returns the metrics as 0-d tensors: loss,
     grad_norm (every parameter's gradient, before clipping) and
     loss_<part> for every loss part.
     """
     model.train()
     outs = model(batch["images"], batch["tokens"], batch["prompt"])
-    total, parts = sam3_detection_loss(outs, batch["targets"], weights=loss_weights)
+    total, parts = sam3_detection_loss(outs, batch["targets"], weights=loss_weights,
+                                       num_boxes=_world_num_boxes(batch["targets"]["valid"]))
     optimizer.zero_grad()
     total.backward()
     grad_norm = global_norm(p.grad for p in optimizer.params)

@@ -9,6 +9,14 @@ then renamed, so a step directory never holds half a checkpoint).
 ``param_prefixes`` keeps only the parameters under those top-level modules
 (partial checkpoints, the reference's skip_saving_parameters). Orbax
 checkpoints of the JAX package are not read.
+
+Reference checkpoints (facebook/sam3 ``sam3.pt``, EfficientSAM3 ``.pt``):
+``load_torch_state_dict`` reads one and ``clean_reference_state_dict``
+cleans its keys, as in the JAX package; ``load_reference_checkpoint``
+carries it through ``utils/convert_model`` (the reference layout to the
+flax tree) and ``utils/convert.convert_variables`` (the flax tree to the
+port's state_dict) into a port model with ``strict=True``: a key left
+over or missing raises.
 """
 
 from __future__ import annotations
@@ -78,3 +86,57 @@ def assert_frozen_unchanged(before: dict, after: dict, frozen_prefixes) -> None:
             other = after.get(name)
             if other is None or not torch.equal(t, other):
                 raise AssertionError(f"frozen param changed: {name}")
+
+
+# --------------------------------------------------------------------------
+# reference (torch) checkpoints
+# --------------------------------------------------------------------------
+
+
+def clean_reference_state_dict(sd: dict) -> dict:
+    """Key cleanup per reference model_builder.py:596-622."""
+    out = {}
+    for k, v in sd.items():
+        nk = k
+        if nk.startswith("detector."):
+            nk = nk[len("detector."):]
+        nk = nk.replace("student_trunk.", "")
+        out[nk] = v
+    return out
+
+
+def load_torch_state_dict(path: str) -> dict:
+    """A reference checkpoint's cleaned state_dict, numpy leaves."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(ckpt, dict) and "model" in ckpt and isinstance(ckpt["model"], dict):
+        ckpt = ckpt["model"]
+    if isinstance(ckpt, dict) and "state_dict" in ckpt:
+        ckpt = ckpt["state_dict"]
+    return clean_reference_state_dict(
+        {k: v.numpy() if hasattr(v, "numpy") else v for k, v in ckpt.items()})
+
+
+def load_reference_checkpoint(model: torch.nn.Module, checkpoint, part: str = "image",
+                              **convert_kw) -> torch.nn.Module:
+    """Load a reference checkpoint (a path, or a state_dict in the
+    reference's key space) into a port model, strictly. ``part``: 'image'
+    (a ``Sam3ImageModel``; ``convert_kw`` are ``convert_image_model``'s
+    backbone_type, model_name, text_encoder_type, add_sam2_neck) or
+    'tracker' (a ``TrackerCore``; ``convert_tracker_core``'s prefix ``p``)."""
+    from efficientsam3_tpu_torch.utils import convert_model
+    from efficientsam3_tpu_torch.utils.convert import load_jax_variables
+
+    if isinstance(checkpoint, (str, os.PathLike)):
+        sd = load_torch_state_dict(checkpoint)
+    else:
+        sd = clean_reference_state_dict(checkpoint)
+    if part == "image":
+        params, stats = convert_model.convert_image_model(sd, **convert_kw)
+    elif part == "tracker":
+        params, stats = convert_model.convert_tracker_core(sd, **convert_kw)
+    else:
+        raise ValueError(f"part must be 'image' or 'tracker', not {part!r}")
+    variables = {"params": params}
+    if stats:
+        variables["batch_stats"] = stats
+    return load_jax_variables(model, variables)

@@ -43,8 +43,9 @@ are) and the training slice's models walk by the same rules too.
 
 ``load_jax_variables`` loads the result with ``strict=True`` after
 checking that no key is left over or missing on either side and that
-every shape agrees, and fails loudly otherwise. Loading a released
-reference torch checkpoint is a later item (ROADMAP).
+every shape agrees, and fails loudly otherwise. A released reference
+torch checkpoint reaches the same walk through ``utils/convert_model.py``
+(``utils/checkpoint.load_reference_checkpoint``).
 """
 
 from __future__ import annotations

@@ -107,7 +107,12 @@ class VideoPCSPredictor:
         tracker_predictor: video.predictor.TrackerPredictor.
         detector_batch + frame_chunk > 1 enable chunked detection:
         detections for the next `frame_chunk` frames are computed in ONE
-        batched call of fixed width.
+        batched call of fixed width. Frame-parallel detection (the
+        reference's P2, sam3_image.py:701 forward_video_grounding_multigpu)
+        wraps the batched model call in parallel.frame_parallel over a
+        'frames' mesh axis: each rank grounds its share of the chunk and the
+        outputs are all-gathered, so every rank turns the whole chunk into
+        per-frame dicts (tests/test_torch_parallel.py runs it on two ranks).
         detector_batch: callable(frames (F,H,W,3), text_state) -> list of F
         per-frame detection dicts.
         """

@@ -19,6 +19,15 @@ back to the plain path, which projects the gathered memory per frame.
 (``flash_memattn_q8`` on CUDA); ``fill_hole_area > 0`` fills small holes and
 drops small sprinkles of the yielded masks on the host.
 
+Object-parallel tracking (``mesh`` with an ``mesh_axis`` of n ranks, n
+dividing ``obj_slots``): the four per-slot programs (track, prompted-frame
+track, memory encoding, mask adoption) run through
+``parallel.object_parallel``, each rank on its obj_slots / n slots, their
+outputs all-gathered; the frame features are computed on every rank and
+every rank keeps the host-side plan on the gathered outputs. The cached
+bank is single-device, so under a mesh ``cache_memory_kv`` is off and the
+tracker takes the plain path, as in the JAX package.
+
 Per-frame outputs stay on the core's device; ``propagate_in_video`` yields
 (frame_idx, obj_ids, low-res mask logits (n_obj, 1, 288, 288)).
 """
@@ -31,6 +40,7 @@ import torch
 from efficientsam3_tpu_torch.models.common import sine_pos_embed_2d
 from efficientsam3_tpu_torch.ops.cc import fill_holes_in_mask_scores_host
 from efficientsam3_tpu_torch.ops.interpolate import resize_bilinear
+from efficientsam3_tpu_torch.parallel.sharding import object_parallel
 from efficientsam3_tpu_torch.video.tracker import TrackerCore, flatten_kv_bank
 
 _SLOT_KEYS = ("low_res_masks", "obj_ptr", "object_score_logits", "maskmem", "slot_valid")
@@ -67,10 +77,7 @@ class TrackerPredictor:
                  max_point_prompts: int = 8, trim_past_non_cond_mem: bool = True,
                  use_memory_selection: bool = False, mf_threshold: float = 0.01,
                  fill_hole_area: int = 0, cache_memory_kv: bool = True,
-                 quantize_bank: bool = False, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "object-parallel tracking over a mesh is not ported yet: ROADMAP Queue 1 item 19")
+                 quantize_bank: bool = False, mesh=None, mesh_axis: str = "objects"):
         self.core = core
         self.encode_frame = encode_frame
         self.obj_slots = obj_slots
@@ -80,7 +87,8 @@ class TrackerPredictor:
         self.trim_past_non_cond_mem = trim_past_non_cond_mem
         self.use_memory_selection = use_memory_selection
         self.mf_threshold = mf_threshold
-        self.cache_kv = cache_memory_kv
+        # the cached bank is single-device: under a mesh, the plain path
+        self.cache_kv = cache_memory_kv and mesh is None
         self.quantize_bank = quantize_bank
         self.fill_hole_area = fill_hole_area
         self.device = next(core.parameters()).device
@@ -88,6 +96,40 @@ class TrackerPredictor:
         self._kv_zero = None  # zero (k, v) entry for empty bank columns
         fs, d = core.feat_size, core.d_model
         self._pos = sine_pos_embed_2d(fs, fs, d, device=self.device).reshape(fs * fs, d)
+        if mesh is not None:
+            n = mesh.size(mesh.mesh_dim_names.index(mesh_axis))
+            if obj_slots % n != 0:
+                raise ValueError(f"obj_slots={obj_slots} not divisible by mesh axis "
+                                 f"{mesh_axis}={n}")
+            self._track = object_parallel(self._track, mesh, mesh_axis, n_array_args=11)
+            self._cond_track = object_parallel(self._cond_track, mesh, mesh_axis, 5)
+            self._encode_mem = object_parallel(self._encode_mem, mesh, mesh_axis, 3)
+            self._cond_mask = object_parallel(self._cond_mask, mesh, mesh_axis, 4)
+
+    # the per-slot programs: every argument before the last ones carries
+    # object slots on its leading axis (object_parallel splits them)
+
+    def _pix(self, tokens):
+        fs = self.core.feat_size
+        return self.core.no_mem_features(tokens).reshape(tokens.shape[0], fs, fs, -1)
+
+    def _track(self, tokens, mem, tpos, valid, ptrs, tdiff, pvalid, coords, labels, s0, s1,
+               max_tdiff):
+        core, fs = self.core, self.core.feat_size
+        cond = core.condition_features(tokens, self._pos, mem, tpos, valid, ptrs, tdiff, pvalid,
+                                       max_tdiff)
+        return core.forward_sam_heads(cond.reshape(tokens.shape[0], fs, fs, core.d_model),
+                                      coords, labels, (s0, s1), True)
+
+    def _cond_track(self, tokens, coords, labels, s0, s1, multimask):
+        return self.core.forward_sam_heads(self._pix(tokens), coords, labels, (s0, s1),
+                                           multimask)
+
+    def _encode_mem(self, tokens, high_res_masks, score, from_pts):
+        return self.core.encode_memory(tokens, high_res_masks, score, from_pts)
+
+    def _cond_mask(self, tokens, masks, s0, s1):
+        return self.core.use_mask_as_output(self._pix(tokens), (s0, s1), masks)
 
     # ------------------------------------------------------------------
 
@@ -174,16 +216,15 @@ class TrackerPredictor:
         core = self.core
         slot = self._slot(state, obj_id)
         tokens, s0, s1 = self._features(state, frame_idx)
-        r, fs = core.image_size, core.feat_size
+        r = core.image_size
         m = self._tensor(np.asarray(mask, np.float32))[None, None]
         if tuple(m.shape[-2:]) != (r, r):
             m = (resize_bilinear(m, (r, r)) > 0.5).float()
         masks = torch.zeros((self.obj_slots, r, r, 1), device=self.device)
         masks[slot, :, :, 0] = m[0, 0]
-        pix = core.no_mem_features(self._tile(tokens)).reshape(self.obj_slots, fs, fs, -1)
-        heads = core.use_mask_as_output(pix, (self._tile(s0), self._tile(s1)), masks)
-        mem = core.encode_memory(self._tile(tokens), heads["high_res_masks"],
-                                 heads["object_score_logits"], True)
+        heads = self._cond_mask(self._tile(tokens), masks, self._tile(s0), self._tile(s1))
+        mem = self._encode_mem(self._tile(tokens), heads["high_res_masks"],
+                               heads["object_score_logits"], True)
         sv = np.zeros((self.obj_slots,), bool)
         sv[slot] = True
         new_out = {"low_res_masks": heads["low_res_masks"], "obj_ptr": heads["obj_ptr"],
@@ -224,7 +265,6 @@ class TrackerPredictor:
             "maskmem": torch.zeros((s_n, fs, fs, core.mem_dim), device=dev),
             "slot_valid": np.zeros((s_n,), bool),
         }
-        pix = core.no_mem_features(self._tile(tokens)).reshape(s_n, fs, fs, core.d_model)
         for w in sorted({int(n_per_slot[s]) + 1 for s in prompted}):
             group = [int(s) for s in prompted if int(n_per_slot[s]) + 1 == w]
             coords_w = np.zeros((s_n, w, 2), np.float32)
@@ -232,10 +272,11 @@ class TrackerPredictor:
             coords_w[:, :w - 1] = coords_all[:, :w - 1]
             labs_w[:, :w - 1] = labs_all[:, :w - 1]
             # multimask iff at most one click (a box counts as two points)
-            heads = core.forward_sam_heads(pix, self._tensor(coords_w), self._tensor(labs_w),
-                                           (self._tile(s0), self._tile(s1)), (w - 1) <= 1)
-            mem = core.encode_memory(self._tile(tokens), heads["high_res_masks"],
-                                     heads["object_score_logits"], True)
+            heads = self._cond_track(self._tile(tokens), self._tensor(coords_w),
+                                     self._tensor(labs_w), self._tile(s0), self._tile(s1),
+                                     (w - 1) <= 1)
+            mem = self._encode_mem(self._tile(tokens), heads["high_res_masks"],
+                                   heads["object_score_logits"], True)
             g = self._tensor(group)
             out["low_res_masks"][g] = heads["low_res_masks"][g]
             out["obj_ptr"][g] = heads["obj_ptr"][g]
@@ -466,6 +507,8 @@ class TrackerPredictor:
         max_td = float(min(state["num_frames"], core.max_obj_ptrs))
         n_act = len(state["obj_ids"])
         bank = self._assemble_kv_bank(state, src, n_act, tpos, valid) if self.cache_kv else None
+        coords = torch.zeros((s_n, 1, 2), device=self.device)
+        labels = -torch.ones((s_n, 1), dtype=torch.long, device=self.device)
         if bank is not None:
             if self._kv_delta is None:
                 self._kv_delta = core.tpos_k_delta()
@@ -473,16 +516,16 @@ class TrackerPredictor:
                 self._tile(tokens), self._pos, bank[0], bank[1], self._tensor(bank[2]),
                 self._tensor(bank[3]), ptrs, self._tensor(tdiff), self._tensor(pvalid),
                 self._kv_delta, max_td, shared_ages=True, quantize_bank=self.quantize_bank)
+            heads = core.forward_sam_heads(
+                cond.reshape(s_n, fs, fs, core.d_model), coords, labels,
+                (self._tile(s0), self._tile(s1)), True)
         else:
-            cond = core.condition_features(
-                self._tile(tokens), self._pos, self._stack_memory(mem_refs), self._tensor(tpos),
-                self._tensor(valid), ptrs, self._tensor(tdiff), self._tensor(pvalid), max_td)
-        heads = core.forward_sam_heads(
-            cond.reshape(s_n, fs, fs, core.d_model), torch.zeros((s_n, 1, 2), device=self.device),
-            -torch.ones((s_n, 1), dtype=torch.long, device=self.device),
-            (self._tile(s0), self._tile(s1)), True)
-        mem_new = core.encode_memory(self._tile(tokens), heads["high_res_masks"],
-                                     heads["object_score_logits"], False)
+            heads = self._track(
+                self._tile(tokens), self._stack_memory(mem_refs), self._tensor(tpos),
+                self._tensor(valid), ptrs, self._tensor(tdiff), self._tensor(pvalid), coords,
+                labels, self._tile(s0), self._tile(s1), max_td)
+        mem_new = self._encode_mem(self._tile(tokens), heads["high_res_masks"],
+                                   heads["object_score_logits"], False)
         score = heads["object_score_logits"][:n_act, 0].float().cpu().numpy()
         ious = heads["ious"][:n_act].float().cpu().numpy()
         # per-frame memory quality: mean over active objects of the

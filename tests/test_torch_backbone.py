@@ -10,6 +10,8 @@ shapes ``jax.eval_shape(module.init)`` reports, carried across by
 import numpy as np
 import torch
 
+import _torch_threads  # noqa: F401
+
 import jax
 import jax.numpy as jnp
 

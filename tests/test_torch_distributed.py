@@ -13,6 +13,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from _torch_threads import THREADS
 
 import efficientsam3_tpu.eval.distributed as jdist
 import efficientsam3_tpu_torch.eval.distributed as pdist
@@ -105,7 +106,7 @@ def test_two_gloo_ranks(tmp_path):
     from efficientsam3_tpu_torch.eval.fixtures import make_shapes_fixture, oracle_predict_fn
     from efficientsam3_tpu_torch.eval.gold import run_gold_inference
 
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS=str(THREADS))
     env.pop("JAX_PLATFORMS", None)
     procs = [subprocess.Popen([sys.executable, "-c", _RANK, str(r), str(tmp_path / "rdzv"),
                                str(tmp_path)], cwd=ROOT, env=env, stdout=subprocess.PIPE,

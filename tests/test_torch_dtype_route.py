@@ -9,6 +9,8 @@ mixed dtypes raise TypeError naming both, other widths ValueError.
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
+
 from efficientsam3_tpu_torch.ops import depthwise as dw
 from efficientsam3_tpu_torch.ops import flash_attention as fa
 

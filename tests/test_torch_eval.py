@@ -20,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
+
 import jax.numpy as jnp
 
 from efficientsam3_tpu.ops.interpolate import resize_bilinear as jax_resize_bilinear

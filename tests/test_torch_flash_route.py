@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
+
 from efficientsam3_tpu.models import common as jcommon
 from efficientsam3_tpu_torch.models import common
 

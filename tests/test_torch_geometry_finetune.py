@@ -22,6 +22,8 @@ import optax
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
+
 import jax
 import jax.numpy as jnp
 

@@ -30,6 +30,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
+
 from efficientsam3_tpu_torch.ops import _build
 from efficientsam3_tpu_torch.ops import depthwise as dw
 from efficientsam3_tpu_torch.ops import flash_attention as fa

@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
+
 import jax.numpy as jnp
 
 from efficientsam3_tpu.models.common import sdpa as jax_sdpa

@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
+
 import jax.numpy as jnp
 
 from efficientsam3_tpu.models import common as jcommon

@@ -12,6 +12,8 @@ import shutil
 import numpy as np
 import pytest
 import torch
+
+import _torch_threads  # noqa: F401
 from scipy import ndimage
 
 import jax.numpy as jnp

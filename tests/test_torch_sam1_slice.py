@@ -30,6 +30,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
+
 import jax
 import jax.numpy as jnp
 

@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
+
 from efficientsam3_tpu_torch.ops import flash_attention as fa
 
 RNG = np.random.default_rng(29)

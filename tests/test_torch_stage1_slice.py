@@ -29,6 +29,8 @@ import optax
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
+
 import flax
 import jax
 import jax.numpy as jnp

@@ -8,6 +8,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
+
 import jax.numpy as jnp
 from flax import linen as fnn
 

@@ -25,6 +25,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
+
 import flax.linen as nn
 import jax
 import jax.numpy as jnp

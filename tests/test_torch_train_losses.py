@@ -9,6 +9,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
+
 import jax
 import jax.numpy as jnp
 from scipy.optimize import linear_sum_assignment

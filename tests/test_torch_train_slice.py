@@ -8,18 +8,18 @@ text tower, the parameters after the optimizer update, the new BatchNorm
 statistics, and the frozen heads left as they were. Dropout is off on both
 sides (the two frameworks draw different bits): the port builds its model
 with dropout 0, and in this test only flax's ``nn.Dropout`` is replaced by
-the identity. Then the port's Trainer: 2 steps with partial checkpoints,
-a resumed third step equal to an uninterrupted 3-step run.
+the identity. (The port's Trainer with partial checkpoints and a resume
+is tests/test_torch_trainer_resume.py.)
 
 The JAX variables are drawn with numpy over ``jax.eval_shape`` shapes and
 carried across by ``utils/convert.py``.
 """
 
-import json
-
 import numpy as np
 import pytest
 import torch
+
+import _torch_threads  # noqa: F401
 
 import flax.linen as nn
 import jax
@@ -39,8 +39,7 @@ from efficientsam3_tpu_torch.train.stage3 import (
     make_stage3_optimizer,
     stage3_train_step,
 )
-from efficientsam3_tpu_torch.train.trainer import Trainer, TrainerConfig
-from efficientsam3_tpu_torch.utils.checkpoint import assert_frozen_unchanged, latest_step
+from efficientsam3_tpu_torch.utils.checkpoint import assert_frozen_unchanged
 from efficientsam3_tpu_torch.utils.convert import convert_variables, load_jax_variables
 
 CTX = 16
@@ -240,44 +239,6 @@ def test_step_updates_match_jax(jax_step, port_step):
         lr = CFG["vision_lr"] if top == "trunk" else CFG["text_lr"]
         tol = 2 * np.spacing(np.abs(new[k]).astype(np.float32)) + 1e-3 * lr
         assert (np.abs(p.detach().numpy() - new[k]) <= tol).all(), k
-
-
-def test_trainer_checkpoints_and_resumes(jax_step, tmp_path):
-    """Two Trainer steps with partial checkpoints of the trunk and text
-    tower, then a fresh model resumes from step 2 and takes step 3: its
-    parameters, statistics and metrics log equal those of an
-    uninterrupted 3-step run."""
-    variables, nb = jax_step[0], jax_step[1]
-    batches = [torch_batch(make_batch(seed)) for seed in (1, 2, 3)]
-
-    def trainer(steps, ckpt, log_dir=None):
-        return Trainer(stage3_train_step, TrainerConfig(
-            max_steps=steps, log_every=1, checkpoint_every=1, checkpoint_dir=str(ckpt),
-            save_param_prefixes=("trunk", "text_encoder"), log_dir=log_dir,
-            handle_preemption_signals=False))
-
-    straight = build_port(variables)
-    opt = make_stage3_optimizer(Stage3Config(**CFG), straight)
-    assert trainer(3, tmp_path / "a").run(straight, opt, iter(batches)) == 3
-
-    first = build_port(variables)
-    opt = make_stage3_optimizer(Stage3Config(**CFG), first)
-    logs = tmp_path / "logs"
-    assert trainer(2, tmp_path / "b", str(logs)).run(first, opt, iter(batches)) == 2
-    assert latest_step(tmp_path / "b") == 2
-    saved = torch.load(tmp_path / "b" / "step_2" / "state.pt", weights_only=True)
-    assert {k.split(".")[0] for k in saved["params"]} == {"trunk", "text_encoder"}
-    lines = (logs / "metrics.jsonl").read_text().splitlines()
-    assert [json.loads(x)["step"] for x in lines] == [1, 2]
-    assert any(p.name.startswith("events.out.tfevents") for p in logs.iterdir())
-
-    resumed = build_port(variables)
-    opt = make_stage3_optimizer(Stage3Config(**CFG), resumed)
-    assert trainer(3, tmp_path / "b").run(resumed, opt, iter(batches[2:])) == 3
-    assert opt.count == 3
-    want = straight.state_dict()
-    for k, v in resumed.state_dict().items():
-        assert torch.equal(v, want[k]), k
 
 
 @pytest.mark.parametrize("step", [None, 0, 7, 2**40])
