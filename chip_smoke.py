@@ -338,7 +338,25 @@ Phases, each printing its own lines:
      tp=2 (4 of 8 heads a rank) and objects=2 (4 of 8 slots a rank)
      against the same references (mask IoU > 0.98). It prints the wall ms
      of each path.
-  The launches of phases 15, 16, 18 and 19 are added to the rows of the
+  20. [cli] the port's entry points (efficientsam3_tpu_torch/scripts and
+     examples), each main(argv) called in this process on the card with
+     its default device, on a shapes fixture written as COCO json + PNGs
+     (4 images of 256^2), a 6-frame video folder with its ground truth and
+     the synthetic byte-level BPE file: the overfit-to-quality run
+     shortened to 100 + 30 steps at its own tiny config (its loss must
+     fall to CLI_LOSS_FALL of its first step's), eval_quality --trained
+     (the oracle's cgF1 >= CLI_ORACLE_MIN), standalone_cgf1 on the records
+     eval_quality wrote (the same cgF1), verify_checkpoint on the overfit
+     checkpoint (exit 0) and on copies with a NaN and a wrong shape (exit
+     1), train_stage3 (EV-M 1008^2 bf16, 3 steps at batch 4, then one
+     resumed), the ViT-H teacher's export of the 4 images and its
+     --check-saved-embed (a bf16 ulp), train_image_encoder_stage1 (2 steps
+     on that store), eval_coco, eval_video (the seeded detector grounds
+     every frame; its outputs are replaced by the frames' red squares so
+     the tracker follows objects), data_engine (stub), and the seven
+     examples at their defaults. The counters are set to 0 before each and
+     read after; one JSON line each (wall s, launches, key outputs).
+  The launches of phases 15, 16, 18, 19 and 20 are added to the rows of the
   kernels they run (flash_sdpa, flash_sdpa_bwd_dq, flash_sdpa_bwd_dkv,
   layer_norm, layer_norm_bwd, flash_xattn_rpb; the tracker's
   flash_sdpa_d256, flash_sdpa_d256_cross and depthwise_conv2d).
@@ -1020,7 +1038,8 @@ def main():
                         ("interactive", lambda: interactive_phase(smi, new_launches)),
                         ("assoc", lambda: assoc_phase(smi)),
                         ("eval", lambda: eval_phase(smi, new_launches, pcs_ref)),
-                        ("parallel", lambda: parallel_phase(smi, new_launches))):
+                        ("parallel", lambda: parallel_phase(smi, new_launches)),
+                        ("cli", lambda: cli_phase(smi, new_launches))):
         t_phase = time.perf_counter()
         rows += phase()
         torch.cuda.empty_cache()
@@ -1035,7 +1054,7 @@ def main():
             r["launches"] += new_launches.pop(r["name"])
     if new_launches:
         raise AssertionError(f"launches with no kernel row: {new_launches}")
-    log(f"[kernel] launches with phases 15, 16, 18 and 19's added: "
+    log(f"[kernel] launches with phases 15, 16, 18, 19 and 20's added: "
         f"{ {r['name']: r['launches'] for r in rows} }")
     log(f"[time] whole run {time.perf_counter() - t_run:.1f} s")
 
@@ -5832,6 +5851,287 @@ def parallel_phase(smi, new_launches):
             f"{ob['launches']}, mask IoU against one rank's min {min(ious):.4f}, "
             f"{ob['ms']:.1f} ms")
     log(f"[parallel] {smi}; wall ms: {walls}")
+    return []
+
+
+CLI_SIZE = 256  # the fixtures' image side (the CLIs resize to their models' 1008)
+CLI_FRAMES = 6
+CLI_MASK_SIDE = 288  # the video pipeline's masks at 1008^2
+CLI_OVERFIT = ("--steps", "100", "--heads-steps", "30", "--scan", "50")
+# the shortened overfit run's loss must fall to this share of its first
+# step's (0.018-0.021 measured over 100 steps on an H100 80GB HBM3)
+CLI_LOSS_FALL = 0.25
+CLI_ORACLE_MIN = 0.9999
+CLI_EMBED_ULP = 2.0 ** -7 + 2.0 ** -11  # a bf16 ulp and the record's fp16 rounding
+
+
+def cli_counters():
+    """{name: module} of every kernel wrapper an entry point may launch."""
+    from efficientsam3_tpu_torch.ops import depthwise as dw
+    from efficientsam3_tpu_torch.ops import flash_attention as fa
+    from efficientsam3_tpu_torch.ops import layer_norm as ln
+
+    return dict(par_counters(), depthwise_conv2d_bwd=dw, flash_memattn_q8=fa, split_parts=fa)
+
+
+def cli_red_squares(frame):
+    """The red squares of a normalised frame as a detector's outputs."""
+    import numpy as np
+    from scipy import ndimage
+
+    rgb = (np.asarray(frame) * 0.5 + 0.5) * 255
+    lab, n = ndimage.label((rgb[..., 0] > 180) & (rgb[..., 1] < 80) & (rgb[..., 2] < 80))
+    masks = np.stack([lab == k for k in range(1, n + 1)]) if n else np.zeros((0, *lab.shape), bool)
+    boxes = np.asarray([[xs.min(), ys.min(), xs.max() + 1, ys.max() + 1]
+                        for ys, xs in (np.nonzero(m) for m in masks)], np.float32).reshape(-1, 4)
+    return {"masks": masks, "scores": np.full(n, 0.9, np.float32), "boxes": boxes}
+
+
+def cli_phase(smi, new_launches):
+    """Phase 20: [cli] the port's entry points, each ``main(argv)`` called
+    in this process on the card (``--device`` left at its default, cuda),
+    on files written under a temp dir: the shapes fixture as a COCO json
+    with PNGs, a 6-frame video folder with its ground truth, and the
+    synthetic byte-level BPE file (``EFFICIENTSAM3_BPE_PATH``). Models at
+    the scripts' defaults: EV-M at 1008^2 with MobileCLIP-S0 at 32, seeded.
+    The counters are set to 0 just before each entry point and read just
+    after; each prints one JSON line (wall s, launches, key outputs) and
+    its own output goes to chiprun_out/cli_<name>.log. train_stage3's
+    launches (TRAIN_COUNTS a step) and the bf16 examples' grounds
+    (MAIN_COUNTS each: 3 image_predictor, 4 batch_processor, 7
+    video_pcs: a frame's and the text prompt's) are added to the kernels'
+    rows."""
+    import contextlib
+    import gzip
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from efficientsam3_tpu_torch import build
+    from efficientsam3_tpu_torch.eval.fixtures import make_shapes_fixture
+    from efficientsam3_tpu_torch.examples import (
+        agent_example, batch_processor_example, edge_sam_example, image_predictor_example,
+        sam1_task_example, video_pcs_example, video_tracking_example)
+    from efficientsam3_tpu_torch.scripts import (
+        _common, data_engine, eval_coco, eval_quality, eval_video, save_embedding_image_stage1,
+        standalone_cgf1, train_image_encoder_stage1, train_overfit_quality, train_stage3,
+        verify_checkpoint)
+    from efficientsam3_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    t_phase = time.perf_counter()
+    counters = cli_counters()
+    lines = []
+
+    def run(name, fn, want=None, some=(), **show):
+        """fn's result; the launches of its run checked: exactly ``want``
+        where given (0 for a kernel it does not name), else at least one
+        launch of each kernel in ``some``."""
+        for k, mod in counters.items():
+            getattr(mod, k).launches = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            result = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        write_out(f"cli_{name}.log", out.getvalue())
+        got = {k: getattr(mod, k).launches for k, mod in counters.items()}
+        if want is not None and got != {k: want.get(k, 0) for k in counters}:
+            raise AssertionError(f"[cli] {name}: launches {got}, want {want}")
+        if any(got[k] == 0 for k in some):
+            raise AssertionError(f"[cli] {name}: launches {got}, want some of each of {some}")
+        line = {"cli": name, "wall_s": round(wall, 3),
+                "launches": {k: v for k, v in got.items() if v}}
+        line.update(show_fn(result) if (show_fn := show.get("show")) else {})
+        log(json.dumps(line))
+        lines.append(line)
+        return result
+
+    memo = {}
+
+    def cached(builder):
+        """The builder's model, built once for each set of arguments (the
+        examples and the evaluation scripts build the same models)."""
+        def build_once(**kw):
+            key = (builder.__name__, tuple(sorted((k, str(v)) for k, v in kw.items())))
+            if key not in memo:
+                memo[key] = builder(**kw)
+            return memo[key]
+        return build_once
+
+    patched = [(m, "build_efficientsam3_image_model", cached(build.build_efficientsam3_image_model))
+               for m in (image_predictor_example, batch_processor_example, agent_example)]
+    patched += [(m, "build_efficientsam3_video_model", cached(build.build_efficientsam3_video_model))
+                for m in (sam1_task_example, video_tracking_example, video_pcs_example,
+                          eval_video, eval_coco)]
+    real_detector = eval_video.make_detector
+
+    def squares_detector(proc, text_state):
+        detect = real_detector(proc, text_state)
+
+        def detector(frame, ts):
+            detect(frame, ts)  # the seeded detector grounds every frame ...
+            return cli_red_squares(frame)  # ... and the tracker follows the red squares
+        return detector
+
+    patched.append((eval_video, "make_detector", squares_detector))
+    saved = [(m, n, getattr(m, n)) for m, n, _ in patched]
+    tmp = tempfile.mkdtemp(prefix="cli_")
+    old_bpe = os.environ.get("EFFICIENTSAM3_BPE_PATH")
+    try:
+        for m, n, v in patched:
+            setattr(m, n, v)
+        os.environ["EFFICIENTSAM3_BPE_PATH"] = _common.write_byte_level_bpe(
+            os.path.join(tmp, "bpe.txt.gz"))
+        coco = _common.write_shapes_coco(os.path.join(tmp, "coco"), num_images=4,
+                                         size=CLI_SIZE)
+        images_dir = os.path.dirname(coco)
+        videos = _common.write_video_fixture(os.path.join(tmp, "video"), frames=CLI_FRAMES,
+                                             size=CLI_SIZE, mask_side=CLI_MASK_SIDE)
+        frames_dir = os.path.join(tmp, "video", "frames")
+
+        # ---- the overfit-to-quality proof, shortened, and its evaluation
+        out = os.path.join(tmp, "overfit")
+        summary = run("train_overfit_quality", lambda: train_overfit_quality.main(
+            ["--out", out, *CLI_OVERFIT]),
+            show=lambda r: {k: r[k] for k in ("loss_first", "loss_last", "heads_loss_first",
+                                              "heads_loss_last", "detector_s")})
+        if not (summary["loss_last"] <= CLI_LOSS_FALL * summary["loss_first"]
+                and summary["heads_loss_last"] < summary["heads_loss_first"]):
+            raise AssertionError(f"[cli] the overfit run's losses did not fall: {summary}")
+        qpath = os.path.join(tmp, "quality.json")
+        quality = run("eval_quality", lambda: eval_quality.main(["--trained", out, "--out", qpath]),
+                      some=("flash_xattn_rpb", "layer_norm"),
+                      show=lambda r: {"oracle_cgF1": r["harness_oracle"]["perfect"]["cgF1"],
+                                      **{k: r["model"][k] for k in (
+                                          "cgF1", "IL_MCC", "mask_AP", "box_prompt_miou")}})
+        model_q = quality["model"]
+        if not (quality["harness_oracle"]["perfect"]["cgF1"] >= CLI_ORACLE_MIN
+                and all(0.0 <= model_q[k] <= 1.0 for k in ("cgF1", "mask_AP", "box_prompt_miou"))):
+            raise AssertionError(f"[cli] eval_quality: {quality}")
+        gt_path = os.path.join(tmp, "fixture_gt.json")
+        with open(gt_path, "w") as f:
+            json.dump(make_shapes_fixture(**train_overfit_quality.FIXTURE)[1], f)
+        cg = run("standalone_cgf1", lambda: standalone_cgf1.main(
+            ["--pred_file", os.path.join(tmp, "quality_records.json"), "--gt_files", gt_path]),
+            want={}, show=lambda r: {"cgF1": r["cgF1"]})
+        if abs(cg["cgF1"] - model_q["cgF1"]) > 1e-9:
+            raise AssertionError(f"[cli] standalone_cgf1 {cg['cgF1']} vs eval_quality "
+                                 f"{model_q['cgF1']} on the same records")
+
+        # ---- checkpoints: the overfit detector, a NaN copy, a wrong-shape copy
+        det = os.path.join(out, "detector")
+        vargs = ["--model-name", "b0", "--context-length", "16"]
+        codes = {"good": run("verify_checkpoint", lambda: verify_checkpoint.main(
+            ["--ckpt-dir", det, *vargs]), want={}, show=lambda r: {"exit": r})}
+        state, step = load_checkpoint(det)
+        name = next(k for k in state["params"] if k.startswith("trunk"))
+        for case in ("nan", "shape"):
+            bad = dict(state, params=dict(state["params"]))
+            p = bad["params"][name].clone()
+            if case == "nan":
+                p.view(-1)[0] = float("nan")
+            else:
+                p = torch.zeros(p.shape[0] + 1, *p.shape[1:])
+            bad["params"][name] = p
+            path = os.path.join(tmp, f"ckpt_{case}")
+            save_checkpoint(path, step, bad)
+            codes[case] = run(f"verify_checkpoint_{case}", lambda: verify_checkpoint.main(
+                ["--ckpt-dir", path, *vargs]), want={}, show=lambda r: {"exit": r})
+        if codes != {"good": 0, "nan": 1, "shape": 1}:
+            raise AssertionError(f"[cli] verify_checkpoint exit codes {codes}")
+
+        # ---- Stage 3: 3 steps at batch 4, then one more resumed
+        sources = os.path.join(tmp, "sources.json")
+        with open(sources, "w") as f:
+            json.dump([{"name": "shapes", "ann": coco, "image_root": images_dir}], f)
+        s3 = ["--sources", sources, "--batch-size", "4", "--checkpoint-dir",
+              os.path.join(tmp, "stage3")]
+        steps = run("train_stage3", lambda: train_stage3.main(s3 + ["--max-steps", "3"]),
+                    want={k: 3 * v for k, v in TRAIN_COUNTS.items()}, show=lambda r: {"steps": r})
+        resumed = run("train_stage3_resume", lambda: train_stage3.main(s3 + ["--max-steps", "4"]),
+                      want=TRAIN_COUNTS, show=lambda r: {"steps": r})
+        if (steps, resumed) != (3, 4):
+            raise AssertionError(f"[cli] train_stage3 reached {steps}, then {resumed}")
+        for k, v in TRAIN_COUNTS.items():
+            if v:
+                new_launches[k] = new_launches.get(k, 0) + 4 * v
+
+        # ---- Stage 1: the ViT-H teacher's export and check, then 2 student steps
+        store = os.path.join(tmp, "embeds.bin")
+        e1 = ["--images-dir", images_dir, "--store", store]
+        run("save_embedding_image_stage1", lambda: save_embedding_image_stage1.main(e1),
+            want={"flash_sdpa": 4}, show=lambda r: {"records": r})
+        err, mag = run("save_embedding_check", lambda: save_embedding_image_stage1.main(
+            e1 + ["--check-saved-embed"]), want={"flash_sdpa": 16},
+            show=lambda r: {"max_err": r[0], "max_abs": r[1]})
+        if not (0.0 < mag and err <= CLI_EMBED_ULP * mag):
+            raise AssertionError(f"[cli] saved embeddings off by {err} (largest {mag})")
+        s1 = run("train_image_encoder_stage1", lambda: train_image_encoder_stage1.main(
+            e1 + ["--batch-size", "2", "--epochs", "1", "--checkpoint-dir",
+                  os.path.join(tmp, "stage1")]), want={}, show=lambda r: {"steps": r})
+        if s1 != 2:
+            raise AssertionError(f"[cli] train_image_encoder_stage1 reached step {s1}")
+
+        # ---- evaluation on the fixtures
+        miou = run("eval_coco", lambda: eval_coco.main(["--ann", coco, "--images-dir",
+                                                        images_dir]), want={},
+                   show=lambda r: {"miou": r["miou"], "instances": r["num_instances"]})
+        vm = run("eval_video", lambda: eval_video.main(
+            ["--dataset", videos, "--out", os.path.join(tmp, "veval.json")]),
+            some=("flash_sdpa", "flash_xattn_rpb", "layer_norm", "flash_memattn",
+                  "depthwise_conv2d"),
+            show=lambda r: {"J&F": r["per_video_JF"]["0"]["J&F"], "HOTA": r["HOTA"],
+                            "TETA": r["TETA"]})
+        for k, v in (("miou", miou["miou"]), ("J&F", vm["per_video_JF"]["0"]["J&F"]),
+                     ("HOTA", vm["HOTA"]), ("TETA", vm["TETA"])):
+            if not 0.0 <= v <= 1.0:
+                raise AssertionError(f"[cli] {k} {v} out of [0, 1]")
+        engine = run("data_engine", lambda: data_engine.main(
+            ["--ann", coco, "--image-root", images_dir, "--output-root",
+             os.path.join(tmp, "pseudo")]), want={}, show=lambda r: r)
+        if not (0 < engine["num_images"] <= 4 and engine["num_records"] > 0):
+            raise AssertionError(f"[cli] data_engine: {engine}")
+
+        # ---- the examples, at their defaults (bf16 EV-M grounds: MAIN_COUNTS each,
+        # added to the kernels' rows)
+        def grounds(n):
+            for k, v in MAIN_COUNTS.items():
+                new_launches[k] = new_launches.get(k, 0) + n * v
+            return {k: n * v for k, v in MAIN_COUNTS.items()}
+
+        run("image_predictor_example", lambda: image_predictor_example.main([]),
+            want=grounds(3), show=lambda r: {"masks": list(r["masks"].shape)})
+        run("batch_processor_example", lambda: batch_processor_example.main([]),
+            want=grounds(4), show=lambda r: {"images": len(r["masks"])})
+        run("agent_example", lambda: agent_example.main([]),
+            some=("flash_sdpa", "flash_xattn_rpb", "layer_norm"),
+            show=lambda r: {"final_masks": len(r[1]["masks"])})
+        run("edge_sam_example", lambda: edge_sam_example.main([]), want={},
+            show=lambda r: {"masks": list(r[0].shape)})
+        run("sam1_task_example", lambda: sam1_task_example.main([]), want={},
+            show=lambda r: {"amg_masks": len(r[2])})
+        run("video_tracking_example", lambda: video_tracking_example.main([]),
+            some=("flash_sdpa", "flash_memattn", "layer_norm", "depthwise_conv2d"),
+            show=lambda r: {"frames": len(r)})
+        run("video_pcs_example", lambda: video_pcs_example.main([frames_dir, "a red square"]),
+            want=grounds(CLI_FRAMES + 1), show=lambda r: {"frames": len(r)})
+    finally:
+        for m, n, v in saved:
+            setattr(m, n, v)
+        if old_bpe is None:
+            os.environ.pop("EFFICIENTSAM3_BPE_PATH", None)
+        else:
+            os.environ["EFFICIENTSAM3_BPE_PATH"] = old_bpe
+        shutil.rmtree(tmp, ignore_errors=True)
+        memo.clear()
+    write_out("cli_lines.jsonl", "".join(json.dumps(x) + "\n" for x in lines))
+    log(f"[cli] {len(lines)} entry-point runs | {smi}")
+    log(f"[cli] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
     return []
 
 

@@ -766,6 +766,12 @@ def sine_encode_xy(x, y, num_pos_feats: int = 256):
     return px, py
 
 
+def sine_encode_points(x, y, labels, num_pos_feats: int = 256):
+    """(..., 2*npf + 1) point encoding (position_encoding.py:81)."""
+    px, py = sine_encode_xy(x, y, num_pos_feats)
+    return torch.cat([py, px, labels[..., None].to(px.dtype)], dim=-1)
+
+
 def sine_encode_boxes(x, y, w, h, num_pos_feats: int = 256):
     """(..., 2*npf + 2) box encoding."""
     px, py = sine_encode_xy(x, y, num_pos_feats)

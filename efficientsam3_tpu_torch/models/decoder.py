@@ -45,6 +45,11 @@ def box_cxcywh_to_xyxy(b):
     return torch.stack([cx - 0.5 * w, cy - 0.5 * h, cx + 0.5 * w, cy + 0.5 * h], dim=-1)
 
 
+def box_xyxy_to_cxcywh(b):
+    x0, y0, x1, y1 = b.unbind(-1)
+    return torch.stack([(x0 + x1) / 2, (y0 + y1) / 2, x1 - x0, y1 - y0], dim=-1)
+
+
 def gen_sineembed_for_position(pos, num_feats: int = 256):
     """(..., 2|4) normalized coords -> sine features, order y, x(, w, h)."""
     half = num_feats // 2

@@ -213,3 +213,4 @@ def efficientvit_b2(**kw):
 
 
 EFFICIENTVIT_VARIANTS = {"b0": efficientvit_b0, "b1": efficientvit_b1, "b2": efficientvit_b2}
+EFFICIENTVIT_OUT_CHANNELS = {"b0": 128, "b1": 256, "b2": 384}

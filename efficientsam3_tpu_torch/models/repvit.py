@@ -190,6 +190,9 @@ REPVIT_VARIANTS = {
     "m1.1": repvit_m1_1, "m1_1": repvit_m1_1,
     "m2.3": repvit_m2_3, "m2_3": repvit_m2_3,
 }
+REPVIT_OUT_CHANNELS = {
+    "m0.9": 384, "m0_9": 384, "m1.1": 512, "m1_1": 512, "m2.3": 640, "m2_3": 640,
+}
 
 
 def _fold_bn(sd, prefix, eps=1e-5):
@@ -238,3 +241,10 @@ def fuse_repvit_state_dict(state_dict, cfgs) -> dict:
         put_conv_bn(f"{p}.cm_expand", f"{p}.cm_expand")
         put_conv_bn(f"{p}.cm_project", f"{p}.cm_project")
     return out
+
+
+def fuse_repvit_params(params: dict, stats: dict, cfgs) -> dict:
+    """Train-form RepViT parameters and BatchNorm statistics (the port's
+    names, as ``named_parameters`` and ``named_buffers`` give them) -> the
+    deploy-form state_dict (``fuse_repvit_state_dict`` of the two)."""
+    return fuse_repvit_state_dict({**params, **stats}, cfgs)

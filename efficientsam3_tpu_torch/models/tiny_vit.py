@@ -219,3 +219,4 @@ def tiny_vit_21m(**kw):
 
 
 TINYVIT_VARIANTS = {"5m": tiny_vit_5m, "11m": tiny_vit_11m, "21m": tiny_vit_21m}
+TINYVIT_OUT_CHANNELS = {"5m": 320, "11m": 448, "21m": 576}

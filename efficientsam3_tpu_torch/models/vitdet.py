@@ -62,6 +62,19 @@ from efficientsam3_tpu_torch.models.common import (
 ROPE_PT_SIZE = 24  # the RoPE pretraining grid, fixed in JAX's ViTAttention
 
 
+def axial_rope_cos_sin(head_dim: int, end_x: int, end_y: int, theta: float = 10000.0,
+                       scale_pos: float = 1.0, device=None):
+    """(cos, sin) tables of an end_x x end_y grid, each (end_x * end_y,
+    head_dim // 2), positions scaled by ``scale_pos`` (reference
+    sam3/sam3/sam/rope.py:24 with interpolation scaling)."""
+    return compute_axial_rope_cos_sin(head_dim, end_x, end_y, theta, device, scale_pos)
+
+
+def apply_rope_pairs(x, cos, sin):
+    """Rotate adjacent pairs of x's last axis (torch view_as_complex layout)."""
+    return apply_rope(x, cos, sin)
+
+
 @functools.lru_cache(maxsize=None)
 def _rope_tables(head_dim: int, grid: int, scale_pos: float, device: torch.device):
     """The tables of a (grid x grid) attention, built once per head dim,

@@ -36,6 +36,11 @@ from efficientsam3_tpu_torch.ops import _build
 INF = np.float32(1e18)
 
 
+def solve_assignment(cost: np.ndarray) -> np.ndarray:
+    """cost (T, Q) float, T <= Q -> (T,) int32 column per row."""
+    return solve_assignment_batched(np.asarray(cost)[None])[0]
+
+
 def solve_assignment_batched(cost: np.ndarray) -> np.ndarray:
     """cost (P, T, Q) float, T <= Q -> (P, T) int32 column per row."""
     cost = np.asarray(cost, np.float32)

@@ -85,6 +85,30 @@ class Sam3Processor:
         state["batch_size"] = len(images)
         return state
 
+    @torch.inference_mode()
+    def set_preprocessed_image(self, image, state: Optional[dict] = None) -> dict:
+        """set_image for a frame already at the model's resolution and
+        normalised ((H, W, 3) float, as the video pipeline hands frames to
+        its detector): encoded as it is, without a resize; results come at
+        the frame's own size."""
+        state = state if state is not None else {}
+        state["original_height"], state["original_width"] = image.shape[:2]
+        if isinstance(image, torch.Tensor):
+            img = image.to(self.device, torch.float32)
+        else:
+            img = torch.as_tensor(np.asarray(image, np.float32), device=self.device)
+        state["image_feats"] = self.model.encode_image(img[None])
+        return state
+
+    def run_grounding(self, state: dict) -> dict:
+        """Ground the state's encoded text (a ``set_text_prompt`` state's, or
+        the "visual" text when there is none) and geometric prompt on its
+        encoded image: scores, boxes and masks as set_text_prompt gives."""
+        if "image_feats" not in state:
+            raise ValueError("call set_image before run_grounding")
+        self._ensure_text(state)
+        return self._forward_grounding(state)
+
     def _empty_prompt(self):
         return Prompt.empty(1, self.max_boxes, self.max_points, device=self.device)
 

@@ -68,9 +68,8 @@ class EfficientSam3System:
 
         def detector(frame, text_state):
             state = dict(text_state or {})
-            state = proc.set_image(np.asarray(frame), state)
-            proc._ensure_text(state)  # the "visual" text only when none was given
-            state = proc._forward_grounding(state)
+            # run_grounding takes the "visual" text only when none was given
+            state = proc.run_grounding(proc.set_image(np.asarray(frame), state))
             return {"masks": np.asarray(state["masks"]), "scores": np.asarray(state["scores"]),
                     "boxes": np.asarray(state["boxes"])}
 

@@ -44,6 +44,14 @@ class GeometryFinetuneConfig:
     grad_clip: float = 5.0
 
 
+def geometry_labels(model_or_params) -> dict:
+    """{parameter name: 'trunk' | 'frozen'} of a model, or of a mapping of
+    parameter names: the trunk trains, everything else is frozen."""
+    names = (dict(model_or_params.named_parameters())
+             if isinstance(model_or_params, torch.nn.Module) else model_or_params)
+    return {n: "trunk" if n.split(".", 1)[0] == "trunk" else "frozen" for n in names}
+
+
 def make_geometry_optimizer(cfg: GeometryFinetuneConfig, model: torch.nn.Module) -> ClippedAdamW:
     """Clip + AdamW at ``cfg.lr`` over the trunk's parameters; turns their
     gradients on and every other parameter's off."""

@@ -122,6 +122,19 @@ def box_losses(pred_boxes, assigned, tgt_boxes, tgt_valid, num_boxes):
     return l1 / num_boxes, ((1.0 - giou) * valid).sum() / num_boxes
 
 
+def iou_loss(pred_masks, tgt_masks, pred_ious, num_boxes, use_l1_loss: bool = False):
+    """MSE (or L1) between predicted IoUs and the thresholded masks' IoUs
+    (loss_fns.py:179). pred / tgt: (N, M, H, W) logits / binary; pred_ious
+    (N, M)."""
+    pm = pred_masks.reshape(*pred_masks.shape[:2], -1) > 0
+    gm = tgt_masks.reshape(*tgt_masks.shape[:2], -1) > 0
+    inter = (pm & gm).sum(-1).float()
+    union = (pm | gm).sum(-1).float()
+    actual = inter / union.clamp_min(1.0)
+    err = (pred_ious - actual).abs() if use_l1_loss else (pred_ious - actual) ** 2
+    return err.sum() / num_boxes
+
+
 def _point_sample(maps, coords):
     """Bilinear samples of (N, H, W) maps at (N, P, 2) xy coords in
     [0, 1]^2 (F.grid_sample, align_corners=False, zeros outside)."""

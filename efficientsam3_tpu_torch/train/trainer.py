@@ -37,7 +37,13 @@ import torch
 import torch.distributed as dist
 
 from efficientsam3_tpu_torch.parallel.sharding import data_parallel, replicate, shard_batch
-from efficientsam3_tpu_torch.utils.checkpoint import latest_step, load_checkpoint, save_checkpoint
+from efficientsam3_tpu_torch.utils.checkpoint import (
+    latest_step,
+    load_checkpoint,
+    load_model_state,
+    model_state,
+    save_checkpoint,
+)
 from efficientsam3_tpu_torch.utils.observability import LOG, MeterBank, MetricsWriter
 
 
@@ -87,9 +93,7 @@ class Trainer:
 
     @staticmethod
     def _state(model, optimizer) -> dict:
-        return {"params": {k: p.detach() for k, p in model.named_parameters()},
-                "batch_stats": {k: b for k, b in model.named_buffers()},
-                "opt_state": optimizer.state_dict()}
+        return dict(model_state(model), opt_state=optimizer.state_dict())
 
     def resume(self, model, optimizer) -> int:
         """Load the latest checkpoint into model and optimizer; its step, or
@@ -99,14 +103,7 @@ class Trainer:
         state, step = load_checkpoint(self.cfg.checkpoint_dir, map_location="cpu")
         if state is None:
             return 0
-        own = model.state_dict()
-        for part in ("params", "batch_stats"):
-            unknown = state[part].keys() - own.keys()
-            if unknown:
-                raise KeyError(f"checkpoint step {step}: {part} not in the model: "
-                               f"{sorted(unknown)[:5]}")
-            own.update(state[part])
-        model.load_state_dict(own)
+        load_model_state(model, state, f"checkpoint step {step}")
         optimizer.load_state_dict(state["opt_state"])
         LOG.info("resumed from step %d", step)
         return step

@@ -67,6 +67,27 @@ def load_checkpoint(ckpt_dir: str, step: Optional[int] = None, map_location="cpu
     return torch.load(path, map_location=map_location, weights_only=True), step
 
 
+def model_state(model: torch.nn.Module) -> dict:
+    """A module's parameters and buffers as a checkpoint state:
+    {"params": {name: tensor}, "batch_stats": {name: buffer}}."""
+    return {"params": {k: p.detach() for k, p in model.named_parameters()},
+            "batch_stats": dict(model.named_buffers())}
+
+
+def load_model_state(model: torch.nn.Module, state: dict, what: str = "checkpoint"):
+    """Load a checkpoint state (``model_state``'s, or a partial one) into
+    ``model``: an entry the model lacks raises KeyError; what a partial
+    state leaves out keeps the model's own value."""
+    own = model.state_dict()
+    for part in ("params", "batch_stats"):
+        unknown = state.get(part, {}).keys() - own.keys()
+        if unknown:
+            raise KeyError(f"{what}: {part} not in the model: {sorted(unknown)[:5]}")
+        own.update(state.get(part, {}))
+    model.load_state_dict(own)
+    return model
+
+
 def merge_params(base: dict, update: dict) -> dict:
     """Recursively splice ``update`` into ``base`` (checkpoint merges)."""
     out = dict(base)
@@ -121,8 +142,11 @@ def load_reference_checkpoint(model: torch.nn.Module, checkpoint, part: str = "i
     """Load a reference checkpoint (a path, or a state_dict in the
     reference's key space) into a port model, strictly. ``part``: 'image'
     (a ``Sam3ImageModel``; ``convert_kw`` are ``convert_image_model``'s
-    backbone_type, model_name, text_encoder_type, add_sam2_neck) or
-    'tracker' (a ``TrackerCore``; ``convert_tracker_core``'s prefix ``p``)."""
+    backbone_type, model_name, text_encoder_type, add_sam2_neck),
+    'tracker' (a ``TrackerCore``; ``convert_tracker_core``'s prefix ``p``)
+    or 'vitdet' (the teacher's ``ViTTrunk`` alone; ``convert_vitdet``'s
+    prefix ``p``, by default the SAM3 checkpoint's
+    ``backbone.vision_backbone.trunk``, and ``depth``)."""
     from efficientsam3_tpu_torch.utils import convert_model
     from efficientsam3_tpu_torch.utils.convert import load_jax_variables
 
@@ -134,8 +158,11 @@ def load_reference_checkpoint(model: torch.nn.Module, checkpoint, part: str = "i
         params, stats = convert_model.convert_image_model(sd, **convert_kw)
     elif part == "tracker":
         params, stats = convert_model.convert_tracker_core(sd, **convert_kw)
+    elif part == "vitdet":
+        convert_kw.setdefault("p", "backbone.vision_backbone.trunk")
+        params, stats = convert_model.convert_vitdet(sd, **convert_kw)
     else:
-        raise ValueError(f"part must be 'image' or 'tracker', not {part!r}")
+        raise ValueError(f"part must be 'image', 'tracker' or 'vitdet', not {part!r}")
     variables = {"params": params}
     if stats:
         variables["batch_stats"] = stats

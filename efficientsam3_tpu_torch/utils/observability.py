@@ -1,7 +1,10 @@
-"""Logging, meters and metrics writers of the training driver.
+"""Tracing, meters and metrics writers of the training driver.
 
-Counterpart of efficientsam3_tpu/utils/observability.py (its JAX-free
-part): the package logger, running-average meters, and a metrics sink that
+Counterpart of efficientsam3_tpu/utils/observability.py: named trace spans
+(``torch.profiler.record_function`` and an NVTX range on the card), a
+``torch.profiler`` trace written to a folder, the device's memory
+statistics, a wrapper that logs each novel combination of input shapes,
+the package logger, running-average meters, and a metrics sink that
 writes JSONL and TensorBoard event files with a hand-written encoder
 (Event protos in TFRecord framing, CRC32-C in Python), so no TensorBoard
 or TensorFlow package is needed.
@@ -9,6 +12,7 @@ or TensorFlow package is needed.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -18,12 +22,80 @@ import time
 from collections import defaultdict
 from typing import Optional
 
+import torch
+
 LOG = logging.getLogger("efficientsam3_tpu_torch")
 if not LOG.handlers:
     _h = logging.StreamHandler()
     _h.setFormatter(logging.Formatter("%(asctime)s %(name)s %(levelname)s: %(message)s"))
     LOG.addHandler(_h)
     LOG.setLevel(logging.INFO)
+
+
+@contextlib.contextmanager
+def trace_span(name: str):
+    """A named span in profiler traces: ``torch.profiler.record_function``,
+    and an NVTX range where CUDA is available."""
+    nvtx = torch.cuda.is_available()
+    if nvtx:
+        torch.cuda.nvtx.range_push(name)
+    try:
+        with torch.profiler.record_function(name):
+            yield
+    finally:
+        if nvtx:
+            torch.cuda.nvtx.range_pop()
+
+
+@contextlib.contextmanager
+def profile(log_dir: str):
+    """Trace the block with ``torch.profiler`` (the CPU, and CUDA where it
+    is available) and write a Chrome trace, ``trace.json``, to ``log_dir``;
+    yields the profiler."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def device_memory_stats() -> dict:
+    """Memory statistics of the device in use: {device: {bytes_in_use,
+    peak_bytes_in_use}} from ``torch.cuda.memory_stats``; the host reports
+    zeros, as JAX's CPU devices do."""
+    if not torch.cuda.is_available():
+        return {"cpu": {"bytes_in_use": 0, "peak_bytes_in_use": 0}}
+    dev = torch.cuda.current_device()
+    stats = torch.cuda.memory_stats(dev)
+    return {f"cuda:{dev}": {
+        "bytes_in_use": stats.get("allocated_bytes.all.current", 0),
+        "peak_bytes_in_use": stats.get("allocated_bytes.all.peak", 0),
+    }}
+
+
+class ShapeLogger:
+    """Log each novel combination of a function's input shapes (recompile
+    debugging; reference perflib/compile.py:53 shape_logging_wrapper):
+    a tensor or array leaf gives its shape, any other leaf its type's name."""
+
+    def __init__(self, fn, name: str = "fn"):
+        self.fn = fn
+        self.name = name
+        self.seen = set()
+
+    def __call__(self, *args, **kwargs):
+        from torch.utils._pytree import tree_leaves
+
+        shapes = tuple(
+            tuple(a.shape) if hasattr(a, "shape") else type(a).__name__
+            for a in tree_leaves((args, kwargs))
+        )
+        if shapes not in self.seen:
+            self.seen.add(shapes)
+            LOG.info("%s: novel input shapes #%d: %s", self.name, len(self.seen), shapes)
+        return self.fn(*args, **kwargs)
 
 
 class Meter:

@@ -314,6 +314,13 @@ _TN_PARAMS = ("maskmem_tpos_enc", "no_mem_embed", "no_mem_pos_enc", "no_obj_ptr"
               "no_obj_embed_spatial")
 
 
+def init_tracker_variables(core: TrackerCore, seed: int = 0) -> dict:
+    """Seeded values for every parameter of ``core`` (``init_tracker_parameters``),
+    returned as JAX's variables are: {"params": {name: tensor}}."""
+    init_tracker_parameters(core, seed)
+    return {"params": {k: p.detach() for k, p in core.named_parameters()}}
+
+
 @torch.no_grad()
 def init_tracker_parameters(core: TrackerCore, seed: int = 0) -> TrackerCore:
     """Seeded random values for every parameter of a TrackerCore (the

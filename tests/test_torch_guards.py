@@ -305,6 +305,74 @@ def test_sources_import_neither_jax_nor_the_jax_package():
             assert top not in ("jax", "jaxlib", "flax", "efficientsam3_tpu"), (f, mod)
 
 
+SCRIPTS = ("train_overfit_quality", "eval_quality", "standalone_cgf1", "train_stage3",
+           "verify_checkpoint", "save_embedding_image_stage1", "train_image_encoder_stage1",
+           "eval_coco", "eval_video", "data_engine")
+EXAMPLES = ("image_predictor_example", "batch_processor_example", "sam1_task_example",
+            "edge_sam_example", "video_tracking_example", "video_pcs_example", "agent_example")
+
+_ENTRY_POINTS = r"""
+import importlib, sys
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "efficientsam3_tpu"))
+print("FOREIGN", bad)
+"""
+
+
+def test_entry_points_import_neither_jax_nor_the_jax_package():
+    """Every ported script and example loads without JAX, flax, optax or
+    the JAX package (what each imports when imported, not only what its
+    source names)."""
+    import subprocess
+    import sys
+
+    from _torch_guard import THREADS
+
+    assert {p.stem for p in (ROOT / "efficientsam3_tpu_torch" / "scripts").glob("*.py")} == {
+        *SCRIPTS, "__init__", "_common"}
+    assert {p.stem for p in (ROOT / "efficientsam3_tpu_torch" / "examples").glob("*.py")} == {
+        *EXAMPLES, "__init__"}
+    assert {p.stem for p in (ROOT / "examples").glob("*.py")} == set(EXAMPLES)
+    modules = ([f"efficientsam3_tpu_torch.scripts.{n}" for n in SCRIPTS]
+               + [f"efficientsam3_tpu_torch.examples.{n}" for n in EXAMPLES])
+    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS=str(THREADS))
+    out = subprocess.run([sys.executable, "-c", _ENTRY_POINTS, *modules], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "FOREIGN []" in out.stdout, out.stdout[-2000:]
+
+
+def _entry_argv(name):
+    """Arguments that parse (the files need not exist: the device is
+    checked first)."""
+    return {"standalone_cgf1": ["--pred_file", "p.json", "--gt_files", "g.json"],
+            "train_stage3": ["--sources", "s.json"],
+            "save_embedding_image_stage1": ["--images-dir", "d", "--store", "s"],
+            "train_image_encoder_stage1": ["--images-dir", "d", "--store", "s"],
+            "eval_coco": ["--ann", "a.json", "--images-dir", "d"],
+            "eval_video": ["--dataset", "v.json"],
+            "data_engine": ["--ann", "a.json", "--image-root", "d"],
+            "video_pcs_example": ["frames"]}.get(name, [])
+
+
+@pytest.mark.parametrize("name", SCRIPTS + EXAMPLES)
+def test_entry_points_default_to_cuda(name, tmp_path, monkeypatch):
+    """Each entry point's --device defaults to cuda and, without a card,
+    raises before it reads a file or builds a model on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the entry points run there")
+    import importlib
+
+    kind = "scripts" if name in SCRIPTS else "examples"
+    mod = importlib.import_module(f"efficientsam3_tpu_torch.{kind}.{name}")
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main(_entry_argv(name))
+    assert not any(tmp_path.iterdir())
+
+
 def test_cuda_entry_points_raise_without_a_gpu():
     """The default device is cuda; without one, entry points raise instead
     of moving to the CPU."""
