@@ -20,7 +20,18 @@ chip_smoke.stage3_batch, stage3_train_step between CUDA events (median of
 8 after 2 warm-up steps); per step the fusion encoder's attention launches
 its forward, dq and dkv kernels 6 times each.
 
-    python3 bench_tracked_frame.py [--other DIR] [--stage3]
+With --clip it times the tracker's bf16 training clip instead, as
+chip_smoke.py's [tracker_train] phase composes it (chip_smoke.tracker_clip:
+8 frames, 8 object slots of which 3 prompted, the features of seeded
+frames precomputed): forward and backward between CUDA events, the
+dropout bits seeded, median of 5 after 1 warm-up. Each line (step or
+clip) also gives the device time of one more under torch.profiler.
+
+With --cudnn-deterministic the step or the clip is timed with
+torch.backends.cudnn.deterministic off, on, on and off in each process,
+each block a median of its own.
+
+    python3 bench_tracked_frame.py [--other DIR] [--stage3 | --clip] [--cudnn-deterministic]
 
 With --other, the checkout at DIR (another commit, built there) is timed in
 the process order other, this, this, other, each in its own process, so
@@ -36,7 +47,28 @@ import sys
 N_FRAMES = 12
 
 
-def measure_step(label):
+def det_modes(flag):
+    """cudnn.deterministic settings to time, in order: off, on, on, off
+    with the flag, else the setting as it stands."""
+    import torch
+
+    return (False, True, True, False) if flag else (torch.backends.cudnn.deterministic,)
+
+
+def device_ms(fn):
+    """The device time of one fn() under torch.profiler: the kernels' self
+    time summed, ms (0 where the profiler recorded none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.self_device_time_total for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+
+def measure_step(label, det=False):
     import statistics
 
     import torch
@@ -58,25 +90,104 @@ def measure_step(label):
         text_encoder_context_length=32, dtype=torch.bfloat16, device=dev, seed=0)
     opt = stage3.make_stage3_optimizer(stage3.Stage3Config(), model)
     batch = cs.stage3_batch(cs.TRAIN_BATCH, 32, dev)
-    ms, launches = [], []
-    for i in range(10):
-        n = (fa.flash_sdpa_bwd_dq.launches, fa.flash_sdpa_bwd_dkv.launches)
-        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0.record()
-        metrics = stage3.stage3_train_step(model, opt, batch)
-        t1.record()
-        torch.cuda.synchronize()
-        if i >= 2:
-            ms.append(t0.elapsed_time(t1))
-            launches.append((fa.flash_sdpa_bwd_dq.launches - n[0],
-                             fa.flash_sdpa_bwd_dkv.launches - n[1]))
-    loss = float(metrics["loss"])
-    if not torch.isfinite(torch.tensor(loss)):
-        raise AssertionError(f"non-finite loss {loss}")
-    print(f"[{label}] bf16 Stage-3 step (EV-M 1008^2, batch {cs.TRAIN_BATCH}): "
-          f"{statistics.median(ms):.3f} ms (median of {len(ms)}; min {min(ms):.3f}) | "
-          f"flash_sdpa_bwd_dq {launches[-1][0]}, flash_sdpa_bwd_dkv {launches[-1][1]} launches "
-          f"a step | loss {loss:.6g} | {smi}", flush=True)
+    for mode in det_modes(det):
+        torch.backends.cudnn.deterministic = mode
+        ms, launches = [], []
+        for i in range(10):
+            n = (fa.flash_sdpa_bwd_dq.launches, fa.flash_sdpa_bwd_dkv.launches)
+            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0.record()
+            metrics = stage3.stage3_train_step(model, opt, batch)
+            t1.record()
+            torch.cuda.synchronize()
+            if i >= 2:
+                ms.append(t0.elapsed_time(t1))
+                launches.append((fa.flash_sdpa_bwd_dq.launches - n[0],
+                                 fa.flash_sdpa_bwd_dkv.launches - n[1]))
+        loss = float(metrics["loss"])
+        if not torch.isfinite(torch.tensor(loss)):
+            raise AssertionError(f"non-finite loss {loss}")
+        dev_ms = device_ms(lambda: stage3.stage3_train_step(model, opt, batch))
+        print(f"[{label}] bf16 Stage-3 step (EV-M 1008^2, batch {cs.TRAIN_BATCH}, "
+              f"cudnn.deterministic {mode}): {statistics.median(ms):.3f} ms (median of "
+              f"{len(ms)}; min {min(ms):.3f}), device time of one more step {dev_ms:.3f} ms | "
+              f"flash_sdpa_bwd_dq {launches[-1][0]}, flash_sdpa_bwd_dkv {launches[-1][1]} "
+              f"launches a step | loss {loss:.6g} | {smi}", flush=True)
+
+
+def measure_clip(label, det=False):
+    import statistics
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.getcwd())
+    import chip_smoke as cs
+    from efficientsam3_tpu_torch.build import build_efficientsam3_video_model
+    from efficientsam3_tpu_torch.models.common import sine_pos_embed_2d
+
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_tracked_frame: needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    smi = cs.nvidia_smi_line()
+    # chip_smoke.py [tracker_train]'s configuration: the fuser's layer scales
+    # at 1, the object-score bias raised by 10, training mode
+    image, core = build_efficientsam3_video_model(model_name="b1", dtype=torch.bfloat16,
+                                                  device=dev, seed=0)
+    with torch.no_grad():
+        for blk in core.memory_encoder.fuser:
+            blk.gamma.fill_(1.0)
+        core.sam_mask_decoder.pred_obj_score_head.layers[-1].bias += 10.0
+    core.train().requires_grad_(True)
+    fs, d = core.feat_size, core.d_model
+    frames = np.random.default_rng(7).standard_normal(
+        (cs.TT_FRAMES, 1008, 1008, 3)).astype(np.float32)
+    feats = []
+    with torch.no_grad():
+        for t in range(cs.TT_FRAMES):
+            fpn = image.encode_image(torch.as_tensor(frames[t], device=dev)[None])["sam2_fpn"]
+            feats.append((fpn[2].reshape(1, fs * fs, d), fpn[0], fpn[1]))
+    del image, fpn
+    pos = sine_pos_embed_2d(fs, fs, d, device=dev).reshape(fs * fs, d)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    proj = torch.randn((cs.TT_FRAMES, cs.TT_SLOTS, 1, 4 * fs, 4 * fs), generator=gen,
+                       device=dev)
+    def clip():
+        torch.manual_seed(0)
+        core.zero_grad(set_to_none=True)
+        loss, _ = cs.tracker_clip(core, feats, pos, proj, cs.TT_LIVE)
+        loss.backward()
+        return loss.detach()
+
+    for mode in det_modes(det):
+        torch.backends.cudnn.deterministic = mode
+        fwd, bwd = [], []
+        for i in range(6):
+            torch.manual_seed(0)
+            core.zero_grad(set_to_none=True)
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            e[0].record()
+            loss, _ = cs.tracker_clip(core, feats, pos, proj, cs.TT_LIVE)
+            e[1].record()
+            loss.backward()
+            e[2].record()
+            e[2].synchronize()
+            loss = loss.detach()
+            if i >= 1:
+                fwd.append(e[0].elapsed_time(e[1]))
+                bwd.append(e[1].elapsed_time(e[2]))
+        if not torch.isfinite(loss):
+            raise AssertionError(f"non-finite loss {float(loss)}")
+        total = [a + b for a, b in zip(fwd, bwd)]
+        dev_ms = device_ms(clip)
+        print(f"[{label}] bf16 tracker training clip ({cs.TT_FRAMES} frames, {cs.TT_SLOTS} "
+              f"slots, {cs.TT_LIVE} live, cudnn.deterministic {mode}): "
+              f"{statistics.median(total):.3f} ms (median of {len(total)}; min {min(total):.3f}): "
+              f"forward {statistics.median(fwd):.3f}, backward {statistics.median(bwd):.3f}, "
+              f"device time of one more clip {dev_ms:.3f} ms | loss {float(loss):.6g} | {smi}",
+              flush=True)
 
 
 def measure(label):
@@ -146,17 +257,29 @@ def main():
     ap.add_argument("--other", help="another checkout, timed in turns with this one")
     ap.add_argument("--stage3", action="store_true",
                     help="time a bf16 Stage-3 training step instead of a tracked frame")
+    ap.add_argument("--clip", action="store_true",
+                    help="time the tracker's bf16 training clip instead of a tracked frame")
+    ap.add_argument("--cudnn-deterministic", action="store_true",
+                    help="time the step or the clip with cudnn.deterministic off and on")
     ap.add_argument("--label", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.other is None or args.label is not None:
-        (measure_step if args.stage3 else measure)(args.label or "this")
+        label = args.label or "this"
+        if args.stage3:
+            measure_step(label, args.cudnn_deterministic)
+        elif args.clip:
+            measure_clip(label, args.cudnn_deterministic)
+        else:
+            measure(label)
         return 0
     here = os.path.dirname(os.path.abspath(__file__))
     other = os.path.abspath(args.other)
+    flags = [f for f, on in (("--stage3", args.stage3), ("--clip", args.clip),
+                             ("--cudnn-deterministic", args.cudnn_deterministic)) if on]
     for where, label in ((other, "other"), (here, "this"), (here, "this"), (other, "other")):
         subprocess.run([sys.executable, os.path.join(here, "bench_tracked_frame.py"), "--label",
-                        f"{label} ({os.path.relpath(where, here)})",
-                        *(("--stage3",) if args.stage3 else ())], cwd=where, check=True)
+                        f"{label} ({os.path.relpath(where, here)})", *flags], cwd=where,
+                       check=True)
     return 0
 
 

@@ -76,7 +76,12 @@ Phases, each printing its own lines:
      (Prompt.empty(4, 8, 8), 40 target slots with 2-5 objects an image,
      masks at 288x288). Trainer.run over stage3_train_step takes 6 steps
      (log_every 1, partial checkpoints of trunk and text tower every 3);
-     a second Trainer on a fresh model resumes at step 6 and takes 2 more.
+     a fresh model and optimizer take the same 6 steps from the same seed
+     through a Trainer without checkpoints, and the two runs' losses,
+     gradients, parameters, statistics and optimizer state must be equal
+     bit for bit (the backward adds without atomics, and Trainer.run takes
+     cuDNN's deterministic algorithms); a second Trainer on a fresh model
+     resumes at step 6 and takes 2 more.
      Counters are set to 0 just before each step and read just after: per
      step flash_sdpa 6 (forward), flash_sdpa_bwd_dq 6, flash_sdpa_bwd_dkv 6,
      layer_norm 27 and layer_norm_bwd 27, flash_xattn_rpb 0. Checks: finite
@@ -101,8 +106,11 @@ Phases, each printing its own lines:
      head's last bias raised by 10, so that random weights track objects
      instead of declaring them gone), video_predictor(obj_slots=8) with
      VideoPCSConfig(hotstart_delay=4, fill_hole_area=16), the prompt given
-     as token ids, 12 synthetic frames. Every frame runs the real detector
-     (set_image + ground on the card); since random weights detect nothing
+     as token ids, 12 synthetic frames (600x800 0-255 frames through
+     Sam3Processor.preprocess, as the video entry points make them; the
+     detector's image features of frame 0 must equal encode_frame's bit
+     for bit). Every frame runs the real detector (set_preprocessed_image
+     + ground on the card); since random weights detect nothing
      usable, its result is replaced by three seeded squares (score 0.9 on
      frame 0, where they spawn three masklets; 0.55 afterwards, below the
      spawn threshold). After a warm-up session, three sessions over the same
@@ -120,8 +128,8 @@ Phases, each printing its own lines:
      of the smaller of 0.98 (the bound the CPU tests hold in fp32) and that
      floor, and its mean above 0.98. A frame's time is split into detector,
      tracker step, quantize_rows and host association + emission; a detector
-     call that keeps 3 queries is timed beside (this random model keeps all
-     200); torch.profiler splits one q8 frame by kernel (the int8 bank's
+     call that keeps 3 queries is timed beside (this random model keeps
+     most of the 200); torch.profiler splits one q8 frame by kernel (the int8 bank's
      wgmma kernel of csrc/flash_memattn_h.cu, 4 launches). flash_memattn_q8 is
      held against its plain version on the inputs of its largest launch,
      with and without the log-sum-exp, and against flash_memattn over the
@@ -149,7 +157,10 @@ Phases, each printing its own lines:
      _dkv 8 and layer_norm_bwd 13 per tracked frame, depthwise_conv2d_bwd 2
      per memory a later frame reads; flash_memattn, flash_memattn_q8 and
      flash_xattn_rpb 0. Checks: finite loss, masks and gradients, every
-     module group reached; the gradient of a 3-frame clip over the 3 live
+     module group reached; two runs of the clip from one seed give the same
+     loss and gradients bit for bit (runs 1-3 under cuDNN's deterministic
+     algorithms, as the port's training entry points take them); the
+     gradient of a 3-frame clip over the 3 live
      slots through the kernels, through the plain versions and with the
      kernels' outputs cut from the graph (same dropout bits). The clip's
      forward, backward and peak memory are timed and torch.profiler splits
@@ -255,7 +266,9 @@ Phases, each printing its own lines:
      head, 1008^2 -> 72x72x1024) takes 4 steps at batch 8 on the records
      through data.sa1b.batch_iterator and Trainer (checkpoints every 2), a
      fresh model resumes at step 4 and takes 2 more (no kernel of ours on
-     its path: every counter 0); the teacher's ViTTrunk at drop path 0
+     its path: every counter 0), and a fresh student takes the same 4
+     steps through a Trainer: the same bits; one ViT-H step twice from one
+     start: the same bits; the teacher's ViTTrunk at drop path 0
      (batch 2, against the records) and vit_h's trunk from
      build_sam_vit_student (1120^2, batch 1, a seeded (70, 70, 1280)
      target) take stage1_train_step with their blocks checkpointed:
@@ -284,7 +297,8 @@ Phases, each printing its own lines:
      each held in fp32 on the card against the same tower on the host's CPU
      (TEXT_TOL of the largest magnitude) and timed in bf16 at batch 64;
      MobileCLIP-S1 takes 3 stage1_text_train_steps at batch 64 (step ms and
-     loss parts printed); EV-M 1008^2 built with the MobileCLIP2-L tower
+     loss parts printed), and the same 3 again from its start and seed:
+     the same bits; EV-M 1008^2 built with the MobileCLIP2-L tower
      through Sam3Processor (a ground's launches as phase 2's);
   15. [geometry] the Stage-1 geometry-aware finetune: 3
      geometry_finetune_steps of EV-M 1008^2 with MobileCLIP-S0 at context
@@ -293,7 +307,8 @@ Phases, each printing its own lines:
      model and asserted: flash_sdpa, dq and dkv one a fusion layer (6),
      layer_norm and layer_norm_bwd one a FusedLayerNorm (27),
      flash_xattn_rpb 0 (the eval-mode heads pass gradient to the trunk);
-     every parameter outside the trunk bit-identical, the trunk moved; an
+     every parameter outside the trunk bit-identical, the trunk moved, the
+     3 steps again from the same start and seed the same bits; an
      eval ground under no_grad launches flash_xattn_rpb once a decoder
      layer (6); the fp32 trunk gradient of a step (batch 1) through the
      kernels against the plain versions (GEOM_GRAD_BOUND) and with their
@@ -302,11 +317,13 @@ Phases, each printing its own lines:
      (two grounding passes) and its backward: EV-M 1008^2, bf16, batch 4,
      training mode; launches asserted (forward 12 flash_sdpa and 54
      layer_norm, backward 12 dq, 12 dkv and 54 layer_norm_bwd, no
-     flash_xattn_rpb), forward and backward ms and the clicks placed
-     printed;
+     flash_xattn_rpb), the warm-up run and the timed one from one start
+     and seed the same loss, gradients and statistics bit for bit, forward
+     and backward ms and the clicks placed printed;
   17. [assoc] 50 assoc_train_steps of AssocHead (d_model 256) over
      FramePairDataset (200 detection and 8 track queries, batch 8): the
-     loss must fall below half its start;
+     loss must fall below half its start, and the 50 steps again from the
+     same start and seed give the same bits;
   18. [eval] the evaluation stack and the agent: EV-M 1008^2 (bf16,
      MobileCLIP-S0 at context 32, strings tokenized over a stub merge
      table) grounds the 8 (image, query) pairs of a 4-image shapes fixture
@@ -325,8 +342,9 @@ Phases, each printing its own lines:
   19. [parallel] the multi-GPU layer (efficientsam3_tpu_torch/parallel) on
      a one-rank NCCL group over a file:// rendezvous: 2 Stage-3 steps of
      [train]'s model and batch through Trainer with a dp mesh of 1 against
-     the same steps without a mesh (step 1's metrics and statistics bit for
-     bit; [train]'s launches a step); phase 2's ground on the model, its
+     the same steps without a mesh (after each step the metrics, grad_norm
+     among them, and every parameter and statistic bit for bit; [train]'s
+     launches a step); phase 2's ground on the model, its
      fusion encoder's and decoder's biases seeded, under shard_params at
      tp=1 (246 sharded leaves; 6 / 27 / 6 launches; against the unsharded
      ground within PAR_TP_BOUNDS, from the card's spread); 4 frames
@@ -660,6 +678,88 @@ def check_rel(name, got, want, tol=2e-2):
     if not ok:
         raise AssertionError(f"{name} disagrees with its plain version")
     return err
+
+
+def training_bits(model, opt=None, metrics=()):
+    """{name: tensor} of what a run of training steps leaves, cloned: each
+    step's metrics, every parameter's gradient, the model's parameters and
+    buffers, and the optimizer's state (its tensors and numbers)."""
+    import torch
+
+    out = {}
+
+    def add(prefix, obj):
+        if isinstance(obj, torch.Tensor):
+            out[prefix] = obj.detach().clone()
+        elif isinstance(obj, dict):
+            for k, v in obj.items():
+                add(f"{prefix}.{k}", v)
+        elif isinstance(obj, (list, tuple)):
+            for i, v in enumerate(obj):
+                add(f"{prefix}.{i}", v)
+        elif isinstance(obj, (bool, int, float)):
+            out[prefix] = torch.tensor(obj)
+
+    for i, m in enumerate(metrics):
+        add(f"step {i + 1}", {k: torch.as_tensor(v) for k, v in m.items()})
+    for k, p in model.named_parameters():
+        if p.grad is not None:
+            out[f"grad {k}"] = p.grad.detach().clone()
+    add("state", model.state_dict())
+    if opt is not None:
+        add("optimizer", opt.state_dict())
+    return out
+
+
+def assert_same_bits(what, first, second):
+    """Raises unless two runs' training_bits hold the same names, dtypes,
+    shapes and bits; logs what was compared."""
+    import torch
+
+    def raw(t):
+        return t.reshape(-1).view(torch.uint8) if t.dtype != torch.bool else t.reshape(-1)
+
+    differ = sorted(k for k in first.keys() | second.keys()
+                    if k not in first or k not in second or first[k].dtype != second[k].dtype
+                    or first[k].shape != second[k].shape
+                    or not torch.equal(raw(first[k]), raw(second[k])))
+    kinds = {kind: sum(k.startswith(kind) for k in first)
+             for kind in ("step", "grad", "state", "optimizer")}
+    log(f"{what}: two runs from one seed, {len(first)} tensors ({kinds['step']} step metrics, "
+        f"{kinds['grad']} gradients, {kinds['state']} parameters and buffers, "
+        f"{kinds['optimizer']} optimizer entries): {len(differ)} differ"
+        + (f" ({differ[:6]})" if differ else ", bit for bit"))
+    if differ:
+        raise AssertionError(f"{what}: {len(differ)} tensors differ between two runs from one "
+                             f"seed, e.g. {differ[:6]}")
+
+
+def resize_backward_ms(shape, size, antialias=False):
+    """(ms of ops.interpolate.resize_bilinear's backward, ms of
+    F.interpolate's, their largest difference over its largest magnitude)
+    at a seeded fp32 shape -> size on the card, each a median of CUDA-event
+    timings; F.interpolate's backward adds by atomics."""
+    import torch
+    import torch.nn.functional as F
+
+    from efficientsam3_tpu_torch.ops.interpolate import resize_bilinear
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(shape, generator=gen, device=dev).requires_grad_()
+    g = torch.randn((*shape[:2], *size), generator=gen, device=dev)
+    y_new = resize_bilinear(x, size, antialias=antialias)
+    y_lib = F.interpolate(x, size=size, mode="bilinear", antialias=antialias)
+
+    def new():
+        return torch.autograd.grad(y_new, x, g, retain_graph=True)[0]
+
+    def lib():
+        return torch.autograd.grad(y_lib, x, g, retain_graph=True)[0]
+
+    want = lib()
+    err = ((new() - want).abs().max() / want.abs().max()).item()
+    return cuda_time(new, 20), cuda_time(lib, 20), err
 
 
 def sdpa_h_measure(name, q, k, v, key_bias, scale, launches, err, lse_err):
@@ -1569,6 +1669,7 @@ def train_phase(smi):
                    save_param_prefixes=("trunk", "text_encoder"),
                    log_dir=os.path.join(tmp.name, "logs"))
         torch.cuda.reset_peak_memory_stats()
+        torch.manual_seed(0)  # the dropout bits
         with capture:
             reached = Trainer(counted_step, TrainerConfig(max_steps=TRAIN_STEPS, **cfg)).run(
                 model, opt, itertools.repeat(batch))
@@ -1576,6 +1677,32 @@ def train_phase(smi):
         if reached != TRAIN_STEPS or len(per_step) != TRAIN_STEPS:
             raise AssertionError(f"trainer stopped at step {reached}")
         write_out("train_metrics.jsonl", open(os.path.join(cfg["log_dir"], "metrics.jsonl")).read())
+
+        # the same steps again from the same seed: a fresh model and optimizer
+        # through a Trainer without checkpoints leave the same bits (losses,
+        # every gradient, parameter and statistic, the optimizer's state)
+        first = training_bits(model, opt, [r["metrics"] for r in per_step])
+        again, again_metrics = build(), []
+        opt_again = stage3.make_stage3_optimizer(stage3.Stage3Config(), again)
+
+        def step_again(m, o, b):
+            again_metrics.append(stage3.stage3_train_step(m, o, b))
+            return again_metrics[-1]
+
+        torch.manual_seed(0)
+        Trainer(step_again, TrainerConfig(max_steps=TRAIN_STEPS, log_every=TRAIN_STEPS,
+                                          handle_preemption_signals=False)).run(
+            again, opt_again, itertools.repeat(batch))
+        assert_same_bits(f"[train] {TRAIN_STEPS} Stage-3 steps (EV-M 1008^2, bf16, batch "
+                         f"{TRAIN_BATCH}) through Trainer", first, training_bits(
+                             again, opt_again, [{k: float(v) for k, v in m.items()}
+                                                for m in again_metrics]))
+        del first, again, opt_again, again_metrics
+        torch.cuda.empty_cache()
+        new_ms, lib_ms, err = resize_backward_ms((TRAIN_BATCH, 1024, 63, 63), (72, 72))
+        log(f"[train] the student head's upsample backward ({TRAIN_BATCH}, 1024, 63, 63) -> "
+            f"72^2 fp32, once a step: two matmuls {new_ms:.4f} ms, F.interpolate's (atomics) "
+            f"{lib_ms:.4f} ms, apart by {err:.2e} of the largest magnitude | {smi}")
 
         # a fresh model and optimizer resume at step 6 and take 2 more
         resumed = build()
@@ -1872,6 +1999,25 @@ def pcs_squares(t, size=1008):
     return masks, np.full(PCS_OBJECTS, 0.9 if t == 0 else 0.55, np.float32), boxes
 
 
+def pcs_frames(proc):
+    """N_FRAMES frames of a synthetic video as the video entry points hand
+    them over: 0-255 frames (noise in 60-120 with pcs_squares' squares in
+    red, as scripts/_common.write_video_fixture draws its videos) through
+    the processor's preprocess, 1008^2 and normalised; the first value of
+    each holds its index, read back by the scripted detector."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    frames = []
+    for t in range(N_FRAMES):
+        img = rng.integers(60, 120, (1008, 1008, 3), dtype=np.uint8)
+        img[pcs_squares(t)[0].any(0)] = (210, 40, 40)
+        frame = proc.preprocess(img)[0].cpu().numpy()
+        frame[0, 0, 0] = t / 100.0
+        frames.append(frame)
+    return np.stack(frames)
+
+
 def pcs_phase(smi, pcs_ref):
     """Phase 7: video PCS at full width, the exact and the int8 bank; returns
     the flash_memattn_q8 row, and puts the exact session's emitted frames in
@@ -1885,6 +2031,7 @@ def pcs_phase(smi, pcs_ref):
     from efficientsam3_tpu_torch.ops import depthwise as dw
     from efficientsam3_tpu_torch.ops import flash_attention as fa
     from efficientsam3_tpu_torch.ops import layer_norm as ln
+    from efficientsam3_tpu_torch.processor import Sam3Processor
     from efficientsam3_tpu_torch.system import EfficientSam3System
     from efficientsam3_tpu_torch.video import pipeline, tracker
     from efficientsam3_tpu_torch.video.pipeline import VideoPCSConfig
@@ -1898,14 +2045,38 @@ def pcs_phase(smi, pcs_ref):
     with torch.no_grad():  # random weights score every object as gone: see the docstring
         core.sam_mask_decoder.pred_obj_score_head.layers[-1].bias += 10.0
     system = EfficientSam3System(image, core)
+    proc = system.processor()
     tokens = np.zeros((1, 32), np.int64)
     tokens[0, :5] = [49406, 320, 1125, 3309, 49407]
-    text_state = {"text": system.processor().encode_tokens(tokens)}
-    frames = np.random.default_rng(7).standard_normal((N_FRAMES, 1008, 1008, 3)).astype(np.float32)
-    for t in range(N_FRAMES):
-        frames[t, 0, 0, 0] = t / 100.0  # the frame index, read back by the scripted detector
+    text_state = {"text": proc.encode_tokens(tokens)}
+    frames = pcs_frames(proc)
     cfg = VideoPCSConfig(obj_slots=8, hotstart_delay=4, hotstart_unmatch_thresh=100,
                          fill_hole_area=16)
+
+    # the detector reads a frame as the tracker does: its image features
+    # are encode_frame's of the same frame, bit for bit
+    seen, ground = {}, Sam3Processor.run_grounding
+
+    def grounded(self, state):
+        seen["feats"] = state["image_feats"]
+        return ground(self, state)
+
+    Sam3Processor.run_grounding = grounded
+    try:
+        system.video_predictor(cfg, obj_slots=8).detector(frames[0], text_state)
+    finally:
+        Sam3Processor.run_grounding = ground
+    want = system.encode_frame(torch.as_tensor(frames[0], device=dev)[None])
+    pairs = [(f"{k}[{i}]", g, w) for k in want for i, (g, w) in
+             enumerate(zip(seen["feats"].get(k, []), want[k]))]
+    differ = [name for name, g, w in pairs if g.dtype != w.dtype or not torch.equal(g, w)]
+    if seen["feats"].keys() != want.keys() or differ or len(pairs) != sum(map(len, want.values())):
+        raise AssertionError(f"[pcs] the detector's image features differ from encode_frame's: "
+                             f"{differ or sorted(seen['feats'])}")
+    log(f"[pcs] frames: 0-255 through Sam3Processor.preprocess; the detector's image features "
+        f"equal encode_frame's of frame 0 bit for bit ({len(pairs)} tensors: "
+        f"{', '.join(sorted(want))})")
+    del seen, want, pairs
 
     def session(capture=None, **tracker_kw):
         """One 12-frame session; per-frame launch counts and times, outputs."""
@@ -2074,19 +2245,19 @@ def pcs_phase(smi, pcs_ref):
     if not (min(iou_q8) > floor - 0.02 and statistics.mean(iou_q8) > 0.98):
         raise AssertionError(f"[pcs] int8 bank drifts from the exact bank: min IoU {min(iou_q8)}")
 
-    # the detector kept all 200 queries of this random model at the processor's
-    # threshold 0.5, so each call upsamples and copies 200 masks. A call that
-    # keeps 3, as a trained model would keep a few: the same entry points with
-    # the threshold moved between the 3rd and 4th score
+    # the detector keeps most or all of the 200 queries of this random model at
+    # the processor's threshold 0.5, so each call upsamples and copies them. A
+    # call that keeps 3, as a trained model would keep a few: the same entry
+    # points with the threshold moved between the 3rd and 4th score
     proc = system.processor()
-    st = proc.set_image(frames[1], dict(text_state))
+    st = proc.set_preprocessed_image(frames[1], dict(text_state))
     proc._ensure_text(st)
     proc.confidence_threshold = 0.0
     scores = np.sort(proc._forward_grounding(st)["scores"])[::-1]
     proc.confidence_threshold = float(scores[2] + scores[3]) / 2
 
     def detect_few():
-        state = proc.set_image(frames[1], dict(text_state))
+        state = proc.set_preprocessed_image(frames[1], dict(text_state))
         proc._ensure_text(state)
         return proc._forward_grounding(state)
 
@@ -2442,6 +2613,7 @@ def tracker_train_phase(smi):
     from efficientsam3_tpu_torch.ops import flash_attention as fa
     from efficientsam3_tpu_torch.ops import layer_norm as ln
     from efficientsam3_tpu_torch.ops import rms_norm as rn
+    from efficientsam3_tpu_torch.train.trainer import deterministic_cudnn
 
     dev = torch.device("cuda")
     torch.cuda.empty_cache()
@@ -2500,8 +2672,11 @@ def tracker_train_phase(smi):
         key=lambda name, a: (name, "self" if a[0].shape[2] == a[1].shape[2] else "cross")
         if name.startswith("flash") else (name, a[0].shape[-1]),
         size=lambda name, a: live_keys(a) if name.startswith("flash") else a[0].numel())
+    # runs 1-3 train as the port's training entry points do, with cuDNN's
+    # deterministic algorithms (without them three of the clip's weight
+    # gradients, of convolutions, differ from run to run on an H100)
     torch.cuda.reset_peak_memory_stats()
-    with capture:
+    with capture, deterministic_cudnn():
         reset()
         loss, outs = clip()
         fwd = counts()
@@ -2537,30 +2712,41 @@ def tracker_train_phase(smi):
         if not moved.get(top):
             raise AssertionError(f"[tracker_train] no gradient reached {top}")
     log(f"[tracker_train] loss {loss.item():.4f}; non-zero gradient elements by module {moved}")
+    first = training_bits(core, None, [{"loss": loss.detach()}])
     del loss, outs
 
-    # ---- run 2: timed (the same dropout bits)
+    # ---- run 2: timed (the same dropout bits), and the same bits as run 1
     torch.cuda.synchronize()
     e = events(3)
-    e[0].record()
-    loss, outs = clip()
-    e[1].record()
-    loss.backward()
-    e[2].record()
-    e[2].synchronize()
+    with deterministic_cudnn():
+        e[0].record()
+        loss, outs = clip()
+        e[1].record()
+        loss.backward()
+        e[2].record()
+        e[2].synchronize()
     fwd_ms, bwd_ms = e[0].elapsed_time(e[1]), e[1].elapsed_time(e[2])
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[tracker_train] clip of {TT_FRAMES} frames, {TT_SLOTS} slots ({TT_LIVE} live), bf16: "
         f"forward {fwd_ms:.1f} ms | backward {bwd_ms:.1f} ms | peak memory {peak:.2f} GiB "
         f"(runs 1-2) | {smi}")
-    del loss, outs
+    assert_same_bits(f"[tracker_train] the {TT_FRAMES}-frame clip's loss and gradients (runs 1 "
+                     f"and 2)", first, training_bits(core, None, [{"loss": loss.detach()}]))
+    del loss, outs, first
+    for what, shape, size in (("the memory encoder's", (TT_SLOTS, 1, 1008, 1008), (1152, 1152)),
+                              ("the SAM heads' mask", (TT_SLOTS, 1, 288, 288), (1008, 1008))):
+        new_ms, lib_ms, err = resize_backward_ms(shape, size)
+        log(f"[tracker_train] {what} upsample backward {shape} -> {size[0]}^2 fp32, once a "
+            f"frame: two matmuls {new_ms:.4f} ms, F.interpolate's (atomics) {lib_ms:.4f} ms, "
+            f"apart by {err:.2e} of the largest magnitude | {smi}")
 
     # ---- run 3: the backward by kernel under the profiler
-    loss, _ = clip()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        loss.backward()
+    with deterministic_cudnn():
+        loss, _ = clip()
         torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            loss.backward()
+            torch.cuda.synchronize()
     del loss
     kernels = sorted(((ev.key, ev.self_device_time_total, ev.count) for ev in prof.key_averages()
                       if ev.device_type == torch.autograd.DeviceType.CUDA), key=lambda r: -r[1])
@@ -4423,6 +4609,23 @@ def stage1_phase(smi):
         peak = torch.cuda.max_memory_allocated() / 2**30
         if reached != STAGE1_STEPS:
             raise AssertionError(f"[stage1] trainer stopped at step {reached}")
+        # the same steps again: a fresh student and optimizer through a
+        # Trainer without checkpoints, over the same batches, the same bits
+        again, again_metrics = student(), []
+        opt_again = stage1.make_optimizer(cfg, spe, again)
+
+        def step_again(m, o, b):
+            again_metrics.append({k: float(v) for k, v in
+                                  stage1.stage1_train_step(m, o, b).items()})
+            return again_metrics[-1]
+
+        Trainer(step_again, TrainerConfig(max_steps=STAGE1_STEPS, log_every=STAGE1_STEPS,
+                                          handle_preemption_signals=False)).run(
+            again, opt_again, batch_iterator(data, STAGE1_BATCH, seed=0))
+        assert_same_bits(f"[stage1] {STAGE1_STEPS} EV-M Stage-1 steps through Trainer",
+                         training_bits(model, opt, [r["metrics"] for r in per_step]),
+                         training_bits(again, opt_again, again_metrics))
+        del again, opt_again
         saved = {k: v.detach().clone() for k, v in model.state_dict().items()}
         resumed = student()
         opt2 = stage1.make_optimizer(cfg, spe, resumed)
@@ -4502,6 +4705,22 @@ def stage1_phase(smi):
 
         t0 = time.perf_counter()
         vit = trunk_on_card(lambda dt: ViTTrunk(drop_path_rate=0.0, dtype=dt), 1)
+        # one Stage-1 step twice from the trunk's start: the same loss,
+        # gradients and parameters
+        start = {k: v.detach().clone() for k, v in vit.state_dict().items()}
+        one = next(batch_iterator(data, TEACHER_BATCH, seed=5))
+        runs = []
+        for _ in range(2):
+            vit.load_state_dict(start)
+            opt_one = stage1.make_optimizer(cfg, 1, vit)
+            torch.manual_seed(0)
+            met = {k: float(v) for k, v in stage1.stage1_train_step(vit, opt_one, one).items()}
+            runs.append(training_bits(vit, None, [met]))
+        assert_same_bits(f"[stage1] a ViT-H (teacher trunk, batch {TEACHER_BATCH}) Stage-1 step",
+                         *runs)
+        vit.load_state_dict(start)
+        del runs, start, opt_one
+        torch.cuda.empty_cache()
         vit_in = {64: vit_run("ViT-H (teacher trunk, batch 2)", "stage1_vit_h_step", vit,
                               batch_iterator(data, TEACHER_BATCH, seed=3), TEACHER_STEPS,
                               STAGE1_IMAGES // TEACHER_BATCH)}
@@ -4824,8 +5043,10 @@ def text_phase(smi, main_ref):
         if name != "MobileCLIP-S1":
             del student
             continue
+        start = {k: v.detach().clone() for k, v in student.state_dict().items()}
         opt = st.make_text_optimizer(cfg, student)
         per_step = []
+        torch.manual_seed(0)
         for i in range(TEXT_STEPS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -4839,7 +5060,17 @@ def text_phase(smi, main_ref):
             f"step {i + 1} {ms:.1f} ms, loss {m['loss']:.4f} (mse {m['mse']:.4f}, cosine "
             f"{m['cosine']:.4f}, perm {m['perm']:.4f})" for i, (ms, m) in enumerate(per_step))
             + f" | {smi}")
-        del student, opt
+        # the same steps again from the same start and seed: the same bits
+        first = training_bits(student, opt, [m for _, m in per_step])
+        student.load_state_dict(start)
+        opt = st.make_text_optimizer(cfg, student)
+        torch.manual_seed(0)
+        again = [{k: float(v) for k, v in st.stage1_text_train_step(student, opt, cfg,
+                                                                    batch).items()}
+                 for _ in range(TEXT_STEPS)]
+        assert_same_bits(f"[text] {name}: {TEXT_STEPS} stage1_text_train_steps", first,
+                         training_bits(student, opt, again))
+        del student, opt, first, start
     torch.cuda.empty_cache()
 
     # EV-M with the MobileCLIP2-L tower through the processor: the tower
@@ -4930,6 +5161,7 @@ def geometry_phase(smi, new_launches):
     counters = kernel_counters()
     per_step = []
     torch.cuda.reset_peak_memory_stats()
+    torch.manual_seed(0)
     for i in range(GEOM_STEPS):
         for w in counters.values():
             w.launches = 0
@@ -4960,6 +5192,16 @@ def geometry_phase(smi, new_launches):
     if moved == 0:
         raise AssertionError("[geometry] the trunk did not move")
     log(f"[geometry] trunk: {moved} elements changed; {sorted(frozen)} bit-identical")
+    # the same steps again from the same start and seed: the same bits
+    first = training_bits(model, opt, [m for _, m in per_step])
+    model.load_state_dict(before)
+    opt = gf.make_geometry_optimizer(cfg, model)
+    torch.manual_seed(0)
+    again = [{k: float(v) for k, v in gf.geometry_finetune_step(model, opt, cfg, batch).items()}
+             for _ in range(GEOM_STEPS)]
+    assert_same_bits(f"[geometry] {GEOM_STEPS} geometry_finetune_steps", first,
+                     training_bits(model, opt, again))
+    del first
 
     # the eval ground without a gradient takes the boxRPB kernel
     for w in counters.values():
@@ -5055,6 +5297,7 @@ def interactive_phase(smi, new_launches):
         for w in counters.values():
             w.launches = 0
         model.zero_grad(set_to_none=True)
+        torch.manual_seed(0)  # the dropout bits
         t0, t1, t2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
         t0.record()
         total, parts = it.interactive_grounding_loss(
@@ -5069,13 +5312,20 @@ def interactive_phase(smi, new_launches):
         return float(total.detach()), parts, fwd, bwd, t0.elapsed_time(t1), t1.elapsed_time(t2)
 
     it.sample_correction_click = recorded
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
     try:
-        run()  # warm-up: cuDNN plans, the allocator
+        first = run()  # warm-up: cuDNN plans, the allocator
+        first = training_bits(model, None, [{"loss": first[0]}])
+        model.load_state_dict(start)  # the forward moved the BatchNorm statistics
         clicks.clear()
         torch.cuda.reset_peak_memory_stats()
         total, parts, fwd, bwd, fwd_ms, bwd_ms = run()
     finally:
         it.sample_correction_click = sample
+    # the two runs from one start and seed: the same loss, gradients and statistics
+    assert_same_bits("[interactive] interactive_grounding_loss and its backward", first,
+                     training_bits(model, None, [{"loss": total}]))
+    del first, start
     peak = torch.cuda.max_memory_allocated() / 2**30
     if any(fwd[k] != n for k, n in want_fwd.items()) or any(
             bwd[k] != n for k, n in want_bwd.items()):
@@ -5117,15 +5367,27 @@ def assoc_phase(smi):
 
     dev = torch.device("cuda")
     head = init_parameters(AssocHead(256), seed=0).to(dev)
+    start = {k: v.detach().clone() for k, v in head.state_dict().items()}
     data = FramePairDataset(q_det=200, q_trk=8, d_model=256, seed=0)
-    step = assoc_train_step(head, torch.optim.Adam(head.parameters(), lr=3e-3))
+    opt = torch.optim.Adam(head.parameters(), lr=3e-3)
+    step = assoc_train_step(head, opt)
     batches = [data.batch(ASSOC_BATCH) for _ in range(ASSOC_STEPS)]
+    torch.manual_seed(0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     losses = [step(b) for b in batches]
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / ASSOC_STEPS
     losses = [float(v) for v in losses]
+    # the same steps again from the same start and seed: the same bits
+    first = training_bits(head, opt, [{"loss": v} for v in losses])
+    head.load_state_dict(start)
+    opt = torch.optim.Adam(head.parameters(), lr=3e-3)
+    step = assoc_train_step(head, opt)
+    torch.manual_seed(0)
+    again = [{"loss": float(step(b))} for b in batches]
+    assert_same_bits(f"[assoc] {ASSOC_STEPS} assoc_train_steps", first,
+                     training_bits(head, opt, again))
     first, last = np.mean(losses[:5]), np.mean(losses[-5:])
     log(f"[assoc] AssocHead (d_model 256, 200 detection and 8 track queries, batch "
         f"{ASSOC_BATCH}) over FramePairDataset: {ASSOC_STEPS} assoc_train_steps, {ms:.3f} ms a "
@@ -5433,10 +5695,6 @@ PAR_TP_BOUNDS = {"pred_boxes": 1e-2, "pred_logits": 3e-2, "presence_logit_dec": 
 PAR_TP_BIAS_STD = 0.1  # the seeded biases of the sharded scopes (init_parameters zeroes them)
 PAR_IOU = 0.98  # object-parallel masks over two ranks against one: [pcs]'s bound
 PAR_RANK_TIMEOUT_S = 300
-# dp=1's first grad_norm against the unmeshed step's: the step's backward
-# accumulates by atomics (F.interpolate's bilinear backward in the trunk),
-# so the unmeshed step differs from itself by ~1e-4 of it on an H100
-PAR_GRAD_NORM_REL = 1e-3
 
 
 def par_counters():
@@ -5636,9 +5894,9 @@ def parallel_phase(smi, new_launches):
     """Phase 19: the multi-GPU layer on the card. A one-rank NCCL group (a
     file:// rendezvous in a temporary directory): PAR_STEPS Stage-3 steps
     of EV-M 1008^2 (bf16, batch 4, as [train]) through Trainer with a dp
-    mesh of 1 against the same steps without one (step 1's loss, its parts
-    and the statistics bit for bit, grad_norm within PAR_GRAD_NORM_REL, each
-    parameter within one AdamW step; launches a step as [train]); the ground
+    mesh of 1 against the same steps without one (after each step the
+    metrics, grad_norm among them, and every parameter and statistic bit
+    for bit; launches a step as [train]); the ground
     of phase 2 on par_tp_model under shard_params at tp=1 (246 sharded
     leaves; 6 / 27 / 6 launches; against the unsharded ground within
     PAR_TP_BOUNDS); PAR_FRAMES frames of EV-M's tracker on an objects mesh
@@ -5692,55 +5950,31 @@ def parallel_phase(smi, new_launches):
 
         ref, _ = train(None)
         dp, walls["dp_steps"] = train(parallel.make_mesh({"dp": 1}))
-        ref2, _ = train(None)  # the card's own spread: the step's backward is not repeatable
         if len(dp) != PAR_STEPS:
             raise AssertionError(f"[parallel] dp=1: {len(dp)} steps, want {PAR_STEPS}")
-        m_ref, m_dp, m_ref2 = ref[0][0], dp[0][0], ref2[0][0]
-        fwd = [k for k in m_ref if k != "grad_norm" and m_dp[k] != m_ref[k]]
-        if fwd:
-            raise AssertionError(f"[parallel] dp=1 step 1: {fwd} differ from the unmeshed step's")
-        gn = abs(m_dp["grad_norm"] - m_ref["grad_norm"]) / m_ref["grad_norm"]
-        gn_self = abs(m_ref2["grad_norm"] - m_ref["grad_norm"]) / m_ref["grad_norm"]
-        if not gn <= PAR_GRAD_NORM_REL:
-            raise AssertionError(f"[parallel] dp=1 step 1 grad_norm {m_dp['grad_norm']} against "
-                                 f"{m_ref['grad_norm']} (the unmeshed run against itself: "
-                                 f"{gn_self:.2e} relative)")
-        # after step 1: the BatchNorm statistics (step 1's forward) bit for bit;
-        # each parameter within what one AdamW update at the first count's
-        # rate can move it (lr, in either direction) and its bf16 rounding:
-        # this bounds the step's size, not its direction (grad_norm holds that)
-        c = stage3.Stage3Config()
-        lr = stage3.inverse_sqrt_schedule(c.vision_lr, c.warmup_steps, c.timescale)(0)
-        s_ref, s_dp, s_ref2 = ref[0][2], dp[0][2], ref2[0][2]
-        moved = 0
-        for k, v in s_ref.items():
-            if k.endswith(("running_mean", "running_var")):
-                if not torch.equal(v, s_dp[k]):
-                    raise AssertionError(f"[parallel] dp=1 step 1: statistic {k} differs")
-                continue
-            d = (s_dp[k].float() - v.float()).abs()
-            if not bool((d <= 2 * lr + v.float().abs() * 2.0 ** -7).all()):
-                raise AssertionError(f"[parallel] dp=1 step 1: {k} moved {d.max().item()} from "
-                                     f"the unmeshed step's")
-            moved += int(bool((d > 0).any()))
-        self_moved = sum(int(not torch.equal(v, s_ref2[k])) for k, v in s_ref.items())
-        for i, (m, got, _) in enumerate(dp):
-            if not all(math.isfinite(v) for v in m.values()):
-                raise AssertionError(f"[parallel] dp=1 step {i + 1}: {m}")
+        # the backward adds without atomics and the Trainer takes cuDNN's
+        # deterministic algorithms, so a mesh of one rank (no gradient mean
+        # to take) leaves every step's bits: metrics (grad_norm too), every
+        # parameter and statistic
+        for i, ((m_ref, _, s_ref), (m_dp, got, s_dp)) in enumerate(zip(ref, dp)):
+            if not all(math.isfinite(v) for v in m_dp.values()):
+                raise AssertionError(f"[parallel] dp=1 step {i + 1}: {m_dp}")
+            differ = sorted(k for k in m_ref.keys() | m_dp.keys()
+                            if m_ref.get(k) != m_dp.get(k))
+            differ += sorted(k for k, v in s_ref.items() if not torch.equal(v, s_dp[k]))
+            if differ:
+                raise AssertionError(f"[parallel] dp=1 step {i + 1}: {len(differ)} metrics or "
+                                     f"state tensors differ from the unmeshed step's, e.g. "
+                                     f"{differ[:6]}")
             par_add_launches(new_launches, par_check_launches(f"dp step {i + 1}", got,
                                                               TRAIN_COUNTS))
         log(f"[parallel] dp=1 Trainer, {PAR_STEPS} Stage-3 steps (EV-M 1008^2, bf16, batch "
-            f"{TRAIN_BATCH}): step 1's loss and its {len(m_ref) - 2} parts bit for bit as "
-            f"without the mesh (one rank: no gradient mean to take); grad_norm {m_dp['grad_norm']} against {m_ref['grad_norm']} ({gn:.2e} "
-            f"relative; the unmeshed step against itself {gn_self:.2e}: atomics in the "
-            f"backward); after step 1 the statistics bit for bit, {moved} parameter tensors "
-            f"off by at most 2 lr ({2 * lr:.1e}) + bf16 rounding (unmeshed against itself: "
-            f"{self_moved} tensors differ); step 2 losses {dp[1][0]['loss']} / "
-            f"{ref[1][0]['loss']} / {ref2[1][0]['loss']} (dp / unmeshed / again: the matcher "
-            f"amplifies the backward's noise); launches a step "
-            f"{ {k: dp[0][1][k] for k in TRAIN_COUNTS} }; {walls['dp_steps']:.1f} ms for the "
-            f"dp run")
-        del ref, dp, ref2, batch
+            f"{TRAIN_BATCH}): after each step the loss, its {len(ref[0][0]) - 2} parts, "
+            f"grad_norm ({dp[0][0]['grad_norm']} at step 1) and all {len(ref[0][2])} parameter "
+            f"and statistic tensors bit for bit as without the mesh (one rank: no gradient mean "
+            f"to take); launches a step { {k: dp[0][1][k] for k in TRAIN_COUNTS} }; "
+            f"{walls['dp_steps']:.1f} ms for the dp run")
+        del ref, dp, batch
         torch.cuda.empty_cache()
 
         # ---- tensor-parallel ground at tp=1 against the unsharded one

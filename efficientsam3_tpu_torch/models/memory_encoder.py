@@ -8,9 +8,11 @@ to the 64-dim memory space. NHWC throughout.
 
 The JAX package runs the resize and the first conv stage as one separable
 matmul composition for the TPU's matrix unit; here they are a bilinear
-``F.interpolate`` (the resize from 1008 to 1152 is an upscale, where
-antialiasing changes nothing and torch's bilinear weights are the JAX
-matrices' rows) and a stride-2 ``F.conv2d``, both in fp32. The fuser's 7x7
+``ops.interpolate.resize_bilinear`` (``F.interpolate``'s forward; the
+resize from 1008 to 1152 is an upscale, where antialiasing changes nothing
+and torch's bilinear weights are the JAX matrices' rows; under autograd
+its backward is the JAX form, two matmuls without atomics) and a stride-2
+``F.conv2d``, both in fp32. The fuser's 7x7
 depthwise convs run on the ``depthwise_conv2d`` kernel on CUDA, whatever
 the channel count.
 """
@@ -31,6 +33,7 @@ from efficientsam3_tpu_torch.models.common import (
     sine_pos_embed_2d,
 )
 from efficientsam3_tpu_torch.ops.depthwise import depthwise_conv2d
+from efficientsam3_tpu_torch.ops.interpolate import resize_bilinear
 
 
 class MaskDownSampler(nn.Module):
@@ -56,7 +59,7 @@ class MaskDownSampler(nn.Module):
         m = x[..., 0].float()[:, None]  # (B, 1, H, W)
         size = tuple(self.interpol_size or m.shape[-2:])
         if size != tuple(m.shape[-2:]):
-            m = F.interpolate(m, size=size, mode="bilinear", align_corners=False)
+            m = resize_bilinear(m, size)
         k0 = self.encoder[0]
         y = F.conv2d(m, k0.weight.float(), k0.bias.float(), stride=2, padding=1)
         x = gelu_exact(self.encoder_ln[0](y.permute(0, 2, 3, 1).to(dt)))

@@ -3,12 +3,15 @@
 Counterpart of efficientsam3_tpu/ops/grid_sample.py, written out the same
 way (four corner gathers) so both packages sample the same grid, with the
 settings the geometry encoder uses: mode='bilinear', padding_mode='zeros',
-align_corners=False, NCHW input, grid (N, Hg, Wg, 2) in [-1, 1] xy.
+align_corners=False, NCHW input, grid (N, Hg, Wg, 2) in [-1, 1] xy. The
+gathers' backward adds without atomics (``ops/gather.take_columns``).
 """
 
 from __future__ import annotations
 
 import torch
+
+from efficientsam3_tpu_torch.ops.gather import take_columns
 
 
 def grid_sample(x, grid):
@@ -27,8 +30,7 @@ def grid_sample(x, grid):
         valid = ((ix >= 0) & (ix <= w - 1) & (iy >= 0) & (iy <= h - 1)).to(x.dtype)
         ixc = ix.clamp(0, w - 1).long()
         iyc = iy.clamp(0, h - 1).long()
-        idx = (iyc * w + ixc).reshape(n, 1, -1).expand(n, c, -1)
-        out = torch.gather(flat, 2, idx)
+        out = take_columns(flat, (iyc * w + ixc).reshape(n, -1))
         return out.reshape(n, c, *ix.shape[1:]) * valid[:, None]
 
     v00 = gather(x0, y0)

@@ -7,12 +7,15 @@ size) per ROI, laid over a fixed ``MAX_SAMPLING_RATIO`` grid with
 (k < ratio) / ratio weights. The sampling is separable per axis, so each
 ROI's pooling is two small products ``Ry @ F @ Rx^T``. This follows the
 JAX grid exactly (not torchvision's, which the JAX port documents as
-within 1e-2).
+within 1e-2). The ROIs' feature maps are gathered by
+``ops/gather.take_rows``, whose backward adds without atomics.
 """
 
 from __future__ import annotations
 
 import torch
+
+from efficientsam3_tpu_torch.ops.gather import take_rows
 
 # static cap of the adaptive sample grid: ratio <= ceil(72 / 7) = 11 at the
 # 72x72 token map and roi_size 7, so 16 samples per bin per axis suffice
@@ -59,7 +62,7 @@ def roi_align(features, boxes, batch_indices, output_size):
 
     ry = axis_weights(sy, (sy >= -1.0) & (sy <= h), wy, h, out_h)
     rx = axis_weights(sx, (sx >= -1.0) & (sx <= w), wx, w, out_w)
-    feats = features[batch_indices].float()
+    feats = take_rows(features, batch_indices).float()
     rows = torch.einsum("rbi,rcij->rcbj", ry, feats)
     out = torch.einsum("rcbj,rxj->rcbx", rows, rx)
     return out.to(features.dtype)

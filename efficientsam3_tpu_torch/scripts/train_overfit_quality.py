@@ -40,6 +40,7 @@ import torch
 from efficientsam3_tpu_torch.build import build_efficientsam3_video_model
 from efficientsam3_tpu_torch.device import resolve_device
 from efficientsam3_tpu_torch.scripts._common import add_device_flag
+from efficientsam3_tpu_torch.train.trainer import deterministic_cudnn
 from efficientsam3_tpu_torch.utils.checkpoint import model_state, save_checkpoint
 
 # The overfit fixture: 224px with 40-88px shapes. EfficientViT's last stage
@@ -297,16 +298,18 @@ def main(argv=None):
           f"{int(batch['targets']['valid'].sum())} instances", flush=True)
 
     t0 = time.time()
-    history = train_detector(
-        model, batch, args.steps, args.scan, args.lr,
-        loss_weights={"presence_loss": args.presence_weight},
-    )
+    with deterministic_cudnn():  # as Trainer.run: the same bits from one seed
+        history = train_detector(
+            model, batch, args.steps, args.scan, args.lr,
+            loss_weights={"presence_loss": args.presence_weight},
+        )
     t_det = time.time() - t0
     save_checkpoint(os.path.join(args.out, "detector"), args.steps, model_state(model))
 
     t0 = time.time()
-    heads_losses = train_sam_heads(model, core, images, gt, args.heads_steps, args.scan,
-                                   args.heads_lr)
+    with deterministic_cudnn():
+        heads_losses = train_sam_heads(model, core, images, gt, args.heads_steps, args.scan,
+                                       args.heads_lr)
     t_heads = time.time() - t0
     save_checkpoint(os.path.join(args.out, "tracker"), args.heads_steps, model_state(core))
     summary = {"steps": args.steps, "heads_steps": args.heads_steps,

@@ -59,9 +59,14 @@ class EfficientSam3System:
     def video_predictor(self, pcs_config=None, **kwargs):
         """Video PCS over this system's detector and tracker. text_state is a
         processor state holding the encoded prompt ("text", and optionally
-        "geometric_prompt"). As in the JAX package the detector encodes each
-        frame itself (``set_image``), beside the tracker's ``encode_frame``
-        of the same frame: two trunk passes a frame."""
+        "geometric_prompt"). Frames are at the model's resolution and
+        already normalised ((x - 0.5) / 0.5 of [0, 1] values, as
+        ``Sam3Processor.preprocess`` gives them), for the detector and the
+        tracker alike: the detector encodes each frame as it is
+        (``set_preprocessed_image``), beside the tracker's ``encode_frame``
+        of the same frame, so both see one image; two trunk passes a frame.
+        (The JAX package's detector calls ``set_image``, which normalises
+        the frame a second time.)"""
         from efficientsam3_tpu_torch.video.pipeline import VideoPCSPredictor
 
         proc = self.processor()
@@ -69,7 +74,7 @@ class EfficientSam3System:
         def detector(frame, text_state):
             state = dict(text_state or {})
             # run_grounding takes the "visual" text only when none was given
-            state = proc.run_grounding(proc.set_image(np.asarray(frame), state))
+            state = proc.run_grounding(proc.set_preprocessed_image(frame, state))
             return {"masks": np.asarray(state["masks"]), "scores": np.asarray(state["scores"]),
                     "boxes": np.asarray(state["boxes"])}
 

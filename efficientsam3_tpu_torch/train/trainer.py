@@ -13,6 +13,12 @@ optimizer's state, so a resumed run continues exactly; a partial one drops
 the parameters outside the prefixes (the frozen heads), whose values the
 resuming model must already hold.
 
+Repeatability: ``run`` trains inside ``deterministic_cudnn()``, so that
+cuDNN takes a convolution backward that adds in a fixed order; the port's
+own ops add without atomics where a gradient is recorded
+(``ops.interpolate``, ``ops.gather``). Two runs of the same steps from one
+seed (the dropout bits come from torch's generator) give the same bits.
+
 Data parallelism: with ``mesh`` (a ``parallel.make_mesh`` mesh holding
 ``batch_axis``) the Trainer broadcasts the parameters and buffers from the
 axis's first rank once, gives each rank its slice of every batch, and runs
@@ -27,6 +33,7 @@ by the first rank; logged metrics are the group's mean.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import signal
 import threading
@@ -45,6 +52,20 @@ from efficientsam3_tpu_torch.utils.checkpoint import (
     save_checkpoint,
 )
 from efficientsam3_tpu_torch.utils.observability import LOG, MeterBank, MetricsWriter
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms inside the block, the setting as it
+    was after it. Some of cuDNN's convolution backward algorithms add by
+    atomics (on an H100 the tracker's training clip took one for three of
+    its weight gradients), and with them two runs of one step differ."""
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = was
 
 
 @dataclasses.dataclass
@@ -113,8 +134,12 @@ class Trainer:
                         param_prefixes=self.cfg.save_param_prefixes)
 
     def run(self, model, optimizer, batches: Iterable[dict]) -> int:
-        """Train until max_steps (or preemption) from the latest checkpoint;
-        returns the step reached."""
+        """Train until max_steps (or preemption) from the latest checkpoint,
+        with cuDNN's deterministic algorithms; returns the step reached."""
+        with deterministic_cudnn():
+            return self._run(model, optimizer, batches)
+
+    def _run(self, model, optimizer, batches: Iterable[dict]) -> int:
         cfg = self.cfg
         step = start = self.resume(model, optimizer)
         grad_mean = None

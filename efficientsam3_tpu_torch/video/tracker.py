@@ -227,9 +227,9 @@ class TrackerCore(nn.Module):
             need = 4 * self.feat_size
             if tuple(mask_prompt.shape[1:3]) != (need, need):
                 # antialiased bilinear to the prompt encoder's input size
-                mask_prompt = F.interpolate(
-                    mask_prompt.float().permute(0, 3, 1, 2), size=(need, need),
-                    mode="bilinear", align_corners=False, antialias=True).permute(0, 2, 3, 1)
+                mask_prompt = resize_bilinear(
+                    mask_prompt.float().permute(0, 3, 1, 2), (need, need),
+                    antialias=True).permute(0, 2, 3, 1)
         sparse, dense = self.sam_prompt_encoder(point_coords, point_labels, mask_prompt)
         image_pe = self.sam_prompt_encoder.dense_pe()
         multimasks, ious, sam_tokens, object_score_logits = self.sam_mask_decoder(

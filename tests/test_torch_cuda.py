@@ -2581,3 +2581,76 @@ def test_postprocess_image_on_the_card_matches_cpu(cuda, orig_hw):
             assert (np.abs(logit[0, 0].numpy()[diff]) < 1e-3).all()
             differ += int(diff.sum())
     assert differ <= 1e-4 * 100 * orig_hw[0] * orig_hw[1]
+
+
+def _grad_twice(cuda, fn, x, g):
+    """fn's gradient at x for the output gradient g, taken twice."""
+    out = []
+    for _ in range(2):
+        xg = x.clone().requires_grad_()
+        fn(xg).backward(g)
+        torch.cuda.synchronize()
+        out.append(xg.grad)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,size,antialias", [
+    ((4, 1024, 63, 63), (72, 72), False),  # the student head's upsample (Stage-3 step)
+    ((8, 1, 1008, 1008), (1152, 1152), False),  # the memory encoder's (tracker clip)
+    ((8, 1, 288, 288), (1008, 1008), False),  # the SAM heads' mask upsample
+    ((8, 1, 1008, 1008), (288, 288), True),  # the mask prompt's antialiased downscale
+], ids=["stage3-head", "memory-encoder", "heads-upsample", "mask-prompt"])
+def test_deterministic_resize_backward(cuda, shape, size, antialias):
+    """resize_bilinear's backward (two matmuls) at the training paths'
+    shapes: the same bits twice, and within fp32 rounding of
+    F.interpolate's own backward (which adds by atomics)."""
+    import torch.nn.functional as F
+
+    from efficientsam3_tpu_torch.ops.interpolate import resize_bilinear
+
+    x = _randn(cuda, *shape, dtype=torch.float32)
+    g = _randn(cuda, *shape[:2], *size, dtype=torch.float32)
+    first, second = _grad_twice(cuda, lambda a: resize_bilinear(a, size, antialias=antialias),
+                                x, g)
+    assert torch.equal(first, second)
+    xl = x.clone().requires_grad_()
+    F.interpolate(xl, size=size, mode="bilinear", antialias=antialias).backward(g)
+    assert (first - xl.grad).abs().max() <= 1e-5 * xl.grad.abs().max()
+
+
+@pytest.mark.cuda
+def test_deterministic_gather_backward(cuda):
+    """grid_sample's corner gathers and roi_align's ROI maps at the
+    geometry encoder's 72x72 map (batch 4, 256 channels; 16 points an
+    image in 3 cells, 8 ROIs an image): the same bits twice, and within
+    fp32 rounding of F.grid_sample's and plain indexing's backward."""
+    import torch.nn.functional as F
+
+    from efficientsam3_tpu_torch.ops.grid_sample import grid_sample
+    from efficientsam3_tpu_torch.ops.roi_align import roi_align
+
+    x = _randn(cuda, 4, 256, 72, 72, dtype=torch.float32)
+    centres = torch.tensor([[0.1, -0.3], [0.5, 0.5], [-0.99, 0.99]], device=cuda)
+    pts = centres[torch.arange(16, device=cuda) % 3] + 0.004 * _randn(
+        cuda, 16, 2, dtype=torch.float32)
+    grid = pts[None, :, None].expand(4, 16, 1, 2).contiguous()
+    g = _randn(cuda, 4, 256, 16, 1, dtype=torch.float32)
+    first, second = _grad_twice(cuda, lambda a: grid_sample(a, grid), x, g)
+    assert torch.equal(first, second)
+    xl = x.clone().requires_grad_()
+    F.grid_sample(xl, grid, mode="bilinear", padding_mode="zeros",
+                  align_corners=False).backward(g)
+    assert (first - xl.grad).abs().max() <= 1e-5 * xl.grad.abs().max()
+
+    boxes = torch.rand(32, 4, device=cuda) * 36
+    boxes[:, 2:] += boxes[:, :2] + 4
+    bidx = torch.arange(32, device=cuda) % 4
+    g = _randn(cuda, 32, 256, 7, 7, dtype=torch.float32)
+    first, second = _grad_twice(cuda, lambda a: roi_align(a, boxes, bidx, (7, 7)), x, g)
+    assert torch.equal(first, second)
+    xl = x.clone().requires_grad_()
+    feats = xl[bidx]  # plain indexing: its backward is index_put_ with accumulate
+    want = torch.autograd.grad(
+        roi_align(feats, boxes, torch.arange(32, device=cuda), (7, 7)), xl, g)[0]
+    assert (first - want).abs().max() <= 1e-5 * want.abs().max()
